@@ -1,0 +1,54 @@
+"""Carry configs, hierarchies and problems across from the JAX package.
+
+The functions take objects of ``multigridcmt_tpu`` and read their arrays
+with ``np.asarray``, so this module, like the rest of the port, never
+imports ``jax``. Dtypes map through their NumPy names, and ``use_pallas``
+maps to ``use_kernels``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .api import Problem
+from .config import SolverConfig
+from .grids import Hierarchy, LevelSpec
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def config_from_jax(cfg) -> SolverConfig:
+    """The port's SolverConfig for a JAX ``SolverConfig``."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["dtype"] = _torch_dtype(fields["dtype"])
+    if fields["precond_dtype"] is not None:
+        fields["precond_dtype"] = _torch_dtype(fields["precond_dtype"])
+    fields["use_kernels"] = fields.pop("use_pallas")
+    return SolverConfig(**fields)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def hierarchy_from_jax(hier, device="cpu") -> Hierarchy:
+    """The port's Hierarchy for a JAX ``Hierarchy``, on ``device``."""
+    return Hierarchy(
+        ndim=hier.ndim,
+        levels=tuple(LevelSpec(n=lv.n, h=lv.h) for lv in hier.levels),
+        coarse_inv=_tensor(hier.coarse_inv, device),
+        coarse_dense=_tensor(hier.coarse_dense, device))
+
+
+def problem_from_jax(prob, device="cpu") -> Problem:
+    """The port's Problem for a JAX ``Problem``, on ``device``."""
+    return Problem(
+        config=config_from_jax(prob.config),
+        hierarchy=hierarchy_from_jax(prob.hierarchy, device),
+        b=_tensor(prob.b, device),
+        u_exact=(None if prob.u_exact is None
+                 else _tensor(prob.u_exact, device)))
