@@ -128,7 +128,7 @@ class MultigridSolver:
         bk = cycles.get_backend(self.config)
         out = cycles.cycle(self.hierarchy, bk.encode(x), bk.encode(b),
                            self.config)
-        return bk.decode(out, self.hierarchy.fine.n)
+        return bk.decode(out)
 
     def fmg(self, b=None, n_vcycles: int = 1):
         raise NotImplementedError(cycles.FMG_TODO)

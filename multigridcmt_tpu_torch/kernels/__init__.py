@@ -1,56 +1,76 @@
 """CUDA kernel backend: ``KERNEL_BACKEND``, the counterpart of the JAX
 package's ``PALLAS_BACKEND`` for 2D grids.
 
-Per level, on the logical padded layout:
-  * 2D, n >= KERNEL_MIN_N, jacobi/rbgs: the whole-leg kernels
-    (``fused2d``) run the down and up legs, and the residual of the
-    solve's convergence check is the ``stencil2d`` kernel;
-  * 2D, n < KERNEL_MIN_N, and every 1D level: the plain ``ops/`` stencils;
+Per 2D level, as in the JAX package:
+  * n >= PACK_MIN_N: the level lives in the color-packed layout
+    (``packed2d``); its kernels run the down and up legs and the solve's
+    convergence check (the fused residual norm);
+  * KERNEL_MIN_N <= n < PACK_MIN_N: the logical padded layout; the
+    whole-leg kernels (``fused2d``) run the legs, and the convergence check
+    on such a fine level is the ``stencil2d`` residual kernel;
+  * n < KERNEL_MIN_N, and every 1D level: the plain ``ops/`` stencils;
   * 3D: not ported (raises).
-A kernel-tier level that asks for something these kernels do not cover
-raises ``NotImplementedError`` instead of running another path.
+``encode``/``decode`` pack and unpack a packed fine level at the solve's
+boundary. A kernel-tier level that asks for something these kernels do not
+cover raises ``NotImplementedError`` instead of running another path.
 """
 from __future__ import annotations
 
-from ..ops import laplacian, smoothers
-from ..solvers.cycles import PLAIN_BACKEND
-from . import fused2d, stencil2d
+from ..ops import laplacian, smoothers, transfer
+from ..solvers.cycles import Backend
+from . import fused2d, packed2d, stencil2d
 
 # Below this interior size a 2D level runs the plain PyTorch stencils.
 # The value is the JAX package's PALLAS_MIN_N, carried over as it is; no
 # threshold sweep has been measured on the H100 yet (ROADMAP.md, PERF.md).
 KERNEL_MIN_N = 200
 
+# At or above this interior size a 2D level is color-packed. The value is
+# the JAX package's PACK_MIN_N (only the 4095 level at k=12), carried over
+# as it is; the H100 comparison of the packed and unpacked legs is in
+# PERF.md.
+PACK_MIN_N = 3000
+
 STENCIL3D_TODO = ("use_kernels on a 3D grid needs the stencil3d kernels, "
                   "not ported to CUDA yet (ROADMAP.md, queue 2: stencil3d)")
 SWEEPS_TODO = ("{sweeps} {kind} sweeps on a {leg} leg exceed what one fused "
-               "kernel takes ({cap}); longer schedules need the unfused "
-               "stencil2d sweeps and transfer2d kernels, not ported to CUDA "
-               "yet (ROADMAP.md, queue 2: stencil2d rbgs_sweep/jacobi_sweep, "
-               "transfer2d)")
+               "kernel takes ({cap}); longer schedules need {todo}, not "
+               "ported to CUDA yet (ROADMAP.md, queue 2)")
+UNFUSED_TODO = "the unfused stencil2d sweeps and transfer2d kernels"
+PACKED_TODO = "the packed2d rbgs_sweep and residual kernels"
 SMOOTH_TODO = ("smoothing a kernel-tier level outside a fused leg needs the "
                "stencil2d sweep kernels, not ported to CUDA yet (ROADMAP.md, "
                "queue 2: stencil2d rbgs_sweep/jacobi_sweep)")
+PACKED_OP_TODO = ("a packed level runs only the packed legs and the residual "
+                  "norm; {op} on it needs the packed2d rbgs_sweep and "
+                  "residual kernels, not ported to CUDA yet (ROADMAP.md, "
+                  "queue 2: packed2d)")
+
+
+def _pack_level(n: int) -> bool:
+    return n >= PACK_MIN_N
 
 
 def _kernel_level(u, n: int) -> bool:
-    """True if this level runs on the kernel tier."""
+    """True if this logical-layout level runs on the kernel tier."""
     if u.ndim == 3:
         raise NotImplementedError(STENCIL3D_TODO)
     return u.ndim == 2 and n >= KERNEL_MIN_N
 
 
-def _check_leg(leg: str, kind: str, sweeps: int, cap: int) -> None:
+def _check_leg(leg: str, kind: str, sweeps: int, cap: int, todo: str) -> None:
     if kind == "chebyshev":
         raise NotImplementedError(smoothers.CHEBYSHEV_TODO)
     if sweeps > cap:
         raise NotImplementedError(SWEEPS_TODO.format(
-            sweeps=sweeps, kind=kind, leg=leg, cap=cap))
+            sweeps=sweeps, kind=kind, leg=leg, cap=cap, todo=todo))
 
 
 def _smooth(u, b, n, h, *, kind, omega, sweeps, sigma=0.0):
     # The cycle smooths a kernel-tier level only inside the fused legs
     # below, which raise rather than decline.
+    if packed2d.is_packed(u):
+        raise NotImplementedError(PACKED_OP_TODO.format(op="smoothing"))
     if _kernel_level(u, n) and sweeps > 0:
         raise NotImplementedError(SMOOTH_TODO)
     return smoothers.smooth(u, b, h, kind=kind, omega=omega, sweeps=sweeps,
@@ -58,18 +78,51 @@ def _smooth(u, b, n, h, *, kind, omega, sweeps, sigma=0.0):
 
 
 def _residual(u, b, n, h, sigma=0.0):
+    if packed2d.is_packed(u):
+        raise NotImplementedError(PACKED_OP_TODO.format(op="the residual"))
     if _kernel_level(u, n):
         return stencil2d.residual(u, b, n, h, sigma=sigma)
     return laplacian.residual(u, b, h, sigma=sigma)
+
+
+def _restrict(r):
+    if packed2d.is_packed(r):
+        raise NotImplementedError(PACKED_OP_TODO.format(op="restriction"))
+    return transfer.restrict(r)
+
+
+def _prolong(e, nc):
+    # A 2D fine level at or above PACK_MIN_N is packed: a logical P e
+    # cannot be added to it.
+    if packed2d.is_packed(e) or (e.ndim == 2 and _pack_level(2 * nc + 1)):
+        raise NotImplementedError(PACKED_OP_TODO.format(op="prolongation"))
+    return transfer.prolong(e)
+
+
+def _encode(u):
+    if u.ndim == 2 and _pack_level(u.shape[0] - 2):
+        return packed2d.pack(u)
+    return u
+
+
+def _decode(u):
+    return packed2d.unpack(u) if packed2d.is_packed(u) else u
 
 
 def _smooth_residual_restrict(u, b, n, h, *, kind, omega, sweeps,
                               sigma=0.0):
     """Whole down leg on a kernel-tier level; None (compose from the plain
     ops) elsewhere."""
+    if packed2d.is_packed(u):
+        _check_leg("down", kind, sweeps, packed2d.max_down_sweeps(kind),
+                   PACKED_TODO)
+        return packed2d.smooth_residual_restrict(
+            u, b, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma,
+            packed_coarse=_pack_level((n - 1) // 2))
     if not _kernel_level(u, n):
         return None
-    _check_leg("down", kind, sweeps, fused2d.max_down_sweeps(kind))
+    _check_leg("down", kind, sweeps, fused2d.max_down_sweeps(kind),
+               UNFUSED_TODO)
     return fused2d.smooth_residual_restrict(
         u, b, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma)
 
@@ -77,18 +130,35 @@ def _smooth_residual_restrict(u, b, n, h, *, kind, omega, sweeps,
 def _prolong_add_smooth(x, e, b, n, nc, h, *, kind, omega, sweeps,
                         sigma=0.0):
     """Whole up leg on a kernel-tier level; None elsewhere."""
+    if packed2d.is_packed(x):
+        _check_leg("up", kind, sweeps, packed2d.max_up_sweeps(kind),
+                   PACKED_TODO)
+        return packed2d.prolong_add_smooth(
+            x, e, b, n, nc, h, kind=kind, omega=omega, sweeps=sweeps,
+            sigma=sigma)
     if not _kernel_level(x, n):
         return None
-    _check_leg("up", kind, sweeps, fused2d.max_up_sweeps(kind))
+    _check_leg("up", kind, sweeps, fused2d.max_up_sweeps(kind), UNFUSED_TODO)
     return fused2d.prolong_add_smooth(
         x, e, b, n, nc, h, kind=kind, omega=omega, sweeps=sweeps,
         sigma=sigma)
 
 
-# Transfers, encode and decode are the plain ones on every level.
-KERNEL_BACKEND = PLAIN_BACKEND._replace(
+def _residual_norm2(x, b, n, h, red_only=False):
+    """Fused convergence check on a packed level; None elsewhere."""
+    if not packed2d.is_packed(x):
+        return None
+    return packed2d.residual_norm_sq(x, b, n, h, red_only=red_only)
+
+
+KERNEL_BACKEND = Backend(
     smooth=_smooth,
     residual=_residual,
+    restrict=_restrict,
+    prolong=_prolong,
+    encode=_encode,
+    decode=_decode,
     smooth_residual_restrict=_smooth_residual_restrict,
     prolong_add_smooth=_prolong_add_smooth,
+    residual_norm2=_residual_norm2,
 )

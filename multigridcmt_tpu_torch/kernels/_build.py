@@ -40,6 +40,16 @@ for _t in ("f32", "f64"):
     # x, e, b, out, n, h, sigma, kind, omega, sweeps, stream
     SIGNATURES[f"mg_fused2d_up_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I, _D,
                                          _I, _P]
+    # u, b, u_out, rc_out, n, h, sigma, kind, omega, sweeps, packed_coarse,
+    # stream
+    SIGNATURES[f"mg_packed2d_down_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I,
+                                            _D, _I, _I, _P]
+    # x, e, b, out, n, h, sigma, kind, omega, sweeps, packed_e, stream
+    SIGNATURES[f"mg_packed2d_up_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I, _D,
+                                          _I, _I, _P]
+    # u, b, partial, out, n, h, sigma, red_only, blocks, stream
+    SIGNATURES[f"mg_packed2d_resnorm_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I,
+                                               _I, _P]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

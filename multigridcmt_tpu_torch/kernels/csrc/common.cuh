@@ -1,4 +1,5 @@
-// Shared pieces of the 2D Poisson kernels (stencil2d.cu, fused2d.cu).
+// Shared pieces of the 2D Poisson kernels (stencil2d.cu, fused2d.cu,
+// packed2d.cu).
 //
 // Grids are the logical padded layout of the Python package: an
 // (n+2) x (n+2) row-major array whose one-cell ghost ring is zero
@@ -42,6 +43,48 @@ struct Coef {
 
 __device__ __forceinline__ bool interior(int i, int j, int n) {
   return i >= 1 && i <= n && j >= 1 && j <= n;
+}
+
+// A coarse (nc+2)^2 grid in device memory, read point by point: the logical
+// padded layout, or the colour-packed one of packed2d.cu (two planes of
+// Pc x cpc, cpc = (Pc+1)/2; point (I, J) in plane (I+J)&1, lane J/2).
+template <typename T>
+struct CoarseView {
+  const T* __restrict__ e;
+  int Pc;
+  int cpc;
+  bool packed;
+
+  __device__ __forceinline__ T operator()(int I, int J) const {
+    if (packed) {
+      return e[(static_cast<size_t>((I + J) & 1) * Pc + I) * cpc + (J >> 1)];
+    }
+    return e[static_cast<size_t>(I) * Pc + J];
+  }
+};
+
+// Bilinear prolongation of the coarse correction at interior fine (i, j):
+// rows first, then columns, as in transfer.prolong. Fine 2I takes coarse
+// I; an odd fine index averages its two coarse neighbours.
+template <typename T>
+__device__ __forceinline__ T prolong_at(const CoarseView<T>& e, int i, int j) {
+  const int I = i >> 1;
+  const int J = j >> 1;
+  const bool odd_i = i & 1;
+  const T a = odd_i ? T(0.5) * (e(I, J) + e(I + 1, J)) : e(I, J);
+  if (!(j & 1)) return a;
+  const T d = odd_i ? T(0.5) * (e(I, J + 1) + e(I + 1, J + 1)) : e(I, J + 1);
+  return T(0.5) * (a + d);
+}
+
+// Allow a kernel `bytes` of dynamic shared memory (above the default 48 KB
+// an opt-in is needed; Hopper gives a block up to 227 KB).
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
 }
 
 // b - (A - sigma I) u at the point whose centre is p (row pitch `pitch`).

@@ -136,21 +136,6 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
   }
 }
 
-// Bilinear prolongation of the coarse correction at interior fine (i, j):
-// rows first, then columns, as in transfer.prolong. Fine 2I takes coarse
-// I; an odd fine index averages its two coarse neighbours.
-template <typename T>
-__device__ __forceinline__ T prolong_at(const T* __restrict__ e, int i, int j,
-                                        int Pc) {
-  const T* row = e + static_cast<size_t>(i >> 1) * Pc;
-  const bool odd_i = i & 1;
-  const int J = j >> 1;
-  const T a = odd_i ? T(0.5) * (row[J] + row[J + Pc]) : row[J];
-  if (!(j & 1)) return a;
-  const T d = odd_i ? T(0.5) * (row[J + 1] + row[J + 1 + Pc]) : row[J + 1];
-  return T(0.5) * (a + d);
-}
-
 // Up leg: x' = smooth^sweeps(x + P e).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -166,6 +151,7 @@ up_kernel(const T* __restrict__ x, const T* __restrict__ e,
   const int x0 = blockIdx.x * TX;
   const int gy0 = y0 - H;
   const int gx0 = x0 - H;
+  const mg::CoarseView<T> ev{e, Pc, (Pc + 1) / 2, false};
 
   T* us = reinterpret_cast<T*>(smem_raw);
   T* bs = us + RY * RX;
@@ -181,7 +167,7 @@ up_kernel(const T* __restrict__ x, const T* __restrict__ e,
       const size_t k = static_cast<size_t>(gy) * P + gx;
       xv = x[k];
       bv = b[k];
-      if (mg::interior(gy, gx, n)) xv = xv + prolong_at(e, gy, gx, Pc);
+      if (mg::interior(gy, gx, n)) xv = xv + mg::prolong_at(ev, gy, gx);
     }
     us[idx] = xv;
     bs[idx] = bv;
@@ -191,14 +177,6 @@ up_kernel(const T* __restrict__ x, const T* __restrict__ e,
   const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, n, kind, sweeps,
                                c);
   store_core(w, out, RX, H, y0, x0, P);
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
 }
 
 dim3 leg_grid(int n) {
@@ -215,7 +193,7 @@ int launch_down(const void* u, const void* b, void* u_out, void* rc, int n,
   const size_t bytes =
       sizeof(T) * ((kind == mg::kJacobi ? 3 : 2) * tile +
                    static_cast<size_t>(TY + 2) * (TX + 2));
-  const int err = set_smem(down_kernel<T>, bytes);
+  const int err = mg::set_smem(down_kernel<T>, bytes);
   if (err != 0) return err;
   down_kernel<T><<<leg_grid(n), THREADS, bytes,
                    static_cast<cudaStream_t>(stream)>>>(
@@ -232,7 +210,7 @@ int launch_up(const void* x, const void* e, const void* b, void* out, int n,
   const int H = up_halo(kind, sweeps);
   const size_t tile = static_cast<size_t>(TY + 2 * H) * (TX + 2 * H);
   const size_t bytes = sizeof(T) * (kind == mg::kJacobi ? 3 : 2) * tile;
-  const int err = set_smem(up_kernel<T>, bytes);
+  const int err = mg::set_smem(up_kernel<T>, bytes);
   if (err != 0) return err;
   up_kernel<T><<<leg_grid(n), THREADS, bytes,
                  static_cast<cudaStream_t>(stream)>>>(

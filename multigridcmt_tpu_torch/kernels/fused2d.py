@@ -19,7 +19,7 @@ import torch
 
 from ..ops import laplacian, smoothers, transfer
 from . import _build
-from .stencil2d import check_grid, launch_on, on_cuda
+from ._wrap import check_grid, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count).

@@ -1,0 +1,230 @@
+"""Color-packed tier for the finest 2D levels (n >= ``PACK_MIN_N``).
+
+A padded (n+2)^2 grid is stored as two planes (2, n+2, (n+3)//2): plane 0
+the red points ((i+j) even), plane 1 the black ones, packed along each
+row with a row-parity offset, as in ``multigridcmt_tpu/kernels/packed2d.py``:
+
+    R[i, l] = u[i, 2l + i%2]        B[i, l] = u[i, 2l + 1 - i%2]
+
+The lane past a row's last point of its colour is a pad and stays zero.
+``pack``/``unpack`` convert at the solve's encode/decode boundary, once a
+solve, in plain PyTorch.
+
+Replaces three TPU kernels of that module with ``csrc/packed2d.cu`` (see
+the note there on what bounds them and what packing does on the card):
+  * ``smooth_residual_restrict``: the whole down leg; after an RB-GS sweep
+    the black residual is taken as zero (the closing black half-sweep
+    zeroes it in exact arithmetic) and only the red residual is restricted;
+  * ``prolong_add_smooth``: the whole up leg; the coarse correction may be
+    logical or packed;
+  * ``residual_norm_sq``: ||b - (A - sigma I) u||^2 without writing the
+    residual, the convergence check; ``red_only`` sums the red plane only.
+The TPU module's ``rbgs_sweep`` and ``residual`` are not ported yet
+(ROADMAP queue 2).
+
+Each wrapper has its plain PyTorch version beside it: unpack, the ``ops/``
+composition, pack. Device rule (``_wrap``): a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import laplacian, smoothers, transfer
+from . import _build
+from ._wrap import check_grid, check_tensor, launch_on, on_cuda
+
+# Launches of each CUDA kernel in this process (plain-version calls do not
+# count).
+down_launches = 0
+up_launches = 0
+resnorm_launches = 0
+
+# As in the TPU module: the halo of a leg is capped at 8 rings, which
+# bounds the sweeps one launch fuses.
+_MAX_HALO = 8
+
+# Blocks of the residual norm's first pass; each writes one float64
+# partial sum, which the second pass adds in a fixed order.
+RESNORM_BLOCKS = 1024
+
+
+def packed_shape(n: int) -> tuple:
+    """Shape of the packed form of an (n+2)^2 padded grid."""
+    return (2, n + 2, (n + 3) // 2)
+
+
+def is_packed(t: torch.Tensor) -> bool:
+    """Packed 2D layout: two planes. A logical 3D grid is also of rank 3,
+    but its leading extent is n + 2 >= 5."""
+    return t.ndim == 3 and t.shape[0] == 2
+
+
+def pack(u: torch.Tensor) -> torch.Tensor:
+    """Logical (P, P) padded grid -> packed (2, P, (P+1)//2)."""
+    p = u.shape[0]
+    s = u.new_zeros((2, p, (p + 1) // 2))
+    for plane, row0, col0 in ((0, 0, 0), (0, 1, 1), (1, 0, 1), (1, 1, 0)):
+        part = u[row0::2, col0::2]
+        s[plane, row0::2, : part.shape[1]] = part
+    return s
+
+
+def unpack(s: torch.Tensor) -> torch.Tensor:
+    """Packed (2, P, (P+1)//2) -> logical (P, P) padded grid."""
+    p = s.shape[1]
+    u = s.new_zeros((p, p))
+    for plane, row0, col0 in ((0, 0, 0), (0, 1, 1), (1, 0, 1), (1, 1, 0)):
+        part = u[row0::2, col0::2]
+        part.copy_(s[plane, row0::2, : part.shape[1]])
+    return u
+
+
+def max_down_sweeps(kind: str) -> int:
+    """Sweeps one smooth_residual_restrict launch can fuse."""
+    return (_MAX_HALO - 2) // 2 if kind == "rbgs" else _MAX_HALO - 2
+
+
+def max_up_sweeps(kind: str) -> int:
+    """Sweeps one prolong_add_smooth launch can fuse."""
+    return _MAX_HALO // 2 if kind == "rbgs" else _MAX_HALO
+
+
+def _check_schedule(kind: str, sweeps: int, cap: int) -> None:
+    if kind not in _build.KIND_CODES:
+        raise ValueError(f"packed legs run jacobi or rbgs, not {kind!r}")
+    if not 0 <= sweeps <= cap:
+        raise ValueError(f"{sweeps} {kind} sweeps: one packed leg takes 0 "
+                         f"to {cap}")
+
+
+def _check_fine(n: int) -> None:
+    if n < 3 or n % 2 == 0:
+        raise ValueError(f"fine n={n} must be odd and >= 3 (n = 2*nc + 1)")
+
+
+def _zero_black(r: torch.Tensor) -> torch.Tensor:
+    """r with its black points ((i+j) odd) set to zero."""
+    p = r.shape[0]
+    idx = torch.arange(p, device=r.device)
+    black = (idx[:, None] + idx[None, :]) % 2 == 1
+    return r.masked_fill(black, 0.0)
+
+
+def smooth_residual_restrict_plain(s, bs, n, h, *, kind, omega, sweeps,
+                                   sigma=0.0, packed_coarse=False):
+    """Plain PyTorch version: unpack, smooth, residual (red only after an
+    RB-GS sweep), restrict, pack."""
+    u, b = unpack(s), unpack(bs)
+    us = smoothers.smooth(u, b, h, kind=kind, omega=omega, sweeps=sweeps,
+                          sigma=sigma)
+    r = laplacian.residual(us, b, h, sigma=sigma)
+    if kind == "rbgs" and sweeps >= 1:
+        r = _zero_black(r)
+    rc = transfer.restrict(r)
+    return pack(us), (pack(rc) if packed_coarse else rc)
+
+
+def smooth_residual_restrict(s: torch.Tensor, bs: torch.Tensor, n: int,
+                             h: float, *, kind: str, omega: float,
+                             sweeps: int, sigma=0.0,
+                             packed_coarse: bool = False):
+    """(smooth^sweeps(u), restrict(b - (A - sigma I) u')) in one pass on
+    packed grids.
+
+    s, bs: packed (2, n+2, (n+3)//2). Returns u' packed and the coarse
+    right-hand side, logical ((n-1)/2 + 2)^2 or, with ``packed_coarse``,
+    packed. Requires sweeps <= max_down_sweeps.
+    """
+    global down_launches
+    _check_schedule(kind, sweeps, max_down_sweeps(kind))
+    _check_fine(n)
+    check_tensor("u", s, packed_shape(n), s)
+    check_tensor("b", bs, packed_shape(n), s)
+    if not on_cuda(s):
+        return smooth_residual_restrict_plain(
+            s, bs, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma,
+            packed_coarse=packed_coarse)
+    nc = (n - 1) // 2
+    u_out = torch.empty_like(s)
+    # Packed: the coarse pad lanes are never written, so start from zeros.
+    rc = (torch.zeros(packed_shape(nc), dtype=s.dtype, device=s.device)
+          if packed_coarse else
+          torch.empty((nc + 2, nc + 2), dtype=s.dtype, device=s.device))
+    launch_on(s, "packed2d_down", s.data_ptr(), bs.data_ptr(),
+              u_out.data_ptr(), rc.data_ptr(), n, float(h), float(sigma),
+              _build.KIND_CODES[kind], float(omega), sweeps,
+              int(packed_coarse))
+    down_launches += 1
+    return u_out, rc
+
+
+def prolong_add_smooth_plain(x, e, b, n, nc, h, *, kind, omega, sweeps,
+                             sigma=0.0):
+    """Plain PyTorch version: unpack, smooth^sweeps(x + P e), pack."""
+    ec = unpack(e) if is_packed(e) else e
+    xs = smoothers.smooth(unpack(x) + transfer.prolong(ec), unpack(b), h,
+                          kind=kind, omega=omega, sweeps=sweeps, sigma=sigma)
+    return pack(xs)
+
+
+def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
+                       n: int, nc: int, h: float, *, kind: str, omega: float,
+                       sweeps: int, sigma=0.0) -> torch.Tensor:
+    """smooth^sweeps(x + P e) in one pass on packed grids.
+
+    x, b: packed (2, n+2, (n+3)//2); e: logical (nc+2, nc+2) or packed,
+    with n = 2*nc + 1. Requires sweeps <= max_up_sweeps.
+    """
+    global up_launches
+    _check_schedule(kind, sweeps, max_up_sweeps(kind))
+    if n != 2 * nc + 1:
+        raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")
+    check_tensor("x", x, packed_shape(n), x)
+    packed_e = is_packed(e)
+    if packed_e:
+        check_tensor("e", e, packed_shape(nc), x)
+    else:
+        check_grid("e", e, nc, x)
+    check_tensor("b", b, packed_shape(n), x)
+    if not on_cuda(x):
+        return prolong_add_smooth_plain(x, e, b, n, nc, h, kind=kind,
+                                        omega=omega, sweeps=sweeps,
+                                        sigma=sigma)
+    out = torch.empty_like(x)
+    launch_on(x, "packed2d_up", x.data_ptr(), e.data_ptr(), b.data_ptr(),
+              out.data_ptr(), n, float(h), float(sigma),
+              _build.KIND_CODES[kind], float(omega), sweeps, int(packed_e))
+    up_launches += 1
+    return out
+
+
+def residual_norm_sq_plain(s, bs, n, h, *, red_only=False, sigma=0.0):
+    """Plain PyTorch version: the sum of squares of the unpacked residual
+    (its red points only with ``red_only``)."""
+    r = laplacian.residual(unpack(s), unpack(bs), h, sigma=sigma)
+    if red_only:
+        r = _zero_black(r)
+    return torch.sum(r * r)
+
+
+def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
+                     red_only: bool = False, sigma=0.0) -> torch.Tensor:
+    """||b - (A - sigma I) u||^2 on packed grids, without writing the
+    residual; a 0-d tensor of the grids' dtype. ``red_only`` sums the red
+    points only, which is exact when u has just finished an RB-GS sweep."""
+    global resnorm_launches
+    _check_fine(n)
+    check_tensor("u", s, packed_shape(n), s)
+    check_tensor("b", bs, packed_shape(n), s)
+    if not on_cuda(s):
+        return residual_norm_sq_plain(s, bs, n, h, red_only=red_only,
+                                      sigma=sigma)
+    partial = torch.empty(RESNORM_BLOCKS, dtype=torch.float64,
+                          device=s.device)
+    out = torch.empty((), dtype=s.dtype, device=s.device)
+    launch_on(s, "packed2d_resnorm", s.data_ptr(), bs.data_ptr(),
+              partial.data_ptr(), out.data_ptr(), n, float(h), float(sigma),
+              int(red_only), RESNORM_BLOCKS)
+    resnorm_launches += 1
+    return out

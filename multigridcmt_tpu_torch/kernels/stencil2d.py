@@ -2,59 +2,25 @@
 
 Replaces the TPU kernel ``multigridcmt_tpu/kernels/stencil2d.py:residual``
 with ``csrc/stencil2d.cu`` (one CUDA thread per point; see the note
-there on what bounds it). The solve's convergence check on a kernel-tier
-fine level runs through it once per cycle. The fused RB-GS and Jacobi
-sweep kernels of the same TPU module are not ported yet (ROADMAP queue 2).
+there on what bounds it). The solve's convergence check on an unpacked
+kernel-tier fine level (255 <= n < PACK_MIN_N) runs through it once per
+cycle; a color-packed fine level checks with ``packed2d.residual_norm_sq``
+instead. The fused RB-GS and Jacobi sweep kernels of the same TPU module
+are not ported yet (ROADMAP queue 2).
 
-Device rule: a CPU tensor takes the plain PyTorch version; a CUDA tensor
-launches the kernel or raises.
+Device rule (``_wrap``): a CPU tensor takes the plain PyTorch version; a
+CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import laplacian
-from . import _build
+from ._wrap import check_grid, launch_on, on_cuda
 
 # Launches of the CUDA kernel in this process (plain-version calls do not
 # count).
 launches = 0
-
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def check_grid(name: str, t: torch.Tensor, n: int, ref: torch.Tensor) -> None:
-    """Raise unless ``t`` is a contiguous (n+2, n+2) float32/float64 grid on
-    ``ref``'s device and of ``ref``'s dtype."""
-    if t.dtype not in _SUFFIX:
-        raise TypeError(f"{name}: dtype {t.dtype} not supported "
-                        "(float32 or float64)")
-    if t.dtype != ref.dtype or t.device != ref.device:
-        raise ValueError(f"{name}: {t.dtype} on {t.device} does not match "
-                         f"{ref.dtype} on {ref.device}")
-    if tuple(t.shape) != (n + 2, n + 2):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{(n + 2, n + 2)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
-
-
-def on_cuda(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (take the plain version); any other device raises."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain route for device {t.device}")
-
-
-def launch_on(t: torch.Tensor, kernel: str, *args) -> None:
-    """Call the C entry point ``mg_<kernel>_<f32|f64>`` for ``t``'s dtype,
-    on ``t``'s device and its current stream (passed last)."""
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.launch(f"mg_{kernel}_{_SUFFIX[t.dtype]}", *args, stream)
 
 
 def residual_plain(u: torch.Tensor, b: torch.Tensor, n: int, h: float,

@@ -26,21 +26,29 @@ class Backend(NamedTuple):
     """Pluggable stencil implementations (plain PyTorch default; the CUDA
     kernel tier in ``kernels/``).
 
-    Every level stays in the logical padded layout, so ``encode``/``decode``
-    are the identity on both backends; they are kept so that drivers read
-    like the JAX package's. Signatures:
+    Arrays flow through a cycle in the backend's layout: the logical padded
+    grid on every level of the plain backend; the kernel backend packs its
+    finest 2D levels by colour (``kernels/packed2d.py``). ``encode`` and
+    ``decode`` convert once a solve (or a public ``v_cycle`` call), at its
+    boundary. The ops take their level's interior size (which decides the
+    layout) and h:
       smooth(u, b, n, h, kind=..., omega=..., sweeps=..., sigma=...)
       residual(u, b, n, h, sigma=...)
-      restrict(r, n)            # fine level n -> coarse level (n-1)/2
+      restrict(r)               # fine grid -> coarse grid
       prolong(e, nc)            # coarse level nc -> fine level 2*nc+1
-      encode(u) / decode(u, n)
+      encode(u) / decode(u)
     Optional whole-leg fusions (one pass over the fine grid per leg); the
-    callable returns None to decline a level, and the driver then composes
+    callable returns None to decline a level, and the cycle then composes
     the leg from the ops above:
       smooth_residual_restrict(u, b, n, h, kind=, omega=, sweeps=, sigma=)
           -> (u', rc) | None
       prolong_add_smooth(x, e, b, n, nc, h, kind=, omega=, sweeps=, sigma=)
           -> x' | None
+    Optional fused convergence check, ||b - A x||^2 without writing the
+    residual (None declines; red_only=True asserts that x has just
+    finished an RB-GS sweep, whose closing black half-sweep zeroes the
+    black residual):
+      residual_norm2(x, b, n, h, red_only=False) -> 0-d tensor | None
     """
 
     smooth: Callable
@@ -51,16 +59,17 @@ class Backend(NamedTuple):
     decode: Callable
     smooth_residual_restrict: Optional[Callable] = None
     prolong_add_smooth: Optional[Callable] = None
+    residual_norm2: Optional[Callable] = None
 
 
 PLAIN_BACKEND = Backend(
     smooth=lambda u, b, n, h, **kw: smoothers.smooth(u, b, h, **kw),
     residual=lambda u, b, n, h, sigma=0.0: laplacian.residual(
         u, b, h, sigma=sigma),
-    restrict=lambda r, n: transfer.restrict(r),
+    restrict=transfer.restrict,
     prolong=lambda e, nc: transfer.prolong(e),
     encode=lambda u: u,
-    decode=lambda u, n: u,
+    decode=lambda u: u,
 )
 
 
@@ -72,16 +81,16 @@ def get_backend(config: SolverConfig) -> Backend:
     return PLAIN_BACKEND
 
 
-def coarse_solve(hier: Hierarchy, b: torch.Tensor, sigma=0.0,
-                 backend: Backend = PLAIN_BACKEND) -> torch.Tensor:
-    """Direct solve on the coarsest level.
+def coarse_solve(hier: Hierarchy, b: torch.Tensor, sigma=0.0) -> torch.Tensor:
+    """Direct solve on the coarsest level (always in the logical layout:
+    no backend packs a level that small).
 
     sigma == 0: one small product with the precomputed dense inverse (a
     plain ``torch.matmul``; float32 products run in full float32, see the
     package ``__init__``). Shifted: a dense solve on (A_c - sigma*I).
     """
     nc = hier.coarsest.n
-    r = interior(backend.decode(b, nc)).reshape(-1)
+    r = interior(b).reshape(-1)
     if laplacian._is_zero(sigma):
         x = (hier.coarse_inv @ r.to(hier.coarse_inv.dtype)).to(r.dtype)
     else:
@@ -89,7 +98,7 @@ def coarse_solve(hier: Hierarchy, b: torch.Tensor, sigma=0.0,
         a = cd - sigma * torch.eye(cd.shape[0], dtype=cd.dtype,
                                    device=cd.device)
         x = torch.linalg.solve(a, r.to(cd.dtype)).to(r.dtype)
-    return backend.encode(pad_interior(x.reshape((nc,) * hier.ndim)))
+    return pad_interior(x.reshape((nc,) * hier.ndim))
 
 
 def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
@@ -101,7 +110,7 @@ def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
     omega = config.effective_omega()
     if level == hier.num_levels - 1:
         with profiling.level_scope(level):
-            return coarse_solve(hier, b, sigma, backend=bk)
+            return coarse_solve(hier, b, sigma)
     with profiling.level_scope(level):
         down = None
         if bk.smooth_residual_restrict is not None:
@@ -113,8 +122,7 @@ def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
         else:
             x = bk.smooth(x, b, spec.n, spec.h, kind=config.smoother,
                           omega=omega, sweeps=config.nu1, sigma=sigma)
-            rc = bk.restrict(bk.residual(x, b, spec.n, spec.h, sigma=sigma),
-                             spec.n)
+            rc = bk.restrict(bk.residual(x, b, spec.n, spec.h, sigma=sigma))
         ec = torch.zeros_like(rc)
     for _ in range(gamma):
         ec = v_cycle(hier, ec, rc, config, level=level + 1, sigma=sigma,
@@ -190,8 +198,17 @@ def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
     b_norm = torch.linalg.vector_norm(b)
     b_norm = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
 
-    def rel_res(x):
+    def rel_res(x, red_only=False):
+        if bk.residual_norm2 is not None:
+            v = bk.residual_norm2(x, b, n, h, red_only=red_only)
+            if v is not None:
+                return torch.sqrt(v) / b_norm
         return torch.linalg.vector_norm(bk.residual(x, b, n, h)) / b_norm
+
+    # After a cycle x ends with the finest level's post-smoothing: for
+    # RB-GS its closing black half-sweep zeroes the black residual, so a
+    # fused check needs the red points only.
+    post_red = config.smoother == "rbgs" and config.nu2 >= 1
 
     hist = [rel_res(x)]
     rel = hist[0].item()                      # host sync
@@ -199,7 +216,7 @@ def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
     while rel >= config.tol and len(hist) <= config.max_iters \
             and guards_ok(stall, div):
         x = cycle(hier, x, b, config)
-        hist.append(rel_res(x))
+        hist.append(rel_res(x, red_only=post_red))
         new_rel = hist[-1].item()             # host sync, once per cycle
         stall, div = step_guards(new_rel, rel, stall, div)
         rel = new_rel
@@ -207,7 +224,7 @@ def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
     # Entries past `iters` repeat the final residual (the JAX history has
     # the static length max_iters + 1).
     hist += [hist[-1]] * (config.max_iters - iters)
-    return SolveResult(x=bk.decode(x, n), iters=iters,
+    return SolveResult(x=bk.decode(x), iters=iters,
                        res_history=torch.stack(hist),
                        converged=rel < config.tol)
 

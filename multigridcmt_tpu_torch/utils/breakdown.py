@@ -1,0 +1,136 @@
+"""Where the V-cycle's time goes on one CUDA card.
+
+    python -m multigridcmt_tpu_torch.utils.breakdown [--k 12] [--reps 5]
+
+For each route of the float32 RB-GS V(2,2) cycle at 2^k - 1 (k=12:
+4095^2), prints the cycle time (CUDA events, median of 20), the host-clock
+time of 20 cycles back to back, the device-busy time a cycle and the
+device ops a cycle (``torch.profiler``, summed over the kernel rows), the
+idle share 1 - busy/cycle, and the solve's cycle count and wall time. The
+routes: the kernel backend as shipped; the same with the finest level
+unpacked (PACK_MIN_N above n, so the fused2d legs run there); the plain
+backend; and the kernel backend with KERNEL_MIN_N = 7 (every level but the
+coarsest on the kernel tier). Then the legs' kernel times per level, packed
+and unpacked where a level can be either.
+
+Informative only: nothing is checked. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import multigridcmt_tpu_torch as mt
+from multigridcmt_tpu_torch import kernels
+from multigridcmt_tpu_torch.kernels import fused2d, packed2d, stencil2d
+from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+
+def device_busy(fn, reps: int):
+    """(device ms a call, device ops a call) over ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = sum(1 for e in prof.events() if e.device_type == cuda)
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == cuda)
+    return busy / reps / 1e3, ops / reps
+
+
+def grids(n: int, seed: int):
+    """u, b (b scaled by 1/h^2) on (n+2)^2 and e on the coarse grid."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for m in (n, n, (n - 1) // 2):
+        g = torch.zeros((m + 2, m + 2), device="cuda")
+        g[1:-1, 1:-1] = torch.randn((m, m), generator=gen, device="cuda")
+        out.append(g)
+    u, b, e = out
+    return u, b * float((n + 1) ** 2), e
+
+
+def routes(k: int, reps: int) -> None:
+    n = 2 ** k - 1
+    shipped = (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N)
+    for label, use_kernels, kmin, pmin in (
+            ("kernel", True) + shipped,
+            ("kernel, finest level unpacked", True, shipped[0], n + 1),
+            ("plain", False) + shipped,
+            ("kernel, KERNEL_MIN_N=7", True, 7, shipped[1])):
+        kernels.KERNEL_MIN_N, kernels.PACK_MIN_N = kmin, pmin
+        prob = mt.poisson2d(k=k, dtype=torch.float32, smoother="rbgs",
+                            use_kernels=use_kernels, device="cuda")
+        solver = mt.MultigridSolver(prob)
+        x0 = torch.zeros_like(prob.b)
+        ms = cuda_time_ms(lambda: solver.v_cycle(x0, prob.b))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            solver.v_cycle(x0, prob.b)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        busy, ops = device_busy(lambda: solver.v_cycle(x0, prob.b), reps)
+        t0 = time.perf_counter()
+        res = solver.solve()
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} ms (host "
+              f"clock, 20 back to back), device busy {busy:.4f} ms/cycle, "
+              f"idle share {1 - busy / ms:.4f}, device ops/cycle {ops:.0f}; "
+              f"solve {res.iters} cycles {solve_ms:.1f} ms, final "
+              f"{res.res_history[res.iters].item():.4e}", flush=True)
+        del prob, solver, x0, res
+    kernels.KERNEL_MIN_N, kernels.PACK_MIN_N = shipped
+
+
+def levels(k: int) -> None:
+    kw = dict(kind="rbgs", omega=1.0, sweeps=2)
+    for j in range(k, 2, -1):
+        n = 2 ** j - 1
+        nc = (n - 1) // 2
+        h = 1.0 / (n + 1)
+        u, b, e = grids(n, seed=j)
+        su, sb = packed2d.pack(u), packed2d.pack(b)
+        row = {
+            "down": cuda_time_ms(lambda: fused2d.smooth_residual_restrict(
+                u, b, n, h, **kw)),
+            "up": cuda_time_ms(lambda: fused2d.prolong_add_smooth(
+                u, e, b, n, nc, h, **kw)),
+            "residual": cuda_time_ms(lambda: stencil2d.residual(u, b, n, h)),
+            "packed down": cuda_time_ms(
+                lambda: packed2d.smooth_residual_restrict(su, sb, n, h,
+                                                          **kw)),
+            "packed up": cuda_time_ms(lambda: packed2d.prolong_add_smooth(
+                su, e, sb, n, nc, h, **kw)),
+            "packed norm": cuda_time_ms(lambda: packed2d.residual_norm_sq(
+                su, sb, n, h, red_only=True)),
+        }
+        print(f"level n={n}: " + ", ".join(f"{key} {v:.4f} ms"
+                                           for key, v in row.items()),
+              flush=True)
+        del u, b, e, su, sb
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--k", type=int, default=12)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    routes(args.k, args.reps)
+    levels(args.k)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 """Profiling hooks (port of ``level_scope`` from
-``multigridcmt_tpu.utils.profiling``).
+``multigridcmt_tpu.utils.profiling``) and a CUDA-event timer.
 
 Each multigrid level runs inside a named ``torch.profiler`` range, so a
 ``torch.profiler.profile`` trace shows one row per level. The JAX module's
@@ -7,9 +7,29 @@ Each multigrid level runs inside a named ``torch.profiler`` range, so a
 """
 from __future__ import annotations
 
+import statistics
+
 import torch
 
 
 def level_scope(level: int):
     """Named profiler range for one multigrid level."""
     return torch.profiler.record_function(f"mg_level_{level}")
+
+
+def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median over ``reps`` of the CUDA-event time, in ms, of one call of
+    ``fn`` on the current device, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

@@ -10,7 +10,7 @@ import torch
 
 import multigridcmt_tpu_torch as mt
 from multigridcmt_tpu_torch import api, kernels
-from multigridcmt_tpu_torch.kernels import _build, fused2d, stencil2d
+from multigridcmt_tpu_torch.kernels import _build, fused2d, packed2d, stencil2d
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "multigridcmt_tpu_torch"
@@ -68,15 +68,20 @@ def test_build_keys_output_by_source_hash():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = {p.name for p in _build.sources()}
-    assert {"common.cuh", "fused2d.cu", "stencil2d.cu"} <= names
+    assert {"common.cuh", "fused2d.cu", "packed2d.cu", "stencil2d.cu"} <= names
     # Every C entry point the wrappers call is declared for ctypes.
-    for kernel in ("stencil2d_residual", "fused2d_down", "fused2d_up"):
+    for kernel in ("stencil2d_residual", "fused2d_down", "fused2d_up",
+                   "packed2d_down", "packed2d_up", "packed2d_resnorm"):
         for t in ("f32", "f64"):
             assert f"mg_{kernel}_{t}" in _build.SIGNATURES
 
 
 def _grid(n, dtype=torch.float64):
     return torch.zeros((n + 2, n + 2), dtype=dtype)
+
+
+def _packed(n, dtype=torch.float64):
+    return torch.zeros(packed2d.packed_shape(n), dtype=dtype)
 
 
 @pytest.mark.parametrize("bad,err", [
@@ -106,13 +111,33 @@ def _grid(n, dtype=torch.float64):
     (lambda: stencil2d.residual(torch.zeros((9, 9), device="meta"),
                                 torch.zeros((9, 9), device="meta"), 7, 0.125),
      ValueError),
+    (lambda: packed2d.smooth_residual_restrict(
+        _grid(7), _grid(7), 7, 0.125, kind="rbgs", omega=1.0, sweeps=1),
+     ValueError),
+    (lambda: packed2d.smooth_residual_restrict(
+        _packed(7), _packed(7), 7, 0.125, kind="rbgs", omega=1.0, sweeps=4),
+     ValueError),
+    (lambda: packed2d.prolong_add_smooth(
+        _packed(7), _packed(4), _packed(7), 7, 3, 0.125, kind="rbgs",
+        omega=1.0, sweeps=1), ValueError),
+    (lambda: packed2d.prolong_add_smooth(
+        _packed(7), _grid(3), _packed(7), 7, 3, 0.125, kind="jacobi",
+        omega=0.8, sweeps=9), ValueError),
+    (lambda: packed2d.residual_norm_sq(
+        _packed(7, torch.float16), _packed(7, torch.float16), 7, 0.125),
+     TypeError),
+    (lambda: packed2d.residual_norm_sq(_packed(7), _packed(9), 7, 0.125),
+     ValueError),
 ], ids=["dtype", "mixed-dtype", "shape", "non-contiguous", "down-cap",
-        "down-kind", "even-n", "coarse-shape", "up-cap", "other-device"])
+        "down-kind", "even-n", "coarse-shape", "up-cap", "other-device",
+        "packed-logical-input", "packed-down-cap", "packed-coarse-shape",
+        "packed-up-cap", "packed-dtype", "packed-shape"])
 def test_kernel_wrappers_reject_bad_inputs(bad, err):
     with pytest.raises(err):
         bad()
     assert (fused2d.down_launches, fused2d.up_launches,
-            stencil2d.launches) == (0, 0, 0)
+            stencil2d.launches, packed2d.down_launches, packed2d.up_launches,
+            packed2d.resnorm_launches) == (0, 0, 0, 0, 0, 0)
 
 
 def _solve(**kw):
@@ -139,6 +164,38 @@ def test_kernel_tier_raises_beyond_its_kernels(kw, match, monkeypatch):
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 20)
     with pytest.raises(NotImplementedError, match=match):
         _solve(k=5, ndim=2, dtype=torch.float64, use_kernels=True, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(smoother="chebyshev"), "Chebyshev"),
+    (dict(smoother="rbgs", nu1=4), "packed2d"),
+    (dict(smoother="jacobi", nu2=9), "packed2d"),
+])
+def test_packed_tier_raises_beyond_its_kernels(kw, match, monkeypatch):
+    monkeypatch.setattr(kernels, "KERNEL_MIN_N", 20)
+    monkeypatch.setattr(kernels, "PACK_MIN_N", 20)
+    with pytest.raises(NotImplementedError, match=match):
+        _solve(k=5, ndim=2, dtype=torch.float64, use_kernels=True, **kw)
+
+
+def test_packed_level_runs_only_its_kernels(monkeypatch):
+    """On a packed level the backend's unfused ops raise (their packed2d
+    kernels are not ported) instead of running another layout."""
+    monkeypatch.setattr(kernels, "PACK_MIN_N", 20)
+    bk = kernels.KERNEL_BACKEND
+    s = _packed(31)
+    assert packed2d.is_packed(bk.encode(_grid(31)))
+    assert not packed2d.is_packed(bk.encode(_grid(15)))
+    assert bk.decode(s).shape == (33, 33)
+    for call in (lambda: bk.smooth(s, s, 31, 1 / 32, kind="rbgs", omega=1.0,
+                                   sweeps=1),
+                 lambda: bk.residual(s, s, 31, 1 / 32),
+                 lambda: bk.restrict(s),
+                 lambda: bk.prolong(_grid(15), 15)):
+        with pytest.raises(NotImplementedError, match="packed2d"):
+            call()
+    assert bk.residual_norm2(_grid(15), _grid(15), 15, 1 / 16) is None
+    assert bk.residual_norm2(s, s, 31, 1 / 32).item() == 0.0
 
 
 @pytest.mark.parametrize("kw", [dict(smoother="rbgs", nu1=4, nu2=5),
