@@ -5,31 +5,42 @@ Phases:
   1. set-up: the card's name and power limit, the CUDA version, and the
      build of the kernel library from the sources in this checkout;
   2. each CUDA kernel against its plain PyTorch version on the card;
-  3. the main path through the public entry points: the 4095^2 float32
-     RB-GS solve (launch counts, residual, error against the analytic
-     solution), kernel against plain V-cycles, and float64 solves at k=10
-     and k=12 against the plain path;
+  3. the main paths through the public entry points, each run with the
+     launch counters set to 0 just before it and read just after:
+       * the 4095^2 float32 RB-GS solve (launch counts, residual, error
+         against the analytic solution), kernel against plain V-cycles,
+         and float64 solves at k=10 and k=12 against the plain path;
+       * the 511^3 float32 RB-GS solve, the same checks, and a float64
+         k=8 solve against the plain path;
+       * MG-preconditioned CG at 4095^2 and 511^3 float32, and float64
+         PCG against the plain path at 2D k=10 and 3D k=7;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) cycle at
-     4095^2 float32 on the kernel and the plain path, each kernel against
-     its plain version at the main path's shapes, the packed kernels
-     against their unpacked twins at 4095^2, and the peak device memory.
+     4095^2 and at 511^3 float32 on the kernel and the plain path, one
+     PCG iteration at 4095^2, each kernel against its plain version at the
+     main paths' shapes, the packed kernels against their unpacked twins at
+     4095^2, and the peak device memory of the solves.
 
-The main path's kernels: at k=12 the 4095 level is color-packed
+The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
 residual norm of the convergence check; levels 2047..255 run the fused2d
-legs. The stencil2d residual kernel checks convergence on an unpacked fine
-level (k = 8..11); it is held against its plain version in phase 2 and
-driven by the float64 k=10 solve in phase 3.
+legs; PCG's operator apply and residual there run the packed residual. At
+k=9 in 3D the levels 511, 255 and 127 (n >= kernels.KERNEL3_MIN_N) run the
+stencil3d RB-GS sweep and residual kernels. Off these paths: the stencil2d
+residual (the check on an unpacked fine level, driven by the float64 k=10
+solve) and the stencil3d Jacobi sweep (a 3D Jacobi cycle takes the plain
+route, as in the JAX package; driven by direct calls).
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result. The
-line before the last is a JSON object with the main path's kernels; the
+line before the last is a JSON object with the main paths' kernels; the
 last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -37,22 +48,26 @@ import time
 import torch
 
 MAIN_K = 12                 # 4095^2 fine grid
+MAIN_K3 = 9                 # 511^3 fine grid
 SIGMA = 11.5
 # Kernel against plain on the card, as max|kernel - plain| / max|plain|
 # (for the squared norms, |kernel - plain| / plain).
 # float64: the kernels contract a*b+c into FMAs, multiply by 1/(4 -
 # sigma h^2) where the plain version divides, and the packed kernels sum
 # the neighbours in another order: a few ulp a sweep; 1e-12 leaves room for
-# the residual's cancellation (up to ~4/h^2 |u| / |r|).
+# the residual's cancellation (up to ~4/h^2 |u| / |r|, 6/h^2 in 3D).
 # float32: the same ulp-level differences, amplified by that cancellation
 # in the restricted residual, stay near 1e-6 of its largest value at
 # n=4095 for the inputs below; the norms differ by the plain version's
 # float32 summation over up to 8.4M squares (the kernel sums in float64).
-# 1e-5 bounds both.
+# 1e-5 bounds both, and the 3D kernels' FMA-level differences (~1e-7).
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 COMPARE_SHAPES = [(torch.float32, 4095), (torch.float32, 2047),
                   (torch.float32, 255), (torch.float32, 1023),
                   (torch.float64, 255), (torch.float64, 1023)]
+STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 127),
+                    (torch.float64, 127)]
+PACKED_RESIDUAL_SHAPES = [(torch.float32, 4095), (torch.float64, 255)]
 # 5 V-cycles at 4095^2, kernel path against plain path, relative l2. The
 # packed down leg restricts the red residual only (the black one is zero
 # after an RB-GS sweep in exact arithmetic, as in the JAX package); the
@@ -62,7 +77,33 @@ COMPARE_SHAPES = [(torch.float32, 4095), (torch.float32, 2047),
 # against u_exact is ~3e-3), so 1e-2. float64 has no such floor here, and
 # the dropped rounding moves x by far less than 1e-9.
 VCYCLE_RTOL = {torch.float32: 1e-2, torch.float64: 1e-9}
+# The same at 511^3 float32. The 3D kernels sum the six neighbours before
+# subtracting them from 6u, where the plain stencils subtract them one by
+# one, and float32 is at its floor after three cycles here (relative
+# residual ~3e-3): the plain route's iterate ends ~4x further from u_exact
+# than the kernel route's (9.6e-4 against 2.3e-4, max error, on an H100),
+# and the two differ by that, ~1e-3 of |x|; 1e-2, as in 2D.
+VCYCLE3_RTOL = 1e-2
+# Max error against u_exact of the float32 solves and V-cycles: the
+# float32 floor. 2D k=12: ~3.3e-3 measured. 3D k=9: the discretisation
+# error is only pi^2 h^2 / 12 ~ 3e-6, the floor 2.3e-4 (kernel route) and
+# 9.6e-4 (plain route) measured; 2e-3. A wrong stencil gives O(1) errors.
+MAXERR = {2: 1e-2, 3: 2e-3}
 F64_TOL = 1e-8
+# The float64 runs held against the plain path: (solve k, PCG k) per ndim.
+F64_K = {2: (10, 10), 3: (8, 7)}
+# Float64 histories, kernel path against plain path: rtol 1e-8 down to the
+# rounding floor of the relative residual. In 2D the two paths round alike
+# (0). In 3D the kernels sum the six neighbours before subtracting them
+# from 6u and contract into FMAs, where the plain stencils subtract one by
+# one: the computed residual moves by ~eps * 6/h^2 * |u| / |b|, ~3e-12 at
+# h = 1/256, so 1e-11.
+F64_FLOOR = {2: 0.0, 3: 1e-11}
+# One NVIDIA H100 SXM at its full 700 W (NVIDIA's data sheet): device
+# memory rate and float32 rate outside the tensor cores. Every kernel row
+# below is float32.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 class SmokeFailure(Exception):
@@ -78,15 +119,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def grids_on_card(n: int, dtype, seed: int, count: int):
-    """``count`` padded (n+2)^2 grids with N(0,1) interiors, made on the
-    card from ``seed``."""
+def grids_on_card(n: int, dtype, seed: int, count: int, ndim: int = 2):
+    """``count`` padded (n+2)^ndim grids with N(0,1) interiors, made on
+    the card from ``seed``."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    core = (slice(1, -1),) * ndim
     out = []
     for _ in range(count):
-        g = torch.zeros((n + 2, n + 2), dtype=dtype, device="cuda")
-        g[1:-1, 1:-1] = torch.randn((n, n), generator=gen, device="cuda",
-                                    dtype=torch.float64).to(dtype)
+        g = torch.zeros((n + 2,) * ndim, dtype=dtype, device="cuda")
+        g[core] = torch.randn((n,) * ndim, generator=gen, device="cuda",
+                              dtype=torch.float64).to(dtype)
         out.append(g)
     return out
 
@@ -99,6 +141,12 @@ def leg_inputs(n: int, dtype, seed: int):
     return u, b * float((n + 1) ** 2), e
 
 
+def cube_inputs(n: int, dtype, seed: int):
+    """u, b on (n+2)^3, b scaled by 1/h^2 as in ``leg_inputs``."""
+    u, b = grids_on_card(n, dtype, seed, 2, ndim=3)
+    return u, b * float((n + 1) ** 2)
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max abs error, max abs error / max|want|)."""
     err = (got - want).abs().max().item()
@@ -107,13 +155,13 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 
 def ghosts_zero(t: torch.Tensor) -> bool:
-    return bool((t[0] == 0).all() and (t[-1] == 0).all()
-                and (t[:, 0] == 0).all() and (t[:, -1] == 0).all())
+    return all(bool((t.select(d, 0) == 0).all() and (t.select(d, -1) == 0)
+                    .all()) for d in range(t.ndim))
 
 
 def logical(t: torch.Tensor) -> torch.Tensor:
-    """A kernel output as a logical grid; raises if a packed output's pad
-    lanes are not zero."""
+    """A 2D kernel output as a logical grid; raises if a packed output's
+    pad lanes are not zero."""
     from multigridcmt_tpu_torch.kernels import packed2d
 
     if not packed2d.is_packed(t):
@@ -121,6 +169,10 @@ def logical(t: torch.Tensor) -> torch.Tensor:
     u = packed2d.unpack(t)
     require(torch.equal(packed2d.pack(u), t), "packed pad lanes not zero")
     return u
+
+
+def nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def phase_setup():
@@ -143,10 +195,12 @@ def phase_setup():
     return card
 
 
-def check_pair(label: str, got, want, tol: float, shape=None):
+def check_pair(label: str, got, want, tol: float, shape=None,
+               ghosts: bool = True):
     """Hold a kernel output against its plain version; returns (max abs
     error, relative error, tol). Arrays: relative to max|want|, ghosts
-    zero; 0-d: relative to |want|."""
+    zero (unless ``ghosts`` is False: a plane stack's edge rows); 0-d:
+    relative to |want|."""
     torch.cuda.synchronize()
     if got.ndim == 0:
         err = (got - want).abs().item()
@@ -155,22 +209,19 @@ def check_pair(label: str, got, want, tol: float, shape=None):
     else:
         g, w = logical(got), logical(want)
         err, rel = rel_err(g, w)
-        ok = ghosts_zero(g) and (shape is None or tuple(g.shape) == shape)
+        ok = ((not ghosts or ghosts_zero(g))
+              and (shape is None or tuple(g.shape) == shape)
+              and bool(g.isfinite().all()))
     log(f"  {label}: rel {rel:.3e}")
     require(ok and rel <= tol, f"{label}: rel {rel:.3e} > {tol} or bad "
-            "ghosts/shape")
+            "ghosts/shape/values")
     return err, rel, tol
 
 
-def phase_compare():
-    """Each kernel against its plain version on the card. Returns (max abs
-    error, relative error, tolerance) per kernel at the main path's shapes
-    (float32, RB-GS, nu=2, sigma=0; packed at n=4095, fused2d and
-    stencil2d at n=2047); of a leg's two outputs, the one with the larger
-    relative error."""
+def compare_2d(main_err: dict) -> None:
     from multigridcmt_tpu_torch.kernels import fused2d, packed2d, stencil2d
 
-    main_err = {}
+    packed, unpacked = 2 ** MAIN_K - 1, 2 ** (MAIN_K - 1) - 1
     for dtype, n in COMPARE_SHAPES:
         h = 1.0 / (n + 1)
         nc = (n - 1) // 2
@@ -184,7 +235,7 @@ def phase_compare():
                 f"residual {name} sigma={sigma}",
                 stencil2d.residual(u, b, n, h, sigma=sigma),
                 stencil2d.residual_plain(u, b, n, h, sigma=sigma), tol)
-            if main and n == 2047 and sigma == 0.0:
+            if main and n == unpacked and sigma == 0.0:
                 main_err["stencil2d_residual"] = err
             for red_only in (False, True):
                 err = check_pair(
@@ -193,7 +244,7 @@ def phase_compare():
                                               red_only=red_only),
                     packed2d.residual_norm_sq_plain(
                         su, sb, n, h, sigma=sigma, red_only=red_only), tol)
-                if main and n == 4095 and red_only and sigma == 0.0:
+                if main and n == packed and red_only and sigma == 0.0:
                     main_err["packed2d_resnorm"] = err
             for kind, omega in (("rbgs", 1.0), ("jacobi", 0.8)):
                 kw = dict(kind=kind, omega=omega, sigma=sigma)
@@ -208,7 +259,7 @@ def phase_compare():
                               check_pair(label + " r_c", grc, wrc, tol,
                                          (nc + 2, nc + 2)),
                               key=lambda t: t[1])
-                    if at_main and n == 2047 and sweeps == 2:
+                    if at_main and n == unpacked and sweeps == 2:
                         main_err["fused2d_down"] = err
                     for pc in (False, True) if sweeps == 2 else (False,):
                         gu, grc = packed2d.smooth_residual_restrict(
@@ -223,7 +274,7 @@ def phase_compare():
                                   check_pair(label + " r_c", grc, wrc, tol,
                                              (nc + 2, nc + 2)),
                                   key=lambda t: t[1])
-                        if at_main and n == 4095 and sweeps == 2 and not pc:
+                        if at_main and n == packed and sweeps == 2 and not pc:
                             main_err["packed2d_down"] = err
                 for sweeps in sorted({2, fused2d.max_up_sweeps(kind)}):
                     err = check_pair(
@@ -232,7 +283,7 @@ def phase_compare():
                                                    sweeps=sweeps, **kw),
                         fused2d.prolong_add_smooth_plain(
                             u, e, b, n, nc, h, sweeps=sweeps, **kw), tol)
-                    if at_main and n == 2047 and sweeps == 2:
+                    if at_main and n == unpacked and sweeps == 2:
                         main_err["fused2d_up"] = err
                     for ee in (e, se) if sweeps == 2 else (e,):
                         err = check_pair(
@@ -243,27 +294,149 @@ def phase_compare():
                             packed2d.prolong_add_smooth_plain(
                                 su, ee, sb, n, nc, h, sweeps=sweeps, **kw),
                             tol)
-                        if (at_main and n == 4095 and sweeps == 2
+                        if (at_main and n == packed and sweeps == 2
                                 and ee is e):
                             main_err["packed2d_up"] = err
         del u, b, e, su, sb, se
+
+
+def compare_packed_residual(main_err: dict) -> None:
+    from multigridcmt_tpu_torch.kernels import packed2d
+
+    for dtype, n in PACKED_RESIDUAL_SHAPES:
+        h = 1.0 / (n + 1)
+        u, b, _ = leg_inputs(n, dtype, seed=n + 3)
+        su, sb = packed2d.pack(u), packed2d.pack(b)
+        for sigma in (0.0, SIGMA):
+            err = check_pair(
+                f"packed residual {str(dtype).split('.')[-1]} n={n} "
+                f"sigma={sigma}",
+                packed2d.residual(su, sb, n, h, sigma=sigma),
+                packed2d.residual_plain(su, sb, n, h, sigma=sigma),
+                TOL[dtype])
+            if n == 2 ** MAIN_K - 1 and sigma == 0.0:
+                main_err["packed2d_residual"] = err
+        del u, b, su, sb
+
+
+def omega3() -> float:
+    """The 3D weighted-Jacobi default (6/7), as a solve would take it."""
+    from multigridcmt_tpu_torch.config import SolverConfig
+
+    return SolverConfig(ndim=3, smoother="jacobi").effective_omega()
+
+
+def compare_stencil3d(main_err: dict) -> None:
+    from multigridcmt_tpu_torch.kernels import stencil3d
+
+    w = omega3()
+    # (wrapper, kernel, arguments, at the main path's call): the cycle
+    # calls rbgs_sweep with nu = 2 sweeps; Jacobi is timed a sweep.
+    modes = [("residual", "stencil3d_residual", {}, True),
+             ("jacobi_sweep", "stencil3d_jacobi", dict(omega=w), True),
+             ("jacobi_sweep", "stencil3d_jacobi", dict(omega=w, sweeps=2),
+              False),
+             ("rbgs_sweep", "stencil3d_rbgs", {}, False),
+             ("rbgs_sweep", "stencil3d_rbgs", dict(sweeps=2), True)]
+    for dtype, n in STENCIL3D_SHAPES:
+        h = 1.0 / (n + 1)
+        tol = TOL[dtype]
+        u, b = cube_inputs(n, dtype, seed=3 * n)
+        name = f"{str(dtype).split('.')[-1]} n={n}"
+        at_main = dtype == torch.float32 and n == 2 ** MAIN_K3 - 1
+        for sigma in (0.0, SIGMA):
+            for mode, key, kw, main in modes:
+                err = check_pair(
+                    f"{key} {name} sigma={sigma} {kw}",
+                    getattr(stencil3d, mode)(u, b, n, h, sigma=sigma, **kw),
+                    getattr(stencil3d, mode + "_plain")(u, b, n, h,
+                                                        sigma=sigma, **kw),
+                    tol, shape=(n + 2,) * 3)
+                if at_main and main and sigma == 0.0:
+                    main_err[key] = err
+        if dtype == torch.float64:
+            # A slab-and-pencil stack: global planes 100..139 (past the
+            # ghost plane 128 they are zero) and rows -2..57 of the grid.
+            goff, roff, p, r = 100, -2, 40, 60
+            su, sb = (torch.zeros((p, r, n + 2), dtype=dtype, device="cuda")
+                      for _ in range(2))
+            for s, g in ((su, u), (sb, b)):
+                planes = g[goff:goff + p, :r + roff]
+                s[:planes.shape[0], -roff:] = planes
+            for mode, key, kw, _ in modes:
+                check_pair(
+                    f"{key} {name} stack goff={goff} roff={roff} {kw}",
+                    getattr(stencil3d, mode)(su, sb, n, h, sigma=SIGMA,
+                                             goff=goff, roff=roff, **kw),
+                    getattr(stencil3d, mode + "_plain")(
+                        su, sb, n, h, sigma=SIGMA, goff=goff, roff=roff,
+                        **kw), tol, ghosts=False)
+            del su, sb
+        del u, b
+        torch.cuda.empty_cache()
+
+
+def phase_compare():
+    """Each kernel against its plain version on the card. Returns (max abs
+    error, relative error, tolerance) per kernel at the main paths' shapes
+    (float32, RB-GS, nu=2, sigma=0; packed at n=4095, fused2d and
+    stencil2d at n=2047, stencil3d at n=511 (Jacobi: one sweep)); of a
+    leg's two outputs, the one with the larger relative error."""
+    main_err = {}
+    compare_2d(main_err)
+    compare_packed_residual(main_err)
+    compare_stencil3d(main_err)
     return main_err
 
 
-COUNTERS = {
-    "packed2d_down": ("packed2d", "down_launches"),
-    "packed2d_up": ("packed2d", "up_launches"),
-    "packed2d_resnorm": ("packed2d", "resnorm_launches"),
-    "fused2d_down": ("fused2d", "down_launches"),
-    "fused2d_up": ("fused2d", "up_launches"),
-    "stencil2d_residual": ("stencil2d", "launches"),
+# Kernel -> (counter module, counter, CUDA source, the TPU kernel it
+# replaces, the run of phase 3 whose launches it reports).
+KERNELS = {
+    "packed2d_down": ("packed2d", "down_launches",
+                      "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
+                      "multigridcmt_tpu/kernels/packed2d.py:839", "solve2d"),
+    "packed2d_up": ("packed2d", "up_launches",
+                    "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
+                    "multigridcmt_tpu/kernels/packed2d.py:1067", "solve2d"),
+    "packed2d_resnorm": ("packed2d", "resnorm_launches",
+                         "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
+                         "multigridcmt_tpu/kernels/packed2d.py:553",
+                         "solve2d"),
+    "fused2d_down": ("fused2d", "down_launches",
+                     "multigridcmt_tpu_torch/kernels/csrc/fused2d.cu",
+                     "multigridcmt_tpu/kernels/fused2d.py:289", "solve2d"),
+    "fused2d_up": ("fused2d", "up_launches",
+                   "multigridcmt_tpu_torch/kernels/csrc/fused2d.cu",
+                   "multigridcmt_tpu/kernels/fused2d.py:479", "solve2d"),
+    "packed2d_residual": ("packed2d", "residual_launches",
+                          "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
+                          "multigridcmt_tpu/kernels/packed2d.py:440",
+                          "pcg2d"),
+    "stencil3d_rbgs": ("stencil3d", "rbgs_launches",
+                       "multigridcmt_tpu_torch/kernels/csrc/stencil3d.cu",
+                       "multigridcmt_tpu/kernels/stencil3d.py:510",
+                       "solve3d"),
+    "stencil3d_residual": ("stencil3d", "residual_launches",
+                           "multigridcmt_tpu_torch/kernels/csrc/stencil3d.cu",
+                           "multigridcmt_tpu/kernels/stencil3d.py:474",
+                           "solve3d"),
+    "stencil2d_residual": ("stencil2d", "launches",
+                           "multigridcmt_tpu_torch/kernels/csrc/stencil2d.cu",
+                           "multigridcmt_tpu/kernels/stencil2d.py:304",
+                           "f64_2d"),
+    "stencil3d_jacobi": ("stencil3d", "jacobi_launches",
+                         "multigridcmt_tpu_torch/kernels/csrc/stencil3d.cu",
+                         "multigridcmt_tpu/kernels/stencil3d.py:485",
+                         "jacobi3d"),
 }
+# Ported, but off the main paths.
+OFF_PATH = ("stencil2d_residual", "stencil3d_jacobi")
 
 
 def reset_counts() -> None:
     import multigridcmt_tpu_torch.kernels as kernels
 
-    for mod, attr in COUNTERS.values():
+    for mod, attr, *_ in KERNELS.values():
         setattr(getattr(kernels, mod), attr, 0)
 
 
@@ -271,84 +444,165 @@ def read_counts() -> dict:
     import multigridcmt_tpu_torch.kernels as kernels
 
     return {name: getattr(getattr(kernels, mod), attr)
-            for name, (mod, attr) in COUNTERS.items()}
+            for name, (mod, attr, *_) in KERNELS.items()}
 
 
-def phase_main_path():
-    """The slice through the public entry points. Returns the launch
-    counts of the 4095^2 solve and its peak device memory."""
-    import multigridcmt_tpu_torch as mt
-    from multigridcmt_tpu_torch import kernels
-
-    prob = mt.poisson2d(k=MAIN_K, dtype=torch.float32, smoother="rbgs",
-                        use_kernels=True, device="cuda")
-    solver = mt.MultigridSolver(prob)
-    sizes = [lv.n for lv in prob.hierarchy.levels[:-1]]
-    packed_levels = sum(n >= kernels.PACK_MIN_N for n in sizes)
-    fused_levels = sum(kernels.KERNEL_MIN_N <= n < kernels.PACK_MIN_N
-                       for n in sizes)
+def counted(fn):
+    """(fn(), launches of each kernel in that call, wall seconds): the
+    counters are set to 0 just before and read just after."""
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res = solver.solve()
+    out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    return out, read_counts(), wall
+
+
+def require_counts(label: str, got: dict, **want) -> None:
+    """Every kernel launched exactly as ``want`` says, every other one not
+    at all."""
+    full = {name: want.get(name, 0) for name in KERNELS}
+    log(f"  launches {label}: { {k: v for k, v in got.items() if v} }")
+    require(got == full, f"{label}: launches {got}, expected {full}")
+
+
+def check_solve(label: str, prob, solver, res, wall: float, ndim: int,
+                peak=None) -> None:
+    """A float32 solve's shape, residual drop and error against u_exact."""
     x = res.x
     maxerr = (x - prob.u_exact).abs().max().item()
     hist = res.res_history[: res.iters + 1].tolist()
-    log(f"solve k={MAIN_K} float32 rbgs: iters {res.iters}, converged "
-        f"{res.converged}, final rel residual {hist[-1]:.4e}, max error vs "
-        f"u_exact {maxerr:.4e}, l2 error "
-        f"{solver.discrete_l2_error(x).item():.4e}, wall {wall:.3f} s, "
-        f"peak memory {peak / 2**20:.1f} MiB")
+    mem = "" if peak is None else f", peak memory {peak / 2**20:.1f} MiB"
+    log(f"{label}: iters {res.iters}, converged {res.converged}, final rel "
+        f"residual {hist[-1]:.4e}, max error vs u_exact {maxerr:.4e}, l2 "
+        f"error {solver.discrete_l2_error(x).item():.4e}, wall {wall:.3f} s"
+        f"{mem}")
     log(f"  history {[f'{v:.3e}' for v in hist]}")
-    log(f"  launches {launches}; {packed_levels} packed and {fused_levels} "
-        "fused2d levels")
-    require(x.shape == (2 ** MAIN_K + 1,) * 2 and bool(x.isfinite().all()),
-            "solution has the wrong shape or non-finite values")
-    require((packed_levels, fused_levels) == (1, 4),
-            f"{packed_levels} packed and {fused_levels} fused2d levels, "
-            "not 1 and 4")
+    require(tuple(x.shape) == tuple(prob.b.shape)
+            and bool(x.isfinite().all()),
+            f"{label}: solution has the wrong shape or non-finite values")
     require(res.iters >= 2 and hist[-1] < 0.5 * hist[0],
-            f"the solve did not reduce the residual: {hist}")
+            f"{label}: the solve did not reduce the residual: {hist}")
+    require(maxerr < MAXERR[ndim], f"{label}: max error vs u_exact "
+            f"{maxerr:.3e} >= {MAXERR[ndim]}")
+
+
+def vcycles_against_plain(label: str, build, rtol: float) -> None:
+    """Five V-cycles from x = 0 on the kernel path and on the plain path,
+    both on the card, through MultigridSolver.v_cycle."""
+    import multigridcmt_tpu_torch as mt
+
+    pk, pp = build(True), build(False)
+    sk, sp = mt.MultigridSolver(pk), mt.MultigridSolver(pp)
+    xk = torch.zeros_like(pk.b)
+    xp = torch.zeros_like(pp.b)
+    for _ in range(5):
+        xk = sk.v_cycle(xk, pk.b)
+        xp = sp.v_cycle(xp, pp.b)
+    diff = (torch.linalg.vector_norm(xk - xp)
+            / torch.linalg.vector_norm(xp)).item()
+    errs = [(x - pk.u_exact).abs().max().item() for x in (xk, xp)]
+    bound = MAXERR[pk.config.ndim]
+    log(f"5 V-cycles {label}, kernel vs plain: rel l2 {diff:.3e}, max abs "
+        f"{(xk - xp).abs().max().item():.3e}; max error vs u_exact "
+        f"{errs[0]:.3e} (kernel), {errs[1]:.3e} (plain)")
+    require(diff <= rtol and max(errs) < bound,
+            f"{label} V-cycles differ: {diff:.3e} > {rtol}, or error vs "
+            f"u_exact {errs} >= {bound}")
+
+
+def f64_against_plain(label: str, build, hist_rtol: float, method="mg"):
+    """A float64 solve on the kernel path and the plain path: both
+    converge, in equal iterations, with histories within ``hist_rtol``
+    (plus the dimension's ``F64_FLOOR``). Returns the kernel path's result
+    and launches."""
+    import multigridcmt_tpu_torch as mt
+
+    out = {}
+    for use_kernels in (True, False):
+        p = build(use_kernels)
+        res, counts, _ = counted(
+            lambda: mt.MultigridSolver(p).solve(method=method))
+        out[use_kernels] = (p, res, counts)
+    (pk, rk, ck), (_, rp, _) = out[True], out[False]
+    hk = rk.res_history[: rk.iters + 1]
+    hp = rp.res_history[: rp.iters + 1]
+    err64 = (rk.x - pk.u_exact).abs().max().item()
+    log(f"{label} float64: kernel iters {rk.iters} converged {rk.converged}, "
+        f"plain iters {rp.iters}; final {hk[-1].item():.3e}; max error vs "
+        f"u_exact {err64:.3e}")
+    require(rk.converged and rp.converged and rk.iters == rp.iters,
+            f"{label} float64: {rk.iters}/{rk.converged} vs "
+            f"{rp.iters}/{rp.converged}")
+    hdiff = ((hk - hp).abs() / hp).tolist()
+    log(f"  history rel diff {[f'{v:.1e}' for v in hdiff]}")
+    floor = F64_FLOOR[pk.config.ndim]
+    require(bool(((hk - hp).abs() <= hist_rtol * hp + floor).all()),
+            f"{label} float64 histories differ by {max(hdiff):.3e} > "
+            f"{hist_rtol} (+ {floor})")
+    # The discretisation error is pi^2 h^2 / 12 to leading order; below
+    # k = 9 it passes 1e-5.
+    bound = max(1e-5, 1.5 * math.pi ** 2 * pk.config.h ** 2 / 12)
+    require(err64 < bound, f"{label} float64 max error vs u_exact "
+            f"{err64:.3e} >= {bound:.3e}")
+    return rk, ck
+
+
+def fused_levels(prob) -> int:
+    """Levels of a 2D problem that run the fused2d legs."""
+    from multigridcmt_tpu_torch import kernels
+
+    return sum(kernels.KERNEL_MIN_N <= lv.n < kernels.PACK_MIN_N
+               for lv in prob.hierarchy.levels[:-1])
+
+
+def paths_2d(runs: dict) -> None:
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch import kernels
+
+    def build(k, dtype, use_kernels=True, **kw):
+        return mt.poisson2d(k=k, dtype=dtype, smoother="rbgs",
+                            use_kernels=use_kernels, device="cuda", **kw)
+
+    prob = build(MAIN_K, torch.float32)
+    solver = mt.MultigridSolver(prob)
+    packed_levels = sum(lv.n >= kernels.PACK_MIN_N
+                        for lv in prob.hierarchy.levels[:-1])
+    fused = fused_levels(prob)
+    require((packed_levels, fused) == (1, 4),
+            f"{packed_levels} packed and {fused} fused2d levels, not 1 and 4")
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = counted(solver.solve)
+    runs["peak2d"] = torch.cuda.max_memory_allocated()
     # The float32 solve stalls near 1e-1 relative residual at this h (the
     # 1/h^2 cancellation); the iterate is still close to the analytic
     # solution.
-    require(maxerr < 1e-2, f"max error vs u_exact {maxerr:.3e} >= 1e-2")
-    want = {"packed2d_down": res.iters, "packed2d_up": res.iters,
-            "packed2d_resnorm": res.iters + 1,
-            "fused2d_down": fused_levels * res.iters,
-            "fused2d_up": fused_levels * res.iters,
-            "stencil2d_residual": 0}
-    require(launches == want, f"launches {launches}, expected {want}")
+    check_solve(f"solve k={MAIN_K} float32 rbgs", prob, solver, res, wall, 2,
+                runs["peak2d"])
+    i = res.iters
+    require_counts("solve2d", counts, packed2d_down=i, packed2d_up=i,
+                   packed2d_resnorm=i + 1, fused2d_down=fused * i,
+                   fused2d_up=fused * i)
+    runs["solve2d"] = counts
 
-    # Five V-cycles on the kernel path and on the plain path, both on the
-    # card, from x = 0, through MultigridSolver.v_cycle (which packs and
-    # unpacks the 4095 level at its boundary).
+    # MG-PCG: CG's first residual and its operator apply (one an
+    # iteration) run the packed residual; each preconditioning cycle (one
+    # from the start and one an iteration) the packed and fused2d legs.
+    res, counts, wall = counted(lambda: solver.solve(method="pcg"))
+    check_solve(f"pcg k={MAIN_K} float32 rbgs", prob, solver, res, wall, 2)
+    i = res.iters
+    require_counts("pcg2d", counts, packed2d_residual=1 + i,
+                   packed2d_down=i + 1, packed2d_up=i + 1,
+                   fused2d_down=fused * (i + 1),
+                   fused2d_up=fused * (i + 1))
+    runs["pcg2d"] = counts
+    del prob, solver, res
+
     for dtype, rtol in VCYCLE_RTOL.items():
-        pk, pp = (mt.poisson2d(k=MAIN_K, dtype=dtype, smoother="rbgs",
-                               use_kernels=use_kernels, device="cuda")
-                  for use_kernels in (True, False))
-        sk, sp = mt.MultigridSolver(pk), mt.MultigridSolver(pp)
-        xk = torch.zeros_like(pk.b)
-        xp = torch.zeros_like(pp.b)
-        for _ in range(5):
-            xk = sk.v_cycle(xk, pk.b)
-            xp = sp.v_cycle(xp, pp.b)
-        diff = (torch.linalg.vector_norm(xk - xp)
-                / torch.linalg.vector_norm(xp)).item()
-        errs = [(x - pk.u_exact).abs().max().item() for x in (xk, xp)]
-        log(f"5 V-cycles {str(dtype).split('.')[-1]} k={MAIN_K}, kernel vs "
-            f"plain: rel l2 {diff:.3e}, max abs "
-            f"{(xk - xp).abs().max().item():.3e}; max error vs u_exact "
-            f"{errs[0]:.3e} (kernel), {errs[1]:.3e} (plain)")
-        require(diff <= rtol and max(errs) < 1e-2,
-                f"{dtype} V-cycles differ: {diff:.3e} > {rtol}, or error "
-                f"vs u_exact {errs} >= 1e-2")
-        del pk, pp, sk, sp, xk, xp
+        vcycles_against_plain(
+            f"{str(dtype).split('.')[-1]} k={MAIN_K}",
+            lambda use_kernels: build(MAIN_K, dtype, use_kernels), rtol)
 
     # float64: kernel path against plain path. k=10 (fused2d legs, the
     # stencil2d check) must agree to rtol 1e-8 in its history. At k=12 the
@@ -356,60 +610,157 @@ def phase_main_path():
     # floor (~1e-9 relative at this h) that differs from the plain path's
     # full norm by up to a few 1e-3 of the value, so the histories are held
     # to 1e-2 there and the cycle counts must agree.
-    for k, hist_rtol in ((10, 1e-8), (MAIN_K, 1e-2)):
-        out = {}
-        for use_kernels in (True, False):
-            p = mt.poisson2d(k=k, dtype=torch.float64, smoother="rbgs",
-                             tol=F64_TOL, use_kernels=use_kernels,
-                             device="cuda")
-            reset_counts()
-            out[use_kernels] = (p, mt.MultigridSolver(p).solve(),
-                                read_counts())
-        (pk, rk, ck), (_, rp, _) = out[True], out[False]
-        hk = rk.res_history[: rk.iters + 1]
-        hp = rp.res_history[: rp.iters + 1]
-        err64 = (rk.x - pk.u_exact).abs().max().item()
-        log(f"solve k={k} float64 rbgs: kernel iters {rk.iters} converged "
-            f"{rk.converged}, plain iters {rp.iters}; final "
-            f"{hk[-1].item():.3e}; max error vs u_exact {err64:.3e}; "
-            f"launches {ck}")
-        require(rk.converged and rp.converged and rk.iters == rp.iters,
-                f"float64 k={k} solves: {rk.iters}/{rk.converged} vs "
-                f"{rp.iters}/{rp.converged}")
-        hdiff = ((hk - hp).abs() / hp).tolist()
-        log(f"  history rel diff {[f'{v:.1e}' for v in hdiff]}")
-        require(max(hdiff) <= hist_rtol, f"float64 k={k} histories differ "
-                f"by {max(hdiff):.3e} > {hist_rtol}")
-        require(err64 < 1e-5, f"float64 k={k} max error vs u_exact "
-                f"{err64:.3e}")
-        if k == 10:
-            require(ck["stencil2d_residual"] == rk.iters + 1,
-                    f"k=10 residual kernel launched {ck}")
-        del out, pk, rk, rp
-    return launches, peak
+    k_solve, k_pcg = F64_K[2]
+    for k, hist_rtol in ((k_solve, 1e-8), (MAIN_K, 1e-2)):
+        rk, ck = f64_against_plain(
+            f"solve k={k}", lambda use_kernels: build(
+                k, torch.float64, use_kernels, tol=F64_TOL), hist_rtol)
+        if k == k_solve:
+            fused = fused_levels(build(k, torch.float64))
+            require_counts("f64_2d", ck, stencil2d_residual=rk.iters + 1,
+                           fused2d_down=fused * rk.iters,
+                           fused2d_up=fused * rk.iters)
+            runs["f64_2d"] = ck
+    # float64 PCG on an unpacked fine level: the stencil2d residual is CG's
+    # first residual and its operator apply.
+    rk, ck = f64_against_plain(
+        f"pcg k={k_pcg}", lambda use_kernels: build(
+            k_pcg, torch.float64, use_kernels, tol=F64_TOL), F64_TOL, "pcg")
+    fused = fused_levels(build(k_pcg, torch.float64))
+    require_counts(f"pcg f64 k={k_pcg}", ck, stencil2d_residual=1 + rk.iters,
+                   fused2d_down=fused * (rk.iters + 1),
+                   fused2d_up=fused * (rk.iters + 1))
 
 
-def phase_times():
-    """Times on the card, float32, RB-GS, nu = 2, sigma = 0: the cycle at
-    4095^2, each kernel against its plain version at its main-path shape
-    (packed: 4095; fused2d and stencil2d: 2047, the largest unpacked
-    level), and the packed kernels against their unpacked twins at 4095."""
+def tier3(prob) -> int:
+    """Levels of a 3D problem that run the stencil3d kernels."""
+    from multigridcmt_tpu_torch import kernels
+
+    return sum(lv.n >= kernels.KERNEL3_MIN_N
+               for lv in prob.hierarchy.levels[:-1])
+
+
+def paths_3d(runs: dict) -> None:
     import multigridcmt_tpu_torch as mt
-    from multigridcmt_tpu_torch.kernels import fused2d, packed2d, stencil2d
+    from multigridcmt_tpu_torch.kernels import stencil3d
+    from multigridcmt_tpu_torch.ops import laplacian
+
+    def build(k, dtype, use_kernels=True, **kw):
+        return mt.poisson3d(k=k, dtype=dtype, smoother="rbgs",
+                            use_kernels=use_kernels, device="cuda", **kw)
+
+    prob = build(MAIN_K3, torch.float32)
+    solver = mt.MultigridSolver(prob)
+    cfg = prob.config
+    sweeps = cfg.nu1 + cfg.nu2
+    tier = tier3(prob)
+    require(tier == 3, f"{tier} stencil3d levels at k={MAIN_K3}, not 3")
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = counted(solver.solve)
+    runs["peak3d"] = torch.cuda.max_memory_allocated()
+    check_solve(f"solve 3D k={MAIN_K3} float32 rbgs", prob, solver, res,
+                wall, 3, runs["peak3d"])
+    # Per cycle: nu1 + nu2 sweeps (one launch each) and the down leg's
+    # residual on each kernel level; the solve's check once a cycle and
+    # once before the first.
+    i = res.iters
+    require_counts("solve3d", counts,
+                   stencil3d_rbgs=tier * sweeps * i,
+                   stencil3d_residual=tier * i + (i + 1))
+    runs["solve3d"] = counts
+
+    res, counts, wall = counted(lambda: solver.solve(method="pcg"))
+    check_solve(f"pcg 3D k={MAIN_K3} float32 rbgs", prob, solver, res, wall,
+                3)
+    i = res.iters
+    require_counts("pcg3d", counts,
+                   stencil3d_rbgs=tier * sweeps * (i + 1),
+                   stencil3d_residual=1 + i + tier * (i + 1))
+    runs["pcg3d"] = counts
+
+    # The Jacobi kernel, off the path: nu1 sweeps on the main problem's b
+    # from a random start. Weighted Jacobi with omega = 6/7 damps the
+    # oscillatory error that dominates such a start, so the residual must
+    # fall well below its first value.
+    n, h = cfg.n, cfg.h
+    (x0,) = grids_on_card(n, torch.float32, MAIN_K3, 1, ndim=3)
+    x, counts, _ = counted(lambda: stencil3d.jacobi_sweep(
+        x0, prob.b, n, h, omega3(), sweeps=cfg.nu1))
+    require_counts("jacobi3d", counts, stencil3d_jacobi=cfg.nu1)
+    runs["jacobi3d"] = counts
+    r0, r1 = (torch.linalg.vector_norm(laplacian.residual(v, prob.b, h))
+              .item() for v in (x0, x))
+    log(f"3D Jacobi x{cfg.nu1} from a random start at k={MAIN_K3}: ||r|| "
+        f"{r0:.4e} -> {r1:.4e}")
+    require(bool(x.isfinite().all()) and r1 < 0.9 * r0,
+            f"3D Jacobi sweeps did not reduce the residual: {r0} -> {r1}")
+    del prob, solver, res, x0, x
+
+    vcycles_against_plain(
+        f"float32 3D k={MAIN_K3}",
+        lambda use_kernels: build(MAIN_K3, torch.float32, use_kernels),
+        VCYCLE3_RTOL)
+    k_solve, k_pcg = F64_K[3]
+    rk, ck = f64_against_plain(
+        f"solve 3D k={k_solve}", lambda use_kernels: build(
+            k_solve, torch.float64, use_kernels, tol=F64_TOL), F64_TOL)
+    tier = tier3(build(k_solve, torch.float64))
+    i = rk.iters
+    require_counts(f"f64 3D k={k_solve}", ck, stencil3d_rbgs=tier * sweeps * i,
+                   stencil3d_residual=tier * i + i + 1)
+    rk, ck = f64_against_plain(
+        f"pcg 3D k={k_pcg}", lambda use_kernels: build(
+            k_pcg, torch.float64, use_kernels, tol=F64_TOL), F64_TOL, "pcg")
+    tier = tier3(build(k_pcg, torch.float64))
+    i = rk.iters
+    require_counts(f"pcg f64 3D k={k_pcg}", ck,
+                   stencil3d_rbgs=tier * sweeps * (i + 1),
+                   stencil3d_residual=1 + i + tier * (i + 1))
+
+
+def phase_main_path():
+    """The slice's paths through the public entry points. Returns, per
+    run, its launch counts, and the peak device memory of the solves."""
+    runs = {}
+    paths_2d(runs)
+    paths_3d(runs)
+    return runs
+
+
+def time_pair(name: str, kernel, plain) -> dict:
+    """Plain, kernel, kernel, plain: compare within one window."""
     from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
 
-    times = {}
-    for use_kernels in (True, False):
-        prob = mt.poisson2d(k=MAIN_K, dtype=torch.float32, smoother="rbgs",
-                            use_kernels=use_kernels, device="cuda")
-        solver = mt.MultigridSolver(prob)
-        x = torch.zeros_like(prob.b)
-        times["cycle" if use_kernels else "cycle_plain"] = cuda_time_ms(
-            lambda: solver.v_cycle(x, prob.b))
-        del prob, solver, x
+    p1 = cuda_time_ms(plain)
+    k1 = cuda_time_ms(kernel)
+    k2 = cuda_time_ms(kernel)
+    p2 = cuda_time_ms(plain)
+    log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
+        "ms")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
+
+
+# Arithmetic each function needs per fine interior point, counted from its
+# formula (adds, multiplies, the two halves of an FMA): residual 2D 8, 3D
+# 10; a Gauss-Seidel update 2D 6, 3D 8; Jacobi 3D 12; a down leg 6 a sweep
+# + 12 (residual and full weighting), an up leg 6 a sweep + 3
+# (prolongation); the red-only norm 5 (half the points, square and add).
+# Every kernel row is float32 and bound by bytes by a wide margin.
+def flops_per_point(name: str, sweeps: int = 2) -> int:
+    return {"stencil2d_residual": 8, "packed2d_residual": 8,
+            "packed2d_resnorm": 5, "stencil3d_residual": 10,
+            "stencil3d_jacobi": 12, "stencil3d_rbgs": 8,
+            "fused2d_down": 6 * sweeps + 12, "packed2d_down": 6 * sweeps + 12,
+            "fused2d_up": 6 * sweeps + 3,
+            "packed2d_up": 6 * sweeps + 3}[name]
+
+
+def timed_2d(times: dict) -> None:
+    from multigridcmt_tpu_torch.kernels import fused2d, packed2d, stencil2d
+
     kw = dict(kind="rbgs", omega=1.0, sweeps=2)
     unpacked = ("fused2d_down", "fused2d_up", "stencil2d_residual")
-    # (n, key suffix, kernels timed): every kernel at 4095, the packed
+    # (n, key suffix, kernels timed): every 2D kernel at 4095, the packed
     # level; the unpacked ones also at 2047, their main-path shape.
     for n, tag, names in ((2 ** MAIN_K - 1, "@4095", None),
                           (2 ** (MAIN_K - 1) - 1, "", unpacked)):
@@ -417,98 +768,170 @@ def phase_times():
         h = 1.0 / (n + 1)
         u, b, e = leg_inputs(n, torch.float32, seed=7)
         su, sb = packed2d.pack(u), packed2d.pack(b)
+        rc = torch.empty((nc + 2, nc + 2), device="cuda")
+        # name -> (kernel, plain, bytes read once and written once)
         pairs = {
             "fused2d_down": (
                 lambda: fused2d.smooth_residual_restrict(u, b, n, h, **kw),
                 lambda: fused2d.smooth_residual_restrict_plain(u, b, n, h,
-                                                               **kw)),
+                                                               **kw),
+                nbytes(u, b, u, rc)),
             "fused2d_up": (
                 lambda: fused2d.prolong_add_smooth(u, e, b, n, nc, h, **kw),
                 lambda: fused2d.prolong_add_smooth_plain(u, e, b, n, nc, h,
-                                                         **kw)),
+                                                         **kw),
+                nbytes(u, e, b, u)),
             "stencil2d_residual": (
                 lambda: stencil2d.residual(u, b, n, h),
-                lambda: stencil2d.residual_plain(u, b, n, h)),
+                lambda: stencil2d.residual_plain(u, b, n, h),
+                nbytes(u, b, u)),
             "stencil2d_residual+norm": (
                 lambda: torch.linalg.vector_norm(
                     stencil2d.residual(u, b, n, h)),
                 lambda: torch.linalg.vector_norm(
-                    stencil2d.residual_plain(u, b, n, h))),
+                    stencil2d.residual_plain(u, b, n, h)), None),
             "packed2d_down": (
                 lambda: packed2d.smooth_residual_restrict(su, sb, n, h,
                                                           **kw),
                 lambda: packed2d.smooth_residual_restrict_plain(
-                    su, sb, n, h, **kw)),
+                    su, sb, n, h, **kw), nbytes(su, sb, su, rc)),
             "packed2d_up": (
                 lambda: packed2d.prolong_add_smooth(su, e, sb, n, nc, h,
                                                     **kw),
                 lambda: packed2d.prolong_add_smooth_plain(
-                    su, e, sb, n, nc, h, **kw)),
+                    su, e, sb, n, nc, h, **kw), nbytes(su, e, sb, su)),
+            # Red-only: u's two planes and b's red plane.
             "packed2d_resnorm": (
                 lambda: packed2d.residual_norm_sq(su, sb, n, h,
                                                   red_only=True),
                 lambda: packed2d.residual_norm_sq_plain(su, sb, n, h,
-                                                        red_only=True)),
+                                                        red_only=True),
+                nbytes(su, sb[0])),
+            "packed2d_residual": (
+                lambda: packed2d.residual(su, sb, n, h),
+                lambda: packed2d.residual_plain(su, sb, n, h),
+                nbytes(su, sb, su)),
         }
-        for name, (kernel, plain) in pairs.items():
+        for name, (kernel, plain, moved) in pairs.items():
             if names is not None and name not in names:
                 continue
-            # Plain, kernel, kernel, plain: compare within one window.
-            p1 = cuda_time_ms(plain)
-            k1 = cuda_time_ms(kernel)
-            k2 = cuda_time_ms(kernel)
-            p2 = cuda_time_ms(plain)
-            times[name + tag] = min(k1, k2)
-            times[name + tag + "_plain"] = min(p1, p2)
-            log(f"time {name} n={n}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-                f"{p1:.4f}/{p2:.4f} ms")
-        del pairs, u, b, e, su, sb
+            t = time_pair(f"{name} n={n}", kernel, plain)
+            if moved is not None:
+                t.update(bytes=moved,
+                         flops=flops_per_point(name) * n * n)
+            times[name + tag] = t
+        del pairs, u, b, e, su, sb, rc
     log(f"packed against unpacked at 4095^2: down "
-        f"{times['packed2d_down@4095']:.4f} vs "
-        f"{times['fused2d_down@4095']:.4f} ms, up "
-        f"{times['packed2d_up@4095']:.4f} vs {times['fused2d_up@4095']:.4f}"
-        f" ms, check {times['packed2d_resnorm@4095']:.4f} vs residual+norm "
-        f"{times['stencil2d_residual+norm@4095']:.4f} ms")
-    log(f"time V(2,2) cycle 4095^2 float32: kernel path {times['cycle']:.3f}"
-        f" ms, plain path {times['cycle_plain']:.3f} ms")
+        f"{times['packed2d_down@4095']['ms']:.4f} vs "
+        f"{times['fused2d_down@4095']['ms']:.4f} ms, up "
+        f"{times['packed2d_up@4095']['ms']:.4f} vs "
+        f"{times['fused2d_up@4095']['ms']:.4f} ms, check "
+        f"{times['packed2d_resnorm@4095']['ms']:.4f} vs residual+norm "
+        f"{times['stencil2d_residual+norm@4095']['ms']:.4f} ms")
+
+
+def timed_3d(times: dict) -> None:
+    from multigridcmt_tpu_torch.kernels import stencil3d
+
+    n = 2 ** MAIN_K3 - 1
+    h = 1.0 / (n + 1)
+    u, b = cube_inputs(n, torch.float32, seed=9)
+    w = omega3()
+    # One call = one launch count: the residual, one Jacobi sweep, one
+    # RB-GS sweep (two passes); each reads u and b and writes one grid.
+    for name, mode, kw in (("stencil3d_residual", "residual", {}),
+                           ("stencil3d_jacobi", "jacobi_sweep",
+                            dict(omega=w)),
+                           ("stencil3d_rbgs", "rbgs_sweep", {})):
+        t = time_pair(
+            f"{name} n={n}",
+            lambda: getattr(stencil3d, mode)(u, b, n, h, **kw),
+            lambda: getattr(stencil3d, mode + "_plain")(u, b, n, h, **kw))
+        t.update(bytes=nbytes(u, b, u), flops=flops_per_point(name) * n ** 3)
+        times[name] = t
+    del u, b
+    torch.cuda.empty_cache()
+
+
+def timed_solves(times: dict) -> None:
+    """One V(2,2) cycle at 4095^2 and 511^3 float32 on both routes, and one
+    PCG iteration at 4095^2 (the difference of 3 and 2 iterations with
+    tol = 0, so neither stops early)."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.solvers import krylov
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    for label, ndim, k in (("", 2, MAIN_K), ("3d", 3, MAIN_K3)):
+        for use_kernels in (True, False):
+            prob = mt.poisson(k=k, ndim=ndim, dtype=torch.float32,
+                              smoother="rbgs", use_kernels=use_kernels,
+                              device="cuda")
+            solver = mt.MultigridSolver(prob)
+            x = torch.zeros_like(prob.b)
+            key = "cycle" + label + ("" if use_kernels else "_plain")
+            times[key] = cuda_time_ms(lambda: solver.v_cycle(x, prob.b))
+            del prob, solver, x
+        log(f"time V(2,2) cycle {ndim}D k={k} float32: kernel path "
+            f"{times['cycle' + label]:.3f} ms, plain path "
+            f"{times['cycle' + label + '_plain']:.3f} ms")
+        torch.cuda.empty_cache()
+    prob = mt.poisson2d(k=MAIN_K, dtype=torch.float32, smoother="rbgs",
+                        use_kernels=True, device="cuda")
+    pcg = {}
+    for iters in (2, 3):
+        cfg = dataclasses.replace(prob.config, tol=0.0, max_iters=iters)
+        pcg[iters] = cuda_time_ms(
+            lambda: krylov.solve_pcg(prob.hierarchy, prob.b, cfg))
+    times["pcg_iter"] = pcg[3] - pcg[2]
+    log(f"time PCG k={MAIN_K} float32: 2 iterations {pcg[2]:.3f} ms, 3 "
+        f"iterations {pcg[3]:.3f} ms, one iteration {times['pcg_iter']:.3f}"
+        " ms")
+
+
+def phase_times():
+    """Times on the card, float32, RB-GS, nu = 2, sigma = 0: the cycles,
+    one PCG iteration, each kernel against its plain version at its
+    main-path shape (packed: 4095; fused2d and stencil2d: 2047, the largest
+    unpacked level; stencil3d: 511), and the packed kernels against their
+    unpacked twins at 4095."""
+    times = {}
+    timed_solves(times)
+    timed_2d(times)
+    timed_3d(times)
     return times
 
 
-# Kernel -> (CUDA source, the TPU kernel it replaces, the key of its time).
-SOURCES = {
-    "packed2d_down": ("multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
-                      "multigridcmt_tpu/kernels/packed2d.py:839",
-                      "packed2d_down@4095"),
-    "packed2d_up": ("multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
-                    "multigridcmt_tpu/kernels/packed2d.py:1067",
-                    "packed2d_up@4095"),
-    "packed2d_resnorm": ("multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
-                         "multigridcmt_tpu/kernels/packed2d.py:553",
-                         "packed2d_resnorm@4095"),
-    "fused2d_down": ("multigridcmt_tpu_torch/kernels/csrc/fused2d.cu",
-                     "multigridcmt_tpu/kernels/fused2d.py:289",
-                     "fused2d_down"),
-    "fused2d_up": ("multigridcmt_tpu_torch/kernels/csrc/fused2d.cu",
-                   "multigridcmt_tpu/kernels/fused2d.py:479", "fused2d_up"),
-}
-# Ported, but off the k=12 path (the check on an unpacked fine level).
-OFF_PATH = {
-    "stencil2d_residual": ("multigridcmt_tpu_torch/kernels/csrc/stencil2d.cu",
-                           "multigridcmt_tpu/kernels/stencil2d.py:304",
-                           "stencil2d_residual"),
-}
+# Kernel -> the key of its time in phase 4 (its main-path shape).
+TIME_KEY = {"packed2d_down": "packed2d_down@4095",
+            "packed2d_up": "packed2d_up@4095",
+            "packed2d_resnorm": "packed2d_resnorm@4095",
+            "packed2d_residual": "packed2d_residual@4095"}
 
 
-def kernel_rows(table, launches, errs, times):
+def kernel_rows(names, runs, errs, times):
     """The JSON rows. max_abs_err is in the output's own units (the legs'
     inputs carry b ~ 1/h^2 ~ 1.7e7 and the norm is a sum of ~8e6 such
     squares); rel_err is it over max|plain| (|plain| for the norm), held
-    to tol."""
-    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], "max_abs_err": errs[name][0],
-             "rel_err": errs[name][1], "tol": errs[name][2],
-             "ms": times[key], "plain_ms": times[key + "_plain"]}
-            for name, (src, rep, key) in table.items()]
+    to tol. bound_ms is the larger of the bytes the function moves (each
+    input read once, each output written once) over the card's memory
+    rate and its operations over the float32 rate. No single PyTorch call
+    computes any of these functions (each is b - Au or a whole leg, not a
+    convolution alone), so library_ms is null."""
+    rows = []
+    for name in names:
+        *_, src, rep, run = KERNELS[name]
+        t = times[TIME_KEY.get(name, name)]
+        by_bytes = t["bytes"] / PEAK_BYTES_PER_S * 1e3
+        by_ops = t["flops"] / PEAK_F32_FLOPS * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": runs[run][name], "max_abs_err": errs[name][0],
+            "rel_err": errs[name][1], "tol": errs[name][2],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None, "run": run})
+    return rows
 
 
 def main() -> int:
@@ -521,19 +944,23 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     try:
         card = phase_setup()
         errs = phase_compare()
-        launches, peak = phase_main_path()
+        runs = phase_main_path()
         times = phase_times()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
-    log(f"peak device memory of the 4095^2 solve: {peak} bytes; card: {card}")
-    log("off the k=12 path: " + json.dumps(
-        kernel_rows(OFF_PATH, launches, errs, times)))
-    print(json.dumps({"kernels": kernel_rows(SOURCES, launches, errs,
-                                             times)}))
+    log(f"peak device memory: 4095^2 solve {runs['peak2d']} bytes, 511^3 "
+        f"solve {runs['peak3d']} bytes; card: {card}")
+    on_path = [name for name in KERNELS if name not in OFF_PATH]
+    log("off the main paths: " + json.dumps(
+        kernel_rows(OFF_PATH, runs, errs, times)))
+    log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")
+    log(card)
+    print(json.dumps({"kernels": kernel_rows(on_path, runs, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

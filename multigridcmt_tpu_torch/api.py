@@ -14,12 +14,10 @@ from typing import Callable, Optional
 import torch
 
 from .config import SolverConfig
-from .grids import Hierarchy, build_hierarchy, grid_coords, interior, \
-    pad_interior
-from .solvers import cycles
+from .grids import (Hierarchy, build_hierarchy, check_device,
+                    grid_coords, interior, pad_interior)
+from .solvers import cycles, krylov
 
-PCG_TODO = ("method='pcg' needs solvers/krylov.py, not ported to PyTorch "
-            "yet (ROADMAP.md, queue 1: krylov)")
 EIGEN_TODO = ("eigensolve needs solvers/eigen.py, not ported to PyTorch yet "
               "(ROADMAP.md, queue 1: eigen)")
 SPARSE_TODO = ("as_csr/as_coo need ops/sparse.py, not ported to PyTorch "
@@ -53,19 +51,12 @@ def _default_u(*coords):
     return out
 
 
-def check_device(device) -> torch.device:
-    """The device to build on; a CUDA request with no card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device} requested but no CUDA device "
-                           "is available")
-    return device
-
-
 def poisson(k: int, ndim: int, f: Optional[Callable] = None,
-            config: Optional[SolverConfig] = None, device="cpu",
+            config: Optional[SolverConfig] = None, device=None,
             **config_overrides) -> Problem:
-    """Assemble a Poisson problem on the 2^k - 1 interior grid on ``device``.
+    """Assemble a Poisson problem on the 2^k - 1 interior grid on ``device``
+    (None: the card, ``grids.DEFAULT_DEVICE``; ``device="cpu"`` for the
+    CPU). With no card, a CUDA device raises ``RuntimeError``.
 
     ``f`` maps interior coordinate tensors to the RHS; None selects the
     model problem with a known analytic solution. Extra keyword arguments
@@ -96,7 +87,7 @@ def poisson2d(k: int, **kw) -> Problem:
 
 
 def poisson3d(k: int, **kw) -> Problem:
-    """7-point 3D Poisson on a (2^k - 1)^3 grid (plain PyTorch path)."""
+    """7-point 3D Poisson on a (2^k - 1)^3 grid."""
     return poisson(k, ndim=3, **kw)
 
 
@@ -115,10 +106,11 @@ class MultigridSolver:
     def solve(self, b: Optional[torch.Tensor] = None,
               x0: Optional[torch.Tensor] = None,
               method: str = "mg") -> cycles.SolveResult:
-        """Solve A x = b with stationary cycles (method="mg")."""
+        """Solve A x = b with stationary cycles (method="mg") or CG
+        preconditioned by one cycle an iteration (method="pcg")."""
         b = self.problem.b if b is None else b
         if method == "pcg":
-            raise NotImplementedError(PCG_TODO)
+            return krylov.solve_pcg(self.hierarchy, b, self.config, x0=x0)
         if method != "mg":
             raise ValueError(f"unknown solve method {method!r}")
         return cycles.solve(self.hierarchy, b, self.config, x0=x0)

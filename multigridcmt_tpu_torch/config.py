@@ -30,12 +30,16 @@ class SolverConfig:
       min_coarse: coarsest-level interior size per axis.
       tol: relative residual tolerance ||r|| / ||b||.
       max_iters: outer-cycle cap (also the residual-history length - 1).
-      use_kernels: route levels with n >= ``kernels.KERNEL_MIN_N`` through
-        the hand-written CUDA kernels (``kernels/``) instead of the plain
-        PyTorch stencils.
-      mesh_axis, agglom_rows, precond_dtype, fmg_prolong: kept so that JAX
-        configs convert one to one; the ported single-device V/W solve does
-        not read them.
+      use_kernels: route the large levels (2D: n >= ``kernels.KERNEL_MIN_N``;
+        3D RB-GS: n >= ``kernels.KERNEL3_MIN_N``) through the hand-written
+        CUDA kernels (``kernels/``) instead of the plain PyTorch stencils.
+      precond_dtype: the dtype of MG-PCG's preconditioning cycle. Read by
+        ``solvers.krylov.mixed_cycle_dtype``: where the JAX package would
+        run the cycle in it (the packed 2D tier, 3D RB-GS on the kernel
+        tier), the port raises ``NotImplementedError`` (mixed precision is
+        not ported yet); elsewhere it is ignored, as in JAX.
+      mesh_axis, agglom_rows, fmg_prolong: kept so that JAX configs convert
+        one to one; the ported single-device solvers do not read them.
     """
 
     ndim: int = 2

@@ -14,7 +14,7 @@ import torch
 
 from .api import Problem
 from .config import SolverConfig
-from .grids import Hierarchy, LevelSpec
+from .grids import Hierarchy, LevelSpec, check_device
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -35,8 +35,10 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def hierarchy_from_jax(hier, device="cpu") -> Hierarchy:
-    """The port's Hierarchy for a JAX ``Hierarchy``, on ``device``."""
+def hierarchy_from_jax(hier, device=None) -> Hierarchy:
+    """The port's Hierarchy for a JAX ``Hierarchy``, on ``device`` (None:
+    the card)."""
+    device = check_device(device)
     return Hierarchy(
         ndim=hier.ndim,
         levels=tuple(LevelSpec(n=lv.n, h=lv.h) for lv in hier.levels),
@@ -44,8 +46,10 @@ def hierarchy_from_jax(hier, device="cpu") -> Hierarchy:
         coarse_dense=_tensor(hier.coarse_dense, device))
 
 
-def problem_from_jax(prob, device="cpu") -> Problem:
-    """The port's Problem for a JAX ``Problem``, on ``device``."""
+def problem_from_jax(prob, device=None) -> Problem:
+    """The port's Problem for a JAX ``Problem``, on ``device`` (None: the
+    card)."""
+    device = check_device(device)
     return Problem(
         config=config_from_jax(prob.config),
         hierarchy=hierarchy_from_jax(prob.hierarchy, device),

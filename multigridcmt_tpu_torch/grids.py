@@ -19,6 +19,21 @@ import torch.nn.functional as F
 from .config import SolverConfig
 from .ops import laplacian
 
+# Every entry point that builds tensors runs on the card unless the caller
+# asks for another device (``device="cpu"``).
+DEFAULT_DEVICE = "cuda"
+
+
+def check_device(device=None) -> torch.device:
+    """The device to build on (None: ``DEFAULT_DEVICE``); a CUDA device
+    with no card raises instead of carrying on elsewhere."""
+    device = torch.device(DEFAULT_DEVICE if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device} requested but no CUDA device "
+                           "is available (pass device=\"cpu\" to run on "
+                           "the CPU)")
+    return device
+
 
 @dataclasses.dataclass(frozen=True)
 class LevelSpec:
@@ -56,12 +71,14 @@ class Hierarchy:
         return self.levels[-1]
 
 
-def build_hierarchy(config: SolverConfig, device="cpu") -> Hierarchy:
-    """Build the level list and the dense coarsest inverse on ``device``.
+def build_hierarchy(config: SolverConfig, device=None) -> Hierarchy:
+    """Build the level list and the dense coarsest inverse on ``device``
+    (None: the card, ``DEFAULT_DEVICE``).
 
     The inverse is computed with NumPy in float64 and then cast to the
     compute dtype, so its accuracy does not depend on that dtype.
     """
+    device = check_device(device)
     levels = tuple(LevelSpec(n=n, h=1.0 / (n + 1))
                    for n in config.level_sizes())
     a_dense = laplacian.dense_operator(levels[-1].n, config.ndim,
@@ -84,9 +101,11 @@ def interior(u: torch.Tensor) -> torch.Tensor:
     return u[(slice(1, -1),) * u.ndim]
 
 
-def grid_coords(n: int, ndim: int, dtype, device="cpu"):
-    """Interior coordinates; 1D -> (x,), 2D/3D -> 'ij' meshgrid tuple."""
-    x = torch.arange(1, n + 1, dtype=dtype, device=device) / (n + 1)
+def grid_coords(n: int, ndim: int, dtype, device=None):
+    """Interior coordinates on ``device`` (None: the card); 1D -> (x,),
+    2D/3D -> 'ij' meshgrid tuple."""
+    x = torch.arange(1, n + 1, dtype=dtype,
+                     device=check_device(device)) / (n + 1)
     if ndim == 1:
         return (x,)
     return tuple(torch.meshgrid(*([x] * ndim), indexing="ij"))

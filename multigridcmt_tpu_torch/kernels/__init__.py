@@ -1,15 +1,19 @@
 """CUDA kernel backend: ``KERNEL_BACKEND``, the counterpart of the JAX
-package's ``PALLAS_BACKEND`` for 2D grids.
+package's ``PALLAS_BACKEND``.
 
-Per 2D level, as in the JAX package:
-  * n >= PACK_MIN_N: the level lives in the color-packed layout
-    (``packed2d``); its kernels run the down and up legs and the solve's
-    convergence check (the fused residual norm);
-  * KERNEL_MIN_N <= n < PACK_MIN_N: the logical padded layout; the
-    whole-leg kernels (``fused2d``) run the legs, and the convergence check
-    on such a fine level is the ``stencil2d`` residual kernel;
-  * n < KERNEL_MIN_N, and every 1D level: the plain ``ops/`` stencils;
-  * 3D: not ported (raises).
+Per level, as in the JAX package:
+  * 2D, n >= PACK_MIN_N: the level lives in the color-packed layout
+    (``packed2d``); its kernels run the down and up legs, the solve's
+    convergence check (the fused residual norm) and the residual (MG-PCG's
+    operator apply);
+  * 2D, KERNEL_MIN_N <= n < PACK_MIN_N: the logical padded layout; the
+    whole-leg kernels (``fused2d``) run the legs, and the residual of such a
+    fine level (the convergence check, MG-PCG) is the ``stencil2d`` kernel;
+  * 3D, n >= KERNEL3_MIN_N: the logical padded layout; the ``stencil3d``
+    kernels run the sweeps and the residual, and the cycle composes the legs
+    from them and the plain transfers (the fused-leg hooks decline, as in
+    JAX);
+  * smaller levels, and every 1D level: the plain ``ops/`` stencils.
 ``encode``/``decode`` pack and unpack a packed fine level at the solve's
 boundary. A kernel-tier level that asks for something these kernels do not
 cover raises ``NotImplementedError`` instead of running another path.
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 from ..ops import laplacian, smoothers, transfer
 from ..solvers.cycles import Backend
-from . import fused2d, packed2d, stencil2d
+from . import fused2d, packed2d, stencil2d, stencil3d
 
 # Below this interior size a 2D level runs the plain PyTorch stencils.
 # The value is the JAX package's PALLAS_MIN_N, carried over as it is; no
@@ -31,8 +35,11 @@ KERNEL_MIN_N = 200
 # PERF.md.
 PACK_MIN_N = 3000
 
-STENCIL3D_TODO = ("use_kernels on a 3D grid needs the stencil3d kernels, "
-                  "not ported to CUDA yet (ROADMAP.md, queue 2: stencil3d)")
+# At or above this interior size a 3D level runs the stencil3d kernels (at
+# k=9: 511, 255 and 127). The value is the JAX package's PALLAS3_MIN_N,
+# carried over as it is; no threshold has been measured on the H100.
+KERNEL3_MIN_N = 100
+
 SWEEPS_TODO = ("{sweeps} {kind} sweeps on a {leg} leg exceed what one fused "
                "kernel takes ({cap}); longer schedules need {todo}, not "
                "ported to CUDA yet (ROADMAP.md, queue 2)")
@@ -41,10 +48,10 @@ PACKED_TODO = "the packed2d rbgs_sweep and residual kernels"
 SMOOTH_TODO = ("smoothing a kernel-tier level outside a fused leg needs the "
                "stencil2d sweep kernels, not ported to CUDA yet (ROADMAP.md, "
                "queue 2: stencil2d rbgs_sweep/jacobi_sweep)")
-PACKED_OP_TODO = ("a packed level runs only the packed legs and the residual "
-                  "norm; {op} on it needs the packed2d rbgs_sweep and "
-                  "residual kernels, not ported to CUDA yet (ROADMAP.md, "
-                  "queue 2: packed2d)")
+PACKED_OP_TODO = ("a packed level runs only the packed legs, the residual "
+                  "and its norm; {op} on it needs the packed2d rbgs_sweep "
+                  "kernel, not ported to CUDA yet (ROADMAP.md, queue 2: "
+                  "packed2d)")
 
 
 def _pack_level(n: int) -> bool:
@@ -52,10 +59,14 @@ def _pack_level(n: int) -> bool:
 
 
 def _kernel_level(u, n: int) -> bool:
-    """True if this logical-layout level runs on the kernel tier."""
-    if u.ndim == 3:
-        raise NotImplementedError(STENCIL3D_TODO)
+    """True if this logical-layout 2D level runs on the kernel tier."""
     return u.ndim == 2 and n >= KERNEL_MIN_N
+
+
+def _kernel3_level(u, n: int) -> bool:
+    """True if this 3D level (not packed: callers test that first) runs
+    on the stencil3d kernels."""
+    return u.ndim == 3 and n >= KERNEL3_MIN_N
 
 
 def _check_leg(leg: str, kind: str, sweeps: int, cap: int, todo: str) -> None:
@@ -67,10 +78,15 @@ def _check_leg(leg: str, kind: str, sweeps: int, cap: int, todo: str) -> None:
 
 
 def _smooth(u, b, n, h, *, kind, omega, sweeps, sigma=0.0):
-    # The cycle smooths a kernel-tier level only inside the fused legs
-    # below, which raise rather than decline.
+    # The cycle smooths a 2D kernel-tier level only inside the fused legs
+    # below, which raise rather than decline; a 3D kernel-tier level here.
     if packed2d.is_packed(u):
         raise NotImplementedError(PACKED_OP_TODO.format(op="smoothing"))
+    if _kernel3_level(u, n) and kind == "rbgs":
+        return stencil3d.rbgs_sweep(u, b, n, h, sigma=sigma, sweeps=sweeps)
+    if _kernel3_level(u, n) and kind == "jacobi":
+        return stencil3d.jacobi_sweep(u, b, n, h, omega, sigma=sigma,
+                                      sweeps=sweeps)
     if _kernel_level(u, n) and sweeps > 0:
         raise NotImplementedError(SMOOTH_TODO)
     return smoothers.smooth(u, b, h, kind=kind, omega=omega, sweeps=sweeps,
@@ -79,7 +95,9 @@ def _smooth(u, b, n, h, *, kind, omega, sweeps, sigma=0.0):
 
 def _residual(u, b, n, h, sigma=0.0):
     if packed2d.is_packed(u):
-        raise NotImplementedError(PACKED_OP_TODO.format(op="the residual"))
+        return packed2d.residual(u, b, n, h, sigma=sigma)
+    if _kernel3_level(u, n):
+        return stencil3d.residual(u, b, n, h, sigma=sigma)
     if _kernel_level(u, n):
         return stencil2d.residual(u, b, n, h, sigma=sigma)
     return laplacian.residual(u, b, h, sigma=sigma)

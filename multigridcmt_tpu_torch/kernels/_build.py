@@ -1,7 +1,8 @@
 """Build and load the CUDA kernel library.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface, loaded with ``ctypes``. The library goes to
+Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library goes to
 ``kernels/build/<hash of the sources>/``, so an edited source builds anew
 and an unchanged one is built once per checkout. Nothing here runs at
 import time: the first kernel launch builds the library.
@@ -21,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 LIB_NAME = "libmgkernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +51,17 @@ for _t in ("f32", "f64"):
     # u, b, partial, out, n, h, sigma, red_only, blocks, stream
     SIGNATURES[f"mg_packed2d_resnorm_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I,
                                                _I, _P]
+    # u, b, r, n, h, sigma, stream
+    SIGNATURES[f"mg_packed2d_residual_{_t}"] = [_P, _P, _P, _I, _D, _D, _P]
+    # u, b, out, p, r, c, n, h, sigma, goff, roff, stream
+    SIGNATURES[f"mg_stencil3d_residual_{_t}"] = [_P, _P, _P, _I, _I, _I, _I,
+                                                 _D, _D, _I, _I, _P]
+    # u, b, out, p, r, c, n, h, sigma, omega, goff, roff, stream
+    SIGNATURES[f"mg_stencil3d_jacobi_{_t}"] = [_P, _P, _P, _I, _I, _I, _I, _D,
+                                               _D, _D, _I, _I, _P]
+    # u, b, tmp, out, p, r, c, n, h, sigma, goff, roff, stream
+    SIGNATURES[f"mg_stencil3d_rbgs_{_t}"] = [_P, _P, _P, _P, _I, _I, _I, _I,
+                                             _D, _D, _I, _I, _P]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}
@@ -77,6 +89,12 @@ def find_nvcc() -> str | None:
     return str(candidate) if candidate.is_file() else None
 
 
+def _check_nvcc(cmd, returncode: int, out: str, err: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n"
+                           f"{out}\n{err}")
+
+
 def build_library(out_dir: Path) -> Path:
     """Compile every ``csrc/*.cu`` into ``out_dir/libmgkernels.so`` unless
     it is there already; return the library's path."""
@@ -90,22 +108,27 @@ def build_library(out_dir: Path) -> Path:
             "/usr/local/cuda/bin): the CUDA kernels of multigridcmt_tpu_torch "
             "are compiled at first use and need the CUDA toolkit")
     lib.parent.mkdir(parents=True, exist_ok=True)
-    cu_files = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # Build under a temporary name and rename, so a concurrent process
-    # never loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu_files]
+    # Build under temporary names and rename, so a concurrent process never
+    # loads a half-written library.
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs, procs = [], []
+        for cu in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, cu.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(cu)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        # Wait for every compile before reporting the first failure.
+        done = [(cmd, *proc.communicate(), proc.returncode)
+                for cmd, proc in procs]
+        for cmd, out, err, returncode in done:
+            _check_nvcc(cmd, returncode, out, err)
+        so = os.path.join(tmp, LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        _check_nvcc(cmd, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(so, lib)
     return lib
 
 

@@ -11,6 +11,18 @@ from . import _build
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
+MIXED_TODO = ("{what}: bfloat16 storage (and a wider output dtype) belongs "
+              "to mixed precision, not ported to CUDA yet (ROADMAP.md, queue "
+              "1: mixed precision)")
+
+
+def check_storage(what: str, t: torch.Tensor, out_dtype=None) -> None:
+    """Raise NotImplementedError for the JAX kernels' bfloat16 storage and
+    ``out_dtype`` widening, which the port's kernels do not take yet."""
+    if t.dtype == torch.bfloat16 or (out_dtype is not None
+                                     and out_dtype != t.dtype):
+        raise NotImplementedError(MIXED_TODO.format(what=what))
+
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,
                  ref: torch.Tensor) -> None:

@@ -1,5 +1,5 @@
-// Shared pieces of the 2D Poisson kernels (stencil2d.cu, fused2d.cu,
-// packed2d.cu).
+// Shared pieces of the Poisson kernels (stencil2d.cu, fused2d.cu,
+// packed2d.cu; stencil3d.cu takes Coef and the error string).
 //
 // Grids are the logical padded layout of the Python package: an
 // (n+2) x (n+2) row-major array whose one-cell ghost ring is zero
@@ -27,16 +27,16 @@ struct Coef {
   T h2;       // h^2
   T inv_h2;   // 1/h^2
   T sig;      // sigma (shift of A - sigma I)
-  T inv_den;  // 1/(4 - sigma h^2), the GS denominator
-  T jscale;   // omega / (4/h^2 - sigma), the Jacobi step
+  T inv_den;  // 1/(d - sigma h^2), the GS denominator (d = 2 ndim)
+  T jscale;   // omega / (d/h^2 - sigma), the Jacobi step
 
-  static Coef make(double h, double sigma, double omega) {
+  static Coef make(double h, double sigma, double omega, int d = 4) {
     Coef c;
     c.h2 = T(h * h);
     c.inv_h2 = T(1.0 / (h * h));
     c.sig = T(sigma);
-    c.inv_den = T(1) / (T(4) - c.sig * c.h2);
-    c.jscale = T(omega) / (T(4) * c.inv_h2 - c.sig);
+    c.inv_den = T(1) / (T(d) - c.sig * c.h2);
+    c.jscale = T(omega) / (T(d) * c.inv_h2 - c.sig);
     return c;
   }
 };

@@ -1,10 +1,11 @@
-// Colour-packed kernels for the finest 2D levels: the two whole-leg kernels
-// and the fused residual norm of the convergence check.
+// Colour-packed kernels for the finest 2D levels: the two whole-leg kernels,
+// the fused residual norm of the convergence check and the residual.
 //
 // Replace the TPU kernels multigridcmt_tpu/kernels/packed2d.py:
-//   smooth_residual_restrict -> packed2d_down    (down_kernel)
-//   prolong_add_smooth       -> packed2d_up      (up_kernel)
-//   residual_norm_sq         -> packed2d_resnorm (resnorm_partial, _final)
+//   smooth_residual_restrict -> packed2d_down     (down_kernel)
+//   prolong_add_smooth       -> packed2d_up       (up_kernel)
+//   residual_norm_sq         -> packed2d_resnorm  (resnorm_partial, _final)
+//   residual                 -> packed2d_residual (residual_kernel)
 //
 // Layout. A padded grid of P = n+2 (odd) points a side is stored as two
 // planes (2, P, cp), cp = (P+1)/2: plane 0 holds the red points ((i+j)
@@ -370,6 +371,34 @@ resnorm_final(const double* __restrict__ partial, int count,
   if (threadIdx.x == 0) out[0] = static_cast<T>(total);
 }
 
+// Packed residual r = b - (A - sigma I) u, both planes, one thread a lane.
+// Ghost rows, ghost columns and pad lanes get 0, so whole-array dots over
+// packed grids (the CG recurrence) are interior dots. Bound by memory: u
+// both planes and b read, r written, 12 bytes a point in float32; the four
+// neighbour reads of a lane hit in L1/L2.
+template <typename T>
+__global__ void __launch_bounds__(RN_THREADS)
+residual_kernel(const T* __restrict__ u, const T* __restrict__ b,
+                T* __restrict__ r, int n, mg::Coef<T> cf) {
+  const int P = n + 2;
+  const int cp = (P + 1) / 2;
+  const size_t plane = static_cast<size_t>(P) * cp;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if (idx >= 2 * plane) return;
+  const int c = idx >= plane;
+  const size_t k = idx - c * plane;
+  const int i = static_cast<int>(k / cp);
+  const int l = static_cast<int>(k - static_cast<size_t>(i) * cp);
+  const int p = (c + i) & 1;
+  T res = T(0);
+  if (mg::interior(i, 2 * l + p, n)) {
+    res = presidual(u + c * plane, u + (1 - c) * plane, b[idx], k,
+                    static_cast<size_t>(cp), p, cf);
+  }
+  r[idx] = res;
+}
+
 dim3 leg_grid(int n) {
   const int P = n + 2;
   const int cp = (P + 1) / 2;
@@ -431,6 +460,20 @@ int launch_resnorm(const void* u, const void* b, void* partial, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_residual(const void* u, const void* b, void* r, int n, double h,
+                    double sigma, void* stream) {
+  const int P = n + 2;
+  const size_t total = 2 * static_cast<size_t>(P) * ((P + 1) / 2);
+  const unsigned blocks =
+      static_cast<unsigned>((total + RN_THREADS - 1) / RN_THREADS);
+  residual_kernel<T><<<blocks, RN_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const T*>(b),
+      static_cast<T*>(r), n, mg::Coef<T>::make(h, sigma, 1.0));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -475,6 +518,16 @@ int mg_packed2d_resnorm_f64(const void* u, const void* b, void* partial,
                             int red_only, int blocks, void* stream) {
   return launch_resnorm<double>(u, b, partial, out, n, h, sigma, red_only,
                                 blocks, stream);
+}
+
+int mg_packed2d_residual_f32(const void* u, const void* b, void* r, int n,
+                             double h, double sigma, void* stream) {
+  return launch_residual<float>(u, b, r, n, h, sigma, stream);
+}
+
+int mg_packed2d_residual_f64(const void* u, const void* b, void* r, int n,
+                             double h, double sigma, void* stream) {
+  return launch_residual<double>(u, b, r, n, h, sigma, stream);
 }
 
 }  // extern "C"

@@ -10,7 +10,7 @@ The lane past a row's last point of its colour is a pad and stays zero.
 ``pack``/``unpack`` convert at the solve's encode/decode boundary, once a
 solve, in plain PyTorch.
 
-Replaces three TPU kernels of that module with ``csrc/packed2d.cu`` (see
+Replaces four TPU kernels of that module with ``csrc/packed2d.cu`` (see
 the note there on what bounds them and what packing does on the card):
   * ``smooth_residual_restrict``: the whole down leg; after an RB-GS sweep
     the black residual is taken as zero (the closing black half-sweep
@@ -18,9 +18,10 @@ the note there on what bounds them and what packing does on the card):
   * ``prolong_add_smooth``: the whole up leg; the coarse correction may be
     logical or packed;
   * ``residual_norm_sq``: ||b - (A - sigma I) u||^2 without writing the
-    residual, the convergence check; ``red_only`` sums the red plane only.
-The TPU module's ``rbgs_sweep`` and ``residual`` are not ported yet
-(ROADMAP queue 2).
+    residual, the convergence check; ``red_only`` sums the red plane only;
+  * ``residual``: b - (A - sigma I) u on both planes, ghosts and pad lanes
+    zero: the operator apply and the residual of MG-PCG on a packed level.
+The TPU module's ``rbgs_sweep`` is not ported yet (ROADMAP queue 2).
 
 Each wrapper has its plain PyTorch version beside it: unpack, the ``ops/``
 composition, pack. Device rule (``_wrap``): a CPU tensor takes the plain
@@ -32,13 +33,15 @@ import torch
 
 from ..ops import laplacian, smoothers, transfer
 from . import _build
-from ._wrap import check_grid, check_tensor, launch_on, on_cuda
+from ._wrap import check_grid, check_storage, check_tensor, launch_on, \
+    on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count).
 down_launches = 0
 up_launches = 0
 resnorm_launches = 0
+residual_launches = 0
 
 # As in the TPU module: the halo of a leg is capped at 8 rings, which
 # bounds the sweeps one launch fuses.
@@ -227,4 +230,27 @@ def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
               partial.data_ptr(), out.data_ptr(), n, float(h), float(sigma),
               int(red_only), RESNORM_BLOCKS)
     resnorm_launches += 1
+    return out
+
+
+def residual_plain(s, bs, n, h, sigma=0.0):
+    """Plain PyTorch version: unpack, the residual, pack (pad lanes 0)."""
+    return pack(laplacian.residual(unpack(s), unpack(bs), h, sigma=sigma))
+
+
+def residual(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
+             sigma=0.0) -> torch.Tensor:
+    """r = b - (A - sigma I) u on packed grids, one pass; ghosts and pad
+    lanes of r are zero."""
+    global residual_launches
+    check_storage("packed2d.residual", s)
+    _check_fine(n)
+    check_tensor("u", s, packed_shape(n), s)
+    check_tensor("b", bs, packed_shape(n), s)
+    if not on_cuda(s):
+        return residual_plain(s, bs, n, h, sigma=sigma)
+    out = torch.empty_like(s)
+    launch_on(s, "packed2d_residual", s.data_ptr(), bs.data_ptr(),
+              out.data_ptr(), n, float(h), float(sigma))
+    residual_launches += 1
     return out

@@ -75,6 +75,13 @@ PLAIN_BACKEND = Backend(
 
 def get_backend(config: SolverConfig) -> Backend:
     if config.use_kernels:
+        if config.ndim == 3 and config.smoother != "rbgs":
+            # The JAX package's rule (its cycles.get_backend): a 3D Jacobi
+            # or Chebyshev cycle takes the plain stencils even with kernels
+            # on; only RB-GS runs the stencil3d kernels. That rule came from
+            # a TPU measurement; whether the H100 wants the Jacobi kernel
+            # here is open (PERF.md).
+            return PLAIN_BACKEND
         from ..kernels import KERNEL_BACKEND
 
         return KERNEL_BACKEND

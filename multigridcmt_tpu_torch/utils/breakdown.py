@@ -1,9 +1,10 @@
 """Where the V-cycle's time goes on one CUDA card.
 
     python -m multigridcmt_tpu_torch.utils.breakdown [--k 12] [--reps 5]
+    python -m multigridcmt_tpu_torch.utils.breakdown --ndim 3 [--k 9]
 
 For each route of the float32 RB-GS V(2,2) cycle at 2^k - 1 (k=12:
-4095^2), prints the cycle time (CUDA events, median of 20), the host-clock
+4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA events, median of 20), the host-clock
 time of 20 cycles back to back, the device-busy time a cycle and the
 device ops a cycle (``torch.profiler``, summed over the kernel rows), the
 idle share 1 - busy/cycle, and the solve's cycle count and wall time. The
@@ -11,7 +12,10 @@ routes: the kernel backend as shipped; the same with the finest level
 unpacked (PACK_MIN_N above n, so the fused2d legs run there); the plain
 backend; and the kernel backend with KERNEL_MIN_N = 7 (every level but the
 coarsest on the kernel tier). Then the legs' kernel times per level, packed
-and unpacked where a level can be either.
+and unpacked where a level can be either. In 3D the routes are the kernel
+backend as shipped, the plain backend, and the kernel backend with
+KERNEL3_MIN_N = 7; then, per level, one RB-GS sweep and the residual on
+the stencil3d kernels and the plain restriction and prolongation.
 
 Informative only: nothing is checked. Needs a CUDA device.
 """
@@ -26,7 +30,9 @@ from torch.profiler import ProfilerActivity, profile
 
 import multigridcmt_tpu_torch as mt
 from multigridcmt_tpu_torch import kernels
-from multigridcmt_tpu_torch.kernels import fused2d, packed2d, stencil2d
+from multigridcmt_tpu_torch.kernels import (fused2d, packed2d, stencil2d,
+                                            stencil3d)
+from multigridcmt_tpu_torch.ops import transfer
 from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
 
 
@@ -45,29 +51,40 @@ def device_busy(fn, reps: int):
     return busy / reps / 1e3, ops / reps
 
 
-def grids(n: int, seed: int):
-    """u, b (b scaled by 1/h^2) on (n+2)^2 and e on the coarse grid."""
+def grids(n: int, seed: int, ndim: int = 2):
+    """u, b (b scaled by 1/h^2) on (n+2)^ndim and e on the coarse grid."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = []
     for m in (n, n, (n - 1) // 2):
-        g = torch.zeros((m + 2, m + 2), device="cuda")
-        g[1:-1, 1:-1] = torch.randn((m, m), generator=gen, device="cuda")
+        g = torch.zeros((m + 2,) * ndim, device="cuda")
+        g[(slice(1, -1),) * ndim] = torch.randn((m,) * ndim, generator=gen,
+                                                device="cuda")
         out.append(g)
     u, b, e = out
     return u, b * float((n + 1) ** 2), e
 
 
-def routes(k: int, reps: int) -> None:
+def routes(k: int, reps: int, ndim: int) -> None:
     n = 2 ** k - 1
-    shipped = (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N)
-    for label, use_kernels, kmin, pmin in (
-            ("kernel", True) + shipped,
-            ("kernel, finest level unpacked", True, shipped[0], n + 1),
-            ("plain", False) + shipped,
-            ("kernel, KERNEL_MIN_N=7", True, 7, shipped[1])):
-        kernels.KERNEL_MIN_N, kernels.PACK_MIN_N = kmin, pmin
-        prob = mt.poisson2d(k=k, dtype=torch.float32, smoother="rbgs",
-                            use_kernels=use_kernels, device="cuda")
+    # (KERNEL_MIN_N, PACK_MIN_N, KERNEL3_MIN_N)
+    shipped = (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N,
+               kernels.KERNEL3_MIN_N)
+    if ndim == 2:
+        table = (("kernel", True) + shipped,
+                 ("kernel, finest level unpacked", True, shipped[0], n + 1,
+                  shipped[2]),
+                 ("plain", False) + shipped,
+                 ("kernel, KERNEL_MIN_N=7", True, 7) + shipped[1:])
+    else:
+        table = (("kernel", True) + shipped,
+                 ("plain", False) + shipped,
+                 ("kernel, KERNEL3_MIN_N=7", True) + shipped[:2] + (7,))
+    for label, use_kernels, *thresholds in table:
+        (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N,
+         kernels.KERNEL3_MIN_N) = thresholds
+        prob = mt.poisson(k=k, ndim=ndim, dtype=torch.float32,
+                          smoother="rbgs", use_kernels=use_kernels,
+                          device="cuda")
         solver = mt.MultigridSolver(prob)
         x0 = torch.zeros_like(prob.b)
         ms = cuda_time_ms(lambda: solver.v_cycle(x0, prob.b))
@@ -88,7 +105,8 @@ def routes(k: int, reps: int) -> None:
               f"solve {res.iters} cycles {solve_ms:.1f} ms, final "
               f"{res.res_history[res.iters].item():.4e}", flush=True)
         del prob, solver, x0, res
-    kernels.KERNEL_MIN_N, kernels.PACK_MIN_N = shipped
+        torch.cuda.empty_cache()
+    kernels.KERNEL_MIN_N, kernels.PACK_MIN_N, kernels.KERNEL3_MIN_N = shipped
 
 
 def levels(k: int) -> None:
@@ -119,17 +137,42 @@ def levels(k: int) -> None:
         del u, b, e, su, sb
 
 
+def levels3(k: int) -> None:
+    for j in range(k, 2, -1):
+        n = 2 ** j - 1
+        h = 1.0 / (n + 1)
+        u, b, e = grids(n, seed=j, ndim=3)
+        row = {
+            "rbgs sweep": cuda_time_ms(lambda: stencil3d.rbgs_sweep(
+                u, b, n, h)),
+            "residual": cuda_time_ms(lambda: stencil3d.residual(u, b, n, h)),
+            "restrict (plain)": cuda_time_ms(lambda: transfer.restrict(u)),
+            "prolong+add (plain)": cuda_time_ms(
+                lambda: u + transfer.prolong(e)),
+        }
+        print(f"level n={n}: " + ", ".join(f"{key} {v:.4f} ms"
+                                           for key, v in row.items()),
+              flush=True)
+        del u, b, e
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--k", type=int, default=12)
+    ap.add_argument("--ndim", type=int, default=2, choices=(2, 3))
+    ap.add_argument("--k", type=int, default=None,
+                    help="default 12 in 2D, 9 in 3D")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
+    k = args.k if args.k is not None else {2: 12, 3: 9}[args.ndim]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    routes(args.k, args.reps)
-    levels(args.k)
+    routes(k, args.reps, args.ndim)
+    if args.ndim == 2:
+        levels(k)
+    else:
+        levels3(k)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Boundaries of the PyTorch port: it imports no JAX, a CUDA request with no
-card raises, the kernel build names nvcc when it is missing, the kernel
-wrappers reject what their kernels do not take, and unported routes raise
-NotImplementedError instead of running something else."""
+"""Boundaries of the PyTorch port: it imports no JAX, its entry points run
+on the card unless asked for the CPU and raise with no card, the kernel
+build names nvcc when it is missing, the kernel wrappers reject what their
+kernels do not take, and unported routes raise NotImplementedError instead
+of running something else."""
 import ast
 from pathlib import Path
 
@@ -9,8 +10,10 @@ import pytest
 import torch
 
 import multigridcmt_tpu_torch as mt
-from multigridcmt_tpu_torch import api, kernels
-from multigridcmt_tpu_torch.kernels import _build, fused2d, packed2d, stencil2d
+from multigridcmt_tpu_torch import api, convert, grids, kernels
+from multigridcmt_tpu_torch.config import SolverConfig
+from multigridcmt_tpu_torch.kernels import (_build, fused2d, packed2d,
+                                            stencil2d, stencil3d)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "multigridcmt_tpu_torch"
@@ -55,6 +58,31 @@ def test_cuda_request_without_card_raises(monkeypatch):
         api.check_device("cuda:0")
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device argument every entry point that builds tensors
+    targets CUDA, so with no card it raises instead of running on the CPU;
+    device="cpu" runs there."""
+    import multigridcmt_tpu as jmg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert grids.DEFAULT_DEVICE == "cuda"
+    cfg = SolverConfig(ndim=2, k=3)
+    jprob = jmg.poisson2d(k=3)
+    for call in (lambda: mt.poisson2d(k=3),
+                 lambda: mt.poisson3d(k=2),
+                 lambda: grids.build_hierarchy(cfg),
+                 lambda: grids.grid_coords(7, 2, torch.float64),
+                 lambda: convert.hierarchy_from_jax(jprob.hierarchy),
+                 lambda: convert.problem_from_jax(jprob)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    prob = mt.poisson2d(k=3, device="cpu")
+    assert prob.b.device.type == "cpu"
+    assert prob.hierarchy.coarse_inv.device.type == "cpu"
+    assert convert.problem_from_jax(jprob, device="cpu").b.device.type \
+        == "cpu"
+
+
 def test_build_names_nvcc_when_missing(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
@@ -68,10 +96,13 @@ def test_build_keys_output_by_source_hash():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = {p.name for p in _build.sources()}
-    assert {"common.cuh", "fused2d.cu", "packed2d.cu", "stencil2d.cu"} <= names
+    assert {"common.cuh", "fused2d.cu", "packed2d.cu", "stencil2d.cu",
+            "stencil3d.cu"} <= names
     # Every C entry point the wrappers call is declared for ctypes.
     for kernel in ("stencil2d_residual", "fused2d_down", "fused2d_up",
-                   "packed2d_down", "packed2d_up", "packed2d_resnorm"):
+                   "packed2d_down", "packed2d_up", "packed2d_resnorm",
+                   "packed2d_residual", "stencil3d_residual",
+                   "stencil3d_jacobi", "stencil3d_rbgs"):
         for t in ("f32", "f64"):
             assert f"mg_{kernel}_{t}" in _build.SIGNATURES
 
@@ -82,6 +113,10 @@ def _grid(n, dtype=torch.float64):
 
 def _packed(n, dtype=torch.float64):
     return torch.zeros(packed2d.packed_shape(n), dtype=dtype)
+
+
+def _cube(n, dtype=torch.float64):
+    return torch.zeros((n + 2,) * 3, dtype=dtype)
 
 
 @pytest.mark.parametrize("bad,err", [
@@ -128,26 +163,48 @@ def _packed(n, dtype=torch.float64):
      TypeError),
     (lambda: packed2d.residual_norm_sq(_packed(7), _packed(9), 7, 0.125),
      ValueError),
+    (lambda: packed2d.residual(_grid(7), _grid(7), 7, 0.125), ValueError),
+    (lambda: packed2d.residual(_packed(7, torch.bfloat16),
+                               _packed(7, torch.bfloat16), 7, 0.125),
+     NotImplementedError),
+    (lambda: stencil3d.residual(_cube(7), _cube(9), 7, 0.125), ValueError),
+    (lambda: stencil3d.residual(_cube(7), _cube(7), 9, 0.1), ValueError),
+    (lambda: stencil3d.residual(_grid(7), _grid(7), 7, 0.125), ValueError),
+    (lambda: stencil3d.rbgs_sweep(_cube(7, torch.bfloat16),
+                                  _cube(7, torch.bfloat16), 7, 0.125),
+     NotImplementedError),
+    (lambda: stencil3d.jacobi_sweep(_cube(7), _cube(7), 7, 0.125, 0.8,
+                                    out_dtype=torch.float32),
+     NotImplementedError),
+    (lambda: stencil3d.rbgs_sweep(_cube(7), _cube(7, torch.float32), 7,
+                                  0.125), ValueError),
 ], ids=["dtype", "mixed-dtype", "shape", "non-contiguous", "down-cap",
         "down-kind", "even-n", "coarse-shape", "up-cap", "other-device",
         "packed-logical-input", "packed-down-cap", "packed-coarse-shape",
-        "packed-up-cap", "packed-dtype", "packed-shape"])
+        "packed-up-cap", "packed-dtype", "packed-shape",
+        "packed-residual-logical-input", "packed-residual-bf16",
+        "stencil3d-shape", "stencil3d-n", "stencil3d-2d-input",
+        "stencil3d-bf16", "stencil3d-out-dtype", "stencil3d-mixed-dtype"])
 def test_kernel_wrappers_reject_bad_inputs(bad, err):
     with pytest.raises(err):
         bad()
     assert (fused2d.down_launches, fused2d.up_launches,
             stencil2d.launches, packed2d.down_launches, packed2d.up_launches,
-            packed2d.resnorm_launches) == (0, 0, 0, 0, 0, 0)
+            packed2d.resnorm_launches, packed2d.residual_launches,
+            stencil3d.residual_launches, stencil3d.jacobi_launches,
+            stencil3d.rbgs_launches) == (0,) * 10
 
 
 def _solve(**kw):
-    return mt.MultigridSolver(mt.poisson(**kw)).solve()
+    return mt.MultigridSolver(mt.poisson(device="cpu", **kw)).solve()
 
 
 @pytest.mark.parametrize("kw,match", [
     (dict(k=4, ndim=2, smoother="chebyshev"), "Chebyshev"),
     (dict(k=4, ndim=2, cycle="fmg"), "fmg"),
-    (dict(k=3, ndim=3, use_kernels=True), "stencil3d"),
+    # The 3D kernels are ported; their bfloat16 storage is not.
+    (dict(k=7, ndim=3, smoother="rbgs", use_kernels=True,
+          dtype=torch.bfloat16), "stencil3d"),
 ])
 def test_unported_routes_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -179,17 +236,19 @@ def test_packed_tier_raises_beyond_its_kernels(kw, match, monkeypatch):
 
 
 def test_packed_level_runs_only_its_kernels(monkeypatch):
-    """On a packed level the backend's unfused ops raise (their packed2d
-    kernels are not ported) instead of running another layout."""
+    """On a packed level the backend's unfused ops other than the residual
+    raise (the packed2d sweep kernel is not ported) instead of running
+    another layout; the residual runs the packed residual's route."""
     monkeypatch.setattr(kernels, "PACK_MIN_N", 20)
     bk = kernels.KERNEL_BACKEND
     s = _packed(31)
     assert packed2d.is_packed(bk.encode(_grid(31)))
     assert not packed2d.is_packed(bk.encode(_grid(15)))
     assert bk.decode(s).shape == (33, 33)
+    r = bk.residual(s, s, 31, 1 / 32)
+    assert packed2d.is_packed(r) and r.abs().max().item() == 0.0
     for call in (lambda: bk.smooth(s, s, 31, 1 / 32, kind="rbgs", omega=1.0,
                                    sweeps=1),
-                 lambda: bk.residual(s, s, 31, 1 / 32),
                  lambda: bk.restrict(s),
                  lambda: bk.prolong(_grid(15), 15)):
         with pytest.raises(NotImplementedError, match="packed2d"):
@@ -221,8 +280,13 @@ def test_kernel_backend_smooth_raises_on_kernel_tier(monkeypatch):
 
 @pytest.mark.parametrize("call", ["pcg", "eigensolve", "fmg", "as_csr",
                                   "as_coo"])
-def test_unported_solver_methods_raise(call):
-    solver = mt.MultigridSolver(mt.poisson2d(k=3, dtype=torch.float64))
+def test_unported_solver_methods_raise(call, monkeypatch):
+    # MG-PCG is ported; on the packed tier a precond_dtype other than the
+    # dtype asks for mixed precision, which is not.
+    monkeypatch.setattr(kernels, "PACK_MIN_N", 7)
+    solver = mt.MultigridSolver(mt.poisson2d(
+        k=3, dtype=torch.float64, use_kernels=True,
+        precond_dtype=torch.bfloat16, device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "pcg":
             solver.solve(method="pcg")

@@ -111,8 +111,9 @@ def test_hierarchy_from_jax_equals_build_hierarchy(ndim, k):
     cfg = convert.config_from_jax(jcfg)
     assert cfg.dtype == torch.float64 and cfg.ndim == ndim and cfg.k == k
     assert cfg.level_sizes() == jcfg.level_sizes()
-    mine = grids.build_hierarchy(cfg)
-    theirs = convert.hierarchy_from_jax(jgrids.build_hierarchy(jcfg))
+    mine = grids.build_hierarchy(cfg, device="cpu")
+    theirs = convert.hierarchy_from_jax(jgrids.build_hierarchy(jcfg),
+                                        device="cpu")
     assert mine.levels == theirs.levels
     assert mine.ndim == theirs.ndim
     for a, b in ((mine.coarse_inv, theirs.coarse_inv),

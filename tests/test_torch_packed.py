@@ -157,6 +157,24 @@ def test_residual_norm_matches_pallas(n, red_only, sigma):
     np.testing.assert_allclose(got.item(), want, rtol=1e-12)
 
 
+@pytest.mark.parametrize("n", [63, 255])
+@pytest.mark.parametrize("sigma", [0.0, SIGMA])
+def test_residual_matches_pallas(n, sigma):
+    """The packed residual (MG-PCG's operator apply on a packed level):
+    both planes, ghosts and pad lanes zero (CG's whole-array dots rely on
+    it)."""
+    rng = np.random.default_rng(7000 + n)
+    u, b = _padded(rng, n), _padded(rng, n)
+    h = 1.0 / (n + 1)
+    want = _junpack(jpacked2d.residual(_jpack(u), _jpack(b), n, h,
+                                       sigma=sigma), n)
+    before = packed2d.residual_launches
+    got = packed2d.residual(_tpack(u), _tpack(b), n, h, sigma=sigma)
+    assert packed2d.residual_launches == before
+    assert packed2d.is_packed(got)
+    _close(got, want, n)
+
+
 @pytest.mark.parametrize("k,pack_min_n", [(6, 30), (7, 60)])
 def test_packed_tier_solve_matches_jax_pallas(k, pack_min_n, monkeypatch):
     """float64 RB-GS with PACK_MIN_N lowered, as tests/test_packed.py
@@ -169,7 +187,7 @@ def test_packed_tier_solve_matches_jax_pallas(k, pack_min_n, monkeypatch):
     jprob = jmg.poisson2d(k=k, dtype=jnp.float64, smoother="rbgs", tol=1e-9,
                           use_pallas=True)
     want = jmg.MultigridSolver(jprob).solve()
-    prob = convert.problem_from_jax(jprob)
+    prob = convert.problem_from_jax(jprob, device="cpu")
 
     calls = {key: [] for key in ("pdown", "pup", "norm", "fdown", "fup",
                                  "residual")}
@@ -218,7 +236,7 @@ def test_v_cycle_on_packed_level_matches_plain_route(monkeypatch):
     out = {}
     for use_kernels in (True, False):
         prob = mt.poisson2d(k=6, dtype=torch.float64, smoother="rbgs",
-                            use_kernels=use_kernels)
+                            use_kernels=use_kernels, device="cpu")
         solver = mt.MultigridSolver(prob)
         x = torch.zeros_like(prob.b)
         for _ in range(3):

@@ -31,7 +31,7 @@ def test_kernel_tier_solve_matches_jax_pallas(monkeypatch):
                           use_pallas=True)
     want = jmg.MultigridSolver(jprob).solve()
 
-    prob = convert.problem_from_jax(jprob)
+    prob = convert.problem_from_jax(jprob, device="cpu")
     assert prob.config.use_kernels and prob.b.dtype == torch.float64
     calls = {"down": [], "up": [], "residual": []}
     # (module, wrapper, key, position of the fine n among its arguments)
@@ -70,7 +70,7 @@ def test_rbgs_history_matches_scipy_reference_2d(use_kernels, monkeypatch):
     """V(2,2) RB-GS, k=5, at the tolerances of tests/test_cycles.py."""
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 20)
     prob = mt.poisson2d(k=5, dtype=torch.float64, smoother="rbgs", tol=1e-8,
-                        use_kernels=use_kernels)
+                        use_kernels=use_kernels, device="cpu")
     res = mt.MultigridSolver(prob).solve()
     _, hist_ref = ref.solve(interior(prob.b).numpy(), prob.config.h,
                             kind="rbgs", tol=1e-8,
@@ -84,7 +84,7 @@ def test_rbgs_history_matches_scipy_reference_2d(use_kernels, monkeypatch):
 def test_jacobi_history_matches_scipy_reference_1d():
     """V(2,2) weighted Jacobi in 1D, k=8 (1D stays on the plain route)."""
     prob = mt.poisson1d(k=8, dtype=torch.float64, smoother="jacobi",
-                        tol=1e-8, use_kernels=True)
+                        tol=1e-8, use_kernels=True, device="cpu")
     res = mt.MultigridSolver(prob).solve()
     _, hist_ref = ref.solve(interior(prob.b).numpy(), prob.config.h,
                             kind="jacobi", tol=1e-8,
@@ -101,7 +101,8 @@ def test_w_cycle_matches_jax():
     jprob = jmg.poisson2d(k=5, dtype=jnp.float64, smoother="jacobi",
                           cycle="w", tol=1e-10)
     want = jmg.MultigridSolver(jprob).solve()
-    got = mt.MultigridSolver(convert.problem_from_jax(jprob)).solve()
+    got = mt.MultigridSolver(
+        convert.problem_from_jax(jprob, device="cpu")).solve()
     assert got.iters == int(want.iters)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x),
                                rtol=1e-10, atol=1e-12)
@@ -114,7 +115,7 @@ def test_guards_stop_a_stalled_solve():
     """float32 at k=7 stalls at its rounding floor; the stall guard ends the
     loop long before max_iters, with converged False."""
     prob = mt.poisson2d(k=7, dtype=torch.float32, smoother="rbgs",
-                        tol=1e-12)
+                        tol=1e-12, device="cpu")
     res = mt.MultigridSolver(prob).solve()
     assert not res.converged and res.iters < prob.config.max_iters
     err = mt.MultigridSolver(prob).discrete_l2_error(res.x).item()
