@@ -10,31 +10,43 @@ Phases:
        * the 4095^2 float32 RB-GS solve (launch counts, residual, error
          against the analytic solution), kernel against plain V-cycles,
          and float64 solves at k=10 and k=12 against the plain path;
+       * the composed legs: the 4095^2 float32 Chebyshev V(2,2) solve (A),
+         the 4095^2 RB-GS V(4,4) solve (B) and the 1023^2 Jacobi V(8,8)
+         solve (C), with exact launch counts and the error against the
+         analytic solution, a float64 Chebyshev solve at k=10 against the
+         plain path, and Chebyshev-preconditioned CG at 4095^2;
        * the 511^3 float32 RB-GS solve, the same checks, and a float64
          k=8 solve against the plain path;
        * MG-preconditioned CG at 4095^2 and 511^3 float32, and float64
          PCG against the plain path at 2D k=10 and 3D k=7;
-  4. times (CUDA events, warm-up, median of 20): one V(2,2) cycle at
-     4095^2 and at 511^3 float32 on the kernel and the plain path, one
-     PCG iteration at 4095^2, each kernel against its plain version at the
-     main paths' shapes, the packed kernels against their unpacked twins at
-     4095^2, and the peak device memory of the solves.
+  4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
+     4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
+     cycle at 4095^2 on the kernel and the plain path, one PCG iteration
+     at 4095^2, each kernel against its plain version (and, for
+     prolong_add, the one PyTorch call that computes the same function)
+     at the main paths' shapes, the packed kernels against their unpacked
+     twins at 4095^2, the smoother figure (one packed RB-GS sweep at
+     4095^2: ms, GB/s, Gnnz/s), and the peak device memory of the solves.
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
 residual norm of the convergence check; levels 2047..255 run the fused2d
-legs; PCG's operator apply and residual there run the packed residual. At
-k=9 in 3D the levels 511, 255 and 127 (n >= kernels.KERNEL3_MIN_N) run the
-stencil3d RB-GS sweep and residual kernels. Off these paths: the stencil2d
-residual (the check on an unpacked fine level, driven by the float64 k=10
-solve) and the stencil3d Jacobi sweep (a 3D Jacobi cycle takes the plain
-route, as in the JAX package; driven by direct calls).
+legs; PCG's operator apply and residual there run the packed residual. A
+leg that does not fuse (Chebyshev, or more sweeps than a fused leg takes)
+is composed: on the packed level from the packed residual (Chebyshev) or
+the packed RB-GS sweep and the zero-sweep packed legs, on levels
+2047..255 from the stencil2d residual (Chebyshev) or sweeps and the
+transfer2d residual-restrict and prolong-add. At k=9 in 3D the levels
+511, 255 and 127 (n >= kernels.KERNEL3_MIN_N) run the stencil3d RB-GS
+sweep and residual kernels. Off these paths: the stencil3d Jacobi sweep (a
+3D Jacobi cycle takes the plain route, as in the JAX package; driven by
+direct calls).
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result. The
-line before the last is a JSON object with the main paths' kernels; the
-last line is {"ok": true, "device": {...}}.
+line before the last is a JSON object with every kernel; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -68,6 +80,16 @@ COMPARE_SHAPES = [(torch.float32, 4095), (torch.float32, 2047),
 STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 127),
                     (torch.float64, 127)]
 PACKED_RESIDUAL_SHAPES = [(torch.float32, 4095), (torch.float64, 255)]
+# The composed legs' kernels: transfer2d and the stencil2d sweeps at the
+# largest unpacked level (and Jacobi at path C's 1023), the packed RB-GS
+# sweep at the packed level; float64 at 255.
+TRANSFER_SHAPES = [(torch.float32, 2047), (torch.float64, 255)]
+SWEEP_SHAPES = [(torch.float32, 2047), (torch.float32, 1023),
+                (torch.float64, 255)]
+PACKED_SWEEP_SHAPES = [(torch.float32, 4095), (torch.float64, 255)]
+# Path C runs smaller (1023^2, no packed level), with the smoke's time in
+# mind; the float64 Chebyshev solve is held against the plain path at it.
+PATH_C_K = 10
 # 5 V-cycles at 4095^2, kernel path against plain path, relative l2. The
 # packed down leg restricts the red residual only (the black one is zero
 # after an RB-GS sweep in exact arithmetic, as in the JAX package); the
@@ -319,6 +341,79 @@ def compare_packed_residual(main_err: dict) -> None:
         del u, b, su, sb
 
 
+def compare_composed(main_err: dict) -> None:
+    """The kernels of the composed legs. Main-path rows: float32, sigma =
+    0; transfer2d at 2047, RB-GS 4 sweeps at 2047 (path B), Jacobi 8
+    sweeps at 1023 (path C), the packed RB-GS 4 sweeps at 4095 (B)."""
+    from multigridcmt_tpu_torch.kernels import packed2d, stencil2d, transfer2d
+
+    for dtype, n in TRANSFER_SHAPES:
+        h = 1.0 / (n + 1)
+        nc = (n - 1) // 2
+        u, b, e = leg_inputs(n, dtype, seed=n + 5)
+        name = f"{str(dtype).split('.')[-1]} n={n}"
+        main = dtype == torch.float32
+        err = check_pair(f"residual_restrict {name}",
+                         transfer2d.residual_restrict(u, b, n, h),
+                         transfer2d.residual_restrict_plain(u, b, n, h),
+                         TOL[dtype], (nc + 2, nc + 2))
+        if main:
+            main_err["transfer2d_residual_restrict"] = err
+        err = check_pair(f"prolong_add {name}",
+                         transfer2d.prolong_add(u, e, n, nc),
+                         transfer2d.prolong_add_plain(u, e, n, nc),
+                         TOL[dtype], (n + 2, n + 2))
+        if main:
+            main_err["transfer2d_prolong_add"] = err
+        del u, b, e
+    jacobi_omega = 0.8
+    for dtype, n in SWEEP_SHAPES:
+        h = 1.0 / (n + 1)
+        u, b, _ = leg_inputs(n, dtype, seed=n + 6)
+        name = f"{str(dtype).split('.')[-1]} n={n}"
+        main = dtype == torch.float32 and n == 2 ** (MAIN_K - 1) - 1
+        main_c = dtype == torch.float32 and n == 2 ** PATH_C_K - 1
+        for sigma in (0.0, SIGMA):
+            for sweeps in range(1, stencil2d.max_fused_sweeps("rbgs") + 1):
+                err = check_pair(
+                    f"stencil2d rbgs {name} nu={sweeps} sigma={sigma}",
+                    stencil2d.rbgs_sweep(u, b, n, h, sigma=sigma,
+                                         sweeps=sweeps),
+                    stencil2d.rbgs_sweep_plain(u, b, n, h, sigma=sigma,
+                                               sweeps=sweeps), TOL[dtype])
+                if main and sweeps == 4 and sigma == 0.0:
+                    main_err["stencil2d_rbgs"] = err
+            for sweeps in (1, stencil2d.max_fused_sweeps("jacobi")):
+                err = check_pair(
+                    f"stencil2d jacobi {name} nu={sweeps} sigma={sigma}",
+                    stencil2d.jacobi_sweep(u, b, n, h, jacobi_omega,
+                                           sigma=sigma, sweeps=sweeps),
+                    stencil2d.jacobi_sweep_plain(u, b, n, h, jacobi_omega,
+                                                 sigma=sigma, sweeps=sweeps),
+                    TOL[dtype])
+                if main_c and sweeps == 8 and sigma == 0.0:
+                    main_err["stencil2d_jacobi"] = err
+        del u, b
+    for dtype, n in PACKED_SWEEP_SHAPES:
+        h = 1.0 / (n + 1)
+        u, b, _ = leg_inputs(n, dtype, seed=n + 7)
+        su, sb = packed2d.pack(u), packed2d.pack(b)
+        name = f"{str(dtype).split('.')[-1]} n={n}"
+        for sigma in (0.0, SIGMA):
+            for sweeps in range(1, packed2d.max_fused_sweeps() + 1):
+                err = check_pair(
+                    f"packed rbgs {name} nu={sweeps} sigma={sigma}",
+                    packed2d.rbgs_sweep(su, sb, n, h, sweeps=sweeps,
+                                        sigma=sigma),
+                    packed2d.rbgs_sweep_plain(su, sb, n, h, sweeps=sweeps,
+                                              sigma=sigma), TOL[dtype])
+                if (dtype == torch.float32 and sweeps == 4
+                        and sigma == 0.0):
+                    main_err["packed2d_rbgs"] = err
+        del u, b, su, sb
+    torch.cuda.empty_cache()
+
+
 def omega3() -> float:
     """The 3D weighted-Jacobi default (6/7), as a solve would take it."""
     from multigridcmt_tpu_torch.config import SolverConfig
@@ -379,12 +474,14 @@ def compare_stencil3d(main_err: dict) -> None:
 def phase_compare():
     """Each kernel against its plain version on the card. Returns (max abs
     error, relative error, tolerance) per kernel at the main paths' shapes
-    (float32, RB-GS, nu=2, sigma=0; packed at n=4095, fused2d and
-    stencil2d at n=2047, stencil3d at n=511 (Jacobi: one sweep)); of a
-    leg's two outputs, the one with the larger relative error."""
+    (float32, sigma=0; the legs RB-GS nu=2: packed at n=4095, fused2d and
+    stencil2d at n=2047, stencil3d at n=511 (Jacobi: one sweep); the
+    composed legs' kernels as compare_composed says); of a leg's two
+    outputs, the one with the larger relative error."""
     main_err = {}
     compare_2d(main_err)
     compare_packed_residual(main_err)
+    compare_composed(main_err)
     compare_stencil3d(main_err)
     return main_err
 
@@ -423,14 +520,38 @@ KERNELS = {
     "stencil2d_residual": ("stencil2d", "launches",
                            "multigridcmt_tpu_torch/kernels/csrc/stencil2d.cu",
                            "multigridcmt_tpu/kernels/stencil2d.py:304",
-                           "f64_2d"),
+                           "chebyshev2d"),
+    "transfer2d_residual_restrict": (
+        "transfer2d", "residual_restrict_launches",
+        "multigridcmt_tpu_torch/kernels/csrc/transfer2d.cu",
+        "multigridcmt_tpu/kernels/transfer2d.py:371", "chebyshev2d"),
+    "transfer2d_prolong_add": (
+        "transfer2d", "prolong_add_launches",
+        "multigridcmt_tpu_torch/kernels/csrc/transfer2d.cu",
+        "multigridcmt_tpu/kernels/transfer2d.py:204", "chebyshev2d"),
+    "stencil2d_rbgs": ("stencil2d", "rbgs_launches",
+                       "multigridcmt_tpu_torch/kernels/csrc/stencil2d.cu",
+                       "multigridcmt_tpu/kernels/stencil2d.py:284",
+                       "rbgs44"),
+    "stencil2d_jacobi": ("stencil2d", "jacobi_launches",
+                         "multigridcmt_tpu_torch/kernels/csrc/stencil2d.cu",
+                         "multigridcmt_tpu/kernels/stencil2d.py:295",
+                         "jacobi88"),
+    "packed2d_rbgs": ("packed2d", "rbgs_launches",
+                      "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
+                      "multigridcmt_tpu/kernels/packed2d.py:305", "rbgs44"),
+    # Off the solve paths (a 3D Jacobi cycle takes the plain route, as in
+    # JAX): no main path launches it, so its row reports the launches
+    # summed over the main paths (0) and, apart, those of the direct calls.
     "stencil3d_jacobi": ("stencil3d", "jacobi_launches",
                          "multigridcmt_tpu_torch/kernels/csrc/stencil3d.cu",
-                         "multigridcmt_tpu/kernels/stencil3d.py:485",
-                         "jacobi3d"),
+                         "multigridcmt_tpu/kernels/stencil3d.py:485", None),
 }
-# Ported, but off the main paths.
-OFF_PATH = ("stencil2d_residual", "stencil3d_jacobi")
+# The runs of phase 3 that drive a main path through the public API.
+MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
+             "solve3d", "pcg3d")
+# Direct calls of a kernel that no main path launches.
+DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d"}
 
 
 def reset_counts() -> None:
@@ -620,7 +741,6 @@ def paths_2d(runs: dict) -> None:
             require_counts("f64_2d", ck, stencil2d_residual=rk.iters + 1,
                            fused2d_down=fused * rk.iters,
                            fused2d_up=fused * rk.iters)
-            runs["f64_2d"] = ck
     # float64 PCG on an unpacked fine level: the stencil2d residual is CG's
     # first residual and its operator apply.
     rk, ck = f64_against_plain(
@@ -630,6 +750,98 @@ def paths_2d(runs: dict) -> None:
     require_counts(f"pcg f64 k={k_pcg}", ck, stencil2d_residual=1 + rk.iters,
                    fused2d_down=fused * (rk.iters + 1),
                    fused2d_up=fused * (rk.iters + 1))
+
+
+def paths_composed(runs: dict) -> None:
+    """Paths A-C: the legs that do not fuse, composed on both tiers."""
+    import multigridcmt_tpu_torch as mt
+
+    def build(k, dtype, smoother, use_kernels=True, **kw):
+        return mt.poisson2d(k=k, dtype=dtype, smoother=smoother,
+                            use_kernels=use_kernels, device="cuda", **kw)
+
+    # A: Chebyshev V(2,2) at 4095^2. Per cycle, the packed level smooths
+    # from the packed residual (nu1 + nu2 applies) and runs the zero-sweep
+    # down and up legs; each of the 4 unpacked kernel-tier levels smooths
+    # from the stencil2d residual and runs residual_restrict and
+    # prolong_add. The check sums both colours (red_only is off).
+    prob = build(MAIN_K, torch.float32, "chebyshev")
+    solver = mt.MultigridSolver(prob)
+    deg = prob.config.nu1 + prob.config.nu2
+    lv = fused_levels(prob)
+    res, counts, wall = counted(solver.solve)
+    check_solve(f"A: solve k={MAIN_K} float32 chebyshev", prob, solver, res,
+                wall, 2)
+    i = res.iters
+    require_counts("chebyshev2d", counts, packed2d_residual=deg * i,
+                   packed2d_down=i, packed2d_up=i, packed2d_resnorm=i + 1,
+                   stencil2d_residual=lv * deg * i,
+                   transfer2d_residual_restrict=lv * i,
+                   transfer2d_prolong_add=lv * i)
+    runs["chebyshev2d"] = counts
+    # Chebyshev-preconditioned CG: CG's first residual and its operator
+    # apply run the packed residual, and so does each preconditioning
+    # cycle's packed smoothing.
+    res, counts, wall = counted(lambda: solver.solve(method="pcg"))
+    check_solve(f"pcg k={MAIN_K} float32 chebyshev", prob, solver, res,
+                wall, 2)
+    c = res.iters + 1                         # preconditioning cycles
+    require_counts("pcg chebyshev2d", counts,
+                   packed2d_residual=res.iters + 1 + deg * c,
+                   packed2d_down=c, packed2d_up=c,
+                   stencil2d_residual=lv * deg * c,
+                   transfer2d_residual_restrict=lv * c,
+                   transfer2d_prolong_add=lv * c)
+    del prob, solver, res
+
+    # B: RB-GS V(4,4) at 4095^2. The pre-smooth exceeds the down legs' cap
+    # (3): the packed level runs one 4-sweep packed RB-GS launch and the
+    # zero-sweep down leg, the unpacked levels one 4-sweep stencil2d launch
+    # and residual_restrict; the up legs fuse (4 <= their cap).
+    prob = build(MAIN_K, torch.float32, "rbgs", nu1=4, nu2=4)
+    solver = mt.MultigridSolver(prob)
+    lv = fused_levels(prob)
+    res, counts, wall = counted(solver.solve)
+    check_solve(f"B: solve k={MAIN_K} float32 rbgs V(4,4)", prob, solver,
+                res, wall, 2)
+    i = res.iters
+    require_counts("rbgs44", counts, packed2d_rbgs=i, packed2d_down=i,
+                   packed2d_up=i, packed2d_resnorm=i + 1,
+                   stencil2d_rbgs=lv * i,
+                   transfer2d_residual_restrict=lv * i, fused2d_up=lv * i)
+    runs["rbgs44"] = counts
+    del prob, solver, res
+
+    # C: Jacobi V(8,8) at 1023^2 (no packed level): 8 sweeps in one
+    # stencil2d launch and residual_restrict on 1023, 511 and 255; the up
+    # legs fuse (8 <= their cap); the check is the stencil2d residual.
+    prob = build(PATH_C_K, torch.float32, "jacobi", nu1=8, nu2=8)
+    solver = mt.MultigridSolver(prob)
+    lv = fused_levels(prob)
+    require(lv == 3, f"{lv} kernel-tier levels at k={PATH_C_K}, not 3")
+    res, counts, wall = counted(solver.solve)
+    check_solve(f"C: solve k={PATH_C_K} float32 jacobi V(8,8)", prob,
+                solver, res, wall, 2)
+    i = res.iters
+    require_counts("jacobi88", counts, stencil2d_jacobi=lv * i,
+                   transfer2d_residual_restrict=lv * i, fused2d_up=lv * i,
+                   stencil2d_residual=i + 1)
+    runs["jacobi88"] = counts
+    del prob, solver, res
+
+    # float64 Chebyshev at k=10, kernel path against plain path: with h a
+    # power of two the stencil2d residual and the transfer2d kernels round
+    # as the plain ops do (sigma = 0), so the histories are held to 1e-8.
+    rk, ck = f64_against_plain(
+        f"chebyshev k={PATH_C_K}", lambda use_kernels: build(
+            PATH_C_K, torch.float64, "chebyshev", use_kernels, tol=F64_TOL),
+        1e-8)
+    i = rk.iters
+    lv = fused_levels(build(PATH_C_K, torch.float64, "chebyshev"))
+    require_counts(f"chebyshev f64 k={PATH_C_K}", ck,
+                   stencil2d_residual=lv * deg * i + i + 1,
+                   transfer2d_residual_restrict=lv * i,
+                   transfer2d_prolong_add=lv * i)
 
 
 def tier3(prob) -> int:
@@ -723,6 +935,7 @@ def phase_main_path():
     run, its launch counts, and the peak device memory of the solves."""
     runs = {}
     paths_2d(runs)
+    paths_composed(runs)
     paths_3d(runs)
     return runs
 
@@ -742,17 +955,21 @@ def time_pair(name: str, kernel, plain) -> dict:
 
 # Arithmetic each function needs per fine interior point, counted from its
 # formula (adds, multiplies, the two halves of an FMA): residual 2D 8, 3D
-# 10; a Gauss-Seidel update 2D 6, 3D 8; Jacobi 3D 12; a down leg 6 a sweep
-# + 12 (residual and full weighting), an up leg 6 a sweep + 3
-# (prolongation); the red-only norm 5 (half the points, square and add).
-# Every kernel row is float32 and bound by bytes by a wide margin.
+# 10; a Gauss-Seidel update 2D 6, 3D 8; Jacobi 2D 10, 3D 12; a down leg 6
+# a sweep + 12 (residual and full weighting), an up leg 6 a sweep + 3
+# (prolongation and the add); the red-only norm 5 (half the points, square
+# and add). Every kernel row is float32 and bound by bytes by a wide
+# margin.
 def flops_per_point(name: str, sweeps: int = 2) -> int:
     return {"stencil2d_residual": 8, "packed2d_residual": 8,
             "packed2d_resnorm": 5, "stencil3d_residual": 10,
             "stencil3d_jacobi": 12, "stencil3d_rbgs": 8,
             "fused2d_down": 6 * sweeps + 12, "packed2d_down": 6 * sweeps + 12,
             "fused2d_up": 6 * sweeps + 3,
-            "packed2d_up": 6 * sweeps + 3}[name]
+            "packed2d_up": 6 * sweeps + 3,
+            "transfer2d_residual_restrict": 12, "transfer2d_prolong_add": 3,
+            "stencil2d_rbgs": 6 * sweeps, "packed2d_rbgs": 6 * sweeps,
+            "stencil2d_jacobi": 10 * sweeps}[name]
 
 
 def timed_2d(times: dict) -> None:
@@ -830,6 +1047,91 @@ def timed_2d(times: dict) -> None:
         f"{times['stencil2d_residual+norm@4095']['ms']:.4f} ms")
 
 
+def timed_composed(times: dict) -> None:
+    """The composed legs' kernels at their main-path shapes (float32,
+    sigma = 0): transfer2d at 2047, RB-GS 4 sweeps at 2047 and Jacobi 8
+    sweeps at 1023 (one launch each), the packed RB-GS 4 sweeps at 4095;
+    and the smoother figure, one packed RB-GS sweep at 4095."""
+    import torch.nn.functional as F
+
+    from multigridcmt_tpu_torch.kernels import packed2d, stencil2d, transfer2d
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    n = 2 ** (MAIN_K - 1) - 1
+    nc = (n - 1) // 2
+    h = 1.0 / (n + 1)
+    u, b, e = leg_inputs(n, torch.float32, seed=11)
+    rc = torch.empty((nc + 2, nc + 2), device="cuda")
+    t = time_pair(f"transfer2d_residual_restrict n={n}",
+                  lambda: transfer2d.residual_restrict(u, b, n, h),
+                  lambda: transfer2d.residual_restrict_plain(u, b, n, h))
+    t.update(bytes=nbytes(u, b, rc),
+             flops=flops_per_point("transfer2d_residual_restrict") * n * n)
+    times["transfer2d_residual_restrict"] = t
+    t = time_pair(f"transfer2d_prolong_add n={n}",
+                  lambda: transfer2d.prolong_add(u, e, n, nc),
+                  lambda: transfer2d.prolong_add_plain(u, e, n, nc))
+    # The one PyTorch call pair that computes x + P e: P is exact bilinear
+    # interpolation with aligned corners (fine i sits at coarse i/2), ghost
+    # to ghost.
+    t["library_ms"] = cuda_time_ms(lambda: u + F.interpolate(
+        e[None, None], size=(n + 2, n + 2), mode="bilinear",
+        align_corners=True)[0, 0])
+    got = u + F.interpolate(e[None, None], size=(n + 2, n + 2),
+                            mode="bilinear", align_corners=True)[0, 0]
+    lib_err = rel_err(got, transfer2d.prolong_add(u, e, n, nc))[1]
+    log(f"time prolong_add library (add + interpolate): "
+        f"{t['library_ms']:.4f} ms, rel diff from the kernel {lib_err:.1e}")
+    require(lib_err <= TOL[torch.float32],
+            f"interpolate differs from prolong_add by {lib_err}")
+    t.update(bytes=nbytes(u, e, u),
+             flops=flops_per_point("transfer2d_prolong_add") * n * n)
+    times["transfer2d_prolong_add"] = t
+    t = time_pair(f"stencil2d_rbgs n={n} nu=4",
+                  lambda: stencil2d.rbgs_sweep(u, b, n, h, sweeps=4),
+                  lambda: stencil2d.rbgs_sweep_plain(u, b, n, h, sweeps=4))
+    t.update(bytes=nbytes(u, b, u),
+             flops=flops_per_point("stencil2d_rbgs", 4) * n * n)
+    times["stencil2d_rbgs"] = t
+    del u, b, e, rc
+
+    n = 2 ** PATH_C_K - 1
+    h = 1.0 / (n + 1)
+    u, b, _ = leg_inputs(n, torch.float32, seed=12)
+    t = time_pair(f"stencil2d_jacobi n={n} nu=8",
+                  lambda: stencil2d.jacobi_sweep(u, b, n, h, 0.8, sweeps=8),
+                  lambda: stencil2d.jacobi_sweep_plain(u, b, n, h, 0.8,
+                                                       sweeps=8))
+    t.update(bytes=nbytes(u, b, u),
+             flops=flops_per_point("stencil2d_jacobi", 8) * n * n)
+    times["stencil2d_jacobi"] = t
+    del u, b
+
+    n = 2 ** MAIN_K - 1
+    h = 1.0 / (n + 1)
+    u, b, _ = leg_inputs(n, torch.float32, seed=13)
+    su, sb = packed2d.pack(u), packed2d.pack(b)
+    del u, b
+    t = time_pair(f"packed2d_rbgs n={n} nu=4",
+                  lambda: packed2d.rbgs_sweep(su, sb, n, h, sweeps=4),
+                  lambda: packed2d.rbgs_sweep_plain(su, sb, n, h, sweeps=4))
+    t.update(bytes=nbytes(su, sb, su),
+             flops=flops_per_point("packed2d_rbgs", 4) * n * n)
+    times["packed2d_rbgs"] = t
+    # The smoother figure of bench.py: one packed RB-GS sweep, as GB/s
+    # (three packed arrays over the time) and Gnnz/s (2 * 5 n^2 over it).
+    ms = cuda_time_ms(lambda: packed2d.rbgs_sweep(su, sb, n, h, sweeps=1))
+    gbps = 3 * nbytes(su) / (ms * 1e-3) / 1e9
+    gnnz = 2 * 5 * n * n / (ms * 1e-3) / 1e9
+    times["smoother"] = {"ms": ms, "gb_per_s": gbps, "gnnz_per_s": gnnz,
+                         "bound_ms": 3 * nbytes(su) / PEAK_BYTES_PER_S * 1e3}
+    log(f"smoother: one packed RB-GS sweep at {n}^2 float32 {ms:.4f} ms, "
+        f"{gbps:.1f} GB/s ({100 * gbps * 1e9 / PEAK_BYTES_PER_S:.1f}% of "
+        f"3.35 TB/s), {gnnz:.2f} Gnnz/s")
+    del su, sb
+    torch.cuda.empty_cache()
+
+
 def timed_3d(times: dict) -> None:
     from multigridcmt_tpu_torch.kernels import stencil3d
 
@@ -855,8 +1157,9 @@ def timed_3d(times: dict) -> None:
 
 def timed_solves(times: dict) -> None:
     """One V(2,2) cycle at 4095^2 and 511^3 float32 on both routes, and one
-    PCG iteration at 4095^2 (the difference of 3 and 2 iterations with
-    tol = 0, so neither stops early)."""
+    PCG iteration at 4095^2 (the difference of 6 and 2 iterations with
+    tol = 0, so neither stops early, over 4: a spread of one iteration
+    drowned in the host's noise and once read negative)."""
     import multigridcmt_tpu_torch as mt
     from multigridcmt_tpu_torch.solvers import krylov
     from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
@@ -875,16 +1178,32 @@ def timed_solves(times: dict) -> None:
             f"{times['cycle' + label]:.3f} ms, plain path "
             f"{times['cycle' + label + '_plain']:.3f} ms")
         torch.cuda.empty_cache()
+    # The composed cycles at 4095^2: Chebyshev V(2,2) (path A) and RB-GS
+    # V(4,4) (path B).
+    for label, kw in (("cheb", dict(smoother="chebyshev")),
+                      ("rbgs44", dict(smoother="rbgs", nu1=4, nu2=4))):
+        for use_kernels in (True, False):
+            prob = mt.poisson2d(k=MAIN_K, dtype=torch.float32,
+                                use_kernels=use_kernels, device="cuda", **kw)
+            solver = mt.MultigridSolver(prob)
+            x = torch.zeros_like(prob.b)
+            key = f"cycle_{label}" + ("" if use_kernels else "_plain")
+            times[key] = cuda_time_ms(lambda: solver.v_cycle(x, prob.b))
+            del prob, solver, x
+        log(f"time {label} cycle 2D k={MAIN_K} float32: kernel path "
+            f"{times['cycle_' + label]:.3f} ms, plain path "
+            f"{times['cycle_' + label + '_plain']:.3f} ms")
+        torch.cuda.empty_cache()
     prob = mt.poisson2d(k=MAIN_K, dtype=torch.float32, smoother="rbgs",
                         use_kernels=True, device="cuda")
     pcg = {}
-    for iters in (2, 3):
+    for iters in (2, 6):
         cfg = dataclasses.replace(prob.config, tol=0.0, max_iters=iters)
         pcg[iters] = cuda_time_ms(
             lambda: krylov.solve_pcg(prob.hierarchy, prob.b, cfg))
-    times["pcg_iter"] = pcg[3] - pcg[2]
-    log(f"time PCG k={MAIN_K} float32: 2 iterations {pcg[2]:.3f} ms, 3 "
-        f"iterations {pcg[3]:.3f} ms, one iteration {times['pcg_iter']:.3f}"
+    times["pcg_iter"] = (pcg[6] - pcg[2]) / 4
+    log(f"time PCG k={MAIN_K} float32: 2 iterations {pcg[2]:.3f} ms, 6 "
+        f"iterations {pcg[6]:.3f} ms, one iteration {times['pcg_iter']:.3f}"
         " ms")
 
 
@@ -897,6 +1216,7 @@ def phase_times():
     times = {}
     timed_solves(times)
     timed_2d(times)
+    timed_composed(times)
     timed_3d(times)
     return times
 
@@ -914,23 +1234,32 @@ def kernel_rows(names, runs, errs, times):
     squares); rel_err is it over max|plain| (|plain| for the norm), held
     to tol. bound_ms is the larger of the bytes the function moves (each
     input read once, each output written once) over the card's memory
-    rate and its operations over the float32 rate. No single PyTorch call
-    computes any of these functions (each is b - Au or a whole leg, not a
-    convolution alone), so library_ms is null."""
+    rate and its operations over the float32 rate. library_ms is the time
+    of the PyTorch call that computes the same function where there is one
+    (prolong_add: an add and a bilinear interpolate); no single call
+    computes the others (b - Au, a whole leg, a sweep, the residual's
+    restriction), so theirs is null. A kernel that no main path runs
+    reports its launches summed over all main-path runs (0) and those of
+    its direct calls as direct_launches."""
     rows = []
     for name in names:
         *_, src, rep, run = KERNELS[name]
         t = times[TIME_KEY.get(name, name)]
         by_bytes = t["bytes"] / PEAK_BYTES_PER_S * 1e3
         by_ops = t["flops"] / PEAK_F32_FLOPS * 1e3
-        rows.append({
+        launches = (runs[run][name] if run is not None
+                    else sum(runs[r][name] for r in MAIN_RUNS))
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": runs[run][name], "max_abs_err": errs[name][0],
+            "launches": launches, "max_abs_err": errs[name][0],
             "rel_err": errs[name][1], "tol": errs[name][2],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None, "run": run})
+            "library_ms": t.get("library_ms"), "run": run}
+        if name in DIRECT_RUNS:
+            row["direct_launches"] = runs[DIRECT_RUNS[name]][name]
+        rows.append(row)
     return rows
 
 
@@ -955,12 +1284,10 @@ def main() -> int:
         return 1
     log(f"peak device memory: 4095^2 solve {runs['peak2d']} bytes, 511^3 "
         f"solve {runs['peak3d']} bytes; card: {card}")
-    on_path = [name for name in KERNELS if name not in OFF_PATH]
-    log("off the main paths: " + json.dumps(
-        kernel_rows(OFF_PATH, runs, errs, times)))
+    log("smoother: " + json.dumps(times["smoother"]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")
     log(card)
-    print(json.dumps({"kernels": kernel_rows(on_path, runs, errs, times)}))
+    print(json.dumps({"kernels": kernel_rows(KERNELS, runs, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

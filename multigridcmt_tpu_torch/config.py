@@ -22,9 +22,9 @@ class SolverConfig:
       k: grid exponent; the fine grid has ``n = 2**k - 1`` interior points
         per axis (vertex-centred coarsening, Dirichlet ghosts).
       dtype: compute dtype, ``torch.float32`` or ``torch.float64``.
-      nu1, nu2: pre- and post-smoothing sweeps per level.
-      smoother: "jacobi", "rbgs" or "chebyshev" (Chebyshev is not ported
-        yet and raises ``NotImplementedError`` when a cycle reaches it).
+      nu1, nu2: pre- and post-smoothing sweeps per level (for Chebyshev,
+        the polynomial degrees).
+      smoother: "jacobi", "rbgs" or "chebyshev".
       omega: Jacobi damping; None selects 2d/(2d+1).
       cycle: "v", "w" or "fmg" ("fmg" is not ported yet).
       min_coarse: coarsest-level interior size per axis.

@@ -1,28 +1,33 @@
 """CUDA kernel backend: ``KERNEL_BACKEND``, the counterpart of the JAX
-package's ``PALLAS_BACKEND``.
+package's ``PALLAS_BACKEND``, routed level by level as it is.
 
-Per level, as in the JAX package:
+Per level:
   * 2D, n >= PACK_MIN_N: the level lives in the color-packed layout
     (``packed2d``); its kernels run the down and up legs, the solve's
-    convergence check (the fused residual norm) and the residual (MG-PCG's
-    operator apply);
+    convergence check (the fused residual norm), the residual (MG-PCG's
+    operator apply, the Chebyshev and Jacobi smoothing's residual applies)
+    and longer RB-GS schedules (``rbgs_sweep``);
   * 2D, KERNEL_MIN_N <= n < PACK_MIN_N: the logical padded layout; the
-    whole-leg kernels (``fused2d``) run the legs, and the residual of such a
-    fine level (the convergence check, MG-PCG) is the ``stencil2d`` kernel;
+    whole-leg kernels (``fused2d``) run the legs; where a leg does not fuse
+    (the Chebyshev smoother, more sweeps than a fused leg takes) the cycle
+    composes it from the ``stencil2d`` sweeps or residual and the
+    ``transfer2d`` kernels; the residual of such a fine level (the
+    convergence check, MG-PCG) is the ``stencil2d`` kernel;
   * 3D, n >= KERNEL3_MIN_N: the logical padded layout; the ``stencil3d``
     kernels run the sweeps and the residual, and the cycle composes the legs
     from them and the plain transfers (the fused-leg hooks decline, as in
     JAX);
   * smaller levels, and every 1D level: the plain ``ops/`` stencils.
 ``encode``/``decode`` pack and unpack a packed fine level at the solve's
-boundary. A kernel-tier level that asks for something these kernels do not
-cover raises ``NotImplementedError`` instead of running another path.
+boundary.
 """
 from __future__ import annotations
 
+import torch
+
 from ..ops import laplacian, smoothers, transfer
 from ..solvers.cycles import Backend
-from . import fused2d, packed2d, stencil2d, stencil3d
+from . import fused2d, packed2d, stencil2d, stencil3d, transfer2d
 
 # Below this interior size a 2D level runs the plain PyTorch stencils.
 # The value is the JAX package's PALLAS_MIN_N, carried over as it is; no
@@ -40,19 +45,6 @@ PACK_MIN_N = 3000
 # carried over as it is; no threshold has been measured on the H100.
 KERNEL3_MIN_N = 100
 
-SWEEPS_TODO = ("{sweeps} {kind} sweeps on a {leg} leg exceed what one fused "
-               "kernel takes ({cap}); longer schedules need {todo}, not "
-               "ported to CUDA yet (ROADMAP.md, queue 2)")
-UNFUSED_TODO = "the unfused stencil2d sweeps and transfer2d kernels"
-PACKED_TODO = "the packed2d rbgs_sweep and residual kernels"
-SMOOTH_TODO = ("smoothing a kernel-tier level outside a fused leg needs the "
-               "stencil2d sweep kernels, not ported to CUDA yet (ROADMAP.md, "
-               "queue 2: stencil2d rbgs_sweep/jacobi_sweep)")
-PACKED_OP_TODO = ("a packed level runs only the packed legs, the residual "
-                  "and its norm; {op} on it needs the packed2d rbgs_sweep "
-                  "kernel, not ported to CUDA yet (ROADMAP.md, queue 2: "
-                  "packed2d)")
-
 
 def _pack_level(n: int) -> bool:
     return n >= PACK_MIN_N
@@ -69,28 +61,70 @@ def _kernel3_level(u, n: int) -> bool:
     return u.ndim == 3 and n >= KERNEL3_MIN_N
 
 
-def _check_leg(leg: str, kind: str, sweeps: int, cap: int, todo: str) -> None:
-    if kind == "chebyshev":
-        raise NotImplementedError(smoothers.CHEBYSHEV_TODO)
-    if sweeps > cap:
-        raise NotImplementedError(SWEEPS_TODO.format(
-            sweeps=sweeps, kind=kind, leg=leg, cap=cap, todo=todo))
+def _fuses(kind: str, sweeps: int, cap: int) -> bool:
+    """True if a fused leg runs this schedule (JAX's rule: Jacobi or RB-GS
+    within the leg's cap); else the hook declines and the cycle composes
+    the leg."""
+    return kind in ("jacobi", "rbgs") and sweeps <= cap
 
 
 def _smooth(u, b, n, h, *, kind, omega, sweeps, sigma=0.0):
-    # The cycle smooths a 2D kernel-tier level only inside the fused legs
-    # below, which raise rather than decline; a 3D kernel-tier level here.
     if packed2d.is_packed(u):
-        raise NotImplementedError(PACKED_OP_TODO.format(op="smoothing"))
-    if _kernel3_level(u, n) and kind == "rbgs":
-        return stencil3d.rbgs_sweep(u, b, n, h, sigma=sigma, sweeps=sweeps)
-    if _kernel3_level(u, n) and kind == "jacobi":
-        return stencil3d.jacobi_sweep(u, b, n, h, omega, sigma=sigma,
-                                      sweeps=sweeps)
-    if _kernel_level(u, n) and sweeps > 0:
-        raise NotImplementedError(SMOOTH_TODO)
-    return smoothers.smooth(u, b, h, kind=kind, omega=omega, sweeps=sweeps,
-                            sigma=sigma)
+        if kind == "rbgs":
+            while sweeps > 0:
+                s = min(sweeps, packed2d.max_fused_sweeps())
+                u = packed2d.rbgs_sweep(u, b, n, h, sweeps=s, sigma=sigma)
+                sweeps -= s
+            return u
+        if kind == "chebyshev":
+            return smoothers.chebyshev_generic(
+                u, b, sweeps, laplacian.diag_value(2, h, sigma),
+                lambda uu, bb: packed2d.residual(uu, bb, n, h, sigma=sigma))
+        if kind != "jacobi":
+            raise ValueError(f"unknown smoother {kind!r}")
+        # Jacobi: the residual kernel and an elementwise update a sweep.
+        scale = omega / laplacian.diag_value(2, h, sigma)
+        for _ in range(sweeps):
+            u = u + scale * packed2d.residual(u, b, n, h, sigma=sigma)
+        return u
+    if _kernel3_level(u, n):
+        if kind == "rbgs":
+            return stencil3d.rbgs_sweep(u, b, n, h, sigma=sigma,
+                                        sweeps=sweeps)
+        if kind == "jacobi":
+            return stencil3d.jacobi_sweep(u, b, n, h, omega, sigma=sigma,
+                                          sweeps=sweeps)
+        if kind == "chebyshev":
+            # Unreached through cycles.get_backend (a 3D Chebyshev cycle
+            # takes the plain backend, JAX's rule); kept as JAX has it.
+            return smoothers.chebyshev_generic(
+                u, b, sweeps, laplacian.diag_value(3, h, sigma),
+                lambda uu, bb: stencil3d.residual(uu, bb, n, h, sigma=sigma))
+        raise ValueError(f"unknown smoother {kind!r}")
+    if u.ndim != 2:
+        return smoothers.smooth(u, b, h, kind=kind, omega=omega,
+                                sweeps=sweeps, sigma=sigma)
+    if kind == "chebyshev":
+        # Residual applies (this backend's residual: the stencil2d kernel
+        # on the kernel tier) and elementwise updates.
+        return smoothers.chebyshev_generic(
+            u, b, sweeps, laplacian.diag_value(2, h, sigma),
+            lambda uu, bb: _residual(uu, bb, n, h, sigma=sigma))
+    if not _kernel_level(u, n):
+        return smoothers.smooth(u, b, h, kind=kind, omega=omega,
+                                sweeps=sweeps, sigma=sigma)
+    if kind not in ("jacobi", "rbgs"):
+        raise ValueError(f"unknown smoother {kind!r}")
+    # As many sweeps a launch as the kernel's halo takes.
+    while sweeps > 0:
+        s = min(sweeps, stencil2d.max_fused_sweeps(kind))
+        if kind == "jacobi":
+            u = stencil2d.jacobi_sweep(u, b, n, h, omega, sigma=sigma,
+                                       sweeps=s)
+        else:
+            u = stencil2d.rbgs_sweep(u, b, n, h, sigma=sigma, sweeps=s)
+        sweeps -= s
+    return u
 
 
 def _residual(u, b, n, h, sigma=0.0):
@@ -105,15 +139,24 @@ def _residual(u, b, n, h, sigma=0.0):
 
 def _restrict(r):
     if packed2d.is_packed(r):
-        raise NotImplementedError(PACKED_OP_TODO.format(op="restriction"))
+        # restrict(r) is the coarse output of the down leg with no sweeps
+        # on (u = 0, b = r): residual(0, r) = r.
+        n = r.shape[1] - 2
+        _, rc = packed2d.smooth_residual_restrict(
+            torch.zeros_like(r), r, n, 1.0, kind="rbgs", omega=1.0,
+            sweeps=0, packed_coarse=_pack_level((n - 1) // 2))
+        return rc
     return transfer.restrict(r)
 
 
 def _prolong(e, nc):
-    # A 2D fine level at or above PACK_MIN_N is packed: a logical P e
-    # cannot be added to it.
-    if packed2d.is_packed(e) or (e.ndim == 2 and _pack_level(2 * nc + 1)):
-        raise NotImplementedError(PACKED_OP_TODO.format(op="prolongation"))
+    n = 2 * nc + 1
+    if (e.ndim == 2 or packed2d.is_packed(e)) and _pack_level(n):
+        # P e on a packed fine level: the up leg with no sweeps on x = 0.
+        zero = torch.zeros(packed2d.packed_shape(n), dtype=e.dtype,
+                           device=e.device)
+        return packed2d.prolong_add_smooth(zero, e, zero, n, nc, 1.0,
+                                           kind="rbgs", omega=1.0, sweeps=0)
     return transfer.prolong(e)
 
 
@@ -127,36 +170,61 @@ def _decode(u):
     return packed2d.unpack(u) if packed2d.is_packed(u) else u
 
 
+def _residual_restrict(u, b, n, h):
+    """R (b - A u) with sigma = 0 (the cycle's only call)."""
+    if packed2d.is_packed(u):
+        _, rc = packed2d.smooth_residual_restrict(
+            u, b, n, h, kind="rbgs", omega=1.0, sweeps=0,
+            packed_coarse=_pack_level((n - 1) // 2))
+        return rc
+    if _kernel3_level(u, n):
+        return transfer.restrict(stencil3d.residual(u, b, n, h))
+    if _kernel_level(u, n):
+        return transfer2d.residual_restrict(u, b, n, h)
+    return transfer.restrict(laplacian.residual(u, b, h))
+
+
+def _prolong_add(x, e, n, nc):
+    """x + P e."""
+    if packed2d.is_packed(x):
+        return packed2d.prolong_add_smooth(
+            x, e, torch.zeros_like(x), n, nc, 1.0, kind="rbgs", omega=1.0,
+            sweeps=0)
+    if _kernel_level(x, n):
+        return transfer2d.prolong_add(x, e, n, nc)
+    return x + transfer.prolong(e)
+
+
 def _smooth_residual_restrict(u, b, n, h, *, kind, omega, sweeps,
                               sigma=0.0):
-    """Whole down leg on a kernel-tier level; None (compose from the plain
-    ops) elsewhere."""
+    """Whole down leg on a 2D kernel-tier level; None (the cycle composes
+    the leg) elsewhere and for a schedule no fused leg runs."""
     if packed2d.is_packed(u):
-        _check_leg("down", kind, sweeps, packed2d.max_down_sweeps(kind),
-                   PACKED_TODO)
+        if not _fuses(kind, sweeps, packed2d.max_down_sweeps(kind)):
+            return None
         return packed2d.smooth_residual_restrict(
             u, b, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma,
             packed_coarse=_pack_level((n - 1) // 2))
-    if not _kernel_level(u, n):
+    if (not _kernel_level(u, n)
+            or not _fuses(kind, sweeps, fused2d.max_down_sweeps(kind))):
         return None
-    _check_leg("down", kind, sweeps, fused2d.max_down_sweeps(kind),
-               UNFUSED_TODO)
     return fused2d.smooth_residual_restrict(
         u, b, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma)
 
 
 def _prolong_add_smooth(x, e, b, n, nc, h, *, kind, omega, sweeps,
                         sigma=0.0):
-    """Whole up leg on a kernel-tier level; None elsewhere."""
+    """Whole up leg on a 2D kernel-tier level; None elsewhere and for a
+    schedule no fused leg runs."""
     if packed2d.is_packed(x):
-        _check_leg("up", kind, sweeps, packed2d.max_up_sweeps(kind),
-                   PACKED_TODO)
+        if not _fuses(kind, sweeps, packed2d.max_up_sweeps(kind)):
+            return None
         return packed2d.prolong_add_smooth(
             x, e, b, n, nc, h, kind=kind, omega=omega, sweeps=sweeps,
             sigma=sigma)
-    if not _kernel_level(x, n):
+    if (not _kernel_level(x, n)
+            or not _fuses(kind, sweeps, fused2d.max_up_sweeps(kind))):
         return None
-    _check_leg("up", kind, sweeps, fused2d.max_up_sweeps(kind), UNFUSED_TODO)
     return fused2d.prolong_add_smooth(
         x, e, b, n, nc, h, kind=kind, omega=omega, sweeps=sweeps,
         sigma=sigma)
@@ -176,6 +244,8 @@ KERNEL_BACKEND = Backend(
     prolong=_prolong,
     encode=_encode,
     decode=_decode,
+    residual_restrict=_residual_restrict,
+    prolong_add=_prolong_add,
     smooth_residual_restrict=_smooth_residual_restrict,
     prolong_add_smooth=_prolong_add_smooth,
     residual_norm2=_residual_norm2,

@@ -1,5 +1,6 @@
 // Shared pieces of the Poisson kernels (stencil2d.cu, fused2d.cu,
-// packed2d.cu; stencil3d.cu takes Coef and the error string).
+// transfer2d.cu, packed2d.cu; stencil3d.cu takes Coef and the error
+// string).
 //
 // Grids are the logical padded layout of the Python package: an
 // (n+2) x (n+2) row-major array whose one-cell ghost ring is zero
@@ -94,6 +95,102 @@ __device__ __forceinline__ T residual_at(const T* p, T bval, int pitch,
   const T v = p[0];
   const T au = (T(4) * v - p[-pitch] - p[pitch] - p[-1] - p[1]) * c.inv_h2;
   return bval - au + c.sig * v;
+}
+
+// Halo rings that `sweeps` in-tile sweeps of `kind` make stale (see the
+// smoothing section below): RB-GS 2 a sweep, Jacobi 1.
+inline int sweep_halo(int kind, int sweeps) {
+  return kind == kRbgs ? 2 * sweeps : sweeps;
+}
+
+// Tiles of the logical layout. A block owns a TY x TX core of fine points
+// whose first row and column are even, so fine point 2I of coarse point I
+// (transfer.py) lies in exactly one core and every coarse value has one
+// writer, and loads it with a halo of H rings: an RY x RX tile, RY = TY +
+// 2H, RX = TX + 2H, whose top-left point is (y0 - H, x0 - H).
+
+// Load the RY x RX tile at global (gy0, gx0) of a P x P grid; points off
+// the grid read as 0.
+template <typename T>
+__device__ void load_tile(const T* __restrict__ g, T* s, int RY, int RX,
+                          int gy0, int gx0, int P) {
+  for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
+    const int ly = idx / RX;
+    const int gy = gy0 + ly;
+    const int gx = gx0 + idx - ly * RX;
+    s[idx] = (gy >= 0 && gy < P && gx >= 0 && gx < P)
+                 ? g[static_cast<size_t>(gy) * P + gx]
+                 : T(0);
+  }
+}
+
+// Write the TY x TX core of tile `s` (halo H) to the grid at (y0, x0).
+template <int TY, int TX, typename T>
+__device__ void store_core(const T* s, T* __restrict__ g, int RX, int H,
+                           int y0, int x0, int P) {
+  for (int idx = threadIdx.x; idx < TY * TX; idx += blockDim.x) {
+    const int cy = idx / TX;
+    const int cx = idx - cy * TX;
+    const int gy = y0 + cy;
+    const int gx = x0 + cx;
+    if (gy < P && gx < P) {
+      g[static_cast<size_t>(gy) * P + gx] = s[(H + cy) * RX + H + cx];
+    }
+  }
+}
+
+// The residual of tile w (halo H >= 2) on its TY x TX core plus one ring,
+// zero off the interior, into rs ((TY + 2) x (TX + 2), row a = fine row
+// y0 - 1 + a).
+template <int TY, int TX, typename T>
+__device__ void core_residual(const T* w, const T* bs, T* rs, int RX, int H,
+                              int gy0, int gx0, int n, const Coef<T>& c) {
+  constexpr int RSX = TX + 2;
+  for (int idx = threadIdx.x; idx < (TY + 2) * RSX; idx += blockDim.x) {
+    const int a = idx / RSX;
+    const int ly = H - 1 + a;
+    const int lx = H - 1 + idx - a * RSX;
+    const int k = ly * RX + lx;
+    rs[idx] = interior(gy0 + ly, gx0 + lx, n)
+                  ? residual_at(w + k, bs[k], RX, c)
+                  : T(0);
+  }
+}
+
+// Full weighting [1 2 1; 2 4 2; 1 2 1]/16 of the residual tile rs at the
+// coarse points this block owns, rows first then columns as in
+// transfer.restrict; coarse I sits at fine 2I = y0 + 2q, row 2q + 1 of rs.
+// rc is the ((n-1)/2 + 2)^2 coarse grid, logical or colour-packed (see
+// CoarseView); its ghosts are written as 0.
+template <int TY, int TX, typename T>
+__device__ void restrict_core(const T* rs, T* __restrict__ rc, int y0, int x0,
+                              int n, bool packed) {
+  constexpr int RSX = TX + 2;
+  const int nc = (n - 1) / 2;
+  const int Pc = nc + 2;
+  const int cpc = (Pc + 1) / 2;
+  for (int idx = threadIdx.x; idx < (TY / 2) * (TX / 2); idx += blockDim.x) {
+    const int q = idx / (TX / 2);
+    const int s = idx - q * (TX / 2);
+    const int I = y0 / 2 + q;
+    const int J = x0 / 2 + s;
+    if (I >= Pc || J >= Pc) continue;
+    T val = T(0);
+    if (interior(I, J, nc)) {
+      const T* r0 = rs + (2 * q) * RSX + 2 * s;
+      const T* r1 = r0 + RSX;
+      const T* r2 = r1 + RSX;
+      const T t0 = T(0.25) * (r0[0] + T(2) * r1[0] + r2[0]);
+      const T t1 = T(0.25) * (r0[1] + T(2) * r1[1] + r2[1]);
+      const T t2 = T(0.25) * (r0[2] + T(2) * r1[2] + r2[2]);
+      val = T(0.25) * (t0 + T(2) * t1 + t2);
+    }
+    if (packed) {
+      rc[(static_cast<size_t>((I + J) & 1) * Pc + I) * cpc + (J >> 1)] = val;
+    } else {
+      rc[static_cast<size_t>(I) * Pc + J] = val;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

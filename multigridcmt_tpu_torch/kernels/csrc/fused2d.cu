@@ -30,42 +30,10 @@ constexpr int TX = 64;        // core columns per block (even)
 constexpr int TY = 32;        // core rows per block (even)
 constexpr int THREADS = 256;
 
-// Halo rings a leg needs for `sweeps` sweeps of `kind`.
+// Halo rings a leg needs: the sweeps', plus on the down leg one ring for
+// the residual and one for the full weighting.
 int down_halo(int kind, int sweeps) {
-  return (kind == mg::kRbgs ? 2 * sweeps : sweeps) + 2;
-}
-int up_halo(int kind, int sweeps) {
-  return kind == mg::kRbgs ? 2 * sweeps : sweeps;
-}
-
-// Load the RY x RX tile at global (gy0, gx0) of a P x P grid; points off
-// the grid read as 0.
-template <typename T>
-__device__ void load_tile(const T* __restrict__ g, T* s, int RY, int RX,
-                          int gy0, int gx0, int P) {
-  for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
-    const int ly = idx / RX;
-    const int gy = gy0 + ly;
-    const int gx = gx0 + idx - ly * RX;
-    s[idx] = (gy >= 0 && gy < P && gx >= 0 && gx < P)
-                 ? g[static_cast<size_t>(gy) * P + gx]
-                 : T(0);
-  }
-}
-
-// Write the TY x TX core of tile `s` (halo H) to the grid at (y0, x0).
-template <typename T>
-__device__ void store_core(const T* s, T* __restrict__ g, int RX, int H,
-                           int y0, int x0, int P) {
-  for (int idx = threadIdx.x; idx < TY * TX; idx += blockDim.x) {
-    const int cy = idx / TX;
-    const int cx = idx - cy * TX;
-    const int gy = y0 + cy;
-    const int gx = x0 + cx;
-    if (gy < P && gx < P) {
-      g[static_cast<size_t>(gy) * P + gx] = s[(H + cy) * RX + H + cx];
-    }
-  }
+  return mg::sweep_halo(kind, sweeps) + 2;
 }
 
 // Down leg: u' = smooth^sweeps(u); rc = R (b - (A - sigma I) u').
@@ -76,12 +44,8 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
             int kind, int sweeps, int H) {
   extern __shared__ unsigned char smem_raw[];
   const int P = n + 2;
-  const int nc = (n - 1) / 2;
-  const int Pc = nc + 2;
   const int RX = TX + 2 * H;
   const int RY = TY + 2 * H;
-  const int RSX = TX + 2;     // residual tile: the core plus one ring
-  const int RSY = TY + 2;
   const int y0 = blockIdx.y * TY;
   const int x0 = blockIdx.x * TX;
   const int gy0 = y0 - H;
@@ -89,51 +53,19 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
 
   T* us = reinterpret_cast<T*>(smem_raw);
   T* bs = us + RY * RX;
-  T* rs = bs + RY * RX;
-  T* vs = rs + RSY * RSX;     // Jacobi ping-pong buffer (RB-GS: unused)
+  T* rs = bs + RY * RX;       // residual on the core plus one ring
+  T* vs = rs + (TY + 2) * (TX + 2);   // Jacobi ping-pong (RB-GS: unused)
 
-  load_tile(u, us, RY, RX, gy0, gx0, P);
-  load_tile(b, bs, RY, RX, gy0, gx0, P);
+  mg::load_tile(u, us, RY, RX, gy0, gx0, P);
+  mg::load_tile(b, bs, RY, RX, gy0, gx0, P);
   __syncthreads();
 
   const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, n, kind, sweeps,
                                c);
-
-  // Residual on the core plus one ring (zero off the interior).
-  for (int idx = threadIdx.x; idx < RSY * RSX; idx += blockDim.x) {
-    const int a = idx / RSX;
-    const int col = idx - a * RSX;
-    const int ly = H - 1 + a;
-    const int lx = H - 1 + col;
-    const int k = ly * RX + lx;
-    rs[idx] = mg::interior(gy0 + ly, gx0 + lx, n)
-                  ? mg::residual_at(w + k, bs[k], RX, c)
-                  : T(0);
-  }
-  store_core(w, u_out, RX, H, y0, x0, P);
+  mg::core_residual<TY, TX>(w, bs, rs, RX, H, gy0, gx0, n, c);
+  mg::store_core<TY, TX>(w, u_out, RX, H, y0, x0, P);
   __syncthreads();
-
-  // Full weighting [1 2 1; 2 4 2; 1 2 1]/16 at the coarse points this block
-  // owns, rows first then columns as in transfer.restrict. Coarse I sits at
-  // fine 2I = y0 + 2q, which is row 2q+1 of the residual tile.
-  for (int idx = threadIdx.x; idx < (TY / 2) * (TX / 2); idx += blockDim.x) {
-    const int q = idx / (TX / 2);
-    const int s = idx - q * (TX / 2);
-    const int I = y0 / 2 + q;
-    const int J = x0 / 2 + s;
-    if (I >= Pc || J >= Pc) continue;
-    T val = T(0);
-    if (mg::interior(I, J, nc)) {
-      const T* r0 = rs + (2 * q) * RSX + 2 * s;
-      const T* r1 = r0 + RSX;
-      const T* r2 = r1 + RSX;
-      const T t0 = T(0.25) * (r0[0] + T(2) * r1[0] + r2[0]);
-      const T t1 = T(0.25) * (r0[1] + T(2) * r1[1] + r2[1]);
-      const T t2 = T(0.25) * (r0[2] + T(2) * r1[2] + r2[2]);
-      val = T(0.25) * (t0 + T(2) * t1 + t2);
-    }
-    rc[static_cast<size_t>(I) * Pc + J] = val;
-  }
+  mg::restrict_core<TY, TX>(rs, rc, y0, x0, n, false);
 }
 
 // Up leg: x' = smooth^sweeps(x + P e).
@@ -176,7 +108,7 @@ up_kernel(const T* __restrict__ x, const T* __restrict__ e,
 
   const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, n, kind, sweeps,
                                c);
-  store_core(w, out, RX, H, y0, x0, P);
+  mg::store_core<TY, TX>(w, out, RX, H, y0, x0, P);
 }
 
 dim3 leg_grid(int n) {
@@ -207,7 +139,7 @@ template <typename T>
 int launch_up(const void* x, const void* e, const void* b, void* out, int n,
               double h, double sigma, int kind, double omega, int sweeps,
               void* stream) {
-  const int H = up_halo(kind, sweeps);
+  const int H = mg::sweep_halo(kind, sweeps);
   const size_t tile = static_cast<size_t>(TY + 2 * H) * (TX + 2 * H);
   const size_t bytes = sizeof(T) * (kind == mg::kJacobi ? 3 : 2) * tile;
   const int err = mg::set_smem(up_kernel<T>, bytes);

@@ -1,11 +1,13 @@
 // Colour-packed kernels for the finest 2D levels: the two whole-leg kernels,
-// the fused residual norm of the convergence check and the residual.
+// the fused residual norm of the convergence check, the residual and the
+// fused RB-GS sweeps.
 //
 // Replace the TPU kernels multigridcmt_tpu/kernels/packed2d.py:
 //   smooth_residual_restrict -> packed2d_down     (down_kernel)
 //   prolong_add_smooth       -> packed2d_up       (up_kernel)
 //   residual_norm_sq         -> packed2d_resnorm  (resnorm_partial, _final)
 //   residual                 -> packed2d_residual (residual_kernel)
+//   rbgs_sweep               -> packed2d_rbgs     (rbgs_kernel)
 //
 // Layout. A padded grid of P = n+2 (odd) points a side is stored as two
 // planes (2, P, cp), cp = (P+1)/2: plane 0 holds the red points ((i+j)
@@ -46,10 +48,7 @@ constexpr int THREADS = 256;
 constexpr int RN_THREADS = 256;
 
 int down_halo(int kind, int sweeps) {
-  return (kind == mg::kRbgs ? 2 * sweeps : sweeps) + 2;
-}
-int up_halo(int kind, int sweeps) {
-  return kind == mg::kRbgs ? 2 * sweeps : sweeps;
+  return mg::sweep_halo(kind, sweeps) + 2;
 }
 
 // Load both planes of the RY x RXP lane tile at (gy0, gp0) of a packed
@@ -191,9 +190,6 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
   extern __shared__ unsigned char smem_raw[];
   const int P = n + 2;
   const int cp = (P + 1) / 2;
-  const int nc = (n - 1) / 2;
-  const int Pc = nc + 2;
-  const int cpc = (Pc + 1) / 2;
   const int RY = TY + 2 * H;
   const int RXP = TXP + 2 * HP;
   const int plane = RY * RXP;
@@ -237,30 +233,7 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
   }
   store_pcore(w, u_out, RY, RXP, H, HP, y0, p0, P, cp);
   __syncthreads();
-
-  // Full weighting at the coarse points this block owns, as in fused2d.cu.
-  for (int idx = threadIdx.x; idx < (TY / 2) * (TX / 2); idx += blockDim.x) {
-    const int q = idx / (TX / 2);
-    const int s = idx - q * (TX / 2);
-    const int I = y0 / 2 + q;
-    const int J = x0 / 2 + s;
-    if (I >= Pc || J >= Pc) continue;
-    T val = T(0);
-    if (mg::interior(I, J, nc)) {
-      const T* r0 = rs + (2 * q) * RSX + 2 * s;
-      const T* r1 = r0 + RSX;
-      const T* r2 = r1 + RSX;
-      const T t0 = T(0.25) * (r0[0] + T(2) * r1[0] + r2[0]);
-      const T t1 = T(0.25) * (r0[1] + T(2) * r1[1] + r2[1]);
-      const T t2 = T(0.25) * (r0[2] + T(2) * r1[2] + r2[2]);
-      val = T(0.25) * (t0 + T(2) * t1 + t2);
-    }
-    if (packed_coarse) {
-      rc[(static_cast<size_t>((I + J) & 1) * Pc + I) * cpc + (J >> 1)] = val;
-    } else {
-      rc[static_cast<size_t>(I) * Pc + J] = val;
-    }
-  }
+  mg::restrict_core<TY, TX>(rs, rc, y0, x0, n, packed_coarse);
 }
 
 // Up leg: x' = smooth^sweeps(x + P e); e logical or packed (a template
@@ -308,6 +281,35 @@ up_kernel(const T* __restrict__ x, const T* __restrict__ e,
   __syncthreads();
 
   const T* w = smooth_ptile(us, vs, bs, RY, RXP, gy0, 2 * gp0, n, kind,
+                            sweeps, cf);
+  store_pcore(w, out, RY, RXP, H, HP, y0, p0, P, cp);
+}
+
+// RB-GS: u' = smooth^sweeps(u) on packed grids, halo H = 2 sweeps rows and
+// HP = sweeps lanes (2 HP columns). Ghosts and pad lanes are never updated
+// (not interior), so they keep u's zeros.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+rbgs_kernel(const T* __restrict__ u, const T* __restrict__ b,
+            T* __restrict__ out, int n, mg::Coef<T> cf, int sweeps, int H,
+            int HP) {
+  extern __shared__ unsigned char smem_raw[];
+  const int P = n + 2;
+  const int cp = (P + 1) / 2;
+  const int RY = TY + 2 * H;
+  const int RXP = TXP + 2 * HP;
+  const int y0 = blockIdx.y * TY;
+  const int p0 = blockIdx.x * TXP;
+  const int gy0 = y0 - H;
+  const int gp0 = p0 - HP;
+
+  T* us = reinterpret_cast<T*>(smem_raw);
+  T* bs = us + 2 * RY * RXP;
+
+  load_ptile(u, us, RY, RXP, gy0, gp0, P, cp);
+  load_ptile(b, bs, RY, RXP, gy0, gp0, P, cp);
+  __syncthreads();
+  const T* w = smooth_ptile(us, us, bs, RY, RXP, gy0, 2 * gp0, n, mg::kRbgs,
                             sweeps, cf);
   store_pcore(w, out, RY, RXP, H, HP, y0, p0, P, cp);
 }
@@ -430,7 +432,7 @@ template <typename T>
 int launch_up(const void* x, const void* e, const void* b, void* out, int n,
               double h, double sigma, int kind, double omega, int sweeps,
               int packed_e, void* stream) {
-  const int H = up_halo(kind, sweeps);
+  const int H = mg::sweep_halo(kind, sweeps);
   const int HP = (H + 1) / 2;
   const size_t plane = static_cast<size_t>(TY + 2 * H) * (TXP + 2 * HP);
   const size_t bytes = sizeof(T) * (kind == mg::kJacobi ? 6 : 4) * plane;
@@ -471,6 +473,23 @@ int launch_residual(const void* u, const void* b, void* r, int n, double h,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(u), static_cast<const T*>(b),
       static_cast<T*>(r), n, mg::Coef<T>::make(h, sigma, 1.0));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_rbgs(const void* u, const void* b, void* out, int n, double h,
+                double sigma, int sweeps, void* stream) {
+  const int H = mg::sweep_halo(mg::kRbgs, sweeps);
+  const int HP = (H + 1) / 2;
+  const size_t bytes =
+      sizeof(T) * 4 * static_cast<size_t>(TY + 2 * H) * (TXP + 2 * HP);
+  const int err = mg::set_smem(rbgs_kernel<T>, bytes);
+  if (err != 0) return err;
+  rbgs_kernel<T><<<leg_grid(n), THREADS, bytes,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const T*>(b),
+      static_cast<T*>(out), n, mg::Coef<T>::make(h, sigma, 1.0), sweeps, H,
+      HP);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,6 +537,16 @@ int mg_packed2d_resnorm_f64(const void* u, const void* b, void* partial,
                             int red_only, int blocks, void* stream) {
   return launch_resnorm<double>(u, b, partial, out, n, h, sigma, red_only,
                                 blocks, stream);
+}
+
+int mg_packed2d_rbgs_f32(const void* u, const void* b, void* out, int n,
+                         double h, double sigma, int sweeps, void* stream) {
+  return launch_rbgs<float>(u, b, out, n, h, sigma, sweeps, stream);
+}
+
+int mg_packed2d_rbgs_f64(const void* u, const void* b, void* out, int n,
+                         double h, double sigma, int sweeps, void* stream) {
+  return launch_rbgs<double>(u, b, out, n, h, sigma, sweeps, stream);
 }
 
 int mg_packed2d_residual_f32(const void* u, const void* b, void* r, int n,

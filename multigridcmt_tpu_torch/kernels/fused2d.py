@@ -26,21 +26,17 @@ from ._wrap import check_grid, launch_on, on_cuda
 down_launches = 0
 up_launches = 0
 
-# The halo a leg loads grows with its sweeps (RB-GS: 2 rows a sweep, plus
-# 2 for the residual and the restriction on the down leg). Capping it at 8,
-# as the TPU kernels do, keeps the shared-memory tile bounded and makes
-# the same legs fuse as in the JAX package.
-_MAX_HALO = 8
-
 
 def max_down_sweeps(kind: str) -> int:
     """Sweeps one smooth_residual_restrict launch can fuse."""
-    return (_MAX_HALO - 2) // 2 if kind == "rbgs" else _MAX_HALO - 2
+    halo = _build.MAX_HALO
+    return (halo - 2) // 2 if kind == "rbgs" else halo - 2
 
 
 def max_up_sweeps(kind: str) -> int:
     """Sweeps one prolong_add_smooth launch can fuse."""
-    return _MAX_HALO // 2 if kind == "rbgs" else _MAX_HALO
+    halo = _build.MAX_HALO
+    return halo // 2 if kind == "rbgs" else halo
 
 
 def _check_schedule(kind: str, sweeps: int, cap: int) -> None:

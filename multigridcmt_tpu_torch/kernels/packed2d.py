@@ -10,7 +10,7 @@ The lane past a row's last point of its colour is a pad and stays zero.
 ``pack``/``unpack`` convert at the solve's encode/decode boundary, once a
 solve, in plain PyTorch.
 
-Replaces four TPU kernels of that module with ``csrc/packed2d.cu`` (see
+Replaces five TPU kernels of that module with ``csrc/packed2d.cu`` (see
 the note there on what bounds them and what packing does on the card):
   * ``smooth_residual_restrict``: the whole down leg; after an RB-GS sweep
     the black residual is taken as zero (the closing black half-sweep
@@ -20,8 +20,11 @@ the note there on what bounds them and what packing does on the card):
   * ``residual_norm_sq``: ||b - (A - sigma I) u||^2 without writing the
     residual, the convergence check; ``red_only`` sums the red plane only;
   * ``residual``: b - (A - sigma I) u on both planes, ghosts and pad lanes
-    zero: the operator apply and the residual of MG-PCG on a packed level.
-The TPU module's ``rbgs_sweep`` is not ported yet (ROADMAP queue 2).
+    zero: the operator apply and the residual of MG-PCG on a packed level,
+    and the residual applies of its Chebyshev and Jacobi smoothing;
+  * ``rbgs_sweep``: up to ``max_fused_sweeps()`` RB-GS sweeps in one pass,
+    the smoothing of a packed level whose leg has more sweeps than a fused
+    leg takes.
 
 Each wrapper has its plain PyTorch version beside it: unpack, the ``ops/``
 composition, pack. Device rule (``_wrap``): a CPU tensor takes the plain
@@ -42,10 +45,7 @@ down_launches = 0
 up_launches = 0
 resnorm_launches = 0
 residual_launches = 0
-
-# As in the TPU module: the halo of a leg is capped at 8 rings, which
-# bounds the sweeps one launch fuses.
-_MAX_HALO = 8
+rbgs_launches = 0
 
 # Blocks of the residual norm's first pass; each writes one float64
 # partial sum, which the second pass adds in a fixed order.
@@ -85,12 +85,19 @@ def unpack(s: torch.Tensor) -> torch.Tensor:
 
 def max_down_sweeps(kind: str) -> int:
     """Sweeps one smooth_residual_restrict launch can fuse."""
-    return (_MAX_HALO - 2) // 2 if kind == "rbgs" else _MAX_HALO - 2
+    halo = _build.MAX_HALO
+    return (halo - 2) // 2 if kind == "rbgs" else halo - 2
 
 
 def max_up_sweeps(kind: str) -> int:
     """Sweeps one prolong_add_smooth launch can fuse."""
-    return _MAX_HALO // 2 if kind == "rbgs" else _MAX_HALO
+    halo = _build.MAX_HALO
+    return halo // 2 if kind == "rbgs" else halo
+
+
+def max_fused_sweeps() -> int:
+    """RB-GS sweeps one rbgs_sweep launch fuses (2 stale rows a sweep)."""
+    return _build.MAX_HALO // 2
 
 
 def _check_schedule(kind: str, sweeps: int, cap: int) -> None:
@@ -253,4 +260,31 @@ def residual(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
     launch_on(s, "packed2d_residual", s.data_ptr(), bs.data_ptr(),
               out.data_ptr(), n, float(h), float(sigma))
     residual_launches += 1
+    return out
+
+
+def rbgs_sweep_plain(s, bs, n, h, *, sweeps=1, sigma=0.0):
+    """Plain PyTorch version: unpack, ``sweeps`` RB-GS sweeps, pack."""
+    return pack(smoothers.smooth(unpack(s), unpack(bs), h, kind="rbgs",
+                                 omega=1.0, sweeps=sweeps, sigma=sigma))
+
+
+def rbgs_sweep(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
+               sweeps: int = 1, sigma=0.0) -> torch.Tensor:
+    """``sweeps`` (1 to ``max_fused_sweeps()``) red+black Gauss-Seidel
+    sweeps on packed grids in one pass; ghosts and pad lanes stay zero."""
+    global rbgs_launches
+    check_storage("packed2d.rbgs_sweep", s)
+    if not 1 <= sweeps <= max_fused_sweeps():
+        raise ValueError(f"{sweeps} rbgs sweeps: one launch takes 1 to "
+                         f"{max_fused_sweeps()}")
+    _check_fine(n)
+    check_tensor("u", s, packed_shape(n), s)
+    check_tensor("b", bs, packed_shape(n), s)
+    if not on_cuda(s):
+        return rbgs_sweep_plain(s, bs, n, h, sweeps=sweeps, sigma=sigma)
+    out = torch.empty_like(s)
+    launch_on(s, "packed2d_rbgs", s.data_ptr(), bs.data_ptr(),
+              out.data_ptr(), n, float(h), float(sigma), sweeps)
+    rbgs_launches += 1
     return out

@@ -1,12 +1,18 @@
-"""2D residual kernel: r = b - (A - sigma I) u in one pass.
+"""2D stencil kernels on the logical padded layout: the residual and the
+fused RB-GS and Jacobi sweeps.
 
-Replaces the TPU kernel ``multigridcmt_tpu/kernels/stencil2d.py:residual``
-with ``csrc/stencil2d.cu`` (one CUDA thread per point; see the note
-there on what bounds it). The solve's convergence check on an unpacked
-kernel-tier fine level (255 <= n < PACK_MIN_N) runs through it once per
-cycle; a color-packed fine level checks with ``packed2d.residual_norm_sq``
-instead. The fused RB-GS and Jacobi sweep kernels of the same TPU module
-are not ported yet (ROADMAP queue 2).
+Replace the TPU kernels of ``multigridcmt_tpu/kernels/stencil2d.py`` with
+``csrc/stencil2d.cu`` (see the note there on what bounds them):
+  * ``residual``: r = b - (A - sigma I) u in one pass, one CUDA thread a
+    point. The solve's convergence check on an unpacked kernel-tier fine
+    level (255 <= n < PACK_MIN_N) and MG-PCG's operator apply there run
+    through it, and so do the Chebyshev smoother's residual applies on the
+    kernel-tier levels; a color-packed level uses ``packed2d`` instead;
+  * ``rbgs_sweep`` and ``jacobi_sweep``: up to ``max_fused_sweeps(kind)``
+    sweeps in one pass (2D thread-block tiles in shared memory with a halo
+    that covers the sweeps' staleness). The kernel backend smooths a
+    kernel-tier level with them where a leg has more sweeps than a fused
+    leg takes, in chunks of that many.
 
 Device rule (``_wrap``): a CPU tensor takes the plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -15,12 +21,21 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import laplacian
+from ..ops import laplacian, smoothers
+from . import _build
 from ._wrap import check_grid, launch_on, on_cuda
 
-# Launches of the CUDA kernel in this process (plain-version calls do not
-# count).
+# Launches of each CUDA kernel in this process (plain-version calls do not
+# count): the residual, and the sweep kernel in each mode (one a launch,
+# whatever its sweep count).
 launches = 0
+rbgs_launches = 0
+jacobi_launches = 0
+
+
+def max_fused_sweeps(kind: str) -> int:
+    """Most smoothing sweeps one sweep launch fuses."""
+    return _build.MAX_HALO // 2 if kind == "rbgs" else _build.MAX_HALO
 
 
 def residual_plain(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
@@ -43,3 +58,54 @@ def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
               r.data_ptr(), n, float(h), float(sigma))
     launches += 1
     return r
+
+
+def _sweep(kind: str, u, b, n, h, omega, sigma, sweeps) -> torch.Tensor:
+    global rbgs_launches, jacobi_launches
+    cap = max_fused_sweeps(kind)
+    if not 1 <= sweeps <= cap:
+        raise ValueError(f"{sweeps} {kind} sweeps: one launch takes 1 to "
+                         f"{cap}")
+    check_grid("u", u, n, u)
+    check_grid("b", b, n, u)
+    if not on_cuda(u):
+        if kind == "rbgs":
+            return rbgs_sweep_plain(u, b, n, h, sigma=sigma, sweeps=sweeps)
+        return jacobi_sweep_plain(u, b, n, h, omega, sigma=sigma,
+                                  sweeps=sweeps)
+    out = torch.empty_like(u)
+    launch_on(u, "stencil2d_sweep", u.data_ptr(), b.data_ptr(),
+              out.data_ptr(), n, float(h), float(sigma),
+              _build.KIND_CODES[kind], float(omega), sweeps)
+    if kind == "rbgs":
+        rbgs_launches += 1
+    else:
+        jacobi_launches += 1
+    return out
+
+
+def rbgs_sweep_plain(u, b, n, h, sigma=0.0, sweeps=1):
+    """Plain PyTorch version: ``sweeps`` RB-GS sweeps of ``ops/``."""
+    return smoothers.smooth(u, b, h, kind="rbgs", omega=1.0, sweeps=sweeps,
+                            sigma=sigma)
+
+
+def rbgs_sweep(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
+               sigma=0.0, sweeps: int = 1) -> torch.Tensor:
+    """``sweeps`` (1 to 4) red+black Gauss-Seidel sweeps in one pass on
+    (n+2, n+2) padded grids; ghosts keep u's values."""
+    return _sweep("rbgs", u, b, n, h, 1.0, sigma, sweeps)
+
+
+def jacobi_sweep_plain(u, b, n, h, omega, sigma=0.0, sweeps=1):
+    """Plain PyTorch version: ``sweeps`` weighted-Jacobi sweeps of
+    ``ops/``."""
+    return smoothers.smooth(u, b, h, kind="jacobi", omega=omega,
+                            sweeps=sweeps, sigma=sigma)
+
+
+def jacobi_sweep(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
+                 omega: float, sigma=0.0, sweeps: int = 1) -> torch.Tensor:
+    """``sweeps`` (1 to 8) weighted-Jacobi sweeps in one pass on (n+2,
+    n+2) padded grids; ghosts keep u's values."""
+    return _sweep("jacobi", u, b, n, h, omega, sigma, sweeps)

@@ -1,19 +1,17 @@
-"""Smoothers: weighted Jacobi and red-black Gauss-Seidel.
+"""Smoothers: weighted Jacobi, red-black Gauss-Seidel and Chebyshev.
 
-PyTorch port of ``multigridcmt_tpu.ops.smoothers``. Both are whole-grid
-vectorised stencil updates; RB-GS computes the update everywhere and
-selects one colour by a mask. Red means (i+j) even on padded indices
-(1D: i even; 3D: i+j+k even). The Chebyshev smoother is not ported yet
-(ROADMAP queue 1, unported modules: Chebyshev).
+PyTorch port of ``multigridcmt_tpu.ops.smoothers``. Jacobi and RB-GS are
+whole-grid vectorised stencil updates; RB-GS computes the update
+everywhere and selects one colour by a mask. Red means (i+j) even on
+padded indices (1D: i even; 3D: i+j+k even). The Chebyshev smoother
+(``chebyshev_generic``) needs only residual applies and elementwise
+updates, so every backend runs it from its own residual.
 """
 from __future__ import annotations
 
 import torch
 
 from . import laplacian
-
-CHEBYSHEV_TODO = ("the Chebyshev smoother is not ported to PyTorch yet "
-                  "(ROADMAP.md, queue 1: Chebyshev)")
 
 
 def jacobi(u: torch.Tensor, b: torch.Tensor, h: float, omega: float,
@@ -72,11 +70,67 @@ def rbgs(u: torch.Tensor, b: torch.Tensor, h: float, row_offset: int = 0,
                            sigma=sigma)
 
 
+# --- Chebyshev polynomial smoother ----------------------------------------
+#
+# The eigenvalues of D^-1 A for the model operators lie in (0, 2). The
+# polynomial damps [CHEB_LMIN_FRAC * lmax, lmax] with lmax = 2, the
+# oscillatory half of the spectrum; constants and recurrence as in the JAX
+# module.
+
+CHEB_LMAX = 2.0
+CHEB_LMIN_FRAC = 0.25
+
+
+def chebyshev_generic(u, b, degree: int, diag, residual_fn,
+                      lmax: float = CHEB_LMAX,
+                      lmin_frac: float = CHEB_LMIN_FRAC):
+    """Degree-``degree`` Chebyshev smoother from operator applies only.
+
+    ``residual_fn(u, b)`` returns ``b - A u`` in the caller's layout (the
+    plain stencil, a CUDA residual kernel, the packed one); ``diag`` is the
+    constant diagonal of A. The three-term recurrence, with theta =
+    (lmax+lmin)/2, delta = (lmax-lmin)/2, sigma1 = theta/delta:
+        d_0 = (1/theta) z_0,  d_k = rho_k rho_{k-1} d_{k-1}
+              + (2 rho_k / delta) z_k,  u_{k+1} = u_k + d_k,
+        z_k = D^-1 (b - A u_k),  rho_0 = 1/sigma1,
+        rho_k = 1/(2 sigma1 - rho_{k-1}).
+    """
+    if degree <= 0:
+        # A degree-0 polynomial is the identity: no smoothing.
+        return u
+    lmin = lmax * lmin_frac
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    inv_diag = 1.0 / diag
+    rho = 1.0 / sigma1
+    r = residual_fn(u, b)
+    d = (inv_diag / theta) * r
+    u = u + d
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        r = residual_fn(u, b)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (inv_diag * r)
+        u = u + d
+        rho = rho_new
+    return u
+
+
+def chebyshev(u: torch.Tensor, b: torch.Tensor, h: float, degree: int,
+              sigma=0.0) -> torch.Tensor:
+    """Chebyshev smoother on a padded grid (plain stencil residuals)."""
+    diag = laplacian.diag_value(u.ndim, h, sigma)
+    return chebyshev_generic(
+        u, b, degree, diag,
+        lambda uu, bb: laplacian.residual(uu, bb, h, sigma=sigma))
+
+
 def smooth(u: torch.Tensor, b: torch.Tensor, h: float, *, kind: str,
            omega: float, sweeps: int, sigma=0.0) -> torch.Tensor:
-    """Apply ``sweeps`` smoothing sweeps of the requested kind."""
+    """Apply ``sweeps`` smoothing sweeps of the requested kind; for
+    ``kind="chebyshev"`` one polynomial of degree ``sweeps``."""
     if kind == "chebyshev":
-        raise NotImplementedError(CHEBYSHEV_TODO)
+        return chebyshev(u, b, h, degree=sweeps, sigma=sigma)
     if kind not in ("jacobi", "rbgs"):
         raise ValueError(f"unknown smoother {kind!r}")
     for _ in range(sweeps):

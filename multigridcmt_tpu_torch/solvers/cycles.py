@@ -37,6 +37,10 @@ class Backend(NamedTuple):
       restrict(r)               # fine grid -> coarse grid
       prolong(e, nc)            # coarse level nc -> fine level 2*nc+1
       encode(u) / decode(u)
+    Optional fused transfers (None: composed from the ops above):
+      residual_restrict(u, b, n, h) = restrict(residual(u, b, n, h)), at
+          sigma = 0 only
+      prolong_add(x, e, n, nc) = x + prolong(e, nc)
     Optional whole-leg fusions (one pass over the fine grid per leg); the
     callable returns None to decline a level, and the cycle then composes
     the leg from the ops above:
@@ -57,6 +61,8 @@ class Backend(NamedTuple):
     prolong: Callable
     encode: Callable
     decode: Callable
+    residual_restrict: Optional[Callable] = None
+    prolong_add: Optional[Callable] = None
     smooth_residual_restrict: Optional[Callable] = None
     prolong_add_smooth: Optional[Callable] = None
     residual_norm2: Optional[Callable] = None
@@ -129,7 +135,11 @@ def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
         else:
             x = bk.smooth(x, b, spec.n, spec.h, kind=config.smoother,
                           omega=omega, sweeps=config.nu1, sigma=sigma)
-            rc = bk.restrict(bk.residual(x, b, spec.n, spec.h, sigma=sigma))
+            if bk.residual_restrict is not None and laplacian._is_zero(sigma):
+                rc = bk.residual_restrict(x, b, spec.n, spec.h)
+            else:
+                rc = bk.restrict(bk.residual(x, b, spec.n, spec.h,
+                                             sigma=sigma))
         ec = torch.zeros_like(rc)
     for _ in range(gamma):
         ec = v_cycle(hier, ec, rc, config, level=level + 1, sigma=sigma,
@@ -144,9 +154,12 @@ def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
         if up is not None:
             x = up
         else:
-            x = bk.smooth(x + bk.prolong(ec, nc), b, spec.n, spec.h,
-                          kind=config.smoother, omega=omega,
-                          sweeps=config.nu2, sigma=sigma)
+            if bk.prolong_add is not None:
+                x = bk.prolong_add(x, ec, spec.n, nc)
+            else:
+                x = x + bk.prolong(ec, nc)
+            x = bk.smooth(x, b, spec.n, spec.h, kind=config.smoother,
+                          omega=omega, sweeps=config.nu2, sigma=sigma)
     return x
 
 

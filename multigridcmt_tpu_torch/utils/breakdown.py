@@ -1,21 +1,26 @@
 """Where the V-cycle's time goes on one CUDA card.
 
     python -m multigridcmt_tpu_torch.utils.breakdown [--k 12] [--reps 5]
+    python -m multigridcmt_tpu_torch.utils.breakdown --smoother chebyshev
+    python -m multigridcmt_tpu_torch.utils.breakdown --nu1 4 --nu2 4
     python -m multigridcmt_tpu_torch.utils.breakdown --ndim 3 [--k 9]
 
-For each route of the float32 RB-GS V(2,2) cycle at 2^k - 1 (k=12:
-4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA events, median of 20), the host-clock
-time of 20 cycles back to back, the device-busy time a cycle and the
-device ops a cycle (``torch.profiler``, summed over the kernel rows), the
-idle share 1 - busy/cycle, and the solve's cycle count and wall time. The
-routes: the kernel backend as shipped; the same with the finest level
-unpacked (PACK_MIN_N above n, so the fused2d legs run there); the plain
-backend; and the kernel backend with KERNEL_MIN_N = 7 (every level but the
-coarsest on the kernel tier). Then the legs' kernel times per level, packed
-and unpacked where a level can be either. In 3D the routes are the kernel
-backend as shipped, the plain backend, and the kernel backend with
-KERNEL3_MIN_N = 7; then, per level, one RB-GS sweep and the residual on
-the stencil3d kernels and the plain restriction and prolongation.
+For each route of the float32 V(nu1,nu2) cycle (default RB-GS V(2,2)) at
+2^k - 1 (k=12: 4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA
+events, median of 20), the host-clock time of 20 cycles back to back, the
+device-busy time a cycle and the device ops a cycle (``torch.profiler``,
+summed over the kernel rows), the idle share 1 - busy/cycle, and the
+solve's cycle count and wall time. The routes: the kernel backend as
+shipped; the same with the finest level unpacked (PACK_MIN_N above n, so
+the unpacked kernels run there); the plain backend; and the kernel backend
+with KERNEL_MIN_N = 7 (every level but the coarsest on the kernel tier).
+Then, per level, the kernel time of each leg as the cycle runs it (fused,
+or composed from the smoothing and the fused transfer) on the kernel tier,
+packed and unpacked where a level can be either, and of the check. In 3D
+the routes are the kernel backend as shipped, the plain backend, and the
+kernel backend with KERNEL3_MIN_N = 7; then, per level, one RB-GS sweep
+and the residual on the stencil3d kernels and the plain restriction and
+prolongation.
 
 Informative only: nothing is checked. Needs a CUDA device.
 """
@@ -30,8 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import multigridcmt_tpu_torch as mt
 from multigridcmt_tpu_torch import kernels
-from multigridcmt_tpu_torch.kernels import (fused2d, packed2d, stencil2d,
-                                            stencil3d)
+from multigridcmt_tpu_torch.kernels import packed2d, stencil2d, stencil3d
 from multigridcmt_tpu_torch.ops import transfer
 from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
 
@@ -64,7 +68,7 @@ def grids(n: int, seed: int, ndim: int = 2):
     return u, b * float((n + 1) ** 2), e
 
 
-def routes(k: int, reps: int, ndim: int) -> None:
+def routes(k: int, reps: int, ndim: int, schedule: dict) -> None:
     n = 2 ** k - 1
     # (KERNEL_MIN_N, PACK_MIN_N, KERNEL3_MIN_N)
     shipped = (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N,
@@ -79,62 +83,101 @@ def routes(k: int, reps: int, ndim: int) -> None:
         table = (("kernel", True) + shipped,
                  ("plain", False) + shipped,
                  ("kernel, KERNEL3_MIN_N=7", True) + shipped[:2] + (7,))
-    for label, use_kernels, *thresholds in table:
+    try:
+        for label, use_kernels, *thresholds in table:
+            (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N,
+             kernels.KERNEL3_MIN_N) = thresholds
+            route(label, k, ndim, use_kernels, reps, schedule)
+    finally:
         (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N,
-         kernels.KERNEL3_MIN_N) = thresholds
-        prob = mt.poisson(k=k, ndim=ndim, dtype=torch.float32,
-                          smoother="rbgs", use_kernels=use_kernels,
-                          device="cuda")
-        solver = mt.MultigridSolver(prob)
-        x0 = torch.zeros_like(prob.b)
-        ms = cuda_time_ms(lambda: solver.v_cycle(x0, prob.b))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            solver.v_cycle(x0, prob.b)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) / 20 * 1e3
-        busy, ops = device_busy(lambda: solver.v_cycle(x0, prob.b), reps)
-        t0 = time.perf_counter()
-        res = solver.solve()
-        torch.cuda.synchronize()
-        solve_ms = (time.perf_counter() - t0) * 1e3
-        print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} ms (host "
-              f"clock, 20 back to back), device busy {busy:.4f} ms/cycle, "
-              f"idle share {1 - busy / ms:.4f}, device ops/cycle {ops:.0f}; "
-              f"solve {res.iters} cycles {solve_ms:.1f} ms, final "
-              f"{res.res_history[res.iters].item():.4e}", flush=True)
-        del prob, solver, x0, res
-        torch.cuda.empty_cache()
-    kernels.KERNEL_MIN_N, kernels.PACK_MIN_N, kernels.KERNEL3_MIN_N = shipped
+         kernels.KERNEL3_MIN_N) = shipped
 
 
-def levels(k: int) -> None:
-    kw = dict(kind="rbgs", omega=1.0, sweeps=2)
-    for j in range(k, 2, -1):
-        n = 2 ** j - 1
-        nc = (n - 1) // 2
-        h = 1.0 / (n + 1)
-        u, b, e = grids(n, seed=j)
-        su, sb = packed2d.pack(u), packed2d.pack(b)
-        row = {
-            "down": cuda_time_ms(lambda: fused2d.smooth_residual_restrict(
-                u, b, n, h, **kw)),
-            "up": cuda_time_ms(lambda: fused2d.prolong_add_smooth(
-                u, e, b, n, nc, h, **kw)),
-            "residual": cuda_time_ms(lambda: stencil2d.residual(u, b, n, h)),
-            "packed down": cuda_time_ms(
-                lambda: packed2d.smooth_residual_restrict(su, sb, n, h,
-                                                          **kw)),
-            "packed up": cuda_time_ms(lambda: packed2d.prolong_add_smooth(
-                su, e, sb, n, nc, h, **kw)),
-            "packed norm": cuda_time_ms(lambda: packed2d.residual_norm_sq(
-                su, sb, n, h, red_only=True)),
-        }
-        print(f"level n={n}: " + ", ".join(f"{key} {v:.4f} ms"
-                                           for key, v in row.items()),
-              flush=True)
-        del u, b, e, su, sb
+def route(label: str, k: int, ndim: int, use_kernels: bool, reps: int,
+          schedule: dict) -> None:
+    """Time one route's cycle and solve under the thresholds set now."""
+    prob = mt.poisson(k=k, ndim=ndim, dtype=torch.float32,
+                      use_kernels=use_kernels, device="cuda", **schedule)
+    solver = mt.MultigridSolver(prob)
+    x0 = torch.zeros_like(prob.b)
+    ms = cuda_time_ms(lambda: solver.v_cycle(x0, prob.b))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        solver.v_cycle(x0, prob.b)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    busy, ops = device_busy(lambda: solver.v_cycle(x0, prob.b), reps)
+    t0 = time.perf_counter()
+    res = solver.solve()
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} ms (host "
+          f"clock, 20 back to back), device busy {busy:.4f} ms/cycle, "
+          f"idle share {1 - busy / ms:.4f}, device ops/cycle {ops:.0f}; "
+          f"solve {res.iters} cycles {solve_ms:.1f} ms, final "
+          f"{res.res_history[res.iters].item():.4e}", flush=True)
+    del prob, solver, x0, res
+    torch.cuda.empty_cache()
+
+
+def leg_calls(u, b, e, n, h, kind, omega, nu1, nu2):
+    """The down and up legs of one level as the kernel backend's cycle runs
+    them, and whether each fuses."""
+    bk = kernels.KERNEL_BACKEND
+    nc = (n - 1) // 2
+    kw = dict(kind=kind, omega=omega)
+    fused_down = bk.smooth_residual_restrict(u, b, n, h, sweeps=nu1,
+                                             **kw) is not None
+    fused_up = bk.prolong_add_smooth(u, e, b, n, nc, h, sweeps=nu2,
+                                     **kw) is not None
+
+    def down():
+        if fused_down:
+            return bk.smooth_residual_restrict(u, b, n, h, sweeps=nu1, **kw)
+        x = bk.smooth(u, b, n, h, sweeps=nu1, **kw)
+        return bk.residual_restrict(x, b, n, h)
+
+    def up():
+        if fused_up:
+            return bk.prolong_add_smooth(u, e, b, n, nc, h, sweeps=nu2,
+                                         **kw)
+        return bk.smooth(bk.prolong_add(u, e, n, nc), b, n, h, sweeps=nu2,
+                         **kw)
+
+    return down, up, fused_down, fused_up
+
+
+def levels(k: int, schedule: dict) -> None:
+    kind = schedule["smoother"]
+    omega = 1.0 if kind == "rbgs" else 0.8
+    shipped = kernels.KERNEL_MIN_N
+    kernels.KERNEL_MIN_N = 7          # every level on the kernel tier
+    try:
+        for j in range(k, 2, -1):
+            level(2 ** j - 1, j, kind, omega, schedule)
+    finally:
+        kernels.KERNEL_MIN_N = shipped
+
+
+def level(n: int, seed: int, kind: str, omega: float,
+          schedule: dict) -> None:
+    """Time one level's legs, unpacked and packed, and its check."""
+    h = 1.0 / (n + 1)
+    u, b, e = grids(n, seed=seed)
+    su, sb = packed2d.pack(u), packed2d.pack(b)
+    row = {}
+    for tag, uu, bb in (("", u, b), ("packed ", su, sb)):
+        down, up, fd, fu = leg_calls(uu, bb, e, n, h, kind, omega,
+                                     schedule["nu1"], schedule["nu2"])
+        row[f"{tag}down ({'fused' if fd else 'composed'})"] = \
+            cuda_time_ms(down)
+        row[f"{tag}up ({'fused' if fu else 'composed'})"] = cuda_time_ms(up)
+    row["residual"] = cuda_time_ms(lambda: stencil2d.residual(u, b, n, h))
+    row["packed norm"] = cuda_time_ms(lambda: packed2d.residual_norm_sq(
+        su, sb, n, h, red_only=kind == "rbgs"))
+    print(f"level n={n}: " + ", ".join(f"{key} {v:.4f} ms"
+                                       for key, v in row.items()), flush=True)
 
 
 def levels3(k: int) -> None:
@@ -162,15 +205,20 @@ def main() -> None:
     ap.add_argument("--k", type=int, default=None,
                     help="default 12 in 2D, 9 in 3D")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--smoother", default="rbgs",
+                    choices=("rbgs", "jacobi", "chebyshev"))
+    ap.add_argument("--nu1", type=int, default=2)
+    ap.add_argument("--nu2", type=int, default=2)
     args = ap.parse_args()
     k = args.k if args.k is not None else {2: 12, 3: 9}[args.ndim]
+    schedule = dict(smoother=args.smoother, nu1=args.nu1, nu2=args.nu2)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    routes(k, args.reps, args.ndim)
+    routes(k, args.reps, args.ndim, schedule)
     if args.ndim == 2:
-        levels(k)
+        levels(k, schedule)
     else:
         levels3(k)
 

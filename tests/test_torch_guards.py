@@ -1,11 +1,14 @@
 """Boundaries of the PyTorch port: it imports no JAX, its entry points run
 on the card unless asked for the CPU and raise with no card, the kernel
 build names nvcc when it is missing, the kernel wrappers reject what their
-kernels do not take, and unported routes raise NotImplementedError instead
-of running something else."""
+kernels do not take, unported routes raise NotImplementedError instead of
+running something else, and the routes ported since (the Chebyshev
+smoother, schedules beyond the fused legs' caps, the unfused ops of a
+packed level) run and agree with the plain route."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,7 +16,8 @@ import multigridcmt_tpu_torch as mt
 from multigridcmt_tpu_torch import api, convert, grids, kernels
 from multigridcmt_tpu_torch.config import SolverConfig
 from multigridcmt_tpu_torch.kernels import (_build, fused2d, packed2d,
-                                            stencil2d, stencil3d)
+                                            stencil2d, stencil3d, transfer2d)
+from multigridcmt_tpu_torch.ops import smoothers, transfer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "multigridcmt_tpu_torch"
@@ -97,12 +101,14 @@ def test_build_keys_output_by_source_hash():
     assert len(h) == 16 and h == _build.source_hash()
     names = {p.name for p in _build.sources()}
     assert {"common.cuh", "fused2d.cu", "packed2d.cu", "stencil2d.cu",
-            "stencil3d.cu"} <= names
+            "stencil3d.cu", "transfer2d.cu"} <= names
     # Every C entry point the wrappers call is declared for ctypes.
-    for kernel in ("stencil2d_residual", "fused2d_down", "fused2d_up",
-                   "packed2d_down", "packed2d_up", "packed2d_resnorm",
-                   "packed2d_residual", "stencil3d_residual",
-                   "stencil3d_jacobi", "stencil3d_rbgs"):
+    for kernel in ("stencil2d_residual", "stencil2d_sweep", "fused2d_down",
+                   "fused2d_up", "transfer2d_residual_restrict",
+                   "transfer2d_prolong_add", "packed2d_down", "packed2d_up",
+                   "packed2d_resnorm", "packed2d_residual", "packed2d_rbgs",
+                   "stencil3d_residual", "stencil3d_jacobi",
+                   "stencil3d_rbgs"):
         for t in ("f32", "f64"):
             assert f"mg_{kernel}_{t}" in _build.SIGNATURES
 
@@ -178,21 +184,39 @@ def _cube(n, dtype=torch.float64):
      NotImplementedError),
     (lambda: stencil3d.rbgs_sweep(_cube(7), _cube(7, torch.float32), 7,
                                   0.125), ValueError),
+    (lambda: stencil2d.rbgs_sweep(_grid(7), _grid(7), 7, 0.125, sweeps=5),
+     ValueError),
+    (lambda: stencil2d.jacobi_sweep(_grid(7), _grid(9), 7, 0.125, 0.8),
+     ValueError),
+    (lambda: packed2d.rbgs_sweep(_packed(7), _packed(7), 7, 0.125,
+                                 sweeps=5), ValueError),
+    (lambda: packed2d.rbgs_sweep(_packed(7, torch.bfloat16),
+                                 _packed(7, torch.bfloat16), 7, 0.125),
+     NotImplementedError),
+    (lambda: transfer2d.residual_restrict(_grid(7), _grid(7, torch.float32),
+                                          7, 0.125), ValueError),
+    (lambda: transfer2d.prolong_add(_grid(7), _grid(4), 7, 3), ValueError),
 ], ids=["dtype", "mixed-dtype", "shape", "non-contiguous", "down-cap",
         "down-kind", "even-n", "coarse-shape", "up-cap", "other-device",
         "packed-logical-input", "packed-down-cap", "packed-coarse-shape",
         "packed-up-cap", "packed-dtype", "packed-shape",
         "packed-residual-logical-input", "packed-residual-bf16",
         "stencil3d-shape", "stencil3d-n", "stencil3d-2d-input",
-        "stencil3d-bf16", "stencil3d-out-dtype", "stencil3d-mixed-dtype"])
+        "stencil3d-bf16", "stencil3d-out-dtype", "stencil3d-mixed-dtype",
+        "sweep-cap", "sweep-shape", "packed-sweep-cap", "packed-sweep-bf16",
+        "transfer-mixed-dtype", "transfer-coarse-shape"])
 def test_kernel_wrappers_reject_bad_inputs(bad, err):
     with pytest.raises(err):
         bad()
     assert (fused2d.down_launches, fused2d.up_launches,
-            stencil2d.launches, packed2d.down_launches, packed2d.up_launches,
-            packed2d.resnorm_launches, packed2d.residual_launches,
+            stencil2d.launches, stencil2d.rbgs_launches,
+            stencil2d.jacobi_launches,
+            transfer2d.residual_restrict_launches,
+            transfer2d.prolong_add_launches, packed2d.down_launches,
+            packed2d.up_launches, packed2d.resnorm_launches,
+            packed2d.residual_launches, packed2d.rbgs_launches,
             stencil3d.residual_launches, stencil3d.jacobi_launches,
-            stencil3d.rbgs_launches) == (0,) * 10
+            stencil3d.rbgs_launches) == (0,) * 15
 
 
 def _solve(**kw):
@@ -200,15 +224,43 @@ def _solve(**kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(k=4, ndim=2, smoother="chebyshev"), "Chebyshev"),
+    # Ported since: runs (its parity with JAX is in test_torch_chebyshev.py).
+    (dict(k=4, ndim=2, smoother="chebyshev"), None),
     (dict(k=4, ndim=2, cycle="fmg"), "fmg"),
     # The 3D kernels are ported; their bfloat16 storage is not.
     (dict(k=7, ndim=3, smoother="rbgs", use_kernels=True,
           dtype=torch.bfloat16), "stencil3d"),
-])
+], ids=["kw0-Chebyshev", "kw1-fmg", "kw2-stencil3d"])
 def test_unported_routes_raise(kw, match):
+    if match is None:
+        res = _solve(dtype=torch.float64, **kw)
+        assert res.converged and mt.convergence_factor(res) < 0.2
+        return
     with pytest.raises(NotImplementedError, match=match):
         _solve(**kw)
+
+
+def _kernel_route_matches_plain(monkeypatch, **kw):
+    """A float64 k=5 solve on the kernel route (the wrappers take their
+    plain versions on CPU tensors) converges in the plain route's count to
+    the plain route's iterate; returns the fine n of each transfer2d and
+    packed2d.rbgs_sweep call it made."""
+    calls = []
+    for mod, name in ((transfer2d, "residual_restrict"),
+                      (transfer2d, "prolong_add"),
+                      (packed2d, "rbgs_sweep")):
+        def spy(*a, _f=getattr(mod, name), **k):
+            calls.append(a[2])
+            return _f(*a, **k)
+        monkeypatch.setattr(mod, name, spy)
+    got, want = (_solve(k=5, ndim=2, dtype=torch.float64, tol=1e-9,
+                        use_kernels=use, **kw) for use in (True, False))
+    assert got.converged and got.iters == want.iters
+    # rtol 1e-9: the packed down leg restricts the red residual only after
+    # an RB-GS sweep (zero in exact arithmetic), the plain route both.
+    np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=1e-9,
+                               atol=1e-12)
+    return calls
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -218,9 +270,13 @@ def test_unported_routes_raise(kw, match):
     (dict(smoother="jacobi", nu1=7), "transfer2d"),
 ])
 def test_kernel_tier_raises_beyond_its_kernels(kw, match, monkeypatch):
+    """Schedules no fused leg runs on the unpacked kernel tier (level 31)
+    once raised (``match`` named the missing kernel); they now compose
+    the leg from the stencil2d sweeps or residual and the transfer2d
+    kernels."""
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 20)
-    with pytest.raises(NotImplementedError, match=match):
-        _solve(k=5, ndim=2, dtype=torch.float64, use_kernels=True, **kw)
+    calls = _kernel_route_matches_plain(monkeypatch, **kw)
+    assert calls and set(calls) == {31}
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -229,32 +285,55 @@ def test_kernel_tier_raises_beyond_its_kernels(kw, match, monkeypatch):
     (dict(smoother="jacobi", nu2=9), "packed2d"),
 ])
 def test_packed_tier_raises_beyond_its_kernels(kw, match, monkeypatch):
+    """The same on a packed fine level (31; ``match`` as above): the packed
+    RB-GS sweep (RB-GS) or the packed residual (Chebyshev, Jacobi)
+    smooths, and the zero-sweep packed legs restrict and prolong."""
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 20)
     monkeypatch.setattr(kernels, "PACK_MIN_N", 20)
-    with pytest.raises(NotImplementedError, match=match):
-        _solve(k=5, ndim=2, dtype=torch.float64, use_kernels=True, **kw)
+    calls = _kernel_route_matches_plain(monkeypatch, **kw)
+    assert calls == ([31] * len(calls) if kw["smoother"] == "rbgs" else [])
+    assert bool(calls) == (kw["smoother"] == "rbgs")
 
 
 def test_packed_level_runs_only_its_kernels(monkeypatch):
-    """On a packed level the backend's unfused ops other than the residual
-    raise (the packed2d sweep kernel is not ported) instead of running
-    another layout; the residual runs the packed residual's route."""
+    """On a packed level every op of the backend stays in the packed
+    layout where JAX's does: smoothing returns a packed grid with zero pad
+    lanes, restriction the logical coarse grid (15 < PACK_MIN_N),
+    prolongation onto the packed fine level a packed grid; each equals the
+    plain op on the unpacked grids."""
     monkeypatch.setattr(kernels, "PACK_MIN_N", 20)
     bk = kernels.KERNEL_BACKEND
-    s = _packed(31)
-    assert packed2d.is_packed(bk.encode(_grid(31)))
+    rng = np.random.default_rng(3)
+    u, b = (torch.zeros((33, 33), dtype=torch.float64) for _ in range(2))
+    u[1:-1, 1:-1] = torch.from_numpy(rng.standard_normal((31, 31)))
+    b[1:-1, 1:-1] = torch.from_numpy(rng.standard_normal((31, 31))) * 1024
+    e = torch.zeros((17, 17), dtype=torch.float64)
+    e[1:-1, 1:-1] = torch.from_numpy(rng.standard_normal((15, 15)))
+    s, sb = bk.encode(u), bk.encode(b)
+    assert packed2d.is_packed(s)
     assert not packed2d.is_packed(bk.encode(_grid(15)))
-    assert bk.decode(s).shape == (33, 33)
-    r = bk.residual(s, s, 31, 1 / 32)
-    assert packed2d.is_packed(r) and r.abs().max().item() == 0.0
-    for call in (lambda: bk.smooth(s, s, 31, 1 / 32, kind="rbgs", omega=1.0,
-                                   sweeps=1),
-                 lambda: bk.restrict(s),
-                 lambda: bk.prolong(_grid(15), 15)):
-        with pytest.raises(NotImplementedError, match="packed2d"):
-            call()
+    assert torch.equal(bk.decode(s), u)
+    r = bk.residual(s, sb, 31, 1 / 32)
+    assert packed2d.is_packed(r)
+    for kind, sweeps in (("rbgs", 5), ("jacobi", 3), ("chebyshev", 3)):
+        got = bk.smooth(s, sb, 31, 1 / 32, kind=kind, omega=0.8,
+                        sweeps=sweeps)
+        assert packed2d.is_packed(got)
+        assert torch.equal(packed2d.pack(packed2d.unpack(got)), got)
+        want = smoothers.smooth(u, b, 1 / 32, kind=kind, omega=0.8,
+                                sweeps=sweeps)
+        np.testing.assert_allclose(bk.decode(got).numpy(), want.numpy(),
+                                   rtol=1e-12, atol=1e-12 * 1024)
+    rc = bk.restrict(s)
+    assert rc.shape == (17, 17)
+    np.testing.assert_allclose(rc.numpy(), transfer.restrict(u).numpy(),
+                               rtol=1e-14, atol=1e-14)
+    pe = bk.prolong(e, 15)
+    assert packed2d.is_packed(pe)
+    assert torch.equal(bk.decode(pe), transfer.prolong(e))
     assert bk.residual_norm2(_grid(15), _grid(15), 15, 1 / 16) is None
-    assert bk.residual_norm2(s, s, 31, 1 / 32).item() == 0.0
+    assert bk.residual_norm2(_packed(31), _packed(31), 31, 1 / 32).item() \
+        == 0.0
 
 
 @pytest.mark.parametrize("kw", [dict(smoother="rbgs", nu1=4, nu2=5),
@@ -268,14 +347,33 @@ def test_long_schedules_run_below_the_kernel_tier(kw, monkeypatch):
 
 
 def test_kernel_backend_smooth_raises_on_kernel_tier(monkeypatch):
+    """Smoothing a kernel-tier level outside a fused leg once raised; it
+    now runs the stencil2d sweeps in chunks of max_fused_sweeps (on a CPU
+    tensor their plain versions) and equals the plain smoother. Zero
+    sweeps return u itself, on and below the kernel tier."""
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 20)
-    u = _grid(31)
-    with pytest.raises(NotImplementedError, match="stencil2d"):
-        kernels.KERNEL_BACKEND.smooth(u, u, 31, 1 / 32, kind="rbgs",
-                                      omega=1.0, sweeps=1)
-    out = kernels.KERNEL_BACKEND.smooth(u, u, 15, 1 / 16, kind="rbgs",
-                                        omega=1.0, sweeps=0)
-    assert out is u
+    rng = np.random.default_rng(4)
+    u, b = _grid(31), _grid(31)
+    u[1:-1, 1:-1] = torch.from_numpy(rng.standard_normal((31, 31)))
+    b[1:-1, 1:-1] = torch.from_numpy(rng.standard_normal((31, 31))) * 1024
+    calls = []
+    for name in ("rbgs_sweep", "jacobi_sweep"):
+        def spy(*a, _f=getattr(stencil2d, name), **k):
+            calls.append(k["sweeps"])
+            return _f(*a, **k)
+        monkeypatch.setattr(stencil2d, name, spy)
+    for kind, sweeps, chunks in (("rbgs", 6, [4, 2]), ("jacobi", 9, [8, 1])):
+        calls.clear()
+        got = kernels.KERNEL_BACKEND.smooth(u, b, 31, 1 / 32, kind=kind,
+                                            omega=0.8, sweeps=sweeps)
+        assert calls == chunks
+        assert torch.equal(got, smoothers.smooth(u, b, 1 / 32, kind=kind,
+                                                 omega=0.8, sweeps=sweeps))
+    for n in (31, 15):
+        v = _grid(n)
+        assert kernels.KERNEL_BACKEND.smooth(v, v, n, 1 / (n + 1),
+                                             kind="rbgs", omega=1.0,
+                                             sweeps=0) is v
 
 
 @pytest.mark.parametrize("call", ["pcg", "eigensolve", "fmg", "as_csr",

@@ -10,7 +10,9 @@ the plain versions evaluate the same formulas in other orders, e.g. a
 reciprocal product against a division). n=255 spans several Pallas
 tiles. Sweep counts run from 0 to each leg's cap for RB-GS (the solve's
 smoother) at n=63 with a shift, and over the ends of the range elsewhere,
-to keep the interpret-mode calls within the suite's time budget.
+to keep the interpret-mode calls within the suite's time budget; the
+stencil2d sweeps run 1 to 4 RB-GS and 1 and 8 Jacobi sweeps at both sizes,
+with and without a shift.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +71,8 @@ def test_sweep_caps_match_jax():
     for kind in ("rbgs", "jacobi"):
         assert fused2d.max_down_sweeps(kind) == jfused2d.max_down_sweeps(kind)
         assert fused2d.max_up_sweeps(kind) == jfused2d.max_up_sweeps(kind)
+        assert (stencil2d.max_fused_sweeps(kind)
+                == jstencil2d.max_fused_sweeps(kind))
 
 
 @pytest.mark.parametrize("n,kind,sweeps,sigma", _down_cases())
@@ -120,3 +124,51 @@ def test_residual_matches_pallas(n, sigma):
                             sigma=sigma)
     assert stencil2d.launches == before
     _close_with_zero_ghosts(tr, from_aligned(jr, n), n)
+
+
+def _sweep_counts():
+    return stencil2d.rbgs_launches, stencil2d.jacobi_launches
+
+
+@pytest.mark.parametrize("n", [63, 255])
+@pytest.mark.parametrize("sigma", [0.0, SIGMA])
+@pytest.mark.parametrize("kind,sweeps", [("rbgs", 1), ("rbgs", 2),
+                                         ("rbgs", 3), ("rbgs", 4),
+                                         ("jacobi", 1), ("jacobi", 8)])
+def test_sweeps_match_pallas(kind, sweeps, sigma, n):
+    """The fused sweeps (the smoothing of a kernel-tier level whose legs do
+    not fuse); b is scaled by 1/h^2 so that both terms of the update
+    count."""
+    rng = np.random.default_rng(3500 + n + sweeps)
+    h = 1.0 / (n + 1)
+    u, b = _padded(rng, n), _padded(rng, n) / h ** 2
+    ju, jb = to_aligned(jnp.asarray(u)), to_aligned(jnp.asarray(b))
+    tu, tb = torch.from_numpy(u), torch.from_numpy(b)
+    before = _sweep_counts()
+    if kind == "rbgs":
+        want = jstencil2d.rbgs_sweep(ju, jb, n, h, sigma=sigma, sweeps=sweeps)
+        got = stencil2d.rbgs_sweep(tu, tb, n, h, sigma=sigma, sweeps=sweeps)
+        plain = stencil2d.rbgs_sweep_plain(tu, tb, n, h, sigma=sigma,
+                                           sweeps=sweeps)
+    else:
+        want = jstencil2d.jacobi_sweep(ju, jb, n, h, OMEGA[kind],
+                                       sigma=sigma, sweeps=sweeps)
+        got = stencil2d.jacobi_sweep(tu, tb, n, h, OMEGA[kind], sigma=sigma,
+                                     sweeps=sweeps)
+        plain = stencil2d.jacobi_sweep_plain(tu, tb, n, h, OMEGA[kind],
+                                             sigma=sigma, sweeps=sweeps)
+    assert _sweep_counts() == before           # CPU: the plain version
+    assert torch.equal(got, plain)
+    _close_with_zero_ghosts(got, from_aligned(want, n), n)
+
+
+@pytest.mark.parametrize("kind,sweeps", [("rbgs", 0), ("rbgs", 5),
+                                         ("jacobi", 9)])
+def test_sweeps_reject_counts_beyond_one_launch(kind, sweeps):
+    g = torch.zeros((9, 9), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        if kind == "rbgs":
+            stencil2d.rbgs_sweep(g, g, 7, 0.125, sweeps=sweeps)
+        else:
+            stencil2d.jacobi_sweep(g, g, 7, 0.125, 0.8, sweeps=sweeps)
+    assert _sweep_counts() == (0, 0)

@@ -86,6 +86,7 @@ def test_sweep_caps_match_jax():
         assert (packed2d.max_down_sweeps(kind)
                 == jpacked2d.max_down_sweeps(kind))
         assert packed2d.max_up_sweeps(kind) == jpacked2d.max_up_sweeps(kind)
+    assert packed2d.max_fused_sweeps() == jpacked2d.max_fused_sweeps()
 
 
 def _leg_cases(cap_of):
@@ -171,6 +172,24 @@ def test_residual_matches_pallas(n, sigma):
     before = packed2d.residual_launches
     got = packed2d.residual(_tpack(u), _tpack(b), n, h, sigma=sigma)
     assert packed2d.residual_launches == before
+    assert packed2d.is_packed(got)
+    _close(got, want, n)
+
+
+@pytest.mark.parametrize("n,sigma", [(63, SIGMA), (255, 0.0)])
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+def test_rbgs_sweep_matches_pallas(sweeps, n, sigma):
+    """The packed RB-GS sweep (a packed level's smoothing where its legs do
+    not fuse): both planes, ghosts and pad lanes zero."""
+    rng = np.random.default_rng(7500 + n + sweeps)
+    h = 1.0 / (n + 1)
+    u, b = _padded(rng, n), _padded(rng, n) / h ** 2
+    want = _junpack(jpacked2d.rbgs_sweep(_jpack(u), _jpack(b), n, h,
+                                         sweeps=sweeps, sigma=sigma), n)
+    before = packed2d.rbgs_launches
+    got = packed2d.rbgs_sweep(_tpack(u), _tpack(b), n, h, sweeps=sweeps,
+                              sigma=sigma)
+    assert packed2d.rbgs_launches == before
     assert packed2d.is_packed(got)
     _close(got, want, n)
 

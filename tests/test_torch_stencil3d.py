@@ -203,20 +203,19 @@ def test_jacobi_3d_solve_runs_no_kernel(monkeypatch):
 
 def test_kernel_backend_smooths_3d_kernel_levels(monkeypatch):
     """On a 3D kernel-tier level the backend's smooth runs the stencil3d
-    sweep of its kind; a smaller level and Chebyshev take the plain
-    smoothers (which raise for Chebyshev)."""
+    sweep of its kind, and Chebyshev its residual applies (as JAX keeps
+    it, though a 3D Chebyshev cycle takes the plain backend); a smaller
+    level takes the plain smoothers."""
     monkeypatch.setattr(kernels, "KERNEL3_MIN_N", 15)
     calls = _spy_levels(monkeypatch)
     bk = kernels.KERNEL_BACKEND
     for n in (15, 7):
         u, b = (torch.from_numpy(a) for a in _rand_pair(n, seed=n))
         h = 1.0 / (n + 1)
-        for kind in ("rbgs", "jacobi"):
+        for kind in ("rbgs", "jacobi", "chebyshev"):
             got = bk.smooth(u, b, n, h, kind=kind, omega=OMEGA, sweeps=2)
             want = smoothers.smooth(u, b, h, kind=kind, omega=OMEGA,
                                     sweeps=2)
             np.testing.assert_allclose(got.numpy(), want.numpy(),
                                        rtol=1e-12, atol=1e-12)
-        with pytest.raises(NotImplementedError, match="Chebyshev"):
-            bk.smooth(u, b, n, h, kind="chebyshev", omega=OMEGA, sweeps=2)
-    assert calls == {"rbgs": [15], "jacobi": [15], "residual": []}
+    assert calls == {"rbgs": [15], "jacobi": [15], "residual": [15, 15]}
