@@ -19,6 +19,14 @@ Phases:
          k=8 solve against the plain path;
        * MG-preconditioned CG at 4095^2 and 511^3 float32, and float64
          PCG against the plain path at 2D k=10 and 3D k=7;
+       * the sparse path: the Poisson operator assembled as DIA at 4095^2
+         and 255^3, packed, and applied 20 times in a chain by the DIA
+         SpMV kernel (exactly 20 launches) against 20 plain applies; the
+         float64 eigen-relation A u = lambda_h u as an oracle at both
+         sizes; as_csr/as_coo at 1023^2 on the card, their SpMVs against
+         the DIA kernel; the SpMV bench's blocked-ELL matrix (64 x 64
+         blocks of 128^2, density 0.15, m = 128) through the BELL SpMM
+         kernel against SciPy on the host;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -26,7 +34,12 @@ Phases:
      prolong_add, the one PyTorch call that computes the same function)
      at the main paths' shapes, the packed kernels against their unpacked
      twins at 4095^2, the smoother figure (one packed RB-GS sweep at
-     4095^2: ms, GB/s, Gnnz/s), and the peak device memory of the solves.
+     4095^2: ms, GB/s, Gnnz/s), the SpMV figure (a DIA apply at 4095^2 and
+     255^3, from 20 chained applies: ms, Gnnz/s, GB/s) and the BELL figure
+     (ms, TFLOP/s, Gnnz*vec/s, GB/s), each beside its plain version and
+     the library calls of the same operator (torch.mv and torch.sparse.mm
+     on a CSR for the SpMV, torch.sparse.mm on a (128, 128) BSR for the
+     BELL), and the peak device memory of the solves.
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -40,7 +53,8 @@ transfer2d residual-restrict and prolong-add. At k=9 in 3D the levels
 511, 255 and 127 (n >= kernels.KERNEL3_MIN_N) run the stencil3d RB-GS
 sweep and residual kernels. Off these paths: the stencil3d Jacobi sweep (a
 3D Jacobi cycle takes the plain route, as in the JAX package; driven by
-direct calls).
+direct calls). The sparse path calls its two kernels (kernels.spmv,
+kernels.bell) directly, through ops/sparse.py's matrices.
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -51,6 +65,8 @@ line before the last is a JSON object with every kernel; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib
 import json
 import math
 import subprocess
@@ -126,6 +142,26 @@ F64_FLOOR = {2: 0.0, 3: 1e-11}
 # below is float32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# The sparse path at the JAX package's SpMV bench sizes (bench_spmv.py):
+# the DIA SpMV at 4095^2 (and 255^3), the BELL SpMM on 64 x 64 blocks of
+# 128^2 at density 0.15 (seed 1), m = 128 vectors.
+SPMV_SIZES = ((2, 2 ** MAIN_K - 1, "spmv2d"), (3, 255, "spmv3d"))
+SPMV_CHAIN = 20
+BELL_BLOCKS, BELL_DENSITY, BELL_M, BELL_SEED = 64, 0.15, 128, 1
+# The DIA kernel against its plain version: one apply as TOL; a chain of
+# SPMV_CHAIN applies of the h = 1 operator (weights 4 and -1, so the
+# largest value grows 8^20 ~ 1e18 and stays in float32's range, where the
+# 1/h^2 operator would reach 1e162) adds at most ~1.5e-7 of the largest
+# value an apply (five terms, half an ulp each, with and without FMA):
+# ~3e-6 after 20, so 2e-5.
+CHAIN_TOL = 2e-5
+# The oracle A u_exact = lambda_h u_exact in float64, relative to
+# lambda_h max|u|: f64 rounding of terms of size 8/h^2 ~ 1.3e8 against
+# lambda_h ~ 19.7 leaves ~2e-9 at 4095^2 (float32 would leave no digits).
+ORACLE_TOL = 1e-7
+# The BELL product in float32 against SciPy's float64 one: sums of 2304
+# products of N(0,1) values, ~1e-6 of the largest output; 1e-5.
+BELL_SCIPY_TOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -471,18 +507,134 @@ def compare_stencil3d(main_err: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def vector_on_card(size: int, dtype, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(size, generator=gen, device="cuda",
+                       dtype=torch.float64).to(dtype)
+
+
+def dia_on_card(n: int, ndim: int, dtype, h=None):
+    """The Poisson operator as DIA on the card (h = 1/(n+1) unless given)
+    and its packed form."""
+    from multigridcmt_tpu_torch.kernels import spmv
+    from multigridcmt_tpu_torch.ops import sparse
+
+    a = sparse.laplacian_dia(n, ndim, 1.0 / (n + 1) if h is None else h,
+                             dtype, device="cuda")
+    return a, spmv.pack_dia(a)
+
+
+def require_packed_zeros(label: str, y: torch.Tensor, pk) -> None:
+    """The packed output's skirts and rows past N are zero."""
+    from multigridcmt_tpu_torch.kernels import spmv
+
+    flat = y.reshape(-1)
+    base = pk.halo * spmv.LANES
+    require(not flat[:base].any().item()
+            and not flat[base + pk.n:].any().item(),
+            f"{label}: skirts or rows past N not zero")
+
+
+@functools.cache
+def bell_bench_host():
+    """The SpMV bench's blocked-ELL matrix and multivector on the host
+    (bench_spmv.py:105-118): 64 x 64 blocks of 128^2 N(0,1) values at
+    density 0.15 plus the block diagonal, seed 1; Xt (m, 8192) float32."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    nbr = nbc = BELL_BLOCKS
+    rng = np.random.default_rng(BELL_SEED)
+    mask = rng.random((nbr, nbc)) < BELL_DENSITY
+    mask[np.arange(nbr), np.arange(nbr) % nbc] = True
+    blocks = {(i, j): rng.standard_normal((128, 128)).astype(np.float32)
+              for i, j in zip(*np.nonzero(mask))}
+    a_sp = sp.bmat([[sp.csr_matrix(blocks[(i, j)]) if (i, j) in blocks
+                     else None for j in range(nbc)] for i in range(nbr)],
+                   format="csr")
+    xt = rng.standard_normal((BELL_M, nbc * 128)).astype(np.float32)
+    return a_sp, xt
+
+
+@functools.cache
+def bell_bench():
+    """``bell_bench_host`` as a BELL matrix and Xt on the card."""
+    from multigridcmt_tpu_torch.kernels import bell
+
+    a_sp, xt = bell_bench_host()
+    return a_sp, bell.bell_from_scipy(a_sp, device="cuda"), \
+        torch.from_numpy(xt).cuda()
+
+
+def compare_sparse(main_err: dict) -> None:
+    """The DIA SpMV at 4095^2 and 255^3 float32 and 1D 4097 and 2D 63^2
+    float64 (skirts and rows past N zero); the BELL SpMM at the bench
+    shape (float32, m = 128), on 4 x 3 blocks in float64 (m = 16), and its
+    8-row SpMV carrier. Main-path rows: the DIA SpMV at 4095^2, the BELL
+    SpMM at the bench shape."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from multigridcmt_tpu_torch.kernels import bell, spmv
+
+    for dtype, n, ndim in ((torch.float32, 2 ** MAIN_K - 1, 2),
+                           (torch.float32, 255, 3), (torch.float64, 4097, 1),
+                           (torch.float64, 63, 2)):
+        a, pk = dia_on_card(n, ndim, dtype)
+        xp = spmv.pack_x(vector_on_card(a.shape[0], dtype, n + ndim),
+                         pk.halo)
+        label = f"spmv_dia {str(dtype).split('.')[-1]} {ndim}D n={n}"
+        y = spmv.spmv_packed(pk, xp)
+        err = check_pair(label, y, spmv.spmv_packed_plain(pk, xp), TOL[dtype],
+                         shape=tuple(xp.shape), ghosts=False)
+        require_packed_zeros(label, y, pk)
+        if dtype == torch.float32 and ndim == 2:
+            main_err["spmv_dia"] = err
+        del a, pk, xp, y
+    torch.cuda.empty_cache()
+
+    # The plain BELL product is an einsum (a cuBLAS batched product on the
+    # card): with TF32 on it would keep ~3 digits and could not stand for
+    # the JAX kernel's Precision.HIGHEST. The package pins it off; set it
+    # here as well, so this comparison does not depend on that.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, ab, xt = bell_bench()
+    want = bell.spmm_plain(ab, xt)
+    err = check_pair(f"bell_spmm float32 bench kmax={ab.kmax} m={BELL_M}",
+                     bell.spmm(ab, xt), want, TOL[torch.float32],
+                     ghosts=False)
+    main_err["bell_spmm"] = err
+    # The 8-row carrier of bell.spmv against row 0 of the plain product
+    # (the bench's Xt is exactly n_cols wide).
+    check_pair("bell spmv carrier float32 bench", bell.spmv(ab, xt[0]),
+               want[0, :ab.shape[0]], TOL[torch.float32], ghosts=False)
+    rng = np.random.default_rng(17)
+    dense = np.zeros((4 * 128, 3 * 128))
+    for i, j in zip(*np.nonzero(rng.random((4, 3)) < 0.6)):
+        dense[i * 128:(i + 1) * 128, j * 128:(j + 1) * 128] = \
+            rng.standard_normal((128, 128))
+    dense[:128, :128] = rng.standard_normal((128, 128))
+    ab64 = bell.bell_from_scipy(sp.csr_matrix(dense), dtype=torch.float64,
+                                device="cuda")
+    xt64 = torch.from_numpy(rng.standard_normal((16, 3 * 128))).cuda()
+    check_pair("bell_spmm float64 4x3 blocks m=16", bell.spmm(ab64, xt64),
+               bell.spmm_plain(ab64, xt64), TOL[torch.float64], ghosts=False)
+
+
 def phase_compare():
     """Each kernel against its plain version on the card. Returns (max abs
     error, relative error, tolerance) per kernel at the main paths' shapes
     (float32, sigma=0; the legs RB-GS nu=2: packed at n=4095, fused2d and
     stencil2d at n=2047, stencil3d at n=511 (Jacobi: one sweep); the
-    composed legs' kernels as compare_composed says); of a leg's two
-    outputs, the one with the larger relative error."""
+    composed legs' kernels as compare_composed says; the sparse kernels as
+    compare_sparse says); of a leg's two outputs, the one with the larger
+    relative error."""
     main_err = {}
     compare_2d(main_err)
     compare_packed_residual(main_err)
     compare_composed(main_err)
     compare_stencil3d(main_err)
+    compare_sparse(main_err)
     return main_err
 
 
@@ -546,25 +698,31 @@ KERNELS = {
     "stencil3d_jacobi": ("stencil3d", "jacobi_launches",
                          "multigridcmt_tpu_torch/kernels/csrc/stencil3d.cu",
                          "multigridcmt_tpu/kernels/stencil3d.py:485", None),
+    "spmv_dia": ("spmv", "launches",
+                 "multigridcmt_tpu_torch/kernels/csrc/spmv.cu",
+                 "multigridcmt_tpu/kernels/spmv.py:254", "spmv2d"),
+    "bell_spmm": ("bell", "launches",
+                  "multigridcmt_tpu_torch/kernels/csrc/bell.cu",
+                  "multigridcmt_tpu/kernels/bell.py:180", "bell"),
 }
 # The runs of phase 3 that drive a main path through the public API.
 MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
-             "solve3d", "pcg3d")
+             "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell")
 # Direct calls of a kernel that no main path launches.
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d"}
 
 
-def reset_counts() -> None:
-    import multigridcmt_tpu_torch.kernels as kernels
+def kernel_module(mod: str):
+    return importlib.import_module(f"multigridcmt_tpu_torch.kernels.{mod}")
 
+
+def reset_counts() -> None:
     for mod, attr, *_ in KERNELS.values():
-        setattr(getattr(kernels, mod), attr, 0)
+        setattr(kernel_module(mod), attr, 0)
 
 
 def read_counts() -> dict:
-    import multigridcmt_tpu_torch.kernels as kernels
-
-    return {name: getattr(getattr(kernels, mod), attr)
+    return {name: getattr(kernel_module(mod), attr)
             for name, (mod, attr, *_) in KERNELS.items()}
 
 
@@ -930,6 +1088,120 @@ def paths_3d(runs: dict) -> None:
                    stencil3d_residual=1 + i + tier * (i + 1))
 
 
+def paths_sparse(runs: dict) -> None:
+    """The sparse path through ops/sparse.py and the two kernels' public
+    functions."""
+    import numpy as np
+
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch import grids
+    from multigridcmt_tpu_torch.kernels import bell, spmv
+    from multigridcmt_tpu_torch.ops import sparse
+
+    for ndim, n, run in SPMV_SIZES:
+        x = vector_on_card(n ** ndim, torch.float32, 100 + n)
+
+        # Assemble (h = 1: see CHAIN_TOL), pack once, 20 chained applies in
+        # the packed layout, unpack.
+        def chain():
+            a = sparse.laplacian_dia(n, ndim, 1.0, torch.float32,
+                                     device="cuda")
+            pk = spmv.pack_dia(a)
+            yp = spmv.pack_x(x, pk.halo)
+            for _ in range(SPMV_CHAIN):
+                yp = spmv.spmv_packed(pk, yp)
+            return a, pk, yp, spmv.unpack_y(yp, pk.n, pk.halo)
+
+        (a, pk, yp, y), counts, wall = counted(chain)
+        require_counts(run, counts, spmv_dia=SPMV_CHAIN)
+        runs[run] = counts
+        want = spmv.pack_x(x, pk.halo)
+        for _ in range(SPMV_CHAIN):
+            want = spmv.spmv_packed_plain(pk, want)
+        err, rel = rel_err(yp, want)
+        require_packed_zeros(run, yp, pk)
+        log(f"{run}: {ndim}D n={n}, N={pk.n}, nnz={a.nnz}, halo {pk.halo} "
+            f"rows, {SPMV_CHAIN} chained applies in {wall:.3f} s (assembly "
+            f"included); against {SPMV_CHAIN} plain applies rel {rel:.3e} "
+            f"(max |y| {want.abs().max().item():.3e})")
+        require(tuple(y.shape) == (n ** ndim,) and bool(y.isfinite().all())
+                and rel <= CHAIN_TOL,
+                f"{run}: chained applies differ from plain by {rel:.3e} > "
+                f"{CHAIN_TOL}, or bad shape/values")
+        del a, pk, yp, y, want, x
+
+        # The oracle: float64, A u = lambda_h u for u = prod sin(pi x_i).
+        h = 1.0 / (n + 1)
+        a = sparse.laplacian_dia(n, ndim, h, torch.float64, device="cuda")
+        u = torch.ones((n,) * ndim, dtype=torch.float64, device="cuda")
+        for c in grids.grid_coords(n, ndim, torch.float64, device="cuda"):
+            u = u * torch.sin(math.pi * c)
+        u = u.reshape(-1)
+        au, counts, _ = counted(lambda: spmv.spmv_dia(a, u))
+        require_counts(run + " oracle", counts, spmv_dia=1)
+        lam = 4.0 / h ** 2 * ndim * math.sin(math.pi * h / 2) ** 2
+        dev = ((au - lam * u).abs().max() / (lam * u.abs().max())).item()
+        log(f"{run} oracle float64: max|A u - lambda_h u| / (lambda_h max|u|)"
+            f" = {dev:.3e} (lambda_h = {lam:.10f})")
+        require(dev <= ORACLE_TOL, f"{run} oracle: {dev:.3e} > {ORACLE_TOL}")
+        del a, u, au
+        torch.cuda.empty_cache()
+
+    # as_csr/as_coo on the card, their SpMVs against the DIA kernel
+    # (float64; at 4095^2 the host lexsort of 84M entries takes tens of
+    # seconds, so 1023^2).
+    prob = mt.poisson2d(k=10, dtype=torch.float64, device="cuda")
+    n, h = prob.config.n, prob.config.h
+    x = vector_on_card(n * n, torch.float64, 5)
+
+    def api():
+        solver = mt.MultigridSolver(prob)
+        csr, coo = solver.as_csr(), solver.as_coo()
+        dia = sparse.laplacian_dia(n, 2, h, torch.float64, device="cuda")
+        return (csr, coo, sparse.spmv(csr, x), sparse.spmv_coo(coo, x),
+                spmv.spmv_dia(dia, x))
+
+    (csr, coo, ycsr, ycoo, ydia), counts, wall = counted(api)
+    require_counts("sparse_api", counts, spmv_dia=1)
+    nnz = 5 * n * n - 4 * n
+    rels = [rel_err(yy, ydia)[1] for yy in (ycsr, ycoo)]
+    log(f"as_csr/as_coo k=10 float64 on {csr.data.device}: nnz {csr.nnz}/"
+        f"{coo.nnz} (5n^2-4n = {nnz}), SpMV against the DIA kernel rel "
+        f"{rels[0]:.3e} (CSR) {rels[1]:.3e} (COO), wall {wall:.3f} s")
+    require(csr.data.is_cuda and coo.row.is_cuda and csr.nnz == coo.nnz
+            == nnz and max(rels) <= TOL[torch.float64],
+            f"as_csr/as_coo: nnz {csr.nnz}/{coo.nnz} != {nnz}, or SpMV rel "
+            f"{rels} > {TOL[torch.float64]}")
+    del prob, x, csr, coo, ycsr, ycoo, ydia
+
+    # The bench's BELL matrix through the public functions: SpMM of all
+    # m vectors and the single-vector SpMV, against SciPy in float64.
+    a_sp, xt_host = bell_bench_host()
+
+    def bell_run():
+        ab = bell.bell_from_scipy(a_sp, device="cuda")
+        xt = torch.from_numpy(xt_host).cuda()
+        return ab, bell.spmm(ab, xt), bell.spmv(ab, xt[0, :a_sp.shape[1]])
+
+    (ab, yt, y), counts, wall = counted(bell_run)
+    require_counts("bell", counts, bell_spmm=2)
+    runs["bell"] = counts
+    want = np.asarray(a_sp.astype(np.float64)
+                      @ xt_host.T.astype(np.float64)).T
+    got = yt.cpu().numpy()[:, :a_sp.shape[0]]
+    scale = np.abs(want).max()
+    rel = np.abs(got - want).max() / scale
+    rel1 = np.abs(y.cpu().numpy() - want[0]).max() / scale
+    log(f"bell: {BELL_BLOCKS}x{BELL_BLOCKS} blocks, {a_sp.nnz // 128 ** 2} "
+        f"populated, kmax {ab.kmax}, n_stored {ab.n_stored}, nnz "
+        f"{ab.nnz_scalar}, m {BELL_M}; against SciPy float64 rel {rel:.3e} "
+        f"(SpMM), {rel1:.3e} (SpMV); wall {wall:.3f} s (assembly included)")
+    require(tuple(yt.shape) == (BELL_M, ab.nbr * 128)
+            and not yt[:, a_sp.shape[0]:].any().item()
+            and max(rel, rel1) <= BELL_SCIPY_TOL,
+            f"bell: rel {rel:.3e}/{rel1:.3e} > {BELL_SCIPY_TOL} or bad shape")
+
+
 def phase_main_path():
     """The slice's paths through the public entry points. Returns, per
     run, its launch counts, and the peak device memory of the solves."""
@@ -937,6 +1209,7 @@ def phase_main_path():
     paths_2d(runs)
     paths_composed(runs)
     paths_3d(runs)
+    paths_sparse(runs)
     return runs
 
 
@@ -1207,17 +1480,164 @@ def timed_solves(times: dict) -> None:
         " ms")
 
 
+def dia_to_torch_csr(a) -> torch.Tensor:
+    """The DIA matrix as a torch sparse CSR tensor (int32 indices), built
+    on the card; the yardstick's operand, never used by the port."""
+    n = a.shape[0]
+    i = torch.arange(n, device=a.diags.device)
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(a.offsets):
+        keep = a.diags[k] != 0
+        rows.append(i[keep])
+        cols.append(i[keep] + off)
+        vals.append(a.diags[k][keep])
+    r, c, v = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    order = torch.argsort(r * n + c)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=a.diags.device)
+    crow[1:] = torch.cumsum(torch.bincount(r, minlength=n), 0)
+    return torch.sparse_csr_tensor(crow.to(torch.int32),
+                                   c[order].to(torch.int32), v[order],
+                                   size=(n, n))
+
+
+def timed_sparse(times: dict) -> None:
+    """The SpMV figure: one DIA apply at 4095^2 and 255^3 float32, as 20
+    chained applies over 20 (bench_spmv.py:84-91), beside 20 plain applies
+    and torch.mv and torch.sparse.mm of the same operator as CSR
+    (cuSPARSE); and the BELL figure at the bench shape, beside the plain
+    version and torch.sparse.mm of the same matrix as (128, 128)-block
+    BSR."""
+    import numpy as np
+
+    from multigridcmt_tpu_torch.kernels import bell, spmv
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    for ndim, n, _ in SPMV_SIZES:
+        a, pk = dia_on_card(n, ndim, torch.float32, h=1.0)
+        x = vector_on_card(a.shape[0], torch.float32, 200 + n)
+        xp = spmv.pack_x(x, pk.halo)
+
+        def chain(apply):
+            v = xp
+            for _ in range(SPMV_CHAIN):
+                v = apply(pk, v)
+            return v
+
+        t = time_pair(f"spmv_dia {ndim}D n={n}, {SPMV_CHAIN} chained",
+                      lambda: chain(spmv.spmv_packed),
+                      lambda: chain(spmv.spmv_packed_plain))
+        t = {key: v / SPMV_CHAIN for key, v in t.items()}
+        # Two library calls on the CSR: torch.mv (cuSPARSE SpMV) and
+        # torch.sparse.mm with a one-column matrix (cuSPARSE SpMM); the
+        # faster is the yardstick.
+        csr = dia_to_torch_csr(a)
+        xcol = x[:, None].contiguous()
+        y_ref = spmv.spmv_dia(a, x)
+        lib = {"mv": lambda: torch.mv(csr, x),
+               "sparse.mm": lambda: torch.sparse.mm(csr, xcol)[:, 0]}
+        lib_ms = {}
+        for key, call in lib.items():
+            lib_ms[key] = cuda_time_ms(call)
+            lib_rel = rel_err(call(), y_ref)[1]
+            require(lib_rel <= TOL[torch.float32],
+                    f"CSR torch.{key} differs from the kernel by {lib_rel}")
+        t["library_ms"] = min(lib_ms.values())
+        nnz = a.nnz
+        moved = nbytes(pk.diags, xp, xp)
+        sec = t["ms"] * 1e-3
+        fig = {"n": n, "ndim": ndim, "nnz": nnz, "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+               "csr_mv_ms": lib_ms["mv"],
+               "csr_sparse_mm_ms": lib_ms["sparse.mm"],
+               "gnnz_per_s": nnz / sec / 1e9,
+               "gb_per_s": moved / sec / 1e9,
+               "roofline_share": moved / sec / PEAK_BYTES_PER_S,
+               "bound_ms": moved / PEAK_BYTES_PER_S * 1e3}
+        log(f"SpMV figure {ndim}D n={n} float32: {t['ms']:.4f} ms an apply, "
+            f"{fig['gnnz_per_s']:.1f} Gnnz/s, {fig['gb_per_s']:.1f} GB/s "
+            f"({100 * fig['roofline_share']:.1f}% of 3.35 TB/s; bound "
+            f"{fig['bound_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; "
+            f"CSR torch.mv {lib_ms['mv']:.4f} ms, torch.sparse.mm (one "
+            f"column) {lib_ms['sparse.mm']:.4f} ms")
+        times["spmv_figure" if ndim == 2 else "spmv_figure3d"] = fig
+        if ndim == 2:
+            t.update(bytes=moved, flops=2 * nnz)
+            times["spmv_dia"] = t
+        del a, pk, x, xp, csr, xcol
+        torch.cuda.empty_cache()
+
+    a_sp, ab, xt = bell_bench()
+    yt = bell.spmm(ab, xt)
+    t = time_pair(f"bell_spmm bench kmax={ab.kmax} m={BELL_M}",
+                  lambda: bell.spmm(ab, xt), lambda: bell.spmm_plain(ab, xt))
+    # int32 indices, as SciPy makes them: with int64 indices the same call
+    # took ~4.6x as long on an H100 80GB HBM3 at 700 W (9.32 against 2.04
+    # ms).
+    bsr_h = a_sp.tobsr(blocksize=(128, 128))
+    bsr = torch.sparse_bsr_tensor(
+        torch.from_numpy(bsr_h.indptr.astype(np.int32)).cuda(),
+        torch.from_numpy(bsr_h.indices.astype(np.int32)).cuda(),
+        torch.from_numpy(bsr_h.data).cuda(), size=a_sp.shape)
+    x_cols = xt.T.contiguous()
+    t["library_ms"] = cuda_time_ms(lambda: torch.sparse.mm(bsr, x_cols))
+    lib_rel = rel_err(torch.sparse.mm(bsr, x_cols).T,
+                      yt[:, :a_sp.shape[0]])[1]
+    require(lib_rel <= TOL[torch.float32],
+            f"BSR torch.sparse.mm differs from the kernel by {lib_rel}")
+    # The bound counts the populated blocks only: the zero padding blocks
+    # (kmax per block row less the populated ones) need no work, and a
+    # kernel could skip them. Bytes: the populated blocks and their column
+    # indices, Xt and Yt.
+    blocks = int(bsr_h.indices.shape[0])
+    blk = ab.data.shape[-1]
+    flops = 2 * blocks * blk * blk * BELL_M
+    moved = (blocks * (blk * blk * ab.data.element_size()
+                       + ab.cols.element_size()) + nbytes(xt, yt))
+    # The bench's own figure (bench_spmv.py): every stored block, padding
+    # included, over the time.
+    dense_flops = 2 * ab.n_stored * BELL_M
+    sec = t["ms"] * 1e-3
+    streamed = 4 * (ab.n_stored + 2 * BELL_M * xt.shape[1])
+    t.update(bytes=moved, flops=flops)
+    times["bell_spmm"] = t
+    fig = {
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "library_ms": t["library_ms"], "kmax": ab.kmax,
+        "blocks": blocks, "n_stored": ab.n_stored, "nnz": ab.nnz_scalar,
+        "m": BELL_M, "tflop_per_s": flops / sec / 1e12,
+        "bench_dense_block_tflop_per_s": dense_flops / sec / 1e12,
+        "gnnz_vec_per_s": ab.nnz_scalar * BELL_M / sec / 1e9,
+        "gb_per_s": streamed / sec / 1e9,
+        "bound_ms": max(flops / PEAK_F32_FLOPS,
+                        moved / PEAK_BYTES_PER_S) * 1e3}
+    fig["bound_share"] = fig["bound_ms"] / t["ms"]
+    times["bell_figure"] = fig
+    log(f"BELL figure float32: {t['ms']:.4f} ms, {fig['tflop_per_s']:.2f} "
+        f"TFLOP/s on the {blocks} populated blocks "
+        f"({fig['bench_dense_block_tflop_per_s']:.2f} dense-block, the "
+        f"bench's figure), {fig['gnnz_vec_per_s']:.1f} Gnnz*vec/s, "
+        f"{fig['gb_per_s']:.1f} GB/s streamed; bound "
+        f"{fig['bound_ms']:.4f} ms (operations, "
+        f"{100 * fig['bound_share']:.1f}% of it); plain "
+        f"{t['plain_ms']:.4f} ms; torch.sparse.mm BSR (128, 128) "
+        f"{t['library_ms']:.4f} ms (rel diff {lib_rel:.1e})")
+    del yt, bsr, x_cols
+    torch.cuda.empty_cache()
+
+
 def phase_times():
     """Times on the card, float32, RB-GS, nu = 2, sigma = 0: the cycles,
     one PCG iteration, each kernel against its plain version at its
     main-path shape (packed: 4095; fused2d and stencil2d: 2047, the largest
-    unpacked level; stencil3d: 511), and the packed kernels against their
-    unpacked twins at 4095."""
+    unpacked level; stencil3d: 511; the SpMV at 4095^2, the BELL SpMM at
+    the bench shape), and the packed kernels against their unpacked twins
+    at 4095."""
     times = {}
     timed_solves(times)
     timed_2d(times)
     timed_composed(times)
     timed_3d(times)
+    timed_sparse(times)
     return times
 
 
@@ -1234,9 +1654,12 @@ def kernel_rows(names, runs, errs, times):
     squares); rel_err is it over max|plain| (|plain| for the norm), held
     to tol. bound_ms is the larger of the bytes the function moves (each
     input read once, each output written once) over the card's memory
-    rate and its operations over the float32 rate. library_ms is the time
-    of the PyTorch call that computes the same function where there is one
-    (prolong_add: an add and a bilinear interpolate); no single call
+    rate and its operations over the float32 rate (for the BELL SpMM, the
+    populated blocks' work). library_ms is the time of the PyTorch call
+    that computes the same function where there is one (prolong_add: an
+    add and a bilinear interpolate; the SpMV: the faster of torch.mv and a
+    one-column torch.sparse.mm on a CSR; the BELL SpMM: a BSR
+    torch.sparse.mm); no single call
     computes the others (b - Au, a whole leg, a sweep, the residual's
     restriction), so theirs is null. A kernel that no main path runs
     reports its launches summed over all main-path runs (0) and those of
@@ -1274,17 +1697,26 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t0 = time.perf_counter()
+
+    def phase(name, fn):
+        start = time.perf_counter()
+        out = fn()
+        log(f"phase {name}: {time.perf_counter() - start:.1f} s")
+        return out
+
     try:
-        card = phase_setup()
-        errs = phase_compare()
-        runs = phase_main_path()
-        times = phase_times()
+        card = phase("setup", phase_setup)
+        errs = phase("kernels against plain", phase_compare)
+        runs = phase("main paths", phase_main_path)
+        times = phase("times", phase_times)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
     log(f"peak device memory: 4095^2 solve {runs['peak2d']} bytes, 511^3 "
         f"solve {runs['peak3d']} bytes; card: {card}")
     log("smoother: " + json.dumps(times["smoother"]))
+    for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):
+        log(f"{key}: " + json.dumps(times[key]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernel_rows(KERNELS, runs, errs, times)}))

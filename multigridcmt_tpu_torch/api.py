@@ -16,12 +16,11 @@ import torch
 from .config import SolverConfig
 from .grids import (Hierarchy, build_hierarchy, check_device,
                     grid_coords, interior, pad_interior)
+from .ops import sparse
 from .solvers import cycles, krylov
 
 EIGEN_TODO = ("eigensolve needs solvers/eigen.py, not ported to PyTorch yet "
               "(ROADMAP.md, queue 1: eigen)")
-SPARSE_TODO = ("as_csr/as_coo need ops/sparse.py, not ported to PyTorch "
-               "yet (ROADMAP.md, queue 1: sparse)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,11 +127,19 @@ class MultigridSolver:
     def eigensolve(self, k: int = 1, method: str = "ii", **kw):
         raise NotImplementedError(EIGEN_TODO)
 
-    def as_csr(self):
-        raise NotImplementedError(SPARSE_TODO)
+    def as_csr(self) -> sparse.CSR:
+        """The fine-level operator as an explicit CSR matrix, on the
+        problem's device."""
+        c = self.config
+        return sparse.laplacian_csr(c.n, c.ndim, c.h, dtype=c.dtype,
+                                    device=self.problem.b.device)
 
-    def as_coo(self):
-        raise NotImplementedError(SPARSE_TODO)
+    def as_coo(self) -> sparse.COO:
+        """The fine-level operator as a COO matrix, on the problem's
+        device."""
+        c = self.config
+        return sparse.laplacian_coo(c.n, c.ndim, c.h, dtype=c.dtype,
+                                    device=self.problem.b.device)
 
     def discrete_l2_error(self, x: torch.Tensor) -> torch.Tensor:
         """h^(d/2)-weighted L2 error against the analytic solution."""

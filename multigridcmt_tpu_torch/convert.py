@@ -1,4 +1,5 @@
-"""Carry configs, hierarchies and problems across from the JAX package.
+"""Carry configs, hierarchies, problems and sparse matrices across from
+the JAX package.
 
 The functions take objects of ``multigridcmt_tpu`` and read their arrays
 with ``np.asarray``, so this module, like the rest of the port, never
@@ -8,6 +9,7 @@ maps to ``use_kernels``.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -15,6 +17,11 @@ import torch
 from .api import Problem
 from .config import SolverConfig
 from .grids import Hierarchy, LevelSpec, check_device
+from .ops.sparse import COO, CSR, DIA
+
+if TYPE_CHECKING:
+    from .kernels.bell import BELL
+    from .kernels.spmv import PackedDIA
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -56,3 +63,46 @@ def problem_from_jax(prob, device=None) -> Problem:
         b=_tensor(prob.b, device),
         u_exact=(None if prob.u_exact is None
                  else _tensor(prob.u_exact, device)))
+
+
+def csr_from_jax(a, device=None) -> CSR:
+    """The port's CSR for a JAX ``ops.sparse.CSR``, on ``device`` (None:
+    the card)."""
+    device = check_device(device)
+    return CSR(data=_tensor(a.data, device),
+               indices=_tensor(a.indices, device),
+               indptr=_tensor(a.indptr, device),
+               row_ids=_tensor(a.row_ids, device), shape=tuple(a.shape))
+
+
+def coo_from_jax(a, device=None) -> COO:
+    """The port's COO for a JAX ``ops.sparse.COO``, on ``device``."""
+    device = check_device(device)
+    return COO(data=_tensor(a.data, device), row=_tensor(a.row, device),
+               col=_tensor(a.col, device), shape=tuple(a.shape))
+
+
+def dia_from_jax(a, device=None) -> DIA:
+    """The port's DIA for a JAX ``ops.sparse.DIA``, on ``device``."""
+    device = check_device(device)
+    return DIA(diags=_tensor(a.diags, device), offsets=tuple(a.offsets),
+               shape=tuple(a.shape))
+
+
+def packed_dia_from_jax(a, device=None) -> PackedDIA:
+    """The port's PackedDIA for a JAX ``kernels.spmv.PackedDIA``, on
+    ``device``."""
+    from .kernels.spmv import PackedDIA
+
+    device = check_device(device)
+    return PackedDIA(diags=_tensor(a.diags, device),
+                     offsets=tuple(a.offsets), n=int(a.n))
+
+
+def bell_from_jax(a, device=None) -> BELL:
+    """The port's BELL for a JAX ``kernels.bell.BELL``, on ``device``."""
+    from .kernels.bell import BELL
+
+    device = check_device(device)
+    return BELL(data=_tensor(a.data, device), cols=_tensor(a.cols, device),
+                shape=tuple(a.shape), nnz_scalar=int(a.nnz_scalar))

@@ -18,6 +18,8 @@ Per level:
     from them and the plain transfers (the fused-leg hooks decline, as in
     JAX);
   * smaller levels, and every 1D level: the plain ``ops/`` stencils.
+The sparse path's kernels (``spmv``: the banded DIA SpMV; ``bell``: the
+blocked-ELL SpMM) are called directly, not through the backend.
 ``encode``/``decode`` pack and unpack a packed fine level at the solve's
 boundary.
 """

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 # C entry points: name -> argument types. Each returns cudaGetLastError()
 # after its launch. Pointer and stream arguments are c_void_p so ctypes
@@ -72,6 +73,10 @@ for _t in ("f32", "f64"):
     # u, b, tmp, out, p, r, c, n, h, sigma, goff, roff, stream
     SIGNATURES[f"mg_stencil3d_rbgs_{_t}"] = [_P, _P, _P, _P, _I, _I, _I, _I,
                                              _D, _D, _I, _I, _P]
+    # diags, x, offsets, y, ndiag, len = R*128, skirt = H*128, stream
+    SIGNATURES[f"mg_spmv_dia_{_t}"] = [_P, _P, _P, _P, _I, _L, _L, _P]
+    # data, cols, xt, yt, nbr, kmax, m, ldx, stream
+    SIGNATURES[f"mg_bell_spmm_{_t}"] = [_P, _P, _P, _P, _L, _L, _L, _L, _P]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

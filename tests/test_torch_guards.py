@@ -4,7 +4,8 @@ build names nvcc when it is missing, the kernel wrappers reject what their
 kernels do not take, unported routes raise NotImplementedError instead of
 running something else, and the routes ported since (the Chebyshev
 smoother, schedules beyond the fused legs' caps, the unfused ops of a
-packed level) run and agree with the plain route."""
+packed level, the sparse matrices of as_csr/as_coo) run and agree with the
+plain route or the JAX package."""
 import ast
 from pathlib import Path
 
@@ -15,9 +16,10 @@ import torch
 import multigridcmt_tpu_torch as mt
 from multigridcmt_tpu_torch import api, convert, grids, kernels
 from multigridcmt_tpu_torch.config import SolverConfig
-from multigridcmt_tpu_torch.kernels import (_build, fused2d, packed2d,
-                                            stencil2d, stencil3d, transfer2d)
-from multigridcmt_tpu_torch.ops import smoothers, transfer
+from multigridcmt_tpu_torch.kernels import (_build, bell, fused2d, packed2d,
+                                            spmv, stencil2d, stencil3d,
+                                            transfer2d)
+from multigridcmt_tpu_torch.ops import smoothers, sparse, transfer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "multigridcmt_tpu_torch"
@@ -67,17 +69,38 @@ def test_entry_points_default_to_the_card(monkeypatch):
     targets CUDA, so with no card it raises instead of running on the CPU;
     device="cpu" runs there."""
     import multigridcmt_tpu as jmg
+    from multigridcmt_tpu.kernels import bell as jbell
+    from multigridcmt_tpu.kernels import spmv as jspmv
+    from multigridcmt_tpu.ops import sparse as jsparse
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert grids.DEFAULT_DEVICE == "cuda"
     cfg = SolverConfig(ndim=2, k=3)
     jprob = jmg.poisson2d(k=3)
+    jdia = jsparse.laplacian_dia(7, 2, 0.125)
+    a_sp = sparse.csr_to_scipy(sparse.laplacian_csr(7, 2, 0.125,
+                                                    device="cpu"))
+    jbl = jbell.bell_from_scipy(a_sp)
     for call in (lambda: mt.poisson2d(k=3),
                  lambda: mt.poisson3d(k=2),
                  lambda: grids.build_hierarchy(cfg),
                  lambda: grids.grid_coords(7, 2, torch.float64),
                  lambda: convert.hierarchy_from_jax(jprob.hierarchy),
-                 lambda: convert.problem_from_jax(jprob)):
+                 lambda: convert.problem_from_jax(jprob),
+                 lambda: sparse.laplacian_coo(7, 2, 0.125),
+                 lambda: sparse.laplacian_csr(7, 1, 0.125),
+                 lambda: sparse.laplacian_dia(7, 3, 0.125),
+                 lambda: sparse.scipy_to_csr(a_sp),
+                 lambda: sparse.prolongation_csr(3, 2),
+                 lambda: sparse.restriction_csr(3, 1),
+                 lambda: bell.bell_from_scipy(a_sp),
+                 lambda: convert.csr_from_jax(jsparse.laplacian_csr(7, 2,
+                                                                    0.125)),
+                 lambda: convert.coo_from_jax(jsparse.laplacian_coo(7, 2,
+                                                                    0.125)),
+                 lambda: convert.dia_from_jax(jdia),
+                 lambda: convert.packed_dia_from_jax(jspmv.pack_dia(jdia)),
+                 lambda: convert.bell_from_jax(jbl)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     prob = mt.poisson2d(k=3, device="cpu")
@@ -85,6 +108,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert prob.hierarchy.coarse_inv.device.type == "cpu"
     assert convert.problem_from_jax(jprob, device="cpu").b.device.type \
         == "cpu"
+    # Built on the CPU on request; as_csr/as_coo follow the problem's
+    # device, and the transforms keep their input's.
+    solver = mt.MultigridSolver(prob)
+    assert solver.as_csr().data.device.type == "cpu"
+    assert solver.as_coo().row.device.type == "cpu"
+    dia = sparse.laplacian_dia(7, 2, 0.125, device="cpu")
+    assert spmv.pack_dia(dia).offset_tensor.device.type == "cpu"
+    assert sparse.coo_to_csr(solver.as_coo()).indptr.device.type == "cpu"
+    assert bell.bell_from_scipy(a_sp, device="cpu").cols.device.type == "cpu"
 
 
 def test_build_names_nvcc_when_missing(monkeypatch, tmp_path):
@@ -101,14 +133,14 @@ def test_build_keys_output_by_source_hash():
     assert len(h) == 16 and h == _build.source_hash()
     names = {p.name for p in _build.sources()}
     assert {"common.cuh", "fused2d.cu", "packed2d.cu", "stencil2d.cu",
-            "stencil3d.cu", "transfer2d.cu"} <= names
+            "stencil3d.cu", "transfer2d.cu", "spmv.cu", "bell.cu"} <= names
     # Every C entry point the wrappers call is declared for ctypes.
     for kernel in ("stencil2d_residual", "stencil2d_sweep", "fused2d_down",
                    "fused2d_up", "transfer2d_residual_restrict",
                    "transfer2d_prolong_add", "packed2d_down", "packed2d_up",
                    "packed2d_resnorm", "packed2d_residual", "packed2d_rbgs",
                    "stencil3d_residual", "stencil3d_jacobi",
-                   "stencil3d_rbgs"):
+                   "stencil3d_rbgs", "spmv_dia", "bell_spmm"):
         for t in ("f32", "f64"):
             assert f"mg_{kernel}_{t}" in _build.SIGNATURES
 
@@ -123,6 +155,22 @@ def _packed(n, dtype=torch.float64):
 
 def _cube(n, dtype=torch.float64):
     return torch.zeros((n + 2,) * 3, dtype=dtype)
+
+
+def _pdia(dtype=torch.float64):
+    """The packed 1D operator at n=100 (R = 8 rows, halo 8)."""
+    return spmv.pack_dia(sparse.laplacian_dia(100, 1, 0.01, dtype,
+                                              device="cpu"))
+
+
+def _px(dtype=torch.float64):
+    return torch.zeros((24, 128), dtype=dtype)
+
+
+def _bell(dtype=torch.float64):
+    return bell.BELL(data=torch.zeros((2, 1, 128, 128), dtype=dtype),
+                     cols=torch.zeros((2, 1), dtype=torch.int32),
+                     shape=(256, 256), nnz_scalar=0)
 
 
 @pytest.mark.parametrize("bad,err", [
@@ -196,6 +244,28 @@ def _cube(n, dtype=torch.float64):
     (lambda: transfer2d.residual_restrict(_grid(7), _grid(7, torch.float32),
                                           7, 0.125), ValueError),
     (lambda: transfer2d.prolong_add(_grid(7), _grid(4), 7, 3), ValueError),
+    (lambda: spmv.spmv_packed(_pdia(torch.bfloat16),
+                              _px(torch.bfloat16)), NotImplementedError),
+    (lambda: spmv.spmv_packed(_pdia(), _px(torch.float32)), ValueError),
+    (lambda: spmv.spmv_packed(_pdia(), _px()[:-8]), ValueError),
+    (lambda: spmv.spmv_packed(_pdia(), torch.zeros(_px().shape,
+                                                   dtype=torch.float64,
+                                                   device="meta")),
+     ValueError),
+    (lambda: spmv.spmv_packed(spmv.PackedDIA(_pdia().diags[:2], (-1, 0, 1),
+                                             100), _px()), ValueError),
+    (lambda: bell.spmm(_bell(torch.bfloat16),
+                       torch.zeros((8, 256), dtype=torch.bfloat16)),
+     NotImplementedError),
+    (lambda: bell.spmm(_bell(), torch.zeros((8, 256), dtype=torch.float32)),
+     ValueError),
+    (lambda: bell.spmm(_bell(), torch.zeros((12, 256),
+                                            dtype=torch.float64)),
+     ValueError),
+    (lambda: bell.spmm(_bell(), torch.zeros(256, dtype=torch.float64)),
+     ValueError),
+    (lambda: bell.spmm(_bell(), torch.zeros((8, 256), dtype=torch.float64,
+                                            device="meta")), ValueError),
 ], ids=["dtype", "mixed-dtype", "shape", "non-contiguous", "down-cap",
         "down-kind", "even-n", "coarse-shape", "up-cap", "other-device",
         "packed-logical-input", "packed-down-cap", "packed-coarse-shape",
@@ -204,7 +274,10 @@ def _cube(n, dtype=torch.float64):
         "stencil3d-shape", "stencil3d-n", "stencil3d-2d-input",
         "stencil3d-bf16", "stencil3d-out-dtype", "stencil3d-mixed-dtype",
         "sweep-cap", "sweep-shape", "packed-sweep-cap", "packed-sweep-bf16",
-        "transfer-mixed-dtype", "transfer-coarse-shape"])
+        "transfer-mixed-dtype", "transfer-coarse-shape", "spmv-bf16",
+        "spmv-mixed-dtype", "spmv-shape", "spmv-other-device",
+        "spmv-diags-offsets", "bell-bf16", "bell-mixed-dtype", "bell-m",
+        "bell-1d-input", "bell-other-device"])
 def test_kernel_wrappers_reject_bad_inputs(bad, err):
     with pytest.raises(err):
         bad()
@@ -216,7 +289,7 @@ def test_kernel_wrappers_reject_bad_inputs(bad, err):
             packed2d.up_launches, packed2d.resnorm_launches,
             packed2d.residual_launches, packed2d.rbgs_launches,
             stencil3d.residual_launches, stencil3d.jacobi_launches,
-            stencil3d.rbgs_launches) == (0,) * 15
+            stencil3d.rbgs_launches, spmv.launches, bell.launches) == (0,) * 17
 
 
 def _solve(**kw):
@@ -380,11 +453,28 @@ def test_kernel_backend_smooth_raises_on_kernel_tier(monkeypatch):
                                   "as_coo"])
 def test_unported_solver_methods_raise(call, monkeypatch):
     # MG-PCG is ported; on the packed tier a precond_dtype other than the
-    # dtype asks for mixed precision, which is not.
+    # dtype asks for mixed precision, which is not. as_csr/as_coo are
+    # ported (ops/sparse.py): they return the JAX package's matrices.
     monkeypatch.setattr(kernels, "PACK_MIN_N", 7)
     solver = mt.MultigridSolver(mt.poisson2d(
         k=3, dtype=torch.float64, use_kernels=True,
         precond_dtype=torch.bfloat16, device="cpu"))
+    if call in ("as_csr", "as_coo"):
+        import jax.numpy as jnp
+
+        import multigridcmt_tpu as jmg
+
+        got = getattr(solver, call)()
+        want = getattr(jmg.MultigridSolver(jmg.poisson2d(
+            k=3, dtype=jnp.float64)), call)()
+        assert got.shape == tuple(want.shape) == (49, 49)
+        assert got.nnz == want.nnz == 5 * 49 - 4 * 7
+        fields = (("data", "indices", "indptr", "row_ids") if call == "as_csr"
+                  else ("data", "row", "col"))
+        for f in fields:
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "pcg":
             solver.solve(method="pcg")
