@@ -19,6 +19,16 @@ Phases:
          k=8 solve against the plain path;
        * MG-preconditioned CG at 4095^2 and 511^3 float32, and float64
          PCG against the plain path at 2D k=10 and 3D k=7;
+       * the sharded 2D solve (parallel/sharded.py, ShardedSolver.solve)
+         as a torch.distributed world of 1 over NCCL, on JAX's unpacked
+         route: S1 RB-GS V(2,2) at 4095^2 on a row mesh (kernels.PACK_MIN_N
+         raised above 4095 for it; at the default the solve raises, as the
+         packed tier is not ported), S2 the same at 2047^2 on a (1, 1) block
+         mesh, S3 RB-GS V(4,4) at 2047^2 and S4 Jacobi V(8,8) and Chebyshev
+         V(2,2) at 1023^2, each with exact local2d launch counts and the
+         error against the analytic solution (S1 beside the single-device
+         solve on the same unpacked route), and a float64 k=10 sharded
+         solve against the single-device solve;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -27,6 +37,11 @@ Phases:
          the DIA kernel; the SpMV bench's blocked-ELL matrix (64 x 64
          blocks of 128^2, density 0.15, m = 128) through the BELL SpMM
          kernel against SciPy on the host;
+     Phase 2 holds the local2d kernels against their plain versions on
+     each of S1-S4's own fine tiles with the sweeps that path runs, and on
+     tiles with nonzero global offsets (a rank of an 8-way row split of
+     4095^2, a rank of a 2x2 block split of 2047^2), since a mesh of 1 has
+     none;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -39,7 +54,9 @@ Phases:
      (ms, TFLOP/s, Gnnz*vec/s, GB/s), each beside its plain version and
      the library calls of the same operator (torch.mv and torch.sparse.mm
      on a CSR for the SpMV, torch.sparse.mm on a (128, 128) BSR for the
-     BELL), and the peak device memory of the solves.
+     BELL), one sharded V(2,2) cycle at S1 and S2 beside the single-device
+     cycle at the same k, each local2d kernel at S1's fine tile against its
+     plain version, and the peak device memory of the solves.
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -56,6 +73,13 @@ sweep and residual kernels. Off these paths: the stencil3d Jacobi sweep (a
 direct calls). The sparse path calls its two kernels (kernels.spmv,
 kernels.bell) directly, through ops/sparse.py's matrices.
 
+The sharded paths (a mesh of 1): levels 4095..255 (2047..255 at S2) run the
+local2d down and up legs on extended tiles, 127 and 63 the plain owned-tile
+route, 31 and below are gathered and run the plain single-device cycle; the
+solve's check is the local2d residual. V(4,4) RB-GS and V(8,8) Jacobi exceed
+the legs' sweep caps and run the local2d sweeps and residual on the owned
+tiles (the composed route); Chebyshev runs the local2d residual.
+
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result. The
@@ -69,8 +93,10 @@ import functools
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -127,6 +153,13 @@ VCYCLE3_RTOL = 1e-2
 # error is only pi^2 h^2 / 12 ~ 3e-6, the floor 2.3e-4 (kernel route) and
 # 9.6e-4 (plain route) measured; 2e-3. A wrong stencil gives O(1) errors.
 MAXERR = {2: 1e-2, 3: 2e-3}
+# The sharded paths' bound, set from two readings at 4095^2 float32 on the
+# unpacked route (S1's local2d legs, and the single-device solve with the
+# same PACK_MIN_N, on the fused2d legs; both logged in phase 3): 3.7e-3 and
+# 3.8e-3, both stalling near a relative residual of 0.145. The packed
+# single-device route stalls lower (0.10, 3.3e-3): its down leg restricts
+# the red residual only, dropping the black residual's rounding noise.
+SHARDED_MAXERR = 5e-3
 F64_TOL = 1e-8
 # The float64 runs held against the plain path: (solve k, PCG k) per ndim.
 F64_K = {2: (10, 10), 3: (8, 7)}
@@ -162,6 +195,24 @@ ORACLE_TOL = 1e-7
 # The BELL product in float32 against SciPy's float64 one: sums of 2304
 # products of N(0,1) values, ~1e-6 of the largest output; 1e-5.
 BELL_SCIPY_TOL = 1e-5
+
+
+# The sharded paths: (k, mesh, config overrides) of S1-S4; S4 is Jacobi
+# V(8,8) and, as "S4cheb", Chebyshev V(2,2).
+SHARDED_PATHS = {
+    "S1": (12, (1,), dict(smoother="rbgs")),
+    "S2": (11, (1, 1), dict(smoother="rbgs")),
+    "S3": (11, (1,), dict(smoother="rbgs", nu1=4, nu2=4)),
+    "S4": (10, (1,), dict(smoother="jacobi", nu1=8, nu2=8)),
+    "S4cheb": (10, (1,), dict(smoother="chebyshev")),
+}
+SHARDED_F64_K = 10
+SHARDED_F64_FLOOR = 1e-12
+# local2d tiles with nonzero offsets for phase 2: (n, rank rows, row rank,
+# rank columns, column rank); 0 columns: a row decomposition.
+LOCAL2D_TILES = ((2 ** MAIN_K - 1, 8, 3, 0, 0), (2 ** (MAIN_K - 1) - 1, 2, 1,
+                                                 2, 1))
+HALO = 8                    # local2d.HALO_ROWS
 
 
 class SmokeFailure(Exception):
@@ -233,7 +284,9 @@ def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def phase_setup():
+def phase_setup(rendezvous: str):
+    import torch.distributed as dist
+
     from multigridcmt_tpu_torch.kernels import _build
 
     smi = subprocess.run(
@@ -250,6 +303,13 @@ def phase_setup():
     _build.load_library()
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
         f"({_build.BUILD_ROOT / _build.source_hash()})")
+    # The sharded paths' process group: a world of 1 over NCCL, its
+    # rendezvous a file (no network).
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}",
+                            world_size=1, rank=0)
+    log(f"torch.distributed: {dist.get_backend()}, world of "
+        f"{dist.get_world_size()}")
     return card
 
 
@@ -621,6 +681,151 @@ def compare_sparse(main_err: dict) -> None:
                bell.spmm_plain(ab64, xt64), TOL[torch.float64], ghosts=False)
 
 
+def local2d_tile(n: int, dtype, seed: int, ranks=(1, 0), rank=(0, 0)):
+    """One rank's extended tiles of u and b (b scaled by 1/h^2, as in
+    ``leg_inputs``) in a row split (``ranks[1] == 0``) or block split of the
+    padded n^2 grid, cut on the card with zero ghosts past the grid's ends;
+    a random coarse correction in the extended convention; and the tile's
+    geometry."""
+    u, b = grids_on_card(n, dtype, seed, 2)
+    b = b * float((n + 1) ** 2)
+    m = (n + 1) // ranks[0]
+    mcol = (n + 1) // ranks[1] if ranks[1] else 0
+    row_off = rank[0] * m + 1 - HALO
+    col_off = rank[1] * mcol + 1 - HALO if ranks[1] else 0
+    cols = mcol + 2 * HALO if ranks[1] else n + 2
+
+    def cut(g):
+        out = torch.zeros((m + 2 * HALO, cols), dtype=dtype, device="cuda")
+        r0, c0 = max(row_off, 0), max(col_off, 0)
+        r1 = min(row_off + m + 2 * HALO, n + 2)
+        c1 = min(col_off + cols, n + 2)
+        out[r0 - row_off:r1 - row_off, c0 - col_off:c1 - col_off] = \
+            g[r0:r1, c0:c1]
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    cshape = (m // 2 + 2 * HALO,
+              mcol // 2 + 2 * HALO if mcol else (n - 1) // 2 + 2)
+    e = torch.randn(cshape, generator=gen, device="cuda",
+                    dtype=torch.float64).to(dtype)
+    return cut(u), cut(b), e, dict(n=n, m=m, mcol=mcol, row_off=row_off,
+                                   col_off=col_off)
+
+
+def local2d_main_checks(label: str):
+    """(n, mcol > 0, [(kernel, kind, sweeps)]) of sharded path ``label``'s
+    fine tile on a mesh of 1: the whole legs with the path's nu where they
+    fit, else the composed route's sweeps; the residual (the solve's check,
+    and the composed route's) on every path."""
+    from multigridcmt_tpu_torch.kernels import local2d
+
+    k, shape, cfg = SHARDED_PATHS[label]
+    kind, nu = cfg["smoother"], cfg.get("nu1", 2)
+    runs = [("residual", None, 0)]
+    if kind != "chebyshev" and nu <= local2d.max_down_sweeps(kind):
+        runs += [("down", kind, nu), ("up", kind, cfg.get("nu2", 2))]
+    elif kind != "chebyshev":
+        runs.append((kind, kind, nu))
+    return 2 ** k - 1, len(shape) == 2, runs
+
+
+def check_local2d(label: str, ue, be, e, t, dtype, sigma, runs) -> dict:
+    """Hold each of ``runs`` ((kernel, kind, sweeps) as local2d_main_checks
+    gives) against its plain version on one tile; returns the error of
+    each kernel (of a down leg's two outputs, the one with the larger
+    relative error)."""
+    from multigridcmt_tpu_torch.kernels import local2d
+
+    n = t["n"]
+    h = 1.0 / (n + 1)
+    offs = (t["row_off"], t["col_off"])
+    tol = TOL[dtype]
+    errs = {}
+    for name, kind, nu in runs:
+        what = f"local2d {name} {label} sigma={sigma} nu={nu}"
+        kw = dict(kind=kind, omega=0.8, sigma=sigma, mcol=t["mcol"],
+                  sweeps=nu)
+        if name == "residual":
+            err = check_pair(
+                what, local2d.residual(ue, be, n, h, *offs, sigma=sigma),
+                local2d.residual_plain(ue, be, n, h, *offs, sigma=sigma),
+                tol, ghosts=False)
+        elif name == "rbgs":
+            err = check_pair(
+                what, local2d.rbgs_sweep(ue, be, n, h, *offs, sigma=sigma,
+                                         sweeps=nu),
+                local2d.rbgs_sweep_plain(ue, be, n, h, *offs, sigma=sigma,
+                                         sweeps=nu), tol, ghosts=False)
+        elif name == "jacobi":
+            err = check_pair(
+                what, local2d.jacobi_sweep(ue, be, n, h, 0.8, *offs,
+                                           sigma=sigma, sweeps=nu),
+                local2d.jacobi_sweep_plain(ue, be, n, h, 0.8, *offs,
+                                           sigma=sigma, sweeps=nu),
+                tol, ghosts=False)
+        elif name == "down":
+            gu, grc = local2d.down_leg(ue, be, n, h, t["m"], *offs, **kw)
+            wu, wrc = local2d.down_leg_plain(ue, be, n, h, t["m"], *offs,
+                                             **kw)
+            err = max(check_pair(f"{what} {kind} u'", gu, wu, tol,
+                                 ghosts=False),
+                      check_pair(f"{what} {kind} r_c", grc, wrc, tol,
+                                 tuple(e.shape), ghosts=False),
+                      key=lambda v: v[1])
+        else:
+            nc = (n - 1) // 2
+            err = check_pair(
+                f"{what} {kind}",
+                local2d.up_leg(ue, e, be, n, nc, h, t["m"], *offs, **kw),
+                local2d.up_leg_plain(ue, e, be, n, nc, h, t["m"], *offs,
+                                     **kw), tol, ghosts=False)
+        errs[f"local2d_{name}"] = max(errs.get(f"local2d_{name}", err), err,
+                                      key=lambda v: v[1])
+    return errs
+
+
+def compare_local2d(main_err: dict) -> None:
+    """The local2d kernels against their plain versions: on a rank of an
+    8-way row split of 4095^2 (rank 3, m = 512) and of a 2x2 block split of
+    2047^2 (rank (1, 1), mcol > 0), float32 and float64, sigma 0 and
+    SIGMA: the only place on the card where nonzero offsets and their
+    parity run; and on each sharded path's own fine tile (a mesh of 1,
+    float32, offsets -7; S4cheb's residual is S4's) with the kernels and
+    sweeps that path runs there. Each kernel's main-path error is that of
+    the path the kernels line names for it. Whole tiles are compared: the
+    plain versions define the ghost rows too."""
+    off_path = [("residual", None, 0)]
+    off_path += [(kind, kind, nu) for kind, nus in (("rbgs", (1, 4)),
+                                                    ("jacobi", (1, 8)))
+                 for nu in nus]
+    off_path += [(leg, kind, nu) for kind, nu in (("rbgs", 0), ("rbgs", 2),
+                                                  ("rbgs", 3), ("jacobi", 6))
+                 for leg in ("down", "up")]
+    for dtype in (torch.float32, torch.float64):
+        for n, dr, r, dc, c in LOCAL2D_TILES:
+            ue, be, e, t = local2d_tile(n, dtype, n + r + c, (dr, dc),
+                                        (r, c))
+            offs = (t["row_off"], t["col_off"])
+            label = (f"{str(dtype).split('.')[-1]} n={n} rank ({r}, {c}) of "
+                     f"({dr}, {dc or 1}) offsets {offs}")
+            for sigma in (0.0, SIGMA):
+                check_local2d(label, ue, be, e, t, dtype, sigma, off_path)
+            del ue, be, e
+    for path in ("S1", "S2", "S3", "S4"):
+        n, block, runs = local2d_main_checks(path)
+        ue, be, e, t = local2d_tile(n, torch.float32, n + len(path),
+                                    (1, 1 if block else 0))
+        label = (f"{path} fine tile {tuple(ue.shape)} n={n} offsets "
+                 f"{(t['row_off'], t['col_off'])}")
+        errs = check_local2d(label, ue, be, e, t, torch.float32, 0.0, runs)
+        for name, err in errs.items():
+            if KERNELS[name][4] == path:
+                main_err[name] = err
+        del ue, be, e
+    torch.cuda.empty_cache()
+
+
 def phase_compare():
     """Each kernel against its plain version on the card. Returns (max abs
     error, relative error, tolerance) per kernel at the main paths' shapes
@@ -635,6 +840,7 @@ def phase_compare():
     compare_composed(main_err)
     compare_stencil3d(main_err)
     compare_sparse(main_err)
+    compare_local2d(main_err)
     return main_err
 
 
@@ -704,10 +910,26 @@ KERNELS = {
     "bell_spmm": ("bell", "launches",
                   "multigridcmt_tpu_torch/kernels/csrc/bell.cu",
                   "multigridcmt_tpu/kernels/bell.py:180", "bell"),
+    "local2d_down": ("local2d", "down_launches",
+                     "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                     "multigridcmt_tpu/kernels/local2d.py:616", "S1"),
+    "local2d_up": ("local2d", "up_launches",
+                   "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                   "multigridcmt_tpu/kernels/local2d.py:843", "S1"),
+    "local2d_residual": ("local2d", "residual_launches",
+                         "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                         "multigridcmt_tpu/kernels/local2d.py:289", "S1"),
+    "local2d_rbgs": ("local2d", "rbgs_launches",
+                     "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                     "multigridcmt_tpu/kernels/local2d.py:263", "S3"),
+    "local2d_jacobi": ("local2d", "jacobi_launches",
+                       "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                       "multigridcmt_tpu/kernels/local2d.py:278", "S4"),
 }
 # The runs of phase 3 that drive a main path through the public API.
 MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
-             "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell")
+             "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell", "S1", "S2",
+             "S3", "S4", "S4cheb")
 # Direct calls of a kernel that no main path launches.
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d"}
 
@@ -747,8 +969,10 @@ def require_counts(label: str, got: dict, **want) -> None:
 
 
 def check_solve(label: str, prob, solver, res, wall: float, ndim: int,
-                peak=None) -> None:
-    """A float32 solve's shape, residual drop and error against u_exact."""
+                peak=None, bound=None) -> None:
+    """A float32 solve's shape, residual drop and error against u_exact
+    (below ``bound``, MAXERR[ndim] unless given)."""
+    bound = MAXERR[ndim] if bound is None else bound
     x = res.x
     maxerr = (x - prob.u_exact).abs().max().item()
     hist = res.res_history[: res.iters + 1].tolist()
@@ -763,8 +987,8 @@ def check_solve(label: str, prob, solver, res, wall: float, ndim: int,
             f"{label}: solution has the wrong shape or non-finite values")
     require(res.iters >= 2 and hist[-1] < 0.5 * hist[0],
             f"{label}: the solve did not reduce the residual: {hist}")
-    require(maxerr < MAXERR[ndim], f"{label}: max error vs u_exact "
-            f"{maxerr:.3e} >= {MAXERR[ndim]}")
+    require(maxerr < bound, f"{label}: max error vs u_exact "
+            f"{maxerr:.3e} >= {bound}")
 
 
 def vcycles_against_plain(label: str, build, rtol: float) -> None:
@@ -1202,6 +1426,145 @@ def paths_sparse(runs: dict) -> None:
             f"bell: rel {rel:.3e}/{rel1:.3e} > {BELL_SCIPY_TOL} or bad shape")
 
 
+def sharded_mesh(shape):
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    return (sharded.make_mesh() if len(shape) == 1
+            else sharded.make_block_mesh(shape))
+
+
+def sharded_levels(prob, solver) -> tuple:
+    """(whole-leg levels, owned-tile levels on the local2d kernels) of a
+    sharded problem, from the solver's own routing predicates."""
+    from multigridcmt_tpu_torch import kernels
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    cfg, dec = prob.config, solver.decomp
+    legs = sum(sharded._leg_level_ok(cfg, dec, lv)
+               for lv in range(len(prob.hierarchy.levels)))
+    owned = sum(sharded._is_sharded(cfg, dec, lv)
+                and not sharded._leg_level_ok(cfg, dec, lv)
+                and prob.hierarchy.levels[lv].n >= kernels.KERNEL_MIN_N
+                for lv in range(len(prob.hierarchy.levels)))
+    return legs, owned
+
+
+def paths_sharded(runs: dict) -> None:
+    """S1-S4 through ShardedSolver.solve on a mesh of 1 (the world of 1
+    over NCCL that phase 1 made), and a float64 sharded solve against the
+    single-device one."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch import kernels
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    def build(label, dtype=torch.float32, **kw):
+        k, shape, cfg = SHARDED_PATHS[label]
+        prob = mt.poisson2d(k=k, dtype=dtype, use_kernels=True,
+                            device="cuda", **cfg, **kw)
+        return prob, sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+
+    prob, solver = build("S1")
+    try:
+        solver.solve(prob.b)
+        raised = None
+    except NotImplementedError as exc:
+        raised = str(exc)
+    log(f"S1 at the default PACK_MIN_N={kernels.PACK_MIN_N}: "
+        f"NotImplementedError: {raised}")
+    require(raised is not None and "plocal2d" in raised,
+            "S1 at the default PACK_MIN_N did not raise for the packed tier")
+    saved = kernels.PACK_MIN_N
+    kernels.PACK_MIN_N = 2 ** MAIN_K
+    log(f"S1: kernels.PACK_MIN_N set to {kernels.PACK_MIN_N} for this path "
+        "only, so that the 4095 fine level takes JAX's unpacked route (the "
+        "local2d legs): its packed plocal2d tier is not ported")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for label in SHARDED_PATHS:
+            if label != "S1":
+                prob, solver = build(label)
+            legs, owned = sharded_levels(prob, solver)
+            res, counts, wall = counted(lambda: solver.solve(prob.b))
+            if label == "S1":
+                runs["peakS1"] = torch.cuda.max_memory_allocated()
+            cfg = prob.config
+            single = mt.MultigridSolver(prob)
+            check_solve(f"{label}: sharded k={cfg.k} float32 {cfg.smoother} "
+                        f"V({cfg.nu1},{cfg.nu2}) mesh {solver.mesh.shape}",
+                        prob, single, res, wall, 2,
+                        runs.get("peakS1") if label == "S1" else None,
+                        SHARDED_MAXERR)
+            if label == "S1":
+                # Beside it, the single-device solve on the same unpacked
+                # route (4095 on the fused2d legs): SHARDED_MAXERR's other
+                # reading.
+                ref, _, ref_wall = counted(single.solve)
+                check_solve(f"S1's single-device twin: k={cfg.k} float32, "
+                            f"PACK_MIN_N {kernels.PACK_MIN_N}", prob, single,
+                            ref, ref_wall, 2, bound=SHARDED_MAXERR)
+                del ref
+            i = res.iters
+            checks = i + 1
+            # Per cycle: one down and one up leg a leg level (S1 4095..255,
+            # S2 2047..255); on the composed route two sweep launches (pre
+            # and post) and one residual an owned kernel level, Chebyshev
+            # nu1 + nu2 + 1 residuals there; the check is the residual.
+            want = {"S1": dict(local2d_down=legs * i, local2d_up=legs * i,
+                               local2d_residual=checks),
+                    "S2": dict(local2d_down=legs * i, local2d_up=legs * i,
+                               local2d_residual=checks),
+                    "S3": dict(local2d_rbgs=2 * owned * i,
+                               local2d_residual=owned * i + checks),
+                    "S4": dict(local2d_jacobi=2 * owned * i,
+                               local2d_residual=owned * i + checks),
+                    "S4cheb": dict(local2d_residual=(cfg.nu1 + cfg.nu2 + 1)
+                                   * owned * i + checks)}[label]
+            expect = {"S1": (5, 0), "S2": (4, 0), "S3": (0, 4), "S4": (0, 3),
+                      "S4cheb": (0, 3)}[label]
+            require((legs, owned) == expect,
+                    f"{label}: {legs} leg and {owned} owned kernel levels, "
+                    f"not {expect}")
+            require_counts(label, counts, **want)
+            runs[label] = counts
+            del prob, solver, res
+            torch.cuda.empty_cache()
+    finally:
+        kernels.PACK_MIN_N = saved
+
+    # float64 at k=10: the sharded solve (local2d legs on 1023..255, the
+    # owned-tile route on 127 and 63) and the single-device one (fused2d
+    # legs) converge in equal cycles, with histories within rtol 1e-8 down
+    # to SHARDED_F64_FLOOR: the two routes round differently (restriction
+    # and neighbour sums in other orders), by ~3e-14 of |b| near the end
+    # of the solve, which is 3e-5 of a relative residual of ~1e-9.
+    prob = mt.poisson2d(k=SHARDED_F64_K, dtype=torch.float64,
+                        smoother="rbgs", use_kernels=True, tol=F64_TOL,
+                        device="cuda")
+    solver = sharded.ShardedSolver(prob.config, sharded_mesh((1,)))
+    res, counts, _ = counted(lambda: solver.solve(prob.b))
+    ref = mt.MultigridSolver(prob).solve()
+    legs, _ = sharded_levels(prob, solver)
+    hs, hr = (r.res_history[: r.iters + 1] for r in (res, ref))
+    same = res.iters == ref.iters
+    diff = ((hs - hr).abs() / hr).max().item() if same else float("inf")
+    over = ((hs - hr).abs() - 1e-8 * hr).max().item() if same \
+        else float("inf")
+    err64 = (res.x - prob.u_exact).abs().max().item()
+    log(f"sharded float64 k={SHARDED_F64_K}: iters {res.iters} (single "
+        f"device {ref.iters}), converged {res.converged}, history rel diff "
+        f"{diff:.2e}, past rtol 1e-8 by at most {over:.2e} (floor "
+        f"{SHARDED_F64_FLOOR}), max error vs u_exact {err64:.3e}")
+    require(res.converged and ref.converged and same
+            and over <= SHARDED_F64_FLOOR,
+            f"sharded float64 k={SHARDED_F64_K} against single device: "
+            f"iters {res.iters}/{ref.iters}, rel {diff}, over {over}")
+    require_counts("sharded f64", counts, local2d_down=legs * res.iters,
+                   local2d_up=legs * res.iters,
+                   local2d_residual=res.iters + 1)
+    del prob, solver, res, ref
+    torch.cuda.empty_cache()
+
+
 def phase_main_path():
     """The slice's paths through the public entry points. Returns, per
     run, its launch counts, and the peak device memory of the solves."""
@@ -1210,6 +1573,7 @@ def phase_main_path():
     paths_composed(runs)
     paths_3d(runs)
     paths_sparse(runs)
+    paths_sharded(runs)
     return runs
 
 
@@ -1242,7 +1606,10 @@ def flops_per_point(name: str, sweeps: int = 2) -> int:
             "packed2d_up": 6 * sweeps + 3,
             "transfer2d_residual_restrict": 12, "transfer2d_prolong_add": 3,
             "stencil2d_rbgs": 6 * sweeps, "packed2d_rbgs": 6 * sweeps,
-            "stencil2d_jacobi": 10 * sweeps}[name]
+            "stencil2d_jacobi": 10 * sweeps,
+            "local2d_down": 6 * sweeps + 12, "local2d_up": 6 * sweeps + 3,
+            "local2d_residual": 8, "local2d_rbgs": 6 * sweeps,
+            "local2d_jacobi": 10 * sweeps}[name]
 
 
 def timed_2d(times: dict) -> None:
@@ -1625,6 +1992,76 @@ def timed_sparse(times: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def timed_sharded(times: dict) -> None:
+    """One sharded V(2,2) RB-GS cycle at S1 and S2 (``v_cycle_fn``: owned
+    tiles in and out; it runs the unpacked legs at any PACK_MIN_N, as JAX's
+    per-application entry does) beside the single-device cycle at the same
+    k, in turns; and each local2d kernel at S1's fine tile (4112 x 4097
+    float32, a mesh of 1) against its plain version."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.kernels import local2d
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    for label in ("S1", "S2"):
+        k, shape, kw = SHARDED_PATHS[label]
+        prob = mt.poisson2d(k=k, dtype=torch.float32, use_kernels=True,
+                            device="cuda", **kw)
+        solver = sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+        cycle = solver.v_cycle_fn()
+        b_t = sharded.shard_rhs(prob.b, solver.mesh, solver.decomp)
+        x_t = torch.zeros_like(b_t)
+        single = mt.MultigridSolver(prob)
+        x = torch.zeros_like(prob.b)
+        t = time_pair(f"cycle {label} k={k} mesh {shape}: sharded "
+                      "(kernel), single device (plain)",
+                      lambda: cycle(x_t, b_t),
+                      lambda: single.v_cycle(x, prob.b))
+        times["cycle_" + label] = {"sharded_ms": t["ms"],
+                                   "single_ms": t["plain_ms"]}
+        del prob, solver, b_t, x_t, single, x
+        torch.cuda.empty_cache()
+
+    n = 2 ** MAIN_K - 1
+    h = 1.0 / (n + 1)
+    ue, be, e, t = local2d_tile(n, torch.float32, seed=21)
+    m, offs = t["m"], (t["row_off"], t["col_off"])
+    rc = torch.empty_like(e)
+    kw = dict(kind="rbgs", omega=1.0, sweeps=2)
+    nc = (n - 1) // 2
+    # name -> (kernel, plain, bytes read once and written once, sweeps)
+    pairs = {
+        "local2d_down": (
+            lambda: local2d.down_leg(ue, be, n, h, m, *offs, **kw),
+            lambda: local2d.down_leg_plain(ue, be, n, h, m, *offs, **kw),
+            nbytes(ue, be, ue, rc), 2),
+        "local2d_up": (
+            lambda: local2d.up_leg(ue, e, be, n, nc, h, m, *offs, **kw),
+            lambda: local2d.up_leg_plain(ue, e, be, n, nc, h, m, *offs,
+                                         **kw), nbytes(ue, e, be, ue), 2),
+        "local2d_residual": (
+            lambda: local2d.residual(ue, be, n, h, *offs),
+            lambda: local2d.residual_plain(ue, be, n, h, *offs),
+            nbytes(ue, be, ue), 0),
+        "local2d_rbgs": (
+            lambda: local2d.rbgs_sweep(ue, be, n, h, *offs, sweeps=4),
+            lambda: local2d.rbgs_sweep_plain(ue, be, n, h, *offs, sweeps=4),
+            nbytes(ue, be, ue), 4),
+        "local2d_jacobi": (
+            lambda: local2d.jacobi_sweep(ue, be, n, h, 0.8, *offs, sweeps=8),
+            lambda: local2d.jacobi_sweep_plain(ue, be, n, h, 0.8, *offs,
+                                               sweeps=8),
+            nbytes(ue, be, ue), 8),
+    }
+    for name, (kernel, plain, moved, sweeps) in pairs.items():
+        tt = time_pair(f"{name} {tuple(ue.shape)} nu={sweeps}", kernel,
+                       plain)
+        tt.update(bytes=moved, flops=flops_per_point(name, sweeps) * n * n)
+        times[name] = tt
+    del ue, be, e, rc, pairs
+    torch.cuda.empty_cache()
+
+
 def phase_times():
     """Times on the card, float32, RB-GS, nu = 2, sigma = 0: the cycles,
     one PCG iteration, each kernel against its plain version at its
@@ -1638,6 +2075,7 @@ def phase_times():
     timed_composed(times)
     timed_3d(times)
     timed_sparse(times)
+    timed_sharded(times)
     return times
 
 
@@ -1704,16 +2142,26 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - start:.1f} s")
         return out
 
+    import torch.distributed as dist
+
     try:
-        card = phase("setup", phase_setup)
-        errs = phase("kernels against plain", phase_compare)
-        runs = phase("main paths", phase_main_path)
-        times = phase("times", phase_times)
+        with tempfile.TemporaryDirectory() as tmp:
+            card = phase("setup", lambda: phase_setup(
+                os.path.join(tmp, "rendezvous")))
+            errs = phase("kernels against plain", phase_compare)
+            runs = phase("main paths", phase_main_path)
+            times = phase("times", phase_times)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     log(f"peak device memory: 4095^2 solve {runs['peak2d']} bytes, 511^3 "
-        f"solve {runs['peak3d']} bytes; card: {card}")
+        f"solve {runs['peak3d']} bytes, sharded S1 {runs['peakS1']} bytes; "
+        f"card: {card}")
+    for label in ("S1", "S2"):
+        log(f"cycle_{label}: " + json.dumps(times["cycle_" + label]))
     log("smoother: " + json.dumps(times["smoother"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):
         log(f"{key}: " + json.dumps(times[key]))

@@ -22,6 +22,7 @@ from .ops.sparse import COO, CSR, DIA
 if TYPE_CHECKING:
     from .kernels.bell import BELL
     from .kernels.spmv import PackedDIA
+    from .parallel.sharded import Decomp
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -106,3 +107,22 @@ def bell_from_jax(a, device=None) -> BELL:
     device = check_device(device)
     return BELL(data=_tensor(a.data, device), cols=_tensor(a.cols, device),
                 shape=tuple(a.shape), nnz_scalar=int(a.nnz_scalar))
+
+
+def mesh_shape_from_jax(mesh) -> tuple:
+    """The shape of a JAX ``Mesh`` (its device array's), for
+    ``parallel.sharded.make_mesh`` / ``make_block_mesh``."""
+    return tuple(int(d) for d in np.asarray(mesh.devices).shape)
+
+
+def tile_from_jax(x_sharded, decomp: Decomp, coords, device=None):
+    """One rank's owned tile of a JAX sharded array of owned tiles (the
+    layout of ``multigridcmt_tpu.parallel.sharded.shard_rhs``), on
+    ``device`` (None: the card). ``coords``: the rank's position along
+    ``decomp.axes``."""
+    device = check_device(device)
+    full = np.asarray(x_sharded)
+    for (a, _, nd), c in zip(decomp.axes, coords):
+        m = full.shape[a] // nd
+        full = np.take(full, np.arange(c * m, (c + 1) * m), axis=a)
+    return _tensor(full, device)

@@ -77,6 +77,18 @@ for _t in ("f32", "f64"):
     SIGNATURES[f"mg_spmv_dia_{_t}"] = [_P, _P, _P, _P, _I, _L, _L, _P]
     # data, cols, xt, yt, nbr, kmax, m, ldx, stream
     SIGNATURES[f"mg_bell_spmm_{_t}"] = [_P, _P, _P, _P, _L, _L, _L, _L, _P]
+    # u, b, out, R, C, n, row_off, col_off, h, sigma, mode, omega, sweeps,
+    # stream
+    SIGNATURES[f"mg_local2d_sweep_{_t}"] = [_P, _P, _P, _I, _I, _I, _I, _I, _D,
+                                            _D, _I, _D, _I, _P]
+    # u, b, u_out, rc, R, C, Rc, Cc, n, row_off, col_off, crow, ccol, qlo,
+    # qhi, slo, shi, h, sigma, kind, omega, sweeps, stream
+    SIGNATURES[f"mg_local2d_down_{_t}"] = [_P, _P, _P, _P] + [_I] * 13 + [
+        _D, _D, _I, _D, _I, _P]
+    # x, e, b, out, R, C, Rc, Cc, n, row_off, col_off, crow, ccol, h, sigma,
+    # kind, omega, sweeps, stream
+    SIGNATURES[f"mg_local2d_up_{_t}"] = [_P, _P, _P, _P] + [_I] * 9 + [
+        _D, _D, _I, _D, _I, _P]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

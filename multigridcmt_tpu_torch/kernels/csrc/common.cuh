@@ -1,11 +1,13 @@
 // Shared pieces of the Poisson kernels (stencil2d.cu, fused2d.cu,
-// transfer2d.cu, packed2d.cu; stencil3d.cu takes Coef and the error
-// string).
+// transfer2d.cu, packed2d.cu, local2d.cu; stencil3d.cu takes Coef and the
+// error string).
 //
 // Grids are the logical padded layout of the Python package: an
 // (n+2) x (n+2) row-major array whose one-cell ghost ring is zero
 // (homogeneous Dirichlet). The row pitch n+2 is odd, so rows are not
-// 16-byte aligned and every access is a scalar load or store.
+// 16-byte aligned and every access is a scalar load or store. A shard's
+// tile (local2d.cu) is a rectangle of that grid with its own origin
+// (Rect); the helpers below work in global indices on either.
 //
 // The arithmetic mirrors the TPU kernels term for term
 // (multigridcmt_tpu/kernels/stencil2d.py: _gs_vals, _residual_vals):
@@ -46,6 +48,41 @@ __device__ __forceinline__ bool interior(int i, int j, int n) {
   return i >= 1 && i <= n && j >= 1 && j <= n;
 }
 
+// The points a smoother or residual sets: those interior to the n x n
+// grid ...
+struct Interior {
+  int n;
+  __device__ __forceinline__ bool operator()(int i, int j) const {
+    return interior(i, j, n);
+  }
+};
+
+// ... and on a shard's tile only those inside the closed box [ylo, yhi] x
+// [xlo, xhi] as well: the tile's points off its outer ring (local2d.cu).
+struct InteriorBox {
+  int n, ylo, yhi, xlo, xhi;
+  __device__ __forceinline__ bool operator()(int i, int j) const {
+    return interior(i, j, n) && i >= ylo && i <= yhi && j >= xlo && j <= xhi;
+  }
+};
+
+// An array in device memory holding the R x C points of a padded grid
+// whose first point has global index (goy, gox), row pitch C: a whole
+// P x P grid (square) or one rank's tile of it.
+struct Rect {
+  int R, C, goy, gox;
+
+  __host__ __device__ static Rect square(int P) {
+    return Rect{P, P, 0, 0};
+  }
+  __device__ __forceinline__ bool holds(int i, int j) const {
+    return i >= goy && i < goy + R && j >= gox && j < gox + C;
+  }
+  __device__ __forceinline__ size_t at(int i, int j) const {
+    return static_cast<size_t>(i - goy) * C + (j - gox);
+  }
+};
+
 // A coarse (nc+2)^2 grid in device memory, read point by point: the logical
 // padded layout, or the colour-packed one of packed2d.cu (two planes of
 // Pc x cpc, cpc = (Pc+1)/2; point (I, J) in plane (I+J)&1, lane J/2).
@@ -64,11 +101,23 @@ struct CoarseView {
   }
 };
 
-// Bilinear prolongation of the coarse correction at interior fine (i, j):
-// rows first, then columns, as in transfer.prolong. Fine 2I takes coarse
-// I; an odd fine index averages its two coarse neighbours.
+// A coarse tile (Rect a) read point by point; points off it read as 0.
 template <typename T>
-__device__ __forceinline__ T prolong_at(const CoarseView<T>& e, int i, int j) {
+struct TileView {
+  const T* __restrict__ e;
+  Rect a;
+
+  __device__ __forceinline__ T operator()(int I, int J) const {
+    return a.holds(I, J) ? e[a.at(I, J)] : T(0);
+  }
+};
+
+// Bilinear prolongation of the coarse correction (a CoarseView or a
+// TileView) at interior fine (i, j): rows first, then columns, as in
+// transfer.prolong. Fine 2I takes coarse I; an odd fine index averages its
+// two coarse neighbours.
+template <typename T, template <typename> class View>
+__device__ __forceinline__ T prolong_at(const View<T>& e, int i, int j) {
   const int I = i >> 1;
   const int J = j >> 1;
   const bool odd_i = i & 1;
@@ -104,79 +153,102 @@ inline int sweep_halo(int kind, int sweeps) {
 }
 
 // Tiles of the logical layout. A block owns a TY x TX core of fine points
-// whose first row and column are even, so fine point 2I of coarse point I
-// (transfer.py) lies in exactly one core and every coarse value has one
-// writer, and loads it with a halo of H rings: an RY x RX tile, RY = TY +
-// 2H, RX = TX + 2H, whose top-left point is (y0 - H, x0 - H).
+// whose first row and column are even (in global indices), so fine point
+// 2I of coarse point I (transfer.py) lies in exactly one core and every
+// coarse value has one writer, and loads it with a halo of H rings: an
+// RY x RX tile, RY = TY + 2H, RX = TX + 2H, whose top-left point is global
+// (y0 - H, x0 - H).
 
-// Load the RY x RX tile at global (gy0, gx0) of a P x P grid; points off
-// the grid read as 0.
+// Load the RY x RX tile at global (gy0, gx0) from the array a; points off
+// the array read as 0.
 template <typename T>
 __device__ void load_tile(const T* __restrict__ g, T* s, int RY, int RX,
-                          int gy0, int gx0, int P) {
+                          int gy0, int gx0, const Rect& a) {
   for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
     const int ly = idx / RX;
     const int gy = gy0 + ly;
     const int gx = gx0 + idx - ly * RX;
-    s[idx] = (gy >= 0 && gy < P && gx >= 0 && gx < P)
-                 ? g[static_cast<size_t>(gy) * P + gx]
-                 : T(0);
+    s[idx] = a.holds(gy, gx) ? g[a.at(gy, gx)] : T(0);
   }
 }
 
-// Write the TY x TX core of tile `s` (halo H) to the grid at (y0, x0).
+// Load the tiles of x + P e and of b as load_tile does; P e (prolong_at of
+// the view e) is added at the points interior to the n x n grid.
+template <typename T, template <typename> class View>
+__device__ void load_tile_prolonged(const T* __restrict__ x,
+                                    const View<T>& e,
+                                    const T* __restrict__ b, T* us, T* bs,
+                                    int RY, int RX, int gy0, int gx0,
+                                    const Rect& a, int n) {
+  for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
+    const int ly = idx / RX;
+    const int gy = gy0 + ly;
+    const int gx = gx0 + idx - ly * RX;
+    T xv = T(0);
+    T bv = T(0);
+    if (a.holds(gy, gx)) {
+      const size_t k = a.at(gy, gx);
+      xv = x[k];
+      bv = b[k];
+      if (interior(gy, gx, n)) xv = xv + prolong_at(e, gy, gx);
+    }
+    us[idx] = xv;
+    bs[idx] = bv;
+  }
+}
+
+// Write the TY x TX core of tile `s` (halo H) to the array a at global
+// (y0, x0).
 template <int TY, int TX, typename T>
 __device__ void store_core(const T* s, T* __restrict__ g, int RX, int H,
-                           int y0, int x0, int P) {
+                           int y0, int x0, const Rect& a) {
   for (int idx = threadIdx.x; idx < TY * TX; idx += blockDim.x) {
     const int cy = idx / TX;
     const int cx = idx - cy * TX;
     const int gy = y0 + cy;
     const int gx = x0 + cx;
-    if (gy < P && gx < P) {
-      g[static_cast<size_t>(gy) * P + gx] = s[(H + cy) * RX + H + cx];
-    }
+    if (a.holds(gy, gx)) g[a.at(gy, gx)] = s[(H + cy) * RX + H + cx];
   }
 }
 
 // The residual of tile w (halo H >= 2) on its TY x TX core plus one ring,
-// zero off the interior, into rs ((TY + 2) x (TX + 2), row a = fine row
-// y0 - 1 + a).
-template <int TY, int TX, typename T>
+// zero off the points `upd` sets (Interior or InteriorBox), into rs
+// ((TY + 2) x (TX + 2), row a = fine row y0 - 1 + a).
+template <int TY, int TX, typename T, typename Upd>
 __device__ void core_residual(const T* w, const T* bs, T* rs, int RX, int H,
-                              int gy0, int gx0, int n, const Coef<T>& c) {
+                              int gy0, int gx0, const Upd& upd,
+                              const Coef<T>& c) {
   constexpr int RSX = TX + 2;
   for (int idx = threadIdx.x; idx < (TY + 2) * RSX; idx += blockDim.x) {
     const int a = idx / RSX;
     const int ly = H - 1 + a;
     const int lx = H - 1 + idx - a * RSX;
     const int k = ly * RX + lx;
-    rs[idx] = interior(gy0 + ly, gx0 + lx, n)
-                  ? residual_at(w + k, bs[k], RX, c)
-                  : T(0);
+    rs[idx] = upd(gy0 + ly, gx0 + lx) ? residual_at(w + k, bs[k], RX, c)
+                                      : T(0);
   }
 }
 
 // Full weighting [1 2 1; 2 4 2; 1 2 1]/16 of the residual tile rs at the
 // coarse points this block owns, rows first then columns as in
 // transfer.restrict; coarse I sits at fine 2I = y0 + 2q, row 2q + 1 of rs.
-// rc is the ((n-1)/2 + 2)^2 coarse grid, logical or colour-packed (see
-// CoarseView); its ghosts are written as 0.
-template <int TY, int TX, typename T>
+// rc is the coarse array ca, logical or colour-packed (see CoarseView; a
+// packed one is a whole grid, origin 0); a point of it is written where
+// `keep` (Interior or InteriorBox of the coarse grid) holds and 0
+// elsewhere.
+template <int TY, int TX, typename T, typename Keep>
 __device__ void restrict_core(const T* rs, T* __restrict__ rc, int y0, int x0,
-                              int n, bool packed) {
+                              const Rect& ca, const Keep& keep, bool packed) {
   constexpr int RSX = TX + 2;
-  const int nc = (n - 1) / 2;
-  const int Pc = nc + 2;
-  const int cpc = (Pc + 1) / 2;
+  const int cpc = (ca.C + 1) / 2;
   for (int idx = threadIdx.x; idx < (TY / 2) * (TX / 2); idx += blockDim.x) {
     const int q = idx / (TX / 2);
     const int s = idx - q * (TX / 2);
     const int I = y0 / 2 + q;
     const int J = x0 / 2 + s;
-    if (I >= Pc || J >= Pc) continue;
+    if (!ca.holds(I, J)) continue;
     T val = T(0);
-    if (interior(I, J, nc)) {
+    if (keep(I, J)) {
       const T* r0 = rs + (2 * q) * RSX + 2 * s;
       const T* r1 = r0 + RSX;
       const T* r2 = r1 + RSX;
@@ -186,9 +258,10 @@ __device__ void restrict_core(const T* rs, T* __restrict__ rc, int y0, int x0,
       val = T(0.25) * (t0 + T(2) * t1 + t2);
     }
     if (packed) {
-      rc[(static_cast<size_t>((I + J) & 1) * Pc + I) * cpc + (J >> 1)] = val;
+      rc[(static_cast<size_t>((I + J) & 1) * ca.R + I) * cpc + (J >> 1)] =
+          val;
     } else {
-      rc[static_cast<size_t>(I) * Pc + J] = val;
+      rc[ca.at(I, J)] = val;
     }
   }
 }
@@ -197,19 +270,21 @@ __device__ void restrict_core(const T* rs, T* __restrict__ rc, int y0, int x0,
 // Smoothing on a tile held in shared memory.
 //
 // The tile is RY x RX points whose top-left point has global padded index
-// (gy0, gx0). A point is updated only if it is interior to the grid and not
-// on the tile's outer ring (its four neighbours must be in the tile). The
-// ring keeps its loaded values, so each half-sweep (RB-GS) or sweep
-// (Jacobi) makes one more ring of points stale; callers size the halo so
-// that the stale rings never reach the points they keep.
+// (gy0, gx0). A point is updated only if `upd` holds there (Interior: it is
+// interior to the grid; InteriorBox: and inside a shard tile's box) and it
+// is not on the tile's outer ring (its four neighbours must be in the
+// tile). The ring keeps its loaded values, so each half-sweep (RB-GS) or
+// sweep (Jacobi) makes one more ring of points stale; callers size the halo
+// so that the stale rings never reach the points they keep.
 // ---------------------------------------------------------------------------
 
 // One RB-GS half-sweep in place: only points of the given colour change,
 // and they read only points of the other colour. Colour comes from global
-// padded indices: red (parity 0) means (i + j) even.
-template <typename T>
+// padded indices: red (parity 0) means (i + j) even; `& 1` is the floor
+// parity of a negative index too.
+template <typename T, typename Upd>
 __device__ void rbgs_half_sweep(T* us, const T* bs, int RY, int RX, int gy0,
-                                int gx0, int n, int parity,
+                                int gx0, const Upd& upd, int parity,
                                 const Coef<T>& c) {
   const int half = RX / 2;   // RX is even: one point of each colour per pair
   for (int idx = threadIdx.x; idx < RY * half; idx += blockDim.x) {
@@ -218,7 +293,7 @@ __device__ void rbgs_half_sweep(T* us, const T* bs, int RY, int RX, int gy0,
     const int lx = 2 * (idx - ly * half) + ((parity + gy + gx0) & 1);
     const int gx = gx0 + lx;
     if (ly < 1 || ly > RY - 2 || lx < 1 || lx > RX - 2) continue;
-    if (!interior(gy, gx, n)) continue;
+    if (!upd(gy, gx)) continue;
     const int k = ly * RX + lx;
     us[k] = (c.h2 * bs[k] + us[k - RX] + us[k + RX] + us[k - 1] + us[k + 1])
             * c.inv_den;
@@ -226,15 +301,16 @@ __device__ void rbgs_half_sweep(T* us, const T* bs, int RY, int RX, int gy0,
 }
 
 // One weighted-Jacobi sweep from `us` into `vs` (both RY x RX).
-template <typename T>
+template <typename T, typename Upd>
 __device__ void jacobi_sweep(const T* us, T* vs, const T* bs, int RY, int RX,
-                             int gy0, int gx0, int n, const Coef<T>& c) {
+                             int gy0, int gx0, const Upd& upd,
+                             const Coef<T>& c) {
   for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
     const int ly = idx / RX;
     const int lx = idx - ly * RX;
     T v = us[idx];
     if (ly >= 1 && ly <= RY - 2 && lx >= 1 && lx <= RX - 2 &&
-        interior(gy0 + ly, gx0 + lx, n)) {
+        upd(gy0 + ly, gx0 + lx)) {
       v = v + c.jscale * residual_at(us + idx, bs[idx], RX, c);
     }
     vs[idx] = v;
@@ -243,21 +319,21 @@ __device__ void jacobi_sweep(const T* us, T* vs, const T* bs, int RY, int RX,
 
 // `sweeps` smoother sweeps on the tile; returns the buffer holding the
 // result (`us` for RB-GS, `us` or `vs` for Jacobi's ping-pong).
-template <typename T>
+template <typename T, typename Upd>
 __device__ T* smooth_tile(T* us, T* vs, const T* bs, int RY, int RX, int gy0,
-                          int gx0, int n, int kind, int sweeps,
+                          int gx0, const Upd& upd, int kind, int sweeps,
                           const Coef<T>& c) {
   if (kind == kRbgs) {
     for (int s = 0; s < sweeps; ++s) {
-      rbgs_half_sweep(us, bs, RY, RX, gy0, gx0, n, 0, c);
+      rbgs_half_sweep(us, bs, RY, RX, gy0, gx0, upd, 0, c);
       __syncthreads();
-      rbgs_half_sweep(us, bs, RY, RX, gy0, gx0, n, 1, c);
+      rbgs_half_sweep(us, bs, RY, RX, gy0, gx0, upd, 1, c);
       __syncthreads();
     }
     return us;
   }
   for (int s = 0; s < sweeps; ++s) {
-    jacobi_sweep(us, vs, bs, RY, RX, gy0, gx0, n, c);
+    jacobi_sweep(us, vs, bs, RY, RX, gy0, gx0, upd, c);
     __syncthreads();
     T* t = us;
     us = vs;

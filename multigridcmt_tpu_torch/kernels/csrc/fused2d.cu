@@ -43,7 +43,9 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
             T* __restrict__ u_out, T* __restrict__ rc, int n, mg::Coef<T> c,
             int kind, int sweeps, int H) {
   extern __shared__ unsigned char smem_raw[];
-  const int P = n + 2;
+  const mg::Rect grid = mg::Rect::square(n + 2);
+  const int nc = (n - 1) / 2;
+  const mg::Interior upd{n};
   const int RX = TX + 2 * H;
   const int RY = TY + 2 * H;
   const int y0 = blockIdx.y * TY;
@@ -56,16 +58,17 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
   T* rs = bs + RY * RX;       // residual on the core plus one ring
   T* vs = rs + (TY + 2) * (TX + 2);   // Jacobi ping-pong (RB-GS: unused)
 
-  mg::load_tile(u, us, RY, RX, gy0, gx0, P);
-  mg::load_tile(b, bs, RY, RX, gy0, gx0, P);
+  mg::load_tile(u, us, RY, RX, gy0, gx0, grid);
+  mg::load_tile(b, bs, RY, RX, gy0, gx0, grid);
   __syncthreads();
 
-  const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, n, kind, sweeps,
-                               c);
-  mg::core_residual<TY, TX>(w, bs, rs, RX, H, gy0, gx0, n, c);
-  mg::store_core<TY, TX>(w, u_out, RX, H, y0, x0, P);
+  const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, upd, kind,
+                               sweeps, c);
+  mg::core_residual<TY, TX>(w, bs, rs, RX, H, gy0, gx0, upd, c);
+  mg::store_core<TY, TX>(w, u_out, RX, H, y0, x0, grid);
   __syncthreads();
-  mg::restrict_core<TY, TX>(rs, rc, y0, x0, n, false);
+  mg::restrict_core<TY, TX>(rs, rc, y0, x0, mg::Rect::square(nc + 2),
+                            mg::Interior{nc}, false);
 }
 
 // Up leg: x' = smooth^sweeps(x + P e).
@@ -75,7 +78,7 @@ up_kernel(const T* __restrict__ x, const T* __restrict__ e,
           const T* __restrict__ b, T* __restrict__ out, int n, mg::Coef<T> c,
           int kind, int sweeps, int H) {
   extern __shared__ unsigned char smem_raw[];
-  const int P = n + 2;
+  const mg::Rect grid = mg::Rect::square(n + 2);
   const int Pc = (n - 1) / 2 + 2;
   const int RX = TX + 2 * H;
   const int RY = TY + 2 * H;
@@ -89,26 +92,12 @@ up_kernel(const T* __restrict__ x, const T* __restrict__ e,
   T* bs = us + RY * RX;
   T* vs = bs + RY * RX;       // Jacobi ping-pong buffer (RB-GS: unused)
 
-  for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
-    const int ly = idx / RX;
-    const int gy = gy0 + ly;
-    const int gx = gx0 + idx - ly * RX;
-    T xv = T(0);
-    T bv = T(0);
-    if (gy >= 0 && gy < P && gx >= 0 && gx < P) {
-      const size_t k = static_cast<size_t>(gy) * P + gx;
-      xv = x[k];
-      bv = b[k];
-      if (mg::interior(gy, gx, n)) xv = xv + mg::prolong_at(ev, gy, gx);
-    }
-    us[idx] = xv;
-    bs[idx] = bv;
-  }
+  mg::load_tile_prolonged(x, ev, b, us, bs, RY, RX, gy0, gx0, grid, n);
   __syncthreads();
 
-  const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, n, kind, sweeps,
-                               c);
-  mg::store_core<TY, TX>(w, out, RX, H, y0, x0, P);
+  const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, mg::Interior{n},
+                               kind, sweeps, c);
+  mg::store_core<TY, TX>(w, out, RX, H, y0, x0, grid);
 }
 
 dim3 leg_grid(int n) {

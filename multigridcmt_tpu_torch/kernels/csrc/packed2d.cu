@@ -233,7 +233,9 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
   }
   store_pcore(w, u_out, RY, RXP, H, HP, y0, p0, P, cp);
   __syncthreads();
-  mg::restrict_core<TY, TX>(rs, rc, y0, x0, n, packed_coarse);
+  const int nc = (n - 1) / 2;
+  mg::restrict_core<TY, TX>(rs, rc, y0, x0, mg::Rect::square(nc + 2),
+                            mg::Interior{nc}, packed_coarse);
 }
 
 // Up leg: x' = smooth^sweeps(x + P e); e logical or packed (a template

@@ -50,7 +50,7 @@ sweep_kernel(const T* __restrict__ u, const T* __restrict__ b,
              T* __restrict__ out, int n, mg::Coef<T> c, int kind, int sweeps,
              int H) {
   extern __shared__ unsigned char smem_raw[];
-  const int P = n + 2;
+  const mg::Rect grid = mg::Rect::square(n + 2);
   const int RX = TX + 2 * H;
   const int RY = TY + 2 * H;
   const int y0 = blockIdx.y * TY;
@@ -62,12 +62,12 @@ sweep_kernel(const T* __restrict__ u, const T* __restrict__ b,
   T* bs = us + RY * RX;
   T* vs = bs + RY * RX;       // Jacobi ping-pong buffer (RB-GS: unused)
 
-  mg::load_tile(u, us, RY, RX, gy0, gx0, P);
-  mg::load_tile(b, bs, RY, RX, gy0, gx0, P);
+  mg::load_tile(u, us, RY, RX, gy0, gx0, grid);
+  mg::load_tile(b, bs, RY, RX, gy0, gx0, grid);
   __syncthreads();
-  const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, n, kind, sweeps,
-                               c);
-  mg::store_core<TY, TX>(w, out, RX, H, y0, x0, P);
+  const T* w = mg::smooth_tile(us, vs, bs, RY, RX, gy0, gx0, mg::Interior{n},
+                               kind, sweeps, c);
+  mg::store_core<TY, TX>(w, out, RX, H, y0, x0, grid);
 }
 
 template <typename T>

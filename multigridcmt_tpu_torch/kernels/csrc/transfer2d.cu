@@ -41,18 +41,21 @@ rr_kernel(const T* __restrict__ u, const T* __restrict__ b,
   T* us = reinterpret_cast<T*>(smem_raw);
   T* bs = us + RY * RX;
   T* rs = bs + RY * RX;       // residual on the core plus one ring
-  const int P = n + 2;
+  const mg::Rect grid = mg::Rect::square(n + 2);
+  const int nc = (n - 1) / 2;
   const int y0 = blockIdx.y * TY;
   const int x0 = blockIdx.x * TX;
   const int gy0 = y0 - HALO;
   const int gx0 = x0 - HALO;
 
-  mg::load_tile(u, us, RY, RX, gy0, gx0, P);
-  mg::load_tile(b, bs, RY, RX, gy0, gx0, P);
+  mg::load_tile(u, us, RY, RX, gy0, gx0, grid);
+  mg::load_tile(b, bs, RY, RX, gy0, gx0, grid);
   __syncthreads();
-  mg::core_residual<TY, TX>(us, bs, rs, RX, HALO, gy0, gx0, n, c);
+  mg::core_residual<TY, TX>(us, bs, rs, RX, HALO, gy0, gx0, mg::Interior{n},
+                            c);
   __syncthreads();
-  mg::restrict_core<TY, TX>(rs, rc, y0, x0, n, false);
+  mg::restrict_core<TY, TX>(rs, rc, y0, x0, mg::Rect::square(nc + 2),
+                            mg::Interior{nc}, false);
 }
 
 template <typename T>

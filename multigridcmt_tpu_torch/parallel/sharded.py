@@ -1,0 +1,1003 @@
+"""Distributed 2D multigrid over ``torch.distributed``: row and block
+decompositions, halo exchange, the ``local2d`` shard kernels and coarse-level
+agglomeration.
+
+PyTorch port of the 2D V/W-cycle solve of
+``multigridcmt_tpu.parallel.sharded``, with the same partitioning and the
+same arithmetic. Each rank is one process holding one tile; where JAX runs
+one SPMD program under ``shard_map``, each rank here runs the same host code
+on its own tile, and its coordinates on the mesh are plain ints.
+
+Partitioning, per sharded axis (as in JAX): the padded fine grid has 2^k + 1
+entries, ghost 0, interior 1..n, ghost n+1. Entries 1..2^k are sharded over
+the D ranks of the axis, rank d owning m = 2^k / D entries, global d*m + 1 ..
+(d+1)*m; the far ghost is a dead entry of the last rank that the masks keep
+zero, and the near ghost is never stored: a rank with no neighbour on a side
+receives zeros, the Dirichlet ghosts. Coarsening halves m per level. A 1D
+mesh shards axis 0 (rows), a 2D mesh axes 0 and 1 (blocks). Tiles hold the
+owned entries along sharded axes and the full padded extent along the
+others.
+
+The exchange: JAX's ``ppermute`` with ``_perm_down``/``_perm_up`` is
+``_swap`` here, one ``dist.batch_isend_irecv`` with the neighbours along one
+mesh axis (no call at all where a rank has none, as on a mesh of 1).
+``psum`` is ``all_reduce``; the agglomeration's ``all_gather`` runs per mesh
+axis, rows then columns. JAX overlaps the halo exchange with the stencil and
+folds the arriving slabs in as additive fix-ups; the port exchanges first and
+then computes, with the same fix-up arithmetic, so the results agree to the
+ulp.
+
+Routes, by level (read when called: ``kernels.KERNEL_MIN_N``,
+``kernels.PACK_MIN_N``):
+  * whole-leg levels (``_leg_level_ok``: RB-GS or Jacobi within the legs'
+    sweep caps, n >= KERNEL_MIN_N, tiles at least HALO_ROWS deep): the cycle
+    runs on extended tiles, one ``local2d.down_leg`` and one ``up_leg`` a
+    level, with ghost-slab refreshes between (``_leg_cycle_ext``);
+  * other sharded levels: the owned-tile route, ``s_smooth``/``s_residual``
+    (the ``local2d`` sweeps and residual on kernel-sized tiles, the plain
+    halo-exchanging stencils below) and the plain ``s_restrict``/``s_prolong``;
+  * levels too small to shard (``_is_sharded``): gathered onto every rank and
+    solved there by the plain single-device cycle.
+A colour-packed fine level (``_pack_level_ok``: n >= PACK_MIN_N, which JAX
+runs on the ``plocal2d`` kernels), MG-PCG, the eigensolvers, FMG, 3D slabs
+and pencils and mixed precision are not ported: they raise
+``NotImplementedError`` naming their ROADMAP.md item. JAX's ``*_pallas``
+helpers are ``*_kernel`` here, and its ``_ext_aligned`` is ``_ext_tile``:
+the port keeps every tile at its logical extent, with no alignment padding.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from ..config import SolverConfig
+from ..grids import (Hierarchy, build_hierarchy, check_device, interior,
+                     pad_interior)
+from ..ops import laplacian, smoothers, transfer
+from ..solvers import cycles
+
+_ITEM = "(ROADMAP.md, queue 1 item 7: sharded {})"
+PACKED_TODO = ("the colour-packed sharded fine level (n >= "
+               "kernels.PACK_MIN_N) runs JAX's plocal2d kernels, not ported "
+               "yet "
+               + _ITEM.format("packed tier, plocal2d"))
+PCG_TODO = "sharded MG-PCG is not ported yet " + _ITEM.format("pcg")
+EIGEN_TODO = ("the sharded eigensolvers are not ported yet "
+              + _ITEM.format("eigensolvers"))
+FMG_TODO = "sharded full multigrid is not ported yet " + _ITEM.format("fmg")
+SLAB_TODO = ("sharded 3D solves (slabs and pencils) are not ported yet "
+             + _ITEM.format("3D slabs and pencils"))
+MIXED_TODO = ("sharded solves with precond_dtype={pd}: mixed precision is not "
+              "ported yet (ROADMAP.md, queue 1 item 3: mixed precision)")
+
+
+# ---------------------------------------------------------------------------
+# Mesh and decomposition
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The ranks of a process group laid out row-major over ``shape``.
+
+    ``coords``: this rank's position; ``ranks``: the global rank at each
+    position, row-major; ``axis_groups``: per mesh axis, the process group
+    of the ranks on this rank's line along that axis (in coordinate order);
+    ``device``: where this rank's tiles live (a card for NCCL, the CPU for
+    gloo)."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    coords: Tuple[int, ...]
+    ranks: Tuple[int, ...]
+    axis_groups: Tuple[Any, ...]
+    group: Any
+    device: torch.device
+
+    def _axis(self, name: str) -> int:
+        return self.axis_names.index(name)
+
+    def coord(self, name: str) -> int:
+        return self.coords[self._axis(name)]
+
+    def neighbor(self, name: str, step: int) -> Optional[int]:
+        """Global rank of the neighbour ``step`` along axis ``name``, or
+        None past the mesh's end."""
+        a = self._axis(name)
+        c = list(self.coords)
+        c[a] += step
+        if not 0 <= c[a] < self.shape[a]:
+            return None
+        return self.ranks[sum(c[i] * math.prod(self.shape[i + 1:])
+                              for i in range(len(c)))]
+
+    def axis_group(self, name: str):
+        return self.axis_groups[self._axis(name)]
+
+
+def _require_dist() -> None:
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "torch.distributed is not initialized: call "
+            "torch.distributed.init_process_group (NCCL for ranks on cards, "
+            "gloo for CPU processes) before making a mesh; one process is a "
+            "mesh of 1")
+
+
+def _mesh_device(device) -> torch.device:
+    """The rank's device (None: its current card)."""
+    device = check_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _group_ranks(group):
+    size = dist.get_world_size(group)
+    if group is None:
+        return tuple(range(size))
+    return tuple(dist.get_global_rank(group, r) for r in range(size))
+
+
+def make_mesh(group=None, axis: str = "row", device=None) -> Mesh:
+    """1D mesh over the process group (default: the world): row
+    partitioning. ``device``: this rank's device (None: its current card;
+    "cpu" for gloo ranks)."""
+    _require_dist()
+    ranks = _group_ranks(group)
+    return Mesh(axis_names=(axis,), shape=(len(ranks),),
+                coords=(dist.get_rank(group),), ranks=ranks,
+                axis_groups=(group,), group=group,
+                device=_mesh_device(device))
+
+
+def make_block_mesh(shape: Tuple[int, int], group=None,
+                    axes: Tuple[str, str] = ("row", "col"),
+                    device=None) -> Mesh:
+    """2D mesh: block partitioning. ``shape = (D_row, D_col)`` lays the
+    group's ranks out row-major; array axis 0 is split over ``axes[0]``
+    and axis 1 over ``axes[1]``. Each rank makes the process groups of its
+    own row and column lines."""
+    _require_dist()
+    ranks = _group_ranks(group)
+    shape = (int(shape[0]), int(shape[1]))
+    if math.prod(shape) != len(ranks):
+        raise ValueError(f"mesh shape {shape} needs {math.prod(shape)} "
+                         f"ranks, the group has {len(ranks)}")
+    r, c = divmod(dist.get_rank(group), shape[1])
+    lines = ([ranks[i * shape[1] + c] for i in range(shape[0])],
+             [ranks[r * shape[1] + j] for j in range(shape[1])])
+    groups = tuple(group if len(line) == len(ranks)
+                   else dist.new_group(line, use_local_synchronization=True)
+                   for line in lines)
+    return Mesh(axis_names=tuple(axes), shape=shape, coords=(r, c),
+                ranks=ranks, axis_groups=groups, group=group,
+                device=_mesh_device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Decomp:
+    """Which array axes are sharded over which mesh axes.
+
+    ``axes`` maps array axis -> (mesh axis name, ranks along it); array
+    axes are a prefix 0..len(axes)-1. ``mesh`` is the mesh the exchanges
+    and collectives run on (JAX reads it from the shard_map context).
+    """
+
+    ndim: int
+    axes: Tuple[Tuple[int, str, int], ...]
+    mesh: Optional[Mesh] = None
+
+    @property
+    def mesh_axes(self) -> Tuple[str, ...]:
+        return tuple(ma for _, ma, _ in self.axes)
+
+    def info(self, arr_axis: int) -> Optional[Tuple[str, int]]:
+        for a, ma, nd in self.axes:
+            if a == arr_axis:
+                return ma, nd
+        return None
+
+
+def decomp_from_mesh(mesh: Mesh, ndim: int) -> Decomp:
+    """Shard the leading array axes over the mesh axes, in order."""
+    names = mesh.axis_names
+    if len(names) > ndim:
+        raise ValueError(f"mesh has {len(names)} axes but the grid only "
+                         f"{ndim}: at most one mesh axis per grid axis")
+    return Decomp(ndim=ndim,
+                  axes=tuple((a, names[a], int(mesh.shape[a]))
+                             for a in range(len(names))),
+                  mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# Halo exchange and the owned-tile stencils
+# ---------------------------------------------------------------------------
+
+def _swap(to_upper, to_lower, mesh: Mesh, mesh_axis: str):
+    """(near, far) along one mesh axis: near is the lower neighbour's
+    ``to_upper`` slab (JAX's ppermute with _perm_down), far the upper
+    neighbour's ``to_lower`` (_perm_up); zeros where there is no neighbour.
+    Either slab may be None (not sent; None returned for it)."""
+    lo, hi = mesh.neighbor(mesh_axis, -1), mesh.neighbor(mesh_axis, 1)
+    near = None if to_upper is None else torch.zeros_like(
+        to_upper, memory_format=torch.contiguous_format)
+    far = None if to_lower is None else torch.zeros_like(
+        to_lower, memory_format=torch.contiguous_format)
+    ops = []
+    if to_upper is not None:
+        if hi is not None:
+            ops.append(dist.P2POp(dist.isend, to_upper.contiguous(), hi))
+        if lo is not None:
+            ops.append(dist.P2POp(dist.irecv, near, lo))
+    if to_lower is not None:
+        if lo is not None:
+            ops.append(dist.P2POp(dist.isend, to_lower.contiguous(), lo))
+        if hi is not None:
+            ops.append(dist.P2POp(dist.irecv, far, hi))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return near, far
+
+
+def _pad_axes(x: torch.Tensor, widths) -> torch.Tensor:
+    """Zero-pad axis a of x by widths[a] = (before, after)."""
+    pads = []
+    for lo, hi in reversed(widths):
+        pads += [lo, hi]
+    return F.pad(x, pads)
+
+
+def _halo_extend_axis(u: torch.Tensor, arr_axis: int, mesh: Mesh,
+                      mesh_axis: str) -> torch.Tensor:
+    """Extend one array axis by its neighbours' edge slabs: m -> m+2; edge
+    ranks receive zeros, the Dirichlet ghosts."""
+    v = u.movedim(arr_axis, 0)
+    near, far = _swap(v[-1:], v[:1], mesh, mesh_axis)
+    return torch.cat([near, v, far], dim=0).movedim(0, arr_axis)
+
+
+def halo_extend(u: torch.Tensor, mesh: Mesh, axis: str = "row"):
+    """(m, ...) owned tile -> (m+2, ...) with neighbour halos on axis 0."""
+    return _halo_extend_axis(u, 0, mesh, axis)
+
+
+def _neighbor_sum(ext: torch.Tensor) -> torch.Tensor:
+    """Sum of the 2*ndim face neighbours at every core point of a (locally)
+    padded tile."""
+    nd = ext.ndim
+    out = None
+    for a in range(nd):
+        lo = tuple(slice(0, -2) if i == a else slice(1, -1)
+                   for i in range(nd))
+        hi = tuple(slice(2, None) if i == a else slice(1, -1)
+                   for i in range(nd))
+        t = ext[lo] + ext[hi]
+        out = t if out is None else out + t
+    return out
+
+
+def _slice_unsharded(x: torch.Tensor, decomp: Decomp) -> torch.Tensor:
+    """Take the interior 1:-1 along unsharded (padded) axes only."""
+    idx = tuple(slice(None) if decomp.info(a) is not None else slice(1, -1)
+                for a in range(x.ndim))
+    return x[idx]
+
+
+def _neighbor_sum_dd(u: torch.Tensor, decomp: Decomp) -> torch.Tensor:
+    """Face-neighbour sum of an owned tile: the halo slabs are exchanged,
+    the local sum runs with zero edges along sharded axes, and the slabs
+    are added to the boundary slices afterwards (JAX's order of additions,
+    which it overlaps with the exchange)."""
+    nd = u.ndim
+    slabs = []
+    for a, ma, _ in decomp.axes:
+        v = u.movedim(a, 0)
+        near, far = _swap(v[-1:], v[:1], decomp.mesh, ma)
+        slabs.append((a, near.movedim(0, a), far.movedim(0, a)))
+    total = _neighbor_sum(_pad_axes(
+        u, [(1, 1) if decomp.info(a) is not None else (0, 0)
+            for a in range(nd)]))
+    for a, near, far in slabs:
+        m = total.shape[a]
+        total.narrow(a, 0, 1).add_(_slice_unsharded(near, decomp))
+        total.narrow(a, m - 1, 1).add_(_slice_unsharded(far, decomp))
+    return total
+
+
+def _pad_unsharded(x: torch.Tensor, decomp: Decomp) -> torch.Tensor:
+    """Re-add the zero ghost ring along unsharded axes only."""
+    return _pad_axes(x, [(0, 0) if decomp.info(a) is not None else (1, 1)
+                         for a in range(x.ndim)])
+
+
+def _global_ids(shape, decomp: Decomp, arr_axis: int, device=None):
+    """Global padded-grid index of every local entry along one axis,
+    broadcastable to ``shape``: d*m + 1 + i along a sharded axis (the near
+    ghost 0 is never stored), the local index along an unsharded one."""
+    view = [1] * len(shape)
+    view[arr_axis] = shape[arr_axis]
+    ids = torch.arange(shape[arr_axis], device=device).view(view)
+    info = decomp.info(arr_axis)
+    if info is not None:
+        ids = ids + decomp.mesh.coord(info[0]) * shape[arr_axis] + 1
+    return ids
+
+
+def _interior_mask(n: int, shape, decomp: Decomp, device=None):
+    mask = None
+    for a in range(len(shape)):
+        ids = _global_ids(shape, decomp, a, device)
+        if decomp.info(a) is not None:
+            cond = ids <= n          # ids >= 1 always on sharded axes
+        else:
+            cond = (ids >= 1) & (ids <= n)
+        mask = cond if mask is None else mask & cond
+    return mask
+
+
+def _coord_sum(shape, decomp: Decomp, device=None):
+    """Sum of global coordinates: the red/black colour of each point."""
+    s = None
+    for a in range(len(shape)):
+        ids = _global_ids(shape, decomp, a, device)
+        s = ids if s is None else s + ids
+    return s
+
+
+def s_residual(u, b, n, h, decomp: Decomp, sigma=0.0,
+               use_kernels: bool = False):
+    """r = b - (A - sigma I) u on owned tiles (one halo exchange round per
+    axis)."""
+    if use_kernels and _local_kernel_ok(u, n, "rbgs", decomp):
+        return _s_residual_kernel(u, b, n, h, decomp, sigma)
+    nbr = _neighbor_sum_dd(u, decomp)
+    ctr = _slice_unsharded(u, decomp)
+    inv_h2 = 1.0 / (h * h)
+    au = (2.0 * decomp.ndim * ctr - nbr) * inv_h2
+    r = _slice_unsharded(b, decomp) - au + sigma * ctr
+    return torch.where(_interior_mask(n, u.shape, decomp, u.device),
+                       _pad_unsharded(r, decomp), torch.zeros_like(u))
+
+
+def s_jacobi(u, b, n, h, omega, decomp: Decomp, sigma=0.0):
+    r = s_residual(u, b, n, h, decomp, sigma)
+    d = laplacian.diag_value(decomp.ndim, h, sigma)
+    return u + (omega / d) * r
+
+
+def s_rbgs(u, b, n, h, decomp: Decomp, sigma=0.0):
+    """One full RB-GS sweep, equal to the single-device sweep: the halos
+    are exchanged again between the red and black half-sweeps."""
+    h2 = h * h
+    den = 2.0 * decomp.ndim - sigma * h2
+    colors = _coord_sum(u.shape, decomp, u.device) % 2
+    imask = _interior_mask(n, u.shape, decomp, u.device)
+    bcore = _slice_unsharded(b, decomp)
+    for parity in (0, 1):
+        vals = _pad_unsharded(
+            (h2 * bcore + _neighbor_sum_dd(u, decomp)) / den, decomp)
+        u = torch.where(imask & (colors == parity), vals, u)
+    return u
+
+
+def s_smooth(u, b, n, h, *, kind, omega, sweeps, decomp: Decomp, sigma=0.0,
+             use_kernels: bool = False):
+    if kind == "chebyshev":
+        # Residual applies and elementwise updates only, so sharded ==
+        # unsharded exactly.
+        diag = laplacian.diag_value(decomp.ndim, h, sigma)
+        return smoothers.chebyshev_generic(
+            u, b, sweeps, diag,
+            lambda uu, bb: s_residual(uu, bb, n, h, decomp, sigma,
+                                      use_kernels=use_kernels))
+    if use_kernels and _local_kernel_ok(u, n, kind, decomp):
+        return _s_smooth_kernel(u, b, n, h, kind=kind, omega=omega,
+                                sweeps=sweeps, decomp=decomp, sigma=sigma)
+    for _ in range(sweeps):
+        if kind == "jacobi":
+            u = s_jacobi(u, b, n, h, omega, decomp, sigma)
+        elif kind == "rbgs":
+            u = s_rbgs(u, b, n, h, decomp, sigma)
+        else:
+            raise ValueError(f"unknown smoother {kind!r}")
+    return u
+
+
+def s_restrict(r, n, decomp: Decomp):
+    """Full weighting to the coarse owned tile, one separable pass per axis.
+    Along a sharded axis coarse entry q reads fine entries 2q+1..2q+3, so
+    only the far halo (the upper neighbour's first entry) is exchanged."""
+    nc = (n - 1) // 2
+    for a in transfer._axis_order(r.ndim):
+        info = decomp.info(a)
+        if info is None:
+            r = transfer._restrict_axis(r, a)
+            continue
+        v = r.movedim(a, 0)
+        m = v.shape[0]
+        mc = m // 2
+        _, far = _swap(None, v[:1], decomp.mesh, info[0])
+        third = _pad_axes(v[2::2], [(0, 1)] + [(0, 0)] * (v.ndim - 1))
+        w = 0.25 * (v[0:m - 1:2] + 2.0 * v[1:m:2] + third)
+        w[mc - 1:mc] += 0.25 * far
+        r = w.movedim(0, a)
+    mask = _interior_mask(nc, r.shape, decomp, r.device)
+    return torch.where(mask, r, torch.zeros_like(r)).contiguous()
+
+
+def s_prolong(e, nc, decomp: Decomp):
+    """Linear interpolation to the fine owned tile, one separable pass per
+    axis. Along a sharded axis fine entry 0 (global odd) averages coarse
+    entries on both sides of the boundary, so only the near halo is
+    exchanged."""
+    n = 2 * nc + 1
+    for a in transfer._axis_order(e.ndim):
+        info = decomp.info(a)
+        if info is None:
+            e = transfer._prolong_axis(e, a)
+            continue
+        v = e.movedim(a, 0)
+        mc = v.shape[0]
+        near, _ = _swap(v[-1:], None, decomp.mesh, info[0])
+        prev = _pad_axes(v[:mc - 1], [(1, 0)] + [(0, 0)] * (v.ndim - 1))
+        odd_f = 0.5 * (prev + v)                   # fine i = 0, 2, ...
+        odd_f[0:1] += 0.5 * near
+        out = torch.stack([odd_f, v], dim=1).reshape((2 * mc,) + v.shape[1:])
+        e = out.movedim(0, a)
+    mask = _interior_mask(n, e.shape, decomp, e.device)
+    return torch.where(mask, e, torch.zeros_like(e)).contiguous()
+
+
+def _psum_sq(x, decomp: Decomp) -> torch.Tensor:
+    """Sum of squares over every rank's tile (a 0-d tensor)."""
+    s = torch.sum(x * x)
+    dist.all_reduce(s, group=decomp.mesh.group)
+    return s
+
+
+# ---------------------------------------------------------------------------
+# The local2d kernel tier on extended tiles
+# ---------------------------------------------------------------------------
+
+def _local_kernel_ok(u, n, kind, decomp: Decomp) -> bool:
+    """The local2d sweeps and residual serve this owned tile: 2D, RB-GS or
+    Jacobi, n >= kernels.KERNEL_MIN_N, and every sharded axis deep enough
+    (and even) to hold the HALO_ROWS-deep exchanged halo."""
+    from .. import kernels
+    from ..kernels.local2d import HALO_ROWS
+
+    if not (u.ndim == 2 and kind in ("rbgs", "jacobi")
+            and n >= kernels.KERNEL_MIN_N):
+        return False
+    for a, _, _ in decomp.axes:
+        if u.shape[a] < HALO_ROWS or u.shape[a] % 2 != 0:
+            return False
+    return True
+
+
+def _ext_tile(u, decomp: Decomp, hh: int):
+    """Extend an owned tile by hh ghost entries on every sharded axis, rows
+    first, then columns: the column slabs then carry the row ghosts, so the
+    corner ghosts arrive without diagonal exchanges."""
+    for a, ma, _ in decomp.axes:
+        v = u.movedim(a, 0)
+        near, far = _swap(v[-hh:], v[:hh], decomp.mesh, ma)
+        u = torch.cat([near, v, far], dim=0).movedim(0, a)
+    return u.contiguous()
+
+
+def _refresh_ext(ue, decomp: Decomp, hh: int, ms):
+    """Exchange the ghost slabs of an extended tile again, in place (after
+    a kernel the owned region is exact and the ghosts are stale), rows
+    first, then columns; ``ms``: owned extent per sharded axis. Returns
+    ``ue``."""
+    if ue.ndim == 3:
+        raise NotImplementedError(PACKED_TODO)
+    for (a, ma, _), m in zip(decomp.axes, ms):
+        v = ue.movedim(a, 0)
+        near, far = _swap(v[m:hh + m], v[hh:2 * hh], decomp.mesh, ma)
+        v[0:hh] = near
+        v[hh + m:2 * hh + m] = far
+    return ue
+
+
+def _pack_level_ok(cfg: SolverConfig, decomp: Decomp, level: int) -> bool:
+    """The level would be colour-packed in JAX (the finest, with n >=
+    kernels.PACK_MIN_N, on the whole-leg route): its plocal2d tier is not
+    ported, and the solve raises there."""
+    from .. import kernels
+
+    return (level == 0 and 2 ** cfg.k - 1 >= kernels.PACK_MIN_N
+            and _leg_level_ok(cfg, decomp, level))
+
+
+def _ext_coarse_tile(ec, decomp: Decomp, hh: int):
+    """HALO_ROWS-extend an owned coarse tile on every sharded axis into the
+    extended convention of ``local2d.up_leg``. A tile shallower than the
+    halo (mc < hh) would need entries of ranks two hops away: those ghosts
+    are zero instead (at ghost depth > mc on both sides), which the up
+    leg's staleness budget allows (``local2d.max_up_sweeps``)."""
+    for a, ma, _ in decomp.axes:
+        v = ec.movedim(a, 0)
+        hc = min(hh, v.shape[0])
+        near, far = _swap(v[-hc:], v[:hc], decomp.mesh, ma)
+        zpad = torch.zeros((hh - hc,) + v.shape[1:], dtype=v.dtype,
+                           device=v.device)
+        ec = torch.cat([zpad, near, v, far, zpad], dim=0).movedim(0, a)
+    return ec.contiguous()
+
+
+def _slice_coarse_ext(full, decomp: Decomp, hh: int):
+    """Replicated full padded coarse grid -> this rank's extended coarse
+    tile, a local slice (zeros past the grid's ends, the Dirichlet ghosts):
+    the agglomeration-crossing twin of ``_ext_coarse_tile``."""
+    for a, ma, nd in decomp.axes:
+        mc = (full.shape[a] - 1) // nd
+        d = decomp.mesh.coord(ma)
+        padded = _pad_axes(full, [(hh, hh) if i == a else (0, 0)
+                                  for i in range(full.ndim)])
+        full = padded.narrow(a, d * mc + 1, mc + 2 * hh)
+    return full.contiguous()
+
+
+def _local_offsets(u, decomp: Decomp, hh: int):
+    """(row_off, col_off, owned slices) of the extended tile of owned tile
+    u: along a sharded axis owned entry 0 is global d*m + 1 and the ghosts
+    shift it by hh; along an unsharded one the local index is global."""
+    offs, sls = [], []
+    for a in range(2):
+        info = decomp.info(a)
+        m = u.shape[a]
+        if info is not None:
+            offs.append(decomp.mesh.coord(info[0]) * m + 1 - hh)
+            sls.append(slice(hh, hh + m))
+        else:
+            offs.append(0)
+            sls.append(slice(0, m))
+    return offs[0], offs[1], tuple(sls)
+
+
+def _s_smooth_kernel(u, b, n, h, *, kind, omega, sweeps, decomp: Decomp,
+                     sigma=0.0):
+    """Smoothing by the local2d sweep kernel: one exchange of HALO_ROWS
+    ghost entries a launch, up to max_fused_sweeps(kind) sweeps a launch
+    (the ghosts recompute, so the owned entries equal the global sweep)."""
+    from ..kernels import local2d
+
+    hh = local2d.HALO_ROWS
+    row_off, col_off, owned = _local_offsets(u, decomp, hh)
+    while sweeps > 0:
+        s = min(sweeps, local2d.max_fused_sweeps(kind))
+        ue = _ext_tile(u, decomp, hh)
+        be = _ext_tile(b, decomp, hh)
+        if kind == "rbgs":
+            out = local2d.rbgs_sweep(ue, be, n, h, row_off, col_off,
+                                     sigma=sigma, sweeps=s)
+        else:
+            out = local2d.jacobi_sweep(ue, be, n, h, omega, row_off,
+                                       col_off, sigma=sigma, sweeps=s)
+        u = out[owned]
+        sweeps -= s
+    return u
+
+
+def _s_residual_kernel(u, b, n, h, decomp: Decomp, sigma=0.0):
+    """The local2d residual (a 1-deep halo would do; the HALO_ROWS-deep
+    exchange keeps one tile layout)."""
+    from ..kernels import local2d
+
+    hh = local2d.HALO_ROWS
+    row_off, col_off, owned = _local_offsets(u, decomp, hh)
+    out = local2d.residual(_ext_tile(u, decomp, hh), _ext_tile(b, decomp, hh),
+                           n, h, row_off, col_off, sigma=sigma)
+    return out[owned]
+
+
+def _s_smooth_residual_kernel(u, b, n, h, *, kind, omega, sweeps,
+                              decomp: Decomp, sigma=0.0):
+    """Down-leg pair (smooth^sweeps, residual) from one exchange: after s
+    sweeps the ghosts are exact to depth HALO_ROWS - 2s (RB-GS) or - s
+    (Jacobi), enough for the residual while that stays >= 1. Returns
+    (u_smoothed, r), owned tiles."""
+    from ..kernels import local2d
+
+    hh = local2d.HALO_ROWS
+    row_off, col_off, owned = _local_offsets(u, decomp, hh)
+    ue = _ext_tile(u, decomp, hh)
+    be = _ext_tile(b, decomp, hh)
+    if kind == "rbgs":
+        us = local2d.rbgs_sweep(ue, be, n, h, row_off, col_off, sigma=sigma,
+                                sweeps=sweeps)
+    else:
+        us = local2d.jacobi_sweep(ue, be, n, h, omega, row_off, col_off,
+                                  sigma=sigma, sweeps=sweeps)
+    r = local2d.residual(us, be, n, h, row_off, col_off, sigma=sigma)
+    return us[owned], r[owned]
+
+
+# ---------------------------------------------------------------------------
+# The sharded cycle: sharded fine levels, agglomerated coarse levels
+# ---------------------------------------------------------------------------
+
+def _level_rows(k: int, level: int) -> int:
+    """Sharded entry count (interior + far ghost) at a level: 2^(k-level)."""
+    return 2 ** (k - level)
+
+
+def _is_sharded(cfg: SolverConfig, decomp: Decomp, level: int) -> bool:
+    # The coarsest level is always replicated (its direct solve runs on
+    # every rank).
+    if level >= len(cfg.level_sizes()) - 1:
+        return False
+    rows = _level_rows(cfg.k, level)
+    for _, _, nd in decomp.axes:
+        if rows % nd != 0 or rows // nd < max(cfg.agglom_rows, 2):
+            return False
+    return True
+
+
+def _gather_full(u_local, decomp: Decomp):
+    """Owned tiles -> the full padded grid on every rank (agglomeration):
+    an all_gather along each mesh axis, rows then columns, then the near
+    ghosts put back."""
+    for a, ma, nd in decomp.axes:
+        parts = [torch.empty_like(u_local) for _ in range(nd)]
+        dist.all_gather(parts, u_local.contiguous(),
+                        group=decomp.mesh.axis_group(ma))
+        u_local = torch.cat(parts, dim=a)
+    return _pad_axes(u_local, [(1, 0) if decomp.info(a) is not None
+                               else (0, 0) for a in range(u_local.ndim)])
+
+
+def _scatter_local(full, decomp: Decomp):
+    """Full padded grid -> this rank's owned tile (a local slice)."""
+    for a, ma, nd in decomp.axes:
+        m = (full.shape[a] - 1) // nd
+        full = full.narrow(a, decomp.mesh.coord(ma) * m + 1, m)
+    return full.contiguous()
+
+
+def _leg_level_ok(cfg: SolverConfig, decomp: Decomp, level: int) -> bool:
+    """The whole-leg local2d kernels serve this level: 2D row or block
+    decomposition, RB-GS or Jacobi within the legs' sweep caps, the level
+    sharded, n >= kernels.KERNEL_MIN_N, tiles even and at least HALO_ROWS
+    deep along every sharded axis."""
+    from .. import kernels
+    from ..kernels import local2d
+
+    if not (cfg.use_kernels and cfg.ndim == 2
+            and 1 <= len(decomp.axes) <= 2
+            and all(decomp.axes[i][0] == i
+                    for i in range(len(decomp.axes)))
+            and cfg.smoother in ("rbgs", "jacobi")
+            and cfg.nu1 <= local2d.max_down_sweeps(cfg.smoother)
+            and cfg.nu2 <= local2d.max_up_sweeps(cfg.smoother)
+            and level < cfg.k - 1
+            and _is_sharded(cfg, decomp, level)):
+        return False
+    if 2 ** (cfg.k - level) - 1 < kernels.KERNEL_MIN_N:
+        return False
+    for _, _, nd in decomp.axes:
+        ma = _level_rows(cfg.k, level) // nd
+        if ma % 2 != 0 or ma < local2d.HALO_ROWS:
+            return False
+    return True
+
+
+def _leg_cycle_ext(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
+                   xe, be, level: int, gamma: int, sigma,
+                   fresh: bool = False):
+    """One cycle level on the whole-leg route, in extended tiles: the down
+    leg (smooth^nu1, residual, restrict) and the up leg (prolong, correct,
+    smooth^nu2) are one local2d launch each; the down leg emits the coarse
+    right-hand side in the extended convention, so a coarse leg level is
+    one ghost refresh away, and its up leg's output is this level's
+    correction operand. xe's ghosts may be stale unless ``fresh``; they are
+    refreshed in place. Returns the post-smoothed extended tile (ghosts
+    stale)."""
+    from ..kernels import local2d
+
+    hh = local2d.HALO_ROWS
+    spec = hier.levels[level]
+    n, h = spec.n, spec.h
+    omega = cfg.effective_omega()
+    rows = _level_rows(cfg.k, level)
+    ax0 = decomp.axes[0]
+    m = rows // ax0[2]
+    mc = m // 2
+    row_off = decomp.mesh.coord(ax0[1]) * m + 1 - hh
+    if len(decomp.axes) == 2:
+        ax1 = decomp.axes[1]
+        mcol = rows // ax1[2]
+        col_off = decomp.mesh.coord(ax1[1]) * mcol + 1 - hh
+        ms, mcs = (m, mcol), (mc, mcol // 2)
+    else:
+        mcol, col_off = 0, 0
+        ms, mcs = (m,), (mc,)
+    if not fresh:
+        xe = _refresh_ext(xe, decomp, hh, ms)
+    us_ext, rc_ext = local2d.down_leg(xe, be, n, h, m, row_off, col_off,
+                                      kind=cfg.smoother, omega=omega,
+                                      sweeps=cfg.nu1, sigma=sigma, mcol=mcol)
+    ncoarse = hier.levels[level + 1].n
+
+    def rc_owned():
+        csl = (slice(hh, hh + mcol // 2) if mcol
+               else slice(0, ncoarse + 2))
+        return rc_ext[hh:hh + mc, csl].contiguous()
+
+    if _leg_level_ok(cfg, decomp, level + 1):
+        be_c = _refresh_ext(rc_ext, decomp, hh, mcs)
+        ec = torch.zeros_like(be_c)
+        for g in range(gamma):
+            ec = _leg_cycle_ext(hier, cfg, decomp, ec, be_c, level + 1,
+                                gamma, sigma, fresh=(g == 0))
+        ee = _refresh_ext(ec, decomp, hh, mcs)
+    elif _is_sharded(cfg, decomp, level + 1):
+        # Sharded but below the kernel thresholds: owned-tile recursion.
+        rc = rc_owned()
+        ec = torch.zeros_like(rc)
+        for _ in range(gamma):
+            ec = _sharded_v_cycle(hier, cfg, decomp, ec, rc, level + 1,
+                                  gamma, sigma)
+        ee = _ext_coarse_tile(ec, decomp, hh)
+    else:
+        # Agglomerate: gather the coarse right-hand side, cycle on every
+        # rank, and read this rank's extended slice of the result.
+        cfg_repl = dataclasses.replace(cfg, use_kernels=False)
+        rc_full = _gather_full(rc_owned(), decomp)
+        ec_full = torch.zeros_like(rc_full)
+        for _ in range(gamma):
+            ec_full = cycles.v_cycle(hier, ec_full, rc_full, cfg_repl,
+                                     level=level + 1, sigma=sigma,
+                                     gamma=gamma)
+        ee = _slice_coarse_ext(ec_full, decomp, hh)
+    xe2 = _refresh_ext(us_ext, decomp, hh, ms)
+    return local2d.up_leg(xe2, ee, be, n, ncoarse, h, m, row_off, col_off,
+                          kind=cfg.smoother, omega=omega, sweeps=cfg.nu2,
+                          sigma=sigma, mcol=mcol)
+
+
+def _sharded_v_cycle_leg(hier: Hierarchy, cfg: SolverConfig,
+                         decomp: Decomp, x, b, level: int, gamma: int,
+                         sigma):
+    """Owned tiles in and out of the extended whole-leg cycle (an entry for
+    one cycle; the solve loop carries extended tiles across cycles)."""
+    from ..kernels import local2d
+
+    hh = local2d.HALO_ROWS
+    _, _, owned = _local_offsets(x, decomp, hh)
+    out = _leg_cycle_ext(hier, cfg, decomp, _ext_tile(x, decomp, hh),
+                         _ext_tile(b, decomp, hh), level, gamma, sigma,
+                         fresh=True)
+    return out[owned].contiguous()
+
+
+def _sharded_v_cycle(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
+                     x, b, level: int, gamma: int = 1, sigma=0.0):
+    """Recursive cycle; tiles are owned tiles while the level is sharded
+    and full grids on every rank below the agglomeration cutoff. ``sigma``
+    shifts the operator to A - sigma I."""
+    from ..kernels.local2d import HALO_ROWS
+
+    spec = hier.levels[level]
+    n, h = spec.n, spec.h
+    omega = cfg.effective_omega()
+    # The replicated region holds full logical grids and is small by
+    # construction: it runs the plain backend.
+    cfg_repl = (dataclasses.replace(cfg, use_kernels=False)
+                if cfg.use_kernels else cfg)
+    if not _is_sharded(cfg, decomp, level):
+        return cycles.v_cycle(hier, x, b, cfg_repl, level=level,
+                              sigma=sigma, gamma=gamma)
+    if _leg_level_ok(cfg, decomp, level):
+        return _sharded_v_cycle_leg(hier, cfg, decomp, x, b, level, gamma,
+                                    sigma)
+    # Smooth and residual share one exchange on the kernel tier while the
+    # residual's ghost reads stay exact (2 nu1 < HALO_ROWS for RB-GS,
+    # nu1 < HALO_ROWS for Jacobi).
+    stale = 2 * cfg.nu1 if cfg.smoother == "rbgs" else cfg.nu1
+    if (cfg.use_kernels and _local_kernel_ok(x, n, cfg.smoother, decomp)
+            and stale < HALO_ROWS):
+        x, r = _s_smooth_residual_kernel(
+            x, b, n, h, kind=cfg.smoother, omega=omega, sweeps=cfg.nu1,
+            decomp=decomp, sigma=sigma)
+    else:
+        x = s_smooth(x, b, n, h, kind=cfg.smoother, omega=omega,
+                     sweeps=cfg.nu1, decomp=decomp, sigma=sigma,
+                     use_kernels=cfg.use_kernels)
+        r = s_residual(x, b, n, h, decomp, sigma,
+                       use_kernels=cfg.use_kernels)
+    rc = s_restrict(r, n, decomp)
+    x = x + _coarse_correction(hier, cfg, decomp, rc, level, gamma, sigma,
+                               cfg_repl)
+    return s_smooth(x, b, n, h, kind=cfg.smoother, omega=omega,
+                    sweeps=cfg.nu2, decomp=decomp, sigma=sigma,
+                    use_kernels=cfg.use_kernels)
+
+
+def _coarse_correction(hier, cfg, decomp, rc, level, gamma, sigma,
+                       cfg_repl):
+    """gamma coarse cycles on the restricted right-hand side, prolonged
+    back to this level's owned tile."""
+    nc = hier.levels[level + 1].n
+    if not _is_sharded(cfg, decomp, level + 1):
+        # Agglomerate: gather, cycle on every rank, prolong, keep my tile.
+        rc_full = _gather_full(rc, decomp)
+        ec_full = torch.zeros_like(rc_full)
+        for _ in range(gamma):
+            ec_full = cycles.v_cycle(hier, ec_full, rc_full, cfg_repl,
+                                     level=level + 1, sigma=sigma,
+                                     gamma=gamma)
+        return _scatter_local(transfer.prolong(ec_full), decomp)
+    ec = torch.zeros_like(rc)
+    for _ in range(gamma):
+        ec = _sharded_v_cycle(hier, cfg, decomp, ec, rc, level + 1, gamma,
+                              sigma)
+    return s_prolong(ec, nc, decomp)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def shard_rhs(b_padded, mesh: Mesh, decomp: Optional[Decomp] = None):
+    """The full padded grid, which every rank holds, -> this rank's owned
+    tile on the mesh's device. Along each sharded axis the near ghost is
+    dropped and entries 1..n+1 are split over the ranks; unsharded axes
+    keep the full padded extent."""
+    b = torch.as_tensor(b_padded)
+    if decomp is None:
+        decomp = decomp_from_mesh(mesh, b.ndim)
+    for a, ma, nd in decomp.axes:
+        m = (b.shape[a] - 1) // nd
+        b = b.narrow(a, 1 + mesh.coord(ma) * m, m)
+    return b.contiguous().to(mesh.device)
+
+
+def unshard(x_tiles, decomp: Decomp):
+    """Owned tiles -> the full padded grid on every rank (near ghosts put
+    back)."""
+    return _gather_full(x_tiles, decomp)
+
+
+class ShardedSolver:
+    """Distributed V/W-cycle solver: domain-decomposed cycles to tolerance.
+
+    The decomposition follows the mesh: a 1D mesh shards axis 0 (rows), a
+    2D mesh axes 0 and 1 (blocks). Every rank of the mesh constructs the
+    solver and calls ``solve`` with the same full right-hand side.
+
+    >>> mesh = make_mesh()              # rows, after init_process_group
+    >>> s = ShardedSolver(SolverConfig(ndim=2, k=11, smoother="rbgs",
+    ...                                use_kernels=True), mesh)
+    >>> result = s.solve(b_padded)                # the full padded grid
+    """
+
+    def __init__(self, config: SolverConfig, mesh: Mesh,
+                 hierarchy: Optional[Hierarchy] = None):
+        if config.ndim == 3:
+            raise NotImplementedError(SLAB_TODO)
+        if config.precond_dtype not in (None, config.dtype):
+            raise NotImplementedError(
+                MIXED_TODO.format(pd=config.precond_dtype))
+        self.config = config
+        self.mesh = mesh
+        self.decomp = decomp_from_mesh(mesh, config.ndim)
+        for _, ma, nd in self.decomp.axes:
+            if (2 ** config.k) % nd != 0:
+                raise ValueError(f"2^k must be divisible by the mesh size "
+                                 f"along {ma!r} ({nd})")
+        if not _is_sharded(config, self.decomp, 0):
+            raise ValueError(
+                f"fine level would be agglomerated: local tile of "
+                f"{_level_rows(config.k, 0)} rows over the mesh is below "
+                f"agglom_rows={config.agglom_rows}; raise k, shrink the "
+                f"mesh, or lower agglom_rows")
+        self.hierarchy = (hierarchy if hierarchy is not None
+                          else build_hierarchy(config, device=mesh.device))
+
+    def _solve_mg(self, b, x):
+        """The solve loop on owned tiles: one host sync a cycle, as
+        ``cycles.solve``; the same norm, guards and history as JAX's
+        ``_build_solve``."""
+        cfg, hier, decomp = self.config, self.hierarchy, self.decomp
+        gamma = 2 if cfg.cycle == "w" else 1
+        n, h = hier.fine.n, hier.fine.h
+        b_norm = torch.sqrt(_psum_sq(b, decomp))
+        b_norm = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
+        if _leg_level_ok(cfg, decomp, 0):
+            if _pack_level_ok(cfg, decomp, 0):
+                raise NotImplementedError(PACKED_TODO)
+            # Extended tiles carried across cycles: b's is built once, and
+            # the check's residual runs on the refreshed tile the next
+            # cycle takes.
+            from ..kernels import local2d
+
+            hh = local2d.HALO_ROWS
+            ms = tuple(x.shape[a] for a, _, _ in decomp.axes)
+            row_off, col_off, owned = _local_offsets(x, decomp, hh)
+            be = _ext_tile(b, decomp, hh)
+            x = _ext_tile(x, decomp, hh)
+
+            def res_rel(xe):
+                ro = local2d.residual(xe, be, n, h, row_off, col_off)[owned]
+                return torch.sqrt(_psum_sq(ro, decomp)) / b_norm
+
+            def one_cycle(xe):
+                xe = _leg_cycle_ext(hier, cfg, decomp, xe, be, 0, gamma,
+                                    0.0, fresh=True)
+                return _refresh_ext(xe, decomp, hh, ms)
+        else:
+            owned = None
+
+            def res_rel(xx):
+                r = s_residual(xx, b, n, h, decomp,
+                               use_kernels=cfg.use_kernels)
+                return torch.sqrt(_psum_sq(r, decomp)) / b_norm
+
+            def one_cycle(xx):
+                return _sharded_v_cycle(hier, cfg, decomp, xx, b, 0, gamma)
+
+        hist = [res_rel(x)]
+        rel = hist[0].item()                       # host sync
+        stall = div = 0
+        while (rel >= cfg.tol and len(hist) <= cfg.max_iters
+               and cycles.guards_ok(stall, div)):
+            x = one_cycle(x)
+            hist.append(res_rel(x))
+            new_rel = hist[-1].item()              # host sync, once a cycle
+            stall, div = cycles.step_guards(new_rel, rel, stall, div)
+            rel = new_rel
+        iters = len(hist) - 1
+        # Entries past `iters` repeat the final residual.
+        hist += [hist[-1]] * (cfg.max_iters - iters)
+        if owned is not None:
+            x = x[owned].contiguous()
+        return x, iters, torch.stack(hist), rel < cfg.tol
+
+    def solve(self, b_padded, x0=None, method: str = "mg"
+              ) -> cycles.SolveResult:
+        """Solve A x = b on the mesh. Every rank passes the full padded
+        right-hand side (a tensor or an array) and gets the full padded
+        solution back. ``x0`` (the full padded grid) warm-starts the
+        iteration."""
+        if method == "pcg":
+            raise NotImplementedError(PCG_TODO)
+        if method != "mg":
+            raise ValueError(f"unknown solve method {method!r}")
+        if self.config.cycle == "fmg":
+            raise NotImplementedError(FMG_TODO)
+        dtype = self.config.dtype
+        b_sh = shard_rhs(torch.as_tensor(b_padded).to(dtype), self.mesh,
+                         self.decomp)
+        if x0 is None:
+            x0_sh = torch.zeros_like(b_sh)
+        else:
+            # The ops rely on zero ghosts: strip whatever the caller gave.
+            x0p = pad_interior(interior(torch.as_tensor(x0).to(dtype)))
+            x0_sh = shard_rhs(x0p, self.mesh, self.decomp)
+        x, iters, hist, conv = self._solve_mg(b_sh, x0_sh)
+        return cycles.SolveResult(x=unshard(x, self.decomp), iters=iters,
+                                  res_history=hist, converged=conv)
+
+    def eigensolve(self, *args, **kwargs):
+        raise NotImplementedError(EIGEN_TODO)
+
+    def v_cycle_fn(self):
+        """One sharded cycle from the finest level, owned tiles in and out
+        (for timing and for tests)."""
+        cfg, hier, decomp = self.config, self.hierarchy, self.decomp
+        gamma = 2 if cfg.cycle == "w" else 1
+
+        def one_cycle(x, b):
+            return _sharded_v_cycle(hier, cfg, decomp, x, b, 0, gamma)
+
+        return one_cycle

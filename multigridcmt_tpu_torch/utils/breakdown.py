@@ -4,6 +4,7 @@
     python -m multigridcmt_tpu_torch.utils.breakdown --smoother chebyshev
     python -m multigridcmt_tpu_torch.utils.breakdown --nu1 4 --nu2 4
     python -m multigridcmt_tpu_torch.utils.breakdown --ndim 3 [--k 9]
+    python -m multigridcmt_tpu_torch.utils.breakdown --mesh rows|block
 
 For each route of the float32 V(nu1,nu2) cycle (default RB-GS V(2,2)) at
 2^k - 1 (k=12: 4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA
@@ -21,6 +22,13 @@ the routes are the kernel backend as shipped, the plain backend, and the
 kernel backend with KERNEL3_MIN_N = 7; then, per level, one RB-GS sweep
 and the residual on the stencil3d kernels and the plain restriction and
 prolongation.
+
+With ``--mesh``, the sharded cycle instead (parallel/sharded.py, a
+torch.distributed world of 1 over NCCL, a row mesh or a (1, 1) block mesh;
+``ShardedSolver.v_cycle_fn``, owned tiles in and out): the same figures
+plus the device time of the local2d kernels, as shipped and with
+KERNEL_MIN_N = 7 (the plain owned-tile levels 127 and 63 on the leg
+kernels too), beside the single-device kernel cycle.
 
 Informative only: nothing is checked. Needs a CUDA device.
 """
@@ -40,8 +48,9 @@ from multigridcmt_tpu_torch.ops import transfer
 from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
 
 
-def device_busy(fn, reps: int):
-    """(device ms a call, device ops a call) over ``reps`` calls."""
+def device_busy(fn, reps: int, match: str = ""):
+    """(device ms a call, device ops a call, device ms a call of the kernels
+    whose name contains ``match``) over ``reps`` calls."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -50,9 +59,11 @@ def device_busy(fn, reps: int):
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     ops = sum(1 for e in prof.events() if e.device_type == cuda)
-    busy = sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == cuda)
-    return busy / reps / 1e3, ops / reps
+    rows = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.device_time_total for e in rows)
+    matched = sum(e.device_time_total for e in rows
+                  if match and match in e.key)
+    return busy / reps / 1e3, ops / reps, matched / reps / 1e3
 
 
 def grids(n: int, seed: int, ndim: int = 2):
@@ -107,7 +118,7 @@ def route(label: str, k: int, ndim: int, use_kernels: bool, reps: int,
         solver.v_cycle(x0, prob.b)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / 20 * 1e3
-    busy, ops = device_busy(lambda: solver.v_cycle(x0, prob.b), reps)
+    busy, ops, _ = device_busy(lambda: solver.v_cycle(x0, prob.b), reps)
     t0 = time.perf_counter()
     res = solver.solve()
     torch.cuda.synchronize()
@@ -119,6 +130,58 @@ def route(label: str, k: int, ndim: int, use_kernels: bool, reps: int,
           f"{res.res_history[res.iters].item():.4e}", flush=True)
     del prob, solver, x0, res
     torch.cuda.empty_cache()
+
+
+def sharded_routes(k: int, reps: int, mesh_kind: str,
+                   schedule: dict) -> None:
+    """The sharded cycle on a mesh of 1, as shipped and with KERNEL_MIN_N
+    = 7, then the single-device kernel route."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    shipped = kernels.KERNEL_MIN_N
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+            world_size=1, rank=0)
+        try:
+            mesh = (sharded.make_mesh() if mesh_kind == "rows"
+                    else sharded.make_block_mesh((1, 1)))
+            for label, kmin in ((f"sharded {mesh_kind}", shipped),
+                                (f"sharded {mesh_kind}, KERNEL_MIN_N=7", 7)):
+                kernels.KERNEL_MIN_N = kmin
+                prob = mt.poisson2d(k=k, dtype=torch.float32,
+                                    use_kernels=True, device="cuda",
+                                    **schedule)
+                solver = sharded.ShardedSolver(prob.config, mesh)
+                cycle = solver.v_cycle_fn()
+                b = sharded.shard_rhs(prob.b, mesh, solver.decomp)
+                x = torch.zeros_like(b)
+                ms = cuda_time_ms(lambda: cycle(x, b))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    cycle(x, b)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) / 20 * 1e3
+                busy, ops, local = device_busy(lambda: cycle(x, b), reps,
+                                               match="local_")
+                print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} "
+                      f"ms (host clock, 20 back to back), device busy "
+                      f"{busy:.4f} ms/cycle (local2d kernels {local:.4f}), "
+                      f"idle share {1 - busy / ms:.4f}, device ops/cycle "
+                      f"{ops:.0f}", flush=True)
+                del prob, solver, b, x
+                torch.cuda.empty_cache()
+        finally:
+            kernels.KERNEL_MIN_N = shipped
+            dist.destroy_process_group()
+    route("single device, kernel", k, 2, True, reps, schedule)
 
 
 def leg_calls(u, b, e, n, h, kind, omega, nu1, nu2):
@@ -209,6 +272,8 @@ def main() -> None:
                     choices=("rbgs", "jacobi", "chebyshev"))
     ap.add_argument("--nu1", type=int, default=2)
     ap.add_argument("--nu2", type=int, default=2)
+    ap.add_argument("--mesh", choices=("rows", "block"), default=None,
+                    help="break down the sharded 2D cycle on a mesh of 1")
     args = ap.parse_args()
     k = args.k if args.k is not None else {2: 12, 3: 9}[args.ndim]
     schedule = dict(smoother=args.smoother, nu1=args.nu1, nu2=args.nu2)
@@ -216,6 +281,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
+    if args.mesh is not None:
+        sharded_routes(k, args.reps, args.mesh, schedule)
+        return
     routes(k, args.reps, args.ndim, schedule)
     if args.ndim == 2:
         levels(k, schedule)

@@ -480,3 +480,216 @@ def test_unported_solver_methods_raise(call, monkeypatch):
             solver.solve(method="pcg")
         else:
             getattr(solver, call)()
+
+
+# ---------------------------------------------------------------------------
+# The sharded slice: parallel/sharded.py and kernels/local2d.py
+# ---------------------------------------------------------------------------
+
+def test_import_guard_covers_parallel():
+    """test_port_imports_no_jax walks the whole package, parallel/ and the
+    local2d wrappers included."""
+    covered = set(PORT.rglob("*.py"))
+    for rel in ("parallel/__init__.py", "parallel/sharded.py",
+                "kernels/local2d.py"):
+        assert PORT / rel in covered
+
+
+def test_make_mesh_needs_a_process_group():
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    assert not torch.distributed.is_initialized()
+    for call in (lambda: sharded.make_mesh(device="cpu"),
+                 lambda: sharded.make_block_mesh((1, 1), device="cpu")):
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            call()
+
+
+def _fake_cuda_tiles():
+    """Fake CUDA tensors (no data, no card needed): a 4x2-rank block tile
+    of 63^2 and its coarse tile."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = FakeTensorMode()
+    with mode:
+        u = torch.zeros((32, 32), dtype=torch.float64, device="cuda")
+        e = torch.zeros((24, 24), dtype=torch.float64, device="cuda")
+    return mode, u, e
+
+
+def test_local2d_wrappers_raise_on_cuda_without_a_card():
+    """A CUDA tensor takes the kernel route, which raises with no card; it
+    never runs the plain version, and no launch is counted."""
+    import warnings
+
+    from multigridcmt_tpu_torch.kernels import local2d
+
+    mode, u, e = _fake_cuda_tiles()
+    kw = dict(kind="rbgs", omega=1.0, sweeps=2, mcol=16)
+    calls = [lambda: local2d.rbgs_sweep(u, u, 63, 1 / 64, -7, -7, sweeps=2),
+             lambda: local2d.jacobi_sweep(u, u, 63, 1 / 64, 0.8, -7, -7),
+             lambda: local2d.residual(u, u, 63, 1 / 64, -7, -7),
+             lambda: local2d.down_leg(u, u, 63, 1 / 64, 16, -7, -7, **kw),
+             lambda: local2d.up_leg(u, e, u, 63, 31, 1 / 64, 16, -7, -7,
+                                    **kw)]
+    with mode, warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # data_ptr of a fake tensor
+        for call in calls:
+            with pytest.raises(RuntimeError):
+                call()
+    assert (local2d.rbgs_launches, local2d.jacobi_launches,
+            local2d.residual_launches, local2d.down_launches,
+            local2d.up_launches) == (0,) * 5
+
+
+def _tile(rows=32, cols=32, dtype=torch.float64):
+    return torch.zeros((rows, cols), dtype=dtype)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda: _l2().rbgs_sweep(_tile(), _tile(), 63, 1 / 64, -7, sweeps=5),
+     ValueError),
+    (lambda: _l2().jacobi_sweep(_tile(), _tile(), 63, 1 / 64, 0.8, -7,
+                                sweeps=0), ValueError),
+    (lambda: _l2().residual(_tile(), _tile(dtype=torch.float32), 63,
+                            1 / 64, -7), ValueError),
+    (lambda: _l2().residual(_tile(dtype=torch.bfloat16),
+                            _tile(dtype=torch.bfloat16), 63, 1 / 64, -7),
+     NotImplementedError),
+    (lambda: _l2().down_leg(_tile(), _tile(), 63, 1 / 64, 16, -7, kind="rbgs",
+                            omega=1.0, sweeps=4), ValueError),
+    (lambda: _l2().down_leg(_tile(), _tile(), 63, 1 / 64, 16, -7,
+                            kind="chebyshev", omega=1.0, sweeps=1),
+     ValueError),
+    (lambda: _l2().down_leg(_tile(32, 65), _tile(32, 65), 63, 1 / 64, 18, -7,
+                            kind="rbgs", omega=1.0, sweeps=1), ValueError),
+    (lambda: _l2().up_leg(_tile(32, 65), _tile(24, 32), _tile(32, 65), 63,
+                          31, 1 / 64, 16, -7, kind="rbgs", omega=1.0,
+                          sweeps=1), ValueError),
+    (lambda: _l2().up_leg(_tile(32, 65), _tile(24, 33), _tile(32, 65), 63,
+                          31, 1 / 64, 16, -7, kind="jacobi", omega=0.8,
+                          sweeps=7), ValueError),
+    (lambda: _l2().up_leg(_tile(32, 65), _tile(24, 33), _tile(32, 65), 63,
+                          31, 1 / 64, 16, -7, kind="rbgs", omega=1.0,
+                          sweeps=1, out_dtype=torch.float32),
+     NotImplementedError),
+], ids=["sweep-cap", "zero-sweeps", "mixed-dtype", "bf16", "down-cap",
+        "down-kind", "tile-shape", "coarse-shape", "up-cap", "out-dtype"])
+def test_local2d_wrappers_reject_bad_inputs(bad, err):
+    from multigridcmt_tpu_torch.kernels import local2d
+
+    with pytest.raises(err):
+        bad()
+    assert (local2d.rbgs_launches, local2d.jacobi_launches,
+            local2d.residual_launches, local2d.down_launches,
+            local2d.up_launches) == (0,) * 5
+
+
+def _l2():
+    from multigridcmt_tpu_torch.kernels import local2d
+
+    return local2d
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo process group of this process alone, destroyed after the
+    test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_solver(**kw):
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    cfg = SolverConfig(ndim=kw.pop("ndim", 2), dtype=torch.float64,
+                       smoother="rbgs", use_kernels=True, agglom_rows=4, **kw)
+    return sharded.ShardedSolver(cfg, sharded.make_mesh(device="cpu"))
+
+
+@pytest.mark.parametrize("call,item", [
+    ("pcg", "sharded pcg"),
+    ("eigensolve", "sharded eigensolvers"),
+    ("fmg", "sharded fmg"),
+    ("ndim3", "sharded 3D slabs and pencils"),
+    ("packed", "sharded packed tier, plocal2d"),
+    ("precond_dtype", "mixed precision"),
+])
+def test_unported_sharded_routes_raise(call, item, world_of_one,
+                                       monkeypatch):
+    """Each names its ROADMAP.md item; none reroutes. A packed fine level
+    (n >= PACK_MIN_N on the leg route) raises where JAX would run
+    plocal2d."""
+    monkeypatch.setattr(kernels, "KERNEL_MIN_N", 30)
+    monkeypatch.setattr(kernels, "PACK_MIN_N", 60)
+    b = mt.poisson2d(k=6, dtype=torch.float64, device="cpu").b
+    with pytest.raises(NotImplementedError, match="ROADMAP") as info:
+        if call == "pcg":
+            _sharded_solver(k=6).solve(b, method="pcg")
+        elif call == "eigensolve":
+            _sharded_solver(k=6).eigensolve(k=1)
+        elif call == "fmg":
+            _sharded_solver(k=6, cycle="fmg").solve(b)
+        elif call == "ndim3":
+            _sharded_solver(k=5, ndim=3)
+        elif call == "packed":
+            _sharded_solver(k=6).solve(b)
+        else:
+            _sharded_solver(k=6, precond_dtype=torch.float32)
+    assert item in str(info.value)
+
+
+def test_packed_threshold_is_read_when_called(world_of_one, monkeypatch):
+    """Above the fine n, PACK_MIN_N lets the unpacked leg route run: a
+    mesh-of-1 sharded solve equals the port's single-device solve."""
+    monkeypatch.setattr(kernels, "KERNEL_MIN_N", 30)
+    monkeypatch.setattr(kernels, "PACK_MIN_N", 64)
+    prob = mt.poisson2d(k=6, dtype=torch.float64, smoother="rbgs",
+                        use_kernels=True, agglom_rows=4, tol=1e-9,
+                        device="cpu")
+    got = _sharded_solver(k=6, tol=1e-9).solve(prob.b)
+    want = mt.MultigridSolver(prob).solve()
+    assert got.converged and got.iters == want.iters
+    np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=1e-8,
+                               atol=1e-12)
+
+
+def test_sharded_warm_start(world_of_one, monkeypatch):
+    """x0 warm-starts the sharded solve (its ghosts are stripped): from a
+    converged x it takes no cycle; from a perturbed one it converges to the
+    same solution."""
+    monkeypatch.setattr(kernels, "KERNEL_MIN_N", 30)
+    monkeypatch.setattr(kernels, "PACK_MIN_N", 64)
+    solver = _sharded_solver(k=6, tol=1e-9)
+    b = mt.poisson2d(k=6, dtype=torch.float64, device="cpu").b
+    first = solver.solve(b)
+    again = solver.solve(b, x0=first.x)
+    assert again.iters == 0 and again.converged
+    x0 = first.x + 1.0          # nonzero ghosts too: stripped
+    warm = solver.solve(b, x0=x0)
+    assert warm.converged
+    np.testing.assert_allclose(warm.x.numpy(), first.x.numpy(), rtol=0,
+                               atol=1e-9 * first.x.abs().max().item())
+
+
+def test_chip_smoke_lists_the_local2d_kernels():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    local = {name: row for name, row in smoke.KERNELS.items()
+             if row[0] == "local2d"}
+    assert sorted(r[3] for r in local.values()) == sorted(
+        f"multigridcmt_tpu/kernels/local2d.py:{line}"
+        for line in (263, 278, 289, 616, 843))
+    assert all(r[2] == "multigridcmt_tpu_torch/kernels/csrc/local2d.cu"
+               for r in local.values())
+    assert len(smoke.KERNELS) == 22
