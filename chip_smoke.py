@@ -20,15 +20,17 @@ Phases:
        * MG-preconditioned CG at 4095^2 and 511^3 float32, and float64
          PCG against the plain path at 2D k=10 and 3D k=7;
        * the sharded 2D solve (parallel/sharded.py, ShardedSolver.solve)
-         as a torch.distributed world of 1 over NCCL, on JAX's unpacked
-         route: S1 RB-GS V(2,2) at 4095^2 on a row mesh (kernels.PACK_MIN_N
-         raised above 4095 for it; at the default the solve raises, as the
-         packed tier is not ported), S2 the same at 2047^2 on a (1, 1) block
-         mesh, S3 RB-GS V(4,4) at 2047^2 and S4 Jacobi V(8,8) and Chebyshev
-         V(2,2) at 1023^2, each with exact local2d launch counts and the
-         error against the analytic solution (S1 beside the single-device
-         solve on the same unpacked route), and a float64 k=10 sharded
-         solve against the single-device solve;
+         as a torch.distributed world of 1 over NCCL: S1 RB-GS V(2,2) at
+         4095^2 on a row mesh at the default kernels.PACK_MIN_N (the 4095
+         level colour-packed on the plocal2d kernels, as in JAX), by cycles
+         and by MG-PCG (S1pcg), beside the single-device solve; S1 again
+         with PACK_MIN_N raised above 4095 (S1unpacked, the local2d legs on
+         4095); S2 RB-GS V(2,2) at 2047^2 on a (1, 1) block mesh, S3 RB-GS
+         V(4,4) at 2047^2 and S4 Jacobi V(8,8) and Chebyshev V(2,2) at
+         1023^2, each with exact local2d and plocal2d launch counts and the
+         error against the analytic solution; float64 k=10 sharded solves
+         against the single-device ones, unpacked and packed (PACK_MIN_N
+         lowered to 1000 for that check), by cycles and by PCG;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -41,7 +43,9 @@ Phases:
      each of S1-S4's own fine tiles with the sweeps that path runs, and on
      tiles with nonzero global offsets (a rank of an 8-way row split of
      4095^2, a rank of a 2x2 block split of 2047^2), since a mesh of 1 has
-     none;
+     none; the plocal2d kernels on the packed form of S1's fine tile and of
+     those offset tiles (the block one has the other packing phase), and
+     in float64 on two 255^2 ranks;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -55,8 +59,11 @@ Phases:
      the library calls of the same operator (torch.mv and torch.sparse.mm
      on a CSR for the SpMV, torch.sparse.mm on a (128, 128) BSR for the
      BELL), one sharded V(2,2) cycle at S1 and S2 beside the single-device
-     cycle at the same k, each local2d kernel at S1's fine tile against its
-     plain version, and the peak device memory of the solves.
+     cycle at the same k, one S1 cycle in a chain of 20 (v_cycles_fn),
+     packed and unpacked in turns, each local2d kernel at S1's fine tile
+     against its plain version, each plocal2d kernel at S1's packed tile
+     against its plain version and beside its local2d twin, and the peak
+     device memory of the solves.
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -73,12 +80,16 @@ sweep and residual kernels. Off these paths: the stencil3d Jacobi sweep (a
 direct calls). The sparse path calls its two kernels (kernels.spmv,
 kernels.bell) directly, through ops/sparse.py's matrices.
 
-The sharded paths (a mesh of 1): levels 4095..255 (2047..255 at S2) run the
-local2d down and up legs on extended tiles, 127 and 63 the plain owned-tile
-route, 31 and below are gathered and run the plain single-device cycle; the
-solve's check is the local2d residual. V(4,4) RB-GS and V(8,8) Jacobi exceed
-the legs' sweep caps and run the local2d sweeps and residual on the owned
-tiles (the composed route); Chebyshev runs the local2d residual.
+The sharded paths (a mesh of 1): at S1 the 4095 level runs the plocal2d
+down and up legs on the packed extended tile and the fused plocal2d norm
+as the solve's check (S1pcg: the plocal2d residual once and the apply an
+iteration), levels 2047..255 (all of them at S1unpacked and S2) the local2d
+down and up legs on extended tiles, 127 and 63 the plain owned-tile route,
+31 and below are gathered and run the plain single-device cycle; an
+unpacked fine level's check is the local2d residual. V(4,4) RB-GS and
+V(8,8) Jacobi exceed the legs' sweep caps and run the local2d sweeps and
+residual on the owned tiles (the composed route); Chebyshev runs the
+local2d residual.
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -160,6 +171,13 @@ MAXERR = {2: 1e-2, 3: 2e-3}
 # single-device route stalls lower (0.10, 3.3e-3): its down leg restricts
 # the red residual only, dropping the black residual's rounding noise.
 SHARDED_MAXERR = 5e-3
+# The packed sharded route's bound, set from three readings at 4095^2
+# float32 on an H100 (all logged in phase 3): S1 at the default PACK_MIN_N
+# 3.33e-3 (stalling at a relative residual of 0.1036, as the single-device
+# packed route does: its down leg restricts the red residual only), its
+# single-device twin 3.29e-3, S1pcg 2.13e-3. 4e-3 is the largest of them
+# and a fifth.
+PACKED_MAXERR = 4e-3
 F64_TOL = 1e-8
 # The float64 runs held against the plain path: (solve k, PCG k) per ndim.
 F64_K = {2: (10, 10), 3: (8, 7)}
@@ -208,11 +226,20 @@ SHARDED_PATHS = {
 }
 SHARDED_F64_K = 10
 SHARDED_F64_FLOOR = 1e-12
+# The float64 packed sharded check: PACK_MIN_N lowered so that k=10's 1023
+# level packs, for that check only.
+SHARDED_F64_PACK_MIN_N = 1000
 # local2d tiles with nonzero offsets for phase 2: (n, rank rows, row rank,
-# rank columns, column rank); 0 columns: a row decomposition.
+# rank columns, column rank); 0 columns: a row decomposition. The plocal2d
+# kernels run on them too, packed.
 LOCAL2D_TILES = ((2 ** MAIN_K - 1, 8, 3, 0, 0), (2 ** (MAIN_K - 1) - 1, 2, 1,
                                                  2, 1))
+# plocal2d in float64 at a small size: a rank of a row split and of a block
+# split of 255^2 (several of the kernels' 32-row blocks).
+PLOCAL2D_F64_TILES = ((255, 2, 1, 0, 0), (255, 2, 1, 2, 1))
 HALO = 8                    # local2d.HALO_ROWS
+# Chained cycles a timing of v_cycles_fn runs (its time over this count).
+CHAIN_CYCLES = 20
 
 
 class SmokeFailure(Exception):
@@ -826,13 +853,123 @@ def compare_local2d(main_err: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def unpacked_tile(s: torch.Tensor, cols: int, cpar: int) -> torch.Tensor:
+    """A plocal2d output as its unpacked extended tile; raises if its pad
+    lanes are not zero."""
+    from multigridcmt_tpu_torch.kernels import plocal2d
+
+    u = plocal2d.unpack_ext(s, cols, cpar)
+    require(torch.equal(plocal2d.pack_ext(u, cpar), s),
+            "packed tile's pad lanes not zero")
+    return u
+
+
+def check_plocal2d(label: str, ue, be, e, t, dtype, sigma, runs) -> dict:
+    """Hold each of ``runs`` ((kernel, kind, sweeps); kernel one of
+    residual, apply, resnorm, down, up) against its plain version on the
+    packed form of one extended tile; returns the error of each kernel (of
+    a down leg's two outputs and the norm's two modes, the larger
+    relative one). Whole tiles are compared, unpacked, pad lanes zero."""
+    from multigridcmt_tpu_torch.kernels import plocal2d
+
+    n, m, mcol = t["n"], t["m"], t["mcol"]
+    h = 1.0 / (n + 1)
+    offs = (t["row_off"], t["col_off"])
+    cols, cpar = ue.shape[1], 1 if mcol else 0
+    su, sb = plocal2d.pack_ext(ue, cpar), plocal2d.pack_ext(be, cpar)
+    tol = TOL[dtype]
+
+    def pair(what, got, want, **kw):
+        return check_pair(what, unpacked_tile(got, cols, cpar),
+                          unpacked_tile(want, cols, cpar), tol,
+                          ghosts=False, **kw)
+
+    errs = {}
+    for name, kind, nu in runs:
+        what = f"plocal2d {name} {label} sigma={sigma} nu={nu}"
+        kw = dict(kind=kind, omega=0.8, sigma=sigma, mcol=mcol, sweeps=nu)
+        if name == "residual":
+            err = pair(what, plocal2d.residual(su, sb, n, h, *offs,
+                                               sigma=sigma),
+                       plocal2d.residual_plain(su, sb, n, h, *offs,
+                                               sigma=sigma))
+        elif name == "apply":
+            err = pair(what, plocal2d.apply_op(su, n, h, *offs, sigma=sigma),
+                       plocal2d.apply_op_plain(su, n, h, *offs, sigma=sigma))
+        elif name == "resnorm":
+            err = max((check_pair(
+                f"{what} red_only={ro}",
+                plocal2d.residual_norm_sq(su, sb, n, h, m, *offs, mcol=mcol,
+                                          red_only=ro, sigma=sigma),
+                plocal2d.residual_norm_sq_plain(su, sb, n, h, m, *offs,
+                                                mcol=mcol, red_only=ro,
+                                                sigma=sigma), tol)
+                for ro in (False, True)), key=lambda v: v[1])
+        elif name == "down":
+            gu, grc = plocal2d.down_leg(su, sb, n, h, m, *offs, **kw)
+            wu, wrc = plocal2d.down_leg_plain(su, sb, n, h, m, *offs, **kw)
+            err = max(pair(f"{what} {kind} u'", gu, wu),
+                      check_pair(f"{what} {kind} r_c", grc, wrc, tol,
+                                 tuple(e.shape), ghosts=False),
+                      key=lambda v: v[1])
+        else:
+            nc = (n - 1) // 2
+            err = pair(f"{what} {kind}",
+                       plocal2d.up_leg(su, e, sb, n, nc, h, m, *offs, **kw),
+                       plocal2d.up_leg_plain(su, e, sb, n, nc, h, m, *offs,
+                                             **kw))
+        errs[f"plocal2d_{name}"] = max(errs.get(f"plocal2d_{name}", err),
+                                       err, key=lambda v: v[1])
+    return errs
+
+
+def compare_plocal2d(main_err: dict) -> None:
+    """The plocal2d kernels against their plain versions, on packed tiles:
+    S1's own fine tile (a mesh of 1, 4112 x 4097 float32, offsets -7 and 0)
+    with RB-GS and Jacobi nu = 2, sigma 0 and SIGMA (the main-path error:
+    RB-GS, sigma 0); the offset tiles of compare_local2d in float32 (a row
+    rank with row_off 1529, a block rank with odd col_off: the other
+    packing phase); and PLOCAL2D_F64_TILES in float64, each with every
+    kernel and the legs' sweep caps."""
+    every = [("residual", None, 0), ("apply", None, 0), ("resnorm", None, 0)]
+    legs = [(leg, kind, nu) for kind, nus in (("rbgs", (0, 2, 3)),
+                                              ("jacobi", (2, 6)))
+            for nu in nus for leg in ("down", "up")]
+    n = 2 ** SHARDED_PATHS["S1"][0] - 1
+    ue, be, e, t = local2d_tile(n, torch.float32, n + 31)
+    label = (f"S1 fine tile {tuple(ue.shape)} n={n} offsets "
+             f"{(t['row_off'], t['col_off'])}")
+    main = every + [("down", "rbgs", 2), ("up", "rbgs", 2)]
+    main_err.update(check_plocal2d(label, ue, be, e, t, torch.float32, 0.0,
+                                   main))
+    check_plocal2d(label, ue, be, e, t, torch.float32, 0.0,
+                   [("down", "jacobi", 2), ("up", "jacobi", 2)])
+    check_plocal2d(label, ue, be, e, t, torch.float32, SIGMA,
+                   main + [("down", "jacobi", 2), ("up", "jacobi", 2)])
+    del ue, be, e
+    for dtype, tiles in ((torch.float32, LOCAL2D_TILES),
+                         (torch.float64, PLOCAL2D_F64_TILES)):
+        for n, dr, r, dc, c in tiles:
+            ue, be, e, t = local2d_tile(n, dtype, n + r + c + 41, (dr, dc),
+                                        (r, c))
+            label = (f"{str(dtype).split('.')[-1]} n={n} rank ({r}, {c}) of "
+                     f"({dr}, {dc or 1}) offsets "
+                     f"{(t['row_off'], t['col_off'])}")
+            for sigma in (0.0, SIGMA):
+                check_plocal2d(label, ue, be, e, t, dtype, sigma,
+                               every + legs)
+            del ue, be, e
+    torch.cuda.empty_cache()
+
+
 def phase_compare():
     """Each kernel against its plain version on the card. Returns (max abs
     error, relative error, tolerance) per kernel at the main paths' shapes
     (float32, sigma=0; the legs RB-GS nu=2: packed at n=4095, fused2d and
     stencil2d at n=2047, stencil3d at n=511 (Jacobi: one sweep); the
     composed legs' kernels as compare_composed says; the sparse kernels as
-    compare_sparse says); of a leg's two outputs, the one with the larger
+    compare_sparse says; local2d and plocal2d as compare_local2d and
+    compare_plocal2d say); of a leg's two outputs, the one with the larger
     relative error."""
     main_err = {}
     compare_2d(main_err)
@@ -841,6 +978,7 @@ def phase_compare():
     compare_stencil3d(main_err)
     compare_sparse(main_err)
     compare_local2d(main_err)
+    compare_plocal2d(main_err)
     return main_err
 
 
@@ -918,18 +1056,34 @@ KERNELS = {
                    "multigridcmt_tpu/kernels/local2d.py:843", "S1"),
     "local2d_residual": ("local2d", "residual_launches",
                          "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
-                         "multigridcmt_tpu/kernels/local2d.py:289", "S1"),
+                         "multigridcmt_tpu/kernels/local2d.py:289", "S2"),
     "local2d_rbgs": ("local2d", "rbgs_launches",
                      "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
                      "multigridcmt_tpu/kernels/local2d.py:263", "S3"),
     "local2d_jacobi": ("local2d", "jacobi_launches",
                        "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
                        "multigridcmt_tpu/kernels/local2d.py:278", "S4"),
+    "plocal2d_down": ("plocal2d", "down_launches",
+                      "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
+                      "multigridcmt_tpu/kernels/plocal2d.py:501", "S1"),
+    "plocal2d_up": ("plocal2d", "up_launches",
+                    "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
+                    "multigridcmt_tpu/kernels/plocal2d.py:708", "S1"),
+    "plocal2d_resnorm": ("plocal2d", "resnorm_launches",
+                         "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
+                         "multigridcmt_tpu/kernels/plocal2d.py:855", "S1"),
+    "plocal2d_residual": ("plocal2d", "residual_launches",
+                          "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
+                          "multigridcmt_tpu/kernels/plocal2d.py:262",
+                          "S1pcg"),
+    "plocal2d_apply": ("plocal2d", "apply_launches",
+                       "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
+                       "multigridcmt_tpu/kernels/plocal2d.py:982", "S1pcg"),
 }
 # The runs of phase 3 that drive a main path through the public API.
 MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
-             "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell", "S1", "S2",
-             "S3", "S4", "S4cheb")
+             "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell", "S1", "S1pcg",
+             "S1unpacked", "S2", "S3", "S4", "S4cheb")
 # Direct calls of a kernel that no main path launches.
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d"}
 
@@ -1449,10 +1603,33 @@ def sharded_levels(prob, solver) -> tuple:
     return legs, owned
 
 
+def sharded_against_single(label: str, res, ref) -> None:
+    """A float64 sharded solve against the single-device one: both
+    converge in equal iterations, with histories within rtol 1e-8 down to
+    SHARDED_F64_FLOOR (the two routes round differently: restriction and
+    neighbour sums in other orders, by ~3e-14 of |b| near the end of the
+    solve, which is 3e-5 of a relative residual of ~1e-9)."""
+    hs, hr = (r.res_history[: r.iters + 1] for r in (res, ref))
+    same = res.iters == ref.iters
+    diff = ((hs - hr).abs() / hr).max().item() if same else float("inf")
+    over = ((hs - hr).abs() - 1e-8 * hr).max().item() if same \
+        else float("inf")
+    log(f"{label}: iters {res.iters} (single device {ref.iters}), converged "
+        f"{res.converged}, history rel diff {diff:.2e}, past rtol 1e-8 by at "
+        f"most {over:.2e} (floor {SHARDED_F64_FLOOR})")
+    require(res.converged and ref.converged and same
+            and over <= SHARDED_F64_FLOOR,
+            f"{label} against single device: iters {res.iters}/{ref.iters}, "
+            f"rel {diff}, over {over}")
+
+
 def paths_sharded(runs: dict) -> None:
     """S1-S4 through ShardedSolver.solve on a mesh of 1 (the world of 1
-    over NCCL that phase 1 made), and a float64 sharded solve against the
-    single-device one."""
+    over NCCL that phase 1 made): S1 at the default PACK_MIN_N (its 4095
+    level colour-packed on plocal2d) by cycles and by PCG (S1pcg) beside
+    the single-device solve, S1 again with PACK_MIN_N above 4095 (the
+    unpacked route, S1unpacked), S2-S4; and float64 sharded solves against
+    single-device ones, unpacked and packed."""
     import multigridcmt_tpu_torch as mt
     from multigridcmt_tpu_torch import kernels
     from multigridcmt_tpu_torch.parallel import sharded
@@ -1463,54 +1640,73 @@ def paths_sharded(runs: dict) -> None:
                             device="cuda", **cfg, **kw)
         return prob, sharded.ShardedSolver(prob.config, sharded_mesh(shape))
 
+    def describe(label, prob, solver, method="mg"):
+        cfg = prob.config
+        return (f"{label}: sharded {method} k={cfg.k} float32 {cfg.smoother} "
+                f"V({cfg.nu1},{cfg.nu2}) mesh {solver.mesh.shape}")
+
+    # S1 on the packed route: the 4095 level runs the plocal2d legs and the
+    # fused norm (the check: full before the first cycle, red only after
+    # each), levels 2047..255 the local2d legs; PCG adds its first residual
+    # and one operator apply an iteration on plocal2d, and runs one cycle
+    # from the start and one an iteration.
     prob, solver = build("S1")
-    try:
-        solver.solve(prob.b)
-        raised = None
-    except NotImplementedError as exc:
-        raised = str(exc)
-    log(f"S1 at the default PACK_MIN_N={kernels.PACK_MIN_N}: "
-        f"NotImplementedError: {raised}")
-    require(raised is not None and "plocal2d" in raised,
-            "S1 at the default PACK_MIN_N did not raise for the packed tier")
+    legs, owned = sharded_levels(prob, solver)
+    packs = sharded._pack_level_ok(prob.config, solver.decomp, 0)
+    require(packs and (legs, owned) == (5, 0),
+            f"S1: packed {packs}, {legs} leg and {owned} owned kernel "
+            "levels, not True, 5 and 0")
+    single = mt.MultigridSolver(prob)
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = counted(lambda: solver.solve(prob.b))
+    runs["peakS1"] = torch.cuda.max_memory_allocated()
+    check_solve(describe("S1", prob, solver) + " (packed)", prob, single,
+                res, wall, 2, runs["peakS1"], PACKED_MAXERR)
+    i = res.iters
+    require_counts("S1", counts, plocal2d_down=i, plocal2d_up=i,
+                   plocal2d_resnorm=i + 1, local2d_down=(legs - 1) * i,
+                   local2d_up=(legs - 1) * i)
+    runs["S1"] = counts
+    # Beside it, the single-device solve on the same packed route.
+    ref, _, ref_wall = counted(single.solve)
+    check_solve(f"S1's single-device twin: k={prob.config.k} float32, "
+                f"PACK_MIN_N {kernels.PACK_MIN_N}", prob, single, ref,
+                ref_wall, 2, bound=PACKED_MAXERR)
+    res, counts, wall = counted(lambda: solver.solve(prob.b, method="pcg"))
+    check_solve(describe("S1pcg", prob, solver, "pcg") + " (packed)", prob,
+                single, res, wall, 2, None, PACKED_MAXERR)
+    c = res.iters + 1                          # preconditioning cycles
+    require_counts("S1pcg", counts, plocal2d_residual=1,
+                   plocal2d_apply=res.iters, plocal2d_down=c, plocal2d_up=c,
+                   local2d_down=(legs - 1) * c, local2d_up=(legs - 1) * c)
+    runs["S1pcg"] = counts
+    del prob, solver, single, res, ref
+    torch.cuda.empty_cache()
+
     saved = kernels.PACK_MIN_N
     kernels.PACK_MIN_N = 2 ** MAIN_K
-    log(f"S1: kernels.PACK_MIN_N set to {kernels.PACK_MIN_N} for this path "
-        "only, so that the 4095 fine level takes JAX's unpacked route (the "
-        "local2d legs): its packed plocal2d tier is not ported")
+    log(f"S1unpacked: kernels.PACK_MIN_N set to {kernels.PACK_MIN_N} for "
+        "this run only, so that the 4095 level takes the unpacked route (the "
+        "local2d legs and the local2d residual as the check): the packing "
+        "comparison")
     try:
-        torch.cuda.reset_peak_memory_stats()
-        for label in SHARDED_PATHS:
-            if label != "S1":
-                prob, solver = build(label)
+        for label in ("S1unpacked", "S2", "S3", "S4", "S4cheb"):
+            prob, solver = build("S1" if label == "S1unpacked" else label)
             legs, owned = sharded_levels(prob, solver)
             res, counts, wall = counted(lambda: solver.solve(prob.b))
-            if label == "S1":
-                runs["peakS1"] = torch.cuda.max_memory_allocated()
             cfg = prob.config
-            single = mt.MultigridSolver(prob)
-            check_solve(f"{label}: sharded k={cfg.k} float32 {cfg.smoother} "
-                        f"V({cfg.nu1},{cfg.nu2}) mesh {solver.mesh.shape}",
-                        prob, single, res, wall, 2,
-                        runs.get("peakS1") if label == "S1" else None,
+            check_solve(describe(label, prob, solver), prob,
+                        mt.MultigridSolver(prob), res, wall, 2, None,
                         SHARDED_MAXERR)
-            if label == "S1":
-                # Beside it, the single-device solve on the same unpacked
-                # route (4095 on the fused2d legs): SHARDED_MAXERR's other
-                # reading.
-                ref, _, ref_wall = counted(single.solve)
-                check_solve(f"S1's single-device twin: k={cfg.k} float32, "
-                            f"PACK_MIN_N {kernels.PACK_MIN_N}", prob, single,
-                            ref, ref_wall, 2, bound=SHARDED_MAXERR)
-                del ref
             i = res.iters
             checks = i + 1
             # Per cycle: one down and one up leg a leg level (S1 4095..255,
             # S2 2047..255); on the composed route two sweep launches (pre
             # and post) and one residual an owned kernel level, Chebyshev
             # nu1 + nu2 + 1 residuals there; the check is the residual.
-            want = {"S1": dict(local2d_down=legs * i, local2d_up=legs * i,
-                               local2d_residual=checks),
+            want = {"S1unpacked": dict(local2d_down=legs * i,
+                                       local2d_up=legs * i,
+                                       local2d_residual=checks),
                     "S2": dict(local2d_down=legs * i, local2d_up=legs * i,
                                local2d_residual=checks),
                     "S3": dict(local2d_rbgs=2 * owned * i,
@@ -1519,8 +1715,8 @@ def paths_sharded(runs: dict) -> None:
                                local2d_residual=owned * i + checks),
                     "S4cheb": dict(local2d_residual=(cfg.nu1 + cfg.nu2 + 1)
                                    * owned * i + checks)}[label]
-            expect = {"S1": (5, 0), "S2": (4, 0), "S3": (0, 4), "S4": (0, 3),
-                      "S4cheb": (0, 3)}[label]
+            expect = {"S1unpacked": (5, 0), "S2": (4, 0), "S3": (0, 4),
+                      "S4": (0, 3), "S4cheb": (0, 3)}[label]
             require((legs, owned) == expect,
                     f"{label}: {legs} leg and {owned} owned kernel levels, "
                     f"not {expect}")
@@ -1531,12 +1727,9 @@ def paths_sharded(runs: dict) -> None:
     finally:
         kernels.PACK_MIN_N = saved
 
-    # float64 at k=10: the sharded solve (local2d legs on 1023..255, the
-    # owned-tile route on 127 and 63) and the single-device one (fused2d
-    # legs) converge in equal cycles, with histories within rtol 1e-8 down
-    # to SHARDED_F64_FLOOR: the two routes round differently (restriction
-    # and neighbour sums in other orders), by ~3e-14 of |b| near the end
-    # of the solve, which is 3e-5 of a relative residual of ~1e-9.
+    # float64 at k=10, unpacked (the default PACK_MIN_N): the sharded solve
+    # (local2d legs on 1023..255, the owned-tile route on 127 and 63)
+    # against the single-device one (fused2d legs).
     prob = mt.poisson2d(k=SHARDED_F64_K, dtype=torch.float64,
                         smoother="rbgs", use_kernels=True, tol=F64_TOL,
                         device="cuda")
@@ -1544,24 +1737,44 @@ def paths_sharded(runs: dict) -> None:
     res, counts, _ = counted(lambda: solver.solve(prob.b))
     ref = mt.MultigridSolver(prob).solve()
     legs, _ = sharded_levels(prob, solver)
-    hs, hr = (r.res_history[: r.iters + 1] for r in (res, ref))
-    same = res.iters == ref.iters
-    diff = ((hs - hr).abs() / hr).max().item() if same else float("inf")
-    over = ((hs - hr).abs() - 1e-8 * hr).max().item() if same \
-        else float("inf")
+    sharded_against_single(f"sharded float64 k={SHARDED_F64_K}", res, ref)
     err64 = (res.x - prob.u_exact).abs().max().item()
-    log(f"sharded float64 k={SHARDED_F64_K}: iters {res.iters} (single "
-        f"device {ref.iters}), converged {res.converged}, history rel diff "
-        f"{diff:.2e}, past rtol 1e-8 by at most {over:.2e} (floor "
-        f"{SHARDED_F64_FLOOR}), max error vs u_exact {err64:.3e}")
-    require(res.converged and ref.converged and same
-            and over <= SHARDED_F64_FLOOR,
-            f"sharded float64 k={SHARDED_F64_K} against single device: "
-            f"iters {res.iters}/{ref.iters}, rel {diff}, over {over}")
+    log(f"  max error vs u_exact {err64:.3e}")
     require_counts("sharded f64", counts, local2d_down=legs * res.iters,
                    local2d_up=legs * res.iters,
                    local2d_residual=res.iters + 1)
-    del prob, solver, res, ref
+    del solver, res, ref
+
+    # float64 at k=10 on the packed route (PACK_MIN_N lowered so that 1023
+    # packs, for this check only): the sharded solve and sharded PCG
+    # against the single-device packed solve and PCG.
+    kernels.PACK_MIN_N = SHARDED_F64_PACK_MIN_N
+    try:
+        solver = sharded.ShardedSolver(prob.config, sharded_mesh((1,)))
+        require(sharded._pack_level_ok(prob.config, solver.decomp, 0),
+                f"k={SHARDED_F64_K} does not pack at PACK_MIN_N "
+                f"{kernels.PACK_MIN_N}")
+        for method in ("mg", "pcg"):
+            res, counts, _ = counted(
+                lambda: solver.solve(prob.b, method=method))
+            ref = mt.MultigridSolver(prob).solve(method=method)
+            sharded_against_single(
+                f"sharded packed float64 {method} k={SHARDED_F64_K}, "
+                f"PACK_MIN_N {kernels.PACK_MIN_N}", res, ref)
+            i = res.iters
+            want = (dict(plocal2d_down=i, plocal2d_up=i,
+                         plocal2d_resnorm=i + 1,
+                         local2d_down=(legs - 1) * i,
+                         local2d_up=(legs - 1) * i) if method == "mg" else
+                    dict(plocal2d_residual=1, plocal2d_apply=i,
+                         plocal2d_down=i + 1, plocal2d_up=i + 1,
+                         local2d_down=(legs - 1) * (i + 1),
+                         local2d_up=(legs - 1) * (i + 1)))
+            require_counts(f"sharded packed f64 {method}", counts, **want)
+            del res, ref
+    finally:
+        kernels.PACK_MIN_N = saved
+    del prob, solver
     torch.cuda.empty_cache()
 
 
@@ -1592,11 +1805,11 @@ def time_pair(name: str, kernel, plain) -> dict:
 
 # Arithmetic each function needs per fine interior point, counted from its
 # formula (adds, multiplies, the two halves of an FMA): residual 2D 8, 3D
-# 10; a Gauss-Seidel update 2D 6, 3D 8; Jacobi 2D 10, 3D 12; a down leg 6
-# a sweep + 12 (residual and full weighting), an up leg 6 a sweep + 3
-# (prolongation and the add); the red-only norm 5 (half the points, square
-# and add). Every kernel row is float32 and bound by bytes by a wide
-# margin.
+# 10, the apply (A - sigma I) u 7; a Gauss-Seidel update 2D 6, 3D 8;
+# Jacobi 2D 10, 3D 12; a down leg 6 a sweep + 12 (residual and full
+# weighting), an up leg 6 a sweep + 3 (prolongation and the add); the
+# red-only norm 5 (half the points, square and add). Every kernel row is
+# float32 and bound by bytes by a wide margin.
 def flops_per_point(name: str, sweeps: int = 2) -> int:
     return {"stencil2d_residual": 8, "packed2d_residual": 8,
             "packed2d_resnorm": 5, "stencil3d_residual": 10,
@@ -1609,7 +1822,10 @@ def flops_per_point(name: str, sweeps: int = 2) -> int:
             "stencil2d_jacobi": 10 * sweeps,
             "local2d_down": 6 * sweeps + 12, "local2d_up": 6 * sweeps + 3,
             "local2d_residual": 8, "local2d_rbgs": 6 * sweeps,
-            "local2d_jacobi": 10 * sweeps}[name]
+            "local2d_jacobi": 10 * sweeps,
+            "plocal2d_down": 6 * sweeps + 12, "plocal2d_up": 6 * sweeps + 3,
+            "plocal2d_residual": 8, "plocal2d_apply": 7,
+            "plocal2d_resnorm": 5}[name]
 
 
 def timed_2d(times: dict) -> None:
@@ -2062,6 +2278,107 @@ def timed_sharded(times: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def timed_chains(times: dict) -> None:
+    """One S1 cycle as v_cycles_fn runs it (CHAIN_CYCLES chained cycles over
+    CHAIN_CYCLES, CUDA events, median of 5): packed (the default
+    PACK_MIN_N) and unpacked (PACK_MIN_N above 4095), in turns."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch import kernels
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    k, shape, kw = SHARDED_PATHS["S1"]
+    prob = mt.poisson2d(k=k, dtype=torch.float32, use_kernels=True,
+                        device="cuda", **kw)
+    solver = sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+    b_t = sharded.shard_rhs(prob.b, solver.mesh, solver.decomp)
+    x_t = torch.zeros_like(b_t)
+    many = solver.v_cycles_fn()
+    saved = kernels.PACK_MIN_N
+
+    def chain(pack_min_n):
+        # v_cycles_fn reads PACK_MIN_N when called.
+        kernels.PACK_MIN_N = pack_min_n
+        try:
+            return many(x_t, b_t, CHAIN_CYCLES)
+        finally:
+            kernels.PACK_MIN_N = saved
+
+    got = {"packed": [], "unpacked": []}
+    for route in ("packed", "unpacked", "unpacked", "packed"):
+        pmin = saved if route == "packed" else 2 ** MAIN_K
+        got[route].append(cuda_time_ms(lambda: chain(pmin), reps=5,
+                                       warmup=1) / CHAIN_CYCLES)
+    times["cycle_S1_chain"] = {"packed_ms": min(got["packed"]),
+                               "unpacked_ms": min(got["unpacked"])}
+    log(f"time S1 cycle in a chain of {CHAIN_CYCLES} (v_cycles_fn): packed "
+        f"{got['packed'][0]:.3f}/{got['packed'][1]:.3f} ms, unpacked "
+        f"{got['unpacked'][0]:.3f}/{got['unpacked'][1]:.3f} ms")
+    del prob, solver, b_t, x_t
+    torch.cuda.empty_cache()
+
+
+def timed_plocal2d(times: dict) -> None:
+    """Each plocal2d kernel at S1's packed fine tile (2 x 4112 x 2049
+    float32, RB-GS nu = 2, sigma = 0) against its plain version and, for
+    the legs and the residual, beside its local2d twin on the same
+    unpacked tile; the apply beside the plocal2d residual."""
+    from multigridcmt_tpu_torch.kernels import local2d, plocal2d
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    n = 2 ** MAIN_K - 1
+    h = 1.0 / (n + 1)
+    ue, be, e, t = local2d_tile(n, torch.float32, seed=23)
+    m, offs = t["m"], (t["row_off"], t["col_off"])
+    su, sb = plocal2d.pack_ext(ue, 0), plocal2d.pack_ext(be, 0)
+    rc = torch.empty_like(e)
+    kw = dict(kind="rbgs", omega=1.0, sweeps=2)
+    nc = (n - 1) // 2
+    # name -> (kernel, plain, local2d twin or None, bytes read once and
+    # written once)
+    pairs = {
+        "plocal2d_down": (
+            lambda: plocal2d.down_leg(su, sb, n, h, m, *offs, **kw),
+            lambda: plocal2d.down_leg_plain(su, sb, n, h, m, *offs, **kw),
+            lambda: local2d.down_leg(ue, be, n, h, m, *offs, **kw),
+            nbytes(su, sb, su, rc)),
+        "plocal2d_up": (
+            lambda: plocal2d.up_leg(su, e, sb, n, nc, h, m, *offs, **kw),
+            lambda: plocal2d.up_leg_plain(su, e, sb, n, nc, h, m, *offs,
+                                          **kw),
+            lambda: local2d.up_leg(ue, e, be, n, nc, h, m, *offs, **kw),
+            nbytes(su, e, sb, su)),
+        "plocal2d_residual": (
+            lambda: plocal2d.residual(su, sb, n, h, *offs),
+            lambda: plocal2d.residual_plain(su, sb, n, h, *offs),
+            lambda: local2d.residual(ue, be, n, h, *offs),
+            nbytes(su, sb, su)),
+        "plocal2d_apply": (
+            lambda: plocal2d.apply_op(su, n, h, *offs),
+            lambda: plocal2d.apply_op_plain(su, n, h, *offs), None,
+            nbytes(su, su)),
+        # Red only, as after each cycle: u's two planes and b's red one.
+        "plocal2d_resnorm": (
+            lambda: plocal2d.residual_norm_sq(su, sb, n, h, m, *offs,
+                                              red_only=True),
+            lambda: plocal2d.residual_norm_sq_plain(su, sb, n, h, m, *offs,
+                                                    red_only=True), None,
+            nbytes(su, sb[0])),
+    }
+    for name, (kernel, plain, twin, moved) in pairs.items():
+        tt = time_pair(f"{name} {tuple(su.shape)} nu=2", kernel, plain)
+        tt.update(bytes=moved, flops=flops_per_point(name) * n * n)
+        if twin is not None:
+            tt["local2d_ms"] = cuda_time_ms(twin)
+            log(f"  {name} beside its local2d twin: {tt['ms']:.4f} vs "
+                f"{tt['local2d_ms']:.4f} ms")
+        times[name] = tt
+    log(f"  apply_op {times['plocal2d_apply']['ms']:.4f} ms beside the "
+        f"plocal2d residual {times['plocal2d_residual']['ms']:.4f} ms")
+    del ue, be, e, su, sb, rc, pairs
+    torch.cuda.empty_cache()
+
+
 def phase_times():
     """Times on the card, float32, RB-GS, nu = 2, sigma = 0: the cycles,
     one PCG iteration, each kernel against its plain version at its
@@ -2076,6 +2393,8 @@ def phase_times():
     timed_3d(times)
     timed_sparse(times)
     timed_sharded(times)
+    timed_chains(times)
+    timed_plocal2d(times)
     return times
 
 
@@ -2160,7 +2479,7 @@ def main() -> int:
     log(f"peak device memory: 4095^2 solve {runs['peak2d']} bytes, 511^3 "
         f"solve {runs['peak3d']} bytes, sharded S1 {runs['peakS1']} bytes; "
         f"card: {card}")
-    for label in ("S1", "S2"):
+    for label in ("S1", "S2", "S1_chain"):
         log(f"cycle_{label}: " + json.dumps(times["cycle_" + label]))
     log("smoother: " + json.dumps(times["smoother"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):

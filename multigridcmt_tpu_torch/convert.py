@@ -115,6 +115,22 @@ def mesh_shape_from_jax(mesh) -> tuple:
     return tuple(int(d) for d in np.asarray(mesh.devices).shape)
 
 
+def packed_tile_from_jax(s, rows: int, cols: int, device=None):
+    """The port's colour-packed extended tile (2, rows, (cols + 1) // 2)
+    (``kernels.plocal2d.pack_ext``) for a JAX one: JAX packs the tile
+    embedded in its (16j, 128j) zero-padded layout into (2, 16j, 128j)
+    planes, with the same lanes first. ``rows`` x ``cols``: the unpacked
+    tile's logical extent. On ``device`` (None: the card)."""
+    device = check_device(device)
+    a = np.asarray(s)
+    lanes = (cols + 1) // 2
+    if a.ndim != 3 or a.shape[0] != 2 or a.shape[1] < rows \
+            or a.shape[2] < lanes:
+        raise ValueError(f"a packed JAX tile of at least (2, {rows}, "
+                         f"{lanes}) expected, got shape {a.shape}")
+    return _tensor(a[:, :rows, :lanes], device)
+
+
 def tile_from_jax(x_sharded, decomp: Decomp, coords, device=None):
     """One rank's owned tile of a JAX sharded array of owned tiles (the
     layout of ``multigridcmt_tpu.parallel.sharded.shard_rhs``), on

@@ -89,6 +89,17 @@ for _t in ("f32", "f64"):
     # kind, omega, sweeps, stream
     SIGNATURES[f"mg_local2d_up_{_t}"] = [_P, _P, _P, _P] + [_I] * 9 + [
         _D, _D, _I, _D, _I, _P]
+    # u, b, out, R, C, n, row_off, col_off, h, sigma, has_b, stream
+    SIGNATURES[f"mg_plocal2d_residual_{_t}"] = [_P, _P, _P] + [_I] * 5 + [
+        _D, _D, _I, _P]
+    # The packed tile's legs take local2d's arguments (R, C: the unpacked
+    # tile's extent).
+    SIGNATURES[f"mg_plocal2d_down_{_t}"] = SIGNATURES[f"mg_local2d_down_{_t}"]
+    SIGNATURES[f"mg_plocal2d_up_{_t}"] = SIGNATURES[f"mg_local2d_up_{_t}"]
+    # u, b, partial, out, R, C, n, row_off, col_off, qlo, qhi, slo, shi, h,
+    # sigma, red_only, blocks, stream
+    SIGNATURES[f"mg_plocal2d_resnorm_{_t}"] = [_P, _P, _P, _P] + [_I] * 9 + [
+        _D, _D, _I, _I, _P]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

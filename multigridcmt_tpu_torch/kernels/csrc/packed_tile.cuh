@@ -1,0 +1,388 @@
+// Colour-packed arrays: the neighbour algebra, the shared-memory tile
+// helpers and the whole-array residual and norm kernels shared by
+// packed2d.cu (a whole packed grid) and plocal2d.cu (a shard's packed
+// extended tile).
+//
+// A colour-packed array (PRect) holds the R x C points of a rectangle of the
+// padded grid whose first point has global index (goy, gox) as two planes of
+// R x CP lanes, CP = (C+1)/2: plane 0 the red points ((i+j) even in global
+// indices), plane 1 the black ones. Lane l of a row holds the rectangle's
+// columns 2l and 2l+1, one of each colour: the colour-c point of lane l in
+// global row i lies in rectangle column 2l + p, global column gox + 2l + p,
+// with the phase
+//   p = (c + i + gox) & 1          (& 1: the floor parity of a negative index)
+// A whole grid (packed2d.cu) is the rectangle at (0, 0), so p = (c + i) & 1
+// as in the TPU module multigridcmt_tpu/kernels/packed2d.py; a shard's tile
+// (plocal2d.cu) has its global offsets, and an odd column offset flips the
+// phase (the TPU module plocal2d.py calls it cpar). With C odd, the lane past
+// a row's last point of one colour is a pad, which no kernel updates.
+//
+// The four neighbours of a colour-c point at (i, l) with phase p are the
+// other colour's (i-1, l), (i+1, l), (i, l), and (i, l-1) if p = 0 or
+// (i, l+1) if p = 1. Sums run in the TPU module's order, ((up + down) + same
+// lane) + side lane.
+//
+// Shared-memory tiles are RY rows by RXP lanes of both planes (plane c at
+// s + c * RY * RXP), cut from the array at global row gy0 and array lane
+// gp0; gx0 = gox + 2 gp0 is the global column of the tile's column 0, and a
+// tile column is fine-grid column lx = 2l + p. Smoothing in a tile follows
+// common.cuh: a point is updated only where `upd` holds (mg::Interior or
+// mg::InteriorBox) and off the tile's outer ring of fine points, so each
+// half-sweep (RB-GS) or sweep (Jacobi) makes one more ring stale.
+#pragma once
+
+#include "common.cuh"
+
+namespace mg {
+
+struct PRect {
+  int R, C, goy, gox;
+
+  __host__ __device__ int lanes() const { return (C + 1) / 2; }
+  // Row gy (global) and array lane gp in the array.
+  __device__ __forceinline__ bool holds(int gy, int gp) const {
+    return gy >= goy && gy < goy + R && gp >= 0 && gp < lanes();
+  }
+  __device__ __forceinline__ size_t at(int c, int gy, int gp) const {
+    return (static_cast<size_t>(c) * R + (gy - goy)) * lanes() + gp;
+  }
+};
+
+// Phase of colour c in global row gy of a tile whose column 0 is global gx0.
+__device__ __forceinline__ int pphase(int c, int gy, int gx0) {
+  return (c + gy + gx0) & 1;
+}
+
+// Sum of the four neighbours of the point at lane index k of its plane, read
+// from the other colour's plane o (row pitch `pitch` lanes). I is int in
+// shared-memory tiles (32-bit address arithmetic) and size_t in device
+// memory.
+template <typename T, typename I>
+__device__ __forceinline__ T nsum(const T* o, I k, I pitch, int p) {
+  return ((o[k - pitch] + o[k + pitch]) + o[k]) + o[p ? k + 1 : k - 1];
+}
+
+// b - (A - sigma I) u at lane index k of plane uc (other plane uo).
+template <typename T, typename I>
+__device__ __forceinline__ T presidual(const T* uc, const T* uo, T bval,
+                                       I k, I pitch, int p,
+                                       const Coef<T>& cf) {
+  const T v = uc[k];
+  return bval - (T(4) * v - nsum(uo, k, pitch, p)) * cf.inv_h2 + cf.sig * v;
+}
+
+// Load both planes of the RY x RXP tile at (gy0, gp0) of the array a into
+// s; points off the array read as 0.
+template <typename T>
+__device__ void load_ptile(const T* __restrict__ g, T* s, int RY, int RXP,
+                           int gy0, int gp0, const PRect& a) {
+  const int plane = RY * RXP;
+  for (int idx = threadIdx.x; idx < 2 * plane; idx += blockDim.x) {
+    const int c = idx >= plane;
+    const int k = idx - c * plane;
+    const int ly = k / RXP;
+    const int gy = gy0 + ly;
+    const int gp = gp0 + k - ly * RXP;
+    s[idx] = a.holds(gy, gp) ? g[a.at(c, gy, gp)] : T(0);
+  }
+}
+
+// Load the tiles of x + P e and of b as load_ptile does; P e (prolong_at of
+// the view e, common.cuh) is added at the points interior to the n x n grid.
+template <typename T, template <typename> class View>
+__device__ void load_ptile_prolonged(const T* __restrict__ x,
+                                     const View<T>& e,
+                                     const T* __restrict__ b, T* us, T* bs,
+                                     int RY, int RXP, int gy0, int gp0,
+                                     const PRect& a, int n) {
+  const int plane = RY * RXP;
+  const int gx0 = a.gox + 2 * gp0;
+  for (int idx = threadIdx.x; idx < 2 * plane; idx += blockDim.x) {
+    const int c = idx >= plane;
+    const int k = idx - c * plane;
+    const int ly = k / RXP;
+    const int l = k - ly * RXP;
+    const int gy = gy0 + ly;
+    T xv = T(0);
+    T bv = T(0);
+    if (a.holds(gy, gp0 + l)) {
+      const size_t g = a.at(c, gy, gp0 + l);
+      xv = x[g];
+      bv = b[g];
+      const int gx = gx0 + 2 * l + pphase(c, gy, gx0);
+      if (interior(gy, gx, n)) xv = xv + prolong_at(e, gy, gx);
+    }
+    us[idx] = xv;
+    bs[idx] = bv;
+  }
+}
+
+// Write the points of tile s (RY x RXP lanes at (gy0, gp0)) whose global
+// indices lie in the core [y0, y0 + TY) x [x0, x0 + TX) to the array a, so
+// that blocks whose cores partition the grid write every point once. The
+// core may start on either column of a lane; TX is even, so it spans at most
+// TX/2 + 1 lanes of a row.
+template <int TY, int TX, typename T>
+__device__ void store_pcore(const T* s, T* __restrict__ g, int RY, int RXP,
+                            int gy0, int gp0, int y0, int x0,
+                            const PRect& a) {
+  constexpr int W = TX / 2 + 1;
+  const int plane = RY * RXP;
+  const int gx0 = a.gox + 2 * gp0;
+  const int l0 = (x0 - gx0) >> 1;
+  for (int idx = threadIdx.x; idx < 2 * TY * W; idx += blockDim.x) {
+    const int c = idx >= TY * W;
+    const int k = idx - c * TY * W;
+    const int cy = k / W;
+    const int l = l0 + k - cy * W;
+    const int gy = y0 + cy;
+    const int gx = gx0 + 2 * l + pphase(c, gy, gx0);
+    if (gx >= x0 && gx < x0 + TX && l < RXP && a.holds(gy, gp0 + l)) {
+      g[a.at(c, gy, gp0 + l)] = s[c * plane + (gy - gy0) * RXP + l];
+    }
+  }
+}
+
+// True if the colour-c point at tile lane index k may be updated: `upd`
+// holds there and it is off the tile's outer ring of fine points, so that
+// its four neighbours are in the tile. Sets *p to its phase.
+template <typename Upd>
+__device__ __forceinline__ bool updatable(int c, int k, int RY, int RXP,
+                                          int gy0, int gx0, const Upd& upd,
+                                          int* p) {
+  const int ly = k / RXP;
+  const int l = k - ly * RXP;
+  const int gy = gy0 + ly;
+  *p = pphase(c, gy, gx0);
+  const int lx = 2 * l + *p;
+  return ly >= 1 && ly <= RY - 2 && lx >= 1 && lx <= 2 * RXP - 2 &&
+         upd(gy, gx0 + lx);
+}
+
+// One RB-GS half-sweep of colour c, in place on plane c of s.
+template <typename T, typename Upd>
+__device__ void half_sweep(T* s, const T* bs, int RY, int RXP, int gy0,
+                           int gx0, const Upd& upd, int c,
+                           const Coef<T>& cf) {
+  const int plane = RY * RXP;
+  T* uc = s + c * plane;
+  const T* uo = s + (1 - c) * plane;
+  const T* bc = bs + c * plane;
+  for (int k = threadIdx.x; k < plane; k += blockDim.x) {
+    int p;
+    if (!updatable(c, k, RY, RXP, gy0, gx0, upd, &p)) continue;
+    uc[k] = (cf.h2 * bc[k] + nsum(uo, k, RXP, p)) * cf.inv_den;
+  }
+}
+
+// One weighted-Jacobi sweep of both planes from s into t.
+template <typename T, typename Upd>
+__device__ void jacobi(const T* s, T* t, const T* bs, int RY, int RXP,
+                       int gy0, int gx0, const Upd& upd, const Coef<T>& cf) {
+  const int plane = RY * RXP;
+  for (int idx = threadIdx.x; idx < 2 * plane; idx += blockDim.x) {
+    const int c = idx >= plane;
+    const int k = idx - c * plane;
+    T v = s[idx];
+    int p;
+    if (updatable(c, k, RY, RXP, gy0, gx0, upd, &p)) {
+      v = v + cf.jscale * presidual(s + c * plane, s + (1 - c) * plane,
+                                    bs[idx], k, RXP, p, cf);
+    }
+    t[idx] = v;
+  }
+}
+
+// `sweeps` smoother sweeps on the packed tile; returns the buffer holding
+// the result (s for RB-GS, s or t for Jacobi's ping-pong).
+template <typename T, typename Upd>
+__device__ T* smooth_ptile(T* s, T* t, const T* bs, int RY, int RXP, int gy0,
+                           int gx0, const Upd& upd, int kind, int sweeps,
+                           const Coef<T>& cf) {
+  if (kind == kRbgs) {
+    for (int i = 0; i < sweeps; ++i) {
+      half_sweep(s, bs, RY, RXP, gy0, gx0, upd, 0, cf);
+      __syncthreads();
+      half_sweep(s, bs, RY, RXP, gy0, gx0, upd, 1, cf);
+      __syncthreads();
+    }
+    return s;
+  }
+  for (int i = 0; i < sweeps; ++i) {
+    jacobi(s, t, bs, RY, RXP, gy0, gx0, upd, cf);
+    __syncthreads();
+    T* tmp = s;
+    s = t;
+    t = tmp;
+  }
+  return s;
+}
+
+// The residual of packed tile w (b in bs) on the TY x TX core at global
+// (y0, x0) plus one ring, in fine coordinates, into rs ((TY + 2) x (TX + 2),
+// entry (a, b) at global (y0 - 1 + a, x0 - 1 + b)): 0 where `upd` fails and,
+// with red_only, at the black points (after an RB-GS sweep the closing black
+// half-sweep zeroes the black residual in exact arithmetic, so a down leg
+// restricts the red residual only, as on the TPU). The tile (RY x RXP, at
+// global row gy0 and column gx0) must reach 2 points past the core on every
+// side.
+template <int TY, int TX, typename T, typename Upd>
+__device__ void core_presidual(const T* w, const T* bs, T* rs, int RY,
+                               int RXP, int gy0, int gx0, int y0, int x0,
+                               const Upd& upd, bool red_only,
+                               const Coef<T>& cf) {
+  constexpr int RSX = TX + 2;
+  const int plane = RY * RXP;
+  for (int idx = threadIdx.x; idx < (TY + 2) * RSX; idx += blockDim.x) {
+    const int a = idx / RSX;
+    const int gy = y0 - 1 + a;
+    const int gx = x0 - 1 + idx - a * RSX;
+    const int c = (gy + gx) & 1;
+    T r = T(0);
+    if (upd(gy, gx) && !(red_only && c)) {
+      const int lx = gx - gx0;
+      const int k = (gy - gy0) * RXP + (lx >> 1);
+      r = presidual(w + c * plane, w + (1 - c) * plane, bs[c * plane + k], k,
+                    RXP, lx & 1, cf);
+    }
+    rs[idx] = r;
+  }
+}
+
+// Sum of `v` over a block of NT threads, valid in thread 0.
+template <int NT>
+__device__ double block_sum(double v) {
+  __shared__ double warp_sums[NT / 32];
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(~0u, v, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = threadIdx.x < NT / 32 ? warp_sums[threadIdx.x] : 0.0;
+  if (threadIdx.x < 32) {
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(~0u, v, off);
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// Kernels on a whole packed array, one thread a lane: the residual (or the
+// operator apply) and the residual norm. Bound by memory: u's two planes
+// and b read (the apply: u only), r written; the four neighbour reads of a
+// lane hit in L1/L2.
+// ---------------------------------------------------------------------------
+
+constexpr int kLaneThreads = 256;
+
+// r = b - (A - sigma I) u (HAS_B) or (A - sigma I) u on both planes of the
+// array a; 0 where `upd` fails (ghosts, a tile's ring, pad lanes), so a dot
+// over whole arrays is a dot over the points upd sets.
+template <typename T, bool HAS_B, typename Upd>
+__global__ void __launch_bounds__(kLaneThreads)
+presidual_kernel(const T* __restrict__ u, const T* __restrict__ b,
+                 T* __restrict__ out, PRect a, Upd upd, Coef<T> cf) {
+  const int cp = a.lanes();
+  const size_t plane = static_cast<size_t>(a.R) * cp;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if (idx >= 2 * plane) return;
+  const int c = idx >= plane;
+  const size_t k = idx - c * plane;
+  const int i = static_cast<int>(k / cp);
+  const int l = static_cast<int>(k - static_cast<size_t>(i) * cp);
+  const int gy = a.goy + i;
+  const int p = pphase(c, gy, a.gox);
+  T r = T(0);
+  if (upd(gy, a.gox + 2 * l + p)) {
+    const T v = u[idx];
+    const T au = (T(4) * v - nsum(u + (1 - c) * plane, k,
+                                  static_cast<size_t>(cp), p)) * cf.inv_h2;
+    r = HAS_B ? b[idx] - au + cf.sig * v : au - cf.sig * v;
+  }
+  out[idx] = r;
+}
+
+// Residual norm, first pass: each block sums r^2 over a grid-stride share
+// of the points of rows [qlo, qhi) and array columns [slo, shi) where `upd`
+// holds, in the first `planes` planes (1: red only), into
+// partial[blockIdx.x], in float64; each point is visited once. r is
+// computed in T, as the plain versions compute it; no residual array is
+// written.
+template <typename T, typename Upd>
+__global__ void __launch_bounds__(kLaneThreads)
+presnorm_partial(const T* __restrict__ u, const T* __restrict__ b,
+                 double* __restrict__ partial, PRect a, Upd upd, int qlo,
+                 int qhi, int slo, int shi, Coef<T> cf, int planes) {
+  const int cp = a.lanes();
+  const size_t plane = static_cast<size_t>(a.R) * cp;
+  const size_t per_plane = static_cast<size_t>(qhi - qlo) * cp;
+  double acc = 0.0;
+  for (size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       idx < planes * per_plane;
+       idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int c = idx >= per_plane;
+    const size_t r = idx - c * per_plane;
+    const int i = qlo + static_cast<int>(r / cp);
+    const int l = static_cast<int>(r - static_cast<size_t>(i - qlo) * cp);
+    const int gy = a.goy + i;
+    const int p = pphase(c, gy, a.gox);
+    const int lx = 2 * l + p;
+    if (lx < slo || lx >= shi || !upd(gy, a.gox + lx)) continue;
+    const size_t k = static_cast<size_t>(i) * cp + l;
+    const T res = presidual(u + c * plane, u + (1 - c) * plane,
+                            b[c * plane + k], k, static_cast<size_t>(cp), p,
+                            cf);
+    acc += static_cast<double>(res) * static_cast<double>(res);
+  }
+  const double total = block_sum<kLaneThreads>(acc);
+  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+}
+
+// A residual norm's second pass: one block of NT threads sums the first
+// pass's float64 partials in a fixed order, so the result does not depend on
+// the blocks' timing.
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT)
+sum_partials(const double* __restrict__ partial, int count,
+             T* __restrict__ out) {
+  double acc = 0.0;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) acc += partial[i];
+  const double total = block_sum<NT>(acc);
+  if (threadIdx.x == 0) out[0] = static_cast<T>(total);
+}
+
+// Launch presidual_kernel on the array a; returns cudaGetLastError().
+template <typename T, typename Upd>
+int launch_presidual(const void* u, const void* b, void* out, const PRect& a,
+                     const Upd& upd, double h, double sigma, bool has_b,
+                     void* stream) {
+  const size_t total = 2 * static_cast<size_t>(a.R) * a.lanes();
+  const unsigned blocks =
+      static_cast<unsigned>((total + kLaneThreads - 1) / kLaneThreads);
+  const auto kernel = has_b ? presidual_kernel<T, true, Upd>
+                            : presidual_kernel<T, false, Upd>;
+  kernel<<<blocks, kLaneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const T*>(b),
+      static_cast<T*>(out), a, upd, Coef<T>::make(h, sigma, 1.0));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Both passes of the residual norm over rows [qlo, qhi) and columns
+// [slo, shi) of the array a (`blocks` partials in `partial`), the sum into
+// out[0]; returns the first launch error.
+template <typename T, typename Upd>
+int launch_presnorm(const void* u, const void* b, void* partial, void* out,
+                    const PRect& a, const Upd& upd, int qlo, int qhi,
+                    int slo, int shi, double h, double sigma, int red_only,
+                    int blocks, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  presnorm_partial<T, Upd><<<blocks, kLaneThreads, 0, s>>>(
+      static_cast<const T*>(u), static_cast<const T*>(b),
+      static_cast<double*>(partial), a, upd, qlo, qhi, slo, shi,
+      Coef<T>::make(h, sigma, 1.0), red_only ? 1 : 2);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  sum_partials<T, kLaneThreads><<<1, kLaneThreads, 0, s>>>(
+      static_cast<const double*>(partial), blocks, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mg

@@ -33,17 +33,25 @@ Routes, by level (read when called: ``kernels.KERNEL_MIN_N``,
     sweep caps, n >= KERNEL_MIN_N, tiles at least HALO_ROWS deep): the cycle
     runs on extended tiles, one ``local2d.down_leg`` and one ``up_leg`` a
     level, with ghost-slab refreshes between (``_leg_cycle_ext``);
+  * the colour-packed fine level (``_pack_level_ok``: a whole-leg finest
+    level with n >= PACK_MIN_N): the same legs on packed extended tiles,
+    ``plocal2d.down_leg`` and ``up_leg``; the tile's layout is its rank
+    (rank 3: packed). The solve loops, sharded MG-PCG and ``v_cycles_fn``
+    pack b and x once and carry them packed, the check is the fused
+    ``plocal2d.residual_norm_sq`` and PCG's apply is ``plocal2d.apply_op``;
+    the down leg emits the coarse right-hand side unpacked, so every
+    coarser level is unchanged. ``v_cycle_fn`` (one cycle, owned tiles in
+    and out) stays unpacked, as JAX's per-application entry does;
   * other sharded levels: the owned-tile route, ``s_smooth``/``s_residual``
     (the ``local2d`` sweeps and residual on kernel-sized tiles, the plain
     halo-exchanging stencils below) and the plain ``s_restrict``/``s_prolong``;
   * levels too small to shard (``_is_sharded``): gathered onto every rank and
     solved there by the plain single-device cycle.
-A colour-packed fine level (``_pack_level_ok``: n >= PACK_MIN_N, which JAX
-runs on the ``plocal2d`` kernels), MG-PCG, the eigensolvers, FMG, 3D slabs
-and pencils and mixed precision are not ported: they raise
-``NotImplementedError`` naming their ROADMAP.md item. JAX's ``*_pallas``
-helpers are ``*_kernel`` here, and its ``_ext_aligned`` is ``_ext_tile``:
-the port keeps every tile at its logical extent, with no alignment padding.
+The eigensolvers, FMG, 3D slabs and pencils and mixed precision are not
+ported: they raise ``NotImplementedError`` naming their ROADMAP.md item.
+JAX's ``*_pallas`` helpers are ``*_kernel`` here, and its ``_ext_aligned``
+is ``_ext_tile``: the port keeps every tile at its logical extent, with no
+alignment padding.
 """
 from __future__ import annotations
 
@@ -61,19 +69,14 @@ from ..grids import (Hierarchy, build_hierarchy, check_device, interior,
 from ..ops import laplacian, smoothers, transfer
 from ..solvers import cycles
 
-_ITEM = "(ROADMAP.md, queue 1 item 7: sharded {})"
-PACKED_TODO = ("the colour-packed sharded fine level (n >= "
-               "kernels.PACK_MIN_N) runs JAX's plocal2d kernels, not ported "
-               "yet "
-               + _ITEM.format("packed tier, plocal2d"))
-PCG_TODO = "sharded MG-PCG is not ported yet " + _ITEM.format("pcg")
+_ITEM = "(ROADMAP.md, queue 1: sharded {})"
 EIGEN_TODO = ("the sharded eigensolvers are not ported yet "
               + _ITEM.format("eigensolvers"))
 FMG_TODO = "sharded full multigrid is not ported yet " + _ITEM.format("fmg")
 SLAB_TODO = ("sharded 3D solves (slabs and pencils) are not ported yet "
              + _ITEM.format("3D slabs and pencils"))
 MIXED_TODO = ("sharded solves with precond_dtype={pd}: mixed precision is not "
-              "ported yet (ROADMAP.md, queue 1 item 3: mixed precision)")
+              "ported yet (ROADMAP.md, queue 1: mixed precision)")
 
 
 # ---------------------------------------------------------------------------
@@ -455,11 +458,15 @@ def s_prolong(e, nc, decomp: Decomp):
     return torch.where(mask, e, torch.zeros_like(e)).contiguous()
 
 
-def _psum_sq(x, decomp: Decomp) -> torch.Tensor:
-    """Sum of squares over every rank's tile (a 0-d tensor)."""
-    s = torch.sum(x * x)
+def _psum(s: torch.Tensor, decomp: Decomp) -> torch.Tensor:
+    """Sum of a fresh 0-d tensor over every rank, in place."""
     dist.all_reduce(s, group=decomp.mesh.group)
     return s
+
+
+def _psum_sq(x, decomp: Decomp) -> torch.Tensor:
+    """Sum of squares over every rank's tile (a 0-d tensor)."""
+    return _psum(torch.sum(x * x), decomp)
 
 
 # ---------------------------------------------------------------------------
@@ -497,25 +504,113 @@ def _refresh_ext(ue, decomp: Decomp, hh: int, ms):
     """Exchange the ghost slabs of an extended tile again, in place (after
     a kernel the owned region is exact and the ghosts are stale), rows
     first, then columns; ``ms``: owned extent per sharded axis. Returns
-    ``ue``."""
-    if ue.ndim == 3:
-        raise NotImplementedError(PACKED_TODO)
+    ``ue``.
+
+    A colour-packed tile (rank 3, ``kernels/plocal2d.py``) refreshes the
+    same way: row slabs move on the plane axis + 1, column slabs are hh/2
+    lanes of both planes (hh unpacked columns; a column neighbour's tile is
+    mcol columns on, mcol even, so its packing phase is the same)."""
+    packed = ue.ndim == 3
     for (a, ma, _), m in zip(decomp.axes, ms):
-        v = ue.movedim(a, 0)
-        near, far = _swap(v[m:hh + m], v[hh:2 * hh], decomp.mesh, ma)
-        v[0:hh] = near
-        v[hh + m:2 * hh + m] = far
+        if packed:
+            axis, hloc, mloc = (1, hh, m) if a == 0 else (2, hh // 2, m // 2)
+        else:
+            axis, hloc, mloc = a, hh, m
+        v = ue.movedim(axis, 0)
+        near, far = _swap(v[mloc:hloc + mloc], v[hloc:2 * hloc], decomp.mesh,
+                          ma)
+        v[0:hloc] = near
+        v[hloc + mloc:2 * hloc + mloc] = far
     return ue
 
 
 def _pack_level_ok(cfg: SolverConfig, decomp: Decomp, level: int) -> bool:
-    """The level would be colour-packed in JAX (the finest, with n >=
-    kernels.PACK_MIN_N, on the whole-leg route): its plocal2d tier is not
-    ported, and the solve raises there."""
+    """The level's extended tiles live colour-packed and run the plocal2d
+    legs: the finest level, n >= kernels.PACK_MIN_N, on the whole-leg route.
+    Exactly one level packs: the packed down leg emits its coarse
+    right-hand side unpacked."""
     from .. import kernels
 
     return (level == 0 and 2 ** cfg.k - 1 >= kernels.PACK_MIN_N
             and _leg_level_ok(cfg, decomp, level))
+
+
+def _cpar(decomp: Decomp) -> int:
+    """Parity of a tile's global column offset, the packing phase
+    (``plocal2d.pack_ext``): 0 when the columns carry the global padding
+    (rows), 1 when they are sharded (col_off = d*mcol + 1 - hh, odd)."""
+    return 1 if len(decomp.axes) == 2 else 0
+
+
+def _packed_owned(decomp: Decomp, ms):
+    """Owned slices of a packed extended tile: rows [hh, hh + m); all lanes
+    on a row decomposition (the kernels zero the non-interior ones), the
+    owned lanes [hh/2, hh/2 + mcol/2) on a block one."""
+    from ..kernels.local2d import HALO_ROWS as hh
+
+    lanes = (slice(hh // 2, hh // 2 + ms[1] // 2) if len(ms) == 2
+             else slice(None))
+    return (slice(None), slice(hh, hh + ms[0]), lanes)
+
+
+class _Carried:
+    """The tiles the solve loops, sharded PCG and ``v_cycles_fn`` carry on
+    the whole-leg route: extended tiles, colour-packed when the fine level
+    packs (``_pack_level_ok``), entered once and left once (JAX's
+    ``_ext_aligned`` and ``pack_ext`` at a loop's start, ``unpack_ext`` and
+    the owned slice at its end). ``x``: an owned fine tile."""
+
+    def __init__(self, cfg: SolverConfig, decomp: Decomp, x):
+        from ..kernels.local2d import HALO_ROWS
+
+        self.decomp = decomp
+        self.hh = HALO_ROWS
+        self.packed = _pack_level_ok(cfg, decomp, 0)
+        self.ms = tuple(x.shape[a] for a, _, _ in decomp.axes)
+        self.mcol = self.ms[1] if len(self.ms) == 2 else 0
+        self.row_off, self.col_off, self.owned = _local_offsets(
+            x, decomp, self.hh)
+        self.cols = self.mcol + 2 * self.hh if self.mcol else x.shape[1]
+        self.cpar = _cpar(decomp)
+        # The owned points of a carried tile (dots and norms).
+        self.owned_carried = (_packed_owned(decomp, self.ms) if self.packed
+                              else self.owned)
+
+    def enter(self, t):
+        from ..kernels import plocal2d
+
+        e = _ext_tile(t, self.decomp, self.hh)
+        return plocal2d.pack_ext(e, self.cpar) if self.packed else e
+
+    def leave(self, e):
+        from ..kernels import plocal2d
+
+        if self.packed:
+            e = plocal2d.unpack_ext(e, self.cols, self.cpar)
+        return e[self.owned].contiguous()
+
+    def refresh(self, e):
+        return _refresh_ext(e, self.decomp, self.hh, self.ms)
+
+    def residual(self, xe, be, n, h):
+        """b - A x on a refreshed carried tile (its layout's kernel)."""
+        from ..kernels import local2d, plocal2d
+
+        legs = plocal2d if self.packed else local2d
+        return legs.residual(xe, be, n, h, self.row_off, self.col_off)
+
+    def residual_norm_sq(self, xe, be, n, h, red_only=False):
+        """||b - A x||^2 over this rank's owned points of a refreshed
+        carried tile: the fused norm on a packed tile (``red_only`` right
+        after an RB-GS cycle), the residual and a sum otherwise."""
+        from ..kernels import plocal2d
+
+        if self.packed:
+            return plocal2d.residual_norm_sq(
+                xe, be, n, h, self.ms[0], self.row_off, self.col_off,
+                mcol=self.mcol, red_only=red_only)
+        ro = self.residual(xe, be, n, h)[self.owned]
+        return torch.sum(ro * ro)
 
 
 def _ext_coarse_tile(ec, decomp: Decomp, hh: int):
@@ -699,12 +794,18 @@ def _leg_cycle_ext(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
     smooth^nu2) are one local2d launch each; the down leg emits the coarse
     right-hand side in the extended convention, so a coarse leg level is
     one ghost refresh away, and its up leg's output is this level's
-    correction operand. xe's ghosts may be stale unless ``fresh``; they are
-    refreshed in place. Returns the post-smoothed extended tile (ghosts
-    stale)."""
-    from ..kernels import local2d
+    correction operand. xe and be are unpacked extended tiles, or packed
+    ones (rank 3) on a level that packs (``_pack_level_ok``): they run the
+    plocal2d legs, whose coarse right-hand side is unpacked, so the levels
+    below are the same either way. xe's ghosts may be stale unless
+    ``fresh``; they are refreshed in place. Returns the post-smoothed
+    extended tile (ghosts stale) in the level's layout."""
+    from ..kernels import local2d, plocal2d
 
     hh = local2d.HALO_ROWS
+    # The layout is the caller's (the tile's rank): the solve loops pack,
+    # the one-cycle entries stay unpacked.
+    legs = plocal2d if xe.ndim == 3 else local2d
     spec = hier.levels[level]
     n, h = spec.n, spec.h
     omega = cfg.effective_omega()
@@ -723,9 +824,9 @@ def _leg_cycle_ext(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
         ms, mcs = (m,), (mc,)
     if not fresh:
         xe = _refresh_ext(xe, decomp, hh, ms)
-    us_ext, rc_ext = local2d.down_leg(xe, be, n, h, m, row_off, col_off,
-                                      kind=cfg.smoother, omega=omega,
-                                      sweeps=cfg.nu1, sigma=sigma, mcol=mcol)
+    us_ext, rc_ext = legs.down_leg(xe, be, n, h, m, row_off, col_off,
+                                   kind=cfg.smoother, omega=omega,
+                                   sweeps=cfg.nu1, sigma=sigma, mcol=mcol)
     ncoarse = hier.levels[level + 1].n
 
     def rc_owned():
@@ -760,9 +861,9 @@ def _leg_cycle_ext(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
                                      gamma=gamma)
         ee = _slice_coarse_ext(ec_full, decomp, hh)
     xe2 = _refresh_ext(us_ext, decomp, hh, ms)
-    return local2d.up_leg(xe2, ee, be, n, ncoarse, h, m, row_off, col_off,
-                          kind=cfg.smoother, omega=omega, sweeps=cfg.nu2,
-                          sigma=sigma, mcol=mcol)
+    return legs.up_leg(xe2, ee, be, n, ncoarse, h, m, row_off, col_off,
+                       kind=cfg.smoother, omega=omega, sweeps=cfg.nu2,
+                       sigma=sigma, mcol=mcol)
 
 
 def _sharded_v_cycle_leg(hier: Hierarchy, cfg: SolverConfig,
@@ -913,32 +1014,25 @@ class ShardedSolver:
         n, h = hier.fine.n, hier.fine.h
         b_norm = torch.sqrt(_psum_sq(b, decomp))
         b_norm = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
+        tiles = None
         if _leg_level_ok(cfg, decomp, 0):
-            if _pack_level_ok(cfg, decomp, 0):
-                raise NotImplementedError(PACKED_TODO)
-            # Extended tiles carried across cycles: b's is built once, and
-            # the check's residual runs on the refreshed tile the next
-            # cycle takes.
-            from ..kernels import local2d
+            # Extended tiles (colour-packed if the fine level packs)
+            # carried across cycles: b's is built once, and the check runs
+            # on the refreshed tile the next cycle takes.
+            tiles = _Carried(cfg, decomp, x)
+            be = tiles.enter(b)
+            x = tiles.enter(x)
 
-            hh = local2d.HALO_ROWS
-            ms = tuple(x.shape[a] for a, _, _ in decomp.axes)
-            row_off, col_off, owned = _local_offsets(x, decomp, hh)
-            be = _ext_tile(b, decomp, hh)
-            x = _ext_tile(x, decomp, hh)
-
-            def res_rel(xe):
-                ro = local2d.residual(xe, be, n, h, row_off, col_off)[owned]
-                return torch.sqrt(_psum_sq(ro, decomp)) / b_norm
+            def res_rel(xe, red_only=False):
+                nrm2 = tiles.residual_norm_sq(xe, be, n, h, red_only)
+                return torch.sqrt(_psum(nrm2, decomp)) / b_norm
 
             def one_cycle(xe):
                 xe = _leg_cycle_ext(hier, cfg, decomp, xe, be, 0, gamma,
                                     0.0, fresh=True)
-                return _refresh_ext(xe, decomp, hh, ms)
+                return tiles.refresh(xe)
         else:
-            owned = None
-
-            def res_rel(xx):
+            def res_rel(xx, red_only=False):
                 r = s_residual(xx, b, n, h, decomp,
                                use_kernels=cfg.use_kernels)
                 return torch.sqrt(_psum_sq(r, decomp)) / b_norm
@@ -946,34 +1040,105 @@ class ShardedSolver:
             def one_cycle(xx):
                 return _sharded_v_cycle(hier, cfg, decomp, xx, b, 0, gamma)
 
+        # After a cycle the closing black half-sweep of RB-GS zeroes the
+        # black residual: the packed check sums the red points only.
+        post_red = cfg.smoother == "rbgs" and cfg.nu2 >= 1
         hist = [res_rel(x)]
         rel = hist[0].item()                       # host sync
         stall = div = 0
         while (rel >= cfg.tol and len(hist) <= cfg.max_iters
                and cycles.guards_ok(stall, div)):
             x = one_cycle(x)
-            hist.append(res_rel(x))
+            hist.append(res_rel(x, red_only=post_red))
             new_rel = hist[-1].item()              # host sync, once a cycle
             stall, div = cycles.step_guards(new_rel, rel, stall, div)
             rel = new_rel
         iters = len(hist) - 1
         # Entries past `iters` repeat the final residual.
         hist += [hist[-1]] * (cfg.max_iters - iters)
-        if owned is not None:
-            x = x[owned].contiguous()
+        if tiles is not None:
+            x = tiles.leave(x)
         return x, iters, torch.stack(hist), rel < cfg.tol
+
+    def _solve_pcg(self, b, x0):
+        """Sharded MG-PCG (JAX's ``_build_pcg``): ``krylov.cg_loop`` with
+        one sharded cycle from zero as the preconditioner and every dot
+        summed over the mesh. On the whole-leg route the whole recurrence
+        runs on carried tiles (colour-packed when the fine level packs):
+        linear combinations keep exact ghosts, each kernel refreshes its
+        operand's ghost slabs first, and dots sum the owned points only.
+        The apply is ``plocal2d.apply_op`` on a packed tile, -residual(p,
+        0) on an unpacked one (the local2d kernel, or ``s_residual`` on
+        owned tiles)."""
+        from ..solvers.krylov import cg_loop
+
+        cfg, hier, decomp = self.config, self.hierarchy, self.decomp
+        gamma = 2 if cfg.cycle == "w" else 1
+        n, h = hier.fine.n, hier.fine.h
+        if _leg_level_ok(cfg, decomp, 0):
+            from ..kernels import plocal2d
+
+            tiles = _Carried(cfg, decomp, x0)
+            be = tiles.enter(b)
+            xe = tiles.enter(x0)
+            own = tiles.owned_carried
+
+            def dot(u, v):
+                return _psum(torch.sum(u[own] * v[own]), decomp)
+
+            if tiles.packed:
+                def apply_a(pe):
+                    return plocal2d.apply_op(tiles.refresh(pe), n, h,
+                                             tiles.row_off, tiles.col_off)
+            else:
+                zeros = torch.zeros_like(be)
+
+                def apply_a(pe):
+                    return -tiles.residual(tiles.refresh(pe), zeros, n, h)
+
+            def precond(re):
+                rf = tiles.refresh(re)
+                return _leg_cycle_ext(hier, cfg, decomp, torch.zeros_like(rf),
+                                      rf, 0, gamma, 0.0, fresh=True)
+
+            def residual(xx, bb):
+                return tiles.residual(tiles.refresh(xx), bb, n, h)
+
+            x, iters, hist, rel = cg_loop(
+                xe, be, dot=dot, apply_a=apply_a, precond=precond,
+                residual=residual, tol=cfg.tol, max_iters=cfg.max_iters)
+            return tiles.leave(x), iters, hist, rel < cfg.tol
+
+        def dot(u, v):
+            return _psum(torch.sum(u * v), decomp)
+
+        def apply_a(p):
+            return -s_residual(p, torch.zeros_like(p), n, h, decomp,
+                               use_kernels=cfg.use_kernels)
+
+        def precond(r):
+            return _sharded_v_cycle(hier, cfg, decomp, torch.zeros_like(r), r,
+                                    0, gamma)
+
+        def residual(xx, bb):
+            return s_residual(xx, bb, n, h, decomp,
+                              use_kernels=cfg.use_kernels)
+
+        x, iters, hist, rel = cg_loop(
+            x0, b, dot=dot, apply_a=apply_a, precond=precond,
+            residual=residual, tol=cfg.tol, max_iters=cfg.max_iters)
+        return x, iters, hist, rel < cfg.tol
 
     def solve(self, b_padded, x0=None, method: str = "mg"
               ) -> cycles.SolveResult:
-        """Solve A x = b on the mesh. Every rank passes the full padded
-        right-hand side (a tensor or an array) and gets the full padded
-        solution back. ``x0`` (the full padded grid) warm-starts the
-        iteration."""
-        if method == "pcg":
-            raise NotImplementedError(PCG_TODO)
-        if method != "mg":
+        """Solve A x = b on the mesh, by cycles (``method="mg"``) or MG-PCG
+        (``"pcg"``, one V- or W-cycle a preconditioning). Every rank passes
+        the full padded right-hand side (a tensor or an array) and gets the
+        full padded solution back. ``x0`` (the full padded grid)
+        warm-starts the iteration."""
+        if method not in ("mg", "pcg"):
             raise ValueError(f"unknown solve method {method!r}")
-        if self.config.cycle == "fmg":
+        if method == "mg" and self.config.cycle == "fmg":
             raise NotImplementedError(FMG_TODO)
         dtype = self.config.dtype
         b_sh = shard_rhs(torch.as_tensor(b_padded).to(dtype), self.mesh,
@@ -984,7 +1149,8 @@ class ShardedSolver:
             # The ops rely on zero ghosts: strip whatever the caller gave.
             x0p = pad_interior(interior(torch.as_tensor(x0).to(dtype)))
             x0_sh = shard_rhs(x0p, self.mesh, self.decomp)
-        x, iters, hist, conv = self._solve_mg(b_sh, x0_sh)
+        run = self._solve_mg if method == "mg" else self._solve_pcg
+        x, iters, hist, conv = run(b_sh, x0_sh)
         return cycles.SolveResult(x=unshard(x, self.decomp), iters=iters,
                                   res_history=hist, converged=conv)
 
@@ -992,8 +1158,9 @@ class ShardedSolver:
         raise NotImplementedError(EIGEN_TODO)
 
     def v_cycle_fn(self):
-        """One sharded cycle from the finest level, owned tiles in and out
-        (for timing and for tests)."""
+        """One sharded cycle from the finest level, owned tiles in and out,
+        unpacked at any PACK_MIN_N (JAX's per-application entry: packing
+        a tile for one cycle costs more than the packed cycle saves)."""
         cfg, hier, decomp = self.config, self.hierarchy, self.decomp
         gamma = 2 if cfg.cycle == "w" else 1
 
@@ -1001,3 +1168,31 @@ class ShardedSolver:
             return _sharded_v_cycle(hier, cfg, decomp, x, b, 0, gamma)
 
         return one_cycle
+
+    def v_cycles_fn(self):
+        """fn(x_tiles, b_tiles, m) -> x_tiles: m >= 1 chained cycles, what
+        the solve loop runs between its checks. On the whole-leg route the
+        chain carries the extended tile (colour-packed when
+        ``_pack_level_ok`` holds): b's is built once, x is entered once,
+        its ghost slabs are refreshed between cycles, and it is left once
+        at the end. JAX's ``v_cycles_fn``, so the oracle for packed
+        iterates."""
+        cfg, hier, decomp = self.config, self.hierarchy, self.decomp
+        gamma = 2 if cfg.cycle == "w" else 1
+
+        def many(x, b, m: int):
+            if m < 1:
+                raise ValueError(f"v_cycles_fn runs m >= 1 cycles, got {m}")
+            if _leg_level_ok(cfg, decomp, 0):
+                tiles = _Carried(cfg, decomp, x)
+                be = tiles.enter(b)
+                xe = tiles.enter(x)
+                for i in range(m):
+                    xe = _leg_cycle_ext(hier, cfg, decomp, xe, be, 0, gamma,
+                                        0.0, fresh=(i == 0))
+                return tiles.leave(xe)
+            for _ in range(m):
+                x = _sharded_v_cycle(hier, cfg, decomp, x, b, 0, gamma)
+            return x
+
+        return many

@@ -491,7 +491,7 @@ def test_import_guard_covers_parallel():
     local2d wrappers included."""
     covered = set(PORT.rglob("*.py"))
     for rel in ("parallel/__init__.py", "parallel/sharded.py",
-                "kernels/local2d.py"):
+                "kernels/local2d.py", "kernels/plocal2d.py"):
         assert PORT / rel in covered
 
 
@@ -540,6 +540,79 @@ def test_local2d_wrappers_raise_on_cuda_without_a_card():
     assert (local2d.rbgs_launches, local2d.jacobi_launches,
             local2d.residual_launches, local2d.down_launches,
             local2d.up_launches) == (0,) * 5
+
+
+def _packed_tiles(device, dtype=torch.float64):
+    """A row tile of 63^2 (m = 16) packed, b, and its coarse tile."""
+    u = torch.zeros((2, 32, 33), dtype=dtype, device=device)
+    return u, u.clone(), torch.zeros((24, 33), dtype=dtype, device=device)
+
+
+def _plocal2d_calls(u, b, e):
+    from multigridcmt_tpu_torch.kernels import plocal2d
+
+    kw = dict(kind="rbgs", omega=1.0, sweeps=2)
+    h = 1 / 64
+    return {
+        "residual": (lambda: plocal2d.residual(u, b, 63, h, -7),
+                     lambda: plocal2d.residual_plain(u, b, 63, h, -7)),
+        "apply_op": (lambda: plocal2d.apply_op(u, 63, h, -7),
+                     lambda: plocal2d.apply_op_plain(u, 63, h, -7)),
+        "down_leg": (lambda: plocal2d.down_leg(u, b, 63, h, 16, -7, **kw),
+                     lambda: plocal2d.down_leg_plain(u, b, 63, h, 16, -7,
+                                                     **kw)),
+        "up_leg": (lambda: plocal2d.up_leg(u, e, b, 63, 31, h, 16, -7, **kw),
+                   lambda: plocal2d.up_leg_plain(u, e, b, 63, 31, h, 16, -7,
+                                                 **kw)),
+        "residual_norm_sq": (
+            lambda: plocal2d.residual_norm_sq(u, b, 63, h, 16, -7),
+            lambda: plocal2d.residual_norm_sq_plain(u, b, 63, h, 16, -7)),
+    }
+
+
+def _plocal2d_launches():
+    from multigridcmt_tpu_torch.kernels import plocal2d
+
+    return (plocal2d.residual_launches, plocal2d.apply_launches,
+            plocal2d.down_launches, plocal2d.up_launches,
+            plocal2d.resnorm_launches)
+
+
+@pytest.mark.parametrize("device", ["cpu", "fake-cuda", "bf16"])
+def test_plocal2d_wrappers_follow_the_device_rule(device):
+    """A CPU tensor takes the plain version (no launch counted); a CUDA
+    tensor takes the kernel route, which raises with no card and never runs
+    the plain version; bfloat16 storage raises the mixed-precision
+    error."""
+    import warnings
+
+    if device == "cpu":
+        gen = torch.Generator().manual_seed(1)
+        u, b, e = (torch.randn(t.shape, generator=gen, dtype=torch.float64)
+                   for t in _packed_tiles("cpu"))
+        u[..., -1] = b[..., -1] = 0.0     # a row tile's pad lanes
+        for name, (call, plain) in _plocal2d_calls(u, b, e).items():
+            got, want = call(), plain()
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                assert torch.equal(g, w), name
+    elif device == "bf16":
+        for name, (call, _) in _plocal2d_calls(
+                *_packed_tiles("cpu", torch.bfloat16)).items():
+            with pytest.raises(NotImplementedError, match="mixed precision"):
+                call()
+    else:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        mode = FakeTensorMode()
+        with mode:
+            tiles = _packed_tiles("cuda")
+        with mode, warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # data_ptr of a fake tensor
+            for call, _ in _plocal2d_calls(*tiles).values():
+                with pytest.raises(RuntimeError):
+                    call()
+    assert _plocal2d_launches() == (0,) * 5
 
 
 def _tile(rows=32, cols=32, dtype=torch.float64):
@@ -614,35 +687,61 @@ def _sharded_solver(**kw):
 
 
 @pytest.mark.parametrize("call,item", [
-    ("pcg", "sharded pcg"),
     ("eigensolve", "sharded eigensolvers"),
     ("fmg", "sharded fmg"),
     ("ndim3", "sharded 3D slabs and pencils"),
-    ("packed", "sharded packed tier, plocal2d"),
     ("precond_dtype", "mixed precision"),
+    ("pcg_precond_dtype", "mixed precision"),
 ])
 def test_unported_sharded_routes_raise(call, item, world_of_one,
                                        monkeypatch):
-    """Each names its ROADMAP.md item; none reroutes. A packed fine level
-    (n >= PACK_MIN_N on the leg route) raises where JAX would run
-    plocal2d."""
+    """Each names its ROADMAP.md item; none reroutes. Mixed precision
+    raises for the cycles and for PCG alike."""
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 30)
     monkeypatch.setattr(kernels, "PACK_MIN_N", 60)
     b = mt.poisson2d(k=6, dtype=torch.float64, device="cpu").b
     with pytest.raises(NotImplementedError, match="ROADMAP") as info:
-        if call == "pcg":
-            _sharded_solver(k=6).solve(b, method="pcg")
-        elif call == "eigensolve":
+        if call == "eigensolve":
             _sharded_solver(k=6).eigensolve(k=1)
         elif call == "fmg":
             _sharded_solver(k=6, cycle="fmg").solve(b)
         elif call == "ndim3":
             _sharded_solver(k=5, ndim=3)
-        elif call == "packed":
-            _sharded_solver(k=6).solve(b)
-        else:
+        elif call == "precond_dtype":
             _sharded_solver(k=6, precond_dtype=torch.float32)
+        else:
+            _sharded_solver(k=6, precond_dtype=torch.float32).solve(
+                b, method="pcg")
     assert item in str(info.value)
+
+
+@pytest.mark.parametrize("method,pack_min_n", [
+    ("mg", 60), ("pcg", 60), ("pcg", 64)],
+    ids=["packed", "pcg-packed", "pcg"])
+def test_packed_and_pcg_sharded_routes_run(method, pack_min_n, world_of_one,
+                                           monkeypatch):
+    """On a mesh of 1 the packed solve (the 63 level on plocal2d, PACK_MIN_N
+    60) and sharded MG-PCG, packed and not, equal the port's single-device
+    solve with the same thresholds: equal iterations, histories to rtol
+    1e-10 down to the rounding floor (1e-12)."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    monkeypatch.setattr(kernels, "KERNEL_MIN_N", 30)
+    monkeypatch.setattr(kernels, "PACK_MIN_N", pack_min_n)
+    prob = mt.poisson2d(k=6, dtype=torch.float64, smoother="rbgs",
+                        use_kernels=True, agglom_rows=4, tol=1e-9,
+                        device="cpu")
+    solver = _sharded_solver(k=6, tol=1e-9)
+    assert sharded._pack_level_ok(solver.config, solver.decomp, 0) == (
+        pack_min_n <= 63)
+    got = solver.solve(prob.b, method=method)
+    want = mt.MultigridSolver(prob).solve(method=method)
+    assert got.converged and got.iters == want.iters
+    np.testing.assert_allclose(got.res_history.numpy(),
+                               want.res_history.numpy(), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=1e-8,
+                               atol=1e-12)
 
 
 def test_packed_threshold_is_read_when_called(world_of_one, monkeypatch):
@@ -678,18 +777,36 @@ def test_sharded_warm_start(world_of_one, monkeypatch):
                                atol=1e-9 * first.x.abs().max().item())
 
 
-def test_chip_smoke_lists_the_local2d_kernels():
+def _chip_smoke_rows(module: str) -> dict:
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    local = {name: row for name, row in smoke.KERNELS.items()
-             if row[0] == "local2d"}
-    assert sorted(r[3] for r in local.values()) == sorted(
-        f"multigridcmt_tpu/kernels/local2d.py:{line}"
-        for line in (263, 278, 289, 616, 843))
-    assert all(r[2] == "multigridcmt_tpu_torch/kernels/csrc/local2d.cu"
-               for r in local.values())
-    assert len(smoke.KERNELS) == 22
+    assert len(smoke.KERNELS) == 27
+    return {name: row for name, row in smoke.KERNELS.items()
+            if row[0] == module}
+
+
+def _check_listed(module: str, lines) -> None:
+    rows = _chip_smoke_rows(module)
+    assert sorted(r[3] for r in rows.values()) == sorted(
+        f"multigridcmt_tpu/kernels/{module}.py:{line}" for line in lines)
+    assert all(r[2] == f"multigridcmt_tpu_torch/kernels/csrc/{module}.cu"
+               for r in rows.values())
+
+
+def test_chip_smoke_lists_the_local2d_kernels():
+    _check_listed("local2d", (263, 278, 289, 616, 843))
+
+
+def test_chip_smoke_lists_the_plocal2d_kernels():
+    """The five plocal2d entry points, each on the path that launches it on
+    the card: the legs and the norm on S1, the residual and the apply on
+    S1pcg."""
+    _check_listed("plocal2d", (262, 501, 708, 855, 982))
+    rows = _chip_smoke_rows("plocal2d")
+    assert {name: row[4] for name, row in rows.items()} == {
+        "plocal2d_down": "S1", "plocal2d_up": "S1", "plocal2d_resnorm": "S1",
+        "plocal2d_residual": "S1pcg", "plocal2d_apply": "S1pcg"}

@@ -2,12 +2,20 @@
 gloo worlds of CPU processes, against the JAX ShardedSolver on the same
 number of the conftest's virtual devices (Pallas kernels in interpret mode,
 PALLAS_MIN_N = 30; the port's ranks set KERNEL_MIN_N = 30 to match, and
-their local2d wrappers take the plain versions on CPU tensors).
+their local2d and plocal2d wrappers take the plain versions on CPU
+tensors).
 
 Each world is spawned once and runs several cases; its ranks import torch
 and the port only (this module imports JAX inside its fixtures). Ranks talk
 over the loopback interface, and a world that does not finish in time is
 killed and fails its tests.
+
+The packed cases set PACK_MIN_N = 30 on both sides at k = 8, so the 255
+level is colour-packed (plocal2d). At m = 128 owned rows the JAX packed
+norm counts a window's overlap rows twice (ROADMAP.md queue 3, F1): there
+the packed iterates are held against JAX's v_cycles_fn, cycle by cycle,
+and the packed solve's history against the port's single-device packed
+solve; JAX's packed history is compared only at m = 64.
 """
 import os
 import tempfile
@@ -25,24 +33,49 @@ from multigridcmt_tpu_torch.kernels import local2d
 from multigridcmt_tpu_torch.parallel import sharded
 
 KERNEL_MIN_N = 30
-WORLD_TIMEOUT_S = 180
+PACK_MIN_N = 30
+WORLD_TIMEOUT_S = 300
 BASE = dict(dtype=torch.float64, tol=1e-9, agglom_rows=4, use_kernels=True)
 LEG_FUNCS = ("down_leg", "up_leg", "rbgs_sweep", "jacobi_sweep", "residual")
+PACKED_FUNCS = ("down_leg", "up_leg", "residual", "apply_op",
+                "residual_norm_sq")
+# Cycles chained by v_cycles_fn in the "chain" cases.
+CHAIN = (1, 2, 3)
 
-# world -> (mesh shape, {case: config overrides}). "single" cases are held
-# against the port's single-device solve (cycles.solve) instead of JAX.
+# world -> (mesh shape, {case: settings}). A case's settings are config
+# overrides and
+#   pack: PACK_MIN_N on both sides (the fine level packs);
+#   method: "mg" (default) or "pcg";
+#   ref: what the case is held against: "jax" (default), JAX's
+#     ShardedSolver.solve; "single", the port's single-device solve
+#     (cycles.solve); "chain", the port's single-device solve and, after
+#     each of CHAIN cycles, JAX's v_cycles_fn iterates; "jax-x", JAX's
+#     solve without its history (F1 at m = 128) and the port's
+#     single-device solve's history.
 WORLDS = {
     # m = 32 rows a rank at k=6: one interior boundary.
-    "rows2": ((2,), {"rbgs": dict(k=6, smoother="rbgs")}),
+    "rows2": ((2,), {
+        "rbgs": dict(k=6, smoother="rbgs"),
+        # m = 128: several plocal2d blocks and JAX windows a tile.
+        "packed": dict(k=8, smoother="rbgs", pack=True, ref="chain"),
+        "packed-pcg": dict(k=8, smoother="rbgs", pack=True, method="pcg"),
+        # PCG on the unpacked extended tiles (local2d).
+        "pcg-ext": dict(k=6, smoother="rbgs", method="pcg"),
+    }),
     "rows4": ((4,), {
         # The composed route: V(4,4) exceeds the down leg's sweep cap.
         "rbgs-v44": dict(k=6, smoother="rbgs", nu1=4, nu2=4),
-        "single-k7": dict(k=7, smoother="rbgs"),
+        "single-k7": dict(k=7, smoother="rbgs", ref="single"),
         # Two leg levels, so the second visit of level 1 takes stale ghosts
         # (only the first coarse visit is fresh): against JAX, and against
         # the port's single-device W-cycle.
         "rbgs-w": dict(k=6, smoother="rbgs", cycle="w"),
-        "single-w": dict(k=6, smoother="rbgs", cycle="w"),
+        "single-w": dict(k=6, smoother="rbgs", cycle="w", ref="single"),
+        # m = 64: one JAX window, whose packed norm is exact.
+        "packed-m64": dict(k=8, smoother="rbgs", pack=True),
+        # PCG on owned tiles (the composed route).
+        "pcg-owned": dict(k=6, smoother="rbgs", nu1=4, nu2=4,
+                          method="pcg"),
     }),
     # m = 8 rows a rank at k=6, the least a leg level takes; level 1 (m=4)
     # runs the owned-tile route and its coarse tile is extended with
@@ -51,9 +84,22 @@ WORLDS = {
     "block2x2": ((2, 2), {
         "rbgs": dict(k=6, smoother="rbgs"),
         "chebyshev": dict(k=6, smoother="chebyshev"),
+        # The other packing phase (odd column offset), m = mcol = 128.
+        "packed": dict(k=8, smoother="rbgs", pack=True, ref="jax-x"),
+        "packed-jacobi-pcg": dict(k=8, smoother="jacobi", pack=True,
+                                  method="pcg"),
     }),
     "block4x2": ((4, 2), {"jacobi": dict(k=6, smoother="jacobi")}),
 }
+# Worlds whose ranks check the packed ghost refresh.
+REFRESH_WORLDS = ("rows2", "block2x2")
+SETTINGS = ("pack", "method", "ref")
+
+
+def _config_kw(kw):
+    return {k: v for k, v in kw.items() if k not in SETTINGS}
+
+
 CASES = [(w, c) for w, (_, cases) in WORLDS.items() for c in cases]
 
 
@@ -61,8 +107,8 @@ CASES = [(w, c) for w, (_, cases) in WORLDS.items() for c in cases]
 # Rank side (torch and the port only)
 # ---------------------------------------------------------------------------
 
-def _counting(name, calls):
-    fn = getattr(local2d, name)
+def _counting(module, name, calls):
+    fn = getattr(module, name)
 
     def wrapper(*args, **kwargs):
         calls[name] += 1
@@ -70,11 +116,78 @@ def _counting(name, calls):
     return wrapper
 
 
+def _run_case(mesh, kw, b):
+    """Solve one case on the mesh (counting the local2d and plocal2d
+    calls), with its references on the port's side."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.kernels import plocal2d
+
+    cfg_kw = _config_kw(kw)
+    ref = kw.get("ref", "jax")
+    saved = kernels.PACK_MIN_N
+    if kw.get("pack"):
+        kernels.PACK_MIN_N = PACK_MIN_N
+    counted = [(local2d, LEG_FUNCS, dict.fromkeys(LEG_FUNCS, 0)),
+               (plocal2d, PACKED_FUNCS, dict.fromkeys(PACKED_FUNCS, 0))]
+    originals = [(mod, f, getattr(mod, f)) for mod, fs, _ in counted
+                 for f in fs]
+    try:
+        for mod, fs, calls in counted:
+            for f in fs:
+                setattr(mod, f, _counting(mod, f, calls))
+        cfg = SolverConfig(ndim=2, **BASE, **cfg_kw)
+        s = sharded.ShardedSolver(cfg, mesh)
+        res = s.solve(b, method=kw.get("method", "mg"))
+        got = {"x": res.x, "tile": sharded.shard_rhs(res.x, mesh, s.decomp),
+               "hist": res.res_history, "iters": res.iters,
+               "converged": res.converged, "calls": counted[0][2],
+               "pcalls": counted[1][2],
+               "leg0": sharded._leg_level_ok(cfg, s.decomp, 0),
+               "pack0": sharded._pack_level_ok(cfg, s.decomp, 0)}
+        if ref in ("single", "chain", "jax-x"):
+            prob = mt.poisson2d(device="cpu", **BASE, **cfg_kw)
+            one = mt.solve(prob.hierarchy, b, cfg)
+            got["single"] = {"x": one.x, "hist": one.res_history,
+                             "iters": one.iters}
+        if ref == "chain":
+            many = s.v_cycles_fn()
+            bt = sharded.shard_rhs(b, mesh, s.decomp)
+            got["chain"] = {m: many(torch.zeros_like(bt), bt, m)
+                            for m in CHAIN}
+    finally:
+        for mod, f, fn in originals:
+            setattr(mod, f, fn)
+        kernels.PACK_MIN_N = saved
+    return got
+
+
+def _refresh_check(mesh, grid):
+    """(packed refresh, packed form of the unpacked refresh, unpacked
+    refresh, the exactly extended tile) of this rank's extended tile of
+    ``grid`` whose ghost slabs were overwritten."""
+    from multigridcmt_tpu_torch.kernels import plocal2d
+
+    decomp = sharded.decomp_from_mesh(mesh, 2)
+    hh = local2d.HALO_ROWS
+    u = sharded.shard_rhs(grid, mesh, decomp)
+    ue = sharded._ext_tile(u, decomp, hh)
+    _, _, owned = sharded._local_offsets(u, decomp, hh)
+    junk = ue + 7.0 * (dist.get_rank() + 1)
+    junk[owned] = ue[owned]
+    ms = tuple(u.shape[a] for a, _, _ in decomp.axes)
+    cpar = sharded._cpar(decomp)
+    flat = sharded._refresh_ext(junk.clone(), decomp, hh, ms)
+    packed = sharded._refresh_ext(plocal2d.pack_ext(junk, cpar), decomp,
+                                  hh, ms)
+    return packed, plocal2d.pack_ext(flat, cpar), flat, ue
+
+
 def _run_world(rank, world, init_file, shape, cases, inputs, out_dir):
     """One rank: solve every case on the mesh and save what it saw."""
-    import multigridcmt_tpu_torch as mt
-
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    # Small tiles: one thread a rank, so that the ranks and the JAX
+    # references do not contend for the cores.
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
     try:
@@ -86,31 +199,11 @@ def _run_world(rank, world, init_file, shape, cases, inputs, out_dir):
         tile = torch.full((4, 3), float(rank + 1), dtype=torch.float64)
         out = {"coords": mesh.coords,
                "halo": (sharded.halo_extend(tile, mesh) if len(shape) == 1
-                        else None)}
+                        else None),
+               "refresh": (_refresh_check(mesh, torch.from_numpy(
+                   inputs["refresh"])) if "refresh" in inputs else None)}
         for name, kw in cases.items():
-            cfg = SolverConfig(ndim=2, **BASE, **kw)
-            b = torch.from_numpy(inputs[name])
-            calls = dict.fromkeys(LEG_FUNCS, 0)
-            saved = {f: getattr(local2d, f) for f in LEG_FUNCS}
-            for f in LEG_FUNCS:
-                setattr(local2d, f, _counting(f, calls))
-            try:
-                s = sharded.ShardedSolver(cfg, mesh)
-                res = s.solve(b)
-            finally:
-                for f, fn in saved.items():
-                    setattr(local2d, f, fn)
-            got = {"x": res.x, "tile": sharded.shard_rhs(res.x, mesh,
-                                                         s.decomp),
-                   "hist": res.res_history, "iters": res.iters,
-                   "converged": res.converged, "calls": calls,
-                   "leg0": sharded._leg_level_ok(cfg, s.decomp, 0)}
-            if name.startswith("single"):
-                prob = mt.poisson2d(device="cpu", **BASE, **kw)
-                ref = mt.solve(prob.hierarchy, b, cfg)
-                got["single"] = {"x": ref.x, "hist": ref.res_history,
-                                 "iters": ref.iters}
-            out[name] = got
+            out[name] = _run_case(mesh, kw, torch.from_numpy(inputs[name]))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -135,11 +228,13 @@ def _jax_rhs(kw):
     import multigridcmt_tpu as jmg
 
     return np.asarray(jmg.poisson2d(dtype=jnp.float64, tol=1e-9,
-                                    agglom_rows=4, **kw).b)
+                                    agglom_rows=4, **_config_kw(kw)).b)
 
 
 def _jax_case(shape, kw, b):
-    """(result, JAX mesh) of the JAX ShardedSolver on the virtual devices."""
+    """(result, JAX mesh) of the JAX ShardedSolver on the virtual devices:
+    the solve, or for a "chain" case the v_cycles_fn iterates after each
+    of CHAIN cycles."""
     import jax.numpy as jnp
 
     from multigridcmt_tpu import kernels as jkernels
@@ -148,17 +243,35 @@ def _jax_case(shape, kw, b):
 
     jmesh = _jax_mesh(shape)
     cfg = JConfig(ndim=2, dtype=jnp.float64, tol=1e-9, agglom_rows=4,
-                  use_pallas=True, **kw)
+                  use_pallas=True, **_config_kw(kw))
     with pytest.MonkeyPatch.context() as patch:
         patch.setattr(jkernels, "PALLAS_MIN_N", KERNEL_MIN_N)
-        res = jsharded.ShardedSolver(cfg, jmesh).solve(b)
+        if kw.get("pack"):
+            patch.setattr(jkernels, "PACK_MIN_N", PACK_MIN_N)
+        solver = jsharded.ShardedSolver(cfg, jmesh)
+        if kw.get("pack"):
+            assert jsharded._pack_level_ok(cfg, solver.decomp, 0)
+        if kw.get("ref") == "chain":
+            # One cycle a call, each from the last one's iterate: a
+            # refreshed ghost slab holds what a fresh extension holds, so
+            # these are the iterates of the chained cycles, at a third of
+            # the interpreted kernels' time.
+            many = solver.v_cycles_fn()
+            x = jnp.zeros_like(jsharded.shard_rhs(b, jmesh))
+            bt = jsharded.shard_rhs(b, jmesh)
+            res = {}
+            for m in CHAIN:
+                x = many(x, bt, 1)
+                res[m] = np.asarray(x)
+        else:
+            res = solver.solve(b, method=kw.get("method", "mg"))
     return res, jmesh
 
 
 @pytest.fixture(scope="module")
 def world_results():
     """world -> (per-rank results, per-case JAX references), each world
-    spawned on first use; the JAX solves run while the ranks do."""
+    spawned on first use; the JAX runs go while the ranks do."""
     cache = {}
 
     def get(world):
@@ -170,6 +283,9 @@ def world_results():
         # The ranks lay out the JAX mesh's shape.
         assert convert.mesh_shape_from_jax(_jax_mesh(shape)) == shape
         inputs = {name: _jax_rhs(kw) for name, kw in cases.items()}
+        if world in REFRESH_WORLDS:
+            inputs["refresh"] = np.random.default_rng(3).standard_normal(
+                (65, 65))
         nprocs = int(np.prod(shape))
         with tempfile.TemporaryDirectory() as tmp:
             ctx = mp.start_processes(
@@ -178,7 +294,7 @@ def world_results():
                 nprocs=nprocs, join=False, start_method="spawn")
             refs = {name: _jax_case(shape, kw, inputs[name])
                     for name, kw in cases.items()
-                    if not name.startswith("single")}
+                    if kw.get("ref", "jax") != "single"}
             deadline = time.monotonic() + WORLD_TIMEOUT_S
             while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
                 if time.monotonic() > deadline:
@@ -194,11 +310,44 @@ def world_results():
     return get
 
 
+def _decomp(shape):
+    return sharded.Decomp(ndim=2, axes=tuple(
+        (a, f"ax{a}", d) for a, d in enumerate(shape)))
+
+
+def _route(g, kw):
+    """The route the case took: whole legs where they fit (the packed
+    plocal2d legs on a packed fine level), else the local2d sweeps and
+    residual on the kernel-sized owned tiles."""
+    nu_fits = kw.get("nu1", 2) <= local2d.max_down_sweeps(kw["smoother"])
+    assert g["leg0"] == (kw["smoother"] != "chebyshev" and nu_fits)
+    assert g["pack0"] == bool(kw.get("pack"))
+    pc = g["pcalls"]
+    if g["pack0"]:
+        assert pc["down_leg"] > 0 and pc["up_leg"] > 0
+        if kw.get("method") == "pcg":
+            assert pc["residual"] == 1 and pc["apply_op"] == g["iters"]
+            assert pc["residual_norm_sq"] == 0
+        else:
+            assert pc["residual_norm_sq"] == g["iters"] + 1
+            assert pc["residual"] == pc["apply_op"] == 0
+    else:
+        assert sum(pc.values()) == 0
+    if g["leg0"]:
+        # The coarse leg levels (127..31 at k=8) stay on local2d.
+        assert g["calls"]["down_leg"] > 0 and g["calls"]["up_leg"] > 0
+    else:
+        assert g["calls"]["residual"] > 0
+        assert g["calls"]["down_leg"] == g["calls"]["up_leg"] == 0
+
+
 @pytest.mark.parametrize("world,case", CASES,
                          ids=[f"{w}-{c}" for w, c in CASES])
 def test_sharded_solve_matches_jax(world, case, world_results):
     ranks, refs = world_results(world)
     shape, cases = WORLDS[world]
+    kw = cases[case]
+    ref = kw.get("ref", "jax")
     got = [r[case] for r in ranks]
     # Every rank ends with the same full solution and history.
     for g in got[1:]:
@@ -206,47 +355,67 @@ def test_sharded_solve_matches_jax(world, case, world_results):
         assert torch.equal(g["hist"], got[0]["hist"])
     g = got[0]
     assert g["converged"]
-    kw = cases[case]
-    nu_fits = kw.get("nu1", 2) <= local2d.max_down_sweeps(kw["smoother"])
-    # The route: whole legs where they fit, else the local2d sweeps and
-    # residual on the kernel-sized owned tiles.
-    assert g["leg0"] == (kw["smoother"] != "chebyshev" and nu_fits)
-    if g["leg0"]:
-        assert g["calls"]["down_leg"] > 0 and g["calls"]["up_leg"] > 0
-    else:
-        assert g["calls"]["residual"] > 0
-        assert g["calls"]["down_leg"] == g["calls"]["up_leg"] == 0
-    if case.startswith("single"):
-        ref = g["single"]
-        iters, hist, jx = ref["iters"], ref["hist"].numpy(), ref["x"].numpy()
-    else:
-        want, jmesh = refs[case]
-        iters, hist = int(want.iters), np.asarray(want.res_history)
-        jx = np.asarray(want.x)
-    assert g["iters"] == iters
-    # rtol 1e-10, down to the float64 rounding floor of the relative
-    # residual (~eps * 8/h^2 * max|x| / rms(b), 7e-13 at k=6), where routes
-    # that sum in other orders part: the plain versions and the JAX
-    # kernels, or the sharded and the single-device route (~1e-14 apart).
-    np.testing.assert_allclose(g["hist"].numpy(), hist, rtol=1e-10,
-                               atol=1e-12)
-    scale = np.abs(jx).max()
-    np.testing.assert_allclose(g["x"].numpy(), jx, rtol=0, atol=1e-10 * scale)
-    if case.startswith("single"):
+    _route(g, kw)
+    # Histories: rtol 1e-10, down to the float64 rounding floor of the
+    # relative residual (~eps * 8/h^2 * max|x| / rms(b), 7e-13 at k=6),
+    # where routes that sum in other orders part: the plain versions and
+    # the JAX kernels, or the sharded and the single-device route (~1e-14
+    # apart).
+    if ref != "jax":
+        one = g["single"]
+        assert g["iters"] == one["iters"]
+        np.testing.assert_allclose(g["hist"].numpy(), one["hist"].numpy(),
+                                   rtol=1e-10, atol=1e-12)
+        scale = one["x"].abs().max().item()
+        np.testing.assert_allclose(g["x"].numpy(), one["x"].numpy(), rtol=0,
+                                   atol=1e-10 * scale)
+    if ref == "single":
         return
     from multigridcmt_tpu.parallel import sharded as jsharded
     from multigridcmt_tpu_torch import convert
 
+    want, jmesh = refs[case]
+    if ref == "chain":
+        # The packed iterates after 1, 2 and 3 chained cycles, each rank's
+        # tile against its tile of JAX's.
+        for m in CHAIN:
+            scale = np.abs(want[m]).max()
+            for r in ranks:
+                want_tile = convert.tile_from_jax(want[m], _decomp(shape),
+                                                  r["coords"], device="cpu")
+                np.testing.assert_allclose(r[case]["chain"][m].numpy(),
+                                           want_tile.numpy(), rtol=0,
+                                           atol=1e-10 * scale)
+        return
+    assert g["iters"] == int(want.iters)
+    if ref == "jax":
+        np.testing.assert_allclose(g["hist"].numpy(),
+                                   np.asarray(want.res_history), rtol=1e-10,
+                                   atol=1e-12)
+    jx = np.asarray(want.x)
+    scale = np.abs(jx).max()
+    np.testing.assert_allclose(g["x"].numpy(), jx, rtol=0, atol=1e-10 * scale)
     # Each rank's owned tile against its tile of JAX's sharded result.
-    decomp = sharded.Decomp(ndim=2, axes=tuple(
-        (a, f"ax{a}", d) for a, d in enumerate(shape)))
     jtiles = jsharded.shard_rhs(jx, jmesh)
     for r in ranks:
-        want_tile = convert.tile_from_jax(jtiles, decomp, r["coords"],
+        want_tile = convert.tile_from_jax(jtiles, _decomp(shape), r["coords"],
                                           device="cpu")
         np.testing.assert_allclose(r[case]["tile"].numpy(),
                                    want_tile.numpy(), rtol=0,
                                    atol=1e-10 * scale)
+
+
+@pytest.mark.parametrize("world", REFRESH_WORLDS)
+def test_packed_refresh_matches_unpacked(world, world_results):
+    """A packed extended tile's ghost refresh (rank 3: row slabs on axis 1,
+    column slabs as hh/2 lanes of both planes) equals the packed form of
+    the unpacked refresh, which restores the exactly extended tile."""
+    ranks, _ = world_results(world)
+    for r in ranks:
+        packed, want, flat, exact = r["refresh"]
+        assert packed.ndim == 3
+        assert torch.equal(flat, exact)
+        assert torch.equal(packed, want)
 
 
 @pytest.mark.parametrize("world", ["rows2", "rows4", "rows8"])
