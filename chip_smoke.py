@@ -39,7 +39,10 @@ Phases:
          the DIA kernel; the SpMV bench's blocked-ELL matrix (64 x 64
          blocks of 128^2, density 0.15, m = 128) through the BELL SpMM
          kernel against SciPy on the host;
-     Phase 2 holds the local2d kernels against their plain versions on
+     Phase 2 holds the packed2d legs against their plain versions also at
+     n = 2999 (partial strips and segments of the row stream) and n = 61
+     (one of each), and at every sweep count in float64 at n = 255; the
+     local2d kernels against their plain versions on
      each of S1-S4's own fine tiles with the sweeps that path runs, and on
      tiles with nonzero global offsets (a rank of an 8-way row split of
      4095^2, a rank of a 2x2 block split of 2047^2), since a mesh of 1 has
@@ -52,7 +55,9 @@ Phases:
      at 4095^2, each kernel against its plain version (and, for
      prolong_add, the one PyTorch call that computes the same function)
      at the main paths' shapes, the packed kernels against their unpacked
-     twins at 4095^2, the smoother figure (one packed RB-GS sweep at
+     twins at 4095^2 (the four legs also as 20 chained calls between one
+     pair of events, the time their rows report, and the packed legs at
+     nu = 0, 1, 2 and the cap), the smoother figure (one packed RB-GS sweep at
      4095^2: ms, GB/s, Gnnz/s), the SpMV figure (a DIA apply at 4095^2 and
      255^3, from 20 chained applies: ms, Gnnz/s, GB/s) and the BELL figure
      (ms, TFLOP/s, Gnnz*vec/s, GB/s), each beside its plain version and
@@ -105,6 +110,7 @@ import importlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -130,6 +136,11 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 COMPARE_SHAPES = [(torch.float32, 4095), (torch.float32, 2047),
                   (torch.float32, 255), (torch.float32, 1023),
                   (torch.float64, 255), (torch.float64, 1023)]
+# The packed2d legs also at the row stream's edge cases: 2999 leaves partial
+# strips and segments (3001 rows of 1501 lanes), 61 lies inside one strip
+# and one segment; every sweep count from 0 to the cap at one float64 size.
+PACKED_LEG_SHAPES = [(torch.float32, 2999), (torch.float64, 61)]
+PACKED_LEG_ALL_NU = (torch.float64, 255)
 STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 127),
                     (torch.float64, 127)]
 PACKED_RESIDUAL_SHAPES = [(torch.float32, 4095), (torch.float64, 255)]
@@ -240,6 +251,10 @@ PLOCAL2D_F64_TILES = ((255, 2, 1, 0, 0), (255, 2, 1, 2, 1))
 HALO = 8                    # local2d.HALO_ROWS
 # Chained cycles a timing of v_cycles_fn runs (its time over this count).
 CHAIN_CYCLES = 20
+# The packed2d legs are timed as single calls and as LEG_CHAIN back-to-back
+# calls between one pair of events, at these sweep counts and at the cap.
+LEG_CHAIN = 20
+LEG_SWEEPS = (0, 1, 2)
 
 
 class SmokeFailure(Exception):
@@ -329,7 +344,8 @@ def phase_setup(rendezvous: str):
     t0 = time.perf_counter()
     _build.load_library()
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
-        f"({_build.BUILD_ROOT / _build.source_hash()})")
+        f"({_build.BUILD_ROOT / _build.source_hash()}; ptxas's registers "
+        f"and spills of each kernel in its {_build.LOG_NAME})")
     # The sharded paths' process group: a world of 1 over NCCL, its
     # rendezvous a file (no network).
     torch.cuda.set_device(0)
@@ -372,7 +388,7 @@ def compare_2d(main_err: dict) -> None:
         nc = (n - 1) // 2
         tol = TOL[dtype]
         u, b, e = leg_inputs(n, dtype, seed=n)
-        su, sb, se = packed2d.pack(u), packed2d.pack(b), packed2d.pack(e)
+        su, sb = packed2d.pack(u), packed2d.pack(b)
         name = f"{str(dtype).split('.')[-1]} n={n}"
         main = dtype == torch.float32
         for sigma in (0.0, SIGMA):
@@ -406,7 +422,44 @@ def compare_2d(main_err: dict) -> None:
                               key=lambda t: t[1])
                     if at_main and n == unpacked and sweeps == 2:
                         main_err["fused2d_down"] = err
-                    for pc in (False, True) if sweeps == 2 else (False,):
+                for sweeps in sorted({2, fused2d.max_up_sweeps(kind)}):
+                    err = check_pair(
+                        f"up {name} {kind} nu={sweeps} sigma={sigma}",
+                        fused2d.prolong_add_smooth(u, e, b, n, nc, h,
+                                                   sweeps=sweeps, **kw),
+                        fused2d.prolong_add_smooth_plain(
+                            u, e, b, n, nc, h, sweeps=sweeps, **kw), tol)
+                    if at_main and n == unpacked and sweeps == 2:
+                        main_err["fused2d_up"] = err
+        del u, b, e, su, sb
+
+
+def compare_packed_legs(main_err: dict) -> None:
+    """The packed2d legs against their plain versions: at COMPARE_SHAPES
+    and PACKED_LEG_SHAPES (partial strips and segments; a grid inside one
+    block) at nu = 2 and the cap, both kinds, both sigmas, logical and
+    packed coarse grids; at PACKED_LEG_ALL_NU every sweep count from 0 to
+    the cap, the row-stream lags being a function of it."""
+    from multigridcmt_tpu_torch.kernels import packed2d
+
+    for dtype, n in COMPARE_SHAPES + PACKED_LEG_SHAPES:
+        h = 1.0 / (n + 1)
+        nc = (n - 1) // 2
+        tol = TOL[dtype]
+        u, b, e = leg_inputs(n, dtype, seed=n)
+        su, sb, se = packed2d.pack(u), packed2d.pack(b), packed2d.pack(e)
+        del u, b
+        name = f"{str(dtype).split('.')[-1]} n={n}"
+        all_nu = (dtype, n) == PACKED_LEG_ALL_NU
+        for sigma in (0.0, SIGMA):
+            for kind, omega in (("rbgs", 1.0), ("jacobi", 0.8)):
+                kw = dict(kind=kind, omega=omega, sigma=sigma)
+                at_main = (dtype == torch.float32 and n == 2 ** MAIN_K - 1
+                           and kind == "rbgs" and sigma == 0.0)
+                down_cap = packed2d.max_down_sweeps(kind)
+                for sweeps in (range(down_cap + 1) if all_nu
+                               else sorted({2, down_cap})):
+                    for pc in (False, True):
                         gu, grc = packed2d.smooth_residual_restrict(
                             su, sb, n, h, sweeps=sweeps, packed_coarse=pc,
                             **kw)
@@ -419,18 +472,12 @@ def compare_2d(main_err: dict) -> None:
                                   check_pair(label + " r_c", grc, wrc, tol,
                                              (nc + 2, nc + 2)),
                                   key=lambda t: t[1])
-                        if at_main and n == packed and sweeps == 2 and not pc:
+                        if at_main and sweeps == 2 and not pc:
                             main_err["packed2d_down"] = err
-                for sweeps in sorted({2, fused2d.max_up_sweeps(kind)}):
-                    err = check_pair(
-                        f"up {name} {kind} nu={sweeps} sigma={sigma}",
-                        fused2d.prolong_add_smooth(u, e, b, n, nc, h,
-                                                   sweeps=sweeps, **kw),
-                        fused2d.prolong_add_smooth_plain(
-                            u, e, b, n, nc, h, sweeps=sweeps, **kw), tol)
-                    if at_main and n == unpacked and sweeps == 2:
-                        main_err["fused2d_up"] = err
-                    for ee in (e, se) if sweeps == 2 else (e,):
+                up_cap = packed2d.max_up_sweeps(kind)
+                for sweeps in (range(up_cap + 1) if all_nu
+                               else sorted({2, up_cap})):
+                    for ee in (e, se):
                         err = check_pair(
                             f"packed up {name} {kind} nu={sweeps} "
                             f"sigma={sigma} packed_e={ee is se}",
@@ -439,10 +486,9 @@ def compare_2d(main_err: dict) -> None:
                             packed2d.prolong_add_smooth_plain(
                                 su, ee, sb, n, nc, h, sweeps=sweeps, **kw),
                             tol)
-                        if (at_main and n == packed and sweeps == 2
-                                and ee is e):
+                        if at_main and sweeps == 2 and ee is e:
                             main_err["packed2d_up"] = err
-        del u, b, e, su, sb, se
+        del e, su, sb, se
 
 
 def compare_packed_residual(main_err: dict) -> None:
@@ -973,6 +1019,7 @@ def phase_compare():
     relative error."""
     main_err = {}
     compare_2d(main_err)
+    compare_packed_legs(main_err)
     compare_packed_residual(main_err)
     compare_composed(main_err)
     compare_stencil3d(main_err)
@@ -986,10 +1033,10 @@ def phase_compare():
 # replaces, the run of phase 3 whose launches it reports).
 KERNELS = {
     "packed2d_down": ("packed2d", "down_launches",
-                      "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
+                      "multigridcmt_tpu_torch/kernels/csrc/packed2d_legs.cuh",
                       "multigridcmt_tpu/kernels/packed2d.py:839", "solve2d"),
     "packed2d_up": ("packed2d", "up_launches",
-                    "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
+                    "multigridcmt_tpu_torch/kernels/csrc/packed2d_legs.cuh",
                     "multigridcmt_tpu/kernels/packed2d.py:1067", "solve2d"),
     "packed2d_resnorm": ("packed2d", "resnorm_launches",
                          "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
@@ -1803,6 +1850,67 @@ def time_pair(name: str, kernel, plain) -> dict:
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
 
 
+def chained_ms(fn, calls: int = LEG_CHAIN, reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``calls`` back-to-back
+    calls of ``fn`` between one pair of events, over ``calls``: the
+    device's time a call once the host runs ahead of the card."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def timed_legs(times: dict) -> None:
+    """The packed2d legs at 4095^2 float32, RB-GS, sigma = 0, at every sweep
+    count in LEG_SWEEPS and at the cap, and the fused2d legs on the same
+    grid at nu = 2: each as a single call (cuda_time_ms, whose start event
+    precedes the wrapper's host work) and as LEG_CHAIN chained calls."""
+    from multigridcmt_tpu_torch.kernels import fused2d, packed2d
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    n = 2 ** MAIN_K - 1
+    nc = (n - 1) // 2
+    h = 1.0 / (n + 1)
+    u, b, e = leg_inputs(n, torch.float32, seed=7)
+    su, sb = packed2d.pack(u), packed2d.pack(b)
+    kw = dict(kind="rbgs", omega=1.0)
+    legs = {
+        "packed2d_down": (packed2d.max_down_sweeps("rbgs"), lambda nu: (
+            lambda: packed2d.smooth_residual_restrict(su, sb, n, h,
+                                                      sweeps=nu, **kw))),
+        "packed2d_up": (packed2d.max_up_sweeps("rbgs"), lambda nu: (
+            lambda: packed2d.prolong_add_smooth(su, e, sb, n, nc, h,
+                                                sweeps=nu, **kw))),
+        "fused2d_down": (None, lambda nu: (
+            lambda: fused2d.smooth_residual_restrict(u, b, n, h, sweeps=nu,
+                                                     **kw))),
+        "fused2d_up": (None, lambda nu: (
+            lambda: fused2d.prolong_add_smooth(u, e, b, n, nc, h, sweeps=nu,
+                                               **kw))),
+    }
+    out = {}
+    for name, (cap, make) in legs.items():
+        for nu in sorted({2} if cap is None else {*LEG_SWEEPS, cap}):
+            fn = make(nu)
+            row = {"single_ms": cuda_time_ms(fn), "chained_ms": chained_ms(fn)}
+            out[f"{name}@4095 nu={nu}"] = row
+            log(f"leg {name} n={n} nu={nu}: single {row['single_ms']:.4f} "
+                f"ms, chained x{LEG_CHAIN} {row['chained_ms']:.4f} ms")
+    times["legs"] = out
+    del u, b, e, su, sb
+    torch.cuda.empty_cache()
+
+
 # Arithmetic each function needs per fine interior point, counted from its
 # formula (adds, multiplies, the two halves of an FMA): residual 2D 8, 3D
 # 10, the apply (A - sigma I) u 7; a Gauss-Seidel update 2D 6, 3D 8;
@@ -1894,7 +2002,16 @@ def timed_2d(times: dict) -> None:
                          flops=flops_per_point(name) * n * n)
             times[name + tag] = t
         del pairs, u, b, e, su, sb, rc
-    log(f"packed against unpacked at 4095^2: down "
+    # The four legs at 4095^2 as LEG_CHAIN chained calls (the time the
+    # rows report) and as single calls; the packed legs also at nu = 0, 1
+    # and the cap.
+    timed_legs(times)
+    for name in ("packed2d_down", "packed2d_up", "fused2d_down",
+                 "fused2d_up"):
+        leg = times["legs"][f"{name}@4095 nu=2"]
+        times[name + "@4095"].update(ms=leg["chained_ms"],
+                                     single_ms=leg["single_ms"])
+    log(f"packed against unpacked at 4095^2 (chained): down "
         f"{times['packed2d_down@4095']['ms']:.4f} vs "
         f"{times['fused2d_down@4095']['ms']:.4f} ms, up "
         f"{times['packed2d_up@4095']['ms']:.4f} vs "
@@ -2420,7 +2537,9 @@ def kernel_rows(names, runs, errs, times):
     computes the others (b - Au, a whole leg, a sweep, the residual's
     restriction), so theirs is null. A kernel that no main path runs
     reports its launches summed over all main-path runs (0) and those of
-    its direct calls as direct_launches."""
+    its direct calls as direct_launches. The packed2d and fused2d legs'
+    ms is the time a call of LEG_CHAIN chained calls, their single_ms that
+    of one call timed alone (the wrapper's host work inside)."""
     rows = []
     for name in names:
         *_, src, rep, run = KERNELS[name]
@@ -2437,6 +2556,8 @@ def kernel_rows(names, runs, errs, times):
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": t.get("library_ms"), "run": run}
+        if "single_ms" in t:
+            row["single_ms"] = t["single_ms"]
         if name in DIRECT_RUNS:
             row["direct_launches"] = runs[DIRECT_RUNS[name]][name]
         rows.append(row)
@@ -2482,6 +2603,7 @@ def main() -> int:
     for label in ("S1", "S2", "S1_chain"):
         log(f"cycle_{label}: " + json.dumps(times["cycle_" + label]))
     log("smoother: " + json.dumps(times["smoother"]))
+    log("legs: " + json.dumps(times["legs"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):
         log(f"{key}: " + json.dumps(times[key]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")

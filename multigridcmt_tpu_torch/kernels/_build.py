@@ -21,6 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 LIB_NAME = "libmgkernels.so"
+LOG_NAME = "nvcc.log"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -28,6 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # C entry points: name -> argument types. Each returns cudaGetLastError()
 # after its launch. Pointer and stream arguments are c_void_p so ctypes
@@ -51,12 +53,13 @@ for _t in ("f32", "f64"):
     SIGNATURES[f"mg_fused2d_up_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I, _D,
                                          _I, _P]
     # u, b, u_out, rc_out, n, h, sigma, kind, omega, sweeps, packed_coarse,
-    # stream
+    # geometry (packed2d.LegGeometry.ints()), stream
     SIGNATURES[f"mg_packed2d_down_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I,
-                                            _D, _I, _I, _P]
-    # x, e, b, out, n, h, sigma, kind, omega, sweeps, packed_e, stream
+                                            _D, _I, _I, _IP, _P]
+    # x, e, b, out, n, h, sigma, kind, omega, sweeps, packed_e, geometry,
+    # stream
     SIGNATURES[f"mg_packed2d_up_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I, _D,
-                                          _I, _I, _P]
+                                          _I, _I, _IP, _P]
     # u, b, partial, out, n, h, sigma, red_only, blocks, stream
     SIGNATURES[f"mg_packed2d_resnorm_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I,
                                                _I, _P]
@@ -142,7 +145,9 @@ def _check_nvcc(cmd, returncode: int, out: str, err: str) -> None:
 
 def build_library(out_dir: Path) -> Path:
     """Compile every ``csrc/*.cu`` into ``out_dir/libmgkernels.so`` unless
-    it is there already; return the library's path."""
+    it is there already; return the library's path. What ptxas says of
+    each kernel (registers, spills, shared memory) goes to
+    ``out_dir/nvcc.log``."""
     lib = Path(out_dir) / LIB_NAME
     if lib.is_file():
         return lib
@@ -159,7 +164,8 @@ def build_library(out_dir: Path) -> Path:
         objs, procs = [], []
         for cu in sorted(CSRC.glob("*.cu")):
             obj = os.path.join(tmp, cu.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(cu)]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+                   str(cu)]
             objs.append(obj)
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -169,6 +175,8 @@ def build_library(out_dir: Path) -> Path:
                 for cmd, proc in procs]
         for cmd, out, err, returncode in done:
             _check_nvcc(cmd, returncode, out, err)
+        Path(out_dir, LOG_NAME).write_text("".join(
+            f"$ {' '.join(cmd)}\n{out}{err}" for cmd, out, err, _ in done))
         so = os.path.join(tmp, LIB_NAME)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)

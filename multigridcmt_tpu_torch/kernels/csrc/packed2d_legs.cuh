@@ -1,0 +1,490 @@
+// The row-streaming packed2d legs: down_kernel and up_kernel, their launch
+// geometry and launchers. packed2d.cu instantiates the down leg,
+// packed2d_up.cu and packed2d_up_f64.cu the up leg in float32 and float64
+// (a kernel for each stage count; the three files compile in parallel).
+// packed2d.cu's note says what they replace and how they work.
+#pragma once
+
+#include <type_traits>
+
+#include "packed_tile.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// The row-streaming legs (down_kernel, up_kernel). packed2d.py's
+// leg_geometry computes the launch geometry; its LEG_* constants are
+// these (tests/test_torch_packed.py reads them here).
+// ---------------------------------------------------------------------------
+
+constexpr int kWarp = 32;      // lanes of a strip: one warp
+constexpr int kLegWarps = 4;   // warps (independent strips) a block
+constexpr int kAhead = 4;      // rows loaded ahead of the row worked on
+constexpr int kWin = 16;       // the register window of rows (power of 2)
+constexpr int kCoarseWin = 8;  // the up leg's window of coarse rows
+
+// A leg's launch geometry, passed as 7 ints in this order. Warp w of block
+// bx works on unit bx * kLegWarps + w, strip sx = unit % strips and segment
+// sy = unit / strips: lanes [sx * strip, sx * strip + strip) (its kWarp
+// lanes start hp before, strip + 2 hp = kWarp) and rows
+// [sy * seg, sy * seg + seg) (seg even), streaming rows
+// [y0 - top, y1 + bottom) clipped to the grid (top even).
+struct LegGeom {
+  int strips, segs, strip, seg, hp, top, bottom;
+};
+
+// The side neighbour of the colour-c point at phase p: the other colour's
+// value v of lane x + 1 (p = 1) or x - 1 (p = 0). A warp's edge lanes read
+// their own value, which only non-updatable points would use.
+template <typename T>
+__device__ __forceinline__ T side_of(T v, int p) {
+  return p ? __shfl_down_sync(0xffffffffu, v, 1)
+           : __shfl_up_sync(0xffffffffu, v, 1);
+}
+
+// The per-warp position of a leg's unit and its fixed tests.
+struct Unit {
+  int gl;          // this lane's array lane
+  int y0, y1;      // owned rows
+  int ys, ye;      // streamed rows
+  int lo, hi;      // rows the smoothing updates (interior, off the ends)
+  bool ok;         // the lane lies in the array
+  bool core;       // the lane is owned
+  bool upd[2];     // phase p: the column is interior and off the edges
+
+  __device__ Unit(const LegGeom& g, int unit, int n) {
+    const int P = n + 2;
+    const int cp = (P + 1) / 2;
+    const int lane = threadIdx.x % kWarp;
+    const int sx = unit % g.strips;
+    const int sy = unit / g.strips;
+    gl = sx * g.strip - g.hp + lane;
+    y0 = sy * g.seg;
+    y1 = min(y0 + g.seg, P);
+    ys = max(0, y0 - g.top);
+    ye = min(P, y1 + g.bottom);
+    lo = max(ys + 1, 1);
+    hi = min(ye - 2, n);
+    ok = gl >= 0 && gl < cp;
+    core = lane >= g.hp && lane < g.hp + g.strip && gl < cp;
+    for (int p = 0; p < 2; ++p) {
+      const int lx = 2 * lane + p;
+      const int gx = 2 * gl + p;
+      upd[p] = lx >= 1 && lx <= 2 * kWarp - 2 && gx >= 1 && gx <= n;
+    }
+  }
+};
+
+// The smoothing stages of one step. In step t (row t loaded, v = t - ys
+// mod kWin, so that every window slot below is a compile-time constant and
+// the rows' parities are v's: ys is even) stage k works on row t - 1 - k,
+// in order of k: RB-GS half-sweep k (colour k & 1) in place on U, or Jacobi
+// sweep k from stage k - 1 (U for k = 0) into J[k]. Stage k reads rows
+// i - 1 .. i + 1 of stage k - 1's result: row i + 1 it got earlier in this
+// step, the others in earlier steps, and stage k + 1 overwrites none of
+// them before stage k has read them; so this is a sequential sweep's order.
+// A point is updated where `upd` holds for its phase and its row lies in
+// [lo, hi] (a test made only where EDGE): each stage makes one more ring of
+// the unit's tile stale, which the halos cover. Jacobi copies every other
+// point of rows [ys, ye).
+template <typename T, int KIND, int K, int v, bool EDGE>
+__device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
+                                            const T (&B)[2][kWin],
+                                            T (&J)[K > 0 ? K : 1][2][kWin],
+                                            int t, const Unit& w,
+                                            const mg::Coef<T>& cf) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = t - 1 - k;
+    const int s = (v - 1 - k) & (kWin - 1);
+    const int sm = (s - 1) & (kWin - 1);
+    const int sp = (s + 1) & (kWin - 1);
+    const bool live = !EDGE || (i >= w.lo && i <= w.hi);
+    if (KIND == mg::kRbgs) {
+      const int c = k & 1;
+      const int o = 1 - c;
+      const int p = (c + v - 1 - k) & 1;
+      if (!live) continue;
+      const T mid = U[o][s];
+      const T side = side_of(mid, p);
+      const T nv = (cf.h2 * B[c][s] + (((U[o][sm] + U[o][sp]) + mid) + side)) *
+                   cf.inv_den;
+      if (w.upd[p]) U[c][s] = nv;
+    } else {
+      if (EDGE && (i < w.ys || i >= w.ye)) continue;
+      T(&src)[2][kWin] = k == 0 ? U : J[k > 0 ? k - 1 : 0];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int o = 1 - c;
+        const int p = (c + v - 1 - k) & 1;
+        const T x = src[c][s];
+        const T mid = src[o][s];
+        const T side = side_of(mid, p);
+        const T r = B[c][s] -
+                    (T(4) * x - (((src[o][sm] + src[o][sp]) + mid) + side)) *
+                        cf.inv_h2 +
+                    cf.sig * x;
+        J[k][c][s] = live && w.upd[p] ? x + cf.jscale * r : x;
+      }
+    }
+  }
+}
+
+// Load both planes of row i of the packed grid g (P rows of cp lanes) at
+// this lane into a0, a1; lanes off the array read 0, rows past ye are not
+// loaded (no step reads them; the test is made only where EDGE).
+template <bool EDGE, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
+                                         T& a1, int i, const Unit& w, int P,
+                                         int cp) {
+  if (EDGE && i >= w.ye) return;
+  const size_t at = static_cast<size_t>(i) * cp + (w.ok ? w.gl : 0);
+  a0 = w.ok ? __ldg(g + at) : T(0);
+  a1 = w.ok ? __ldg(g + at + static_cast<size_t>(P) * cp) : T(0);
+}
+
+// Apply f(v) for v = 0 .. kWin - 1 with v a compile-time constant.
+template <int v, typename F>
+__device__ __forceinline__ void each_step(F&& f) {
+  if constexpr (v < kWin) {
+    f(std::integral_constant<int, v>{});
+    each_step<v + 1>(f);
+  }
+}
+
+// A chunk of kWin steps as f(v, EDGE) for v = 0 .. kWin - 1. Where every
+// row the chunk loads, smooths, stores or restricts lies inside the unit
+// (`steady`), and STEADY allows it, the chunk runs with EDGE false: no row
+// tests, so each step is one block of code the compiler can schedule
+// across stages (at 4095^2, nu = 2, on an H100 at 700 W: the down leg
+// 0.142 -> 0.111 ms, the up leg 0.109 -> 0.102 ms; PERF.md). Else every
+// step tests its rows. Jacobi keeps one copy of the steps (half the
+// kernels' code to compile; it is off the main path).
+template <bool STEADY, typename F>
+__device__ __forceinline__ void chunk(bool steady, F&& f) {
+  if (STEADY && steady) {
+    each_step<0>([&](auto vc) { f(vc, std::false_type{}); });
+  } else {
+    each_step<0>([&](auto vc) { f(vc, std::true_type{}); });
+  }
+}
+
+// Down leg: u' = smooth^K(u); rc = R (b - (A - sigma I) u'), the black
+// residual taken as 0 after an RB-GS sweep. rc is written in the logical
+// (nc+2)^2 layout, or packed when packed_coarse is set. K counts stages:
+// RB-GS half-sweeps or Jacobi sweeps. Lags: stage k at t - 1 - k, the
+// residual and the store at t - (K + 1), the restriction of fine row
+// t - K - 2 (its residual rows t - K - 3 .. t - K - 1 done).
+template <typename T, int KIND, int K>
+__global__ void __launch_bounds__(kLegWarps * kWarp)
+down_kernel(const T* __restrict__ u, const T* __restrict__ b,
+            T* __restrict__ u_out, T* __restrict__ rc, int n,
+            mg::Coef<T> cf, int packed_coarse, LegGeom g) {
+  const int unit = blockIdx.x * kLegWarps + threadIdx.x / kWarp;
+  if (unit >= g.strips * g.segs) return;
+  constexpr int OUT = K + 1;
+  constexpr bool RED_ONLY = KIND == mg::kRbgs && K > 0;
+  const int P = n + 2;
+  const int cp = (P + 1) / 2;
+  const int nc = (n - 1) / 2;
+  const int cpc = (cp + 1) / 2;
+  const Unit w(g, unit, n);
+  const int last_even = (w.y1 & 1) ? w.y1 - 1 : w.y1 - 2;
+  const int t_end = last_even + OUT + 1;
+
+  T U[2][kWin], B[2][kWin], R[2][kWin];
+  T J[K > 0 ? K : 1][2][kWin];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    load_row<true>(u, U[0][a], U[1][a], w.ys + a, w, P, cp);
+    load_row<true>(b, B[0][a], B[1][a], w.ys + a, w, P, cp);
+  }
+  T(&F)[2][kWin] = (KIND == mg::kJacobi && K > 0) ? J[K > 0 ? K - 1 : 0] : U;
+
+  for (int t0 = w.ys; t0 <= t_end; t0 += kWin) {
+    // Every row this chunk loads, smooths, stores or restricts inside the
+    // unit: no row tests.
+    const bool steady = t0 - OUT >= w.lo && t0 - OUT - 1 >= w.y0 &&
+                        t0 + kWin - 2 <= w.hi && t0 + kWin - 1 - OUT < w.y1 &&
+                        t0 + kWin - 1 + kAhead < w.ye;
+    chunk<KIND == mg::kRbgs>(steady, [&](auto vc, auto edge) {
+      constexpr int v = decltype(vc)::value;
+      constexpr bool EDGE = decltype(edge)::value;
+      const int t = t0 + v;
+      constexpr int sa = (v + kAhead) & (kWin - 1);
+      load_row<EDGE>(u, U[0][sa], U[1][sa], t + kAhead, w, P, cp);
+      load_row<EDGE>(b, B[0][sa], B[1][sa], t + kAhead, w, P, cp);
+
+      smooth_step<T, KIND, K, v, EDGE>(U, B, J, t, w, cf);
+
+      // Residual of row i (0 off the points the smoothing updates, and at
+      // the black ones with RED_ONLY) and the store of u'.
+      const int i = t - OUT;
+      constexpr int s = (v - OUT) & (kWin - 1);
+      constexpr int sm = (s - 1) & (kWin - 1);
+      constexpr int sp = (s + 1) & (kWin - 1);
+      const bool live = !EDGE || (i >= w.lo && i <= w.hi);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (RED_ONLY && c == 1) {
+          R[c][s] = T(0);
+          continue;
+        }
+        const int o = 1 - c;
+        const int p = (c + v - OUT) & 1;
+        const T x = F[c][s];
+        const T mid = F[o][s];
+        const T side = side_of(mid, p);
+        const T r = B[c][s] -
+                    (T(4) * x - (((F[o][sm] + F[o][sp]) + mid) + side)) *
+                        cf.inv_h2 +
+                    cf.sig * x;
+        R[c][s] = live && w.upd[p] ? r : T(0);
+      }
+      if (w.core && (!EDGE || (i >= w.y0 && i < w.y1))) {
+        u_out[static_cast<size_t>(i) * cp + w.gl] = F[0][s];
+        u_out[(static_cast<size_t>(P) + i) * cp + w.gl] = F[1][s];
+      }
+
+      // Full weighting at coarse (I, J = gl), fine row j = 2I, from the
+      // residual rows j - 1 .. j + 1; rows first, then columns, as
+      // restrict_core (common.cuh). Fine columns 2J and 2J + 1 are this
+      // lane's phases 0 and 1 (colour (phase + row) & 1); 2J - 1 is lane
+      // x - 1's phase 1, whose column sum comes by shuffle.
+      const int j = t - OUT - 1;
+      constexpr int sj = (v - OUT - 1) & (kWin - 1);
+      if (((v - OUT - 1) & 1) == 0 && (!EDGE || (j >= w.y0 && j < w.y1))) {
+        constexpr int r0 = (sj - 1) & (kWin - 1);
+        constexpr int r2 = (sj + 1) & (kWin - 1);
+        constexpr int c0 = (v - OUT) & 1;      // phase 0 in rows j +- 1
+        constexpr int c1 = 1 - c0;             // phase 0 in row j
+        const T t1 = T(0.25) * (R[c0][r0] + T(2) * R[c1][sj] + R[c0][r2]);
+        const T t2 = T(0.25) * (R[c1][r0] + T(2) * R[c0][sj] + R[c1][r2]);
+        const T t0v = __shfl_up_sync(0xffffffffu, t2, 1);
+        const int I = j >> 1;
+        const int Jc = w.gl;
+        if (w.core) {
+          const T val = I >= 1 && I <= nc && Jc >= 1 && Jc <= nc
+                            ? T(0.25) * (t0v + T(2) * t1 + t2)
+                            : T(0);
+          if (packed_coarse) {
+            rc[(static_cast<size_t>((I + Jc) & 1) * cp + I) * cpc +
+               (Jc >> 1)] = val;
+          } else {
+            rc[static_cast<size_t>(I) * cp + Jc] = val;
+          }
+        }
+      }
+    });
+  }
+}
+
+// Coarse point (I, J) of e (Pc x Pc points, logical or packed); 0 off e.
+template <typename T, bool PACKED_E>
+__device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
+                                       int Pc) {
+  const bool ok = I >= 0 && I < Pc && J >= 0 && J < Pc;
+  const int cpc = (Pc + 1) / 2;
+  const size_t at = PACKED_E ? (static_cast<size_t>((I + J) & 1) * Pc + I) *
+                                       cpc + (J >> 1)
+                             : static_cast<size_t>(I) * Pc + J;
+  return ok ? __ldg(e + at) : T(0);
+}
+
+// Up leg: x' = smooth^K(x + P e); e logical or packed (a template
+// parameter, so the coarse loads carry no branch). P e is added to row
+// t in step t, from coarse rows t >> 1 and (t + 1) >> 1 (loaded with the
+// fine rows, each lane its columns gl and gl + 1), as prolong_at
+// (common.cuh) computes it; stage k works on row t - 1 - k; the store on
+// row t - K.
+template <typename T, int KIND, int K, bool PACKED_E>
+__global__ void __launch_bounds__(kLegWarps * kWarp)
+up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
+          const T* __restrict__ b, T* __restrict__ out, int n,
+          mg::Coef<T> cf, LegGeom g) {
+  const int unit = blockIdx.x * kLegWarps + threadIdx.x / kWarp;
+  if (unit >= g.strips * g.segs) return;
+  constexpr int OUT = K;
+  const int P = n + 2;
+  const int cp = (P + 1) / 2;
+  const int Pc = cp;
+  const Unit w(g, unit, n);
+  const int t_end = w.y1 - 1 + OUT;
+
+  T U[2][kWin], B[2][kWin], E0[kCoarseWin], E1[kCoarseWin];
+  T J[K > 0 ? K : 1][2][kWin];
+  // Rows ys .. ys + kAhead - 1 and the coarse rows they need.
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    load_row<true>(xin, U[0][a], U[1][a], w.ys + a, w, P, cp);
+    load_row<true>(b, B[0][a], B[1][a], w.ys + a, w, P, cp);
+  }
+#pragma unroll
+  for (int m = 0; m <= kAhead / 2; ++m) {
+    E0[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.gl, Pc);
+    E1[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.gl + 1, Pc);
+  }
+  T(&F)[2][kWin] = (KIND == mg::kJacobi && K > 0) ? J[K > 0 ? K - 1 : 0] : U;
+
+  for (int t0 = w.ys; t0 <= t_end; t0 += kWin) {
+    // Every row this chunk loads, prolongs, smooths or stores inside the
+    // unit: no row tests.
+    const bool steady = t0 >= 1 && t0 + kWin - 1 <= n && t0 - K >= w.lo &&
+                        t0 + kWin - 2 <= w.hi && t0 - OUT >= w.y0 &&
+                        t0 + kWin - 1 - OUT < w.y1 &&
+                        t0 + kWin - 1 + kAhead < w.ye;
+    chunk<KIND == mg::kRbgs>(steady, [&](auto vc, auto edge) {
+      constexpr int v = decltype(vc)::value;
+      constexpr bool EDGE = decltype(edge)::value;
+      const int t = t0 + v;
+      constexpr int sa = (v + kAhead) & (kWin - 1);
+      load_row<EDGE>(xin, U[0][sa], U[1][sa], t + kAhead, w, P, cp);
+      load_row<EDGE>(b, B[0][sa], B[1][sa], t + kAhead, w, P, cp);
+      if constexpr (((v + kAhead) & 1) == 1) {
+        // Row t + kAhead is odd: it needs coarse row (t + kAhead + 1) / 2.
+        constexpr int m = ((v + kAhead + 1) >> 1) & (kCoarseWin - 1);
+        if (!EDGE || t + kAhead < w.ye) {
+          const int I = (t + kAhead + 1) >> 1;
+          E0[m] = coarse_at<T, PACKED_E>(e, I, w.gl, Pc);
+          E1[m] = coarse_at<T, PACKED_E>(e, I, w.gl + 1, Pc);
+        }
+      }
+
+      // x + P e on row t.
+      constexpr int s = v & (kWin - 1);
+      constexpr int m0 = (v >> 1) & (kCoarseWin - 1);
+      constexpr int m1 = ((v >> 1) + 1) & (kCoarseWin - 1);
+      if (!EDGE || (t < w.ye && t >= 1 && t <= n)) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int p = (c + v) & 1;
+          const int gx = 2 * w.gl + p;
+          T a, d;
+          if constexpr ((v & 1) == 1) {
+            a = T(0.5) * (E0[m0] + E0[m1]);
+            d = T(0.5) * (E1[m0] + E1[m1]);
+          } else {
+            a = E0[m0];
+            d = E1[m0];
+          }
+          const T pe = p ? T(0.5) * (a + d) : a;
+          if (gx >= 1 && gx <= n) U[c][s] = U[c][s] + pe;
+        }
+      }
+
+      smooth_step<T, KIND, K, v, EDGE>(U, B, J, t, w, cf);
+
+      const int i = t - OUT;
+      constexpr int so = (v - OUT) & (kWin - 1);
+      if (w.core && (!EDGE || (i >= w.y0 && i < w.y1))) {
+        out[static_cast<size_t>(i) * cp + w.gl] = F[0][so];
+        out[(static_cast<size_t>(P) + i) * cp + w.gl] = F[1][so];
+      }
+    });
+  }
+}
+
+// The most stages a leg takes (packed2d.py: RB-GS 2 max_*_sweeps, Jacobi
+// max_*_sweeps), each count its own kernel.
+constexpr int kMaxDownStages = 6;
+constexpr int kMaxUpStages = 8;
+
+// The geometry as the kernels take it, or false if it breaks the rules
+// above.
+bool leg_geom(const int* v, LegGeom* g) {
+  *g = LegGeom{v[0], v[1], v[2], v[3], v[4], v[5], v[6]};
+  return g->top % 2 == 0 && g->seg % 2 == 0 && g->strip + 2 * g->hp == kWarp;
+}
+
+unsigned leg_blocks(const LegGeom& g) {
+  return static_cast<unsigned>((g.strips * g.segs + kLegWarps - 1) /
+                               kLegWarps);
+}
+
+template <typename T, int KIND, int K = 0>
+int launch_down_k(int stages, const T* u, const T* b, T* u_out, T* rc, int n,
+                  const mg::Coef<T>& cf, int packed_coarse, const LegGeom& g,
+                  cudaStream_t stream) {
+  if constexpr (K > kMaxDownStages) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (stages != K) {
+      return launch_down_k<T, KIND, K + (KIND == mg::kRbgs ? 2 : 1)>(
+          stages, u, b, u_out, rc, n, cf, packed_coarse, g, stream);
+    }
+    down_kernel<T, KIND, K><<<leg_blocks(g), kLegWarps * kWarp, 0, stream>>>(
+        u, b, u_out, rc, n, cf, packed_coarse, g);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <typename T, int KIND, bool PACKED_E, int K = 0>
+int launch_up_k(int stages, const T* x, const T* e, const T* b, T* out, int n,
+                const mg::Coef<T>& cf, const LegGeom& g,
+                cudaStream_t stream) {
+  if constexpr (K > kMaxUpStages) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (stages != K) {
+      return launch_up_k<T, KIND, PACKED_E,
+                         K + (KIND == mg::kRbgs ? 2 : 1)>(
+          stages, x, e, b, out, n, cf, g, stream);
+    }
+    up_kernel<T, KIND, K, PACKED_E>
+        <<<leg_blocks(g), kLegWarps * kWarp, 0, stream>>>(x, e, b, out, n,
+                                                          cf, g);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// Smoothing stages of a leg: RB-GS half-sweeps or Jacobi sweeps.
+int leg_stages(int kind, int sweeps) {
+  return kind == mg::kRbgs ? 2 * sweeps : sweeps;
+}
+
+template <typename T>
+int launch_down(const void* u, const void* b, void* u_out, void* rc, int n,
+                double h, double sigma, int kind, double omega, int sweeps,
+                int packed_coarse, const int* geom, void* stream) {
+  const int K = leg_stages(kind, sweeps);
+  LegGeom g;
+  if (!leg_geom(geom, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto cf = mg::Coef<T>::make(h, sigma, omega);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const T* ut = static_cast<const T*>(u);
+  const T* bt = static_cast<const T*>(b);
+  T* ot = static_cast<T*>(u_out);
+  T* rt = static_cast<T*>(rc);
+  return kind == mg::kRbgs
+             ? launch_down_k<T, mg::kRbgs>(K, ut, bt, ot, rt, n, cf,
+                                           packed_coarse, g, s)
+             : launch_down_k<T, mg::kJacobi>(K, ut, bt, ot, rt, n, cf,
+                                             packed_coarse, g, s);
+}
+
+template <typename T>
+int launch_up(const void* x, const void* e, const void* b, void* out, int n,
+              double h, double sigma, int kind, double omega, int sweeps,
+              int packed_e, const int* geom, void* stream) {
+  const int K = leg_stages(kind, sweeps);
+  LegGeom g;
+  if (!leg_geom(geom, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto cf = mg::Coef<T>::make(h, sigma, omega);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const T* et = static_cast<const T*>(e);
+  const T* bt = static_cast<const T*>(b);
+  T* ot = static_cast<T*>(out);
+  if (kind == mg::kRbgs) {
+    return packed_e
+               ? launch_up_k<T, mg::kRbgs, true>(K, xt, et, bt, ot, n, cf, g, s)
+               : launch_up_k<T, mg::kRbgs, false>(K, xt, et, bt, ot, n, cf, g,
+                                                  s);
+  }
+  return packed_e
+             ? launch_up_k<T, mg::kJacobi, true>(K, xt, et, bt, ot, n, cf, g, s)
+             : launch_up_k<T, mg::kJacobi, false>(K, xt, et, bt, ot, n, cf, g,
+                                                  s);
+}
+
+}  // namespace

@@ -1,0 +1,15 @@
+// The up leg of the packed2d tier in float64 (packed2d_legs.cuh's
+// up_kernel), compiled beside packed2d.cu and packed2d_up.cu.
+#include "packed2d_legs.cuh"
+
+extern "C" {
+
+int mg_packed2d_up_f64(const void* x, const void* e, const void* b, void* out,
+                       int n, double h, double sigma, int kind, double omega,
+                       int sweeps, int packed_e, const int* geom,
+                       void* stream) {
+  return launch_up<double>(x, e, b, out, n, h, sigma, kind, omega, sweeps,
+                           packed_e, geom, stream);
+}
+
+}  // extern "C"

@@ -10,13 +10,15 @@ The lane past a row's last point of its colour is a pad and stays zero.
 ``pack``/``unpack`` convert at the solve's encode/decode boundary, once a
 solve, in plain PyTorch.
 
-Replaces five TPU kernels of that module with ``csrc/packed2d.cu`` (see
-the note there on what bounds them and what packing does on the card):
+Replaces five TPU kernels of that module with ``csrc/packed2d.cu`` (the
+legs in ``csrc/packed2d_legs.cuh``; see the note in ``packed2d.cu`` on what
+bounds them and how they work on the card):
   * ``smooth_residual_restrict``: the whole down leg; after an RB-GS sweep
     the black residual is taken as zero (the closing black half-sweep
     zeroes it in exact arithmetic) and only the red residual is restricted;
   * ``prolong_add_smooth``: the whole up leg; the coarse correction may be
-    logical or packed;
+    logical or packed. Both legs stream rows through registers, a warp a
+    strip; ``leg_geometry`` computes their launch geometry;
   * ``residual_norm_sq``: ||b - (A - sigma I) u||^2 without writing the
     residual, the convergence check; ``red_only`` sums the red plane only;
   * ``residual``: b - (A - sigma I) u on both planes, ghosts and pad lanes
@@ -31,6 +33,10 @@ composition, pack. Device rule (``_wrap``): a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -113,6 +119,121 @@ def _check_fine(n: int) -> None:
         raise ValueError(f"fine n={n} must be odd and >= 3 (n = 2*nc + 1)")
 
 
+# The row-streaming legs (csrc/packed2d_legs.cuh down_kernel, up_kernel).
+# Each warp streams its own strip of LEG_LANES lanes down a segment of rows,
+# in registers: LEG_AHEAD rows loaded ahead, a window of LEG_WINDOW rows
+# (and LEG_COARSE_WINDOW coarse rows in the up leg); these are the kernel
+# source's constants (kWarp, kAhead, kWin, kCoarseWin), held against it by
+# the CPU tests. A segment has at least LEG_MIN_SEG rows; the launch aims
+# at LEG_WARPS_PER_SM warps on each SM (16 measured best at 4095^2,
+# PERF.md).
+LEG_LANES = 32
+LEG_AHEAD = 4
+LEG_WINDOW = 16
+LEG_COARSE_WINDOW = 8
+LEG_MIN_SEG = 64
+LEG_WARPS_PER_SM = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LegGeometry:
+    """Launch geometry of a row-streaming leg (see csrc/packed2d.cu's note).
+
+    Unit (sx, sy), one warp, owns lanes [sx * strip, (sx + 1) * strip) and
+    rows [sy * seg, (sy + 1) * seg) of the packed grid (clipped to it); its
+    LEG_LANES lanes start ``halo_lanes`` before its first. It streams the
+    rows from ``top`` above its first to ``bottom`` below its last. In step
+    t row t has been loaded; smoothing stage k (an RB-GS half-sweep or a
+    Jacobi sweep) works on row t - 1 - k, the down leg's residual (and
+    store) on row t - out_lag and its restriction on fine row
+    t - out_lag - 1, the up leg's store on row t - out_lag; stages run in
+    that order within a step. Each lane keeps LEG_WINDOW rows (and
+    LEG_COARSE_WINDOW coarse rows) in registers; nothing is in shared
+    memory."""
+    leg: str
+    n: int
+    stages: int
+    strips: int
+    segs: int
+    strip: int
+    seg: int
+    halo_lanes: int
+    top: int
+    bottom: int
+    out_lag: int
+
+    def ints(self) -> tuple:
+        """The 7 ints the kernel takes (its LegGeom)."""
+        return (self.strips, self.segs, self.strip, self.seg,
+                self.halo_lanes, self.top, self.bottom)
+
+    def rows(self, sy: int) -> tuple:
+        """(first, end) of segment sy's rows and of the rows it streams."""
+        p = self.n + 2
+        y0 = sy * self.seg
+        y1 = min(y0 + self.seg, p)
+        return y0, y1, max(0, y0 - self.top), min(p, y1 + self.bottom)
+
+    def strip_lanes(self, sx: int) -> tuple:
+        """(first, end) of strip sx's lanes."""
+        l0 = sx * self.strip
+        return l0, min(l0 + self.strip, (self.n + 3) // 2)
+
+    def span(self) -> int:
+        """Rows a lane holds at once: from the oldest row a step reads (the
+        residual's row above its row, or the last stage's) to the newest
+        one loaded."""
+        oldest = self.out_lag + 1 if self.leg == "down" else self.stages + 1
+        return oldest + LEG_AHEAD + 1
+
+
+def leg_geometry(leg: str, n: int, kind: str, sweeps: int, *,
+                 sm_count: int = 132, seg: int | None = None) -> LegGeometry:
+    """Geometry of the down (``leg="down"``) or up leg on a packed (n+2)^2
+    grid with ``sweeps`` sweeps of ``kind``; ``seg`` overrides the segment
+    rows the launch would choose for ``sm_count`` SMs.
+
+    Halos: each stage makes one more ring of a unit's tile stale, so the up
+    leg's K stages need K rows above and below and ceil(K/2) lanes each
+    side; the down leg also needs the residual one row past its rows
+    (K + 2 above, K + 1 below, ceil((K + 2)/2) lanes). The rows above are
+    rounded up to even, so each unit starts on an even row and the kernel
+    knows every row's parity at compile time. Lags: a stage reads rows
+    i - 1 .. i + 1 of the one before it, which reached row i + 1 earlier in
+    the same step, so consecutive stages are one row apart."""
+    stages = 2 * sweeps if kind == "rbgs" else sweeps
+    p = n + 2
+    cp = (p + 1) // 2
+    if leg == "down":
+        halo, top, bottom, out_lag = ((stages + 3) // 2, stages + 2,
+                                      stages + 1, stages + 1)
+    elif leg == "up":
+        halo, top, bottom, out_lag = ((stages + 1) // 2, stages, stages,
+                                      stages)
+    else:
+        raise ValueError(f"leg {leg!r}: down or up")
+    top += top & 1
+    strip = LEG_LANES - 2 * halo
+    strips = -(-cp // strip)
+    if seg is None:
+        units = sm_count * LEG_WARPS_PER_SM
+        seg = max(LEG_MIN_SEG, -(-p // max(1, units // strips)))
+    seg += seg & 1
+    return LegGeometry(leg=leg, n=n, stages=stages, strips=strips,
+                       segs=-(-p // seg), strip=strip, seg=seg,
+                       halo_lanes=halo, top=top, bottom=bottom,
+                       out_lag=out_lag)
+
+
+@functools.cache
+def _launch_geometry(leg: str, n: int, kind: str, sweeps: int, index: int):
+    """The leg's geometry on card ``index``, as the kernel's int array,
+    built once for each leg, grid, schedule and card."""
+    sm_count = torch.cuda.get_device_properties(index).multi_processor_count
+    g = leg_geometry(leg, n, kind, sweeps, sm_count=sm_count)
+    return (ctypes.c_int * 7)(*g.ints())
+
+
 def _zero_black(r: torch.Tensor) -> torch.Tensor:
     """r with its black points ((i+j) odd) set to zero."""
     p = r.shape[0]
@@ -164,7 +285,8 @@ def smooth_residual_restrict(s: torch.Tensor, bs: torch.Tensor, n: int,
     launch_on(s, "packed2d_down", s.data_ptr(), bs.data_ptr(),
               u_out.data_ptr(), rc.data_ptr(), n, float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps,
-              int(packed_coarse))
+              int(packed_coarse),
+              _launch_geometry("down", n, kind, sweeps, s.device.index or 0))
     down_launches += 1
     return u_out, rc
 
@@ -204,7 +326,8 @@ def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(x)
     launch_on(x, "packed2d_up", x.data_ptr(), e.data_ptr(), b.data_ptr(),
               out.data_ptr(), n, float(h), float(sigma),
-              _build.KIND_CODES[kind], float(omega), sweeps, int(packed_e))
+              _build.KIND_CODES[kind], float(omega), sweeps, int(packed_e),
+              _launch_geometry("up", n, kind, sweeps, x.device.index or 0))
     up_launches += 1
     return out
 

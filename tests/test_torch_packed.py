@@ -264,3 +264,405 @@ def test_v_cycle_on_packed_level_matches_plain_route(monkeypatch):
     assert out[True].shape == out[False].shape == (65, 65)
     np.testing.assert_allclose(out[True].numpy(), out[False].numpy(),
                                rtol=1e-10, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The row-streaming legs' launch geometry (packed2d.leg_geometry), which
+# csrc/packed2d_legs.cuh's down_kernel and up_kernel take as they are. The CUDA
+# kernels run only on the card; here a step-by-step emulation of their
+# schedule (one warp's unit at a time, its register window and lags as in
+# the kernel, stages in the kernel's order within a step) runs on the
+# geometry and is held against the plain versions. On every read it asserts
+# that the window slot holds the row it expects and that the row has been
+# loaded, and, for RB-GS, that each neighbour row has had exactly the
+# half-sweeps a sequential sweep would have given it by then; every point
+# of the outputs must be written exactly once. Float64; tolerance as
+# _close.
+# ---------------------------------------------------------------------------
+
+def _coefs(h, sigma, omega):
+    h2 = h * h
+    inv_h2 = 1.0 / h2
+    return h2, inv_h2, sigma, 1.0 / (4.0 - sigma * h2), \
+        omega / (4.0 * inv_h2 - sigma)
+
+
+class _Window:
+    """Rows of both planes of `width` lanes, slot i & (size - 1), each slot
+    tagged with the row it holds and, for RB-GS, its updates by colour."""
+
+    def __init__(self, size, width):
+        self.mask = size - 1
+        self.data = np.full((size, 2, width), np.nan)
+        self.tag = np.full(size, -1)
+        self.count = np.zeros((size, 2), dtype=int)
+        self.limit = None       # the last row loaded so far
+
+    def put(self, i, rows):
+        k = i & self.mask
+        self.data[k], self.tag[k] = rows, i
+        self.count[k] = 0
+
+    def slot(self, i):
+        k = i & self.mask
+        assert self.tag[k] == i, f"slot of row {i} holds row {self.tag[k]}"
+        return k
+
+    def row(self, i):
+        assert self.limit is None or i <= self.limit, \
+            f"row {i} read before it was loaded (row {self.limit})"
+        return self.data[self.slot(i)]
+
+
+def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
+                 packed_coarse=False):
+    """csrc/packed2d_legs.cuh's down_kernel (e None) or up_kernel on
+    geometry g, unit by unit; returns u' and the coarse residual (down) or
+    x'. Stage k works on row t - 1 - k of step t."""
+    n, K, TW, hp = g.n, g.stages, packed2d.LEG_LANES, g.halo_lanes
+    P, cp = n + 2, (n + 3) // 2
+    h2, inv_h2, sig, inv_den, jscale = _coefs(h, sigma, omega)
+    down = e is None
+    red_only = kind == "rbgs" and sweeps >= 1
+    out = np.zeros_like(s)
+    out_w = np.zeros(s.shape, dtype=int)
+    rc = np.zeros((2, cp, (cp + 1) // 2) if packed_coarse else (cp, cp))
+    rc_w = np.zeros((cp, cp), dtype=int)
+    x = np.arange(TW)
+    A = packed2d.LEG_AHEAD
+    n_steady = [0]
+    for sy in range(g.segs):
+        y0, y1, ys, ye = g.rows(sy)
+        assert ys % 2 == 0
+        for sx in range(g.strips):
+            j0 = sx * g.strip - hp
+            gl = j0 + x
+            okl = (gl >= 0) & (gl < cp)
+            glc = np.clip(gl, 0, cp - 1)
+            upd = [(2 * x + p >= 1) & (2 * x + p <= 2 * TW - 2)
+                   & (2 * gl + p >= 1) & (2 * gl + p <= n) for p in (0, 1)]
+            core = (x >= hp) & (x < hp + g.strip) & (gl < cp)
+            W = packed2d.LEG_WINDOW
+            ur, br = _Window(W, TW), _Window(W, TW)
+            js = [_Window(W, TW) for _ in range(K)]
+            rr = _Window(W, TW)
+            cs = _Window(packed2d.LEG_COARSE_WINDOW, TW + 1)
+            fr = js[K - 1] if kind == "jacobi" and K else ur
+            prolonged = set()
+
+            lo, hi = max(ys + 1, 1), min(ye - 2, n)
+
+            def live(i):    # a row the smoothing updates
+                return lo <= i <= hi
+
+            def load_coarse(I):
+                J = j0 + np.arange(TW + 1)
+                ok = (J >= 0) & (J < cp) & (0 <= I < cp)
+                Jc, Ic = np.clip(J, 0, cp - 1), min(max(I, 0), cp - 1)
+                v = (e[(Ic + Jc) & 1, Ic, Jc >> 1] if e.ndim == 3
+                     else e[Ic, Jc])
+                cs.put(I, np.stack([np.where(ok, v, 0.0)] * 2))
+
+            def load(i):
+                if i >= ye:
+                    return
+                ur.put(i, np.where(okl, s[:, i, glc], 0.0))
+                br.put(i, np.where(okl, bs[:, i, glc], 0.0))
+                if not down and i & 1 and i >= ys + A:
+                    load_coarse((i + 1) >> 1)
+
+            def nsum(win, i, c, p):
+                mid = win.row(i)[1 - c]
+                side = np.roll(mid, -1) if p else np.roll(mid, 1)
+                return ((win.row(i - 1)[1 - c] + win.row(i + 1)[1 - c])
+                        + mid) + side
+
+            def prolong(t):
+                if not (t < ye and 1 <= t <= n):
+                    prolonged.add(t)
+                    return
+                I = t >> 1
+                lo = cs.row(I)[0]
+                hi = cs.row(I + 1)[0] if t & 1 else lo
+                for c in (0, 1):
+                    gx = 2 * gl + ((c + t) & 1)
+                    if t & 1:
+                        a = 0.5 * (lo[:-1] + hi[:-1])
+                        d = 0.5 * (lo[1:] + hi[1:])
+                    else:
+                        a, d = lo[:-1], lo[1:]
+                    pe = np.where(gx & 1, 0.5 * (a + d), a)
+                    v = ur.row(t)[c]
+                    ur.row(t)[c] = np.where((gx >= 1) & (gx <= n), v + pe, v)
+                prolonged.add(t)
+
+            def smooth(t, k):
+                i = t - 1 - k
+                if not down and live(i):
+                    assert all(r in prolonged for r in (i - 1, i, i + 1))
+                if kind == "rbgs":
+                    if not live(i):
+                        return
+                    c = k & 1
+                    p = (c + i) & 1
+                    for r in (i - 1, i, i + 1):
+                        if live(r):
+                            assert ur.count[ur.slot(r), 1 - c] == (k + 1) // 2
+                    assert ur.count[ur.slot(i), c] == k // 2
+                    new = (h2 * br.row(i)[c] + nsum(ur, i, c, p)) * inv_den
+                    ur.row(i)[c] = np.where(upd[p], new, ur.row(i)[c])
+                    ur.count[ur.slot(i), c] += 1
+                    return
+                if not ys <= i < ye:
+                    return
+                src = js[k - 1] if k else ur
+                rows = np.empty((2, TW))
+                for c in (0, 1):
+                    p = (c + i) & 1
+                    v = src.row(i)[c]
+                    if live(i):
+                        r_ = br.row(i)[c] - (4.0 * v - nsum(src, i, c, p)) \
+                            * inv_h2 + sig * v
+                        v = np.where(upd[p], v + jscale * r_, v)
+                    rows[c] = v
+                js[k].put(i, rows)
+
+            def finished(i):
+                for r in (i - 1, i, i + 1) if down else (i,):
+                    if live(r) and kind == "rbgs":
+                        assert list(fr.count[fr.slot(r)]) == [sweeps] * 2
+
+            def residual_store(t):
+                i = t - g.out_lag
+                if not ys <= i < ye:
+                    return
+                if down:
+                    res = np.zeros((2, TW))
+                    if live(i):
+                        finished(i)
+                        for c in (0, 1):
+                            if red_only and c:
+                                continue
+                            p = (c + i) & 1
+                            v = fr.row(i)[c]
+                            r_ = br.row(i)[c] - (4.0 * v - nsum(fr, i, c, p)) \
+                                * inv_h2 + sig * v
+                            res[c] = np.where(upd[p], r_, 0.0)
+                    rr.put(i, res)
+                elif kind == "rbgs" and live(i):
+                    finished(i)
+                if y0 <= i < y1:
+                    if not down:
+                        assert i in prolonged
+                    for c in (0, 1):
+                        out[c, i, gl[core]] = fr.row(i)[c][core]
+                        out_w[c, i, gl[core]] += 1
+
+            def restrict(t):
+                j = t - g.out_lag - 1
+                if j & 1 or not y0 <= j < y1:
+                    return
+                I = j >> 1
+                for J in gl[core]:
+                    xx = J - j0
+                    val = 0.0
+                    if 1 <= I <= cp - 2 and 1 <= J <= cp - 2:
+                        tq = []
+                        for q in range(3):
+                            lane = xx - 1 if q == 0 else xx
+                            ph = 0 if q == 1 else 1
+                            r0, r1, r2 = (rr.row(jj)[(ph + jj) & 1][lane]
+                                          for jj in (j - 1, j, j + 1))
+                            tq.append(0.25 * (r0 + 2.0 * r1 + r2))
+                        val = 0.25 * (tq[0] + 2.0 * tq[1] + tq[2])
+                    if packed_coarse:
+                        rc[(I + J) & 1, I, J >> 1] = val
+                    else:
+                        rc[I, J] = val
+                    rc_w[I, J] += 1
+
+            if down:
+                last_even = y1 - 1 if y1 & 1 else y1 - 2
+                t_end = last_even + g.out_lag + 1
+            else:
+                t_end = y1 - 1 + g.out_lag
+                for m in range(A // 2 + 1):
+                    load_coarse((ys >> 1) + m)
+            for i in range(A):
+                load(ys + i)
+            K1 = g.out_lag
+            for t in range(ys, t_end + 1):
+                t0 = ys + (t - ys) // W * W
+                # The kernel's test for a chunk of W steps run with no row
+                # tests (packed2d_legs.cuh, `chunk`): then every row test
+                # of the step holds.
+                if down:
+                    steady = (t0 - K1 >= lo and t0 - K1 - 1 >= y0
+                              and t0 + W - 2 <= hi and t0 + W - 1 - K1 < y1
+                              and t0 + W - 1 + A < ye)
+                else:
+                    steady = (t0 >= 1 and t0 + W - 1 <= n and t0 - K >= lo
+                              and t0 + W - 2 <= hi and t0 - K1 >= y0
+                              and t0 + W - 1 - K1 < y1
+                              and t0 + W - 1 + A < ye)
+                if steady:
+                    assert t + A < ye
+                    assert all(lo <= t - 1 - k <= hi for k in range(K))
+                    assert y0 <= t - K1 < y1
+                    if down:
+                        assert lo <= t - K1 <= hi
+                        assert y0 <= t - K1 - 1 < y1
+                    else:
+                        assert 1 <= t <= n
+                    n_steady[0] += 1
+                load(t + A)
+                for win in (ur, br, *js):
+                    win.limit = t
+                cs.limit = (t + 1) >> 1
+                if not down:
+                    prolong(t)
+                for k in range(K):
+                    smooth(t, k)
+                residual_store(t)
+                if down:
+                    restrict(t)
+    _emulate_leg.steady_steps = n_steady[0]
+    assert (out_w == 1).all(), "a point of u' stored more or less than once"
+    if down:
+        assert (rc_w == 1).all(), "a coarse point written more or less " \
+                                  "than once"
+        return out, rc
+    return out
+
+
+def _emulation_cases(cap_of):
+    return [(kind, s) for kind in ("rbgs", "jacobi")
+            for s in range(cap_of(kind) + 1)]
+
+
+# Segment rows: 8 and 10 give several short segments at n = 61 (each
+# with two strips, the second partial); 64, one segment, as the card runs
+# n = 61, with chunks of steps that need no row tests.
+_EMULATED = [8, 10, 64]
+
+
+@pytest.mark.parametrize("seg", _EMULATED)
+@pytest.mark.parametrize("kind,sweeps",
+                         _emulation_cases(packed2d.max_down_sweeps))
+def test_row_stream_down_schedule_matches_plain(kind, sweeps, seg):
+    n = 61
+    rng = np.random.default_rng(6000 + sweeps)
+    u, b = _padded(rng, n), _padded(rng, n) * (n + 1) ** 2
+    h = 1.0 / (n + 1)
+    pc = bool(sweeps & 1)
+    g = packed2d.leg_geometry("down", n, kind, sweeps, seg=seg)
+    assert (g.segs > 1 or seg >= n + 2) and g.span() <= packed2d.LEG_WINDOW
+    assert g.strips > 1 or sweeps == 0
+    su, sb = _tpack(u), _tpack(b)
+    got_u, got_rc = _emulate_leg(g, kind, sweeps, su.numpy(), sb.numpy(), h,
+                                 SIGMA, OMEGA[kind], packed_coarse=pc)
+    assert _emulate_leg.steady_steps > 0 or seg < 64
+    want_u, want_rc = packed2d.smooth_residual_restrict_plain(
+        su, sb, n, h, kind=kind, omega=OMEGA[kind], sweeps=sweeps,
+        sigma=SIGMA, packed_coarse=pc)
+    _close(torch.from_numpy(got_u), packed2d.unpack(want_u).numpy(), n)
+    nc = (n - 1) // 2
+    want_rc = packed2d.unpack(want_rc) if pc else want_rc
+    _close(torch.from_numpy(got_rc), want_rc.numpy(), nc)
+
+
+@pytest.mark.parametrize("seg", _EMULATED)
+@pytest.mark.parametrize("kind,sweeps",
+                         _emulation_cases(packed2d.max_up_sweeps))
+def test_row_stream_up_schedule_matches_plain(kind, sweeps, seg):
+    n = 61
+    nc = (n - 1) // 2
+    rng = np.random.default_rng(7000 + sweeps)
+    x, b, e = _padded(rng, n), _padded(rng, n), _padded(rng, nc)
+    h = 1.0 / (n + 1)
+    te = _tpack(e) if sweeps & 1 else torch.from_numpy(e)
+    g = packed2d.leg_geometry("up", n, kind, sweeps, seg=seg)
+    assert (g.segs > 1 or seg >= n + 2) and g.span() <= packed2d.LEG_WINDOW
+    assert g.strips > 1 or sweeps == 0
+    sx, sb = _tpack(x), _tpack(b)
+    got = _emulate_leg(g, kind, sweeps, sx.numpy(), sb.numpy(), h, SIGMA,
+                       OMEGA[kind], e=te.numpy())
+    assert _emulate_leg.steady_steps > 0 or seg < 64
+    want = packed2d.prolong_add_smooth_plain(
+        sx, te, sb, n, nc, h, kind=kind, omega=OMEGA[kind], sweeps=sweeps,
+        sigma=SIGMA)
+    _close(torch.from_numpy(got), packed2d.unpack(want).numpy(), n)
+
+
+_GEOMETRY_CASES = [(leg, n, kind, cap_of(kind))
+                   for n in (61, 2999, 4095)
+                   for leg, cap_of in (("down", packed2d.max_down_sweeps),
+                                       ("up", packed2d.max_up_sweeps))
+                   for kind in ("rbgs", "jacobi")]
+
+
+@pytest.mark.parametrize("leg,n,kind,sweeps", _GEOMETRY_CASES)
+def test_leg_geometry_owns_each_point_once(leg, n, kind, sweeps):
+    """Every row and lane of the fine grid lies in exactly one unit's
+    store, and every coarse point (fine row 2I, lane J) in one unit's
+    restriction; each unit streams the halo rows its stages need."""
+    g = packed2d.leg_geometry(leg, n, kind, sweeps)
+    p, cp = n + 2, (n + 3) // 2
+    rows = np.zeros(p, dtype=int)
+    coarse_rows = np.zeros(cp, dtype=int)
+    for sy in range(g.segs):
+        y0, y1, ys, ye = g.rows(sy)
+        assert y0 % 2 == 0 and y0 < y1 and ys % 2 == 0
+        rows[y0:y1] += 1
+        coarse_rows[(y0 + 1) // 2:(y1 + 1) // 2] += 1
+        need_above = g.stages + (2 if leg == "down" else 0)
+        need_below = g.stages + (1 if leg == "down" else 0)
+        assert ys <= max(0, y0 - need_above)
+        assert ye == min(p, y1 + need_below)
+    lanes = np.zeros(cp, dtype=int)
+    for sx in range(g.strips):
+        l0, l1 = g.strip_lanes(sx)
+        assert l0 < l1
+        lanes[l0:l1] += 1
+    assert (rows == 1).all() and (coarse_rows == 1).all()
+    assert (lanes == 1).all()           # coarse columns J are lanes too
+    assert g.strip + 2 * g.halo_lanes == packed2d.LEG_LANES
+    # Fine columns of halo each side cover the stale columns.
+    assert 2 * g.halo_lanes >= g.stages + (2 if leg == "down" else 0)
+
+
+@pytest.mark.parametrize("leg,cap_of", [("down", packed2d.max_down_sweeps),
+                                        ("up", packed2d.max_up_sweeps)])
+@pytest.mark.parametrize("kind", ["rbgs", "jacobi"])
+def test_leg_geometry_fits_its_window(leg, cap_of, kind):
+    """At every sweep count up to the cap the rows a lane holds at once fit
+    the kernel's register window (it needs no shared memory), the lags put
+    the residual or store after the last stage, and the launch fills the
+    card: at least LEG_WARPS_PER_SM warps' worth of units at 4095^2."""
+    for sweeps in range(cap_of(kind) + 1):
+        g = packed2d.leg_geometry(leg, 4095, kind, sweeps)
+        assert g.span() <= packed2d.LEG_WINDOW
+        # Stage k on row t - 1 - k: the last stage's row is at or behind
+        # the up leg's store and ahead of the down leg's residual.
+        assert g.stages < g.out_lag + (leg == "up")
+        assert g.strips * g.segs >= 132 * packed2d.LEG_WARPS_PER_SM * 0.9
+
+
+def test_leg_constants_match_the_kernel_source():
+    """packed2d's LEG_* constants, the stage caps and the geometry's ints
+    are the ones csrc/packed2d_legs.cuh compiles with."""
+    import re
+
+    src = (packed2d._build.CSRC / "packed2d_legs.cuh").read_text()
+    const = {name: int(v) for name, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kWarp"] == packed2d.LEG_LANES
+    assert const["kAhead"] == packed2d.LEG_AHEAD
+    assert const["kWin"] == packed2d.LEG_WINDOW
+    assert const["kCoarseWin"] == packed2d.LEG_COARSE_WINDOW
+    for cap_of, key in ((packed2d.max_down_sweeps, "kMaxDownStages"),
+                        (packed2d.max_up_sweeps, "kMaxUpStages")):
+        assert const[key] == max(2 * cap_of("rbgs"), cap_of("jacobi"))
+    fields = re.search(r"struct LegGeom \{\s*int ([^;]*);", src).group(1)
+    g = packed2d.leg_geometry("down", 61, "rbgs", 2)
+    assert len(fields.split(",")) == len(g.ints()) == 7
