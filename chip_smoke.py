@@ -57,7 +57,9 @@ Phases:
      at the main paths' shapes, the packed kernels against their unpacked
      twins at 4095^2 (the four legs also as 20 chained calls between one
      pair of events, the time their rows report, and the packed legs at
-     nu = 0, 1, 2 and the cap), the smoother figure (one packed RB-GS sweep at
+     nu = 0, 1, 2 and the cap), the stencil3d kernels single and chained
+     at 511^3, 255^3 and 127^3 (the 511^3 chained time is their rows'),
+     the smoother figure (one packed RB-GS sweep at
      4095^2: ms, GB/s, Gnnz/s), the SpMV figure (a DIA apply at 4095^2 and
      255^3, from 20 chained applies: ms, Gnnz/s, GB/s) and the BELL figure
      (ms, TFLOP/s, Gnnz*vec/s, GB/s), each beside its plain version and
@@ -141,8 +143,26 @@ COMPARE_SHAPES = [(torch.float32, 4095), (torch.float32, 2047),
 # and one segment; every sweep count from 0 to the cap at one float64 size.
 PACKED_LEG_SHAPES = [(torch.float32, 2999), (torch.float64, 61)]
 PACKED_LEG_ALL_NU = (torch.float64, 255)
-STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 127),
-                    (torch.float64, 127)]
+STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 255),
+                    (torch.float32, 127), (torch.float64, 127)]
+# The stencil3d z-march's edge cases, as plane stacks (goff, roff, p, r) of
+# an (n+2)^3 grid, by (dtype, n): 3 planes (units of one plane each); 64,
+# 63 and 65 planes of the 511 grid (stencil3d.march_geometry: the sweep's
+# two chunks of 32, three of 21 and three of 22, the last one short; the
+# residual's chunks of 8 whole, the last one short, and one past with a
+# chunk of one plane); whole grids whose c = n + 2 is one past a strip
+# multiple (57 = 2 * 28 + 1, the sweep's strips; 61 = 2 * 30 + 1, the
+# residual's); r = 17, one past a band multiple (8 rows in float32, 4 or 8
+# in float64).
+STENCIL3D_STACKS = {
+    (torch.float32, 127): [(40, 0, 3, 129)],
+    (torch.float32, 511): [(10, 0, 64, 513), (200, -1, 63, 513),
+                           (440, 3, 65, 513)],
+    (torch.float32, 55): [(0, 0, 57, 57), (20, 10, 20, 17)],
+    (torch.float32, 59): [(0, 0, 61, 61)],
+    (torch.float64, 55): [(20, 10, 20, 17)],
+    (torch.float64, 59): [(-1, -1, 65, 61)],
+}
 PACKED_RESIDUAL_SHAPES = [(torch.float32, 4095), (torch.float64, 255)]
 # The composed legs' kernels: transfer2d and the stencil2d sweeps at the
 # largest unpacked level (and Jacobi at path C's 1023), the packed RB-GS
@@ -621,23 +641,38 @@ def compare_stencil3d(main_err: dict) -> None:
         if dtype == torch.float64:
             # A slab-and-pencil stack: global planes 100..139 (past the
             # ghost plane 128 they are zero) and rows -2..57 of the grid.
-            goff, roff, p, r = 100, -2, 40, 60
-            su, sb = (torch.zeros((p, r, n + 2), dtype=dtype, device="cuda")
-                      for _ in range(2))
-            for s, g in ((su, u), (sb, b)):
-                planes = g[goff:goff + p, :r + roff]
-                s[:planes.shape[0], -roff:] = planes
-            for mode, key, kw, _ in modes:
-                check_pair(
-                    f"{key} {name} stack goff={goff} roff={roff} {kw}",
-                    getattr(stencil3d, mode)(su, sb, n, h, sigma=SIGMA,
-                                             goff=goff, roff=roff, **kw),
-                    getattr(stencil3d, mode + "_plain")(
-                        su, sb, n, h, sigma=SIGMA, goff=goff, roff=roff,
-                        **kw), tol, ghosts=False)
-            del su, sb
+            compare_stack(u, b, n, 100, -2, 40, 60, modes, tol)
         del u, b
         torch.cuda.empty_cache()
+    for (dtype, n), stacks in STENCIL3D_STACKS.items():
+        u, b = cube_inputs(n, dtype, seed=n + 1)
+        for goff, roff, p, r in stacks:
+            compare_stack(u, b, n, goff, roff, p, r, modes, TOL[dtype])
+        del u, b
+        torch.cuda.empty_cache()
+
+
+def compare_stack(u, b, n, goff, roff, p, r, modes, tol) -> None:
+    """Each stencil3d mode on planes goff .. goff + p - 1 and rows roff ..
+    roff + r - 1 of the grid u, b (zero where they leave it), sigma =
+    SIGMA."""
+    from multigridcmt_tpu_torch.kernels import stencil3d
+
+    su, sb = (torch.zeros((p, r, n + 2), dtype=u.dtype, device="cuda")
+              for _ in range(2))
+    z, y = max(0, -goff), max(0, roff)
+    for s, g in ((su, u), (sb, b)):
+        planes = g[max(goff, 0):goff + p, y:roff + r]
+        s[z:z + planes.shape[0], y - roff:y - roff + planes.shape[1]] = planes
+    name = f"{str(u.dtype).split('.')[-1]} n={n}"
+    for mode, key, kw, _ in modes:
+        check_pair(
+            f"{key} {name} stack p={p} r={r} goff={goff} roff={roff} {kw}",
+            getattr(stencil3d, mode)(su, sb, n, 1.0 / (n + 1), sigma=SIGMA,
+                                     goff=goff, roff=roff, **kw),
+            getattr(stencil3d, mode + "_plain")(
+                su, sb, n, 1.0 / (n + 1), sigma=SIGMA, goff=goff, roff=roff,
+                **kw), tol, shape=(p, r, n + 2), ghosts=False)
 
 
 def vector_on_card(size: int, dtype, seed: int) -> torch.Tensor:
@@ -1850,33 +1885,14 @@ def time_pair(name: str, kernel, plain) -> dict:
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
 
 
-def chained_ms(fn, calls: int = LEG_CHAIN, reps: int = 5) -> float:
-    """Median over ``reps`` of the CUDA-event time of ``calls`` back-to-back
-    calls of ``fn`` between one pair of events, over ``calls``: the
-    device's time a call once the host runs ahead of the card."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
 def timed_legs(times: dict) -> None:
     """The packed2d legs at 4095^2 float32, RB-GS, sigma = 0, at every sweep
     count in LEG_SWEEPS and at the cap, and the fused2d legs on the same
     grid at nu = 2: each as a single call (cuda_time_ms, whose start event
     precedes the wrapper's host work) and as LEG_CHAIN chained calls."""
     from multigridcmt_tpu_torch.kernels import fused2d, packed2d
-    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
 
     n = 2 ** MAIN_K - 1
     nc = (n - 1) // 2
@@ -1902,7 +1918,8 @@ def timed_legs(times: dict) -> None:
     for name, (cap, make) in legs.items():
         for nu in sorted({2} if cap is None else {*LEG_SWEEPS, cap}):
             fn = make(nu)
-            row = {"single_ms": cuda_time_ms(fn), "chained_ms": chained_ms(fn)}
+            row = {"single_ms": cuda_time_ms(fn),
+                   "chained_ms": chained_ms(fn, LEG_CHAIN)}
             out[f"{name}@4095 nu={nu}"] = row
             log(f"leg {name} n={n} nu={nu}: single {row['single_ms']:.4f} "
                 f"ms, chained x{LEG_CHAIN} {row['chained_ms']:.4f} ms")
@@ -2106,26 +2123,46 @@ def timed_composed(times: dict) -> None:
 
 
 def timed_3d(times: dict) -> None:
+    """The stencil3d kernels at 511^3 float32 against their plain versions
+    (single calls, in turns), and at 511^3, 255^3 and 127^3 (the 3D
+    cycle's kernel levels) single and LEG_CHAIN chained: a row's ms is the
+    chained time at 511^3, its single_ms the single one."""
     from multigridcmt_tpu_torch.kernels import stencil3d
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
 
-    n = 2 ** MAIN_K3 - 1
-    h = 1.0 / (n + 1)
-    u, b = cube_inputs(n, torch.float32, seed=9)
     w = omega3()
     # One call = one launch count: the residual, one Jacobi sweep, one
-    # RB-GS sweep (two passes); each reads u and b and writes one grid.
-    for name, mode, kw in (("stencil3d_residual", "residual", {}),
-                           ("stencil3d_jacobi", "jacobi_sweep",
-                            dict(omega=w)),
-                           ("stencil3d_rbgs", "rbgs_sweep", {})):
-        t = time_pair(
-            f"{name} n={n}",
-            lambda: getattr(stencil3d, mode)(u, b, n, h, **kw),
-            lambda: getattr(stencil3d, mode + "_plain")(u, b, n, h, **kw))
-        t.update(bytes=nbytes(u, b, u), flops=flops_per_point(name) * n ** 3)
-        times[name] = t
-    del u, b
-    torch.cuda.empty_cache()
+    # RB-GS sweep; each reads u and b and writes one grid.
+    kernels3 = (("stencil3d_residual", "residual", {}),
+                ("stencil3d_jacobi", "jacobi_sweep", dict(omega=w)),
+                ("stencil3d_rbgs", "rbgs_sweep", {}))
+    levels = {}
+    for k in range(MAIN_K3, MAIN_K3 - 3, -1):
+        n = 2 ** k - 1
+        h = 1.0 / (n + 1)
+        u, b = cube_inputs(n, torch.float32, seed=k)
+        for name, mode, kw in kernels3:
+            fn = functools.partial(getattr(stencil3d, mode), u, b, n, h, **kw)
+            row = {"single_ms": cuda_time_ms(fn),
+                   "chained_ms": chained_ms(fn, LEG_CHAIN),
+                   "bound_ms": nbytes(u, b, u) / PEAK_BYTES_PER_S * 1e3}
+            levels[f"{name}@{n}"] = row
+            log(f"{name} n={n}: single {row['single_ms']:.4f} ms, chained "
+                f"x{LEG_CHAIN} {row['chained_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms")
+            if k == MAIN_K3:
+                t = time_pair(
+                    f"{name} n={n}", fn,
+                    lambda: getattr(stencil3d, mode + "_plain")(u, b, n, h,
+                                                                **kw))
+                t.update(single_ms=t["ms"], ms=row["chained_ms"],
+                         bytes=nbytes(u, b, u),
+                         flops=flops_per_point(name) * n ** 3)
+                times[name] = t
+        del u, b
+        torch.cuda.empty_cache()
+    times["stencil3d_levels"] = levels
 
 
 def timed_solves(times: dict) -> None:
@@ -2538,8 +2575,9 @@ def kernel_rows(names, runs, errs, times):
     restriction), so theirs is null. A kernel that no main path runs
     reports its launches summed over all main-path runs (0) and those of
     its direct calls as direct_launches. The packed2d and fused2d legs'
-    ms is the time a call of LEG_CHAIN chained calls, their single_ms that
-    of one call timed alone (the wrapper's host work inside)."""
+    and the stencil3d kernels' ms is the time a call of LEG_CHAIN chained
+    calls, their single_ms that of one call timed alone (the wrapper's
+    host work inside)."""
     rows = []
     for name in names:
         *_, src, rep, run = KERNELS[name]
@@ -2604,6 +2642,7 @@ def main() -> int:
         log(f"cycle_{label}: " + json.dumps(times["cycle_" + label]))
     log("smoother: " + json.dumps(times["smoother"]))
     log("legs: " + json.dumps(times["legs"]))
+    log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):
         log(f"{key}: " + json.dumps(times[key]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")

@@ -67,15 +67,16 @@ for _t in ("f32", "f64"):
     SIGNATURES[f"mg_packed2d_residual_{_t}"] = [_P, _P, _P, _I, _D, _D, _P]
     # u, b, out, n, h, sigma, sweeps, stream
     SIGNATURES[f"mg_packed2d_rbgs_{_t}"] = [_P, _P, _P, _I, _D, _D, _I, _P]
-    # u, b, out, p, r, c, n, h, sigma, goff, roff, stream
+    # u, b, out, p, r, c, n, h, sigma, goff, roff, geometry
+    # (stencil3d.march_geometry), stream
     SIGNATURES[f"mg_stencil3d_residual_{_t}"] = [_P, _P, _P, _I, _I, _I, _I,
-                                                 _D, _D, _I, _I, _P]
-    # u, b, out, p, r, c, n, h, sigma, omega, goff, roff, stream
+                                                 _D, _D, _I, _I, _IP, _P]
+    # u, b, out, p, r, c, n, h, sigma, omega, goff, roff, geometry, stream
     SIGNATURES[f"mg_stencil3d_jacobi_{_t}"] = [_P, _P, _P, _I, _I, _I, _I, _D,
-                                               _D, _D, _I, _I, _P]
-    # u, b, tmp, out, p, r, c, n, h, sigma, goff, roff, stream
-    SIGNATURES[f"mg_stencil3d_rbgs_{_t}"] = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                             _D, _D, _I, _I, _P]
+                                               _D, _D, _I, _I, _IP, _P]
+    # u, b, out, p, r, c, n, h, sigma, goff, roff, geometry, stream
+    SIGNATURES[f"mg_stencil3d_rbgs_{_t}"] = [_P, _P, _P, _I, _I, _I, _I, _D,
+                                             _D, _I, _I, _IP, _P]
     # diags, x, offsets, y, ndiag, len = R*128, skirt = H*128, stream
     SIGNATURES[f"mg_spmv_dia_{_t}"] = [_P, _P, _P, _P, _I, _L, _L, _P]
     # data, cols, xt, yt, nbr, kmax, m, ldx, stream

@@ -2,13 +2,24 @@
 
 Replaces the three modes of the TPU kernel in
 ``multigridcmt_tpu/kernels/stencil3d.py`` (one ``pallas_call``) with
-``csrc/stencil3d.cu`` (a z-march over (x, y) tiles; see the note there on
-what bounds it):
+``csrc/stencil3d.cu``:
   * ``residual``: r = b - (A - sigma I) u, one launch;
   * ``jacobi_sweep``: weighted Jacobi, one launch a sweep;
-  * ``rbgs_sweep``: one full red-then-black Gauss-Seidel sweep a call of
-    the kernel, as two launches (a red pass into a scratch grid, then the
-    black pass); ``rbgs_launches`` counts one a sweep.
+  * ``rbgs_sweep``: one full red-then-black Gauss-Seidel sweep a launch,
+    in one pass like the TPU kernel's two-colour pipeline: it reads u and
+    b once and writes the output once, with no scratch grid;
+    ``rbgs_launches`` counts one a sweep.
+
+What bounds them on the card is device-memory traffic (12 bytes a point
+in float32, for ~10-16 flops). The design (the note in the source) is a
+z-march by warps: each warp owns a strip of columns by a band of rows and
+marches along z over a chunk of planes, keeping its rows of the planes it
+needs in registers and issuing each plane's loads a step ahead; x
+neighbours are warp shuffles, so no shared memory and no barrier. The
+RB-GS warp red-updates plane z + 1 and black-updates plane z at each step,
+recomputing the red values on a one-point ring and on the planes just
+past its chunk from the original u, so no warp needs another's output.
+``march_geometry`` computes the strips, bands and chunks the kernel takes.
 
 Grids: a stack of p planes of r x c points with c = n + 2 and p, r >= 3:
 the logical padded (n+2)^3 grid of a level, or a slab or pencil stack
@@ -33,16 +44,74 @@ version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ._wrap import check_storage, check_tensor, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
-# count; an RB-GS sweep counts once for its two passes).
+# count; an RB-GS sweep counts once).
 residual_launches = 0
 jacobi_launches = 0
 rbgs_launches = 0
+
+# The z-march (csrc/stencil3d.cu). A unit is one warp of MARCH_LANES lanes,
+# MARCH_WARPS to a block; each lane keeps rings of MARCH_SLOTS planes of its
+# column's rows in registers. Rows of a band, by kernel ("rbgs", or "pass":
+# the residual and Jacobi) and dtype. These are the kernel source's
+# constants (kLanes, kWarps, kSlots, kRbgsRowsF32, ...), held against it by
+# the CPU tests. A unit marches over at most MARCH_CHUNK[kernel] planes (the
+# chunks are balanced), fewer where that leaves the launch under
+# MARCH_MIN_UNITS units: an H100 holds 1584-2112 warps of these kernels at
+# once (132 SMs, 3 or 4 blocks of 4 warps at their 120-160 registers). The
+# chunks come from utils/march_chunks.py on an H100 (PERF.md): the pass is
+# fastest with 8 planes at 511^3 and 255^3. The sweep with 128 takes 103
+# planes at 511^3, 2% faster than 32's 31 (64, 256 and 512 lose 4-18%);
+# at 255^3 the unit count cuts 128 to 33 planes, 9% slower than 32's 29.
+# Over a V-cycle's four sweeps at each level 128 comes out 0.03 ms ahead.
+MARCH_LANES = 32
+MARCH_WARPS = 4
+MARCH_SLOTS = 4
+MARCH_ROWS = {("rbgs", torch.float32): 8, ("rbgs", torch.float64): 4,
+              ("pass", torch.float32): 8, ("pass", torch.float64): 8}
+MARCH_CHUNK = {"rbgs": 128, "pass": 8}
+MARCH_MIN_UNITS = 2048
+
+
+def march_geometry(kernel: str, p: int, r: int, c: int, dtype) -> tuple:
+    """The 5 ints of the ``kernel`` ("rbgs", or "pass": the residual and
+    Jacobi) march on a (p, r, c) stack of ``dtype``, as the kernel's Geom
+    takes them: (strips, bands, chunks, width, chunk).
+
+    Unit (sx, sy, sz), one warp, owns columns [sx * width, (sx + 1) *
+    width), rows [sy * rows, (sy + 1) * rows) (rows = MARCH_ROWS[kernel,
+    dtype]) and planes [sz * chunk, (sz + 1) * chunk), each clipped to the
+    stack; its lanes start a halo of columns before its first (2 for the
+    RB-GS sweep, whose red values on a one-point ring need u on a
+    two-point one; 1 for the pass). Unit index sx + strips * (sy + bands *
+    sz) is warp w of block bx, bx * MARCH_WARPS + w.
+    """
+    if kernel not in ("rbgs", "pass"):
+        raise ValueError(f"kernel {kernel!r}: rbgs or pass")
+    rows = MARCH_ROWS[kernel, dtype]
+    width = MARCH_LANES - 2 * (2 if kernel == "rbgs" else 1)
+    strips, bands = -(-c // width), -(-r // rows)
+    chunk = MARCH_CHUNK[kernel]
+    need = -(-MARCH_MIN_UNITS // (strips * bands))
+    if -(-p // chunk) < need:
+        chunk = max(1, p // need)
+    chunk = -(-p // -(-p // chunk))          # balanced: the same chunks
+    return (strips, bands, -(-p // chunk), width, chunk)
+
+
+@functools.cache
+def _launch_geometry(kernel: str, shape: tuple, dtype):
+    """The march's geometry as the kernel's int array, built once for each
+    kernel, stack shape and dtype."""
+    return (ctypes.c_int * 5)(*march_geometry(kernel, *shape, dtype))
 
 
 def _check(u: torch.Tensor, b: torch.Tensor, n: int, what: str,
@@ -151,7 +220,7 @@ def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float, sigma=0.0,
     out = torch.empty_like(u)
     launch_on(u, "stencil3d_residual", u.data_ptr(), b.data_ptr(),
               out.data_ptr(), *u.shape, n, float(h), float(sigma), int(goff),
-              int(roff))
+              int(roff), _launch_geometry("pass", tuple(u.shape), u.dtype))
     residual_launches += 1
     return out
 
@@ -166,11 +235,12 @@ def jacobi_sweep(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
     if not on_cuda(u):
         return jacobi_sweep_plain(u, b, n, h, omega, sigma=sigma,
                                   sweeps=sweeps, goff=goff, roff=roff)
+    geom = _launch_geometry("pass", tuple(u.shape), u.dtype)
     for _ in range(sweeps):
         out = torch.empty_like(u)
         launch_on(u, "stencil3d_jacobi", u.data_ptr(), b.data_ptr(),
                   out.data_ptr(), *u.shape, n, float(h), float(sigma),
-                  float(omega), int(goff), int(roff))
+                  float(omega), int(goff), int(roff), geom)
         jacobi_launches += 1
         u = out
     return u
@@ -179,19 +249,19 @@ def jacobi_sweep(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
 def rbgs_sweep(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
                sigma=0.0, sweeps: int = 1, goff: int = 0, roff: int = 0,
                out_dtype=None) -> torch.Tensor:
-    """``sweeps`` full red-then-black Gauss-Seidel sweeps; each is two
-    passes (red into a scratch grid, then black) and counts one launch."""
+    """``sweeps`` full red-then-black Gauss-Seidel sweeps, one launch (one
+    pass over u and b, no scratch grid) each."""
     global rbgs_launches
     _check(u, b, n, "stencil3d.rbgs_sweep", out_dtype)
     if not on_cuda(u):
         return rbgs_sweep_plain(u, b, n, h, sigma=sigma, sweeps=sweeps,
                                 goff=goff, roff=roff)
-    tmp = torch.empty_like(u) if sweeps > 0 else None
+    geom = _launch_geometry("rbgs", tuple(u.shape), u.dtype)
     for _ in range(sweeps):
         out = torch.empty_like(u)
         launch_on(u, "stencil3d_rbgs", u.data_ptr(), b.data_ptr(),
-                  tmp.data_ptr(), out.data_ptr(), *u.shape, n, float(h),
-                  float(sigma), int(goff), int(roff))
+                  out.data_ptr(), *u.shape, n, float(h), float(sigma),
+                  int(goff), int(roff), geom)
         rbgs_launches += 1
         u = out
     return u

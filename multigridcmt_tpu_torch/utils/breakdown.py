@@ -11,17 +11,21 @@ For each route of the float32 V(nu1,nu2) cycle (default RB-GS V(2,2)) at
 events, median of 20), the host-clock time of 20 cycles back to back, the
 device-busy time a cycle and the device ops a cycle (``torch.profiler``,
 summed over the kernel rows), the idle share 1 - busy/cycle, and the
-solve's cycle count and wall time. The routes: the kernel backend as
-shipped; the same with the finest level unpacked (PACK_MIN_N above n, so
-the unpacked kernels run there); the plain backend; and the kernel backend
-with KERNEL_MIN_N = 7 (every level but the coarsest on the kernel tier).
+solve's cycle count, wall time and peak device memory. The routes: the
+kernel backend as shipped; the same with the finest level unpacked
+(PACK_MIN_N above n, so the unpacked kernels run there); the plain
+backend; and the kernel backend with KERNEL_MIN_N = 7 (every level but
+the coarsest on the kernel tier).
 Then, per level, the kernel time of each leg as the cycle runs it (fused,
 or composed from the smoothing and the fused transfer) on the kernel tier,
 packed and unpacked where a level can be either, and of the check. In 3D
 the routes are the kernel backend as shipped, the plain backend, and the
 kernel backend with KERNEL3_MIN_N = 7; then, per level, one RB-GS sweep
 and the residual on the stencil3d kernels and the plain restriction and
-prolongation.
+prolongation. Each per-level time is given as single/chained ms: one call
+timed alone (CUDA events, median of 20; the wrapper's host work inside)
+and the time a call of 20 back-to-back calls between one pair of events
+(the device's time once the host runs ahead, as inside a cycle).
 
 With ``--mesh``, the sharded cycle instead (parallel/sharded.py, a
 torch.distributed world of 1 over NCCL, a row mesh or a (1, 1) block mesh;
@@ -45,7 +49,7 @@ import multigridcmt_tpu_torch as mt
 from multigridcmt_tpu_torch import kernels
 from multigridcmt_tpu_torch.kernels import packed2d, stencil2d, stencil3d
 from multigridcmt_tpu_torch.ops import transfer
-from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+from multigridcmt_tpu_torch.utils.profiling import chained_ms, cuda_time_ms
 
 
 def device_busy(fn, reps: int, match: str = ""):
@@ -119,15 +123,18 @@ def route(label: str, k: int, ndim: int, use_kernels: bool, reps: int,
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / 20 * 1e3
     busy, ops, _ = device_busy(lambda: solver.v_cycle(x0, prob.b), reps)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = solver.solve()
     torch.cuda.synchronize()
     solve_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
     print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} ms (host "
           f"clock, 20 back to back), device busy {busy:.4f} ms/cycle, "
           f"idle share {1 - busy / ms:.4f}, device ops/cycle {ops:.0f}; "
           f"solve {res.iters} cycles {solve_ms:.1f} ms, final "
-          f"{res.res_history[res.iters].item():.4e}", flush=True)
+          f"{res.res_history[res.iters].item():.4e}, peak device memory "
+          f"{peak} bytes", flush=True)
     del prob, solver, x0, res
     torch.cuda.empty_cache()
 
@@ -233,14 +240,19 @@ def level(n: int, seed: int, kind: str, omega: float,
     for tag, uu, bb in (("", u, b), ("packed ", su, sb)):
         down, up, fd, fu = leg_calls(uu, bb, e, n, h, kind, omega,
                                      schedule["nu1"], schedule["nu2"])
-        row[f"{tag}down ({'fused' if fd else 'composed'})"] = \
-            cuda_time_ms(down)
-        row[f"{tag}up ({'fused' if fu else 'composed'})"] = cuda_time_ms(up)
-    row["residual"] = cuda_time_ms(lambda: stencil2d.residual(u, b, n, h))
-    row["packed norm"] = cuda_time_ms(lambda: packed2d.residual_norm_sq(
-        su, sb, n, h, red_only=kind == "rbgs"))
-    print(f"level n={n}: " + ", ".join(f"{key} {v:.4f} ms"
-                                       for key, v in row.items()), flush=True)
+        row[f"{tag}down ({'fused' if fd else 'composed'})"] = down
+        row[f"{tag}up ({'fused' if fu else 'composed'})"] = up
+    row["residual"] = lambda: stencil2d.residual(u, b, n, h)
+    row["packed norm"] = lambda: packed2d.residual_norm_sq(
+        su, sb, n, h, red_only=kind == "rbgs")
+    print_level(n, row)
+
+
+def print_level(n: int, row: dict) -> None:
+    """One level's line: each call's single/chained ms."""
+    print(f"level n={n}: " + ", ".join(
+        f"{key} {cuda_time_ms(fn):.4f}/{chained_ms(fn):.4f} ms"
+        for key, fn in row.items()), flush=True)
 
 
 def levels3(k: int) -> None:
@@ -248,17 +260,12 @@ def levels3(k: int) -> None:
         n = 2 ** j - 1
         h = 1.0 / (n + 1)
         u, b, e = grids(n, seed=j, ndim=3)
-        row = {
-            "rbgs sweep": cuda_time_ms(lambda: stencil3d.rbgs_sweep(
-                u, b, n, h)),
-            "residual": cuda_time_ms(lambda: stencil3d.residual(u, b, n, h)),
-            "restrict (plain)": cuda_time_ms(lambda: transfer.restrict(u)),
-            "prolong+add (plain)": cuda_time_ms(
-                lambda: u + transfer.prolong(e)),
-        }
-        print(f"level n={n}: " + ", ".join(f"{key} {v:.4f} ms"
-                                           for key, v in row.items()),
-              flush=True)
+        print_level(n, {
+            "rbgs sweep": lambda: stencil3d.rbgs_sweep(u, b, n, h),
+            "residual": lambda: stencil3d.residual(u, b, n, h),
+            "restrict (plain)": lambda: transfer.restrict(u),
+            "prolong+add (plain)": lambda: u + transfer.prolong(e),
+        })
         del u, b, e
 
 

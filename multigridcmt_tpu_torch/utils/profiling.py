@@ -1,5 +1,5 @@
 """Profiling hooks (port of ``level_scope`` from
-``multigridcmt_tpu.utils.profiling``) and a CUDA-event timer.
+``multigridcmt_tpu.utils.profiling``) and CUDA-event timers.
 
 Each multigrid level runs inside a named ``torch.profiler`` range, so a
 ``torch.profiler.profile`` trace shows one row per level. The JAX module's
@@ -32,4 +32,24 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def chained_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``calls`` back-to-back
+    calls of ``fn`` between one pair of events, over ``calls``: the
+    device's time a call once the host runs ahead of the card."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)

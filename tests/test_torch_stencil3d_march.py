@@ -1,0 +1,441 @@
+"""The z-march of csrc/stencil3d.cu, emulated step by step on the CPU.
+
+The CUDA kernels cannot run here, so these tests replay their schedule:
+each unit (one warp: a strip of columns by a band of rows, marching over a
+chunk of planes) with its 32 lanes as a numpy axis, its register rings of
+MARCH_SLOTS planes as tagged slots (a slot read for a plane it no longer
+holds fails), the warp shuffles as shifts whose edge lane reads NaN (the
+kernel's edge lanes read their own value, which no owned point may use),
+and the loads, red and black updates and stores in the kernel's order.
+The geometry is march_geometry's, the ints the wrapper passes to the
+kernel, decoded here as the kernel's Unit decodes them; a test that wants
+other chunks sets MARCH_CHUNK and MARCH_MIN_UNITS, which march_geometry
+reads. The emulation is held against the plain versions in float64 at
+rtol 1e-12: both evaluate the same formulas in the same order (numpy
+does not contract into FMAs), so they agree to the last bit or nearly;
+1e-12 leaves room for nothing but rounding.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from multigridcmt_tpu_torch.kernels import _build, stencil3d
+
+SIGMA = 11.5
+OMEGA = 6.0 / 7.0
+LANES = stencil3d.MARCH_LANES
+SLOTS = stencil3d.MARCH_SLOTS
+
+
+class _Geom:
+    """march_geometry's ints for ``mode`` on a (p, r, c) stack, decoded as
+    csrc/stencil3d.cu's Unit decodes them, with the band rows and column
+    halo the kernel compiles with."""
+
+    def __init__(self, mode, p, r, c, dtype):
+        kernel = "rbgs" if mode == "rbgs" else "pass"
+        self.p, self.r, self.c = p, r, c
+        self.halo = 2 if kernel == "rbgs" else 1
+        self.rows = stencil3d.MARCH_ROWS[kernel, dtype]
+        (self.strips, self.bands, self.chunks, self.width,
+         self.chunk) = stencil3d.march_geometry(kernel, p, r, c, dtype)
+
+    def units(self):
+        return self.strips * self.bands * self.chunks
+
+    def unit(self, index):
+        """(sx, sy, sz) of unit ``index``."""
+        return (index % self.strips, index // self.strips % self.bands,
+                index // (self.strips * self.bands))
+
+    def cols(self, sx):
+        """(first, end) of strip sx's columns."""
+        return sx * self.width, min((sx + 1) * self.width, self.c)
+
+    def band(self, sy):
+        """(first, end) of band sy's rows."""
+        return sy * self.rows, min((sy + 1) * self.rows, self.r)
+
+    def planes(self, sz):
+        """(first, end) of chunk sz's planes."""
+        return sz * self.chunk, min((sz + 1) * self.chunk, self.p)
+
+
+@pytest.fixture
+def chunk_of(monkeypatch):
+    """Geometry with chunks of at most ``chunk`` planes, whatever the unit
+    count: sets the constants march_geometry reads."""
+    def geometry(mode, shape, dtype, chunk):
+        kernel = "rbgs" if mode == "rbgs" else "pass"
+        monkeypatch.setitem(stencil3d.MARCH_CHUNK, kernel, chunk)
+        monkeypatch.setattr(stencil3d, "MARCH_MIN_UNITS", 1)
+        return _Geom(mode, *shape, dtype)
+    return geometry
+
+
+class _Ring:
+    """A register ring: plane q lives in slot (q - z0) mod MARCH_SLOTS."""
+
+    def __init__(self, z0):
+        self.z0 = z0
+        self.data = [None] * SLOTS
+        self.tag = [None] * SLOTS
+
+    def put(self, q, v):
+        k = (q - self.z0) % SLOTS
+        self.data[k], self.tag[k] = v, q
+
+    def get(self, q):
+        k = (q - self.z0) % SLOTS
+        assert self.tag[k] == q, f"slot of plane {q} holds {self.tag[k]}"
+        return self.data[k]
+
+
+def _left(v):
+    """Each lane's lane - 1 value (__shfl_up_sync); lane 0 reads NaN."""
+    out = np.roll(v, 1, axis=-1)
+    out[..., 0] = np.nan
+    return out
+
+
+def _right(v):
+    out = np.roll(v, -1, axis=-1)
+    out[..., -1] = np.nan
+    return out
+
+
+def _nsum(lo, hi, mid, cur):
+    """The neighbour sum in the kernel's order; mid has a row above and
+    below cur's."""
+    return ((((lo + hi) + mid[:-2]) + mid[2:]) + _left(cur)) + _right(cur)
+
+
+class _Unit:
+    """One warp's unit, as csrc/stencil3d.cu's Unit: region row j of a lane
+    is stack row y0 - H + j; masks are (rows, lanes) arrays."""
+
+    def __init__(self, g, index, n, goff, roff):
+        H, R = g.halo, g.rows
+        sx, sy, sz = g.unit(index)
+        lane = np.arange(LANES)
+        self.x = sx * g.width - H + lane
+        self.y0 = sy * R
+        self.z0, self.z1 = g.planes(sz)
+        self.ys = self.y0 - H + np.arange(R + 2 * H)
+        x, y = self.x[None, :], self.ys[:, None]
+        col = (lane < g.width + 2 * H) & (self.x >= 0) & (self.x < g.c)
+        core = (lane >= H) & (lane < H + g.width) & (self.x < g.c)
+        self.rows = col & (y >= 0) & (y < g.r)
+        self.upd = (col & (y >= 1) & (y <= g.r - 2) & (y + roff >= 1)
+                    & (y + roff <= n) & (x >= 1) & (x <= n))
+        j = np.arange(R + 2 * H)[:, None]
+        self.mine = core & (j >= H) & (j < H + R) & (y < g.r)
+        self.red_base = (goff + y + roff + x) & 1      # + q: red where even
+        self.g, self.n, self.goff = g, n, goff
+
+    def valid(self, q):
+        gz = q + self.goff
+        return 1 <= q <= self.g.p - 2 and 1 <= gz <= self.n
+
+    def red(self, q):
+        return (self.red_base + q) % 2 == 0
+
+    def load(self, a, q, qend, j0, count, mask):
+        """Rows j0 .. j0 + count of plane q; 0 off the stack, outside the
+        mask and for planes outside [0, qend)."""
+        g = self.g
+        if not 0 <= q < min(qend, g.p):
+            return np.zeros((count, LANES))
+        yy = np.clip(self.ys[j0:j0 + count], 0, g.r - 1)
+        xx = np.clip(self.x, 0, g.c - 1)
+        return np.where(mask[j0:j0 + count], a[q][yy][:, xx], 0.0)
+
+    def store(self, out, writes, q, v, k):
+        """Store region rows k .. k + len(v) where this lane owns them."""
+        for i in range(v.shape[0]):
+            own = self.mine[k + i]
+            if not own.any():
+                continue
+            y = self.ys[k + i]
+            out[q, y, self.x[own]] = v[i, own]
+            writes[q, y, self.x[own]] += 1
+
+
+def _steps(z0, z1):
+    """The kernel's z-loop: steps z0 .. z1 - 1, unrolled by MARCH_SLOTS;
+    yields (phase K, z)."""
+    for z in range(z0, z1, SLOTS):
+        for k in range(SLOTS):
+            if z + k == z1:
+                return
+            yield k, z + k
+
+
+def _emulate_rbgs(g, u, b, n, h, sigma, goff, roff):
+    """rbgs_kernel on geometry g; returns (out, writes a point)."""
+    h2 = h * h
+    inv_den = 1.0 / (6.0 - sigma * h2)
+    out = np.full_like(u, np.nan)
+    writes = np.zeros(u.shape, dtype=int)
+    lane = np.arange(LANES)
+    for index in range(g.units()):
+        t = _Unit(g, index, n, goff, roff)
+        bmask = t.rows & ((lane >= 1) & (lane <= g.width + 2))
+        nr = g.rows + 2
+        U, B, Rr = _Ring(t.z0), _Ring(t.z0), _Ring(t.z0)
+
+        def load_u(q):
+            U.put(q, t.load(u, q, t.z1 + 2, 0, g.rows + 4, t.rows))
+
+        def load_b(q):
+            B.put(q, t.load(b, q, t.z1 + 1, 1, nr, bmask))
+
+        def red(q):
+            lo, mid, hi = U.get(q - 1), U.get(q), U.get(q + 1)
+            cur = mid[1:-1]
+            gs = (h2 * B.get(q) + _nsum(lo[1:-1], hi[1:-1], mid, cur)) \
+                * inv_den
+            upd = (t.upd & t.red(q))[1:-1] if t.valid(q) else False
+            Rr.put(q, np.where(upd, gs, cur))
+
+        def black(q):
+            lo, mid, hi = Rr.get(q - 1), Rr.get(q), Rr.get(q + 1)
+            cur = mid[1:-1]
+            gs = (h2 * B.get(q)[1:-1]
+                  + _nsum(lo[1:-1], hi[1:-1], mid, cur)) * inv_den
+            if t.valid(q):
+                v = np.where((t.upd & ~t.red(q))[2:-2], gs, cur)
+            else:
+                v = np.zeros_like(cur)
+            t.store(out, writes, q, v, 2)
+
+        z0 = t.z0
+        for q in (z0 - 2, z0 - 1, z0, z0 + 1):
+            load_u(q)
+        load_b(z0 - 1)
+        load_b(z0)
+        red(z0 - 1)
+        load_u(z0 + 2)
+        load_b(z0 + 1)
+        red(z0)
+        for _, z in _steps(z0, t.z1):
+            load_u(z + 3)
+            load_b(z + 2)
+            red(z + 1)
+            black(z)
+    return out, writes
+
+
+def _emulate_pass(g, mode, u, b, n, h, sigma, goff, roff, omega=1.0):
+    """pass_kernel (residual or Jacobi) on geometry g."""
+    inv_h2 = 1.0 / (h * h)
+    jscale = omega / (6.0 * inv_h2 - sigma)
+    out = np.full_like(u, np.nan)
+    writes = np.zeros(u.shape, dtype=int)
+    for index in range(g.units()):
+        t = _Unit(g, index, n, goff, roff)
+        U, B = _Ring(t.z0), _Ring(t.z0)
+
+        def load_u(q):
+            U.put(q, t.load(u, q, t.z1 + 1, 0, g.rows + 2, t.rows))
+
+        def load_b(q):
+            B.put(q, t.load(b, q, t.z1, 1, g.rows, t.mine))
+
+        def apply(q):
+            lo, mid, hi = U.get(q - 1), U.get(q), U.get(q + 1)
+            cur = mid[1:-1]
+            total = _nsum(lo[1:-1], hi[1:-1], mid, cur)
+            res = B.get(q) - (6.0 * cur - total) * inv_h2 + sigma * cur
+            upd = t.upd[1:-1] if t.valid(q) else np.zeros_like(cur, bool)
+            if mode == "residual":
+                v = np.where(upd, res, 0.0)
+            else:
+                v = np.where(upd, cur + jscale * res, cur)
+            if not t.valid(q):
+                v = np.zeros_like(cur)
+            t.store(out, writes, q, v, 1)
+
+        z0 = t.z0
+        for q in (z0 - 1, z0, z0 + 1):
+            load_u(q)
+        load_b(z0)
+        for _, z in _steps(z0, t.z1):
+            load_u(z + 2)
+            load_b(z + 1)
+            apply(z)
+    return out, writes
+
+
+def _emulate(mode, g, u, b, n, h, sigma, goff, roff, sweeps=1):
+    if mode == "rbgs":
+        for _ in range(sweeps):
+            u, writes = _emulate_rbgs(g, u, b, n, h, sigma, goff, roff)
+            assert (writes == 1).all()
+        return u
+    out, writes = _emulate_pass(g, mode, u, b, n, h, sigma, goff, roff,
+                                omega=OMEGA)
+    assert (writes == 1).all()
+    return out
+
+
+def _plain(mode, u, b, n, h, sigma, goff, roff, sweeps=1):
+    ut, bt = torch.from_numpy(u), torch.from_numpy(b)
+    kw = dict(sigma=sigma, goff=goff, roff=roff)
+    if mode == "rbgs":
+        return stencil3d.rbgs_sweep_plain(ut, bt, n, h, sweeps=sweeps,
+                                          **kw).numpy()
+    if mode == "jacobi":
+        return stencil3d.jacobi_sweep_plain(ut, bt, n, h, OMEGA,
+                                            **kw).numpy()
+    return stencil3d.residual_plain(ut, bt, n, h, **kw).numpy()
+
+
+def _grids(n, seed):
+    rng = np.random.default_rng(seed)
+    u = np.zeros((n + 2,) * 3)
+    b = np.zeros_like(u)
+    u[1:-1, 1:-1, 1:-1] = rng.standard_normal((n,) * 3)
+    b[1:-1, 1:-1, 1:-1] = rng.standard_normal((n,) * 3) * (n + 1) ** 2
+    return u, b
+
+
+def _stack(n, goff, roff, p, r, seed):
+    """Planes goff .. goff + p - 1 and rows roff .. roff + r - 1 of a
+    random (n+2)^3 grid, zero where they leave it."""
+    u, b = _grids(n, seed)
+    out = []
+    for g in (u, b):
+        s = np.zeros((p, r, n + 2))
+        planes = g[max(goff, 0):goff + p]
+        z = max(0, -goff)
+        lo = max(roff, 0)
+        rows = planes[:, lo:roff + r]
+        s[z:z + rows.shape[0], lo - roff:lo - roff + rows.shape[1]] = rows
+        out.append(s)
+    return out
+
+
+def _check(mode, g, u, b, n, sigma, goff=0, roff=0, sweeps=1):
+    h = 1.0 / (n + 1)
+    got = _emulate(mode, g, u, b, n, h, sigma, goff, roff, sweeps)
+    want = _plain(mode, u, b, n, h, sigma, goff, roff, sweeps)
+    assert np.isfinite(got).all()
+    err = np.abs(got - want).max()
+    assert err <= 1e-12 * np.abs(want).max(), err
+
+
+# (n, chunk override): n=31 is 33 planes, rows and columns: 2 strips of 28
+# (one of 5 columns) for RB-GS, of 30 (3) for the pass; chunks of 7 give 5
+# (the last of 5 planes), of 4 give 9 (whole ring turns), of 33 one.
+_CUBE = [(31, 7), (31, 4), (31, 33), (15, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sigma", [0.0, SIGMA])
+@pytest.mark.parametrize("n,chunk", _CUBE)
+def test_rbgs_march_matches_plain(n, chunk, sigma, dtype, chunk_of):
+    """The one-pass sweep on whole grids, with the band rows of each dtype
+    (the arithmetic stays float64)."""
+    u, b = _grids(n, seed=n + chunk)
+    g = chunk_of("rbgs", u.shape, dtype, chunk)
+    _check("rbgs", g, u, b, n, sigma)
+
+
+@pytest.mark.parametrize("mode", ["residual", "jacobi"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,chunk", [(31, 7), (31, 4), (15, 16)])
+def test_pass_march_matches_plain(mode, n, chunk, dtype, chunk_of):
+    u, b = _grids(n, seed=2 * n + chunk)
+    g = chunk_of(mode, u.shape, dtype, chunk)
+    _check(mode, g, u, b, n, SIGMA)
+
+
+# Stacks (n, goff, roff, p, r, chunk): chip_smoke.py's slab-and-pencil
+# stack (global planes 100..139 of n=127, past the ghost plane 128 zero;
+# rows -2..57); a stack of 3 planes; p equal to the chunk and one either
+# side of it.
+_STACKS = [(127, 100, -2, 40, 60, 16), (31, 5, 3, 3, 20, 64),
+           (31, -1, 0, 16, 33, 16), (31, 4, -1, 15, 34, 16),
+           (31, 9, 2, 17, 25, 16)]
+
+
+@pytest.mark.parametrize("mode", ["rbgs", "residual", "jacobi"])
+@pytest.mark.parametrize("n,goff,roff,p,r,chunk", _STACKS)
+def test_march_on_offset_stacks(mode, n, goff, roff, p, r, chunk,
+                                chunk_of):
+    u, b = _stack(n, goff, roff, p, r, seed=p + r)
+    g = chunk_of(mode, (p, r, n + 2), torch.float64, chunk)
+    _check(mode, g, u, b, n, SIGMA, goff=goff, roff=roff)
+
+
+def test_rbgs_march_chained_sweeps(chunk_of):
+    """Two sweeps, each a launch: the second reads the first's output."""
+    n = 31
+    u, b = _grids(n, seed=5)
+    g = chunk_of("rbgs", u.shape, torch.float32, 8)
+    _check("rbgs", g, u, b, n, SIGMA, sweeps=2)
+
+
+_GEOMETRY_SHAPES = [(513, 513, 513), (257, 257, 257), (129, 129, 129),
+                    (40, 60, 129), (3, 20, 33), (64, 64, 64), (65, 65, 65),
+                    (63, 63, 63)]
+
+
+@pytest.mark.parametrize("mode", ["rbgs", "residual", "jacobi"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", _GEOMETRY_SHAPES)
+def test_march_geometry_owns_each_point_once(mode, dtype, shape):
+    """Every plane, row and column of the stack lies in exactly one chunk,
+    band and strip (so every point in one unit), each of them non-empty;
+    a strip's lanes with its halo fit the warp; the geometry passes the
+    kernel's own check (geom_fits)."""
+    g = _Geom(mode, *shape, dtype)
+    p, r, c = shape
+    for count, part, size in ((g.chunks, g.planes, p), (g.bands, g.band, r),
+                              (g.strips, g.cols, c)):
+        seen = np.zeros(size, dtype=int)
+        for i in range(count):
+            lo, hi = part(i)
+            assert lo < hi
+            seen[lo:hi] += 1
+        assert (seen == 1).all()
+    assert g.width + 2 * g.halo <= LANES
+    assert g.rows == stencil3d.MARCH_ROWS["rbgs" if mode == "rbgs"
+                                          else "pass", dtype]
+    assert g.rows + 2 * g.halo <= 32      # the kernel's row bit masks
+    kernel = "rbgs" if mode == "rbgs" else "pass"
+    assert g.chunk <= stencil3d.MARCH_CHUNK[kernel]
+    # Enough units to fill the card, or chunks of one plane.
+    assert g.units() >= stencil3d.MARCH_MIN_UNITS or g.chunk == 1
+    units = {g.unit(i) for i in range(g.units())}
+    assert len(units) == g.units() == g.strips * g.bands * g.chunks
+
+
+def test_march_constants_match_the_kernel_source():
+    """stencil3d's MARCH_* constants and the geometry's ints are the ones
+    csrc/stencil3d.cu compiles with."""
+    src = (_build.CSRC / "stencil3d.cu").read_text()
+    const = {name: int(v) for name, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kLanes"] == LANES
+    assert const["kWarps"] == stencil3d.MARCH_WARPS
+    assert const["kSlots"] == SLOTS
+    for (kernel, dtype), rows in stencil3d.MARCH_ROWS.items():
+        key = ("kRbgsRows" if kernel == "rbgs" else "kPassRows") + \
+            ("F32" if dtype == torch.float32 else "F64")
+        assert const[key] == rows
+    fields = re.search(r"struct Geom \{\s*int ([^;]*);", src).group(1)
+    assert [f.strip() for f in fields.split(",")] == [
+        "strips", "bands", "chunks", "width", "chunk"]
+    assert len(stencil3d.march_geometry("rbgs", 33, 33, 33,
+                                        torch.float32)) == 5
+
+
+def test_rbgs_signature_takes_no_scratch_grid():
+    """One launch a sweep: u, b and out, no scratch grid."""
+    for t in ("f32", "f64"):
+        args = _build.SIGNATURES[f"mg_stencil3d_rbgs_{t}"]
+        assert args == _build.SIGNATURES[f"mg_stencil3d_residual_{t}"]
