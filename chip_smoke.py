@@ -47,8 +47,10 @@ Phases:
      tiles with nonzero global offsets (a rank of an 8-way row split of
      4095^2, a rank of a 2x2 block split of 2047^2), since a mesh of 1 has
      none; the plocal2d kernels on the packed form of S1's fine tile and of
-     those offset tiles (the block one has the other packing phase), and
-     in float64 on two 255^2 ranks;
+     those offset tiles (the block one has the other packing phase), in
+     float64 on two 255^2 ranks (the legs at every sweep count), and the
+     legs at every sweep count on a 2999^2 rank whose row stream ends in a
+     partial strip and segment;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -69,8 +71,9 @@ Phases:
      cycle at the same k, one S1 cycle in a chain of 20 (v_cycles_fn),
      packed and unpacked in turns, each local2d kernel at S1's fine tile
      against its plain version, each plocal2d kernel at S1's packed tile
-     against its plain version and beside its local2d twin, and the peak
-     device memory of the solves.
+     against its plain version and beside its local2d twin (the two legs
+     and their twins also single and chained at nu = 0, 1, 2 and the cap),
+     and the peak device memory of the solves.
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -266,13 +269,19 @@ SHARDED_F64_PACK_MIN_N = 1000
 LOCAL2D_TILES = ((2 ** MAIN_K - 1, 8, 3, 0, 0), (2 ** (MAIN_K - 1) - 1, 2, 1,
                                                  2, 1))
 # plocal2d in float64 at a small size: a rank of a row split and of a block
-# split of 255^2 (several of the kernels' 32-row blocks).
+# split of 255^2, each leg at every sweep count up to its cap.
 PLOCAL2D_F64_TILES = ((255, 2, 1, 0, 0), (255, 2, 1, 2, 1))
+# The plocal2d legs' row stream at its edge cases: an inner rank of a
+# 4-way row split of 2999^2 (766 rows of 1501 lanes), whose last strip and
+# last segment are partial at every sweep count (checked), in float32 at
+# every sweep count up to the caps.
+PLOCAL2D_EDGE_TILE = (2999, 4, 2, 0, 0)
 HALO = 8                    # local2d.HALO_ROWS
 # Chained cycles a timing of v_cycles_fn runs (its time over this count).
 CHAIN_CYCLES = 20
-# The packed2d legs are timed as single calls and as LEG_CHAIN back-to-back
-# calls between one pair of events, at these sweep counts and at the cap.
+# The packed2d and plocal2d legs are timed as single calls and as LEG_CHAIN
+# back-to-back calls between one pair of events, at these sweep counts and
+# at the cap.
 LEG_CHAIN = 20
 LEG_SWEEPS = (0, 1, 2)
 
@@ -1010,12 +1019,20 @@ def compare_plocal2d(main_err: dict) -> None:
     with RB-GS and Jacobi nu = 2, sigma 0 and SIGMA (the main-path error:
     RB-GS, sigma 0); the offset tiles of compare_local2d in float32 (a row
     rank with row_off 1529, a block rank with odd col_off: the other
-    packing phase); and PLOCAL2D_F64_TILES in float64, each with every
-    kernel and the legs' sweep caps."""
+    packing phase), each with every kernel and the legs' sweep caps;
+    PLOCAL2D_F64_TILES in float64 with every kernel and the legs at every
+    sweep count; and the legs at every sweep count on PLOCAL2D_EDGE_TILE,
+    whose row stream ends in a partial strip and segment."""
+    from multigridcmt_tpu_torch.kernels import local2d, packed2d, plocal2d
+
     every = [("residual", None, 0), ("apply", None, 0), ("resnorm", None, 0)]
     legs = [(leg, kind, nu) for kind, nus in (("rbgs", (0, 2, 3)),
                                               ("jacobi", (2, 6)))
             for nu in nus for leg in ("down", "up")]
+    # Every sweep count up to the caps (local2d's, both legs).
+    all_nu = [(leg, kind, nu) for kind in ("rbgs", "jacobi")
+              for nu in range(local2d.max_down_sweeps(kind) + 1)
+              for leg in ("down", "up")]
     n = 2 ** SHARDED_PATHS["S1"][0] - 1
     ue, be, e, t = local2d_tile(n, torch.float32, n + 31)
     label = (f"S1 fine tile {tuple(ue.shape)} n={n} offsets "
@@ -1028,17 +1045,35 @@ def compare_plocal2d(main_err: dict) -> None:
     check_plocal2d(label, ue, be, e, t, torch.float32, SIGMA,
                    main + [("down", "jacobi", 2), ("up", "jacobi", 2)])
     del ue, be, e
-    for dtype, tiles in ((torch.float32, LOCAL2D_TILES),
-                         (torch.float64, PLOCAL2D_F64_TILES)):
+    for dtype, tiles, runs in (
+            (torch.float32, LOCAL2D_TILES, every + legs),
+            (torch.float64, PLOCAL2D_F64_TILES, every + all_nu),
+            (torch.float32, (PLOCAL2D_EDGE_TILE,), all_nu)):
         for n, dr, r, dc, c in tiles:
             ue, be, e, t = local2d_tile(n, dtype, n + r + c + 41, (dr, dc),
                                         (r, c))
+            offs = (t["row_off"], t["col_off"])
             label = (f"{str(dtype).split('.')[-1]} n={n} rank ({r}, {c}) of "
-                     f"({dr}, {dc or 1}) offsets "
-                     f"{(t['row_off'], t['col_off'])}")
+                     f"({dr}, {dc or 1}) offsets {offs}")
+            if (n, dr, r, dc, c) == PLOCAL2D_EDGE_TILE:
+                card = ue.device.index or 0
+                for leg, kind, nu in all_nu:
+                    # The geometry the wrapper launches on this card.
+                    g = plocal2d.leg_geometry(
+                        leg, *ue.shape, n, *offs, kind, nu,
+                        sm_count=packed2d._sm_count(card))
+                    launched = tuple(packed2d._launch_geometry(
+                        leg, n, kind, nu, card,
+                        **plocal2d._frame(*ue.shape, *offs)))
+                    require(g.ints() == launched,
+                            f"{label}: {leg} {kind} nu={nu}: geometry "
+                            f"{g.ints()} is not the launched {launched}")
+                    require(g.strips * g.strip > g.lanes
+                            and g.segs * g.seg > ue.shape[0] + 1,
+                            f"{label}: {leg} {kind} nu={nu}: last strip or "
+                            f"segment not partial ({g.ints()})")
             for sigma in (0.0, SIGMA):
-                check_plocal2d(label, ue, be, e, t, dtype, sigma,
-                               every + legs)
+                check_plocal2d(label, ue, be, e, t, dtype, sigma, runs)
             del ue, be, e
     torch.cuda.empty_cache()
 
@@ -1146,10 +1181,10 @@ KERNELS = {
                        "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
                        "multigridcmt_tpu/kernels/local2d.py:278", "S4"),
     "plocal2d_down": ("plocal2d", "down_launches",
-                      "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
+                      "multigridcmt_tpu_torch/kernels/csrc/plocal2d_legs.cu",
                       "multigridcmt_tpu/kernels/plocal2d.py:501", "S1"),
     "plocal2d_up": ("plocal2d", "up_launches",
-                    "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
+                    "multigridcmt_tpu_torch/kernels/csrc/plocal2d_legs.cu",
                     "multigridcmt_tpu/kernels/plocal2d.py:708", "S1"),
     "plocal2d_resnorm": ("plocal2d", "resnorm_launches",
                          "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
@@ -2476,9 +2511,13 @@ def timed_plocal2d(times: dict) -> None:
     """Each plocal2d kernel at S1's packed fine tile (2 x 4112 x 2049
     float32, RB-GS nu = 2, sigma = 0) against its plain version and, for
     the legs and the residual, beside its local2d twin on the same
-    unpacked tile; the apply beside the plocal2d residual."""
+    unpacked tile; the apply beside the plocal2d residual. The legs, as
+    timed_legs times the packed2d ones, single and LEG_CHAIN chained at
+    every sweep count in LEG_SWEEPS and at the cap, their local2d twins
+    beside them; their rows report the chained time at nu = 2."""
     from multigridcmt_tpu_torch.kernels import local2d, plocal2d
-    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
 
     n = 2 ** MAIN_K - 1
     h = 1.0 / (n + 1)
@@ -2529,7 +2568,37 @@ def timed_plocal2d(times: dict) -> None:
         times[name] = tt
     log(f"  apply_op {times['plocal2d_apply']['ms']:.4f} ms beside the "
         f"plocal2d residual {times['plocal2d_residual']['ms']:.4f} ms")
-    del ue, be, e, su, sb, rc, pairs
+
+    legs = {
+        "plocal2d_down": lambda nu: (
+            lambda: plocal2d.down_leg(su, sb, n, h, m, *offs, kind="rbgs",
+                                      omega=1.0, sweeps=nu)),
+        "local2d_down": lambda nu: (
+            lambda: local2d.down_leg(ue, be, n, h, m, *offs, kind="rbgs",
+                                     omega=1.0, sweeps=nu)),
+        "plocal2d_up": lambda nu: (
+            lambda: plocal2d.up_leg(su, e, sb, n, nc, h, m, *offs,
+                                    kind="rbgs", omega=1.0, sweeps=nu)),
+        "local2d_up": lambda nu: (
+            lambda: local2d.up_leg(ue, e, be, n, nc, h, m, *offs,
+                                   kind="rbgs", omega=1.0, sweeps=nu)),
+    }
+    cap = local2d.max_down_sweeps("rbgs")
+    out = {}
+    for nu in sorted({*LEG_SWEEPS, cap}):
+        for name, make in legs.items():
+            fn = make(nu)
+            row = {"single_ms": cuda_time_ms(fn),
+                   "chained_ms": chained_ms(fn, LEG_CHAIN)}
+            out[f"{name}@S1 nu={nu}"] = row
+            log(f"leg {name} S1 tile nu={nu}: single "
+                f"{row['single_ms']:.4f} ms, chained x{LEG_CHAIN} "
+                f"{row['chained_ms']:.4f} ms")
+    times["tile_legs"] = out
+    for name in ("plocal2d_down", "plocal2d_up"):
+        leg = out[f"{name}@S1 nu=2"]
+        times[name].update(ms=leg["chained_ms"], single_ms=leg["single_ms"])
+    del ue, be, e, su, sb, rc, pairs, legs
     torch.cuda.empty_cache()
 
 
@@ -2574,10 +2643,10 @@ def kernel_rows(names, runs, errs, times):
     computes the others (b - Au, a whole leg, a sweep, the residual's
     restriction), so theirs is null. A kernel that no main path runs
     reports its launches summed over all main-path runs (0) and those of
-    its direct calls as direct_launches. The packed2d and fused2d legs'
-    and the stencil3d kernels' ms is the time a call of LEG_CHAIN chained
-    calls, their single_ms that of one call timed alone (the wrapper's
-    host work inside)."""
+    its direct calls as direct_launches. The packed2d, fused2d and plocal2d
+    legs' and the stencil3d kernels' ms is the time a call of LEG_CHAIN
+    chained calls, their single_ms that of one call timed alone (the
+    wrapper's host work inside)."""
     rows = []
     for name in names:
         *_, src, rep, run = KERNELS[name]
@@ -2642,6 +2711,7 @@ def main() -> int:
         log(f"cycle_{label}: " + json.dumps(times["cycle_" + label]))
     log("smoother: " + json.dumps(times["smoother"]))
     log("legs: " + json.dumps(times["legs"]))
+    log("tile_legs: " + json.dumps(times["tile_legs"]))
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):
         log(f"{key}: " + json.dumps(times[key]))

@@ -97,9 +97,11 @@ for _t in ("f32", "f64"):
     SIGNATURES[f"mg_plocal2d_residual_{_t}"] = [_P, _P, _P] + [_I] * 5 + [
         _D, _D, _I, _P]
     # The packed tile's legs take local2d's arguments (R, C: the unpacked
-    # tile's extent).
-    SIGNATURES[f"mg_plocal2d_down_{_t}"] = SIGNATURES[f"mg_local2d_down_{_t}"]
-    SIGNATURES[f"mg_plocal2d_up_{_t}"] = SIGNATURES[f"mg_local2d_up_{_t}"]
+    # tile's extent) and their geometry (plocal2d.leg_geometry) before the
+    # stream.
+    for _leg in ("down", "up"):
+        SIGNATURES[f"mg_plocal2d_{_leg}_{_t}"] = (
+            SIGNATURES[f"mg_local2d_{_leg}_{_t}"][:-1] + [_IP, _P])
     # u, b, partial, out, R, C, n, row_off, col_off, qlo, qhi, slo, shi, h,
     # sigma, red_only, blocks, stream
     SIGNATURES[f"mg_plocal2d_resnorm_{_t}"] = [_P, _P, _P, _P] + [_I] * 9 + [

@@ -93,9 +93,8 @@ rbgs_kernel(const T* __restrict__ u, const T* __restrict__ b,
   mg::load_ptile(u, us, RY, RXP, gy0, gp0, grid);
   mg::load_ptile(b, bs, RY, RXP, gy0, gp0, grid);
   __syncthreads();
-  const T* w = mg::smooth_ptile(us, us, bs, RY, RXP, gy0, 2 * gp0,
-                                mg::Interior{n}, mg::kRbgs, sweeps, cf);
-  mg::store_pcore<TY, TX>(w, out, RY, RXP, gy0, gp0, y0, 2 * p0, grid);
+  mg::rbgs_ptile(us, bs, RY, RXP, gy0, 2 * gp0, mg::Interior{n}, sweeps, cf);
+  mg::store_pcore<TY, TX>(us, out, RY, RXP, gy0, gp0, y0, 2 * p0, grid);
 }
 
 dim3 rbgs_grid(int n) {
@@ -150,16 +149,18 @@ int mg_packed2d_down_f32(const void* u, const void* b, void* u_out, void* rc,
                          int n, double h, double sigma, int kind, double omega,
                          int sweeps, int packed_coarse, const int* geom,
                          void* stream) {
-  return launch_down<float>(u, b, u_out, rc, n, h, sigma, kind, omega,
-                            sweeps, packed_coarse, geom, stream);
+  return launch_down<float, kMaxDownStages>(u, b, u_out, rc, Whole{n}, h,
+                                            sigma, kind, omega, sweeps,
+                                            packed_coarse, geom, stream);
 }
 
 int mg_packed2d_down_f64(const void* u, const void* b, void* u_out, void* rc,
                          int n, double h, double sigma, int kind, double omega,
                          int sweeps, int packed_coarse, const int* geom,
                          void* stream) {
-  return launch_down<double>(u, b, u_out, rc, n, h, sigma, kind, omega,
-                             sweeps, packed_coarse, geom, stream);
+  return launch_down<double, kMaxDownStages>(u, b, u_out, rc, Whole{n}, h,
+                                             sigma, kind, omega, sweeps,
+                                             packed_coarse, geom, stream);
 }
 
 int mg_packed2d_resnorm_f32(const void* u, const void* b, void* partial,

@@ -1,8 +1,10 @@
-// The row-streaming packed2d legs: down_kernel and up_kernel, their launch
-// geometry and launchers. packed2d.cu instantiates the down leg,
-// packed2d_up.cu and packed2d_up_f64.cu the up leg in float32 and float64
-// (a kernel for each stage count; the three files compile in parallel).
-// packed2d.cu's note says what they replace and how they work.
+// The row-streaming packed legs: down_kernel and up_kernel, the two frames
+// they run on, their launch geometry and launchers. packed2d.cu instantiates
+// the down leg on the whole grid, packed2d_up.cu and packed2d_up_f64.cu the
+// up leg; plocal2d_legs.cu and plocal2d_legs_f64.cu both legs on a shard's
+// tile (a kernel for each stage count; the files compile in parallel).
+// packed2d.cu's note says what they replace and how they work; plocal2d.cu's
+// what the tile frame adds.
 #pragma once
 
 #include <type_traits>
@@ -25,13 +27,54 @@ constexpr int kCoarseWin = 8;  // the up leg's window of coarse rows
 
 // A leg's launch geometry, passed as 7 ints in this order. Warp w of block
 // bx works on unit bx * kLegWarps + w, strip sx = unit % strips and segment
-// sy = unit / strips: lanes [sx * strip, sx * strip + strip) (its kWarp
-// lanes start hp before, strip + 2 hp = kWarp) and rows
-// [sy * seg, sy * seg + seg) (seg even), streaming rows
-// [y0 - top, y1 + bottom) clipped to the grid (top even).
+// sy = unit / strips: lanes [sx * strip, sx * strip + strip) of the frame
+// (its kWarp lanes start hp before, strip + 2 hp = kWarp) and rows
+// [rb + sy * seg, rb + sy * seg + seg) (seg even) clipped to the frame,
+// streaming rows from top above (top even) to bottom below, clipped to
+// [rb, the frame's end); rb is the even global row at or above the frame's
+// first.
 struct LegGeom {
   int strips, segs, strip, seg, hp, top, bottom;
 };
+
+// The frames. Rows are global rows in both; the streamed rows of a unit
+// start on an even one, so a row's parity is its step's. Lanes are the
+// frame's: lane l holds the points of global columns gx0 + 2l and
+// gx0 + 2l + 1 (phases 0 and 1), gx0 even, so the colour-c point of global
+// row i has phase (c + i) & 1 in both frames.
+//
+// Whole: the packed (n+2)^2 grid of packed2d.cu; array row i, array lane l.
+struct Whole {
+  int n;
+};
+
+// Tile: one rank's packed extended tile a (plocal2d.cu): rows
+// [a.goy, a.goy + a.R) of the array's rows, a.goy odd; the points a stage
+// updates, upd (the global interior off the tile's ring); the coarse tile
+// ca in local2d's unpacked extended convention and its owned box keep
+// (global coarse indices; keep.n is nc). gx0 = a.gox - (a.gox & 1): with an
+// odd column offset (a block tile) frame lane l holds array lane l - 1's
+// phase-1 point and array lane l's phase-0 point, one lane more than the
+// array has; with an even one (a row tile, a.gox = 0) frame and array
+// lanes are the same. The row above the tile, a.goy - 1, is streamed as a
+// zero row by the first segment, so its rows start even too.
+struct Tile {
+  int n;
+  mg::PRect a;
+  mg::InteriorBox upd;
+  mg::Rect ca;
+  mg::InteriorBox keep;
+};
+
+template <class Fr>
+constexpr bool kIsTile = std::is_same<Fr, Tile>::value;
+
+__host__ __device__ __forceinline__ int frame_lanes(const Whole& f) {
+  return (f.n + 3) / 2;
+}
+__host__ __device__ __forceinline__ int frame_lanes(const Tile& f) {
+  return (f.a.C + (f.a.gox & 1) + 1) / 2;
+}
 
 // The side neighbour of the colour-c point at phase p: the other colour's
 // value v of lane x + 1 (p = 1) or x - 1 (p = 0). A warp's edge lanes read
@@ -43,34 +86,64 @@ __device__ __forceinline__ T side_of(T v, int p) {
 }
 
 // The per-warp position of a leg's unit and its fixed tests.
+template <class Fr>
 struct Unit {
-  int gl;          // this lane's array lane
+  int gl;          // this lane's frame lane
+  int J;           // global coarse column of its phase-0 point (gx0/2 + gl)
+  int at[2];       // the array lane of its phase-p point
   int y0, y1;      // owned rows
   int ys, ye;      // streamed rows
   int lo, hi;      // rows the smoothing updates (interior, off the ends)
-  bool ok;         // the lane lies in the array
+  bool ok[2];      // its phase-p point lies in the array
   bool core;       // the lane is owned
-  bool upd[2];     // phase p: the column is interior and off the edges
+  bool st[2];      // core and ok[p]: the lane stores its phase-p point
+  bool upd[2];     // phase p: the column is updatable and off the edges
 
-  __device__ Unit(const LegGeom& g, int unit, int n) {
-    const int P = n + 2;
-    const int cp = (P + 1) / 2;
+  __device__ Unit(const LegGeom& g, int unit, const Fr& f) {
     const int lane = threadIdx.x % kWarp;
     const int sx = unit % g.strips;
     const int sy = unit / g.strips;
     gl = sx * g.strip - g.hp + lane;
-    y0 = sy * g.seg;
-    y1 = min(y0 + g.seg, P);
-    ys = max(0, y0 - g.top);
-    ye = min(P, y1 + g.bottom);
-    lo = max(ys + 1, 1);
-    hi = min(ye - 2, n);
-    ok = gl >= 0 && gl < cp;
-    core = lane >= g.hp && lane < g.hp + g.strip && gl < cp;
-    for (int p = 0; p < 2; ++p) {
-      const int lx = 2 * lane + p;
-      const int gx = 2 * gl + p;
-      upd[p] = lx >= 1 && lx <= 2 * kWarp - 2 && gx >= 1 && gx <= n;
+    core = lane >= g.hp && lane < g.hp + g.strip && gl < frame_lanes(f);
+    if constexpr (kIsTile<Fr>) {
+      const int end = f.a.goy + f.a.R;
+      const int rb = f.a.goy & ~1;
+      const int yu = rb + sy * g.seg;
+      const int xs = f.a.gox & 1;
+      y0 = max(yu, f.a.goy);
+      y1 = min(yu + g.seg, end);
+      ys = max(rb, yu - g.top);
+      ye = min(end, y1 + g.bottom);
+      lo = max(ys + 1, max(f.upd.ylo, 1));
+      hi = min(ye - 2, min(f.upd.yhi, f.n));
+      J = ((f.a.gox - xs) >> 1) + gl;
+      for (int p = 0; p < 2; ++p) {
+        const int lx = 2 * lane + p;
+        const int gx = 2 * J + p;
+        at[p] = gl - (xs & (1 - p));
+        ok[p] = at[p] >= 0 && at[p] < f.a.lanes();
+        st[p] = core && ok[p];
+        upd[p] = lx >= 1 && lx <= 2 * kWarp - 2 && gx >= 1 && gx <= f.n &&
+                 gx >= f.upd.xlo && gx <= f.upd.xhi;
+      }
+    } else {
+      const int P = f.n + 2;
+      y0 = sy * g.seg;
+      y1 = min(y0 + g.seg, P);
+      ys = max(0, y0 - g.top);
+      ye = min(P, y1 + g.bottom);
+      lo = max(ys + 1, 1);
+      hi = min(ye - 2, f.n);
+      J = gl;
+      const bool in = gl >= 0 && gl < frame_lanes(f);
+      for (int p = 0; p < 2; ++p) {
+        const int lx = 2 * lane + p;
+        const int gx = 2 * gl + p;
+        at[p] = gl;
+        ok[p] = in;
+        st[p] = core;
+        upd[p] = lx >= 1 && lx <= 2 * kWarp - 2 && gx >= 1 && gx <= f.n;
+      }
     }
   }
 };
@@ -87,11 +160,11 @@ struct Unit {
 // [lo, hi] (a test made only where EDGE): each stage makes one more ring of
 // the unit's tile stale, which the halos cover. Jacobi copies every other
 // point of rows [ys, ye).
-template <typename T, int KIND, int K, int v, bool EDGE>
+template <typename T, int KIND, int K, int v, bool EDGE, class Fr>
 __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
                                             const T (&B)[2][kWin],
                                             T (&J)[K > 0 ? K : 1][2][kWin],
-                                            int t, const Unit& w,
+                                            int t, const Unit<Fr>& w,
                                             const mg::Coef<T>& cf) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -130,17 +203,134 @@ __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
   }
 }
 
-// Load both planes of row i of the packed grid g (P rows of cp lanes) at
-// this lane into a0, a1; lanes off the array read 0, rows past ye are not
-// loaded (no step reads them; the test is made only where EDGE).
+// Load both planes of row i (parity par) of the packed array g at this lane
+// into a0, a1; points off the array, and the row above a tile, read 0; rows
+// past ye are not loaded (no step reads them). The tests on rows are made
+// only where EDGE.
 template <bool EDGE, typename T>
 __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
-                                         T& a1, int i, const Unit& w, int P,
-                                         int cp) {
+                                         T& a1, int i, int par,
+                                         const Unit<Whole>& w,
+                                         const Whole& f) {
   if (EDGE && i >= w.ye) return;
-  const size_t at = static_cast<size_t>(i) * cp + (w.ok ? w.gl : 0);
-  a0 = w.ok ? __ldg(g + at) : T(0);
-  a1 = w.ok ? __ldg(g + at + static_cast<size_t>(P) * cp) : T(0);
+  const int P = f.n + 2;
+  const int cp = frame_lanes(f);
+  const bool ok = w.ok[0];
+  const size_t at = static_cast<size_t>(i) * cp + (ok ? w.gl : 0);
+  a0 = ok ? __ldg(g + at) : T(0);
+  a1 = ok ? __ldg(g + at + static_cast<size_t>(P) * cp) : T(0);
+}
+
+template <bool EDGE, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
+                                         T& a1, int i, int par,
+                                         const Unit<Tile>& w,
+                                         const Tile& f) {
+  if (EDGE && i >= w.ye) return;
+  const int cp = f.a.lanes();
+  const bool in = !EDGE || i >= f.a.goy;
+  const size_t row = static_cast<size_t>(in ? i - f.a.goy : 0);
+  const int p0 = par & 1;   // the phase of colour 0 (plane 0) in row i
+  const bool k0 = in && w.ok[p0];
+  const bool k1 = in && w.ok[1 - p0];
+  a0 = k0 ? __ldg(g + row * cp + w.at[p0]) : T(0);
+  a1 = k1 ? __ldg(g + (static_cast<size_t>(f.a.R) + row) * cp +
+                  w.at[1 - p0])
+          : T(0);
+}
+
+// Store both planes of row i (parity par) at this lane, where it owns them.
+template <typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
+                                          int i, int par,
+                                          const Unit<Whole>& w,
+                                          const Whole& f) {
+  const int P = f.n + 2;
+  const int cp = frame_lanes(f);
+  if (w.core) {
+    g[static_cast<size_t>(i) * cp + w.gl] = a0;
+    g[(static_cast<size_t>(P) + i) * cp + w.gl] = a1;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
+                                          int i, int par,
+                                          const Unit<Tile>& w,
+                                          const Tile& f) {
+  const int cp = f.a.lanes();
+  const size_t row = static_cast<size_t>(i - f.a.goy);
+  const int p0 = par & 1;
+  if (w.st[p0]) g[row * cp + w.at[p0]] = a0;
+  if (w.st[1 - p0]) {
+    g[(static_cast<size_t>(f.a.R) + row) * cp + w.at[1 - p0]] = a1;
+  }
+}
+
+// The full weighting fw at coarse (I, w.J): written by a core lane, as 0
+// off the coarse interior; logical (nc+2)^2, or packed when packed_coarse
+// is set (the whole grid); on a tile only inside the owned box keep, in
+// the coarse tile ca (zero_coarse_frame writes the rest).
+template <typename T>
+__device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
+                                           const Unit<Whole>& w,
+                                           const Whole& f,
+                                           int packed_coarse) {
+  const int nc = (f.n - 1) / 2;
+  const int cp = frame_lanes(f);
+  const int cpc = (cp + 1) / 2;
+  const int Jc = w.gl;
+  if (w.core) {
+    const T val = I >= 1 && I <= nc && Jc >= 1 && Jc <= nc ? fw : T(0);
+    if (packed_coarse) {
+      rc[(static_cast<size_t>((I + Jc) & 1) * cp + I) * cpc + (Jc >> 1)] =
+          val;
+    } else {
+      rc[static_cast<size_t>(I) * cp + Jc] = val;
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
+                                           const Unit<Tile>& w,
+                                           const Tile& f, int) {
+  const mg::InteriorBox& k = f.keep;
+  if (w.core && I >= k.ylo && I <= k.yhi && w.J >= k.xlo && w.J <= k.xhi) {
+    rc[f.ca.at(I, w.J)] = mg::interior(I, w.J, k.n) ? fw : T(0);
+  }
+}
+
+// Zero the coarse tile off its owned box, the warps of the launch sharing
+// its entries (each once): the rows above the box, the rows below it, and
+// the columns either side of it in its rows.
+template <typename T>
+__device__ void zero_coarse_frame(T* __restrict__ rc, const Tile& f,
+                                  int unit, int units) {
+  const mg::Rect& c = f.ca;
+  const int qlo = f.keep.ylo - c.goy;
+  const int qhi = f.keep.yhi + 1 - c.goy;
+  const int slo = f.keep.xlo - c.gox;
+  const int shi = f.keep.xhi + 1 - c.gox;
+  const int above = qlo * c.C;
+  const int bands = above + (c.R - qhi) * c.C;
+  const int side = c.C - (shi - slo);
+  const int total = bands + (qhi - qlo) * side;
+  for (int k = unit * kWarp + threadIdx.x % kWarp; k < total;
+       k += units * kWarp) {
+    int q, s;
+    if (k < bands) {
+      const int r = k < above ? k : k - above + qhi * c.C;
+      q = r / c.C;
+      s = r - q * c.C;
+    } else {
+      const int r = k - bands;
+      q = qlo + r / side;
+      s = r - (q - qlo) * side;
+      if (s >= slo) s += shi - slo;
+    }
+    rc[static_cast<size_t>(q) * c.C + s] = T(0);
+  }
 }
 
 // Apply f(v) for v = 0 .. kWin - 1 with v a compile-time constant.
@@ -171,24 +361,22 @@ __device__ __forceinline__ void chunk(bool steady, F&& f) {
 
 // Down leg: u' = smooth^K(u); rc = R (b - (A - sigma I) u'), the black
 // residual taken as 0 after an RB-GS sweep. rc is written in the logical
-// (nc+2)^2 layout, or packed when packed_coarse is set. K counts stages:
-// RB-GS half-sweeps or Jacobi sweeps. Lags: stage k at t - 1 - k, the
-// residual and the store at t - (K + 1), the restriction of fine row
-// t - K - 2 (its residual rows t - K - 3 .. t - K - 1 done).
-template <typename T, int KIND, int K>
+// (nc+2)^2 layout, or packed when packed_coarse is set (the whole grid), or
+// as the tile's coarse tile. K counts stages: RB-GS half-sweeps or Jacobi
+// sweeps. Lags: stage k at t - 1 - k, the residual and the store at
+// t - (K + 1), the restriction of fine row t - K - 2 (its residual rows
+// t - K - 3 .. t - K - 1 done).
+template <typename T, int KIND, int K, class Fr>
 __global__ void __launch_bounds__(kLegWarps * kWarp)
 down_kernel(const T* __restrict__ u, const T* __restrict__ b,
-            T* __restrict__ u_out, T* __restrict__ rc, int n,
+            T* __restrict__ u_out, T* __restrict__ rc, Fr f,
             mg::Coef<T> cf, int packed_coarse, LegGeom g) {
   const int unit = blockIdx.x * kLegWarps + threadIdx.x / kWarp;
   if (unit >= g.strips * g.segs) return;
+  if constexpr (kIsTile<Fr>) zero_coarse_frame(rc, f, unit, g.strips * g.segs);
   constexpr int OUT = K + 1;
   constexpr bool RED_ONLY = KIND == mg::kRbgs && K > 0;
-  const int P = n + 2;
-  const int cp = (P + 1) / 2;
-  const int nc = (n - 1) / 2;
-  const int cpc = (cp + 1) / 2;
-  const Unit w(g, unit, n);
+  const Unit<Fr> w(g, unit, f);
   const int last_even = (w.y1 & 1) ? w.y1 - 1 : w.y1 - 2;
   const int t_end = last_even + OUT + 1;
 
@@ -196,8 +384,8 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
   T J[K > 0 ? K : 1][2][kWin];
 #pragma unroll
   for (int a = 0; a < kAhead; ++a) {
-    load_row<true>(u, U[0][a], U[1][a], w.ys + a, w, P, cp);
-    load_row<true>(b, B[0][a], B[1][a], w.ys + a, w, P, cp);
+    load_row<true>(u, U[0][a], U[1][a], w.ys + a, a, w, f);
+    load_row<true>(b, B[0][a], B[1][a], w.ys + a, a, w, f);
   }
   T(&F)[2][kWin] = (KIND == mg::kJacobi && K > 0) ? J[K > 0 ? K - 1 : 0] : U;
 
@@ -212,8 +400,8 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
       constexpr bool EDGE = decltype(edge)::value;
       const int t = t0 + v;
       constexpr int sa = (v + kAhead) & (kWin - 1);
-      load_row<EDGE>(u, U[0][sa], U[1][sa], t + kAhead, w, P, cp);
-      load_row<EDGE>(b, B[0][sa], B[1][sa], t + kAhead, w, P, cp);
+      load_row<EDGE>(u, U[0][sa], U[1][sa], t + kAhead, v + kAhead, w, f);
+      load_row<EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead, w, f);
 
       smooth_step<T, KIND, K, v, EDGE>(U, B, J, t, w, cf);
 
@@ -241,12 +429,11 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
                     cf.sig * x;
         R[c][s] = live && w.upd[p] ? r : T(0);
       }
-      if (w.core && (!EDGE || (i >= w.y0 && i < w.y1))) {
-        u_out[static_cast<size_t>(i) * cp + w.gl] = F[0][s];
-        u_out[(static_cast<size_t>(P) + i) * cp + w.gl] = F[1][s];
+      if (!EDGE || (i >= w.y0 && i < w.y1)) {
+        store_row(u_out, F[0][s], F[1][s], i, v - OUT, w, f);
       }
 
-      // Full weighting at coarse (I, J = gl), fine row j = 2I, from the
+      // Full weighting at coarse (I, J), fine row j = 2I, from the
       // residual rows j - 1 .. j + 1; rows first, then columns, as
       // restrict_core (common.cuh). Fine columns 2J and 2J + 1 are this
       // lane's phases 0 and 1 (colour (phase + row) & 1); 2J - 1 is lane
@@ -261,28 +448,19 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
         const T t1 = T(0.25) * (R[c0][r0] + T(2) * R[c1][sj] + R[c0][r2]);
         const T t2 = T(0.25) * (R[c1][r0] + T(2) * R[c0][sj] + R[c1][r2]);
         const T t0v = __shfl_up_sync(0xffffffffu, t2, 1);
-        const int I = j >> 1;
-        const int Jc = w.gl;
-        if (w.core) {
-          const T val = I >= 1 && I <= nc && Jc >= 1 && Jc <= nc
-                            ? T(0.25) * (t0v + T(2) * t1 + t2)
-                            : T(0);
-          if (packed_coarse) {
-            rc[(static_cast<size_t>((I + Jc) & 1) * cp + I) * cpc +
-               (Jc >> 1)] = val;
-          } else {
-            rc[static_cast<size_t>(I) * cp + Jc] = val;
-          }
-        }
+        put_coarse(rc, j >> 1, T(0.25) * (t0v + T(2) * t1 + t2), w, f,
+                   packed_coarse);
       }
     });
   }
 }
 
-// Coarse point (I, J) of e (Pc x Pc points, logical or packed); 0 off e.
+// Coarse point (I, J) of e; 0 off e. The whole grid's e is (Pc x Pc
+// points, logical or packed), a tile's its coarse tile ca (logical).
 template <typename T, bool PACKED_E>
 __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
-                                       int Pc) {
+                                       const Whole& f) {
+  const int Pc = frame_lanes(f);
   const bool ok = I >= 0 && I < Pc && J >= 0 && J < Pc;
   const int cpc = (Pc + 1) / 2;
   const size_t at = PACKED_E ? (static_cast<size_t>((I + J) & 1) * Pc + I) *
@@ -291,24 +469,28 @@ __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
   return ok ? __ldg(e + at) : T(0);
 }
 
+template <typename T, bool PACKED_E>
+__device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
+                                       const Tile& f) {
+  return f.ca.holds(I, J) ? __ldg(e + f.ca.at(I, J)) : T(0);
+}
+
 // Up leg: x' = smooth^K(x + P e); e logical or packed (a template
-// parameter, so the coarse loads carry no branch). P e is added to row
-// t in step t, from coarse rows t >> 1 and (t + 1) >> 1 (loaded with the
-// fine rows, each lane its columns gl and gl + 1), as prolong_at
-// (common.cuh) computes it; stage k works on row t - 1 - k; the store on
-// row t - K.
-template <typename T, int KIND, int K, bool PACKED_E>
+// parameter, so the coarse loads carry no branch; a tile's is logical).
+// P e is added to row t in step t, from coarse rows t >> 1 and
+// (t + 1) >> 1 (loaded with the fine rows, each lane its columns J and
+// J + 1), as prolong_at (common.cuh) computes it, at every global-interior
+// point; stage k works on row t - 1 - k; the store on row t - K.
+template <typename T, int KIND, int K, bool PACKED_E, class Fr>
 __global__ void __launch_bounds__(kLegWarps * kWarp)
 up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
-          const T* __restrict__ b, T* __restrict__ out, int n,
+          const T* __restrict__ b, T* __restrict__ out, Fr f,
           mg::Coef<T> cf, LegGeom g) {
   const int unit = blockIdx.x * kLegWarps + threadIdx.x / kWarp;
   if (unit >= g.strips * g.segs) return;
   constexpr int OUT = K;
-  const int P = n + 2;
-  const int cp = (P + 1) / 2;
-  const int Pc = cp;
-  const Unit w(g, unit, n);
+  const int n = f.n;
+  const Unit<Fr> w(g, unit, f);
   const int t_end = w.y1 - 1 + OUT;
 
   T U[2][kWin], B[2][kWin], E0[kCoarseWin], E1[kCoarseWin];
@@ -316,13 +498,13 @@ up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
   // Rows ys .. ys + kAhead - 1 and the coarse rows they need.
 #pragma unroll
   for (int a = 0; a < kAhead; ++a) {
-    load_row<true>(xin, U[0][a], U[1][a], w.ys + a, w, P, cp);
-    load_row<true>(b, B[0][a], B[1][a], w.ys + a, w, P, cp);
+    load_row<true>(xin, U[0][a], U[1][a], w.ys + a, a, w, f);
+    load_row<true>(b, B[0][a], B[1][a], w.ys + a, a, w, f);
   }
 #pragma unroll
   for (int m = 0; m <= kAhead / 2; ++m) {
-    E0[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.gl, Pc);
-    E1[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.gl + 1, Pc);
+    E0[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.J, f);
+    E1[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.J + 1, f);
   }
   T(&F)[2][kWin] = (KIND == mg::kJacobi && K > 0) ? J[K > 0 ? K - 1 : 0] : U;
 
@@ -338,15 +520,15 @@ up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
       constexpr bool EDGE = decltype(edge)::value;
       const int t = t0 + v;
       constexpr int sa = (v + kAhead) & (kWin - 1);
-      load_row<EDGE>(xin, U[0][sa], U[1][sa], t + kAhead, w, P, cp);
-      load_row<EDGE>(b, B[0][sa], B[1][sa], t + kAhead, w, P, cp);
+      load_row<EDGE>(xin, U[0][sa], U[1][sa], t + kAhead, v + kAhead, w, f);
+      load_row<EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead, w, f);
       if constexpr (((v + kAhead) & 1) == 1) {
         // Row t + kAhead is odd: it needs coarse row (t + kAhead + 1) / 2.
         constexpr int m = ((v + kAhead + 1) >> 1) & (kCoarseWin - 1);
         if (!EDGE || t + kAhead < w.ye) {
           const int I = (t + kAhead + 1) >> 1;
-          E0[m] = coarse_at<T, PACKED_E>(e, I, w.gl, Pc);
-          E1[m] = coarse_at<T, PACKED_E>(e, I, w.gl + 1, Pc);
+          E0[m] = coarse_at<T, PACKED_E>(e, I, w.J, f);
+          E1[m] = coarse_at<T, PACKED_E>(e, I, w.J + 1, f);
         }
       }
 
@@ -358,7 +540,7 @@ up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int p = (c + v) & 1;
-          const int gx = 2 * w.gl + p;
+          const int gx = 2 * w.J + p;
           T a, d;
           if constexpr ((v & 1) == 1) {
             a = T(0.5) * (E0[m0] + E0[m1]);
@@ -376,24 +558,37 @@ up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
 
       const int i = t - OUT;
       constexpr int so = (v - OUT) & (kWin - 1);
-      if (w.core && (!EDGE || (i >= w.y0 && i < w.y1))) {
-        out[static_cast<size_t>(i) * cp + w.gl] = F[0][so];
-        out[(static_cast<size_t>(P) + i) * cp + w.gl] = F[1][so];
+      if (!EDGE || (i >= w.y0 && i < w.y1)) {
+        store_row(out, F[0][so], F[1][so], i, v - OUT, w, f);
       }
     });
   }
 }
 
-// The most stages a leg takes (packed2d.py: RB-GS 2 max_*_sweeps, Jacobi
-// max_*_sweeps), each count its own kernel.
+// The most stages a leg takes, each count its own kernel: the whole grid's
+// (packed2d.py: RB-GS 2 max_*_sweeps, Jacobi max_*_sweeps) and a tile's
+// (local2d.py's caps, both legs).
 constexpr int kMaxDownStages = 6;
 constexpr int kMaxUpStages = 8;
+constexpr int kMaxTileStages = 6;
 
 // The geometry as the kernels take it, or false if it breaks the rules
-// above.
-bool leg_geom(const int* v, LegGeom* g) {
+// above or does not cover the frame's rows and lanes.
+bool covers(const LegGeom& g, const Whole& f) {
+  return g.strips * g.strip >= frame_lanes(f) && g.segs * g.seg >= f.n + 2;
+}
+
+bool covers(const LegGeom& g, const Tile& f) {
+  return g.strips * g.strip >= frame_lanes(f) &&
+         g.segs * g.seg >= f.a.R + (f.a.goy & 1);
+}
+
+template <class Fr>
+bool leg_geom(const int* v, const Fr& f, LegGeom* g) {
   *g = LegGeom{v[0], v[1], v[2], v[3], v[4], v[5], v[6]};
-  return g->top % 2 == 0 && g->seg % 2 == 0 && g->strip + 2 * g->hp == kWarp;
+  return g->strips > 0 && g->segs > 0 && g->strip > 0 && g->top % 2 == 0 &&
+         g->seg > 0 && g->seg % 2 == 0 && g->strip + 2 * g->hp == kWarp &&
+         covers(*g, f);
 }
 
 unsigned leg_blocks(const LegGeom& g) {
@@ -401,37 +596,39 @@ unsigned leg_blocks(const LegGeom& g) {
                                kLegWarps);
 }
 
-template <typename T, int KIND, int K = 0>
-int launch_down_k(int stages, const T* u, const T* b, T* u_out, T* rc, int n,
-                  const mg::Coef<T>& cf, int packed_coarse, const LegGeom& g,
-                  cudaStream_t stream) {
-  if constexpr (K > kMaxDownStages) {
+template <typename T, int KIND, int MAXK, class Fr, int K = 0>
+int launch_down_k(int stages, const T* u, const T* b, T* u_out, T* rc,
+                  const Fr& f, const mg::Coef<T>& cf, int packed_coarse,
+                  const LegGeom& g, cudaStream_t stream) {
+  if constexpr (K > MAXK) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (stages != K) {
-      return launch_down_k<T, KIND, K + (KIND == mg::kRbgs ? 2 : 1)>(
-          stages, u, b, u_out, rc, n, cf, packed_coarse, g, stream);
+      return launch_down_k<T, KIND, MAXK, Fr,
+                           K + (KIND == mg::kRbgs ? 2 : 1)>(
+          stages, u, b, u_out, rc, f, cf, packed_coarse, g, stream);
     }
-    down_kernel<T, KIND, K><<<leg_blocks(g), kLegWarps * kWarp, 0, stream>>>(
-        u, b, u_out, rc, n, cf, packed_coarse, g);
+    down_kernel<T, KIND, K, Fr><<<leg_blocks(g), kLegWarps * kWarp, 0,
+                                  stream>>>(u, b, u_out, rc, f, cf,
+                                            packed_coarse, g);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
-template <typename T, int KIND, bool PACKED_E, int K = 0>
-int launch_up_k(int stages, const T* x, const T* e, const T* b, T* out, int n,
-                const mg::Coef<T>& cf, const LegGeom& g,
+template <typename T, int KIND, bool PACKED_E, int MAXK, class Fr, int K = 0>
+int launch_up_k(int stages, const T* x, const T* e, const T* b, T* out,
+                const Fr& f, const mg::Coef<T>& cf, const LegGeom& g,
                 cudaStream_t stream) {
-  if constexpr (K > kMaxUpStages) {
+  if constexpr (K > MAXK) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (stages != K) {
-      return launch_up_k<T, KIND, PACKED_E,
+      return launch_up_k<T, KIND, PACKED_E, MAXK, Fr,
                          K + (KIND == mg::kRbgs ? 2 : 1)>(
-          stages, x, e, b, out, n, cf, g, stream);
+          stages, x, e, b, out, f, cf, g, stream);
     }
-    up_kernel<T, KIND, K, PACKED_E>
-        <<<leg_blocks(g), kLegWarps * kWarp, 0, stream>>>(x, e, b, out, n,
+    up_kernel<T, KIND, K, PACKED_E, Fr>
+        <<<leg_blocks(g), kLegWarps * kWarp, 0, stream>>>(x, e, b, out, f,
                                                           cf, g);
     return static_cast<int>(cudaGetLastError());
   }
@@ -442,13 +639,16 @@ int leg_stages(int kind, int sweeps) {
   return kind == mg::kRbgs ? 2 * sweeps : sweeps;
 }
 
-template <typename T>
-int launch_down(const void* u, const void* b, void* u_out, void* rc, int n,
-                double h, double sigma, int kind, double omega, int sweeps,
-                int packed_coarse, const int* geom, void* stream) {
+// The down leg on frame f (the whole grid: kMaxDownStages; a tile:
+// kMaxTileStages).
+template <typename T, int MAXK, class Fr>
+int launch_down(const void* u, const void* b, void* u_out, void* rc,
+                const Fr& f, double h, double sigma, int kind, double omega,
+                int sweeps, int packed_coarse, const int* geom,
+                void* stream) {
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
-  if (!leg_geom(geom, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!leg_geom(geom, f, &g)) return static_cast<int>(cudaErrorInvalidValue);
   const auto cf = mg::Coef<T>::make(h, sigma, omega);
   const auto s = static_cast<cudaStream_t>(stream);
   const T* ut = static_cast<const T*>(u);
@@ -456,35 +656,54 @@ int launch_down(const void* u, const void* b, void* u_out, void* rc, int n,
   T* ot = static_cast<T*>(u_out);
   T* rt = static_cast<T*>(rc);
   return kind == mg::kRbgs
-             ? launch_down_k<T, mg::kRbgs>(K, ut, bt, ot, rt, n, cf,
-                                           packed_coarse, g, s)
-             : launch_down_k<T, mg::kJacobi>(K, ut, bt, ot, rt, n, cf,
-                                             packed_coarse, g, s);
+             ? launch_down_k<T, mg::kRbgs, MAXK>(K, ut, bt, ot, rt, f, cf,
+                                                 packed_coarse, g, s)
+             : launch_down_k<T, mg::kJacobi, MAXK>(K, ut, bt, ot, rt, f, cf,
+                                                   packed_coarse, g, s);
 }
 
-template <typename T>
-int launch_up(const void* x, const void* e, const void* b, void* out, int n,
-              double h, double sigma, int kind, double omega, int sweeps,
-              int packed_e, const int* geom, void* stream) {
+// The up leg on frame f; e logical or, on the whole grid, packed.
+template <typename T, int MAXK, class Fr>
+int launch_up(const void* x, const void* e, const void* b, void* out,
+              const Fr& f, double h, double sigma, int kind, double omega,
+              int sweeps, int packed_e, const int* geom, void* stream) {
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
-  if (!leg_geom(geom, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!leg_geom(geom, f, &g)) return static_cast<int>(cudaErrorInvalidValue);
   const auto cf = mg::Coef<T>::make(h, sigma, omega);
   const auto s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const T* et = static_cast<const T*>(e);
   const T* bt = static_cast<const T*>(b);
   T* ot = static_cast<T*>(out);
-  if (kind == mg::kRbgs) {
-    return packed_e
-               ? launch_up_k<T, mg::kRbgs, true>(K, xt, et, bt, ot, n, cf, g, s)
-               : launch_up_k<T, mg::kRbgs, false>(K, xt, et, bt, ot, n, cf, g,
-                                                  s);
+  if constexpr (kIsTile<Fr>) {
+    return kind == mg::kRbgs
+               ? launch_up_k<T, mg::kRbgs, false, MAXK>(K, xt, et, bt, ot, f,
+                                                        cf, g, s)
+               : launch_up_k<T, mg::kJacobi, false, MAXK>(K, xt, et, bt, ot,
+                                                          f, cf, g, s);
+  } else {
+    if (kind == mg::kRbgs) {
+      return packed_e ? launch_up_k<T, mg::kRbgs, true, MAXK>(
+                            K, xt, et, bt, ot, f, cf, g, s)
+                      : launch_up_k<T, mg::kRbgs, false, MAXK>(
+                            K, xt, et, bt, ot, f, cf, g, s);
+    }
+    return packed_e ? launch_up_k<T, mg::kJacobi, true, MAXK>(
+                          K, xt, et, bt, ot, f, cf, g, s)
+                    : launch_up_k<T, mg::kJacobi, false, MAXK>(
+                          K, xt, et, bt, ot, f, cf, g, s);
   }
-  return packed_e
-             ? launch_up_k<T, mg::kJacobi, true>(K, xt, et, bt, ot, n, cf, g, s)
-             : launch_up_k<T, mg::kJacobi, false>(K, xt, et, bt, ot, n, cf, g,
-                                                  s);
+}
+
+// The tile frame of a leg on the packed tile a of the n x n grid, with the
+// coarse tile ca and its owned box [qlo, qhi) x [slo, shi) (coarse tile
+// indices).
+Tile tile_frame(const mg::PRect& a, const mg::Rect& ca, int n, int qlo,
+                int qhi, int slo, int shi) {
+  return Tile{n, a, mg::tile_inner(a, n), ca,
+              mg::InteriorBox{(n - 1) / 2, ca.goy + qlo, ca.goy + qhi - 1,
+                              ca.gox + slo, ca.gox + shi - 1}};
 }
 
 }  // namespace

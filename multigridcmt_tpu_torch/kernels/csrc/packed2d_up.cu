@@ -9,8 +9,9 @@ int mg_packed2d_up_f32(const void* x, const void* e, const void* b, void* out,
                        int n, double h, double sigma, int kind, double omega,
                        int sweeps, int packed_e, const int* geom,
                        void* stream) {
-  return launch_up<float>(x, e, b, out, n, h, sigma, kind, omega, sweeps,
-                          packed_e, geom, stream);
+  return launch_up<float, kMaxUpStages>(x, e, b, out, Whole{n}, h, sigma,
+                                        kind, omega, sweeps, packed_e, geom,
+                                        stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
-// Colour-packed arrays: the neighbour algebra, the shared-memory tile
-// helpers and the whole-array residual and norm kernels shared by
-// packed2d.cu (a whole packed grid) and plocal2d.cu (a shard's packed
-// extended tile).
+// Colour-packed arrays: the neighbour algebra and the whole-array residual
+// and norm kernels shared by packed2d.cu (a whole packed grid) and
+// plocal2d.cu (a shard's packed extended tile), and the shared-memory tile
+// helpers of packed2d.cu's RB-GS sweep kernel.
 //
 // A colour-packed array (PRect) holds the R x C points of a rectangle of the
 // padded grid whose first point has global index (goy, gox) as two planes of
@@ -28,7 +28,7 @@
 // tile column is fine-grid column lx = 2l + p. Smoothing in a tile follows
 // common.cuh: a point is updated only where `upd` holds (mg::Interior or
 // mg::InteriorBox) and off the tile's outer ring of fine points, so each
-// half-sweep (RB-GS) or sweep (Jacobi) makes one more ring stale.
+// half-sweep makes one more ring stale.
 #pragma once
 
 #include "common.cuh"
@@ -51,6 +51,13 @@ struct PRect {
 // Phase of colour c in global row gy of a tile whose column 0 is global gx0.
 __device__ __forceinline__ int pphase(int c, int gy, int gx0) {
   return (c + gy + gx0) & 1;
+}
+
+// The points a kernel on the packed tile a of the n x n grid sets: interior
+// to the grid and off the tile's outer ring.
+inline InteriorBox tile_inner(const PRect& a, int n) {
+  return InteriorBox{n, a.goy + 1, a.goy + a.R - 2, a.gox + 1,
+                     a.gox + a.C - 2};
 }
 
 // Sum of the four neighbours of the point at lane index k of its plane, read
@@ -84,36 +91,6 @@ __device__ void load_ptile(const T* __restrict__ g, T* s, int RY, int RXP,
     const int gy = gy0 + ly;
     const int gp = gp0 + k - ly * RXP;
     s[idx] = a.holds(gy, gp) ? g[a.at(c, gy, gp)] : T(0);
-  }
-}
-
-// Load the tiles of x + P e and of b as load_ptile does; P e (prolong_at of
-// the view e, common.cuh) is added at the points interior to the n x n grid.
-template <typename T, template <typename> class View>
-__device__ void load_ptile_prolonged(const T* __restrict__ x,
-                                     const View<T>& e,
-                                     const T* __restrict__ b, T* us, T* bs,
-                                     int RY, int RXP, int gy0, int gp0,
-                                     const PRect& a, int n) {
-  const int plane = RY * RXP;
-  const int gx0 = a.gox + 2 * gp0;
-  for (int idx = threadIdx.x; idx < 2 * plane; idx += blockDim.x) {
-    const int c = idx >= plane;
-    const int k = idx - c * plane;
-    const int ly = k / RXP;
-    const int l = k - ly * RXP;
-    const int gy = gy0 + ly;
-    T xv = T(0);
-    T bv = T(0);
-    if (a.holds(gy, gp0 + l)) {
-      const size_t g = a.at(c, gy, gp0 + l);
-      xv = x[g];
-      bv = b[g];
-      const int gx = gx0 + 2 * l + pphase(c, gy, gx0);
-      if (interior(gy, gx, n)) xv = xv + prolong_at(e, gy, gx);
-    }
-    us[idx] = xv;
-    bs[idx] = bv;
   }
 }
 
@@ -175,77 +152,16 @@ __device__ void half_sweep(T* s, const T* bs, int RY, int RXP, int gy0,
   }
 }
 
-// One weighted-Jacobi sweep of both planes from s into t.
+// `sweeps` RB-GS sweeps in place on the packed tile s.
 template <typename T, typename Upd>
-__device__ void jacobi(const T* s, T* t, const T* bs, int RY, int RXP,
-                       int gy0, int gx0, const Upd& upd, const Coef<T>& cf) {
-  const int plane = RY * RXP;
-  for (int idx = threadIdx.x; idx < 2 * plane; idx += blockDim.x) {
-    const int c = idx >= plane;
-    const int k = idx - c * plane;
-    T v = s[idx];
-    int p;
-    if (updatable(c, k, RY, RXP, gy0, gx0, upd, &p)) {
-      v = v + cf.jscale * presidual(s + c * plane, s + (1 - c) * plane,
-                                    bs[idx], k, RXP, p, cf);
-    }
-    t[idx] = v;
-  }
-}
-
-// `sweeps` smoother sweeps on the packed tile; returns the buffer holding
-// the result (s for RB-GS, s or t for Jacobi's ping-pong).
-template <typename T, typename Upd>
-__device__ T* smooth_ptile(T* s, T* t, const T* bs, int RY, int RXP, int gy0,
-                           int gx0, const Upd& upd, int kind, int sweeps,
+__device__ void rbgs_ptile(T* s, const T* bs, int RY, int RXP, int gy0,
+                           int gx0, const Upd& upd, int sweeps,
                            const Coef<T>& cf) {
-  if (kind == kRbgs) {
-    for (int i = 0; i < sweeps; ++i) {
-      half_sweep(s, bs, RY, RXP, gy0, gx0, upd, 0, cf);
-      __syncthreads();
-      half_sweep(s, bs, RY, RXP, gy0, gx0, upd, 1, cf);
-      __syncthreads();
-    }
-    return s;
-  }
   for (int i = 0; i < sweeps; ++i) {
-    jacobi(s, t, bs, RY, RXP, gy0, gx0, upd, cf);
+    half_sweep(s, bs, RY, RXP, gy0, gx0, upd, 0, cf);
     __syncthreads();
-    T* tmp = s;
-    s = t;
-    t = tmp;
-  }
-  return s;
-}
-
-// The residual of packed tile w (b in bs) on the TY x TX core at global
-// (y0, x0) plus one ring, in fine coordinates, into rs ((TY + 2) x (TX + 2),
-// entry (a, b) at global (y0 - 1 + a, x0 - 1 + b)): 0 where `upd` fails and,
-// with red_only, at the black points (after an RB-GS sweep the closing black
-// half-sweep zeroes the black residual in exact arithmetic, so a down leg
-// restricts the red residual only, as on the TPU). The tile (RY x RXP, at
-// global row gy0 and column gx0) must reach 2 points past the core on every
-// side.
-template <int TY, int TX, typename T, typename Upd>
-__device__ void core_presidual(const T* w, const T* bs, T* rs, int RY,
-                               int RXP, int gy0, int gx0, int y0, int x0,
-                               const Upd& upd, bool red_only,
-                               const Coef<T>& cf) {
-  constexpr int RSX = TX + 2;
-  const int plane = RY * RXP;
-  for (int idx = threadIdx.x; idx < (TY + 2) * RSX; idx += blockDim.x) {
-    const int a = idx / RSX;
-    const int gy = y0 - 1 + a;
-    const int gx = x0 - 1 + idx - a * RSX;
-    const int c = (gy + gx) & 1;
-    T r = T(0);
-    if (upd(gy, gx) && !(red_only && c)) {
-      const int lx = gx - gx0;
-      const int k = (gy - gy0) * RXP + (lx >> 1);
-      r = presidual(w + c * plane, w + (1 - c) * plane, bs[c * plane + k], k,
-                    RXP, lx & 1, cf);
-    }
-    rs[idx] = r;
+    half_sweep(s, bs, RY, RXP, gy0, gx0, upd, 1, cf);
+    __syncthreads();
   }
 }
 

@@ -137,19 +137,24 @@ LEG_WARPS_PER_SM = 16
 
 @dataclasses.dataclass(frozen=True)
 class LegGeometry:
-    """Launch geometry of a row-streaming leg (see csrc/packed2d.cu's note).
+    """Launch geometry of a row-streaming leg (see csrc/packed2d.cu's note)
+    on a frame: the whole packed grid, or a shard's packed tile
+    (``plocal2d.leg_geometry``).
 
-    Unit (sx, sy), one warp, owns lanes [sx * strip, (sx + 1) * strip) and
-    rows [sy * seg, (sy + 1) * seg) of the packed grid (clipped to it); its
-    LEG_LANES lanes start ``halo_lanes`` before its first. It streams the
-    rows from ``top`` above its first to ``bottom`` below its last. In step
-    t row t has been loaded; smoothing stage k (an RB-GS half-sweep or a
-    Jacobi sweep) works on row t - 1 - k, the down leg's residual (and
-    store) on row t - out_lag and its restriction on fine row
-    t - out_lag - 1, the up leg's store on row t - out_lag; stages run in
-    that order within a step. Each lane keeps LEG_WINDOW rows (and
-    LEG_COARSE_WINDOW coarse rows) in registers; nothing is in shared
-    memory."""
+    Rows are global rows: the frame's array rows are ``count`` rows from
+    global row ``first``; rb is the even row at or above ``first``. Unit
+    (sx, sy), one warp, owns the frame's lanes [sx * strip, (sx + 1) *
+    strip) and rows [rb + sy * seg, rb + (sy + 1) * seg) (clipped to the
+    frame's ``lanes`` and rows); its LEG_LANES lanes start ``halo_lanes``
+    before its first. It streams the rows from ``top`` above its first
+    (from rb at the first segment: a row above the frame reads as zeros)
+    to ``bottom`` below its last. In step t row t has been loaded;
+    smoothing stage k (an RB-GS half-sweep or a Jacobi sweep) works on row
+    t - 1 - k, the down leg's residual (and store) on row t - out_lag and
+    its restriction on fine row t - out_lag - 1, the up leg's store on row
+    t - out_lag; stages run in that order within a step. Each lane keeps
+    LEG_WINDOW rows (and LEG_COARSE_WINDOW coarse rows) in registers;
+    nothing is in shared memory."""
     leg: str
     n: int
     stages: int
@@ -161,6 +166,9 @@ class LegGeometry:
     top: int
     bottom: int
     out_lag: int
+    first: int
+    count: int
+    lanes: int
 
     def ints(self) -> tuple:
         """The 7 ints the kernel takes (its LegGeom)."""
@@ -168,16 +176,19 @@ class LegGeometry:
                 self.halo_lanes, self.top, self.bottom)
 
     def rows(self, sy: int) -> tuple:
-        """(first, end) of segment sy's rows and of the rows it streams."""
-        p = self.n + 2
-        y0 = sy * self.seg
-        y1 = min(y0 + self.seg, p)
-        return y0, y1, max(0, y0 - self.top), min(p, y1 + self.bottom)
+        """(first, end) of segment sy's rows and of the rows it streams,
+        global."""
+        rb = self.first & ~1
+        yu = rb + sy * self.seg
+        end = self.first + self.count
+        y1 = min(yu + self.seg, end)
+        return (max(yu, self.first), y1, max(rb, yu - self.top),
+                min(end, y1 + self.bottom))
 
     def strip_lanes(self, sx: int) -> tuple:
         """(first, end) of strip sx's lanes."""
         l0 = sx * self.strip
-        return l0, min(l0 + self.strip, (self.n + 3) // 2)
+        return l0, min(l0 + self.strip, self.lanes)
 
     def span(self) -> int:
         """Rows a lane holds at once: from the oldest row a step reads (the
@@ -188,10 +199,14 @@ class LegGeometry:
 
 
 def leg_geometry(leg: str, n: int, kind: str, sweeps: int, *,
-                 sm_count: int = 132, seg: int | None = None) -> LegGeometry:
-    """Geometry of the down (``leg="down"``) or up leg on a packed (n+2)^2
-    grid with ``sweeps`` sweeps of ``kind``; ``seg`` overrides the segment
-    rows the launch would choose for ``sm_count`` SMs.
+                 sm_count: int = 132, seg: int | None = None,
+                 rows: int | None = None, first: int = 0,
+                 lanes: int | None = None) -> LegGeometry:
+    """Geometry of the down (``leg="down"``) or up leg with ``sweeps``
+    sweeps of ``kind`` on the packed (n+2)^2 grid, or on a frame of
+    ``rows`` array rows from global row ``first`` and ``lanes`` lanes;
+    ``seg`` overrides the segment rows the launch would choose for
+    ``sm_count`` SMs.
 
     Halos: each stage makes one more ring of a unit's tile stale, so the up
     leg's K stages need K rows above and below and ceil(K/2) lanes each
@@ -202,8 +217,8 @@ def leg_geometry(leg: str, n: int, kind: str, sweeps: int, *,
     i - 1 .. i + 1 of the one before it, which reached row i + 1 earlier in
     the same step, so consecutive stages are one row apart."""
     stages = 2 * sweeps if kind == "rbgs" else sweeps
-    p = n + 2
-    cp = (p + 1) // 2
+    p = n + 2 if rows is None else rows
+    cp = (n + 3) // 2 if lanes is None else lanes
     if leg == "down":
         halo, top, bottom, out_lag = ((stages + 3) // 2, stages + 2,
                                       stages + 1, stages + 1)
@@ -215,22 +230,35 @@ def leg_geometry(leg: str, n: int, kind: str, sweeps: int, *,
     top += top & 1
     strip = LEG_LANES - 2 * halo
     strips = -(-cp // strip)
+    # The streamed rows start at the even row at or above the frame's
+    # first.
+    span = p + (first & 1)
     if seg is None:
         units = sm_count * LEG_WARPS_PER_SM
-        seg = max(LEG_MIN_SEG, -(-p // max(1, units // strips)))
+        seg = max(LEG_MIN_SEG, -(-span // max(1, units // strips)))
     seg += seg & 1
     return LegGeometry(leg=leg, n=n, stages=stages, strips=strips,
-                       segs=-(-p // seg), strip=strip, seg=seg,
+                       segs=-(-span // seg), strip=strip, seg=seg,
                        halo_lanes=halo, top=top, bottom=bottom,
-                       out_lag=out_lag)
+                       out_lag=out_lag, first=first, count=p, lanes=cp)
+
+
+def _sm_count(index: int) -> int:
+    """SMs of card ``index``; raises where there is no card, as a launch
+    does (in the card's context)."""
+    with torch.cuda.device(index):
+        return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
-def _launch_geometry(leg: str, n: int, kind: str, sweeps: int, index: int):
+def _launch_geometry(leg: str, n: int, kind: str, sweeps: int, index: int,
+                     rows: int | None = None, first: int = 0,
+                     lanes: int | None = None):
     """The leg's geometry on card ``index``, as the kernel's int array,
-    built once for each leg, grid, schedule and card."""
-    sm_count = torch.cuda.get_device_properties(index).multi_processor_count
-    g = leg_geometry(leg, n, kind, sweeps, sm_count=sm_count)
+    built once for each leg, frame (``leg_geometry``'s; the whole grid by
+    default, a shard's tile from ``plocal2d``), schedule and card."""
+    g = leg_geometry(leg, n, kind, sweeps, sm_count=_sm_count(index),
+                     rows=rows, first=first, lanes=lanes)
     return (ctypes.c_int * 7)(*g.ints())
 
 

@@ -3,8 +3,10 @@ residual, the operator apply and the fused residual norm on one rank's
 halo-extended tile stored colour-packed.
 
 Replace the TPU kernels of ``multigridcmt_tpu/kernels/plocal2d.py`` with
-``csrc/plocal2d.cu`` (see the note there on what bounds them and how the
-blocks are laid out):
+``csrc/plocal2d.cu`` (the residual, apply and norm) and
+``csrc/plocal2d_legs.cu``, ``csrc/plocal2d_legs_f64.cu`` (the legs:
+``csrc/packed2d_legs.cuh``'s row stream on the tile frame; see the note in
+``plocal2d.cu`` on what bounds them and what the frame adds):
   * ``residual``: r = b - (A - sigma I) u, and ``apply_op``: (A - sigma I)
     u, one kernel with and without the b stream;
   * ``down_leg``: sweeps, residual and full weighting in one pass (after an
@@ -45,7 +47,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, local2d
+from . import _build, local2d, packed2d
 from ._wrap import check_storage, check_tensor, launch_on, on_cuda
 from .local2d import HALO_ROWS, max_down_sweeps, max_up_sweeps
 from .packed2d import RESNORM_BLOCKS
@@ -162,6 +164,26 @@ def residual_norm_sq_plain(s, bs, n, h, m, row_off, col_off=0, *, mcol=0,
 # Wrappers
 # ---------------------------------------------------------------------------
 
+def _frame(rows: int, cols: int, row_off: int, col_off: int) -> dict:
+    """The row-streaming legs' frame (``packed2d.leg_geometry``'s rows,
+    first, lanes) of the packed tile of an unpacked rows x cols extended
+    tile at global (row_off, col_off): global rows from row_off, and the
+    tile frame's lanes, one more than the array's on a block tile (odd
+    col_off; csrc/plocal2d.cu's note)."""
+    return dict(rows=rows, first=row_off,
+                lanes=(cols + (col_off & 1) + 1) // 2)
+
+
+def leg_geometry(leg: str, rows: int, cols: int, n: int, row_off: int,
+                 col_off: int, kind: str, sweeps: int, *,
+                 sm_count: int = 132) -> packed2d.LegGeometry:
+    """Geometry of the row-streaming down or up leg (``packed2d.
+    leg_geometry``) on the packed tile of an unpacked rows x cols extended
+    tile at global (row_off, col_off), for ``sm_count`` SMs."""
+    return packed2d.leg_geometry(leg, n, kind, sweeps, sm_count=sm_count,
+                                 **_frame(rows, cols, row_off, col_off))
+
+
 def _check_packed(what: str, s: torch.Tensor, b, n: int,
                   col_off: int) -> int:
     """Raise unless s (and b, if given) is a packed tile whose unpacked
@@ -250,16 +272,21 @@ def down_leg(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, m: int,
                               omega=omega, sweeps=sweeps, sigma=sigma,
                               mcol=mcol)
     hh = HALO_ROWS
+    c = _cols(s, n, col_off)
     u_out = torch.empty_like(s)
+    # The kernel writes every entry of rc (zeros off the owned box).
     rc = torch.empty(cshape, dtype=s.dtype, device=s.device)
     ccol = local2d.coarse_offset(col_off) if mcol else 0
     cols = (hh, hh + mcol // 2) if mcol else (0, cshape[1])
     launch_on(s, "plocal2d_down", s.data_ptr(), bs.data_ptr(),
-              u_out.data_ptr(), rc.data_ptr(), s.shape[1],
-              _cols(s, n, col_off), cshape[0], cshape[1], n, int(row_off),
-              int(col_off), local2d.coarse_offset(row_off), ccol, hh,
-              hh + m // 2, cols[0], cols[1], float(h), float(sigma),
-              _build.KIND_CODES[kind], float(omega), sweeps)
+              u_out.data_ptr(), rc.data_ptr(), s.shape[1], c, cshape[0],
+              cshape[1], n, int(row_off), int(col_off),
+              local2d.coarse_offset(row_off), ccol, hh, hh + m // 2, cols[0],
+              cols[1], float(h), float(sigma), _build.KIND_CODES[kind],
+              float(omega), sweeps,
+              packed2d._launch_geometry(
+                  "down", n, kind, sweeps, s.device.index or 0,
+                  **_frame(s.shape[1], c, int(row_off), int(col_off))))
     down_launches += 1
     return u_out, rc
 
@@ -286,13 +313,17 @@ def up_leg(x: torch.Tensor, e_ext: torch.Tensor, bs: torch.Tensor, n: int,
         return up_leg_plain(x, e_ext, bs, n, nc, h, m, row_off, col_off,
                             kind=kind, omega=omega, sweeps=sweeps,
                             sigma=sigma, mcol=mcol)
+    c = _cols(x, n, col_off)
     out = torch.empty_like(x)
     ccol = local2d.coarse_offset(col_off) if mcol else 0
     launch_on(x, "plocal2d_up", x.data_ptr(), e_ext.data_ptr(),
-              bs.data_ptr(), out.data_ptr(), x.shape[1],
-              _cols(x, n, col_off), cshape[0], cshape[1], n, int(row_off),
-              int(col_off), local2d.coarse_offset(row_off), ccol, float(h),
-              float(sigma), _build.KIND_CODES[kind], float(omega), sweeps)
+              bs.data_ptr(), out.data_ptr(), x.shape[1], c, cshape[0],
+              cshape[1], n, int(row_off), int(col_off),
+              local2d.coarse_offset(row_off), ccol, float(h), float(sigma),
+              _build.KIND_CODES[kind], float(omega), sweeps,
+              packed2d._launch_geometry(
+                  "up", n, kind, sweeps, x.device.index or 0,
+                  **_frame(x.shape[1], c, int(row_off), int(col_off))))
     up_launches += 1
     return out
 

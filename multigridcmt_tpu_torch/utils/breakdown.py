@@ -28,17 +28,25 @@ and the time a call of 20 back-to-back calls between one pair of events
 (the device's time once the host runs ahead, as inside a cycle).
 
 With ``--mesh``, the sharded cycle instead (parallel/sharded.py, a
-torch.distributed world of 1 over NCCL, a row mesh or a (1, 1) block mesh;
-``ShardedSolver.v_cycle_fn``, owned tiles in and out): the same figures
-plus the device time of the local2d kernels, as shipped and with
-KERNEL_MIN_N = 7 (the plain owned-tile levels 127 and 63 on the leg
-kernels too), beside the single-device kernel cycle.
+torch.distributed world of 1 over NCCL, a row mesh or a (1, 1) block mesh),
+as shipped and with KERNEL_MIN_N = 7 (the plain owned-tile levels 127 and
+63 on the leg kernels too): ``ShardedSolver.v_cycle_fn`` (one cycle, owned
+tiles in and out, unpacked at any PACK_MIN_N) and the chain the solve runs,
+``v_cycles_fn`` over 20 cycles (its fine level colour-packed at the
+shipped PACK_MIN_N, on the plocal2d legs), each with the same figures a
+cycle plus the device time of the local2d kernels and of the plocal2d
+legs; then the single-device kernel cycle; then, on a row mesh, the legs
+on rank 0's tiles single/chained: at the fine level plocal2d (packed) and
+local2d (unpacked) at nu = 0, 1, 2 and the cap, beside the packed2d legs
+on the whole grid; at the next level the local2d legs beside the fused2d
+legs on the whole grid.
 
 Informative only: nothing is checked. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
 
@@ -47,14 +55,27 @@ from torch.profiler import ProfilerActivity, profile
 
 import multigridcmt_tpu_torch as mt
 from multigridcmt_tpu_torch import kernels
-from multigridcmt_tpu_torch.kernels import packed2d, stencil2d, stencil3d
+from multigridcmt_tpu_torch.kernels import (fused2d, local2d, packed2d,
+                                           plocal2d, stencil2d, stencil3d)
 from multigridcmt_tpu_torch.ops import transfer
 from multigridcmt_tpu_torch.utils.profiling import chained_ms, cuda_time_ms
 
+# The sharded kernels by their names in the profiler: the local2d kernels
+# (local_*_kernel), and the plocal2d legs (the row-streaming down_kernel
+# and up_kernel on the Tile frame; plocal_down_kernel and plocal_up_kernel
+# before them).
+SHARDED_KERNELS = {
+    "local2d kernels": re.compile(r"(?<!\w)local_"),
+    "plocal2d legs": re.compile(r"(?<!\w)plocal_(down|up)|(?<!\w)Tile(?!\w)"),
+}
+# Cycles of the chain a timing of v_cycles_fn runs.
+CHAIN = 20
 
-def device_busy(fn, reps: int, match: str = ""):
-    """(device ms a call, device ops a call, device ms a call of the kernels
-    whose name contains ``match``) over ``reps`` calls."""
+
+def device_busy(fn, reps: int, groups: dict | None = None):
+    """(device ms a call, device ops a call, {name: device ms a call of the
+    kernels whose name the pattern groups[name] finds}) over ``reps``
+    calls."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -65,9 +86,10 @@ def device_busy(fn, reps: int, match: str = ""):
     ops = sum(1 for e in prof.events() if e.device_type == cuda)
     rows = [e for e in prof.key_averages() if e.device_type == cuda]
     busy = sum(e.device_time_total for e in rows)
-    matched = sum(e.device_time_total for e in rows
-                  if match and match in e.key)
-    return busy / reps / 1e3, ops / reps, matched / reps / 1e3
+    matched = {name: sum(e.device_time_total for e in rows
+                         if pat.search(e.key)) / reps / 1e3
+               for name, pat in (groups or {}).items()}
+    return busy / reps / 1e3, ops / reps, matched
 
 
 def grids(n: int, seed: int, ndim: int = 2):
@@ -169,26 +191,108 @@ def sharded_routes(k: int, reps: int, mesh_kind: str,
                 cycle = solver.v_cycle_fn()
                 b = sharded.shard_rhs(prob.b, mesh, solver.decomp)
                 x = torch.zeros_like(b)
-                ms = cuda_time_ms(lambda: cycle(x, b))
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(20):
-                    cycle(x, b)
-                torch.cuda.synchronize()
-                host_ms = (time.perf_counter() - t0) / 20 * 1e3
-                busy, ops, local = device_busy(lambda: cycle(x, b), reps,
-                                               match="local_")
-                print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} "
-                      f"ms (host clock, 20 back to back), device busy "
-                      f"{busy:.4f} ms/cycle (local2d kernels {local:.4f}), "
-                      f"idle share {1 - busy / ms:.4f}, device ops/cycle "
-                      f"{ops:.0f}", flush=True)
-                del prob, solver, b, x
+                chain = solver.v_cycles_fn()
+                for what, fn, cycles in (
+                        ("v_cycle_fn", lambda: cycle(x, b), 1),
+                        (f"v_cycles_fn, {CHAIN} chained",
+                         lambda: chain(x, b, CHAIN), CHAIN)):
+                    sharded_cycle(f"{label}, {what}", fn, cycles, reps)
+                del prob, solver, b, x, chain
                 torch.cuda.empty_cache()
         finally:
             kernels.KERNEL_MIN_N = shipped
             dist.destroy_process_group()
     route("single device, kernel", k, 2, True, reps, schedule)
+    if mesh_kind == "rows":
+        tile_legs(k, schedule)
+
+
+def sharded_cycle(label: str, fn, cycles: int, reps: int) -> None:
+    """One line for a sharded cycle: fn runs ``cycles`` cycles."""
+    ms = cuda_time_ms(fn, reps=max(1, 20 // cycles)) / cycles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(max(1, 20 // cycles)):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = ((time.perf_counter() - t0) * 1e3
+               / (max(1, 20 // cycles) * cycles))
+    busy, ops, by = device_busy(fn, max(1, reps // cycles), SHARDED_KERNELS)
+    busy, ops = busy / cycles, ops / cycles
+    kern = ", ".join(f"{name} {t / cycles:.4f}" for name, t in by.items())
+    print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} ms (host "
+          f"clock, 20 cycles back to back), device busy {busy:.4f} ms/cycle "
+          f"({kern}), idle share {1 - busy / ms:.4f}, device ops/cycle "
+          f"{ops:.0f}", flush=True)
+
+
+def row_tile(n: int, seed: int):
+    """u, b, e on the (n+2)^2 grid (as ``grids``) and rank 0's extended
+    tiles of them on a row mesh of 1 (m = n + 1 owned rows, row offset
+    1 - HALO_ROWS): ue, be and the coarse ee."""
+    hh = local2d.HALO_ROWS
+    off = 1 - hh
+    u, b, e = grids(n, seed=seed)
+    ue, be = (torch.zeros((n + 1 + 2 * hh, n + 2), device="cuda")
+              for _ in range(2))
+    ue[-off:-off + n + 2], be[-off:-off + n + 2] = u, b
+    nc = (n - 1) // 2
+    ee = torch.zeros(((n + 1) // 2 + 2 * hh, nc + 2), device="cuda")
+    c0 = -local2d.coarse_offset(off)       # coarse row 0 in the tile
+    ee[c0:c0 + nc + 2] = e
+    return u, b, e, ue, be, ee
+
+
+def tile_legs(k: int, schedule: dict) -> None:
+    """The leg levels' legs on rank 0's tiles of a row mesh of 1: at the
+    fine level plocal2d on the packed tile and local2d on the unpacked
+    one, at nu = 0, 1, 2 and the cap, beside the packed2d legs on the whole
+    packed grid at the schedule's nu; at the next level (unpacked) the
+    local2d legs beside the fused2d legs on the whole grid, at the
+    schedule's nu (none where a leg does not fuse it)."""
+    kind = schedule["smoother"]
+    nu1, nu2 = schedule["nu1"], schedule["nu2"]
+    if kind == "chebyshev" or nu1 > local2d.max_down_sweeps(kind) \
+            or nu2 > local2d.max_up_sweeps(kind):
+        return
+    kw = dict(kind=kind, omega=1.0 if kind == "rbgs" else 0.8)
+    off = 1 - local2d.HALO_ROWS
+    n = 2 ** k - 1
+    nc, h = (n - 1) // 2, 1.0 / (n + 1)
+    u, b, e, ue, be, ee = row_tile(n, k)
+    su, sb = plocal2d.pack_ext(ue, 0), plocal2d.pack_ext(be, 0)
+    for nu in sorted({0, 1, 2, local2d.max_down_sweeps(kind)}):
+        print_level(n, {
+            f"tile nu={nu}: plocal2d down": lambda: plocal2d.down_leg(
+                su, sb, n, h, n + 1, off, sweeps=nu, **kw),
+            "local2d down": lambda: local2d.down_leg(
+                ue, be, n, h, n + 1, off, sweeps=nu, **kw),
+            "plocal2d up": lambda: plocal2d.up_leg(
+                su, ee, sb, n, nc, h, n + 1, off, sweeps=nu, **kw),
+            "local2d up": lambda: local2d.up_leg(
+                ue, ee, be, n, nc, h, n + 1, off, sweeps=nu, **kw)})
+    pu, pb = packed2d.pack(u), packed2d.pack(b)
+    print_level(n, {
+        f"whole grid: packed2d down nu={nu1}":
+            lambda: packed2d.smooth_residual_restrict(pu, pb, n, h,
+                                                      sweeps=nu1, **kw),
+        f"packed2d up nu={nu2}":
+            lambda: packed2d.prolong_add_smooth(pu, e, pb, n, nc, h,
+                                                sweeps=nu2, **kw)})
+    del u, b, e, ue, be, ee, su, sb, pu, pb
+    n = 2 ** (k - 1) - 1
+    nc, h = (n - 1) // 2, 1.0 / (n + 1)
+    u, b, e, ue, be, ee = row_tile(n, k - 1)
+    print_level(n, {
+        f"tile: local2d down nu={nu1}": lambda: local2d.down_leg(
+            ue, be, n, h, n + 1, off, sweeps=nu1, **kw),
+        f"local2d up nu={nu2}": lambda: local2d.up_leg(
+            ue, ee, be, n, nc, h, n + 1, off, sweeps=nu2, **kw),
+        f"whole grid: fused2d down nu={nu1}":
+            lambda: fused2d.smooth_residual_restrict(u, b, n, h, sweeps=nu1,
+                                                     **kw),
+        f"fused2d up nu={nu2}": lambda: fused2d.prolong_add_smooth(
+            u, e, b, n, nc, h, sweeps=nu2, **kw)})
 
 
 def leg_calls(u, b, e, n, h, kind, omega, nu1, nu2):

@@ -789,12 +789,16 @@ def _chip_smoke_rows(module: str) -> dict:
             if row[0] == module}
 
 
-def _check_listed(module: str, lines) -> None:
+def _check_listed(module: str, lines, sources=None) -> None:
+    """Each of ``module``'s rows names its TPU kernel and its CUDA source:
+    csrc/<module>.cu, or csrc/<sources[name]>.cu where given."""
     rows = _chip_smoke_rows(module)
     assert sorted(r[3] for r in rows.values()) == sorted(
         f"multigridcmt_tpu/kernels/{module}.py:{line}" for line in lines)
-    assert all(r[2] == f"multigridcmt_tpu_torch/kernels/csrc/{module}.cu"
-               for r in rows.values())
+    sources = sources or {}
+    assert all(r[2] == "multigridcmt_tpu_torch/kernels/csrc/"
+               f"{sources.get(name, module)}.cu"
+               for name, r in rows.items())
 
 
 def test_chip_smoke_lists_the_local2d_kernels():
@@ -804,8 +808,10 @@ def test_chip_smoke_lists_the_local2d_kernels():
 def test_chip_smoke_lists_the_plocal2d_kernels():
     """The five plocal2d entry points, each on the path that launches it on
     the card: the legs and the norm on S1, the residual and the apply on
-    S1pcg."""
-    _check_listed("plocal2d", (262, 501, 708, 855, 982))
+    S1pcg; the legs are built from csrc/plocal2d_legs.cu."""
+    _check_listed("plocal2d", (262, 501, 708, 855, 982),
+                  {"plocal2d_down": "plocal2d_legs",
+                   "plocal2d_up": "plocal2d_legs"})
     rows = _chip_smoke_rows("plocal2d")
     assert {name: row[4] for name, row in rows.items()} == {
         "plocal2d_down": "S1", "plocal2d_up": "S1", "plocal2d_resnorm": "S1",

@@ -9,6 +9,8 @@ Tolerance: rtol 1e-12 and atol 1e-12 * max|ref| for arrays, rtol 1e-12 for
 the squared norms (the Pallas kernels and the plain versions evaluate the
 same formulas in other orders). n=255 spans several Pallas row tiles.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ from multigridcmt_tpu import kernels as jkernels
 from multigridcmt_tpu.grids import from_aligned, to_aligned
 from multigridcmt_tpu.kernels import packed2d as jpacked2d
 from multigridcmt_tpu_torch import convert, kernels
-from multigridcmt_tpu_torch.kernels import fused2d, packed2d, stencil2d
+from multigridcmt_tpu_torch.kernels import fused2d, local2d, packed2d, \
+    stencil2d
 
 OMEGA = {"rbgs": 1.0, "jacobi": 0.8}
 SIGMA = 11.5
@@ -314,34 +317,100 @@ class _Window:
         return self.data[self.slot(i)]
 
 
+@dataclasses.dataclass(frozen=True)
+class LegFrame:
+    """What csrc/packed2d_legs.cuh's kernels know of their frame: the packed
+    array's first global row and column (goy, gox) and its unpacked columns
+    C; the points a stage may update, (ylo, yhi, xlo, xhi) in global
+    indices; and the coarse output: the whole coarse grid (ca None) or a
+    shard's coarse tile ca = (Rc, Cc, crow, ccol) with its owned box keep =
+    (ylo, yhi, xlo, xhi), global coarse indices."""
+    n: int
+    goy: int = 0
+    gox: int = 0
+    C: int = 0
+    upd: tuple = ()
+    ca: tuple | None = None
+    keep: tuple | None = None
+
+    @staticmethod
+    def whole(n):
+        return LegFrame(n, 0, 0, n + 2, (1, n, 1, n))
+
+    def lanes(self):
+        """The frame's lanes: one more than the array's where gox is odd."""
+        return (self.C + (self.gox & 1) + 1) // 2
+
+    def unit(self, g, sx, x):
+        """A unit's lanes x (0 .. LEG_LANES - 1) of strip sx: (frame lane
+        gl, coarse column J, array lane at[p], ok[p], core, upd[p]), as the
+        kernel's Unit."""
+        xs = self.gox & 1
+        cpa = (self.C + 1) // 2
+        gl = sx * g.strip - g.halo_lanes + x
+        J = ((self.gox - xs) >> 1) + gl
+        core = (x >= g.halo_lanes) & (x < g.halo_lanes + g.strip) \
+            & (gl < self.lanes())
+        at = [gl - (xs & (1 - p)) for p in (0, 1)]
+        ok = [(a >= 0) & (a < cpa) for a in at]
+        ylo, yhi, xlo, xhi = self.upd
+        upd = [(2 * x + p >= 1) & (2 * x + p <= 2 * len(x) - 2)
+               & (2 * J + p >= max(1, xlo)) & (2 * J + p <= min(self.n, xhi))
+               for p in (0, 1)]
+        return gl, J, at, ok, core, upd
+
+    def coarse_frame(self):
+        """The entries of the coarse tile off its owned box, in the order
+        the kernel's zero_coarse_frame numbers them."""
+        rc_, cc, crow, ccol = self.ca
+        qlo, qhi = self.keep[0] - crow, self.keep[1] + 1 - crow
+        slo, shi = self.keep[2] - ccol, self.keep[3] + 1 - ccol
+        above, side = qlo * cc, cc - (shi - slo)
+        bands = above + (rc_ - qhi) * cc
+        for k in range(bands + (qhi - qlo) * side):
+            if k < bands:
+                r = k if k < above else k - above + qhi * cc
+                yield r // cc, r % cc
+            else:
+                q, s = qlo + (k - bands) // side, (k - bands) % side
+                yield q, s + (shi - slo if s >= slo else 0)
+
+
 def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
-                 packed_coarse=False):
+                 packed_coarse=False, frame=None):
     """csrc/packed2d_legs.cuh's down_kernel (e None) or up_kernel on
-    geometry g, unit by unit; returns u' and the coarse residual (down) or
-    x'. Stage k works on row t - 1 - k of step t."""
+    geometry g and frame (the whole grid when None), unit by unit; returns
+    u' and the coarse residual (down) or x'. Rows are global; stage k
+    works on row t - 1 - k of step t."""
+    f = frame or LegFrame.whole(g.n)
     n, K, TW, hp = g.n, g.stages, packed2d.LEG_LANES, g.halo_lanes
-    P, cp = n + 2, (n + 3) // 2
+    cpa = s.shape[2]
     h2, inv_h2, sig, inv_den, jscale = _coefs(h, sigma, omega)
     down = e is None
     red_only = kind == "rbgs" and sweeps >= 1
     out = np.zeros_like(s)
     out_w = np.zeros(s.shape, dtype=int)
-    rc = np.zeros((2, cp, (cp + 1) // 2) if packed_coarse else (cp, cp))
-    rc_w = np.zeros((cp, cp), dtype=int)
+    if f.ca is None:
+        cp = (n + 3) // 2
+        rc = np.zeros((2, cp, (cp + 1) // 2) if packed_coarse else (cp, cp))
+        rc_w = np.zeros((cp, cp), dtype=int)
+    else:
+        rc = np.full(f.ca[:2], np.nan)
+        rc_w = np.zeros(f.ca[:2], dtype=int)
+        if down:
+            for q, c in f.coarse_frame():
+                rc[q, c] = 0.0
+                rc_w[q, c] += 1
     x = np.arange(TW)
     A = packed2d.LEG_AHEAD
+    nc = (n - 1) // 2
     n_steady = [0]
     for sy in range(g.segs):
         y0, y1, ys, ye = g.rows(sy)
         assert ys % 2 == 0
         for sx in range(g.strips):
-            j0 = sx * g.strip - hp
-            gl = j0 + x
-            okl = (gl >= 0) & (gl < cp)
-            glc = np.clip(gl, 0, cp - 1)
-            upd = [(2 * x + p >= 1) & (2 * x + p <= 2 * TW - 2)
-                   & (2 * gl + p >= 1) & (2 * gl + p <= n) for p in (0, 1)]
-            core = (x >= hp) & (x < hp + g.strip) & (gl < cp)
+            gl, Jl, at, ok, core, upd = f.unit(g, sx, x)
+            atc = [np.clip(a, 0, cpa - 1) for a in at]
             W = packed2d.LEG_WINDOW
             ur, br = _Window(W, TW), _Window(W, TW)
             js = [_Window(W, TW) for _ in range(K)]
@@ -350,24 +419,44 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
             fr = js[K - 1] if kind == "jacobi" and K else ur
             prolonged = set()
 
-            lo, hi = max(ys + 1, 1), min(ye - 2, n)
+            lo = max(ys + 1, max(f.upd[0], 1))
+            hi = min(ye - 2, min(f.upd[1], n))
 
             def live(i):    # a row the smoothing updates
                 return lo <= i <= hi
 
             def load_coarse(I):
-                J = j0 + np.arange(TW + 1)
-                ok = (J >= 0) & (J < cp) & (0 <= I < cp)
-                Jc, Ic = np.clip(J, 0, cp - 1), min(max(I, 0), cp - 1)
-                v = (e[(Ic + Jc) & 1, Ic, Jc >> 1] if e.ndim == 3
-                     else e[Ic, Jc])
-                cs.put(I, np.stack([np.where(ok, v, 0.0)] * 2))
+                J = Jl[0] + np.arange(TW + 1)
+                if f.ca is None:
+                    cp = (n + 3) // 2
+                    okc = (J >= 0) & (J < cp) & (0 <= I < cp)
+                    Jc, Ic = np.clip(J, 0, cp - 1), min(max(I, 0), cp - 1)
+                    v = (e[(Ic + Jc) & 1, Ic, Jc >> 1] if e.ndim == 3
+                         else e[Ic, Jc])
+                else:
+                    rc_, cc, crow, ccol = f.ca
+                    okc = ((J - ccol >= 0) & (J - ccol < cc)
+                           & (0 <= I - crow < rc_))
+                    v = e[min(max(I - crow, 0), rc_ - 1),
+                          np.clip(J - ccol, 0, cc - 1)]
+                cs.put(I, np.stack([np.where(okc, v, 0.0)] * 2))
+
+            def arow(a, i):
+                """Both planes of global row i at the frame's lanes: plane
+                c from array lane at[(c + i) & 1]; 0 off the array."""
+                rows = np.zeros((2, TW))
+                if i < f.goy:
+                    return rows
+                for c in (0, 1):
+                    p = (c + i) & 1
+                    rows[c] = np.where(ok[p], a[c, i - f.goy, atc[p]], 0.0)
+                return rows
 
             def load(i):
                 if i >= ye:
                     return
-                ur.put(i, np.where(okl, s[:, i, glc], 0.0))
-                br.put(i, np.where(okl, bs[:, i, glc], 0.0))
+                ur.put(i, arow(s, i))
+                br.put(i, arow(bs, i))
                 if not down and i & 1 and i >= ys + A:
                     load_coarse((i + 1) >> 1)
 
@@ -382,15 +471,15 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     prolonged.add(t)
                     return
                 I = t >> 1
-                lo = cs.row(I)[0]
-                hi = cs.row(I + 1)[0] if t & 1 else lo
+                lo_ = cs.row(I)[0]
+                hi_ = cs.row(I + 1)[0] if t & 1 else lo_
                 for c in (0, 1):
-                    gx = 2 * gl + ((c + t) & 1)
+                    gx = 2 * Jl + ((c + t) & 1)
                     if t & 1:
-                        a = 0.5 * (lo[:-1] + hi[:-1])
-                        d = 0.5 * (lo[1:] + hi[1:])
+                        a = 0.5 * (lo_[:-1] + hi_[:-1])
+                        d = 0.5 * (lo_[1:] + hi_[1:])
                     else:
-                        a, d = lo[:-1], lo[1:]
+                        a, d = lo_[:-1], lo_[1:]
                     pe = np.where(gx & 1, 0.5 * (a + d), a)
                     v = ur.row(t)[c]
                     ur.row(t)[c] = np.where((gx >= 1) & (gx <= n), v + pe, v)
@@ -455,18 +544,24 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     if not down:
                         assert i in prolonged
                     for c in (0, 1):
-                        out[c, i, gl[core]] = fr.row(i)[c][core]
-                        out_w[c, i, gl[core]] += 1
+                        p = (c + i) & 1
+                        st = core & ok[p]
+                        out[c, i - f.goy, at[p][st]] = fr.row(i)[c][st]
+                        out_w[c, i - f.goy, at[p][st]] += 1
 
             def restrict(t):
                 j = t - g.out_lag - 1
                 if j & 1 or not y0 <= j < y1:
                     return
                 I = j >> 1
-                for J in gl[core]:
-                    xx = J - j0
+                for xx in x[core]:
+                    J = Jl[xx]
+                    if f.keep is not None:
+                        ylo, yhi, xlo, xhi = f.keep
+                        if not (ylo <= I <= yhi and xlo <= J <= xhi):
+                            continue
                     val = 0.0
-                    if 1 <= I <= cp - 2 and 1 <= J <= cp - 2:
+                    if 1 <= I <= nc and 1 <= J <= nc:
                         tq = []
                         for q in range(3):
                             lane = xx - 1 if q == 0 else xx
@@ -475,11 +570,16 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                                           for jj in (j - 1, j, j + 1))
                             tq.append(0.25 * (r0 + 2.0 * r1 + r2))
                         val = 0.25 * (tq[0] + 2.0 * tq[1] + tq[2])
-                    if packed_coarse:
+                    if f.ca is not None:
+                        I_, J_ = I - f.ca[2], J - f.ca[3]
+                        rc[I_, J_] = val
+                    elif packed_coarse:
+                        I_, J_ = I, J
                         rc[(I + J) & 1, I, J >> 1] = val
                     else:
+                        I_, J_ = I, J
                         rc[I, J] = val
-                    rc_w[I, J] += 1
+                    rc_w[I_, J_] += 1
 
             if down:
                 last_even = y1 - 1 if y1 & 1 else y1 - 2
@@ -506,7 +606,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                               and t0 + W - 1 - K1 < y1
                               and t0 + W - 1 + A < ye)
                 if steady:
-                    assert t + A < ye
+                    assert t + A < ye and t + A >= f.goy
                     assert all(lo <= t - 1 - k <= hi for k in range(K))
                     assert y0 <= t - K1 < y1
                     if down:
@@ -649,8 +749,9 @@ def test_leg_geometry_fits_its_window(leg, cap_of, kind):
 
 
 def test_leg_constants_match_the_kernel_source():
-    """packed2d's LEG_* constants, the stage caps and the geometry's ints
-    are the ones csrc/packed2d_legs.cuh compiles with."""
+    """packed2d's LEG_* constants, the stage caps (the whole grid's and,
+    from local2d's sweep caps, a tile's) and the geometry's ints are the
+    ones csrc/packed2d_legs.cuh compiles with."""
     import re
 
     src = (packed2d._build.CSRC / "packed2d_legs.cuh").read_text()
@@ -661,7 +762,9 @@ def test_leg_constants_match_the_kernel_source():
     assert const["kWin"] == packed2d.LEG_WINDOW
     assert const["kCoarseWin"] == packed2d.LEG_COARSE_WINDOW
     for cap_of, key in ((packed2d.max_down_sweeps, "kMaxDownStages"),
-                        (packed2d.max_up_sweeps, "kMaxUpStages")):
+                        (packed2d.max_up_sweeps, "kMaxUpStages"),
+                        (local2d.max_down_sweeps, "kMaxTileStages"),
+                        (local2d.max_up_sweeps, "kMaxTileStages")):
         assert const[key] == max(2 * cap_of("rbgs"), cap_of("jacobi"))
     fields = re.search(r"struct LegGeom \{\s*int ([^;]*);", src).group(1)
     g = packed2d.leg_geometry("down", 61, "rbgs", 2)
