@@ -42,6 +42,9 @@ Phases:
      Phase 2 holds the packed2d legs against their plain versions also at
      n = 2999 (partial strips and segments of the row stream) and n = 61
      (one of each), and at every sweep count in float64 at n = 255; the
+     fused2d legs (the same row stream on the unpacked grid) at every
+     sweep count at n = 2999, 31, 15 and 7, float32 and float64, at n <= 31
+     also with inputs off a pair of elements (the wrapper copies them); the
      local2d kernels against their plain versions on
      each of S1-S4's own fine tiles with the sweeps that path runs, and on
      tiles with nonzero global offsets (a rank of an 8-way row split of
@@ -58,8 +61,11 @@ Phases:
      prolong_add, the one PyTorch call that computes the same function)
      at the main paths' shapes, the packed kernels against their unpacked
      twins at 4095^2 (the four legs also as 20 chained calls between one
-     pair of events, the time their rows report, and the packed legs at
-     nu = 0, 1, 2 and the cap), the stencil3d kernels single and chained
+     pair of events, the time the packed legs' rows report, and by the
+     profiler's device time, every leg row's device_ms, at nu = 0, 1, 2
+     and the cap, and the fused2d legs so at 2047^2 too, beside the
+     single-call time their rows report), the stencil3d kernels single
+     and chained
      at 511^3, 255^3 and 127^3 (the 511^3 chained time is their rows'),
      the smoother figure (one packed RB-GS sweep at
      4095^2: ms, GB/s, Gnnz/s), the SpMV figure (a DIA apply at 4095^2 and
@@ -101,6 +107,9 @@ V(8,8) Jacobi exceed the legs' sweep caps and run the local2d sweeps and
 residual on the owned tiles (the composed route); Chebyshev runs the
 local2d residual.
 
+Phase 1 also reports ptxas's registers and spills of the row-streaming
+legs (from the build's nvcc.log).
+
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result. The
@@ -115,11 +124,13 @@ import importlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -146,6 +157,15 @@ COMPARE_SHAPES = [(torch.float32, 4095), (torch.float32, 2047),
 # and one segment; every sweep count from 0 to the cap at one float64 size.
 PACKED_LEG_SHAPES = [(torch.float32, 2999), (torch.float64, 61)]
 PACKED_LEG_ALL_NU = (torch.float64, 255)
+# The fused2d legs (the row stream on the unpacked grid) at every sweep
+# count from 0 to the caps, where the row stream ends partly: 2999 (1501
+# lanes, 3001 rows: partial strips and segments), and 31, 15 and 7 (one
+# partial strip and segment; 7 is the least n the kernel tier runs with
+# KERNEL_MIN_N lowered), float32 and float64.
+FUSED_LEG_SHAPES = [(torch.float32, 2999), (torch.float32, 31),
+                    (torch.float32, 15), (torch.float32, 7),
+                    (torch.float64, 31), (torch.float64, 15),
+                    (torch.float64, 7)]
 STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 255),
                     (torch.float32, 127), (torch.float64, 127)]
 # The stencil3d z-march's edge cases, as plane stacks (goff, roff, p, r) of
@@ -279,9 +299,9 @@ PLOCAL2D_EDGE_TILE = (2999, 4, 2, 0, 0)
 HALO = 8                    # local2d.HALO_ROWS
 # Chained cycles a timing of v_cycles_fn runs (its time over this count).
 CHAIN_CYCLES = 20
-# The packed2d and plocal2d legs are timed as single calls and as LEG_CHAIN
-# back-to-back calls between one pair of events, at these sweep counts and
-# at the cap.
+# The packed2d, fused2d and plocal2d legs are timed as single calls and as
+# LEG_CHAIN back-to-back calls between one pair of events, at these sweep
+# counts and at the cap.
 LEG_CHAIN = 20
 LEG_SWEEPS = (0, 1, 2)
 
@@ -375,6 +395,7 @@ def phase_setup(rendezvous: str):
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
         f"({_build.BUILD_ROOT / _build.source_hash()}; ptxas's registers "
         f"and spills of each kernel in its {_build.LOG_NAME})")
+    ptxas_report(_build.BUILD_ROOT / _build.source_hash() / _build.LOG_NAME)
     # The sharded paths' process group: a world of 1 over NCCL, its
     # rendezvous a file (no network).
     torch.cuda.set_device(0)
@@ -383,6 +404,49 @@ def phase_setup(rendezvous: str):
     log(f"torch.distributed: {dist.get_backend()}, world of "
         f"{dist.get_world_size()}")
     return card
+
+
+# A row-streaming leg kernel's mangled name: leg, type (f float, d
+# double), kind (0 Jacobi, 1 RB-GS), stages, frame.
+LEG_KERNEL = re.compile(r"(down|up)_kernelI([fd])Li(\d)ELi(\d+)E"
+                        r"(?:Lb([01])E)?NS_\d+(Whole|Tile|Unpacked)E")
+
+
+def ptxas_report(log_path) -> None:
+    """Log ptxas's registers and spill bytes of every row-streaming leg
+    kernel, a line a frame, leg, type and kind (stage counts in order;
+    the up leg's packed-e twins on the whole grid apart)."""
+    props = {}
+    name = None
+    text = Path(log_path).read_text(encoding="utf-8", errors="replace")
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            props.setdefault(name, {})["spill"] = int(m.group(1)) + int(
+                m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            props.setdefault(name, {})["regs"] = int(m.group(1))
+    rows = {}
+    for mangled, prop in props.items():
+        m = LEG_KERNEL.search(mangled)
+        if not m or "regs" not in prop:
+            continue
+        leg, ty, kind, stages, packed_e, frame = m.groups()
+        key = (frame, leg, "f32" if ty == "f" else "f64",
+               "rbgs" if kind == "1" else "jacobi",
+               "packed e" if packed_e == "1" else "")
+        rows.setdefault(key, []).append(
+            (int(stages), prop["regs"], prop.get("spill", 0)))
+    for key in sorted(rows):
+        cells = ", ".join(f"K={k} {r}r" + (f" spill {sp}B" if sp else "")
+                          for k, r, sp in sorted(rows[key]))
+        log(f"ptxas {' '.join(x for x in key if x)}: {cells}")
 
 
 def check_pair(label: str, got, want, tol: float, shape=None,
@@ -461,6 +525,55 @@ def compare_2d(main_err: dict) -> None:
                     if at_main and n == unpacked and sweeps == 2:
                         main_err["fused2d_up"] = err
         del u, b, e, su, sb
+
+
+def off_pair(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous view that starts one element into a fresh
+    buffer: not on a pair of elements."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def compare_fused_legs() -> None:
+    """The fused2d legs against their plain versions at FUSED_LEG_SHAPES,
+    every sweep count from 0 to the cap, both kinds and both sigmas
+    (compare_2d holds them at COMPARE_SHAPES at nu = 2 and the cap); at
+    n <= 31 also with u and b off a pair of elements, which the kernels'
+    paired accesses refuse and the wrappers copy onto a pair."""
+    from multigridcmt_tpu_torch.kernels import fused2d
+
+    for dtype, n, off in [(d, n, False) for d, n in FUSED_LEG_SHAPES] + [
+            (d, n, True) for d, n in FUSED_LEG_SHAPES if n <= 31]:
+        h = 1.0 / (n + 1)
+        nc = (n - 1) // 2
+        tol = TOL[dtype]
+        u, b, e = leg_inputs(n, dtype, seed=n + 5)
+        if off:
+            u, b = off_pair(u), off_pair(b)
+        name = f"{str(dtype).split('.')[-1]} n={n}" + (" off" if off else "")
+        for sigma in (0.0, SIGMA):
+            for kind, omega in (("rbgs", 1.0), ("jacobi", 0.8)):
+                kw = dict(kind=kind, omega=omega, sigma=sigma)
+                for sweeps in range(fused2d.max_down_sweeps(kind) + 1):
+                    label = f"fused down {name} {kind} nu={sweeps} " \
+                            f"sigma={sigma}"
+                    gu, grc = fused2d.smooth_residual_restrict(
+                        u, b, n, h, sweeps=sweeps, **kw)
+                    wu, wrc = fused2d.smooth_residual_restrict_plain(
+                        u, b, n, h, sweeps=sweeps, **kw)
+                    check_pair(label + " u'", gu, wu, tol)
+                    check_pair(label + " r_c", grc, wrc, tol,
+                               (nc + 2, nc + 2))
+                for sweeps in range(fused2d.max_up_sweeps(kind) + 1):
+                    check_pair(
+                        f"fused up {name} {kind} nu={sweeps} sigma={sigma}",
+                        fused2d.prolong_add_smooth(u, e, b, n, nc, h,
+                                                   sweeps=sweeps, **kw),
+                        fused2d.prolong_add_smooth_plain(
+                            u, e, b, n, nc, h, sweeps=sweeps, **kw), tol)
+        del u, b, e
 
 
 def compare_packed_legs(main_err: dict) -> None:
@@ -1089,6 +1202,7 @@ def phase_compare():
     relative error."""
     main_err = {}
     compare_2d(main_err)
+    compare_fused_legs()
     compare_packed_legs(main_err)
     compare_packed_residual(main_err)
     compare_composed(main_err)
@@ -1116,7 +1230,7 @@ KERNELS = {
                      "multigridcmt_tpu_torch/kernels/csrc/fused2d.cu",
                      "multigridcmt_tpu/kernels/fused2d.py:289", "solve2d"),
     "fused2d_up": ("fused2d", "up_launches",
-                   "multigridcmt_tpu_torch/kernels/csrc/fused2d.cu",
+                   "multigridcmt_tpu_torch/kernels/csrc/fused2d_up.cu",
                    "multigridcmt_tpu/kernels/fused2d.py:479", "solve2d"),
     "packed2d_residual": ("packed2d", "residual_launches",
                           "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
@@ -1921,46 +2035,58 @@ def time_pair(name: str, kernel, plain) -> dict:
 
 
 def timed_legs(times: dict) -> None:
-    """The packed2d legs at 4095^2 float32, RB-GS, sigma = 0, at every sweep
-    count in LEG_SWEEPS and at the cap, and the fused2d legs on the same
-    grid at nu = 2: each as a single call (cuda_time_ms, whose start event
-    precedes the wrapper's host work) and as LEG_CHAIN chained calls."""
+    """The row-streaming legs, float32, RB-GS, sigma = 0, at every sweep
+    count in LEG_SWEEPS and at the cap: the packed2d legs at 4095^2 and the
+    fused2d legs on the unpacked 4095^2 and 2047^2 grids, each as a single
+    call (cuda_time_ms, whose start event precedes the wrapper's host work),
+    as LEG_CHAIN chained calls and by the kernel's device time a call from
+    the profiler (at 2047^2 a chained fused2d leg can read the host's
+    launch rate)."""
     from multigridcmt_tpu_torch.kernels import fused2d, packed2d
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
     from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
                                                        cuda_time_ms)
 
-    n = 2 ** MAIN_K - 1
-    nc = (n - 1) // 2
-    h = 1.0 / (n + 1)
-    u, b, e = leg_inputs(n, torch.float32, seed=7)
-    su, sb = packed2d.pack(u), packed2d.pack(b)
-    kw = dict(kind="rbgs", omega=1.0)
-    legs = {
-        "packed2d_down": (packed2d.max_down_sweeps("rbgs"), lambda nu: (
-            lambda: packed2d.smooth_residual_restrict(su, sb, n, h,
-                                                      sweeps=nu, **kw))),
-        "packed2d_up": (packed2d.max_up_sweeps("rbgs"), lambda nu: (
-            lambda: packed2d.prolong_add_smooth(su, e, sb, n, nc, h,
-                                                sweeps=nu, **kw))),
-        "fused2d_down": (None, lambda nu: (
-            lambda: fused2d.smooth_residual_restrict(u, b, n, h, sweeps=nu,
-                                                     **kw))),
-        "fused2d_up": (None, lambda nu: (
-            lambda: fused2d.prolong_add_smooth(u, e, b, n, nc, h, sweeps=nu,
-                                               **kw))),
-    }
     out = {}
-    for name, (cap, make) in legs.items():
-        for nu in sorted({2} if cap is None else {*LEG_SWEEPS, cap}):
-            fn = make(nu)
-            row = {"single_ms": cuda_time_ms(fn),
-                   "chained_ms": chained_ms(fn, LEG_CHAIN)}
-            out[f"{name}@4095 nu={nu}"] = row
-            log(f"leg {name} n={n} nu={nu}: single {row['single_ms']:.4f} "
-                f"ms, chained x{LEG_CHAIN} {row['chained_ms']:.4f} ms")
+    kw = dict(kind="rbgs", omega=1.0)
+    for k in (MAIN_K, MAIN_K - 1):
+        n = 2 ** k - 1
+        nc = (n - 1) // 2
+        h = 1.0 / (n + 1)
+        u, b, e = leg_inputs(n, torch.float32, seed=7)
+        legs = {
+            "fused2d_down": (fused2d.max_down_sweeps("rbgs"), lambda nu: (
+                lambda: fused2d.smooth_residual_restrict(
+                    u, b, n, h, sweeps=nu, **kw))),
+            "fused2d_up": (fused2d.max_up_sweeps("rbgs"), lambda nu: (
+                lambda: fused2d.prolong_add_smooth(u, e, b, n, nc, h,
+                                                   sweeps=nu, **kw))),
+        }
+        if k == MAIN_K:
+            su, sb = packed2d.pack(u), packed2d.pack(b)
+            legs.update({
+                "packed2d_down": (packed2d.max_down_sweeps("rbgs"),
+                                  lambda nu: (
+                    lambda: packed2d.smooth_residual_restrict(
+                        su, sb, n, h, sweeps=nu, **kw))),
+                "packed2d_up": (packed2d.max_up_sweeps("rbgs"), lambda nu: (
+                    lambda: packed2d.prolong_add_smooth(
+                        su, e, sb, n, nc, h, sweeps=nu, **kw))),
+            })
+        for name, (cap, make) in legs.items():
+            for nu in sorted({*LEG_SWEEPS, cap}):
+                fn = make(nu)
+                row = {"single_ms": cuda_time_ms(fn),
+                       "chained_ms": chained_ms(fn, LEG_CHAIN),
+                       "device_ms": device_busy(fn, LEG_CHAIN)[0]}
+                out[f"{name}@{n} nu={nu}"] = row
+                log(f"leg {name} n={n} nu={nu}: single "
+                    f"{row['single_ms']:.4f} ms, chained x{LEG_CHAIN} "
+                    f"{row['chained_ms']:.4f} ms, device "
+                    f"{row['device_ms']:.4f} ms")
+        del legs, u, b, e
+        torch.cuda.empty_cache()
     times["legs"] = out
-    del u, b, e, su, sb
-    torch.cuda.empty_cache()
 
 
 # Arithmetic each function needs per fine interior point, counted from its
@@ -2054,15 +2180,21 @@ def timed_2d(times: dict) -> None:
                          flops=flops_per_point(name) * n * n)
             times[name + tag] = t
         del pairs, u, b, e, su, sb, rc
-    # The four legs at 4095^2 as LEG_CHAIN chained calls (the time the
-    # rows report) and as single calls; the packed legs also at nu = 0, 1
-    # and the cap.
+    # The four legs at 4095^2 and the fused2d legs at 2047^2 as single
+    # calls, as LEG_CHAIN chained calls (the time the packed rows report;
+    # the fused2d rows report time_pair's) and by the profiler's kernel
+    # time a call, also at nu = 0, 1 and the cap.
     timed_legs(times)
     for name in ("packed2d_down", "packed2d_up", "fused2d_down",
                  "fused2d_up"):
         leg = times["legs"][f"{name}@4095 nu=2"]
         times[name + "@4095"].update(ms=leg["chained_ms"],
-                                     single_ms=leg["single_ms"])
+                                     single_ms=leg["single_ms"],
+                                     device_ms=leg["device_ms"])
+    for name in ("fused2d_down", "fused2d_up"):
+        leg = times["legs"][f"{name}@{2 ** (MAIN_K - 1) - 1} nu=2"]
+        times[name].update(chained_ms=leg["chained_ms"],
+                           device_ms=leg["device_ms"])
     log(f"packed against unpacked at 4095^2 (chained): down "
         f"{times['packed2d_down@4095']['ms']:.4f} vs "
         f"{times['fused2d_down@4095']['ms']:.4f} ms, up "
@@ -2512,10 +2644,12 @@ def timed_plocal2d(times: dict) -> None:
     float32, RB-GS nu = 2, sigma = 0) against its plain version and, for
     the legs and the residual, beside its local2d twin on the same
     unpacked tile; the apply beside the plocal2d residual. The legs, as
-    timed_legs times the packed2d ones, single and LEG_CHAIN chained at
-    every sweep count in LEG_SWEEPS and at the cap, their local2d twins
-    beside them; their rows report the chained time at nu = 2."""
+    timed_legs times the packed2d ones, single, LEG_CHAIN chained and by
+    the profiler's device time at every sweep count in LEG_SWEEPS and at
+    the cap, their local2d twins beside them; their rows report the chained
+    time at nu = 2."""
     from multigridcmt_tpu_torch.kernels import local2d, plocal2d
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
     from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
                                                        cuda_time_ms)
 
@@ -2589,15 +2723,18 @@ def timed_plocal2d(times: dict) -> None:
         for name, make in legs.items():
             fn = make(nu)
             row = {"single_ms": cuda_time_ms(fn),
-                   "chained_ms": chained_ms(fn, LEG_CHAIN)}
+                   "chained_ms": chained_ms(fn, LEG_CHAIN),
+                   "device_ms": device_busy(fn, LEG_CHAIN)[0]}
             out[f"{name}@S1 nu={nu}"] = row
             log(f"leg {name} S1 tile nu={nu}: single "
                 f"{row['single_ms']:.4f} ms, chained x{LEG_CHAIN} "
-                f"{row['chained_ms']:.4f} ms")
+                f"{row['chained_ms']:.4f} ms, device "
+                f"{row['device_ms']:.4f} ms")
     times["tile_legs"] = out
     for name in ("plocal2d_down", "plocal2d_up"):
         leg = out[f"{name}@S1 nu=2"]
-        times[name].update(ms=leg["chained_ms"], single_ms=leg["single_ms"])
+        times[name].update(ms=leg["chained_ms"], single_ms=leg["single_ms"],
+                           device_ms=leg["device_ms"])
     del ue, be, e, su, sb, rc, pairs, legs
     torch.cuda.empty_cache()
 
@@ -2643,10 +2780,13 @@ def kernel_rows(names, runs, errs, times):
     computes the others (b - Au, a whole leg, a sweep, the residual's
     restriction), so theirs is null. A kernel that no main path runs
     reports its launches summed over all main-path runs (0) and those of
-    its direct calls as direct_launches. The packed2d, fused2d and plocal2d
-    legs' and the stencil3d kernels' ms is the time a call of LEG_CHAIN
-    chained calls, their single_ms that of one call timed alone (the
-    wrapper's host work inside)."""
+    its direct calls as direct_launches. The packed2d and plocal2d legs'
+    and the stencil3d kernels' ms is the time a call of LEG_CHAIN chained
+    calls, their single_ms that of one call timed alone (the wrapper's host
+    work inside). The fused2d legs' ms (at 2047^2) is time_pair's, their
+    chained_ms as above (at 2047^2 a chained call can read the host's
+    launch rate). Every leg row's device_ms is the kernel's device time a
+    call from the profiler."""
     rows = []
     for name in names:
         *_, src, rep, run = KERNELS[name]
@@ -2663,8 +2803,9 @@ def kernel_rows(names, runs, errs, times):
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": t.get("library_ms"), "run": run}
-        if "single_ms" in t:
-            row["single_ms"] = t["single_ms"]
+        for key in ("single_ms", "chained_ms", "device_ms"):
+            if key in t:
+                row[key] = t[key]
         if name in DIRECT_RUNS:
             row["direct_launches"] = runs[DIRECT_RUNS[name]][name]
         rows.append(row)

@@ -46,12 +46,13 @@ for _t in ("f32", "f64"):
                                                            _D, _P]
     # x, e, out, n, stream
     SIGNATURES[f"mg_transfer2d_prolong_add_{_t}"] = [_P, _P, _P, _I, _P]
-    # u, b, u_out, rc_out, n, h, sigma, kind, omega, sweeps, stream
+    # u, b, u_out, rc_out, n, h, sigma, kind, omega, sweeps, geometry
+    # (packed2d.LegGeometry.ints() on the unpacked frame), stream
     SIGNATURES[f"mg_fused2d_down_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I,
-                                           _D, _I, _P]
-    # x, e, b, out, n, h, sigma, kind, omega, sweeps, stream
+                                           _D, _I, _IP, _P]
+    # x, e, b, out, n, h, sigma, kind, omega, sweeps, geometry, stream
     SIGNATURES[f"mg_fused2d_up_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I, _D,
-                                         _I, _P]
+                                         _I, _IP, _P]
     # u, b, u_out, rc_out, n, h, sigma, kind, omega, sweeps, packed_coarse,
     # geometry (packed2d.LegGeometry.ints()), stream
     SIGNATURES[f"mg_packed2d_down_{_t}"] = [_P, _P, _P, _P, _I, _D, _D, _I,

@@ -1,6 +1,6 @@
-// Shared pieces of the Poisson kernels (stencil2d.cu, fused2d.cu,
-// transfer2d.cu, local2d.cu, and through packed_tile.cuh packed2d.cu and
-// plocal2d.cu; stencil3d.cu takes Coef and the error string).
+// Shared pieces of the Poisson kernels (stencil2d.cu, transfer2d.cu,
+// local2d.cu, and through packed_tile.cuh packed2d.cu, plocal2d.cu and the
+// row-streaming legs; stencil3d.cu takes Coef and the error string).
 //
 // Grids are the logical padded layout of the Python package: an
 // (n+2) x (n+2) row-major array whose one-cell ghost ring is zero

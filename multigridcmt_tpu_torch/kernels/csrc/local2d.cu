@@ -11,8 +11,8 @@
 // row-major, whose point (0, 0) has global index (goy, gox)
 // (kernels/local2d.py says how a rank's extended tile sits in the grid).
 // Offsets are arguments, so one build serves every rank. These are
-// fused2d.cu's and stencil2d.cu's kernels on such a tile, over the same
-// helpers of common.cuh, which work in global indices: interior and
+// common.cuh's shared-memory tile kernels (as stencil2d.cu's) on such a
+// tile, over its helpers, which work in global indices: interior and
 // red/black colour come from them (the colour by `& 1`, the floor parity
 // of a negative index as well). Two things differ. A point is updated only
 // if it is interior to the global grid and off the tile's outer ring
@@ -22,11 +22,11 @@
 // caller), and the up leg reads the correction as 0 off the coarse tile.
 //
 // What bounds them on the card: the same as the single-device legs
-// (fused2d.cu, stencil2d.cu): device-memory traffic, 12 bytes a point a
-// sweep launch in float32 for ~6 flops a point a sweep. Every intermediate
-// sweep, the residual and the restriction stay in shared memory; each block
-// loads its tile of u and b with a halo that covers the sweeps' staleness
-// and writes its core.
+// (fused2d.cu) and sweeps (stencil2d.cu): device-memory traffic, 12 bytes
+// a point a sweep launch in float32 for ~6 flops a point a sweep. Every
+// intermediate sweep, the residual and the restriction stay in shared
+// memory; each block loads its tile of u and b with a halo that covers the
+// sweeps' staleness and writes its core.
 //
 // The down leg's blocks are laid out on the coarse tile: a block owns a
 // TY/2 x TX/2 box of coarse points and the TY x TX fine points that belong

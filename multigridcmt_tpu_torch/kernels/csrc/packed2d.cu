@@ -58,9 +58,10 @@
 // every shuffle: row tests are the same for the whole warp, and lane tests
 // select a result after it.
 //
-// rbgs_kernel tiles as fused2d.cu: a block owns TY rows and TX/2 lanes (TX
-// fine columns) whose first row and column are even, with a halo of H rows
-// and HP = ceil(H/2) lanes. Inputs and outputs never alias.
+// rbgs_kernel tiles as common.cuh's shared-memory tiles: a block owns TY
+// rows and TX/2 lanes (TX fine columns) whose first row and column are
+// even, with a halo of H rows and HP = ceil(H/2) lanes. Inputs and outputs
+// never alias.
 #include "packed2d_legs.cuh"
 
 namespace {

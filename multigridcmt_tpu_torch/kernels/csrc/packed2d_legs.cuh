@@ -1,12 +1,15 @@
-// The row-streaming packed legs: down_kernel and up_kernel, the two frames
-// they run on, their launch geometry and launchers. packed2d.cu instantiates
-// the down leg on the whole grid, packed2d_up.cu and packed2d_up_f64.cu the
-// up leg; plocal2d_legs.cu and plocal2d_legs_f64.cu both legs on a shard's
-// tile (a kernel for each stage count; the files compile in parallel).
-// packed2d.cu's note says what they replace and how they work; plocal2d.cu's
-// what the tile frame adds.
+// The row-streaming legs: down_kernel and up_kernel, the three frames they
+// run on, their launch geometry and launchers. packed2d.cu instantiates the
+// down leg on the whole packed grid, packed2d_up.cu and packed2d_up_f64.cu
+// the up leg; plocal2d_legs.cu and plocal2d_legs_f64.cu both legs on a
+// shard's packed tile; fused2d.cu the down leg and fused2d_up.cu and
+// fused2d_up_f64.cu the up leg on the unpacked grid (a kernel for each
+// stage count; the files compile in parallel). packed2d.cu's note says what
+// they replace and how they work; plocal2d.cu's what the tile frame adds,
+// fused2d.cu's what the unpacked one does.
 #pragma once
 
+#include <cstdint>
 #include <type_traits>
 
 #include "packed_tile.cuh"
@@ -37,11 +40,11 @@ struct LegGeom {
   int strips, segs, strip, seg, hp, top, bottom;
 };
 
-// The frames. Rows are global rows in both; the streamed rows of a unit
-// start on an even one, so a row's parity is its step's. Lanes are the
+// The frames. Rows are global rows in all three; the streamed rows of a
+// unit start on an even one, so a row's parity is its step's. Lanes are the
 // frame's: lane l holds the points of global columns gx0 + 2l and
 // gx0 + 2l + 1 (phases 0 and 1), gx0 even, so the colour-c point of global
-// row i has phase (c + i) & 1 in both frames.
+// row i has phase (c + i) & 1 in every frame.
 //
 // Whole: the packed (n+2)^2 grid of packed2d.cu; array row i, array lane l.
 struct Whole {
@@ -66,14 +69,36 @@ struct Tile {
   mg::InteriorBox keep;
 };
 
+// Unpacked: the logical (n+2)^2 grid of fused2d.cu, row pitch P = n + 2;
+// lane l's two points, columns 2l and 2l + 1, are adjacent in memory. P is
+// odd, so the last lane's phase-1 point would be column P, the next row's
+// first point (past the array on the last row): it reads 0 and is never
+// stored. On an even row a lane's two points start at an even index: one
+// aligned pair, since the launchers take fine arrays that start on a pair
+// (on_pairs).
+struct Unpacked {
+  int n;
+};
+
 template <class Fr>
 constexpr bool kIsTile = std::is_same<Fr, Tile>::value;
+template <class Fr>
+constexpr bool kIsUnpacked = std::is_same<Fr, Unpacked>::value;
+// The down leg's residual after an RB-GS sweep: the red points only on the
+// packed frames (the closing black half-sweep zeroes the black one in exact
+// arithmetic; the JAX packed kernels drop it), every interior point on the
+// unpacked frame (as JAX's fused2d kernel computes it).
+template <class Fr>
+constexpr bool kRedOnly = !kIsUnpacked<Fr>;
 
 __host__ __device__ __forceinline__ int frame_lanes(const Whole& f) {
   return (f.n + 3) / 2;
 }
 __host__ __device__ __forceinline__ int frame_lanes(const Tile& f) {
   return (f.a.C + (f.a.gox & 1) + 1) / 2;
+}
+__host__ __device__ __forceinline__ int frame_lanes(const Unpacked& f) {
+  return (f.n + 3) / 2;
 }
 
 // The side neighbour of the colour-c point at phase p: the other colour's
@@ -140,13 +165,50 @@ struct Unit {
         const int lx = 2 * lane + p;
         const int gx = 2 * gl + p;
         at[p] = gl;
-        ok[p] = in;
-        st[p] = core;
+        // Unpacked: column gx lies in the row (gx = P is off it).
+        ok[p] = in && (!kIsUnpacked<Fr> || gx <= f.n + 1);
+        st[p] = core && ok[p];
         upd[p] = lx >= 1 && lx <= 2 * kWarp - 2 && gx >= 1 && gx <= f.n;
       }
     }
   }
 };
+
+// The Gauss-Seidel value and the residual of a point of colour value x and
+// right-hand side bv from its neighbours: up and down (rows i -/+ 1), mid
+// (the lane's point of the other phase) and side (the shuffled one); at
+// phase p the left neighbour is side (p = 0) or mid (p = 1), the right one
+// the other. The packed frames add up + down + mid + side first. The
+// unpacked frame adds them in the plain versions' order
+// (smoothers._gs_update, laplacian.residual), so that at sigma = 0 and h a
+// power of two (every product then exact) its legs round as the plain path
+// does, bit for bit.
+template <class Fr, typename T>
+__device__ __forceinline__ T gs_value(T bv, T up, T dn, T mid, T side, int p,
+                                      const mg::Coef<T>& cf) {
+  if constexpr (kIsUnpacked<Fr>) {
+    const T left = p ? mid : side;
+    const T right = p ? side : mid;
+    return ((((cf.h2 * bv + up) + dn) + left) + right) * cf.inv_den;
+  } else {
+    return (cf.h2 * bv + (((up + dn) + mid) + side)) * cf.inv_den;
+  }
+}
+
+template <class Fr, typename T>
+__device__ __forceinline__ T residual_of(T bv, T x, T up, T dn, T mid,
+                                         T side, int p,
+                                         const mg::Coef<T>& cf) {
+  if constexpr (kIsUnpacked<Fr>) {
+    const T left = p ? mid : side;
+    const T right = p ? side : mid;
+    return bv - ((((T(4) * x - up) - dn) - left) - right) * cf.inv_h2 +
+           cf.sig * x;
+  } else {
+    return bv - (T(4) * x - (((up + dn) + mid) + side)) * cf.inv_h2 +
+           cf.sig * x;
+  }
+}
 
 // The smoothing stages of one step. In step t (row t loaded, v = t - ys
 // mod kWin, so that every window slot below is a compile-time constant and
@@ -180,8 +242,7 @@ __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
       if (!live) continue;
       const T mid = U[o][s];
       const T side = side_of(mid, p);
-      const T nv = (cf.h2 * B[c][s] + (((U[o][sm] + U[o][sp]) + mid) + side)) *
-                   cf.inv_den;
+      const T nv = gs_value<Fr>(B[c][s], U[o][sm], U[o][sp], mid, side, p, cf);
       if (w.upd[p]) U[c][s] = nv;
     } else {
       if (EDGE && (i < w.ys || i >= w.ye)) continue;
@@ -193,10 +254,8 @@ __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
         const T x = src[c][s];
         const T mid = src[o][s];
         const T side = side_of(mid, p);
-        const T r = B[c][s] -
-                    (T(4) * x - (((src[o][sm] + src[o][sp]) + mid) + side)) *
-                        cf.inv_h2 +
-                    cf.sig * x;
+        const T r = residual_of<Fr>(B[c][s], x, src[o][sm], src[o][sp], mid,
+                                    side, p, cf);
         J[k][c][s] = live && w.upd[p] ? x + cf.jscale * r : x;
       }
     }
@@ -239,6 +298,45 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
           : T(0);
 }
 
+// Two points of type T as one 8- or 16-byte access.
+template <typename T>
+using Pair = std::conditional_t<std::is_same<T, float>::value, float2,
+                                double2>;
+
+// Whether the arrays a, b and c start on a pair of T (the unpacked frame's
+// fine arrays must).
+template <typename T>
+bool on_pairs(const void* a, const void* b, const void* c) {
+  const auto bits = reinterpret_cast<uintptr_t>(a) |
+                    reinterpret_cast<uintptr_t>(b) |
+                    reinterpret_cast<uintptr_t>(c);
+  return bits % sizeof(Pair<T>) == 0;
+}
+
+// Unpacked: colour c of row i is the point at column 2 gl + ((c + i) & 1).
+// On an even row a lane whose two points both lie in the row loads them as
+// one pair; else two scalar loads, whose 64 points a warp covers the same
+// sectors: they add L1 requests, not device-memory bytes. Without the
+// pairs the up leg takes more registers, fewer warps an SM, and runs slower
+// (PERF.md).
+template <bool EDGE, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
+                                         T& a1, int i, int par,
+                                         const Unit<Unpacked>& w,
+                                         const Unpacked& f) {
+  if (EDGE && i >= w.ye) return;
+  const int p0 = par & 1;   // the phase of colour 0 in row i
+  const long long at = static_cast<long long>(i) * (f.n + 2) + 2 * w.gl;
+  if (p0 == 0 && w.ok[1]) {
+    const Pair<T> v = __ldg(reinterpret_cast<const Pair<T>*>(g + at));
+    a0 = v.x;
+    a1 = v.y;
+  } else {
+    a0 = w.ok[p0] ? __ldg(g + at + p0) : T(0);
+    a1 = w.ok[1 - p0] ? __ldg(g + at + 1 - p0) : T(0);
+  }
+}
+
 // Store both planes of row i (parity par) at this lane, where it owns them.
 template <typename T>
 __device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
@@ -267,14 +365,29 @@ __device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
   }
 }
 
-// The full weighting fw at coarse (I, w.J): written by a core lane, as 0
-// off the coarse interior; logical (nc+2)^2, or packed when packed_coarse
-// is set (the whole grid); on a tile only inside the owned box keep, in
-// the coarse tile ca (zero_coarse_frame writes the rest).
 template <typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
+                                          int i, int par,
+                                          const Unit<Unpacked>& w,
+                                          const Unpacked& f) {
+  const long long at = static_cast<long long>(i) * (f.n + 2) + 2 * w.gl;
+  const int p0 = par & 1;
+  if (p0 == 0 && w.st[1]) {
+    *reinterpret_cast<Pair<T>*>(g + at) = Pair<T>{a0, a1};
+  } else {
+    if (w.st[p0]) g[at + p0] = a0;
+    if (w.st[1 - p0]) g[at + 1 - p0] = a1;
+  }
+}
+
+// The full weighting fw at coarse (I, w.J): written by a core lane, as 0
+// off the coarse interior; on the whole grid (packed or not) logical
+// (nc+2)^2, or packed when packed_coarse is set; on a tile only inside the
+// owned box keep, in the coarse tile ca (zero_coarse_frame writes the
+// rest).
+template <typename T, class Fr, std::enable_if_t<!kIsTile<Fr>, int> = 0>
 __device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
-                                           const Unit<Whole>& w,
-                                           const Whole& f,
+                                           const Unit<Fr>& w, const Fr& f,
                                            int packed_coarse) {
   const int nc = (f.n - 1) / 2;
   const int cp = frame_lanes(f);
@@ -291,10 +404,10 @@ __device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
   }
 }
 
-template <typename T>
+template <typename T, class Fr, std::enable_if_t<kIsTile<Fr>, int> = 0>
 __device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
-                                           const Unit<Tile>& w,
-                                           const Tile& f, int) {
+                                           const Unit<Fr>& w, const Fr& f,
+                                           int) {
   const mg::InteriorBox& k = f.keep;
   if (w.core && I >= k.ylo && I <= k.yhi && w.J >= k.xlo && w.J <= k.xhi) {
     rc[f.ca.at(I, w.J)] = mg::interior(I, w.J, k.n) ? fw : T(0);
@@ -359,13 +472,13 @@ __device__ __forceinline__ void chunk(bool steady, F&& f) {
   }
 }
 
-// Down leg: u' = smooth^K(u); rc = R (b - (A - sigma I) u'), the black
-// residual taken as 0 after an RB-GS sweep. rc is written in the logical
-// (nc+2)^2 layout, or packed when packed_coarse is set (the whole grid), or
-// as the tile's coarse tile. K counts stages: RB-GS half-sweeps or Jacobi
-// sweeps. Lags: stage k at t - 1 - k, the residual and the store at
-// t - (K + 1), the restriction of fine row t - K - 2 (its residual rows
-// t - K - 3 .. t - K - 1 done).
+// Down leg: u' = smooth^K(u); rc = R (b - (A - sigma I) u'), on the packed
+// frames the black residual taken as 0 after an RB-GS sweep (kRedOnly). rc
+// is written in the logical (nc+2)^2 layout, or packed when packed_coarse
+// is set (the whole packed grid), or as the tile's coarse tile. K counts
+// stages: RB-GS half-sweeps or Jacobi sweeps. Lags: stage k at t - 1 - k,
+// the residual and the store at t - (K + 1), the restriction of fine row
+// t - K - 2 (its residual rows t - K - 3 .. t - K - 1 done).
 template <typename T, int KIND, int K, class Fr>
 __global__ void __launch_bounds__(kLegWarps * kWarp)
 down_kernel(const T* __restrict__ u, const T* __restrict__ b,
@@ -375,7 +488,7 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
   if (unit >= g.strips * g.segs) return;
   if constexpr (kIsTile<Fr>) zero_coarse_frame(rc, f, unit, g.strips * g.segs);
   constexpr int OUT = K + 1;
-  constexpr bool RED_ONLY = KIND == mg::kRbgs && K > 0;
+  constexpr bool RED_ONLY = kRedOnly<Fr> && KIND == mg::kRbgs && K > 0;
   const Unit<Fr> w(g, unit, f);
   const int last_even = (w.y1 & 1) ? w.y1 - 1 : w.y1 - 2;
   const int t_end = last_even + OUT + 1;
@@ -423,10 +536,8 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
         const T x = F[c][s];
         const T mid = F[o][s];
         const T side = side_of(mid, p);
-        const T r = B[c][s] -
-                    (T(4) * x - (((F[o][sm] + F[o][sp]) + mid) + side)) *
-                        cf.inv_h2 +
-                    cf.sig * x;
+        const T r = residual_of<Fr>(B[c][s], x, F[o][sm], F[o][sp], mid, side,
+                                    p, cf);
         R[c][s] = live && w.upd[p] ? r : T(0);
       }
       if (!EDGE || (i >= w.y0 && i < w.y1)) {
@@ -456,10 +567,12 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
 }
 
 // Coarse point (I, J) of e; 0 off e. The whole grid's e is (Pc x Pc
-// points, logical or packed), a tile's its coarse tile ca (logical).
-template <typename T, bool PACKED_E>
+// points, logical or, on the packed grid, packed), a tile's its coarse
+// tile ca (logical).
+template <typename T, bool PACKED_E, class Fr,
+          std::enable_if_t<!kIsTile<Fr>, int> = 0>
 __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
-                                       const Whole& f) {
+                                       const Fr& f) {
   const int Pc = frame_lanes(f);
   const bool ok = I >= 0 && I < Pc && J >= 0 && J < Pc;
   const int cpc = (Pc + 1) / 2;
@@ -469,18 +582,20 @@ __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
   return ok ? __ldg(e + at) : T(0);
 }
 
-template <typename T, bool PACKED_E>
+template <typename T, bool PACKED_E, class Fr,
+          std::enable_if_t<kIsTile<Fr>, int> = 0>
 __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
-                                       const Tile& f) {
+                                       const Fr& f) {
   return f.ca.holds(I, J) ? __ldg(e + f.ca.at(I, J)) : T(0);
 }
 
 // Up leg: x' = smooth^K(x + P e); e logical or packed (a template
-// parameter, so the coarse loads carry no branch; a tile's is logical).
-// P e is added to row t in step t, from coarse rows t >> 1 and
-// (t + 1) >> 1 (loaded with the fine rows, each lane its columns J and
-// J + 1), as prolong_at (common.cuh) computes it, at every global-interior
-// point; stage k works on row t - 1 - k; the store on row t - K.
+// parameter, so the coarse loads carry no branch; only the whole packed
+// grid takes a packed e). P e is added to row t in step t, from coarse
+// rows t >> 1 and (t + 1) >> 1 (loaded with the fine rows, each lane its
+// columns J and J + 1), as prolong_at (common.cuh) computes it, at every
+// global-interior point; stage k works on row t - 1 - k; the store on row
+// t - K.
 template <typename T, int KIND, int K, bool PACKED_E, class Fr>
 __global__ void __launch_bounds__(kLegWarps * kWarp)
 up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
@@ -565,20 +680,22 @@ up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
   }
 }
 
-// The most stages a leg takes, each count its own kernel: the whole grid's
-// (packed2d.py: RB-GS 2 max_*_sweeps, Jacobi max_*_sweeps) and a tile's
-// (local2d.py's caps, both legs).
+// The most stages a leg takes, each count its own kernel: a whole grid's
+// (packed2d.py and fused2d.py: RB-GS 2 max_*_sweeps, Jacobi max_*_sweeps)
+// and a tile's (local2d.py's caps, both legs).
 constexpr int kMaxDownStages = 6;
 constexpr int kMaxUpStages = 8;
 constexpr int kMaxTileStages = 6;
 
 // The geometry as the kernels take it, or false if it breaks the rules
 // above or does not cover the frame's rows and lanes.
-bool covers(const LegGeom& g, const Whole& f) {
+template <class Fr, std::enable_if_t<!kIsTile<Fr>, int> = 0>
+bool covers(const LegGeom& g, const Fr& f) {
   return g.strips * g.strip >= frame_lanes(f) && g.segs * g.seg >= f.n + 2;
 }
 
-bool covers(const LegGeom& g, const Tile& f) {
+template <class Fr, std::enable_if_t<kIsTile<Fr>, int> = 0>
+bool covers(const LegGeom& g, const Fr& f) {
   return g.strips * g.strip >= frame_lanes(f) &&
          g.segs * g.seg >= f.a.R + (f.a.goy & 1);
 }
@@ -639,8 +756,9 @@ int leg_stages(int kind, int sweeps) {
   return kind == mg::kRbgs ? 2 * sweeps : sweeps;
 }
 
-// The down leg on frame f (the whole grid: kMaxDownStages; a tile:
-// kMaxTileStages).
+// The down leg on frame f (a whole grid: kMaxDownStages; a tile:
+// kMaxTileStages); on the unpacked frame u, b and u_out must start on a
+// pair of T.
 template <typename T, int MAXK, class Fr>
 int launch_down(const void* u, const void* b, void* u_out, void* rc,
                 const Fr& f, double h, double sigma, int kind, double omega,
@@ -648,7 +766,10 @@ int launch_down(const void* u, const void* b, void* u_out, void* rc,
                 void* stream) {
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
-  if (!leg_geom(geom, f, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!leg_geom(geom, f, &g) ||
+      (kIsUnpacked<Fr> && !on_pairs<T>(u, b, u_out))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto cf = mg::Coef<T>::make(h, sigma, omega);
   const auto s = static_cast<cudaStream_t>(stream);
   const T* ut = static_cast<const T*>(u);
@@ -662,21 +783,25 @@ int launch_down(const void* u, const void* b, void* u_out, void* rc,
                                                    packed_coarse, g, s);
 }
 
-// The up leg on frame f; e logical or, on the whole grid, packed.
+// The up leg on frame f; e logical or, on the whole packed grid, packed;
+// on the unpacked frame x, b and out must start on a pair of T.
 template <typename T, int MAXK, class Fr>
 int launch_up(const void* x, const void* e, const void* b, void* out,
               const Fr& f, double h, double sigma, int kind, double omega,
               int sweeps, int packed_e, const int* geom, void* stream) {
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
-  if (!leg_geom(geom, f, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!leg_geom(geom, f, &g) ||
+      (kIsUnpacked<Fr> && !on_pairs<T>(x, b, out))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto cf = mg::Coef<T>::make(h, sigma, omega);
   const auto s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const T* et = static_cast<const T*>(e);
   const T* bt = static_cast<const T*>(b);
   T* ot = static_cast<T*>(out);
-  if constexpr (kIsTile<Fr>) {
+  if constexpr (!std::is_same<Fr, Whole>::value) {
     return kind == mg::kRbgs
                ? launch_up_k<T, mg::kRbgs, false, MAXK>(K, xt, et, bt, ot, f,
                                                         cf, g, s)

@@ -12,7 +12,7 @@
 // L1/L2. Ghosts get 0.
 //
 // Sweeps: up to 4 RB-GS or 8 Jacobi sweeps in one pass, the schedules that
-// exceed a fused leg's cap (fused2d.cu). Bound by memory as well: u and b
+// exceed a fused leg's cap (fused2d.py). Bound by memory as well: u and b
 // in, u' out, 12 bytes a point in float32 whatever the sweep count, for ~6
 // flops a point a sweep. Each block loads its tile of u and b with a halo
 // of 2 rings a sweep (RB-GS) or 1 (Jacobi), runs the sweeps in shared

@@ -12,14 +12,15 @@
 // device memory. prolong_add reads x and the quarter-size correction and
 // writes x + P e (9 bytes a fine point, ~4 flops).
 //
-// residual_restrict tiles as fused2d.cu's down leg with no sweeps: a block
+// residual_restrict tiles as common.cuh's shared-memory tiles: a block
 // owns a TY x TX core whose first row and column are even, so every coarse
 // point has one writer (the last block's rows and columns past the coarse
 // grid's ghost write nothing), loads u and b with a halo of 2 rings, forms
 // the residual on the core plus one ring in shared memory and applies the
-// full weighting there (common.cuh, shared with the down legs). prolong_add
-// is one thread per fine point: x + prolong_at(e) on the interior, x on the
-// ghosts; the coarse reads of neighbouring threads hit in L1/L2.
+// full weighting there (common.cuh, shared with local2d's down leg).
+// prolong_add is one thread per fine point: x + prolong_at(e) on the
+// interior, x on the ghosts; the coarse reads of neighbouring threads hit
+// in L1/L2.
 #include "common.cuh"
 
 namespace {

@@ -124,9 +124,9 @@ def _check_fine(n: int) -> None:
 # in registers: LEG_AHEAD rows loaded ahead, a window of LEG_WINDOW rows
 # (and LEG_COARSE_WINDOW coarse rows in the up leg); these are the kernel
 # source's constants (kWarp, kAhead, kWin, kCoarseWin), held against it by
-# the CPU tests. A segment has at least LEG_MIN_SEG rows; the launch aims
-# at LEG_WARPS_PER_SM warps on each SM (16 measured best at 4095^2,
-# PERF.md).
+# the CPU tests. A segment has at least LEG_MIN_SEG rows (fused2d names its
+# own least segment); the launch aims at LEG_WARPS_PER_SM warps on each SM
+# (16 measured best at 4095^2, PERF.md).
 LEG_LANES = 32
 LEG_AHEAD = 4
 LEG_WINDOW = 16
@@ -138,8 +138,9 @@ LEG_WARPS_PER_SM = 16
 @dataclasses.dataclass(frozen=True)
 class LegGeometry:
     """Launch geometry of a row-streaming leg (see csrc/packed2d.cu's note)
-    on a frame: the whole packed grid, or a shard's packed tile
-    (``plocal2d.leg_geometry``).
+    on a frame: the whole packed grid, the whole unpacked grid
+    (``fused2d.leg_geometry``: the same rows and lanes) or a shard's packed
+    tile (``plocal2d.leg_geometry``).
 
     Rows are global rows: the frame's array rows are ``count`` rows from
     global row ``first``; rb is the even row at or above ``first``. Unit
@@ -201,12 +202,14 @@ class LegGeometry:
 def leg_geometry(leg: str, n: int, kind: str, sweeps: int, *,
                  sm_count: int = 132, seg: int | None = None,
                  rows: int | None = None, first: int = 0,
-                 lanes: int | None = None) -> LegGeometry:
+                 lanes: int | None = None,
+                 min_seg: int | None = None) -> LegGeometry:
     """Geometry of the down (``leg="down"``) or up leg with ``sweeps``
     sweeps of ``kind`` on the packed (n+2)^2 grid, or on a frame of
     ``rows`` array rows from global row ``first`` and ``lanes`` lanes;
     ``seg`` overrides the segment rows the launch would choose for
-    ``sm_count`` SMs.
+    ``sm_count`` SMs, segments of at least ``min_seg`` rows (default
+    LEG_MIN_SEG).
 
     Halos: each stage makes one more ring of a unit's tile stale, so the up
     leg's K stages need K rows above and below and ceil(K/2) lanes each
@@ -235,7 +238,8 @@ def leg_geometry(leg: str, n: int, kind: str, sweeps: int, *,
     span = p + (first & 1)
     if seg is None:
         units = sm_count * LEG_WARPS_PER_SM
-        seg = max(LEG_MIN_SEG, -(-span // max(1, units // strips)))
+        least = LEG_MIN_SEG if min_seg is None else min_seg
+        seg = max(least, -(-span // max(1, units // strips)))
     seg += seg & 1
     return LegGeometry(leg=leg, n=n, stages=stages, strips=strips,
                        segs=-(-span // seg), strip=strip, seg=seg,
@@ -253,12 +257,13 @@ def _sm_count(index: int) -> int:
 @functools.cache
 def _launch_geometry(leg: str, n: int, kind: str, sweeps: int, index: int,
                      rows: int | None = None, first: int = 0,
-                     lanes: int | None = None):
+                     lanes: int | None = None, min_seg: int | None = None):
     """The leg's geometry on card ``index``, as the kernel's int array,
     built once for each leg, frame (``leg_geometry``'s; the whole grid by
-    default, a shard's tile from ``plocal2d``), schedule and card."""
+    default, the unpacked grid from ``fused2d``, a shard's tile from
+    ``plocal2d``), schedule, least segment and card."""
     g = leg_geometry(leg, n, kind, sweeps, sm_count=_sm_count(index),
-                     rows=rows, first=first, lanes=lanes)
+                     rows=rows, first=first, lanes=lanes, min_seg=min_seg)
     return (ctypes.c_int * 7)(*g.ints())
 
 

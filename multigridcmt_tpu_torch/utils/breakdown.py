@@ -10,8 +10,9 @@ For each route of the float32 V(nu1,nu2) cycle (default RB-GS V(2,2)) at
 2^k - 1 (k=12: 4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA
 events, median of 20), the host-clock time of 20 cycles back to back, the
 device-busy time a cycle and the device ops a cycle (``torch.profiler``,
-summed over the kernel rows), the idle share 1 - busy/cycle, and the
-solve's cycle count, wall time and peak device memory. The routes: the
+summed over the kernel rows), of it the device time of the fused2d legs and
+of the packed2d legs (by kernel name), the idle share 1 - busy/cycle, and
+the solve's cycle count, wall time and peak device memory. The routes: the
 kernel backend as shipped; the same with the finest level unpacked
 (PACK_MIN_N above n, so the unpacked kernels run there); the plain
 backend; and the kernel backend with KERNEL_MIN_N = 7 (every level but
@@ -22,10 +23,13 @@ packed and unpacked where a level can be either, and of the check. In 3D
 the routes are the kernel backend as shipped, the plain backend, and the
 kernel backend with KERNEL3_MIN_N = 7; then, per level, one RB-GS sweep
 and the residual on the stencil3d kernels and the plain restriction and
-prolongation. Each per-level time is given as single/chained ms: one call
-timed alone (CUDA events, median of 20; the wrapper's host work inside)
-and the time a call of 20 back-to-back calls between one pair of events
-(the device's time once the host runs ahead, as inside a cycle).
+prolongation. Each per-level time is given as single/chained/device ms:
+one call timed alone (CUDA events, median of 20; the wrapper's host work
+inside), the time a call of 20 back-to-back calls between one pair of
+events (the device's time once the host runs ahead, as inside a cycle;
+where a call's host work takes longer than its kernels, the host's time)
+and the kernels' device time a call from the profiler (what the chained
+time cannot show at the small levels).
 
 With ``--mesh``, the sharded cycle instead (parallel/sharded.py, a
 torch.distributed world of 1 over NCCL, a row mesh or a (1, 1) block mesh),
@@ -67,6 +71,13 @@ from multigridcmt_tpu_torch.utils.profiling import chained_ms, cuda_time_ms
 SHARDED_KERNELS = {
     "local2d kernels": re.compile(r"(?<!\w)local_"),
     "plocal2d legs": re.compile(r"(?<!\w)plocal_(down|up)|(?<!\w)Tile(?!\w)"),
+}
+# The single-device route's leg kernels by name: the fused2d legs (the
+# row-streaming down_kernel and up_kernel on the Unpacked frame) and the
+# packed2d legs (the Whole frame).
+ROUTE_KERNELS = {
+    "fused2d legs": re.compile(r"(?<!\w)Unpacked(?!\w)"),
+    "packed2d legs": re.compile(r"(?<!\w)Whole(?!\w)"),
 }
 # Cycles of the chain a timing of v_cycles_fn runs.
 CHAIN = 20
@@ -144,7 +155,9 @@ def route(label: str, k: int, ndim: int, use_kernels: bool, reps: int,
         solver.v_cycle(x0, prob.b)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / 20 * 1e3
-    busy, ops, _ = device_busy(lambda: solver.v_cycle(x0, prob.b), reps)
+    busy, ops, by = device_busy(lambda: solver.v_cycle(x0, prob.b), reps,
+                               ROUTE_KERNELS)
+    kern = ", ".join(f"{name} {t:.4f}" for name, t in by.items())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = solver.solve()
@@ -152,8 +165,9 @@ def route(label: str, k: int, ndim: int, use_kernels: bool, reps: int,
     solve_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
     print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} ms (host "
-          f"clock, 20 back to back), device busy {busy:.4f} ms/cycle, "
-          f"idle share {1 - busy / ms:.4f}, device ops/cycle {ops:.0f}; "
+          f"clock, 20 back to back), device busy {busy:.4f} ms/cycle "
+          f"({kern}), idle share {1 - busy / ms:.4f}, device ops/cycle "
+          f"{ops:.0f}; "
           f"solve {res.iters} cycles {solve_ms:.1f} ms, final "
           f"{res.res_history[res.iters].item():.4e}, peak device memory "
           f"{peak} bytes", flush=True)
@@ -353,10 +367,11 @@ def level(n: int, seed: int, kind: str, omega: float,
 
 
 def print_level(n: int, row: dict) -> None:
-    """One level's line: each call's single/chained ms."""
+    """One level's line: each call's single/chained/device ms."""
     print(f"level n={n}: " + ", ".join(
-        f"{key} {cuda_time_ms(fn):.4f}/{chained_ms(fn):.4f} ms"
-        for key, fn in row.items()), flush=True)
+        f"{key} {cuda_time_ms(fn):.4f}/{chained_ms(fn):.4f}/"
+        f"{device_busy(fn, 20)[0]:.4f} ms" for key, fn in row.items()),
+        flush=True)
 
 
 def levels3(k: int) -> None:

@@ -1,0 +1,100 @@
+"""Device time of the fused2d legs (the row stream on the unpacked frame)
+for each least segment.
+
+    python -m multigridcmt_tpu_torch.utils.leg_segments [--rounds 2]
+
+Float32 RB-GS, nu = 2, sigma = 0, random grids at 2047^2, 1023^2, 511^2
+and 255^2: ``fused2d.MIN_SEG`` set to each value in SEGMENTS, both legs
+through their wrappers (the segment rows the launch takes are printed:
+above 2047^2 the launch fills the card with longer ones whatever the
+least), each read as 20 calls replayed from a CUDA graph (the device's
+time a call with no host work between the launches; a chained call of
+these legs through Python reads the host's launch rate at 2047^2 and
+below) and as 20 chained calls. The values go in turns, forward then
+backward, ``--rounds`` times. ``fused2d.MIN_SEG`` is set from its output.
+Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+
+import torch
+
+from multigridcmt_tpu_torch.kernels import fused2d
+from multigridcmt_tpu_torch.utils.breakdown import grids
+from multigridcmt_tpu_torch.utils.profiling import chained_ms
+
+SEGMENTS = (6, 8, 10, 16, 32, 64)
+SWEEPS = 2
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of one replay of a CUDA
+    graph that holds ``calls`` calls of ``fn``, over ``calls``. ``fn``
+    must launch on the current stream and allocate nothing it keeps; the
+    tensors it reads must stay referenced while the graph lives (capture
+    frees the allocator's cached blocks)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def segments(rounds: int) -> None:
+    shipped = fused2d.MIN_SEG
+    kw = dict(kind="rbgs", omega=1.0, sweeps=SWEEPS)
+    order = list(SEGMENTS)
+    try:
+        for n in (2047, 1023, 511, 255):
+            nc, h = (n - 1) // 2, 1.0 / (n + 1)
+            u, b, e = grids(n, seed=n)
+            calls = {
+                "down": lambda: fused2d.smooth_residual_restrict(
+                    u, b, n, h, **kw),
+                "up": lambda: fused2d.prolong_add_smooth(u, e, b, n, nc, h,
+                                                         **kw)}
+            for _ in range(rounds):
+                for seg in order + order[::-1]:
+                    fused2d.MIN_SEG = seg
+                    rows = "/".join(str(fused2d.leg_geometry(
+                        leg, n, "rbgs", SWEEPS).seg) for leg in calls)
+                    print(f"n={n} MIN_SEG={seg} (segments {rows} rows): " +
+                          ", ".join(f"{leg} {graph_ms(fn):.4f}/"
+                                    f"{chained_ms(fn):.4f}"
+                                    for leg, fn in calls.items()),
+                          flush=True)
+    finally:
+        fused2d.MIN_SEG = shipped
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    print("readings: ms a call (graph/chained)", flush=True)
+    segments(args.rounds)
+
+
+if __name__ == "__main__":
+    main()

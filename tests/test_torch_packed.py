@@ -324,7 +324,9 @@ class LegFrame:
     C; the points a stage may update, (ylo, yhi, xlo, xhi) in global
     indices; and the coarse output: the whole coarse grid (ca None) or a
     shard's coarse tile ca = (Rc, Cc, crow, ccol) with its owned box keep =
-    (ylo, yhi, xlo, xhi), global coarse indices."""
+    (ylo, yhi, xlo, xhi), global coarse indices. ``unpacked``: the array is
+    the logical (n+2)^2 grid (the Unpacked frame: lane l's points are
+    columns 2l and 2l + 1, the down leg's residual full), not two planes."""
     n: int
     goy: int = 0
     gox: int = 0
@@ -332,10 +334,11 @@ class LegFrame:
     upd: tuple = ()
     ca: tuple | None = None
     keep: tuple | None = None
+    unpacked: bool = False
 
     @staticmethod
-    def whole(n):
-        return LegFrame(n, 0, 0, n + 2, (1, n, 1, n))
+    def whole(n, unpacked=False):
+        return LegFrame(n, 0, 0, n + 2, (1, n, 1, n), unpacked=unpacked)
 
     def lanes(self):
         """The frame's lanes: one more than the array's where gox is odd."""
@@ -343,16 +346,21 @@ class LegFrame:
 
     def unit(self, g, sx, x):
         """A unit's lanes x (0 .. LEG_LANES - 1) of strip sx: (frame lane
-        gl, coarse column J, array lane at[p], ok[p], core, upd[p]), as the
-        kernel's Unit."""
+        gl, coarse column J, array lane at[p] (on the unpacked frame the
+        array column), ok[p], core, upd[p]), as the kernel's Unit."""
         xs = self.gox & 1
         cpa = (self.C + 1) // 2
         gl = sx * g.strip - g.halo_lanes + x
         J = ((self.gox - xs) >> 1) + gl
         core = (x >= g.halo_lanes) & (x < g.halo_lanes + g.strip) \
             & (gl < self.lanes())
-        at = [gl - (xs & (1 - p)) for p in (0, 1)]
-        ok = [(a >= 0) & (a < cpa) for a in at]
+        if self.unpacked:
+            at = [2 * gl + p for p in (0, 1)]
+            ok = [(gl >= 0) & (gl < self.lanes()) & (a <= self.n + 1)
+                  for a in at]
+        else:
+            at = [gl - (xs & (1 - p)) for p in (0, 1)]
+            ok = [(a >= 0) & (a < cpa) for a in at]
         ylo, yhi, xlo, xhi = self.upd
         upd = [(2 * x + p >= 1) & (2 * x + p <= 2 * len(x) - 2)
                & (2 * J + p >= max(1, xlo)) & (2 * J + p <= min(self.n, xhi))
@@ -379,15 +387,17 @@ class LegFrame:
 def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                  packed_coarse=False, frame=None):
     """csrc/packed2d_legs.cuh's down_kernel (e None) or up_kernel on
-    geometry g and frame (the whole grid when None), unit by unit; returns
-    u' and the coarse residual (down) or x'. Rows are global; stage k
-    works on row t - 1 - k of step t."""
+    geometry g and frame (the whole packed grid when None), unit by unit;
+    returns u' and the coarse residual (down) or x'. Rows are global; stage
+    k works on row t - 1 - k of step t. On the unpacked frame s, bs and u'
+    are logical (n+2)^2 grids, and every address read or written is
+    asserted to lie in its row (column < n + 2) and in the array."""
     f = frame or LegFrame.whole(g.n)
     n, K, TW, hp = g.n, g.stages, packed2d.LEG_LANES, g.halo_lanes
-    cpa = s.shape[2]
+    cpa = s.shape[1] if f.unpacked else s.shape[2]
     h2, inv_h2, sig, inv_den, jscale = _coefs(h, sigma, omega)
     down = e is None
-    red_only = kind == "rbgs" and sweeps >= 1
+    red_only = kind == "rbgs" and sweeps >= 1 and not f.unpacked
     out = np.zeros_like(s)
     out_w = np.zeros(s.shape, dtype=int)
     if f.ca is None:
@@ -441,15 +451,29 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                           np.clip(J - ccol, 0, cc - 1)]
                 cs.put(I, np.stack([np.where(okc, v, 0.0)] * 2))
 
+            def in_row(i, p, lanes):
+                """The unpacked frame's addresses i (n+2) + at[p] of
+                ``lanes`` lie in row i and in the array."""
+                cols = at[p][lanes]
+                assert (cols >= 0).all() and (cols < n + 2).all()
+                addr = i * (n + 2) + cols
+                assert (addr < (n + 2) ** 2).all()
+
             def arow(a, i):
                 """Both planes of global row i at the frame's lanes: plane
-                c from array lane at[(c + i) & 1]; 0 off the array."""
+                c from array lane at[(c + i) & 1] (unpacked: the row's
+                column at[(c + i) & 1]); 0 off the array."""
                 rows = np.zeros((2, TW))
                 if i < f.goy:
                     return rows
                 for c in (0, 1):
                     p = (c + i) & 1
-                    rows[c] = np.where(ok[p], a[c, i - f.goy, atc[p]], 0.0)
+                    if f.unpacked:
+                        in_row(i, p, ok[p])
+                        v = a[i, atc[p]]
+                    else:
+                        v = a[c, i - f.goy, atc[p]]
+                    rows[c] = np.where(ok[p], v, 0.0)
                 return rows
 
             def load(i):
@@ -460,11 +484,38 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 if not down and i & 1 and i >= ys + A:
                     load_coarse((i + 1) >> 1)
 
-            def nsum(win, i, c, p):
+            def nbrs(win, i, c, p):
+                """(up, down, left, right) of colour c's points in row i
+                at phase p: the side neighbour is the other colour's value
+                of the next lane (p = 1) or the one before."""
                 mid = win.row(i)[1 - c]
                 side = np.roll(mid, -1) if p else np.roll(mid, 1)
-                return ((win.row(i - 1)[1 - c] + win.row(i + 1)[1 - c])
-                        + mid) + side
+                return (win.row(i - 1)[1 - c], win.row(i + 1)[1 - c],
+                        mid if p else side, side if p else mid)
+
+            def gs(win, i, c, p):
+                """The Gauss-Seidel value, summed as the kernel's frame
+                sums it (gs_value)."""
+                up, dn, left, right = nbrs(win, i, c, p)
+                bv = br.row(i)[c]
+                if f.unpacked:
+                    return ((((h2 * bv + up) + dn) + left) + right) * inv_den
+                side = right if p else left
+                mid = left if p else right
+                return (h2 * bv + (((up + dn) + mid) + side)) * inv_den
+
+            def resid(win, i, c, p):
+                """The residual, as the kernel's frame sums it
+                (residual_of)."""
+                up, dn, left, right = nbrs(win, i, c, p)
+                v, bv = win.row(i)[c], br.row(i)[c]
+                if f.unpacked:
+                    a = (((4.0 * v - up) - dn) - left) - right
+                else:
+                    side = right if p else left
+                    mid = left if p else right
+                    a = 4.0 * v - (((up + dn) + mid) + side)
+                return bv - a * inv_h2 + sig * v
 
             def prolong(t):
                 if not (t < ye and 1 <= t <= n):
@@ -498,7 +549,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                         if live(r):
                             assert ur.count[ur.slot(r), 1 - c] == (k + 1) // 2
                     assert ur.count[ur.slot(i), c] == k // 2
-                    new = (h2 * br.row(i)[c] + nsum(ur, i, c, p)) * inv_den
+                    new = gs(ur, i, c, p)
                     ur.row(i)[c] = np.where(upd[p], new, ur.row(i)[c])
                     ur.count[ur.slot(i), c] += 1
                     return
@@ -510,9 +561,8 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     p = (c + i) & 1
                     v = src.row(i)[c]
                     if live(i):
-                        r_ = br.row(i)[c] - (4.0 * v - nsum(src, i, c, p)) \
-                            * inv_h2 + sig * v
-                        v = np.where(upd[p], v + jscale * r_, v)
+                        v = np.where(upd[p], v + jscale * resid(src, i, c, p),
+                                     v)
                     rows[c] = v
                 js[k].put(i, rows)
 
@@ -533,10 +583,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                             if red_only and c:
                                 continue
                             p = (c + i) & 1
-                            v = fr.row(i)[c]
-                            r_ = br.row(i)[c] - (4.0 * v - nsum(fr, i, c, p)) \
-                                * inv_h2 + sig * v
-                            res[c] = np.where(upd[p], r_, 0.0)
+                            res[c] = np.where(upd[p], resid(fr, i, c, p), 0.0)
                     rr.put(i, res)
                 elif kind == "rbgs" and live(i):
                     finished(i)
@@ -546,8 +593,13 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     for c in (0, 1):
                         p = (c + i) & 1
                         st = core & ok[p]
-                        out[c, i - f.goy, at[p][st]] = fr.row(i)[c][st]
-                        out_w[c, i - f.goy, at[p][st]] += 1
+                        if f.unpacked:
+                            in_row(i, p, st)
+                            out[i, at[p][st]] = fr.row(i)[c][st]
+                            out_w[i, at[p][st]] += 1
+                        else:
+                            out[c, i - f.goy, at[p][st]] = fr.row(i)[c][st]
+                            out_w[c, i - f.goy, at[p][st]] += 1
 
             def restrict(t):
                 j = t - g.out_lag - 1
