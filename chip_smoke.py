@@ -13,8 +13,10 @@ Phases:
        * the composed legs: the 4095^2 float32 Chebyshev V(2,2) solve (A),
          the 4095^2 RB-GS V(4,4) solve (B) and the 1023^2 Jacobi V(8,8)
          solve (C), with exact launch counts and the error against the
-         analytic solution, a float64 Chebyshev solve at k=10 against the
-         plain path, and Chebyshev-preconditioned CG at 4095^2;
+         analytic solution, float64 solves at k=10 against the plain path
+         (Chebyshev, B and C with no rounding floor, and B again with its
+         1023 level packed, PACK_MIN_N 1000, with a floor of 1e-12), and
+         Chebyshev-preconditioned CG at 4095^2;
        * the 511^3 float32 RB-GS solve, the same checks, and a float64
          k=8 solve against the plain path;
        * MG-preconditioned CG at 4095^2 and 511^3 float32, and float64
@@ -45,6 +47,10 @@ Phases:
      fused2d legs (the same row stream on the unpacked grid) at every
      sweep count at n = 2999, 31, 15 and 7, float32 and float64, at n <= 31
      also with inputs off a pair of elements (the wrapper copies them); the
+     row-streaming sweeps at every sweep count and both sigmas: stencil2d
+     RB-GS and Jacobi at 2047, 1023, 511, 255, 2999, 31, 15 and 7 (float64
+     at 1023, 255, 31, 15, 7; off a pair at n <= 31), the packed RB-GS
+     sweep at 4095, 2999 and 61 (float64 at 255 and 61); the
      local2d kernels against their plain versions on
      each of S1-S4's own fine tiles with the sweeps that path runs, and on
      tiles with nonzero global offsets (a rank of an 8-way row split of
@@ -67,8 +73,11 @@ Phases:
      single-call time their rows report), the stencil3d kernels single
      and chained
      at 511^3, 255^3 and 127^3 (the 511^3 chained time is their rows'),
-     the smoother figure (one packed RB-GS sweep at
-     4095^2: ms, GB/s, Gnnz/s), the SpMV figure (a DIA apply at 4095^2 and
+     the row-streaming sweeps single, chained and by device time at paths
+     B's and C's levels (stencil2d RB-GS nu = 4 at 2047...255, Jacobi nu =
+     8 at 1023...255, the packed sweep at 4095^2, nu = 4 and 1), the
+     smoother figure (one packed RB-GS sweep at 4095^2: ms, GB/s, Gnnz/s,
+     and by device time), the SpMV figure (a DIA apply at 4095^2 and
      255^3, from 20 chained applies: ms, Gnnz/s, GB/s) and the BELL figure
      (ms, TFLOP/s, Gnnz*vec/s, GB/s), each beside its plain version and
      the library calls of the same operator (torch.mv and torch.sparse.mm
@@ -79,7 +88,8 @@ Phases:
      against its plain version, each plocal2d kernel at S1's packed tile
      against its plain version and beside its local2d twin (the two legs
      and their twins also single and chained at nu = 0, 1, 2 and the cap),
-     and the peak device memory of the solves.
+     and the peak device memory of the solves. Every kernel row also
+     gets the profiler's device time a call (device_ms).
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -89,7 +99,9 @@ leg that does not fuse (Chebyshev, or more sweeps than a fused leg takes)
 is composed: on the packed level from the packed residual (Chebyshev) or
 the packed RB-GS sweep and the zero-sweep packed legs, on levels
 2047..255 from the stencil2d residual (Chebyshev) or sweeps and the
-transfer2d residual-restrict and prolong-add. At k=9 in 3D the levels
+transfer2d residual-restrict and prolong-add. The sweeps are the legs'
+row stream without its coarse operand, on the packed and the unpacked
+frame. At k=9 in 3D the levels
 511, 255 and 127 (n >= kernels.KERNEL3_MIN_N) run the stencil3d RB-GS
 sweep and residual kernels. Off these paths: the stencil3d Jacobi sweep (a
 3D Jacobi cycle takes the plain route, as in the JAX package; driven by
@@ -108,7 +120,7 @@ residual on the owned tiles (the composed route); Chebyshev runs the
 local2d residual.
 
 Phase 1 also reports ptxas's registers and spills of the row-streaming
-legs (from the build's nvcc.log).
+legs and sweeps (from the build's nvcc.log).
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -187,13 +199,24 @@ STENCIL3D_STACKS = {
     (torch.float64, 59): [(-1, -1, 65, 61)],
 }
 PACKED_RESIDUAL_SHAPES = [(torch.float32, 4095), (torch.float64, 255)]
-# The composed legs' kernels: transfer2d and the stencil2d sweeps at the
-# largest unpacked level (and Jacobi at path C's 1023), the packed RB-GS
-# sweep at the packed level; float64 at 255.
+# The composed legs' kernels: transfer2d at the largest unpacked level;
+# float64 at 255.
 TRANSFER_SHAPES = [(torch.float32, 2047), (torch.float64, 255)]
+# The row-streaming sweeps at every sweep count up to the caps: the
+# stencil2d sweeps at path B's and C's levels (2047...255), where the
+# stream ends partly (2999: 1501 lanes, 3001 rows) and at 31, 15 and 7 (one
+# partial strip and segment), also off a pair of elements at n <= 31 (the
+# wrapper copies); the packed RB-GS sweep at the packed level 4095, at 2999
+# and 61 (one strip and segment).
 SWEEP_SHAPES = [(torch.float32, 2047), (torch.float32, 1023),
-                (torch.float64, 255)]
-PACKED_SWEEP_SHAPES = [(torch.float32, 4095), (torch.float64, 255)]
+                (torch.float32, 511), (torch.float32, 255),
+                (torch.float32, 2999), (torch.float32, 31),
+                (torch.float32, 15), (torch.float32, 7),
+                (torch.float64, 1023), (torch.float64, 255),
+                (torch.float64, 31), (torch.float64, 15), (torch.float64, 7)]
+PACKED_SWEEP_SHAPES = [(torch.float32, 4095), (torch.float32, 2999),
+                       (torch.float32, 61), (torch.float64, 255),
+                       (torch.float64, 61)]
 # Path C runs smaller (1023^2, no packed level), with the smoke's time in
 # mind; the float64 Chebyshev solve is held against the plain path at it.
 PATH_C_K = 10
@@ -283,6 +306,13 @@ SHARDED_F64_FLOOR = 1e-12
 # The float64 packed sharded check: PACK_MIN_N lowered so that k=10's 1023
 # level packs, for that check only.
 SHARDED_F64_PACK_MIN_N = 1000
+# The same for path B's float64 packed check (the packed RB-GS sweep on a
+# gated route). The packed frames sum a stencil's neighbours before adding
+# them (the plain path one by one) and the norm sums the red residual only,
+# so the histories part by rounding: an absolute floor, as the sharded
+# packed check's.
+F64_PACK_MIN_N = 1000
+F64_PACKED_FLOOR = 1e-12
 # local2d tiles with nonzero offsets for phase 2: (n, rank rows, row rank,
 # rank columns, column rank); 0 columns: a row decomposition. The plocal2d
 # kernels run on them too, packed.
@@ -406,16 +436,16 @@ def phase_setup(rendezvous: str):
     return card
 
 
-# A row-streaming leg kernel's mangled name: leg, type (f float, d
-# double), kind (0 Jacobi, 1 RB-GS), stages, frame.
-LEG_KERNEL = re.compile(r"(down|up)_kernelI([fd])Li(\d)ELi(\d+)E"
+# A row-streaming leg or sweep kernel's mangled name: leg (or sweep), type
+# (f float, d double), kind (0 Jacobi, 1 RB-GS), stages, frame.
+LEG_KERNEL = re.compile(r"(down|up|sweep)_kernelI([fd])Li(\d)ELi(\d+)E"
                         r"(?:Lb([01])E)?NS_\d+(Whole|Tile|Unpacked)E")
 
 
 def ptxas_report(log_path) -> None:
     """Log ptxas's registers and spill bytes of every row-streaming leg
-    kernel, a line a frame, leg, type and kind (stage counts in order;
-    the up leg's packed-e twins on the whole grid apart)."""
+    and sweep kernel, a line a frame, leg, type and kind (stage counts in
+    order; the up leg's packed-e twins on the whole grid apart)."""
     props = {}
     name = None
     text = Path(log_path).read_text(encoding="utf-8", errors="replace")
@@ -653,10 +683,9 @@ def compare_packed_residual(main_err: dict) -> None:
 
 
 def compare_composed(main_err: dict) -> None:
-    """The kernels of the composed legs. Main-path rows: float32, sigma =
-    0; transfer2d at 2047, RB-GS 4 sweeps at 2047 (path B), Jacobi 8
-    sweeps at 1023 (path C), the packed RB-GS 4 sweeps at 4095 (B)."""
-    from multigridcmt_tpu_torch.kernels import packed2d, stencil2d, transfer2d
+    """The transfer2d kernels of the composed legs (compare_sweeps holds
+    their sweeps). Main-path rows: float32 at 2047."""
+    from multigridcmt_tpu_torch.kernels import transfer2d
 
     for dtype, n in TRANSFER_SHAPES:
         h = 1.0 / (n + 1)
@@ -677,13 +706,29 @@ def compare_composed(main_err: dict) -> None:
         if main:
             main_err["transfer2d_prolong_add"] = err
         del u, b, e
+    torch.cuda.empty_cache()
+
+
+def compare_sweeps(main_err: dict) -> None:
+    """The row-streaming sweeps against their plain versions at every sweep
+    count, both sigmas: stencil2d RB-GS (1 to 4) and Jacobi (1 to 8) at
+    SWEEP_SHAPES, at n <= 31 also with u and b off a pair of elements; the
+    packed RB-GS sweep (1 to 4) at PACKED_SWEEP_SHAPES. Main-path rows:
+    float32, sigma = 0; RB-GS 4 sweeps at 2047 (path B), Jacobi 8 sweeps
+    at 1023 (path C), the packed RB-GS 4 sweeps at 4095 (B)."""
+    from multigridcmt_tpu_torch.kernels import packed2d, stencil2d
+
     jacobi_omega = 0.8
-    for dtype, n in SWEEP_SHAPES:
+    for dtype, n, off in [(d, n, False) for d, n in SWEEP_SHAPES] + [
+            (d, n, True) for d, n in SWEEP_SHAPES if n <= 31]:
         h = 1.0 / (n + 1)
         u, b, _ = leg_inputs(n, dtype, seed=n + 6)
-        name = f"{str(dtype).split('.')[-1]} n={n}"
-        main = dtype == torch.float32 and n == 2 ** (MAIN_K - 1) - 1
-        main_c = dtype == torch.float32 and n == 2 ** PATH_C_K - 1
+        if off:
+            u, b = off_pair(u), off_pair(b)
+        name = f"{str(dtype).split('.')[-1]} n={n}" + (" off" if off else "")
+        main = dtype == torch.float32 and not off
+        main_b = main and n == 2 ** (MAIN_K - 1) - 1
+        main_c = main and n == 2 ** PATH_C_K - 1
         for sigma in (0.0, SIGMA):
             for sweeps in range(1, stencil2d.max_fused_sweeps("rbgs") + 1):
                 err = check_pair(
@@ -692,9 +737,9 @@ def compare_composed(main_err: dict) -> None:
                                          sweeps=sweeps),
                     stencil2d.rbgs_sweep_plain(u, b, n, h, sigma=sigma,
                                                sweeps=sweeps), TOL[dtype])
-                if main and sweeps == 4 and sigma == 0.0:
+                if main_b and sweeps == 4 and sigma == 0.0:
                     main_err["stencil2d_rbgs"] = err
-            for sweeps in (1, stencil2d.max_fused_sweeps("jacobi")):
+            for sweeps in range(1, stencil2d.max_fused_sweeps("jacobi") + 1):
                 err = check_pair(
                     f"stencil2d jacobi {name} nu={sweeps} sigma={sigma}",
                     stencil2d.jacobi_sweep(u, b, n, h, jacobi_omega,
@@ -709,6 +754,7 @@ def compare_composed(main_err: dict) -> None:
         h = 1.0 / (n + 1)
         u, b, _ = leg_inputs(n, dtype, seed=n + 7)
         su, sb = packed2d.pack(u), packed2d.pack(b)
+        del u, b
         name = f"{str(dtype).split('.')[-1]} n={n}"
         for sigma in (0.0, SIGMA):
             for sweeps in range(1, packed2d.max_fused_sweeps() + 1):
@@ -718,10 +764,10 @@ def compare_composed(main_err: dict) -> None:
                                         sigma=sigma),
                     packed2d.rbgs_sweep_plain(su, sb, n, h, sweeps=sweeps,
                                               sigma=sigma), TOL[dtype])
-                if (dtype == torch.float32 and sweeps == 4
-                        and sigma == 0.0):
+                if (dtype == torch.float32 and n == 2 ** MAIN_K - 1
+                        and sweeps == 4 and sigma == 0.0):
                     main_err["packed2d_rbgs"] = err
-        del u, b, su, sb
+        del su, sb
     torch.cuda.empty_cache()
 
 
@@ -1196,16 +1242,17 @@ def phase_compare():
     error, relative error, tolerance) per kernel at the main paths' shapes
     (float32, sigma=0; the legs RB-GS nu=2: packed at n=4095, fused2d and
     stencil2d at n=2047, stencil3d at n=511 (Jacobi: one sweep); the
-    composed legs' kernels as compare_composed says; the sparse kernels as
-    compare_sparse says; local2d and plocal2d as compare_local2d and
-    compare_plocal2d say); of a leg's two outputs, the one with the larger
-    relative error."""
+    composed legs' kernels as compare_composed and compare_sweeps say; the
+    sparse kernels as compare_sparse says; local2d and plocal2d as
+    compare_local2d and compare_plocal2d say); of a leg's two outputs, the
+    one with the larger relative error."""
     main_err = {}
     compare_2d(main_err)
     compare_fused_legs()
     compare_packed_legs(main_err)
     compare_packed_residual(main_err)
     compare_composed(main_err)
+    compare_sweeps(main_err)
     compare_stencil3d(main_err)
     compare_sparse(main_err)
     compare_local2d(main_err)
@@ -1257,15 +1304,17 @@ KERNELS = {
         "multigridcmt_tpu_torch/kernels/csrc/transfer2d.cu",
         "multigridcmt_tpu/kernels/transfer2d.py:204", "chebyshev2d"),
     "stencil2d_rbgs": ("stencil2d", "rbgs_launches",
-                       "multigridcmt_tpu_torch/kernels/csrc/stencil2d.cu",
+                       "multigridcmt_tpu_torch/kernels/csrc/"
+                       "stencil2d_sweep.cu",
                        "multigridcmt_tpu/kernels/stencil2d.py:284",
                        "rbgs44"),
     "stencil2d_jacobi": ("stencil2d", "jacobi_launches",
-                         "multigridcmt_tpu_torch/kernels/csrc/stencil2d.cu",
+                         "multigridcmt_tpu_torch/kernels/csrc/"
+                         "stencil2d_sweep.cu",
                          "multigridcmt_tpu/kernels/stencil2d.py:295",
                          "jacobi88"),
     "packed2d_rbgs": ("packed2d", "rbgs_launches",
-                      "multigridcmt_tpu_torch/kernels/csrc/packed2d.cu",
+                      "multigridcmt_tpu_torch/kernels/csrc/packed2d_sweep.cu",
                       "multigridcmt_tpu/kernels/packed2d.py:305", "rbgs44"),
     # Off the solve paths (a 3D Jacobi cycle takes the plain route, as in
     # JAX): no main path launches it, so its row reports the launches
@@ -1400,11 +1449,12 @@ def vcycles_against_plain(label: str, build, rtol: float) -> None:
             f"u_exact {errs} >= {bound}")
 
 
-def f64_against_plain(label: str, build, hist_rtol: float, method="mg"):
+def f64_against_plain(label: str, build, hist_rtol: float, method="mg",
+                      floor=None):
     """A float64 solve on the kernel path and the plain path: both
     converge, in equal iterations, with histories within ``hist_rtol``
-    (plus the dimension's ``F64_FLOOR``). Returns the kernel path's result
-    and launches."""
+    plus ``floor`` (default the dimension's ``F64_FLOOR``). Returns the
+    kernel path's result and launches."""
     import multigridcmt_tpu_torch as mt
 
     out = {}
@@ -1425,7 +1475,7 @@ def f64_against_plain(label: str, build, hist_rtol: float, method="mg"):
             f"{rp.iters}/{rp.converged}")
     hdiff = ((hk - hp).abs() / hp).tolist()
     log(f"  history rel diff {[f'{v:.1e}' for v in hdiff]}")
-    floor = F64_FLOOR[pk.config.ndim]
+    floor = F64_FLOOR[pk.config.ndim] if floor is None else floor
     require(bool(((hk - hp).abs() <= hist_rtol * hp + floor).all()),
             f"{label} float64 histories differ by {max(hdiff):.3e} > "
             f"{hist_rtol} (+ {floor})")
@@ -1596,6 +1646,15 @@ def paths_composed(runs: dict) -> None:
     runs["jacobi88"] = counts
     del prob, solver, res
 
+    # float64 B and C at k=10, kernel path against plain path: every level
+    # below 1023 is unpacked, and the unpacked sweeps (RB-GS and Jacobi) and
+    # legs, the transfer2d kernels and the stencil2d residual round as the
+    # plain ops do at sigma = 0 with h a power of two, so the histories are
+    # held to 1e-8 with no rounding floor. Then B again with the 1023 level
+    # packed (the packed RB-GS sweep, legs and norm, which sum in their own
+    # order), with a floor of F64_PACKED_FLOOR.
+    paths_f64_composed()
+
     # float64 Chebyshev at k=10, kernel path against plain path: with h a
     # power of two the stencil2d residual and the transfer2d kernels round
     # as the plain ops do (sigma = 0), so the histories are held to 1e-8.
@@ -1609,6 +1668,47 @@ def paths_composed(runs: dict) -> None:
                    stencil2d_residual=lv * deg * i + i + 1,
                    transfer2d_residual_restrict=lv * i,
                    transfer2d_prolong_add=lv * i)
+
+
+def paths_f64_composed() -> None:
+    """The float64 k=10 history gates of paths B and C (see
+    paths_composed), with their exact launches."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch import kernels
+
+    def build(smoother, nu, use_kernels=True):
+        return mt.poisson2d(k=PATH_C_K, dtype=torch.float64,
+                            smoother=smoother, nu1=nu, nu2=nu,
+                            use_kernels=use_kernels, device="cuda",
+                            tol=F64_TOL)
+
+    lv = fused_levels(build("rbgs", 4))
+    rk, ck = f64_against_plain(f"B rbgs V(4,4) k={PATH_C_K}",
+                               lambda uk: build("rbgs", 4, uk), 1e-8)
+    i = rk.iters
+    require_counts(f"B f64 k={PATH_C_K}", ck, stencil2d_rbgs=lv * i,
+                   transfer2d_residual_restrict=lv * i, fused2d_up=lv * i,
+                   stencil2d_residual=i + 1)
+    rk, ck = f64_against_plain(f"C jacobi V(8,8) k={PATH_C_K}",
+                               lambda uk: build("jacobi", 8, uk), 1e-8)
+    i = rk.iters
+    require_counts(f"C f64 k={PATH_C_K}", ck, stencil2d_jacobi=lv * i,
+                   transfer2d_residual_restrict=lv * i, fused2d_up=lv * i,
+                   stencil2d_residual=i + 1)
+    saved = kernels.PACK_MIN_N
+    kernels.PACK_MIN_N = F64_PACK_MIN_N
+    try:
+        lv = fused_levels(build("rbgs", 4))
+        rk, ck = f64_against_plain(
+            f"B rbgs V(4,4) k={PATH_C_K} PACK_MIN_N {F64_PACK_MIN_N}",
+            lambda uk: build("rbgs", 4, uk), 1e-8, floor=F64_PACKED_FLOOR)
+    finally:
+        kernels.PACK_MIN_N = saved
+    i = rk.iters
+    require_counts(f"B f64 packed k={PATH_C_K}", ck, packed2d_rbgs=i,
+                   packed2d_down=i, packed2d_up=i, packed2d_resnorm=i + 1,
+                   stencil2d_rbgs=lv * i,
+                   transfer2d_residual_restrict=lv * i, fused2d_up=lv * i)
 
 
 def tier3(prob) -> int:
@@ -2021,17 +2121,26 @@ def phase_main_path():
     return runs
 
 
-def time_pair(name: str, kernel, plain) -> dict:
-    """Plain, kernel, kernel, plain: compare within one window."""
+def time_pair(name: str, kernel, plain, device: bool = True) -> dict:
+    """Plain, kernel, kernel, plain: compare within one window (single
+    calls, the wrapper's host work inside); with ``device``, also the
+    kernels' device time a call of ``kernel`` from the profiler
+    (device_ms)."""
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
     from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
 
     p1 = cuda_time_ms(plain)
     k1 = cuda_time_ms(kernel)
     k2 = cuda_time_ms(kernel)
     p2 = cuda_time_ms(plain)
+    out = {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
+    dev = ""
+    if device:
+        out["device_ms"] = device_busy(kernel, LEG_CHAIN)[0]
+        dev = f", device {out['device_ms']:.4f} ms"
     log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
-        "ms")
-    return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
+        f"ms{dev}")
+    return out
 
 
 def timed_legs(times: dict) -> None:
@@ -2206,12 +2315,10 @@ def timed_2d(times: dict) -> None:
 
 def timed_composed(times: dict) -> None:
     """The composed legs' kernels at their main-path shapes (float32,
-    sigma = 0): transfer2d at 2047, RB-GS 4 sweeps at 2047 and Jacobi 8
-    sweeps at 1023 (one launch each), the packed RB-GS 4 sweeps at 4095;
-    and the smoother figure, one packed RB-GS sweep at 4095."""
+    sigma = 0): transfer2d at 2047, then the sweeps (timed_sweeps)."""
     import torch.nn.functional as F
 
-    from multigridcmt_tpu_torch.kernels import packed2d, stencil2d, transfer2d
+    from multigridcmt_tpu_torch.kernels import transfer2d
     from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
 
     n = 2 ** (MAIN_K - 1) - 1
@@ -2244,47 +2351,102 @@ def timed_composed(times: dict) -> None:
     t.update(bytes=nbytes(u, e, u),
              flops=flops_per_point("transfer2d_prolong_add") * n * n)
     times["transfer2d_prolong_add"] = t
-    t = time_pair(f"stencil2d_rbgs n={n} nu=4",
-                  lambda: stencil2d.rbgs_sweep(u, b, n, h, sweeps=4),
-                  lambda: stencil2d.rbgs_sweep_plain(u, b, n, h, sweeps=4))
-    t.update(bytes=nbytes(u, b, u),
-             flops=flops_per_point("stencil2d_rbgs", 4) * n * n)
-    times["stencil2d_rbgs"] = t
     del u, b, e, rc
+    timed_sweeps(times)
 
-    n = 2 ** PATH_C_K - 1
-    h = 1.0 / (n + 1)
-    u, b, _ = leg_inputs(n, torch.float32, seed=12)
-    t = time_pair(f"stencil2d_jacobi n={n} nu=8",
-                  lambda: stencil2d.jacobi_sweep(u, b, n, h, 0.8, sweeps=8),
-                  lambda: stencil2d.jacobi_sweep_plain(u, b, n, h, 0.8,
-                                                       sweeps=8))
-    t.update(bytes=nbytes(u, b, u),
-             flops=flops_per_point("stencil2d_jacobi", 8) * n * n)
-    times["stencil2d_jacobi"] = t
-    del u, b
+
+def timed_sweeps(times: dict) -> None:
+    """The row-streaming sweeps, float32, sigma = 0, against their plain
+    versions at their main-path shapes (RB-GS 4 sweeps at 2047, path B;
+    Jacobi 8 sweeps at 1023, path C; the packed RB-GS 4 sweeps at 4095,
+    B), and each as a single call, LEG_CHAIN chained calls and by the
+    profiler's device time a call at B's and C's levels (stencil2d RB-GS
+    nu = 4 at 2047...255, Jacobi nu = 8 at 1023...255; the packed sweep at
+    nu = 4 and 1); and the smoother figure, one packed RB-GS sweep at 4095
+    (single call, GB/s and Gnnz/s as bench.py counts them; also by device
+    time)."""
+    from multigridcmt_tpu_torch.kernels import packed2d, stencil2d
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
+
+    def three(fn):
+        return {"single_ms": cuda_time_ms(fn),
+                "chained_ms": chained_ms(fn, LEG_CHAIN),
+                "device_ms": device_busy(fn, LEG_CHAIN)[0]}
+
+    out = {}
+    for k in range(MAIN_K - 1, MAIN_K - 5, -1):
+        n = 2 ** k - 1
+        h = 1.0 / (n + 1)
+        u, b, _ = leg_inputs(n, torch.float32, seed=11 + k)
+        # name -> (sweeps, kernel, plain)
+        calls = {"stencil2d_rbgs": (
+            4, lambda: stencil2d.rbgs_sweep(u, b, n, h, sweeps=4),
+            lambda: stencil2d.rbgs_sweep_plain(u, b, n, h, sweeps=4))}
+        if k <= PATH_C_K:
+            calls["stencil2d_jacobi"] = (
+                8, lambda: stencil2d.jacobi_sweep(u, b, n, h, 0.8, sweeps=8),
+                lambda: stencil2d.jacobi_sweep_plain(u, b, n, h, 0.8,
+                                                     sweeps=8))
+        for name, (nu, kernel, plain) in calls.items():
+            row = three(kernel)
+            out[f"{name}@{n} nu={nu}"] = row
+            log(f"sweep {name} n={n} nu={nu}: single {row['single_ms']:.4f} "
+                f"ms, chained x{LEG_CHAIN} {row['chained_ms']:.4f} ms, device "
+                f"{row['device_ms']:.4f} ms, bound "
+                f"{nbytes(u, b, u) / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+            if n == 2 ** (MAIN_K - 1) - 1 or (name == "stencil2d_jacobi"
+                                              and k == PATH_C_K):
+                t = time_pair(f"{name} n={n} nu={nu}", kernel, plain,
+                              device=False)
+                t.update(bytes=nbytes(u, b, u),
+                         flops=flops_per_point(name, nu) * n * n,
+                         single_ms=row["single_ms"],
+                         chained_ms=row["chained_ms"],
+                         device_ms=row["device_ms"])
+                times[name] = t
+        del u, b, calls
+        torch.cuda.empty_cache()
 
     n = 2 ** MAIN_K - 1
     h = 1.0 / (n + 1)
     u, b, _ = leg_inputs(n, torch.float32, seed=13)
     su, sb = packed2d.pack(u), packed2d.pack(b)
     del u, b
+    for nu in (4, 1):
+        row = three(lambda: packed2d.rbgs_sweep(su, sb, n, h, sweeps=nu))
+        out[f"packed2d_rbgs@{n} nu={nu}"] = row
+        log(f"sweep packed2d_rbgs n={n} nu={nu}: single "
+            f"{row['single_ms']:.4f} ms, chained x{LEG_CHAIN} "
+            f"{row['chained_ms']:.4f} ms, device {row['device_ms']:.4f} ms")
+    times["sweeps"] = out
     t = time_pair(f"packed2d_rbgs n={n} nu=4",
                   lambda: packed2d.rbgs_sweep(su, sb, n, h, sweeps=4),
-                  lambda: packed2d.rbgs_sweep_plain(su, sb, n, h, sweeps=4))
+                  lambda: packed2d.rbgs_sweep_plain(su, sb, n, h, sweeps=4),
+                  device=False)
+    row = out[f"packed2d_rbgs@{n} nu=4"]
     t.update(bytes=nbytes(su, sb, su),
-             flops=flops_per_point("packed2d_rbgs", 4) * n * n)
+             flops=flops_per_point("packed2d_rbgs", 4) * n * n,
+             single_ms=row["single_ms"], chained_ms=row["chained_ms"],
+             device_ms=row["device_ms"])
     times["packed2d_rbgs"] = t
     # The smoother figure of bench.py: one packed RB-GS sweep, as GB/s
-    # (three packed arrays over the time) and Gnnz/s (2 * 5 n^2 over it).
+    # (three packed arrays over the time) and Gnnz/s (2 * 5 n^2 over it),
+    # from a single call and from the device time.
     ms = cuda_time_ms(lambda: packed2d.rbgs_sweep(su, sb, n, h, sweeps=1))
+    dev = out[f"packed2d_rbgs@{n} nu=1"]["device_ms"]
     gbps = 3 * nbytes(su) / (ms * 1e-3) / 1e9
     gnnz = 2 * 5 * n * n / (ms * 1e-3) / 1e9
     times["smoother"] = {"ms": ms, "gb_per_s": gbps, "gnnz_per_s": gnnz,
+                         "device_ms": dev,
+                         "device_gb_per_s": 3 * nbytes(su) / (dev * 1e-3)
+                         / 1e9,
                          "bound_ms": 3 * nbytes(su) / PEAK_BYTES_PER_S * 1e3}
     log(f"smoother: one packed RB-GS sweep at {n}^2 float32 {ms:.4f} ms, "
         f"{gbps:.1f} GB/s ({100 * gbps * 1e9 / PEAK_BYTES_PER_S:.1f}% of "
-        f"3.35 TB/s), {gnnz:.2f} Gnnz/s")
+        f"3.35 TB/s), {gnnz:.2f} Gnnz/s; device {dev:.4f} ms, "
+        f"{times['smoother']['device_gb_per_s']:.1f} GB/s")
     del su, sb
     torch.cuda.empty_cache()
 
@@ -2553,7 +2715,7 @@ def timed_sharded(times: dict) -> None:
         t = time_pair(f"cycle {label} k={k} mesh {shape}: sharded "
                       "(kernel), single device (plain)",
                       lambda: cycle(x_t, b_t),
-                      lambda: single.v_cycle(x, prob.b))
+                      lambda: single.v_cycle(x, prob.b), device=False)
         times["cycle_" + label] = {"sharded_ms": t["ms"],
                                    "single_ms": t["plain_ms"]}
         del prob, solver, b_t, x_t, single, x
@@ -2851,6 +3013,7 @@ def main() -> int:
     for label in ("S1", "S2", "S1_chain"):
         log(f"cycle_{label}: " + json.dumps(times["cycle_" + label]))
     log("smoother: " + json.dumps(times["smoother"]))
+    log("sweeps: " + json.dumps(times["sweeps"]))
     log("legs: " + json.dumps(times["legs"]))
     log("tile_legs: " + json.dumps(times["tile_legs"]))
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))

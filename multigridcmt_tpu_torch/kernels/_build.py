@@ -38,9 +38,11 @@ SIGNATURES = {}
 for _t in ("f32", "f64"):
     # u, b, r, n, h, sigma, stream
     SIGNATURES[f"mg_stencil2d_residual_{_t}"] = [_P, _P, _P, _I, _D, _D, _P]
-    # u, b, out, n, h, sigma, kind, omega, sweeps, stream
+    # u, b, out, n, h, sigma, kind, omega, sweeps, geometry
+    # (packed2d.LegGeometry.ints() of the sweep stream on the unpacked
+    # frame), stream
     SIGNATURES[f"mg_stencil2d_sweep_{_t}"] = [_P, _P, _P, _I, _D, _D, _I, _D,
-                                              _I, _P]
+                                              _I, _IP, _P]
     # u, b, rc_out, n, h, stream
     SIGNATURES[f"mg_transfer2d_residual_restrict_{_t}"] = [_P, _P, _P, _I,
                                                            _D, _P]
@@ -66,8 +68,10 @@ for _t in ("f32", "f64"):
                                                _I, _P]
     # u, b, r, n, h, sigma, stream
     SIGNATURES[f"mg_packed2d_residual_{_t}"] = [_P, _P, _P, _I, _D, _D, _P]
-    # u, b, out, n, h, sigma, sweeps, stream
-    SIGNATURES[f"mg_packed2d_rbgs_{_t}"] = [_P, _P, _P, _I, _D, _D, _I, _P]
+    # u, b, out, n, h, sigma, sweeps, geometry (packed2d.LegGeometry.ints()
+    # of the sweep stream), stream
+    SIGNATURES[f"mg_packed2d_rbgs_{_t}"] = [_P, _P, _P, _I, _D, _D, _I, _IP,
+                                            _P]
     # u, b, out, p, r, c, n, h, sigma, goff, roff, geometry
     # (stencil3d.march_geometry), stream
     SIGNATURES[f"mg_stencil3d_residual_{_t}"] = [_P, _P, _P, _I, _I, _I, _I,
@@ -113,9 +117,10 @@ KIND_CODES = {"jacobi": 0, "rbgs": 1}
 
 # The halo a launch loads grows with its sweeps (RB-GS makes 2 rings stale
 # a sweep, Jacobi 1; a down leg adds 2 for the residual and the
-# restriction). Capping it at 8, as the TPU kernels do, keeps the
-# shared-memory tile bounded and makes the same legs and sweep chunks fuse
-# as in the JAX package; it bounds the sweeps of every 2D launch.
+# restriction). Capping it at 8, as the TPU kernels do, bounds the rows a
+# row-streaming lane holds (and the shared-memory tiles of local2d) and
+# makes the same legs and sweep chunks fuse as in the JAX package; it
+# bounds the sweeps of every 2D launch.
 MAX_HALO = 8
 
 

@@ -11,10 +11,10 @@
 // row-major, whose point (0, 0) has global index (goy, gox)
 // (kernels/local2d.py says how a rank's extended tile sits in the grid).
 // Offsets are arguments, so one build serves every rank. These are
-// common.cuh's shared-memory tile kernels (as stencil2d.cu's) on such a
-// tile, over its helpers, which work in global indices: interior and
-// red/black colour come from them (the colour by `& 1`, the floor parity
-// of a negative index as well). Two things differ. A point is updated only
+// common.cuh's shared-memory tile kernels on such a tile, over its
+// helpers, which work in global indices: interior and red/black colour
+// come from them (the colour by `& 1`, the floor parity of a negative
+// index as well). Two things differ. A point is updated only
 // if it is interior to the global grid and off the tile's outer ring
 // (mg::InteriorBox; the ring keeps its values). And the coarse tile of a
 // leg has its own origin: the down leg writes the full weighting on the
@@ -22,8 +22,8 @@
 // caller), and the up leg reads the correction as 0 off the coarse tile.
 //
 // What bounds them on the card: the same as the single-device legs
-// (fused2d.cu) and sweeps (stencil2d.cu): device-memory traffic, 12 bytes
-// a point a sweep launch in float32 for ~6 flops a point a sweep. Every
+// (fused2d.cu) and sweeps (stencil2d_sweep.cu): device-memory traffic, 12
+// bytes a point a sweep launch in float32 for ~6 flops a point a sweep. Every
 // intermediate sweep, the residual and the restriction stay in shared
 // memory; each block loads its tile of u and b with a halo that covers the
 // sweeps' staleness and writes its core.

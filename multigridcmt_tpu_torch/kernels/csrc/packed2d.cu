@@ -1,6 +1,7 @@
-// Colour-packed kernels for the finest 2D levels: the two whole-leg kernels,
-// the fused residual norm of the convergence check, the residual and the
-// fused RB-GS sweeps.
+// Colour-packed kernels for the finest 2D levels: the down leg, the fused
+// residual norm of the convergence check and the residual (the up leg in
+// packed2d_up.cu and packed2d_up_f64.cu, the fused RB-GS sweeps in
+// packed2d_sweep.cu).
 //
 // Replace the TPU kernels multigridcmt_tpu/kernels/packed2d.py:
 //   smooth_residual_restrict -> packed2d_down     (down_kernel, :839)
@@ -9,7 +10,8 @@
 //   residual_norm_sq         -> packed2d_resnorm  (mg::presnorm_partial,
 //                                                 mg::sum_partials)
 //   residual                 -> packed2d_residual (mg::presidual_kernel)
-//   rbgs_sweep               -> packed2d_rbgs     (rbgs_kernel)
+//   rbgs_sweep               -> packed2d_rbgs     (sweep_kernel, :305;
+//                                                 packed2d_sweep.cu)
 //
 // Layout: packed_tile.cuh's, the whole padded grid of P = n+2 (odd) points
 // a side as the rectangle at (0, 0) (mg::PRect{P, P, 0, 0}): two planes
@@ -57,52 +59,9 @@
 // not fill a warp or whose rows start odd. Every lane of a warp runs
 // every shuffle: row tests are the same for the whole warp, and lane tests
 // select a result after it.
-//
-// rbgs_kernel tiles as common.cuh's shared-memory tiles: a block owns TY
-// rows and TX/2 lanes (TX fine columns) whose first row and column are
-// even, with a halo of H rows and HP = ceil(H/2) lanes. Inputs and outputs
-// never alias.
 #include "packed2d_legs.cuh"
 
 namespace {
-
-constexpr int TX = 64;        // rbgs_kernel: core fine columns per block
-constexpr int TY = 32;        // rbgs_kernel: core rows per block
-constexpr int TXP = TX / 2;   // core lanes per block
-constexpr int THREADS = 256;
-
-// RB-GS: u' = smooth^sweeps(u) on packed grids, halo H = 2 sweeps rows and
-// HP = sweeps lanes (2 HP columns). Ghosts and pad lanes are never updated
-// (not interior), so they keep u's zeros.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rbgs_kernel(const T* __restrict__ u, const T* __restrict__ b,
-            T* __restrict__ out, int n, mg::Coef<T> cf, int sweeps, int H,
-            int HP) {
-  extern __shared__ unsigned char smem_raw[];
-  const mg::PRect grid{n + 2, n + 2, 0, 0};
-  const int RY = TY + 2 * H;
-  const int RXP = TXP + 2 * HP;
-  const int y0 = blockIdx.y * TY;
-  const int p0 = blockIdx.x * TXP;
-  const int gy0 = y0 - H;
-  const int gp0 = p0 - HP;
-
-  T* us = reinterpret_cast<T*>(smem_raw);
-  T* bs = us + 2 * RY * RXP;
-
-  mg::load_ptile(u, us, RY, RXP, gy0, gp0, grid);
-  mg::load_ptile(b, bs, RY, RXP, gy0, gp0, grid);
-  __syncthreads();
-  mg::rbgs_ptile(us, bs, RY, RXP, gy0, 2 * gp0, mg::Interior{n}, sweeps, cf);
-  mg::store_pcore<TY, TX>(us, out, RY, RXP, gy0, gp0, y0, 2 * p0, grid);
-}
-
-dim3 rbgs_grid(int n) {
-  const int P = n + 2;
-  const int cp = (P + 1) / 2;
-  return dim3((cp + TXP - 1) / TXP, (P + TY - 1) / TY);
-}
 
 // The whole padded grid as a packed array (packed_tile.cuh's kernels).
 mg::PRect whole(int n) { return mg::PRect{n + 2, n + 2, 0, 0}; }
@@ -123,23 +82,6 @@ int launch_residual(const void* u, const void* b, void* r, int n, double h,
                     double sigma, void* stream) {
   return mg::launch_presidual<T>(u, b, r, whole(n), mg::Interior{n}, h,
                                  sigma, true, stream);
-}
-
-template <typename T>
-int launch_rbgs(const void* u, const void* b, void* out, int n, double h,
-                double sigma, int sweeps, void* stream) {
-  const int H = mg::sweep_halo(mg::kRbgs, sweeps);
-  const int HP = (H + 1) / 2;
-  const size_t bytes =
-      sizeof(T) * 4 * static_cast<size_t>(TY + 2 * H) * (TXP + 2 * HP);
-  const int err = mg::set_smem(rbgs_kernel<T>, bytes);
-  if (err != 0) return err;
-  rbgs_kernel<T><<<rbgs_grid(n), THREADS, bytes,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(b),
-      static_cast<T*>(out), n, mg::Coef<T>::make(h, sigma, 1.0), sweeps, H,
-      HP);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -176,16 +118,6 @@ int mg_packed2d_resnorm_f64(const void* u, const void* b, void* partial,
                             int red_only, int blocks, void* stream) {
   return launch_resnorm<double>(u, b, partial, out, n, h, sigma, red_only,
                                 blocks, stream);
-}
-
-int mg_packed2d_rbgs_f32(const void* u, const void* b, void* out, int n,
-                         double h, double sigma, int sweeps, void* stream) {
-  return launch_rbgs<float>(u, b, out, n, h, sigma, sweeps, stream);
-}
-
-int mg_packed2d_rbgs_f64(const void* u, const void* b, void* out, int n,
-                         double h, double sigma, int sweeps, void* stream) {
-  return launch_rbgs<double>(u, b, out, n, h, sigma, sweeps, stream);
 }
 
 int mg_packed2d_residual_f32(const void* u, const void* b, void* r, int n,

@@ -1,12 +1,15 @@
-// The row-streaming legs: down_kernel and up_kernel, the three frames they
-// run on, their launch geometry and launchers. packed2d.cu instantiates the
-// down leg on the whole packed grid, packed2d_up.cu and packed2d_up_f64.cu
-// the up leg; plocal2d_legs.cu and plocal2d_legs_f64.cu both legs on a
-// shard's packed tile; fused2d.cu the down leg and fused2d_up.cu and
-// fused2d_up_f64.cu the up leg on the unpacked grid (a kernel for each
-// stage count; the files compile in parallel). packed2d.cu's note says what
-// they replace and how they work; plocal2d.cu's what the tile frame adds,
-// fused2d.cu's what the unpacked one does.
+// The row-streaming legs and sweeps: down_kernel, up_kernel and
+// sweep_kernel (the up leg's stream without its coarse operand), the three
+// frames they run on, their launch geometry and launchers. packed2d.cu
+// instantiates the down leg on the whole packed grid, packed2d_up.cu and
+// packed2d_up_f64.cu the up leg, packed2d_sweep.cu the RB-GS sweeps;
+// plocal2d_legs.cu and plocal2d_legs_f64.cu both legs on a shard's packed
+// tile; fused2d.cu the down leg, fused2d_up.cu and fused2d_up_f64.cu the
+// up leg, stencil2d_sweep.cu and stencil2d_sweep_f64.cu the RB-GS and
+// Jacobi sweeps on the unpacked grid (a kernel for each stage count; the
+// files compile in parallel). packed2d.cu's note says what they replace
+// and how they work; plocal2d.cu's what the tile frame adds, fused2d.cu's
+// what the unpacked one does, packed2d_sweep.cu's what the sweeps do.
 #pragma once
 
 #include <cstdint>
@@ -17,9 +20,9 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The row-streaming legs (down_kernel, up_kernel). packed2d.py's
-// leg_geometry computes the launch geometry; its LEG_* constants are
-// these (tests/test_torch_packed.py reads them here).
+// The row-streaming legs (down_kernel, up_kernel, sweep_kernel).
+// packed2d.py's leg_geometry computes the launch geometry; its LEG_*
+// constants are these (tests/test_torch_packed.py reads them here).
 // ---------------------------------------------------------------------------
 
 constexpr int kWarp = 32;      // lanes of a strip: one warp
@@ -210,6 +213,27 @@ __device__ __forceinline__ T residual_of(T bv, T x, T up, T dn, T mid,
   }
 }
 
+// The Jacobi step x + jscale r. The unpacked frame rounds the product and
+// the sum apart, as the plain version's two tensor operations do (nvcc
+// would contract them into one FMA; __fmul_rn is never contracted), so
+// that at sigma = 0 and h a power of two its Jacobi stages round as the
+// plain path does too.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+template <class Fr, typename T>
+__device__ __forceinline__ T jacobi_step(T x, T r, const mg::Coef<T>& cf) {
+  if constexpr (kIsUnpacked<Fr>) {
+    return x + mul_rn(cf.jscale, r);
+  } else {
+    return x + cf.jscale * r;
+  }
+}
+
 // The smoothing stages of one step. In step t (row t loaded, v = t - ys
 // mod kWin, so that every window slot below is a compile-time constant and
 // the rows' parities are v's: ys is even) stage k works on row t - 1 - k,
@@ -221,7 +245,11 @@ __device__ __forceinline__ T residual_of(T bv, T x, T up, T dn, T mid,
 // A point is updated where `upd` holds for its phase and its row lies in
 // [lo, hi] (a test made only where EDGE): each stage makes one more ring of
 // the unit's tile stale, which the halos cover. Jacobi copies every other
-// point of rows [ys, ye).
+// point; it writes its row in every step, also off [ys, ye) (a value no
+// stage or store of the unit reads), so that a stage's window holds only
+// the 3 rows the next stage reads: skipping the write would keep the slot's
+// row of kWin steps before live, all kWin rows of every stage (at K = 8
+// in float32 that took 255 registers and spilled; PERF.md).
 template <typename T, int KIND, int K, int v, bool EDGE, class Fr>
 __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
                                             const T (&B)[2][kWin],
@@ -245,7 +273,6 @@ __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
       const T nv = gs_value<Fr>(B[c][s], U[o][sm], U[o][sp], mid, side, p, cf);
       if (w.upd[p]) U[c][s] = nv;
     } else {
-      if (EDGE && (i < w.ys || i >= w.ye)) continue;
       T(&src)[2][kWin] = k == 0 ? U : J[k > 0 ? k - 1 : 0];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
@@ -256,7 +283,7 @@ __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
         const T side = side_of(mid, p);
         const T r = residual_of<Fr>(B[c][s], x, src[o][sm], src[o][sp], mid,
                                     side, p, cf);
-        J[k][c][s] = live && w.upd[p] ? x + cf.jscale * r : x;
+        J[k][c][s] = live && w.upd[p] ? jacobi_step<Fr>(x, r, cf) : x;
       }
     }
   }
@@ -335,6 +362,22 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
     a0 = w.ok[p0] ? __ldg(g + at + p0) : T(0);
     a1 = w.ok[1 - p0] ? __ldg(g + at + 1 - p0) : T(0);
   }
+}
+
+// A step's load of row i: load_row, but for Jacobi a row past ye reads 0
+// rather than keeping the slot's row of kWin steps before, which no stage
+// reads: that ends the old row's life, so U holds only the rows stage 0
+// reads (RB-GS stages read nearly every slot of U anyway).
+template <int KIND, bool EDGE, typename T, class Fr>
+__device__ __forceinline__ void load_next(const T* __restrict__ g, T& a0,
+                                          T& a1, int i, int par,
+                                          const Unit<Fr>& w, const Fr& f) {
+  if (KIND == mg::kJacobi && EDGE && i >= w.ye) {
+    a0 = T(0);
+    a1 = T(0);
+    return;
+  }
+  load_row<EDGE>(g, a0, a1, i, par, w, f);
 }
 
 // Store both planes of row i (parity par) at this lane, where it owns them.
@@ -513,8 +556,10 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
       constexpr bool EDGE = decltype(edge)::value;
       const int t = t0 + v;
       constexpr int sa = (v + kAhead) & (kWin - 1);
-      load_row<EDGE>(u, U[0][sa], U[1][sa], t + kAhead, v + kAhead, w, f);
-      load_row<EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead, w, f);
+      load_next<KIND, EDGE>(u, U[0][sa], U[1][sa], t + kAhead, v + kAhead, w,
+                            f);
+      load_next<KIND, EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead, w,
+                            f);
 
       smooth_step<T, KIND, K, v, EDGE>(U, B, J, t, w, cf);
 
@@ -589,18 +634,22 @@ __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
   return f.ca.holds(I, J) ? __ldg(e + f.ca.at(I, J)) : T(0);
 }
 
-// Up leg: x' = smooth^K(x + P e); e logical or packed (a template
-// parameter, so the coarse loads carry no branch; only the whole packed
-// grid takes a packed e). P e is added to row t in step t, from coarse
-// rows t >> 1 and (t + 1) >> 1 (loaded with the fine rows, each lane its
-// columns J and J + 1), as prolong_at (common.cuh) computes it, at every
-// global-interior point; stage k works on row t - 1 - k; the store on row
-// t - K.
-template <typename T, int KIND, int K, bool PACKED_E, class Fr>
-__global__ void __launch_bounds__(kLegWarps * kWarp)
-up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
-          const T* __restrict__ b, T* __restrict__ out, Fr f,
-          mg::Coef<T> cf, LegGeom g) {
+// Up leg, x' = smooth^K(x + P e), and the sweep stream, x' = smooth^K(x)
+// (PROLONG false: no coarse operand; its window, loads and add are
+// compiled out, the rest is shared as it is). e logical or packed (a
+// template parameter, so the coarse loads carry no branch; only the whole
+// packed grid takes a packed e). P e is added to row t in step t, from
+// coarse rows t >> 1 and (t + 1) >> 1 (loaded with the fine rows, each lane
+// its columns J and J + 1), as prolong_at (common.cuh) computes it, at
+// every global-interior point; stage k works on row t - 1 - k; the store
+// on row t - K.
+template <typename T, int KIND, int K, bool PACKED_E, bool PROLONG, class Fr>
+__device__ __forceinline__ void up_stream(const T* __restrict__ xin,
+                                          const T* __restrict__ e,
+                                          const T* __restrict__ b,
+                                          T* __restrict__ out, const Fr& f,
+                                          const mg::Coef<T>& cf,
+                                          const LegGeom& g) {
   const int unit = blockIdx.x * kLegWarps + threadIdx.x / kWarp;
   if (unit >= g.strips * g.segs) return;
   constexpr int OUT = K;
@@ -616,28 +665,32 @@ up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
     load_row<true>(xin, U[0][a], U[1][a], w.ys + a, a, w, f);
     load_row<true>(b, B[0][a], B[1][a], w.ys + a, a, w, f);
   }
+  if constexpr (PROLONG) {
 #pragma unroll
-  for (int m = 0; m <= kAhead / 2; ++m) {
-    E0[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.J, f);
-    E1[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.J + 1, f);
+    for (int m = 0; m <= kAhead / 2; ++m) {
+      E0[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.J, f);
+      E1[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.J + 1, f);
+    }
   }
   T(&F)[2][kWin] = (KIND == mg::kJacobi && K > 0) ? J[K > 0 ? K - 1 : 0] : U;
 
   for (int t0 = w.ys; t0 <= t_end; t0 += kWin) {
     // Every row this chunk loads, prolongs, smooths or stores inside the
     // unit: no row tests.
-    const bool steady = t0 >= 1 && t0 + kWin - 1 <= n && t0 - K >= w.lo &&
-                        t0 + kWin - 2 <= w.hi && t0 - OUT >= w.y0 &&
-                        t0 + kWin - 1 - OUT < w.y1 &&
+    const bool steady = (!PROLONG || (t0 >= 1 && t0 + kWin - 1 <= n)) &&
+                        t0 - K >= w.lo && t0 + kWin - 2 <= w.hi &&
+                        t0 - OUT >= w.y0 && t0 + kWin - 1 - OUT < w.y1 &&
                         t0 + kWin - 1 + kAhead < w.ye;
     chunk<KIND == mg::kRbgs>(steady, [&](auto vc, auto edge) {
       constexpr int v = decltype(vc)::value;
       constexpr bool EDGE = decltype(edge)::value;
       const int t = t0 + v;
       constexpr int sa = (v + kAhead) & (kWin - 1);
-      load_row<EDGE>(xin, U[0][sa], U[1][sa], t + kAhead, v + kAhead, w, f);
-      load_row<EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead, w, f);
-      if constexpr (((v + kAhead) & 1) == 1) {
+      load_next<KIND, EDGE>(xin, U[0][sa], U[1][sa], t + kAhead, v + kAhead,
+                            w, f);
+      load_next<KIND, EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead, w,
+                            f);
+      if constexpr (PROLONG && ((v + kAhead) & 1) == 1) {
         // Row t + kAhead is odd: it needs coarse row (t + kAhead + 1) / 2.
         constexpr int m = ((v + kAhead + 1) >> 1) & (kCoarseWin - 1);
         if (!EDGE || t + kAhead < w.ye) {
@@ -648,24 +701,26 @@ up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
       }
 
       // x + P e on row t.
-      constexpr int s = v & (kWin - 1);
-      constexpr int m0 = (v >> 1) & (kCoarseWin - 1);
-      constexpr int m1 = ((v >> 1) + 1) & (kCoarseWin - 1);
-      if (!EDGE || (t < w.ye && t >= 1 && t <= n)) {
+      if constexpr (PROLONG) {
+        constexpr int s = v & (kWin - 1);
+        constexpr int m0 = (v >> 1) & (kCoarseWin - 1);
+        constexpr int m1 = ((v >> 1) + 1) & (kCoarseWin - 1);
+        if (!EDGE || (t < w.ye && t >= 1 && t <= n)) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int p = (c + v) & 1;
-          const int gx = 2 * w.J + p;
-          T a, d;
-          if constexpr ((v & 1) == 1) {
-            a = T(0.5) * (E0[m0] + E0[m1]);
-            d = T(0.5) * (E1[m0] + E1[m1]);
-          } else {
-            a = E0[m0];
-            d = E1[m0];
+          for (int c = 0; c < 2; ++c) {
+            const int p = (c + v) & 1;
+            const int gx = 2 * w.J + p;
+            T a, d;
+            if constexpr ((v & 1) == 1) {
+              a = T(0.5) * (E0[m0] + E0[m1]);
+              d = T(0.5) * (E1[m0] + E1[m1]);
+            } else {
+              a = E0[m0];
+              d = E1[m0];
+            }
+            const T pe = p ? T(0.5) * (a + d) : a;
+            if (gx >= 1 && gx <= n) U[c][s] = U[c][s] + pe;
           }
-          const T pe = p ? T(0.5) * (a + d) : a;
-          if (gx >= 1 && gx <= n) U[c][s] = U[c][s] + pe;
         }
       }
 
@@ -680,9 +735,28 @@ up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
   }
 }
 
+template <typename T, int KIND, int K, bool PACKED_E, class Fr>
+__global__ void __launch_bounds__(kLegWarps * kWarp)
+up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
+          const T* __restrict__ b, T* __restrict__ out, Fr f,
+          mg::Coef<T> cf, LegGeom g) {
+  up_stream<T, KIND, K, PACKED_E, true>(xin, e, b, out, f, cf, g);
+}
+
+// The sweep stream: out = smooth^K(u), K >= 1 stages, on the up leg's
+// rows, lanes and lags. A kernel of its own name, so that a profiler tells
+// the sweeps from the legs on the same frame.
+template <typename T, int KIND, int K, class Fr>
+__global__ void __launch_bounds__(kLegWarps * kWarp)
+sweep_kernel(const T* __restrict__ u, const T* __restrict__ b,
+             T* __restrict__ out, Fr f, mg::Coef<T> cf, LegGeom g) {
+  up_stream<T, KIND, K, false, false>(u, nullptr, b, out, f, cf, g);
+}
+
 // The most stages a leg takes, each count its own kernel: a whole grid's
-// (packed2d.py and fused2d.py: RB-GS 2 max_*_sweeps, Jacobi max_*_sweeps)
-// and a tile's (local2d.py's caps, both legs).
+// (packed2d.py and fused2d.py: RB-GS 2 max_*_sweeps, Jacobi max_*_sweeps;
+// the sweep stream kMaxUpStages: packed2d.max_fused_sweeps and
+// stencil2d.max_fused_sweeps) and a tile's (local2d.py's caps, both legs).
 constexpr int kMaxDownStages = 6;
 constexpr int kMaxUpStages = 8;
 constexpr int kMaxTileStages = 6;
@@ -819,6 +893,57 @@ int launch_up(const void* x, const void* e, const void* b, void* out,
                     : launch_up_k<T, mg::kJacobi, false, MAXK>(
                           K, xt, et, bt, ot, f, cf, g, s);
   }
+}
+
+template <typename T, int KIND, int MAXK, class Fr,
+          int K = (KIND == mg::kRbgs ? 2 : 1)>
+int launch_sweep_k(int stages, const T* u, const T* b, T* out, const Fr& f,
+                   const mg::Coef<T>& cf, const LegGeom& g,
+                   cudaStream_t stream) {
+  if constexpr (K > MAXK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (stages != K) {
+      return launch_sweep_k<T, KIND, MAXK, Fr,
+                            K + (KIND == mg::kRbgs ? 2 : 1)>(
+          stages, u, b, out, f, cf, g, stream);
+    }
+    sweep_kernel<T, KIND, K, Fr>
+        <<<leg_blocks(g), kLegWarps * kWarp, 0, stream>>>(u, b, out, f, cf,
+                                                          g);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// The sweep stream on frame f: out = smooth^K(u), K = leg_stages(kind,
+// sweeps) from 1 to MAXK, on the up leg's geometry (halos of K rows and
+// ceil(K/2) lanes, which the launcher checks); JACOBI: whether the Jacobi
+// kernels are compiled (the packed grid runs RB-GS only). On the unpacked
+// frame u, b and out must start on a pair of T.
+template <typename T, int MAXK, bool JACOBI, class Fr>
+int launch_sweep(const void* u, const void* b, void* out, const Fr& f,
+                 double h, double sigma, int kind, double omega, int sweeps,
+                 const int* geom, void* stream) {
+  const int K = leg_stages(kind, sweeps);
+  LegGeom g;
+  const bool kind_ok = kind == mg::kRbgs || (JACOBI && kind == mg::kJacobi);
+  if (!kind_ok || K < 1 || !leg_geom(geom, f, &g) || g.top < K ||
+      g.bottom < K || 2 * g.hp < K ||
+      (kIsUnpacked<Fr> && !on_pairs<T>(u, b, out))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto cf = mg::Coef<T>::make(h, sigma, omega);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const T* ut = static_cast<const T*>(u);
+  const T* bt = static_cast<const T*>(b);
+  T* ot = static_cast<T*>(out);
+  if constexpr (JACOBI) {
+    if (kind == mg::kJacobi) {
+      return launch_sweep_k<T, mg::kJacobi, MAXK>(K, ut, bt, ot, f, cf, g,
+                                                  s);
+    }
+  }
+  return launch_sweep_k<T, mg::kRbgs, MAXK>(K, ut, bt, ot, f, cf, g, s);
 }
 
 // The tile frame of a leg on the packed tile a of the n x n grid, with the

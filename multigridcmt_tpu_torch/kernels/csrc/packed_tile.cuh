@@ -1,7 +1,7 @@
 // Colour-packed arrays: the neighbour algebra and the whole-array residual
 // and norm kernels shared by packed2d.cu (a whole packed grid) and
-// plocal2d.cu (a shard's packed extended tile), and the shared-memory tile
-// helpers of packed2d.cu's RB-GS sweep kernel.
+// plocal2d.cu (a shard's packed extended tile); the row-streaming legs and
+// sweeps (packed2d_legs.cuh) take PRect and the phase rule.
 //
 // A colour-packed array (PRect) holds the R x C points of a rectangle of the
 // padded grid whose first point has global index (goy, gox) as two planes of
@@ -21,14 +21,6 @@
 // other colour's (i-1, l), (i+1, l), (i, l), and (i, l-1) if p = 0 or
 // (i, l+1) if p = 1. Sums run in the TPU module's order, ((up + down) + same
 // lane) + side lane.
-//
-// Shared-memory tiles are RY rows by RXP lanes of both planes (plane c at
-// s + c * RY * RXP), cut from the array at global row gy0 and array lane
-// gp0; gx0 = gox + 2 gp0 is the global column of the tile's column 0, and a
-// tile column is fine-grid column lx = 2l + p. Smoothing in a tile follows
-// common.cuh: a point is updated only where `upd` holds (mg::Interior or
-// mg::InteriorBox) and off the tile's outer ring of fine points, so each
-// half-sweep makes one more ring stale.
 #pragma once
 
 #include "common.cuh"
@@ -39,16 +31,10 @@ struct PRect {
   int R, C, goy, gox;
 
   __host__ __device__ int lanes() const { return (C + 1) / 2; }
-  // Row gy (global) and array lane gp in the array.
-  __device__ __forceinline__ bool holds(int gy, int gp) const {
-    return gy >= goy && gy < goy + R && gp >= 0 && gp < lanes();
-  }
-  __device__ __forceinline__ size_t at(int c, int gy, int gp) const {
-    return (static_cast<size_t>(c) * R + (gy - goy)) * lanes() + gp;
-  }
 };
 
-// Phase of colour c in global row gy of a tile whose column 0 is global gx0.
+// Phase of colour c in global row gy of an array whose column 0 is global
+// gx0.
 __device__ __forceinline__ int pphase(int c, int gy, int gx0) {
   return (c + gy + gx0) & 1;
 }
@@ -61,9 +47,7 @@ inline InteriorBox tile_inner(const PRect& a, int n) {
 }
 
 // Sum of the four neighbours of the point at lane index k of its plane, read
-// from the other colour's plane o (row pitch `pitch` lanes). I is int in
-// shared-memory tiles (32-bit address arithmetic) and size_t in device
-// memory.
+// from the other colour's plane o (row pitch `pitch` lanes, index type I).
 template <typename T, typename I>
 __device__ __forceinline__ T nsum(const T* o, I k, I pitch, int p) {
   return ((o[k - pitch] + o[k + pitch]) + o[k]) + o[p ? k + 1 : k - 1];
@@ -76,93 +60,6 @@ __device__ __forceinline__ T presidual(const T* uc, const T* uo, T bval,
                                        const Coef<T>& cf) {
   const T v = uc[k];
   return bval - (T(4) * v - nsum(uo, k, pitch, p)) * cf.inv_h2 + cf.sig * v;
-}
-
-// Load both planes of the RY x RXP tile at (gy0, gp0) of the array a into
-// s; points off the array read as 0.
-template <typename T>
-__device__ void load_ptile(const T* __restrict__ g, T* s, int RY, int RXP,
-                           int gy0, int gp0, const PRect& a) {
-  const int plane = RY * RXP;
-  for (int idx = threadIdx.x; idx < 2 * plane; idx += blockDim.x) {
-    const int c = idx >= plane;
-    const int k = idx - c * plane;
-    const int ly = k / RXP;
-    const int gy = gy0 + ly;
-    const int gp = gp0 + k - ly * RXP;
-    s[idx] = a.holds(gy, gp) ? g[a.at(c, gy, gp)] : T(0);
-  }
-}
-
-// Write the points of tile s (RY x RXP lanes at (gy0, gp0)) whose global
-// indices lie in the core [y0, y0 + TY) x [x0, x0 + TX) to the array a, so
-// that blocks whose cores partition the grid write every point once. The
-// core may start on either column of a lane; TX is even, so it spans at most
-// TX/2 + 1 lanes of a row.
-template <int TY, int TX, typename T>
-__device__ void store_pcore(const T* s, T* __restrict__ g, int RY, int RXP,
-                            int gy0, int gp0, int y0, int x0,
-                            const PRect& a) {
-  constexpr int W = TX / 2 + 1;
-  const int plane = RY * RXP;
-  const int gx0 = a.gox + 2 * gp0;
-  const int l0 = (x0 - gx0) >> 1;
-  for (int idx = threadIdx.x; idx < 2 * TY * W; idx += blockDim.x) {
-    const int c = idx >= TY * W;
-    const int k = idx - c * TY * W;
-    const int cy = k / W;
-    const int l = l0 + k - cy * W;
-    const int gy = y0 + cy;
-    const int gx = gx0 + 2 * l + pphase(c, gy, gx0);
-    if (gx >= x0 && gx < x0 + TX && l < RXP && a.holds(gy, gp0 + l)) {
-      g[a.at(c, gy, gp0 + l)] = s[c * plane + (gy - gy0) * RXP + l];
-    }
-  }
-}
-
-// True if the colour-c point at tile lane index k may be updated: `upd`
-// holds there and it is off the tile's outer ring of fine points, so that
-// its four neighbours are in the tile. Sets *p to its phase.
-template <typename Upd>
-__device__ __forceinline__ bool updatable(int c, int k, int RY, int RXP,
-                                          int gy0, int gx0, const Upd& upd,
-                                          int* p) {
-  const int ly = k / RXP;
-  const int l = k - ly * RXP;
-  const int gy = gy0 + ly;
-  *p = pphase(c, gy, gx0);
-  const int lx = 2 * l + *p;
-  return ly >= 1 && ly <= RY - 2 && lx >= 1 && lx <= 2 * RXP - 2 &&
-         upd(gy, gx0 + lx);
-}
-
-// One RB-GS half-sweep of colour c, in place on plane c of s.
-template <typename T, typename Upd>
-__device__ void half_sweep(T* s, const T* bs, int RY, int RXP, int gy0,
-                           int gx0, const Upd& upd, int c,
-                           const Coef<T>& cf) {
-  const int plane = RY * RXP;
-  T* uc = s + c * plane;
-  const T* uo = s + (1 - c) * plane;
-  const T* bc = bs + c * plane;
-  for (int k = threadIdx.x; k < plane; k += blockDim.x) {
-    int p;
-    if (!updatable(c, k, RY, RXP, gy0, gx0, upd, &p)) continue;
-    uc[k] = (cf.h2 * bc[k] + nsum(uo, k, RXP, p)) * cf.inv_den;
-  }
-}
-
-// `sweeps` RB-GS sweeps in place on the packed tile s.
-template <typename T, typename Upd>
-__device__ void rbgs_ptile(T* s, const T* bs, int RY, int RXP, int gy0,
-                           int gx0, const Upd& upd, int sweeps,
-                           const Coef<T>& cf) {
-  for (int i = 0; i < sweeps; ++i) {
-    half_sweep(s, bs, RY, RXP, gy0, gx0, upd, 0, cf);
-    __syncthreads();
-    half_sweep(s, bs, RY, RXP, gy0, gx0, upd, 1, cf);
-    __syncthreads();
-  }
 }
 
 // Sum of `v` over a block of NT threads, valid in thread 0.

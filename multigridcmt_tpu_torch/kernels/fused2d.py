@@ -64,15 +64,16 @@ def _frame(n: int) -> dict:
 def leg_geometry(leg: str, n: int, kind: str, sweeps: int, *,
                  sm_count: int = 132) -> packed2d.LegGeometry:
     """The row-streaming geometry (``packed2d.leg_geometry``) of the down
-    or up leg on the unpacked (n+2)^2 grid."""
+    or up leg, or of the sweep stream (``stencil2d``'s sweeps), on the
+    unpacked (n+2)^2 grid."""
     return packed2d.leg_geometry(leg, n, kind, sweeps, sm_count=sm_count,
                                  **_frame(n))
 
 
 def _launch_geometry(leg: str, n: int, kind: str, sweeps: int,
                      t: torch.Tensor):
-    """The leg's geometry on t's card (packed2d._launch_geometry on this
-    frame)."""
+    """The leg's (or sweep stream's) geometry on t's card
+    (packed2d._launch_geometry on this frame)."""
     return packed2d._launch_geometry(leg, n, kind, sweeps,
                                      t.device.index or 0, **_frame(n))
 

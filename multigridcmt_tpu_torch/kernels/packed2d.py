@@ -11,8 +11,9 @@ The lane past a row's last point of its colour is a pad and stays zero.
 solve, in plain PyTorch.
 
 Replaces five TPU kernels of that module with ``csrc/packed2d.cu`` (the
-legs in ``csrc/packed2d_legs.cuh``; see the note in ``packed2d.cu`` on what
-bounds them and how they work on the card):
+legs and sweeps in ``csrc/packed2d_legs.cuh``, instantiated by
+``packed2d.cu``, ``packed2d_up*.cu`` and ``packed2d_sweep.cu``; see the
+notes there on what bounds them and how they work on the card):
   * ``smooth_residual_restrict``: the whole down leg; after an RB-GS sweep
     the black residual is taken as zero (the closing black half-sweep
     zeroes it in exact arithmetic) and only the red residual is restricted;
@@ -26,7 +27,8 @@ bounds them and how they work on the card):
     and the residual applies of its Chebyshev and Jacobi smoothing;
   * ``rbgs_sweep``: up to ``max_fused_sweeps()`` RB-GS sweeps in one pass,
     the smoothing of a packed level whose leg has more sweeps than a fused
-    leg takes.
+    leg takes: the up leg's row stream without its coarse operand
+    (``leg_geometry("sweep", ...)``).
 
 Each wrapper has its plain PyTorch version beside it: unpack, the ``ops/``
 composition, pack. Device rule (``_wrap``): a CPU tensor takes the plain
@@ -119,7 +121,8 @@ def _check_fine(n: int) -> None:
         raise ValueError(f"fine n={n} must be odd and >= 3 (n = 2*nc + 1)")
 
 
-# The row-streaming legs (csrc/packed2d_legs.cuh down_kernel, up_kernel).
+# The row-streaming legs and sweeps (csrc/packed2d_legs.cuh down_kernel,
+# up_kernel, sweep_kernel).
 # Each warp streams its own strip of LEG_LANES lanes down a segment of rows,
 # in registers: LEG_AHEAD rows loaded ahead, a window of LEG_WINDOW rows
 # (and LEG_COARSE_WINDOW coarse rows in the up leg); these are the kernel
@@ -137,10 +140,10 @@ LEG_WARPS_PER_SM = 16
 
 @dataclasses.dataclass(frozen=True)
 class LegGeometry:
-    """Launch geometry of a row-streaming leg (see csrc/packed2d.cu's note)
-    on a frame: the whole packed grid, the whole unpacked grid
-    (``fused2d.leg_geometry``: the same rows and lanes) or a shard's packed
-    tile (``plocal2d.leg_geometry``).
+    """Launch geometry of a row-streaming leg or sweep stream (see
+    csrc/packed2d.cu's note) on a frame: the whole packed grid, the whole
+    unpacked grid (``fused2d.leg_geometry``: the same rows and lanes) or a
+    shard's packed tile (``plocal2d.leg_geometry``).
 
     Rows are global rows: the frame's array rows are ``count`` rows from
     global row ``first``; rb is the even row at or above ``first``. Unit
@@ -152,8 +155,9 @@ class LegGeometry:
     to ``bottom`` below its last. In step t row t has been loaded;
     smoothing stage k (an RB-GS half-sweep or a Jacobi sweep) works on row
     t - 1 - k, the down leg's residual (and store) on row t - out_lag and
-    its restriction on fine row t - out_lag - 1, the up leg's store on row
-    t - out_lag; stages run in that order within a step. Each lane keeps
+    its restriction on fine row t - out_lag - 1, the up leg's (and the
+    sweep stream's) store on row t - out_lag; stages run in that order
+    within a step. Each lane keeps
     LEG_WINDOW rows (and LEG_COARSE_WINDOW coarse rows) in registers;
     nothing is in shared memory."""
     leg: str
@@ -204,32 +208,34 @@ def leg_geometry(leg: str, n: int, kind: str, sweeps: int, *,
                  rows: int | None = None, first: int = 0,
                  lanes: int | None = None,
                  min_seg: int | None = None) -> LegGeometry:
-    """Geometry of the down (``leg="down"``) or up leg with ``sweeps``
-    sweeps of ``kind`` on the packed (n+2)^2 grid, or on a frame of
-    ``rows`` array rows from global row ``first`` and ``lanes`` lanes;
-    ``seg`` overrides the segment rows the launch would choose for
-    ``sm_count`` SMs, segments of at least ``min_seg`` rows (default
-    LEG_MIN_SEG).
+    """Geometry of the down (``leg="down"``) or up leg, or of the sweep
+    stream (``leg="sweep"``: the up leg without its coarse operand, on the
+    up leg's halos and lags), with ``sweeps`` sweeps of ``kind`` on the
+    packed (n+2)^2 grid, or on a frame of ``rows`` array rows from global
+    row ``first`` and ``lanes`` lanes; ``seg`` overrides the segment rows
+    the launch would choose for ``sm_count`` SMs, segments of at least
+    ``min_seg`` rows (default LEG_MIN_SEG).
 
     Halos: each stage makes one more ring of a unit's tile stale, so the up
-    leg's K stages need K rows above and below and ceil(K/2) lanes each
-    side; the down leg also needs the residual one row past its rows
-    (K + 2 above, K + 1 below, ceil((K + 2)/2) lanes). The rows above are
-    rounded up to even, so each unit starts on an even row and the kernel
-    knows every row's parity at compile time. Lags: a stage reads rows
-    i - 1 .. i + 1 of the one before it, which reached row i + 1 earlier in
-    the same step, so consecutive stages are one row apart."""
+    leg's (and the sweep stream's) K stages need K rows above and below
+    and ceil(K/2) lanes each side; the down leg also needs the residual one
+    row past its rows (K + 2 above, K + 1 below, ceil((K + 2)/2) lanes).
+    The rows above are rounded up to even, so each unit starts on an even
+    row and the kernel knows every row's parity at compile time. Lags: a
+    stage reads rows i - 1 .. i + 1 of the one before it, which reached row
+    i + 1 earlier in the same step, so consecutive stages are one row
+    apart."""
     stages = 2 * sweeps if kind == "rbgs" else sweeps
     p = n + 2 if rows is None else rows
     cp = (n + 3) // 2 if lanes is None else lanes
     if leg == "down":
         halo, top, bottom, out_lag = ((stages + 3) // 2, stages + 2,
                                       stages + 1, stages + 1)
-    elif leg == "up":
+    elif leg in ("up", "sweep"):
         halo, top, bottom, out_lag = ((stages + 1) // 2, stages, stages,
                                       stages)
     else:
-        raise ValueError(f"leg {leg!r}: down or up")
+        raise ValueError(f"leg {leg!r}: down, up or sweep")
     top += top & 1
     strip = LEG_LANES - 2 * halo
     strips = -(-cp // strip)
@@ -258,10 +264,10 @@ def _sm_count(index: int) -> int:
 def _launch_geometry(leg: str, n: int, kind: str, sweeps: int, index: int,
                      rows: int | None = None, first: int = 0,
                      lanes: int | None = None, min_seg: int | None = None):
-    """The leg's geometry on card ``index``, as the kernel's int array,
-    built once for each leg, frame (``leg_geometry``'s; the whole grid by
-    default, the unpacked grid from ``fused2d``, a shard's tile from
-    ``plocal2d``), schedule, least segment and card."""
+    """The leg's (or sweep stream's) geometry on card ``index``, as the
+    kernel's int array, built once for each leg, frame (``leg_geometry``'s;
+    the whole grid by default, the unpacked grid from ``fused2d``, a
+    shard's tile from ``plocal2d``), schedule, least segment and card."""
     g = leg_geometry(leg, n, kind, sweeps, sm_count=_sm_count(index),
                      rows=rows, first=first, lanes=lanes, min_seg=min_seg)
     return (ctypes.c_int * 7)(*g.ints())
@@ -428,7 +434,8 @@ def rbgs_sweep_plain(s, bs, n, h, *, sweeps=1, sigma=0.0):
 def rbgs_sweep(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
                sweeps: int = 1, sigma=0.0) -> torch.Tensor:
     """``sweeps`` (1 to ``max_fused_sweeps()``) red+black Gauss-Seidel
-    sweeps on packed grids in one pass; ghosts and pad lanes stay zero."""
+    sweeps on packed grids in one pass (the row-streaming sweep kernel);
+    ghosts and pad lanes stay zero."""
     global rbgs_launches
     check_storage("packed2d.rbgs_sweep", s)
     if not 1 <= sweeps <= max_fused_sweeps():
@@ -441,6 +448,8 @@ def rbgs_sweep(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
         return rbgs_sweep_plain(s, bs, n, h, sweeps=sweeps, sigma=sigma)
     out = torch.empty_like(s)
     launch_on(s, "packed2d_rbgs", s.data_ptr(), bs.data_ptr(),
-              out.data_ptr(), n, float(h), float(sigma), sweeps)
+              out.data_ptr(), n, float(h), float(sigma), sweeps,
+              _launch_geometry("sweep", n, "rbgs", sweeps,
+                               s.device.index or 0))
     rbgs_launches += 1
     return out

@@ -2,15 +2,19 @@
 fused RB-GS and Jacobi sweeps.
 
 Replace the TPU kernels of ``multigridcmt_tpu/kernels/stencil2d.py`` with
-``csrc/stencil2d.cu`` (see the note there on what bounds them):
+``csrc/stencil2d.cu`` and ``csrc/stencil2d_sweep*.cu`` (see the notes there
+on what bounds them):
   * ``residual``: r = b - (A - sigma I) u in one pass, one CUDA thread a
     point. The solve's convergence check on an unpacked kernel-tier fine
     level (255 <= n < PACK_MIN_N) and MG-PCG's operator apply there run
     through it, and so do the Chebyshev smoother's residual applies on the
     kernel-tier levels; a color-packed level uses ``packed2d`` instead;
   * ``rbgs_sweep`` and ``jacobi_sweep``: up to ``max_fused_sweeps(kind)``
-    sweeps in one pass (2D thread-block tiles in shared memory with a halo
-    that covers the sweeps' staleness). The kernel backend smooths a
+    sweeps in one pass: ``csrc/packed2d_legs.cuh``'s row-streaming sweep
+    kernel (the up leg's stream without its coarse operand) on the
+    unpacked frame of the ``fused2d`` legs, each stencil summed in the
+    plain versions' order, on ``fused2d``'s rows, lanes and least segment
+    (``fused2d.leg_geometry("sweep", ...)``). The kernel backend smooths a
     kernel-tier level with them where a leg has more sweeps than a fused
     leg takes, in chunks of that many.
 
@@ -22,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import laplacian, smoothers
-from . import _build
+from . import _build, fused2d
 from ._wrap import check_grid, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
@@ -73,10 +77,12 @@ def _sweep(kind: str, u, b, n, h, omega, sigma, sweeps) -> torch.Tensor:
             return rbgs_sweep_plain(u, b, n, h, sigma=sigma, sweeps=sweeps)
         return jacobi_sweep_plain(u, b, n, h, omega, sigma=sigma,
                                   sweeps=sweeps)
+    u, b = fused2d._on_pair(u), fused2d._on_pair(b)
     out = torch.empty_like(u)
     launch_on(u, "stencil2d_sweep", u.data_ptr(), b.data_ptr(),
               out.data_ptr(), n, float(h), float(sigma),
-              _build.KIND_CODES[kind], float(omega), sweeps)
+              _build.KIND_CODES[kind], float(omega), sweeps,
+              fused2d._launch_geometry("sweep", n, kind, sweeps, u))
     if kind == "rbgs":
         rbgs_launches += 1
     else:

@@ -5,13 +5,15 @@
     python -m multigridcmt_tpu_torch.utils.breakdown --nu1 4 --nu2 4
     python -m multigridcmt_tpu_torch.utils.breakdown --ndim 3 [--k 9]
     python -m multigridcmt_tpu_torch.utils.breakdown --mesh rows|block
+    python -m multigridcmt_tpu_torch.utils.breakdown --sweeps
 
 For each route of the float32 V(nu1,nu2) cycle (default RB-GS V(2,2)) at
 2^k - 1 (k=12: 4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA
 events, median of 20), the host-clock time of 20 cycles back to back, the
 device-busy time a cycle and the device ops a cycle (``torch.profiler``,
-summed over the kernel rows), of it the device time of the fused2d legs and
-of the packed2d legs (by kernel name), the idle share 1 - busy/cycle, and
+summed over the kernel rows), of it the device time of the fused2d and
+packed2d legs and of the stencil2d and packed2d sweeps (by kernel name),
+the idle share 1 - busy/cycle, and
 the solve's cycle count, wall time and peak device memory. The routes: the
 kernel backend as shipped; the same with the finest level unpacked
 (PACK_MIN_N above n, so the unpacked kernels run there); the plain
@@ -45,6 +47,10 @@ local2d (unpacked) at nu = 0, 1, 2 and the cap, beside the packed2d legs
 on the whole grid; at the next level the local2d legs beside the fused2d
 legs on the whole grid.
 
+With ``--sweeps``, only the fused sweeps as the composed cycles (RB-GS
+V(4,4), Jacobi V(8,8)) run them, single/chained/device, at each of their
+levels.
+
 Informative only: nothing is checked. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -72,12 +78,22 @@ SHARDED_KERNELS = {
     "local2d kernels": re.compile(r"(?<!\w)local_"),
     "plocal2d legs": re.compile(r"(?<!\w)plocal_(down|up)|(?<!\w)Tile(?!\w)"),
 }
-# The single-device route's leg kernels by name: the fused2d legs (the
-# row-streaming down_kernel and up_kernel on the Unpacked frame) and the
-# packed2d legs (the Whole frame).
+# The single-device route's row-streaming kernels by name: the fused2d
+# legs (down_kernel and up_kernel on the Unpacked frame), the packed2d legs
+# (the Whole frame), and the sweeps on each frame (sweep_kernel: stencil2d
+# on Unpacked, packed2d on Whole). The sweep groups also take the
+# shared-memory sweeps that came before the row stream (a frameless
+# sweep_kernel and rbgs_kernel), so that a tree from before it, timed in
+# turns with this tool, reads the same groups.
+_LEG = r"(?<!\w)(down|up)_kernel<.*(?<!\w){}(?!\w)"
+_SWEEP = r"(?<!\w)sweep_kernel<.*(?<!\w){}(?!\w)"
 ROUTE_KERNELS = {
-    "fused2d legs": re.compile(r"(?<!\w)Unpacked(?!\w)"),
-    "packed2d legs": re.compile(r"(?<!\w)Whole(?!\w)"),
+    "fused2d legs": re.compile(_LEG.format("Unpacked")),
+    "packed2d legs": re.compile(_LEG.format("Whole")),
+    "stencil2d sweeps": re.compile(_SWEEP.format("Unpacked")
+                                   + r"|(?<!\w)sweep_kernel<(float|double)>"),
+    "packed2d sweeps": re.compile(_SWEEP.format("Whole")
+                                  + r"|(?<!\w)rbgs_kernel<"),
 }
 # Cycles of the chain a timing of v_cycles_fn runs.
 CHAIN = 20
@@ -374,6 +390,32 @@ def print_level(n: int, row: dict) -> None:
         flush=True)
 
 
+def sweeps() -> None:
+    """The fused sweeps as the composed cycles run them: the packed RB-GS
+    sweep at 4095^2 (nu = 4, path B's, and nu = 1, the smoother figure),
+    the stencil2d RB-GS sweep at nu = 4 at 2047...255 (B) and the Jacobi
+    sweep at nu = 8 at 1023...255 (C), each single/chained/device."""
+    n = 4095
+    h = 1.0 / (n + 1)
+    u, b, _ = grids(n, seed=12)
+    su, sb = packed2d.pack(u), packed2d.pack(b)
+    del u, b
+    print_level(n, {f"packed2d rbgs nu={nu}": (
+        lambda nu=nu: packed2d.rbgs_sweep(su, sb, n, h, sweeps=nu))
+        for nu in (4, 1)})
+    del su, sb
+    for n in (2047, 1023, 511, 255):
+        h = 1.0 / (n + 1)
+        u, b, _ = grids(n, seed=n)
+        row = {"stencil2d rbgs nu=4": lambda: stencil2d.rbgs_sweep(
+            u, b, n, h, sweeps=4)}
+        if n <= 1023:
+            row["stencil2d jacobi nu=8"] = lambda: stencil2d.jacobi_sweep(
+                u, b, n, h, 0.8, sweeps=8)
+        print_level(n, row)
+        del u, b
+
+
 def levels3(k: int) -> None:
     for j in range(k, 2, -1):
         n = 2 ** j - 1
@@ -400,6 +442,8 @@ def main() -> None:
     ap.add_argument("--nu2", type=int, default=2)
     ap.add_argument("--mesh", choices=("rows", "block"), default=None,
                     help="break down the sharded 2D cycle on a mesh of 1")
+    ap.add_argument("--sweeps", action="store_true",
+                    help="time the fused sweeps of the composed cycles only")
     args = ap.parse_args()
     k = args.k if args.k is not None else {2: 12, 3: 9}[args.ndim]
     schedule = dict(smoother=args.smoother, nu1=args.nu1, nu2=args.nu2)
@@ -407,6 +451,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
+    if args.sweeps:
+        sweeps()
+        return
     if args.mesh is not None:
         sharded_routes(k, args.reps, args.mesh, schedule)
         return

@@ -1,7 +1,9 @@
-"""Device time of the fused2d legs (the row stream on the unpacked frame)
-for each least segment.
+"""Device time of the fused2d legs (the row stream on the unpacked frame),
+or of the stencil2d sweeps (the same frame's sweep stream), for each least
+segment.
 
     python -m multigridcmt_tpu_torch.utils.leg_segments [--rounds 2]
+    python -m multigridcmt_tpu_torch.utils.leg_segments --sweeps
 
 Float32 RB-GS, nu = 2, sigma = 0, random grids at 2047^2, 1023^2, 511^2
 and 255^2: ``fused2d.MIN_SEG`` set to each value in SEGMENTS, both legs
@@ -12,7 +14,10 @@ time a call with no host work between the launches; a chained call of
 these legs through Python reads the host's launch rate at 2047^2 and
 below) and as 20 chained calls. The values go in turns, forward then
 backward, ``--rounds`` times. ``fused2d.MIN_SEG`` is set from its output.
-Needs a CUDA device.
+With ``--sweeps``, the stencil2d sweeps as paths B and C run them (RB-GS
+nu = 4 at 2047...255, Jacobi nu = 8 at 1023...255) for each value in
+SWEEP_SEGMENTS instead (longer ones too: with 8 stages a unit recomputes
+16 halo rows). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -22,11 +27,12 @@ import subprocess
 
 import torch
 
-from multigridcmt_tpu_torch.kernels import fused2d
+from multigridcmt_tpu_torch.kernels import fused2d, stencil2d
 from multigridcmt_tpu_torch.utils.breakdown import grids
 from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
 SEGMENTS = (6, 8, 10, 16, 32, 64)
+SWEEP_SEGMENTS = (6, 16, 32, 64, 96, 128)
 SWEEPS = 2
 
 
@@ -84,16 +90,44 @@ def segments(rounds: int) -> None:
         fused2d.MIN_SEG = shipped
 
 
+def sweep_segments(rounds: int) -> None:
+    shipped = fused2d.MIN_SEG
+    order = list(SWEEP_SEGMENTS)
+    try:
+        for n in (2047, 1023, 511, 255):
+            h = 1.0 / (n + 1)
+            u, b, _ = grids(n, seed=n)
+            # name -> (kind, sweeps, call)
+            calls = {"rbgs nu=4": ("rbgs", 4, lambda: stencil2d.rbgs_sweep(
+                u, b, n, h, sweeps=4))}
+            if n <= 1023:
+                calls["jacobi nu=8"] = ("jacobi", 8, lambda: (
+                    stencil2d.jacobi_sweep(u, b, n, h, 0.8, sweeps=8)))
+            for _ in range(rounds):
+                for seg in order + order[::-1]:
+                    fused2d.MIN_SEG = seg
+                    print(f"n={n} MIN_SEG={seg}: " + ", ".join(
+                        f"{name} (segments of "
+                        f"{fused2d.leg_geometry('sweep', n, kind, nu).seg}) "
+                        f"{graph_ms(fn):.4f}/{chained_ms(fn):.4f}"
+                        for name, (kind, nu, fn) in calls.items()),
+                        flush=True)
+    finally:
+        fused2d.MIN_SEG = shipped
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--sweeps", action="store_true",
+                    help="the stencil2d sweeps instead of the legs")
     args = ap.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     print("readings: ms a call (graph/chained)", flush=True)
-    segments(args.rounds)
+    (sweep_segments if args.sweeps else segments)(args.rounds)
 
 
 if __name__ == "__main__":

@@ -271,8 +271,9 @@ def test_v_cycle_on_packed_level_matches_plain_route(monkeypatch):
 
 # ---------------------------------------------------------------------------
 # The row-streaming legs' launch geometry (packed2d.leg_geometry), which
-# csrc/packed2d_legs.cuh's down_kernel and up_kernel take as they are. The CUDA
-# kernels run only on the card; here a step-by-step emulation of their
+# csrc/packed2d_legs.cuh's down_kernel, up_kernel and sweep_kernel take as
+# they are (the sweep stream's cases are in test_torch_sweep_stream.py).
+# The CUDA kernels run only on the card; here a step-by-step emulation of their
 # schedule (one warp's unit at a time, its register window and lags as in
 # the kernel, stages in the kernel's order within a step) runs on the
 # geometry and is held against the plain versions. On every read it asserts
@@ -386,7 +387,8 @@ class LegFrame:
 
 def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                  packed_coarse=False, frame=None):
-    """csrc/packed2d_legs.cuh's down_kernel (e None) or up_kernel on
+    """csrc/packed2d_legs.cuh's down_kernel, up_kernel (with e) or
+    sweep_kernel (the up leg's stream without e), as g.leg says, on
     geometry g and frame (the whole packed grid when None), unit by unit;
     returns u' and the coarse residual (down) or x'. Rows are global; stage
     k works on row t - 1 - k of step t. On the unpacked frame s, bs and u'
@@ -396,7 +398,9 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
     n, K, TW, hp = g.n, g.stages, packed2d.LEG_LANES, g.halo_lanes
     cpa = s.shape[1] if f.unpacked else s.shape[2]
     h2, inv_h2, sig, inv_den, jscale = _coefs(h, sigma, omega)
-    down = e is None
+    down = g.leg == "down"
+    up = g.leg == "up"             # the sweep stream: neither
+    assert (e is not None) == up
     red_only = kind == "rbgs" and sweeps >= 1 and not f.unpacked
     out = np.zeros_like(s)
     out_w = np.zeros(s.shape, dtype=int)
@@ -478,10 +482,15 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
 
             def load(i):
                 if i >= ye:
+                    if kind == "jacobi":
+                        # The kernel's Jacobi stream writes 0 (load_next),
+                        # a row no step may read.
+                        ur.put(i, np.full((2, TW), np.nan))
+                        br.put(i, np.full((2, TW), np.nan))
                     return
                 ur.put(i, arow(s, i))
                 br.put(i, arow(bs, i))
-                if not down and i & 1 and i >= ys + A:
+                if up and i & 1 and i >= ys + A:
                     load_coarse((i + 1) >> 1)
 
             def nbrs(win, i, c, p):
@@ -538,7 +547,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
 
             def smooth(t, k):
                 i = t - 1 - k
-                if not down and live(i):
+                if up and live(i):
                     assert all(r in prolonged for r in (i - 1, i, i + 1))
                 if kind == "rbgs":
                     if not live(i):
@@ -554,6 +563,8 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     ur.count[ur.slot(i), c] += 1
                     return
                 if not ys <= i < ye:
+                    # The kernel writes a value here no step may read.
+                    js[k].put(i, np.full((2, TW), np.nan))
                     return
                 src = js[k - 1] if k else ur
                 rows = np.empty((2, TW))
@@ -588,7 +599,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 elif kind == "rbgs" and live(i):
                     finished(i)
                 if y0 <= i < y1:
-                    if not down:
+                    if up:
                         assert i in prolonged
                     for c in (0, 1):
                         p = (c + i) & 1
@@ -638,7 +649,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 t_end = last_even + g.out_lag + 1
             else:
                 t_end = y1 - 1 + g.out_lag
-                for m in range(A // 2 + 1):
+                for m in range(A // 2 + 1 if up else 0):
                     load_coarse((ys >> 1) + m)
             for i in range(A):
                 load(ys + i)
@@ -653,7 +664,8 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                               and t0 + W - 2 <= hi and t0 + W - 1 - K1 < y1
                               and t0 + W - 1 + A < ye)
                 else:
-                    steady = (t0 >= 1 and t0 + W - 1 <= n and t0 - K >= lo
+                    steady = ((not up or (t0 >= 1 and t0 + W - 1 <= n))
+                              and t0 - K >= lo
                               and t0 + W - 2 <= hi and t0 - K1 >= y0
                               and t0 + W - 1 - K1 < y1
                               and t0 + W - 1 + A < ye)
@@ -664,14 +676,14 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     if down:
                         assert lo <= t - K1 <= hi
                         assert y0 <= t - K1 - 1 < y1
-                    else:
+                    elif up:
                         assert 1 <= t <= n
                     n_steady[0] += 1
                 load(t + A)
                 for win in (ur, br, *js):
                     win.limit = t
                 cs.limit = (t + 1) >> 1
-                if not down:
+                if up:
                     prolong(t)
                 for k in range(K):
                     smooth(t, k)
