@@ -54,8 +54,8 @@ Phases:
      local2d kernels against their plain versions on
      each of S1-S4's own fine tiles with the sweeps that path runs, and on
      tiles with nonzero global offsets (a rank of an 8-way row split of
-     4095^2, a rank of a 2x2 block split of 2047^2), since a mesh of 1 has
-     none; the plocal2d kernels on the packed form of S1's fine tile and of
+     4095^2, a rank of a 2x2 block split of 2047^2; the legs at RB-GS
+     nu = 0...3 and Jacobi nu = 3 and 6), since a mesh of 1 has none; the plocal2d kernels on the packed form of S1's fine tile and of
      those offset tiles (the block one has the other packing phase), in
      float64 on two 255^2 ranks (the legs at every sweep count), and the
      legs at every sweep count on a 2999^2 rank whose row stream ends in a
@@ -85,7 +85,8 @@ Phases:
      BELL), one sharded V(2,2) cycle at S1 and S2 beside the single-device
      cycle at the same k, one S1 cycle in a chain of 20 (v_cycles_fn),
      packed and unpacked in turns, each local2d kernel at S1's fine tile
-     against its plain version, each plocal2d kernel at S1's packed tile
+     against its plain version (and the local2d legs' device time at S1's
+     4095 and 2047 tiles and S2's block tile), each plocal2d kernel at S1's packed tile
      against its plain version and beside its local2d twin (the two legs
      and their twins also single and chained at nu = 0, 1, 2 and the cap),
      and the peak device memory of the solves. Every kernel row also
@@ -439,7 +440,7 @@ def phase_setup(rendezvous: str):
 # A row-streaming leg or sweep kernel's mangled name: leg (or sweep), type
 # (f float, d double), kind (0 Jacobi, 1 RB-GS), stages, frame.
 LEG_KERNEL = re.compile(r"(down|up|sweep)_kernelI([fd])Li(\d)ELi(\d+)E"
-                        r"(?:Lb([01])E)?NS_\d+(Whole|Tile|Unpacked)E")
+                        r"(?:Lb([01])E)?NS_\d+(Whole|Tile|Unpacked|UTile)E")
 
 
 def ptxas_report(log_path) -> None:
@@ -1066,7 +1067,9 @@ def compare_local2d(main_err: dict) -> None:
     8-way row split of 4095^2 (rank 3, m = 512) and of a 2x2 block split of
     2047^2 (rank (1, 1), mcol > 0), float32 and float64, sigma 0 and
     SIGMA: the only place on the card where nonzero offsets and their
-    parity run; and on each sharded path's own fine tile (a mesh of 1,
+    parity run (the legs' row stream takes paired accesses on the row
+    tile's odd rows and none on the block tile; odd and even stage counts
+    put its stores on either parity); and on each sharded path's own fine tile (a mesh of 1,
     float32, offsets -7; S4cheb's residual is S4's) with the kernels and
     sweeps that path runs there. Each kernel's main-path error is that of
     the path the kernels line names for it. Whole tiles are compared: the
@@ -1075,8 +1078,9 @@ def compare_local2d(main_err: dict) -> None:
     off_path += [(kind, kind, nu) for kind, nus in (("rbgs", (1, 4)),
                                                     ("jacobi", (1, 8)))
                  for nu in nus]
-    off_path += [(leg, kind, nu) for kind, nu in (("rbgs", 0), ("rbgs", 2),
-                                                  ("rbgs", 3), ("jacobi", 6))
+    off_path += [(leg, kind, nu) for kind, nu in (("rbgs", 0), ("rbgs", 1),
+                                                  ("rbgs", 2), ("rbgs", 3),
+                                                  ("jacobi", 3), ("jacobi", 6))
                  for leg in ("down", "up")]
     for dtype in (torch.float32, torch.float64):
         for n, dr, r, dc, c in LOCAL2D_TILES:
@@ -1329,10 +1333,10 @@ KERNELS = {
                   "multigridcmt_tpu_torch/kernels/csrc/bell.cu",
                   "multigridcmt_tpu/kernels/bell.py:180", "bell"),
     "local2d_down": ("local2d", "down_launches",
-                     "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                     "multigridcmt_tpu_torch/kernels/csrc/local2d_legs.cu",
                      "multigridcmt_tpu/kernels/local2d.py:616", "S1"),
     "local2d_up": ("local2d", "up_launches",
-                   "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                   "multigridcmt_tpu_torch/kernels/csrc/local2d_legs.cu",
                    "multigridcmt_tpu/kernels/local2d.py:843", "S1"),
     "local2d_residual": ("local2d", "residual_launches",
                          "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
@@ -2695,11 +2699,14 @@ def timed_sharded(times: dict) -> None:
     """One sharded V(2,2) RB-GS cycle at S1 and S2 (``v_cycle_fn``: owned
     tiles in and out; it runs the unpacked legs at any PACK_MIN_N, as JAX's
     per-application entry does) beside the single-device cycle at the same
-    k, in turns; and each local2d kernel at S1's fine tile (4112 x 4097
-    float32, a mesh of 1) against its plain version."""
+    k, in turns; each local2d kernel at S1's fine tile (4112 x 4097
+    float32, a mesh of 1) against its plain version; and the local2d legs'
+    device time a call (RB-GS nu = 2) at S1's 4095 and 2047 tiles and at
+    S2's 2047^2 block tile."""
     import multigridcmt_tpu_torch as mt
     from multigridcmt_tpu_torch.kernels import local2d
     from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
     from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
 
     for label in ("S1", "S2"):
@@ -2759,6 +2766,27 @@ def timed_sharded(times: dict) -> None:
         times[name] = tt
     del ue, be, e, rc, pairs
     torch.cuda.empty_cache()
+
+    legs = {}
+    for label, k, ranks in (("S1 4095", MAIN_K, (1, 0)),
+                            ("S1 2047", MAIN_K - 1, (1, 0)),
+                            ("S2 block", SHARDED_PATHS["S2"][0], (1, 1))):
+        n = 2 ** k - 1
+        h, nc = 1.0 / (n + 1), (n - 1) // 2
+        ue, be, e, t = local2d_tile(n, torch.float32, seed=22, ranks=ranks)
+        m, offs = t["m"], (t["row_off"], t["col_off"])
+        kw.update(mcol=t["mcol"])
+        for leg, fn in (
+                ("down", lambda: local2d.down_leg(ue, be, n, h, m, *offs,
+                                                  **kw)),
+                ("up", lambda: local2d.up_leg(ue, e, be, n, nc, h, m, *offs,
+                                              **kw))):
+            key = f"local2d_{leg}@{label} {tuple(ue.shape)}"
+            legs[key] = device_busy(fn, LEG_CHAIN)[0]
+            log(f"leg {key} nu=2: device {legs[key]:.4f} ms")
+        del ue, be, e
+        torch.cuda.empty_cache()
+    times["local2d_legs"] = legs
 
 
 def timed_chains(times: dict) -> None:
@@ -3016,6 +3044,7 @@ def main() -> int:
     log("sweeps: " + json.dumps(times["sweeps"]))
     log("legs: " + json.dumps(times["legs"]))
     log("tile_legs: " + json.dumps(times["tile_legs"]))
+    log("local2d_legs: " + json.dumps(times["local2d_legs"]))
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):
         log(f"{key}: " + json.dumps(times[key]))

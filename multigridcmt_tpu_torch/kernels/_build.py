@@ -91,22 +91,22 @@ for _t in ("f32", "f64"):
     SIGNATURES[f"mg_local2d_sweep_{_t}"] = [_P, _P, _P, _I, _I, _I, _I, _I, _D,
                                             _D, _I, _D, _I, _P]
     # u, b, u_out, rc, R, C, Rc, Cc, n, row_off, col_off, crow, ccol, qlo,
-    # qhi, slo, shi, h, sigma, kind, omega, sweeps, stream
+    # qhi, slo, shi, h, sigma, kind, omega, sweeps, geometry
+    # (local2d.leg_geometry), stream
     SIGNATURES[f"mg_local2d_down_{_t}"] = [_P, _P, _P, _P] + [_I] * 13 + [
-        _D, _D, _I, _D, _I, _P]
+        _D, _D, _I, _D, _I, _IP, _P]
     # x, e, b, out, R, C, Rc, Cc, n, row_off, col_off, crow, ccol, h, sigma,
-    # kind, omega, sweeps, stream
+    # kind, omega, sweeps, geometry, stream
     SIGNATURES[f"mg_local2d_up_{_t}"] = [_P, _P, _P, _P] + [_I] * 9 + [
-        _D, _D, _I, _D, _I, _P]
+        _D, _D, _I, _D, _I, _IP, _P]
     # u, b, out, R, C, n, row_off, col_off, h, sigma, has_b, stream
     SIGNATURES[f"mg_plocal2d_residual_{_t}"] = [_P, _P, _P] + [_I] * 5 + [
         _D, _D, _I, _P]
     # The packed tile's legs take local2d's arguments (R, C: the unpacked
-    # tile's extent) and their geometry (plocal2d.leg_geometry) before the
-    # stream.
+    # tile's extent), their geometry from plocal2d.leg_geometry.
     for _leg in ("down", "up"):
-        SIGNATURES[f"mg_plocal2d_{_leg}_{_t}"] = (
-            SIGNATURES[f"mg_local2d_{_leg}_{_t}"][:-1] + [_IP, _P])
+        SIGNATURES[f"mg_plocal2d_{_leg}_{_t}"] = SIGNATURES[
+            f"mg_local2d_{_leg}_{_t}"]
     # u, b, partial, out, R, C, n, row_off, col_off, qlo, qhi, slo, shi, h,
     # sigma, red_only, blocks, stream
     SIGNATURES[f"mg_plocal2d_resnorm_{_t}"] = [_P, _P, _P, _P] + [_I] * 9 + [

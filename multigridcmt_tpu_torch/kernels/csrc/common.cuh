@@ -6,8 +6,8 @@
 // (n+2) x (n+2) row-major array whose one-cell ghost ring is zero
 // (homogeneous Dirichlet). The row pitch n+2 is odd, so rows are not
 // 16-byte aligned and every access is a scalar load or store. A shard's
-// tile (local2d.cu) is a rectangle of that grid with its own origin
-// (Rect); the helpers below work in global indices on either.
+// tile (local2d.cu, local2d_legs.cu) is a rectangle of that grid with its
+// own origin (Rect); the helpers below work in global indices on either.
 //
 // The arithmetic mirrors the TPU kernels term for term
 // (multigridcmt_tpu/kernels/stencil2d.py: _gs_vals, _residual_vals):
@@ -66,6 +66,15 @@ struct InteriorBox {
   }
 };
 
+// The points a kernel on the tile a (a Rect below, or packed_tile.cuh's
+// PRect: R x C points from global (goy, gox)) of the n x n grid sets:
+// interior to the grid and off the tile's outer ring.
+template <class Rc>
+inline InteriorBox tile_inner(const Rc& a, int n) {
+  return InteriorBox{n, a.goy + 1, a.goy + a.R - 2, a.gox + 1,
+                     a.gox + a.C - 2};
+}
+
 // An array in device memory holding the R x C points of a padded grid
 // whose first point has global index (goy, gox), row pitch C: a whole
 // P x P grid (square) or one rank's tile of it.
@@ -83,41 +92,25 @@ struct Rect {
   }
 };
 
-// A coarse (nc+2)^2 grid in device memory, read point by point: the logical
-// padded layout, or the colour-packed one of packed2d.cu (two planes of
-// Pc x cpc, cpc = (Pc+1)/2; point (I, J) in plane (I+J)&1, lane J/2).
+// A coarse (nc+2)^2 grid in device memory (the logical padded layout, Pc =
+// nc + 2), read point by point.
 template <typename T>
 struct CoarseView {
   const T* __restrict__ e;
   int Pc;
-  int cpc;
-  bool packed;
 
   __device__ __forceinline__ T operator()(int I, int J) const {
-    if (packed) {
-      return e[(static_cast<size_t>((I + J) & 1) * Pc + I) * cpc + (J >> 1)];
-    }
     return e[static_cast<size_t>(I) * Pc + J];
   }
 };
 
-// A coarse tile (Rect a) read point by point; points off it read as 0.
-template <typename T>
-struct TileView {
-  const T* __restrict__ e;
-  Rect a;
-
-  __device__ __forceinline__ T operator()(int I, int J) const {
-    return a.holds(I, J) ? e[a.at(I, J)] : T(0);
-  }
-};
-
-// Bilinear prolongation of the coarse correction (a CoarseView or a
-// TileView) at interior fine (i, j): rows first, then columns, as in
+// Bilinear prolongation of the coarse correction (a CoarseView) at
+// interior fine (i, j): rows first, then columns, as in
 // transfer.prolong. Fine 2I takes coarse I; an odd fine index averages its
 // two coarse neighbours.
-template <typename T, template <typename> class View>
-__device__ __forceinline__ T prolong_at(const View<T>& e, int i, int j) {
+template <typename T>
+__device__ __forceinline__ T prolong_at(const CoarseView<T>& e, int i,
+                                        int j) {
   const int I = i >> 1;
   const int J = j >> 1;
   const bool odd_i = i & 1;
@@ -172,31 +165,6 @@ __device__ void load_tile(const T* __restrict__ g, T* s, int RY, int RX,
   }
 }
 
-// Load the tiles of x + P e and of b as load_tile does; P e (prolong_at of
-// the view e) is added at the points interior to the n x n grid.
-template <typename T, template <typename> class View>
-__device__ void load_tile_prolonged(const T* __restrict__ x,
-                                    const View<T>& e,
-                                    const T* __restrict__ b, T* us, T* bs,
-                                    int RY, int RX, int gy0, int gx0,
-                                    const Rect& a, int n) {
-  for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
-    const int ly = idx / RX;
-    const int gy = gy0 + ly;
-    const int gx = gx0 + idx - ly * RX;
-    T xv = T(0);
-    T bv = T(0);
-    if (a.holds(gy, gx)) {
-      const size_t k = a.at(gy, gx);
-      xv = x[k];
-      bv = b[k];
-      if (interior(gy, gx, n)) xv = xv + prolong_at(e, gy, gx);
-    }
-    us[idx] = xv;
-    bs[idx] = bv;
-  }
-}
-
 // Write the TY x TX core of tile `s` (halo H) to the array a at global
 // (y0, x0).
 template <int TY, int TX, typename T>
@@ -232,15 +200,12 @@ __device__ void core_residual(const T* w, const T* bs, T* rs, int RX, int H,
 // Full weighting [1 2 1; 2 4 2; 1 2 1]/16 of the residual tile rs at the
 // coarse points this block owns, rows first then columns as in
 // transfer.restrict; coarse I sits at fine 2I = y0 + 2q, row 2q + 1 of rs.
-// rc is the coarse array ca, logical or colour-packed (see CoarseView; a
-// packed one is a whole grid, origin 0); a point of it is written where
-// `keep` (Interior or InteriorBox of the coarse grid) holds and 0
-// elsewhere.
+// rc is the coarse array ca; a point of it is written where `keep`
+// (Interior of the coarse grid) holds and 0 elsewhere.
 template <int TY, int TX, typename T, typename Keep>
 __device__ void restrict_core(const T* rs, T* __restrict__ rc, int y0, int x0,
-                              const Rect& ca, const Keep& keep, bool packed) {
+                              const Rect& ca, const Keep& keep) {
   constexpr int RSX = TX + 2;
-  const int cpc = (ca.C + 1) / 2;
   for (int idx = threadIdx.x; idx < (TY / 2) * (TX / 2); idx += blockDim.x) {
     const int q = idx / (TX / 2);
     const int s = idx - q * (TX / 2);
@@ -257,12 +222,7 @@ __device__ void restrict_core(const T* rs, T* __restrict__ rc, int y0, int x0,
       const T t2 = T(0.25) * (r0[2] + T(2) * r1[2] + r2[2]);
       val = T(0.25) * (t0 + T(2) * t1 + t2);
     }
-    if (packed) {
-      rc[(static_cast<size_t>((I + J) & 1) * ca.R + I) * cpc + (J >> 1)] =
-          val;
-    } else {
-      rc[ca.at(I, J)] = val;
-    }
+    rc[ca.at(I, J)] = val;
   }
 }
 

@@ -1,15 +1,18 @@
 // The row-streaming legs and sweeps: down_kernel, up_kernel and
 // sweep_kernel (the up leg's stream without its coarse operand), the three
-// frames they run on, their launch geometry and launchers. packed2d.cu
-// instantiates the down leg on the whole packed grid, packed2d_up.cu and
-// packed2d_up_f64.cu the up leg, packed2d_sweep.cu the RB-GS sweeps;
-// plocal2d_legs.cu and plocal2d_legs_f64.cu both legs on a shard's packed
-// tile; fused2d.cu the down leg, fused2d_up.cu and fused2d_up_f64.cu the
-// up leg, stencil2d_sweep.cu and stencil2d_sweep_f64.cu the RB-GS and
-// Jacobi sweeps on the unpacked grid (a kernel for each stage count; the
-// files compile in parallel). packed2d.cu's note says what they replace
-// and how they work; plocal2d.cu's what the tile frame adds, fused2d.cu's
-// what the unpacked one does, packed2d_sweep.cu's what the sweeps do.
+// four frames they run on, their launch geometry and launchers.
+// packed2d.cu instantiates the down leg on the whole packed grid,
+// packed2d_up.cu and packed2d_up_f64.cu the up leg, packed2d_sweep.cu the
+// RB-GS sweeps; plocal2d_legs.cu and plocal2d_legs_f64.cu both legs on a
+// shard's packed tile; fused2d.cu the down leg, fused2d_up.cu and
+// fused2d_up_f64.cu the up leg, stencil2d_sweep.cu and
+// stencil2d_sweep_f64.cu the RB-GS and Jacobi sweeps on the unpacked
+// grid; local2d_legs.cu and local2d_legs_f64.cu both legs on a shard's
+// unpacked tile (a kernel for each stage count; the files compile in
+// parallel). packed2d.cu's note says what they replace and how they work;
+// plocal2d.cu's what the tile frame adds, fused2d.cu's what the unpacked
+// one does, local2d_legs.cu's how the unpacked tile joins the two,
+// packed2d_sweep.cu's what the sweeps do.
 #pragma once
 
 #include <cstdint>
@@ -43,7 +46,7 @@ struct LegGeom {
   int strips, segs, strip, seg, hp, top, bottom;
 };
 
-// The frames. Rows are global rows in all three; the streamed rows of a
+// The frames. Rows are global rows in all four; the streamed rows of a
 // unit start on an even one, so a row's parity is its step's. Lanes are the
 // frame's: lane l holds the points of global columns gx0 + 2l and
 // gx0 + 2l + 1 (phases 0 and 1), gx0 even, so the colour-c point of global
@@ -83,25 +86,59 @@ struct Unpacked {
   int n;
 };
 
+// UTile: one rank's unpacked extended tile a (local2d_legs.cu): R x C
+// points of the global grid from (a.goy, a.gox), row pitch C, a.goy odd;
+// upd, ca and keep as Tile has them. Lane l holds global columns gx0 + 2l
+// and gx0 + 2l + 1 as Unpacked does, gx0 = a.gox - (a.gox & 1), at array
+// index (i - a.goy) C + (gx - a.gox); with an odd column offset (a block
+// tile) lane 0's phase-0 point, column a.gox - 1, lies off the array. A
+// lane's two points are one aligned pair where their index is even. Only
+// the odd rows take paired accesses, a choice made at compile time:
+// `odd_pairs` says whether the odd rows' pairs are aligned (on a row tile,
+// C odd, a.gox 0 and a.goy odd as every local2d tile's, they are; on a
+// block tile, C even and a.gox odd, no row's are) and the fine arrays
+// start on a pair (utile_frame). A test of both parities at run time made
+// the up leg slower, and no pairs at all cost it registers (PERF.md).
+struct UTile {
+  int n;
+  mg::Rect a;
+  mg::InteriorBox upd;
+  mg::Rect ca;
+  mg::InteriorBox keep;
+  int odd_pairs;
+};
+
 template <class Fr>
 constexpr bool kIsTile = std::is_same<Fr, Tile>::value;
 template <class Fr>
 constexpr bool kIsUnpacked = std::is_same<Fr, Unpacked>::value;
+template <class Fr>
+constexpr bool kIsUTile = std::is_same<Fr, UTile>::value;
+// What a frame takes from which: a shard's tile (Tile, UTile) has the
+// tile's rows (global, from an odd first row), its upd box and a coarse
+// tile with its owned box; an unpacked array (Unpacked, UTile) sums each
+// stencil in the plain versions' order (gs_value, residual_of, jacobi_step)
+// and takes the full residual in the down leg.
+template <class Fr>
+constexpr bool kOnTile = kIsTile<Fr> || kIsUTile<Fr>;
+template <class Fr>
+constexpr bool kPlainOrder = kIsUnpacked<Fr> || kIsUTile<Fr>;
 // The down leg's residual after an RB-GS sweep: the red points only on the
 // packed frames (the closing black half-sweep zeroes the black one in exact
 // arithmetic; the JAX packed kernels drop it), every interior point on the
-// unpacked frame (as JAX's fused2d kernel computes it).
+// unpacked ones (as JAX's fused2d and local2d kernels compute it).
 template <class Fr>
-constexpr bool kRedOnly = !kIsUnpacked<Fr>;
+constexpr bool kRedOnly = !kPlainOrder<Fr>;
 
 __host__ __device__ __forceinline__ int frame_lanes(const Whole& f) {
   return (f.n + 3) / 2;
 }
-__host__ __device__ __forceinline__ int frame_lanes(const Tile& f) {
-  return (f.a.C + (f.a.gox & 1) + 1) / 2;
-}
 __host__ __device__ __forceinline__ int frame_lanes(const Unpacked& f) {
   return (f.n + 3) / 2;
+}
+template <class Fr, std::enable_if_t<kOnTile<Fr>, int> = 0>
+__host__ __device__ __forceinline__ int frame_lanes(const Fr& f) {
+  return (f.a.C + (f.a.gox & 1) + 1) / 2;
 }
 
 // The side neighbour of the colour-c point at phase p: the other colour's
@@ -118,7 +155,7 @@ template <class Fr>
 struct Unit {
   int gl;          // this lane's frame lane
   int J;           // global coarse column of its phase-0 point (gx0/2 + gl)
-  int at[2];       // the array lane of its phase-p point
+  int at[2];       // the array lane (UTile: column) of its phase-p point
   int y0, y1;      // owned rows
   int ys, ye;      // streamed rows
   int lo, hi;      // rows the smoothing updates (interior, off the ends)
@@ -126,6 +163,8 @@ struct Unit {
   bool core;       // the lane is owned
   bool st[2];      // core and ok[p]: the lane stores its phase-p point
   bool upd[2];     // phase p: the column is updatable and off the edges
+  bool pr;         // UTile: in odd rows the lane's two points lie in the
+                   // array as one aligned pair
 
   __device__ Unit(const LegGeom& g, int unit, const Fr& f) {
     const int lane = threadIdx.x % kWarp;
@@ -133,7 +172,8 @@ struct Unit {
     const int sy = unit / g.strips;
     gl = sx * g.strip - g.hp + lane;
     core = lane >= g.hp && lane < g.hp + g.strip && gl < frame_lanes(f);
-    if constexpr (kIsTile<Fr>) {
+    pr = false;
+    if constexpr (kOnTile<Fr>) {
       const int end = f.a.goy + f.a.R;
       const int rb = f.a.goy & ~1;
       const int yu = rb + sy * g.seg;
@@ -148,12 +188,18 @@ struct Unit {
       for (int p = 0; p < 2; ++p) {
         const int lx = 2 * lane + p;
         const int gx = 2 * J + p;
-        at[p] = gl - (xs & (1 - p));
-        ok[p] = at[p] >= 0 && at[p] < f.a.lanes();
+        if constexpr (kIsUTile<Fr>) {
+          at[p] = gx - f.a.gox;
+          ok[p] = at[p] >= 0 && at[p] < f.a.C;
+        } else {
+          at[p] = gl - (xs & (1 - p));
+          ok[p] = at[p] >= 0 && at[p] < f.a.lanes();
+        }
         st[p] = core && ok[p];
         upd[p] = lx >= 1 && lx <= 2 * kWarp - 2 && gx >= 1 && gx <= f.n &&
                  gx >= f.upd.xlo && gx <= f.upd.xhi;
       }
+      if constexpr (kIsUTile<Fr>) pr = f.odd_pairs && ok[0] && ok[1];
     } else {
       const int P = f.n + 2;
       y0 = sy * g.seg;
@@ -185,11 +231,12 @@ struct Unit {
 // unpacked frame adds them in the plain versions' order
 // (smoothers._gs_update, laplacian.residual), so that at sigma = 0 and h a
 // power of two (every product then exact) its legs round as the plain path
-// does, bit for bit.
+// does, bit for bit; so does the unpacked tile (local2d's plain versions
+// sum in the same order).
 template <class Fr, typename T>
 __device__ __forceinline__ T gs_value(T bv, T up, T dn, T mid, T side, int p,
                                       const mg::Coef<T>& cf) {
-  if constexpr (kIsUnpacked<Fr>) {
+  if constexpr (kPlainOrder<Fr>) {
     const T left = p ? mid : side;
     const T right = p ? side : mid;
     return ((((cf.h2 * bv + up) + dn) + left) + right) * cf.inv_den;
@@ -202,7 +249,7 @@ template <class Fr, typename T>
 __device__ __forceinline__ T residual_of(T bv, T x, T up, T dn, T mid,
                                          T side, int p,
                                          const mg::Coef<T>& cf) {
-  if constexpr (kIsUnpacked<Fr>) {
+  if constexpr (kPlainOrder<Fr>) {
     const T left = p ? mid : side;
     const T right = p ? side : mid;
     return bv - ((((T(4) * x - up) - dn) - left) - right) * cf.inv_h2 +
@@ -213,7 +260,7 @@ __device__ __forceinline__ T residual_of(T bv, T x, T up, T dn, T mid,
   }
 }
 
-// The Jacobi step x + jscale r. The unpacked frame rounds the product and
+// The Jacobi step x + jscale r. The unpacked frames round the product and
 // the sum apart, as the plain version's two tensor operations do (nvcc
 // would contract them into one FMA; __fmul_rn is never contracted), so
 // that at sigma = 0 and h a power of two its Jacobi stages round as the
@@ -227,7 +274,7 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
 
 template <class Fr, typename T>
 __device__ __forceinline__ T jacobi_step(T x, T r, const mg::Coef<T>& cf) {
-  if constexpr (kIsUnpacked<Fr>) {
+  if constexpr (kPlainOrder<Fr>) {
     return x + mul_rn(cf.jscale, r);
   } else {
     return x + cf.jscale * r;
@@ -364,6 +411,32 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
   }
 }
 
+// UTile: colour c of row i is the point at column at[(c + i) & 1]; the row
+// above the tile reads 0, as on Tile. On an odd row (a compile-time fact in
+// every call) a lane whose two points are an aligned pair (pr) loads them
+// as one access; else two scalar ones.
+template <bool EDGE, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
+                                         T& a1, int i, int par,
+                                         const Unit<UTile>& w,
+                                         const UTile& f) {
+  if (EDGE && i >= w.ye) return;
+  const bool in = !EDGE || i >= f.a.goy;
+  const int p0 = par & 1;   // the phase of colour 0 in row i
+  const long long row =
+      static_cast<long long>(in ? i - f.a.goy : 0) * f.a.C;
+  if (in && p0 == 1 && w.pr) {
+    // Colour 0 of an odd row is the lane's phase-1 point.
+    const Pair<T> v = __ldg(reinterpret_cast<const Pair<T>*>(g + row +
+                                                             w.at[0]));
+    a0 = v.y;
+    a1 = v.x;
+  } else {
+    a0 = in && w.ok[p0] ? __ldg(g + row + w.at[p0]) : T(0);
+    a1 = in && w.ok[1 - p0] ? __ldg(g + row + w.at[1 - p0]) : T(0);
+  }
+}
+
 // A step's load of row i: load_row, but for Jacobi a row past ye reads 0
 // rather than keeping the slot's row of kWin steps before, which no stage
 // reads: that ends the old row's life, so U holds only the rows stage 0
@@ -423,12 +496,27 @@ __device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
   }
 }
 
+template <typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
+                                          int i, int par,
+                                          const Unit<UTile>& w,
+                                          const UTile& f) {
+  const long long row = static_cast<long long>(i - f.a.goy) * f.a.C;
+  const int p0 = par & 1;
+  if (p0 == 1 && w.core && w.pr) {
+    *reinterpret_cast<Pair<T>*>(g + row + w.at[0]) = Pair<T>{a1, a0};
+  } else {
+    if (w.st[p0]) g[row + w.at[p0]] = a0;
+    if (w.st[1 - p0]) g[row + w.at[1 - p0]] = a1;
+  }
+}
+
 // The full weighting fw at coarse (I, w.J): written by a core lane, as 0
 // off the coarse interior; on the whole grid (packed or not) logical
 // (nc+2)^2, or packed when packed_coarse is set; on a tile only inside the
 // owned box keep, in the coarse tile ca (zero_coarse_frame writes the
 // rest).
-template <typename T, class Fr, std::enable_if_t<!kIsTile<Fr>, int> = 0>
+template <typename T, class Fr, std::enable_if_t<!kOnTile<Fr>, int> = 0>
 __device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
                                            const Unit<Fr>& w, const Fr& f,
                                            int packed_coarse) {
@@ -447,7 +535,7 @@ __device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
   }
 }
 
-template <typename T, class Fr, std::enable_if_t<kIsTile<Fr>, int> = 0>
+template <typename T, class Fr, std::enable_if_t<kOnTile<Fr>, int> = 0>
 __device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
                                            const Unit<Fr>& w, const Fr& f,
                                            int) {
@@ -460,9 +548,9 @@ __device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
 // Zero the coarse tile off its owned box, the warps of the launch sharing
 // its entries (each once): the rows above the box, the rows below it, and
 // the columns either side of it in its rows.
-template <typename T>
-__device__ void zero_coarse_frame(T* __restrict__ rc, const Tile& f,
-                                  int unit, int units) {
+template <typename T, class Fr>
+__device__ void zero_coarse_frame(T* __restrict__ rc, const Fr& f, int unit,
+                                  int units) {
   const mg::Rect& c = f.ca;
   const int qlo = f.keep.ylo - c.goy;
   const int qhi = f.keep.yhi + 1 - c.goy;
@@ -529,7 +617,7 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
             mg::Coef<T> cf, int packed_coarse, LegGeom g) {
   const int unit = blockIdx.x * kLegWarps + threadIdx.x / kWarp;
   if (unit >= g.strips * g.segs) return;
-  if constexpr (kIsTile<Fr>) zero_coarse_frame(rc, f, unit, g.strips * g.segs);
+  if constexpr (kOnTile<Fr>) zero_coarse_frame(rc, f, unit, g.strips * g.segs);
   constexpr int OUT = K + 1;
   constexpr bool RED_ONLY = kRedOnly<Fr> && KIND == mg::kRbgs && K > 0;
   const Unit<Fr> w(g, unit, f);
@@ -615,7 +703,7 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
 // points, logical or, on the packed grid, packed), a tile's its coarse
 // tile ca (logical).
 template <typename T, bool PACKED_E, class Fr,
-          std::enable_if_t<!kIsTile<Fr>, int> = 0>
+          std::enable_if_t<!kOnTile<Fr>, int> = 0>
 __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
                                        const Fr& f) {
   const int Pc = frame_lanes(f);
@@ -628,7 +716,7 @@ __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
 }
 
 template <typename T, bool PACKED_E, class Fr,
-          std::enable_if_t<kIsTile<Fr>, int> = 0>
+          std::enable_if_t<kOnTile<Fr>, int> = 0>
 __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
                                        const Fr& f) {
   return f.ca.holds(I, J) ? __ldg(e + f.ca.at(I, J)) : T(0);
@@ -763,12 +851,12 @@ constexpr int kMaxTileStages = 6;
 
 // The geometry as the kernels take it, or false if it breaks the rules
 // above or does not cover the frame's rows and lanes.
-template <class Fr, std::enable_if_t<!kIsTile<Fr>, int> = 0>
+template <class Fr, std::enable_if_t<!kOnTile<Fr>, int> = 0>
 bool covers(const LegGeom& g, const Fr& f) {
   return g.strips * g.strip >= frame_lanes(f) && g.segs * g.seg >= f.n + 2;
 }
 
-template <class Fr, std::enable_if_t<kIsTile<Fr>, int> = 0>
+template <class Fr, std::enable_if_t<kOnTile<Fr>, int> = 0>
 bool covers(const LegGeom& g, const Fr& f) {
   return g.strips * g.strip >= frame_lanes(f) &&
          g.segs * g.seg >= f.a.R + (f.a.goy & 1);
@@ -946,14 +1034,32 @@ int launch_sweep(const void* u, const void* b, void* out, const Fr& f,
   return launch_sweep_k<T, mg::kRbgs, MAXK>(K, ut, bt, ot, f, cf, g, s);
 }
 
+// The owned box [qlo, qhi) x [slo, shi) (coarse tile indices) of the
+// coarse tile ca of the n x n grid, in global coarse indices.
+mg::InteriorBox owned_box(const mg::Rect& ca, int n, int qlo, int qhi,
+                          int slo, int shi) {
+  return mg::InteriorBox{(n - 1) / 2, ca.goy + qlo, ca.goy + qhi - 1,
+                         ca.gox + slo, ca.gox + shi - 1};
+}
+
 // The tile frame of a leg on the packed tile a of the n x n grid, with the
-// coarse tile ca and its owned box [qlo, qhi) x [slo, shi) (coarse tile
-// indices).
+// coarse tile ca and its owned box [qlo, qhi) x [slo, shi).
 Tile tile_frame(const mg::PRect& a, const mg::Rect& ca, int n, int qlo,
                 int qhi, int slo, int shi) {
   return Tile{n, a, mg::tile_inner(a, n), ca,
-              mg::InteriorBox{(n - 1) / 2, ca.goy + qlo, ca.goy + qhi - 1,
-                              ca.gox + slo, ca.gox + shi - 1}};
+              owned_box(ca, n, qlo, qhi, slo, shi)};
+}
+
+// The unpacked tile frame of a leg on the tile a, as tile_frame; `paired`:
+// the leg's fine arrays all start on a pair of T (on_pairs), without which
+// no row takes paired accesses.
+UTile utile_frame(const mg::Rect& a, const mg::Rect& ca, int n, int qlo,
+                  int qhi, int slo, int shi, bool paired) {
+  // A lane's phase-0 point in an odd row i lies at index
+  // (i - goy) C + 2l - (gox & 1): even for every lane, or odd for every one.
+  const bool odd = ((((1 - a.goy) & a.C) ^ a.gox) & 1) == 0;
+  return UTile{n, a, mg::tile_inner(a, n), ca,
+               owned_box(ca, n, qlo, qhi, slo, shi), paired && odd};
 }
 
 }  // namespace

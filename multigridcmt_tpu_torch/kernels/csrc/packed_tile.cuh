@@ -39,13 +39,6 @@ __device__ __forceinline__ int pphase(int c, int gy, int gx0) {
   return (c + gy + gx0) & 1;
 }
 
-// The points a kernel on the packed tile a of the n x n grid sets: interior
-// to the grid and off the tile's outer ring.
-inline InteriorBox tile_inner(const PRect& a, int n) {
-  return InteriorBox{n, a.goy + 1, a.goy + a.R - 2, a.gox + 1,
-                     a.gox + a.C - 2};
-}
-
 // Sum of the four neighbours of the point at lane index k of its plane, read
 // from the other colour's plane o (row pitch `pitch` lanes, index type I).
 template <typename T, typename I>

@@ -17,7 +17,7 @@
 // point has one writer (the last block's rows and columns past the coarse
 // grid's ghost write nothing), loads u and b with a halo of 2 rings, forms
 // the residual on the core plus one ring in shared memory and applies the
-// full weighting there (common.cuh, shared with local2d's down leg).
+// full weighting there (common.cuh).
 // prolong_add is one thread per fine point: x + prolong_at(e) on the
 // interior, x on the ghosts; the coarse reads of neighbouring threads hit
 // in L1/L2.
@@ -56,7 +56,7 @@ rr_kernel(const T* __restrict__ u, const T* __restrict__ b,
                             c);
   __syncthreads();
   mg::restrict_core<TY, TX>(rs, rc, y0, x0, mg::Rect::square(nc + 2),
-                            mg::Interior{nc}, false);
+                            mg::Interior{nc});
 }
 
 template <typename T>
@@ -68,7 +68,7 @@ prolong_add_kernel(const T* __restrict__ x, const T* __restrict__ e,
   const int j = blockIdx.x * BX + threadIdx.x;
   const int i = blockIdx.y * BY + threadIdx.y;
   if (i >= P || j >= P) return;
-  const mg::CoarseView<T> ev{e, Pc, (Pc + 1) / 2, false};
+  const mg::CoarseView<T> ev{e, Pc};
   const size_t k = static_cast<size_t>(i) * P + j;
   const T xv = x[k];
   out[k] = mg::interior(i, j, n) ? xv + mg::prolong_at(ev, i, j) : xv;

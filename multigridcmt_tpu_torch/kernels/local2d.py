@@ -1,14 +1,18 @@
 """Shard-local 2D kernels: smoothing, the residual and whole V-cycle legs
 on one rank's halo-extended tile.
 
-Replace the TPU kernels of ``multigridcmt_tpu/kernels/local2d.py`` with
-``csrc/local2d.cu`` (see the note there on what bounds them and how the
-blocks are laid out):
+Replace the TPU kernels of ``multigridcmt_tpu/kernels/local2d.py``:
   * ``rbgs_sweep``, ``jacobi_sweep``: up to ``max_fused_sweeps(kind)``
-    sweeps in one pass, and ``residual``: r = b - (A - sigma I) u;
+    sweeps in one pass, and ``residual``: r = b - (A - sigma I) u, with
+    ``csrc/local2d.cu`` (shared-memory tiles; see the note there);
   * ``down_leg``: sweeps, residual and full weighting in one pass, the
-    coarse right-hand side emitted in the extended convention;
-  * ``up_leg``: x + P e, then sweeps, in one pass.
+    coarse right-hand side emitted in the extended convention, and
+    ``up_leg``: x + P e, then sweeps, in one pass, with
+    ``csrc/local2d_legs.cu`` and ``csrc/local2d_legs_f64.cu``:
+    ``csrc/packed2d_legs.cuh``'s row stream on the unpacked tile frame
+    (see the note in ``local2d_legs.cu`` on what bounds them and what the
+    frame takes from the plocal2d and fused2d legs). ``leg_geometry``
+    gives their launch geometry.
 
 The extended tile. A rank of a row decomposition owns m padded-grid rows,
 global rows d*m + 1 .. (d+1)*m; its extended tile holds them at rows
@@ -40,7 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, packed2d
 from ._wrap import check_storage, check_tensor, launch_on, on_cuda
 
 # Ghost rows exchanged per side of a tile, as in the JAX module: 4 fused
@@ -52,6 +56,12 @@ COARSE_HALO = HALO_ROWS
 
 # The sweep kernel's third mode, beside _build.KIND_CODES.
 RESIDUAL_MODE = 2
+
+# The least segment of the legs' row stream on a tile: the unpacked
+# frame's (fused2d.MIN_SEG). Below the 2047 level the launch fills the
+# card with segments this short (utils/leg_segments.py --tile times the
+# legs at each least segment).
+MIN_SEG = 6
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count): the sweep kernel in each mode (one a launch, whatever its sweep
@@ -246,6 +256,36 @@ def up_leg_plain(x_ext, e_ext, b_ext, n, nc, h, m, row_off, col_off=0, *,
 # Wrappers
 # ---------------------------------------------------------------------------
 
+def _frame(rows: int, cols: int, row_off: int, col_off: int) -> dict:
+    """The row-streaming legs' frame (``packed2d.leg_geometry``'s rows,
+    first, lanes, least segment) of a rows x cols extended tile at global
+    (row_off, col_off): global rows from row_off, and lanes of two
+    columns from the even column at or left of col_off (one lane more
+    than cols / 2 on a block tile, whose col_off is odd;
+    csrc/local2d_legs.cu's note)."""
+    return dict(rows=rows, first=row_off,
+                lanes=(cols + (col_off & 1) + 1) // 2, min_seg=MIN_SEG)
+
+
+def leg_geometry(leg: str, rows: int, cols: int, n: int, row_off: int,
+                 col_off: int, kind: str, sweeps: int, *,
+                 sm_count: int = 132) -> packed2d.LegGeometry:
+    """Geometry of the row-streaming down or up leg (``packed2d.
+    leg_geometry``) on a rows x cols extended tile at global (row_off,
+    col_off), for ``sm_count`` SMs."""
+    return packed2d.leg_geometry(leg, n, kind, sweeps, sm_count=sm_count,
+                                 **_frame(rows, cols, row_off, col_off))
+
+
+def _launch_geometry(leg: str, t: torch.Tensor, n: int, row_off: int,
+                     col_off: int, kind: str, sweeps: int):
+    """The leg's geometry on tile t's card, as the kernel's int array
+    (``packed2d._launch_geometry`` on this frame)."""
+    return packed2d._launch_geometry(
+        leg, n, kind, sweeps, t.device.index or 0,
+        **_frame(*t.shape, int(row_off), int(col_off)))
+
+
 def _check_tile(what: str, u: torch.Tensor, b: torch.Tensor) -> None:
     check_storage(what, u)
     if u.ndim != 2 or min(u.shape) < 3:
@@ -366,6 +406,7 @@ def down_leg(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
                               sigma=sigma, mcol=mcol)
     hh = HALO_ROWS
     u_out = torch.empty_like(u_ext)
+    # The kernel writes every entry of rc (zeros off the owned box).
     rc = torch.empty(cshape, dtype=u_ext.dtype, device=u_ext.device)
     ccol = coarse_offset(col_off) if mcol else 0
     cols = (hh, hh + mcol // 2) if mcol else (0, cshape[1])
@@ -374,7 +415,9 @@ def down_leg(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
               u_ext.shape[1], cshape[0], cshape[1], n, int(row_off),
               int(col_off), coarse_offset(row_off), ccol, hh, hh + m // 2,
               cols[0], cols[1], float(h), float(sigma),
-              _build.KIND_CODES[kind], float(omega), sweeps)
+              _build.KIND_CODES[kind], float(omega), sweeps,
+              _launch_geometry("down", u_ext, n, row_off, col_off, kind,
+                               sweeps))
     down_launches += 1
     return u_out, rc
 
@@ -408,6 +451,8 @@ def up_leg(x_ext: torch.Tensor, e_ext: torch.Tensor, b_ext: torch.Tensor,
               b_ext.data_ptr(), out.data_ptr(), x_ext.shape[0],
               x_ext.shape[1], cshape[0], cshape[1], n, int(row_off),
               int(col_off), coarse_offset(row_off), ccol, float(h),
-              float(sigma), _build.KIND_CODES[kind], float(omega), sweeps)
+              float(sigma), _build.KIND_CODES[kind], float(omega), sweeps,
+              _launch_geometry("up", x_ext, n, row_off, col_off, kind,
+                               sweeps))
     up_launches += 1
     return out

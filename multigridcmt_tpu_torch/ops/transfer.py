@@ -7,8 +7,9 @@ the padded array) coincides with coarse point j, and n = 2*nc + 1. The
 separable passes run in the JAX module's axis order (ascending in 1D/2D,
 minor first in 3D), with the same arithmetic per pass. Outputs are
 contiguous, as the CUDA kernels require of their inputs. The JAX
-package's 3D banded-matmul passes, its ``fmg_prolong`` and its
-aligned-layout variants are not ported yet (ROADMAP queue 1).
+package's ``fmg_prolong`` is not ported yet (ROADMAP queue 1, FMG); its 3D
+banded-matmul passes and aligned-layout variants have no counterpart, as
+the port keeps the logical padded layout.
 """
 from __future__ import annotations
 

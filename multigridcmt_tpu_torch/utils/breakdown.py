@@ -71,11 +71,14 @@ from multigridcmt_tpu_torch.ops import transfer
 from multigridcmt_tpu_torch.utils.profiling import chained_ms, cuda_time_ms
 
 # The sharded kernels by their names in the profiler: the local2d kernels
-# (local_*_kernel), and the plocal2d legs (the row-streaming down_kernel
-# and up_kernel on the Tile frame; plocal_down_kernel and plocal_up_kernel
-# before them).
+# (the sweeps and residual, local_*_kernel; the legs, the row-streaming
+# down_kernel and up_kernel on the UTile frame, local_down_kernel and
+# local_up_kernel before them, so that a tree from before the row stream,
+# timed in turns with this tool, reads the same group), and the plocal2d
+# legs (the row stream on the Tile frame; plocal_down_kernel and
+# plocal_up_kernel before it).
 SHARDED_KERNELS = {
-    "local2d kernels": re.compile(r"(?<!\w)local_"),
+    "local2d kernels": re.compile(r"(?<!\w)local_|(?<!\w)UTile(?!\w)"),
     "plocal2d legs": re.compile(r"(?<!\w)plocal_(down|up)|(?<!\w)Tile(?!\w)"),
 }
 # The single-device route's row-streaming kernels by name: the fused2d
@@ -97,26 +100,36 @@ ROUTE_KERNELS = {
 }
 # Cycles of the chain a timing of v_cycles_fn runs.
 CHAIN = 20
+# Profiled windows a device_busy reading takes the median of: now and then
+# a window records fewer kernels than ran, as few as none (on an H100 at
+# 700 W a local2d up leg read 0.0485 ms a call against its 0.0654 ms
+# bound, and once 0.0000; PERF.md), which one window alone would report
+# as a faster call.
+PROFILE_WINDOWS = 3
 
 
 def device_busy(fn, reps: int, groups: dict | None = None):
     """(device ms a call, device ops a call, {name: device ms a call of the
     kernels whose name the pattern groups[name] finds}) over ``reps``
-    calls."""
+    calls, from the window of PROFILE_WINDOWS with the median device
+    time."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    ops = sum(1 for e in prof.events() if e.device_type == cuda)
-    rows = [e for e in prof.key_averages() if e.device_type == cuda]
-    busy = sum(e.device_time_total for e in rows)
-    matched = {name: sum(e.device_time_total for e in rows
-                         if pat.search(e.key)) / reps / 1e3
-               for name, pat in (groups or {}).items()}
-    return busy / reps / 1e3, ops / reps, matched
+    readings = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = sum(1 for e in prof.events() if e.device_type == cuda)
+        rows = [e for e in prof.key_averages() if e.device_type == cuda]
+        busy = sum(e.device_time_total for e in rows)
+        matched = {name: sum(e.device_time_total for e in rows
+                             if pat.search(e.key)) / reps / 1e3
+                   for name, pat in (groups or {}).items()}
+        readings.append((busy / reps / 1e3, ops / reps, matched))
+    return sorted(readings, key=lambda r: r[0])[len(readings) // 2]
 
 
 def grids(n: int, seed: int, ndim: int = 2):

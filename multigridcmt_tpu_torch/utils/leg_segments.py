@@ -1,9 +1,10 @@
 """Device time of the fused2d legs (the row stream on the unpacked frame),
-or of the stencil2d sweeps (the same frame's sweep stream), for each least
-segment.
+of the stencil2d sweeps (the same frame's sweep stream) or of the local2d
+legs (the row stream on the unpacked tile frame), for each least segment.
 
     python -m multigridcmt_tpu_torch.utils.leg_segments [--rounds 2]
     python -m multigridcmt_tpu_torch.utils.leg_segments --sweeps
+    python -m multigridcmt_tpu_torch.utils.leg_segments --tile
 
 Float32 RB-GS, nu = 2, sigma = 0, random grids at 2047^2, 1023^2, 511^2
 and 255^2: ``fused2d.MIN_SEG`` set to each value in SEGMENTS, both legs
@@ -17,7 +18,11 @@ backward, ``--rounds`` times. ``fused2d.MIN_SEG`` is set from its output.
 With ``--sweeps``, the stencil2d sweeps as paths B and C run them (RB-GS
 nu = 4 at 2047...255, Jacobi nu = 8 at 1023...255) for each value in
 SWEEP_SEGMENTS instead (longer ones too: with 8 stages a unit recomputes
-16 halo rows). Needs a CUDA device.
+16 halo rows). With ``--tile``, the local2d legs (RB-GS nu = 2) on rank 0's
+tiles of a row mesh of 1 at S1's levels 2047...255 for each
+``local2d.MIN_SEG`` in SEGMENTS instead (at the 2047 tile the launch fills
+the card with 40-row segments whatever the least up to 40). Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -27,8 +32,8 @@ import subprocess
 
 import torch
 
-from multigridcmt_tpu_torch.kernels import fused2d, stencil2d
-from multigridcmt_tpu_torch.utils.breakdown import grids
+from multigridcmt_tpu_torch.kernels import fused2d, local2d, stencil2d
+from multigridcmt_tpu_torch.utils.breakdown import grids, row_tile
 from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
 SEGMENTS = (6, 8, 10, 16, 32, 64)
@@ -116,18 +121,51 @@ def sweep_segments(rounds: int) -> None:
         fused2d.MIN_SEG = shipped
 
 
+def tile_segments(rounds: int) -> None:
+    shipped = local2d.MIN_SEG
+    kw = dict(kind="rbgs", omega=1.0, sweeps=SWEEPS)
+    order = list(SEGMENTS)
+    off = 1 - local2d.HALO_ROWS
+    try:
+        for n in (2047, 1023, 511, 255):
+            nc, h = (n - 1) // 2, 1.0 / (n + 1)
+            *_, ue, be, ee = row_tile(n, n)
+            calls = {
+                "down": lambda: local2d.down_leg(ue, be, n, h, n + 1, off,
+                                                 **kw),
+                "up": lambda: local2d.up_leg(ue, ee, be, n, nc, h, n + 1,
+                                             off, **kw)}
+            for _ in range(rounds):
+                for seg in order + order[::-1]:
+                    local2d.MIN_SEG = seg
+                    rows = "/".join(str(local2d.leg_geometry(
+                        leg, *ue.shape, n, off, 0, "rbgs", SWEEPS).seg)
+                        for leg in calls)
+                    print(f"tile {tuple(ue.shape)} n={n} MIN_SEG={seg} "
+                          f"(segments {rows} rows): " +
+                          ", ".join(f"{leg} {graph_ms(fn):.4f}/"
+                                    f"{chained_ms(fn):.4f}"
+                                    for leg, fn in calls.items()),
+                          flush=True)
+    finally:
+        local2d.MIN_SEG = shipped
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--sweeps", action="store_true",
                     help="the stencil2d sweeps instead of the legs")
+    ap.add_argument("--tile", action="store_true",
+                    help="the local2d legs on S1's tiles instead")
     args = ap.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     print("readings: ms a call (graph/chained)", flush=True)
-    (sweep_segments if args.sweeps else segments)(args.rounds)
+    (sweep_segments if args.sweeps else tile_segments if args.tile
+     else segments)(args.rounds)
 
 
 if __name__ == "__main__":

@@ -325,9 +325,12 @@ class LegFrame:
     C; the points a stage may update, (ylo, yhi, xlo, xhi) in global
     indices; and the coarse output: the whole coarse grid (ca None) or a
     shard's coarse tile ca = (Rc, Cc, crow, ccol) with its owned box keep =
-    (ylo, yhi, xlo, xhi), global coarse indices. ``unpacked``: the array is
-    the logical (n+2)^2 grid (the Unpacked frame: lane l's points are
-    columns 2l and 2l + 1, the down leg's residual full), not two planes."""
+    (ylo, yhi, xlo, xhi), global coarse indices. ``unpacked``: the array
+    holds its points unpacked, not as two planes: the logical (n+2)^2 grid
+    (the Unpacked frame) or, with ``ca``, a shard's unpacked tile of C
+    columns (the UTile frame); lane l's points are global columns gx0 +
+    2l and gx0 + 2l + 1 (gx0 = gox - (gox & 1)), at array column gx - gox,
+    and the down leg's residual is full."""
     n: int
     goy: int = 0
     gox: int = 0
@@ -356,8 +359,8 @@ class LegFrame:
         core = (x >= g.halo_lanes) & (x < g.halo_lanes + g.strip) \
             & (gl < self.lanes())
         if self.unpacked:
-            at = [2 * gl + p for p in (0, 1)]
-            ok = [(gl >= 0) & (gl < self.lanes()) & (a <= self.n + 1)
+            at = [2 * J + p - self.gox for p in (0, 1)]
+            ok = [(gl >= 0) & (gl < self.lanes()) & (a >= 0) & (a < self.C)
                   for a in at]
         else:
             at = [gl - (xs & (1 - p)) for p in (0, 1)]
@@ -367,6 +370,15 @@ class LegFrame:
                & (2 * J + p >= max(1, xlo)) & (2 * J + p <= min(self.n, xhi))
                for p in (0, 1)]
         return gl, J, at, ok, core, upd
+
+    def paired(self, q):
+        """Whether, on the unpacked frames, a lane whose two points lie in
+        rows of parity q makes one paired access (the kernels' rule: the
+        whole grid's even rows; on a tile, the odd rows if there the
+        phase-0 point's index (i - goy) C + 2l - (gox & 1) is even)."""
+        if self.ca is None:
+            return q == 0
+        return q == 1 and ((((1 - self.goy) & self.C) ^ self.gox) & 1) == 0
 
     def coarse_frame(self):
         """The entries of the coarse tile off its owned box, in the order
@@ -391,9 +403,10 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
     sweep_kernel (the up leg's stream without e), as g.leg says, on
     geometry g and frame (the whole packed grid when None), unit by unit;
     returns u' and the coarse residual (down) or x'. Rows are global; stage
-    k works on row t - 1 - k of step t. On the unpacked frame s, bs and u'
-    are logical (n+2)^2 grids, and every address read or written is
-    asserted to lie in its row (column < n + 2) and in the array."""
+    k works on row t - 1 - k of step t. On the unpacked frames s, bs and u'
+    are unpacked arrays of f.C columns (the logical (n+2)^2 grid or a
+    tile), every address read or written is asserted to lie in its row and
+    in the array, and every paired access to start on a pair."""
     f = frame or LegFrame.whole(g.n)
     n, K, TW, hp = g.n, g.stages, packed2d.LEG_LANES, g.halo_lanes
     cpa = s.shape[1] if f.unpacked else s.shape[2]
@@ -456,12 +469,17 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 cs.put(I, np.stack([np.where(okc, v, 0.0)] * 2))
 
             def in_row(i, p, lanes):
-                """The unpacked frame's addresses i (n+2) + at[p] of
-                ``lanes`` lie in row i and in the array."""
+                """The unpacked frame's addresses (i - goy) C + at[p] of
+                ``lanes`` lie in row i and in the array; where the row's
+                parity pairs a lane's two points, its phase-0 address is
+                even."""
                 cols = at[p][lanes]
-                assert (cols >= 0).all() and (cols < n + 2).all()
-                addr = i * (n + 2) + cols
-                assert (addr < (n + 2) ** 2).all()
+                assert (cols >= 0).all() and (cols < f.C).all()
+                addr = (i - f.goy) * f.C + cols
+                assert (addr >= 0).all() and (addr < s.size).all()
+                both = lanes & ok[0] & ok[1]
+                if f.paired(i & 1) and both.any():
+                    assert ((addr[both[lanes]] - p) % 2 == 0).all()
 
             def arow(a, i):
                 """Both planes of global row i at the frame's lanes: plane
@@ -474,7 +492,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     p = (c + i) & 1
                     if f.unpacked:
                         in_row(i, p, ok[p])
-                        v = a[i, atc[p]]
+                        v = a[i - f.goy, atc[p]]
                     else:
                         v = a[c, i - f.goy, atc[p]]
                     rows[c] = np.where(ok[p], v, 0.0)
@@ -606,8 +624,8 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                         st = core & ok[p]
                         if f.unpacked:
                             in_row(i, p, st)
-                            out[i, at[p][st]] = fr.row(i)[c][st]
-                            out_w[i, at[p][st]] += 1
+                            out[i - f.goy, at[p][st]] = fr.row(i)[c][st]
+                            out_w[i - f.goy, at[p][st]] += 1
                         else:
                             out[c, i - f.goy, at[p][st]] = fr.row(i)[c][st]
                             out_w[c, i - f.goy, at[p][st]] += 1
