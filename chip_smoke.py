@@ -32,7 +32,10 @@ Phases:
          1023^2, each with exact local2d and plocal2d launch counts and the
          error against the analytic solution; float64 k=10 sharded solves
          against the single-device ones, unpacked and packed (PACK_MIN_N
-         lowered to 1000 for that check), by cycles and by PCG;
+         lowered to 1000 for that check), by cycles and by PCG, and on S3's
+         and S4's composed routes (RB-GS V(4,4), Jacobi V(8,8): the local2d
+         sweeps) against paths B's and C's single-device route, with
+         exact local2d sweep and residual counts;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -55,7 +58,11 @@ Phases:
      each of S1-S4's own fine tiles with the sweeps that path runs, and on
      tiles with nonzero global offsets (a rank of an 8-way row split of
      4095^2, a rank of a 2x2 block split of 2047^2; the legs at RB-GS
-     nu = 0...3 and Jacobi nu = 3 and 6), since a mesh of 1 has none; the plocal2d kernels on the packed form of S1's fine tile and of
+     nu = 0...3 and Jacobi nu = 3 and 6), since a mesh of 1 has none, the
+     local2d sweeps at every sweep count up to their caps, both sigmas,
+     float32 and float64, on those tiles, on a 1023^2 tile at even offsets
+     and on S3's and S4's fine tiles; the plocal2d kernels on the packed
+     form of S1's fine tile and of
      those offset tiles (the block one has the other packing phase), in
      float64 on two 255^2 ranks (the legs at every sweep count), and the
      legs at every sweep count on a 2999^2 rank whose row stream ends in a
@@ -86,7 +93,9 @@ Phases:
      cycle at the same k, one S1 cycle in a chain of 20 (v_cycles_fn),
      packed and unpacked in turns, each local2d kernel at S1's fine tile
      against its plain version (and the local2d legs' device time at S1's
-     4095 and 2047 tiles and S2's block tile), each plocal2d kernel at S1's packed tile
+     4095 and 2047 tiles and S2's block tile, the local2d sweeps' at S3's
+     tiles, RB-GS nu = 4 at 2047...255, and S4's, Jacobi nu = 8 at
+     1023...255), each plocal2d kernel at S1's packed tile
      against its plain version and beside its local2d twin (the two legs
      and their twins also single and chained at nu = 0, 1, 2 and the cap),
      and the peak device memory of the solves. Every kernel row also
@@ -121,7 +130,8 @@ residual on the owned tiles (the composed route); Chebyshev runs the
 local2d residual.
 
 Phase 1 also reports ptxas's registers and spills of the row-streaming
-legs and sweeps (from the build's nvcc.log).
+legs and sweeps, the local2d sweeps (UTile) among them (from the build's
+nvcc.log).
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -319,6 +329,12 @@ F64_PACKED_FLOOR = 1e-12
 # kernels run on them too, packed.
 LOCAL2D_TILES = ((2 ** MAIN_K - 1, 8, 3, 0, 0), (2 ** (MAIN_K - 1) - 1, 2, 1,
                                                  2, 1))
+# A tile at even offsets, which no sharded solve cuts but the sweep and
+# residual wrappers take (as JAX's traced offsets): (n, rows, cols,
+# row_off, col_off) of 1023^2, rows above the grid, the columns past its
+# last one, paired accesses on the odd rows (the pitch is even), partial
+# strips and segments.
+LOCAL2D_EVEN_TILE = (1023, 530, 700, -6, 400)
 # plocal2d in float64 at a small size: a rank of a row split and of a block
 # split of 255^2, each leg at every sweep count up to its cap.
 PLOCAL2D_F64_TILES = ((255, 2, 1, 0, 0), (255, 2, 1, 2, 1))
@@ -958,6 +974,19 @@ def compare_sparse(main_err: dict) -> None:
                bell.spmm_plain(ab64, xt64), TOL[torch.float64], ghosts=False)
 
 
+def cut_tile(g: torch.Tensor, rows: int, cols: int, row_off: int,
+             col_off: int) -> torch.Tensor:
+    """The rows x cols tile of the padded grid g at global (row_off,
+    col_off), zeros off the grid."""
+    out = torch.zeros((rows, cols), dtype=g.dtype, device=g.device)
+    r0, c0 = max(row_off, 0), max(col_off, 0)
+    r1 = min(row_off + rows, g.shape[0])
+    c1 = min(col_off + cols, g.shape[1])
+    out[r0 - row_off:r1 - row_off, c0 - col_off:c1 - col_off] = \
+        g[r0:r1, c0:c1]
+    return out
+
+
 def local2d_tile(n: int, dtype, seed: int, ranks=(1, 0), rank=(0, 0)):
     """One rank's extended tiles of u and b (b scaled by 1/h^2, as in
     ``leg_inputs``) in a row split (``ranks[1] == 0``) or block split of the
@@ -973,13 +1002,7 @@ def local2d_tile(n: int, dtype, seed: int, ranks=(1, 0), rank=(0, 0)):
     cols = mcol + 2 * HALO if ranks[1] else n + 2
 
     def cut(g):
-        out = torch.zeros((m + 2 * HALO, cols), dtype=dtype, device="cuda")
-        r0, c0 = max(row_off, 0), max(col_off, 0)
-        r1 = min(row_off + m + 2 * HALO, n + 2)
-        c1 = min(col_off + cols, n + 2)
-        out[r0 - row_off:r1 - row_off, c0 - col_off:c1 - col_off] = \
-            g[r0:r1, c0:c1]
-        return out
+        return cut_tile(g, m + 2 * HALO, cols, row_off, col_off)
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     cshape = (m // 2 + 2 * HALO,
@@ -1067,30 +1090,53 @@ def compare_local2d(main_err: dict) -> None:
     8-way row split of 4095^2 (rank 3, m = 512) and of a 2x2 block split of
     2047^2 (rank (1, 1), mcol > 0), float32 and float64, sigma 0 and
     SIGMA: the only place on the card where nonzero offsets and their
-    parity run (the legs' row stream takes paired accesses on the row
-    tile's odd rows and none on the block tile; odd and even stage counts
-    put its stores on either parity); and on each sharded path's own fine tile (a mesh of 1,
-    float32, offsets -7; S4cheb's residual is S4's) with the kernels and
-    sweeps that path runs there. Each kernel's main-path error is that of
-    the path the kernels line names for it. Whole tiles are compared: the
-    plain versions define the ghost rows too."""
-    off_path = [("residual", None, 0)]
-    off_path += [(kind, kind, nu) for kind, nus in (("rbgs", (1, 4)),
-                                                    ("jacobi", (1, 8)))
-                 for nu in nus]
+    parity run (the row stream takes paired accesses on the row tile's odd
+    rows and none on the block tile; odd and even stage counts put its
+    stores on either parity); the residual and both sweeps on
+    LOCAL2D_EVEN_TILE (even offsets: no zero row above the tile) and on S3's
+    and S4's fine tiles (2064 x 2049, 1040 x 1025), the sweeps at every
+    sweep count up to their caps on all of these; and on each sharded path's
+    own fine tile (a mesh of 1, float32, offsets -7; S4cheb's residual is
+    S4's) with the kernels and sweeps that path runs there. Each kernel's
+    main-path error is that of the path the kernels line names for it.
+    Whole tiles are compared: the plain versions define the ghost rows
+    too."""
+    from multigridcmt_tpu_torch.kernels import local2d
+
+    sweeps = [(kind, kind, nu) for kind in ("rbgs", "jacobi")
+              for nu in range(1, local2d.max_fused_sweeps(kind) + 1)]
+    off_path = [("residual", None, 0)] + sweeps
     off_path += [(leg, kind, nu) for kind, nu in (("rbgs", 0), ("rbgs", 1),
                                                   ("rbgs", 2), ("rbgs", 3),
                                                   ("jacobi", 3), ("jacobi", 6))
                  for leg in ("down", "up")]
     for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split('.')[-1]
         for n, dr, r, dc, c in LOCAL2D_TILES:
             ue, be, e, t = local2d_tile(n, dtype, n + r + c, (dr, dc),
                                         (r, c))
             offs = (t["row_off"], t["col_off"])
-            label = (f"{str(dtype).split('.')[-1]} n={n} rank ({r}, {c}) of "
-                     f"({dr}, {dc or 1}) offsets {offs}")
+            label = (f"{name} n={n} rank ({r}, {c}) of ({dr}, {dc or 1}) "
+                     f"offsets {offs}")
             for sigma in (0.0, SIGMA):
                 check_local2d(label, ue, be, e, t, dtype, sigma, off_path)
+            del ue, be, e
+        n, rows, cols, row_off, col_off = LOCAL2D_EVEN_TILE
+        u, b = grids_on_card(n, dtype, n + 5, 2)
+        ue = cut_tile(u, rows, cols, row_off, col_off)
+        be = cut_tile(b * float((n + 1) ** 2), rows, cols, row_off, col_off)
+        t = dict(n=n, m=0, mcol=0, row_off=row_off, col_off=col_off)
+        for sigma in (0.0, SIGMA):
+            check_local2d(f"{name} n={n} tile {tuple(ue.shape)} at even "
+                          f"offsets {(row_off, col_off)}", ue, be, None, t,
+                          dtype, sigma, [("residual", None, 0)] + sweeps)
+        del u, b, ue, be
+        for path in ("S3", "S4"):
+            n = 2 ** SHARDED_PATHS[path][0] - 1
+            ue, be, e, t = local2d_tile(n, dtype, n + 3)
+            for sigma in (0.0, SIGMA):
+                check_local2d(f"{name} {path} fine tile {tuple(ue.shape)}",
+                              ue, be, e, t, dtype, sigma, sweeps)
             del ue, be, e
     for path in ("S1", "S2", "S3", "S4"):
         n, block, runs = local2d_main_checks(path)
@@ -1342,10 +1388,11 @@ KERNELS = {
                          "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
                          "multigridcmt_tpu/kernels/local2d.py:289", "S2"),
     "local2d_rbgs": ("local2d", "rbgs_launches",
-                     "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                     "multigridcmt_tpu_torch/kernels/csrc/local2d_sweep.cu",
                      "multigridcmt_tpu/kernels/local2d.py:263", "S3"),
     "local2d_jacobi": ("local2d", "jacobi_launches",
-                       "multigridcmt_tpu_torch/kernels/csrc/local2d.cu",
+                       "multigridcmt_tpu_torch/kernels/csrc/"
+                       "local2d_sweep.cu",
                        "multigridcmt_tpu/kernels/local2d.py:278", "S4"),
     "plocal2d_down": ("plocal2d", "down_launches",
                       "multigridcmt_tpu_torch/kernels/csrc/plocal2d_legs.cu",
@@ -2112,6 +2159,33 @@ def paths_sharded(runs: dict) -> None:
     del prob, solver
     torch.cuda.empty_cache()
 
+    # float64 at k=10 on the composed routes: S3's RB-GS V(4,4) and S4's
+    # Jacobi V(8,8), whose sharded solve smooths 1023..255 with the local2d
+    # sweeps (beside the local2d residual), against the single-device solve
+    # of the same problem (paths B's and C's composed route: the stencil2d
+    # sweeps and the transfer2d kernels).
+    for label, counter in (("S3", "local2d_rbgs"), ("S4", "local2d_jacobi")):
+        prob = mt.poisson2d(k=SHARDED_F64_K, dtype=torch.float64,
+                            use_kernels=True, tol=F64_TOL, device="cuda",
+                            **SHARDED_PATHS[label][2])
+        solver = sharded.ShardedSolver(prob.config, sharded_mesh((1,)))
+        legs, owned = sharded_levels(prob, solver)
+        require((legs, owned) == (0, 3),
+                f"{label} float64 k={SHARDED_F64_K}: {legs} leg and {owned} "
+                "owned kernel levels, not 0 and 3")
+        res, counts, _ = counted(lambda: solver.solve(prob.b))
+        ref = mt.MultigridSolver(prob).solve()
+        cfg = prob.config
+        sharded_against_single(
+            f"sharded float64 {label} route k={SHARDED_F64_K} {cfg.smoother} "
+            f"V({cfg.nu1},{cfg.nu2})", res, ref)
+        i = res.iters
+        require_counts(f"sharded f64 {label}", counts,
+                       **{counter: 2 * owned * i},
+                       local2d_residual=owned * i + i + 1)
+        del prob, solver, res, ref
+        torch.cuda.empty_cache()
+
 
 def phase_main_path():
     """The slice's paths through the public entry points. Returns, per
@@ -2788,6 +2862,31 @@ def timed_sharded(times: dict) -> None:
         torch.cuda.empty_cache()
     times["local2d_legs"] = legs
 
+    # The sweeps as S3 and S4 run them, on rank 0's tile of a row mesh of 1
+    # at each of their levels: RB-GS nu = 4 at 2047...255, Jacobi nu = 8 at
+    # 1023...255; device time a call beside the bound (u, b in, u' out).
+    sweeps = {}
+    for k in range(SHARDED_PATHS["S3"][0], SHARDED_PATHS["S3"][0] - 4, -1):
+        n = 2 ** k - 1
+        h = 1.0 / (n + 1)
+        ue, be, _, t = local2d_tile(n, torch.float32, seed=23)
+        offs = (t["row_off"], t["col_off"])
+        calls = {"local2d_rbgs nu=4": lambda: local2d.rbgs_sweep(
+            ue, be, n, h, *offs, sweeps=4)}
+        if k <= SHARDED_PATHS["S4"][0]:
+            calls["local2d_jacobi nu=8"] = lambda: local2d.jacobi_sweep(
+                ue, be, n, h, 0.8, *offs, sweeps=8)
+        bound = nbytes(ue, be, ue) / PEAK_BYTES_PER_S * 1e3
+        for name, fn in calls.items():
+            key = f"{name}@{n} {tuple(ue.shape)}"
+            sweeps[key] = {"device_ms": device_busy(fn, LEG_CHAIN)[0],
+                           "bound_ms": bound}
+            log(f"sweep {key}: device {sweeps[key]['device_ms']:.4f} ms, "
+                f"bound {bound:.4f} ms")
+        del ue, be, calls
+        torch.cuda.empty_cache()
+    times["local2d_sweeps"] = sweeps
+
 
 def timed_chains(times: dict) -> None:
     """One S1 cycle as v_cycles_fn runs it (CHAIN_CYCLES chained cycles over
@@ -3045,6 +3144,7 @@ def main() -> int:
     log("legs: " + json.dumps(times["legs"]))
     log("tile_legs: " + json.dumps(times["tile_legs"]))
     log("local2d_legs: " + json.dumps(times["local2d_legs"]))
+    log("local2d_sweeps: " + json.dumps(times["local2d_sweeps"]))
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):
         log(f"{key}: " + json.dumps(times[key]))

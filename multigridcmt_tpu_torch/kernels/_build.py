@@ -86,10 +86,13 @@ for _t in ("f32", "f64"):
     SIGNATURES[f"mg_spmv_dia_{_t}"] = [_P, _P, _P, _P, _I, _L, _L, _P]
     # data, cols, xt, yt, nbr, kmax, m, ldx, stream
     SIGNATURES[f"mg_bell_spmm_{_t}"] = [_P, _P, _P, _P, _L, _L, _L, _L, _P]
-    # u, b, out, R, C, n, row_off, col_off, h, sigma, mode, omega, sweeps,
-    # stream
+    # u, b, out, R, C, n, row_off, col_off, h, sigma, kind, omega, sweeps,
+    # geometry (local2d.leg_geometry of the sweep stream), stream
     SIGNATURES[f"mg_local2d_sweep_{_t}"] = [_P, _P, _P, _I, _I, _I, _I, _I, _D,
-                                            _D, _I, _D, _I, _P]
+                                            _D, _I, _D, _I, _IP, _P]
+    # u, b, r, R, C, n, row_off, col_off, h, sigma, stream
+    SIGNATURES[f"mg_local2d_residual_{_t}"] = [_P, _P, _P] + [_I] * 5 + [
+        _D, _D, _P]
     # u, b, u_out, rc, R, C, Rc, Cc, n, row_off, col_off, crow, ccol, qlo,
     # qhi, slo, shi, h, sigma, kind, omega, sweeps, geometry
     # (local2d.leg_geometry), stream
@@ -118,9 +121,8 @@ KIND_CODES = {"jacobi": 0, "rbgs": 1}
 # The halo a launch loads grows with its sweeps (RB-GS makes 2 rings stale
 # a sweep, Jacobi 1; a down leg adds 2 for the residual and the
 # restriction). Capping it at 8, as the TPU kernels do, bounds the rows a
-# row-streaming lane holds (and the shared-memory tiles of local2d) and
-# makes the same legs and sweep chunks fuse as in the JAX package; it
-# bounds the sweeps of every 2D launch.
+# row-streaming lane holds and makes the same legs and sweep chunks fuse as
+# in the JAX package; it bounds the sweeps of every 2D launch.
 MAX_HALO = 8
 
 

@@ -6,8 +6,9 @@
 // (n+2) x (n+2) row-major array whose one-cell ghost ring is zero
 // (homogeneous Dirichlet). The row pitch n+2 is odd, so rows are not
 // 16-byte aligned and every access is a scalar load or store. A shard's
-// tile (local2d.cu, local2d_legs.cu) is a rectangle of that grid with its
-// own origin (Rect); the helpers below work in global indices on either.
+// tile (local2d.cu, local2d_legs.cu, local2d_sweep.cu) is a rectangle of
+// that grid with its own origin (Rect); the helpers below work in global
+// indices on either.
 //
 // The arithmetic mirrors the TPU kernels term for term
 // (multigridcmt_tpu/kernels/stencil2d.py: _gs_vals, _residual_vals):
@@ -139,16 +140,12 @@ __device__ __forceinline__ T residual_at(const T* p, T bval, int pitch,
   return bval - au + c.sig * v;
 }
 
-// Halo rings that `sweeps` in-tile sweeps of `kind` make stale (see the
-// smoothing section below): RB-GS 2 a sweep, Jacobi 1.
-inline int sweep_halo(int kind, int sweeps) {
-  return kind == kRbgs ? 2 * sweeps : sweeps;
-}
-
-// Tiles of the logical layout. A block owns a TY x TX core of fine points
-// whose first row and column are even (in global indices), so fine point
-// 2I of coarse point I (transfer.py) lies in exactly one core and every
-// coarse value has one writer, and loads it with a halo of H rings: an
+// Shared-memory tiles of the logical layout (transfer2d.cu's
+// residual_restrict; no smoother runs on one). A block owns a TY x TX core
+// of fine points whose first row and column are even (in global indices),
+// so fine point 2I of coarse point I (transfer.py) lies in exactly one core
+// and every coarse value has one writer, and loads it with a halo of H
+// rings: an
 // RY x RX tile, RY = TY + 2H, RX = TX + 2H, whose top-left point is global
 // (y0 - H, x0 - H).
 
@@ -162,20 +159,6 @@ __device__ void load_tile(const T* __restrict__ g, T* s, int RY, int RX,
     const int gy = gy0 + ly;
     const int gx = gx0 + idx - ly * RX;
     s[idx] = a.holds(gy, gx) ? g[a.at(gy, gx)] : T(0);
-  }
-}
-
-// Write the TY x TX core of tile `s` (halo H) to the array a at global
-// (y0, x0).
-template <int TY, int TX, typename T>
-__device__ void store_core(const T* s, T* __restrict__ g, int RX, int H,
-                           int y0, int x0, const Rect& a) {
-  for (int idx = threadIdx.x; idx < TY * TX; idx += blockDim.x) {
-    const int cy = idx / TX;
-    const int cx = idx - cy * TX;
-    const int gy = y0 + cy;
-    const int gx = x0 + cx;
-    if (a.holds(gy, gx)) g[a.at(gy, gx)] = s[(H + cy) * RX + H + cx];
   }
 }
 
@@ -224,82 +207,6 @@ __device__ void restrict_core(const T* rs, T* __restrict__ rc, int y0, int x0,
     }
     rc[ca.at(I, J)] = val;
   }
-}
-
-// ---------------------------------------------------------------------------
-// Smoothing on a tile held in shared memory.
-//
-// The tile is RY x RX points whose top-left point has global padded index
-// (gy0, gx0). A point is updated only if `upd` holds there (Interior: it is
-// interior to the grid; InteriorBox: and inside a shard tile's box) and it
-// is not on the tile's outer ring (its four neighbours must be in the
-// tile). The ring keeps its loaded values, so each half-sweep (RB-GS) or
-// sweep (Jacobi) makes one more ring of points stale; callers size the halo
-// so that the stale rings never reach the points they keep.
-// ---------------------------------------------------------------------------
-
-// One RB-GS half-sweep in place: only points of the given colour change,
-// and they read only points of the other colour. Colour comes from global
-// padded indices: red (parity 0) means (i + j) even; `& 1` is the floor
-// parity of a negative index too.
-template <typename T, typename Upd>
-__device__ void rbgs_half_sweep(T* us, const T* bs, int RY, int RX, int gy0,
-                                int gx0, const Upd& upd, int parity,
-                                const Coef<T>& c) {
-  const int half = RX / 2;   // RX is even: one point of each colour per pair
-  for (int idx = threadIdx.x; idx < RY * half; idx += blockDim.x) {
-    const int ly = idx / half;
-    const int gy = gy0 + ly;
-    const int lx = 2 * (idx - ly * half) + ((parity + gy + gx0) & 1);
-    const int gx = gx0 + lx;
-    if (ly < 1 || ly > RY - 2 || lx < 1 || lx > RX - 2) continue;
-    if (!upd(gy, gx)) continue;
-    const int k = ly * RX + lx;
-    us[k] = (c.h2 * bs[k] + us[k - RX] + us[k + RX] + us[k - 1] + us[k + 1])
-            * c.inv_den;
-  }
-}
-
-// One weighted-Jacobi sweep from `us` into `vs` (both RY x RX).
-template <typename T, typename Upd>
-__device__ void jacobi_sweep(const T* us, T* vs, const T* bs, int RY, int RX,
-                             int gy0, int gx0, const Upd& upd,
-                             const Coef<T>& c) {
-  for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
-    const int ly = idx / RX;
-    const int lx = idx - ly * RX;
-    T v = us[idx];
-    if (ly >= 1 && ly <= RY - 2 && lx >= 1 && lx <= RX - 2 &&
-        upd(gy0 + ly, gx0 + lx)) {
-      v = v + c.jscale * residual_at(us + idx, bs[idx], RX, c);
-    }
-    vs[idx] = v;
-  }
-}
-
-// `sweeps` smoother sweeps on the tile; returns the buffer holding the
-// result (`us` for RB-GS, `us` or `vs` for Jacobi's ping-pong).
-template <typename T, typename Upd>
-__device__ T* smooth_tile(T* us, T* vs, const T* bs, int RY, int RX, int gy0,
-                          int gx0, const Upd& upd, int kind, int sweeps,
-                          const Coef<T>& c) {
-  if (kind == kRbgs) {
-    for (int s = 0; s < sweeps; ++s) {
-      rbgs_half_sweep(us, bs, RY, RX, gy0, gx0, upd, 0, c);
-      __syncthreads();
-      rbgs_half_sweep(us, bs, RY, RX, gy0, gx0, upd, 1, c);
-      __syncthreads();
-    }
-    return us;
-  }
-  for (int s = 0; s < sweeps; ++s) {
-    jacobi_sweep(us, vs, bs, RY, RX, gy0, gx0, upd, c);
-    __syncthreads();
-    T* t = us;
-    us = vs;
-    vs = t;
-  }
-  return us;
 }
 
 }  // namespace mg

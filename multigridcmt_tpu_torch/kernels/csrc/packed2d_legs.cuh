@@ -7,9 +7,11 @@
 // shard's packed tile; fused2d.cu the down leg, fused2d_up.cu and
 // fused2d_up_f64.cu the up leg, stencil2d_sweep.cu and
 // stencil2d_sweep_f64.cu the RB-GS and Jacobi sweeps on the unpacked
-// grid; local2d_legs.cu and local2d_legs_f64.cu both legs on a shard's
-// unpacked tile (a kernel for each stage count; the files compile in
-// parallel). packed2d.cu's note says what they replace and how they work;
+// grid; local2d_legs.cu and local2d_legs_f64.cu both legs,
+// local2d_sweep.cu and local2d_sweep_f64.cu the RB-GS and Jacobi sweeps,
+// on a shard's unpacked tile (a kernel for each stage count; the files
+// compile in parallel). packed2d.cu's note says what they replace and how
+// they work;
 // plocal2d.cu's what the tile frame adds, fused2d.cu's what the unpacked
 // one does, local2d_legs.cu's how the unpacked tile joins the two,
 // packed2d_sweep.cu's what the sweeps do.
@@ -87,18 +89,22 @@ struct Unpacked {
 };
 
 // UTile: one rank's unpacked extended tile a (local2d_legs.cu): R x C
-// points of the global grid from (a.goy, a.gox), row pitch C, a.goy odd;
-// upd, ca and keep as Tile has them. Lane l holds global columns gx0 + 2l
-// and gx0 + 2l + 1 as Unpacked does, gx0 = a.gox - (a.gox & 1), at array
-// index (i - a.goy) C + (gx - a.gox); with an odd column offset (a block
-// tile) lane 0's phase-0 point, column a.gox - 1, lies off the array. A
-// lane's two points are one aligned pair where their index is even. Only
-// the odd rows take paired accesses, a choice made at compile time:
-// `odd_pairs` says whether the odd rows' pairs are aligned (on a row tile,
-// C odd, a.gox 0 and a.goy odd as every local2d tile's, they are; on a
-// block tile, C even and a.gox odd, no row's are) and the fine arrays
-// start on a pair (utile_frame). A test of both parities at run time made
-// the up leg slower, and no pairs at all cost it registers (PERF.md).
+// points of the global grid from (a.goy, a.gox), row pitch C; upd, ca and
+// keep as Tile has them. The legs' tiles start on an odd row, as Tile's;
+// the sweeps (local2d_sweep.cu, whose frame has an empty coarse tile) take
+// any offsets: on an even a.goy the first segment starts on the tile's
+// first row and no zero row is streamed. Lane l holds global columns
+// gx0 + 2l and gx0 + 2l + 1 as Unpacked does, gx0 = a.gox - (a.gox & 1),
+// at array index (i - a.goy) C + (gx - a.gox); with an odd column offset
+// (a block tile) lane 0's phase-0 point, column a.gox - 1, lies off the
+// array. A lane's two points are one aligned pair where their index is
+// even. Only the odd rows take paired accesses, a choice made at compile
+// time: `odd_pairs` says whether the odd rows' pairs are aligned (on a row
+// tile, C odd, a.gox 0 and a.goy odd as every sharded tile's, they are; on
+// a block tile, C even and a.gox odd, no row's are; utile_frame derives it
+// from any offsets) and the fine arrays start on a pair. A test of both
+// parities at run time made the up leg slower, and no pairs at all cost it
+// registers (PERF.md).
 struct UTile {
   int n;
   mg::Rect a;
@@ -115,10 +121,11 @@ constexpr bool kIsUnpacked = std::is_same<Fr, Unpacked>::value;
 template <class Fr>
 constexpr bool kIsUTile = std::is_same<Fr, UTile>::value;
 // What a frame takes from which: a shard's tile (Tile, UTile) has the
-// tile's rows (global, from an odd first row), its upd box and a coarse
-// tile with its owned box; an unpacked array (Unpacked, UTile) sums each
-// stencil in the plain versions' order (gs_value, residual_of, jacobi_step)
-// and takes the full residual in the down leg.
+// tile's rows (global, from its first row; the row above an odd one
+// streamed as zeros), its upd box and a coarse tile with its owned box; an
+// unpacked array (Unpacked, UTile) sums each stencil in the plain versions'
+// order (gs_value, residual_of, jacobi_step) and takes the full residual in
+// the down leg.
 template <class Fr>
 constexpr bool kOnTile = kIsTile<Fr> || kIsUTile<Fr>;
 template <class Fr>
@@ -844,7 +851,8 @@ sweep_kernel(const T* __restrict__ u, const T* __restrict__ b,
 // The most stages a leg takes, each count its own kernel: a whole grid's
 // (packed2d.py and fused2d.py: RB-GS 2 max_*_sweeps, Jacobi max_*_sweeps;
 // the sweep stream kMaxUpStages: packed2d.max_fused_sweeps and
-// stencil2d.max_fused_sweeps) and a tile's (local2d.py's caps, both legs).
+// stencil2d.max_fused_sweeps, and local2d.max_fused_sweeps on a tile) and
+// a tile's legs' (local2d.py's caps, both legs).
 constexpr int kMaxDownStages = 6;
 constexpr int kMaxUpStages = 8;
 constexpr int kMaxTileStages = 6;
@@ -1050,9 +1058,10 @@ Tile tile_frame(const mg::PRect& a, const mg::Rect& ca, int n, int qlo,
               owned_box(ca, n, qlo, qhi, slo, shi)};
 }
 
-// The unpacked tile frame of a leg on the tile a, as tile_frame; `paired`:
-// the leg's fine arrays all start on a pair of T (on_pairs), without which
-// no row takes paired accesses.
+// The unpacked tile frame of a leg or sweep on the tile a, as tile_frame
+// (a sweep passes an empty coarse tile, which its stream never reads);
+// `paired`: the fine arrays all start on a pair of T (on_pairs), without
+// which no row takes paired accesses.
 UTile utile_frame(const mg::Rect& a, const mg::Rect& ca, int n, int qlo,
                   int qhi, int slo, int shi, bool paired) {
   // A lane's phase-0 point in an odd row i lies at index

@@ -3,8 +3,14 @@ on one rank's halo-extended tile.
 
 Replace the TPU kernels of ``multigridcmt_tpu/kernels/local2d.py``:
   * ``rbgs_sweep``, ``jacobi_sweep``: up to ``max_fused_sweeps(kind)``
-    sweeps in one pass, and ``residual``: r = b - (A - sigma I) u, with
-    ``csrc/local2d.cu`` (shared-memory tiles; see the note there);
+    sweeps in one pass, with ``csrc/local2d_sweep.cu`` and
+    ``csrc/local2d_sweep_f64.cu``: ``csrc/packed2d_legs.cuh``'s sweep
+    stream (the up leg's row stream without its coarse operand) on the
+    legs' unpacked tile frame, at any offsets (see the note in
+    ``local2d_sweep.cu``); ``leg_geometry("sweep", ...)`` gives their
+    launch geometry;
+  * ``residual``: r = b - (A - sigma I) u, with ``csrc/local2d.cu`` (one
+    thread a point);
   * ``down_leg``: sweeps, residual and full weighting in one pass, the
     coarse right-hand side emitted in the extended convention, and
     ``up_leg``: x + P e, then sweeps, in one pass, with
@@ -54,18 +60,15 @@ HALO_ROWS = 8
 # coarse right-hand side in it; the up leg reads the correction in it).
 COARSE_HALO = HALO_ROWS
 
-# The sweep kernel's third mode, beside _build.KIND_CODES.
-RESIDUAL_MODE = 2
-
-# The least segment of the legs' row stream on a tile: the unpacked
-# frame's (fused2d.MIN_SEG). Below the 2047 level the launch fills the
-# card with segments this short (utils/leg_segments.py --tile times the
-# legs at each least segment).
+# The least segment of the legs' and sweeps' row stream on a tile: the
+# unpacked frame's (fused2d.MIN_SEG). Below the 2047 level the launch fills
+# the card with segments this short (utils/leg_segments.py --tile times the
+# legs and the sweeps at each least segment).
 MIN_SEG = 6
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
-# count): the sweep kernel in each mode (one a launch, whatever its sweep
-# count), and each leg.
+# count): the sweep kernel of each kind (one a launch, whatever its sweep
+# count), the residual, and each leg.
 rbgs_launches = 0
 jacobi_launches = 0
 residual_launches = 0
@@ -270,17 +273,17 @@ def _frame(rows: int, cols: int, row_off: int, col_off: int) -> dict:
 def leg_geometry(leg: str, rows: int, cols: int, n: int, row_off: int,
                  col_off: int, kind: str, sweeps: int, *,
                  sm_count: int = 132) -> packed2d.LegGeometry:
-    """Geometry of the row-streaming down or up leg (``packed2d.
-    leg_geometry``) on a rows x cols extended tile at global (row_off,
-    col_off), for ``sm_count`` SMs."""
+    """Geometry of the row-streaming down or up leg, or of the sweep stream
+    (``leg="sweep"``; ``packed2d.leg_geometry``), on a rows x cols extended
+    tile at global (row_off, col_off), for ``sm_count`` SMs."""
     return packed2d.leg_geometry(leg, n, kind, sweeps, sm_count=sm_count,
                                  **_frame(rows, cols, row_off, col_off))
 
 
 def _launch_geometry(leg: str, t: torch.Tensor, n: int, row_off: int,
                      col_off: int, kind: str, sweeps: int):
-    """The leg's geometry on tile t's card, as the kernel's int array
-    (``packed2d._launch_geometry`` on this frame)."""
+    """The leg's (or sweep stream's) geometry on tile t's card, as the
+    kernel's int array (``packed2d._launch_geometry`` on this frame)."""
     return packed2d._launch_geometry(
         leg, n, kind, sweeps, t.device.index or 0,
         **_frame(*t.shape, int(row_off), int(col_off)))
@@ -319,11 +322,13 @@ def _check_leg(n: int, m: int, mcol: int, shape) -> tuple:
             mcol // 2 + 2 * HALO_ROWS if mcol else nc + 2)
 
 
-def _sweep(mode: int, u, b, n, h, omega, row_off, col_off, sigma, sweeps):
+def _sweep(kind: str, u, b, n, h, omega, row_off, col_off, sigma, sweeps):
     out = torch.empty_like(u)
     launch_on(u, "local2d_sweep", u.data_ptr(), b.data_ptr(), out.data_ptr(),
               u.shape[0], u.shape[1], n, int(row_off), int(col_off),
-              float(h), float(sigma), mode, float(omega), sweeps)
+              float(h), float(sigma), _build.KIND_CODES[kind], float(omega),
+              sweeps, _launch_geometry("sweep", u, n, row_off, col_off, kind,
+                                       sweeps))
     return out
 
 
@@ -342,8 +347,8 @@ def rbgs_sweep(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
     if not on_cuda(u_ext):
         return rbgs_sweep_plain(u_ext, b_ext, n, h, row_off, col_off,
                                 sigma=sigma, sweeps=sweeps)
-    out = _sweep(_build.KIND_CODES["rbgs"], u_ext, b_ext, n, h, 1.0,
-                 row_off, col_off, sigma, sweeps)
+    out = _sweep("rbgs", u_ext, b_ext, n, h, 1.0, row_off, col_off, sigma,
+                 sweeps)
     rbgs_launches += 1
     return out
 
@@ -362,8 +367,8 @@ def jacobi_sweep(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
     if not on_cuda(u_ext):
         return jacobi_sweep_plain(u_ext, b_ext, n, h, omega, row_off,
                                   col_off, sigma=sigma, sweeps=sweeps)
-    out = _sweep(_build.KIND_CODES["jacobi"], u_ext, b_ext, n, h, omega,
-                 row_off, col_off, sigma, sweeps)
+    out = _sweep("jacobi", u_ext, b_ext, n, h, omega, row_off, col_off,
+                 sigma, sweeps)
     jacobi_launches += 1
     return out
 
@@ -377,8 +382,10 @@ def residual(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
     if not on_cuda(u_ext):
         return residual_plain(u_ext, b_ext, n, h, row_off, col_off,
                               sigma=sigma)
-    out = _sweep(RESIDUAL_MODE, u_ext, b_ext, n, h, 1.0, row_off, col_off,
-                 sigma, 0)
+    out = torch.empty_like(u_ext)
+    launch_on(u_ext, "local2d_residual", u_ext.data_ptr(), b_ext.data_ptr(),
+              out.data_ptr(), u_ext.shape[0], u_ext.shape[1], n,
+              int(row_off), int(col_off), float(h), float(sigma))
     residual_launches += 1
     return out
 

@@ -49,7 +49,9 @@ legs on the whole grid.
 
 With ``--sweeps``, only the fused sweeps as the composed cycles (RB-GS
 V(4,4), Jacobi V(8,8)) run them, single/chained/device, at each of their
-levels.
+levels: on the whole grid (paths B and C) and on rank 0's tiles of a row
+mesh of 1 (the local2d sweeps of config 5's S3 and S4, and both at S1's
+4095 tile, each tile's local2d residual beside them).
 
 Informative only: nothing is checked. Needs a CUDA device.
 """
@@ -71,12 +73,12 @@ from multigridcmt_tpu_torch.ops import transfer
 from multigridcmt_tpu_torch.utils.profiling import chained_ms, cuda_time_ms
 
 # The sharded kernels by their names in the profiler: the local2d kernels
-# (the sweeps and residual, local_*_kernel; the legs, the row-streaming
-# down_kernel and up_kernel on the UTile frame, local_down_kernel and
-# local_up_kernel before them, so that a tree from before the row stream,
-# timed in turns with this tool, reads the same group), and the plocal2d
-# legs (the row stream on the Tile frame; plocal_down_kernel and
-# plocal_up_kernel before it).
+# (the residual, local_residual_kernel; the legs and the sweeps, the
+# row-streaming down_kernel, up_kernel and sweep_kernel on the UTile frame,
+# and the shared-memory local_*_kernel before them, so that a tree from
+# before the row stream, timed in turns with this tool, reads the same
+# group), and the plocal2d legs (the row stream on the Tile frame;
+# plocal_down_kernel and plocal_up_kernel before it).
 SHARDED_KERNELS = {
     "local2d kernels": re.compile(r"(?<!\w)local_|(?<!\w)UTile(?!\w)"),
     "plocal2d legs": re.compile(r"(?<!\w)plocal_(down|up)|(?<!\w)Tile(?!\w)"),
@@ -407,7 +409,11 @@ def sweeps() -> None:
     """The fused sweeps as the composed cycles run them: the packed RB-GS
     sweep at 4095^2 (nu = 4, path B's, and nu = 1, the smoother figure),
     the stencil2d RB-GS sweep at nu = 4 at 2047...255 (B) and the Jacobi
-    sweep at nu = 8 at 1023...255 (C), each single/chained/device."""
+    sweep at nu = 8 at 1023...255 (C), each single/chained/device; then the
+    local2d sweeps on rank 0's tiles of a row mesh of 1, RB-GS nu = 4 at
+    4095...255 (S3's levels 2047...255) and Jacobi nu = 8 at 4095 and
+    1023...255 (S4's levels 1023...255), and the local2d residual there
+    (the composed route's other kernel)."""
     n = 4095
     h = 1.0 / (n + 1)
     u, b, _ = grids(n, seed=12)
@@ -427,6 +433,18 @@ def sweeps() -> None:
                 u, b, n, h, 0.8, sweeps=8)
         print_level(n, row)
         del u, b
+    off = 1 - local2d.HALO_ROWS
+    for n in (4095, 2047, 1023, 511, 255):
+        h = 1.0 / (n + 1)
+        *_, ue, be, _ = row_tile(n, n)
+        row = {f"tile {tuple(ue.shape)}: local2d rbgs nu=4":
+               lambda: local2d.rbgs_sweep(ue, be, n, h, off, sweeps=4)}
+        if n <= 1023 or n == 4095:
+            row["local2d jacobi nu=8"] = lambda: local2d.jacobi_sweep(
+                ue, be, n, h, 0.8, off, sweeps=8)
+        row["local2d residual"] = lambda: local2d.residual(ue, be, n, h, off)
+        print_level(n, row)
+        del ue, be
 
 
 def levels3(k: int) -> None:

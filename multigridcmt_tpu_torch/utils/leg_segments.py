@@ -1,10 +1,12 @@
 """Device time of the fused2d legs (the row stream on the unpacked frame),
-of the stencil2d sweeps (the same frame's sweep stream) or of the local2d
-legs (the row stream on the unpacked tile frame), for each least segment.
+of the stencil2d sweeps (the same frame's sweep stream), of the local2d
+legs (the row stream on the unpacked tile frame) or of the local2d sweeps
+(that frame's sweep stream), for each least segment.
 
     python -m multigridcmt_tpu_torch.utils.leg_segments [--rounds 2]
     python -m multigridcmt_tpu_torch.utils.leg_segments --sweeps
     python -m multigridcmt_tpu_torch.utils.leg_segments --tile
+    python -m multigridcmt_tpu_torch.utils.leg_segments --tile --sweeps
 
 Float32 RB-GS, nu = 2, sigma = 0, random grids at 2047^2, 1023^2, 511^2
 and 255^2: ``fused2d.MIN_SEG`` set to each value in SEGMENTS, both legs
@@ -21,8 +23,10 @@ SWEEP_SEGMENTS instead (longer ones too: with 8 stages a unit recomputes
 16 halo rows). With ``--tile``, the local2d legs (RB-GS nu = 2) on rank 0's
 tiles of a row mesh of 1 at S1's levels 2047...255 for each
 ``local2d.MIN_SEG`` in SEGMENTS instead (at the 2047 tile the launch fills
-the card with 40-row segments whatever the least up to 40). Needs a CUDA
-device.
+the card with 40-row segments whatever the least up to 40). With both,
+the local2d sweeps as config 5's S3 and S4 run them on those tiles (RB-GS
+nu = 4 at 2047...255, Jacobi nu = 8 at 1023...255) for each
+``local2d.MIN_SEG`` in SWEEP_SEGMENTS. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -151,21 +155,52 @@ def tile_segments(rounds: int) -> None:
         local2d.MIN_SEG = shipped
 
 
+def tile_sweep_segments(rounds: int) -> None:
+    shipped = local2d.MIN_SEG
+    order = list(SWEEP_SEGMENTS)
+    off = 1 - local2d.HALO_ROWS
+    try:
+        for n in (2047, 1023, 511, 255):
+            h = 1.0 / (n + 1)
+            *_, ue, be, _ = row_tile(n, n)
+            # name -> (kind, sweeps, call)
+            calls = {"rbgs nu=4": ("rbgs", 4, lambda: local2d.rbgs_sweep(
+                ue, be, n, h, off, sweeps=4))}
+            if n <= 1023:
+                calls["jacobi nu=8"] = ("jacobi", 8, lambda: (
+                    local2d.jacobi_sweep(ue, be, n, h, 0.8, off, sweeps=8)))
+            for _ in range(rounds):
+                for seg in order + order[::-1]:
+                    local2d.MIN_SEG = seg
+                    parts = []
+                    for name, (kind, nu, fn) in calls.items():
+                        g = local2d.leg_geometry("sweep", *ue.shape, n, off,
+                                                 0, kind, nu)
+                        parts.append(f"{name} (segments of {g.seg}) "
+                                     f"{graph_ms(fn):.4f}/"
+                                     f"{chained_ms(fn):.4f}")
+                    print(f"tile {tuple(ue.shape)} n={n} MIN_SEG={seg}: "
+                          + ", ".join(parts), flush=True)
+    finally:
+        local2d.MIN_SEG = shipped
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--sweeps", action="store_true",
-                    help="the stencil2d sweeps instead of the legs")
+                    help="the sweeps instead of the legs")
     ap.add_argument("--tile", action="store_true",
-                    help="the local2d legs on S1's tiles instead")
+                    help="the local2d kernels on rank 0's tiles instead")
     args = ap.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     print("readings: ms a call (graph/chained)", flush=True)
-    (sweep_segments if args.sweeps else tile_segments if args.tile
-     else segments)(args.rounds)
+    {(False, False): segments, (True, False): sweep_segments,
+     (False, True): tile_segments, (True, True): tile_sweep_segments}[
+        args.sweeps, args.tile](args.rounds)
 
 
 if __name__ == "__main__":

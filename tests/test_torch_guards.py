@@ -803,10 +803,13 @@ def _check_listed(module: str, lines, sources=None) -> None:
 
 def test_chip_smoke_lists_the_local2d_kernels():
     """The five local2d entry points; the legs are built from
-    csrc/local2d_legs.cu, the sweeps and residual from csrc/local2d.cu."""
+    csrc/local2d_legs.cu, the sweeps from csrc/local2d_sweep.cu and the
+    residual from csrc/local2d.cu."""
     _check_listed("local2d", (263, 278, 289, 616, 843),
                   {"local2d_down": "local2d_legs",
-                   "local2d_up": "local2d_legs"})
+                   "local2d_up": "local2d_legs",
+                   "local2d_rbgs": "local2d_sweep",
+                   "local2d_jacobi": "local2d_sweep"})
 
 
 def test_chip_smoke_lists_the_plocal2d_kernels():

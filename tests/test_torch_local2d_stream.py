@@ -334,9 +334,10 @@ def test_utile_schedule_matches_jax(name, leg, kind, nu, sigma):
 
 def test_breakdown_groups_tell_the_frames_apart():
     """utils/breakdown.py's kernel groups, on kernel names as the profiler
-    gives them: the local2d group takes the row stream on UTile and the
-    shared-memory kernels before it (so that a tree from before it reads
-    the same group), and no other group takes a UTile kernel."""
+    gives them: the local2d group takes the row stream on UTile (the legs
+    and the sweeps) and the shared-memory kernels before it (so that a tree
+    from before it reads the same group), and no other group takes a UTile
+    kernel: the local2d sweeps are not the stencil2d sweeps."""
     from multigridcmt_tpu_torch.utils.breakdown import (ROUTE_KERNELS,
                                                        SHARDED_KERNELS)
 
@@ -367,3 +368,12 @@ def test_breakdown_groups_tell_the_frames_apart():
     assert groups(f"void {ns}local_sweep_kernel<float>(float const*, "
                   "float const*, float*, mg::Rect, mg::InteriorBox, "
                   "mg::Coef<float>, int, int, int)") == {"local2d kernels"}
+    for ty in ("float", "double"):
+        for kind, stages in ((1, 8), (0, 8), (0, 1)):
+            f = ns + "UTile"
+            sweep = (f"void {ns}sweep_kernel<{ty}, {kind}, {stages}, {f}>"
+                     f"({ty} const*, {ty} const*, {ty}*, {f}, "
+                     f"mg::Coef<{ty}>, {ns}LegGeom)")
+            assert groups(sweep) == {"local2d kernels"}
+            assert groups(sweep.replace("UTile", "Unpacked")) == {
+                "stencil2d sweeps"}
