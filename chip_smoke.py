@@ -66,7 +66,14 @@ Phases:
      those offset tiles (the block one has the other packing phase), in
      float64 on two 255^2 ranks (the legs at every sweep count), and the
      legs at every sweep count on a 2999^2 rank whose row stream ends in a
-     partial strip and segment;
+     partial strip and segment; transfer2d.residual_restrict (the row
+     stream without a fine store) at 2047, 1023, 511 and 255 in float32 and
+     float64, on a pair of elements and off one, bit for bit against its
+     plain version; the BELL SpMM also in float64 at the bench shape and
+     through the 8-row carrier, twice (the second call equal to the first
+     bit for bit), and with NaN and Inf in Xt's first block column (where
+     every zero padding block points) at m = 128 and 8, both dtypes, the
+     non-finite values exactly where the plain version's are;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -86,7 +93,11 @@ Phases:
      smoother figure (one packed RB-GS sweep at 4095^2: ms, GB/s, Gnnz/s,
      and by device time), the SpMV figure (a DIA apply at 4095^2 and
      255^3, from 20 chained applies: ms, Gnnz/s, GB/s) and the BELL figure
-     (ms, TFLOP/s, Gnnz*vec/s, GB/s), each beside its plain version and
+     (ms, TFLOP/s, Gnnz*vec/s, GB/s, and by device time; the 8-row SpMV
+     carrier by device time beside its bytes bound over every stored
+     block), residual_restrict by device time at 2047...255 beside the
+     zero-sweep fused2d down leg and its bound, each beside its plain
+     version and
      the library calls of the same operator (torch.mv and torch.sparse.mm
      on a CSR for the SpMV, torch.sparse.mm on a (128, 128) BSR for the
      BELL), one sharded V(2,2) cycle at S1 and S2 beside the single-device
@@ -130,8 +141,9 @@ residual on the owned tiles (the composed route); Chebyshev runs the
 local2d residual.
 
 Phase 1 also reports ptxas's registers and spills of the row-streaming
-legs and sweeps, the local2d sweeps (UTile) among them (from the build's
-nvcc.log).
+legs and sweeps, the local2d sweeps (UTile) among them, the BELL SpMM
+kernels and the residual-restriction stream (from the build's nvcc.log),
+and fails if either of the last two spills.
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -211,8 +223,12 @@ STENCIL3D_STACKS = {
 }
 PACKED_RESIDUAL_SHAPES = [(torch.float32, 4095), (torch.float64, 255)]
 # The composed legs' kernels: transfer2d at the largest unpacked level;
-# float64 at 255.
+# float64 at 255. residual_restrict (the row stream without a fine store)
+# at every level paths A-C run it, both dtypes, also off a pair of
+# elements, bit for bit against its plain version (RR_SHAPES).
 TRANSFER_SHAPES = [(torch.float32, 2047), (torch.float64, 255)]
+RR_SHAPES = [(d, n) for d in (torch.float32, torch.float64)
+             for n in (2047, 1023, 511, 255)]
 # The row-streaming sweeps at every sweep count up to the caps: the
 # stencil2d sweeps at path B's and C's levels (2047...255), where the
 # stream ends partly (2999: 1501 lanes, 3001 rows) and at 31, 15 and 7 (one
@@ -459,10 +475,18 @@ LEG_KERNEL = re.compile(r"(down|up|sweep)_kernelI([fd])Li(\d)ELi(\d+)E"
                         r"(?:Lb([01])E)?NS_\d+(Whole|Tile|Unpacked|UTile)E")
 
 
+# The BELL SpMM kernel (type, m-tile) and the residual-restriction stream
+# (type), whose ptxas report must show no spill.
+OTHER_KERNEL = re.compile(r"(bell_spmm_kernel|residual_restrict_kernel)I([fd])"
+                          r"(?:Li(\d+)E)?")
+
+
 def ptxas_report(log_path) -> None:
     """Log ptxas's registers and spill bytes of every row-streaming leg
     and sweep kernel, a line a frame, leg, type and kind (stage counts in
-    order; the up leg's packed-e twins on the whole grid apart)."""
+    order; the up leg's packed-e twins on the whole grid apart), and of
+    the BELL SpMM kernels (a line a type, m-tiles in order) and the
+    residual-restriction stream; fail if one of the last two spills."""
     props = {}
     name = None
     text = Path(log_path).read_text(encoding="utf-8", errors="replace")
@@ -494,6 +518,24 @@ def ptxas_report(log_path) -> None:
         cells = ", ".join(f"K={k} {r}r" + (f" spill {sp}B" if sp else "")
                           for k, r, sp in sorted(rows[key]))
         log(f"ptxas {' '.join(x for x in key if x)}: {cells}")
+    others = {}
+    for mangled, prop in props.items():
+        m = OTHER_KERNEL.search(mangled)
+        if m and "regs" in prop:
+            name, ty, tile = m.groups()
+            others.setdefault((name, "f32" if ty == "f" else "f64"), []).append(
+                (int(tile or 0), prop["regs"], prop.get("spill", 0)))
+    require({name for name, _ in others} == {"bell_spmm_kernel",
+                                             "residual_restrict_kernel"},
+            f"ptxas report lacks the BELL or residual-restriction kernels: "
+            f"{sorted(others)}")
+    for key in sorted(others):
+        cells = ", ".join((f"MT={t} " if t else "") + f"{r}r"
+                          + (f" spill {sp}B" if sp else "")
+                          for t, r, sp in sorted(others[key]))
+        log(f"ptxas {' '.join(key)}: {cells}")
+        require(all(sp == 0 for *_, sp in others[key]),
+                f"ptxas: {' '.join(key)} spills ({cells})")
 
 
 def check_pair(label: str, got, want, tol: float, shape=None,
@@ -701,21 +743,39 @@ def compare_packed_residual(main_err: dict) -> None:
 
 def compare_composed(main_err: dict) -> None:
     """The transfer2d kernels of the composed legs (compare_sweeps holds
-    their sweeps). Main-path rows: float32 at 2047."""
+    their sweeps): residual_restrict at RR_SHAPES, with u and b on a pair
+    of elements and off one (the wrapper copies), equal to its plain
+    version bit for bit (sigma is 0 and h = 2^-k: the row stream sums as
+    the plain ops do, which the float64 B and C history gates rest on),
+    and within TOL; prolong_add at TRANSFER_SHAPES. Main-path rows: float32
+    at 2047."""
     from multigridcmt_tpu_torch.kernels import transfer2d
 
+    for dtype, n in RR_SHAPES:
+        h = 1.0 / (n + 1)
+        nc = (n - 1) // 2
+        u, b, _ = leg_inputs(n, dtype, seed=n + 5)
+        want = transfer2d.residual_restrict_plain(u, b, n, h)
+        for off in (False, True):
+            name = (f"{str(dtype).split('.')[-1]} n={n}"
+                    + (" off" if off else ""))
+            uu, bb = (off_pair(u), off_pair(b)) if off else (u, b)
+            got = transfer2d.residual_restrict(uu, bb, n, h)
+            err = check_pair(f"residual_restrict {name}", got, want,
+                             TOL[dtype], (nc + 2, nc + 2))
+            require(torch.equal(got, want),
+                    f"residual_restrict {name}: not bit-equal to plain "
+                    f"(max abs diff {err[0]:.3e})")
+            if dtype == torch.float32 and n == 2 ** (MAIN_K - 1) - 1 \
+                    and not off:
+                main_err["transfer2d_residual_restrict"] = err
+        del u, b, want
     for dtype, n in TRANSFER_SHAPES:
         h = 1.0 / (n + 1)
         nc = (n - 1) // 2
         u, b, e = leg_inputs(n, dtype, seed=n + 5)
         name = f"{str(dtype).split('.')[-1]} n={n}"
         main = dtype == torch.float32
-        err = check_pair(f"residual_restrict {name}",
-                         transfer2d.residual_restrict(u, b, n, h),
-                         transfer2d.residual_restrict_plain(u, b, n, h),
-                         TOL[dtype], (nc + 2, nc + 2))
-        if main:
-            main_err["transfer2d_residual_restrict"] = err
         err = check_pair(f"prolong_add {name}",
                          transfer2d.prolong_add(u, e, n, nc),
                          transfer2d.prolong_add_plain(u, e, n, nc),
@@ -951,16 +1011,49 @@ def compare_sparse(main_err: dict) -> None:
     # the JAX kernel's Precision.HIGHEST. The package pins it off; set it
     # here as well, so this comparison does not depend on that.
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, ab, xt = bell_bench()
+    a_sp, ab, xt = bell_bench()
     want = bell.spmm_plain(ab, xt)
+    got = bell.spmm(ab, xt)
     err = check_pair(f"bell_spmm float32 bench kmax={ab.kmax} m={BELL_M}",
-                     bell.spmm(ab, xt), want, TOL[torch.float32],
-                     ghosts=False)
+                     got, want, TOL[torch.float32], ghosts=False)
     main_err["bell_spmm"] = err
+    # The cluster sums its partial tiles in a fixed order: a second call
+    # repeats the first bit for bit.
+    require(torch.equal(bell.spmm(ab, xt), got),
+            "bell_spmm: a second call differs from the first")
     # The 8-row carrier of bell.spmv against row 0 of the plain product
     # (the bench's Xt is exactly n_cols wide).
     check_pair("bell spmv carrier float32 bench", bell.spmv(ab, xt[0]),
                want[0, :ab.shape[0]], TOL[torch.float32], ghosts=False)
+    del got, want
+    # float64 at the bench shape (m = 128: four m-tiles of 32) and through
+    # the carrier (m = 8); then NaN and Inf in Xt's first block column, where
+    # every zero padding block points (the bench's block row 0 also has a
+    # real block there): the kernel skips a slice's FMAs only where its A
+    # values are all zero and its X values all finite, so each NaN lands
+    # where the plain version's does, at m = 128 and m = 8, both dtypes.
+    ab64 = bell.bell_from_scipy(a_sp, dtype=torch.float64, device="cuda")
+    require(bool((ab64.cols[:, -1] == 0).any())
+            and bool((ab64.data[ab64.cols == 0] != 0).any()),
+            "bell bench: no padding block or no real block at column 0")
+    xt64 = xt.double()
+    want = bell.spmm_plain(ab64, xt64)
+    check_pair(f"bell_spmm float64 bench m={BELL_M}", bell.spmm(ab64, xt64),
+               want, TOL[torch.float64], ghosts=False)
+    check_pair("bell spmv carrier float64 bench", bell.spmv(ab64, xt64[0]),
+               want[0, :ab64.shape[0]], TOL[torch.float64], ghosts=False)
+    for a_, x_ in ((ab, xt), (ab64, xt64)):
+        xn = x_.clone()
+        xn[0, 5] = float("nan")
+        xn[BELL_M - 1, 100] = float("inf")
+        xn[3, 127] = -float("inf")
+        for m in (BELL_M, 8):
+            xm = xn[:m].contiguous()
+            check_nonfinite(f"bell_spmm {str(x_.dtype).split('.')[-1]} "
+                            f"bench m={m}, NaN and Inf in block column 0",
+                            bell.spmm(a_, xm), bell.spmm_plain(a_, xm),
+                            TOL[x_.dtype])
+    del ab64, xt64, want, xn, xm
     rng = np.random.default_rng(17)
     dense = np.zeros((4 * 128, 3 * 128))
     for i, j in zip(*np.nonzero(rng.random((4, 3)) < 0.6)):
@@ -972,6 +1065,22 @@ def compare_sparse(main_err: dict) -> None:
     xt64 = torch.from_numpy(rng.standard_normal((16, 3 * 128))).cuda()
     check_pair("bell_spmm float64 4x3 blocks m=16", bell.spmm(ab64, xt64),
                bell.spmm_plain(ab64, xt64), TOL[torch.float64], ghosts=False)
+
+
+def check_nonfinite(label: str, got, want, tol: float) -> None:
+    """NaN and +-Inf exactly where ``want`` has them (there must be some);
+    the finite values within ``tol`` of max|want| over them."""
+    torch.cuda.synchronize()
+    fin = want.isfinite()
+    same = (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.isposinf(), want.isposinf())
+            and torch.equal(got.isneginf(), want.isneginf()))
+    err, rel = rel_err(got[fin], want[fin])
+    log(f"  {label}: {int((~fin).sum())} non-finite, where plain's: {same}; "
+        f"rel {rel:.3e}")
+    require(same and not bool(fin.all()) and rel <= tol,
+            f"{label}: non-finite values elsewhere than plain's, or rel "
+            f"{rel:.3e} > {tol}")
 
 
 def cut_tile(g: torch.Tensor, rows: int, cols: int, row_off: int,
@@ -2393,23 +2502,50 @@ def timed_2d(times: dict) -> None:
 
 def timed_composed(times: dict) -> None:
     """The composed legs' kernels at their main-path shapes (float32,
-    sigma = 0): transfer2d at 2047, then the sweeps (timed_sweeps)."""
+    sigma = 0): transfer2d at 2047 (residual_restrict also at 1023, 511
+    and 255, by device time beside the zero-sweep fused2d down leg, the
+    same stream with the store of u', and its bound), then the sweeps
+    (timed_sweeps)."""
     import torch.nn.functional as F
 
-    from multigridcmt_tpu_torch.kernels import transfer2d
+    from multigridcmt_tpu_torch.kernels import fused2d, transfer2d
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
     from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
 
+    levels = {}
+    for k in range(MAIN_K - 1, MAIN_K - 5, -1):
+        n = 2 ** k - 1
+        nc = (n - 1) // 2
+        h = 1.0 / (n + 1)
+        u, b, _ = leg_inputs(n, torch.float32, seed=11 + k)
+        rc = torch.empty((nc + 2, nc + 2), device="cuda")
+        rr = lambda: transfer2d.residual_restrict(u, b, n, h)
+        down = lambda: fused2d.smooth_residual_restrict(
+            u, b, n, h, kind="rbgs", omega=1.0, sweeps=0)
+        t = time_pair(f"transfer2d_residual_restrict n={n}", rr,
+                      lambda: transfer2d.residual_restrict_plain(u, b, n, h))
+        t.update(bytes=nbytes(u, b, rc),
+                 flops=flops_per_point("transfer2d_residual_restrict") * n * n)
+        row = {"device_ms": t["device_ms"],
+               "fused2d_down_nu0_device_ms": device_busy(down, LEG_CHAIN)[0],
+               "device_ms_again": device_busy(rr, LEG_CHAIN)[0],
+               "bound_ms": t["bytes"] / PEAK_BYTES_PER_S * 1e3,
+               "down_bound_ms": nbytes(u, b, u, rc) / PEAK_BYTES_PER_S * 1e3}
+        log(f"time residual_restrict n={n}: device {row['device_ms']:.4f}/"
+            f"{row['device_ms_again']:.4f} ms, the zero-sweep fused2d down "
+            f"leg {row['fused2d_down_nu0_device_ms']:.4f} ms; bound "
+            f"{row['bound_ms']:.4f} ms ({row['down_bound_ms']:.4f} with "
+            f"u')")
+        levels[n] = row
+        if k == MAIN_K - 1:
+            times["transfer2d_residual_restrict"] = t
+        del u, b, rc
+    times["residual_restrict_levels"] = levels
     n = 2 ** (MAIN_K - 1) - 1
     nc = (n - 1) // 2
     h = 1.0 / (n + 1)
     u, b, e = leg_inputs(n, torch.float32, seed=11)
     rc = torch.empty((nc + 2, nc + 2), device="cuda")
-    t = time_pair(f"transfer2d_residual_restrict n={n}",
-                  lambda: transfer2d.residual_restrict(u, b, n, h),
-                  lambda: transfer2d.residual_restrict_plain(u, b, n, h))
-    t.update(bytes=nbytes(u, b, rc),
-             flops=flops_per_point("transfer2d_residual_restrict") * n * n)
-    times["transfer2d_residual_restrict"] = t
     t = time_pair(f"transfer2d_prolong_add n={n}",
                   lambda: transfer2d.prolong_add(u, e, n, nc),
                   lambda: transfer2d.prolong_add_plain(u, e, n, nc))
@@ -2652,6 +2788,7 @@ def timed_sparse(times: dict) -> None:
     version and torch.sparse.mm of the same matrix as (128, 128)-block
     BSR."""
     import numpy as np
+    import torch.nn.functional as F
 
     from multigridcmt_tpu_torch.kernels import bell, spmv
     from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
@@ -2755,6 +2892,8 @@ def timed_sparse(times: dict) -> None:
         "bound_ms": max(flops / PEAK_F32_FLOPS,
                         moved / PEAK_BYTES_PER_S) * 1e3}
     fig["bound_share"] = fig["bound_ms"] / t["ms"]
+    fig["device_ms"] = t["device_ms"]
+    fig["device_bound_share"] = fig["bound_ms"] / t["device_ms"]
     times["bell_figure"] = fig
     log(f"BELL figure float32: {t['ms']:.4f} ms, {fig['tflop_per_s']:.2f} "
         f"TFLOP/s on the {blocks} populated blocks "
@@ -2765,7 +2904,25 @@ def timed_sparse(times: dict) -> None:
         f"{100 * fig['bound_share']:.1f}% of it); plain "
         f"{t['plain_ms']:.4f} ms; torch.sparse.mm BSR (128, 128) "
         f"{t['library_ms']:.4f} ms (rel diff {lib_rel:.1e})")
-    del yt, bsr, x_cols
+    # The m = 8 carrier (bell.spmv: row 0 of an 8-row Xt live), by device
+    # time: its bound is the bytes of every stored block (a kernel must
+    # read a block to know it is zero), the carrier and the result.
+    x = xt[0]
+    y = bell.spmv(ab, x)
+    t8 = time_pair(f"bell spmv carrier m=8 kmax={ab.kmax}",
+                   lambda: bell.spmv(ab, x), lambda: bell.spmm_plain(
+                       ab, F.pad(x[None], (0, 0, 0, 7))))
+    moved8 = nbytes(ab.data, ab.cols) + 8 * nbytes(x) + 8 * nbytes(yt[0])
+    flops8 = 2 * blocks * blk * blk * 8
+    t8.update(bound_ms=max(moved8 / PEAK_BYTES_PER_S,
+                           flops8 / PEAK_F32_FLOPS) * 1e3,
+              bound_by="bytes (every stored block)")
+    t8["bound_share"] = t8["bound_ms"] / t8["device_ms"]
+    times["bell_carrier"] = t8
+    log(f"BELL carrier m=8 float32: device {t8['device_ms']:.4f} ms, bound "
+        f"{t8['bound_ms']:.4f} ms ({100 * t8['bound_share']:.1f}% of it); "
+        f"single {t8['ms']:.4f} ms, plain {t8['plain_ms']:.4f} ms")
+    del yt, y, x, bsr, x_cols
     torch.cuda.empty_cache()
 
 
@@ -3146,7 +3303,8 @@ def main() -> int:
     log("local2d_legs: " + json.dumps(times["local2d_legs"]))
     log("local2d_sweeps: " + json.dumps(times["local2d_sweeps"]))
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
-    for key in ("spmv_figure", "spmv_figure3d", "bell_figure"):
+    for key in ("spmv_figure", "spmv_figure3d", "bell_figure",
+                "bell_carrier", "residual_restrict_levels"):
         log(f"{key}: " + json.dumps(times[key]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")
     log(card)

@@ -43,9 +43,10 @@ for _t in ("f32", "f64"):
     # frame), stream
     SIGNATURES[f"mg_stencil2d_sweep_{_t}"] = [_P, _P, _P, _I, _D, _D, _I, _D,
                                               _I, _IP, _P]
-    # u, b, rc_out, n, h, stream
+    # u, b, rc_out, n, h, geometry (packed2d.LegGeometry.ints() of the
+    # zero-sweep down leg on the unpacked frame), stream
     SIGNATURES[f"mg_transfer2d_residual_restrict_{_t}"] = [_P, _P, _P, _I,
-                                                           _D, _P]
+                                                           _D, _IP, _P]
     # x, e, out, n, stream
     SIGNATURES[f"mg_transfer2d_prolong_add_{_t}"] = [_P, _P, _P, _I, _P]
     # u, b, u_out, rc_out, n, h, sigma, kind, omega, sweeps, geometry

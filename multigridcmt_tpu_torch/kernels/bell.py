@@ -1,8 +1,13 @@
 """Block-sparse (blocked-ELL) SpMM.
 
 Replaces the TPU kernel ``multigridcmt_tpu/kernels/bell.py`` (``spmm``,
-one ``pallas_call``) with ``csrc/bell.cu`` (a block a block row and a
-tile of vectors; see the note there on what bounds it).
+one ``pallas_call``) with ``csrc/bell.cu``: a CTA a block row, a tile of
+vectors and a share of the block row's slices (the share of one rank of a
+thread-block cluster), FFMA register tiles fed by a cp.async ring of
+slices, the FMAs of a slice skipped where its A values are all zero and
+its X values all finite, the cluster's partial tiles summed in rank order
+(see the note there on what bounds it). ``launch_geometry`` mirrors its
+m-tile and cluster rules.
 
 Format, as in the JAX package: every block row stores exactly ``kmax``
 (128, 128) blocks, padded with explicit zero blocks at block column 0, and
@@ -38,6 +43,60 @@ BN = 128
 # Launches of the CUDA kernel in this process (plain-version calls do not
 # count).
 launches = 0
+
+# csrc/bell.cu's launch constants (the CPU tests hold them against the
+# source): threads a CTA; bytes of block columns a staged slice; slices in
+# the cp.async ring; the largest cluster a block row's walk of slices
+# splits over and the CTAs an SM the split aims at; the m-tiles by dtype
+# (the least one that holds m, else the largest); a thread's block rows
+# (WIDE at float32's largest m-tile) and vectors.
+THREADS = 256
+SLICE_BYTES = 128
+STAGES = 3
+MAX_CLUSTER = 8
+CTAS_PER_SM = 4
+M_TILES = {torch.float32: (8, 32, 128), torch.float64: (8, 32)}
+TILE_ROWS, TILE_ROWS_WIDE = 4, 8
+TILE_VECTORS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmGeometry:
+    """The launch of ``spmm``'s kernel: m-tiles of ``m_tile`` vectors
+    (``m_tiles`` of them); each stored block walked in slices of
+    ``slice_cols`` block columns, a block row's kmax * 128 / slice_cols
+    slices split over a cluster of ``cluster`` CTAs, rank q taking slices
+    q, q + cluster, ...; a thread's register tile ``rows`` block rows by
+    ``vectors`` vectors; a slice's columns split over ``col_groups``
+    thread groups."""
+    m_tile: int
+    m_tiles: int
+    cluster: int
+    slice_cols: int
+    rows: int
+    vectors: int
+    col_groups: int
+
+
+def launch_geometry(nbr: int, kmax: int, m: int, dtype, *,
+                    sm_count: int = 132) -> SpmmGeometry:
+    """``spmm``'s launch on a card of ``sm_count`` SMs, as csrc/bell.cu
+    computes it."""
+    tiles = M_TILES[dtype]
+    m_tile = next((t for t in tiles if m <= t), tiles[-1])
+    m_tiles = -(-m // m_tile)
+    slice_cols = SLICE_BYTES // (4 if dtype == torch.float32 else 8)
+    slices = kmax * BN // slice_cols
+    cluster = 1
+    while (cluster < MAX_CLUSTER and 2 * cluster <= slices
+           and nbr * m_tiles * cluster < CTAS_PER_SM * sm_count):
+        cluster *= 2
+    rows = (TILE_ROWS_WIDE if dtype == torch.float32 and m_tile == tiles[-1]
+            else TILE_ROWS)
+    return SpmmGeometry(
+        m_tile=m_tile, m_tiles=m_tiles, cluster=cluster,
+        slice_cols=slice_cols, rows=rows, vectors=TILE_VECTORS,
+        col_groups=THREADS * rows * TILE_VECTORS // (BM * m_tile))
 
 
 @dataclasses.dataclass(frozen=True)

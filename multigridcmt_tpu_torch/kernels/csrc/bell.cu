@@ -5,122 +5,408 @@
 //
 // Operands (kernels/bell.py): data (nbr, kmax, 128, 128) with
 // data[i][k][r][c] = A[128 i + r, 128 cols[i][k] + c]; cols (nbr, kmax)
-// int32; Xt (m, ldx) row-major, one vector a row; Yt (m, nbr*128). It
-// computes
+// int32, in any order; Xt (m, ldx) row-major, one vector a row; Yt (m,
+// nbr*128). It computes
 //   Yt[j][128 i + r] = sum_k sum_c Xt[j][128 cols[i][k] + c] * data[i][k][r][c]
-// for every block row i, zero padding blocks included (as the TPU kernel
-// multiplies them), accumulating in T: float32 for float32 storage, float64
-// for float64 (JAX's _cdt). The TPU kernel asks for Precision.HIGHEST, so
-// this is plain FMA (DFMA) arithmetic, never TF32 tensor-core products.
+// accumulating in T: float32 for float32 storage, float64 for float64
+// (JAX's _cdt). The TPU kernel asks for Precision.HIGHEST, so this is plain
+// FFMA (DFMA) arithmetic, never TF32 tensor-core products.
 //
 // What bounds it on the card: arithmetic. At the SpMV bench's shape (64 x
-// 64 blocks, density 0.15, seed 1: kmax 18, 18.87M stored values, m = 128)
-// it does 2 * 18.87M * 128 = 4.83 GFLOP on 84 MB: 0.072 ms at the 67
-// TFLOP/s of float32 outside the tensor cores, 0.025 ms at 3.35 TB/s. The
-// design keeps operands close to the FMA units: a block of 128 threads owns
-// one block row i and a tile of MT = 32 vectors, and walks k (the TPU's
-// sequential grid axis becomes this loop) and the 128 block columns c in
-// steps of KC = 32, staging the A block's 128 x KC slice and the X tile's
-// MT x KC slice in shared memory; each thread accumulates a 4 x 8 register
-// tile (4 vectors, 8 block rows), 32 FMAs for every 12 shared-memory reads.
-// Both slices are stored transposed (c outermost, padded by one), so the
-// coalesced global reads along c and the compute reads along r are free of
-// bank conflicts. The m-tile is the fastest grid index, so the blocks that
-// share an A block run together and all but the first read it from L2;
-// tiling m also fills the card (64 block rows x 4 tiles = 256 blocks on 132
-// SMs at m = 128). Indices are 64-bit. Not done yet: a double-buffered
-// (cp.async/TMA) pipeline and larger register tiles.
+// 64 blocks, density 0.15, seed 1: kmax 18, 1152 stored blocks of which
+// 679 populated, m = 128) the populated blocks take 2 * 679 * 128^3 = 2.85
+// GFLOP: 0.0425 ms at the 67 TFLOP/s of float32 outside the tensor cores,
+// against 75.5 MB of stored blocks (0.0225 ms at 3.35 TB/s), which a kernel
+// must read to know a block is zero. At m = 8 (the SpMV carrier) those
+// bytes bound it.
+//
+// The design. A CTA of 256 threads owns one block row i and a tile of MT
+// vectors (the m-tile, chosen from m: 8, 32, or 128 in float32 and 32 in
+// float64), and a share of the block row's work: the block row's stored
+// blocks, each walked in slices of 128 bytes of block columns (KC = 32 in
+// float32, 16 in float64), form one walk of kmax * 128 / KC slices, which
+// the CL CTAs of a thread-block cluster split, rank q taking slices q, q +
+// CL, ... (CL a power of two up to kMaxCluster, grown while the launch has
+// fewer than kCtasPerSm CTAs an SM). Striding slices rather than blocks
+// gives the ranks of a block row equal shares of its populated blocks
+// (which bell_from_scipy stores first), so no rank idles at the cluster's
+// barrier while another finishes a block. A slice, the A block's 128 x KC
+// columns and the X tile's MT x KC, is copied to shared memory by
+// cp.async, 16 bytes a copy, rows as in device memory at a pitch of 9
+// 16-byte chunks (the reads of 8 consecutive rows' chunks fall in 8 bank
+// groups), into a ring of kStages slices, so the loads of the next slices
+// overlap the FMAs of this one. Each thread accumulates a TR x 8 register
+// tile (TR = 8 block rows in float32 at MT = 128, else 4), rows rg + RG p
+// and vectors jg + JG t, 16 bytes of columns a step: its 8 vectors' chunks
+// held, then each row's chunk, 4 (float32) FMAs a row and vector; at TR = 8
+// that is 16 16-byte shared loads for 256 FFMAs. Where RG x JG groups do
+// not fill the CTA (small m-tiles), CS groups split each slice's columns
+// and are summed in order at the end.
+//
+// Zero padding blocks (bell_from_scipy pads a block row to kmax with zero
+// blocks at block column 0) cost no FMAs: after a slice lands, each thread
+// tests the chunks it copied, and the CTA votes (__syncthreads_or) whether
+// any A value of the slice is nonzero or any X value non-finite; it skips
+// the slice's FMAs only when neither holds. Then every skipped product is
+// an exact zero (the accumulators start at +0 and can never be -0), so
+// the result is what multiplying every stored block gives, NaN and Inf
+// in X included (0 * Inf is NaN, as in the plain version and JAX). The
+// test reads the data, never cols: a user-built BELL need not be sorted.
+//
+// The cluster's partial tiles are summed through distributed shared
+// memory: each CTA stores its tile in its own shared memory, the cluster
+// syncs, and rank q sums a 1/CL share of the output tile over the ranks in
+// rank order (and the CS groups in order) and writes it; no float atomics
+// and no second launch, so a run repeats bit for bit. Indices are 64-bit.
+// kernels/bell.py's launch_geometry mirrors the m-tile and cluster rules
+// (a CPU test reads the constants below).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 128;      // block rows r
-constexpr int BN = 128;      // block columns c
-constexpr int MT = 32;       // vectors (rows of Xt) a block
-constexpr int KC = 32;       // block columns staged a step
-constexpr int THREADS = 128;
-constexpr int TX = 16;       // threads along r: r = tx + TX * q
-constexpr int TR = BM / TX;  // 8 block rows a thread
-constexpr int TJ = MT / (THREADS / TX);  // 4 vectors a thread
+constexpr int BM = 128;            // block rows r
+constexpr int BN = 128;            // block columns c
+constexpr int kThreads = 256;      // threads a CTA
+constexpr int kSliceBytes = 128;   // bytes of block columns a slice
+constexpr int kStages = 3;         // the cp.async ring of slices
+constexpr int kMaxCluster = 8;     // CTAs a block row's walk splits over
+constexpr int kCtasPerSm = 4;      // the cluster split aims at this many
+constexpr int kMTileSmall = 8;     // m-tiles: m <= 8 ...
+constexpr int kMTileMid = 32;      // ... m <= 32 (float64: every m > 8) ...
+constexpr int kMTileF32 = 128;     // ... float32, m > 32
+constexpr int kTileRowsWide = 8;   // a thread's block rows at that m-tile
+constexpr int kTileRows = 4;       // ... and at the others
+constexpr int kTileVectors = 8;    // a thread's vectors
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
-                 const T* __restrict__ xt, T* __restrict__ yt, int kmax,
-                 int m, int mtiles, long long ldx) {
-  __shared__ T as[KC][BM + 1];   // A slice, as[cc][r]
-  __shared__ T xs[KC][MT + 1];   // X slice, xs[cc][j]
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const long long i = blockIdx.x / mtiles;
-  const int j0 = (blockIdx.x % mtiles) * MT;
-  const long long ldy = static_cast<long long>(gridDim.x / mtiles) * BM;
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
 
-  T acc[TJ][TR];
-#pragma unroll
-  for (int p = 0; p < TJ; ++p)
-#pragma unroll
-    for (int q = 0; q < TR; ++q) acc[p][q] = T(0);
-
-  for (int k = 0; k < kmax; ++k) {
-    const long long blk = i * kmax + k;
-    const T* a = data + blk * (BM * BN);
-    const T* x = xt + static_cast<long long>(cols[blk]) * BN;
-    for (int c0 = 0; c0 < BN; c0 += KC) {
-      __syncthreads();   // the previous step's reads of as/xs are done
-#pragma unroll
-      for (int s = 0; s < BM * KC / THREADS; ++s) {
-        const int e = tid + s * THREADS;
-        const int r = e / KC;
-        const int cc = e % KC;
-        as[cc][r] = a[r * BN + c0 + cc];
-      }
-#pragma unroll
-      for (int s = 0; s < MT * KC / THREADS; ++s) {
-        const int e = tid + s * THREADS;
-        const int j = e / KC;
-        const int cc = e % KC;
-        xs[cc][j] = j0 + j < m ? x[(j0 + j) * ldx + c0 + cc] : T(0);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int cc = 0; cc < KC; ++cc) {
-        T av[TR];
-        T xv[TJ];
-#pragma unroll
-        for (int q = 0; q < TR; ++q) av[q] = as[cc][tx + TX * q];
-#pragma unroll
-        for (int p = 0; p < TJ; ++p) xv[p] = xs[cc][ty * TJ + p];
-#pragma unroll
-        for (int p = 0; p < TJ; ++p)
-#pragma unroll
-          for (int q = 0; q < TR; ++q) acc[p][q] += xv[p] * av[q];
-      }
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < TJ; ++p) {
-    const int j = j0 + ty * TJ + p;
-    if (j >= m) continue;
-    T* row = yt + j * ldy + i * BM;
-#pragma unroll
-    for (int q = 0; q < TR; ++q) row[tx + TX * q] = acc[p][q];
-  }
+__device__ __forceinline__ float part(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ double part(const double2& v, int e) {
+  return e == 0 ? v.x : v.y;
 }
 
+// The geometry of an (element type, m-tile) instance.
+template <typename T, int MT>
+struct Geo {
+  static constexpr int B = static_cast<int>(sizeof(T));
+  static constexpr bool WIDE = B == 4 && MT == kMTileF32;
+  static constexpr int CTAS_PER_SM = WIDE || B == 8 ? 1 : 2;
+  static constexpr int V = 16 / B;              // elements of 16 bytes
+  static constexpr int KC = kSliceBytes / B;    // block columns a slice
+  static constexpr int CPR = KC / V;            // 16-byte chunks a row
+  static constexpr int PITCH = KC + V;          // staged row pitch
+  static constexpr int SLICES = BN / KC;        // slices a block
+  static constexpr int TR = WIDE ? kTileRowsWide : kTileRows;
+  static constexpr int TJ = kTileVectors;
+  static constexpr int RG = BM / TR;            // thread groups along r
+  static constexpr int JG = MT / TJ;            // ... along j
+  static constexpr int CS = kThreads / (RG * JG);  // ... along c
+  static constexpr int CC = KC / CS;            // a group's columns a slice
+  static constexpr int STAGE = (BM + MT) * PITCH;  // elements a slice
+  static constexpr int AC = BM * CPR / kThreads;  // A chunks a thread
+  static constexpr int XC = MT * CPR;           // X chunks of the CTA
+  static constexpr int PP = BM + 1;             // partial tile pitch
+  static constexpr int PART = CS * MT * PP;     // elements of the partials
+  static constexpr int SMEM =
+      (kStages * STAGE > PART ? kStages * STAGE : PART) * B;
+  static_assert(RG * JG * CS == kThreads, "thread groups fill the CTA");
+  static_assert(CC % V == 0, "a group's columns are whole chunks");
+  static_assert(BM * CPR % kThreads == 0, "A copies spread evenly");
+};
+
+// A 16-byte copy from device to shared memory, not waited for; with
+// `live` false the 16 bytes are zero-filled (and src is not read).
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups of this thread's copies are
+// pending.
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Two CTAs an SM (128 registers) where the tile fits them with no spill;
+// float32's 8 x 8 tile at MT = 128 and float64's take one (208 and ~160
+// registers): at two, ptxas spilled them.
+template <typename T, int MT>
+__global__ void __launch_bounds__(kThreads, Geo<T, MT>::CTAS_PER_SM)
+bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
+                 const T* __restrict__ xt, T* __restrict__ yt, int kmax,
+                 int m, int mtiles, long long ldx, long long ldy) {
+  using G = Geo<T, MT>;
+  using Vec = typename Vec16<T>::type;
+  constexpr int NT = kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int q = static_cast<int>(cluster.block_rank());
+  const long long tile = blockIdx.x / cl;
+  const int j0 = static_cast<int>(tile % mtiles) * MT;
+  const long long i = tile / mtiles;
+  const int tid = threadIdx.x;
+  const int rg = tid % G::RG;
+  const int jg = (tid / G::RG) % G::JG;
+  const int cgr = tid / (G::RG * G::JG);
+
+  // This CTA's slices: g = q, q + cl, ... of block row i's kmax * SLICES.
+  const int total = kmax * G::SLICES;
+  const int ns = total > q ? (total - q + cl - 1) / cl : 0;
+  const T* arow = data + i * kmax * (BM * BN);
+  const int* crow = cols + i * kmax;
+  // Chunk e of a slice is row e / CPR, chunk e % CPR: this thread's first
+  // (e = tid) and, since NT is a multiple of CPR, its u-th lies NT / CPR
+  // rows further. Its first X row and whether each X chunk is live.
+  const int row0 = tid / G::CPR;
+  const int ch0 = (tid % G::CPR) * G::V;
+  const T* xfirst = xt + static_cast<long long>(j0 + row0) * ldx + ch0;
+  constexpr int XU = (G::XC + NT - 1) / NT;
+  constexpr int DROW = NT / G::CPR;
+  const long long xstep = DROW * ldx;
+  const int xlive = m - j0 - row0;     // X chunk u is live if u DROW < it
+
+  // Copy the CTA's slice s into ring buffer s % kStages: the A slice's
+  // rows, then the X slice's (zero past m), c contiguous as in device
+  // memory.
+  auto stage = [&](int s) {
+    const int g = q + cl * s;
+    const int k = g / G::SLICES;
+    const int c0 = (g % G::SLICES) * G::KC;
+    T* as = smem + (s % kStages) * G::STAGE + row0 * G::PITCH + ch0;
+    T* xs = as + BM * G::PITCH;
+    const T* a = arow + static_cast<long long>(k) * (BM * BN) + c0 +
+                 row0 * BN + ch0;
+    const T* x = xfirst + static_cast<long long>(crow[k]) * BN + c0;
+#pragma unroll
+    for (int u = 0; u < G::AC; ++u) {
+      copy16(as + u * DROW * G::PITCH, a + u * DROW * BN, true);
+    }
+#pragma unroll
+    for (int u = 0; u < XU; ++u) {
+      if (G::XC % NT == 0 || tid + u * NT < G::XC) {
+        const bool live = u * DROW < xlive;
+        copy16(xs + u * DROW * G::PITCH, live ? x : xt, live);
+      }
+      x += xstep;
+    }
+  };
+
+  // Whether the chunks this thread copied of slice s hold a nonzero A
+  // value or a non-finite X value (its own copies are complete and
+  // visible to it after wait_copies).
+  auto counts = [&](int s) {
+    const T* as = smem + (s % kStages) * G::STAGE + row0 * G::PITCH + ch0;
+    const T* xs = as + BM * G::PITCH;
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < G::AC; ++u) {
+      const Vec v = *reinterpret_cast<const Vec*>(as + u * DROW * G::PITCH);
+#pragma unroll
+      for (int c = 0; c < G::V; ++c) any |= part(v, c) != T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < XU; ++u) {
+      if (G::XC % NT == 0 || tid + u * NT < G::XC) {
+        const Vec v =
+            *reinterpret_cast<const Vec*>(xs + u * DROW * G::PITCH);
+#pragma unroll
+        for (int c = 0; c < G::V; ++c) any |= !isfinite(part(v, c));
+      }
+    }
+    return any;
+  };
+
+  T acc[G::TR][G::TJ];
+#pragma unroll
+  for (int p = 0; p < G::TR; ++p)
+#pragma unroll
+    for (int t = 0; t < G::TJ; ++t) acc[p][t] = T(0);
+
+  // The FMAs of the slice in ring buffer `buf`: this thread's rows rg + RG
+  // p and vectors jg + JG t over its group's columns, 16 bytes of columns
+  // a step: the X vectors' chunks held, then each row's chunk in turn.
+  auto multiply = [&](int buf) {
+    const T* as = smem + buf * G::STAGE + rg * G::PITCH + cgr * G::CC;
+    const T* xs = smem + buf * G::STAGE + BM * G::PITCH + jg * G::PITCH +
+                  cgr * G::CC;
+#pragma unroll
+    for (int ch = 0; ch < G::CC; ch += G::V) {
+      Vec xv[G::TJ];
+#pragma unroll
+      for (int t = 0; t < G::TJ; ++t) {
+        xv[t] = *reinterpret_cast<const Vec*>(xs + G::JG * t * G::PITCH + ch);
+      }
+#pragma unroll
+      for (int p = 0; p < G::TR; ++p) {
+        const Vec av =
+            *reinterpret_cast<const Vec*>(as + G::RG * p * G::PITCH + ch);
+#pragma unroll
+        for (int t = 0; t < G::TJ; ++t)
+#pragma unroll
+          for (int c = 0; c < G::V; ++c)
+            acc[p][t] = fma(part(av, c), part(xv[t], c), acc[p][t]);
+      }
+    }
+  };
+
+  // The ring: slices s + 1 .. s + kStages - 1 load while slice s is
+  // multiplied. One barrier a slice: after it every copy of slice s is
+  // visible and every thread is done with slice s - 1, whose buffer the
+  // next copies fill.
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ns) stage(s);
+    commit_copies();
+  }
+  for (int s = 0; s < ns; ++s) {
+    wait_copies<kStages - 2>();
+    const bool work = __syncthreads_or(counts(s)) != 0;
+    if (s + kStages - 1 < ns) stage(s + kStages - 1);
+    commit_copies();
+    if (work) multiply(s % kStages);
+  }
+  wait_copies<0>();
+  __syncthreads();
+
+  // The partial tiles, partial[cgr][j][r], in this CTA's shared memory;
+  // the column groups summed in order into group 0's; then rank q sums
+  // its share of the output over the cluster's ranks in rank order.
+  T* partial = smem;
+#pragma unroll
+  for (int t = 0; t < G::TJ; ++t)
+#pragma unroll
+    for (int p = 0; p < G::TR; ++p)
+      partial[(cgr * MT + jg + G::JG * t) * G::PP + rg + G::RG * p] =
+          acc[p][t];
+  if constexpr (G::CS > 1) {
+    __syncthreads();
+    for (int e = tid; e < MT * G::PP; e += NT) {
+      T sum = partial[e];
+#pragma unroll
+      for (int g = 1; g < G::CS; ++g) sum += partial[g * MT * G::PP + e];
+      partial[e] = sum;
+    }
+  }
+  cluster.sync();
+  // Every rank's value is loaded before the first is added, so that the
+  // remote loads overlap.
+  const int share = MT * BM / cl;
+  for (int e = q * share + tid; e < (q + 1) * share; e += NT) {
+    const int j = e / BM;
+    const int r = e % BM;
+    if (j0 + j >= m) continue;
+    T* at = partial + j * G::PP + r;
+    T v[kMaxCluster];
+#pragma unroll
+    for (int src = 0; src < kMaxCluster; ++src) {
+      if (src < cl) v[src] = *cluster.map_shared_rank(at, src);
+    }
+    T sum = v[0];
+#pragma unroll
+    for (int src = 1; src < kMaxCluster; ++src) {
+      if (src < cl) sum += v[src];
+    }
+    yt[(j0 + j) * ldy + i * BM + r] = sum;
+  }
+  // No CTA leaves while another reads its shared memory.
+  cluster.sync();
+}
+
+// The cluster size: a power of two up to kMaxCluster and the block row's
+// slices, doubled while the launch has fewer than kCtasPerSm CTAs an SM.
+int cluster_size(long long tiles, long long slices, int sms) {
+  int cl = 1;
+  while (cl < kMaxCluster && 2 * cl <= slices &&
+         tiles * cl < static_cast<long long>(kCtasPerSm) * sms) {
+    cl *= 2;
+  }
+  return cl;
+}
+
+template <typename T, int MT>
+int launch_tile(const T* data, const int* cols, const T* xt, T* yt,
+                long long nbr, long long kmax, long long m, long long ldx,
+                cudaStream_t stream) {
+  using G = Geo<T, MT>;
+  auto kernel = bell_spmm_kernel<T, MT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long mtiles = (m + MT - 1) / MT;
+  const int cl = cluster_size(nbr * mtiles, kmax * G::SLICES, sms);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nbr * mtiles * cl));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = G::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, data, cols, xt, yt,
+                           static_cast<int>(kmax), static_cast<int>(m),
+                           static_cast<int>(mtiles), ldx, nbr * BM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The m-tile from m; Yt must start on 16 bytes (its rows are whole
+// 16-byte vectors), data and Xt on an element.
 template <typename T>
 int launch(const void* data, const void* cols, const void* xt, void* yt,
            long long nbr, long long kmax, long long m, long long ldx,
            void* stream) {
-  const long long mtiles = (m + MT - 1) / MT;
-  bell_spmm_kernel<T><<<static_cast<unsigned>(nbr * mtiles), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int*>(cols),
-      static_cast<const T*>(xt), static_cast<T*>(yt),
-      static_cast<int>(kmax), static_cast<int>(m),
-      static_cast<int>(mtiles), ldx);
-  return static_cast<int>(cudaGetLastError());
+  if (reinterpret_cast<uintptr_t>(yt) % 16 != 0 || nbr < 1 || kmax < 1 ||
+      m < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const T* d = static_cast<const T*>(data);
+  const int* c = static_cast<const int*>(cols);
+  const T* x = static_cast<const T*>(xt);
+  T* y = static_cast<T*>(yt);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (m <= kMTileSmall) {
+    return launch_tile<T, kMTileSmall>(d, c, x, y, nbr, kmax, m, ldx, s);
+  }
+  if constexpr (sizeof(T) == 4) {
+    if (m > kMTileMid) {
+      return launch_tile<T, kMTileF32>(d, c, x, y, nbr, kmax, m, ldx, s);
+    }
+  }
+  return launch_tile<T, kMTileMid>(d, c, x, y, nbr, kmax, m, ldx, s);
 }
 
 }  // namespace

@@ -1,6 +1,10 @@
-// Shared pieces of the Poisson kernels (stencil2d.cu, transfer2d.cu,
-// local2d.cu, and through packed_tile.cuh packed2d.cu, plocal2d.cu and the
-// row-streaming legs; stencil3d.cu takes Coef and the error string).
+// Shared pieces of the Poisson kernels (stencil2d.cu, local2d.cu, and
+// through packed_tile.cuh packed2d.cu, plocal2d.cu, transfer2d.cu and the
+// row-streaming legs; stencil3d.cu takes Coef and the error string). No
+// kernel of the port works on a shared-memory tile of a grid any more: the
+// smoothers, legs and the residual-restriction stream rows through
+// registers (packed2d_legs.cuh), the residuals and prolong_add take a
+// thread a point.
 //
 // Grids are the logical padded layout of the Python package: an
 // (n+2) x (n+2) row-major array whose one-cell ghost ring is zero
@@ -121,16 +125,6 @@ __device__ __forceinline__ T prolong_at(const CoarseView<T>& e, int i,
   return T(0.5) * (a + d);
 }
 
-// Allow a kernel `bytes` of dynamic shared memory (above the default 48 KB
-// an opt-in is needed; Hopper gives a block up to 227 KB).
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
-
 // b - (A - sigma I) u at the point whose centre is p (row pitch `pitch`).
 template <typename T>
 __device__ __forceinline__ T residual_at(const T* p, T bval, int pitch,
@@ -138,75 +132,6 @@ __device__ __forceinline__ T residual_at(const T* p, T bval, int pitch,
   const T v = p[0];
   const T au = (T(4) * v - p[-pitch] - p[pitch] - p[-1] - p[1]) * c.inv_h2;
   return bval - au + c.sig * v;
-}
-
-// Shared-memory tiles of the logical layout (transfer2d.cu's
-// residual_restrict; no smoother runs on one). A block owns a TY x TX core
-// of fine points whose first row and column are even (in global indices),
-// so fine point 2I of coarse point I (transfer.py) lies in exactly one core
-// and every coarse value has one writer, and loads it with a halo of H
-// rings: an
-// RY x RX tile, RY = TY + 2H, RX = TX + 2H, whose top-left point is global
-// (y0 - H, x0 - H).
-
-// Load the RY x RX tile at global (gy0, gx0) from the array a; points off
-// the array read as 0.
-template <typename T>
-__device__ void load_tile(const T* __restrict__ g, T* s, int RY, int RX,
-                          int gy0, int gx0, const Rect& a) {
-  for (int idx = threadIdx.x; idx < RY * RX; idx += blockDim.x) {
-    const int ly = idx / RX;
-    const int gy = gy0 + ly;
-    const int gx = gx0 + idx - ly * RX;
-    s[idx] = a.holds(gy, gx) ? g[a.at(gy, gx)] : T(0);
-  }
-}
-
-// The residual of tile w (halo H >= 2) on its TY x TX core plus one ring,
-// zero off the points `upd` sets (Interior or InteriorBox), into rs
-// ((TY + 2) x (TX + 2), row a = fine row y0 - 1 + a).
-template <int TY, int TX, typename T, typename Upd>
-__device__ void core_residual(const T* w, const T* bs, T* rs, int RX, int H,
-                              int gy0, int gx0, const Upd& upd,
-                              const Coef<T>& c) {
-  constexpr int RSX = TX + 2;
-  for (int idx = threadIdx.x; idx < (TY + 2) * RSX; idx += blockDim.x) {
-    const int a = idx / RSX;
-    const int ly = H - 1 + a;
-    const int lx = H - 1 + idx - a * RSX;
-    const int k = ly * RX + lx;
-    rs[idx] = upd(gy0 + ly, gx0 + lx) ? residual_at(w + k, bs[k], RX, c)
-                                      : T(0);
-  }
-}
-
-// Full weighting [1 2 1; 2 4 2; 1 2 1]/16 of the residual tile rs at the
-// coarse points this block owns, rows first then columns as in
-// transfer.restrict; coarse I sits at fine 2I = y0 + 2q, row 2q + 1 of rs.
-// rc is the coarse array ca; a point of it is written where `keep`
-// (Interior of the coarse grid) holds and 0 elsewhere.
-template <int TY, int TX, typename T, typename Keep>
-__device__ void restrict_core(const T* rs, T* __restrict__ rc, int y0, int x0,
-                              const Rect& ca, const Keep& keep) {
-  constexpr int RSX = TX + 2;
-  for (int idx = threadIdx.x; idx < (TY / 2) * (TX / 2); idx += blockDim.x) {
-    const int q = idx / (TX / 2);
-    const int s = idx - q * (TX / 2);
-    const int I = y0 / 2 + q;
-    const int J = x0 / 2 + s;
-    if (!ca.holds(I, J)) continue;
-    T val = T(0);
-    if (keep(I, J)) {
-      const T* r0 = rs + (2 * q) * RSX + 2 * s;
-      const T* r1 = r0 + RSX;
-      const T* r2 = r1 + RSX;
-      const T t0 = T(0.25) * (r0[0] + T(2) * r1[0] + r2[0]);
-      const T t1 = T(0.25) * (r0[1] + T(2) * r1[1] + r2[1]);
-      const T t2 = T(0.25) * (r0[2] + T(2) * r1[2] + r2[2]);
-      val = T(0.25) * (t0 + T(2) * t1 + t2);
-    }
-    rc[ca.at(I, J)] = val;
-  }
 }
 
 }  // namespace mg

@@ -1,6 +1,8 @@
-// The row-streaming legs and sweeps: down_kernel, up_kernel and
-// sweep_kernel (the up leg's stream without its coarse operand), the three
-// four frames they run on, their launch geometry and launchers.
+// The row-streaming legs and sweeps: down_kernel, up_kernel, sweep_kernel
+// (the up leg's stream without its coarse operand) and
+// residual_restrict_kernel (the down leg's without its smoothing and its
+// fine store), the four frames they run on, their launch geometry and
+// launchers.
 // packed2d.cu instantiates the down leg on the whole packed grid,
 // packed2d_up.cu and packed2d_up_f64.cu the up leg, packed2d_sweep.cu the
 // RB-GS sweeps; plocal2d_legs.cu and plocal2d_legs_f64.cu both legs on a
@@ -10,8 +12,9 @@
 // grid; local2d_legs.cu and local2d_legs_f64.cu both legs,
 // local2d_sweep.cu and local2d_sweep_f64.cu the RB-GS and Jacobi sweeps,
 // on a shard's unpacked tile (a kernel for each stage count; the files
-// compile in parallel). packed2d.cu's note says what they replace and how
-// they work;
+// compile in parallel); transfer2d.cu the residual-restriction on the
+// unpacked grid. packed2d.cu's note says what they replace and how they
+// work;
 // plocal2d.cu's what the tile frame adds, fused2d.cu's what the unpacked
 // one does, local2d_legs.cu's how the unpacked tile joins the two,
 // packed2d_sweep.cu's what the sweeps do.
@@ -25,7 +28,8 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The row-streaming legs (down_kernel, up_kernel, sweep_kernel).
+// The row-streaming legs (down_kernel, up_kernel, sweep_kernel,
+// residual_restrict_kernel).
 // packed2d.py's leg_geometry computes the launch geometry; its LEG_*
 // constants are these (tests/test_torch_packed.py reads them here).
 // ---------------------------------------------------------------------------
@@ -616,12 +620,16 @@ __device__ __forceinline__ void chunk(bool steady, F&& f) {
 // is set (the whole packed grid), or as the tile's coarse tile. K counts
 // stages: RB-GS half-sweeps or Jacobi sweeps. Lags: stage k at t - 1 - k,
 // the residual and the store at t - (K + 1), the restriction of fine row
-// t - K - 2 (its residual rows t - K - 3 .. t - K - 1 done).
-template <typename T, int KIND, int K, class Fr>
-__global__ void __launch_bounds__(kLegWarps * kWarp)
-down_kernel(const T* __restrict__ u, const T* __restrict__ b,
-            T* __restrict__ u_out, T* __restrict__ rc, Fr f,
-            mg::Coef<T> cf, int packed_coarse, LegGeom g) {
+// t - K - 2 (its residual rows t - K - 3 .. t - K - 1 done). STORE false
+// compiles the store of u' out (residual_restrict_kernel: u_out unused).
+template <typename T, int KIND, int K, bool STORE, class Fr>
+__device__ __forceinline__ void down_stream(const T* __restrict__ u,
+                                            const T* __restrict__ b,
+                                            T* __restrict__ u_out,
+                                            T* __restrict__ rc, const Fr& f,
+                                            const mg::Coef<T>& cf,
+                                            int packed_coarse,
+                                            const LegGeom& g) {
   const int unit = blockIdx.x * kLegWarps + threadIdx.x / kWarp;
   if (unit >= g.strips * g.segs) return;
   if constexpr (kOnTile<Fr>) zero_coarse_frame(rc, f, unit, g.strips * g.segs);
@@ -680,13 +688,15 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
                                     p, cf);
         R[c][s] = live && w.upd[p] ? r : T(0);
       }
-      if (!EDGE || (i >= w.y0 && i < w.y1)) {
-        store_row(u_out, F[0][s], F[1][s], i, v - OUT, w, f);
+      if constexpr (STORE) {
+        if (!EDGE || (i >= w.y0 && i < w.y1)) {
+          store_row(u_out, F[0][s], F[1][s], i, v - OUT, w, f);
+        }
       }
 
       // Full weighting at coarse (I, J), fine row j = 2I, from the
       // residual rows j - 1 .. j + 1; rows first, then columns, as
-      // restrict_core (common.cuh). Fine columns 2J and 2J + 1 are this
+      // transfer.restrict. Fine columns 2J and 2J + 1 are this
       // lane's phases 0 and 1 (colour (phase + row) & 1); 2J - 1 is lane
       // x - 1's phase 1, whose column sum comes by shuffle.
       const int j = t - OUT - 1;
@@ -704,6 +714,26 @@ down_kernel(const T* __restrict__ u, const T* __restrict__ b,
       }
     });
   }
+}
+
+template <typename T, int KIND, int K, class Fr>
+__global__ void __launch_bounds__(kLegWarps * kWarp)
+down_kernel(const T* __restrict__ u, const T* __restrict__ b,
+            T* __restrict__ u_out, T* __restrict__ rc, Fr f,
+            mg::Coef<T> cf, int packed_coarse, LegGeom g) {
+  down_stream<T, KIND, K, true>(u, b, u_out, rc, f, cf, packed_coarse, g);
+}
+
+// rc = R (b - A u) on the unpacked grid (transfer2d.cu): the down leg's
+// stream with no smoothing stage and no store of u', so it reads u and b
+// once and writes only the coarse grid. A kernel of its own name, so that a
+// profiler tells it from the zero-sweep down leg.
+template <typename T>
+__global__ void __launch_bounds__(kLegWarps * kWarp)
+residual_restrict_kernel(const T* __restrict__ u, const T* __restrict__ b,
+                         T* __restrict__ rc, Unpacked f, mg::Coef<T> cf,
+                         LegGeom g) {
+  down_stream<T, mg::kRbgs, 0, false>(u, b, nullptr, rc, f, cf, 0, g);
 }
 
 // Coarse point (I, J) of e; 0 off e. The whole grid's e is (Pc x Pc
@@ -951,6 +981,26 @@ int launch_down(const void* u, const void* b, void* u_out, void* rc,
                                                  packed_coarse, g, s)
              : launch_down_k<T, mg::kJacobi, MAXK>(K, ut, bt, ot, rt, f, cf,
                                                    packed_coarse, g, s);
+}
+
+// R (b - A u) on the unpacked frame f: the down leg's geometry at K = 0
+// (halos of 2 rows above, 1 below and 1 lane, which the launcher checks);
+// u and b must start on a pair of T. sigma is 0, as in the JAX kernel.
+template <typename T>
+int launch_residual_restrict(const void* u, const void* b, void* rc,
+                             const Unpacked& f, double h, const int* geom,
+                             void* stream) {
+  LegGeom g;
+  if (!leg_geom(geom, f, &g) || g.top < 2 || g.bottom < 1 || g.hp < 1 ||
+      !on_pairs<T>(u, b, u)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  residual_restrict_kernel<T>
+      <<<leg_blocks(g), kLegWarps * kWarp, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(u), static_cast<const T*>(b),
+          static_cast<T*>(rc), f, mg::Coef<T>::make(h, 0.0, 1.0), g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The up leg on frame f; e logical or, on the whole packed grid, packed;

@@ -6,10 +6,13 @@ layout: the halves of a composed V-cycle leg on a kernel-tier level.
 
 Replace the TPU kernels ``multigridcmt_tpu/kernels/transfer2d.py``:
 ``residual_restrict`` and ``prolong_add``, with ``csrc/transfer2d.cu``
-(see the note there on what bounds them and how residual_restrict tiles).
-The cycle takes them where a level's legs do not fuse: the Chebyshev
-smoother, or more sweeps than a fused leg takes. As in the JAX package,
-residual_restrict has no shift; the cycle calls it only at sigma = 0.
+(see the note there on what bounds them). ``residual_restrict`` runs the
+fused2d down leg's row stream with no smoothing and no store of u'
+(``csrc/packed2d_legs.cuh``'s ``residual_restrict_kernel``), on the zero-
+sweep down leg's geometry (``leg_geometry``). The cycle takes them where a
+level's legs do not fuse: the Chebyshev smoother, or more sweeps than a
+fused leg takes. As in the JAX package, residual_restrict has no shift;
+the cycle calls it only at sigma = 0.
 
 Each wrapper has its plain PyTorch version beside it: the composition of
 the ``ops/`` functions. Device rule (``_wrap``): a CPU tensor takes the
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import laplacian, transfer
+from . import fused2d
 from ._wrap import check_grid, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
@@ -31,6 +35,13 @@ prolong_add_launches = 0
 def _check_pair(n: int, nc: int) -> None:
     if n < 3 or n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 >= 3 for nc={nc}")
+
+
+def leg_geometry(n: int, *, sm_count: int = 132):
+    """The launch geometry of ``residual_restrict`` on the (n+2)^2 grid:
+    the zero-sweep fused2d down leg's (its halos, lags and least
+    segment)."""
+    return fused2d.leg_geometry("down", n, "rbgs", 0, sm_count=sm_count)
 
 
 def residual_restrict_plain(u, b, n, h):
@@ -49,9 +60,11 @@ def residual_restrict(u: torch.Tensor, b: torch.Tensor, n: int,
     check_grid("b", b, n, u)
     if not on_cuda(u):
         return residual_restrict_plain(u, b, n, h)
+    u, b = fused2d._on_pair(u), fused2d._on_pair(b)
     rc = torch.empty((nc + 2, nc + 2), dtype=u.dtype, device=u.device)
     launch_on(u, "transfer2d_residual_restrict", u.data_ptr(), b.data_ptr(),
-              rc.data_ptr(), n, float(h))
+              rc.data_ptr(), n, float(h),
+              fused2d._launch_geometry("down", n, "rbgs", 0, u))
     residual_restrict_launches += 1
     return rc
 

@@ -6,14 +6,17 @@
     python -m multigridcmt_tpu_torch.utils.breakdown --ndim 3 [--k 9]
     python -m multigridcmt_tpu_torch.utils.breakdown --mesh rows|block
     python -m multigridcmt_tpu_torch.utils.breakdown --sweeps
+    python -m multigridcmt_tpu_torch.utils.breakdown --transfers
+    python -m multigridcmt_tpu_torch.utils.breakdown --sparse
 
 For each route of the float32 V(nu1,nu2) cycle (default RB-GS V(2,2)) at
 2^k - 1 (k=12: 4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA
 events, median of 20), the host-clock time of 20 cycles back to back, the
 device-busy time a cycle and the device ops a cycle (``torch.profiler``,
 summed over the kernel rows), of it the device time of the fused2d and
-packed2d legs and of the stencil2d and packed2d sweeps (by kernel name),
-the idle share 1 - busy/cycle, and
+packed2d legs, of the stencil2d and packed2d sweeps and of
+transfer2d.residual_restrict (by kernel name), the idle share
+1 - busy/cycle, and
 the solve's cycle count, wall time and peak device memory. The routes: the
 kernel backend as shipped; the same with the finest level unpacked
 (PACK_MIN_N above n, so the unpacked kernels run there); the plain
@@ -46,6 +49,14 @@ on rank 0's tiles single/chained: at the fine level plocal2d (packed) and
 local2d (unpacked) at nu = 0, 1, 2 and the cap, beside the packed2d legs
 on the whole grid; at the next level the local2d legs beside the fused2d
 legs on the whole grid.
+
+With ``--no-levels``, the routes alone (no per-level times). With
+``--transfers``, only transfer2d.residual_restrict at the composed cycles'
+levels 2047...255, beside the zero-sweep fused2d down leg (the same
+residual and restriction, with u' stored), single/chained/device. With
+``--sparse``, only the BELL SpMM at the SpMV bench's shape (64 x 64 blocks
+of 128^2, density 0.15, seed 1) at m = 128 and through bell.spmv's 8-row
+carrier, single/chained/device.
 
 With ``--sweeps``, only the fused sweeps as the composed cycles (RB-GS
 V(4,4), Jacobi V(8,8)) run them, single/chained/device, at each of their
@@ -99,6 +110,9 @@ ROUTE_KERNELS = {
                                    + r"|(?<!\w)sweep_kernel<(float|double)>"),
     "packed2d sweeps": re.compile(_SWEEP.format("Whole")
                                   + r"|(?<!\w)rbgs_kernel<"),
+    # transfer2d.residual_restrict: the row stream's residual_restrict_kernel
+    # (its shared-memory rr_kernel before it).
+    "residual_restrict": re.compile(r"(?<!\w)(rr|residual_restrict)_kernel<"),
 }
 # Cycles of the chain a timing of v_cycles_fn runs.
 CHAIN = 20
@@ -447,6 +461,57 @@ def sweeps() -> None:
         del ue, be
 
 
+def transfers() -> None:
+    """residual_restrict at 2047...255 beside the zero-sweep fused2d down
+    leg (float32)."""
+    from multigridcmt_tpu_torch.kernels import transfer2d
+
+    for n in (2047, 1023, 511, 255):
+        h = 1.0 / (n + 1)
+        u, b, _ = grids(n, seed=n)
+        print_level(n, {
+            "residual_restrict": lambda: transfer2d.residual_restrict(
+                u, b, n, h),
+            "fused2d down nu=0": lambda: fused2d.smooth_residual_restrict(
+                u, b, n, h, kind="rbgs", omega=1.0, sweeps=0)})
+        del u, b
+
+
+def bell_bench(dtype=torch.float32, m: int = 128):
+    """The SpMV bench's blocked-ELL matrix (bench_spmv.py: 64 x 64 blocks
+    of 128^2 N(0,1) values at density 0.15 plus the block diagonal, seed
+    1) as a BELL on the card, and an (m, 8192) Xt of N(0,1) values."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from multigridcmt_tpu_torch.kernels import bell
+
+    rng = np.random.default_rng(1)
+    mask = rng.random((64, 64)) < 0.15
+    mask[np.arange(64), np.arange(64)] = True
+    blocks = {(i, j): rng.standard_normal((128, 128)).astype(np.float32)
+              for i, j in zip(*np.nonzero(mask))}
+    a_sp = sp.bmat([[sp.csr_matrix(blocks[(i, j)]) if (i, j) in blocks
+                     else None for j in range(64)] for i in range(64)],
+                   format="csr")
+    xt = torch.from_numpy(rng.standard_normal((m, 64 * 128))).to(dtype)
+    return bell.bell_from_scipy(a_sp, dtype=dtype, device="cuda"), xt.cuda()
+
+
+def sparse() -> None:
+    """The BELL SpMM at the SpMV bench's shape (``bell_bench``), float32,
+    at m = 128 and through bell.spmv's 8-row carrier."""
+    from multigridcmt_tpu_torch.kernels import bell
+
+    a, xt = bell_bench()
+    x = xt[0].clone()
+    print(f"bell kmax={a.kmax}: " + ", ".join(
+        f"{key} {cuda_time_ms(fn):.4f}/{chained_ms(fn):.4f}/"
+        f"{device_busy(fn, 20)[0]:.4f} ms" for key, fn in (
+            ("spmm m=128", lambda: bell.spmm(a, xt)),
+            ("spmv carrier m=8", lambda: bell.spmv(a, x)))), flush=True)
+
+
 def levels3(k: int) -> None:
     for j in range(k, 2, -1):
         n = 2 ** j - 1
@@ -475,6 +540,12 @@ def main() -> None:
                     help="break down the sharded 2D cycle on a mesh of 1")
     ap.add_argument("--sweeps", action="store_true",
                     help="time the fused sweeps of the composed cycles only")
+    ap.add_argument("--transfers", action="store_true",
+                    help="time residual_restrict at 2047...255 only")
+    ap.add_argument("--sparse", action="store_true",
+                    help="time the BELL SpMM at the bench shape only")
+    ap.add_argument("--no-levels", action="store_true",
+                    help="the routes only, no per-level times")
     args = ap.parse_args()
     k = args.k if args.k is not None else {2: 12, 3: 9}[args.ndim]
     schedule = dict(smoother=args.smoother, nu1=args.nu1, nu2=args.nu2)
@@ -482,13 +553,18 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    if args.sweeps:
-        sweeps()
+    if args.sweeps or args.transfers or args.sparse:
+        for flag, fn in ((args.sweeps, sweeps), (args.transfers, transfers),
+                         (args.sparse, sparse)):
+            if flag:
+                fn()
         return
     if args.mesh is not None:
         sharded_routes(k, args.reps, args.mesh, schedule)
         return
     routes(k, args.reps, args.ndim, schedule)
+    if args.no_levels:
+        return
     if args.ndim == 2:
         levels(k, schedule)
     else:

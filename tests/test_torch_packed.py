@@ -398,11 +398,13 @@ class LegFrame:
 
 
 def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
-                 packed_coarse=False, frame=None):
+                 packed_coarse=False, frame=None, fine=True):
     """csrc/packed2d_legs.cuh's down_kernel, up_kernel (with e) or
     sweep_kernel (the up leg's stream without e), as g.leg says, on
     geometry g and frame (the whole packed grid when None), unit by unit;
-    returns u' and the coarse residual (down) or x'. Rows are global; stage
+    returns u' and the coarse residual (down) or x'. With ``fine`` False
+    the down leg stores no u' (residual_restrict_kernel's stream) and
+    returns the coarse residual alone. Rows are global; stage
     k works on row t - 1 - k of step t. On the unpacked frames s, bs and u'
     are unpacked arrays of f.C columns (the logical (n+2)^2 grid or a
     tile), every address read or written is asserted to lie in its row and
@@ -616,7 +618,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     rr.put(i, res)
                 elif kind == "rbgs" and live(i):
                     finished(i)
-                if y0 <= i < y1:
+                if fine and y0 <= i < y1:
                     if up:
                         assert i in prolonged
                     for c in (0, 1):
@@ -709,11 +711,15 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 if down:
                     restrict(t)
     _emulate_leg.steady_steps = n_steady[0]
-    assert (out_w == 1).all(), "a point of u' stored more or less than once"
+    if not fine:
+        assert down and not out_w.any(), "u' stored"
+    else:
+        assert (out_w == 1).all(), "a point of u' stored more or less than " \
+                                   "once"
     if down:
         assert (rc_w == 1).all(), "a coarse point written more or less " \
                                   "than once"
-        return out, rc
+        return (out, rc) if fine else rc
     return out
 
 
