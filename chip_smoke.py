@@ -36,6 +36,26 @@ Phases:
          and S4's composed routes (RB-GS V(4,4), Jacobi V(8,8): the local2d
          sweeps) against paths B's and C's single-device route, with
          exact local2d sweep and residual counts;
+       * full multigrid, config 3: MultigridSolver.fmg at 1023^2 (fmg1023),
+         float64 and float32, linear and cubic walks, on the kernel and the
+         plain route, with exact launches, the float64 discrete-L2 error
+         under 5 h^2, the error ratio in (3, 5) over k = 8, 9, 10, the
+         kernel route's iterate within 1e-12 of the plain route's and the
+         float32 error within twice the plain route's; solve(cycle="fmg")
+         at 4095^2 float32 on the main path's route (fmg4095: b restricted
+         and the walk prolonged by the zero-sweep packed legs), against the
+         analytic solution and the V-cycle solve;
+       * the eigensolvers, config 4: MultigridSolver.eigensolve(k=1) at
+         511^2 float64 by inverse iteration, RQI and LOBPCG on both routes
+         (eigen511), lambda_1 within 1e-8 of 2 eigenvalue_1d(1, 511, h)
+         and the routes' eigenvalues within 1e-10, LOBPCG k=3 against the
+         exact spectrum (the degenerate pair lambda(1,2) = lambda(2,1)),
+         launches as a multiple of the V-cycles each run made (counted
+         around cycles.v_cycle);
+       * the sharded FMG: ShardedSolver.solve with cycle="fmg" at S1's
+         4095^2 (S1fmg), against fmg4095, with exact local2d and plocal2d
+         launches, and a float64 k=10 sharded FMG solve against the
+         single-device one;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -109,8 +129,13 @@ Phases:
      1023...255), each plocal2d kernel at S1's packed tile
      against its plain version and beside its local2d twin (the two legs
      and their twins also single and chained at nu = 0, 1, 2 and the cap),
-     and the peak device memory of the solves. Every kernel row also
-     gets the profiler's device time a call (device_ms).
+     and the peak device memory of the solves; configs 3 and 4's first
+     times: one FMG pass at 1023^2 (float32 and float64, with its device
+     time and idle share) and at 4095^2, solve(cycle="fmg") at 4095^2,
+     the 511^2 float64 eigensolve by each method (with its outer steps and
+     V-cycles) and S1fmg (the solve and its FMG pass alone), each with its
+     peak device memory. Every kernel row also gets the profiler's device
+     time a call (device_ms).
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -139,6 +164,16 @@ unpacked fine level's check is the local2d residual. V(4,4) RB-GS and
 V(8,8) Jacobi exceed the legs' sweep caps and run the local2d sweeps and
 residual on the owned tiles (the composed route); Chebyshev runs the
 local2d residual.
+
+FMG and the eigensolvers add no kernel. An FMG walk's V-cycle started at a
+level runs the legs of the kernel levels at and below it; b's restriction
+and the walk's prolongation are the plain transfers, except from and onto
+a packed level (the zero-sweep packed legs). An inverse-iteration or RQI
+inner cycle at 511^2 runs the fused2d legs at 511 and 255 (shifted while
+RQI's shift is on) and its check the stencil2d residual; LOBPCG's
+preconditioner is one V-cycle a block vector; Rayleigh quotients apply A
+by the plain stencil. The sharded FMG walk's cycles run the unpacked
+local2d legs (as v_cycle_fn), its polishing cycles the packed route.
 
 Phase 1 also reports ptxas's registers and spills of the row-streaming
 legs and sweeps, the local2d sweeps (UTile) among them, the BELL SpMM
@@ -359,6 +394,34 @@ PLOCAL2D_F64_TILES = ((255, 2, 1, 0, 0), (255, 2, 1, 2, 1))
 # last segment are partial at every sweep count (checked), in float32 at
 # every sweep count up to the caps.
 PLOCAL2D_EDGE_TILE = (2999, 4, 2, 0, 0)
+# Config 3 (BASELINE.json): one FMG pass at 1023^2, scored by its
+# discrete-L2 error against the analytic solution, and second order over
+# FMG_RATIO_K; config 4: the smallest eigenpair of the 511^2 Laplacian.
+FMG_K = 10
+FMG_RATIO_K = (8, 9, 10)
+# Float64 FMG gates. The 5-point scheme's own discrete-L2 error is about
+# (pi^2 / 6) h^2 ~ 1.6 h^2, and one FMG pass lands within a small factor of
+# it: under 5 h^2, with an error ratio in (3, 5) between successive grids
+# (second order). The kernel route's iterate within rtol 1e-12 of the
+# plain route's: the fused2d legs round as the plain path at sigma = 0 and
+# h = 2^-k, and the walk's transfers are the plain ones on both.
+FMG_L2_FACTOR = 5.0
+FMG_RATIO = (3.0, 5.0)
+FMG_ROUTE_RTOL = 1e-12
+# Float32 FMG sits at float32's rounding floor: the kernel route's error is
+# held to twice the plain route's in the same run.
+FMG_F32_FACTOR = 2.0
+EIGEN_K = 9
+# lambda_1 within 1e-8 of the exact discrete value 2 lambda_1d(1) (the
+# eigen-residual tolerance is 1e-8 and the eigenvalue's error goes as its
+# square); the kernel and plain routes' eigenvalues within 1e-10 (their
+# inner solves agree to rounding, both near 200 eps).
+EIGEN_RTOL = 1e-8
+EIGEN_ROUTE_RTOL = 1e-10
+EIGEN_METHODS = ("ii", "rqi", "lobpcg")
+# LOBPCG's block of three: lambda(1,1) and the degenerate lambda(1,2) =
+# lambda(2,1).
+EIGEN_BLOCK = 3
 HALO = 8                    # local2d.HALO_ROWS
 # Chained cycles a timing of v_cycles_fn runs (its time over this count).
 CHAIN_CYCLES = 20
@@ -1523,7 +1586,8 @@ KERNELS = {
 # The runs of phase 3 that drive a main path through the public API.
 MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
              "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell", "S1", "S1pcg",
-             "S1unpacked", "S2", "S3", "S4", "S4cheb")
+             "S1unpacked", "S2", "S3", "S4", "S4cheb", "fmg1023", "fmg4095",
+             "eigen511_ii", "eigen511_rqi", "eigen511_lobpcg", "S1fmg")
 # Direct calls of a kernel that no main path launches.
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d"}
 
@@ -1678,6 +1742,7 @@ def paths_2d(runs: dict) -> None:
     # solution.
     check_solve(f"solve k={MAIN_K} float32 rbgs", prob, solver, res, wall, 2,
                 runs["peak2d"])
+    runs["x2d"] = res.x                      # fmg4095's yardstick
     i = res.iters
     require_counts("solve2d", counts, packed2d_down=i, packed2d_up=i,
                    packed2d_resnorm=i + 1, fused2d_down=fused * i,
@@ -2296,6 +2361,306 @@ def paths_sharded(runs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def fmg_walk_crossings(prob) -> int:
+    """fused2d launches of each leg in one FMG walk: the V-cycle started at
+    level l crosses the fused2d levels l...L-2."""
+    from multigridcmt_tpu_torch import kernels
+
+    fused = [kernels.KERNEL_MIN_N <= lv.n < kernels.PACK_MIN_N
+             for lv in prob.hierarchy.levels[:-1]]
+    return sum(sum(fused[lv:]) for lv in range(len(fused)))
+
+
+def sharded_walk_crossings(prob, solver) -> int:
+    """local2d launches of each leg in one sharded FMG walk: the cycle
+    started at a whole-leg level l runs the legs of the whole-leg levels
+    from l down to the first that is not one."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    cfg, dec = prob.config, solver.decomp
+    total = 0
+    for start in range(len(prob.hierarchy.levels) - 1):
+        lv = start
+        while sharded._leg_level_ok(cfg, dec, lv):
+            total += 1
+            lv += 1
+    return total
+
+
+def fmg_gates(walk: str, out: dict, h: float) -> None:
+    """Config 3's gates on one walk: out[(dtype, use_kernels)] = (x,
+    discrete-L2 error)."""
+    (x64k, e64k), (x64p, e64p) = (out[(torch.float64, u)]
+                                  for u in (True, False))
+    diff = (x64k - x64p).abs().max().item() / x64p.abs().max().item()
+    log(f"fmg1023 {walk} float64: l2 error {e64k:.6e} (kernel), {e64p:.6e} "
+        f"(plain), {e64k / h ** 2:.4f} h^2; kernel vs plain max rel "
+        f"{diff:.2e}")
+    require(e64k < FMG_L2_FACTOR * h * h,
+            f"fmg1023 {walk} float64 l2 error {e64k:.3e} >= "
+            f"{FMG_L2_FACTOR} h^2")
+    require(diff <= FMG_ROUTE_RTOL, f"fmg1023 {walk} float64 kernel vs plain "
+            f"{diff:.3e} > {FMG_ROUTE_RTOL}")
+    e32k, e32p = (out[(torch.float32, u)][1] for u in (True, False))
+    log(f"fmg1023 {walk} float32: l2 error {e32k:.6e} (kernel), {e32p:.6e} "
+        "(plain)")
+    require(e32k <= FMG_F32_FACTOR * e32p,
+            f"fmg1023 {walk} float32 l2 error {e32k:.3e} > "
+            f"{FMG_F32_FACTOR} x the plain route's {e32p:.3e}")
+
+
+def paths_fmg(runs: dict) -> None:
+    """Config 3: MultigridSolver.fmg at 1023^2 (float64 and float32, linear
+    and cubic walks, kernel and plain routes) with its error gates and
+    exact launches, the error ratio over FMG_RATIO_K; solve(cycle="fmg")
+    at 4095^2 float32 on the main path's route (fmg4095)."""
+    import multigridcmt_tpu_torch as mt
+
+    def build(k, dtype, use_kernels=True, **kw):
+        return mt.poisson2d(k=k, dtype=dtype, smoother="rbgs",
+                            use_kernels=use_kernels, device="cuda", **kw)
+
+    for walk in ("linear", "cubic"):
+        out = {}
+        for dtype in (torch.float64, torch.float32):
+            for use_kernels in (True, False):
+                prob = build(FMG_K, dtype, use_kernels, fmg_prolong=walk)
+                solver = mt.MultigridSolver(prob)
+                torch.cuda.reset_peak_memory_stats()
+                x, counts, wall = counted(solver.fmg)
+                peak = torch.cuda.max_memory_allocated()
+                err = solver.discrete_l2_error(x).item()
+                require(tuple(x.shape) == tuple(prob.b.shape)
+                        and bool(x.isfinite().all()) and ghosts_zero(x),
+                        f"fmg1023 {walk}: bad shape, values or ghosts")
+                label = (f"fmg1023 {walk} {str(dtype).split('.')[-1]} "
+                         f"{'kernel' if use_kernels else 'plain'}")
+                log(f"{label}: l2 error {err:.6e}, wall {wall:.3f} s, peak "
+                    f"memory {peak / 2**20:.1f} MiB")
+                # One FMG pass: each V-cycle of the walk crosses the fused2d
+                # levels at and below its start (k=10: 1023, 511, 255, so
+                # 3 + 2 + 1); b's restriction and the walk's prolongation
+                # are the plain transfers on unpacked levels, and nothing
+                # checks a residual.
+                want = ({} if not use_kernels else dict(
+                    fused2d_down=fmg_walk_crossings(prob),
+                    fused2d_up=fmg_walk_crossings(prob)))
+                require_counts(label, counts, **want)
+                if use_kernels and dtype == torch.float32 \
+                        and walk == "linear":
+                    runs["fmg1023"] = counts
+                    runs["peak_fmg1023"] = peak
+                out[(dtype, use_kernels)] = (x, err)
+                del prob, solver
+        fmg_gates(walk, out, 1.0 / 2 ** FMG_K)
+        errs = []
+        for k in FMG_RATIO_K:
+            if k == FMG_K:
+                errs.append(out[(torch.float64, True)][1])
+                continue
+            solver = mt.MultigridSolver(build(k, torch.float64,
+                                              fmg_prolong=walk))
+            errs.append(solver.discrete_l2_error(solver.fmg()).item())
+        ratios = [a / b for a, b in zip(errs, errs[1:])]
+        log(f"fmg {walk} float64 l2 errors at k={FMG_RATIO_K}: "
+            f"{[f'{e:.6e}' for e in errs]}, ratios "
+            f"{[f'{r:.4f}' for r in ratios]}")
+        require(all(FMG_RATIO[0] < r < FMG_RATIO[1] for r in ratios),
+                f"fmg {walk} error ratios {ratios} outside {FMG_RATIO}")
+        del out
+    torch.cuda.empty_cache()
+
+    # fmg4095: one FMG pass, then V-cycles to tol (the stall guard ends
+    # them at float32's floor). b's restriction from the packed 4095 level
+    # and the walk's prolongation onto it are zero-sweep packed legs; the
+    # walk's cycle at 4095 one packed leg each and the fused2d legs at
+    # 2047...255; then each polishing cycle one packed and four fused2d
+    # legs each, and the fused norm once before the first and once a
+    # cycle.
+    prob = build(MAIN_K, torch.float32, cycle="fmg")
+    solver = mt.MultigridSolver(prob)
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = counted(solver.solve)
+    runs["peak_fmg4095"] = torch.cuda.max_memory_allocated()
+    x = res.x
+    maxerr = (x - prob.u_exact).abs().max().item()
+    hist = res.res_history[: res.iters + 1].tolist()
+    x2d = runs["x2d"]
+    err2d = (x2d - prob.u_exact).abs().max().item()
+    diff = (x - x2d).abs().max().item()
+    log(f"fmg4095: solve(cycle='fmg') k={MAIN_K} float32: {res.iters} "
+        f"polishing cycles, converged {res.converged}, history "
+        f"{[f'{v:.3e}' for v in hist]}, max error vs u_exact {maxerr:.4e}, "
+        f"l2 error {solver.discrete_l2_error(x).item():.4e}, wall {wall:.3f} "
+        f"s, peak memory {runs['peak_fmg4095'] / 2**20:.1f} MiB; against the "
+        f"V-cycle solve (solve2d, max error {err2d:.4e}): max abs {diff:.4e}")
+    require(tuple(x.shape) == tuple(prob.b.shape)
+            and bool(x.isfinite().all()) and maxerr < MAXERR[2],
+            f"fmg4095: bad solution or max error {maxerr:.3e} >= "
+            f"{MAXERR[2]}")
+    # The V-cycle solve from zero stalls at float32's floor 3.3e-3 from
+    # u_exact (PACKED_MAXERR bounds that route's error), FMG's iterate far
+    # closer (7.4e-4 on an H100): the two differ by about the former.
+    require(diff < PACKED_MAXERR,
+            f"fmg4095 against solve2d: {diff:.3e} >= the packed route's "
+            f"float32 error bound {PACKED_MAXERR}")
+    i, walk = res.iters, fmg_walk_crossings(prob)
+    require_counts("fmg4095", counts, packed2d_down=2 + i,
+                   packed2d_up=2 + i, packed2d_resnorm=i + 1,
+                   fused2d_down=walk + 4 * i, fused2d_up=walk + 4 * i)
+    runs["fmg4095"] = counts
+    runs["x_fmg4095"] = (x, maxerr)
+    del prob, solver, res, x
+    torch.cuda.empty_cache()
+
+
+def paths_eigen(runs: dict) -> None:
+    """Config 4: MultigridSolver.eigensolve(k=1) at 511^2 float64 by
+    inverse iteration, RQI and LOBPCG on the kernel and the plain routes,
+    against the exact discrete eigenvalue, and LOBPCG k=3 against the
+    exact spectrum, each with launches as a multiple of its cycles."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.ops import laplacian
+    from multigridcmt_tpu_torch.utils.profiling import count_cycles
+
+    def build(use_kernels):
+        return mt.poisson2d(k=EIGEN_K, dtype=torch.float64, smoother="rbgs",
+                            use_kernels=use_kernels, device="cuda")
+
+    n = 2 ** EIGEN_K - 1
+    h = 1.0 / (n + 1)
+    exact = 2 * laplacian.eigenvalue_1d(1, n, h)
+    spectrum = sorted(laplacian.eigenvalue_2d(a, b, n, h)
+                      for a, b in ((1, 1), (1, 2), (2, 1)))
+    fused = fused_levels(build(True))
+    cases = [(m, 1, u) for m in EIGEN_METHODS for u in (True, False)]
+    cases.append(("lobpcg", EIGEN_BLOCK, True))
+    lam = {}
+    for method, k, use_kernels in cases:
+        prob = build(use_kernels)
+        solver = mt.MultigridSolver(prob)
+        torch.cuda.reset_peak_memory_stats()
+        with count_cycles() as cyc:
+            res, counts, wall = counted(
+                lambda: solver.eigensolve(k=k, method=method))
+        peak = torch.cuda.max_memory_allocated()
+        vals = res.eigenvalues.tolist()
+        want = [exact] if k == 1 else spectrum
+        rel = max(abs(v - w) / w for v, w in zip(vals, want))
+        route = "kernel" if use_kernels else "plain"
+        label = f"eigen511 {method} k={k} {route}"
+        log(f"{label}: {res.iters} outer steps, {cyc.count} cycles, "
+            f"converged {res.converged}, eigenvalues "
+            f"{[f'{v:.12f}' for v in vals]}, rel error vs exact {rel:.2e}, "
+            f"final residual {res.res_history[res.iters].item():.3e}, wall "
+            f"{wall:.3f} s, peak memory {peak / 2**20:.1f} MiB")
+        require(res.converged and rel < EIGEN_RTOL,
+                f"{label}: converged {res.converged}, rel error {rel:.3e}")
+        require(tuple(res.eigenvectors.shape) == (k,) + tuple(prob.b.shape)
+                and bool(res.eigenvectors.isfinite().all()),
+                f"{label}: bad eigenvectors")
+        c = cyc.count
+        if not use_kernels:
+            require_counts(label, counts)
+        elif method == "lobpcg":
+            # One preconditioning V-cycle a block vector a step, iteration
+            # 0 included; each crosses the fused2d levels 511 and 255.
+            require(c == k * res.iters,
+                    f"{label}: {c} cycles, not {k} x {res.iters}")
+            require_counts(label, counts, fused2d_down=fused * c,
+                           fused2d_up=fused * c)
+        else:
+            # Each inner cycle: the fused2d legs at 511 and 255, and the
+            # inner solve's check, the stencil2d residual at 511.
+            require_counts(label, counts, fused2d_down=fused * c,
+                           fused2d_up=fused * c, stencil2d_residual=c)
+        if use_kernels and k == 1:
+            runs[f"eigen511_{method}"] = counts
+            runs[f"peak_eigen511_{method}"] = peak
+        lam[(method, k, use_kernels)] = vals
+        del prob, solver, res
+    for method in EIGEN_METHODS:
+        lk, lp = lam[(method, 1, True)][0], lam[(method, 1, False)][0]
+        rel = abs(lk - lp) / lp
+        log(f"eigen511 {method}: kernel vs plain eigenvalue rel {rel:.2e}")
+        require(rel <= EIGEN_ROUTE_RTOL, f"eigen511 {method} kernel vs "
+                f"plain {rel:.3e} > {EIGEN_ROUTE_RTOL}")
+    torch.cuda.empty_cache()
+
+
+def paths_sharded_fmg(runs: dict) -> None:
+    """S1fmg: ShardedSolver.solve with cycle="fmg" at config 5's 4095^2
+    on a row mesh of 1, float32, against fmg4095, with exact local2d and
+    plocal2d launches; and a float64 k=10 sharded FMG solve against the
+    single-device FMG solve."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    k, shape, cfg_kw = SHARDED_PATHS["S1"]
+    prob = mt.poisson2d(k=k, dtype=torch.float32, use_kernels=True,
+                        device="cuda", cycle="fmg", **cfg_kw)
+    solver = sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+    legs, _ = sharded_levels(prob, solver)
+    require(sharded._pack_level_ok(prob.config, solver.decomp, 0)
+            and legs == 5, f"S1fmg: {legs} leg levels, not 5, or unpacked")
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = counted(lambda: solver.solve(prob.b))
+    runs["peak_S1fmg"] = torch.cuda.max_memory_allocated()
+    x = res.x
+    maxerr = (x - prob.u_exact).abs().max().item()
+    xf, errf = runs["x_fmg4095"]
+    diff = (x - xf).abs().max().item()
+    hist = res.res_history[: res.iters + 1].tolist()
+    log(f"S1fmg: sharded solve(cycle='fmg') k={k} float32 mesh {shape}: "
+        f"{res.iters} polishing cycles, converged {res.converged}, history "
+        f"{[f'{v:.3e}' for v in hist]}, max error vs u_exact {maxerr:.4e}, "
+        f"wall {wall:.3f} s, peak memory {runs['peak_S1fmg'] / 2**20:.1f} "
+        f"MiB; against fmg4095 (max error {errf:.4e}): max abs {diff:.4e}")
+    require(tuple(x.shape) == tuple(prob.b.shape)
+            and bool(x.isfinite().all()) and maxerr < PACKED_MAXERR,
+            f"S1fmg: bad solution or max error {maxerr:.3e} >= "
+            f"{PACKED_MAXERR}")
+    require(diff <= max(maxerr, errf), f"S1fmg against fmg4095: {diff:.3e} "
+            f"> the float32 error {max(maxerr, errf):.3e}")
+    # The walk's cycles run the unpacked local2d legs on every leg level
+    # from their start (4095...255: 5 + 4 + 3 + 2 + 1); the polishing
+    # cycles run the packed plocal2d legs at 4095 and local2d at 2047...255,
+    # the fused plocal2d norm once before the first and once a cycle.
+    i, walk = res.iters, sharded_walk_crossings(prob, solver)
+    require_counts("S1fmg", counts, local2d_down=walk + (legs - 1) * i,
+                   local2d_up=walk + (legs - 1) * i, plocal2d_down=i,
+                   plocal2d_up=i, plocal2d_resnorm=i + 1)
+    runs["S1fmg"] = counts
+    del prob, solver, res, x, xf
+    runs.pop("x_fmg4095")
+    runs.pop("x2d")
+    torch.cuda.empty_cache()
+
+    # float64 k=10: the sharded FMG solve (local2d legs on 1023...255, the
+    # owned-tile route on 127 and 63, the rest gathered) against the
+    # single-device FMG solve (fused2d legs).
+    prob = mt.poisson2d(k=SHARDED_F64_K, dtype=torch.float64,
+                        smoother="rbgs", use_kernels=True, tol=F64_TOL,
+                        cycle="fmg", device="cuda")
+    solver = sharded.ShardedSolver(prob.config, sharded_mesh((1,)))
+    res, counts, _ = counted(lambda: solver.solve(prob.b))
+    ref = mt.MultigridSolver(prob).solve()
+    legs, _ = sharded_levels(prob, solver)
+    sharded_against_single(f"sharded FMG float64 k={SHARDED_F64_K}", res,
+                           ref)
+    err64 = mt.MultigridSolver(prob).discrete_l2_error(res.x).item()
+    log(f"  l2 error vs u_exact {err64:.4e}")
+    require(err64 < FMG_L2_FACTOR / 4 ** SHARDED_F64_K,
+            f"sharded FMG float64 l2 error {err64:.3e} >= {FMG_L2_FACTOR} "
+            "h^2")
+    i, walk = res.iters, sharded_walk_crossings(prob, solver)
+    require_counts("sharded FMG f64", counts,
+                   local2d_down=walk + legs * i, local2d_up=walk + legs * i,
+                   local2d_residual=i + 1)
+    del prob, solver, res, ref
+    torch.cuda.empty_cache()
+
+
 def phase_main_path():
     """The slice's paths through the public entry points. Returns, per
     run, its launch counts, and the peak device memory of the solves."""
@@ -2305,6 +2670,11 @@ def phase_main_path():
     paths_3d(runs)
     paths_sparse(runs)
     paths_sharded(runs)
+    start = time.perf_counter()
+    paths_fmg(runs)
+    paths_eigen(runs)
+    paths_sharded_fmg(runs)
+    log(f"FMG and eigensolver paths: {time.perf_counter() - start:.1f} s")
     return runs
 
 
@@ -3185,6 +3555,82 @@ def timed_plocal2d(times: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def timed_fmg_eigen(times: dict) -> None:
+    """Configs 3 and 4's first times on the card (CUDA events, warm-up,
+    medians) with each run's peak device memory: one FMG pass at 1023^2
+    (float32 and float64, also its device time and idle share) and at
+    4095^2 float32, and solve(cycle="fmg") at 4095^2; the eigensolve at
+    511^2 float64 by each method (wall, outer steps, cycles); S1fmg, the
+    sharded FMG solve at 4095^2 on a row mesh of 1, and its FMG pass
+    alone."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
+    from multigridcmt_tpu_torch.utils.profiling import (count_cycles,
+                                                       cuda_time_ms)
+
+    out = {}
+
+    def timed(key, fn, reps, warmup=1, **extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(fn, reps=reps, warmup=warmup)
+        out[key] = dict(ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+                        **extra)
+        log(f"time {key}: " + json.dumps(out[key]))
+
+    for k, dtypes in ((FMG_K, (torch.float32, torch.float64)),
+                      (MAIN_K, (torch.float32,))):
+        for dtype in dtypes:
+            prob = mt.poisson2d(k=k, dtype=dtype, smoother="rbgs",
+                                use_kernels=True, device="cuda")
+            solver = mt.MultigridSolver(prob)
+            name = f"fmg{2 ** k - 1} {str(dtype).split('.')[-1]}"
+            extra = {}
+            if k == FMG_K:
+                busy, ops, _ = device_busy(solver.fmg, 3)
+                extra = dict(device_ms=busy, device_ops=ops)
+            timed(name, solver.fmg, 10 if k == FMG_K else 5, **extra)
+            if k == FMG_K:
+                out[name]["idle_share"] = 1 - busy / out[name]["ms"]
+            del prob, solver
+    prob = mt.poisson2d(k=MAIN_K, dtype=torch.float32, smoother="rbgs",
+                        use_kernels=True, device="cuda", cycle="fmg")
+    solver = mt.MultigridSolver(prob)
+    timed("solve fmg4095 float32", solver.solve, 3,
+          polishing_cycles=solver.solve().iters)
+    del prob, solver
+    torch.cuda.empty_cache()
+
+    prob = mt.poisson2d(k=EIGEN_K, dtype=torch.float64, smoother="rbgs",
+                        use_kernels=True, device="cuda")
+    solver = mt.MultigridSolver(prob)
+    for method in EIGEN_METHODS:
+        # The counted run warms up; II and RQI take seconds a run, so the
+        # median of 2 there (of 3 for LOBPCG).
+        with count_cycles() as cyc:
+            res = solver.eigensolve(k=1, method=method)
+        timed(f"eigen511 {method} float64",
+              lambda: solver.eigensolve(k=1, method=method),
+              3 if method == "lobpcg" else 2, warmup=0,
+              outer_steps=res.iters, cycles=cyc.count)
+    del prob, solver
+    torch.cuda.empty_cache()
+
+    k, shape, cfg_kw = SHARDED_PATHS["S1"]
+    prob = mt.poisson2d(k=k, dtype=torch.float32, use_kernels=True,
+                        device="cuda", cycle="fmg", **cfg_kw)
+    solver = sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+    b_t = sharded.shard_rhs(prob.b, solver.mesh, solver.decomp)
+    timed("S1fmg solve", lambda: solver.solve(prob.b), 3,
+          polishing_cycles=solver.solve(prob.b).iters)
+    timed("S1fmg fmg pass", lambda: sharded._sharded_fmg(
+        solver.hierarchy, prob.config, solver.decomp, b_t), 5)
+    del prob, solver, b_t
+    torch.cuda.empty_cache()
+    times["fmg_eigen"] = out
+
+
 def phase_times():
     """Times on the card, float32, RB-GS, nu = 2, sigma = 0: the cycles,
     one PCG iteration, each kernel against its plain version at its
@@ -3201,6 +3647,9 @@ def phase_times():
     timed_sharded(times)
     timed_chains(times)
     timed_plocal2d(times)
+    start = time.perf_counter()
+    timed_fmg_eigen(times)
+    log(f"FMG and eigensolver times: {time.perf_counter() - start:.1f} s")
     return times
 
 
@@ -3292,8 +3741,12 @@ def main() -> int:
         if dist.is_initialized():
             dist.destroy_process_group()
     log(f"peak device memory: 4095^2 solve {runs['peak2d']} bytes, 511^3 "
-        f"solve {runs['peak3d']} bytes, sharded S1 {runs['peakS1']} bytes; "
-        f"card: {card}")
+        f"solve {runs['peak3d']} bytes, sharded S1 {runs['peakS1']} bytes, "
+        f"fmg1023 {runs['peak_fmg1023']} bytes, fmg4095 "
+        f"{runs['peak_fmg4095']} bytes, eigen511 "
+        + ", ".join(f"{m} {runs['peak_eigen511_' + m]} bytes"
+                    for m in EIGEN_METHODS)
+        + f", S1fmg {runs['peak_S1fmg']} bytes; card: {card}")
     for label in ("S1", "S2", "S1_chain"):
         log(f"cycle_{label}: " + json.dumps(times["cycle_" + label]))
     log("smoother: " + json.dumps(times["smoother"]))
@@ -3304,7 +3757,7 @@ def main() -> int:
     log("local2d_sweeps: " + json.dumps(times["local2d_sweeps"]))
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure",
-                "bell_carrier", "residual_restrict_levels"):
+                "bell_carrier", "residual_restrict_levels", "fmg_eigen"):
         log(f"{key}: " + json.dumps(times[key]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")
     log(card)

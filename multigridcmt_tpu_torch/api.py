@@ -17,10 +17,7 @@ from .config import SolverConfig
 from .grids import (Hierarchy, build_hierarchy, check_device,
                     grid_coords, interior, pad_interior)
 from .ops import sparse
-from .solvers import cycles, krylov
-
-EIGEN_TODO = ("eigensolve needs solvers/eigen.py, not ported to PyTorch yet "
-              "(ROADMAP.md, queue 1: eigen)")
+from .solvers import cycles, eigen, krylov
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,10 +88,13 @@ def poisson3d(k: int, **kw) -> Problem:
 
 
 class MultigridSolver:
-    """Facade over the cycle drivers.
+    """Facade over the cycles and the eigensolvers.
 
     >>> prob = poisson2d(k=8, smoother="rbgs")
-    >>> result = MultigridSolver(prob).solve()
+    >>> solver = MultigridSolver(prob)
+    >>> result = solver.solve()
+    >>> x = solver.fmg()
+    >>> pairs = solver.eigensolve(k=1)
     """
 
     def __init__(self, problem: Problem):
@@ -121,11 +121,32 @@ class MultigridSolver:
                            self.config)
         return bk.decode(out)
 
-    def fmg(self, b=None, n_vcycles: int = 1):
-        raise NotImplementedError(cycles.FMG_TODO)
+    def fmg(self, b: Optional[torch.Tensor] = None,
+            n_vcycles: int = 1) -> torch.Tensor:
+        """One full-multigrid pass, O(N): ``n_vcycles`` V-cycles a level
+        (1 reaches discretisation accuracy in 1D and 2D; 3D wants 2).
+        Logical padded arrays in and out."""
+        b = self.problem.b if b is None else b
+        bk = cycles.get_backend(self.config)
+        return bk.decode(cycles.fmg(self.hierarchy, bk.encode(b),
+                                    self.config, n_vcycles=n_vcycles))
 
-    def eigensolve(self, k: int = 1, method: str = "ii", **kw):
-        raise NotImplementedError(EIGEN_TODO)
+    def eigensolve(self, k: int = 1, method: str = "ii", tol: float = 1e-8,
+                   max_iters: int = 100, inner_cycles: int = 30,
+                   inner_tol: Optional[float] = None,
+                   v0: Optional[torch.Tensor] = None) -> eigen.EigenResult:
+        """The k smallest eigenpairs: method="ii" (block inverse
+        iteration), "rqi" (Rayleigh-quotient shifts) or "lobpcg"
+        (MG-preconditioned LOBPCG: one V-cycle a vector a step instead of
+        a whole inner solve). ``v0``, a (k, *padded) block, warm-starts
+        the iteration."""
+        if method == "lobpcg":
+            return eigen.lobpcg(self.hierarchy, self.config, k=k, tol=tol,
+                                max_iters=max_iters, v0=v0)
+        return eigen.eigensolve(self.hierarchy, self.config, k=k,
+                                method=method, tol=tol, max_iters=max_iters,
+                                inner_cycles=inner_cycles,
+                                inner_tol=inner_tol, v0=v0)
 
     def as_csr(self) -> sparse.CSR:
         """The fine-level operator as an explicit CSR matrix, on the

@@ -26,20 +26,24 @@ class SolverConfig:
         the polynomial degrees).
       smoother: "jacobi", "rbgs" or "chebyshev".
       omega: Jacobi damping; None selects 2d/(2d+1).
-      cycle: "v", "w" or "fmg" ("fmg" is not ported yet).
+      cycle: "v", "w" or "fmg" (full multigrid once, then V-cycles).
       min_coarse: coarsest-level interior size per axis.
       tol: relative residual tolerance ||r|| / ||b||.
       max_iters: outer-cycle cap (also the residual-history length - 1).
       use_kernels: route the large levels (2D: n >= ``kernels.KERNEL_MIN_N``;
         3D RB-GS: n >= ``kernels.KERNEL3_MIN_N``) through the hand-written
         CUDA kernels (``kernels/``) instead of the plain PyTorch stencils.
-      precond_dtype: the dtype of MG-PCG's preconditioning cycle. Read by
+      precond_dtype: the dtype of the preconditioning cycles (MG-PCG's, the
+        eigensolvers' inner solves and LOBPCG's). Read by
         ``solvers.krylov.mixed_cycle_dtype``: where the JAX package would
         run the cycle in it (the packed 2D tier, 3D RB-GS on the kernel
         tier), the port raises ``NotImplementedError`` (mixed precision is
         not ported yet); elsewhere it is ignored, as in JAX.
-      mesh_axis, agglom_rows, fmg_prolong: kept so that JAX configs convert
-        one to one; the ported single-device solvers do not read them.
+      fmg_prolong: the FMG solution walk's prolongation, "linear" or
+        "cubic" (``ops.transfer.fmg_prolong``). The sharded FMG walks
+        linearly only, and ``ShardedSolver`` refuses "cubic".
+      mesh_axis, agglom_rows: kept so that JAX configs convert one to one;
+        the single-device solvers do not read them.
     """
 
     ndim: int = 2

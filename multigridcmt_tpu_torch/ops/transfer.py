@@ -1,15 +1,16 @@
-"""Inter-grid transfers: full-weighting restriction and (bi/tri)linear
-prolongation, as strided slicing on padded grids.
+"""Inter-grid transfers: full-weighting restriction, (bi/tri)linear
+prolongation and the cubic prolongation of full multigrid's solution walk,
+as strided slicing on padded grids.
 
-PyTorch port of ``restrict`` and ``prolong`` from
+PyTorch port of ``restrict``, ``prolong`` and ``fmg_prolong`` from
 ``multigridcmt_tpu.ops.transfer``. Fine interior point 2j (1-based over
-the padded array) coincides with coarse point j, and n = 2*nc + 1. The
-separable passes run in the JAX module's axis order (ascending in 1D/2D,
-minor first in 3D), with the same arithmetic per pass. Outputs are
-contiguous, as the CUDA kernels require of their inputs. The JAX
-package's ``fmg_prolong`` is not ported yet (ROADMAP queue 1, FMG); its 3D
-banded-matmul passes and aligned-layout variants have no counterpart, as
-the port keeps the logical padded layout.
+the padded array) coincides with coarse point j, and n = 2*nc + 1. Each
+function's separable passes run in the JAX function's own axis order
+(``restrict`` and ``prolong``: ascending in 1D/2D, minor first in 3D;
+``fmg_prolong``: ascending in every dimension), with the same arithmetic
+per pass. Outputs are contiguous, as the CUDA kernels require of their
+inputs. The JAX module's 3D banded-matmul passes and aligned-layout
+variants have no counterpart, as the port keeps the logical padded layout.
 """
 from __future__ import annotations
 
@@ -72,4 +73,37 @@ def prolong(e: torch.Tensor) -> torch.Tensor:
     """(Bi/tri)linear prolongation, padded coarse grid -> padded fine grid."""
     for ax in _axis_order(e.ndim):
         e = _prolong_axis(e, ax)
+    return e
+
+
+def _fmg_prolong_axis(c: torch.Tensor, axis: int) -> torch.Tensor:
+    """Cubic interpolation along one padded axis: nc+2 -> 2*nc+3.
+
+    Odd fine points take the 4-point cubic (-1, 9, 9, -1)/16; at the
+    domain's ends the out-of-domain value comes from the odd reflection
+    u(-h) = -u(h) of a homogeneous-Dirichlet solution."""
+    at = lambda s: _along(c.ndim, axis, s)                    # noqa: E731
+    nc = c.shape[axis] - 2
+    # ext[j] = c[j-1] for j = 0..nc+3, with c[-1] := -c[1] and
+    # c[nc+2] := -c[nc].
+    ext = torch.cat([-c[at(slice(1, 2))], c, -c[at(slice(nc, nc + 1))]],
+                    dim=axis)
+    # Fine 2j+1 (j = 0..nc) sits between coarse j and j+1: the cubic
+    # through coarse j-1 .. j+2; fine 2j takes coarse j.
+    odd = (-ext[at(slice(0, nc + 1))] + 9.0 * c[at(slice(0, nc + 1))]
+           + 9.0 * c[at(slice(1, nc + 2))] - ext[at(slice(3, nc + 4))]) / 16.0
+    shape = list(c.shape)
+    shape[axis] = 2 * nc + 1
+    fine = torch.empty(shape, dtype=c.dtype, device=c.device)
+    fine[at(slice(0, None, 2))] = odd
+    fine[at(slice(1, None, 2))] = c[at(slice(1, -1))]
+    return _pad_axis(fine, axis)
+
+
+def fmg_prolong(e: torch.Tensor) -> torch.Tensor:
+    """Cubic (FMG-order) prolongation, padded coarse grid -> padded fine
+    grid, any ndim: the tensor product of the 1D cubic, its passes in
+    ascending axis order (unlike ``prolong`` in 3D)."""
+    for ax in range(e.ndim):
+        e = _fmg_prolong_axis(e, ax)
     return e

@@ -47,8 +47,10 @@ Routes, by level (read when called: ``kernels.KERNEL_MIN_N``,
     halo-exchanging stencils below) and the plain ``s_restrict``/``s_prolong``;
   * levels too small to shard (``_is_sharded``): gathered onto every rank and
     solved there by the plain single-device cycle.
-The eigensolvers, FMG, 3D slabs and pencils and mixed precision are not
-ported: they raise ``NotImplementedError`` naming their ROADMAP.md item.
+Full multigrid (``cycle="fmg"``, ``_sharded_fmg``) walks linearly only, as
+JAX's does; the port refuses ``fmg_prolong="cubic"`` rather than ignore it.
+The eigensolvers, 3D slabs and pencils and mixed precision are not ported:
+they raise ``NotImplementedError`` naming their ROADMAP.md item.
 JAX's ``*_pallas`` helpers are ``*_kernel`` here, and its ``_ext_aligned``
 is ``_ext_tile``: the port keeps every tile at its logical extent, with no
 alignment padding.
@@ -72,7 +74,6 @@ from ..solvers import cycles
 _ITEM = "(ROADMAP.md, queue 1: sharded {})"
 EIGEN_TODO = ("the sharded eigensolvers are not ported yet "
               + _ITEM.format("eigensolvers"))
-FMG_TODO = "sharded full multigrid is not ported yet " + _ITEM.format("fmg")
 SLAB_TODO = ("sharded 3D solves (slabs and pencils) are not ported yet "
              + _ITEM.format("3D slabs and pencils"))
 MIXED_TODO = ("sharded solves with precond_dtype={pd}: mixed precision is not "
@@ -945,6 +946,40 @@ def _coarse_correction(hier, cfg, decomp, rc, level, gamma, sigma,
     return s_prolong(ec, nc, decomp)
 
 
+def _sharded_fmg(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp, b,
+                 gamma: int = 1, n_vcycles: int = 1):
+    """Distributed full multigrid: b restricted down the sharded levels
+    (halo exchanges), gathered at the agglomeration cutoff, the coarsest
+    level solved directly on every rank, and the solution walked back up by
+    linear prolongation (scattered into owned tiles where it re-enters the
+    sharded levels) with ``n_vcycles`` sharded cycles a level. Owned tiles
+    in and out; the per-level cycles take the unpacked routes, as
+    ``v_cycle_fn`` does."""
+    bs = [b]
+    for lev in range(hier.num_levels - 1):
+        if _is_sharded(cfg, decomp, lev):
+            if _is_sharded(cfg, decomp, lev + 1):
+                bs.append(s_restrict(bs[-1], hier.levels[lev].n, decomp))
+            else:                     # crossing the agglomeration cutoff
+                bs.append(transfer.restrict(_gather_full(bs[-1], decomp)))
+        else:
+            bs.append(transfer.restrict(bs[-1]))
+    # The coarsest level is always replicated (_is_sharded).
+    x = cycles.coarse_solve(hier, bs[-1])
+    for level in range(hier.num_levels - 2, -1, -1):
+        if _is_sharded(cfg, decomp, level):
+            if _is_sharded(cfg, decomp, level + 1):
+                x = s_prolong(x, hier.levels[level + 1].n, decomp)
+            else:                     # re-entering the sharded levels
+                x = _scatter_local(transfer.prolong(x), decomp)
+        else:
+            x = transfer.prolong(x)
+        for _ in range(n_vcycles):
+            x = _sharded_v_cycle(hier, cfg, decomp, x, bs[level], level,
+                                 gamma)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -986,6 +1021,13 @@ class ShardedSolver:
                  hierarchy: Optional[Hierarchy] = None):
         if config.ndim == 3:
             raise NotImplementedError(SLAB_TODO)
+        if config.cycle == "fmg" and config.fmg_prolong != "linear":
+            # JAX's distributed walk prolongs linearly whatever the config
+            # says (ROADMAP.md queue 3, F4); the port does not run another
+            # walk than the one asked for.
+            raise ValueError(
+                f"fmg_prolong={config.fmg_prolong!r}: the sharded FMG walk "
+                "is linear only; use fmg_prolong='linear'")
         if config.precond_dtype not in (None, config.dtype):
             raise NotImplementedError(
                 MIXED_TODO.format(pd=config.precond_dtype))
@@ -1135,11 +1177,11 @@ class ShardedSolver:
         (``"pcg"``, one V- or W-cycle a preconditioning). Every rank passes
         the full padded right-hand side (a tensor or an array) and gets the
         full padded solution back. ``x0`` (the full padded grid)
-        warm-starts the iteration."""
+        warm-starts the iteration. With ``cycle="fmg"`` the cycles start
+        from one sharded FMG pass and polish it by V-cycles; a warm start
+        skips the FMG pass (a resumed solve has done it)."""
         if method not in ("mg", "pcg"):
             raise ValueError(f"unknown solve method {method!r}")
-        if method == "mg" and self.config.cycle == "fmg":
-            raise NotImplementedError(FMG_TODO)
         dtype = self.config.dtype
         b_sh = shard_rhs(torch.as_tensor(b_padded).to(dtype), self.mesh,
                          self.decomp)
@@ -1149,6 +1191,9 @@ class ShardedSolver:
             # The ops rely on zero ghosts: strip whatever the caller gave.
             x0p = pad_interior(interior(torch.as_tensor(x0).to(dtype)))
             x0_sh = shard_rhs(x0p, self.mesh, self.decomp)
+        if method == "mg" and self.config.cycle == "fmg" and x0 is None:
+            x0_sh = _sharded_fmg(self.hierarchy, self.config, self.decomp,
+                                 b_sh)
         run = self._solve_mg if method == "mg" else self._solve_pcg
         x, iters, hist, conv = run(b_sh, x0_sh)
         return cycles.SolveResult(x=unshard(x, self.decomp), iters=iters,

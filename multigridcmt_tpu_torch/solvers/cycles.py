@@ -1,11 +1,11 @@
-"""Multigrid cycle drivers: V- and W-cycles and the outer solve loop.
+"""Multigrid cycles: V- and W-cycles, full multigrid (FMG) and the outer
+solve loop.
 
 PyTorch port of ``multigridcmt_tpu.solvers.cycles``. The recursion runs
 eagerly over the static level list; every op goes through a ``Backend``
 record, so the CUDA kernels (``kernels/``) replace the plain PyTorch
 stencils level by level without touching the drivers. All grids are
-padded with a one-cell zero ghost boundary (``grids.py``). FMG is not
-ported yet (ROADMAP queue 1: fmg).
+padded with a one-cell zero ghost boundary (``grids.py``).
 """
 from __future__ import annotations
 
@@ -17,9 +17,6 @@ from ..config import SolverConfig
 from ..grids import Hierarchy, interior, pad_interior
 from ..ops import laplacian, smoothers, transfer
 from ..utils import profiling
-
-FMG_TODO = ("full multigrid is not ported to PyTorch yet "
-            "(ROADMAP.md, queue 1: fmg/fmg_prolong)")
 
 
 class Backend(NamedTuple):
@@ -165,11 +162,34 @@ def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
 
 def cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
           config: SolverConfig, sigma=0.0) -> torch.Tensor:
-    """One cycle of the configured type from the finest level."""
-    if config.cycle == "fmg":
-        raise NotImplementedError(FMG_TODO)
+    """One cycle of the configured type from the finest level (an FMG
+    config cycles by V-cycles, as JAX's)."""
     gamma = 2 if config.cycle == "w" else 1
     return v_cycle(hier, x, b, config, level=0, sigma=sigma, gamma=gamma)
+
+
+def fmg(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
+        n_vcycles: int = 1) -> torch.Tensor:
+    """Full multigrid: restrict b through the whole hierarchy, solve the
+    coarsest level directly, then walk up: prolong the current solution as
+    the start of the next finer level and run ``n_vcycles`` V-cycles
+    there. The walk prolongs linearly on the backend, or by the cubic
+    ``transfer.fmg_prolong`` on the logical layout (``config.fmg_prolong
+    = "cubic"``). The backend's layout in and out."""
+    bk = get_backend(config)
+    bs = [b]
+    for _ in range(hier.num_levels - 1):
+        bs.append(bk.restrict(bs[-1]))
+    x = coarse_solve(hier, bs[-1])
+    for level in range(hier.num_levels - 2, -1, -1):
+        nc = hier.levels[level + 1].n
+        if config.fmg_prolong == "cubic":
+            x = bk.encode(transfer.fmg_prolong(bk.decode(x)))
+        else:
+            x = bk.prolong(x, nc)
+        for _ in range(n_vcycles):
+            x = v_cycle(hier, x, bs[level], config, level=level)
+    return x
 
 
 class SolveResult(NamedTuple):
@@ -199,22 +219,41 @@ def guards_ok(stall: int, div: int) -> bool:
     return stall < STALL_PATIENCE and div < DIVERGE_PATIENCE
 
 
+# The eigensolvers' outer loops count growths cumulatively: a broken shift
+# (an indefinite operator) makes the eigen-residual oscillate, up 10x, down,
+# up again, as the Ritz step renormalises every iteration, so a count of
+# growths in a row never fires. A sound run grows at most once or twice
+# (when the shift comes on).
+EIGEN_DIVERGE_TOTAL = 4
+
+
+def eigen_guard(new_res: float, res: float, div: int) -> int:
+    """Cumulative count of eigen-residual growths by more than
+    DIVERGE_FACTOR."""
+    return div + (1 if new_res > DIVERGE_FACTOR * res else 0)
+
+
 def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
           x0: Optional[torch.Tensor] = None) -> SolveResult:
     """Iterate cycles until ||r|| / ||b|| < config.tol.
+
+    With ``config.cycle == "fmg"``, FMG runs once first (``x0`` is then
+    not read, as in JAX); its residual is the history's first entry, and
+    V-cycles polish it while the tolerance asks for more.
 
     The loop runs on the host: each cycle ends with one device-to-host
     copy of the residual norm for the convergence and guard checks (the
     JAX package keeps the whole loop on the device in a while_loop).
     """
-    if config.cycle == "fmg":
-        raise NotImplementedError(FMG_TODO)
     bk = get_backend(config)
     n, h = hier.fine.n, hier.fine.h
     # Every op relies on the zero-ghost invariant: zero the user's ghosts.
     b = bk.encode(pad_interior(interior(b)))
-    x = (torch.zeros_like(b) if x0 is None
-         else bk.encode(pad_interior(interior(x0))))
+    if config.cycle == "fmg":
+        x = fmg(hier, b, config)
+    else:
+        x = (torch.zeros_like(b) if x0 is None
+             else bk.encode(pad_interior(interior(x0))))
     b_norm = torch.linalg.vector_norm(b)
     b_norm = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
 

@@ -20,7 +20,7 @@ from ..config import SolverConfig
 from ..grids import Hierarchy, interior, pad_interior
 from . import cycles
 
-MIXED_TODO = ("MG-PCG with precond_dtype={pd}: the JAX package runs this "
+MIXED_TODO = ("{route} with precond_dtype={pd}: the JAX package runs this "
               "route's preconditioning cycle in that dtype; mixed precision "
               "is not ported to CUDA yet (ROADMAP.md, queue 1: mixed "
               "precision)")
@@ -45,12 +45,12 @@ def _jax_casts_3d(n: int, dtype: torch.dtype) -> bool:
     return 17 * r * c * dtype.itemsize <= _JAX_PLANE_BUDGET_BYTES
 
 
-def mixed_cycle_dtype(config: SolverConfig):
+def mixed_cycle_dtype(config: SolverConfig, route: str = "MG-PCG"):
     """None where the JAX package's ``mixed_cycle_dtype`` returns None (the
     cycle runs in ``config.dtype``); where JAX would cast the cycle to
     ``precond_dtype`` (the packed 2D tier, 3D RB-GS on the kernel tier),
-    raise ``NotImplementedError``: the port never runs another precision
-    silently."""
+    raise ``NotImplementedError`` naming ``route``, the solver that asked:
+    the port never runs another precision silently."""
     pd = config.precond_dtype if config.precond_dtype is not None \
         else config.dtype
     if pd == config.dtype:
@@ -64,7 +64,7 @@ def mixed_cycle_dtype(config: SolverConfig):
                  and config.n >= kernels.KERNEL3_MIN_N
                  and _jax_casts_3d(config.n, pd))
     if packed2d or stencil3d:
-        raise NotImplementedError(MIXED_TODO.format(pd=pd))
+        raise NotImplementedError(MIXED_TODO.format(route=route, pd=pd))
     return None
 
 

@@ -8,6 +8,8 @@
     python -m multigridcmt_tpu_torch.utils.breakdown --sweeps
     python -m multigridcmt_tpu_torch.utils.breakdown --transfers
     python -m multigridcmt_tpu_torch.utils.breakdown --sparse
+    python -m multigridcmt_tpu_torch.utils.breakdown --fmg [--k 10]
+    python -m multigridcmt_tpu_torch.utils.breakdown --eigen ii|lobpcg [--k 9]
 
 For each route of the float32 V(nu1,nu2) cycle (default RB-GS V(2,2)) at
 2^k - 1 (k=12: 4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA
@@ -64,6 +66,18 @@ levels: on the whole grid (paths B and C) and on rank 0's tiles of a row
 mesh of 1 (the local2d sweeps of config 5's S3 and S4, and both at S1's
 4095 tile, each tile's local2d residual beside them).
 
+With ``--fmg``, one FMG pass (``MultigridSolver.fmg``, RB-GS V(2,2), config
+3's 1023^2 at the default k = 10) and one ``solve`` with ``cycle="fmg"``,
+float32 and float64: the pass's time (CUDA events), its device busy time,
+ops and idle share, the legs' device time by the route's kernel groups,
+and the solve's polishing cycles, wall time and peak device memory. With
+``--eigen ii`` or ``--eigen lobpcg``, one outer step of config 4's
+eigensolve (k = 1, float64, 511^2 at the default k = 9; an II step is the
+inner solve's V-cycles, each with its residual check, then the Ritz and
+Rayleigh steps; a LOBPCG step one preconditioning V-cycle and the
+Rayleigh-Ritz step on [X, W, P]), the same figures a step, and the whole
+eigensolve's outer steps, cycles and wall time.
+
 Informative only: nothing is checked. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -81,7 +95,8 @@ from multigridcmt_tpu_torch import kernels
 from multigridcmt_tpu_torch.kernels import (fused2d, local2d, packed2d,
                                            plocal2d, stencil2d, stencil3d)
 from multigridcmt_tpu_torch.ops import transfer
-from multigridcmt_tpu_torch.utils.profiling import chained_ms, cuda_time_ms
+from multigridcmt_tpu_torch.utils.profiling import (chained_ms, count_cycles,
+                                                   cuda_time_ms)
 
 # The sharded kernels by their names in the profiler: the local2d kernels
 # (the residual, local_residual_kernel; the legs and the sweeps, the
@@ -526,6 +541,65 @@ def levels3(k: int) -> None:
         del u, b, e
 
 
+def fmg(k: int, reps: int) -> None:
+    """One FMG pass and one FMG solve at 2^k - 1, float32 and float64."""
+    for dtype in (torch.float32, torch.float64):
+        prob = mt.poisson2d(k=k, dtype=dtype, smoother="rbgs",
+                            use_kernels=True, device="cuda", cycle="fmg")
+        solver = mt.MultigridSolver(prob)
+        ms = cuda_time_ms(solver.fmg, reps=10, warmup=2)
+        busy, ops, by = device_busy(solver.fmg, reps, ROUTE_KERNELS)
+        kern = ", ".join(f"{name} {t:.4f}" for name, t in by.items() if t)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = solver.solve()
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        print(f"fmg {2 ** k - 1}^2 {str(dtype).split('.')[-1]}: pass "
+              f"{ms:.4f} ms (events), device busy {busy:.4f} ms ({kern}), "
+              f"idle share {1 - busy / ms:.4f}, device ops {ops:.0f}; "
+              f"solve(cycle='fmg') {res.iters} polishing cycles "
+              f"{solve_ms:.1f} ms, final "
+              f"{res.res_history[res.iters].item():.4e}, l2 error "
+              f"{solver.discrete_l2_error(res.x).item():.4e}, peak device "
+              f"memory {torch.cuda.max_memory_allocated()} bytes",
+              flush=True)
+        del prob, solver, res
+        torch.cuda.empty_cache()
+
+
+def eigen_step(k: int, method: str, reps: int) -> None:
+    """One outer step of the k=1 float64 eigensolve at 2^k - 1 by
+    ``method``, from the solve's own start block (max_iters=1 runs
+    exactly one step; LOBPCG's iteration 0 is that step), and the whole
+    eigensolve."""
+    prob = mt.poisson2d(k=k, dtype=torch.float64, smoother="rbgs",
+                        use_kernels=True, device="cuda")
+    solver = mt.MultigridSolver(prob)
+
+    def step():
+        return solver.eigensolve(k=1, method=method, max_iters=1)
+
+    ms = cuda_time_ms(step, reps=5, warmup=1)
+    busy, ops, by = device_busy(step, reps, ROUTE_KERNELS)
+    kern = ", ".join(f"{name} {t:.4f}" for name, t in by.items() if t)
+    with count_cycles() as one:
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    with count_cycles() as whole:
+        t0 = time.perf_counter()
+        res = solver.eigensolve(k=1, method=method)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    print(f"eigen {method} {2 ** k - 1}^2 float64, one outer step: "
+          f"{ms:.4f} ms (events), {one.count} V-cycles, device busy "
+          f"{busy:.4f} ms ({kern}), idle share {1 - busy / ms:.4f}, device "
+          f"ops {ops:.0f}; eigensolve {res.iters} outer steps, {whole.count} "
+          f"V-cycles, {wall:.1f} ms, lambda_1 "
+          f"{res.eigenvalues[0].item():.12f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ndim", type=int, default=2, choices=(2, 3))
@@ -546,13 +620,24 @@ def main() -> None:
                     help="time the BELL SpMM at the bench shape only")
     ap.add_argument("--no-levels", action="store_true",
                     help="the routes only, no per-level times")
+    ap.add_argument("--fmg", action="store_true",
+                    help="one FMG pass and FMG solve (default k=10) only")
+    ap.add_argument("--eigen", choices=("ii", "rqi", "lobpcg"), default=None,
+                    help="one eigensolve outer step (default k=9) only")
     args = ap.parse_args()
-    k = args.k if args.k is not None else {2: 12, 3: 9}[args.ndim]
+    k = args.k if args.k is not None else (
+        10 if args.fmg else 9 if args.eigen else {2: 12, 3: 9}[args.ndim])
     schedule = dict(smoother=args.smoother, nu1=args.nu1, nu2=args.nu2)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
+    if args.fmg or args.eigen:
+        if args.fmg:
+            fmg(k, args.reps)
+        if args.eigen:
+            eigen_step(k, args.eigen, args.reps)
+        return
     if args.sweeps or args.transfers or args.sparse:
         for flag, fn in ((args.sweeps, sweeps), (args.transfers, transfers),
                          (args.sparse, sparse)):

@@ -3,13 +3,51 @@
 
 Each multigrid level runs inside a named ``torch.profiler`` range, so a
 ``torch.profiler.profile`` trace shows one row per level. The JAX module's
-``trace`` and ``Timer`` are not ported yet (ROADMAP queue 1: utils).
+``trace`` and ``Timer`` are not ported yet: they raise, naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
 import statistics
 
 import torch
+
+
+UTILS_TODO = ("profiling.{name} is not ported to PyTorch yet (ROADMAP.md, "
+              "queue 1: utils)")
+
+
+def trace(*args, **kwargs):
+    raise NotImplementedError(UTILS_TODO.format(name="trace"))
+
+
+class Timer:
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(UTILS_TODO.format(name="Timer"))
+
+
+class count_cycles:                                         # noqa: N801
+    """Counts the cycles started at the finest level while active: calls
+    of ``cycles.v_cycle`` with level 0 (its recursion passes level + 1)."""
+
+    def __enter__(self):
+        from ..solvers import cycles
+
+        self.count = 0
+        self._orig = orig = cycles.v_cycle
+
+        def counting(*args, **kwargs):
+            self.count += kwargs.get("level", 0) == 0
+            return orig(*args, **kwargs)
+
+        cycles.v_cycle = counting
+        return self
+
+    def __exit__(self, *exc):
+        from ..solvers import cycles
+
+        cycles.v_cycle = self._orig
+        return False
 
 
 def level_scope(level: int):

@@ -4,8 +4,9 @@ build names nvcc when it is missing, the kernel wrappers reject what their
 kernels do not take, unported routes raise NotImplementedError instead of
 running something else, and the routes ported since (the Chebyshev
 smoother, schedules beyond the fused legs' caps, the unfused ops of a
-packed level, the sparse matrices of as_csr/as_coo) run and agree with the
-plain route or the JAX package."""
+packed level, the sparse matrices of as_csr/as_coo, full multigrid on one
+device and sharded) run and agree with the plain route or the JAX
+package."""
 import ast
 from pathlib import Path
 
@@ -113,6 +114,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
     solver = mt.MultigridSolver(prob)
     assert solver.as_csr().data.device.type == "cpu"
     assert solver.as_coo().row.device.type == "cpu"
+    # FMG and the eigensolvers run where the problem lives.
+    assert solver.fmg().device.type == "cpu"
+    for method in ("ii", "lobpcg"):
+        pairs = solver.eigensolve(k=1, method=method)
+        assert pairs.eigenvectors.device.type == "cpu"
     dia = sparse.laplacian_dia(7, 2, 0.125, device="cpu")
     assert spmv.pack_dia(dia).offset_tensor.device.type == "cpu"
     assert sparse.coo_to_csr(solver.as_coo()).indptr.device.type == "cpu"
@@ -297,9 +303,10 @@ def _solve(**kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    # Ported since: runs (its parity with JAX is in test_torch_chebyshev.py).
+    # Ported since: run (their parity with JAX is in test_torch_chebyshev.py
+    # and test_torch_fmg.py).
     (dict(k=4, ndim=2, smoother="chebyshev"), None),
-    (dict(k=4, ndim=2, cycle="fmg"), "fmg"),
+    (dict(k=4, ndim=2, cycle="fmg"), None),
     # The 3D kernels are ported; their bfloat16 storage is not.
     (dict(k=7, ndim=3, smoother="rbgs", use_kernels=True,
           dtype=torch.bfloat16), "stencil3d"),
@@ -452,13 +459,24 @@ def test_kernel_backend_smooth_raises_on_kernel_tier(monkeypatch):
 @pytest.mark.parametrize("call", ["pcg", "eigensolve", "fmg", "as_csr",
                                   "as_coo"])
 def test_unported_solver_methods_raise(call, monkeypatch):
-    # MG-PCG is ported; on the packed tier a precond_dtype other than the
-    # dtype asks for mixed precision, which is not. as_csr/as_coo are
-    # ported (ops/sparse.py): they return the JAX package's matrices.
+    # MG-PCG and the eigensolvers are ported; on the packed tier a
+    # precond_dtype other than the dtype asks for mixed precision, which is
+    # not. FMG is ported and reads no precond_dtype (as in JAX): it runs and
+    # equals the plain route. as_csr/as_coo are ported (ops/sparse.py): they
+    # return the JAX package's matrices.
     monkeypatch.setattr(kernels, "PACK_MIN_N", 7)
     solver = mt.MultigridSolver(mt.poisson2d(
         k=3, dtype=torch.float64, use_kernels=True,
         precond_dtype=torch.bfloat16, device="cpu"))
+    if call == "fmg":
+        plain = mt.MultigridSolver(mt.poisson2d(
+            k=3, dtype=torch.float64, precond_dtype=torch.bfloat16,
+            device="cpu"))
+        got, want = solver.fmg(), plain.fmg()
+        assert not packed2d.is_packed(got)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-14)
+        return
     if call in ("as_csr", "as_coo"):
         import jax.numpy as jnp
 
@@ -475,11 +493,38 @@ def test_unported_solver_methods_raise(call, monkeypatch):
             np.testing.assert_array_equal(getattr(got, f).numpy(),
                                           np.asarray(getattr(want, f)))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as info:
         if call == "pcg":
             solver.solve(method="pcg")
         else:
             getattr(solver, call)()
+    assert ("MG-PCG" if call == "pcg" else "eigensolver") in str(info.value)
+
+
+@pytest.mark.parametrize("item", ["sharded 3D slabs and pencils",
+                                  "mixed precision", "utils"])
+def test_remaining_items_raise_naming_them(item, monkeypatch):
+    """The parts still to port raise NotImplementedError naming their
+    ROADMAP.md item, and run nothing else."""
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.solvers import krylov
+    from multigridcmt_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(kernels, "PACK_MIN_N", 7)
+    with pytest.raises(NotImplementedError, match="ROADMAP") as info:
+        if item == "utils":
+            profiling.trace("cycle")
+        elif item == "mixed precision":
+            prob = mt.poisson2d(k=3, dtype=torch.float64, use_kernels=True,
+                                precond_dtype=torch.bfloat16, device="cpu")
+            krylov.solve_pcg(prob.hierarchy, prob.b, prob.config)
+        else:
+            # Raised before the mesh is read.
+            sharded.ShardedSolver(SolverConfig(ndim=3, k=5), mesh=None)
+    assert item in str(info.value)
+    if item == "utils":
+        with pytest.raises(NotImplementedError, match="queue 1: utils"):
+            profiling.Timer()
 
 
 # ---------------------------------------------------------------------------
@@ -696,15 +741,25 @@ def _sharded_solver(**kw):
 def test_unported_sharded_routes_raise(call, item, world_of_one,
                                        monkeypatch):
     """Each names its ROADMAP.md item; none reroutes. Mixed precision
-    raises for the cycles and for PCG alike."""
+    raises for the cycles and for PCG alike. The sharded FMG is ported
+    since: it runs (on the packed route here) and converges, in the
+    single-device FMG solve's count (its parity with JAX is in
+    test_torch_sharded_fmg.py)."""
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 30)
     monkeypatch.setattr(kernels, "PACK_MIN_N", 60)
     b = mt.poisson2d(k=6, dtype=torch.float64, device="cpu").b
+    if call == "fmg":
+        got = _sharded_solver(k=6, cycle="fmg", tol=1e-9).solve(b)
+        want = mt.MultigridSolver(mt.poisson2d(
+            k=6, dtype=torch.float64, smoother="rbgs", use_kernels=True,
+            agglom_rows=4, cycle="fmg", tol=1e-9, device="cpu")).solve()
+        assert got.converged and got.iters == want.iters
+        np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=0,
+                                   atol=1e-10)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP") as info:
         if call == "eigensolve":
             _sharded_solver(k=6).eigensolve(k=1)
-        elif call == "fmg":
-            _sharded_solver(k=6, cycle="fmg").solve(b)
         elif call == "ndim3":
             _sharded_solver(k=5, ndim=3)
         elif call == "precond_dtype":
