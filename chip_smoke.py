@@ -56,6 +56,14 @@ Phases:
          4095^2 (S1fmg), against fmg4095, with exact local2d and plocal2d
          launches, and a float64 k=10 sharded FMG solve against the
          single-device one;
+       * mixed precision on the packed 2D tier: MG-PCG at 4095^2 float32
+         with precond_dtype=torch.bfloat16 on the V(2,2) RB-GS (mixed2d),
+         RB-GS V(4,4) (mixedB) and Chebyshev V(2,2) (mixedA) routes, each
+         against the float32 PCG on its route (converged, in at most
+         ceil(1.2 x its iterations) + 1, error against the analytic
+         solution) with exact launches of the packed level's bfloat16
+         kernels; LOBPCG and II at 4095^2 float64 with a bfloat16
+         preconditioner, lambda_1 within 1e-8 of the full-precision run's;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -93,7 +101,13 @@ Phases:
      through the 8-row carrier, twice (the second call equal to the first
      bit for bit), and with NaN and Inf in Xt's first block column (where
      every zero padding block points) at m = 128 and 8, both dtypes, the
-     non-finite values exactly where the plain version's are;
+     non-finite values exactly where the plain version's are; the packed2d
+     kernels' bfloat16 modes (the down leg, the up leg storing bfloat16 or
+     float32, the RB-GS sweep, the residual) at 4095 (RB-GS nu = 0 and 2,
+     Jacobi nu = 2, the 1- and 4-sweep sweep, both sigmas), 2999 and 61
+     (every sweep count, logical and packed coarse grids), each bfloat16
+     output within one bfloat16 ulp plus BF16_SCALE_TOL of the field's
+     largest value, at most BF16_SHARE of the points differing;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -134,8 +148,11 @@ Phases:
      time and idle share) and at 4095^2, solve(cycle="fmg") at 4095^2,
      the 511^2 float64 eigensolve by each method (with its outer steps and
      V-cycles) and S1fmg (the solve and its FMG pass alone), each with its
-     peak device memory. Every kernel row also gets the profiler's device
-     time a call (device_ms).
+     peak device memory; the bfloat16 modes at 4095^2 against their plain
+     versions and beside their float32 twins (chained and device), and on
+     each mixed route a preconditioning cycle's device busy and idle share
+     and a PCG solve's wall, with a bfloat16 and a float32 cycle. Every
+     kernel row also gets the profiler's device time a call (device_ms).
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -164,6 +181,15 @@ unpacked fine level's check is the local2d residual. V(4,4) RB-GS and
 V(8,8) Jacobi exceed the legs' sweep caps and run the local2d sweeps and
 residual on the owned tiles (the composed route); Chebyshev runs the
 local2d residual.
+
+Mixed precision: each bfloat16 preconditioning cycle at 4095^2 runs, on
+the 4095 level, the bfloat16 down leg (nu = 2 on the fused route, nu = 0
+after the 4-sweep bfloat16 sweep of V(4,4) or the bfloat16 residual
+applies of Chebyshev's pre-smoothing) and the up leg with bfloat16 x and
+b, a float32 correction and float32 x' (then, on the Chebyshev route, the
+float32 residual applies of the post-smoothing); 2047..255 run the float32
+kernels, as in a float32 cycle. The up leg storing bfloat16 (the TPU
+kernel's own mode) runs on no path: direct calls.
 
 FMG and the eigensolvers add no kernel. An FMG walk's V-cycle started at a
 level runs the legs of the kernel levels at and below it; b's restriction
@@ -394,6 +420,35 @@ PLOCAL2D_F64_TILES = ((255, 2, 1, 0, 0), (255, 2, 1, 2, 1))
 # last segment are partial at every sweep count (checked), in float32 at
 # every sweep count up to the caps.
 PLOCAL2D_EDGE_TILE = (2999, 4, 2, 0, 0)
+# Mixed precision: the packed fine level stored in bfloat16 (the packed2d
+# kernels' bfloat16 modes). A bfloat16 output against its plain version:
+# both evaluate in float32, in other orders (as the float32 gates allow, to
+# TOL[float32] of the field's largest value), then round once, so each
+# point lies within one bfloat16 ulp of the plain value plus BF16_SCALE_TOL
+# of max|plain|, and a one-ulp flip is rare: at most BF16_SHARE of the
+# points differ (the Jacobi down leg at 4095^2, nu = 2, parted at 1.7e-3 of
+# them on an H100: the kernel contracts the Jacobi step into an FMA, the
+# plain version rounds it twice). A float32 output
+# (the down leg's coarse right-hand side, the up leg's float32 store) to
+# TOL[float32]; the coarse right-hand side against the plain restriction
+# of the kernel's own stored u' (a one-ulp flip of u' moves the residual
+# there by 4/h^2 of an ulp). Shapes: 4095 (the main path's), 2999 (partial
+# strips and segments, every sweep count) and 61 (one strip and segment).
+BF16_SCALE_TOL = 1e-5
+BF16_SHARE = 1e-2
+MIXED_SHAPES = (2 ** MAIN_K - 1, 2999, 61)
+# Mixed PCG at 4095^2 float32 (precond_dtype=torch.bfloat16) on the main
+# path's V(2,2) RB-GS route, RB-GS V(4,4) and Chebyshev V(2,2): converged,
+# in at most ceil(MIXED_ITER_FACTOR x the float32 PCG's iterations) + 1 on
+# the same route, max error against u_exact under MAXERR[2]. The mixed
+# eigensolves at 4095^2 float64: lambda_1 within MIXED_EIGEN_RTOL of the
+# full-precision run's.
+MIXED_ITER_FACTOR = 1.2
+MIXED_EIGEN_RTOL = 1e-8
+MIXED_ROUTES = {"mixed2d": dict(smoother="rbgs"),
+                "mixedB": dict(smoother="rbgs", nu1=4, nu2=4),
+                "mixedA": dict(smoother="chebyshev")}
+MIXED_EIGEN = ("lobpcg", "ii")
 # Config 3 (BASELINE.json): one FMG pass at 1023^2, scored by its
 # discrete-L2 error against the analytic solution, and second order over
 # FMG_RATIO_K; config 4: the smallest eigenpair of the 511^2 Laplacian.
@@ -533,9 +588,12 @@ def phase_setup(rendezvous: str):
 
 
 # A row-streaming leg or sweep kernel's mangled name: leg (or sweep), type
-# (f float, d double), kind (0 Jacobi, 1 RB-GS), stages, frame.
+# (f float, d double), kind (0 Jacobi, 1 RB-GS), stages, frame, and the
+# bfloat16 storage of the packed grid's modes (an f after it: the up leg's
+# float32 store).
 LEG_KERNEL = re.compile(r"(down|up|sweep)_kernelI([fd])Li(\d)ELi(\d+)E"
-                        r"(?:Lb([01])E)?NS_\d+(Whole|Tile|Unpacked|UTile)E")
+                        r"(?:Lb([01])E)?NS_\d+(Whole|Tile|Unpacked|UTile)E"
+                        r"(13__nv_bfloat16(f)?)?")
 
 
 # The BELL SpMM kernel (type, m-tile) and the residual-restriction stream
@@ -571,8 +629,9 @@ def ptxas_report(log_path) -> None:
         m = LEG_KERNEL.search(mangled)
         if not m or "regs" not in prop:
             continue
-        leg, ty, kind, stages, packed_e, frame = m.groups()
-        key = (frame, leg, "f32" if ty == "f" else "f64",
+        leg, ty, kind, stages, packed_e, frame, bf16, f32_out = m.groups()
+        key = (frame, leg, ("bf16" + (" f32-out" if f32_out else "")) if bf16
+               else "f32" if ty == "f" else "f64",
                "rbgs" if kind == "1" else "jacobi",
                "packed e" if packed_e == "1" else "")
         rows.setdefault(key, []).append(
@@ -802,6 +861,138 @@ def compare_packed_residual(main_err: dict) -> None:
             if n == 2 ** MAIN_K - 1 and sigma == 0.0:
                 main_err["packed2d_residual"] = err
         del u, b, su, sb
+
+
+def check_bf16(label: str, got, want):
+    """Hold a bfloat16 kernel output against its plain version: each point
+    within one bfloat16 ulp of the plain value plus BF16_SCALE_TOL of
+    max|plain|, at most BF16_SHARE of the points not equal, ghosts and pad
+    lanes zero. Returns (max abs error, relative error, tol) as check_pair,
+    tol the relative error the rule allows at the largest value (an ulp is
+    at most 2^-7 of a value)."""
+    torch.cuda.synchronize()
+    require(got.dtype == want.dtype == torch.bfloat16,
+            f"{label}: {got.dtype} against {want.dtype}, not bfloat16")
+    g, w = logical(got).double(), logical(want).double()
+    diff = (g - w).abs()
+    scale = w.abs().max().item()
+    _, ex = torch.frexp(w)
+    ulp = torch.where(w != 0, torch.ldexp(torch.ones_like(w), ex - 8),
+                      torch.zeros_like(w))
+    excess = (diff - ulp - BF16_SCALE_TOL * scale).max().item()
+    share = (diff > 0).double().mean().item()
+    ulps = (diff / torch.where(ulp > 0, ulp, torch.full_like(ulp, math.inf))
+            ).max().item()
+    err = diff.max().item()
+    rel = err / scale if scale > 0 else err
+    log(f"  {label}: rel {rel:.3e}, {share:.2e} of the points differ, at "
+        f"most {ulps:.3g} ulp")
+    require(ghosts_zero(g) and bool(g.isfinite().all()) and excess <= 0
+            and share <= BF16_SHARE,
+            f"{label}: {share:.3e} of the points differ (> {BF16_SHARE}), "
+            f"or by more than an ulp + {BF16_SCALE_TOL} of the scale "
+            f"({excess:.3e} past it), or bad ghosts/values")
+    return err, rel, 2.0 ** -7 + BF16_SCALE_TOL
+
+
+def bf16_inputs(n: int, seed: int):
+    """leg_inputs rounded to bfloat16 (u and b; e, a coarse operand, stays
+    float32)."""
+    from multigridcmt_tpu_torch.kernels import packed2d
+
+    u, b, e = leg_inputs(n, torch.float32, seed=seed)
+    su = packed2d.pack(u).to(torch.bfloat16)
+    sb = packed2d.pack(b).to(torch.bfloat16)
+    return su, sb, e, packed2d.pack(e)
+
+
+def compare_mixed(main_err: dict) -> None:
+    """The packed2d kernels' bfloat16 modes against their plain versions at
+    MIXED_SHAPES: at 4095 RB-GS nu = 0 and 2 and Jacobi nu = 2 legs (the up
+    leg storing bfloat16 and float32), the 1- and 4-sweep RB-GS sweep and
+    the residual, both sigmas; at 2999 and 61 every sweep count up to the
+    caps, logical and packed coarse grids."""
+    from multigridcmt_tpu_torch.kernels import packed2d
+
+    f32 = torch.float32
+    plain_down = packed2d.smooth_residual_restrict_plain
+    for n in MIXED_SHAPES:
+        h = 1.0 / (n + 1)
+        nc = (n - 1) // 2
+        su, sb, e, se = bf16_inputs(n, seed=n + 21)
+        main = n == 2 ** MAIN_K - 1
+        for sigma in ((0.0, SIGMA) if main else (SIGMA,) if n > 61
+                      else (0.0,)):
+            for kind, omega in (("rbgs", 1.0), ("jacobi", 0.8)):
+                kw = dict(kind=kind, omega=omega, sigma=sigma)
+                at_main = main and kind == "rbgs" and sigma == 0.0
+                legs = {"down": packed2d.max_down_sweeps(kind),
+                        "up": packed2d.max_up_sweeps(kind)}
+                for leg, cap in legs.items():
+                    nus = (((0, 2) if kind == "rbgs" else (2,)) if main
+                           else range(cap + 1))
+                    for nu in nus:
+                        name = (f"bf16 packed {leg} n={n} {kind} nu={nu} "
+                                f"sigma={sigma}")
+                        if leg == "down":
+                            for pc in ((False,) if main else (False, True)):
+                                gu, grc = packed2d.smooth_residual_restrict(
+                                    su, sb, n, h, sweeps=nu,
+                                    packed_coarse=pc, **kw)
+                                wu, _ = plain_down(su, sb, n, h, sweeps=nu,
+                                                   packed_coarse=pc, **kw)
+                                label = f"{name} packed_coarse={pc}"
+                                require(grc.dtype == f32,
+                                        f"{label}: r_c is {grc.dtype}")
+                                want = packed2d.residual_restrict_plain(
+                                    gu, sb, n, h, sigma=sigma,
+                                    red_only=kind == "rbgs" and nu >= 1,
+                                    packed_coarse=pc)
+                                err = max(check_bf16(label + " u'", gu, wu),
+                                          check_pair(label + " r_c", grc,
+                                                     want, TOL[f32],
+                                                     (nc + 2, nc + 2)),
+                                          key=lambda t: t[1])
+                                if at_main and nu == 2:
+                                    main_err["packed2d_down_bf16"] = err
+                            continue
+                        for ee in ((e,) if main else (e, se)):
+                            for out in (torch.bfloat16, f32):
+                                label = (f"{name} packed_e={ee is se} "
+                                         f"out={str(out).split('.')[-1]}")
+                                got = packed2d.prolong_add_smooth(
+                                    su, ee, sb, n, nc, h, sweeps=nu,
+                                    out_dtype=out, **kw)
+                                want = packed2d.prolong_add_smooth_plain(
+                                    su, ee, sb, n, nc, h, sweeps=nu,
+                                    out_dtype=out, **kw)
+                                err = (check_bf16(label, got, want)
+                                       if out == torch.bfloat16 else
+                                       check_pair(label, got, want,
+                                                  TOL[f32]))
+                                require(got.dtype == out,
+                                        f"{label}: x' is {got.dtype}")
+                                if at_main and nu == 2:
+                                    main_err["packed2d_up_bf16" + (
+                                        "" if out == torch.bfloat16
+                                        else "_f32")] = err
+            for nu in ((1, 4) if main else range(1, 5)):
+                err = check_bf16(
+                    f"bf16 packed rbgs sweep n={n} nu={nu} sigma={sigma}",
+                    packed2d.rbgs_sweep(su, sb, n, h, sweeps=nu,
+                                        sigma=sigma),
+                    packed2d.rbgs_sweep_plain(su, sb, n, h, sweeps=nu,
+                                              sigma=sigma))
+                if main and nu == 4 and sigma == 0.0:
+                    main_err["packed2d_rbgs_bf16"] = err
+            err = check_bf16(
+                f"bf16 packed residual n={n} sigma={sigma}",
+                packed2d.residual(su, sb, n, h, sigma=sigma),
+                packed2d.residual_plain(su, sb, n, h, sigma=sigma))
+            if main and sigma == 0.0:
+                main_err["packed2d_residual_bf16"] = err
+        del su, sb, e, se
+        torch.cuda.empty_cache()
 
 
 def compare_composed(main_err: dict) -> None:
@@ -1479,6 +1670,7 @@ def phase_compare():
     compare_sparse(main_err)
     compare_local2d(main_err)
     compare_plocal2d(main_err)
+    compare_mixed(main_err)
     return main_err
 
 
@@ -1582,14 +1774,44 @@ KERNELS = {
     "plocal2d_apply": ("plocal2d", "apply_launches",
                        "multigridcmt_tpu_torch/kernels/csrc/plocal2d.cu",
                        "multigridcmt_tpu/kernels/plocal2d.py:982", "S1pcg"),
+    # The bfloat16 modes of the packed2d kernels (mixed precision). The
+    # up leg's two: x' stored in float32 (the top level of a mixed cycle)
+    # and in bfloat16 (the TPU kernel's own mode, which no solver of the
+    # port runs: direct calls only).
+    "packed2d_down_bf16": ("packed2d", "down_bf16_launches",
+                           "multigridcmt_tpu_torch/kernels/csrc/"
+                           "packed2d_bf16.cu",
+                           "multigridcmt_tpu/kernels/packed2d.py:839",
+                           "mixed2d"),
+    "packed2d_up_bf16_f32": ("packed2d", "up_bf16_f32_launches",
+                             "multigridcmt_tpu_torch/kernels/csrc/"
+                             "packed2d_up_bf16_f32.cu",
+                             "multigridcmt_tpu/kernels/packed2d.py:1067",
+                             "mixed2d"),
+    "packed2d_rbgs_bf16": ("packed2d", "rbgs_bf16_launches",
+                           "multigridcmt_tpu_torch/kernels/csrc/"
+                           "packed2d_sweep_bf16.cu",
+                           "multigridcmt_tpu/kernels/packed2d.py:305",
+                           "mixedB"),
+    "packed2d_residual_bf16": ("packed2d", "residual_bf16_launches",
+                               "multigridcmt_tpu_torch/kernels/csrc/"
+                               "packed2d_bf16.cu",
+                               "multigridcmt_tpu/kernels/packed2d.py:440",
+                               "mixedA"),
+    "packed2d_up_bf16": ("packed2d", "up_bf16_launches",
+                         "multigridcmt_tpu_torch/kernels/csrc/"
+                         "packed2d_up_bf16.cu",
+                         "multigridcmt_tpu/kernels/packed2d.py:1067", None),
 }
 # The runs of phase 3 that drive a main path through the public API.
 MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
              "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell", "S1", "S1pcg",
              "S1unpacked", "S2", "S3", "S4", "S4cheb", "fmg1023", "fmg4095",
-             "eigen511_ii", "eigen511_rqi", "eigen511_lobpcg", "S1fmg")
+             "eigen511_ii", "eigen511_rqi", "eigen511_lobpcg", "S1fmg",
+             "mixed2d", "mixedB", "mixedA", "mixed_lobpcg", "mixed_ii")
 # Direct calls of a kernel that no main path launches.
-DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d"}
+DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d",
+               "packed2d_up_bf16": "up_bf16_direct"}
 
 
 def kernel_module(mod: str):
@@ -2588,6 +2810,120 @@ def paths_eigen(runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def paths_mixed(runs: dict) -> None:
+    """Mixed precision on the packed 2D tier: MG-PCG at 4095^2 float32 with
+    precond_dtype=torch.bfloat16 on each MIXED_ROUTES route beside the
+    float32 PCG on the same route, with exact launches (the packed level's
+    bfloat16 kernels in each preconditioning cycle, no float32 packed leg
+    there, the float32 packed residual as CG's residual and apply), and
+    MultigridSolver.eigensolve(k=1) at 4095^2 float64 by LOBPCG and II
+    with a bfloat16 preconditioner against the full-precision runs; and one
+    direct call of the bfloat16-storing up leg, which no solver runs."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.kernels import packed2d
+    from multigridcmt_tpu_torch.utils.profiling import count_cycles
+
+    def build(dtype, pd=None, **kw):
+        return mt.poisson2d(k=MAIN_K, dtype=dtype, use_kernels=True,
+                            device="cuda", precond_dtype=pd, **kw)
+
+    for name, kw in MIXED_ROUTES.items():
+        full = mt.MultigridSolver(build(torch.float32, **kw)).solve(
+            method="pcg")
+        prob = build(torch.float32, torch.bfloat16, **kw)
+        solver = mt.MultigridSolver(prob)
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, wall = counted(lambda: solver.solve(method="pcg"))
+        runs[f"peak_{name}"] = torch.cuda.max_memory_allocated()
+        check_solve(f"{name}: mixed pcg k={MAIN_K} float32 {kw}", prob,
+                    solver, res, wall, 2, runs[f"peak_{name}"])
+        bound = math.ceil(MIXED_ITER_FACTOR * full.iters) + 1
+        log(f"  float32 pcg on the same route: {full.iters} iterations, "
+            f"converged {full.converged}; bound {bound}")
+        require(full.converged and res.converged and res.iters <= bound,
+                f"{name}: mixed pcg {res.iters} iterations (converged "
+                f"{res.converged}) against float32's {full.iters}: bound "
+                f"{bound}")
+        i, lv = res.iters, fused_levels(prob)
+        c = i + 1                           # preconditioning cycles
+        if name == "mixed2d":
+            # The fused legs: a bfloat16 down leg and a bfloat16-in,
+            # float32-out up leg on 4095, the fused2d legs below.
+            require_counts(name, counts, packed2d_residual=1 + i,
+                           packed2d_down_bf16=c, packed2d_up_bf16_f32=c,
+                           fused2d_down=lv * c, fused2d_up=lv * c)
+        elif name == "mixedB":
+            # The pre-smooth is one 4-sweep bfloat16 sweep and the
+            # zero-sweep bfloat16 down leg; the up leg fuses (float32 out).
+            require_counts(name, counts, packed2d_residual=1 + i,
+                           packed2d_rbgs_bf16=c, packed2d_down_bf16=c,
+                           packed2d_up_bf16_f32=c, stencil2d_rbgs=lv * c,
+                           transfer2d_residual_restrict=lv * c,
+                           fused2d_up=lv * c)
+        else:
+            # Chebyshev: nu1 bfloat16 residual applies, the zero-sweep
+            # bfloat16 down leg and float32-out up leg, then nu2 float32
+            # residual applies on the widened level.
+            cfg = prob.config
+            require_counts(name, counts,
+                           packed2d_residual=1 + i + cfg.nu2 * c,
+                           packed2d_residual_bf16=cfg.nu1 * c,
+                           packed2d_down_bf16=c, packed2d_up_bf16_f32=c,
+                           stencil2d_residual=lv * (cfg.nu1 + cfg.nu2) * c,
+                           transfer2d_residual_restrict=lv * c,
+                           transfer2d_prolong_add=lv * c)
+        runs[name] = counts
+        del full, prob, solver, res
+        torch.cuda.empty_cache()
+
+    for method in MIXED_EIGEN:
+        out = {}
+        for pd in (None, torch.bfloat16):
+            prob = build(torch.float64, pd, smoother="rbgs")
+            solver = mt.MultigridSolver(prob)
+            with count_cycles() as cyc:
+                res, counts, wall = counted(
+                    lambda: solver.eigensolve(k=1, method=method))
+            label = (f"mixed eigen{2 ** MAIN_K - 1} {method} float64 "
+                     f"precond_dtype={pd}")
+            lam = res.eigenvalues[0].item()
+            log(f"{label}: {res.iters} outer steps, {cyc.count} cycles, "
+                f"converged {res.converged}, lambda_1 {lam:.12f}, final "
+                f"residual {res.res_history[res.iters].item():.3e}, wall "
+                f"{wall:.3f} s")
+            require(res.converged and bool(res.eigenvectors.isfinite().all()),
+                    f"{label}: converged {res.converged}")
+            out[pd] = (lam, res.iters, cyc.count, counts, wall)
+            del prob, solver, res
+        (lf, sf, *_), (lm, sm, c, counts, _) = out[None], out[torch.bfloat16]
+        rel = abs(lm - lf) / lf
+        log(f"mixed eigen {method}: lambda_1 bfloat16-preconditioned vs "
+            f"full rel {rel:.2e}; steps {sm} against {sf}")
+        require(rel <= MIXED_EIGEN_RTOL, f"mixed eigen {method}: lambda_1 "
+                f"{rel:.3e} from the full run's > {MIXED_EIGEN_RTOL}")
+        lv = fused_levels(build(torch.float64))
+        # Each bfloat16 cycle: the bfloat16 down leg and float32-out up leg
+        # on 4095, the fused2d legs below; II's inner check (and its
+        # refinement's defect) is the float64 packed residual, once a cycle.
+        require_counts(f"mixed_{method}", counts, packed2d_down_bf16=c,
+                       packed2d_up_bf16_f32=c, fused2d_down=lv * c,
+                       fused2d_up=lv * c,
+                       packed2d_residual=c if method == "ii" else 0)
+        runs[f"mixed_{method}"] = counts
+        runs[f"mixed_{method}_walls"] = (out[None][4], out[torch.bfloat16][4])
+        torch.cuda.empty_cache()
+
+    # The bfloat16-storing up leg (the TPU kernel's own mode): direct calls.
+    n = 2 ** MAIN_K - 1
+    su, sb, e, _ = bf16_inputs(n, seed=31)
+    _, counts, _ = counted(lambda: packed2d.prolong_add_smooth(
+        su, e, sb, n, (n - 1) // 2, 1.0 / (n + 1), kind="rbgs", omega=1.0,
+        sweeps=2))
+    require_counts("packed2d_up_bf16 direct", counts, packed2d_up_bf16=1)
+    runs["up_bf16_direct"] = counts
+    del su, sb, e
+
+
 def paths_sharded_fmg(runs: dict) -> None:
     """S1fmg: ShardedSolver.solve with cycle="fmg" at config 5's 4095^2
     on a row mesh of 1, float32, against fmg4095, with exact local2d and
@@ -2675,6 +3011,9 @@ def phase_main_path():
     paths_eigen(runs)
     paths_sharded_fmg(runs)
     log(f"FMG and eigensolver paths: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    paths_mixed(runs)
+    log(f"mixed-precision paths: {time.perf_counter() - start:.1f} s")
     return runs
 
 
@@ -2760,8 +3099,9 @@ def timed_legs(times: dict) -> None:
 # 10, the apply (A - sigma I) u 7; a Gauss-Seidel update 2D 6, 3D 8;
 # Jacobi 2D 10, 3D 12; a down leg 6 a sweep + 12 (residual and full
 # weighting), an up leg 6 a sweep + 3 (prolongation and the add); the
-# red-only norm 5 (half the points, square and add). Every kernel row is
-# float32 and bound by bytes by a wide margin.
+# red-only norm 5 (half the points, square and add). Every kernel row
+# computes in float32 (the bfloat16 modes too) and is bound by bytes by a
+# wide margin.
 def flops_per_point(name: str, sweeps: int = 2) -> int:
     return {"stencil2d_residual": 8, "packed2d_residual": 8,
             "packed2d_resnorm": 5, "stencil3d_residual": 10,
@@ -2777,7 +3117,12 @@ def flops_per_point(name: str, sweeps: int = 2) -> int:
             "local2d_jacobi": 10 * sweeps,
             "plocal2d_down": 6 * sweeps + 12, "plocal2d_up": 6 * sweeps + 3,
             "plocal2d_residual": 8, "plocal2d_apply": 7,
-            "plocal2d_resnorm": 5}[name]
+            "plocal2d_resnorm": 5,
+            "packed2d_down_bf16": 6 * sweeps + 12,
+            "packed2d_up_bf16": 6 * sweeps + 3,
+            "packed2d_up_bf16_f32": 6 * sweeps + 3,
+            "packed2d_rbgs_bf16": 6 * sweeps, "packed2d_residual_bf16": 8,
+            }[name]
 
 
 def timed_2d(times: dict) -> None:
@@ -3555,6 +3900,114 @@ def timed_plocal2d(times: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def timed_mixed(times: dict) -> None:
+    """The packed2d kernels' bfloat16 modes at 4095^2, RB-GS, sigma = 0
+    (the legs at nu = 2, the sweep at nu = 4), each against its plain
+    version in turns (single calls), as LEG_CHAIN chained calls and by the
+    profiler's device time a call, beside its float32 twin on the same
+    values (chained and device) and, by device time, on float32 values
+    that bfloat16 does not hold (the twin's time does not depend on the
+    values); and on each MIXED_ROUTES route at 4095^2 float32, one
+    preconditioning cycle's device busy, ops and idle share and one PCG
+    solve's wall, with a bfloat16 and a float32 cycle."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.kernels import packed2d
+    from multigridcmt_tpu_torch.solvers import cycles
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
+
+    n = 2 ** MAIN_K - 1
+    nc = (n - 1) // 2
+    h = 1.0 / (n + 1)
+    su, sb, e, _ = bf16_inputs(n, seed=7)
+    fu, fb = su.float(), sb.float()
+    u, b, _ = leg_inputs(n, torch.float32, seed=7)
+    ru, rb = packed2d.pack(u), packed2d.pack(b)
+    del u, b
+    rc = torch.empty((nc + 2, nc + 2), device="cuda")
+    kw = dict(kind="rbgs", omega=1.0)
+    down, up = packed2d.smooth_residual_restrict, packed2d.prolong_add_smooth
+    f32 = torch.float32
+    # name -> (sweeps, kernel, plain, float32 twin on (u, b), bytes read
+    # once and written once)
+    cases = {
+        "packed2d_down_bf16": (
+            2, lambda: down(su, sb, n, h, sweeps=2, **kw),
+            lambda: packed2d.smooth_residual_restrict_plain(
+                su, sb, n, h, sweeps=2, **kw),
+            lambda u, b: down(u, b, n, h, sweeps=2, **kw),
+            nbytes(su, sb, su, rc)),
+        "packed2d_up_bf16_f32": (
+            2, lambda: up(su, e, sb, n, nc, h, sweeps=2, out_dtype=f32, **kw),
+            lambda: packed2d.prolong_add_smooth_plain(
+                su, e, sb, n, nc, h, sweeps=2, out_dtype=f32, **kw),
+            lambda u, b: up(u, e, b, n, nc, h, sweeps=2, **kw),
+            nbytes(su, sb, e, fu)),
+        "packed2d_up_bf16": (
+            2, lambda: up(su, e, sb, n, nc, h, sweeps=2, **kw),
+            lambda: packed2d.prolong_add_smooth_plain(
+                su, e, sb, n, nc, h, sweeps=2, **kw),
+            lambda u, b: up(u, e, b, n, nc, h, sweeps=2, **kw),
+            nbytes(su, sb, e, su)),
+        "packed2d_rbgs_bf16": (
+            4, lambda: packed2d.rbgs_sweep(su, sb, n, h, sweeps=4),
+            lambda: packed2d.rbgs_sweep_plain(su, sb, n, h, sweeps=4),
+            lambda u, b: packed2d.rbgs_sweep(u, b, n, h, sweeps=4),
+            nbytes(su, sb, su)),
+        "packed2d_residual_bf16": (
+            0, lambda: packed2d.residual(su, sb, n, h),
+            lambda: packed2d.residual_plain(su, sb, n, h),
+            lambda u, b: packed2d.residual(u, b, n, h), nbytes(su, sb, su)),
+    }
+    for name, (nu, kernel, plain, twin, nb) in cases.items():
+        pair = time_pair(f"{name} n={n} nu={nu}", kernel, plain)
+        t = {"ms": chained_ms(kernel, LEG_CHAIN), "single_ms": pair["ms"],
+             "plain_ms": pair["plain_ms"], "device_ms": pair["device_ms"],
+             "f32_chained_ms": chained_ms(lambda: twin(fu, fb), LEG_CHAIN),
+             "f32_device_ms": device_busy(lambda: twin(fu, fb),
+                                          LEG_CHAIN)[0],
+             "f32_other_device_ms": device_busy(lambda: twin(ru, rb),
+                                                LEG_CHAIN)[0],
+             "bytes": nb, "flops": flops_per_point(name, nu) * n * n}
+        t["chained_ms"] = t["ms"]
+        log(f"bf16 {name} n={n} nu={nu}: chained x{LEG_CHAIN} {t['ms']:.4f} "
+            f"ms, device {t['device_ms']:.4f} ms; float32 twin chained "
+            f"{t['f32_chained_ms']:.4f} ms, device {t['f32_device_ms']:.4f} "
+            f"ms ({t['f32_other_device_ms']:.4f} ms on values bfloat16 does "
+            f"not hold); bound {nb / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+        times[name] = t
+    del cases, su, sb, e, fu, fb, ru, rb, rc
+    torch.cuda.empty_cache()
+
+    out = {}
+    for route, rkw in MIXED_ROUTES.items():
+        prob = mt.poisson2d(k=MAIN_K, dtype=torch.float32, use_kernels=True,
+                            device="cuda", **rkw)
+        bk = cycles.get_backend(prob.config)
+        r = bk.encode(prob.b)
+        row = {}
+        for pd in (torch.float32, torch.bfloat16):
+            rp = r.to(pd)
+            busy, ops, _ = device_busy(lambda: cycles.cycle(
+                prob.hierarchy, torch.zeros_like(rp), rp, prob.config), 5)
+            cycle_ms = cuda_time_ms(lambda: cycles.cycle(
+                prob.hierarchy, torch.zeros_like(rp), rp, prob.config))
+            solver = mt.MultigridSolver(dataclasses.replace(
+                prob, config=dataclasses.replace(
+                    prob.config, precond_dtype=pd)))
+            solve_ms = cuda_time_ms(lambda: solver.solve(method="pcg"),
+                                    reps=5, warmup=1)
+            row[str(pd).split(".")[-1]] = {
+                "cycle_ms": cycle_ms, "busy_ms": busy, "ops": ops,
+                "idle": 1.0 - busy / cycle_ms, "pcg_ms": solve_ms}
+        log(f"mixed {route}: " + json.dumps(row))
+        out[route] = row
+        del prob, r, rp, solver
+        torch.cuda.empty_cache()
+    times["mixed_cycles"] = out
+
+
 def timed_fmg_eigen(times: dict) -> None:
     """Configs 3 and 4's first times on the card (CUDA events, warm-up,
     medians) with each run's peak device memory: one FMG pass at 1023^2
@@ -3641,6 +4094,9 @@ def phase_times():
     times = {}
     timed_solves(times)
     timed_2d(times)
+    start = time.perf_counter()
+    timed_mixed(times)
+    log(f"mixed-precision times: {time.perf_counter() - start:.1f} s")
     timed_composed(times)
     timed_3d(times)
     timed_sparse(times)
@@ -3676,12 +4132,15 @@ def kernel_rows(names, runs, errs, times):
     restriction), so theirs is null. A kernel that no main path runs
     reports its launches summed over all main-path runs (0) and those of
     its direct calls as direct_launches. The packed2d and plocal2d legs'
-    and the stencil3d kernels' ms is the time a call of LEG_CHAIN chained
-    calls, their single_ms that of one call timed alone (the wrapper's host
-    work inside). The fused2d legs' ms (at 2047^2) is time_pair's, their
-    chained_ms as above (at 2047^2 a chained call can read the host's
-    launch rate). Every leg row's device_ms is the kernel's device time a
-    call from the profiler."""
+    (the packed2d bfloat16 modes' too) and the stencil3d kernels' ms is the
+    time a call of LEG_CHAIN chained calls, their single_ms that of one
+    call timed alone (the wrapper's host work inside); a bfloat16 mode's
+    f32_chained_ms and f32_device_ms are its float32 twin's on the same
+    values, f32_other_device_ms the twin's on values bfloat16 does not
+    hold. The fused2d
+    legs' ms (at 2047^2) is time_pair's, their chained_ms as above (at
+    2047^2 a chained call can read the host's launch rate). Every leg row's
+    device_ms is the kernel's device time a call from the profiler."""
     rows = []
     for name in names:
         *_, src, rep, run = KERNELS[name]
@@ -3698,7 +4157,8 @@ def kernel_rows(names, runs, errs, times):
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": t.get("library_ms"), "run": run}
-        for key in ("single_ms", "chained_ms", "device_ms"):
+        for key in ("single_ms", "chained_ms", "device_ms", "f32_chained_ms",
+                    "f32_device_ms", "f32_other_device_ms"):
             if key in t:
                 row[key] = t[key]
         if name in DIRECT_RUNS:
@@ -3756,6 +4216,10 @@ def main() -> int:
     log("local2d_legs: " + json.dumps(times["local2d_legs"]))
     log("local2d_sweeps: " + json.dumps(times["local2d_sweeps"]))
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
+    log("mixed_cycles: " + json.dumps(times["mixed_cycles"]))
+    for method in MIXED_EIGEN:
+        log(f"mixed_{method} walls (float64, full and bfloat16-"
+            f"preconditioned, s): {runs['mixed_' + method + '_walls']}")
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure",
                 "bell_carrier", "residual_restrict_levels", "fmg_eigen"):
         log(f"{key}: " + json.dumps(times[key]))

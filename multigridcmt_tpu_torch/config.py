@@ -34,11 +34,18 @@ class SolverConfig:
         3D RB-GS: n >= ``kernels.KERNEL3_MIN_N``) through the hand-written
         CUDA kernels (``kernels/``) instead of the plain PyTorch stencils.
       precond_dtype: the dtype of the preconditioning cycles (MG-PCG's, the
-        eigensolvers' inner solves and LOBPCG's). Read by
-        ``solvers.krylov.mixed_cycle_dtype``: where the JAX package would
-        run the cycle in it (the packed 2D tier, 3D RB-GS on the kernel
-        tier), the port raises ``NotImplementedError`` (mixed precision is
-        not ported yet); elsewhere it is ignored, as in JAX.
+        eigensolvers' inner solves, as iterative refinement, and LOBPCG's),
+        e.g. ``torch.bfloat16``; the outer iteration stays in ``dtype``.
+        Read by ``solvers.krylov.mixed_cycle_dtype``, as in JAX: the cycle
+        is cast on the packed 2D tier (``use_kernels`` and the fine level
+        packs, n >= ``kernels.PACK_MIN_N``), where bfloat16 lives only in
+        the fine level's storage (the packed kernels compute in float32,
+        emit the coarse levels in float32, and store the top level's
+        correction in float32: ``cycles.v_cycle``); it is ignored elsewhere.
+        Where JAX casts a 3D RB-GS cycle on the kernel tier the port raises
+        ``NotImplementedError`` (3D mixed precision), and
+        ``ShardedSolver`` raises for any precond_dtype other than ``dtype``
+        (sharded mixed precision): neither is ported yet.
       fmg_prolong: the FMG solution walk's prolongation, "linear" or
         "cubic" (``ops.transfer.fmg_prolong``). The sharded FMG walks
         linearly only, and ``ShardedSolver`` refuses "cubic".

@@ -20,6 +20,16 @@ Per level:
   * smaller levels, and every 1D level: the plain ``ops/`` stencils.
 The sparse path's kernels (``spmv``: the banded DIA SpMV; ``bell``: the
 blocked-ELL SpMM) are called directly, not through the backend.
+
+Mixed precision (``solvers.krylov.mixed_cycle_dtype``): a cycle cast to
+bfloat16 has its packed fine level in bfloat16; the packed kernels compute
+in float32 and emit the coarse right-hand side in float32, so every
+coarser level runs as in a float32 cycle. The top level's correction add
+promotes to float32 (``out_dtype``, passed by ``cycles.v_cycle``): the
+fused up leg stores x' in float32; on a composed route the zero-sweep up
+leg does, and the post-smoothing runs the float32 kernels. The smoothing
+before it (RB-GS sweeps, the Chebyshev and Jacobi residual applies and
+their elementwise updates) runs on bfloat16 grids, as in JAX.
 ``encode``/``decode`` pack and unpack a packed fine level at the solve's
 boundary.
 """
@@ -186,12 +196,13 @@ def _residual_restrict(u, b, n, h):
     return transfer.restrict(laplacian.residual(u, b, h))
 
 
-def _prolong_add(x, e, n, nc):
-    """x + P e."""
+def _prolong_add(x, e, n, nc, out_dtype=None):
+    """x + P e (stored in ``out_dtype`` on a packed level: float32 for a
+    bfloat16 x at the top of a mixed cycle)."""
     if packed2d.is_packed(x):
         return packed2d.prolong_add_smooth(
             x, e, torch.zeros_like(x), n, nc, 1.0, kind="rbgs", omega=1.0,
-            sweeps=0)
+            sweeps=0, out_dtype=out_dtype)
     if _kernel_level(x, n):
         return transfer2d.prolong_add(x, e, n, nc)
     return x + transfer.prolong(e)
@@ -215,15 +226,16 @@ def _smooth_residual_restrict(u, b, n, h, *, kind, omega, sweeps,
 
 
 def _prolong_add_smooth(x, e, b, n, nc, h, *, kind, omega, sweeps,
-                        sigma=0.0):
-    """Whole up leg on a 2D kernel-tier level; None elsewhere and for a
-    schedule no fused leg runs."""
+                        sigma=0.0, out_dtype=None):
+    """Whole up leg on a 2D kernel-tier level (x' stored in ``out_dtype``
+    on a packed level); None elsewhere and for a schedule no fused leg
+    runs."""
     if packed2d.is_packed(x):
         if not _fuses(kind, sweeps, packed2d.max_up_sweeps(kind)):
             return None
         return packed2d.prolong_add_smooth(
             x, e, b, n, nc, h, kind=kind, omega=omega, sweeps=sweeps,
-            sigma=sigma)
+            sigma=sigma, out_dtype=out_dtype)
     if (not _kernel_level(x, n)
             or not _fuses(kind, sweeps, fused2d.max_up_sweeps(kind))):
         return None

@@ -116,6 +116,15 @@ for _t in ("f32", "f64"):
     SIGNATURES[f"mg_plocal2d_resnorm_{_t}"] = [_P, _P, _P, _P] + [_I] * 9 + [
         _D, _D, _I, _I, _P]
 
+# The bfloat16 storage modes (the packed fine level of a mixed cycle, in
+# csrc/packed2d_bf16.cu, packed2d_sweep_bf16.cu, packed2d_up_bf16.cu and
+# packed2d_up_bf16_f32.cu): the float32 entry points' arguments; the coarse
+# operand (rc, e) is float32. mg_packed2d_up_bf16_f32 stores x' in float32.
+for _name in ("packed2d_down", "packed2d_up", "packed2d_residual",
+              "packed2d_rbgs"):
+    SIGNATURES[f"mg_{_name}_bf16"] = SIGNATURES[f"mg_{_name}_f32"]
+SIGNATURES["mg_packed2d_up_bf16_f32"] = SIGNATURES["mg_packed2d_up_f32"]
+
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}
 

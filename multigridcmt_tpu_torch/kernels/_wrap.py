@@ -2,6 +2,13 @@
 
 Device rule: a CPU tensor takes the wrapper's plain PyTorch version; a
 CUDA tensor launches the kernel or raises; any other device raises.
+
+Storage rule (the JAX package's ``_cdt``, ``packed2d.py:74-90``): a kernel
+computes in float32 or float64. The packed 2D fine level of a mixed cycle
+(``packed2d``) may also be stored in bfloat16: each load widens to
+float32, each store rounds to bfloat16 once, any coarse operand is
+float32, and the up leg may store its output in float32 (``out_dtype``).
+Every other kernel's bfloat16 mode raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -9,31 +16,53 @@ import torch
 
 from . import _build
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.bfloat16: "bf16"}
 
-MIXED_TODO = ("{what}: bfloat16 storage (and a wider output dtype) belongs "
-              "to mixed precision, not ported to CUDA yet (ROADMAP.md, queue "
-              "1: mixed precision)")
+# The dtypes a kernel computes in, and those a packed2d array may be stored
+# in.
+COMPUTE = (torch.float32, torch.float64)
+STORAGE = COMPUTE + (torch.bfloat16,)
+
+# The ROADMAP.md items of the bfloat16 modes still to port.
+MIXED_3D = "queue 1: 3D mixed precision"
+MIXED_SHARDED = "queue 1: sharded mixed precision"
+MIXED_OFF_PATH = "queue 2, part B: bfloat16 storage off the mixed paths"
+
+MIXED_TODO = ("{what}: bfloat16 storage (and a wider output dtype) is not "
+              "ported to CUDA yet (ROADMAP.md, {item})")
 
 
-def check_storage(what: str, t: torch.Tensor, out_dtype=None) -> None:
-    """Raise NotImplementedError for the JAX kernels' bfloat16 storage and
-    ``out_dtype`` widening, which the port's kernels do not take yet."""
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a kernel computes in for storage ``dtype``: float32 for
+    bfloat16, else the dtype itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def check_storage(what: str, t: torch.Tensor, out_dtype=None, *,
+                  item: str) -> None:
+    """Raise NotImplementedError, naming ROADMAP.md's ``item``, for a
+    kernel's bfloat16 storage or ``out_dtype`` widening that the port does
+    not take yet."""
     if t.dtype == torch.bfloat16 or (out_dtype is not None
                                      and out_dtype != t.dtype):
-        raise NotImplementedError(MIXED_TODO.format(what=what))
+        raise NotImplementedError(MIXED_TODO.format(what=what, item=item))
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,
-                 ref: torch.Tensor) -> None:
-    """Raise unless ``t`` is a contiguous float32/float64 tensor of
-    ``shape``, on ``ref``'s device and of ``ref``'s dtype."""
-    if t.dtype not in _SUFFIX:
-        raise TypeError(f"{name}: dtype {t.dtype} not supported "
-                        "(float32 or float64)")
-    if t.dtype != ref.dtype or t.device != ref.device:
+                 ref: torch.Tensor, dtype=None,
+                 storage: bool = False) -> None:
+    """Raise unless ``t`` is a contiguous float32 or float64 tensor (or,
+    with ``storage``, bfloat16: a packed2d array) of ``shape``, on ``ref``'s
+    device and of ``ref``'s dtype (or of ``dtype``)."""
+    want = ref.dtype if dtype is None else dtype
+    if t.dtype not in (STORAGE if storage else COMPUTE):
+        also = ", or bfloat16 storage" if storage else ""
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32 or "
+                        f"float64{also})")
+    if t.dtype != want or t.device != ref.device:
         raise ValueError(f"{name}: {t.dtype} on {t.device} does not match "
-                         f"{ref.dtype} on {ref.device}")
+                         f"{want} on {ref.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -41,9 +70,10 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
-def check_grid(name: str, t: torch.Tensor, n: int, ref: torch.Tensor) -> None:
+def check_grid(name: str, t: torch.Tensor, n: int, ref: torch.Tensor,
+               dtype=None) -> None:
     """``check_tensor`` for an (n+2, n+2) padded grid."""
-    check_tensor(name, t, (n + 2, n + 2), ref)
+    check_tensor(name, t, (n + 2, n + 2), ref, dtype)
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -56,9 +86,13 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain route for device {t.device}")
 
 
-def launch_on(t: torch.Tensor, kernel: str, *args) -> None:
-    """Call the C entry point ``mg_<kernel>_<f32|f64>`` for ``t``'s dtype,
-    on ``t``'s device and its current stream (passed last)."""
+def launch_on(t: torch.Tensor, kernel: str, *args, out_dtype=None) -> None:
+    """Call the C entry point ``mg_<kernel>_<f32|f64|bf16>`` for ``t``'s
+    dtype (``_<f32>`` appended where ``out_dtype`` differs from it), on
+    ``t``'s device and its current stream (passed last)."""
+    name = f"mg_{kernel}_{_SUFFIX[t.dtype]}"
+    if out_dtype is not None and out_dtype != t.dtype:
+        name += f"_{_SUFFIX[out_dtype]}"
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.launch(f"mg_{kernel}_{_SUFFIX[t.dtype]}", *args, stream)
+        _build.launch(name, *args, stream)

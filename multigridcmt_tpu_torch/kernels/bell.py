@@ -19,7 +19,7 @@ The product accumulates in the storage dtype, float32 or float64 (JAX's
 ``_cdt``), in full precision: the JAX kernel asks for
 ``Precision.HIGHEST``, so neither the kernel nor the plain version uses
 TF32. ``data`` and ``Xt`` must have one dtype and one device; bfloat16
-storage raises (mixed precision).
+storage raises (no mixed path of the port reaches it).
 
 ``spmm_plain`` is the plain PyTorch version (a gather of X's blocks and
 an ``einsum`` a k step). Device rule (``_wrap``): a CPU tensor takes the
@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..grids import check_device
-from ._wrap import check_storage, check_tensor, launch_on, on_cuda
+from ._wrap import MIXED_OFF_PATH, check_storage, check_tensor, \
+    launch_on, on_cuda
 
 BM = 128
 BN = 128
@@ -176,8 +177,8 @@ def _nbc(a: BELL) -> int:
 
 def _prepare(a: BELL, xt: torch.Tensor) -> torch.Tensor:
     """Check the operands; return Xt zero-padded to nbc * 128 columns."""
-    check_storage("bell.spmm", a.data)
-    check_storage("bell.spmm", xt)
+    check_storage("bell.spmm", a.data, item=MIXED_OFF_PATH)
+    check_storage("bell.spmm", xt, item=MIXED_OFF_PATH)
     if xt.ndim != 2 or xt.shape[0] % 8 != 0:
         raise ValueError(f"bell.spmm: Xt of shape {tuple(xt.shape)}; "
                          "expected (m, n_cols) with m a multiple of 8")

@@ -1,0 +1,43 @@
+// The bfloat16 storage modes of the packed2d down leg and residual (the
+// TPU module's _cdt rule, multigridcmt_tpu/kernels/packed2d.py:74-90), in a
+// file of their own so that they compile beside the float32 and float64
+// legs and do not lengthen them.
+//
+// Replace the bfloat16 modes of the TPU kernels
+// multigridcmt_tpu/kernels/packed2d.py:
+//   smooth_residual_restrict -> packed2d_down_bf16  (down_kernel, :839)
+//   residual                 -> packed2d_residual_bf16
+//                                                   (mg::presidual_kernel,
+//                                                   :440)
+//
+// u, b and u' are bfloat16; every load widens to float, the smoothing and
+// the residual run in float registers, and each point is rounded once, on
+// its store, to nearest even. The down leg takes the residual of u' as
+// stored (rounded), so that the coarse correction targets the u' that goes
+// up (packed2d.py:678-683), and writes the coarse right-hand side in float:
+// every coarser level of a mixed cycle runs the float32 kernels. The
+// residual is bfloat16 out, as the TPU kernel's (packed2d.py:420-422).
+// What bounds them: device memory, half the float32 bytes on the fine grid
+// (packed2d.cu's note); the design is the float32 one with a narrower load
+// and store.
+#include "packed2d_legs.cuh"
+
+extern "C" {
+
+int mg_packed2d_down_bf16(const void* u, const void* b, void* u_out, void* rc,
+                          int n, double h, double sigma, int kind,
+                          double omega, int sweeps, int packed_coarse,
+                          const int* geom, void* stream) {
+  return launch_down<float, kMaxDownStages, Whole, __nv_bfloat16>(
+      u, b, u_out, rc, Whole{n}, h, sigma, kind, omega, sweeps,
+      packed_coarse, geom, stream);
+}
+
+int mg_packed2d_residual_bf16(const void* u, const void* b, void* r, int n,
+                              double h, double sigma, void* stream) {
+  return mg::launch_presidual<float, mg::Interior, __nv_bfloat16>(
+      u, b, r, mg::PRect{n + 2, n + 2, 0, 0}, mg::Interior{n}, h, sigma, true,
+      stream);
+}
+
+}  // extern "C"

@@ -13,11 +13,14 @@
 // local2d_sweep.cu and local2d_sweep_f64.cu the RB-GS and Jacobi sweeps,
 // on a shard's unpacked tile (a kernel for each stage count; the files
 // compile in parallel); transfer2d.cu the residual-restriction on the
-// unpacked grid. packed2d.cu's note says what they replace and how they
-// work;
-// plocal2d.cu's what the tile frame adds, fused2d.cu's what the unpacked
-// one does, local2d_legs.cu's how the unpacked tile joins the two,
-// packed2d_sweep.cu's what the sweeps do.
+// unpacked grid; packed2d_bf16.cu, packed2d_up_bf16.cu,
+// packed2d_up_bf16_f32.cu and packed2d_sweep_bf16.cu the whole packed
+// grid's legs and sweeps with bfloat16 storage (a storage type S beside
+// the compute type T; S = T everywhere else). packed2d.cu's note says
+// what they replace and how they work; plocal2d.cu's what the tile frame
+// adds, fused2d.cu's what the unpacked one does, local2d_legs.cu's how
+// the unpacked tile joins the two, packed2d_sweep.cu's what the sweeps
+// do, packed2d_bf16.cu's what bfloat16 storage changes.
 #pragma once
 
 #include <cstdint>
@@ -350,9 +353,12 @@ __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
 // Load both planes of row i (parity par) of the packed array g at this lane
 // into a0, a1; points off the array, and the row above a tile, read 0; rows
 // past ye are not loaded (no step reads them). The tests on rows are made
-// only where EDGE.
-template <bool EDGE, typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
+// only where EDGE. The whole packed grid may be stored in a narrower S
+// (bfloat16), widened here (packed_tile.cuh); a lane's two points lie in
+// the two planes, so every load is one element wide whatever S: a warp's 32
+// lanes read 32 consecutive elements of each plane.
+template <bool EDGE, typename T, typename S>
+__device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
                                          T& a1, int i, int par,
                                          const Unit<Whole>& w,
                                          const Whole& f) {
@@ -361,8 +367,8 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
   const int cp = frame_lanes(f);
   const bool ok = w.ok[0];
   const size_t at = static_cast<size_t>(i) * cp + (ok ? w.gl : 0);
-  a0 = ok ? __ldg(g + at) : T(0);
-  a1 = ok ? __ldg(g + at + static_cast<size_t>(P) * cp) : T(0);
+  a0 = ok ? mg::ldg_wide<T>(g + at) : T(0);
+  a1 = ok ? mg::ldg_wide<T>(g + at + static_cast<size_t>(P) * cp) : T(0);
 }
 
 template <bool EDGE, typename T>
@@ -452,8 +458,8 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
 // rather than keeping the slot's row of kWin steps before, which no stage
 // reads: that ends the old row's life, so U holds only the rows stage 0
 // reads (RB-GS stages read nearly every slot of U anyway).
-template <int KIND, bool EDGE, typename T, class Fr>
-__device__ __forceinline__ void load_next(const T* __restrict__ g, T& a0,
+template <int KIND, bool EDGE, typename T, typename S, class Fr>
+__device__ __forceinline__ void load_next(const S* __restrict__ g, T& a0,
                                           T& a1, int i, int par,
                                           const Unit<Fr>& w, const Fr& f) {
   if (KIND == mg::kJacobi && EDGE && i >= w.ye) {
@@ -464,17 +470,18 @@ __device__ __forceinline__ void load_next(const T* __restrict__ g, T& a0,
   load_row<EDGE>(g, a0, a1, i, par, w, f);
 }
 
-// Store both planes of row i (parity par) at this lane, where it owns them.
-template <typename T>
-__device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
+// Store both planes of row i (parity par) at this lane, where it owns them
+// (on the whole packed grid rounded to its storage type S).
+template <typename T, typename S>
+__device__ __forceinline__ void store_row(S* __restrict__ g, T a0, T a1,
                                           int i, int par,
                                           const Unit<Whole>& w,
                                           const Whole& f) {
   const int P = f.n + 2;
   const int cp = frame_lanes(f);
   if (w.core) {
-    g[static_cast<size_t>(i) * cp + w.gl] = a0;
-    g[(static_cast<size_t>(P) + i) * cp + w.gl] = a1;
+    g[static_cast<size_t>(i) * cp + w.gl] = mg::narrow<S>(a0);
+    g[(static_cast<size_t>(P) + i) * cp + w.gl] = mg::narrow<S>(a1);
   }
 }
 
@@ -622,10 +629,16 @@ __device__ __forceinline__ void chunk(bool steady, F&& f) {
 // the residual and the store at t - (K + 1), the restriction of fine row
 // t - K - 2 (its residual rows t - K - 3 .. t - K - 1 done). STORE false
 // compiles the store of u' out (residual_restrict_kernel: u_out unused).
-template <typename T, int KIND, int K, bool STORE, class Fr>
-__device__ __forceinline__ void down_stream(const T* __restrict__ u,
-                                            const T* __restrict__ b,
-                                            T* __restrict__ u_out,
+// u, b and u' are stored in S (the whole packed grid's bfloat16 storage,
+// T float; else S = T), rc in T; the residual is taken of u' as stored
+// (rounded to S), so that the coarse correction targets the u' that goes
+// up, as the TPU kernel takes it (packed2d.py:678-683). Its operands are
+// rounded where it reads them, not in the window: the last stage of the
+// next step still reads row i + 1 unrounded.
+template <typename T, int KIND, int K, bool STORE, class Fr, typename S = T>
+__device__ __forceinline__ void down_stream(const S* __restrict__ u,
+                                            const S* __restrict__ b,
+                                            S* __restrict__ u_out,
                                             T* __restrict__ rc, const Fr& f,
                                             const mg::Coef<T>& cf,
                                             int packed_coarse,
@@ -681,11 +694,11 @@ __device__ __forceinline__ void down_stream(const T* __restrict__ u,
         }
         const int o = 1 - c;
         const int p = (c + v - OUT) & 1;
-        const T x = F[c][s];
-        const T mid = F[o][s];
+        const T x = mg::stored<S>(F[c][s]);
+        const T mid = mg::stored<S>(F[o][s]);
         const T side = side_of(mid, p);
-        const T r = residual_of<Fr>(B[c][s], x, F[o][sm], F[o][sp], mid, side,
-                                    p, cf);
+        const T r = residual_of<Fr>(B[c][s], x, mg::stored<S>(F[o][sm]),
+                                    mg::stored<S>(F[o][sp]), mid, side, p, cf);
         R[c][s] = live && w.upd[p] ? r : T(0);
       }
       if constexpr (STORE) {
@@ -716,12 +729,13 @@ __device__ __forceinline__ void down_stream(const T* __restrict__ u,
   }
 }
 
-template <typename T, int KIND, int K, class Fr>
+template <typename T, int KIND, int K, class Fr, typename S = T>
 __global__ void __launch_bounds__(kLegWarps * kWarp)
-down_kernel(const T* __restrict__ u, const T* __restrict__ b,
-            T* __restrict__ u_out, T* __restrict__ rc, Fr f,
+down_kernel(const S* __restrict__ u, const S* __restrict__ b,
+            S* __restrict__ u_out, T* __restrict__ rc, Fr f,
             mg::Coef<T> cf, int packed_coarse, LegGeom g) {
-  down_stream<T, KIND, K, true>(u, b, u_out, rc, f, cf, packed_coarse, g);
+  down_stream<T, KIND, K, true, Fr, S>(u, b, u_out, rc, f, cf, packed_coarse,
+                                       g);
 }
 
 // rc = R (b - A u) on the unpacked grid (transfer2d.cu): the down leg's
@@ -733,7 +747,8 @@ __global__ void __launch_bounds__(kLegWarps * kWarp)
 residual_restrict_kernel(const T* __restrict__ u, const T* __restrict__ b,
                          T* __restrict__ rc, Unpacked f, mg::Coef<T> cf,
                          LegGeom g) {
-  down_stream<T, mg::kRbgs, 0, false>(u, b, nullptr, rc, f, cf, 0, g);
+  down_stream<T, mg::kRbgs, 0, false, Unpacked, T>(u, b, nullptr, rc, f, cf,
+                                                   0, g);
 }
 
 // Coarse point (I, J) of e; 0 off e. The whole grid's e is (Pc x Pc
@@ -767,12 +782,15 @@ __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
 // coarse rows t >> 1 and (t + 1) >> 1 (loaded with the fine rows, each lane
 // its columns J and J + 1), as prolong_at (common.cuh) computes it, at
 // every global-interior point; stage k works on row t - 1 - k; the store
-// on row t - K.
-template <typename T, int KIND, int K, bool PACKED_E, bool PROLONG, class Fr>
-__device__ __forceinline__ void up_stream(const T* __restrict__ xin,
+// on row t - K. x and b are stored in S, the coarse e in T, x' in O (the
+// whole packed grid's bfloat16 storage: S bfloat16, T float, O bfloat16 or,
+// at the top level of a mixed cycle, float; else all T).
+template <typename T, int KIND, int K, bool PACKED_E, bool PROLONG, class Fr,
+          typename S = T, typename O = S>
+__device__ __forceinline__ void up_stream(const S* __restrict__ xin,
                                           const T* __restrict__ e,
-                                          const T* __restrict__ b,
-                                          T* __restrict__ out, const Fr& f,
+                                          const S* __restrict__ b,
+                                          O* __restrict__ out, const Fr& f,
                                           const mg::Coef<T>& cf,
                                           const LegGeom& g) {
   const int unit = blockIdx.x * kLegWarps + threadIdx.x / kWarp;
@@ -860,22 +878,24 @@ __device__ __forceinline__ void up_stream(const T* __restrict__ xin,
   }
 }
 
-template <typename T, int KIND, int K, bool PACKED_E, class Fr>
+template <typename T, int KIND, int K, bool PACKED_E, class Fr,
+          typename S = T, typename O = S>
 __global__ void __launch_bounds__(kLegWarps * kWarp)
-up_kernel(const T* __restrict__ xin, const T* __restrict__ e,
-          const T* __restrict__ b, T* __restrict__ out, Fr f,
+up_kernel(const S* __restrict__ xin, const T* __restrict__ e,
+          const S* __restrict__ b, O* __restrict__ out, Fr f,
           mg::Coef<T> cf, LegGeom g) {
-  up_stream<T, KIND, K, PACKED_E, true>(xin, e, b, out, f, cf, g);
+  up_stream<T, KIND, K, PACKED_E, true, Fr, S, O>(xin, e, b, out, f, cf, g);
 }
 
 // The sweep stream: out = smooth^K(u), K >= 1 stages, on the up leg's
 // rows, lanes and lags. A kernel of its own name, so that a profiler tells
 // the sweeps from the legs on the same frame.
-template <typename T, int KIND, int K, class Fr>
+template <typename T, int KIND, int K, class Fr, typename S = T>
 __global__ void __launch_bounds__(kLegWarps * kWarp)
-sweep_kernel(const T* __restrict__ u, const T* __restrict__ b,
-             T* __restrict__ out, Fr f, mg::Coef<T> cf, LegGeom g) {
-  up_stream<T, KIND, K, false, false>(u, nullptr, b, out, f, cf, g);
+sweep_kernel(const S* __restrict__ u, const S* __restrict__ b,
+             S* __restrict__ out, Fr f, mg::Coef<T> cf, LegGeom g) {
+  up_stream<T, KIND, K, false, false, Fr, S, S>(u, nullptr, b, out, f, cf,
+                                                g);
 }
 
 // The most stages a leg takes, each count its own kernel: a whole grid's
@@ -913,38 +933,39 @@ unsigned leg_blocks(const LegGeom& g) {
                                kLegWarps);
 }
 
-template <typename T, int KIND, int MAXK, class Fr, int K = 0>
-int launch_down_k(int stages, const T* u, const T* b, T* u_out, T* rc,
+template <typename T, typename S, int KIND, int MAXK, class Fr, int K = 0>
+int launch_down_k(int stages, const S* u, const S* b, S* u_out, T* rc,
                   const Fr& f, const mg::Coef<T>& cf, int packed_coarse,
                   const LegGeom& g, cudaStream_t stream) {
   if constexpr (K > MAXK) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (stages != K) {
-      return launch_down_k<T, KIND, MAXK, Fr,
+      return launch_down_k<T, S, KIND, MAXK, Fr,
                            K + (KIND == mg::kRbgs ? 2 : 1)>(
           stages, u, b, u_out, rc, f, cf, packed_coarse, g, stream);
     }
-    down_kernel<T, KIND, K, Fr><<<leg_blocks(g), kLegWarps * kWarp, 0,
-                                  stream>>>(u, b, u_out, rc, f, cf,
-                                            packed_coarse, g);
+    down_kernel<T, KIND, K, Fr, S><<<leg_blocks(g), kLegWarps * kWarp, 0,
+                                     stream>>>(u, b, u_out, rc, f, cf,
+                                               packed_coarse, g);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
-template <typename T, int KIND, bool PACKED_E, int MAXK, class Fr, int K = 0>
-int launch_up_k(int stages, const T* x, const T* e, const T* b, T* out,
+template <typename T, typename S, typename O, int KIND, bool PACKED_E,
+          int MAXK, class Fr, int K = 0>
+int launch_up_k(int stages, const S* x, const T* e, const S* b, O* out,
                 const Fr& f, const mg::Coef<T>& cf, const LegGeom& g,
                 cudaStream_t stream) {
   if constexpr (K > MAXK) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (stages != K) {
-      return launch_up_k<T, KIND, PACKED_E, MAXK, Fr,
+      return launch_up_k<T, S, O, KIND, PACKED_E, MAXK, Fr,
                          K + (KIND == mg::kRbgs ? 2 : 1)>(
           stages, x, e, b, out, f, cf, g, stream);
     }
-    up_kernel<T, KIND, K, PACKED_E, Fr>
+    up_kernel<T, KIND, K, PACKED_E, Fr, S, O>
         <<<leg_blocks(g), kLegWarps * kWarp, 0, stream>>>(x, e, b, out, f,
                                                           cf, g);
     return static_cast<int>(cudaGetLastError());
@@ -958,12 +979,15 @@ int leg_stages(int kind, int sweeps) {
 
 // The down leg on frame f (a whole grid: kMaxDownStages; a tile:
 // kMaxTileStages); on the unpacked frame u, b and u_out must start on a
-// pair of T.
-template <typename T, int MAXK, class Fr>
+// pair of T. u, b and u_out are stored in S (bfloat16 on the whole packed
+// grid only), rc in T.
+template <typename T, int MAXK, class Fr, typename S = T>
 int launch_down(const void* u, const void* b, void* u_out, void* rc,
                 const Fr& f, double h, double sigma, int kind, double omega,
                 int sweeps, int packed_coarse, const int* geom,
                 void* stream) {
+  static_assert(std::is_same<S, T>::value || std::is_same<Fr, Whole>::value,
+                "narrow storage on the whole packed grid only");
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
   if (!leg_geom(geom, f, &g) ||
@@ -972,15 +996,16 @@ int launch_down(const void* u, const void* b, void* u_out, void* rc,
   }
   const auto cf = mg::Coef<T>::make(h, sigma, omega);
   const auto s = static_cast<cudaStream_t>(stream);
-  const T* ut = static_cast<const T*>(u);
-  const T* bt = static_cast<const T*>(b);
-  T* ot = static_cast<T*>(u_out);
+  const S* ut = static_cast<const S*>(u);
+  const S* bt = static_cast<const S*>(b);
+  S* ot = static_cast<S*>(u_out);
   T* rt = static_cast<T*>(rc);
   return kind == mg::kRbgs
-             ? launch_down_k<T, mg::kRbgs, MAXK>(K, ut, bt, ot, rt, f, cf,
-                                                 packed_coarse, g, s)
-             : launch_down_k<T, mg::kJacobi, MAXK>(K, ut, bt, ot, rt, f, cf,
-                                                   packed_coarse, g, s);
+             ? launch_down_k<T, S, mg::kRbgs, MAXK>(K, ut, bt, ot, rt, f, cf,
+                                                    packed_coarse, g, s)
+             : launch_down_k<T, S, mg::kJacobi, MAXK>(K, ut, bt, ot, rt, f,
+                                                      cf, packed_coarse, g,
+                                                      s);
 }
 
 // R (b - A u) on the unpacked frame f: the down leg's geometry at K = 0
@@ -1004,11 +1029,16 @@ int launch_residual_restrict(const void* u, const void* b, void* rc,
 }
 
 // The up leg on frame f; e logical or, on the whole packed grid, packed;
-// on the unpacked frame x, b and out must start on a pair of T.
-template <typename T, int MAXK, class Fr>
+// on the unpacked frame x, b and out must start on a pair of T. x and b
+// are stored in S, e in T, out in O (S bfloat16 and O bfloat16 or float on
+// the whole packed grid only).
+template <typename T, int MAXK, class Fr, typename S = T, typename O = S>
 int launch_up(const void* x, const void* e, const void* b, void* out,
               const Fr& f, double h, double sigma, int kind, double omega,
               int sweeps, int packed_e, const int* geom, void* stream) {
+  static_assert((std::is_same<S, T>::value && std::is_same<O, T>::value) ||
+                    std::is_same<Fr, Whole>::value,
+                "narrow storage on the whole packed grid only");
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
   if (!leg_geom(geom, f, &g) ||
@@ -1017,44 +1047,44 @@ int launch_up(const void* x, const void* e, const void* b, void* out,
   }
   const auto cf = mg::Coef<T>::make(h, sigma, omega);
   const auto s = static_cast<cudaStream_t>(stream);
-  const T* xt = static_cast<const T*>(x);
+  const S* xt = static_cast<const S*>(x);
   const T* et = static_cast<const T*>(e);
-  const T* bt = static_cast<const T*>(b);
-  T* ot = static_cast<T*>(out);
+  const S* bt = static_cast<const S*>(b);
+  O* ot = static_cast<O*>(out);
   if constexpr (!std::is_same<Fr, Whole>::value) {
     return kind == mg::kRbgs
-               ? launch_up_k<T, mg::kRbgs, false, MAXK>(K, xt, et, bt, ot, f,
-                                                        cf, g, s)
-               : launch_up_k<T, mg::kJacobi, false, MAXK>(K, xt, et, bt, ot,
-                                                          f, cf, g, s);
+               ? launch_up_k<T, S, O, mg::kRbgs, false, MAXK>(
+                     K, xt, et, bt, ot, f, cf, g, s)
+               : launch_up_k<T, S, O, mg::kJacobi, false, MAXK>(
+                     K, xt, et, bt, ot, f, cf, g, s);
   } else {
     if (kind == mg::kRbgs) {
-      return packed_e ? launch_up_k<T, mg::kRbgs, true, MAXK>(
+      return packed_e ? launch_up_k<T, S, O, mg::kRbgs, true, MAXK>(
                             K, xt, et, bt, ot, f, cf, g, s)
-                      : launch_up_k<T, mg::kRbgs, false, MAXK>(
+                      : launch_up_k<T, S, O, mg::kRbgs, false, MAXK>(
                             K, xt, et, bt, ot, f, cf, g, s);
     }
-    return packed_e ? launch_up_k<T, mg::kJacobi, true, MAXK>(
+    return packed_e ? launch_up_k<T, S, O, mg::kJacobi, true, MAXK>(
                           K, xt, et, bt, ot, f, cf, g, s)
-                    : launch_up_k<T, mg::kJacobi, false, MAXK>(
+                    : launch_up_k<T, S, O, mg::kJacobi, false, MAXK>(
                           K, xt, et, bt, ot, f, cf, g, s);
   }
 }
 
-template <typename T, int KIND, int MAXK, class Fr,
+template <typename T, typename S, int KIND, int MAXK, class Fr,
           int K = (KIND == mg::kRbgs ? 2 : 1)>
-int launch_sweep_k(int stages, const T* u, const T* b, T* out, const Fr& f,
+int launch_sweep_k(int stages, const S* u, const S* b, S* out, const Fr& f,
                    const mg::Coef<T>& cf, const LegGeom& g,
                    cudaStream_t stream) {
   if constexpr (K > MAXK) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (stages != K) {
-      return launch_sweep_k<T, KIND, MAXK, Fr,
+      return launch_sweep_k<T, S, KIND, MAXK, Fr,
                             K + (KIND == mg::kRbgs ? 2 : 1)>(
           stages, u, b, out, f, cf, g, stream);
     }
-    sweep_kernel<T, KIND, K, Fr>
+    sweep_kernel<T, KIND, K, Fr, S>
         <<<leg_blocks(g), kLegWarps * kWarp, 0, stream>>>(u, b, out, f, cf,
                                                           g);
     return static_cast<int>(cudaGetLastError());
@@ -1065,11 +1095,14 @@ int launch_sweep_k(int stages, const T* u, const T* b, T* out, const Fr& f,
 // sweeps) from 1 to MAXK, on the up leg's geometry (halos of K rows and
 // ceil(K/2) lanes, which the launcher checks); JACOBI: whether the Jacobi
 // kernels are compiled (the packed grid runs RB-GS only). On the unpacked
-// frame u, b and out must start on a pair of T.
-template <typename T, int MAXK, bool JACOBI, class Fr>
+// frame u, b and out must start on a pair of T. u, b and out are stored in
+// S (bfloat16 on the whole packed grid only).
+template <typename T, int MAXK, bool JACOBI, class Fr, typename S = T>
 int launch_sweep(const void* u, const void* b, void* out, const Fr& f,
                  double h, double sigma, int kind, double omega, int sweeps,
                  const int* geom, void* stream) {
+  static_assert(std::is_same<S, T>::value || std::is_same<Fr, Whole>::value,
+                "narrow storage on the whole packed grid only");
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
   const bool kind_ok = kind == mg::kRbgs || (JACOBI && kind == mg::kJacobi);
@@ -1080,16 +1113,16 @@ int launch_sweep(const void* u, const void* b, void* out, const Fr& f,
   }
   const auto cf = mg::Coef<T>::make(h, sigma, omega);
   const auto s = static_cast<cudaStream_t>(stream);
-  const T* ut = static_cast<const T*>(u);
-  const T* bt = static_cast<const T*>(b);
-  T* ot = static_cast<T*>(out);
+  const S* ut = static_cast<const S*>(u);
+  const S* bt = static_cast<const S*>(b);
+  S* ot = static_cast<S*>(out);
   if constexpr (JACOBI) {
     if (kind == mg::kJacobi) {
-      return launch_sweep_k<T, mg::kJacobi, MAXK>(K, ut, bt, ot, f, cf, g,
-                                                  s);
+      return launch_sweep_k<T, S, mg::kJacobi, MAXK>(K, ut, bt, ot, f, cf, g,
+                                                     s);
     }
   }
-  return launch_sweep_k<T, mg::kRbgs, MAXK>(K, ut, bt, ot, f, cf, g, s);
+  return launch_sweep_k<T, S, mg::kRbgs, MAXK>(K, ut, bt, ot, f, cf, g, s);
 }
 
 // The owned box [qlo, qhi) x [slo, shi) (coarse tile indices) of the

@@ -21,11 +21,65 @@
 // other colour's (i-1, l), (i+1, l), (i, l), and (i, l-1) if p = 0 or
 // (i, l+1) if p = 1. Sums run in the TPU module's order, ((up + down) + same
 // lane) + side lane.
+//
+// Storage and compute (the TPU module's _cdt rule, packed2d.py:74-90): a
+// kernel computes in T; the whole packed grid's arrays may be stored in a
+// narrower S (bfloat16, with T float). Every load widens to T, every store
+// rounds to S, to nearest even as XLA's convert does; with S = T both are
+// the identity and the code is what it is without them.
 #pragma once
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace mg {
+
+template <typename S>
+constexpr bool kBf16 = std::is_same<S, __nv_bfloat16>::value;
+
+// v, stored as S, in T.
+template <typename T, typename S>
+__device__ __forceinline__ T widen(S v) {
+  if constexpr (kBf16<S>) {
+    return __bfloat162float(v);
+  } else {
+    return static_cast<T>(v);
+  }
+}
+
+// v rounded to the storage type S.
+template <typename S, typename T>
+__device__ __forceinline__ S narrow(T v) {
+  if constexpr (kBf16<S>) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return static_cast<S>(v);
+  }
+}
+
+// v as a store to S leaves it, in T.
+template <typename S, typename T>
+__device__ __forceinline__ T stored(T v) {
+  if constexpr (kBf16<S>) {
+    return widen<T>(narrow<S>(v));
+  } else {
+    return v;
+  }
+}
+
+// *p through the read-only cache, widened to T.
+template <typename T, typename S>
+__device__ __forceinline__ T ldg_wide(const S* p) {
+  if constexpr (kBf16<S>) {
+    return __bfloat162float(__ushort_as_bfloat16(
+        __ldg(reinterpret_cast<const unsigned short*>(p))));
+  } else {
+    return __ldg(p);
+  }
+}
 
 struct PRect {
   int R, C, goy, gox;
@@ -40,10 +94,13 @@ __device__ __forceinline__ int pphase(int c, int gy, int gx0) {
 }
 
 // Sum of the four neighbours of the point at lane index k of its plane, read
-// from the other colour's plane o (row pitch `pitch` lanes, index type I).
-template <typename T, typename I>
-__device__ __forceinline__ T nsum(const T* o, I k, I pitch, int p) {
-  return ((o[k - pitch] + o[k + pitch]) + o[k]) + o[p ? k + 1 : k - 1];
+// from the other colour's plane o (row pitch `pitch` lanes, index type I,
+// storage S), in T.
+template <typename T, typename S, typename I>
+__device__ __forceinline__ T nsum(const S* o, I k, I pitch, int p) {
+  return ((widen<T>(o[k - pitch]) + widen<T>(o[k + pitch])) +
+          widen<T>(o[k])) +
+         widen<T>(o[p ? k + 1 : k - 1]);
 }
 
 // b - (A - sigma I) u at lane index k of plane uc (other plane uo).
@@ -52,7 +109,8 @@ __device__ __forceinline__ T presidual(const T* uc, const T* uo, T bval,
                                        I k, I pitch, int p,
                                        const Coef<T>& cf) {
   const T v = uc[k];
-  return bval - (T(4) * v - nsum(uo, k, pitch, p)) * cf.inv_h2 + cf.sig * v;
+  return bval - (T(4) * v - nsum<T>(uo, k, pitch, p)) * cf.inv_h2 +
+         cf.sig * v;
 }
 
 // Sum of `v` over a block of NT threads, valid in thread 0.
@@ -80,11 +138,12 @@ constexpr int kLaneThreads = 256;
 
 // r = b - (A - sigma I) u (HAS_B) or (A - sigma I) u on both planes of the
 // array a; 0 where `upd` fails (ghosts, a tile's ring, pad lanes), so a dot
-// over whole arrays is a dot over the points upd sets.
-template <typename T, bool HAS_B, typename Upd>
+// over whole arrays is a dot over the points upd sets. u, b and r are
+// stored in S, r computed in T.
+template <typename T, bool HAS_B, typename Upd, typename S = T>
 __global__ void __launch_bounds__(kLaneThreads)
-presidual_kernel(const T* __restrict__ u, const T* __restrict__ b,
-                 T* __restrict__ out, PRect a, Upd upd, Coef<T> cf) {
+presidual_kernel(const S* __restrict__ u, const S* __restrict__ b,
+                 S* __restrict__ out, PRect a, Upd upd, Coef<T> cf) {
   const int cp = a.lanes();
   const size_t plane = static_cast<size_t>(a.R) * cp;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
@@ -98,12 +157,13 @@ presidual_kernel(const T* __restrict__ u, const T* __restrict__ b,
   const int p = pphase(c, gy, a.gox);
   T r = T(0);
   if (upd(gy, a.gox + 2 * l + p)) {
-    const T v = u[idx];
-    const T au = (T(4) * v - nsum(u + (1 - c) * plane, k,
-                                  static_cast<size_t>(cp), p)) * cf.inv_h2;
-    r = HAS_B ? b[idx] - au + cf.sig * v : au - cf.sig * v;
+    const T v = widen<T>(u[idx]);
+    const T au = (T(4) * v - nsum<T>(u + (1 - c) * plane, k,
+                                     static_cast<size_t>(cp), p)) *
+                 cf.inv_h2;
+    r = HAS_B ? widen<T>(b[idx]) - au + cf.sig * v : au - cf.sig * v;
   }
-  out[idx] = r;
+  out[idx] = narrow<S>(r);
 }
 
 // Residual norm, first pass: each block sums r^2 over a grid-stride share
@@ -155,19 +215,20 @@ sum_partials(const double* __restrict__ partial, int count,
   if (threadIdx.x == 0) out[0] = static_cast<T>(total);
 }
 
-// Launch presidual_kernel on the array a; returns cudaGetLastError().
-template <typename T, typename Upd>
+// Launch presidual_kernel on the array a (stored in S, computed in T);
+// returns cudaGetLastError().
+template <typename T, typename Upd, typename S = T>
 int launch_presidual(const void* u, const void* b, void* out, const PRect& a,
                      const Upd& upd, double h, double sigma, bool has_b,
                      void* stream) {
   const size_t total = 2 * static_cast<size_t>(a.R) * a.lanes();
   const unsigned blocks =
       static_cast<unsigned>((total + kLaneThreads - 1) / kLaneThreads);
-  const auto kernel = has_b ? presidual_kernel<T, true, Upd>
-                            : presidual_kernel<T, false, Upd>;
+  const auto kernel = has_b ? presidual_kernel<T, true, Upd, S>
+                            : presidual_kernel<T, false, Upd, S>;
   kernel<<<blocks, kLaneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(b),
-      static_cast<T*>(out), a, upd, Coef<T>::make(h, sigma, 1.0));
+      static_cast<const S*>(u), static_cast<const S*>(b),
+      static_cast<S*>(out), a, upd, Coef<T>::make(h, sigma, 1.0));
   return static_cast<int>(cudaGetLastError());
 }
 

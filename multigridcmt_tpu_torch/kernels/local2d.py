@@ -51,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, packed2d
-from ._wrap import check_storage, check_tensor, launch_on, on_cuda
+from ._wrap import MIXED_SHARDED, check_storage, check_tensor, \
+    launch_on, on_cuda
 
 # Ghost rows exchanged per side of a tile, as in the JAX module: 4 fused
 # RB-GS sweeps or 8 Jacobi sweeps, or one whole leg.
@@ -290,7 +291,7 @@ def _launch_geometry(leg: str, t: torch.Tensor, n: int, row_off: int,
 
 
 def _check_tile(what: str, u: torch.Tensor, b: torch.Tensor) -> None:
-    check_storage(what, u)
+    check_storage(what, u, item=MIXED_SHARDED)
     if u.ndim != 2 or min(u.shape) < 3:
         raise ValueError(f"{what}: expected a 2D tile of at least 3 x 3, "
                          f"got shape {tuple(u.shape)}")
@@ -437,12 +438,13 @@ def up_leg(x_ext: torch.Tensor, e_ext: torch.Tensor, b_ext: torch.Tensor,
     extended tile. x and b carry exact ghosts; e is the coarse correction
     in the extended convention (shape as ``down_leg``'s rc_ext) with exact
     ghosts. Returns the smoothed tile (ghost rows stale). Requires sweeps
-    <= max_up_sweeps(kind). ``out_dtype`` (a wider output) belongs to mixed
-    precision and raises unless it is x's dtype.
+    <= max_up_sweeps(kind). ``out_dtype`` (a wider output) belongs to
+    sharded mixed precision and raises unless it is x's dtype.
     """
     global up_launches
     _check_kind(kind, sweeps, max_up_sweeps(kind))
-    check_storage("local2d.up_leg", x_ext, out_dtype)
+    check_storage("local2d.up_leg", x_ext, out_dtype,
+                  item=MIXED_SHARDED)
     _check_tile("local2d.up_leg", x_ext, b_ext)
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")

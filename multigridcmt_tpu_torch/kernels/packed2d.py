@@ -33,6 +33,18 @@ notes there on what bounds them and how they work on the card):
 Each wrapper has its plain PyTorch version beside it: unpack, the ``ops/``
 composition, pack. Device rule (``_wrap``): a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
+
+Mixed precision (the TPU module's ``_cdt`` rule): the legs, the sweeps and
+the residual also take bfloat16 grids, the fine level of a mixed cycle
+(``csrc/packed2d_bf16.cu``, ``packed2d_sweep_bf16.cu``,
+``packed2d_up_bf16.cu``, ``packed2d_up_bf16_f32.cu``). Every load widens to
+float32, the sweeps and the residual run in float32 and each point is
+rounded to bfloat16 once, on its store; the down leg's residual is that of
+u' as stored, and its coarse right-hand side is float32, as is the up leg's
+coarse correction. The up leg may store x' in float32 (``out_dtype``): the
+top level of a mixed cycle does (``solvers/cycles.py``), where the TPU
+module stores it in bfloat16. The plain versions follow the same rule.
+The fused residual norm takes no bfloat16 grid (no mixed path reaches it).
 """
 from __future__ import annotations
 
@@ -44,16 +56,22 @@ import torch
 
 from ..ops import laplacian, smoothers, transfer
 from . import _build
-from ._wrap import check_grid, check_storage, check_tensor, launch_on, \
-    on_cuda
+from ._wrap import MIXED_OFF_PATH, check_grid, check_storage, check_tensor, \
+    compute_dtype, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
-# count).
+# count); the bfloat16 modes apart: the up leg's with a bfloat16 x' and with
+# a float32 one (up_bf16_f32_launches).
 down_launches = 0
 up_launches = 0
 resnorm_launches = 0
 residual_launches = 0
 rbgs_launches = 0
+down_bf16_launches = 0
+up_bf16_launches = 0
+up_bf16_f32_launches = 0
+residual_bf16_launches = 0
+rbgs_bf16_launches = 0
 
 # Blocks of the residual norm's first pass; each writes one float64
 # partial sum, which the second pass adds in a fixed order.
@@ -281,18 +299,33 @@ def _zero_black(r: torch.Tensor) -> torch.Tensor:
     return r.masked_fill(black, 0.0)
 
 
-def smooth_residual_restrict_plain(s, bs, n, h, *, kind, omega, sweeps,
-                                   sigma=0.0, packed_coarse=False):
-    """Plain PyTorch version: unpack, smooth, residual (red only after an
-    RB-GS sweep), restrict, pack."""
-    u, b = unpack(s), unpack(bs)
-    us = smoothers.smooth(u, b, h, kind=kind, omega=omega, sweeps=sweeps,
-                          sigma=sigma)
-    r = laplacian.residual(us, b, h, sigma=sigma)
-    if kind == "rbgs" and sweeps >= 1:
+def residual_restrict_plain(us, bs, n, h, *, red_only, sigma=0.0,
+                            packed_coarse=False):
+    """restrict(b - (A - sigma I) u) from packed grids, in the compute
+    dtype (float32 for bfloat16 grids), the red residual only with
+    ``red_only``: the down leg's coarse output for its stored u'."""
+    cdt = compute_dtype(us.dtype)
+    r = laplacian.residual(unpack(us).to(cdt), unpack(bs).to(cdt), h,
+                           sigma=sigma)
+    if red_only:
         r = _zero_black(r)
     rc = transfer.restrict(r)
-    return pack(us), (pack(rc) if packed_coarse else rc)
+    return pack(rc) if packed_coarse else rc
+
+
+def smooth_residual_restrict_plain(s, bs, n, h, *, kind, omega, sweeps,
+                                   sigma=0.0, packed_coarse=False):
+    """Plain PyTorch version: unpack, smooth (in float32 for bfloat16
+    grids), store u' in the grids' dtype, the residual of u' as stored (red
+    only after an RB-GS sweep), restrict, pack."""
+    cdt = compute_dtype(s.dtype)
+    us = smoothers.smooth(unpack(s).to(cdt), unpack(bs).to(cdt), h,
+                          kind=kind, omega=omega, sweeps=sweeps,
+                          sigma=sigma)
+    us = pack(us).to(s.dtype)
+    return us, residual_restrict_plain(
+        us, bs, n, h, red_only=kind == "rbgs" and sweeps >= 1, sigma=sigma,
+        packed_coarse=packed_coarse)
 
 
 def smooth_residual_restrict(s: torch.Tensor, bs: torch.Tensor, n: int,
@@ -302,72 +335,102 @@ def smooth_residual_restrict(s: torch.Tensor, bs: torch.Tensor, n: int,
     """(smooth^sweeps(u), restrict(b - (A - sigma I) u')) in one pass on
     packed grids.
 
-    s, bs: packed (2, n+2, (n+3)//2). Returns u' packed and the coarse
-    right-hand side, logical ((n-1)/2 + 2)^2 or, with ``packed_coarse``,
-    packed. Requires sweeps <= max_down_sweeps.
+    s, bs: packed (2, n+2, (n+3)//2), float32, float64 or bfloat16.
+    Returns u' packed (in s's dtype) and the coarse right-hand side in the
+    compute dtype (float32 for bfloat16 grids), logical ((n-1)/2 + 2)^2 or,
+    with ``packed_coarse``, packed. Requires sweeps <= max_down_sweeps.
     """
-    global down_launches
+    global down_launches, down_bf16_launches
     _check_schedule(kind, sweeps, max_down_sweeps(kind))
     _check_fine(n)
-    check_tensor("u", s, packed_shape(n), s)
-    check_tensor("b", bs, packed_shape(n), s)
+    check_tensor("u", s, packed_shape(n), s, storage=True)
+    check_tensor("b", bs, packed_shape(n), s, storage=True)
     if not on_cuda(s):
         return smooth_residual_restrict_plain(
             s, bs, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma,
             packed_coarse=packed_coarse)
     nc = (n - 1) // 2
+    cdt = compute_dtype(s.dtype)
     u_out = torch.empty_like(s)
     # Packed: the coarse pad lanes are never written, so start from zeros.
-    rc = (torch.zeros(packed_shape(nc), dtype=s.dtype, device=s.device)
+    rc = (torch.zeros(packed_shape(nc), dtype=cdt, device=s.device)
           if packed_coarse else
-          torch.empty((nc + 2, nc + 2), dtype=s.dtype, device=s.device))
+          torch.empty((nc + 2, nc + 2), dtype=cdt, device=s.device))
     launch_on(s, "packed2d_down", s.data_ptr(), bs.data_ptr(),
               u_out.data_ptr(), rc.data_ptr(), n, float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps,
               int(packed_coarse),
               _launch_geometry("down", n, kind, sweeps, s.device.index or 0))
-    down_launches += 1
+    if s.dtype == torch.bfloat16:
+        down_bf16_launches += 1
+    else:
+        down_launches += 1
     return u_out, rc
 
 
 def prolong_add_smooth_plain(x, e, b, n, nc, h, *, kind, omega, sweeps,
-                             sigma=0.0):
-    """Plain PyTorch version: unpack, smooth^sweeps(x + P e), pack."""
+                             sigma=0.0, out_dtype=None):
+    """Plain PyTorch version: unpack, smooth^sweeps(x + P e) (in float32
+    for bfloat16 grids), pack, store in ``out_dtype`` (default x's)."""
+    cdt = compute_dtype(x.dtype)
     ec = unpack(e) if is_packed(e) else e
-    xs = smoothers.smooth(unpack(x) + transfer.prolong(ec), unpack(b), h,
-                          kind=kind, omega=omega, sweeps=sweeps, sigma=sigma)
-    return pack(xs)
+    xs = smoothers.smooth(unpack(x).to(cdt) + transfer.prolong(ec),
+                          unpack(b).to(cdt), h, kind=kind, omega=omega,
+                          sweeps=sweeps, sigma=sigma)
+    return pack(xs).to(x.dtype if out_dtype is None else out_dtype)
+
+
+def _check_out_dtype(x: torch.Tensor, out_dtype) -> torch.dtype:
+    """x' 's dtype: x's, or float32 for a bfloat16 x (the top level of a
+    mixed cycle)."""
+    if out_dtype is None or out_dtype == x.dtype:
+        return x.dtype
+    if x.dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return out_dtype
+    raise ValueError(f"out_dtype {out_dtype} for x of {x.dtype}: an up leg "
+                     "stores x' in x's dtype, or in float32 for bfloat16 x")
 
 
 def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
                        n: int, nc: int, h: float, *, kind: str, omega: float,
-                       sweeps: int, sigma=0.0) -> torch.Tensor:
+                       sweeps: int, sigma=0.0, out_dtype=None) -> torch.Tensor:
     """smooth^sweeps(x + P e) in one pass on packed grids.
 
-    x, b: packed (2, n+2, (n+3)//2); e: logical (nc+2, nc+2) or packed,
-    with n = 2*nc + 1. Requires sweeps <= max_up_sweeps.
+    x, b: packed (2, n+2, (n+3)//2), float32, float64 or bfloat16; e:
+    logical (nc+2, nc+2) or packed, in the compute dtype (float32 for
+    bfloat16 x), with n = 2*nc + 1. x' is stored in x's dtype, or with
+    ``out_dtype=torch.float32`` for bfloat16 x, in float32. Requires
+    sweeps <= max_up_sweeps.
     """
-    global up_launches
+    global up_launches, up_bf16_launches, up_bf16_f32_launches
     _check_schedule(kind, sweeps, max_up_sweeps(kind))
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")
-    check_tensor("x", x, packed_shape(n), x)
+    check_tensor("x", x, packed_shape(n), x, storage=True)
+    out_dtype = _check_out_dtype(x, out_dtype)
+    cdt = compute_dtype(x.dtype)
     packed_e = is_packed(e)
     if packed_e:
-        check_tensor("e", e, packed_shape(nc), x)
+        check_tensor("e", e, packed_shape(nc), x, cdt)
     else:
-        check_grid("e", e, nc, x)
-    check_tensor("b", b, packed_shape(n), x)
+        check_grid("e", e, nc, x, cdt)
+    check_tensor("b", b, packed_shape(n), x, storage=True)
     if not on_cuda(x):
         return prolong_add_smooth_plain(x, e, b, n, nc, h, kind=kind,
                                         omega=omega, sweeps=sweeps,
-                                        sigma=sigma)
-    out = torch.empty_like(x)
+                                        sigma=sigma, out_dtype=out_dtype)
+    out = torch.empty_like(x, dtype=out_dtype)
     launch_on(x, "packed2d_up", x.data_ptr(), e.data_ptr(), b.data_ptr(),
               out.data_ptr(), n, float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps, int(packed_e),
-              _launch_geometry("up", n, kind, sweeps, x.device.index or 0))
-    up_launches += 1
+              _launch_geometry("up", n, kind, sweeps, x.device.index or 0),
+              out_dtype=out_dtype)
+    if x.dtype != torch.bfloat16:
+        up_launches += 1
+    elif out_dtype == torch.bfloat16:
+        up_bf16_launches += 1
+    else:
+        up_bf16_f32_launches += 1
     return out
 
 
@@ -386,6 +449,7 @@ def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
     residual; a 0-d tensor of the grids' dtype. ``red_only`` sums the red
     points only, which is exact when u has just finished an RB-GS sweep."""
     global resnorm_launches
+    check_storage("packed2d.residual_norm_sq", s, item=MIXED_OFF_PATH)
     _check_fine(n)
     check_tensor("u", s, packed_shape(n), s)
     check_tensor("b", bs, packed_shape(n), s)
@@ -403,47 +467,57 @@ def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
 
 
 def residual_plain(s, bs, n, h, sigma=0.0):
-    """Plain PyTorch version: unpack, the residual, pack (pad lanes 0)."""
-    return pack(laplacian.residual(unpack(s), unpack(bs), h, sigma=sigma))
+    """Plain PyTorch version: unpack, the residual (in float32 for bfloat16
+    grids), pack (pad lanes 0), store in the grids' dtype."""
+    cdt = compute_dtype(s.dtype)
+    r = laplacian.residual(unpack(s).to(cdt), unpack(bs).to(cdt), h,
+                           sigma=sigma)
+    return pack(r).to(s.dtype)
 
 
 def residual(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
              sigma=0.0) -> torch.Tensor:
     """r = b - (A - sigma I) u on packed grids, one pass; ghosts and pad
-    lanes of r are zero."""
-    global residual_launches
-    check_storage("packed2d.residual", s)
+    lanes of r are zero. bfloat16 grids: computed in float32, r stored in
+    bfloat16, as the TPU kernel's."""
+    global residual_launches, residual_bf16_launches
     _check_fine(n)
-    check_tensor("u", s, packed_shape(n), s)
-    check_tensor("b", bs, packed_shape(n), s)
+    check_tensor("u", s, packed_shape(n), s, storage=True)
+    check_tensor("b", bs, packed_shape(n), s, storage=True)
     if not on_cuda(s):
         return residual_plain(s, bs, n, h, sigma=sigma)
     out = torch.empty_like(s)
     launch_on(s, "packed2d_residual", s.data_ptr(), bs.data_ptr(),
               out.data_ptr(), n, float(h), float(sigma))
-    residual_launches += 1
+    if s.dtype == torch.bfloat16:
+        residual_bf16_launches += 1
+    else:
+        residual_launches += 1
     return out
 
 
 def rbgs_sweep_plain(s, bs, n, h, *, sweeps=1, sigma=0.0):
-    """Plain PyTorch version: unpack, ``sweeps`` RB-GS sweeps, pack."""
-    return pack(smoothers.smooth(unpack(s), unpack(bs), h, kind="rbgs",
-                                 omega=1.0, sweeps=sweeps, sigma=sigma))
+    """Plain PyTorch version: unpack, ``sweeps`` RB-GS sweeps (in float32
+    for bfloat16 grids), pack, store in the grids' dtype."""
+    cdt = compute_dtype(s.dtype)
+    return pack(smoothers.smooth(unpack(s).to(cdt), unpack(bs).to(cdt), h,
+                                 kind="rbgs", omega=1.0, sweeps=sweeps,
+                                 sigma=sigma)).to(s.dtype)
 
 
 def rbgs_sweep(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
                sweeps: int = 1, sigma=0.0) -> torch.Tensor:
     """``sweeps`` (1 to ``max_fused_sweeps()``) red+black Gauss-Seidel
     sweeps on packed grids in one pass (the row-streaming sweep kernel);
-    ghosts and pad lanes stay zero."""
-    global rbgs_launches
-    check_storage("packed2d.rbgs_sweep", s)
+    ghosts and pad lanes stay zero. bfloat16 grids: the sweeps run in
+    float32, each point rounded once, on its store."""
+    global rbgs_launches, rbgs_bf16_launches
     if not 1 <= sweeps <= max_fused_sweeps():
         raise ValueError(f"{sweeps} rbgs sweeps: one launch takes 1 to "
                          f"{max_fused_sweeps()}")
     _check_fine(n)
-    check_tensor("u", s, packed_shape(n), s)
-    check_tensor("b", bs, packed_shape(n), s)
+    check_tensor("u", s, packed_shape(n), s, storage=True)
+    check_tensor("b", bs, packed_shape(n), s, storage=True)
     if not on_cuda(s):
         return rbgs_sweep_plain(s, bs, n, h, sweeps=sweeps, sigma=sigma)
     out = torch.empty_like(s)
@@ -451,5 +525,8 @@ def rbgs_sweep(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
               out.data_ptr(), n, float(h), float(sigma), sweeps,
               _launch_geometry("sweep", n, "rbgs", sweeps,
                                s.device.index or 0))
-    rbgs_launches += 1
+    if s.dtype == torch.bfloat16:
+        rbgs_bf16_launches += 1
+    else:
+        rbgs_launches += 1
     return out

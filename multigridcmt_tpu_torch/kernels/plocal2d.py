@@ -48,7 +48,8 @@ from __future__ import annotations
 import torch
 
 from . import _build, local2d, packed2d
-from ._wrap import check_storage, check_tensor, launch_on, on_cuda
+from ._wrap import MIXED_SHARDED, check_storage, check_tensor, \
+    launch_on, on_cuda
 from .local2d import HALO_ROWS, max_down_sweeps, max_up_sweeps
 from .packed2d import RESNORM_BLOCKS
 
@@ -188,7 +189,7 @@ def _check_packed(what: str, s: torch.Tensor, b, n: int,
                   col_off: int) -> int:
     """Raise unless s (and b, if given) is a packed tile whose unpacked
     width fits ``col_off``'s decomposition; returns that width."""
-    check_storage(what, s)
+    check_storage(what, s, item=MIXED_SHARDED)
     if s.ndim != 3 or s.shape[0] != 2 or s.shape[1] < 3 or s.shape[2] < 2:
         raise ValueError(f"{what}: expected a packed (2, R, lanes) tile, "
                          f"got shape {tuple(s.shape)}")
@@ -299,12 +300,13 @@ def up_leg(x: torch.Tensor, e_ext: torch.Tensor, bs: torch.Tensor, n: int,
     extended tile. x and b carry exact ghosts; e is the coarse correction in
     ``local2d``'s unpacked extended convention with exact ghosts. Returns
     the smoothed packed tile (ghosts stale). Requires sweeps <=
-    max_up_sweeps(kind). ``out_dtype`` (a wider output) belongs to mixed
-    precision and raises unless it is x's dtype.
+    max_up_sweeps(kind). ``out_dtype`` (a wider output) belongs to sharded
+    mixed precision and raises unless it is x's dtype.
     """
     global up_launches
     local2d._check_kind(kind, sweeps, max_up_sweeps(kind))
-    check_storage("plocal2d.up_leg", x, out_dtype)
+    check_storage("plocal2d.up_leg", x, out_dtype,
+                  item=MIXED_SHARDED)
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")
     cshape = _check_leg("plocal2d.up_leg", x, bs, n, m, mcol, col_off)

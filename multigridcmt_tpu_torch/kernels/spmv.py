@@ -19,7 +19,8 @@ feeds the next apply directly.
 Every diagonal entry past N is zero (``pack_dia`` pads with zeros), so
 rows i >= N of the result come out 0, and the skirt reads of edge rows are
 multiplied by the zeros the assembly put there: the kernel has no masks,
-as the TPU kernel has none. bfloat16 storage raises (mixed precision).
+as the TPU kernel has none. bfloat16 storage raises (no mixed path of the
+port reaches it).
 
 ``spmv_packed_plain`` is the plain PyTorch version: the same sum, in
 ``offsets`` order. Device rule (``_wrap``): a CPU tensor takes the plain
@@ -34,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.sparse import DIA
-from ._wrap import check_storage, check_tensor, launch_on, on_cuda
+from ._wrap import MIXED_OFF_PATH, check_storage, check_tensor, \
+    launch_on, on_cuda
 
 LANES = 128
 
@@ -108,8 +110,8 @@ def unpack_y(y_packed: torch.Tensor, n: int, halo: int) -> torch.Tensor:
 
 
 def _check(a: PackedDIA, x_packed: torch.Tensor) -> None:
-    check_storage("spmv.spmv_packed", a.diags)
-    check_storage("spmv.spmv_packed", x_packed)
+    check_storage("spmv.spmv_packed", a.diags, item=MIXED_OFF_PATH)
+    check_storage("spmv.spmv_packed", x_packed, item=MIXED_OFF_PATH)
     if a.diags.ndim != 3 or a.diags.shape[0] != len(a.offsets) \
             or a.diags.shape[2] != LANES:
         raise ValueError(f"spmv: diags of shape {tuple(a.diags.shape)} for "

@@ -36,7 +36,7 @@ Red means (g + goff) + (y + roff) + x even.
 The TPU module's aligned3 layout and its VMEM budgets (``fits_vmem``,
 ``_pick_pb``) are Mosaic artefacts with no counterpart on Hopper: every 3D
 level at or above ``KERNEL3_MIN_N`` runs these kernels, whatever its size.
-bfloat16 storage and ``out_dtype`` belong to mixed precision and raise.
+bfloat16 storage and ``out_dtype`` belong to 3D mixed precision and raise.
 
 Each wrapper has its plain PyTorch version beside it, in the TPU kernel's
 arithmetic order. Device rule (``_wrap``): a CPU tensor takes the plain
@@ -50,7 +50,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._wrap import check_storage, check_tensor, launch_on, on_cuda
+from ._wrap import MIXED_3D, check_storage, check_tensor, launch_on, \
+    on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count; an RB-GS sweep counts once).
@@ -116,8 +117,8 @@ def _launch_geometry(kernel: str, shape: tuple, dtype):
 
 def _check(u: torch.Tensor, b: torch.Tensor, n: int, what: str,
            out_dtype=None) -> None:
-    check_storage(what, u, out_dtype)
-    check_storage(what, b)
+    check_storage(what, u, out_dtype, item=MIXED_3D)
+    check_storage(what, b, item=MIXED_3D)
     if u.ndim != 3 or min(u.shape[:2]) < 3 or u.shape[2] != n + 2:
         raise ValueError(f"{what}: u has shape {tuple(u.shape)}; expected a "
                          f"(p, r, {n + 2}) plane stack with p, r >= 3")

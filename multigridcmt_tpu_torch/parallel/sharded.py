@@ -49,8 +49,8 @@ Routes, by level (read when called: ``kernels.KERNEL_MIN_N``,
     solved there by the plain single-device cycle.
 Full multigrid (``cycle="fmg"``, ``_sharded_fmg``) walks linearly only, as
 JAX's does; the port refuses ``fmg_prolong="cubic"`` rather than ignore it.
-The eigensolvers, 3D slabs and pencils and mixed precision are not ported:
-they raise ``NotImplementedError`` naming their ROADMAP.md item.
+The eigensolvers, 3D slabs and pencils and sharded mixed precision are not
+ported: they raise ``NotImplementedError`` naming their ROADMAP.md item.
 JAX's ``*_pallas`` helpers are ``*_kernel`` here, and its ``_ext_aligned``
 is ``_ext_tile``: the port keeps every tile at its logical extent, with no
 alignment padding.
@@ -76,8 +76,9 @@ EIGEN_TODO = ("the sharded eigensolvers are not ported yet "
               + _ITEM.format("eigensolvers"))
 SLAB_TODO = ("sharded 3D solves (slabs and pencils) are not ported yet "
              + _ITEM.format("3D slabs and pencils"))
-MIXED_TODO = ("sharded solves with precond_dtype={pd}: mixed precision is not "
-              "ported yet (ROADMAP.md, queue 1: mixed precision)")
+MIXED_TODO = ("sharded solves with precond_dtype={pd}: sharded mixed "
+              "precision is not ported yet (ROADMAP.md, queue 1: sharded "
+              "mixed precision)")
 
 
 # ---------------------------------------------------------------------------

@@ -37,14 +37,17 @@ class Backend(NamedTuple):
     Optional fused transfers (None: composed from the ops above):
       residual_restrict(u, b, n, h) = restrict(residual(u, b, n, h)), at
           sigma = 0 only
-      prolong_add(x, e, n, nc) = x + prolong(e, nc)
+      prolong_add(x, e, n, nc[, out_dtype=]) = x + prolong(e, nc)
     Optional whole-leg fusions (one pass over the fine grid per leg); the
     callable returns None to decline a level, and the cycle then composes
     the leg from the ops above:
       smooth_residual_restrict(u, b, n, h, kind=, omega=, sweeps=, sigma=)
           -> (u', rc) | None
-      prolong_add_smooth(x, e, b, n, nc, h, kind=, omega=, sweeps=, sigma=)
-          -> x' | None
+      prolong_add_smooth(x, e, b, n, nc, h, kind=, omega=, sweeps=, sigma=
+          [, out_dtype=]) -> x' | None
+    A bfloat16 level (the top of a mixed cycle, ``krylov.mixed_cycle_dtype``)
+    gets ``out_dtype=torch.float32`` in both up hooks: its correction add
+    promotes to float32.
     Optional fused convergence check, ||b - A x||^2 without writing the
     residual (None declines; red_only=True asserts that x has just
     finished an RB-GS sweep, whose closing black half-sweep zeroes the
@@ -114,7 +117,17 @@ def coarse_solve(hier: Hierarchy, b: torch.Tensor, sigma=0.0) -> torch.Tensor:
 def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
             config: SolverConfig, level: int = 0, sigma=0.0,
             gamma: int = 1) -> torch.Tensor:
-    """One multigrid cycle starting at ``level`` (gamma=1: V, gamma=2: W)."""
+    """One multigrid cycle starting at ``level`` (gamma=1: V, gamma=2: W).
+
+    Mixed precision: x and b in bfloat16 (only the packed fine level of a
+    mixed cycle is, its kernels emit the coarse levels in float32) make the
+    top level's correction add promote to float32: the up leg stores x' in
+    float32, and the post-smoothing that follows it runs in float32 with b
+    widened once. The cycle then returns float32, where the JAX package's
+    single-device cycle returns bfloat16: its final bfloat16 store of the
+    top level makes the preconditioner break down as k grows (ROADMAP.md,
+    queue 3, F5), and this is the repair JAX's sharded tier makes
+    (``local2d.up_leg``'s ``out_dtype``)."""
     bk = get_backend(config)
     spec = hier.levels[level]
     omega = config.effective_omega()
@@ -142,21 +155,24 @@ def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
         ec = v_cycle(hier, ec, rc, config, level=level + 1, sigma=sigma,
                      gamma=gamma)
     nc = hier.levels[level + 1].n
+    wide = ({"out_dtype": torch.float32} if x.dtype == torch.bfloat16
+            else {})
     with profiling.level_scope(level):
         up = None
         if bk.prolong_add_smooth is not None:
             up = bk.prolong_add_smooth(
                 x, ec, b, spec.n, nc, spec.h, kind=config.smoother,
-                omega=omega, sweeps=config.nu2, sigma=sigma)
+                omega=omega, sweeps=config.nu2, sigma=sigma, **wide)
         if up is not None:
             x = up
         else:
             if bk.prolong_add is not None:
-                x = bk.prolong_add(x, ec, spec.n, nc)
+                x = bk.prolong_add(x, ec, spec.n, nc, **wide)
             else:
                 x = x + bk.prolong(ec, nc)
-            x = bk.smooth(x, b, spec.n, spec.h, kind=config.smoother,
-                          omega=omega, sweeps=config.nu2, sigma=sigma)
+            x = bk.smooth(x, b.to(x.dtype), spec.n, spec.h,
+                          kind=config.smoother, omega=omega,
+                          sweeps=config.nu2, sigma=sigma)
     return x
 
 

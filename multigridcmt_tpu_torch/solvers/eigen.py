@@ -221,14 +221,18 @@ def eigensolve(hier: Hierarchy, config: SolverConfig, k: int = 1,
     approximate inverse, and the eigen-residual would stall at the inner
     error. Convergence: max_i ||A v_i - lambda_i v_i|| / lambda_i < tol.
 
-    ``config.precond_dtype`` where JAX would run the inner cycles in it
-    raises ``NotImplementedError`` (mixed precision is not ported).
+    Mixed precision (``config.precond_dtype`` where
+    ``krylov.mixed_cycle_dtype`` casts, the packed 2D tier): each inner
+    solve is iterative refinement, as in JAX. The defect rhs - (A - sg I) w
+    is taken in ``config.dtype`` and a cycle in ``precond_dtype`` from zero
+    gives the correction, so the inner solve still reaches ``inner_tol``
+    at ``config.dtype``'s grade.
     """
     if method not in ("ii", "rqi"):
         raise ValueError(f"unknown eigensolver method {method!r}")
     ndim, n, h = hier.ndim, hier.fine.n, hier.fine.h
     dtype = config.dtype
-    krylov.mixed_cycle_dtype(config, route="the eigensolver")
+    pd = krylov.mixed_cycle_dtype(config, route="the eigensolver")
     v = _start_block(hier, k, dtype, v0)
     v = _unflat(_orthonormalize(_flat(v, ndim)), n, ndim)
 
@@ -251,9 +255,17 @@ def eigensolve(hier: Hierarchy, config: SolverConfig, k: int = 1,
         rhs_norm = torch.where(rhs_norm == 0, torch.ones_like(rhs_norm),
                                rhs_norm)
         w = torch.zeros_like(rhs)
+        r = rhs
         i, rel = 0, 1.0
         while rel >= inner_tol and i < inner_cycles:
-            w = cycles.v_cycle(hier, w, rhs, config, sigma=sg)
+            if pd is None:
+                w = cycles.v_cycle(hier, w, rhs, config, sigma=sg)
+            else:
+                # Refinement: the correction from a pd cycle on the defect.
+                rp = r.to(pd)
+                dw = cycles.v_cycle(hier, torch.zeros_like(rp), rp, config,
+                                    sigma=sg)
+                w = w + dw.to(w.dtype)
             r = bk.residual(w, rhs, n, h, sigma=sg)
             rel = (torch.sqrt(torch.sum(r * r)) / rhs_norm).item()
             i += 1
@@ -305,7 +317,9 @@ def lobpcg(hier: Hierarchy, config: SolverConfig, k: int = 1,
 
     Each step does a Rayleigh-Ritz step on span{X, T R, P}, T being
     ``precond_cycles`` V-cycles from zero and P the previous step's update
-    direction (Knyazev, SIAM J. Sci. Comput. 23(2), 2001). One V-cycle a
+    direction (Knyazev, SIAM J. Sci. Comput. 23(2), 2001); with
+    ``config.precond_dtype`` where ``krylov.mixed_cycle_dtype`` casts, T's
+    cycles run in that dtype, cast at T's boundary, as in JAX. One V-cycle a
     block vector a step, against a whole MG solve a step in
     ``eigensolve``: the Ritz step projects on the true A, so T need only
     be a fixed positive definite approximate inverse. Stability follows
@@ -316,7 +330,7 @@ def lobpcg(hier: Hierarchy, config: SolverConfig, k: int = 1,
     ndim, n, h = hier.ndim, hier.fine.n, hier.fine.h
     dtype = config.dtype
     bk = cycles.get_backend(config)
-    krylov.mixed_cycle_dtype(config, route="the LOBPCG eigensolver")
+    pd = krylov.mixed_cycle_dtype(config, route="the LOBPCG eigensolver")
 
     def apply_flat(f):
         """(m, N) interior-flattened block -> A applied row by row."""
@@ -327,10 +341,14 @@ def lobpcg(hier: Hierarchy, config: SolverConfig, k: int = 1,
         out = []
         for rhs in _unflat(r_flat, n, ndim):
             rhs_e = bk.encode(rhs)
+            if pd is not None:
+                rhs_e = rhs_e.to(pd)
             w = torch.zeros_like(rhs_e)
             for _ in range(precond_cycles):
-                w = cycles.v_cycle(hier, w, rhs_e, config)
-            out.append(bk.decode(w))
+                # A bfloat16 cycle returns float32 (cycles.v_cycle): the next
+                # one starts from it stored in pd, as JAX's does.
+                w = cycles.v_cycle(hier, w.to(rhs_e.dtype), rhs_e, config)
+            out.append(bk.decode(w).to(r_flat.dtype))
         return _flat(torch.stack(out), ndim)
 
     def rq_res(x):

@@ -9,6 +9,12 @@ kernels as the stationary solve: ``packed2d.residual`` on a packed level,
 ``stencil2d.residual`` or ``stencil3d.residual`` on a kernel-tier level.
 The JAX package runs the loop on the device in a ``while_loop``; here it
 runs on the host with one device-to-host copy an iteration.
+
+Mixed precision (``config.precond_dtype``, ``mixed_cycle_dtype``): the
+preconditioning cycle runs in that dtype on the packed 2D tier, cast at the
+preconditioner boundary only; CG's recurrence and dots stay in
+``config.dtype``. A bfloat16 cycle keeps bfloat16 on its packed fine
+level's storage only, and returns float32 (``cycles.v_cycle``).
 """
 from __future__ import annotations
 
@@ -21,9 +27,13 @@ from ..grids import Hierarchy, interior, pad_interior
 from . import cycles
 
 MIXED_TODO = ("{route} with precond_dtype={pd}: the JAX package runs this "
-              "route's preconditioning cycle in that dtype; mixed precision "
-              "is not ported to CUDA yet (ROADMAP.md, queue 1: mixed "
-              "precision)")
+              "route's preconditioning cycle in that dtype; 3D mixed "
+              "precision is not ported to CUDA yet (ROADMAP.md, queue 1: 3D "
+              "mixed precision)")
+
+# The dtypes a preconditioning cycle of the packed 2D tier runs in: the
+# packed kernels' bfloat16 storage and their compute dtypes.
+_CYCLE_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 
 # The JAX package casts a 3D cycle only while its TPU kernel's plane ring
 # fits VMEM (its stencil3d.fits_vmem: 17 aligned planes of (round8(n+2),
@@ -46,24 +56,30 @@ def _jax_casts_3d(n: int, dtype: torch.dtype) -> bool:
 
 
 def mixed_cycle_dtype(config: SolverConfig, route: str = "MG-PCG"):
-    """None where the JAX package's ``mixed_cycle_dtype`` returns None (the
-    cycle runs in ``config.dtype``); where JAX would cast the cycle to
-    ``precond_dtype`` (the packed 2D tier, 3D RB-GS on the kernel tier),
-    raise ``NotImplementedError`` naming ``route``, the solver that asked:
-    the port never runs another precision silently."""
+    """The dtype the preconditioning cycle is cast to, or None (it runs in
+    ``config.dtype``), where the JAX package's ``mixed_cycle_dtype`` says
+    so: ``precond_dtype`` on the packed 2D tier (the fine level packs),
+    None elsewhere. Where JAX would cast a 3D RB-GS cycle on the kernel
+    tier, raise ``NotImplementedError`` naming ``route``, the solver that
+    asked, and 3D mixed precision: the port never runs another precision
+    silently."""
     pd = config.precond_dtype if config.precond_dtype is not None \
         else config.dtype
     if pd == config.dtype:
         return None
     from .. import kernels     # deferred: kernels imports solvers.cycles
 
-    packed2d = (config.ndim == 2 and config.use_kernels
-                and config.n >= kernels.PACK_MIN_N)
-    stencil3d = (config.ndim == 3 and config.use_kernels
-                 and config.smoother == "rbgs"
-                 and config.n >= kernels.KERNEL3_MIN_N
-                 and _jax_casts_3d(config.n, pd))
-    if packed2d or stencil3d:
+    if (config.ndim == 2 and config.use_kernels
+            and config.n >= kernels.PACK_MIN_N):
+        if pd not in _CYCLE_DTYPES:
+            raise NotImplementedError(
+                f"{route} with precond_dtype={pd}: the packed kernels store "
+                "bfloat16, float32 or float64 only")
+        return pd
+    if (config.ndim == 3 and config.use_kernels
+            and config.smoother == "rbgs"
+            and config.n >= kernels.KERNEL3_MIN_N
+            and _jax_casts_3d(config.n, pd)):
         raise NotImplementedError(MIXED_TODO.format(route=route, pd=pd))
     return None
 
@@ -122,7 +138,7 @@ def solve_pcg(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
     ``SolveResult`` whose history holds the relative residual after each
     CG iteration.
     """
-    mixed_cycle_dtype(config)                 # raises where JAX would cast
+    pd = mixed_cycle_dtype(config)
     bk = cycles.get_backend(config)
     n, h = hier.fine.n, hier.fine.h
     b = bk.encode(pad_interior(interior(b)))
@@ -135,7 +151,11 @@ def solve_pcg(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
         return -bk.residual(p, zeros, n, h)
 
     def precond(r):
-        return cycles.cycle(hier, torch.zeros_like(r), r, config)
+        # Mixed precision: the cycle runs in pd, cast at the preconditioner
+        # boundary only (flexible CG tolerates the inexact M^-1).
+        rp = r if pd is None else r.to(pd)
+        return cycles.cycle(hier, torch.zeros_like(rp), rp,
+                            config).to(r.dtype)
 
     x, iters, hist, rel = cg_loop(
         x, b, dot=_dot, apply_a=apply_a, precond=precond,

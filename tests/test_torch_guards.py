@@ -224,9 +224,11 @@ def _bell(dtype=torch.float64):
     (lambda: packed2d.residual_norm_sq(_packed(7), _packed(9), 7, 0.125),
      ValueError),
     (lambda: packed2d.residual(_grid(7), _grid(7), 7, 0.125), ValueError),
+    # bfloat16 storage is the packed residual's mixed mode, with b of the
+    # same dtype (a float32 b is refused).
     (lambda: packed2d.residual(_packed(7, torch.bfloat16),
-                               _packed(7, torch.bfloat16), 7, 0.125),
-     NotImplementedError),
+                               _packed(7, torch.float32), 7, 0.125),
+     ValueError),
     (lambda: stencil3d.residual(_cube(7), _cube(9), 7, 0.125), ValueError),
     (lambda: stencil3d.residual(_cube(7), _cube(7), 9, 0.1), ValueError),
     (lambda: stencil3d.residual(_grid(7), _grid(7), 7, 0.125), ValueError),
@@ -245,7 +247,24 @@ def _bell(dtype=torch.float64):
     (lambda: packed2d.rbgs_sweep(_packed(7), _packed(7), 7, 0.125,
                                  sweeps=5), ValueError),
     (lambda: packed2d.rbgs_sweep(_packed(7, torch.bfloat16),
-                                 _packed(7, torch.bfloat16), 7, 0.125),
+                                 _packed(7, torch.float32), 7, 0.125),
+     ValueError),
+    # The packed legs' mixed modes: a float32 coarse correction (not
+    # bfloat16), x' in x's dtype or float32; the fused residual norm's
+    # bfloat16 mode is not ported (no mixed path reaches it).
+    (lambda: packed2d.prolong_add_smooth(
+        _packed(7, torch.bfloat16), _grid(3, torch.bfloat16),
+        _packed(7, torch.bfloat16), 7, 3, 0.125, kind="rbgs", omega=1.0,
+        sweeps=1), TypeError),
+    (lambda: packed2d.prolong_add_smooth(
+        _packed(7, torch.bfloat16), _grid(3, torch.float32),
+        _packed(7, torch.bfloat16), 7, 3, 0.125, kind="rbgs", omega=1.0,
+        sweeps=1, out_dtype=torch.float64), ValueError),
+    (lambda: packed2d.smooth_residual_restrict(
+        _packed(7, torch.bfloat16), _packed(7, torch.float32), 7, 0.125,
+        kind="rbgs", omega=1.0, sweeps=1), ValueError),
+    (lambda: packed2d.residual_norm_sq(_packed(7, torch.bfloat16),
+                                       _packed(7, torch.bfloat16), 7, 0.125),
      NotImplementedError),
     (lambda: transfer2d.residual_restrict(_grid(7), _grid(7, torch.float32),
                                           7, 0.125), ValueError),
@@ -280,7 +299,8 @@ def _bell(dtype=torch.float64):
         "stencil3d-shape", "stencil3d-n", "stencil3d-2d-input",
         "stencil3d-bf16", "stencil3d-out-dtype", "stencil3d-mixed-dtype",
         "sweep-cap", "sweep-shape", "packed-sweep-cap", "packed-sweep-bf16",
-        "transfer-mixed-dtype", "transfer-coarse-shape", "spmv-bf16",
+        "packed-up-bf16-e", "packed-up-out-dtype", "packed-down-bf16-b",
+        "packed-resnorm-bf16", "transfer-mixed-dtype", "transfer-coarse-shape", "spmv-bf16",
         "spmv-mixed-dtype", "spmv-shape", "spmv-other-device",
         "spmv-diags-offsets", "bell-bf16", "bell-mixed-dtype", "bell-m",
         "bell-1d-input", "bell-other-device"])
@@ -295,7 +315,10 @@ def test_kernel_wrappers_reject_bad_inputs(bad, err):
             packed2d.up_launches, packed2d.resnorm_launches,
             packed2d.residual_launches, packed2d.rbgs_launches,
             stencil3d.residual_launches, stencil3d.jacobi_launches,
-            stencil3d.rbgs_launches, spmv.launches, bell.launches) == (0,) * 17
+            stencil3d.rbgs_launches, spmv.launches, bell.launches,
+            packed2d.down_bf16_launches, packed2d.up_bf16_launches,
+            packed2d.up_bf16_f32_launches, packed2d.residual_bf16_launches,
+            packed2d.rbgs_bf16_launches) == (0,) * 22
 
 
 def _solve(**kw):
@@ -459,11 +482,12 @@ def test_kernel_backend_smooth_raises_on_kernel_tier(monkeypatch):
 @pytest.mark.parametrize("call", ["pcg", "eigensolve", "fmg", "as_csr",
                                   "as_coo"])
 def test_unported_solver_methods_raise(call, monkeypatch):
-    # MG-PCG and the eigensolvers are ported; on the packed tier a
-    # precond_dtype other than the dtype asks for mixed precision, which is
-    # not. FMG is ported and reads no precond_dtype (as in JAX): it runs and
-    # equals the plain route. as_csr/as_coo are ported (ops/sparse.py): they
-    # return the JAX package's matrices.
+    # Each is ported now and runs with a bfloat16 precond_dtype on the
+    # packed tier. MG-PCG and the eigensolvers cast their cycles to it (2D
+    # mixed precision) and reach the plain route's full-precision answer.
+    # FMG reads no precond_dtype (as in JAX): it runs and equals the plain
+    # route. as_csr/as_coo (ops/sparse.py) return the JAX package's
+    # matrices.
     monkeypatch.setattr(kernels, "PACK_MIN_N", 7)
     solver = mt.MultigridSolver(mt.poisson2d(
         k=3, dtype=torch.float64, use_kernels=True,
@@ -493,16 +517,23 @@ def test_unported_solver_methods_raise(call, monkeypatch):
             np.testing.assert_array_equal(getattr(got, f).numpy(),
                                           np.asarray(getattr(want, f)))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP") as info:
-        if call == "pcg":
-            solver.solve(method="pcg")
-        else:
-            getattr(solver, call)()
-    assert ("MG-PCG" if call == "pcg" else "eigensolver") in str(info.value)
+    plain = mt.MultigridSolver(mt.poisson2d(k=3, dtype=torch.float64,
+                                            device="cpu"))
+    if call == "pcg":
+        got, want = solver.solve(method="pcg"), plain.solve(method="pcg")
+        assert got.converged and got.x.dtype == torch.float64
+        np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=0,
+                                   atol=1e-8 * want.x.abs().max().item())
+    else:
+        got, want = solver.eigensolve(), plain.eigensolve()
+        assert got.converged
+        np.testing.assert_allclose(got.eigenvalues.numpy(),
+                                   want.eigenvalues.numpy(), rtol=1e-8)
 
 
 @pytest.mark.parametrize("item", ["sharded 3D slabs and pencils",
-                                  "mixed precision", "utils"])
+                                  "3D mixed precision",
+                                  "sharded mixed precision", "utils"])
 def test_remaining_items_raise_naming_them(item, monkeypatch):
     """The parts still to port raise NotImplementedError naming their
     ROADMAP.md item, and run nothing else."""
@@ -511,13 +542,20 @@ def test_remaining_items_raise_naming_them(item, monkeypatch):
     from multigridcmt_tpu_torch.utils import profiling
 
     monkeypatch.setattr(kernels, "PACK_MIN_N", 7)
+    monkeypatch.setattr(kernels, "KERNEL3_MIN_N", 7)
     with pytest.raises(NotImplementedError, match="ROADMAP") as info:
         if item == "utils":
             profiling.trace("cycle")
-        elif item == "mixed precision":
-            prob = mt.poisson2d(k=3, dtype=torch.float64, use_kernels=True,
-                                precond_dtype=torch.bfloat16, device="cpu")
+        elif item == "3D mixed precision":
+            # JAX casts a 3D RB-GS cycle on its kernel tier.
+            prob = mt.poisson(k=3, ndim=3, dtype=torch.float64,
+                              smoother="rbgs", use_kernels=True,
+                              precond_dtype=torch.bfloat16, device="cpu")
             krylov.solve_pcg(prob.hierarchy, prob.b, prob.config)
+        elif item == "sharded mixed precision":
+            # Raised before the mesh is read.
+            sharded.ShardedSolver(SolverConfig(
+                ndim=2, k=5, precond_dtype=torch.bfloat16), mesh=None)
         else:
             # Raised before the mesh is read.
             sharded.ShardedSolver(SolverConfig(ndim=3, k=5), mesh=None)
@@ -839,7 +877,7 @@ def _chip_smoke_rows(module: str) -> dict:
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert len(smoke.KERNELS) == 27
+    assert len(smoke.KERNELS) == 32
     return {name: row for name, row in smoke.KERNELS.items()
             if row[0] == module}
 
@@ -878,3 +916,30 @@ def test_chip_smoke_lists_the_plocal2d_kernels():
     assert {name: row[4] for name, row in rows.items()} == {
         "plocal2d_down": "S1", "plocal2d_up": "S1", "plocal2d_resnorm": "S1",
         "plocal2d_residual": "S1pcg", "plocal2d_apply": "S1pcg"}
+
+
+def test_chip_smoke_lists_the_packed2d_bf16_modes():
+    """The packed2d kernels' bfloat16 modes, each built from a file of its
+    own and on the mixed path that launches it on the card (the up leg's
+    bfloat16 store, which no solver runs, by direct calls)."""
+    rows = {name: row for name, row in _chip_smoke_rows("packed2d").items()
+            if "bf16" in name}
+    src = "multigridcmt_tpu_torch/kernels/csrc/"
+    tpu = "multigridcmt_tpu/kernels/packed2d.py:"
+    assert {name: row[1:] for name, row in rows.items()} == {
+        "packed2d_down_bf16": ("down_bf16_launches", src + "packed2d_bf16.cu",
+                               tpu + "839", "mixed2d"),
+        "packed2d_up_bf16_f32": ("up_bf16_f32_launches",
+                                 src + "packed2d_up_bf16_f32.cu",
+                                 tpu + "1067", "mixed2d"),
+        "packed2d_up_bf16": ("up_bf16_launches", src + "packed2d_up_bf16.cu",
+                             tpu + "1067", None),
+        "packed2d_rbgs_bf16": ("rbgs_bf16_launches",
+                               src + "packed2d_sweep_bf16.cu", tpu + "305",
+                               "mixedB"),
+        "packed2d_residual_bf16": ("residual_bf16_launches",
+                                   src + "packed2d_bf16.cu", tpu + "440",
+                                   "mixedA")}
+    for name, row in rows.items():
+        assert hasattr(packed2d, row[1])
+        assert (ROOT / row[2]).is_file()

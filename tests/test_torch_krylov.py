@@ -175,12 +175,20 @@ MIXED_CASES = [
 @pytest.mark.parametrize("ndim,k,smoother,use_kernels,pd", MIXED_CASES)
 def test_mixed_cycle_dtype_raises_where_jax_casts(ndim, k, smoother,
                                                   use_kernels, pd):
+    """Where JAX casts a 2D cycle (the packed tier) the port casts it to the
+    same dtype; where JAX casts a 3D one (RB-GS on its kernel tier) the port
+    raises, naming 3D mixed precision; elsewhere both return None."""
     jcfg = JConfig(ndim=ndim, k=k, dtype=jnp.float32, smoother=smoother,
                    use_pallas=use_kernels,
                    precond_dtype=None if pd is None else jnp.dtype(pd))
     cfg = convert.config_from_jax(jcfg)
-    if jkrylov.mixed_cycle_dtype(jcfg) is None:
+    want = jkrylov.mixed_cycle_dtype(jcfg)
+    if want is None:
         assert krylov.mixed_cycle_dtype(cfg) is None
+    elif ndim == 2:
+        assert krylov.mixed_cycle_dtype(cfg) == getattr(
+            torch, jnp.dtype(want).name)
     else:
-        with pytest.raises(NotImplementedError, match="mixed precision"):
+        with pytest.raises(NotImplementedError,
+                           match="3D mixed precision"):
             krylov.mixed_cycle_dtype(cfg)

@@ -160,11 +160,13 @@ def test_kernel_source_runs_the_stream():
         assert re.search(rf"launch_residual_restrict<{ty}>\(\s*u, b, rc, "
                          r"Unpacked\{n\}", cu)
     assert '#include "packed2d_legs.cuh"' in cu
+    # (The trailing template arguments are the frame and the storage type,
+    # T for this float32/float64 stream.)
     assert re.search(r"residual_restrict_kernel\([^)]*\)\s*\{\s*"
-                     r"down_stream<T, mg::kRbgs, 0, false>\(u, b, nullptr",
-                     legs)
+                     r"down_stream<T, mg::kRbgs, 0, false, Unpacked, T>"
+                     r"\(u, b, nullptr", legs)
     assert re.search(r"down_kernel\([^)]*\)\s*\{\s*"
-                     r"down_stream<T, KIND, K, true>", legs)
+                     r"down_stream<T, KIND, K, true, Fr, S>", legs)
     assert "rr_kernel" not in cu
     for helper in ("set_smem", "load_tile", "core_residual",
                    "restrict_core"):
