@@ -64,6 +64,16 @@ Phases:
          solution) with exact launches of the packed level's bfloat16
          kernels; LOBPCG and II at 4095^2 float64 with a bfloat16
          preconditioner, lambda_1 within 1e-8 of the full-precision run's;
+       * 3D mixed precision: MG-PCG at 511^3 float32 with
+         precond_dtype=torch.bfloat16 (mixed3d) against the float32 PCG
+         (converged, in at most ceil(1.2 x its iterations) + 1, max error
+         against the analytic solution under 2e-3), with exact launches: a
+         preconditioning cycle's two bfloat16 RB-GS sweeps and bfloat16
+         residual at 511 and no float32 pre-smoothing there, all sweeps
+         together PCG's float32 count; LOBPCG at 511^3 and II at 255^3
+         float64 with a bfloat16 preconditioner, lambda_1 within 1e-8 of
+         the full-precision runs' and of the exact discrete value, in at
+         most 3 outer steps more;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -107,7 +117,11 @@ Phases:
      Jacobi nu = 2, the 1- and 4-sweep sweep, both sigmas), 2999 and 61
      (every sweep count, logical and packed coarse grids), each bfloat16
      output within one bfloat16 ulp plus BF16_SCALE_TOL of the field's
-     largest value, at most BF16_SHARE of the points differing;
+     largest value, at most BF16_SHARE of the points differing; the
+     stencil3d kernels' bfloat16 modes (the residual, storing float32; the
+     Jacobi and RB-GS sweeps at 1 and 2 sweeps, storing bfloat16 or, by
+     out_dtype, float32) at 511^3, both sigmas, and on a slab-and-pencil
+     stack of it, by the same rule;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -151,8 +165,11 @@ Phases:
      peak device memory; the bfloat16 modes at 4095^2 against their plain
      versions and beside their float32 twins (chained and device), and on
      each mixed route a preconditioning cycle's device busy and idle share
-     and a PCG solve's wall, with a bfloat16 and a float32 cycle. Every
-     kernel row also gets the profiler's device time a call (device_ms).
+     and a PCG solve's wall, with a bfloat16 and a float32 cycle; the
+     stencil3d bfloat16 modes at 511^3 so, beside their float32 twins and
+     their bounds at bfloat16 bytes, and the mixed3d cycle's busy and idle
+     and its PCG's wall. Every kernel row also gets the profiler's device
+     time a call (device_ms).
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -189,7 +206,13 @@ applies of Chebyshev's pre-smoothing) and the up leg with bfloat16 x and
 b, a float32 correction and float32 x' (then, on the Chebyshev route, the
 float32 residual applies of the post-smoothing); 2047..255 run the float32
 kernels, as in a float32 cycle. The up leg storing bfloat16 (the TPU
-kernel's own mode) runs on no path: direct calls.
+kernel's own mode) runs on no path: direct calls. Each bfloat16
+preconditioning cycle at 511^3 runs, on the 511 level, nu1 = 2 bfloat16
+RB-GS sweeps and the bfloat16 residual (storing float32); the correction
+add x + P e promotes 511 to float32 and the post-smoothing runs the
+float32 sweeps; 255 and 127 run the float32 kernels, as in a float32
+cycle. The sweeps storing float32 (out_dtype) and the bfloat16 Jacobi
+modes run on no path: direct calls.
 
 FMG and the eigensolvers add no kernel. An FMG walk's V-cycle started at a
 level runs the legs of the kernel levels at and below it; b's restriction
@@ -202,9 +225,10 @@ by the plain stencil. The sharded FMG walk's cycles run the unpacked
 local2d legs (as v_cycle_fn), its polishing cycles the packed route.
 
 Phase 1 also reports ptxas's registers and spills of the row-streaming
-legs and sweeps, the local2d sweeps (UTile) among them, the BELL SpMM
-kernels and the residual-restriction stream (from the build's nvcc.log),
-and fails if either of the last two spills.
+legs and sweeps, the local2d sweeps (UTile) among them, the stencil3d
+z-march kernels in every storage mode, the BELL SpMM kernels and the
+residual-restriction stream (from the build's nvcc.log), and fails if
+either of the last two spills.
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -449,6 +473,20 @@ MIXED_ROUTES = {"mixed2d": dict(smoother="rbgs"),
                 "mixedB": dict(smoother="rbgs", nu1=4, nu2=4),
                 "mixedA": dict(smoother="chebyshev")}
 MIXED_EIGEN = ("lobpcg", "ii")
+# 3D mixed precision: the stencil3d kernels' bfloat16 modes at 511^3 and on
+# one slab-and-pencil stack of it (goff, roff, p, r: global planes
+# 200..262, rows -1..511, the sweep's three chunks of 21), each bfloat16
+# output by the bfloat16 rule above; the sweeps' float32 outputs
+# (out_dtype: red points rounded to bfloat16, black ones float32) by the
+# same per-point bound, a point counting as differing where it parts by
+# more than TOL[float32] of max|plain|; the residual's float32 output to
+# TOL[float32]. Mixed PCG at 511^3 float32 (mixed3d) against the float32
+# PCG as in 2D, max error under MAXERR[3]; the mixed eigensolves, float64,
+# at (method, k): lambda_1 within MIXED_EIGEN_RTOL of the full run's and of
+# the exact discrete value, in at most MIXED3D_EXTRA_STEPS outer steps more.
+MIXED3D_STACK = (200, -1, 63, 513)
+MIXED3D_EIGEN = (("lobpcg", MAIN_K3), ("ii", MAIN_K3 - 1))
+MIXED3D_EXTRA_STEPS = 3
 # Config 3 (BASELINE.json): one FMG pass at 1023^2, scored by its
 # discrete-L2 error against the analytic solution, and second order over
 # FMG_RATIO_K; config 4: the smallest eigenpair of the 511^2 Laplacian.
@@ -602,15 +640,18 @@ OTHER_KERNEL = re.compile(r"(bell_spmm_kernel|residual_restrict_kernel)I([fd])"
                           r"(?:Li(\d+)E)?")
 
 
-def ptxas_report(log_path) -> None:
-    """Log ptxas's registers and spill bytes of every row-streaming leg
-    and sweep kernel, a line a frame, leg, type and kind (stage counts in
-    order; the up leg's packed-e twins on the whole grid apart), and of
-    the BELL SpMM kernels (a line a type, m-tiles in order) and the
-    residual-restriction stream; fail if one of the last two spills."""
+# A stencil3d z-march kernel's mangled name: kernel, compute type, band
+# rows, mode (the pass: 0 residual, 1 Jacobi), and the bfloat16 storage (an
+# f after it: a float32 output).
+STENCIL3D_KERNEL = re.compile(r"(rbgs|pass)_kernelI([fd])Li(\d+)E"
+                              r"(?:Li([01])E)?(13__nv_bfloat16(f)?)?")
+
+
+def ptxas_props(text: str) -> dict:
+    """{mangled kernel name: {"regs": registers, "spill": spill bytes}}
+    from ptxas's -v output."""
     props = {}
     name = None
-    text = Path(log_path).read_text(encoding="utf-8", errors="replace")
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -624,6 +665,43 @@ def ptxas_report(log_path) -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             props.setdefault(name, {})["regs"] = int(m.group(1))
+    return props
+
+
+def stencil3d_ptxas(props: dict) -> dict:
+    """{(kernel, storage, mode): (registers, spill bytes)} of the stencil3d
+    kernels among ``props``; storage "f32", "f64", "bf16" or "bf16
+    f32-out"."""
+    out = {}
+    for mangled, prop in props.items():
+        m = STENCIL3D_KERNEL.search(mangled)
+        if not m or "regs" not in prop:
+            continue
+        kernel, ty, _, mode, bf16, f32_out = m.groups()
+        storage = (("bf16" + (" f32-out" if f32_out else "")) if bf16
+                   else "f32" if ty == "f" else "f64")
+        what = {None: "sweep", "0": "residual", "1": "jacobi"}[mode]
+        out[(kernel, storage, what)] = (prop["regs"], prop.get("spill", 0))
+    return out
+
+
+def ptxas_report(log_path) -> dict:
+    """Log ptxas's registers and spill bytes of every row-streaming leg
+    and sweep kernel, a line a frame, leg, type and kind (stage counts in
+    order; the up leg's packed-e twins on the whole grid apart), of the
+    stencil3d z-march kernels (a line a kernel and storage; returned, as
+    stencil3d_ptxas gives them), and of the BELL SpMM kernels (a line a
+    type, m-tiles in order) and the residual-restriction stream; fail if
+    one of the last two spills."""
+    props = ptxas_props(Path(log_path).read_text(encoding="utf-8",
+                                                 errors="replace"))
+    march = stencil3d_ptxas(props)
+    require({k[1] for k in march} == {"f32", "f64", "bf16", "bf16 f32-out"},
+            f"ptxas report lacks stencil3d kernels: {sorted(march)}")
+    for key in sorted(march):
+        regs, spill = march[key]
+        log(f"ptxas stencil3d {' '.join(key)}: {regs}r"
+            + (f" spill {spill}B" if spill else ""))
     rows = {}
     for mangled, prop in props.items():
         m = LEG_KERNEL.search(mangled)
@@ -658,6 +736,7 @@ def ptxas_report(log_path) -> None:
         log(f"ptxas {' '.join(key)}: {cells}")
         require(all(sp == 0 for *_, sp in others[key]),
                 f"ptxas: {' '.join(key)} spills ({cells})")
+    return march
 
 
 def check_pair(label: str, got, want, tol: float, shape=None,
@@ -863,16 +942,22 @@ def compare_packed_residual(main_err: dict) -> None:
         del u, b, su, sb
 
 
-def check_bf16(label: str, got, want):
+def check_bf16(label: str, got, want, f32_out: bool = False,
+               ghosts: bool = True):
     """Hold a bfloat16 kernel output against its plain version: each point
     within one bfloat16 ulp of the plain value plus BF16_SCALE_TOL of
     max|plain|, at most BF16_SHARE of the points not equal, ghosts and pad
-    lanes zero. Returns (max abs error, relative error, tol) as check_pair,
-    tol the relative error the rule allows at the largest value (an ulp is
-    at most 2^-7 of a value)."""
+    lanes zero (unless ``ghosts`` is False: a plane stack's edge rows).
+    With ``f32_out`` both are float32 (a stencil3d sweep's out_dtype: red
+    points rounded to bfloat16, black ones not) and a point counts as
+    differing where it parts by more than TOL[float32] of max|plain|.
+    Returns (max abs error, relative error, tol) as check_pair, tol the
+    relative error the rule allows at the largest value (an ulp is at most
+    2^-7 of a value)."""
     torch.cuda.synchronize()
-    require(got.dtype == want.dtype == torch.bfloat16,
-            f"{label}: {got.dtype} against {want.dtype}, not bfloat16")
+    dtype = torch.float32 if f32_out else torch.bfloat16
+    require(got.dtype == want.dtype == dtype,
+            f"{label}: {got.dtype} against {want.dtype}, not {dtype}")
     g, w = logical(got).double(), logical(want).double()
     diff = (g - w).abs()
     scale = w.abs().max().item()
@@ -880,15 +965,16 @@ def check_bf16(label: str, got, want):
     ulp = torch.where(w != 0, torch.ldexp(torch.ones_like(w), ex - 8),
                       torch.zeros_like(w))
     excess = (diff - ulp - BF16_SCALE_TOL * scale).max().item()
-    share = (diff > 0).double().mean().item()
+    noise = TOL[torch.float32] * scale if f32_out else 0.0
+    share = (diff > noise).double().mean().item()
     ulps = (diff / torch.where(ulp > 0, ulp, torch.full_like(ulp, math.inf))
             ).max().item()
     err = diff.max().item()
     rel = err / scale if scale > 0 else err
     log(f"  {label}: rel {rel:.3e}, {share:.2e} of the points differ, at "
         f"most {ulps:.3g} ulp")
-    require(ghosts_zero(g) and bool(g.isfinite().all()) and excess <= 0
-            and share <= BF16_SHARE,
+    require((not ghosts or ghosts_zero(g)) and bool(g.isfinite().all())
+            and excess <= 0 and share <= BF16_SHARE,
             f"{label}: {share:.3e} of the points differ (> {BF16_SHARE}), "
             f"or by more than an ulp + {BF16_SCALE_TOL} of the scale "
             f"({excess:.3e} past it), or bad ghosts/values")
@@ -993,6 +1079,69 @@ def compare_mixed(main_err: dict) -> None:
                 main_err["packed2d_residual_bf16"] = err
         del su, sb, e, se
         torch.cuda.empty_cache()
+
+
+def compare_mixed3d(main_err: dict) -> None:
+    """The stencil3d kernels' bfloat16 modes against their plain versions at
+    511^3 (both sigmas) and on MIXED3D_STACK (sigma = SIGMA): the residual
+    (float32 out), Jacobi and RB-GS at 1 and 2 sweeps, each storing
+    bfloat16 and, by out_dtype, float32 on its last sweep. A 2-sweep call's
+    output is held against one plain sweep of the kernel's own first sweep
+    (a launch apiece): its first sweep stores bfloat16, so a one-ulp flip
+    there (the kernels contract into FMAs where the plain versions round
+    twice) moves its neighbours' second sweep by ~omega/6 of that ulp,
+    several ulp of a small value."""
+    from multigridcmt_tpu_torch.kernels import stencil3d
+
+    f32 = torch.float32
+    n = 2 ** MAIN_K3 - 1
+    h = 1.0 / (n + 1)
+    u, b = cube_inputs(n, f32, seed=3 * n + 17)
+    su, sb = u.to(torch.bfloat16), b.to(torch.bfloat16)
+    del u, b
+    goff, roff, p, r = MIXED3D_STACK
+    stack = [cut_stack(g, n, goff, roff, p, r) for g in (su, sb)]
+    # (wrapper, arguments, main_err key: at sigma = 0 on the whole grid;
+    # the cycle's RB-GS call takes nu = 2 sweeps, the others one launch)
+    modes = [("residual", {}, "stencil3d_residual_bf16")]
+    for mode, kw in (("jacobi_sweep", dict(omega=omega3())),
+                     ("rbgs_sweep", {})):
+        for nu in (1, 2):
+            for out in (None, f32):
+                key = ("stencil3d_" + mode.split("_")[0] + "_bf16"
+                       + ("" if out is None else "_f32"))
+                main = nu == (2 if key == "stencil3d_rbgs_bf16" else 1)
+                modes.append((mode, dict(kw, sweeps=nu, out_dtype=out),
+                              key if main else None))
+    for where, (uu, bb), off in (
+            (f"n={n}", (su, sb), {}),
+            (f"n={n} stack p={p} r={r} goff={goff} roff={roff}", stack,
+             dict(goff=goff, roff=roff))):
+        whole = not off
+        for sigma in ((0.0, SIGMA) if whole else (SIGMA,)):
+            for mode, kw, key in modes:
+                label = f"bf16 stencil3d {mode} {where} sigma={sigma} {kw}"
+                fn = getattr(stencil3d, mode)
+                got = fn(uu, bb, n, h, sigma=sigma, **off, **kw)
+                start, pkw = uu, kw
+                if kw.get("sweeps", 1) == 2:
+                    start = fn(uu, bb, n, h, sigma=sigma, **off,
+                               **dict(kw, sweeps=1, out_dtype=None))
+                    pkw = dict(kw, sweeps=1)
+                want = getattr(stencil3d, mode + "_plain")(
+                    start, bb, n, h, sigma=sigma, **off, **pkw)
+                if mode == "residual":
+                    require(got.dtype == f32, f"{label}: r is {got.dtype}")
+                    err = check_pair(label, got, want, TOL[f32],
+                                     ghosts=whole)
+                else:
+                    err = check_bf16(label, got, want,
+                                     f32_out=kw["out_dtype"] is not None,
+                                     ghosts=whole)
+                if whole and sigma == 0.0 and key is not None:
+                    main_err[key] = err
+    del su, sb, stack
+    torch.cuda.empty_cache()
 
 
 def compare_composed(main_err: dict) -> None:
@@ -1151,18 +1300,23 @@ def compare_stencil3d(main_err: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def cut_stack(g, n, goff, roff, p, r) -> torch.Tensor:
+    """Planes goff .. goff + p - 1 and rows roff .. roff + r - 1 of the
+    (n+2)^3 grid g, zero where they leave it."""
+    s = torch.zeros((p, r, n + 2), dtype=g.dtype, device="cuda")
+    z, y = max(0, -goff), max(0, roff)
+    planes = g[max(goff, 0):goff + p, y:roff + r]
+    s[z:z + planes.shape[0], y - roff:y - roff + planes.shape[1]] = planes
+    return s
+
+
 def compare_stack(u, b, n, goff, roff, p, r, modes, tol) -> None:
     """Each stencil3d mode on planes goff .. goff + p - 1 and rows roff ..
     roff + r - 1 of the grid u, b (zero where they leave it), sigma =
     SIGMA."""
     from multigridcmt_tpu_torch.kernels import stencil3d
 
-    su, sb = (torch.zeros((p, r, n + 2), dtype=u.dtype, device="cuda")
-              for _ in range(2))
-    z, y = max(0, -goff), max(0, roff)
-    for s, g in ((su, u), (sb, b)):
-        planes = g[max(goff, 0):goff + p, y:roff + r]
-        s[z:z + planes.shape[0], y - roff:y - roff + planes.shape[1]] = planes
+    su, sb = (cut_stack(g, n, goff, roff, p, r) for g in (u, b))
     name = f"{str(u.dtype).split('.')[-1]} n={n}"
     for mode, key, kw, _ in modes:
         check_pair(
@@ -1671,6 +1825,7 @@ def phase_compare():
     compare_local2d(main_err)
     compare_plocal2d(main_err)
     compare_mixed(main_err)
+    compare_mixed3d(main_err)
     return main_err
 
 
@@ -1802,16 +1957,51 @@ KERNELS = {
                          "multigridcmt_tpu_torch/kernels/csrc/"
                          "packed2d_up_bf16.cu",
                          "multigridcmt_tpu/kernels/packed2d.py:1067", None),
+    # The bfloat16 modes of the stencil3d kernels (3D mixed precision): the
+    # residual (float32 out) and the RB-GS sweep storing bfloat16 run on
+    # the mixed 3D cycle's fine level; the sweep storing float32 (the TPU
+    # kernel's out_dtype, which the cycle does not take: its correction add
+    # promotes) and both Jacobi modes (a 3D Jacobi cycle runs plain) on no
+    # path: direct calls only.
+    "stencil3d_residual_bf16": ("stencil3d", "residual_bf16_launches",
+                                "multigridcmt_tpu_torch/kernels/csrc/"
+                                "stencil3d_bf16.cu",
+                                "multigridcmt_tpu/kernels/stencil3d.py:474",
+                                "mixed3d"),
+    "stencil3d_rbgs_bf16": ("stencil3d", "rbgs_bf16_launches",
+                            "multigridcmt_tpu_torch/kernels/csrc/"
+                            "stencil3d_bf16.cu",
+                            "multigridcmt_tpu/kernels/stencil3d.py:510",
+                            "mixed3d"),
+    "stencil3d_rbgs_bf16_f32": ("stencil3d", "rbgs_bf16_f32_launches",
+                                "multigridcmt_tpu_torch/kernels/csrc/"
+                                "stencil3d_bf16.cu",
+                                "multigridcmt_tpu/kernels/stencil3d.py:510",
+                                None),
+    "stencil3d_jacobi_bf16": ("stencil3d", "jacobi_bf16_launches",
+                              "multigridcmt_tpu_torch/kernels/csrc/"
+                              "stencil3d_bf16.cu",
+                              "multigridcmt_tpu/kernels/stencil3d.py:485",
+                              None),
+    "stencil3d_jacobi_bf16_f32": ("stencil3d", "jacobi_bf16_f32_launches",
+                                  "multigridcmt_tpu_torch/kernels/csrc/"
+                                  "stencil3d_bf16.cu",
+                                  "multigridcmt_tpu/kernels/stencil3d.py:485",
+                                  None),
 }
 # The runs of phase 3 that drive a main path through the public API.
 MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
              "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell", "S1", "S1pcg",
              "S1unpacked", "S2", "S3", "S4", "S4cheb", "fmg1023", "fmg4095",
              "eigen511_ii", "eigen511_rqi", "eigen511_lobpcg", "S1fmg",
-             "mixed2d", "mixedB", "mixedA", "mixed_lobpcg", "mixed_ii")
+             "mixed2d", "mixedB", "mixedA", "mixed_lobpcg", "mixed_ii",
+             "mixed3d", "mixed3d_lobpcg", "mixed3d_ii")
 # Direct calls of a kernel that no main path launches.
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d",
-               "packed2d_up_bf16": "up_bf16_direct"}
+               "packed2d_up_bf16": "up_bf16_direct",
+               "stencil3d_rbgs_bf16_f32": "mixed3d_direct",
+               "stencil3d_jacobi_bf16": "mixed3d_direct",
+               "stencil3d_jacobi_bf16_f32": "mixed3d_direct"}
 
 
 def kernel_module(mod: str):
@@ -2924,6 +3114,133 @@ def paths_mixed(runs: dict) -> None:
     del su, sb, e
 
 
+def paths_mixed3d(runs: dict) -> None:
+    """3D mixed precision: MG-PCG at 511^3 float32 with
+    precond_dtype=torch.bfloat16 (mixed3d) beside the float32 PCG, with
+    exact launches (each preconditioning cycle's nu1 bfloat16 RB-GS sweeps
+    and bfloat16 residual at 511, no float32 pre-smoothing there, the
+    float32 kernels after the correction add and below; all sweeps together
+    PCG's float32 count); MultigridSolver.eigensolve(k=1) in float64 with a
+    bfloat16 preconditioner at MIXED3D_EIGEN against the full-precision
+    runs and the exact discrete lambda_1; and one direct call of each
+    bfloat16 mode that no solver runs."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.kernels import stencil3d
+    from multigridcmt_tpu_torch.ops import laplacian
+    from multigridcmt_tpu_torch.utils.profiling import count_cycles
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def build(k, dtype, pd=None):
+        return mt.poisson3d(k=k, dtype=dtype, smoother="rbgs",
+                            use_kernels=True, device="cuda",
+                            precond_dtype=pd)
+
+    full = mt.MultigridSolver(build(MAIN_K3, f32)).solve(method="pcg")
+    prob = build(MAIN_K3, f32, bf16)
+    solver = mt.MultigridSolver(prob)
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = counted(lambda: solver.solve(method="pcg"))
+    runs["peak_mixed3d"] = torch.cuda.max_memory_allocated()
+    check_solve(f"mixed3d: mixed pcg 3D k={MAIN_K3} float32 rbgs", prob,
+                solver, res, wall, 3, runs["peak_mixed3d"])
+    bound = math.ceil(MIXED_ITER_FACTOR * full.iters) + 1
+    log(f"  float32 pcg: {full.iters} iterations, converged "
+        f"{full.converged}, max error vs u_exact "
+        f"{(full.x - prob.u_exact).abs().max().item():.4e}; bound {bound}")
+    require(full.converged and res.converged and res.iters <= bound,
+            f"mixed3d: {res.iters} iterations (converged {res.converged}) "
+            f"against float32's {full.iters}: bound {bound}")
+    cfg, tier = prob.config, tier3(prob)
+    i = res.iters
+    c = i + 1                               # preconditioning cycles
+
+    def cycle_counts(c: int, tier: int, checks: int = 0) -> dict:
+        """c mixed cycles on ``tier`` kernel levels: on the fine one nu1
+        bfloat16 sweeps and the bfloat16 residual, nu2 float32 sweeps after
+        the correction add; on the others the float32 sweeps and residual;
+        ``checks`` more float32 (or float64) residuals on the fine one."""
+        return dict(stencil3d_rbgs_bf16=cfg.nu1 * c,
+                    stencil3d_residual_bf16=c,
+                    stencil3d_rbgs=(cfg.nu2 + (tier - 1) * (cfg.nu1
+                                                            + cfg.nu2)) * c,
+                    stencil3d_residual=(tier - 1) * c + checks)
+
+    # CG's residual once and its operator apply an iteration at 511.
+    require_counts("mixed3d", counts, **cycle_counts(c, tier, 1 + i))
+    sweeps = counts["stencil3d_rbgs"] + counts["stencil3d_rbgs_bf16"]
+    require(sweeps == tier * (cfg.nu1 + cfg.nu2) * c,
+            f"mixed3d: {sweeps} sweeps, not PCG's float32 count")
+    runs["mixed3d"] = counts
+    del full, prob, solver, res
+    torch.cuda.empty_cache()
+
+    for method, k in MIXED3D_EIGEN:
+        n = 2 ** k - 1
+        exact = 3 * laplacian.eigenvalue_1d(1, n, 1.0 / (n + 1))
+        out = {}
+        for pd in (None, bf16):
+            prob = build(k, torch.float64, pd)
+            solver = mt.MultigridSolver(prob)
+            torch.cuda.reset_peak_memory_stats()
+            with count_cycles() as cyc:
+                res, counts, wall = counted(
+                    lambda: solver.eigensolve(k=1, method=method))
+            peak = torch.cuda.max_memory_allocated()
+            lam = res.eigenvalues[0].item()
+            label = (f"mixed3d eigen{n} {method} float64 precond_dtype={pd}")
+            log(f"{label}: {res.iters} outer steps, {cyc.count} cycles, "
+                f"converged {res.converged}, lambda_1 {lam:.12f} (exact "
+                f"rel {abs(lam - exact) / exact:.2e}), final residual "
+                f"{res.res_history[res.iters].item():.3e}, wall {wall:.3f} "
+                f"s, peak memory {peak / 2**20:.1f} MiB")
+            require(res.converged and bool(res.eigenvectors.isfinite().all())
+                    and abs(lam - exact) / exact <= EIGEN_RTOL,
+                    f"{label}: converged {res.converged}, lambda_1 {lam} "
+                    f"against exact {exact}")
+            out[pd] = (lam, res.iters, cyc.count, counts, wall, peak)
+            tier = tier3(prob)
+            del prob, solver, res
+            torch.cuda.empty_cache()
+        (lf, sf, *_), (lm, sm, c, counts, *_) = out[None], out[bf16]
+        rel = abs(lm - lf) / lf
+        log(f"mixed3d eigen {method}: lambda_1 bfloat16-preconditioned vs "
+            f"full rel {rel:.2e}; steps {sm} against {sf}")
+        require(rel <= MIXED_EIGEN_RTOL and sm <= sf + MIXED3D_EXTRA_STEPS,
+                f"mixed3d eigen {method}: lambda_1 {rel:.3e} from the full "
+                f"run's (> {MIXED_EIGEN_RTOL}) or {sm} steps against {sf}")
+        # II's inner check and refinement defect: a float64 residual at the
+        # fine level each cycle; LOBPCG applies A by the plain stencil.
+        require_counts(f"mixed3d_{method}", counts,
+                       **cycle_counts(c, tier, c if method == "ii" else 0))
+        runs[f"mixed3d_{method}"] = counts
+        runs[f"mixed3d_{method}_stats"] = {
+            "full": dict(zip(("lambda1", "steps", "cycles"), out[None][:3]),
+                         wall_s=out[None][4], peak_bytes=out[None][5]),
+            "bf16": dict(zip(("lambda1", "steps", "cycles"), out[bf16][:3]),
+                         wall_s=out[bf16][4], peak_bytes=out[bf16][5])}
+
+    # The bfloat16 modes no solver runs: direct calls.
+    n = 2 ** MAIN_K3 - 1
+    h = 1.0 / (n + 1)
+    u, b = cube_inputs(n, f32, seed=41)
+    su, sb = u.to(bf16), b.to(bf16)
+    del u, b
+
+    def direct():
+        stencil3d.rbgs_sweep(su, sb, n, h, out_dtype=f32)
+        stencil3d.jacobi_sweep(su, sb, n, h, omega3())
+        stencil3d.jacobi_sweep(su, sb, n, h, omega3(), out_dtype=f32)
+
+    _, counts, _ = counted(direct)
+    require_counts("stencil3d bf16 direct", counts,
+                   stencil3d_rbgs_bf16_f32=1, stencil3d_jacobi_bf16=1,
+                   stencil3d_jacobi_bf16_f32=1)
+    runs["mixed3d_direct"] = counts
+    del su, sb
+    torch.cuda.empty_cache()
+
+
 def paths_sharded_fmg(runs: dict) -> None:
     """S1fmg: ShardedSolver.solve with cycle="fmg" at config 5's 4095^2
     on a row mesh of 1, float32, against fmg4095, with exact local2d and
@@ -3014,6 +3331,9 @@ def phase_main_path():
     start = time.perf_counter()
     paths_mixed(runs)
     log(f"mixed-precision paths: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    paths_mixed3d(runs)
+    log(f"3D mixed-precision paths: {time.perf_counter() - start:.1f} s")
     return runs
 
 
@@ -3122,6 +3442,9 @@ def flops_per_point(name: str, sweeps: int = 2) -> int:
             "packed2d_up_bf16": 6 * sweeps + 3,
             "packed2d_up_bf16_f32": 6 * sweeps + 3,
             "packed2d_rbgs_bf16": 6 * sweeps, "packed2d_residual_bf16": 8,
+            "stencil3d_residual_bf16": 10, "stencil3d_rbgs_bf16": 8,
+            "stencil3d_rbgs_bf16_f32": 8, "stencil3d_jacobi_bf16": 12,
+            "stencil3d_jacobi_bf16_f32": 12,
             }[name]
 
 
@@ -4008,6 +4331,100 @@ def timed_mixed(times: dict) -> None:
     times["mixed_cycles"] = out
 
 
+def timed_mixed3d(times: dict) -> None:
+    """The stencil3d kernels' bfloat16 modes at 511^3, sigma = 0, one
+    launch a call, each against its plain version in turns (single calls),
+    as LEG_CHAIN chained calls and by the profiler's device time a call,
+    beside its float32 twin on the same values (chained and device) and its
+    bound at bfloat16 bytes (6 a point, 8 with a float32 output); and at
+    511^3 float32 one preconditioning cycle's device busy, ops and idle
+    share and one PCG solve's wall (mixed3d), with a bfloat16 and a float32
+    cycle."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.kernels import stencil3d
+    from multigridcmt_tpu_torch.solvers import cycles
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = 2 ** MAIN_K3 - 1
+    h = 1.0 / (n + 1)
+    w = omega3()
+    u, b = cube_inputs(n, f32, seed=9)
+    su, sb = u.to(bf16), b.to(bf16)
+    fu, fb = su.float(), sb.float()
+    del u, b
+    res3, jac3, rb3 = stencil3d.residual, stencil3d.jacobi_sweep, \
+        stencil3d.rbgs_sweep
+    # name -> (kernel, plain, float32 twin on (fu, fb), bytes a point)
+    cases = {
+        "stencil3d_residual_bf16": (
+            lambda: res3(su, sb, n, h),
+            lambda: stencil3d.residual_plain(su, sb, n, h),
+            lambda: res3(fu, fb, n, h), 8),
+        "stencil3d_rbgs_bf16": (
+            lambda: rb3(su, sb, n, h),
+            lambda: stencil3d.rbgs_sweep_plain(su, sb, n, h),
+            lambda: rb3(fu, fb, n, h), 6),
+        "stencil3d_rbgs_bf16_f32": (
+            lambda: rb3(su, sb, n, h, out_dtype=f32),
+            lambda: stencil3d.rbgs_sweep_plain(su, sb, n, h, out_dtype=f32),
+            lambda: rb3(fu, fb, n, h), 8),
+        "stencil3d_jacobi_bf16": (
+            lambda: jac3(su, sb, n, h, w),
+            lambda: stencil3d.jacobi_sweep_plain(su, sb, n, h, w),
+            lambda: jac3(fu, fb, n, h, w), 6),
+        "stencil3d_jacobi_bf16_f32": (
+            lambda: jac3(su, sb, n, h, w, out_dtype=f32),
+            lambda: stencil3d.jacobi_sweep_plain(su, sb, n, h, w,
+                                                 out_dtype=f32),
+            lambda: jac3(fu, fb, n, h, w), 8),
+    }
+    for name, (kernel, plain, twin, per_point) in cases.items():
+        pair = time_pair(f"{name} n={n}", kernel, plain)
+        nb = per_point * (n + 2) ** 3
+        t = {"ms": chained_ms(kernel, LEG_CHAIN), "single_ms": pair["ms"],
+             "plain_ms": pair["plain_ms"], "device_ms": pair["device_ms"],
+             "f32_chained_ms": chained_ms(twin, LEG_CHAIN),
+             "f32_device_ms": device_busy(twin, LEG_CHAIN)[0],
+             "bytes": nb, "flops": flops_per_point(name) * n ** 3}
+        t["chained_ms"] = t["ms"]
+        log(f"bf16 {name} n={n}: chained x{LEG_CHAIN} {t['ms']:.4f} ms, "
+            f"device {t['device_ms']:.4f} ms; float32 twin chained "
+            f"{t['f32_chained_ms']:.4f} ms, device {t['f32_device_ms']:.4f} "
+            f"ms; bound {nb / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+        times[name] = t
+    del cases, su, sb, fu, fb
+    torch.cuda.empty_cache()
+
+    prob = mt.poisson3d(k=MAIN_K3, dtype=f32, smoother="rbgs",
+                        use_kernels=True, device="cuda")
+    r = cycles.get_backend(prob.config).encode(prob.b)
+    row = {}
+    for pd in (f32, bf16):
+        rp = r.to(pd)
+
+        def one_cycle():
+            return cycles.cycle(prob.hierarchy, torch.zeros_like(rp), rp,
+                                prob.config)
+
+        busy, ops, _ = device_busy(one_cycle, 5)
+        cycle_ms = cuda_time_ms(one_cycle)
+        solver = mt.MultigridSolver(dataclasses.replace(
+            prob, config=dataclasses.replace(prob.config, precond_dtype=pd)))
+        solve_ms = cuda_time_ms(lambda: solver.solve(method="pcg"), reps=5,
+                                warmup=1)
+        row[str(pd).split(".")[-1]] = {
+            "cycle_ms": cycle_ms, "busy_ms": busy, "ops": ops,
+            "idle": 1.0 - busy / cycle_ms, "pcg_ms": solve_ms,
+            "pcg_iters": solver.solve(method="pcg").iters}
+    log("mixed3d: " + json.dumps(row))
+    times["mixed3d_cycles"] = row
+    del prob, r, rp, solver
+    torch.cuda.empty_cache()
+
+
 def timed_fmg_eigen(times: dict) -> None:
     """Configs 3 and 4's first times on the card (CUDA events, warm-up,
     medians) with each run's peak device memory: one FMG pass at 1023^2
@@ -4096,6 +4513,7 @@ def phase_times():
     timed_2d(times)
     start = time.perf_counter()
     timed_mixed(times)
+    timed_mixed3d(times)
     log(f"mixed-precision times: {time.perf_counter() - start:.1f} s")
     timed_composed(times)
     timed_3d(times)
@@ -4220,6 +4638,11 @@ def main() -> int:
     for method in MIXED_EIGEN:
         log(f"mixed_{method} walls (float64, full and bfloat16-"
             f"preconditioned, s): {runs['mixed_' + method + '_walls']}")
+    log("mixed3d_cycles: " + json.dumps(times["mixed3d_cycles"]))
+    log(f"mixed3d solve peak device memory: {runs['peak_mixed3d']} bytes")
+    for method, _ in MIXED3D_EIGEN:
+        log(f"mixed3d_{method}: "
+            + json.dumps(runs[f"mixed3d_{method}_stats"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure",
                 "bell_carrier", "residual_restrict_levels", "fmg_eigen"):
         log(f"{key}: " + json.dumps(times[key]))

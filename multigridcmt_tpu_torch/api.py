@@ -107,8 +107,8 @@ class MultigridSolver:
               method: str = "mg") -> cycles.SolveResult:
         """Solve A x = b with stationary cycles (method="mg") or CG
         preconditioned by one cycle an iteration (method="pcg"; in
-        ``config.precond_dtype`` on the packed 2D tier, see
-        ``SolverConfig``). The stationary solve reads no precond_dtype, as
+        ``config.precond_dtype`` on the packed 2D tier and the 3D RB-GS
+        stencil3d tier, see ``SolverConfig``). The stationary solve reads no precond_dtype, as
         in JAX."""
         b = self.problem.b if b is None else b
         if method == "pcg":
@@ -143,8 +143,9 @@ class MultigridSolver:
         (MG-preconditioned LOBPCG: one V-cycle a vector a step instead of
         a whole inner solve). ``v0``, a (k, *padded) block, warm-starts
         the iteration. With ``config.precond_dtype`` on the packed 2D tier
-        the inner cycles run in it: II and RQI as iterative refinement,
-        LOBPCG's preconditioner cast at its boundary."""
+        or the 3D RB-GS stencil3d tier the inner cycles run in it: II and
+        RQI as iterative refinement, LOBPCG's preconditioner cast at its
+        boundary."""
         if method == "lobpcg":
             return eigen.lobpcg(self.hierarchy, self.config, k=k, tol=tol,
                                 max_iters=max_iters, v0=v0)

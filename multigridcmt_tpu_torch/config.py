@@ -38,14 +38,14 @@ class SolverConfig:
         e.g. ``torch.bfloat16``; the outer iteration stays in ``dtype``.
         Read by ``solvers.krylov.mixed_cycle_dtype``, as in JAX: the cycle
         is cast on the packed 2D tier (``use_kernels`` and the fine level
-        packs, n >= ``kernels.PACK_MIN_N``), where bfloat16 lives only in
-        the fine level's storage (the packed kernels compute in float32,
-        emit the coarse levels in float32, and store the top level's
-        correction in float32: ``cycles.v_cycle``); it is ignored elsewhere.
-        Where JAX casts a 3D RB-GS cycle on the kernel tier the port raises
-        ``NotImplementedError`` (3D mixed precision), and
-        ``ShardedSolver`` raises for any precond_dtype other than ``dtype``
-        (sharded mixed precision): neither is ported yet.
+        packs, n >= ``kernels.PACK_MIN_N``) and for 3D RB-GS on the
+        stencil3d tier (``use_kernels``, n >= ``kernels.KERNEL3_MIN_N``, up
+        to k=10 in bfloat16, where JAX's TPU kernel fits VMEM), where
+        bfloat16 lives only in the fine level's storage (the kernels
+        compute in float32, emit the coarse levels in float32, and the top
+        level's correction promotes to float32: ``cycles.v_cycle``); it is
+        ignored elsewhere. ``ShardedSolver`` raises for any precond_dtype
+        other than ``dtype`` (sharded mixed precision, not ported yet).
       fmg_prolong: the FMG solution walk's prolongation, "linear" or
         "cubic" (``ops.transfer.fmg_prolong``). The sharded FMG walks
         linearly only, and ``ShardedSolver`` refuses "cubic".

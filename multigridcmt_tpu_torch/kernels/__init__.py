@@ -22,12 +22,15 @@ The sparse path's kernels (``spmv``: the banded DIA SpMV; ``bell``: the
 blocked-ELL SpMM) are called directly, not through the backend.
 
 Mixed precision (``solvers.krylov.mixed_cycle_dtype``): a cycle cast to
-bfloat16 has its packed fine level in bfloat16; the packed kernels compute
-in float32 and emit the coarse right-hand side in float32, so every
-coarser level runs as in a float32 cycle. The top level's correction add
-promotes to float32 (``out_dtype``, passed by ``cycles.v_cycle``): the
-fused up leg stores x' in float32; on a composed route the zero-sweep up
-leg does, and the post-smoothing runs the float32 kernels. The smoothing
+bfloat16 has its fine level in bfloat16, packed 2D or 3D; the kernels
+compute in float32 and emit the coarse right-hand side in float32 (the
+packed down leg's, the stencil3d residual's), so every coarser level runs
+as in a float32 cycle. The top level's correction add promotes to float32
+(``out_dtype``, passed by ``cycles.v_cycle``): the fused packed up leg
+stores x' in float32; on a composed packed route the zero-sweep up leg
+does; in 3D ``x + P e`` promotes by itself (the stencil3d level has no
+prolong-add kernel, as in JAX, so ``out_dtype`` has nothing to widen
+there). The post-smoothing then runs the float32 kernels. The smoothing
 before it (RB-GS sweeps, the Chebyshev and Jacobi residual applies and
 their elementwise updates) runs on bfloat16 grids, as in JAX.
 ``encode``/``decode`` pack and unpack a packed fine level at the solve's
@@ -198,7 +201,8 @@ def _residual_restrict(u, b, n, h):
 
 def _prolong_add(x, e, n, nc, out_dtype=None):
     """x + P e (stored in ``out_dtype`` on a packed level: float32 for a
-    bfloat16 x at the top of a mixed cycle)."""
+    bfloat16 x at the top of a mixed cycle; a 3D level's bfloat16 x plus
+    the float32 correction is float32 by promotion)."""
     if packed2d.is_packed(x):
         return packed2d.prolong_add_smooth(
             x, e, torch.zeros_like(x), n, nc, 1.0, kind="rbgs", omega=1.0,

@@ -124,6 +124,14 @@ for _name in ("packed2d_down", "packed2d_up", "packed2d_residual",
               "packed2d_rbgs"):
     SIGNATURES[f"mg_{_name}_bf16"] = SIGNATURES[f"mg_{_name}_f32"]
 SIGNATURES["mg_packed2d_up_bf16_f32"] = SIGNATURES["mg_packed2d_up_f32"]
+# The stencil3d kernels' bfloat16 storage modes (the fine level of a mixed
+# 3D cycle, csrc/stencil3d_bf16.cu): the float32 entry points' arguments.
+# The residual stores r in float32; the sweeps' _bf16_f32 entry points store
+# their output in float32 (out_dtype).
+for _name in ("stencil3d_residual", "stencil3d_jacobi", "stencil3d_rbgs"):
+    SIGNATURES[f"mg_{_name}_bf16"] = SIGNATURES[f"mg_{_name}_f32"]
+for _name in ("stencil3d_jacobi", "stencil3d_rbgs"):
+    SIGNATURES[f"mg_{_name}_bf16_f32"] = SIGNATURES[f"mg_{_name}_f32"]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

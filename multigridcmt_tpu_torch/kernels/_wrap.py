@@ -4,11 +4,13 @@ Device rule: a CPU tensor takes the wrapper's plain PyTorch version; a
 CUDA tensor launches the kernel or raises; any other device raises.
 
 Storage rule (the JAX package's ``_cdt``, ``packed2d.py:74-90``): a kernel
-computes in float32 or float64. The packed 2D fine level of a mixed cycle
-(``packed2d``) may also be stored in bfloat16: each load widens to
-float32, each store rounds to bfloat16 once, any coarse operand is
-float32, and the up leg may store its output in float32 (``out_dtype``).
-Every other kernel's bfloat16 mode raises, naming its ROADMAP.md item.
+computes in float32 or float64. The fine level of a mixed cycle may also
+be stored in bfloat16, on the packed 2D tier (``packed2d``) and on the 3D
+kernel tier (``stencil3d``): each load widens to float32, each store rounds
+to bfloat16 once, any coarse operand is float32, and an output may be
+stored in float32 (``out_dtype``: the up leg, the 3D sweeps; the 3D
+residual always is, ``check_out_dtype``). Every other kernel's bfloat16
+mode raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -19,13 +21,12 @@ from . import _build
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
            torch.bfloat16: "bf16"}
 
-# The dtypes a kernel computes in, and those a packed2d array may be stored
-# in.
+# The dtypes a kernel computes in, and those the fine level of a mixed cycle
+# may be stored in.
 COMPUTE = (torch.float32, torch.float64)
 STORAGE = COMPUTE + (torch.bfloat16,)
 
 # The ROADMAP.md items of the bfloat16 modes still to port.
-MIXED_3D = "queue 1: 3D mixed precision"
 MIXED_SHARDED = "queue 1: sharded mixed precision"
 MIXED_OFF_PATH = "queue 2, part B: bfloat16 storage off the mixed paths"
 
@@ -49,11 +50,25 @@ def check_storage(what: str, t: torch.Tensor, out_dtype=None, *,
         raise NotImplementedError(MIXED_TODO.format(what=what, item=item))
 
 
+def check_out_dtype(what: str, t: torch.Tensor, out_dtype) -> torch.dtype:
+    """The dtype a kernel stores its output in for input ``t``: t's own
+    (``out_dtype`` None or t's dtype), or float32 for a bfloat16 ``t`` (the
+    top level of a mixed cycle); any other ``out_dtype`` raises
+    ValueError."""
+    if out_dtype is None or out_dtype == t.dtype:
+        return t.dtype
+    if t.dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return out_dtype
+    raise ValueError(f"{what}: out_dtype {out_dtype} for {t.dtype}: the "
+                     "output is stored in the input's dtype, or in float32 "
+                     "for bfloat16")
+
+
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,
                  ref: torch.Tensor, dtype=None,
                  storage: bool = False) -> None:
     """Raise unless ``t`` is a contiguous float32 or float64 tensor (or,
-    with ``storage``, bfloat16: a packed2d array) of ``shape``, on ``ref``'s
+    with ``storage``, bfloat16: a mixed fine level) of ``shape``, on ``ref``'s
     device and of ``ref``'s dtype (or of ``dtype``)."""
     want = ref.dtype if dtype is None else dtype
     if t.dtype not in (STORAGE if storage else COMPUTE):

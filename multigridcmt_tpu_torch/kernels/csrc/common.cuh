@@ -1,6 +1,6 @@
 // Shared pieces of the Poisson kernels (stencil2d.cu, local2d.cu, and
 // through packed_tile.cuh packed2d.cu, plocal2d.cu, transfer2d.cu and the
-// row-streaming legs; stencil3d.cu takes Coef and the error string). No
+// row-streaming legs; stencil3d.cuh takes Coef and the storage rule). No
 // kernel of the port works on a shared-memory tile of a grid any more: the
 // smoothers, legs and the residual-restriction stream rows through
 // registers (packed2d_legs.cuh), the residuals and prolong_add take a
@@ -22,9 +22,60 @@
 // plain PyTorch versions by a few ulp; the tests state tolerances for it.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace mg {
+
+// Storage and compute (the TPU modules' _cdt rule, packed2d.py:74-90): a
+// kernel computes in T; its grids may be stored in a narrower S (bfloat16,
+// with T float). Every load widens to T, every store rounds to S, to
+// nearest even as XLA's convert does; with S = T both are the identity.
+template <typename S>
+constexpr bool kBf16 = std::is_same<S, __nv_bfloat16>::value;
+
+// v, stored as S, in T.
+template <typename T, typename S>
+__device__ __forceinline__ T widen(S v) {
+  if constexpr (kBf16<S>) {
+    return __bfloat162float(v);
+  } else {
+    return static_cast<T>(v);
+  }
+}
+
+// v rounded to the storage type S.
+template <typename S, typename T>
+__device__ __forceinline__ S narrow(T v) {
+  if constexpr (kBf16<S>) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return static_cast<S>(v);
+  }
+}
+
+// v as a store to S leaves it, in T.
+template <typename S, typename T>
+__device__ __forceinline__ T stored(T v) {
+  if constexpr (kBf16<S>) {
+    return widen<T>(narrow<S>(v));
+  } else {
+    return v;
+  }
+}
+
+// *p through the read-only cache, widened to T.
+template <typename T, typename S>
+__device__ __forceinline__ T ldg_wide(const S* p) {
+  if constexpr (kBf16<S>) {
+    return __bfloat162float(__ushort_as_bfloat16(
+        __ldg(reinterpret_cast<const unsigned short*>(p))));
+  } else {
+    return __ldg(p);
+  }
+}
 
 enum Kind { kJacobi = 0, kRbgs = 1 };
 

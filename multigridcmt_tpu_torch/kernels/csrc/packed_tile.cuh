@@ -22,64 +22,13 @@
 // (i, l+1) if p = 1. Sums run in the TPU module's order, ((up + down) + same
 // lane) + side lane.
 //
-// Storage and compute (the TPU module's _cdt rule, packed2d.py:74-90): a
-// kernel computes in T; the whole packed grid's arrays may be stored in a
-// narrower S (bfloat16, with T float). Every load widens to T, every store
-// rounds to S, to nearest even as XLA's convert does; with S = T both are
-// the identity and the code is what it is without them.
+// Storage and compute: a kernel computes in T; the whole packed grid's
+// arrays may be stored in a narrower S (common.cuh's storage rule).
 #pragma once
-
-#include <cuda_bf16.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
 namespace mg {
-
-template <typename S>
-constexpr bool kBf16 = std::is_same<S, __nv_bfloat16>::value;
-
-// v, stored as S, in T.
-template <typename T, typename S>
-__device__ __forceinline__ T widen(S v) {
-  if constexpr (kBf16<S>) {
-    return __bfloat162float(v);
-  } else {
-    return static_cast<T>(v);
-  }
-}
-
-// v rounded to the storage type S.
-template <typename S, typename T>
-__device__ __forceinline__ S narrow(T v) {
-  if constexpr (kBf16<S>) {
-    return __float2bfloat16_rn(v);
-  } else {
-    return static_cast<S>(v);
-  }
-}
-
-// v as a store to S leaves it, in T.
-template <typename S, typename T>
-__device__ __forceinline__ T stored(T v) {
-  if constexpr (kBf16<S>) {
-    return widen<T>(narrow<S>(v));
-  } else {
-    return v;
-  }
-}
-
-// *p through the read-only cache, widened to T.
-template <typename T, typename S>
-__device__ __forceinline__ T ldg_wide(const S* p) {
-  if constexpr (kBf16<S>) {
-    return __bfloat162float(__ushort_as_bfloat16(
-        __ldg(reinterpret_cast<const unsigned short*>(p))));
-  } else {
-    return __ldg(p);
-  }
-}
 
 struct PRect {
   int R, C, goy, gox;

@@ -56,8 +56,8 @@ import torch
 
 from ..ops import laplacian, smoothers, transfer
 from . import _build
-from ._wrap import MIXED_OFF_PATH, check_grid, check_storage, check_tensor, \
-    compute_dtype, launch_on, on_cuda
+from ._wrap import MIXED_OFF_PATH, check_grid, check_out_dtype, \
+    check_storage, check_tensor, compute_dtype, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count); the bfloat16 modes apart: the up leg's with a bfloat16 x' and with
@@ -380,17 +380,6 @@ def prolong_add_smooth_plain(x, e, b, n, nc, h, *, kind, omega, sweeps,
     return pack(xs).to(x.dtype if out_dtype is None else out_dtype)
 
 
-def _check_out_dtype(x: torch.Tensor, out_dtype) -> torch.dtype:
-    """x' 's dtype: x's, or float32 for a bfloat16 x (the top level of a
-    mixed cycle)."""
-    if out_dtype is None or out_dtype == x.dtype:
-        return x.dtype
-    if x.dtype == torch.bfloat16 and out_dtype == torch.float32:
-        return out_dtype
-    raise ValueError(f"out_dtype {out_dtype} for x of {x.dtype}: an up leg "
-                     "stores x' in x's dtype, or in float32 for bfloat16 x")
-
-
 def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
                        n: int, nc: int, h: float, *, kind: str, omega: float,
                        sweeps: int, sigma=0.0, out_dtype=None) -> torch.Tensor:
@@ -407,7 +396,8 @@ def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")
     check_tensor("x", x, packed_shape(n), x, storage=True)
-    out_dtype = _check_out_dtype(x, out_dtype)
+    out_dtype = check_out_dtype("packed2d.prolong_add_smooth", x,
+                                out_dtype)
     cdt = compute_dtype(x.dtype)
     packed_e = is_packed(e)
     if packed_e:

@@ -36,7 +36,17 @@ Red means (g + goff) + (y + roff) + x even.
 The TPU module's aligned3 layout and its VMEM budgets (``fits_vmem``,
 ``_pick_pb``) are Mosaic artefacts with no counterpart on Hopper: every 3D
 level at or above ``KERNEL3_MIN_N`` runs these kernels, whatever its size.
-bfloat16 storage and ``out_dtype`` belong to 3D mixed precision and raise.
+
+Mixed precision (the TPU module's ``_cdt`` rule): u and b may be stored in
+bfloat16, the fine level of a mixed 3D cycle (``csrc/stencil3d_bf16.cu``).
+Every load widens to float32 and the arithmetic runs in float32; the
+residual always stores r in float32 (it feeds the coarse levels); the RB-GS
+sweep rounds each red value to bfloat16 before the black stage reads it,
+as the TPU kernel's red ring does; each sweep stores its output in
+bfloat16, or the last sweep of a call in float32 (``out_dtype``, the
+``_wrap.check_out_dtype`` rule). A bfloat16 b beside a wider u (the mixed
+cycle's post-smoothing) is widened once, as the TPU module casts b to u's
+dtype. The plain versions follow the same rule.
 
 Each wrapper has its plain PyTorch version beside it, in the TPU kernel's
 arithmetic order. Device rule (``_wrap``): a CPU tensor takes the plain
@@ -50,21 +60,28 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._wrap import MIXED_3D, check_storage, check_tensor, launch_on, \
+from ._wrap import check_out_dtype, check_tensor, compute_dtype, launch_on, \
     on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
-# count; an RB-GS sweep counts once).
+# count; an RB-GS sweep counts once); the bfloat16 modes apart, the sweeps'
+# float32 stores (out_dtype) apart again.
 residual_launches = 0
 jacobi_launches = 0
 rbgs_launches = 0
+residual_bf16_launches = 0
+jacobi_bf16_launches = 0
+jacobi_bf16_f32_launches = 0
+rbgs_bf16_launches = 0
+rbgs_bf16_f32_launches = 0
 
-# The z-march (csrc/stencil3d.cu). A unit is one warp of MARCH_LANES lanes,
+# The z-march (csrc/stencil3d.cuh). A unit is one warp of MARCH_LANES lanes,
 # MARCH_WARPS to a block; each lane keeps rings of MARCH_SLOTS planes of its
 # column's rows in registers. Rows of a band, by kernel ("rbgs", or "pass":
 # the residual and Jacobi) and dtype. These are the kernel source's
 # constants (kLanes, kWarps, kSlots, kRbgsRowsF32, ...), held against it by
-# the CPU tests. A unit marches over at most MARCH_CHUNK[kernel] planes (the
+# the CPU tests; bfloat16 storage computes in float32 registers and takes
+# float32's rows. A unit marches over at most MARCH_CHUNK[kernel] planes (the
 # chunks are balanced), fewer where that leaves the launch under
 # MARCH_MIN_UNITS units: an H100 holds 1584-2112 warps of these kernels at
 # once (132 SMs, 3 or 4 blocks of 4 warps at their 120-160 registers). The
@@ -77,7 +94,8 @@ MARCH_LANES = 32
 MARCH_WARPS = 4
 MARCH_SLOTS = 4
 MARCH_ROWS = {("rbgs", torch.float32): 8, ("rbgs", torch.float64): 4,
-              ("pass", torch.float32): 8, ("pass", torch.float64): 8}
+              ("pass", torch.float32): 8, ("pass", torch.float64): 8,
+              ("rbgs", torch.bfloat16): 8, ("pass", torch.bfloat16): 8}
 MARCH_CHUNK = {"rbgs": 128, "pass": 8}
 MARCH_MIN_UNITS = 2048
 
@@ -116,14 +134,23 @@ def _launch_geometry(kernel: str, shape: tuple, dtype):
 
 
 def _check(u: torch.Tensor, b: torch.Tensor, n: int, what: str,
-           out_dtype=None) -> None:
-    check_storage(what, u, out_dtype, item=MIXED_3D)
-    check_storage(what, b, item=MIXED_3D)
+           out_dtype=None) -> torch.dtype:
+    """Check a call's u and b (float32, float64, or bfloat16 storage, of one
+    dtype) and return the dtype its output is stored in."""
     if u.ndim != 3 or min(u.shape[:2]) < 3 or u.shape[2] != n + 2:
         raise ValueError(f"{what}: u has shape {tuple(u.shape)}; expected a "
                          f"(p, r, {n + 2}) plane stack with p, r >= 3")
-    check_tensor("u", u, tuple(u.shape), u)
-    check_tensor("b", b, tuple(u.shape), u)
+    check_tensor("u", u, tuple(u.shape), u, storage=True)
+    check_tensor("b", b, tuple(u.shape), u, storage=True)
+    return check_out_dtype(what, u, out_dtype)
+
+
+def _widen_b(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """b as a sweep takes it: a bfloat16 b beside a wider u is widened to
+    u's dtype (the TPU module's cast); any other b as it is."""
+    if b.dtype == torch.bfloat16 and u.dtype != torch.bfloat16:
+        return b.to(u.dtype)
+    return b
 
 
 # ----------------------------------------------------------------------------
@@ -178,32 +205,51 @@ def _gs(u, b, h, sigma):
 
 
 def residual_plain(u, b, n, h, sigma=0.0, goff=0, roff=0):
-    """Plain PyTorch version of ``residual``."""
+    """Plain PyTorch version of ``residual``: in the compute dtype, from u
+    and b widened (float32 for bfloat16 storage)."""
+    cdt = compute_dtype(u.dtype)
+    u, b = u.to(cdt), b.to(cdt)
     _, update, _ = _masks(u, n, goff, roff)
     r = _pad(_residual_core(u, b, h, sigma))
     return torch.where(update, r, torch.zeros_like(r))
 
 
 def jacobi_sweep_plain(u, b, n, h, omega, sigma=0.0, sweeps=1, goff=0,
-                       roff=0):
-    """Plain PyTorch version of ``jacobi_sweep``."""
+                       roff=0, out_dtype=None):
+    """Plain PyTorch version of ``jacobi_sweep``: each sweep in the compute
+    dtype from u widened, stored in u's dtype (the last in ``out_dtype``)."""
+    odt = check_out_dtype("stencil3d.jacobi_sweep_plain", u, out_dtype)
+    sdt, cdt = u.dtype, compute_dtype(u.dtype)
+    b = b.to(cdt)
     zvalid, update, _ = _masks(u, n, goff, roff)
     scale = omega / (6.0 * (1.0 / (h * h)) - sigma)
-    for _ in range(sweeps):
-        upd = u + scale * _pad(_residual_core(u, b, h, sigma))
-        u = torch.where(update, upd, u)
-        u = torch.where(zvalid, u, torch.zeros_like(u))
-    return u
+    for i in range(sweeps):
+        uc = u.to(cdt)
+        upd = uc + scale * _pad(_residual_core(uc, b, h, sigma))
+        uc = torch.where(update, upd, uc)
+        uc = torch.where(zvalid, uc, torch.zeros_like(uc))
+        u = uc.to(odt if i == sweeps - 1 else sdt)
+    return u.to(odt)
 
 
-def rbgs_sweep_plain(u, b, n, h, sigma=0.0, sweeps=1, goff=0, roff=0):
-    """Plain PyTorch version of ``rbgs_sweep``."""
+def rbgs_sweep_plain(u, b, n, h, sigma=0.0, sweeps=1, goff=0, roff=0,
+                     out_dtype=None):
+    """Plain PyTorch version of ``rbgs_sweep``: each sweep in the compute
+    dtype from u widened, the red values rounded to u's dtype before the
+    black stage reads them, stored in u's dtype (the last sweep in
+    ``out_dtype``)."""
+    odt = check_out_dtype("stencil3d.rbgs_sweep_plain", u, out_dtype)
+    sdt, cdt = u.dtype, compute_dtype(u.dtype)
+    b = b.to(cdt)
     zvalid, update, red = _masks(u, n, goff, roff)
-    for _ in range(sweeps):
-        u = torch.where(update & red, _gs(u, b, h, sigma), u)
-        u = torch.where(update & ~red, _gs(u, b, h, sigma), u)
-        u = torch.where(zvalid, u, torch.zeros_like(u))
-    return u
+    for i in range(sweeps):
+        uc = u.to(cdt)
+        uc = torch.where(update & red, _gs(uc, b, h, sigma), uc)
+        uc = uc.to(sdt).to(cdt)
+        uc = torch.where(update & ~red, _gs(uc, b, h, sigma), uc)
+        uc = torch.where(zvalid, uc, torch.zeros_like(uc))
+        u = uc.to(odt if i == sweeps - 1 else sdt)
+    return u.to(odt)
 
 
 # ----------------------------------------------------------------------------
@@ -213,56 +259,76 @@ def rbgs_sweep_plain(u, b, n, h, sigma=0.0, sweeps=1, goff=0, roff=0):
 def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float, sigma=0.0,
              goff: int = 0, roff: int = 0) -> torch.Tensor:
     """r = b - (A - sigma I) u on a plane stack (see the module's edge
-    rule); one pass."""
-    global residual_launches
+    rule); one pass. r is stored in the compute dtype: u's, or float32 for
+    bfloat16 u and b."""
+    global residual_launches, residual_bf16_launches
     _check(u, b, n, "stencil3d.residual")
     if not on_cuda(u):
         return residual_plain(u, b, n, h, sigma=sigma, goff=goff, roff=roff)
-    out = torch.empty_like(u)
+    out = torch.empty_like(u, dtype=compute_dtype(u.dtype))
     launch_on(u, "stencil3d_residual", u.data_ptr(), b.data_ptr(),
               out.data_ptr(), *u.shape, n, float(h), float(sigma), int(goff),
               int(roff), _launch_geometry("pass", tuple(u.shape), u.dtype))
-    residual_launches += 1
+    if u.dtype == torch.bfloat16:
+        residual_bf16_launches += 1
+    else:
+        residual_launches += 1
     return out
+
+
+def _count_sweep(kind: str, u: torch.Tensor, odt) -> None:
+    """One launch of the ``kind`` sweep on u, stored in odt."""
+    name = kind + ("" if u.dtype != torch.bfloat16 else
+                   "_bf16" if odt == torch.bfloat16 else "_bf16_f32")
+    globals()[name + "_launches"] += 1
+
+
+def _sweeps(kind: str, kernel: str, u, b, n, args, sweeps: int, odt):
+    """``sweeps`` launches of ``kernel`` (one a sweep), the last one storing
+    odt; args are the entry point's scalars after n, before the
+    geometry."""
+    geom = _launch_geometry("rbgs" if kind == "rbgs" else "pass",
+                            tuple(u.shape), u.dtype)
+    for i in range(sweeps):
+        o = odt if i == sweeps - 1 else u.dtype
+        out = torch.empty_like(u, dtype=o)
+        launch_on(u, kernel, u.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  *u.shape, n, *args, geom, out_dtype=o)
+        _count_sweep(kind, u, o)
+        u = out
+    return u.to(odt)
 
 
 def jacobi_sweep(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
                  omega: float, sigma=0.0, sweeps: int = 1, goff: int = 0,
                  roff: int = 0, out_dtype=None) -> torch.Tensor:
     """``sweeps`` weighted-Jacobi sweeps, u + omega/(6/h^2 - sigma) r, one
-    pass (launch) each."""
-    global jacobi_launches
-    _check(u, b, n, "stencil3d.jacobi_sweep", out_dtype)
+    pass (launch) each. Each sweep stores u's dtype, the last one
+    ``out_dtype`` (float32 for bfloat16 u: the ``_wrap.check_out_dtype``
+    rule); with no sweeps, u in ``out_dtype``."""
+    b = _widen_b(u, b)
+    odt = _check(u, b, n, "stencil3d.jacobi_sweep", out_dtype)
     if not on_cuda(u):
         return jacobi_sweep_plain(u, b, n, h, omega, sigma=sigma,
-                                  sweeps=sweeps, goff=goff, roff=roff)
-    geom = _launch_geometry("pass", tuple(u.shape), u.dtype)
-    for _ in range(sweeps):
-        out = torch.empty_like(u)
-        launch_on(u, "stencil3d_jacobi", u.data_ptr(), b.data_ptr(),
-                  out.data_ptr(), *u.shape, n, float(h), float(sigma),
-                  float(omega), int(goff), int(roff), geom)
-        jacobi_launches += 1
-        u = out
-    return u
+                                  sweeps=sweeps, goff=goff, roff=roff,
+                                  out_dtype=out_dtype)
+    return _sweeps("jacobi", "stencil3d_jacobi", u, b, n,
+                   (float(h), float(sigma), float(omega), int(goff),
+                    int(roff)), sweeps, odt)
 
 
 def rbgs_sweep(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
                sigma=0.0, sweeps: int = 1, goff: int = 0, roff: int = 0,
                out_dtype=None) -> torch.Tensor:
     """``sweeps`` full red-then-black Gauss-Seidel sweeps, one launch (one
-    pass over u and b, no scratch grid) each."""
-    global rbgs_launches
-    _check(u, b, n, "stencil3d.rbgs_sweep", out_dtype)
+    pass over u and b, no scratch grid) each. Each sweep stores u's dtype,
+    the last one ``out_dtype`` (float32 for bfloat16 u); with no sweeps, u
+    in ``out_dtype``."""
+    b = _widen_b(u, b)
+    odt = _check(u, b, n, "stencil3d.rbgs_sweep", out_dtype)
     if not on_cuda(u):
         return rbgs_sweep_plain(u, b, n, h, sigma=sigma, sweeps=sweeps,
-                                goff=goff, roff=roff)
-    geom = _launch_geometry("rbgs", tuple(u.shape), u.dtype)
-    for _ in range(sweeps):
-        out = torch.empty_like(u)
-        launch_on(u, "stencil3d_rbgs", u.data_ptr(), b.data_ptr(),
-                  out.data_ptr(), *u.shape, n, float(h), float(sigma),
-                  int(goff), int(roff), geom)
-        rbgs_launches += 1
-        u = out
-    return u
+                                goff=goff, roff=roff, out_dtype=out_dtype)
+    return _sweeps("rbgs", "stencil3d_rbgs", u, b, n,
+                   (float(h), float(sigma), int(goff), int(roff)), sweeps,
+                   odt)

@@ -88,8 +88,15 @@ def get_backend(config: SolverConfig) -> Backend:
             # a TPU measurement; whether the H100 wants the Jacobi kernel
             # here is open (PERF.md).
             return PLAIN_BACKEND
-        from ..kernels import KERNEL_BACKEND
+        from ..kernels import KERNEL3_MIN_N, KERNEL_BACKEND, _wrap
 
+        if (config.ndim == 3 and config.dtype == torch.bfloat16
+                and config.n >= KERNEL3_MIN_N):
+            # The stencil3d kernels store bfloat16 as a mixed cycle's fine
+            # level (precond_dtype); a solve in bfloat16 is another path.
+            raise NotImplementedError(_wrap.MIXED_TODO.format(
+                what="stencil3d: a bfloat16 solve",
+                item=_wrap.MIXED_OFF_PATH))
         return KERNEL_BACKEND
     return PLAIN_BACKEND
 
@@ -119,15 +126,18 @@ def v_cycle(hier: Hierarchy, x: torch.Tensor, b: torch.Tensor,
             gamma: int = 1) -> torch.Tensor:
     """One multigrid cycle starting at ``level`` (gamma=1: V, gamma=2: W).
 
-    Mixed precision: x and b in bfloat16 (only the packed fine level of a
-    mixed cycle is, its kernels emit the coarse levels in float32) make the
-    top level's correction add promote to float32: the up leg stores x' in
-    float32, and the post-smoothing that follows it runs in float32 with b
-    widened once. The cycle then returns float32, where the JAX package's
-    single-device cycle returns bfloat16: its final bfloat16 store of the
-    top level makes the preconditioner break down as k grows (ROADMAP.md,
-    queue 3, F5), and this is the repair JAX's sharded tier makes
-    (``local2d.up_leg``'s ``out_dtype``)."""
+    Mixed precision: x and b in bfloat16 (only the fine level of a mixed
+    cycle is, packed 2D or 3D; its kernels emit the coarse levels in
+    float32) make the top level's correction add promote to float32, and
+    the post-smoothing that follows it runs in float32 with b widened once.
+    In 3D the add is ``x + P e`` itself (a bfloat16 x plus a float32
+    correction is float32), as in JAX, and the cycle returns float32 as
+    JAX's does. On the packed 2D tier the up leg stores x' in float32
+    (``out_dtype``), where the JAX package's single-device cycle stores
+    bfloat16: its final bfloat16 store of the top level makes the
+    preconditioner break down as k grows (ROADMAP.md, queue 3, F5), and
+    this is the repair JAX's sharded tier makes (``local2d.up_leg``'s
+    ``out_dtype``)."""
     bk = get_backend(config)
     spec = hier.levels[level]
     omega = config.effective_omega()

@@ -222,8 +222,8 @@ def eigensolve(hier: Hierarchy, config: SolverConfig, k: int = 1,
     error. Convergence: max_i ||A v_i - lambda_i v_i|| / lambda_i < tol.
 
     Mixed precision (``config.precond_dtype`` where
-    ``krylov.mixed_cycle_dtype`` casts, the packed 2D tier): each inner
-    solve is iterative refinement, as in JAX. The defect rhs - (A - sg I) w
+    ``krylov.mixed_cycle_dtype`` casts: the packed 2D tier, 3D RB-GS on the
+    stencil3d tier): each inner solve is iterative refinement, as in JAX. The defect rhs - (A - sg I) w
     is taken in ``config.dtype`` and a cycle in ``precond_dtype`` from zero
     gives the correction, so the inner solve still reaches ``inner_tol``
     at ``config.dtype``'s grade.
@@ -318,8 +318,9 @@ def lobpcg(hier: Hierarchy, config: SolverConfig, k: int = 1,
     Each step does a Rayleigh-Ritz step on span{X, T R, P}, T being
     ``precond_cycles`` V-cycles from zero and P the previous step's update
     direction (Knyazev, SIAM J. Sci. Comput. 23(2), 2001); with
-    ``config.precond_dtype`` where ``krylov.mixed_cycle_dtype`` casts, T's
-    cycles run in that dtype, cast at T's boundary, as in JAX. One V-cycle a
+    ``config.precond_dtype`` where ``krylov.mixed_cycle_dtype`` casts (the
+    packed 2D tier, 3D RB-GS on the stencil3d tier), T's cycles run in that
+    dtype, cast at T's boundary, as in JAX. One V-cycle a
     block vector a step, against a whole MG solve a step in
     ``eigensolve``: the Ritz step projects on the true A, so T need only
     be a fixed positive definite approximate inverse. Stability follows

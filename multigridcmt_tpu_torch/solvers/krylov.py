@@ -11,10 +11,11 @@ The JAX package runs the loop on the device in a ``while_loop``; here it
 runs on the host with one device-to-host copy an iteration.
 
 Mixed precision (``config.precond_dtype``, ``mixed_cycle_dtype``): the
-preconditioning cycle runs in that dtype on the packed 2D tier, cast at the
-preconditioner boundary only; CG's recurrence and dots stay in
-``config.dtype``. A bfloat16 cycle keeps bfloat16 on its packed fine
-level's storage only, and returns float32 (``cycles.v_cycle``).
+preconditioning cycle runs in that dtype on the packed 2D tier and on the
+3D stencil3d tier (RB-GS), cast at the preconditioner boundary only; CG's
+recurrence and dots stay in ``config.dtype``. A bfloat16 cycle keeps
+bfloat16 on its fine level's storage only, and returns float32
+(``cycles.v_cycle``).
 """
 from __future__ import annotations
 
@@ -26,18 +27,13 @@ from ..config import SolverConfig
 from ..grids import Hierarchy, interior, pad_interior
 from . import cycles
 
-MIXED_TODO = ("{route} with precond_dtype={pd}: the JAX package runs this "
-              "route's preconditioning cycle in that dtype; 3D mixed "
-              "precision is not ported to CUDA yet (ROADMAP.md, queue 1: 3D "
-              "mixed precision)")
-
-# The dtypes a preconditioning cycle of the packed 2D tier runs in: the
-# packed kernels' bfloat16 storage and their compute dtypes.
+# The dtypes a preconditioning cycle on the kernel tier runs in: the
+# kernels' bfloat16 storage and their compute dtypes.
 _CYCLE_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 
 # The JAX package casts a 3D cycle only while its TPU kernel's plane ring
 # fits VMEM (its stencil3d.fits_vmem: 17 aligned planes of (round8(n+2),
-# round128(n+2)) points within 80 MiB). Kept only so that the port raises
+# round128(n+2)) points within 80 MiB). Kept only so that the port casts
 # exactly where JAX casts (up to k=10 in bfloat16); it says nothing about
 # the H100.
 _JAX_PLANE_BUDGET_BYTES = 80 * 1024 * 1024
@@ -58,30 +54,30 @@ def _jax_casts_3d(n: int, dtype: torch.dtype) -> bool:
 def mixed_cycle_dtype(config: SolverConfig, route: str = "MG-PCG"):
     """The dtype the preconditioning cycle is cast to, or None (it runs in
     ``config.dtype``), where the JAX package's ``mixed_cycle_dtype`` says
-    so: ``precond_dtype`` on the packed 2D tier (the fine level packs),
-    None elsewhere. Where JAX would cast a 3D RB-GS cycle on the kernel
-    tier, raise ``NotImplementedError`` naming ``route``, the solver that
-    asked, and 3D mixed precision: the port never runs another precision
-    silently."""
+    so: ``precond_dtype`` with ``use_kernels`` on the packed 2D tier (the
+    fine level packs) and for a 3D RB-GS cycle on the stencil3d tier while
+    JAX's plane ring would fit its VMEM budget (``_jax_casts_3d``: up to
+    k=10 in bfloat16); None elsewhere. A dtype the kernels do not store
+    (not bfloat16, float32 or float64) raises ``NotImplementedError``
+    naming ``route``, the solver that asked: the port never runs another
+    precision silently."""
     pd = config.precond_dtype if config.precond_dtype is not None \
         else config.dtype
     if pd == config.dtype:
         return None
     from .. import kernels     # deferred: kernels imports solvers.cycles
 
-    if (config.ndim == 2 and config.use_kernels
-            and config.n >= kernels.PACK_MIN_N):
-        if pd not in _CYCLE_DTYPES:
-            raise NotImplementedError(
-                f"{route} with precond_dtype={pd}: the packed kernels store "
-                "bfloat16, float32 or float64 only")
-        return pd
-    if (config.ndim == 3 and config.use_kernels
-            and config.smoother == "rbgs"
-            and config.n >= kernels.KERNEL3_MIN_N
-            and _jax_casts_3d(config.n, pd)):
-        raise NotImplementedError(MIXED_TODO.format(route=route, pd=pd))
-    return None
+    packed2d = config.ndim == 2 and config.n >= kernels.PACK_MIN_N
+    tier3d = (config.ndim == 3 and config.smoother == "rbgs"
+              and config.n >= kernels.KERNEL3_MIN_N
+              and _jax_casts_3d(config.n, pd))
+    if not (config.use_kernels and (packed2d or tier3d)):
+        return None
+    if pd not in _CYCLE_DTYPES:
+        raise NotImplementedError(
+            f"{route} with precond_dtype={pd}: the kernels store bfloat16, "
+            "float32 or float64 only")
+    return pd
 
 
 def cg_loop(x, b, *, dot, apply_a, precond, residual, tol, max_iters):

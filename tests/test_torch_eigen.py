@@ -245,16 +245,17 @@ def test_kernel_route_matches_plain(method, pack_min_n, monkeypatch):
 
 @pytest.mark.parametrize("method", ["ii", "lobpcg"])
 def test_mixed_precision_still_raises(method, monkeypatch):
-    """precond_dtype where JAX casts a 3D RB-GS cycle on its kernel tier
-    asks for 3D mixed precision, which is not ported: the eigensolvers
-    raise naming themselves and the ROADMAP item. (2D mixed precision, on
-    the packed tier, is ported: tests/test_torch_mixed.py.)"""
+    """precond_dtype where JAX casts a 3D RB-GS cycle on its kernel tier,
+    in a dtype the kernels do not store (float16): the eigensolvers raise
+    naming themselves and the dtype. (Mixed precision in bfloat16 is
+    ported on the packed 2D tier and on the 3D stencil3d tier:
+    tests/test_torch_mixed.py, tests/test_torch_mixed3d.py.)"""
     monkeypatch.setattr(kernels, "KERNEL3_MIN_N", 7)
     solver = mt.MultigridSolver(mt.poisson(
         k=3, ndim=3, dtype=torch.float64, smoother="rbgs", use_kernels=True,
-        precond_dtype=torch.bfloat16, device="cpu"))
+        precond_dtype=torch.float16, device="cpu"))
     with pytest.raises(NotImplementedError,
-                       match=r"eigensolver.*ROADMAP.*3D mixed precision"):
+                       match=r"eigensolver.*float16"):
         solver.eigensolve(k=1, method=method)
 
 

@@ -232,12 +232,15 @@ def _bell(dtype=torch.float64):
     (lambda: stencil3d.residual(_cube(7), _cube(9), 7, 0.125), ValueError),
     (lambda: stencil3d.residual(_cube(7), _cube(7), 9, 0.1), ValueError),
     (lambda: stencil3d.residual(_grid(7), _grid(7), 7, 0.125), ValueError),
-    (lambda: stencil3d.rbgs_sweep(_cube(7, torch.bfloat16),
-                                  _cube(7, torch.bfloat16), 7, 0.125),
-     NotImplementedError),
-    (lambda: stencil3d.jacobi_sweep(_cube(7), _cube(7), 7, 0.125, 0.8,
-                                    out_dtype=torch.float32),
-     NotImplementedError),
+    # bfloat16 storage is the stencil3d kernels' mixed mode: float16 is no
+    # storage of theirs, and a bfloat16 sweep stores bfloat16 or float32.
+    (lambda: stencil3d.rbgs_sweep(_cube(7, torch.float16),
+                                  _cube(7, torch.float16), 7, 0.125),
+     TypeError),
+    (lambda: stencil3d.jacobi_sweep(_cube(7, torch.bfloat16),
+                                    _cube(7, torch.bfloat16), 7, 0.125, 0.8,
+                                    out_dtype=torch.float64),
+     ValueError),
     (lambda: stencil3d.rbgs_sweep(_cube(7), _cube(7, torch.float32), 7,
                                   0.125), ValueError),
     (lambda: stencil2d.rbgs_sweep(_grid(7), _grid(7), 7, 0.125, sweeps=5),
@@ -330,7 +333,8 @@ def _solve(**kw):
     # and test_torch_fmg.py).
     (dict(k=4, ndim=2, smoother="chebyshev"), None),
     (dict(k=4, ndim=2, cycle="fmg"), None),
-    # The 3D kernels are ported; their bfloat16 storage is not.
+    # The 3D kernels store bfloat16 as a mixed cycle's fine level; a solve
+    # in bfloat16 on them is not ported.
     (dict(k=7, ndim=3, smoother="rbgs", use_kernels=True,
           dtype=torch.bfloat16), "stencil3d"),
 ], ids=["kw0-Chebyshev", "kw1-fmg", "kw2-stencil3d"])
@@ -532,26 +536,17 @@ def test_unported_solver_methods_raise(call, monkeypatch):
 
 
 @pytest.mark.parametrize("item", ["sharded 3D slabs and pencils",
-                                  "3D mixed precision",
                                   "sharded mixed precision", "utils"])
 def test_remaining_items_raise_naming_them(item, monkeypatch):
     """The parts still to port raise NotImplementedError naming their
     ROADMAP.md item, and run nothing else."""
     from multigridcmt_tpu_torch.parallel import sharded
-    from multigridcmt_tpu_torch.solvers import krylov
     from multigridcmt_tpu_torch.utils import profiling
 
     monkeypatch.setattr(kernels, "PACK_MIN_N", 7)
-    monkeypatch.setattr(kernels, "KERNEL3_MIN_N", 7)
     with pytest.raises(NotImplementedError, match="ROADMAP") as info:
         if item == "utils":
             profiling.trace("cycle")
-        elif item == "3D mixed precision":
-            # JAX casts a 3D RB-GS cycle on its kernel tier.
-            prob = mt.poisson(k=3, ndim=3, dtype=torch.float64,
-                              smoother="rbgs", use_kernels=True,
-                              precond_dtype=torch.bfloat16, device="cpu")
-            krylov.solve_pcg(prob.hierarchy, prob.b, prob.config)
         elif item == "sharded mixed precision":
             # Raised before the mesh is read.
             sharded.ShardedSolver(SolverConfig(
@@ -877,7 +872,7 @@ def _chip_smoke_rows(module: str) -> dict:
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert len(smoke.KERNELS) == 32
+    assert len(smoke.KERNELS) == 37
     return {name: row for name, row in smoke.KERNELS.items()
             if row[0] == module}
 
@@ -943,3 +938,27 @@ def test_chip_smoke_lists_the_packed2d_bf16_modes():
     for name, row in rows.items():
         assert hasattr(packed2d, row[1])
         assert (ROOT / row[2]).is_file()
+
+
+def test_chip_smoke_lists_the_stencil3d_bf16_modes():
+    """The stencil3d kernels' bfloat16 modes, all built from
+    csrc/stencil3d_bf16.cu: the residual and the bfloat16-storing RB-GS
+    sweep on the mixed3d path, the float32-storing sweep and both Jacobi
+    modes (which no solver runs) by direct calls."""
+    rows = {name: row for name, row in _chip_smoke_rows("stencil3d").items()
+            if "bf16" in name}
+    src = "multigridcmt_tpu_torch/kernels/csrc/stencil3d_bf16.cu"
+    tpu = "multigridcmt_tpu/kernels/stencil3d.py:"
+    assert {name: row[1:] for name, row in rows.items()} == {
+        "stencil3d_residual_bf16": ("residual_bf16_launches", src,
+                                    tpu + "474", "mixed3d"),
+        "stencil3d_rbgs_bf16": ("rbgs_bf16_launches", src, tpu + "510",
+                                "mixed3d"),
+        "stencil3d_rbgs_bf16_f32": ("rbgs_bf16_f32_launches", src,
+                                    tpu + "510", None),
+        "stencil3d_jacobi_bf16": ("jacobi_bf16_launches", src, tpu + "485",
+                                  None),
+        "stencil3d_jacobi_bf16_f32": ("jacobi_bf16_f32_launches", src,
+                                      tpu + "485", None)}
+    for row in rows.values():
+        assert hasattr(stencil3d, row[1]) and (ROOT / row[2]).is_file()

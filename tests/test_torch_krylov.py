@@ -168,6 +168,7 @@ MIXED_CASES = [
     (3, 11, "rbgs", True, "bfloat16"),
     (3, 9, "jacobi", True, "bfloat16"),
     (3, 6, "rbgs", True, "bfloat16"),
+    (3, 9, "rbgs", True, "float16"),
     (1, 12, "jacobi", True, "bfloat16"),
 ]
 
@@ -175,9 +176,10 @@ MIXED_CASES = [
 @pytest.mark.parametrize("ndim,k,smoother,use_kernels,pd", MIXED_CASES)
 def test_mixed_cycle_dtype_raises_where_jax_casts(ndim, k, smoother,
                                                   use_kernels, pd):
-    """Where JAX casts a 2D cycle (the packed tier) the port casts it to the
-    same dtype; where JAX casts a 3D one (RB-GS on its kernel tier) the port
-    raises, naming 3D mixed precision; elsewhere both return None."""
+    """Where JAX casts a cycle (the packed 2D tier, 3D RB-GS on its kernel
+    tier) the port casts it to the same dtype, or raises naming the dtype
+    where its kernels do not store it (float16); elsewhere both return
+    None."""
     jcfg = JConfig(ndim=ndim, k=k, dtype=jnp.float32, smoother=smoother,
                    use_pallas=use_kernels,
                    precond_dtype=None if pd is None else jnp.dtype(pd))
@@ -185,10 +187,9 @@ def test_mixed_cycle_dtype_raises_where_jax_casts(ndim, k, smoother,
     want = jkrylov.mixed_cycle_dtype(jcfg)
     if want is None:
         assert krylov.mixed_cycle_dtype(cfg) is None
-    elif ndim == 2:
+    elif pd == "float16":
+        with pytest.raises(NotImplementedError, match="float16"):
+            krylov.mixed_cycle_dtype(cfg)
+    else:
         assert krylov.mixed_cycle_dtype(cfg) == getattr(
             torch, jnp.dtype(want).name)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="3D mixed precision"):
-            krylov.mixed_cycle_dtype(cfg)

@@ -254,7 +254,9 @@ def test_storage_rule_refuses_other_operands():
 
 
 # (ndim, k, smoother, use_kernels, precond_dtype, PACK_MIN_N) over JAX's
-# mixed_cycle_dtype's 2D routes.
+# mixed_cycle_dtype's 2D routes, and its 3D ones: RB-GS on the kernel tier
+# while JAX's plane ring fits VMEM (k = 9, 10 in bfloat16, not 11), Jacobi
+# (the plain tier) and no kernels.
 GATE_CASES = [
     (2, 12, "rbgs", True, "bfloat16", None),
     (2, 12, "jacobi", True, "bfloat16", None),
@@ -266,6 +268,11 @@ GATE_CASES = [
     (2, 6, "rbgs", True, "bfloat16", 30),
     (2, 6, "rbgs", True, "bfloat16", 100),
     (1, 12, "rbgs", True, "bfloat16", None),
+    (3, 9, "rbgs", True, "bfloat16", None),
+    (3, 10, "rbgs", True, "bfloat16", None),
+    (3, 11, "rbgs", True, "bfloat16", None),
+    (3, 9, "jacobi", True, "bfloat16", None),
+    (3, 9, "rbgs", False, "bfloat16", None),
 ]
 
 
@@ -420,9 +427,12 @@ def test_top_level_store_repairs_jax_breakdown(monkeypatch):
     assert res.res_history[1].item() < 1.0
 
 
-def test_eigen_and_lobpcg_cast_only_on_the_packed_tier():
-    """The eigensolvers read the gate as PCG does: off the packed tier a
-    precond_dtype changes nothing."""
+def test_eigen_and_lobpcg_cast_only_on_the_packed_tier(monkeypatch):
+    """The eigensolvers read the gate as PCG does: off the packed tier in
+    2D a precond_dtype changes nothing; a 3D RB-GS problem on the stencil3d
+    tier (KERNEL3_MIN_N lowered to 10, k=4) is cast now, so LOBPCG's steps
+    and II's one-cycle inner solves move (tests/test_torch_mixed3d_solve.py
+    holds the converged eigenvalues)."""
     kw = dict(k=5, dtype=torch.float64, smoother="rbgs", device="cpu")
     for method in ("ii", "lobpcg"):
         full = mt.MultigridSolver(mt.poisson2d(**kw)).eigensolve(
@@ -431,6 +441,17 @@ def test_eigen_and_lobpcg_cast_only_on_the_packed_tier():
             precond_dtype=BF, **kw)).eigensolve(k=1, method=method,
                                                 max_iters=3)
         assert torch.equal(full.eigenvalues, mixed.eigenvalues)
+    monkeypatch.setattr(kernels, "KERNEL3_MIN_N", 10)
+    kw3 = dict(k=4, ndim=3, dtype=torch.float64, smoother="rbgs",
+               use_kernels=True, device="cpu")
+    for method, extra in (("ii", dict(inner_cycles=1)), ("lobpcg", {})):
+        full, mixed = (mt.MultigridSolver(mt.poisson(
+            precond_dtype=pd, **kw3)).eigensolve(k=1, method=method,
+                                                 max_iters=3, **extra)
+            for pd in (None, BF))
+        assert not torch.equal(full.eigenvalues, mixed.eigenvalues)
+        np.testing.assert_allclose(mixed.eigenvalues.numpy(),
+                                   full.eigenvalues.numpy(), rtol=1e-2)
 
 
 def test_bf16_entry_points_match_their_signatures():
@@ -451,7 +472,8 @@ def test_bf16_entry_points_match_their_signatures():
              "mg_packed2d_up_bf16": ("packed2d_up_bf16.cu", "launch_up"),
              "mg_packed2d_up_bf16_f32": ("packed2d_up_bf16_f32.cu",
                                          "launch_up")}
-    assert {k for k in _build.SIGNATURES if "bf16" in k} == set(files)
+    assert {k for k in _build.SIGNATURES
+            if "bf16" in k and "packed2d" in k} == set(files)
     for name, (fname, launcher) in files.items():
         where = [f for f, text in src.items() if re.search(rf"\b{name}\(",
                                                            text)]

@@ -13,7 +13,11 @@ other chunks sets MARCH_CHUNK and MARCH_MIN_UNITS, which march_geometry
 reads. The emulation is held against the plain versions in float64 at
 rtol 1e-12: both evaluate the same formulas in the same order (numpy
 does not contract into FMAs), so they agree to the last bit or nearly;
-1e-12 leaves room for nothing but rounding.
+1e-12 leaves room for nothing but rounding. The bfloat16 storage modes
+are emulated in float32 on bfloat16 values, with the red values rounded
+to bfloat16 before the black stage reads them and each output rounded
+once on its store, and held against the plain versions by the bfloat16
+rule of tests/test_torch_mixed3d.py.
 """
 import re
 
@@ -147,7 +151,7 @@ class _Unit:
         mask and for planes outside [0, qend)."""
         g = self.g
         if not 0 <= q < min(qend, g.p):
-            return np.zeros((count, LANES))
+            return np.zeros((count, LANES), dtype=a.dtype)
         yy = np.clip(self.ys[j0:j0 + count], 0, g.r - 1)
         xx = np.clip(self.x, 0, g.c - 1)
         return np.where(mask[j0:j0 + count], a[q][yy][:, xx], 0.0)
@@ -173,8 +177,15 @@ def _steps(z0, z1):
             yield k, z + k
 
 
-def _emulate_rbgs(g, u, b, n, h, sigma, goff, roff):
-    """rbgs_kernel on geometry g; returns (out, writes a point)."""
+def _keep(v):
+    return v
+
+
+def _emulate_rbgs(g, u, b, n, h, sigma, goff, roff, red_store=_keep,
+                  out_store=_keep):
+    """rbgs_kernel on geometry g; returns (out, writes a point). Each red
+    value is stored in the red ring as ``red_store`` leaves it, each output
+    as ``out_store`` does (the storage rule; identities by default)."""
     h2 = h * h
     inv_den = 1.0 / (6.0 - sigma * h2)
     out = np.full_like(u, np.nan)
@@ -198,7 +209,7 @@ def _emulate_rbgs(g, u, b, n, h, sigma, goff, roff):
             gs = (h2 * B.get(q) + _nsum(lo[1:-1], hi[1:-1], mid, cur)) \
                 * inv_den
             upd = (t.upd & t.red(q))[1:-1] if t.valid(q) else False
-            Rr.put(q, np.where(upd, gs, cur))
+            Rr.put(q, np.where(upd, red_store(gs), cur))
 
         def black(q):
             lo, mid, hi = Rr.get(q - 1), Rr.get(q), Rr.get(q + 1)
@@ -209,7 +220,7 @@ def _emulate_rbgs(g, u, b, n, h, sigma, goff, roff):
                 v = np.where((t.upd & ~t.red(q))[2:-2], gs, cur)
             else:
                 v = np.zeros_like(cur)
-            t.store(out, writes, q, v, 2)
+            t.store(out, writes, q, out_store(v), 2)
 
         z0 = t.z0
         for q in (z0 - 2, z0 - 1, z0, z0 + 1):
@@ -228,8 +239,10 @@ def _emulate_rbgs(g, u, b, n, h, sigma, goff, roff):
     return out, writes
 
 
-def _emulate_pass(g, mode, u, b, n, h, sigma, goff, roff, omega=1.0):
-    """pass_kernel (residual or Jacobi) on geometry g."""
+def _emulate_pass(g, mode, u, b, n, h, sigma, goff, roff, omega=1.0,
+                  out_store=_keep):
+    """pass_kernel (residual or Jacobi) on geometry g, each output stored
+    as ``out_store`` leaves it."""
     inv_h2 = 1.0 / (h * h)
     jscale = omega / (6.0 * inv_h2 - sigma)
     out = np.full_like(u, np.nan)
@@ -256,7 +269,7 @@ def _emulate_pass(g, mode, u, b, n, h, sigma, goff, roff, omega=1.0):
                 v = np.where(upd, cur + jscale * res, cur)
             if not t.valid(q):
                 v = np.zeros_like(cur)
-            t.store(out, writes, q, v, 1)
+            t.store(out, writes, q, out_store(v), 1)
 
         z0 = t.z0
         for q in (z0 - 1, z0, z0 + 1):
@@ -379,6 +392,93 @@ def test_rbgs_march_chained_sweeps(chunk_of):
     _check("rbgs", g, u, b, n, SIGMA, sweeps=2)
 
 
+def _bf16(a):
+    """a rounded to bfloat16 (to nearest even), held in float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _emulate_bf16(mode, g, u, b, n, h, sweeps, out, round_red=True):
+    """The bfloat16 storage mode of ``mode``: u and b bfloat16 values in
+    float32, the arithmetic in float32, every sweep's output rounded to
+    bfloat16 but the last one's with out=float32 (the residual's always
+    float32); with ``round_red`` the red ring rounded to bfloat16."""
+    if mode != "rbgs":
+        store = _bf16 if mode == "jacobi" and out is None else _keep
+        got, writes = _emulate_pass(g, mode, u, b, n, h, SIGMA, 0, 0,
+                                    omega=OMEGA, out_store=store)
+        assert (writes == 1).all()
+        return got
+    for i in range(sweeps):
+        store = _keep if (out is not None and i == sweeps - 1) else _bf16
+        u, writes = _emulate_rbgs(g, u, b, n, h, SIGMA, 0, 0,
+                                  red_store=_bf16 if round_red else _keep,
+                                  out_store=store)
+        assert (writes == 1).all()
+    return u
+
+
+def _bf16_rule_share(got, want):
+    """The share of points where got (float32) parts from want (the plain
+    version's output), after asserting every point within one bfloat16 ulp
+    of it plus 1e-5 of the field's largest value."""
+    assert np.isfinite(got).all() and got.shape == want.shape
+    diff = np.abs(got.astype(np.float64) - want)
+    _, ex = np.frexp(want)
+    ulp = np.where(want != 0, np.ldexp(1.0, ex - 8), 0.0)
+    assert np.all(diff <= ulp + 1e-5 * np.abs(want).max())
+    return np.mean(diff > 0)
+
+
+# (mode, sweeps, out_dtype): each bfloat16 mode, RB-GS also chained.
+_BF16_CASES = [("residual", 1, None), ("jacobi", 1, None),
+               ("jacobi", 1, torch.float32), ("rbgs", 1, None),
+               ("rbgs", 1, torch.float32), ("rbgs", 2, None)]
+
+
+@pytest.mark.parametrize("mode,sweeps,out", _BF16_CASES)
+def test_bf16_march_matches_plain(mode, sweeps, out, chunk_of):
+    """The bfloat16 storage modes on the march (bfloat16's band rows,
+    chunks of 7 planes at n=31) against the plain versions on the bfloat16
+    tensors: at most 1e-3 of the points differ (numpy rounds each float32
+    operation as the plain version does), none by more than the bfloat16
+    rule."""
+    n = 31
+    u, b = (_bf16(a) for a in _grids(n, seed=11 + sweeps))
+    g = chunk_of(mode, u.shape, torch.bfloat16, 7)
+    h = 1.0 / (n + 1)
+    got = _emulate_bf16(mode, g, u, b, n, h, sweeps, out)
+    ut, bt = (torch.from_numpy(a).to(torch.bfloat16) for a in (u, b))
+    kw = dict(sigma=SIGMA)
+    if mode == "residual":
+        want = stencil3d.residual_plain(ut, bt, n, h, **kw)
+    elif mode == "jacobi":
+        want = stencil3d.jacobi_sweep_plain(ut, bt, n, h, OMEGA,
+                                            out_dtype=out, **kw)
+    else:
+        want = stencil3d.rbgs_sweep_plain(ut, bt, n, h, sweeps=sweeps,
+                                          out_dtype=out, **kw)
+    assert want.dtype == (torch.bfloat16 if mode != "residual"
+                          and out is None else torch.float32)
+    assert _bf16_rule_share(got, want.double().numpy()) <= 1e-3
+
+
+def test_bf16_march_must_round_the_red_ring(chunk_of):
+    """The rule above has the power to see the red ring's rounding: a march
+    whose red values stay float32 parts from the plain version at far more
+    than 1e-3 of the points (the black values read them)."""
+    n = 31
+    u, b = (_bf16(a) for a in _grids(n, seed=12))
+    g = chunk_of("rbgs", u.shape, torch.bfloat16, 7)
+    h = 1.0 / (n + 1)
+    got = _emulate_bf16("rbgs", g, u, b, n, h, 1, torch.float32,
+                        round_red=False)
+    want = stencil3d.rbgs_sweep_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (u, b)), n, h,
+        sigma=SIGMA, out_dtype=torch.float32).double().numpy()
+    assert np.mean(np.abs(got - want) > 0) > 0.1
+
+
 _GEOMETRY_SHAPES = [(513, 513, 513), (257, 257, 257), (129, 129, 129),
                     (40, 60, 129), (3, 20, 33), (64, 64, 64), (65, 65, 65),
                     (63, 63, 63)]
@@ -416,8 +516,9 @@ def test_march_geometry_owns_each_point_once(mode, dtype, shape):
 
 def test_march_constants_match_the_kernel_source():
     """stencil3d's MARCH_* constants and the geometry's ints are the ones
-    csrc/stencil3d.cu compiles with."""
-    src = (_build.CSRC / "stencil3d.cu").read_text()
+    csrc/stencil3d.cuh (the march of stencil3d.cu and stencil3d_bf16.cu)
+    compiles with; bfloat16 storage takes float32's rows (Rows<float>)."""
+    src = (_build.CSRC / "stencil3d.cuh").read_text()
     const = {name: int(v) for name, v in
              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert const["kLanes"] == LANES
@@ -425,7 +526,7 @@ def test_march_constants_match_the_kernel_source():
     assert const["kSlots"] == SLOTS
     for (kernel, dtype), rows in stencil3d.MARCH_ROWS.items():
         key = ("kRbgsRows" if kernel == "rbgs" else "kPassRows") + \
-            ("F32" if dtype == torch.float32 else "F64")
+            ("F64" if dtype == torch.float64 else "F32")
         assert const[key] == rows
     fields = re.search(r"struct Geom \{\s*int ([^;]*);", src).group(1)
     assert [f.strip() for f in fields.split(",")] == [
