@@ -74,6 +74,18 @@ Phases:
          float64 with a bfloat16 preconditioner, lambda_1 within 1e-8 of
          the full-precision runs' and of the exact discrete value, in at
          most 3 outer steps more;
+       * sharded mixed precision: ShardedSolver.solve(method="pcg") with
+         precond_dtype=torch.bfloat16 on a mesh of 1, float32 outer
+         iterations, beside the float32 sharded PCG of the same mesh: S1's
+         4095^2 RB-GS V(2,2) on a row mesh packed (S1mixed: the plocal2d
+         legs' bfloat16 modes) and with PACK_MIN_N above 4095
+         (S1unpacked-mixed: the local2d ones), S2's 2047^2 on a (1, 1)
+         block mesh (S2mixed); converged, in at most ceil(1.2 x float32's
+         iterations) + 1, max error against u_exact (and the float32
+         PCG's) under 4e-3 packed, 1e-2 at S1unpacked-mixed and 5e-3 at
+         S2mixed, exact launches; a float64 k=10 mixed sharded PCG
+         within the same gate and rtol 1e-7, atol 1e-8 of the full-dtype
+         one;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -121,7 +133,12 @@ Phases:
      stencil3d kernels' bfloat16 modes (the residual, storing float32; the
      Jacobi and RB-GS sweeps at 1 and 2 sweeps, storing bfloat16 or, by
      out_dtype, float32) at 511^3, both sigmas, and on a slab-and-pencil
-     stack of it, by the same rule;
+     stack of it, by the same rule; the local2d and plocal2d legs'
+     bfloat16 modes (the down leg, the up leg storing bfloat16 or float32)
+     on bfloat16 forms of S1's fine tile, S2's block tile and the two offset
+     tiles, unpacked and packed, at RB-GS nu = 2, Jacobi nu = 3 and RB-GS
+     nu = 1 with sigma, by the same rule (the coarse right-hand side against
+     the plain restriction of the kernel's own stored u');
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -168,8 +185,12 @@ Phases:
      and a PCG solve's wall, with a bfloat16 and a float32 cycle; the
      stencil3d bfloat16 modes at 511^3 so, beside their float32 twins and
      their bounds at bfloat16 bytes, and the mixed3d cycle's busy and idle
-     and its PCG's wall. Every kernel row also gets the profiler's device
-     time a call (device_ms).
+     and its PCG's wall; the local2d and plocal2d legs' bfloat16 modes at
+     S1's fine tile beside their float32 twins and their bounds at bfloat16
+     bytes, and on each sharded mixed path a preconditioning cycle's busy
+     and idle share and a PCG solve's wall, with a bfloat16 and a float32
+     fine level (right after the sharded cycles' times). Every kernel row
+     also gets the profiler's device time a call (device_ms).
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -212,7 +233,14 @@ RB-GS sweeps and the bfloat16 residual (storing float32); the correction
 add x + P e promotes 511 to float32 and the post-smoothing runs the
 float32 sweeps; 255 and 127 run the float32 kernels, as in a float32
 cycle. The sweeps storing float32 (out_dtype) and the bfloat16 Jacobi
-modes run on no path: direct calls.
+modes run on no path: direct calls. Each bfloat16 preconditioning cycle
+of a sharded mixed PCG runs, on the fine level's carried tile, the
+bfloat16 down leg and the up leg with bfloat16 x and b, a float32
+correction and float32 x' (plocal2d at S1mixed, local2d at
+S1unpacked-mixed and S2mixed), the float32 local2d legs on the levels
+below; CG's residual and apply stay float32 (the plocal2d residual and
+apply, or the local2d residual). The tile legs storing bfloat16 run on no
+path: direct calls.
 
 FMG and the eigensolvers add no kernel. An FMG walk's V-cycle started at a
 level runs the legs of the kernel levels at and below it; b's restriction
@@ -485,6 +513,34 @@ MIXED_EIGEN = ("lobpcg", "ii")
 # at (method, k): lambda_1 within MIXED_EIGEN_RTOL of the full run's and of
 # the exact discrete value, in at most MIXED3D_EXTRA_STEPS outer steps more.
 MIXED3D_STACK = (200, -1, 63, 513)
+# Sharded mixed precision (the local2d and plocal2d legs' bfloat16 modes):
+# phase 2 holds them on bfloat16 forms of the tiles of compare_local2d and
+# compare_plocal2d (S1's fine tile unpacked and packed, S2's block tile
+# unpacked and packed in the other phase, the two offset tiles) by the
+# bfloat16 rule above, at MIXED_TILE_RUNS (kind, sweeps, sigma; the first
+# is the main path's). Phase 3 runs sharded MG-PCG with
+# precond_dtype=torch.bfloat16 on a sharded path's fine level, in the
+# world of 1, beside the float32 PCG of the same mesh: label -> (sharded
+# path, PACK_MIN_N or None for the default, max-error bound against
+# u_exact), with MIXED_ITER_FACTOR's iteration gate; S1mixed packs 4095
+# (plocal2d), S1unpacked-mixed and S2mixed run local2d's modes there.
+# PCG on the unpacked 4095 route ends further from u_exact than the solve
+# by cycles does (SHARDED_MAXERR's readings), in float32 as in mixed
+# precision: 7.1813e-3 float32 and 6.8548e-3 with the bfloat16
+# preconditioner on a CPU world of 1 (the plain versions, which the local2d
+# legs equal bit for bit at sigma = 0), 6.8309e-3 mixed on an H100; so
+# S1unpacked-mixed is held to MAXERR[2], the bound of the 2D float32 solves
+# and of the single-device mixed PCG runs, and the float32 PCG beside it
+# to the same bound. S2mixed (k=11: 1.8e-4 float32, 2.3e-4 mixed on the
+# CPU) keeps SHARDED_MAXERR, S1mixed PACKED_MAXERR. And
+# a float64 k=SHARDED_F64_K mixed sharded PCG within the same gate, x
+# within MIXED_SHARDED_RTOL, MIXED_SHARDED_ATOL of the full-dtype sharded
+# PCG (the JAX package's criterion, tests/test_mixed.py).
+MIXED_TILE_RUNS = (("rbgs", 2, 0.0), ("jacobi", 3, 0.0), ("rbgs", 1, SIGMA))
+MIXED_SHARDED = {"S1mixed": ("S1", None, PACKED_MAXERR),
+                 "S1unpacked-mixed": ("S1", 2 ** MAIN_K, MAXERR[2]),
+                 "S2mixed": ("S2", None, SHARDED_MAXERR)}
+MIXED_SHARDED_RTOL, MIXED_SHARDED_ATOL = 1e-7, 1e-8
 MIXED3D_EIGEN = (("lobpcg", MAIN_K3), ("ii", MAIN_K3 - 1))
 MIXED3D_EXTRA_STEPS = 3
 # Config 3 (BASELINE.json): one FMG pass at 1023^2, scored by its
@@ -685,6 +741,25 @@ def stencil3d_ptxas(props: dict) -> dict:
     return out
 
 
+def leg_ptxas(props: dict) -> dict:
+    """{(frame, leg, storage, kind, "packed e" or ""): [(stages,
+    registers, spill bytes)]} of the row-streaming leg and sweep kernels
+    among ``props``; storage "f32", "f64", "bf16" or "bf16 f32-out"."""
+    rows = {}
+    for mangled, prop in props.items():
+        m = LEG_KERNEL.search(mangled)
+        if not m or "regs" not in prop:
+            continue
+        leg, ty, kind, stages, packed_e, frame, bf16, f32_out = m.groups()
+        key = (frame, leg, ("bf16" + (" f32-out" if f32_out else "")) if bf16
+               else "f32" if ty == "f" else "f64",
+               "rbgs" if kind == "1" else "jacobi",
+               "packed e" if packed_e == "1" else "")
+        rows.setdefault(key, []).append(
+            (int(stages), prop["regs"], prop.get("spill", 0)))
+    return {key: sorted(cells) for key, cells in rows.items()}
+
+
 def ptxas_report(log_path) -> dict:
     """Log ptxas's registers and spill bytes of every row-streaming leg
     and sweep kernel, a line a frame, leg, type and kind (stage counts in
@@ -702,21 +777,10 @@ def ptxas_report(log_path) -> dict:
         regs, spill = march[key]
         log(f"ptxas stencil3d {' '.join(key)}: {regs}r"
             + (f" spill {spill}B" if spill else ""))
-    rows = {}
-    for mangled, prop in props.items():
-        m = LEG_KERNEL.search(mangled)
-        if not m or "regs" not in prop:
-            continue
-        leg, ty, kind, stages, packed_e, frame, bf16, f32_out = m.groups()
-        key = (frame, leg, ("bf16" + (" f32-out" if f32_out else "")) if bf16
-               else "f32" if ty == "f" else "f64",
-               "rbgs" if kind == "1" else "jacobi",
-               "packed e" if packed_e == "1" else "")
-        rows.setdefault(key, []).append(
-            (int(stages), prop["regs"], prop.get("spill", 0)))
+    rows = leg_ptxas(props)
     for key in sorted(rows):
         cells = ", ".join(f"K={k} {r}r" + (f" spill {sp}B" if sp else "")
-                          for k, r, sp in sorted(rows[key]))
+                          for k, r, sp in rows[key])
         log(f"ptxas {' '.join(x for x in key if x)}: {cells}")
     others = {}
     for mangled, prop in props.items():
@@ -1078,6 +1142,82 @@ def compare_mixed(main_err: dict) -> None:
             if main and sigma == 0.0:
                 main_err["packed2d_residual_bf16"] = err
         del su, sb, e, se
+        torch.cuda.empty_cache()
+
+
+def compare_mixed_sharded(main_err: dict) -> None:
+    """The local2d and plocal2d legs' bfloat16 modes (the down leg; the
+    up leg storing bfloat16 and float32) against their plain versions on
+    bfloat16 forms of S1's fine tile (4112 x 4097, a row tile: paired
+    accesses on its odd rows), S2's block tile (2064 x 2064, odd column
+    offset: none) and the two offset tiles of compare_local2d, each
+    unpacked and packed, at MIXED_TILE_RUNS; the coarse right-hand side
+    against the plain restriction of the kernel's own stored u' (the red
+    residual only after an RB-GS sweep on a packed tile). The main-path
+    error of each mode is S1's fine tile's (unpacked: local2d, packed:
+    plocal2d) at the first run."""
+    from multigridcmt_tpu_torch.kernels import local2d, plocal2d
+
+    bf, f32 = torch.bfloat16, torch.float32
+    tiles = [(2 ** MAIN_K - 1, 1, 0, 0, 0),
+             (2 ** SHARDED_PATHS["S2"][0] - 1, 1, 0, 1, 0)]
+    tiles += list(LOCAL2D_TILES)
+    for n, dr, r, dc, c in tiles:
+        ue, be, e, t = local2d_tile(n, f32, n + r + c + 51, (dr, dc), (r, c))
+        ue, be = ue.to(bf), be.to(bf)
+        h, nc, m, mcol = 1.0 / (n + 1), (n - 1) // 2, t["m"], t["mcol"]
+        offs = (t["row_off"], t["col_off"])
+        cols, cpar = ue.shape[1], 1 if mcol else 0
+        main = (n, dr, dc) == (2 ** MAIN_K - 1, 1, 0)
+        for packed in (False, True):
+            mod = plocal2d if packed else local2d
+            if packed:
+                su, sb = plocal2d.pack_ext(ue, cpar), plocal2d.pack_ext(be,
+                                                                        cpar)
+            else:
+                su, sb = ue, be
+
+            def view(x):
+                return unpacked_tile(x, cols, cpar) if packed else x
+
+            name = "plocal2d" if packed else "local2d"
+            label = (f"bf16 {name} n={n} tile {tuple(ue.shape)} offsets "
+                     f"{offs}")
+            for run, (kind, nu, sigma) in enumerate(MIXED_TILE_RUNS):
+                kw = dict(kind=kind, omega=0.8 if kind == "jacobi" else 1.0,
+                          sweeps=nu, sigma=sigma, mcol=mcol)
+                what = f"{label} {kind} nu={nu} sigma={sigma}"
+                gu, grc = mod.down_leg(su, sb, n, h, m, *offs, **kw)
+                wu, _ = mod.down_leg_plain(su, sb, n, h, m, *offs, **kw)
+                require(gu.dtype == bf and grc.dtype == f32,
+                        f"{what}: u' {gu.dtype}, r_c {grc.dtype}")
+                want = mod.residual_restrict_plain(
+                    gu, sb, n, h, m, *offs, sigma=sigma, mcol=mcol,
+                    red_only=packed and kind == "rbgs" and nu >= 1)
+                errs = {"down_bf16": max(
+                    check_bf16(f"{what} down u'", view(gu), view(wu),
+                               ghosts=False),
+                    check_pair(f"{what} down r_c", grc, want, TOL[f32],
+                               tuple(e.shape), ghosts=False),
+                    key=lambda v: v[1])}
+                for out in (bf, f32):
+                    got = mod.up_leg(su, e, sb, n, nc, h, m, *offs,
+                                     out_dtype=out, **kw)
+                    want = mod.up_leg_plain(su, e, sb, n, nc, h, m, *offs,
+                                            out_dtype=out, **kw)
+                    require(got.dtype == out, f"{what}: x' is {got.dtype}")
+                    tag = "up_bf16" if out == bf else "up_bf16_f32"
+                    errs[tag] = (
+                        check_bf16(f"{what} up out=bf16", view(got),
+                                   view(want), ghosts=False)
+                        if out == bf else
+                        check_pair(f"{what} up out=float32", view(got),
+                                   view(want), TOL[f32], ghosts=False))
+                if main and run == 0:
+                    main_err.update({f"{name}_{k}": v
+                                     for k, v in errs.items()})
+            del su, sb
+        del ue, be, e
         torch.cuda.empty_cache()
 
 
@@ -1826,6 +1966,7 @@ def phase_compare():
     compare_plocal2d(main_err)
     compare_mixed(main_err)
     compare_mixed3d(main_err)
+    compare_mixed_sharded(main_err)
     return main_err
 
 
@@ -1988,6 +2129,39 @@ KERNELS = {
                                   "stencil3d_bf16.cu",
                                   "multigridcmt_tpu/kernels/stencil3d.py:485",
                                   None),
+    # The bfloat16 modes of the shard tile legs (sharded mixed precision):
+    # the down leg and the up leg storing float32 run on a sharded mixed
+    # cycle's fine level (S1mixed packed, S1unpacked-mixed unpacked); the up
+    # leg storing bfloat16 (the TPU kernel's own mode) on no path: direct
+    # calls only.
+    "local2d_down_bf16": ("local2d", "down_bf16_launches",
+                          "multigridcmt_tpu_torch/kernels/csrc/"
+                          "local2d_legs_bf16.cu",
+                          "multigridcmt_tpu/kernels/local2d.py:616",
+                          "S1unpacked-mixed"),
+    "local2d_up_bf16_f32": ("local2d", "up_bf16_f32_launches",
+                            "multigridcmt_tpu_torch/kernels/csrc/"
+                            "local2d_up_bf16_f32.cu",
+                            "multigridcmt_tpu/kernels/local2d.py:843",
+                            "S1unpacked-mixed"),
+    "local2d_up_bf16": ("local2d", "up_bf16_launches",
+                        "multigridcmt_tpu_torch/kernels/csrc/"
+                        "local2d_legs_bf16.cu",
+                        "multigridcmt_tpu/kernels/local2d.py:843", None),
+    "plocal2d_down_bf16": ("plocal2d", "down_bf16_launches",
+                           "multigridcmt_tpu_torch/kernels/csrc/"
+                           "plocal2d_legs_bf16.cu",
+                           "multigridcmt_tpu/kernels/plocal2d.py:501",
+                           "S1mixed"),
+    "plocal2d_up_bf16_f32": ("plocal2d", "up_bf16_f32_launches",
+                             "multigridcmt_tpu_torch/kernels/csrc/"
+                             "plocal2d_up_bf16_f32.cu",
+                             "multigridcmt_tpu/kernels/plocal2d.py:708",
+                             "S1mixed"),
+    "plocal2d_up_bf16": ("plocal2d", "up_bf16_launches",
+                         "multigridcmt_tpu_torch/kernels/csrc/"
+                         "plocal2d_legs_bf16.cu",
+                         "multigridcmt_tpu/kernels/plocal2d.py:708", None),
 }
 # The runs of phase 3 that drive a main path through the public API.
 MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
@@ -1995,13 +2169,16 @@ MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
              "S1unpacked", "S2", "S3", "S4", "S4cheb", "fmg1023", "fmg4095",
              "eigen511_ii", "eigen511_rqi", "eigen511_lobpcg", "S1fmg",
              "mixed2d", "mixedB", "mixedA", "mixed_lobpcg", "mixed_ii",
-             "mixed3d", "mixed3d_lobpcg", "mixed3d_ii")
+             "mixed3d", "mixed3d_lobpcg", "mixed3d_ii", "S1mixed",
+             "S1unpacked-mixed", "S2mixed", "sharded_mixed_f64")
 # Direct calls of a kernel that no main path launches.
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d",
                "packed2d_up_bf16": "up_bf16_direct",
                "stencil3d_rbgs_bf16_f32": "mixed3d_direct",
                "stencil3d_jacobi_bf16": "mixed3d_direct",
-               "stencil3d_jacobi_bf16_f32": "mixed3d_direct"}
+               "stencil3d_jacobi_bf16_f32": "mixed3d_direct",
+               "local2d_up_bf16": "sharded_up_bf16_direct",
+               "plocal2d_up_bf16": "sharded_up_bf16_direct"}
 
 
 def kernel_module(mod: str):
@@ -2773,6 +2950,141 @@ def paths_sharded(runs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def paths_mixed_sharded(runs: dict) -> None:
+    """Sharded MG-PCG with precond_dtype=torch.bfloat16 through
+    ShardedSolver.solve(method="pcg") on a mesh of 1, at MIXED_SHARDED's
+    paths beside the float32 PCG of the same mesh: converged, in at most
+    ceil(MIXED_ITER_FACTOR x its iterations) + 1, max error against u_exact
+    under the path's bound, with exact launches (each preconditioning
+    cycle: the fine level's bfloat16 down leg and float32-out up leg, the
+    float32 local2d legs below; CG's residual and apply at float32, as
+    S1pcg's and the unpacked route's); a float64 k=SHARDED_F64_K mixed
+    sharded PCG within the same gate and MIXED_SHARDED_RTOL/ATOL of the
+    full-dtype one; and one direct call of each bfloat16-storing up leg,
+    which no solver runs."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch import kernels
+    from multigridcmt_tpu_torch.kernels import local2d, plocal2d
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    bf = torch.bfloat16
+
+    def build(path, dtype, pd, **kw):
+        k, shape, cfg = SHARDED_PATHS[path]
+        prob = mt.poisson2d(k=k, dtype=dtype, use_kernels=True,
+                            device="cuda", precond_dtype=pd, **cfg, **kw)
+        return prob, sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+
+    def want_counts(packed, legs, i):
+        # c preconditioning cycles; the residual once and the apply an
+        # iteration (-residual(p, 0) unpacked, apply_op packed).
+        c = i + 1
+        fine = "plocal2d" if packed else "local2d"
+        want = {f"{fine}_down_bf16": c, f"{fine}_up_bf16_f32": c,
+                "local2d_down": (legs - 1) * c, "local2d_up": (legs - 1) * c}
+        if packed:
+            want.update(plocal2d_residual=1, plocal2d_apply=i)
+        else:
+            want.update(local2d_residual=1 + i)
+        return want
+
+    saved = kernels.PACK_MIN_N
+    try:
+        for label, (path, pack_min_n, bound) in MIXED_SHARDED.items():
+            kernels.PACK_MIN_N = saved if pack_min_n is None else pack_min_n
+            prob, solver = build(path, torch.float32, None)
+            full, _, full_wall = counted(
+                lambda: solver.solve(prob.b, method="pcg"))
+            prob, solver = build(path, torch.float32, bf)
+            cfg, dec = prob.config, solver.decomp
+            packed = sharded._pack_level_ok(cfg, dec, 0)
+            legs, owned = sharded_levels(prob, solver)
+            expect = (label == "S1mixed", 5 if path == "S1" else 4)
+            require(sharded.mixed_leg_dtype(cfg, dec) == bf
+                    and (packed, legs) == expect and owned == 0,
+                    f"{label}: cast {sharded.mixed_leg_dtype(cfg, dec)}, "
+                    f"packed {packed}, {legs} leg and {owned} owned kernel "
+                    f"levels, not {bf}, {expect} and 0")
+            torch.cuda.reset_peak_memory_stats()
+            res, counts, wall = counted(
+                lambda: solver.solve(prob.b, method="pcg"))
+            runs[f"peak_{label}"] = torch.cuda.max_memory_allocated()
+            check_solve(f"{label}: sharded mixed pcg k={cfg.k} float32, "
+                        f"precond bfloat16, mesh {solver.mesh.shape}, "
+                        f"PACK_MIN_N {kernels.PACK_MIN_N}", prob,
+                        mt.MultigridSolver(prob), res, wall, 2,
+                        runs[f"peak_{label}"], bound)
+            gate = math.ceil(MIXED_ITER_FACTOR * full.iters) + 1
+            full_err = (full.x - prob.u_exact).abs().max().item()
+            log(f"  float32 sharded pcg on the same mesh: {full.iters} "
+                f"iterations, converged {full.converged}, max error vs "
+                f"u_exact {full_err:.4e}, wall {full_wall:.3f} s; gate "
+                f"{gate}")
+            require(full.converged and res.converged and res.iters <= gate
+                    and full_err < bound,
+                    f"{label}: mixed pcg {res.iters} iterations (converged "
+                    f"{res.converged}) against float32's {full.iters} "
+                    f"(converged {full.converged}, max error {full_err:.3e}):"
+                    f" gate {gate}, bound {bound}")
+            require_counts(label, counts, **want_counts(packed, legs,
+                                                        res.iters))
+            runs[label] = counts
+            runs[f"{label}_walls"] = {
+                "float32_s": full_wall, "mixed_s": wall,
+                "float32_iters": full.iters, "mixed_iters": res.iters,
+                "float32_maxerr": full_err,
+                "mixed_maxerr": (res.x - prob.u_exact).abs().max().item()}
+            del prob, solver, res, full
+            torch.cuda.empty_cache()
+    finally:
+        kernels.PACK_MIN_N = saved
+
+    # float64 at k=10 on a row mesh (the default PACK_MIN_N: 1023 on the
+    # local2d legs' bfloat16 modes), against the full-dtype sharded PCG.
+    out = {}
+    for pd in (None, bf):
+        prob = mt.poisson2d(k=SHARDED_F64_K, dtype=torch.float64,
+                            smoother="rbgs", use_kernels=True, tol=F64_TOL,
+                            device="cuda", precond_dtype=pd)
+        solver = sharded.ShardedSolver(prob.config, sharded_mesh((1,)))
+        out[pd] = counted(lambda: solver.solve(prob.b, method="pcg"))
+    (full, _, _), (res, counts, _) = out[None], out[bf]
+    legs, _ = sharded_levels(prob, solver)
+    gate = math.ceil(MIXED_ITER_FACTOR * full.iters) + 1
+    diff = (res.x - full.x).abs()
+    over = (diff - MIXED_SHARDED_RTOL * full.x.abs()).max().item()
+    log(f"sharded mixed float64 k={SHARDED_F64_K}: {res.iters} iterations "
+        f"(full dtype {full.iters}, gate {gate}), converged {res.converged}; "
+        f"x against the full-dtype x: max abs {diff.max().item():.3e}, past "
+        f"rtol {MIXED_SHARDED_RTOL} by {over:.3e} (atol "
+        f"{MIXED_SHARDED_ATOL})")
+    require(full.converged and res.converged and res.iters <= gate
+            and over <= MIXED_SHARDED_ATOL,
+            f"sharded mixed float64: {res.iters}/{res.converged} against "
+            f"{full.iters}/{full.converged}, gate {gate}; x past rtol by "
+            f"{over:.3e} > {MIXED_SHARDED_ATOL}")
+    require_counts("sharded mixed f64", counts,
+                   **want_counts(False, legs, res.iters))
+    runs["sharded_mixed_f64"] = counts
+    del prob, solver, out, full, res
+
+    # The bfloat16-storing up legs (the TPU kernels' own mode): direct calls.
+    n = 2 ** MAIN_K - 1
+    ue, be, e, t = local2d_tile(n, torch.float32, seed=61)
+    ue, be = ue.to(bf), be.to(bf)
+    args = (n, (n - 1) // 2, 1.0 / (n + 1), t["m"], t["row_off"])
+    kw = dict(kind="rbgs", omega=1.0, sweeps=2)
+    _, counts, _ = counted(lambda: (
+        local2d.up_leg(ue, e, be, *args, **kw),
+        plocal2d.up_leg(plocal2d.pack_ext(ue, 0), e, plocal2d.pack_ext(be, 0),
+                        *args, **kw)))
+    require_counts("sharded bf16 up legs direct", counts, local2d_up_bf16=1,
+                   plocal2d_up_bf16=1)
+    runs["sharded_up_bf16_direct"] = counts
+    del ue, be, e
+    torch.cuda.empty_cache()
+
+
 def fmg_walk_crossings(prob) -> int:
     """fused2d launches of each leg in one FMG walk: the V-cycle started at
     level l crosses the fused2d levels l...L-2."""
@@ -3324,6 +3636,10 @@ def phase_main_path():
     paths_sparse(runs)
     paths_sharded(runs)
     start = time.perf_counter()
+    paths_mixed_sharded(runs)
+    log(f"sharded mixed-precision paths: {time.perf_counter() - start:.1f} "
+        "s")
+    start = time.perf_counter()
     paths_fmg(runs)
     paths_eigen(runs)
     paths_sharded_fmg(runs)
@@ -3445,6 +3761,12 @@ def flops_per_point(name: str, sweeps: int = 2) -> int:
             "stencil3d_residual_bf16": 10, "stencil3d_rbgs_bf16": 8,
             "stencil3d_rbgs_bf16_f32": 8, "stencil3d_jacobi_bf16": 12,
             "stencil3d_jacobi_bf16_f32": 12,
+            "local2d_down_bf16": 6 * sweeps + 12,
+            "local2d_up_bf16": 6 * sweeps + 3,
+            "local2d_up_bf16_f32": 6 * sweeps + 3,
+            "plocal2d_down_bf16": 6 * sweeps + 12,
+            "plocal2d_up_bf16": 6 * sweeps + 3,
+            "plocal2d_up_bf16_f32": 6 * sweeps + 3,
             }[name]
 
 
@@ -4083,6 +4405,122 @@ def timed_sharded(times: dict) -> None:
     times["local2d_sweeps"] = sweeps
 
 
+def timed_mixed_sharded(times: dict) -> None:
+    """The local2d and plocal2d legs' bfloat16 modes on S1's fine tile
+    (4112 x 4097 unpacked, 2 x 4112 x 2049 packed), RB-GS nu = 2, sigma =
+    0, each against its plain version in turns (single calls), as LEG_CHAIN
+    chained calls and by the profiler's device time a call, beside its
+    float32 twin on the same values (chained and device) and its bound at
+    bfloat16 bytes; and at each MIXED_SHARDED path, one preconditioning
+    cycle as sharded MG-PCG runs it (the fine level's carried tile, from
+    zero) with a bfloat16 and a float32 fine level: device busy, ops, idle
+    share, and a PCG solve's wall."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch import kernels
+    from multigridcmt_tpu_torch.kernels import local2d, plocal2d
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    n = 2 ** MAIN_K - 1
+    h, nc = 1.0 / (n + 1), (n - 1) // 2
+    ue, be, e, t = local2d_tile(n, f32, seed=24)
+    m, offs = t["m"], (t["row_off"], t["col_off"])
+    rc = torch.empty_like(e)
+    kw = dict(kind="rbgs", omega=1.0, sweeps=2)
+    for mod in (local2d, plocal2d):
+        name = mod.__name__.split(".")[-1]
+        su, sb = ue.to(bf), be.to(bf)
+        if mod is plocal2d:
+            su, sb = plocal2d.pack_ext(su, 0), plocal2d.pack_ext(sb, 0)
+        fu, fb = su.float(), sb.float()
+        # name -> (kernel, plain, float32 twin on (u, b), bytes read once
+        # and written once)
+        cases = {
+            f"{name}_down_bf16": (
+                lambda: mod.down_leg(su, sb, n, h, m, *offs, **kw),
+                lambda: mod.down_leg_plain(su, sb, n, h, m, *offs, **kw),
+                lambda u, b: mod.down_leg(u, b, n, h, m, *offs, **kw),
+                nbytes(su, sb, su, rc)),
+            f"{name}_up_bf16_f32": (
+                lambda: mod.up_leg(su, e, sb, n, nc, h, m, *offs,
+                                   out_dtype=f32, **kw),
+                lambda: mod.up_leg_plain(su, e, sb, n, nc, h, m, *offs,
+                                         out_dtype=f32, **kw),
+                lambda u, b: mod.up_leg(u, e, b, n, nc, h, m, *offs, **kw),
+                nbytes(su, sb, e, fu)),
+            f"{name}_up_bf16": (
+                lambda: mod.up_leg(su, e, sb, n, nc, h, m, *offs, **kw),
+                lambda: mod.up_leg_plain(su, e, sb, n, nc, h, m, *offs,
+                                         **kw),
+                lambda u, b: mod.up_leg(u, e, b, n, nc, h, m, *offs, **kw),
+                nbytes(su, sb, e, su)),
+        }
+        for key, (kernel, plain, twin, nb) in cases.items():
+            pair = time_pair(f"{key} {tuple(su.shape)} nu=2", kernel, plain)
+            row = {"ms": chained_ms(kernel, LEG_CHAIN),
+                   "single_ms": pair["ms"], "plain_ms": pair["plain_ms"],
+                   "device_ms": pair["device_ms"],
+                   "f32_chained_ms": chained_ms(lambda: twin(fu, fb),
+                                                LEG_CHAIN),
+                   "f32_device_ms": device_busy(lambda: twin(fu, fb),
+                                                LEG_CHAIN)[0],
+                   "bytes": nb, "flops": flops_per_point(key) * n * n}
+            row["chained_ms"] = row["ms"]
+            log(f"bf16 {key} {tuple(su.shape)} nu=2: chained x{LEG_CHAIN} "
+                f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms; "
+                f"float32 twin chained {row['f32_chained_ms']:.4f} ms, "
+                f"device {row['f32_device_ms']:.4f} ms; bound "
+                f"{nb / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+            times[key] = row
+        del su, sb, fu, fb, cases
+    del ue, be, e, rc
+    torch.cuda.empty_cache()
+
+    out = {}
+    saved = kernels.PACK_MIN_N
+    try:
+        for label, (path, pack_min_n, _) in MIXED_SHARDED.items():
+            kernels.PACK_MIN_N = saved if pack_min_n is None else pack_min_n
+            k, shape, cfg = SHARDED_PATHS[path]
+            prob = mt.poisson2d(k=k, dtype=f32, use_kernels=True,
+                                device="cuda", **cfg)
+            mesh = sharded_mesh(shape)
+            solver = sharded.ShardedSolver(prob.config, mesh)
+            b_t = sharded.shard_rhs(prob.b, mesh, solver.decomp)
+            tiles = sharded._Carried(prob.config, solver.decomp, b_t)
+            re = tiles.enter(b_t)
+            row = {}
+            for pd in (f32, bf):
+                rp = re.to(pd)
+
+                def cycle():
+                    return sharded._leg_cycle_ext(
+                        prob.hierarchy, prob.config, solver.decomp,
+                        torch.zeros_like(rp), rp, 0, 1, 0.0, fresh=True,
+                        out_dtype=None if pd == f32 else f32)
+
+                busy, ops, _ = device_busy(cycle, 5)
+                cycle_ms = cuda_time_ms(cycle)
+                run = sharded.ShardedSolver(dataclasses.replace(
+                    prob.config, precond_dtype=pd), mesh)
+                pcg_ms = cuda_time_ms(lambda: run.solve(prob.b,
+                                                        method="pcg"),
+                                      reps=3, warmup=1)
+                row[str(pd).split(".")[-1]] = {
+                    "cycle_ms": cycle_ms, "busy_ms": busy, "ops": ops,
+                    "idle": 1.0 - busy / cycle_ms, "pcg_ms": pcg_ms}
+            log(f"mixed sharded {label}: " + json.dumps(row))
+            out[label] = row
+            del prob, solver, b_t, tiles, re, rp, run
+            torch.cuda.empty_cache()
+    finally:
+        kernels.PACK_MIN_N = saved
+    times["mixed_sharded_cycles"] = out
+
+
 def timed_chains(times: dict) -> None:
     """One S1 cycle as v_cycles_fn runs it (CHAIN_CYCLES chained cycles over
     CHAIN_CYCLES, CUDA events, median of 5): packed (the default
@@ -4519,6 +4957,10 @@ def phase_times():
     timed_3d(times)
     timed_sparse(times)
     timed_sharded(times)
+    start = time.perf_counter()
+    timed_mixed_sharded(times)
+    log(f"sharded mixed-precision times: {time.perf_counter() - start:.1f} "
+        "s")
     timed_chains(times)
     timed_plocal2d(times)
     start = time.perf_counter()
@@ -4639,6 +5081,11 @@ def main() -> int:
         log(f"mixed_{method} walls (float64, full and bfloat16-"
             f"preconditioned, s): {runs['mixed_' + method + '_walls']}")
     log("mixed3d_cycles: " + json.dumps(times["mixed3d_cycles"]))
+    log("mixed_sharded_cycles: "
+        + json.dumps(times["mixed_sharded_cycles"]))
+    for label in MIXED_SHARDED:
+        log(f"{label} walls and iterations: "
+            + json.dumps(runs[f"{label}_walls"]))
     log(f"mixed3d solve peak device memory: {runs['peak_mixed3d']} bytes")
     for method, _ in MIXED3D_EIGEN:
         log(f"mixed3d_{method}: "

@@ -44,8 +44,13 @@ class SolverConfig:
         bfloat16 lives only in the fine level's storage (the kernels
         compute in float32, emit the coarse levels in float32, and the top
         level's correction promotes to float32: ``cycles.v_cycle``); it is
-        ignored elsewhere. ``ShardedSolver`` raises for any precond_dtype
-        other than ``dtype`` (sharded mixed precision, not ported yet).
+        ignored elsewhere. ``ShardedSolver``'s MG-PCG reads it through
+        ``parallel.sharded.mixed_leg_dtype``, as JAX's does: the cycle is
+        cast where the fine level runs the whole-leg kernels (2D rows and
+        blocks, ``use_kernels``, tiles at least ``HALO_ROWS`` deep), the
+        fine tiles then stored in bfloat16 and the top level's up leg
+        storing float32; its solve by cycles, FMG and ``v_cycle_fn``
+        ignore it, and its eigensolvers and 3D solves still raise.
       fmg_prolong: the FMG solution walk's prolongation, "linear" or
         "cubic" (``ops.transfer.fmg_prolong``). The sharded FMG walks
         linearly only, and ``ShardedSolver`` refuses "cubic".

@@ -124,6 +124,13 @@ for _name in ("packed2d_down", "packed2d_up", "packed2d_residual",
               "packed2d_rbgs"):
     SIGNATURES[f"mg_{_name}_bf16"] = SIGNATURES[f"mg_{_name}_f32"]
 SIGNATURES["mg_packed2d_up_bf16_f32"] = SIGNATURES["mg_packed2d_up_f32"]
+# The shard tile legs' bfloat16 storage modes (the fine level of a sharded
+# mixed cycle, csrc/local2d_legs_bf16.cu, local2d_up_bf16_f32.cu,
+# plocal2d_legs_bf16.cu and plocal2d_up_bf16_f32.cu), with the same rule.
+for _name in ("local2d_down", "local2d_up", "plocal2d_down", "plocal2d_up"):
+    SIGNATURES[f"mg_{_name}_bf16"] = SIGNATURES[f"mg_{_name}_f32"]
+for _name in ("local2d_up", "plocal2d_up"):
+    SIGNATURES[f"mg_{_name}_bf16_f32"] = SIGNATURES[f"mg_{_name}_f32"]
 # The stencil3d kernels' bfloat16 storage modes (the fine level of a mixed
 # 3D cycle, csrc/stencil3d_bf16.cu): the float32 entry points' arguments.
 # The residual stores r in float32; the sweeps' _bf16_f32 entry points store

@@ -5,12 +5,14 @@ CUDA tensor launches the kernel or raises; any other device raises.
 
 Storage rule (the JAX package's ``_cdt``, ``packed2d.py:74-90``): a kernel
 computes in float32 or float64. The fine level of a mixed cycle may also
-be stored in bfloat16, on the packed 2D tier (``packed2d``) and on the 3D
-kernel tier (``stencil3d``): each load widens to float32, each store rounds
-to bfloat16 once, any coarse operand is float32, and an output may be
-stored in float32 (``out_dtype``: the up leg, the 3D sweeps; the 3D
+be stored in bfloat16, on the packed 2D tier (``packed2d``), on the 3D
+kernel tier (``stencil3d``) and on a sharded 2D solve's shard tiles (the
+``local2d`` and ``plocal2d`` legs): each load widens to float32, each store
+rounds to bfloat16 once, any coarse operand is float32, and an output may
+be stored in float32 (``out_dtype``: the up legs, the 3D sweeps; the 3D
 residual always is, ``check_out_dtype``). Every other kernel's bfloat16
-mode raises, naming its ROADMAP.md item.
+mode raises, naming its ROADMAP.md item: no path of either package stores
+bfloat16 there.
 """
 from __future__ import annotations
 
@@ -26,12 +28,12 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 COMPUTE = (torch.float32, torch.float64)
 STORAGE = COMPUTE + (torch.bfloat16,)
 
-# The ROADMAP.md items of the bfloat16 modes still to port.
-MIXED_SHARDED = "queue 1: sharded mixed precision"
+# The bfloat16 modes no mixed path of either package runs: each raises,
+# naming their ROADMAP.md item.
 MIXED_OFF_PATH = "queue 2, part B: bfloat16 storage off the mixed paths"
-
-MIXED_TODO = ("{what}: bfloat16 storage (and a wider output dtype) is not "
-              "ported to CUDA yet (ROADMAP.md, {item})")
+MIXED_TODO = ("{what}: bfloat16 storage is not ported to CUDA: no mixed "
+              "path stores bfloat16 there (ROADMAP.md, " + MIXED_OFF_PATH
+              + ")")
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -40,14 +42,11 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
-def check_storage(what: str, t: torch.Tensor, out_dtype=None, *,
-                  item: str) -> None:
-    """Raise NotImplementedError, naming ROADMAP.md's ``item``, for a
-    kernel's bfloat16 storage or ``out_dtype`` widening that the port does
-    not take yet."""
-    if t.dtype == torch.bfloat16 or (out_dtype is not None
-                                     and out_dtype != t.dtype):
-        raise NotImplementedError(MIXED_TODO.format(what=what, item=item))
+def check_storage(what: str, t: torch.Tensor) -> None:
+    """Raise NotImplementedError (``MIXED_TODO``) for a bfloat16 ``t`` given
+    to a kernel whose bfloat16 mode no mixed path runs."""
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(MIXED_TODO.format(what=what))
 
 
 def check_out_dtype(what: str, t: torch.Tensor, out_dtype) -> torch.dtype:

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..grids import check_device
-from ._wrap import MIXED_OFF_PATH, check_storage, check_tensor, \
+from ._wrap import check_storage, check_tensor, \
     launch_on, on_cuda
 
 BM = 128
@@ -177,8 +177,8 @@ def _nbc(a: BELL) -> int:
 
 def _prepare(a: BELL, xt: torch.Tensor) -> torch.Tensor:
     """Check the operands; return Xt zero-padded to nbc * 128 columns."""
-    check_storage("bell.spmm", a.data, item=MIXED_OFF_PATH)
-    check_storage("bell.spmm", xt, item=MIXED_OFF_PATH)
+    check_storage("bell.spmm", a.data)
+    check_storage("bell.spmm", xt)
     if xt.ndim != 2 or xt.shape[0] % 8 != 0:
         raise ValueError(f"bell.spmm: Xt of shape {tuple(xt.shape)}; "
                          "expected (m, n_cols) with m a multiple of 8")

@@ -16,11 +16,14 @@
 // unpacked grid; packed2d_bf16.cu, packed2d_up_bf16.cu,
 // packed2d_up_bf16_f32.cu and packed2d_sweep_bf16.cu the whole packed
 // grid's legs and sweeps with bfloat16 storage (a storage type S beside
-// the compute type T; S = T everywhere else). packed2d.cu's note says
-// what they replace and how they work; plocal2d.cu's what the tile frame
-// adds, fused2d.cu's what the unpacked one does, local2d_legs.cu's how
-// the unpacked tile joins the two, packed2d_sweep.cu's what the sweeps
-// do, packed2d_bf16.cu's what bfloat16 storage changes.
+// the compute type T), local2d_legs_bf16.cu, local2d_up_bf16_f32.cu,
+// plocal2d_legs_bf16.cu and plocal2d_up_bf16_f32.cu the tile legs so (S =
+// T everywhere else). packed2d.cu's note says what they replace and how
+// they work; plocal2d.cu's what the tile frame adds, fused2d.cu's what the
+// unpacked one does, local2d_legs.cu's how the unpacked tile joins the
+// two, packed2d_sweep.cu's what the sweeps do, packed2d_bf16.cu's what
+// bfloat16 storage changes, local2d_legs_bf16.cu's what it changes on a
+// tile.
 #pragma once
 
 #include <cstdint>
@@ -109,7 +112,8 @@ struct Unpacked {
 // time: `odd_pairs` says whether the odd rows' pairs are aligned (on a row
 // tile, C odd, a.gox 0 and a.goy odd as every sharded tile's, they are; on
 // a block tile, C even and a.gox odd, no row's are; utile_frame derives it
-// from any offsets) and the fine arrays start on a pair. A test of both
+// from any offsets) and the fine arrays start on a pair (of their storage
+// type: 4 bytes in bfloat16). A test of both
 // parities at run time made the up leg slower, and no pairs at all cost it
 // registers (PERF.md).
 struct UTile {
@@ -371,8 +375,8 @@ __device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
   a1 = ok ? mg::ldg_wide<T>(g + at + static_cast<size_t>(P) * cp) : T(0);
 }
 
-template <bool EDGE, typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
+template <bool EDGE, typename T, typename S>
+__device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
                                          T& a1, int i, int par,
                                          const Unit<Tile>& w,
                                          const Tile& f) {
@@ -383,19 +387,46 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
   const int p0 = par & 1;   // the phase of colour 0 (plane 0) in row i
   const bool k0 = in && w.ok[p0];
   const bool k1 = in && w.ok[1 - p0];
-  a0 = k0 ? __ldg(g + row * cp + w.at[p0]) : T(0);
-  a1 = k1 ? __ldg(g + (static_cast<size_t>(f.a.R) + row) * cp +
-                  w.at[1 - p0])
+  a0 = k0 ? mg::ldg_wide<T>(g + row * cp + w.at[p0]) : T(0);
+  a1 = k1 ? mg::ldg_wide<T>(g + (static_cast<size_t>(f.a.R) + row) * cp +
+                            w.at[1 - p0])
           : T(0);
 }
 
-// Two points of type T as one 8- or 16-byte access.
+// Two points of type T as one 8- or 16-byte access (4 bytes in bfloat16:
+// UTile's storage type).
 template <typename T>
-using Pair = std::conditional_t<std::is_same<T, float>::value, float2,
-                                double2>;
+using Pair = std::conditional_t<
+    std::is_same<T, float>::value, float2,
+    std::conditional_t<std::is_same<T, double>::value, double2,
+                       __nv_bfloat162>>;
+
+// The pair of S at p (aligned on a Pair<S>) as x, y, widened to T.
+template <typename T, typename S>
+__device__ __forceinline__ void ldg_pair(const S* p, T& x, T& y) {
+  const Pair<S> v = __ldg(reinterpret_cast<const Pair<S>*>(p));
+  if constexpr (mg::kBf16<S>) {
+    x = __low2float(v);
+    y = __high2float(v);
+  } else {
+    x = v.x;
+    y = v.y;
+  }
+}
+
+// x, y stored as one pair of S at p (aligned on a Pair<S>), each rounded
+// to S.
+template <typename S, typename T>
+__device__ __forceinline__ void st_pair(S* p, T x, T y) {
+  if constexpr (mg::kBf16<S>) {
+    *reinterpret_cast<Pair<S>*>(p) = __floats2bfloat162_rn(x, y);
+  } else {
+    *reinterpret_cast<Pair<S>*>(p) = Pair<S>{x, y};
+  }
+}
 
 // Whether the arrays a, b and c start on a pair of T (the unpacked frame's
-// fine arrays must).
+// fine arrays must; UTile pairs its rows only where they do).
 template <typename T>
 bool on_pairs(const void* a, const void* b, const void* c) {
   const auto bits = reinterpret_cast<uintptr_t>(a) |
@@ -431,9 +462,11 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
 // UTile: colour c of row i is the point at column at[(c + i) & 1]; the row
 // above the tile reads 0, as on Tile. On an odd row (a compile-time fact in
 // every call) a lane whose two points are an aligned pair (pr) loads them
-// as one access; else two scalar ones.
-template <bool EDGE, typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
+// as one access; else two scalar ones. The tile may be stored in a
+// narrower S (bfloat16: a mixed cycle's fine level), widened here; a pair
+// is then two 2-byte values, one 4-byte access.
+template <bool EDGE, typename T, typename S>
+__device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
                                          T& a1, int i, int par,
                                          const Unit<UTile>& w,
                                          const UTile& f) {
@@ -444,13 +477,11 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
       static_cast<long long>(in ? i - f.a.goy : 0) * f.a.C;
   if (in && p0 == 1 && w.pr) {
     // Colour 0 of an odd row is the lane's phase-1 point.
-    const Pair<T> v = __ldg(reinterpret_cast<const Pair<T>*>(g + row +
-                                                             w.at[0]));
-    a0 = v.y;
-    a1 = v.x;
+    ldg_pair(g + row + w.at[0], a1, a0);
   } else {
-    a0 = in && w.ok[p0] ? __ldg(g + row + w.at[p0]) : T(0);
-    a1 = in && w.ok[1 - p0] ? __ldg(g + row + w.at[1 - p0]) : T(0);
+    a0 = in && w.ok[p0] ? mg::ldg_wide<T>(g + row + w.at[p0]) : T(0);
+    a1 = in && w.ok[1 - p0] ? mg::ldg_wide<T>(g + row + w.at[1 - p0])
+                            : T(0);
   }
 }
 
@@ -471,7 +502,8 @@ __device__ __forceinline__ void load_next(const S* __restrict__ g, T& a0,
 }
 
 // Store both planes of row i (parity par) at this lane, where it owns them
-// (on the whole packed grid rounded to its storage type S).
+// (on the whole packed grid and a shard's tile rounded to its storage type
+// S).
 template <typename T, typename S>
 __device__ __forceinline__ void store_row(S* __restrict__ g, T a0, T a1,
                                           int i, int par,
@@ -485,17 +517,18 @@ __device__ __forceinline__ void store_row(S* __restrict__ g, T a0, T a1,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
+template <typename T, typename S>
+__device__ __forceinline__ void store_row(S* __restrict__ g, T a0, T a1,
                                           int i, int par,
                                           const Unit<Tile>& w,
                                           const Tile& f) {
   const int cp = f.a.lanes();
   const size_t row = static_cast<size_t>(i - f.a.goy);
   const int p0 = par & 1;
-  if (w.st[p0]) g[row * cp + w.at[p0]] = a0;
+  if (w.st[p0]) g[row * cp + w.at[p0]] = mg::narrow<S>(a0);
   if (w.st[1 - p0]) {
-    g[(static_cast<size_t>(f.a.R) + row) * cp + w.at[1 - p0]] = a1;
+    g[(static_cast<size_t>(f.a.R) + row) * cp + w.at[1 - p0]] =
+        mg::narrow<S>(a1);
   }
 }
 
@@ -514,18 +547,18 @@ __device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
+template <typename T, typename S>
+__device__ __forceinline__ void store_row(S* __restrict__ g, T a0, T a1,
                                           int i, int par,
                                           const Unit<UTile>& w,
                                           const UTile& f) {
   const long long row = static_cast<long long>(i - f.a.goy) * f.a.C;
   const int p0 = par & 1;
   if (p0 == 1 && w.core && w.pr) {
-    *reinterpret_cast<Pair<T>*>(g + row + w.at[0]) = Pair<T>{a1, a0};
+    st_pair(g + row + w.at[0], a1, a0);
   } else {
-    if (w.st[p0]) g[row + w.at[p0]] = a0;
-    if (w.st[1 - p0]) g[row + w.at[1 - p0]] = a1;
+    if (w.st[p0]) g[row + w.at[p0]] = mg::narrow<S>(a0);
+    if (w.st[1 - p0]) g[row + w.at[1 - p0]] = mg::narrow<S>(a1);
   }
 }
 
@@ -629,10 +662,12 @@ __device__ __forceinline__ void chunk(bool steady, F&& f) {
 // the residual and the store at t - (K + 1), the restriction of fine row
 // t - K - 2 (its residual rows t - K - 3 .. t - K - 1 done). STORE false
 // compiles the store of u' out (residual_restrict_kernel: u_out unused).
-// u, b and u' are stored in S (the whole packed grid's bfloat16 storage,
-// T float; else S = T), rc in T; the residual is taken of u' as stored
+// u, b and u' are stored in S (bfloat16 storage on the whole packed grid
+// and a shard's tile, T float; else S = T), rc in T; the residual is taken
+// of u' as stored
 // (rounded to S), so that the coarse correction targets the u' that goes
-// up, as the TPU kernel takes it (packed2d.py:678-683). Its operands are
+// up, as the TPU kernels take it (packed2d.py:678-683, local2d.py:454-457,
+// plocal2d.py:366-376). Its operands are
 // rounded where it reads them, not in the window: the last stage of the
 // next step still reads row i + 1 unrounded.
 template <typename T, int KIND, int K, bool STORE, class Fr, typename S = T>
@@ -782,9 +817,10 @@ __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
 // coarse rows t >> 1 and (t + 1) >> 1 (loaded with the fine rows, each lane
 // its columns J and J + 1), as prolong_at (common.cuh) computes it, at
 // every global-interior point; stage k works on row t - 1 - k; the store
-// on row t - K. x and b are stored in S, the coarse e in T, x' in O (the
-// whole packed grid's bfloat16 storage: S bfloat16, T float, O bfloat16 or,
-// at the top level of a mixed cycle, float; else all T).
+// on row t - K. x and b are stored in S, the coarse e in T, x' in O
+// (bfloat16 storage on the whole packed grid and a shard's tile: S
+// bfloat16, T float, O bfloat16 or, at the top level of a mixed cycle,
+// float; else all T).
 template <typename T, int KIND, int K, bool PACKED_E, bool PROLONG, class Fr,
           typename S = T, typename O = S>
 __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
@@ -980,14 +1016,15 @@ int leg_stages(int kind, int sweeps) {
 // The down leg on frame f (a whole grid: kMaxDownStages; a tile:
 // kMaxTileStages); on the unpacked frame u, b and u_out must start on a
 // pair of T. u, b and u_out are stored in S (bfloat16 on the whole packed
-// grid only), rc in T.
+// grid and a shard's tile; the unpacked grid's levels run in full
+// precision in every mixed cycle), rc in T.
 template <typename T, int MAXK, class Fr, typename S = T>
 int launch_down(const void* u, const void* b, void* u_out, void* rc,
                 const Fr& f, double h, double sigma, int kind, double omega,
                 int sweeps, int packed_coarse, const int* geom,
                 void* stream) {
-  static_assert(std::is_same<S, T>::value || std::is_same<Fr, Whole>::value,
-                "narrow storage on the whole packed grid only");
+  static_assert(std::is_same<S, T>::value || !kIsUnpacked<Fr>,
+                "no narrow storage on the unpacked grid");
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
   if (!leg_geom(geom, f, &g) ||
@@ -1031,14 +1068,14 @@ int launch_residual_restrict(const void* u, const void* b, void* rc,
 // The up leg on frame f; e logical or, on the whole packed grid, packed;
 // on the unpacked frame x, b and out must start on a pair of T. x and b
 // are stored in S, e in T, out in O (S bfloat16 and O bfloat16 or float on
-// the whole packed grid only).
+// the whole packed grid and a shard's tile only).
 template <typename T, int MAXK, class Fr, typename S = T, typename O = S>
 int launch_up(const void* x, const void* e, const void* b, void* out,
               const Fr& f, double h, double sigma, int kind, double omega,
               int sweeps, int packed_e, const int* geom, void* stream) {
   static_assert((std::is_same<S, T>::value && std::is_same<O, T>::value) ||
-                    std::is_same<Fr, Whole>::value,
-                "narrow storage on the whole packed grid only");
+                    !kIsUnpacked<Fr>,
+                "no narrow storage on the unpacked grid");
   const int K = leg_stages(kind, sweeps);
   LegGeom g;
   if (!leg_geom(geom, f, &g) ||
@@ -1143,8 +1180,8 @@ Tile tile_frame(const mg::PRect& a, const mg::Rect& ca, int n, int qlo,
 
 // The unpacked tile frame of a leg or sweep on the tile a, as tile_frame
 // (a sweep passes an empty coarse tile, which its stream never reads);
-// `paired`: the fine arrays all start on a pair of T (on_pairs), without
-// which no row takes paired accesses.
+// `paired`: the fine arrays all start on a pair of their storage type
+// (on_pairs), without which no row takes paired accesses.
 UTile utile_frame(const mg::Rect& a, const mg::Rect& ca, int n, int qlo,
                   int qhi, int slo, int shi, bool paired) {
   // A lane's phase-0 point in an odd row i lies at index

@@ -44,6 +44,18 @@ before they reuse a tile (``parallel/sharded.py``).
 Each wrapper has its plain PyTorch version beside it. Device rule
 (``_wrap``): a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.
+
+Mixed precision (the TPU module's ``_cdt`` rule, ``local2d.py:332-343``):
+the legs also take bfloat16 tiles, the fine level of a sharded mixed cycle
+(``csrc/local2d_legs_bf16.cu``, ``csrc/local2d_up_bf16_f32.cu``). Every
+load widens to float32, the sweeps, the residual and the restriction run
+in float32, and each point of u' or x' is rounded to bfloat16 once, on its
+store; the down leg's residual is that of u' as stored and its coarse
+right-hand side is float32, as is the up leg's coarse correction. The up
+leg stores x' in bfloat16 or, with ``out_dtype=torch.float32`` (the top
+level of a mixed cycle, ``parallel/sharded.py``), in float32. The plain
+versions follow the same rule. The sweeps and the residual take no
+bfloat16 tile: no path of either package stores one there.
 """
 from __future__ import annotations
 
@@ -51,8 +63,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, packed2d
-from ._wrap import MIXED_SHARDED, check_storage, check_tensor, \
-    launch_on, on_cuda
+from ._wrap import check_out_dtype, check_storage, \
+    check_tensor, compute_dtype, launch_on, on_cuda
 
 # Ghost rows exchanged per side of a tile, as in the JAX module: 4 fused
 # RB-GS sweeps or 8 Jacobi sweeps, or one whole leg.
@@ -69,12 +81,16 @@ MIN_SEG = 6
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count): the sweep kernel of each kind (one a launch, whatever its sweep
-# count), the residual, and each leg.
+# count), the residual, and each leg; the legs' bfloat16 modes apart: the up
+# leg's with a bfloat16 x' and with a float32 one (up_bf16_f32_launches).
 rbgs_launches = 0
 jacobi_launches = 0
 residual_launches = 0
 down_launches = 0
 up_launches = 0
+down_bf16_launches = 0
+up_bf16_launches = 0
+up_bf16_f32_launches = 0
 
 
 def max_fused_sweeps(kind: str) -> int:
@@ -235,25 +251,48 @@ def _prolong_ext(e, row_off, col_off, mcol, shape):
     return _interp_rows(rows_f.t(), shape[1], col_off, ccol).t()
 
 
+def residual_restrict_plain(u_ext, b_ext, n, h, m, row_off, col_off=0, *,
+                            sigma=0.0, mcol=0, red_only=False):
+    """The full weighting of b - (A - sigma I) u onto the owned coarse
+    rows (the extended convention), in the compute dtype (float32 for
+    bfloat16 tiles), the red residual only with ``red_only``: the down
+    leg's coarse output for its stored u'."""
+    cdt = compute_dtype(u_ext.dtype)
+    r = residual_plain(u_ext.to(cdt), b_ext.to(cdt), n, h, row_off, col_off,
+                       sigma=sigma)
+    if red_only:
+        _, _, red = _masks(r.shape, n, row_off, col_off, r.device)
+        r = torch.where(red, r, torch.zeros_like(r))
+    return _restrict_ext(r, n, m, row_off, col_off, mcol)
+
+
 def down_leg_plain(u_ext, b_ext, n, h, m, row_off, col_off=0, *, kind,
                    omega, sweeps, sigma=0.0, mcol=0):
-    """Plain PyTorch version of ``down_leg``."""
-    us = _smooth_plain(u_ext, b_ext, n, h, row_off, col_off, kind=kind,
-                       omega=omega, sweeps=sweeps, sigma=sigma)
-    r = residual_plain(us, b_ext, n, h, row_off, col_off, sigma=sigma)
-    return us, _restrict_ext(r, n, m, row_off, col_off, mcol)
+    """Plain PyTorch version of ``down_leg``: in the compute dtype
+    (float32 for bfloat16 tiles), u' stored in the tiles' dtype, the
+    residual of u' as stored."""
+    cdt = compute_dtype(u_ext.dtype)
+    us = _smooth_plain(u_ext.to(cdt), b_ext.to(cdt), n, h, row_off, col_off,
+                       kind=kind, omega=omega, sweeps=sweeps, sigma=sigma)
+    us = us.to(u_ext.dtype)
+    return us, residual_restrict_plain(us, b_ext, n, h, m, row_off, col_off,
+                                       sigma=sigma, mcol=mcol)
 
 
 def up_leg_plain(x_ext, e_ext, b_ext, n, nc, h, m, row_off, col_off=0, *,
-                 kind, omega, sweeps, sigma=0.0, mcol=0):
-    """Plain PyTorch version of ``up_leg``."""
+                 kind, omega, sweeps, sigma=0.0, mcol=0, out_dtype=None):
+    """Plain PyTorch version of ``up_leg``: in the compute dtype (float32
+    for bfloat16 tiles), x' stored in ``out_dtype`` (default x's)."""
+    cdt = compute_dtype(x_ext.dtype)
+    x = x_ext.to(cdt)
     # P e is added at every point interior to the global grid, ring
     # included (the sweeps then leave the ring as it is).
-    pe = _prolong_ext(e_ext, row_off, col_off, mcol, x_ext.shape)
-    interior, _, _ = _masks(x_ext.shape, n, row_off, col_off, x_ext.device)
-    w = torch.where(interior, x_ext + pe, x_ext)
-    return _smooth_plain(w, b_ext, n, h, row_off, col_off, kind=kind,
-                         omega=omega, sweeps=sweeps, sigma=sigma)
+    pe = _prolong_ext(e_ext, row_off, col_off, mcol, x.shape)
+    interior, _, _ = _masks(x.shape, n, row_off, col_off, x.device)
+    w = torch.where(interior, x + pe, x)
+    xs = _smooth_plain(w, b_ext.to(cdt), n, h, row_off, col_off, kind=kind,
+                       omega=omega, sweeps=sweeps, sigma=sigma)
+    return xs.to(x_ext.dtype if out_dtype is None else out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -290,13 +329,17 @@ def _launch_geometry(leg: str, t: torch.Tensor, n: int, row_off: int,
         **_frame(*t.shape, int(row_off), int(col_off)))
 
 
-def _check_tile(what: str, u: torch.Tensor, b: torch.Tensor) -> None:
-    check_storage(what, u, item=MIXED_SHARDED)
+def _check_tile(what: str, u: torch.Tensor, b: torch.Tensor,
+                storage: bool = False) -> None:
+    """Raise unless u and b are 2D tiles of one shape and dtype: float32
+    or float64, or with ``storage`` (the legs) bfloat16 too."""
+    if not storage:
+        check_storage(what, u)
     if u.ndim != 2 or min(u.shape) < 3:
         raise ValueError(f"{what}: expected a 2D tile of at least 3 x 3, "
                          f"got shape {tuple(u.shape)}")
-    check_tensor("u", u, u.shape, u)
-    check_tensor("b", b, u.shape, u)
+    check_tensor("u", u, u.shape, u, storage=storage)
+    check_tensor("b", b, u.shape, u, storage=storage)
 
 
 def _check_kind(kind: str, sweeps: int, cap: int) -> None:
@@ -402,11 +445,12 @@ def down_leg(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
     them before reuse) and the coarse right-hand side in the same extended
     convention, shape (ext_rows(m/2), nc + 2) or (ext_rows(m/2), mcol/2 +
     2*HALO_ROWS), owned rows at [HALO_ROWS, HALO_ROWS + m/2), ghosts zero.
-    Requires sweeps <= max_down_sweeps(kind).
+    Requires sweeps <= max_down_sweeps(kind). Tiles of float32, float64 or
+    bfloat16 (u' in the tiles' dtype, rc_ext in float32 for bfloat16).
     """
-    global down_launches
+    global down_launches, down_bf16_launches
     _check_kind(kind, sweeps, max_down_sweeps(kind))
-    _check_tile("local2d.down_leg", u_ext, b_ext)
+    _check_tile("local2d.down_leg", u_ext, b_ext, storage=True)
     cshape = _check_leg(n, m, mcol, u_ext.shape)
     if not on_cuda(u_ext):
         return down_leg_plain(u_ext, b_ext, n, h, m, row_off, col_off,
@@ -415,7 +459,8 @@ def down_leg(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
     hh = HALO_ROWS
     u_out = torch.empty_like(u_ext)
     # The kernel writes every entry of rc (zeros off the owned box).
-    rc = torch.empty(cshape, dtype=u_ext.dtype, device=u_ext.device)
+    rc = torch.empty(cshape, dtype=compute_dtype(u_ext.dtype),
+                     device=u_ext.device)
     ccol = coarse_offset(col_off) if mcol else 0
     cols = (hh, hh + mcol // 2) if mcol else (0, cshape[1])
     launch_on(u_ext, "local2d_down", u_ext.data_ptr(), b_ext.data_ptr(),
@@ -426,7 +471,10 @@ def down_leg(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
               _build.KIND_CODES[kind], float(omega), sweeps,
               _launch_geometry("down", u_ext, n, row_off, col_off, kind,
                                sweeps))
-    down_launches += 1
+    if u_ext.dtype == torch.bfloat16:
+        down_bf16_launches += 1
+    else:
+        down_launches += 1
     return u_out, rc
 
 
@@ -438,23 +486,24 @@ def up_leg(x_ext: torch.Tensor, e_ext: torch.Tensor, b_ext: torch.Tensor,
     extended tile. x and b carry exact ghosts; e is the coarse correction
     in the extended convention (shape as ``down_leg``'s rc_ext) with exact
     ghosts. Returns the smoothed tile (ghost rows stale). Requires sweeps
-    <= max_up_sweeps(kind). ``out_dtype`` (a wider output) belongs to
-    sharded mixed precision and raises unless it is x's dtype.
+    <= max_up_sweeps(kind). x and b of float32, float64 or bfloat16; e in
+    the compute dtype (float32 for bfloat16 x); x' in x's dtype or, with
+    ``out_dtype=torch.float32`` for bfloat16 x (the top level of a mixed
+    cycle), in float32.
     """
-    global up_launches
+    global up_launches, up_bf16_launches, up_bf16_f32_launches
     _check_kind(kind, sweeps, max_up_sweeps(kind))
-    check_storage("local2d.up_leg", x_ext, out_dtype,
-                  item=MIXED_SHARDED)
-    _check_tile("local2d.up_leg", x_ext, b_ext)
+    _check_tile("local2d.up_leg", x_ext, b_ext, storage=True)
+    out_dtype = check_out_dtype("local2d.up_leg", x_ext, out_dtype)
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")
     cshape = _check_leg(n, m, mcol, x_ext.shape)
-    check_tensor("e", e_ext, cshape, x_ext)
+    check_tensor("e", e_ext, cshape, x_ext, compute_dtype(x_ext.dtype))
     if not on_cuda(x_ext):
         return up_leg_plain(x_ext, e_ext, b_ext, n, nc, h, m, row_off,
                             col_off, kind=kind, omega=omega, sweeps=sweeps,
-                            sigma=sigma, mcol=mcol)
-    out = torch.empty_like(x_ext)
+                            sigma=sigma, mcol=mcol, out_dtype=out_dtype)
+    out = torch.empty_like(x_ext, dtype=out_dtype)
     ccol = coarse_offset(col_off) if mcol else 0
     launch_on(x_ext, "local2d_up", x_ext.data_ptr(), e_ext.data_ptr(),
               b_ext.data_ptr(), out.data_ptr(), x_ext.shape[0],
@@ -462,6 +511,11 @@ def up_leg(x_ext: torch.Tensor, e_ext: torch.Tensor, b_ext: torch.Tensor,
               int(col_off), coarse_offset(row_off), ccol, float(h),
               float(sigma), _build.KIND_CODES[kind], float(omega), sweeps,
               _launch_geometry("up", x_ext, n, row_off, col_off, kind,
-                               sweeps))
-    up_launches += 1
+                               sweeps), out_dtype=out_dtype)
+    if x_ext.dtype != torch.bfloat16:
+        up_launches += 1
+    elif out_dtype == torch.bfloat16:
+        up_bf16_launches += 1
+    else:
+        up_bf16_f32_launches += 1
     return out

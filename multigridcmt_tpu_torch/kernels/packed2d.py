@@ -56,7 +56,7 @@ import torch
 
 from ..ops import laplacian, smoothers, transfer
 from . import _build
-from ._wrap import MIXED_OFF_PATH, check_grid, check_out_dtype, \
+from ._wrap import check_grid, check_out_dtype, \
     check_storage, check_tensor, compute_dtype, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
@@ -439,7 +439,7 @@ def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
     residual; a 0-d tensor of the grids' dtype. ``red_only`` sums the red
     points only, which is exact when u has just finished an RB-GS sweep."""
     global resnorm_launches
-    check_storage("packed2d.residual_norm_sq", s, item=MIXED_OFF_PATH)
+    check_storage("packed2d.residual_norm_sq", s)
     _check_fine(n)
     check_tensor("u", s, packed_shape(n), s)
     check_tensor("b", bs, packed_shape(n), s)

@@ -42,25 +42,38 @@ overlap rows twice; the port does not copy that.
 Each wrapper has its plain PyTorch version beside it: unpack, the
 ``local2d`` plain version, pack. Device rule (``_wrap``): a CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
+
+Mixed precision: the legs also take bfloat16 packed tiles, the fine level
+of a sharded mixed cycle (``csrc/plocal2d_legs_bf16.cu``,
+``csrc/plocal2d_up_bf16_f32.cu``), by ``local2d``'s rule: float32
+registers, u' and x' rounded to bfloat16 once on their store (x' in float32
+with ``out_dtype``), the down leg's residual that of u' as stored, the
+coarse right-hand side and correction in float32. The residual, the apply
+and the norm take no bfloat16 tile: the sharded MG-PCG applies A and takes
+its residual at full precision, as JAX's does.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build, local2d, packed2d
-from ._wrap import MIXED_SHARDED, check_storage, check_tensor, \
-    launch_on, on_cuda
+from ._wrap import check_out_dtype, check_storage, \
+    check_tensor, compute_dtype, launch_on, on_cuda
 from .local2d import HALO_ROWS, max_down_sweeps, max_up_sweeps
 from .packed2d import RESNORM_BLOCKS
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count): the residual kernel with the b stream (residual) and without it
-# (apply_op), each leg and the norm.
+# (apply_op), each leg and the norm; the legs' bfloat16 modes apart, as
+# local2d counts them.
 residual_launches = 0
 apply_launches = 0
 down_launches = 0
 up_launches = 0
 resnorm_launches = 0
+down_bf16_launches = 0
+up_bf16_launches = 0
+up_bf16_f32_launches = 0
 
 
 def _layout(cpar: int):
@@ -124,27 +137,43 @@ def apply_op_plain(s, n, h, row_off, col_off=0, sigma=0.0):
                            sigma=sigma)
 
 
+def residual_restrict_plain(s, bs, n, h, m, row_off, col_off=0, *,
+                            sigma=0.0, mcol=0, red_only=False):
+    """``local2d.residual_restrict_plain`` of packed tiles: the down
+    leg's coarse output for its stored u' (``red_only`` after an RB-GS
+    sweep)."""
+    u, b = _unpacked(n, col_off, s, bs)
+    return local2d.residual_restrict_plain(u, b, n, h, m, row_off, col_off,
+                                           sigma=sigma, mcol=mcol,
+                                           red_only=red_only)
+
+
 def down_leg_plain(s, bs, n, h, m, row_off, col_off=0, *, kind, omega,
                    sweeps, sigma=0.0, mcol=0):
-    """Plain PyTorch version of ``down_leg``."""
+    """Plain PyTorch version of ``down_leg``: in the compute dtype
+    (float32 for bfloat16 tiles), u' stored in the tiles' dtype, the
+    residual of u' as stored (red only after an RB-GS sweep)."""
+    cdt = compute_dtype(s.dtype)
     u, b = _unpacked(n, col_off, s, bs)
-    us = local2d._smooth_plain(u, b, n, h, row_off, col_off, kind=kind,
-                               omega=omega, sweeps=sweeps, sigma=sigma)
-    r = local2d.residual_plain(us, b, n, h, row_off, col_off, sigma=sigma)
-    if kind == "rbgs" and sweeps >= 1:
-        r = _red(r, n, row_off, col_off)
+    us = local2d._smooth_plain(u.to(cdt), b.to(cdt), n, h, row_off, col_off,
+                               kind=kind, omega=omega, sweeps=sweeps,
+                               sigma=sigma).to(s.dtype)
     return (pack_ext(us, col_off % 2),
-            local2d._restrict_ext(r, n, m, row_off, col_off, mcol))
+            local2d.residual_restrict_plain(
+                us, b, n, h, m, row_off, col_off, sigma=sigma, mcol=mcol,
+                red_only=kind == "rbgs" and sweeps >= 1))
 
 
 def up_leg_plain(x, e_ext, bs, n, nc, h, m, row_off, col_off=0, *, kind,
-                 omega, sweeps, sigma=0.0, mcol=0):
-    """Plain PyTorch version of ``up_leg``."""
+                 omega, sweeps, sigma=0.0, mcol=0, out_dtype=None):
+    """Plain PyTorch version of ``up_leg`` (x' in ``out_dtype``, default
+    x's)."""
     u, b = _unpacked(n, col_off, x, bs)
     return pack_ext(local2d.up_leg_plain(u, e_ext, b, n, nc, h, m, row_off,
                                          col_off, kind=kind, omega=omega,
                                          sweeps=sweeps, sigma=sigma,
-                                         mcol=mcol), col_off % 2)
+                                         mcol=mcol, out_dtype=out_dtype),
+                    col_off % 2)
 
 
 def residual_norm_sq_plain(s, bs, n, h, m, row_off, col_off=0, *, mcol=0,
@@ -185,11 +214,13 @@ def leg_geometry(leg: str, rows: int, cols: int, n: int, row_off: int,
                                  **_frame(rows, cols, row_off, col_off))
 
 
-def _check_packed(what: str, s: torch.Tensor, b, n: int,
-                  col_off: int) -> int:
+def _check_packed(what: str, s: torch.Tensor, b, n: int, col_off: int,
+                  storage: bool = False) -> int:
     """Raise unless s (and b, if given) is a packed tile whose unpacked
-    width fits ``col_off``'s decomposition; returns that width."""
-    check_storage(what, s, item=MIXED_SHARDED)
+    width fits ``col_off``'s decomposition, float32 or float64 (or with
+    ``storage``, the legs, bfloat16 too); returns that width."""
+    if not storage:
+        check_storage(what, s)
     if s.ndim != 3 or s.shape[0] != 2 or s.shape[1] < 3 or s.shape[2] < 2:
         raise ValueError(f"{what}: expected a packed (2, R, lanes) tile, "
                          f"got shape {tuple(s.shape)}")
@@ -200,15 +231,16 @@ def _check_packed(what: str, s: torch.Tensor, b, n: int,
         raise ValueError(f"{what}: a row tile (col_off 0) of n={n} has "
                          f"{(c + 1) // 2} lanes, got {s.shape[2]} lanes and "
                          f"col_off {col_off}")
-    check_tensor("u", s, s.shape, s)
+    check_tensor("u", s, s.shape, s, storage=storage)
     if b is not None:
-        check_tensor("b", b, s.shape, s)
+        check_tensor("b", b, s.shape, s, storage=storage)
     return c
 
 
 def _check_leg(what, s, b, n, m, mcol, col_off):
-    """The coarse tile's shape of a leg on packed tile s."""
-    c = _check_packed(what, s, b, n, col_off)
+    """The coarse tile's shape of a leg on packed tile s (float32, float64
+    or bfloat16)."""
+    c = _check_packed(what, s, b, n, col_off, storage=True)
     if (mcol == 0) != (col_off % 2 == 0):
         raise ValueError(f"{what}: mcol={mcol} and col_off={col_off} are "
                          "not one decomposition (rows: 0 and 0; blocks: "
@@ -263,9 +295,11 @@ def down_leg(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, m: int,
     Returns (u', rc_ext): the smoothed packed tile (ghosts stale) and the
     coarse right-hand side in ``local2d``'s unpacked extended convention
     (``local2d.down_leg``'s rc_ext: owned rows at [HALO_ROWS, HALO_ROWS +
-    m/2), ghosts zero). Requires sweeps <= max_down_sweeps(kind).
+    m/2), ghosts zero). Requires sweeps <= max_down_sweeps(kind). Tiles of
+    float32, float64 or bfloat16 (u' in the tiles' dtype, rc_ext in float32
+    for bfloat16).
     """
-    global down_launches
+    global down_launches, down_bf16_launches
     local2d._check_kind(kind, sweeps, max_down_sweeps(kind))
     cshape = _check_leg("plocal2d.down_leg", s, bs, n, m, mcol, col_off)
     if not on_cuda(s):
@@ -276,7 +310,7 @@ def down_leg(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, m: int,
     c = _cols(s, n, col_off)
     u_out = torch.empty_like(s)
     # The kernel writes every entry of rc (zeros off the owned box).
-    rc = torch.empty(cshape, dtype=s.dtype, device=s.device)
+    rc = torch.empty(cshape, dtype=compute_dtype(s.dtype), device=s.device)
     ccol = local2d.coarse_offset(col_off) if mcol else 0
     cols = (hh, hh + mcol // 2) if mcol else (0, cshape[1])
     launch_on(s, "plocal2d_down", s.data_ptr(), bs.data_ptr(),
@@ -288,7 +322,10 @@ def down_leg(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, m: int,
               packed2d._launch_geometry(
                   "down", n, kind, sweeps, s.device.index or 0,
                   **_frame(s.shape[1], c, int(row_off), int(col_off))))
-    down_launches += 1
+    if s.dtype == torch.bfloat16:
+        down_bf16_launches += 1
+    else:
+        down_launches += 1
     return u_out, rc
 
 
@@ -300,23 +337,24 @@ def up_leg(x: torch.Tensor, e_ext: torch.Tensor, bs: torch.Tensor, n: int,
     extended tile. x and b carry exact ghosts; e is the coarse correction in
     ``local2d``'s unpacked extended convention with exact ghosts. Returns
     the smoothed packed tile (ghosts stale). Requires sweeps <=
-    max_up_sweeps(kind). ``out_dtype`` (a wider output) belongs to sharded
-    mixed precision and raises unless it is x's dtype.
+    max_up_sweeps(kind). x and b of float32, float64 or bfloat16; e in the
+    compute dtype (float32 for bfloat16 x); x' in x's dtype or, with
+    ``out_dtype=torch.float32`` for bfloat16 x (the top level of a mixed
+    cycle), in float32.
     """
-    global up_launches
+    global up_launches, up_bf16_launches, up_bf16_f32_launches
     local2d._check_kind(kind, sweeps, max_up_sweeps(kind))
-    check_storage("plocal2d.up_leg", x, out_dtype,
-                  item=MIXED_SHARDED)
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")
     cshape = _check_leg("plocal2d.up_leg", x, bs, n, m, mcol, col_off)
-    check_tensor("e", e_ext, cshape, x)
+    out_dtype = check_out_dtype("plocal2d.up_leg", x, out_dtype)
+    check_tensor("e", e_ext, cshape, x, compute_dtype(x.dtype))
     if not on_cuda(x):
         return up_leg_plain(x, e_ext, bs, n, nc, h, m, row_off, col_off,
                             kind=kind, omega=omega, sweeps=sweeps,
-                            sigma=sigma, mcol=mcol)
+                            sigma=sigma, mcol=mcol, out_dtype=out_dtype)
     c = _cols(x, n, col_off)
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=out_dtype)
     ccol = local2d.coarse_offset(col_off) if mcol else 0
     launch_on(x, "plocal2d_up", x.data_ptr(), e_ext.data_ptr(),
               bs.data_ptr(), out.data_ptr(), x.shape[1], c, cshape[0],
@@ -325,8 +363,14 @@ def up_leg(x: torch.Tensor, e_ext: torch.Tensor, bs: torch.Tensor, n: int,
               _build.KIND_CODES[kind], float(omega), sweeps,
               packed2d._launch_geometry(
                   "up", n, kind, sweeps, x.device.index or 0,
-                  **_frame(x.shape[1], c, int(row_off), int(col_off))))
-    up_launches += 1
+                  **_frame(x.shape[1], c, int(row_off), int(col_off))),
+              out_dtype=out_dtype)
+    if x.dtype != torch.bfloat16:
+        up_launches += 1
+    elif out_dtype == torch.bfloat16:
+        up_bf16_launches += 1
+    else:
+        up_bf16_f32_launches += 1
     return out
 
 

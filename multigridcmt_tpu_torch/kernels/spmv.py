@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.sparse import DIA
-from ._wrap import MIXED_OFF_PATH, check_storage, check_tensor, \
+from ._wrap import check_storage, check_tensor, \
     launch_on, on_cuda
 
 LANES = 128
@@ -110,8 +110,8 @@ def unpack_y(y_packed: torch.Tensor, n: int, halo: int) -> torch.Tensor:
 
 
 def _check(a: PackedDIA, x_packed: torch.Tensor) -> None:
-    check_storage("spmv.spmv_packed", a.diags, item=MIXED_OFF_PATH)
-    check_storage("spmv.spmv_packed", x_packed, item=MIXED_OFF_PATH)
+    check_storage("spmv.spmv_packed", a.diags)
+    check_storage("spmv.spmv_packed", x_packed)
     if a.diags.ndim != 3 or a.diags.shape[0] != len(a.offsets) \
             or a.diags.shape[2] != LANES:
         raise ValueError(f"spmv: diags of shape {tuple(a.diags.shape)} for "

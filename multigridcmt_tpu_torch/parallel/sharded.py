@@ -49,8 +49,16 @@ Routes, by level (read when called: ``kernels.KERNEL_MIN_N``,
     solved there by the plain single-device cycle.
 Full multigrid (``cycle="fmg"``, ``_sharded_fmg``) walks linearly only, as
 JAX's does; the port refuses ``fmg_prolong="cubic"`` rather than ignore it.
-The eigensolvers, 3D slabs and pencils and sharded mixed precision are not
-ported: they raise ``NotImplementedError`` naming their ROADMAP.md item.
+Mixed precision (``config.precond_dtype``, ``mixed_leg_dtype``): sharded
+MG-PCG casts its preconditioning cycle where the fine level runs the
+whole-leg kernels, as JAX's does: the fine level's tiles are stored in
+bfloat16 (the legs' bfloat16 modes, halo slabs exchanged in bfloat16), its
+down leg emits the coarse levels in float32, its up leg stores the cycle's
+output in float32 (``out_dtype``), and CG's recurrence, dots, apply and
+residual stay in ``config.dtype``. Everywhere else, and in the solve by
+cycles, FMG, ``v_cycle_fn`` and ``v_cycles_fn``, precond_dtype is ignored,
+as in JAX. The eigensolvers and 3D slabs and pencils are not ported: they
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 JAX's ``*_pallas`` helpers are ``*_kernel`` here, and its ``_ext_aligned``
 is ``_ext_tile``: the port keeps every tile at its logical extent, with no
 alignment padding.
@@ -69,16 +77,13 @@ from ..config import SolverConfig
 from ..grids import (Hierarchy, build_hierarchy, check_device, interior,
                      pad_interior)
 from ..ops import laplacian, smoothers, transfer
-from ..solvers import cycles
+from ..solvers import cycles, krylov
 
 _ITEM = "(ROADMAP.md, queue 1: sharded {})"
 EIGEN_TODO = ("the sharded eigensolvers are not ported yet "
               + _ITEM.format("eigensolvers"))
 SLAB_TODO = ("sharded 3D solves (slabs and pencils) are not ported yet "
              + _ITEM.format("3D slabs and pencils"))
-MIXED_TODO = ("sharded solves with precond_dtype={pd}: sharded mixed "
-              "precision is not ported yet (ROADMAP.md, queue 1: sharded "
-              "mixed precision)")
 
 
 # ---------------------------------------------------------------------------
@@ -790,7 +795,7 @@ def _leg_level_ok(cfg: SolverConfig, decomp: Decomp, level: int) -> bool:
 
 def _leg_cycle_ext(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
                    xe, be, level: int, gamma: int, sigma,
-                   fresh: bool = False):
+                   fresh: bool = False, out_dtype=None):
     """One cycle level on the whole-leg route, in extended tiles: the down
     leg (smooth^nu1, residual, restrict) and the up leg (prolong, correct,
     smooth^nu2) are one local2d launch each; the down leg emits the coarse
@@ -801,7 +806,11 @@ def _leg_cycle_ext(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
     plocal2d legs, whose coarse right-hand side is unpacked, so the levels
     below are the same either way. xe's ghosts may be stale unless
     ``fresh``; they are refreshed in place. Returns the post-smoothed
-    extended tile (ghosts stale) in the level's layout."""
+    extended tile (ghosts stale) in the level's layout. A bfloat16 level
+    (the top of a mixed cycle, ``mixed_leg_dtype``) runs the legs'
+    bfloat16 modes, its down leg emitting the levels below in float32;
+    ``out_dtype`` stores this level's up leg output wider (float32), and
+    is not passed on to the coarser levels."""
     from ..kernels import local2d, plocal2d
 
     hh = local2d.HALO_ROWS
@@ -865,7 +874,26 @@ def _leg_cycle_ext(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
     xe2 = _refresh_ext(us_ext, decomp, hh, ms)
     return legs.up_leg(xe2, ee, be, n, ncoarse, h, m, row_off, col_off,
                        kind=cfg.smoother, omega=omega, sweeps=cfg.nu2,
-                       sigma=sigma, mcol=mcol)
+                       sigma=sigma, out_dtype=out_dtype, mcol=mcol)
+
+
+def mixed_leg_dtype(cfg: SolverConfig, decomp: Decomp):
+    """The dtype sharded MG-PCG casts its preconditioning cycle to, or
+    None (it runs in ``cfg.dtype``): ``precond_dtype`` where the fine level
+    runs the whole-leg kernels (``_leg_level_ok``: 2D rows and blocks,
+    tiles at least HALO_ROWS deep), whose tiles widen to float32 in
+    registers and whose down legs emit the coarse levels in float32; None
+    elsewhere (the owned-tile route, shallow tiles, kernels off), where JAX
+    skips the cast too (its ``mixed_leg_dtype``). A dtype the kernels do not
+    store raises, as ``krylov.mixed_cycle_dtype`` does."""
+    pd = cfg.precond_dtype if cfg.precond_dtype is not None else cfg.dtype
+    if pd == cfg.dtype or not _leg_level_ok(cfg, decomp, 0):
+        return None
+    if pd not in krylov._CYCLE_DTYPES:
+        raise NotImplementedError(
+            f"sharded MG-PCG with precond_dtype={pd}: the kernels store "
+            "bfloat16, float32 or float64 only")
+    return pd
 
 
 def _sharded_v_cycle_leg(hier: Hierarchy, cfg: SolverConfig,
@@ -1029,9 +1057,6 @@ class ShardedSolver:
             raise ValueError(
                 f"fmg_prolong={config.fmg_prolong!r}: the sharded FMG walk "
                 "is linear only; use fmg_prolong='linear'")
-        if config.precond_dtype not in (None, config.dtype):
-            raise NotImplementedError(
-                MIXED_TODO.format(pd=config.precond_dtype))
         self.config = config
         self.mesh = mesh
         self.decomp = decomp_from_mesh(mesh, config.ndim)
@@ -1112,12 +1137,18 @@ class ShardedSolver:
         operand's ghost slabs first, and dots sum the owned points only.
         The apply is ``plocal2d.apply_op`` on a packed tile, -residual(p,
         0) on an unpacked one (the local2d kernel, or ``s_residual`` on
-        owned tiles)."""
+        owned tiles). Mixed precision (``mixed_leg_dtype``): the refreshed
+        residual is cast to the preconditioner's dtype, the cycle stores
+        its top level in float32 (JAX's ``out_dtype``, the repair of the
+        final bfloat16 store's noise) and z is cast back; nothing else
+        changes dtype."""
+        from ..kernels import _wrap
         from ..solvers.krylov import cg_loop
 
         cfg, hier, decomp = self.config, self.hierarchy, self.decomp
         gamma = 2 if cfg.cycle == "w" else 1
         n, h = hier.fine.n, hier.fine.h
+        pd = mixed_leg_dtype(cfg, decomp)
         if _leg_level_ok(cfg, decomp, 0):
             from ..kernels import plocal2d
 
@@ -1140,9 +1171,14 @@ class ShardedSolver:
                     return -tiles.residual(tiles.refresh(pe), zeros, n, h)
 
             def precond(re):
-                rf = tiles.refresh(re)
-                return _leg_cycle_ext(hier, cfg, decomp, torch.zeros_like(rf),
-                                      rf, 0, gamma, 0.0, fresh=True)
+                rp = tiles.refresh(re)
+                if pd is not None:
+                    rp = rp.to(pd)
+                z = _leg_cycle_ext(
+                    hier, cfg, decomp, torch.zeros_like(rp), rp, 0, gamma,
+                    0.0, fresh=True,
+                    out_dtype=None if pd is None else _wrap.compute_dtype(pd))
+                return z.to(re.dtype)
 
             def residual(xx, bb):
                 return tiles.residual(tiles.refresh(xx), bb, n, h)

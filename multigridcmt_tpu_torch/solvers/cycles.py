@@ -95,8 +95,7 @@ def get_backend(config: SolverConfig) -> Backend:
             # The stencil3d kernels store bfloat16 as a mixed cycle's fine
             # level (precond_dtype); a solve in bfloat16 is another path.
             raise NotImplementedError(_wrap.MIXED_TODO.format(
-                what="stencil3d: a bfloat16 solve",
-                item=_wrap.MIXED_OFF_PATH))
+                what="stencil3d: a bfloat16 solve"))
         return KERNEL_BACKEND
     return PLAIN_BACKEND
 

@@ -8,6 +8,7 @@ packed level, the sparse matrices of as_csr/as_coo, full multigrid on one
 device and sharded) run and agree with the plain route or the JAX
 package."""
 import ast
+import importlib
 from pathlib import Path
 
 import numpy as np
@@ -539,7 +540,9 @@ def test_unported_solver_methods_raise(call, monkeypatch):
                                   "sharded mixed precision", "utils"])
 def test_remaining_items_raise_naming_them(item, monkeypatch):
     """The parts still to port raise NotImplementedError naming their
-    ROADMAP.md item, and run nothing else."""
+    ROADMAP.md item, and run nothing else. Sharded mixed precision is
+    ported in 2D since; in 3D a precond_dtype changes nothing: the solver
+    still raises naming the slabs' item."""
     from multigridcmt_tpu_torch.parallel import sharded
     from multigridcmt_tpu_torch.utils import profiling
 
@@ -547,14 +550,14 @@ def test_remaining_items_raise_naming_them(item, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP") as info:
         if item == "utils":
             profiling.trace("cycle")
-        elif item == "sharded mixed precision":
-            # Raised before the mesh is read.
-            sharded.ShardedSolver(SolverConfig(
-                ndim=2, k=5, precond_dtype=torch.bfloat16), mesh=None)
         else:
             # Raised before the mesh is read.
-            sharded.ShardedSolver(SolverConfig(ndim=3, k=5), mesh=None)
-    assert item in str(info.value)
+            pd = torch.bfloat16 if item == "sharded mixed precision" else None
+            sharded.ShardedSolver(SolverConfig(ndim=3, k=5, precond_dtype=pd),
+                                  mesh=None)
+    want = ("sharded 3D slabs and pencils" if item == "sharded mixed precision"
+            else item)
+    assert want in str(info.value)
     if item == "utils":
         with pytest.raises(NotImplementedError, match="queue 1: utils"):
             profiling.Timer()
@@ -660,8 +663,9 @@ def _plocal2d_launches():
 def test_plocal2d_wrappers_follow_the_device_rule(device):
     """A CPU tensor takes the plain version (no launch counted); a CUDA
     tensor takes the kernel route, which raises with no card and never runs
-    the plain version; bfloat16 storage raises the mixed-precision
-    error."""
+    the plain version; bfloat16 storage is the legs' mixed mode (a float32
+    coarse correction; their plain versions on a CPU tensor) and raises the
+    mixed-precision error elsewhere."""
     import warnings
 
     if device == "cpu":
@@ -675,9 +679,16 @@ def test_plocal2d_wrappers_follow_the_device_rule(device):
                               else ((got,), (want,)))):
                 assert torch.equal(g, w), name
     elif device == "bf16":
-        for name, (call, _) in _plocal2d_calls(
-                *_packed_tiles("cpu", torch.bfloat16)).items():
-            with pytest.raises(NotImplementedError, match="mixed precision"):
+        u, b, _ = _packed_tiles("cpu", torch.bfloat16)
+        e = _packed_tiles("cpu", torch.float32)[2]
+        for name, (call, plain) in _plocal2d_calls(u, b, e).items():
+            if name in ("down_leg", "up_leg"):
+                got, want = call(), plain()
+                for g, w in zip(*((got, want) if isinstance(got, tuple)
+                                  else ((got,), (want,)))):
+                    assert torch.equal(g, w), name
+                continue
+            with pytest.raises(NotImplementedError, match="mixed paths"):
                 call()
     else:
         from torch._subclasses.fake_tensor import FakeTensorMode
@@ -720,10 +731,11 @@ def _tile(rows=32, cols=32, dtype=torch.float64):
     (lambda: _l2().up_leg(_tile(32, 65), _tile(24, 33), _tile(32, 65), 63,
                           31, 1 / 64, 16, -7, kind="jacobi", omega=0.8,
                           sweeps=7), ValueError),
+    # A wider x' is the bfloat16 legs' mode only (float32 for bfloat16 x).
     (lambda: _l2().up_leg(_tile(32, 65), _tile(24, 33), _tile(32, 65), 63,
                           31, 1 / 64, 16, -7, kind="rbgs", omega=1.0,
                           sweeps=1, out_dtype=torch.float32),
-     NotImplementedError),
+     ValueError),
 ], ids=["sweep-cap", "zero-sweeps", "mixed-dtype", "bf16", "down-cap",
         "down-kind", "tile-shape", "coarse-shape", "up-cap", "out-dtype"])
 def test_local2d_wrappers_reject_bad_inputs(bad, err):
@@ -770,14 +782,21 @@ def _sharded_solver(**kw):
     ("ndim3", "sharded 3D slabs and pencils"),
     ("precond_dtype", "mixed precision"),
     ("pcg_precond_dtype", "mixed precision"),
+    ("eigensolve_precond_dtype", "sharded eigensolvers"),
 ])
 def test_unported_sharded_routes_raise(call, item, world_of_one,
                                        monkeypatch):
-    """Each names its ROADMAP.md item; none reroutes. Mixed precision
-    raises for the cycles and for PCG alike. The sharded FMG is ported
-    since: it runs (on the packed route here) and converges, in the
+    """Each names its ROADMAP.md item; none reroutes. The sharded FMG is
+    ported since: it runs (on the packed route here) and converges, in the
     single-device FMG solve's count (its parity with JAX is in
-    test_torch_sharded_fmg.py)."""
+    test_torch_sharded_fmg.py). So is 2D sharded mixed precision: the solve
+    by cycles reads no precond_dtype (as in JAX) and equals the full-dtype
+    solve; MG-PCG casts its cycle to bfloat16 on the packed route and
+    reaches the full-dtype answer (its parity with JAX is in
+    test_torch_mixed_sharded_solve.py). The eigensolvers still raise with a
+    precond_dtype as without."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 30)
     monkeypatch.setattr(kernels, "PACK_MIN_N", 60)
     b = mt.poisson2d(k=6, dtype=torch.float64, device="cpu").b
@@ -790,17 +809,63 @@ def test_unported_sharded_routes_raise(call, item, world_of_one,
         np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=0,
                                    atol=1e-10)
         return
+    if call in ("precond_dtype", "pcg_precond_dtype"):
+        method = "pcg" if call == "pcg_precond_dtype" else "mg"
+        mixed = _sharded_solver(k=6, tol=1e-9, precond_dtype=torch.bfloat16)
+        assert sharded.mixed_leg_dtype(mixed.config, mixed.decomp) == \
+            torch.bfloat16
+        got = mixed.solve(b, method=method)
+        want = _sharded_solver(k=6, tol=1e-9).solve(b, method=method)
+        assert got.converged and want.converged
+        assert got.x.dtype == torch.float64
+        if method == "mg":
+            assert got.iters == want.iters
+            assert torch.equal(got.x, want.x)
+        else:
+            np.testing.assert_allclose(got.x.numpy(), want.x.numpy(),
+                                       rtol=1e-7, atol=1e-8)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP") as info:
         if call == "eigensolve":
             _sharded_solver(k=6).eigensolve(k=1)
-        elif call == "ndim3":
-            _sharded_solver(k=5, ndim=3)
-        elif call == "precond_dtype":
-            _sharded_solver(k=6, precond_dtype=torch.float32)
+        elif call == "eigensolve_precond_dtype":
+            _sharded_solver(k=6, precond_dtype=torch.bfloat16).eigensolve(
+                k=1)
         else:
-            _sharded_solver(k=6, precond_dtype=torch.float32).solve(
-                b, method="pcg")
+            _sharded_solver(k=5, ndim=3)
     assert item in str(info.value)
+
+
+@pytest.mark.parametrize("call", [
+    "local2d.residual", "local2d.rbgs_sweep", "local2d.jacobi_sweep",
+    "plocal2d.residual", "plocal2d.apply_op", "plocal2d.residual_norm_sq"])
+def test_off_path_bf16_wrappers_raise(call):
+    """The shard tile kernels whose bfloat16 mode no path of either
+    package runs (the sweeps and residual beside the legs, the packed
+    apply and norm: sharded MG-PCG applies A and takes residuals at full
+    precision, as JAX's) raise naming that ROADMAP.md item, and launch
+    nothing."""
+    from multigridcmt_tpu_torch.kernels import local2d, plocal2d
+
+    bf = torch.bfloat16
+    t, s = _tile(dtype=bf), _packed_tiles("cpu", bf)[0]
+    h = 1 / 64
+    calls = {
+        "local2d.residual": lambda: local2d.residual(t, t, 63, h, -7),
+        "local2d.rbgs_sweep": lambda: local2d.rbgs_sweep(t, t, 63, h, -7),
+        "local2d.jacobi_sweep": lambda: local2d.jacobi_sweep(t, t, 63, h,
+                                                             0.8, -7),
+        "plocal2d.residual": lambda: plocal2d.residual(s, s, 63, h, -7),
+        "plocal2d.apply_op": lambda: plocal2d.apply_op(s, 63, h, -7),
+        "plocal2d.residual_norm_sq": lambda: plocal2d.residual_norm_sq(
+            s, s, 63, h, 16, -7),
+    }
+    with pytest.raises(NotImplementedError,
+                       match="bfloat16 storage off the mixed paths"):
+        calls[call]()
+    assert (local2d.rbgs_launches, local2d.jacobi_launches,
+            local2d.residual_launches) == (0,) * 3
+    assert _plocal2d_launches() == (0,) * 5
 
 
 @pytest.mark.parametrize("method,pack_min_n", [
@@ -872,15 +937,17 @@ def _chip_smoke_rows(module: str) -> dict:
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert len(smoke.KERNELS) == 37
+    assert len(smoke.KERNELS) == 43
     return {name: row for name, row in smoke.KERNELS.items()
             if row[0] == module}
 
 
 def _check_listed(module: str, lines, sources=None) -> None:
-    """Each of ``module``'s rows names its TPU kernel and its CUDA source:
-    csrc/<module>.cu, or csrc/<sources[name]>.cu where given."""
-    rows = _chip_smoke_rows(module)
+    """Each of ``module``'s float32/float64 rows (its bfloat16 modes
+    apart) names its TPU kernel and its CUDA source: csrc/<module>.cu, or
+    csrc/<sources[name]>.cu where given."""
+    rows = {name: row for name, row in _chip_smoke_rows(module).items()
+            if "bf16" not in name}
     assert sorted(r[3] for r in rows.values()) == sorted(
         f"multigridcmt_tpu/kernels/{module}.py:{line}" for line in lines)
     sources = sources or {}
@@ -908,7 +975,8 @@ def test_chip_smoke_lists_the_plocal2d_kernels():
                   {"plocal2d_down": "plocal2d_legs",
                    "plocal2d_up": "plocal2d_legs"})
     rows = _chip_smoke_rows("plocal2d")
-    assert {name: row[4] for name, row in rows.items()} == {
+    assert {name: row[4] for name, row in rows.items()
+            if "bf16" not in name} == {
         "plocal2d_down": "S1", "plocal2d_up": "S1", "plocal2d_resnorm": "S1",
         "plocal2d_residual": "S1pcg", "plocal2d_apply": "S1pcg"}
 
@@ -938,6 +1006,33 @@ def test_chip_smoke_lists_the_packed2d_bf16_modes():
     for name, row in rows.items():
         assert hasattr(packed2d, row[1])
         assert (ROOT / row[2]).is_file()
+
+
+@pytest.mark.parametrize("module,lines,run", [
+    ("local2d", (616, 843), "S1unpacked-mixed"),
+    ("plocal2d", (501, 708), "S1mixed")])
+def test_chip_smoke_lists_the_tile_bf16_modes(module, lines, run):
+    """The shard tile legs' bfloat16 modes: the down leg and the up leg
+    storing bfloat16 from csrc/<module>_legs_bf16.cu, the up leg storing
+    float32 from csrc/<module>_up_bf16_f32.cu; the down leg and the
+    float32-storing up leg on the sharded mixed path that runs them on the
+    card, the bfloat16-storing up leg (which no solver runs) by direct
+    calls."""
+    rows = {name: row for name, row in _chip_smoke_rows(module).items()
+            if "bf16" in name}
+    src = f"multigridcmt_tpu_torch/kernels/csrc/{module}_"
+    tpu = f"multigridcmt_tpu/kernels/{module}.py:"
+    down, up = lines
+    assert {name: row[1:] for name, row in rows.items()} == {
+        f"{module}_down_bf16": ("down_bf16_launches", src + "legs_bf16.cu",
+                                f"{tpu}{down}", run),
+        f"{module}_up_bf16_f32": ("up_bf16_f32_launches",
+                                  src + "up_bf16_f32.cu", f"{tpu}{up}", run),
+        f"{module}_up_bf16": ("up_bf16_launches", src + "legs_bf16.cu",
+                              f"{tpu}{up}", None)}
+    mod = importlib.import_module(f"multigridcmt_tpu_torch.kernels.{module}")
+    for row in rows.values():
+        assert hasattr(mod, row[1]) and (ROOT / row[2]).is_file()
 
 
 def test_chip_smoke_lists_the_stencil3d_bf16_modes():

@@ -182,8 +182,10 @@ def _refresh_check(mesh, grid):
     return packed, plocal2d.pack_ext(flat, cpar), flat, ue
 
 
-def _run_world(rank, world, init_file, shape, cases, inputs, out_dir):
-    """One rank: solve every case on the mesh and save what it saw."""
+def _run_world(rank, world, init_file, shape, cases, inputs, out_dir,
+               run_case=None):
+    """One rank: solve every case on the mesh (``run_case(mesh, kw, b)``,
+    default ``_run_case``) and save what it saw."""
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     # Small tiles: one thread a rank, so that the ranks and the JAX
     # references do not contend for the cores.
@@ -203,7 +205,8 @@ def _run_world(rank, world, init_file, shape, cases, inputs, out_dir):
                "refresh": (_refresh_check(mesh, torch.from_numpy(
                    inputs["refresh"])) if "refresh" in inputs else None)}
         for name, kw in cases.items():
-            out[name] = _run_case(mesh, kw, torch.from_numpy(inputs[name]))
+            out[name] = (run_case or _run_case)(
+                mesh, kw, torch.from_numpy(inputs[name]))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -268,6 +271,35 @@ def _jax_case(shape, kw, b):
     return res, jmesh
 
 
+def spawn_world(shape, cases, inputs, references, run_case=None):
+    """(per-rank results, references()) of a gloo world of mesh
+    ``shape`` whose ranks run every case (``_run_world``, with
+    ``run_case``); ``references`` runs in this process while the ranks do.
+    A world that does not finish in WORLD_TIMEOUT_S is killed and fails the
+    test."""
+    from multigridcmt_tpu_torch import convert
+
+    # The ranks lay out the JAX mesh's shape.
+    assert convert.mesh_shape_from_jax(_jax_mesh(shape)) == shape
+    nprocs = int(np.prod(shape))
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _run_world, args=(nprocs, os.path.join(tmp, "rdv"), shape, cases,
+                              inputs, tmp, run_case),
+            nprocs=nprocs, join=False, start_method="spawn")
+        refs = references()
+        deadline = time.monotonic() + WORLD_TIMEOUT_S
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                pytest.fail(f"world {shape} did not finish in "
+                            f"{WORLD_TIMEOUT_S} s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(nprocs)]
+    return ranks, refs
+
+
 @pytest.fixture(scope="module")
 def world_results():
     """world -> (per-rank results, per-case JAX references), each world
@@ -277,34 +309,16 @@ def world_results():
     def get(world):
         if world in cache:
             return cache[world]
-        from multigridcmt_tpu_torch import convert
-
         shape, cases = WORLDS[world]
-        # The ranks lay out the JAX mesh's shape.
-        assert convert.mesh_shape_from_jax(_jax_mesh(shape)) == shape
         inputs = {name: _jax_rhs(kw) for name, kw in cases.items()}
         if world in REFRESH_WORLDS:
             inputs["refresh"] = np.random.default_rng(3).standard_normal(
                 (65, 65))
-        nprocs = int(np.prod(shape))
-        with tempfile.TemporaryDirectory() as tmp:
-            ctx = mp.start_processes(
-                _run_world, args=(nprocs, os.path.join(tmp, "rdv"), shape,
-                                  cases, inputs, tmp),
-                nprocs=nprocs, join=False, start_method="spawn")
-            refs = {name: _jax_case(shape, kw, inputs[name])
-                    for name, kw in cases.items()
-                    if kw.get("ref", "jax") != "single"}
-            deadline = time.monotonic() + WORLD_TIMEOUT_S
-            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-                if time.monotonic() > deadline:
-                    for p in ctx.processes:
-                        p.kill()
-                    pytest.fail(f"world {world} did not finish in "
-                                f"{WORLD_TIMEOUT_S} s")
-            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                                weights_only=False) for r in range(nprocs)]
-        cache[world] = (ranks, refs)
+        cache[world] = spawn_world(
+            shape, cases, inputs,
+            lambda: {name: _jax_case(shape, kw, inputs[name])
+                     for name, kw in cases.items()
+                     if kw.get("ref", "jax") != "single"})
         return cache[world]
 
     return get
