@@ -688,6 +688,12 @@ def phase_setup(rendezvous: str):
 LEG_KERNEL = re.compile(r"(down|up|sweep)_kernelI([fd])Li(\d)ELi(\d+)E"
                         r"(?:Lb([01])E)?NS_\d+(Whole|Tile|Unpacked|UTile)E"
                         r"(13__nv_bfloat16(f)?)?")
+# The bfloat16 rows leg_ptxas finds (frame, leg, storage, kind, packed e):
+# on Whole the down leg's 2, the up leg's 8 (bfloat16 and float32 x', each
+# kind, logical and packed e) and the RB-GS sweep's 1; on Tile and UTile
+# the down leg's 2 and the up leg's 4 each. A renamed template must not
+# make them disappear from the report.
+BF16_LEG_ROWS = 2 + 8 + 1 + 2 * (2 + 4)
 
 
 # The BELL SpMM kernel (type, m-tile) and the residual-restriction stream
@@ -782,6 +788,10 @@ def ptxas_report(log_path) -> dict:
         cells = ", ".join(f"K={k} {r}r" + (f" spill {sp}B" if sp else "")
                           for k, r, sp in rows[key])
         log(f"ptxas {' '.join(x for x in key if x)}: {cells}")
+    bf16_rows = sum(key[2].startswith("bf16") for key in rows)
+    require(bf16_rows == BF16_LEG_ROWS,
+            f"ptxas report has {bf16_rows} bfloat16 leg and sweep rows, not "
+            f"{BF16_LEG_ROWS}")
     others = {}
     for mangled, prop in props.items():
         m = OTHER_KERNEL.search(mangled)

@@ -31,8 +31,13 @@ namespace mg {
 
 // Storage and compute (the TPU modules' _cdt rule, packed2d.py:74-90): a
 // kernel computes in T; its grids may be stored in a narrower S (bfloat16,
-// with T float). Every load widens to T, every store rounds to S, to
-// nearest even as XLA's convert does; with S = T both are the identity.
+// with T float). Every value is widened to T where it is used, every store
+// rounds to S, to nearest even as XLA's convert does; with S = T both are
+// the identity. The kernels keep what they load in S until then (the 3D
+// z-march's rings, stencil3d.cuh; the row stream's rows in flight,
+// packed2d_legs.cuh): a widening issued right at its load waits for the
+// load there, which made their bfloat16 modes slower than float32 on the
+// card (PERF.md).
 template <typename S>
 constexpr bool kBf16 = std::is_same<S, __nv_bfloat16>::value;
 
@@ -63,17 +68,6 @@ __device__ __forceinline__ T stored(T v) {
     return widen<T>(narrow<S>(v));
   } else {
     return v;
-  }
-}
-
-// *p through the read-only cache, widened to T.
-template <typename T, typename S>
-__device__ __forceinline__ T ldg_wide(const S* p) {
-  if constexpr (kBf16<S>) {
-    return __bfloat162float(__ushort_as_bfloat16(
-        __ldg(reinterpret_cast<const unsigned short*>(p))));
-  } else {
-    return __ldg(p);
   }
 }
 

@@ -24,9 +24,13 @@
 // float32 bytes; the float rc and e are a quarter of the points. The frame
 // is local2d_legs.cu's. A pair is two 2-byte values, so the odd rows of a
 // row tile take one 4-byte access for a lane's two points where the arrays
-// start on a 4-byte boundary (utile_frame, on_pairs of bfloat16); loads
-// widen to float as they arrive, which the float32 design's registers
-// hold as they are.
+// start on a 4-byte boundary (utile_frame, on_pairs of bfloat16). The rows
+// in flight stay bfloat16 until the step that first reads them (a pair as
+// the one word it came as), and the down leg rounds each row of u' once
+// into a ring that its residual and store read (packed2d_legs.cuh): on an
+// H100 at 700 W, S1's tile, nu = 2, the legs went from 1.37-1.53x their
+// float32 twins' chained time (widened at the load) to 0.76-0.83x, 36-54%
+// of their bounds (PERF.md).
 #include "packed2d_legs.cuh"
 
 extern "C" {

@@ -10,16 +10,22 @@
 //                                                   (mg::presidual_kernel,
 //                                                   :440)
 //
-// u, b and u' are bfloat16; every load widens to float, the smoothing and
-// the residual run in float registers, and each point is rounded once, on
-// its store, to nearest even. The down leg takes the residual of u' as
-// stored (rounded), so that the coarse correction targets the u' that goes
-// up (packed2d.py:678-683), and writes the coarse right-hand side in float:
-// every coarser level of a mixed cycle runs the float32 kernels. The
-// residual is bfloat16 out, as the TPU kernel's (packed2d.py:420-422).
+// u, b and u' are bfloat16; the smoothing and the residual run in float
+// registers, and each point is rounded once, on its store, to nearest
+// even. The down leg takes the residual of u' as stored (rounded), so that
+// the coarse correction targets the u' that goes up (packed2d.py:678-683),
+// and writes the coarse right-hand side in float: every coarser level of a
+// mixed cycle runs the float32 kernels. The residual is bfloat16 out, as
+// the TPU kernel's (packed2d.py:420-422).
 // What bounds them: device memory, half the float32 bytes on the fine grid
-// (packed2d.cu's note); the design is the float32 one with a narrower load
-// and store.
+// (packed2d.cu's note). The down leg is the float32 row stream with two
+// rings (packed2d_legs.cuh): the rows in flight stay bfloat16 until the
+// step that first reads them, and each row of u' is rounded once, as it
+// leaves the last stage, into a ring of three rows that its residual and
+// its store read. Widening at the load instead, and rounding each residual
+// operand where it was read, ran 1.36x slower than float32 (0.1421 against
+// 0.1045 ms chained at 4095^2, nu = 2, on an H100 at 700 W); with the rings
+// it runs 0.75x (0.0784 ms), 45% of its bound (PERF.md).
 #include "packed2d_legs.cuh"
 
 extern "C" {

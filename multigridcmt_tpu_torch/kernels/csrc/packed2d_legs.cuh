@@ -45,6 +45,8 @@ constexpr int kLegWarps = 4;   // warps (independent strips) a block
 constexpr int kAhead = 4;      // rows loaded ahead of the row worked on
 constexpr int kWin = 16;       // the register window of rows (power of 2)
 constexpr int kCoarseWin = 8;  // the up leg's window of coarse rows
+constexpr int kRounded = 4;    // bfloat16: the down leg's rows of u' as
+                               // stored (3 live, power of 2)
 
 // A leg's launch geometry, passed as 7 ints in this order. Warp w of block
 // bx works on unit bx * kLegWarps + w, strip sx = unit % strips and segment
@@ -357,12 +359,12 @@ __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
 // Load both planes of row i (parity par) of the packed array g at this lane
 // into a0, a1; points off the array, and the row above a tile, read 0; rows
 // past ye are not loaded (no step reads them). The tests on rows are made
-// only where EDGE. The whole packed grid may be stored in a narrower S
-// (bfloat16), widened here (packed_tile.cuh); a lane's two points lie in
-// the two planes, so every load is one element wide whatever S: a warp's 32
-// lanes read 32 consecutive elements of each plane.
-template <bool EDGE, typename T, typename S>
-__device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
+// only where EDGE. A lane's two points lie in the two planes, so every
+// load is one element wide: a warp's 32 lanes read 32 consecutive elements
+// of each plane. These are the loads of full-precision storage (S = T);
+// bfloat16 storage keeps its rows unwidened (load_raw, below).
+template <bool EDGE, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
                                          T& a1, int i, int par,
                                          const Unit<Whole>& w,
                                          const Whole& f) {
@@ -371,12 +373,12 @@ __device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
   const int cp = frame_lanes(f);
   const bool ok = w.ok[0];
   const size_t at = static_cast<size_t>(i) * cp + (ok ? w.gl : 0);
-  a0 = ok ? mg::ldg_wide<T>(g + at) : T(0);
-  a1 = ok ? mg::ldg_wide<T>(g + at + static_cast<size_t>(P) * cp) : T(0);
+  a0 = ok ? __ldg(g + at) : T(0);
+  a1 = ok ? __ldg(g + at + static_cast<size_t>(P) * cp) : T(0);
 }
 
-template <bool EDGE, typename T, typename S>
-__device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
+template <bool EDGE, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
                                          T& a1, int i, int par,
                                          const Unit<Tile>& w,
                                          const Tile& f) {
@@ -387,9 +389,9 @@ __device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
   const int p0 = par & 1;   // the phase of colour 0 (plane 0) in row i
   const bool k0 = in && w.ok[p0];
   const bool k1 = in && w.ok[1 - p0];
-  a0 = k0 ? mg::ldg_wide<T>(g + row * cp + w.at[p0]) : T(0);
-  a1 = k1 ? mg::ldg_wide<T>(g + (static_cast<size_t>(f.a.R) + row) * cp +
-                            w.at[1 - p0])
+  a0 = k0 ? __ldg(g + row * cp + w.at[p0]) : T(0);
+  a1 = k1 ? __ldg(g + (static_cast<size_t>(f.a.R) + row) * cp +
+                  w.at[1 - p0])
           : T(0);
 }
 
@@ -401,17 +403,12 @@ using Pair = std::conditional_t<
     std::conditional_t<std::is_same<T, double>::value, double2,
                        __nv_bfloat162>>;
 
-// The pair of S at p (aligned on a Pair<S>) as x, y, widened to T.
-template <typename T, typename S>
-__device__ __forceinline__ void ldg_pair(const S* p, T& x, T& y) {
-  const Pair<S> v = __ldg(reinterpret_cast<const Pair<S>*>(p));
-  if constexpr (mg::kBf16<S>) {
-    x = __low2float(v);
-    y = __high2float(v);
-  } else {
-    x = v.x;
-    y = v.y;
-  }
+// The pair of T at p (aligned on a Pair<T>) as x, y.
+template <typename T>
+__device__ __forceinline__ void ldg_pair(const T* p, T& x, T& y) {
+  const Pair<T> v = __ldg(reinterpret_cast<const Pair<T>*>(p));
+  x = v.x;
+  y = v.y;
 }
 
 // x, y stored as one pair of S at p (aligned on a Pair<S>), each rounded
@@ -462,11 +459,10 @@ __device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
 // UTile: colour c of row i is the point at column at[(c + i) & 1]; the row
 // above the tile reads 0, as on Tile. On an odd row (a compile-time fact in
 // every call) a lane whose two points are an aligned pair (pr) loads them
-// as one access; else two scalar ones. The tile may be stored in a
-// narrower S (bfloat16: a mixed cycle's fine level), widened here; a pair
-// is then two 2-byte values, one 4-byte access.
-template <bool EDGE, typename T, typename S>
-__device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
+// as one access; else two scalar ones (full-precision storage; bfloat16
+// storage: load_raw).
+template <bool EDGE, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ g, T& a0,
                                          T& a1, int i, int par,
                                          const Unit<UTile>& w,
                                          const UTile& f) {
@@ -479,9 +475,8 @@ __device__ __forceinline__ void load_row(const S* __restrict__ g, T& a0,
     // Colour 0 of an odd row is the lane's phase-1 point.
     ldg_pair(g + row + w.at[0], a1, a0);
   } else {
-    a0 = in && w.ok[p0] ? mg::ldg_wide<T>(g + row + w.at[p0]) : T(0);
-    a1 = in && w.ok[1 - p0] ? mg::ldg_wide<T>(g + row + w.at[1 - p0])
-                            : T(0);
+    a0 = in && w.ok[p0] ? __ldg(g + row + w.at[p0]) : T(0);
+    a1 = in && w.ok[1 - p0] ? __ldg(g + row + w.at[1 - p0]) : T(0);
   }
 }
 
@@ -499,6 +494,224 @@ __device__ __forceinline__ void load_next(const S* __restrict__ g, T& a0,
     return;
   }
   load_row<EDGE>(g, a0, a1, i, par, w, f);
+}
+
+// ---------------------------------------------------------------------------
+// Bfloat16 storage (S = __nv_bfloat16, T = float): the rows in flight stay
+// in S. A row is loaded kAhead steps before the step that first reads it.
+// Widened right at its load, the widening sits a few instructions after the
+// load (a median 7 in the packed down leg's SASS) and waits for it there,
+// leaving the prefetch's latency bare. So a load lands in a ring of raw
+// rows (Raw: the 16-bit words, zero-extended in 32-bit registers) and is
+// widened into the float window in the step that first reads it, kAhead
+// steps on (a median 631 instructions after the load); widening is exact,
+// so no result moves. The ring holds the registers the window's rows in
+// flight held. On an H100 at 700 W, nu = 2, 4095^2 and S1's tiles
+// (PERF.md): widened at the load the modes took 1.27-1.53x their float32
+// twins' chained time on 55-75% of the bytes, with the rings 0.75-0.89x
+// (the packed down leg 0.1421 -> 0.0784 ms against float32's 0.1045),
+// 35-56% of their bounds.
+// ---------------------------------------------------------------------------
+
+// A row as loaded: a lane's two words, w0 and w1 (colours 0 and 1 on the
+// packed frames; phases 0 and 1 on UTile, whose paired odd rows keep the
+// 32-bit pair in w0 as it came, phase 0 in its low half, and w1 0).
+struct Raw {
+  unsigned w0, w1;
+};
+
+// The bfloat16 at p through the read-only cache, zero-extended to 32 bits
+// (ptxas folds the extension into the 16-bit load).
+__device__ __forceinline__ unsigned ldg_bits(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+// The aligned pair of bfloat16 at p as one word (p[0] in its low half).
+__device__ __forceinline__ unsigned ldg_pair_bits(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned*>(p));
+}
+
+// The bfloat16 in the low or the high half of w, widened.
+__device__ __forceinline__ float low_f(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float high_f(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// lo and hi rounded to bfloat16 (to nearest even, as mg::narrow) in one
+// word, lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned v;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(v) : "f"(hi), "f"(lo));
+  return v;
+}
+
+// load_row with S bfloat16, into r unwidened: the same addresses, tests and
+// zeros.
+template <bool EDGE>
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* __restrict__ g,
+                                         Raw& r, int i, int par,
+                                         const Unit<Whole>& w,
+                                         const Whole& f) {
+  if (EDGE && i >= w.ye) return;
+  const int P = f.n + 2;
+  const int cp = frame_lanes(f);
+  const bool ok = w.ok[0];
+  const size_t at = static_cast<size_t>(i) * cp + (ok ? w.gl : 0);
+  r.w0 = ok ? ldg_bits(g + at) : 0u;
+  r.w1 = ok ? ldg_bits(g + at + static_cast<size_t>(P) * cp) : 0u;
+}
+
+template <bool EDGE>
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* __restrict__ g,
+                                         Raw& r, int i, int par,
+                                         const Unit<Tile>& w,
+                                         const Tile& f) {
+  if (EDGE && i >= w.ye) return;
+  const int cp = f.a.lanes();
+  const bool in = !EDGE || i >= f.a.goy;
+  const size_t row = static_cast<size_t>(in ? i - f.a.goy : 0);
+  const int p0 = par & 1;
+  r.w0 = in && w.ok[p0] ? ldg_bits(g + row * cp + w.at[p0]) : 0u;
+  r.w1 = in && w.ok[1 - p0]
+             ? ldg_bits(g + (static_cast<size_t>(f.a.R) + row) * cp +
+                        w.at[1 - p0])
+             : 0u;
+}
+
+template <bool EDGE>
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* __restrict__ g,
+                                         Raw& r, int i, int par,
+                                         const Unit<UTile>& w,
+                                         const UTile& f) {
+  if (EDGE && i >= w.ye) return;
+  const bool in = !EDGE || i >= f.a.goy;
+  const long long row =
+      static_cast<long long>(in ? i - f.a.goy : 0) * f.a.C;
+  if (in && (par & 1) == 1 && w.pr) {
+    r.w0 = ldg_pair_bits(g + row + w.at[0]);
+    r.w1 = 0u;
+  } else {
+    r.w0 = in && w.ok[0] ? ldg_bits(g + row + w.at[0]) : 0u;
+    r.w1 = in && w.ok[1] ? ldg_bits(g + row + w.at[1]) : 0u;
+  }
+}
+
+// Row r (parity par) widened into both colours a0, a1.
+template <class Fr>
+__device__ __forceinline__ void widen_raw(const Raw& r, float& a0, float& a1,
+                                          int par) {
+  if constexpr (kIsUTile<Fr>) {
+    // Phase 1 is the pair's high half or w1's low one: the other is 0.
+    const float ph0 = low_f(r.w0);
+    const float ph1 =
+        (par & 1) ? __uint_as_float((r.w0 & 0xffff0000u) | (r.w1 << 16))
+                  : low_f(r.w1);
+    a0 = (par & 1) ? ph1 : ph0;
+    a1 = (par & 1) ? ph0 : ph1;
+  } else {
+    a0 = low_f(r.w0);
+    a1 = low_f(r.w1);
+  }
+}
+
+// Bfloat16 storage: rows ys .. ys + kAhead - 1 into the rings ru, rb (a
+// row the unit does not stream stays 0).
+template <class Fr>
+__device__ __forceinline__ void prime_raw(const __nv_bfloat16* __restrict__ u,
+                                          const __nv_bfloat16* __restrict__ b,
+                                          Raw (&ru)[kAhead], Raw (&rb)[kAhead],
+                                          const Unit<Fr>& w, const Fr& f) {
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    ru[a] = rb[a] = Raw{0u, 0u};
+    load_raw<true>(u, ru[a], w.ys + a, a, w, f);
+    load_raw<true>(b, rb[a], w.ys + a, a, w, f);
+  }
+}
+
+// Bfloat16 storage, step t (v = t - ys mod kWin): row t leaves the rings
+// for the windows U and B, widened in the step that first reads it (stage
+// 0 and the down leg's zero-stage residual read row t, the up leg adds P e
+// to it; B's row is first read a step later), then row t + kAhead is
+// loaded into its ring slot (v mod kAhead, a compile-time constant as the
+// window's). The widening is unconditional, also in a chunk with row
+// tests: a row past ye, which was not loaded, takes the slot's stale words
+// (no step reads it), so no window slot carries an old row through a
+// chunk, which would keep every slot of U and B live there (with the test
+// the RB-GS legs took 140-160 registers, 12 warps an SM; PERF.md).
+template <int v, bool EDGE, class Fr>
+__device__ __forceinline__ void feed_raw(const __nv_bfloat16* __restrict__ u,
+                                         const __nv_bfloat16* __restrict__ b,
+                                         Raw (&ru)[kAhead], Raw (&rb)[kAhead],
+                                         float (&U)[2][kWin],
+                                         float (&B)[2][kWin], int t,
+                                         const Unit<Fr>& w, const Fr& f) {
+  static_assert(kWin % kAhead == 0 && (kAhead & (kAhead - 1)) == 0,
+                "the rings' slots follow the window's");
+  constexpr int q = v & (kAhead - 1);
+  constexpr int s = v & (kWin - 1);
+  widen_raw<Fr>(ru[q], U[0][s], U[1][s], v);
+  widen_raw<Fr>(rb[q], B[0][s], B[1][s], v);
+  load_raw<EDGE>(u, ru[q], t + kAhead, v + kAhead, w, f);
+  load_raw<EDGE>(b, rb[q], t + kAhead, v + kAhead, w, f);
+}
+
+// The bfloat16 store of row i (parity par) from its rounded word q (phase
+// 0 in the low half, as pack_bf16 makes it): store_row's addresses and
+// owners, with no rounding left to do.
+__device__ __forceinline__ void st_bits(__nv_bfloat16* p, unsigned v) {
+  *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(v);
+}
+
+__device__ __forceinline__ void store_raw(__nv_bfloat16* __restrict__ g,
+                                          unsigned q, int i, int par,
+                                          const Unit<Whole>& w,
+                                          const Whole& f) {
+  const int P = f.n + 2;
+  const int cp = frame_lanes(f);
+  const int p0 = par & 1;   // colour 0's phase: its half of q
+  if (w.core) {
+    st_bits(g + static_cast<size_t>(i) * cp + w.gl, p0 ? q >> 16 : q);
+    st_bits(g + (static_cast<size_t>(P) + i) * cp + w.gl, p0 ? q : q >> 16);
+  }
+}
+
+__device__ __forceinline__ void store_raw(__nv_bfloat16* __restrict__ g,
+                                          unsigned q, int i, int par,
+                                          const Unit<Tile>& w,
+                                          const Tile& f) {
+  const int cp = f.a.lanes();
+  const size_t row = static_cast<size_t>(i - f.a.goy);
+  const int p0 = par & 1;
+  if (w.st[p0]) st_bits(g + row * cp + w.at[p0], p0 ? q >> 16 : q);
+  if (w.st[1 - p0]) {
+    st_bits(g + (static_cast<size_t>(f.a.R) + row) * cp + w.at[1 - p0],
+            p0 ? q : q >> 16);
+  }
+}
+
+__device__ __forceinline__ void store_raw(__nv_bfloat16* __restrict__ g,
+                                          unsigned q, int i, int par,
+                                          const Unit<UTile>& w,
+                                          const UTile& f) {
+  const long long row = static_cast<long long>(i - f.a.goy) * f.a.C;
+  if ((par & 1) == 1 && w.core && w.pr) {
+    *reinterpret_cast<unsigned*>(g + row + w.at[0]) = q;
+  } else {
+    if (w.st[0]) st_bits(g + row + w.at[0], q);
+    if (w.st[1]) st_bits(g + row + w.at[1], q >> 16);
+  }
+}
+
+// Colour c of the row at step offset rv (its parity) from the down leg's
+// ring Q of rounded rows (slot rv mod kRounded), widened.
+template <int rv>
+__device__ __forceinline__ float stored_colour(const unsigned (&Q)[kRounded],
+                                               int c) {
+  constexpr int slot = rv & (kRounded - 1);
+  return ((c + rv) & 1) ? high_f(Q[slot]) : low_f(Q[slot]);
 }
 
 // Store both planes of row i (parity par) at this lane, where it owns them
@@ -664,12 +877,13 @@ __device__ __forceinline__ void chunk(bool steady, F&& f) {
 // compiles the store of u' out (residual_restrict_kernel: u_out unused).
 // u, b and u' are stored in S (bfloat16 storage on the whole packed grid
 // and a shard's tile, T float; else S = T), rc in T; the residual is taken
-// of u' as stored
-// (rounded to S), so that the coarse correction targets the u' that goes
-// up, as the TPU kernels take it (packed2d.py:678-683, local2d.py:454-457,
-// plocal2d.py:366-376). Its operands are
-// rounded where it reads them, not in the window: the last stage of the
-// next step still reads row i + 1 unrounded.
+// of u' as stored (rounded to S), so that the coarse correction targets the
+// u' that goes up, as the TPU kernels take it (packed2d.py:678-683,
+// local2d.py:454-457, plocal2d.py:366-376). With S bfloat16 each row of u'
+// is rounded once, in the step it leaves the last stage (row t - K), into
+// a ring Q of rounded rows that the residuals of rows i - 1 .. i + 1 and
+// the store read; the window keeps it unrounded: the last stage of the next
+// step still reads it.
 template <typename T, int KIND, int K, bool STORE, class Fr, typename S = T>
 __device__ __forceinline__ void down_stream(const S* __restrict__ u,
                                             const S* __restrict__ b,
@@ -689,10 +903,18 @@ __device__ __forceinline__ void down_stream(const S* __restrict__ u,
 
   T U[2][kWin], B[2][kWin], R[2][kWin];
   T J[K > 0 ? K : 1][2][kWin];
+  // Bfloat16 storage: the rows in flight of u and b, and rows of u' as
+  // stored.
+  [[maybe_unused]] Raw ru[kAhead], rb[kAhead];
+  [[maybe_unused]] unsigned Q[kRounded];
+  if constexpr (mg::kBf16<S>) {
+    prime_raw(u, b, ru, rb, w, f);
+  } else {
 #pragma unroll
-  for (int a = 0; a < kAhead; ++a) {
-    load_row<true>(u, U[0][a], U[1][a], w.ys + a, a, w, f);
-    load_row<true>(b, B[0][a], B[1][a], w.ys + a, a, w, f);
+    for (int a = 0; a < kAhead; ++a) {
+      load_row<true>(u, U[0][a], U[1][a], w.ys + a, a, w, f);
+      load_row<true>(b, B[0][a], B[1][a], w.ys + a, a, w, f);
+    }
   }
   T(&F)[2][kWin] = (KIND == mg::kJacobi && K > 0) ? J[K > 0 ? K - 1 : 0] : U;
 
@@ -706,11 +928,15 @@ __device__ __forceinline__ void down_stream(const S* __restrict__ u,
       constexpr int v = decltype(vc)::value;
       constexpr bool EDGE = decltype(edge)::value;
       const int t = t0 + v;
-      constexpr int sa = (v + kAhead) & (kWin - 1);
-      load_next<KIND, EDGE>(u, U[0][sa], U[1][sa], t + kAhead, v + kAhead, w,
-                            f);
-      load_next<KIND, EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead, w,
-                            f);
+      if constexpr (mg::kBf16<S>) {
+        feed_raw<v, EDGE>(u, b, ru, rb, U, B, t, w, f);
+      } else {
+        constexpr int sa = (v + kAhead) & (kWin - 1);
+        load_next<KIND, EDGE>(u, U[0][sa], U[1][sa], t + kAhead, v + kAhead,
+                              w, f);
+        load_next<KIND, EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead,
+                              w, f);
+      }
 
       smooth_step<T, KIND, K, v, EDGE>(U, B, J, t, w, cf);
 
@@ -721,24 +947,53 @@ __device__ __forceinline__ void down_stream(const S* __restrict__ u,
       constexpr int sm = (s - 1) & (kWin - 1);
       constexpr int sp = (s + 1) & (kWin - 1);
       const bool live = !EDGE || (i >= w.lo && i <= w.hi);
+      if constexpr (mg::kBf16<S>) {
+        // Row t - K leaves the last stage: rounded once, phase 0 low.
+        constexpr int sq = (v - K) & (kWin - 1);
+        constexpr int c0 = (v - K) & 1;   // the colour at phase 0
+        Q[(v - K) & (kRounded - 1)] = pack_bf16(F[c0][sq], F[1 - c0][sq]);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        if (RED_ONLY && c == 1) {
-          R[c][s] = T(0);
-          continue;
+        for (int c = 0; c < 2; ++c) {
+          if (RED_ONLY && c == 1) {
+            R[c][s] = T(0);
+            continue;
+          }
+          const int o = 1 - c;
+          const int p = (c + v - OUT) & 1;
+          const T x = stored_colour<v - OUT>(Q, c);
+          const T mid = stored_colour<v - OUT>(Q, o);
+          const T side = side_of(mid, p);
+          const T r = residual_of<Fr>(
+              B[c][s], x, stored_colour<v - OUT - 1>(Q, o),
+              stored_colour<v - OUT + 1>(Q, o), mid, side, p, cf);
+          R[c][s] = live && w.upd[p] ? r : T(0);
         }
-        const int o = 1 - c;
-        const int p = (c + v - OUT) & 1;
-        const T x = mg::stored<S>(F[c][s]);
-        const T mid = mg::stored<S>(F[o][s]);
-        const T side = side_of(mid, p);
-        const T r = residual_of<Fr>(B[c][s], x, mg::stored<S>(F[o][sm]),
-                                    mg::stored<S>(F[o][sp]), mid, side, p, cf);
-        R[c][s] = live && w.upd[p] ? r : T(0);
-      }
-      if constexpr (STORE) {
-        if (!EDGE || (i >= w.y0 && i < w.y1)) {
-          store_row(u_out, F[0][s], F[1][s], i, v - OUT, w, f);
+        if constexpr (STORE) {
+          if (!EDGE || (i >= w.y0 && i < w.y1)) {
+            store_raw(u_out, Q[(v - OUT) & (kRounded - 1)], i, v - OUT, w,
+                      f);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (RED_ONLY && c == 1) {
+            R[c][s] = T(0);
+            continue;
+          }
+          const int o = 1 - c;
+          const int p = (c + v - OUT) & 1;
+          const T x = F[c][s];
+          const T mid = F[o][s];
+          const T side = side_of(mid, p);
+          const T r = residual_of<Fr>(B[c][s], x, F[o][sm], F[o][sp], mid,
+                                      side, p, cf);
+          R[c][s] = live && w.upd[p] ? r : T(0);
+        }
+        if constexpr (STORE) {
+          if (!EDGE || (i >= w.y0 && i < w.y1)) {
+            store_row(u_out, F[0][s], F[1][s], i, v - OUT, w, f);
+          }
         }
       }
 
@@ -838,11 +1093,16 @@ __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
 
   T U[2][kWin], B[2][kWin], E0[kCoarseWin], E1[kCoarseWin];
   T J[K > 0 ? K : 1][2][kWin];
+  [[maybe_unused]] Raw ru[kAhead], rb[kAhead];   // bfloat16: rows in flight
   // Rows ys .. ys + kAhead - 1 and the coarse rows they need.
+  if constexpr (mg::kBf16<S>) {
+    prime_raw(xin, b, ru, rb, w, f);
+  } else {
 #pragma unroll
-  for (int a = 0; a < kAhead; ++a) {
-    load_row<true>(xin, U[0][a], U[1][a], w.ys + a, a, w, f);
-    load_row<true>(b, B[0][a], B[1][a], w.ys + a, a, w, f);
+    for (int a = 0; a < kAhead; ++a) {
+      load_row<true>(xin, U[0][a], U[1][a], w.ys + a, a, w, f);
+      load_row<true>(b, B[0][a], B[1][a], w.ys + a, a, w, f);
+    }
   }
   if constexpr (PROLONG) {
 #pragma unroll
@@ -864,11 +1124,15 @@ __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
       constexpr int v = decltype(vc)::value;
       constexpr bool EDGE = decltype(edge)::value;
       const int t = t0 + v;
-      constexpr int sa = (v + kAhead) & (kWin - 1);
-      load_next<KIND, EDGE>(xin, U[0][sa], U[1][sa], t + kAhead, v + kAhead,
-                            w, f);
-      load_next<KIND, EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead, w,
-                            f);
+      if constexpr (mg::kBf16<S>) {
+        feed_raw<v, EDGE>(xin, b, ru, rb, U, B, t, w, f);
+      } else {
+        constexpr int sa = (v + kAhead) & (kWin - 1);
+        load_next<KIND, EDGE>(xin, U[0][sa], U[1][sa], t + kAhead,
+                              v + kAhead, w, f);
+        load_next<KIND, EDGE>(b, B[0][sa], B[1][sa], t + kAhead, v + kAhead,
+                              w, f);
+      }
       if constexpr (PROLONG && ((v + kAhead) & 1) == 1) {
         // Row t + kAhead is odd: it needs coarse row (t + kAhead + 1) / 2.
         constexpr int m = ((v + kAhead + 1) >> 1) & (kCoarseWin - 1);

@@ -16,8 +16,12 @@
 // stored (plocal2d.py:369-376; the red points only after an RB-GS sweep,
 // as the float32 leg), a float coarse right-hand side and correction. A
 // lane's two points lie in the two planes, so every access is one 2-byte
-// element, 32 consecutive ones a warp a plane; the design is the float32
-// tile leg's (plocal2d.cu's note) with a narrower load and store.
+// element, 32 consecutive ones a warp a plane. The design is the float32
+// tile leg's (plocal2d.cu's note) with local2d_legs_bf16.cu's rings: rows
+// in flight kept bfloat16 until the step that first reads them, u' rounded
+// once a row for its residual and store. On an H100 at 700 W, S1's packed
+// tile, nu = 2: 1.27-1.35x the float32 twins' chained time widened at the
+// load, 0.86-0.89x with the rings, 35-49% of their bounds (PERF.md).
 #include "packed2d_legs.cuh"
 
 extern "C" {

@@ -25,7 +25,12 @@ max|plain| (1/(4 - sigma h^2) is taken as the plain versions take it, but
 the tolerance does not rely on that). The launch geometry is checked to
 write each output entry once at config 5's tiles, and two cases are held
 against JAX's local2d legs in interpret mode on test_torch_local2d.py's
-tiles.
+tiles. The legs' bfloat16 storage modes (the emulation's rings of loaded
+rows, a row tile's paired odd rows as one 32-bit word, and of u' as
+stored) are held against the plain versions on the same bfloat16 tiles by
+tests/test_torch_mixed.py's bfloat16 rule, a float32 x' and the coarse
+output (against the plain restriction of the emulated u') to 1e-5 of
+their largest value.
 """
 import ctypes
 import dataclasses
@@ -42,7 +47,7 @@ from test_torch_local2d import TILES as JAX_TILES
 from test_torch_local2d import Tile as JaxTile
 from test_torch_local2d import check as check_owned
 from test_torch_local2d import embed
-from test_torch_packed import LegFrame, _emulate_leg
+from test_torch_packed import LegFrame, _bf16_rule, _emulate_leg, _f32_close
 from test_torch_plocal2d import Tile
 from test_torch_plocal2d_stream import _BigTile
 from test_torch_plocal2d_stream import tile_frame as packed_tile_frame
@@ -151,6 +156,62 @@ def test_utile_up_schedule_matches_plain(name, kind, nu, seg):
     g, got, want = emulate_up(name, kind, nu, sigma, seg)
     assert g.segs > 1 or seg == 64
     _check(got, want, sigma)
+
+
+# (tile, kind, nu, seg) of the bfloat16 cases: zero stages on rank 0's
+# tile in several segments, RB-GS nu = 2 (the mixed paths') on the inner
+# row tile (paired odd rows, steady chunks) and the block tile (no pairs),
+# Jacobi odd and even.
+_BF16 = [("rows-rank0", "rbgs", 0, 10), ("rows-inner", "rbgs", 2, 64),
+         ("block-01", "rbgs", 2, 10), ("block-01", "jacobi", 3, None),
+         ("rows-rank0", "jacobi", 2, 64)]
+BF = torch.bfloat16
+
+
+def _bf16_tile(name):
+    """_tile's u and b rounded to bfloat16 (as tensors and as float32
+    arrays) and e in float32."""
+    t, e = _tile(name)
+    su, sb = (torch.from_numpy(a).to(BF) for a in (t.ue, t.be))
+    return t, su, sb, e.astype(np.float32)
+
+
+@pytest.mark.parametrize("name,kind,nu,seg", _BF16)
+def test_utile_bf16_down_schedule_matches_plain(name, kind, nu, seg):
+    t, su, sb, _ = _bf16_tile(name)
+    sigma = SIGMAS[nu & 1]
+    g = geometry("down", t, kind, nu, seg)
+    got_u, got_rc = _emulate_leg(g, kind, nu, su.float().numpy(),
+                                 sb.float().numpy(), t.h, sigma, OMEGA,
+                                 frame=utile_frame(t), bf16=True)
+    want_u, _ = local2d.down_leg_plain(
+        su, sb, t.n, t.h, t.m, t.row_off, t.col_off, kind=kind, omega=OMEGA,
+        sweeps=nu, sigma=sigma, mcol=t.mcol)
+    _bf16_rule(got_u, want_u)
+    _f32_close(got_rc, local2d.residual_restrict_plain(
+        torch.from_numpy(got_u).to(BF), sb, t.n, t.h, t.m, t.row_off,
+        t.col_off, sigma=sigma, mcol=t.mcol))
+
+
+@pytest.mark.parametrize("f32_out", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name,kind,nu,seg", _BF16)
+def test_utile_bf16_up_schedule_matches_plain(name, kind, nu, seg, f32_out):
+    t, su, sb, e = _bf16_tile(name)
+    sigma = SIGMAS[(nu + 1) & 1]
+    g = geometry("up", t, kind, nu, seg)
+    got = _emulate_leg(g, kind, nu, su.float().numpy(), sb.float().numpy(),
+                       t.h, sigma, OMEGA, e=e, frame=utile_frame(t),
+                       bf16=True, f32_out=f32_out)
+    want = local2d.up_leg_plain(
+        su, torch.from_numpy(e), sb, t.n, (t.n - 1) // 2, t.h, t.m,
+        t.row_off, t.col_off, kind=kind, omega=OMEGA, sweeps=nu,
+        sigma=sigma, mcol=t.mcol,
+        out_dtype=torch.float32 if f32_out else None)
+    if f32_out:
+        assert want.dtype == torch.float32
+        _f32_close(got, want)
+    else:
+        _bf16_rule(got, want)
 
 
 def test_tiles_exercise_the_frame():

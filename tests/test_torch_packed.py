@@ -281,7 +281,11 @@ def test_v_cycle_on_packed_level_matches_plain_route(monkeypatch):
 # loaded, and, for RB-GS, that each neighbour row has had exactly the
 # half-sweeps a sequential sweep would have given it by then; every point
 # of the outputs must be written exactly once. Float64; tolerance as
-# _close.
+# _close. The bfloat16 storage modes (``bf16``) run the same schedule in
+# float32 with the kernels' rings: loaded rows held as bfloat16 values in a
+# ring of LEG_AHEAD slots and widened into the window only in the step that
+# first reads them, the down leg's u' rounded once a row into a ring that
+# its residual and store read; a ring slot past its row's life holds NaN.
 # ---------------------------------------------------------------------------
 
 def _coefs(h, sigma, omega):
@@ -291,13 +295,57 @@ def _coefs(h, sigma, omega):
         omega / (4.0 * inv_h2 - sigma)
 
 
+# The bfloat16 down leg's ring of rows of u' as stored (the kernel's
+# kRounded): the emulation's, whose slots past their row's life hold NaN.
+ROUNDED_ROWS = 4
+
+
+def _coefs32(h, sigma, omega):
+    """_coefs as the kernels' float32 Coef makes them: h^2, 1/h^2 and sigma
+    rounded from float64, the rest computed in float32."""
+    f = np.float32
+    h2, inv_h2, sig = f(h * h), f(1.0 / (h * h)), f(sigma)
+    return h2, inv_h2, sig, f(1) / (f(4) - sig * h2), \
+        f(omega) / (f(4) * inv_h2 - sig)
+
+
+def _bf16(a):
+    """a rounded to bfloat16 (to nearest even), held in float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _bf16_rule(got, want):
+    """got (the emulated kernel's bfloat16 output, float32) against want
+    (the plain version's, bfloat16) by tests/test_torch_mixed.py's rule:
+    every point within one bfloat16 ulp of want plus 1e-5 of its largest
+    value, at most 1e-3 of the points differing at all."""
+    want = want.double().numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.array_equal(_bf16(got), got)          # rounded once, stored
+    diff = np.abs(got.astype(np.float64) - want)
+    _, ex = np.frexp(want)
+    ulp = np.where(want != 0, np.ldexp(1.0, ex - 8), 0.0)
+    assert np.all(diff <= ulp + 1e-5 * np.abs(want).max())
+    assert np.mean(diff > 0) <= 1e-3
+
+
+def _f32_close(got, want):
+    """A float32 output of the emulation against the plain version's, to
+    1e-5 of its largest value (both float32, summed in other orders)."""
+    want = want.double().numpy() if isinstance(want, torch.Tensor) else want
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
 class _Window:
     """Rows of both planes of `width` lanes, slot i & (size - 1), each slot
     tagged with the row it holds and, for RB-GS, its updates by colour."""
 
-    def __init__(self, size, width):
+    def __init__(self, size, width, dtype=np.float64):
         self.mask = size - 1
-        self.data = np.full((size, 2, width), np.nan)
+        self.data = np.full((size, 2, width), np.nan, dtype=dtype)
         self.tag = np.full(size, -1)
         self.count = np.zeros((size, 2), dtype=int)
         self.limit = None       # the last row loaded so far
@@ -398,7 +446,8 @@ class LegFrame:
 
 
 def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
-                 packed_coarse=False, frame=None, fine=True):
+                 packed_coarse=False, frame=None, fine=True, bf16=False,
+                 f32_out=False):
     """csrc/packed2d_legs.cuh's down_kernel, up_kernel (with e) or
     sweep_kernel (the up leg's stream without e), as g.leg says, on
     geometry g and frame (the whole packed grid when None), unit by unit;
@@ -408,11 +457,22 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
     k works on row t - 1 - k of step t. On the unpacked frames s, bs and u'
     are unpacked arrays of f.C columns (the logical (n+2)^2 grid or a
     tile), every address read or written is asserted to lie in its row and
-    in the array, and every paired access to start on a pair."""
+    in the array, and every paired access to start on a pair.
+
+    ``bf16``: the bfloat16 storage mode (s and bs bfloat16 values in
+    float32 arrays, e float32), in float32 with the kernels' rings (the
+    section's note); u' and x' come back rounded to bfloat16, or x' in
+    float32 with ``f32_out`` (the up leg's float32 store)."""
     f = frame or LegFrame.whole(g.n)
     n, K, TW, hp = g.n, g.stages, packed2d.LEG_LANES, g.halo_lanes
     cpa = s.shape[1] if f.unpacked else s.shape[2]
-    h2, inv_h2, sig, inv_den, jscale = _coefs(h, sigma, omega)
+    dt = np.float32 if bf16 else np.float64
+    if bf16:
+        assert s.dtype == bs.dtype == np.float32
+        assert np.array_equal(_bf16(s), s) and np.array_equal(_bf16(bs), bs)
+        h2, inv_h2, sig, inv_den, jscale = _coefs32(h, sigma, omega)
+    else:
+        h2, inv_h2, sig, inv_den, jscale = _coefs(h, sigma, omega)
     down = g.leg == "down"
     up = g.leg == "up"             # the sweep stream: neither
     assert (e is not None) == up
@@ -441,11 +501,16 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
             gl, Jl, at, ok, core, upd = f.unit(g, sx, x)
             atc = [np.clip(a, 0, cpa - 1) for a in at]
             W = packed2d.LEG_WINDOW
-            ur, br = _Window(W, TW), _Window(W, TW)
-            js = [_Window(W, TW) for _ in range(K)]
-            rr = _Window(W, TW)
-            cs = _Window(packed2d.LEG_COARSE_WINDOW, TW + 1)
+            ur, br = _Window(W, TW, dt), _Window(W, TW, dt)
+            js = [_Window(W, TW, dt) for _ in range(K)]
+            rr = _Window(W, TW, dt)
+            cs = _Window(packed2d.LEG_COARSE_WINDOW, TW + 1, dt)
             fr = js[K - 1] if kind == "jacobi" and K else ur
+            # bfloat16: the rings of loaded rows (u and b, as the kernel's
+            # raw words) and of rounded rows of u' (the down leg's residual
+            # reads u' as stored).
+            raw = [_Window(A, TW), _Window(A, TW)]
+            qr = _Window(ROUNDED_ROWS, TW, dt)
             prolonged = set()
 
             lo = max(ys + 1, max(f.upd[0], 1))
@@ -487,7 +552,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 """Both planes of global row i at the frame's lanes: plane
                 c from array lane at[(c + i) & 1] (unpacked: the row's
                 column at[(c + i) & 1]); 0 off the array."""
-                rows = np.zeros((2, TW))
+                rows = np.zeros((2, TW), dtype=dt)
                 if i < f.goy:
                     return rows
                 for c in (0, 1):
@@ -500,18 +565,70 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     rows[c] = np.where(ok[p], v, 0.0)
                 return rows
 
+            def words(rows, i):
+                """Row i as the kernel's raw words w0, w1 (load_raw),
+                held in float64: the bfloat16 bits of colours 0 and 1; on
+                UTile those of phases 0 and 1, or a paired lane's pair in
+                w0 (phase 0 low) and 0 in w1."""
+                b = torch.from_numpy(np.ascontiguousarray(rows)).to(
+                    torch.bfloat16).view(torch.int16).numpy().view(
+                    np.uint16).astype(np.uint32)
+                w = b
+                if f.unpacked:
+                    ph0, ph1 = b[i & 1], b[1 - (i & 1)]
+                    pair = (f.paired(i & 1) & ok[0] & ok[1]) & (i >= f.goy)
+                    w = np.stack([np.where(pair, ph0 | (ph1 << 16), ph0),
+                                  np.where(pair, 0, ph1)])
+                return w.astype(np.float64)
+
+            def widened(wd, i):
+                """The kernel's widen_raw of row i's words."""
+                w0, w1 = wd.astype(np.uint32)
+
+                def f32(v):
+                    return v.astype(np.uint32).view(np.float32)
+
+                if not f.unpacked:
+                    return np.stack([f32(w0 << 16), f32(w1 << 16)])
+                ph0 = f32(w0 << 16)
+                if i & 1:
+                    return np.stack([f32((w0 & 0xFFFF0000) | (w1 << 16)),
+                                     ph0])
+                return np.stack([ph0, f32(w1 << 16)])
+
             def load(i):
                 if i >= ye:
-                    if kind == "jacobi":
+                    if kind == "jacobi" and not bf16:
                         # The kernel's Jacobi stream writes 0 (load_next),
                         # a row no step may read.
                         ur.put(i, np.full((2, TW), np.nan))
                         br.put(i, np.full((2, TW), np.nan))
                     return
-                ur.put(i, arow(s, i))
-                br.put(i, arow(bs, i))
+                if bf16:
+                    # Into the raw ring, whose slot's last row was widened.
+                    for ring, a in zip(raw, (s, bs)):
+                        k = i & (A - 1)
+                        assert ring.tag[k] < 0 or np.isnan(ring.data[k]).all()
+                        ring.put(i, words(arow(a, i), i))
+                else:
+                    ur.put(i, arow(s, i))
+                    br.put(i, arow(bs, i))
                 if up and i & 1 and i >= ys + A:
                     load_coarse((i + 1) >> 1)
+
+            def widen(t):
+                """bfloat16: row t leaves the raw ring for the window in
+                the step that first reads it; past ye (a row not loaded)
+                the kernel widens the slot's stale words, a row no step may
+                read."""
+                if t >= ye:
+                    ur.put(t, np.full((2, TW), np.nan))
+                    br.put(t, np.full((2, TW), np.nan))
+                    return
+                for ring, win in zip(raw, (ur, br)):
+                    k = ring.slot(t)
+                    win.put(t, widened(ring.data[k], t))
+                    ring.data[k] = np.nan           # past its row's life
 
             def nbrs(win, i, c, p):
                 """(up, down, left, right) of colour c's points in row i
@@ -602,35 +719,51 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     if live(r) and kind == "rbgs":
                         assert list(fr.count[fr.slot(r)]) == [sweeps] * 2
 
+            def round_row(t):
+                """bfloat16 down leg: row t - K leaves the last stage,
+                rounded once into the ring of rows as stored."""
+                r = t - K
+                qr.put(r, _bf16(fr.row(r)) if ys <= r < ye
+                       else np.full((2, TW), np.nan, dtype=dt))
+
             def residual_store(t):
                 i = t - g.out_lag
+                # The down leg's residual and store read u' as stored.
+                src = qr if bf16 and down else fr
                 if not ys <= i < ye:
                     return
                 if down:
-                    res = np.zeros((2, TW))
+                    res = np.zeros((2, TW), dtype=dt)
                     if live(i):
                         finished(i)
                         for c in (0, 1):
                             if red_only and c:
                                 continue
                             p = (c + i) & 1
-                            res[c] = np.where(upd[p], resid(fr, i, c, p), 0.0)
+                            res[c] = np.where(upd[p], resid(src, i, c, p),
+                                              0.0)
                     rr.put(i, res)
                 elif kind == "rbgs" and live(i):
                     finished(i)
                 if fine and y0 <= i < y1:
                     if up:
                         assert i in prolonged
+                    rows = src.row(i)
+                    if bf16 and not down and not f32_out:
+                        rows = _bf16(rows)
                     for c in (0, 1):
                         p = (c + i) & 1
                         st = core & ok[p]
                         if f.unpacked:
                             in_row(i, p, st)
-                            out[i - f.goy, at[p][st]] = fr.row(i)[c][st]
+                            out[i - f.goy, at[p][st]] = rows[c][st]
                             out_w[i - f.goy, at[p][st]] += 1
                         else:
-                            out[c, i - f.goy, at[p][st]] = fr.row(i)[c][st]
+                            out[c, i - f.goy, at[p][st]] = rows[c][st]
                             out_w[c, i - f.goy, at[p][st]] += 1
+                if bf16 and down and ys <= i - 1:
+                    # Row i - 1 was last read by this residual.
+                    qr.data[qr.slot(i - 1)] = np.nan
 
             def restrict(t):
                 j = t - g.out_lag - 1
@@ -699,6 +832,8 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     elif up:
                         assert 1 <= t <= n
                     n_steady[0] += 1
+                if bf16:
+                    widen(t)
                 load(t + A)
                 for win in (ur, br, *js):
                     win.limit = t
@@ -707,6 +842,8 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     prolong(t)
                 for k in range(K):
                     smooth(t, k)
+                if bf16 and down:
+                    round_row(t)
                 residual_store(t)
                 if down:
                     restrict(t)
@@ -782,6 +919,98 @@ def test_row_stream_up_schedule_matches_plain(kind, sweeps, seg):
     _close(torch.from_numpy(got), packed2d.unpack(want).numpy(), n)
 
 
+# The bfloat16 storage modes on the whole packed grid (n = 61, as above):
+# zero-stage legs (mixedA's), RB-GS nu = 2 (the mixed paths') and odd
+# Jacobi counts, segments of 8 or 10 rows (several) and of 64 (one, with
+# steady chunks); held against the plain versions on the same bfloat16
+# grids by the bfloat16 rule (_bf16_rule) or, a float32 output, to 1e-5 of
+# its largest value; the down leg's coarse output against the plain
+# restriction of the emulated u' (the residual of u' as stored: a one-ulp
+# flip of u' moves it by 4/h^2 of an ulp, far past that tolerance).
+_BF16_DOWN = [("rbgs", 0, 8), ("rbgs", 0, 64), ("rbgs", 2, 10),
+              ("rbgs", 2, 64), ("jacobi", 0, 10), ("jacobi", 3, 8),
+              ("jacobi", 2, 64)]
+_BF16_UP = [("rbgs", 0, 10), ("rbgs", 2, 8), ("rbgs", 2, 64),
+            ("jacobi", 3, 10), ("jacobi", 2, 64)]
+BF = torch.bfloat16
+
+
+def _bf16_grids(seed, n):
+    """Packed bfloat16 u and b (b of 1/h^2 size) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    u, b = _padded(rng, n), _padded(rng, n) * (n + 1) ** 2
+    return (packed2d.pack(torch.from_numpy(a).to(BF)) for a in (u, b)), rng
+
+
+@pytest.mark.parametrize("kind,sweeps,seg", _BF16_DOWN)
+def test_row_stream_bf16_down_schedule_matches_plain(kind, sweeps, seg):
+    n = 61
+    (su, sb), _ = _bf16_grids(6100 + sweeps, n)
+    h = 1.0 / (n + 1)
+    pc = bool(sweeps & 1)
+    g = packed2d.leg_geometry("down", n, kind, sweeps, seg=seg)
+    assert (g.segs > 1) == (seg < 64) and (g.strips > 1 or sweeps == 0)
+    got_u, got_rc = _emulate_leg(g, kind, sweeps, su.float().numpy(),
+                                 sb.float().numpy(), h, SIGMA, OMEGA[kind],
+                                 packed_coarse=pc, bf16=True)
+    assert _emulate_leg.steady_steps > 0 or seg < 64
+    want_u, want_rc = packed2d.smooth_residual_restrict_plain(
+        su, sb, n, h, kind=kind, omega=OMEGA[kind], sweeps=sweeps,
+        sigma=SIGMA, packed_coarse=pc)
+    _bf16_rule(got_u, want_u)
+    own = packed2d.residual_restrict_plain(
+        torch.from_numpy(got_u).to(BF), sb, n, h,
+        red_only=kind == "rbgs" and sweeps >= 1, sigma=SIGMA,
+        packed_coarse=pc)
+    assert own.dtype == torch.float32
+    _f32_close(got_rc, own)
+    if np.array_equal(got_u, want_u.float().numpy()):
+        _f32_close(got_rc, want_rc)
+
+
+@pytest.mark.parametrize("f32_out", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind,sweeps,seg", _BF16_UP)
+def test_row_stream_bf16_up_schedule_matches_plain(kind, sweeps, seg,
+                                                   f32_out):
+    """x and b bfloat16, e float32 (logical, or packed at odd sweeps); x'
+    in bfloat16 or, with f32_out, float32 (the top level of a mixed
+    cycle)."""
+    n = 61
+    nc = (n - 1) // 2
+    (sx, sb), rng = _bf16_grids(7100 + sweeps, n)
+    e = torch.from_numpy(_padded(rng, nc)).float()
+    te = packed2d.pack(e) if sweeps & 1 else e
+    h = 1.0 / (n + 1)
+    g = packed2d.leg_geometry("up", n, kind, sweeps, seg=seg)
+    assert (g.segs > 1) == (seg < 64)
+    got = _emulate_leg(g, kind, sweeps, sx.float().numpy(),
+                       sb.float().numpy(), h, SIGMA, OMEGA[kind],
+                       e=te.numpy(), bf16=True, f32_out=f32_out)
+    want = packed2d.prolong_add_smooth_plain(
+        sx, te, sb, n, nc, h, kind=kind, omega=OMEGA[kind], sweeps=sweeps,
+        sigma=SIGMA, out_dtype=torch.float32 if f32_out else None)
+    if f32_out:
+        assert want.dtype == torch.float32
+        _f32_close(got, want)
+    else:
+        _bf16_rule(got, want)
+
+
+@pytest.mark.parametrize("sweeps,seg", [(1, 8), (2, 64), (4, 10)])
+def test_row_stream_bf16_sweep_schedule_matches_plain(sweeps, seg):
+    """The bfloat16 RB-GS sweep (mixedB's pre-smoothing at 4095^2): the up
+    leg's stream without its coarse operand, on the same rings."""
+    n = 61
+    (su, sb), _ = _bf16_grids(8100 + sweeps, n)
+    h = 1.0 / (n + 1)
+    g = packed2d.leg_geometry("sweep", n, "rbgs", sweeps, seg=seg)
+    assert (g.segs > 1) == (seg < 64)
+    got = _emulate_leg(g, "rbgs", sweeps, su.float().numpy(),
+                       sb.float().numpy(), h, SIGMA, 1.0, bf16=True)
+    _bf16_rule(got, packed2d.rbgs_sweep_plain(su, sb, n, h, sweeps=sweeps,
+                                              sigma=SIGMA))
+
+
 _GEOMETRY_CASES = [(leg, n, kind, cap_of(kind))
                    for n in (61, 2999, 4095)
                    for leg, cap_of in (("down", packed2d.max_down_sweeps),
@@ -849,6 +1078,7 @@ def test_leg_constants_match_the_kernel_source():
     assert const["kAhead"] == packed2d.LEG_AHEAD
     assert const["kWin"] == packed2d.LEG_WINDOW
     assert const["kCoarseWin"] == packed2d.LEG_COARSE_WINDOW
+    assert const["kRounded"] == ROUNDED_ROWS
     for cap_of, key in ((packed2d.max_down_sweeps, "kMaxDownStages"),
                         (packed2d.max_up_sweeps, "kMaxUpStages"),
                         (local2d.max_down_sweeps, "kMaxTileStages"),

@@ -16,7 +16,12 @@ launch's own segments. One row case and one block case are held against
 JAX's plocal2d legs in interpret mode too, on test_torch_plocal2d.py's
 255^2 tiles. Tolerance: rtol 1e-12 and atol 1e-12 * max|plain| (the
 emulation and the plain versions sum in other orders); against JAX, that
-file's 1e-13 * 4^8 on the owned points.
+file's 1e-13 * 4^8 on the owned points. The legs' bfloat16 storage modes
+(the fine tile of a sharded mixed cycle: the emulation's rings of loaded
+rows and of u' as stored) are held against the plain versions on the
+same bfloat16 tiles by tests/test_torch_mixed.py's bfloat16 rule, a
+float32 x' and the coarse output (against the plain restriction of the
+emulated u') to 1e-5 of their largest value.
 """
 import functools
 
@@ -25,7 +30,7 @@ import pytest
 import torch
 
 from multigridcmt_tpu_torch.kernels import local2d, packed2d, plocal2d
-from test_torch_packed import LegFrame, _emulate_leg
+from test_torch_packed import LegFrame, _bf16_rule, _emulate_leg, _f32_close
 from test_torch_plocal2d import CASES, OMEGA, Tile, _case, _results, \
     check_owned
 
@@ -123,6 +128,65 @@ def test_tile_up_schedule_matches_plain(name, kind, sweeps, seg):
         t.row_off, t.col_off, kind=kind, omega=OMEGA, sweeps=sweeps,
         sigma=sigma, mcol=t.mcol)
     _close(got, want)
+
+
+# (tile, kind, nu, seg) of the bfloat16 cases: zero stages on rank 0's
+# tile (a zero row above it) in several segments, RB-GS nu = 2 (the mixed
+# paths') on the inner and block tiles, Jacobi odd and even.
+_BF16 = [("rows-rank0", "rbgs", 0, 10), ("rows-inner", "rbgs", 2, None),
+         ("block-01", "rbgs", 2, 10), ("block-01", "jacobi", 3, None),
+         ("rows-rank0", "jacobi", 2, 10)]
+BF = torch.bfloat16
+
+
+@functools.cache
+def _bf16_tile(name):
+    """_tile's u and b rounded to bfloat16 and packed, e in float32."""
+    t, _, _, e = _tile(name)
+    su, sb = (plocal2d.pack_ext(torch.from_numpy(a).to(BF), t.cpar)
+              for a in (t.ue, t.be))
+    return t, su, sb, e.astype(np.float32)
+
+
+@pytest.mark.parametrize("name,kind,sweeps,seg", _BF16)
+def test_tile_bf16_down_schedule_matches_plain(name, kind, sweeps, seg):
+    t, su, sb, _ = _bf16_tile(name)
+    sigma = SIGMAS[sweeps & 1]
+    g = geometry("down", t, kind, sweeps, seg)
+    assert g.segs > 1 or seg is None
+    got_u, got_rc = _emulate_leg(g, kind, sweeps, su.float().numpy(),
+                                 sb.float().numpy(), t.h, sigma, OMEGA,
+                                 frame=tile_frame(t), bf16=True)
+    want_u, _ = plocal2d.down_leg_plain(
+        su, sb, t.n, t.h, t.m, t.row_off, t.col_off, kind=kind, omega=OMEGA,
+        sweeps=sweeps, sigma=sigma, mcol=t.mcol)
+    _bf16_rule(got_u, want_u)
+    _f32_close(got_rc, plocal2d.residual_restrict_plain(
+        torch.from_numpy(got_u).to(BF), sb, t.n, t.h, t.m, t.row_off,
+        t.col_off, sigma=sigma, mcol=t.mcol,
+        red_only=kind == "rbgs" and sweeps >= 1))
+
+
+@pytest.mark.parametrize("f32_out", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name,kind,sweeps,seg", _BF16)
+def test_tile_bf16_up_schedule_matches_plain(name, kind, sweeps, seg,
+                                             f32_out):
+    t, su, sb, e = _bf16_tile(name)
+    sigma = SIGMAS[(sweeps + 1) & 1]
+    g = geometry("up", t, kind, sweeps, seg)
+    got = _emulate_leg(g, kind, sweeps, su.float().numpy(),
+                       sb.float().numpy(), t.h, sigma, OMEGA, e=e,
+                       frame=tile_frame(t), bf16=True, f32_out=f32_out)
+    want = plocal2d.up_leg_plain(
+        su, torch.from_numpy(e), sb, t.n, (t.n - 1) // 2, t.h, t.m,
+        t.row_off, t.col_off, kind=kind, omega=OMEGA, sweeps=sweeps,
+        sigma=sigma, mcol=t.mcol,
+        out_dtype=torch.float32 if f32_out else None)
+    if f32_out:
+        assert want.dtype == torch.float32
+        _f32_close(got, want)
+    else:
+        _bf16_rule(got, want)
 
 
 def test_tiles_exercise_the_frame():
