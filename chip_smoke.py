@@ -705,6 +705,10 @@ OTHER_KERNEL = re.compile(r"(bell_spmm_kernel|residual_restrict_kernel)I([fd])"
 # A stencil3d z-march kernel's mangled name: kernel, compute type, band
 # rows, mode (the pass: 0 residual, 1 Jacobi), and the bfloat16 storage (an
 # f after it: a float32 output).
+# The paired march (rbgs_pairs_kernel<O>: I13__nv_bfloat16 or If) and the
+# paired packed residual.
+PAIR_KERNEL = re.compile(r"rbgs_pairs_kernelI(?:13__nv_bfloat16|f)|"
+                         r"presidual_pairs_kernel")
 STENCIL3D_KERNEL = re.compile(r"(rbgs|pass)_kernelI([fd])Li(\d+)E"
                               r"(?:Li([01])E)?(13__nv_bfloat16(f)?)?")
 
@@ -783,6 +787,14 @@ def ptxas_report(log_path) -> dict:
         regs, spill = march[key]
         log(f"ptxas stencil3d {' '.join(key)}: {regs}r"
             + (f" spill {spill}B" if spill else ""))
+    pairs = {PAIR_KERNEL.search(k).group(0): prop for k, prop in props.items()
+             if PAIR_KERNEL.search(k) and "regs" in prop}
+    require(len(pairs) == 3, f"ptxas report has {sorted(pairs)}, not the "
+            "paired march's two kernels and the paired residual")
+    for key, prop in sorted(pairs.items()):
+        log(f"ptxas {key}: {prop['regs']}r"
+            + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
+        require(not prop.get("spill"), f"ptxas: {key} spills")
     rows = leg_ptxas(props)
     for key in sorted(rows):
         cells = ", ".join(f"K={k} {r}r" + (f" spill {sp}B" if sp else "")
@@ -1145,10 +1157,16 @@ def compare_mixed(main_err: dict) -> None:
                                               sigma=sigma))
                 if main and nu == 4 and sigma == 0.0:
                     main_err["packed2d_rbgs_bf16"] = err
+            # The paired kernel where cp is odd (4095, 2999), the scalar
+            # one elsewhere (61): both against the plain version.
+            before = packed2d.residual_bf16_pairs_launches
             err = check_bf16(
                 f"bf16 packed residual n={n} sigma={sigma}",
                 packed2d.residual(su, sb, n, h, sigma=sigma),
                 packed2d.residual_plain(su, sb, n, h, sigma=sigma))
+            paired = packed2d.residual_bf16_pairs_launches - before
+            require(paired == (packed2d.packed_shape(n)[2] % 2),
+                    f"bf16 packed residual n={n}: {paired} paired launches")
             if main and sigma == 0.0:
                 main_err["packed2d_residual_bf16"] = err
         del su, sb, e, se
@@ -1272,7 +1290,14 @@ def compare_mixed3d(main_err: dict) -> None:
             for mode, kw, key in modes:
                 label = f"bf16 stencil3d {mode} {where} sigma={sigma} {kw}"
                 fn = getattr(stencil3d, mode)
+                before = stencil3d.rbgs_bf16_pairs_launches
                 got = fn(uu, bb, n, h, sigma=sigma, **off, **kw)
+                # The whole grid takes the paired march, the stack (goff +
+                # roff odd) the scalar one.
+                paired = stencil3d.rbgs_bf16_pairs_launches - before
+                require(paired == (kw["sweeps"] if mode == "rbgs_sweep"
+                                   and whole else 0),
+                        f"{label}: {paired} paired launches")
                 start, pkw = uu, kw
                 if kw.get("sweeps", 1) == 2:
                     start = fn(uu, bb, n, h, sigma=sigma, **off,
@@ -2173,6 +2198,19 @@ KERNELS = {
                          "plocal2d_legs_bf16.cu",
                          "multigridcmt_tpu/kernels/plocal2d.py:708", None),
 }
+# A kernel's launches by one variant -> (counter module, counter, the
+# KERNELS entries whose launches they are part of): the bfloat16 RB-GS
+# sweep's paired march (both outputs) and the packed residual's paired
+# kernel, which their launchers take where the layout pairs (every whole
+# grid of the mixed paths) and the scalar kernels elsewhere.
+VARIANTS = {
+    "stencil3d_rbgs_bf16_pairs": ("stencil3d", "rbgs_bf16_pairs_launches",
+                                  ("stencil3d_rbgs_bf16",
+                                   "stencil3d_rbgs_bf16_f32")),
+    "packed2d_residual_bf16_pairs": ("packed2d",
+                                     "residual_bf16_pairs_launches",
+                                     ("packed2d_residual_bf16",)),
+}
 # The runs of phase 3 that drive a main path through the public API.
 MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
              "solve3d", "pcg3d", "spmv2d", "spmv3d", "bell", "S1", "S1pcg",
@@ -2196,13 +2234,15 @@ def kernel_module(mod: str):
 
 
 def reset_counts() -> None:
-    for mod, attr, *_ in KERNELS.values():
+    for mod, attr, *_ in (*KERNELS.values(), *VARIANTS.values()):
         setattr(kernel_module(mod), attr, 0)
 
 
 def read_counts() -> dict:
+    """Each kernel's launches and each variant's (VARIANTS)."""
     return {name: getattr(kernel_module(mod), attr)
-            for name, (mod, attr, *_) in KERNELS.items()}
+            for name, (mod, attr, *_) in (*KERNELS.items(),
+                                          *VARIANTS.items())}
 
 
 def counted(fn):
@@ -2218,9 +2258,9 @@ def counted(fn):
 
 
 def require_counts(label: str, got: dict, **want) -> None:
-    """Every kernel launched exactly as ``want`` says, every other one not
-    at all."""
-    full = {name: want.get(name, 0) for name in KERNELS}
+    """Every kernel and variant launched exactly as ``want`` says, every
+    other one not at all."""
+    full = {name: want.get(name, 0) for name in (*KERNELS, *VARIANTS)}
     log(f"  launches {label}: { {k: v for k, v in got.items() if v} }")
     require(got == full, f"{label}: launches {got}, expected {full}")
 
@@ -3380,6 +3420,7 @@ def paths_mixed(runs: dict) -> None:
             require_counts(name, counts,
                            packed2d_residual=1 + i + cfg.nu2 * c,
                            packed2d_residual_bf16=cfg.nu1 * c,
+                           packed2d_residual_bf16_pairs=cfg.nu1 * c,
                            packed2d_down_bf16=c, packed2d_up_bf16_f32=c,
                            stencil2d_residual=lv * (cfg.nu1 + cfg.nu2) * c,
                            transfer2d_residual_restrict=lv * c,
@@ -3483,6 +3524,7 @@ def paths_mixed3d(runs: dict) -> None:
         the correction add; on the others the float32 sweeps and residual;
         ``checks`` more float32 (or float64) residuals on the fine one."""
         return dict(stencil3d_rbgs_bf16=cfg.nu1 * c,
+                    stencil3d_rbgs_bf16_pairs=cfg.nu1 * c,
                     stencil3d_residual_bf16=c,
                     stencil3d_rbgs=(cfg.nu2 + (tier - 1) * (cfg.nu1
                                                             + cfg.nu2)) * c,
@@ -3556,8 +3598,8 @@ def paths_mixed3d(runs: dict) -> None:
 
     _, counts, _ = counted(direct)
     require_counts("stencil3d bf16 direct", counts,
-                   stencil3d_rbgs_bf16_f32=1, stencil3d_jacobi_bf16=1,
-                   stencil3d_jacobi_bf16_f32=1)
+                   stencil3d_rbgs_bf16_f32=1, stencil3d_rbgs_bf16_pairs=1,
+                   stencil3d_jacobi_bf16=1, stencil3d_jacobi_bf16_f32=1)
     runs["mixed3d_direct"] = counts
     del su, sb
     torch.cuda.empty_cache()
@@ -5033,6 +5075,11 @@ def kernel_rows(names, runs, errs, times):
                 row[key] = t[key]
         if name in DIRECT_RUNS:
             row["direct_launches"] = runs[DIRECT_RUNS[name]][name]
+        for variant, (*_, parts) in VARIANTS.items():
+            if name in parts:     # the same run's launches by the variant
+                row["pairs_launches"] = (
+                    runs[run][variant] if run is not None
+                    else runs[DIRECT_RUNS[name]][variant])
         rows.append(row)
     return rows
 

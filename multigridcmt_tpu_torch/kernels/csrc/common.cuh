@@ -1,6 +1,7 @@
 // Shared pieces of the Poisson kernels (stencil2d.cu, local2d.cu, and
 // through packed_tile.cuh packed2d.cu, plocal2d.cu, transfer2d.cu and the
-// row-streaming legs; stencil3d.cuh takes Coef and the storage rule). No
+// row-streaming legs; stencil3d.cuh takes Coef, the storage rule and the
+// words of two bfloat16). No
 // kernel of the port works on a shared-memory tile of a grid any more: the
 // smoothers, legs and the residual-restriction stream rows through
 // registers (packed2d_legs.cuh), the residuals and prolong_add take a
@@ -69,6 +70,24 @@ __device__ __forceinline__ T stored(T v) {
   } else {
     return v;
   }
+}
+
+// A word of two bfloat16 (the 3D paired march, stencil3d.cuh; the paired
+// packed residual, packed_tile.cuh; the row stream's rings,
+// packed2d_legs.cuh): the bfloat16 in its low or its high half, widened ...
+__device__ __forceinline__ float low_f(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float high_f(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// ... and lo and hi rounded to bfloat16 (to nearest even, as narrow) in one
+// word, lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned v;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(v) : "f"(hi), "f"(lo));
+  return v;
 }
 
 enum Kind { kJacobi = 0, kRbgs = 1 };

@@ -7,8 +7,10 @@
 // multigridcmt_tpu/kernels/packed2d.py:
 //   smooth_residual_restrict -> packed2d_down_bf16  (down_kernel, :839)
 //   residual                 -> packed2d_residual_bf16
-//                                                   (mg::presidual_kernel,
-//                                                   :440)
+//                                                   (mg::presidual_pairs_kernel
+//                                                   where the layout pairs,
+//                                                   mg::presidual_kernel
+//                                                   elsewhere; :440)
 //
 // u, b and u' are bfloat16; the smoothing and the residual run in float
 // registers, and each point is rounded once, on its store, to nearest
@@ -25,7 +27,11 @@
 // its store read. Widening at the load instead, and rounding each residual
 // operand where it was read, ran 1.36x slower than float32 (0.1421 against
 // 0.1045 ms chained at 4095^2, nu = 2, on an H100 at 700 W); with the rings
-// it runs 0.75x (0.0784 ms), 45% of its bound (PERF.md).
+// it runs 0.75x (0.0784 ms), 45% of its bound (PERF.md). The residual, a
+// thread a lane with six 2-byte loads and a 64-bit division a point, ran
+// 0.081 ms (35% of its bound); on words of two lanes (packed_tile.cuh,
+// the planes' rows i side by side in the grid) it runs 0.049 ms, 61%,
+// against float32's 0.099 (PERF.md).
 #include "packed2d_legs.cuh"
 
 extern "C" {

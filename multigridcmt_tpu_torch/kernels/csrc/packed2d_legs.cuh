@@ -531,21 +531,10 @@ __device__ __forceinline__ unsigned ldg_pair_bits(const __nv_bfloat16* p) {
   return __ldg(reinterpret_cast<const unsigned*>(p));
 }
 
-// The bfloat16 in the low or the high half of w, widened.
-__device__ __forceinline__ float low_f(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float high_f(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// lo and hi rounded to bfloat16 (to nearest even, as mg::narrow) in one
-// word, lo in the low half.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  unsigned v;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(v) : "f"(hi), "f"(lo));
-  return v;
-}
+// Words of two bfloat16 (common.cuh).
+using mg::high_f;
+using mg::low_f;
+using mg::pack_bf16;
 
 // load_row with S bfloat16, into r unwidened: the same addresses, tests and
 // zeros.

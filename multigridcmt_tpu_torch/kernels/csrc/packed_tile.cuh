@@ -26,6 +26,8 @@
 // arrays may be stored in a narrower S (common.cuh's storage rule).
 #pragma once
 
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace mg {
@@ -115,6 +117,101 @@ presidual_kernel(const S* __restrict__ u, const S* __restrict__ b,
   out[idx] = narrow<S>(r);
 }
 
+// ---------------------------------------------------------------------------
+// The residual of a whole packed grid stored in bfloat16 on words of two
+// lanes (presidual_pairs_kernel; launch_presidual takes it for
+// packed2d_bf16.cu's residual where the layout pairs, presidual_pairs, and
+// presidual_kernel elsewhere). With cp odd (n = 3 mod 4, every n =
+// 2^k - 1) the rows of the two planes start on alternate parities: plane
+// c's row i starts on an even index iff (c + i) is even, which is the
+// row's phase p. So a thread takes the lanes
+// a = 2f + p and a + 1 of its row, one aligned word of u, b and r, and of
+// the other plane o: rows i - 1 and i + 1 start as its row does (one word
+// each, the lanes above and below), row i the other way (the words at
+// lanes a - 1 and a + 1, which hold the same and the side lanes of both
+// points). A row has (cp - 1) / 2 such words; its odd lane (the last, a
+// pad or ghost, when p = 0; lane 0 when p = 1) is the first thread's, a
+// scalar point. Rows 0 and n + 1 are ghosts: zero, no loads. The block's
+// row comes from the grid (blockIdx.y = 2 i + c: the two planes' rows i
+// side by side, so u's rows are read from device memory once), its lane
+// from blockIdx.x: no division. Arithmetic is presidual_kernel's, point
+// for point; each output point is rounded once (pack_bf16).
+// ---------------------------------------------------------------------------
+
+constexpr int kPairThreads = 256;
+
+// Whether the whole packed (n+2)^2 grid a with arrays u, b and r pairs
+// its lanes into words: cp odd, every array on a word, and its 2 (n + 2)
+// rows within a grid's y extent (packed2d.py counts by the same rule).
+inline bool presidual_pairs(const void* u, const void* b, const void* out,
+                            const PRect& a) {
+  return (a.lanes() & 1) && 2 * a.R <= 65535 &&
+         reinterpret_cast<uintptr_t>(u) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 4 == 0;
+}
+
+// b - (A - sigma I) u at a point of value v and neighbour values up, down,
+// same and side, as presidual_kernel computes it.
+__device__ __forceinline__ float presidual_point(float v, float bv, float up,
+                                                 float down, float same,
+                                                 float side,
+                                                 const Coef<float>& cf) {
+  const float au =
+      (4.0f * v - (((up + down) + same) + side)) * cf.inv_h2;
+  return bv - au + cf.sig * v;
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kPairThreads)
+presidual_pairs_kernel(const S* __restrict__ u, const S* __restrict__ b,
+                       S* __restrict__ out, PRect a, int n, Coef<float> cf) {
+  static_assert(kBf16<S>, "words of two bfloat16");
+  const int cp = a.lanes();
+  const int c = blockIdx.y & 1;
+  const int i = blockIdx.y >> 1;
+  const int p = (c + i) & 1;
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  const int words = (cp - 1) / 2;
+  if (f >= words) return;
+  const size_t plane = static_cast<size_t>(a.R) * cp;
+  const size_t row = c * plane + static_cast<size_t>(i) * cp;
+  const size_t orow = (1 - c) * plane + static_cast<size_t>(i) * cp;
+  const unsigned* U = reinterpret_cast<const unsigned*>(u);
+  const unsigned* B = reinterpret_cast<const unsigned*>(b);
+  const int l = 2 * f + p;   // the word's first lane
+  const bool inner = i >= 1 && i <= n;
+  float r0 = 0.0f, r1 = 0.0f;
+  if (inner) {
+    const unsigned w = __ldg(U + (row + l) / 2);
+    const unsigned wb = __ldg(B + (row + l) / 2);
+    const unsigned up = __ldg(U + (orow - cp + l) / 2);
+    const unsigned dn = __ldg(U + (orow + cp + l) / 2);
+    const unsigned lo = __ldg(U + (orow + l - 1) / 2);   // lanes l-1, l
+    const unsigned hi = __ldg(U + (orow + l + 1) / 2);   // lanes l+1, l+2
+    // Columns 2l + p and 2l + 2 + p.
+    if (2 * l + p >= 1 && 2 * l + p <= n) {
+      r0 = presidual_point(low_f(w), low_f(wb), low_f(up), low_f(dn),
+                           high_f(lo), p ? low_f(hi) : low_f(lo), cf);
+    }
+    if (2 * l + 2 + p <= n) {
+      r1 = presidual_point(high_f(w), high_f(wb), high_f(up), high_f(dn),
+                           low_f(hi), p ? high_f(hi) : high_f(lo), cf);
+    }
+  }
+  reinterpret_cast<unsigned*>(out)[(row + l) / 2] = pack_bf16(r0, r1);
+  if (f != 0) return;
+  // The row's odd lane: the last (column 2 cp - 2 = n + 1, a ghost) when
+  // p = 0, lane 0 (column 1) when p = 1.
+  float r = 0.0f;
+  if (p && inner && n >= 1) {
+    r = presidual_point(widen<float>(u[row]), widen<float>(b[row]),
+                        widen<float>(u[orow - cp]), widen<float>(u[orow + cp]),
+                        widen<float>(u[orow]), widen<float>(u[orow + 1]), cf);
+  }
+  out[row + (p ? 0 : cp - 1)] = narrow<S>(r);
+}
+
 // Residual norm, first pass: each block sums r^2 over a grid-stride share
 // of the points of rows [qlo, qhi) and array columns [slo, shi) where `upd`
 // holds, in the first `planes` planes (1: red only), into
@@ -164,12 +261,34 @@ sum_partials(const double* __restrict__ partial, int count,
   if (threadIdx.x == 0) out[0] = static_cast<T>(total);
 }
 
+// Launch presidual_pairs_kernel on the whole packed grid a (S =
+// bfloat16, a pairing layout); returns cudaGetLastError().
+template <typename S>
+int launch_presidual_pairs(const void* u, const void* b, void* out,
+                           const PRect& a, int n, double h, double sigma,
+                           void* stream) {
+  const int words = (a.lanes() - 1) / 2;
+  const dim3 grid((words + kPairThreads - 1) / kPairThreads, 2 * a.R);
+  presidual_pairs_kernel<S><<<grid, kPairThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(u), static_cast<const S*>(b),
+      static_cast<S*>(out), a, n, Coef<float>::make(h, sigma, 1.0));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launch presidual_kernel on the array a (stored in S, computed in T);
-// returns cudaGetLastError().
+// returns cudaGetLastError(). The residual of a whole grid (upd Interior)
+// stored in bfloat16 takes presidual_pairs_kernel where the layout pairs.
 template <typename T, typename Upd, typename S = T>
 int launch_presidual(const void* u, const void* b, void* out, const PRect& a,
                      const Upd& upd, double h, double sigma, bool has_b,
                      void* stream) {
+  if constexpr (kBf16<S> && std::is_same<Upd, Interior>::value) {
+    if (has_b && presidual_pairs(u, b, out, a)) {
+      return launch_presidual_pairs<S>(u, b, out, a, upd.n, h, sigma,
+                                       stream);
+    }
+  }
   const size_t total = 2 * static_cast<size_t>(a.R) * a.lanes();
   const unsigned blocks =
       static_cast<unsigned>((total + kLaneThreads - 1) / kLaneThreads);

@@ -45,7 +45,13 @@
 // and the sweep at ~60% (PERF.md): the sweep's halo makes its warps load
 // ~16 bytes a point (u on 12 rows and 32 columns for 8 x 28 owned
 // points), and its ~160 registers leave 12 warps an SM to cover the loads'
-// latency.
+// latency. The march is latency-bound: its rate follows the bytes an SM
+// keeps in flight. So the bfloat16 sweep on the scalar march, with half
+// the bytes a load, ran 0.79 ms, 2% slower than float32's 0.77 (30% of
+// its bound); on words (rbgs_pairs_kernel, below: 2 points a lane, 4-row
+// bands, 128 registers, 16 warps an SM) it runs 0.41 ms storing bfloat16
+// and 0.47 storing float32, 59% and 68% of their bounds, on an H100 at
+// 700 W (PERF.md).
 //
 // The design, a z-march by warps. A unit of work is one warp: a strip of
 // 32 columns (one a lane) by a band of rows (kRbgsRows*, kPassRows*),
@@ -58,7 +64,8 @@
 // a plane are issued a step before it is used, so each warp keeps a
 // plane's rows of u and b in flight while it computes; a whole-warp load
 // reads 32 neighbouring columns (the rows are not 16-byte aligned, c being
-// odd, nor in bfloat16 4-byte aligned, so each lane loads one scalar). The
+// odd, so each lane loads one scalar; the bfloat16 sweep's paired march
+// below pairs them into 4-byte words where the layout allows). The
 // halo (H columns each side, H rows above and below, the planes just past a
 // chunk) is read again by the neighbouring unit, mostly from L2, since
 // neighbouring units run at the same time.
@@ -74,6 +81,8 @@
 // chunk, from the original u: since out never aliases u, no unit needs a
 // value another unit wrote, and each output point has one writer.
 #pragma once
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -339,6 +348,299 @@ rbgs_kernel(const S* __restrict__ u, const S* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
+// The RB-GS sweep with u and b stored in bfloat16, on words of two points
+// (rbgs_pairs_kernel; stencil3d_bf16.cu's entry points launch it where the
+// layout pairs, rbgs_pairs, and rbgs_kernel elsewhere). It keeps the
+// scalar march's schedule (the same steps, slots and planes) and its
+// arithmetic point for point, but a lane holds an aligned 32-bit word of
+// each row: two points, the low one red. With r and c odd an element's
+// index has the parity of z + y + x, so with goff + roff even every
+// word-aligned pair starts on a red point: in a row whose first index is
+// even (s = 0) word w holds columns 2w and 2w + 1, in one whose first index
+// is odd (s = 1) columns 2w - 1 and 2w; s = (z + y) & 1 alternates with the
+// row and the plane. A row's end word can straddle two rows (column c - 1
+// and the next row's column 0 when s = 0, the last row's column c - 1 and
+// column 0 when s = 1): both are ghost columns, never updated and never a
+// neighbour of an updated point; the lane stores only its own row's half.
+//
+// The neighbours of a lane's points lie in its word or the next one's:
+//   red (low) at x = 2w - s: x - 1 is word w - 1's black, x + 1 its own
+//     black; the points above, below and in the planes beside it are its
+//     own word's black if s = 0, word w - 1's if s = 1;
+//   black (high) at x + 1: x its own red, x + 2 word w + 1's red; the four
+//     others word w + 1's red if s = 0, its own if s = 1.
+// The sums keep the scalar march's order, ((((z-1 + z+1) + y-1) + y+1) +
+// x-1) + x+1, so a partial sum of the other lane's values is formed there
+// and shuffled: a red point takes one shuffle, a black one one (s = 1) or
+// two (s = 0). Rings: u, b and the red-updated planes as words (the red
+// ring's low halves the red values rounded to bfloat16, its high halves u's
+// black values), widened where they are read; each output word is rounded
+// once (pack_bf16; the red half is exact already).
+//
+// A strip is kLanes words, kLanes - 2 of them owned (lanes 1 .. 30: 60
+// columns); lane 0's word and lane 31's are the halo, H = 2 columns each
+// side. Bands of kRbgsRowsPairs rows and chunks of an even number of
+// planes, with y0 even, give every region row and plane its s at compile
+// time (the slot of a plane fixes its parity).
+// ---------------------------------------------------------------------------
+
+constexpr int kRbgsRowsPairs = 4;  // rows of a band: the paired sweep (even)
+
+// The paired march's unit. Lane l of strip sx holds word w = sx * (kLanes -
+// 2) - 1 + l of every row: columns 2w - s and 2w + 1 - s. Region row j of
+// a lane is stack row y0 - 2 + j; with y0 and z0 even a row of a plane
+// with (q - z0) & 1 = sp has s = (sp + j) & 1.
+template <int R>
+struct PairUnit {
+  static_assert(R % 2 == 0, "the paired march's bands start on even rows");
+  static constexpr int H = 2;
+
+  int w;                 // this lane's word of a row
+  int y0;                // the first core row
+  int z0, z1;            // the chunk's planes
+  unsigned rows;         // bit j: region row j in the stack, w in its row
+  unsigned tail;         // bit j: region row j is the stack's last row and
+                         // w its last word (past the array's end there)
+  unsigned red_upd[2];   // bit j, plane parity sp: the low (red) point of
+                         // region row j is updated in a valid plane
+  unsigned black_upd[2]; // ... the high (black) point
+  unsigned mine;         // bit j: this lane stores region row j
+  bool first, last;      // w is its row's first word, its last
+  bool ok;               // the warp has a unit
+
+  __device__ PairUnit(const Stack& s, const Geom& g) {
+    const int lane = threadIdx.x % kLanes;
+    const int unit = (blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
+    const int sx = unit % g.strips;
+    const int sy = (unit / g.strips) % g.bands;
+    const int sz = unit / (g.strips * g.bands);
+    const int wlast = (s.c - 1) / 2;
+    ok = sz < g.chunks;
+    w = sx * (kLanes - 2) - 1 + lane;
+    y0 = sy * R;
+    z0 = sz * g.chunk;
+    z1 = min(z0 + g.chunk, s.p);
+    first = w == 0;
+    last = w == wlast;
+    const bool col = w >= 0 && w <= wlast;
+    // Whether the low or high point of the word lies in [1, n], by s.
+    bool lo_in[2], hi_in[2];
+#pragma unroll
+    for (int sh = 0; sh < 2; ++sh) {
+      lo_in[sh] = 2 * w - sh >= 1 && 2 * w - sh <= s.n;
+      hi_in[sh] = 2 * w + 1 - sh >= 1 && 2 * w + 1 - sh <= s.n;
+    }
+    rows = tail = mine = 0u;
+    red_upd[0] = red_upd[1] = black_upd[0] = black_upd[1] = 0u;
+#pragma unroll
+    for (int j = 0; j < R + 2 * H; ++j) {
+      const int y = y0 - H + j;
+      const int gy = y + s.roff;
+      if (col && y >= 0 && y < s.r) rows |= 1u << j;
+      if (last && y == s.r - 1) tail |= 1u << j;
+      if (y >= 1 && y <= s.r - 2 && gy >= 1 && gy <= s.n) {
+#pragma unroll
+        for (int sp = 0; sp < 2; ++sp) {
+          if (lo_in[(sp + j) & 1]) red_upd[sp] |= 1u << j;
+          if (hi_in[(sp + j) & 1]) black_upd[sp] |= 1u << j;
+        }
+      }
+      if (lane >= 1 && lane <= kLanes - 2 && col && j >= H && j < H + R &&
+          y < s.r) {
+        mine |= 1u << j;
+      }
+    }
+  }
+};
+
+// v[i] = a's word at plane q, region row j0 + i of this lane (an aligned
+// 32-bit load, unwidened); 0 off the stack, for rows outside `mask` and for
+// planes outside [0, qend); in the stack's last plane its last row's last
+// word, which may end past the array, is 0 (no point reads it: that plane
+// is never updated). SP is the plane's parity.
+template <int SP, int R, int N>
+__device__ __forceinline__ void load_words(unsigned (&v)[N],
+                                           const __nv_bfloat16* __restrict__ a,
+                                           const Stack& s,
+                                           const PairUnit<R>& t, int q,
+                                           int qend, int j0, unsigned mask) {
+  const bool zin = q >= 0 && q < min(qend, s.p);
+  if (q == s.p - 1) mask &= ~t.tail;
+  const long long base =
+      (static_cast<long long>(q) * s.r + (t.y0 - PairUnit<R>::H + j0)) * s.c +
+      2 * t.w;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int sh = (SP + j0 + i) & 1;
+    v[i] = (zin && ((mask >> (j0 + i)) & 1u))
+               ? __ldg(reinterpret_cast<const unsigned*>(
+                     a + (base + static_cast<long long>(i) * s.c - sh)))
+               : 0u;
+  }
+}
+
+// The bfloat16 of x as a word's low half.
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// Store a word's two points lo, hi at element e (even) of out, or only the
+// half in this row (lo when the word straddles into the next row, hi when
+// it straddles from the previous one); each rounded to O once.
+template <typename O>
+__device__ __forceinline__ void store_pair(O* __restrict__ out, long long e,
+                                           float lo, float hi, bool lo_only,
+                                           bool hi_only) {
+  if (lo_only) {
+    out[e] = mg::narrow<O>(lo);
+  } else if (hi_only) {
+    out[e + 1] = mg::narrow<O>(hi);
+  } else if constexpr (mg::kBf16<O>) {
+    *reinterpret_cast<unsigned*>(out + e) = mg::pack_bf16(lo, hi);
+  } else {
+    *reinterpret_cast<float2*>(out + e) = make_float2(lo, hi);
+  }
+}
+
+template <int R, typename O>
+struct PairMarch {
+  static constexpr int H = 2;
+  static constexpr int NU = R + 2 * H;
+  static constexpr int NR = R + 2;
+
+  const __nv_bfloat16* __restrict__ u;
+  const __nv_bfloat16* __restrict__ b;
+  O* __restrict__ out;
+  Stack s;
+  mg::Coef<float> cf;
+  PairUnit<R> t;
+  unsigned bmask;     // rows of b worth loading: the red ring's lanes
+  unsigned uu[kSlots][NU];
+  unsigned bb[kSlots][NR];
+  unsigned rr[kSlots][NR];
+
+  __device__ PairMarch(const __nv_bfloat16* u_, const __nv_bfloat16* b_,
+                       O* out_, const Stack& s_, const Geom& g,
+                       const mg::Coef<float>& cf_)
+      : u(u_), b(b_), out(out_), s(s_), cf(cf_), t(s_, g) {
+    bmask = threadIdx.x % kLanes >= 1 ? t.rows : 0u;
+  }
+
+  // Plane z1 + 1 is the last u plane a chunk reads, z1 the last b plane;
+  // slot Z holds planes of parity Z & 1.
+  template <int Z>
+  __device__ __forceinline__ void load_u(int q) {
+    load_words<Z & 1>(uu[Z], u, s, t, q, t.z1 + 2, 0, t.rows);
+  }
+
+  template <int Z>
+  __device__ __forceinline__ void load_b(int q) {
+    load_words<Z & 1>(bb[Z], b, s, t, q, t.z1 + 1, 1, bmask);
+  }
+
+  // The red-updated plane q into slot D from u's slots L, M, U (planes
+  // q - 1, q, q + 1) and b's slot D: each word's low half the red value
+  // rounded to bfloat16 (or u's where it is not updated), its high half
+  // u's black value.
+  template <int D, int L, int M, int U>
+  __device__ __forceinline__ void red(int q) {
+    const unsigned upd = plane_valid(q, s) ? t.red_upd[D & 1] : 0u;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const unsigned cur = uu[M][i + 1];
+      const float right = mg::high_f(cur);
+      const float vert = ((mg::high_f(uu[L][i + 1]) +
+                           mg::high_f(uu[U][i + 1])) +
+                          mg::high_f(uu[M][i])) +
+                         mg::high_f(uu[M][i + 2]);
+      // Region row i + 1: s = 0, the vertical neighbours are this word's,
+      // x - 1 word w - 1's; s = 1, all five word w - 1's.
+      const float sum = ((D + i + 1) & 1) == 0
+                            ? (vert + left_of(right)) + right
+                            : left_of(vert + right) + right;
+      const float gs = (cf.h2 * mg::low_f(bb[D][i]) + sum) * cf.inv_den;
+      rr[D][i] = ((upd >> (i + 1)) & 1u)
+                     ? (cur & 0xffff0000u) | bf16_bits(gs)
+                     : cur;
+    }
+  }
+
+  // Plane q's black update from the red ring's slots L, M, U (planes
+  // q - 1, q, q + 1) and b's slot M; stores the unit's core rows.
+  template <int L, int M, int U>
+  __device__ __forceinline__ void black(int q) {
+    const bool valid = plane_valid(q, s);
+    const unsigned upd = valid ? t.black_upd[M & 1] : 0u;
+    const long long base =
+        (static_cast<long long>(q) * s.r + t.y0) * s.c + 2 * t.w;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int k = i + 1;   // the red ring's row of core row i
+      const int sh = (M + i) & 1;   // region row i + 2's s
+      const unsigned cur = rr[M][k];
+      const float left = mg::low_f(cur);
+      const float right = right_of(left);
+      const float vert = ((mg::low_f(rr[L][k]) + mg::low_f(rr[U][k])) +
+                          mg::low_f(rr[M][k - 1])) +
+                         mg::low_f(rr[M][k + 1]);
+      // s = 0: the vertical neighbours are word w + 1's; s = 1 this one's.
+      const float sum =
+          ((sh == 0 ? right_of(vert) : vert) + left) + right;
+      const float gs = (cf.h2 * mg::high_f(bb[M][k]) + sum) * cf.inv_den;
+      float hi = ((upd >> (i + H)) & 1u) ? gs : mg::high_f(cur);
+      float lo = left;
+      if (!valid) lo = hi = 0.0f;
+      if ((t.mine >> (i + H)) & 1u) {
+        store_pair(out, base + static_cast<long long>(i) * s.c - sh, lo, hi,
+                   sh == 0 && t.last, sh == 1 && t.first);
+      }
+    }
+  }
+
+  // The step of plane z = z0 + 4m + K, as RbgsMarch's.
+  template <int K>
+  __device__ __forceinline__ void step(int z) {
+    load_u<(K + 3) & 3>(z + 3);
+    load_b<(K + 2) & 3>(z + 2);
+    red<(K + 1) & 3, K, (K + 1) & 3, (K + 2) & 3>(z + 1);
+    black<(K + 3) & 3, K, (K + 1) & 3>(z);
+  }
+
+  __device__ __forceinline__ void run() {
+    const int z0 = t.z0;
+    load_u<2>(z0 - 2);
+    load_u<3>(z0 - 1);
+    load_u<0>(z0);
+    load_u<1>(z0 + 1);
+    load_b<3>(z0 - 1);
+    load_b<0>(z0);
+    red<3, 2, 3, 0>(z0 - 1);
+    load_u<2>(z0 + 2);
+    load_b<1>(z0 + 1);
+    red<0, 3, 0, 1>(z0);
+    for (int z = z0; z < t.z1; z += kSlots) {
+      step<0>(z);
+      if (z + 1 == t.z1) break;
+      step<1>(z + 1);
+      if (z + 2 == t.z1) break;
+      step<2>(z + 2);
+      if (z + 3 == t.z1) break;
+      step<3>(z + 3);
+    }
+  }
+};
+
+template <typename O>
+__global__ void __launch_bounds__(kWarps * kLanes)
+rbgs_pairs_kernel(const __nv_bfloat16* __restrict__ u,
+                  const __nv_bfloat16* __restrict__ b, O* __restrict__ out,
+                  Stack s, Geom g, mg::Coef<float> cf) {
+  PairMarch<kRbgsRowsPairs, O> m(u, b, out, s, g, cf);
+  if (!m.t.ok) return;   // a whole warp: no lane of it shuffles
+  m.run();
+}
+
+// ---------------------------------------------------------------------------
 // The residual and Jacobi (H = 1): one pass from u's ring (R + 2 region
 // rows) and b's (the R core rows).
 // ---------------------------------------------------------------------------
@@ -489,11 +791,69 @@ int jacobi(const void* u, const void* b, void* out, int p, int r, int c,
                 mg::Coef<T>::make(h, sigma, omega, 6), stream);
 }
 
+// Whether a bfloat16 sweep on stack s pairs its points into words (the
+// paired march's layout rule): r and c odd and goff + roff even (every
+// word-aligned pair starts on a red point), u and b on a word and out on a
+// pair of O (every array's words at the same indices). kernels/stencil3d.py
+// decides by the same rule, to pass the variant's geometry and count it.
+template <typename O>
+bool rbgs_pairs(const void* u, const void* b, const void* out,
+                const Stack& s) {
+  return (s.r & 1) && (s.c & 1) && ((s.goff + s.roff) & 1) == 0 &&
+         reinterpret_cast<uintptr_t>(u) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % (2 * sizeof(O)) == 0;
+}
+
+// The paired march's geometry must be march_geometry's for it: strips of
+// kLanes - 2 owned words (width: their 2 (kLanes - 2) columns), bands of
+// kRbgsRowsPairs rows, chunks of an even number of planes; each owned once.
+bool pair_geom_fits(const Stack& s, const Geom& g) {
+  const long long words = (s.c + 1) / 2;
+  const int owned = kLanes - 2;
+  return g.strips >= 1 && g.bands >= 1 && g.chunks >= 1 &&
+         g.width == 2 * owned && g.chunk >= 2 && g.chunk % 2 == 0 &&
+         static_cast<long long>(g.strips) * owned >= words &&
+         static_cast<long long>(g.strips - 1) * owned < words &&
+         static_cast<long long>(g.bands) * kRbgsRowsPairs >= s.r &&
+         static_cast<long long>(g.bands - 1) * kRbgsRowsPairs < s.r &&
+         static_cast<long long>(g.chunks) * g.chunk >= s.p &&
+         static_cast<long long>(g.chunks - 1) * g.chunk < s.p;
+}
+
+// The paired march on stack s (bfloat16 u and b, output O); the geometry
+// must be its own, or the launch returns cudaErrorInvalidValue.
+template <typename O>
+int launch_pairs(const void* u, const void* b, void* out, const Stack& s,
+                 const int* geom, double h, double sigma, void* stream) {
+  const Geom g{geom[0], geom[1], geom[2], geom[3], geom[4]};
+  if (!pair_geom_fits(s, g)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long units =
+      static_cast<long long>(g.strips) * g.bands * g.chunks;
+  const unsigned blocks = static_cast<unsigned>((units + kWarps - 1) / kWarps);
+  rbgs_pairs_kernel<O><<<blocks, kWarps * kLanes, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(u),
+      static_cast<const __nv_bfloat16*>(b), static_cast<O*>(out), s, g,
+      mg::Coef<float>::make(h, sigma, 1.0, 6));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An RB-GS sweep; with bfloat16 storage the paired march where the layout
+// pairs (rbgs_pairs), the scalar one elsewhere.
 template <typename T, typename S = T, typename O = T>
 int rbgs(const void* u, const void* b, void* out, int p, int r, int c, int n,
          double h, double sigma, int goff, int roff, const int* geom,
          void* stream) {
   constexpr int R = Rows<T>::rbgs;
+  if constexpr (mg::kBf16<S>) {
+    const Stack s{p, r, c, n, goff, roff};
+    if (rbgs_pairs<O>(u, b, out, s)) {
+      return launch_pairs<O>(u, b, out, s, geom, h, sigma, stream);
+    }
+  }
   return launch<S, O>(rbgs_kernel<T, R, S, O>, u, b, out,
                       Stack{p, r, c, n, goff, roff}, geom, R, 2,
                       mg::Coef<T>::make(h, sigma, 1.0, 6), stream);

@@ -10,7 +10,9 @@
 //   jacobi_sweep -> mg_stencil3d_jacobi_bf16, _bf16_f32 (:485; the output
 //                   in bfloat16, or in float32: out_dtype)
 //   rbgs_sweep   -> mg_stencil3d_rbgs_bf16, _bf16_f32 (:510; the red values
-//                   rounded to bfloat16 before the black stage reads them)
+//                   rounded to bfloat16 before the black stage reads them;
+//                   rbgs launches the paired march, rbgs_pairs_kernel,
+//                   where the layout pairs, and rbgs_kernel elsewhere)
 // Each launch is one sweep; each output point is rounded once, on its
 // store.
 #include "stencil3d.cuh"

@@ -72,6 +72,8 @@ up_bf16_launches = 0
 up_bf16_f32_launches = 0
 residual_bf16_launches = 0
 rbgs_bf16_launches = 0
+# Of residual_bf16_launches, those of the paired kernel (residual_pairs).
+residual_bf16_pairs_launches = 0
 
 # Blocks of the residual norm's first pass; each writes one float64
 # partial sum, which the second pass adds in a fixed order.
@@ -465,12 +467,26 @@ def residual_plain(s, bs, n, h, sigma=0.0):
     return pack(r).to(s.dtype)
 
 
+def residual_pairs(s: torch.Tensor, bs: torch.Tensor,
+                   out: torch.Tensor) -> bool:
+    """Whether the bfloat16 residual on these packed grids takes the
+    paired kernel (words of two lanes), the layout rule of
+    csrc/packed_tile.cuh's presidual_pairs: an odd number of lanes a row
+    (n = 3 mod 4, every n = 2^k - 1), every array on a 4-byte word and its
+    2 (n + 2) rows within a CUDA grid's y extent; else the scalar kernel,
+    a thread a lane."""
+    _, rows, lanes = s.shape
+    return (lanes % 2 == 1 and 2 * rows <= 65535
+            and all(t.data_ptr() % 4 == 0 for t in (s, bs, out)))
+
+
 def residual(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
              sigma=0.0) -> torch.Tensor:
     """r = b - (A - sigma I) u on packed grids, one pass; ghosts and pad
     lanes of r are zero. bfloat16 grids: computed in float32, r stored in
     bfloat16, as the TPU kernel's."""
-    global residual_launches, residual_bf16_launches
+    global residual_launches, residual_bf16_launches, \
+        residual_bf16_pairs_launches
     _check_fine(n)
     check_tensor("u", s, packed_shape(n), s, storage=True)
     check_tensor("b", bs, packed_shape(n), s, storage=True)
@@ -481,6 +497,7 @@ def residual(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
               out.data_ptr(), n, float(h), float(sigma))
     if s.dtype == torch.bfloat16:
         residual_bf16_launches += 1
+        residual_bf16_pairs_launches += residual_pairs(s, bs, out)
     else:
         residual_launches += 1
     return out

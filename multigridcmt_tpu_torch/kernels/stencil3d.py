@@ -46,7 +46,11 @@ as the TPU kernel's red ring does; each sweep stores its output in
 bfloat16, or the last sweep of a call in float32 (``out_dtype``, the
 ``_wrap.check_out_dtype`` rule). A bfloat16 b beside a wider u (the mixed
 cycle's post-smoothing) is widened once, as the TPU module casts b to u's
-dtype. The plain versions follow the same rule.
+dtype. The plain versions follow the same rule. The bfloat16 RB-GS sweep
+runs on words of two points where the layout pairs them (``rbgs_pairs``:
+every whole grid; ``rbgs_bf16_pairs_launches`` counts it), a lane of the
+march holding an aligned 32-bit word of each row, and on the scalar march
+elsewhere (a stack with goff + roff odd); both give the same bits.
 
 Each wrapper has its plain PyTorch version beside it, in the TPU kernel's
 arithmetic order. Device rule (``_wrap``): a CPU tensor takes the plain
@@ -74,6 +78,9 @@ jacobi_bf16_launches = 0
 jacobi_bf16_f32_launches = 0
 rbgs_bf16_launches = 0
 rbgs_bf16_f32_launches = 0
+# Of the bfloat16 RB-GS launches (both outputs), those of the paired march
+# (rbgs_pairs).
+rbgs_bf16_pairs_launches = 0
 
 # The z-march (csrc/stencil3d.cuh). A unit is one warp of MARCH_LANES lanes,
 # MARCH_WARPS to a block; each lane keeps rings of MARCH_SLOTS planes of its
@@ -98,9 +105,17 @@ MARCH_ROWS = {("rbgs", torch.float32): 8, ("rbgs", torch.float64): 4,
               ("rbgs", torch.bfloat16): 8, ("pass", torch.bfloat16): 8}
 MARCH_CHUNK = {"rbgs": 128, "pass": 8}
 MARCH_MIN_UNITS = 2048
+# The bfloat16 sweep's paired march (rbgs_pairs_kernel): a lane holds an
+# aligned word of two points of each row, a strip MARCH_LANES words of which
+# MARCH_PAIR_WORDS are owned (kLanes - 2: a word of halo each side), a band
+# MARCH_PAIR_ROWS rows (kRbgsRowsPairs, even); chunks of an even number of
+# planes, so that a plane's slot fixes its parity.
+MARCH_PAIR_WORDS = MARCH_LANES - 2
+MARCH_PAIR_ROWS = 4
 
 
-def march_geometry(kernel: str, p: int, r: int, c: int, dtype) -> tuple:
+def march_geometry(kernel: str, p: int, r: int, c: int, dtype,
+                   paired: bool = False) -> tuple:
     """The 5 ints of the ``kernel`` ("rbgs", or "pass": the residual and
     Jacobi) march on a (p, r, c) stack of ``dtype``, as the kernel's Geom
     takes them: (strips, bands, chunks, width, chunk).
@@ -112,25 +127,57 @@ def march_geometry(kernel: str, p: int, r: int, c: int, dtype) -> tuple:
     RB-GS sweep, whose red values on a one-point ring need u on a
     two-point one; 1 for the pass). Unit index sx + strips * (sy + bands *
     sz) is warp w of block bx, bx * MARCH_WARPS + w.
+
+    ``paired`` (the bfloat16 RB-GS sweep where ``rbgs_pairs`` holds): the
+    paired march's geometry. Strip sx owns the words [sx *
+    MARCH_PAIR_WORDS, (sx + 1) * MARCH_PAIR_WORDS) of every row (width is
+    their 2 MARCH_PAIR_WORDS columns; a row has (c + 1) // 2 words, its
+    first or last one straddling into the next row), bands are
+    MARCH_PAIR_ROWS rows and chunks an even number of planes.
     """
     if kernel not in ("rbgs", "pass"):
         raise ValueError(f"kernel {kernel!r}: rbgs or pass")
-    rows = MARCH_ROWS[kernel, dtype]
-    width = MARCH_LANES - 2 * (2 if kernel == "rbgs" else 1)
-    strips, bands = -(-c // width), -(-r // rows)
+    if paired and (kernel, dtype) != ("rbgs", torch.bfloat16):
+        raise ValueError("the paired march is the bfloat16 RB-GS sweep's")
+    if paired:
+        rows, width = MARCH_PAIR_ROWS, 2 * MARCH_PAIR_WORDS
+        strips = -(-((c + 1) // 2) // MARCH_PAIR_WORDS)
+    else:
+        rows = MARCH_ROWS[kernel, dtype]
+        width = MARCH_LANES - 2 * (2 if kernel == "rbgs" else 1)
+        strips = -(-c // width)
+    bands = -(-r // rows)
     chunk = MARCH_CHUNK[kernel]
     need = -(-MARCH_MIN_UNITS // (strips * bands))
     if -(-p // chunk) < need:
         chunk = max(1, p // need)
     chunk = -(-p // -(-p // chunk))          # balanced: the same chunks
+    if paired:
+        chunk += chunk % 2
     return (strips, bands, -(-p // chunk), width, chunk)
 
 
 @functools.cache
-def _launch_geometry(kernel: str, shape: tuple, dtype):
+def _launch_geometry(kernel: str, shape: tuple, dtype, paired=False):
     """The march's geometry as the kernel's int array, built once for each
-    kernel, stack shape and dtype."""
-    return (ctypes.c_int * 5)(*march_geometry(kernel, *shape, dtype))
+    kernel, stack shape, dtype and march."""
+    return (ctypes.c_int * 5)(*march_geometry(kernel, *shape, dtype,
+                                              paired=paired))
+
+
+def rbgs_pairs(u: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+               goff: int = 0, roff: int = 0) -> bool:
+    """Whether a bfloat16 RB-GS sweep of u (b, into out) takes the paired
+    march: the layout rule of csrc/stencil3d.cuh's rbgs_pairs, which the
+    launcher applies to the same pointers. r and c odd and goff + roff even
+    (every 4-byte-aligned pair of points starts on a red one), u and b on a
+    4-byte word and out on a pair of its dtype. Elsewhere (a stack with odd
+    offsets, an odd pointer) the scalar march runs."""
+    _, r, c = u.shape
+    return (u.dtype == torch.bfloat16 and r % 2 == 1 and c % 2 == 1
+            and (goff + roff) % 2 == 0 and u.data_ptr() % 4 == 0
+            and b.data_ptr() % 4 == 0
+            and out.data_ptr() % (2 * out.element_size()) == 0)
 
 
 def _check(u: torch.Tensor, b: torch.Tensor, n: int, what: str,
@@ -283,18 +330,23 @@ def _count_sweep(kind: str, u: torch.Tensor, odt) -> None:
     globals()[name + "_launches"] += 1
 
 
-def _sweeps(kind: str, kernel: str, u, b, n, args, sweeps: int, odt):
+def _sweeps(kind: str, kernel: str, u, b, n, args, sweeps: int, odt,
+            offs=(0, 0)):
     """``sweeps`` launches of ``kernel`` (one a sweep), the last one storing
-    odt; args are the entry point's scalars after n, before the
-    geometry."""
-    geom = _launch_geometry("rbgs" if kind == "rbgs" else "pass",
-                            tuple(u.shape), u.dtype)
+    odt; args are the entry point's scalars after n, before the geometry;
+    offs the stack's (goff, roff), which pick a bfloat16 RB-GS sweep's
+    march (rbgs_pairs)."""
+    global rbgs_bf16_pairs_launches
     for i in range(sweeps):
         o = odt if i == sweeps - 1 else u.dtype
         out = torch.empty_like(u, dtype=o)
+        paired = kind == "rbgs" and rbgs_pairs(u, b, out, *offs)
+        geom = _launch_geometry("rbgs" if kind == "rbgs" else "pass",
+                                tuple(u.shape), u.dtype, paired)
         launch_on(u, kernel, u.data_ptr(), b.data_ptr(), out.data_ptr(),
                   *u.shape, n, *args, geom, out_dtype=o)
         _count_sweep(kind, u, o)
+        rbgs_bf16_pairs_launches += paired
         u = out
     return u.to(odt)
 
@@ -331,4 +383,4 @@ def rbgs_sweep(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
                                 goff=goff, roff=roff, out_dtype=out_dtype)
     return _sweeps("rbgs", "stencil3d_rbgs", u, b, n,
                    (float(h), float(sigma), int(goff), int(roff)), sweeps,
-                   odt)
+                   odt, (int(goff), int(roff)))

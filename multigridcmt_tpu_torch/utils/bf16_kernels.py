@@ -1,0 +1,331 @@
+"""Hold the paired bfloat16 kernels (the 3D RB-GS sweep's paired march and
+the packed residual's word kernel) against other trees' builds, bit for
+bit, and time them in turns, on one CUDA card.
+
+    python -m multigridcmt_tpu_torch.utils.bf16_kernels OTHER [OTHER ...] \\
+        [--json PATH]
+
+Each OTHER is the root of another checkout of the repository (the parent
+commit unpacked with ``git archive`` into the git-ignored
+``.chip_scratch/``, or a variant of this tree). SOURCES (the stencil3d and
+packed2d sources and plocal2d.cu, which hold every kernel of
+csrc/stencil3d.cuh and csrc/packed_tile.cuh) of this tree and of each OTHER
+are compiled, each by its own nvcc with the library's flags and ``-Xptxas
+-v``, all at once, and linked into a library a tree; the port's wrappers
+launch into this tree's. Then:
+
+1. ptxas: the registers and spill bytes of every float32 and float64
+   kernel of stencil3d.cuh and packed_tile.cuh (by mangled name from the
+   kernel's own name on) of this build against the first OTHER's; the
+   bfloat16 kernels' lines of every library side by side.
+2. Bits: the bfloat16 RB-GS sweep storing bfloat16 and float32 (sigma 0
+   and 11.5) at 511^3 (the paired march here) and on two 511^3 plane
+   stacks, one with goff + roff even (paired) and one odd (the scalar
+   march), and the bfloat16 packed residual (sigma 0 and 11.5) at 4095^2
+   and 511^2, on the same inputs in each library, bit for bit. A call is
+   replayed through ctypes with the arguments this tree's wrapper passed
+   (captured once); an OTHER that predates the paired march takes the
+   scalar march's geometry (march_geometry unpaired), which is what its
+   own wrapper passes.
+3. Times, at sigma 0: each bfloat16 mode in each library and its float32
+   twin (the same entry point's float32 form in this library, on the
+   widened inputs), in turns (the libraries in order, then in reverse):
+   chained (LEG_CHAIN calls between one pair of CUDA events, median of 5)
+   and the profiler's device time a call; beside the bound (its inputs
+   read once and outputs written once at 3.35 TB/s). The float32 sweep and
+   residual of stencil3d at 511^3 and the float32 packed residual at
+   4095^2 (the main path's) are timed from this library and the first
+   OTHER's the same way.
+
+Prints the card's name and power limit, a line for each finding and one
+JSON object last; exits 1 if a bit differs or a float32/float64 kernel's
+ptxas line differs. Needs nvcc and a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from multigridcmt_tpu_torch.kernels import _build, packed2d, stencil3d
+from multigridcmt_tpu_torch.utils.bf16_legs import (LEG_CHAIN,
+                                                    PEAK_BYTES_PER_S, Call,
+                                                    bits, finish_build,
+                                                    in_turns, log,
+                                                    start_build)
+
+SOURCES = ("stencil3d.cu", "stencil3d_bf16.cu", "packed2d.cu",
+           "packed2d_bf16.cu", "plocal2d.cu", "stencil2d.cu")
+KERNEL = re.compile(r"(rbgs_pairs_kernel|rbgs_kernel|pass_kernel|"
+                    r"presidual_pairs_kernel|presidual_kernel|"
+                    r"presnorm_partial|sum_partials)\w*")
+BF, F32 = torch.bfloat16, torch.float32
+N3, N2 = 511, 4095
+SIGMA = 11.5
+# Plane stacks of the 511^3 grid (goff, roff, p, r): goff + roff even (the
+# paired march) and odd (chip_smoke.py's MIXED3D_STACK: the scalar one).
+STACKS = ((200, 0, 63, 513), (200, -1, 63, 513))
+# The residual's grids: the mixed path's and k = 9.
+RESIDUAL_NS = (N2, 511)
+
+
+def ptxas_lines(text: str) -> dict:
+    """{mangled name from the kernel's own name on: sorted [(registers,
+    spill bytes)], one a translation unit} of the stencil3d.cuh and
+    packed_tile.cuh kernels in ptxas's -v output."""
+    props, name, spill = {}, None, 0
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = KERNEL.search(m.group(1))
+            name, spill = (m.group(1)[k.start():] if k else None), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            props.setdefault(name, []).append((int(m.group(1)), spill))
+            name = None
+    return {k: sorted(v) for k, v in props.items()}
+
+
+def compare_ptxas(mine: str, others: dict, first: str) -> tuple:
+    """(failures, the bfloat16 kernels' lines): the float32/float64
+    kernels against ``first``'s."""
+    fails, lines = [], {}
+    own = ptxas_lines(mine)
+    for label, text in others.items():
+        theirs = ptxas_lines(text)
+        full = ([k for k in theirs if "__nv_bfloat16" not in k]
+                if label == first else [])
+        differ = [k for k in full if own.get(k) != theirs[k]]
+        log(f"ptxas {label}: {len(full)} float32/float64 kernels, "
+            f"{len(full) - len(differ)} equal, {len(differ)} differ")
+        fails += [f"ptxas {label} {k}: {theirs[k]} against {own.get(k)}"
+                  for k in differ]
+        for k, v in theirs.items():
+            if "__nv_bfloat16" in k:
+                lines.setdefault(k, {})[label] = v
+    for k, v in own.items():
+        if "__nv_bfloat16" in k:
+            lines.setdefault(k, {})["this"] = v
+    return fails, lines
+
+
+class Replay(Call):
+    """A captured launch whose geometry argument, for a library without
+    the paired march, is the scalar march's."""
+
+    def __init__(self, run, inputs, scalar_geom=None):
+        super().__init__(run, inputs)
+        self.scalar = None
+        if scalar_geom is not None:
+            self.scalar = [scalar_geom if isinstance(a, ctypes.Array)
+                           else a for a in self.args]
+
+    def with_args(self, lib, paired: bool):
+        if self.scalar is None or paired:
+            return self
+        other = object.__new__(Replay)
+        other.__dict__.update(self.__dict__, args=self.scalar)
+        return other
+
+
+def pairs_in(lib) -> bool:
+    """Whether lib's bfloat16 sweep has the paired march (its stencil3d
+    sources define rbgs_pairs_kernel)."""
+    return bool(getattr(lib, "_pairs", False))
+
+
+def cube(seed: int):
+    """bfloat16 u, b (b of 1/h^2 size) on the 511^3 grid."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.zeros((N3 + 2,) * 3, device="cuda")
+    b = torch.zeros_like(u)
+    u[1:-1, 1:-1, 1:-1] = torch.randn((N3,) * 3, generator=gen,
+                                      device="cuda")
+    b[1:-1, 1:-1, 1:-1] = torch.randn((N3,) * 3, generator=gen,
+                                      device="cuda") * float((N3 + 1) ** 2)
+    return u.to(BF), b.to(BF)
+
+
+def packed(n: int, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.zeros((n + 2, n + 2), device="cuda")
+    b = torch.zeros_like(u)
+    u[1:-1, 1:-1] = torch.randn((n, n), generator=gen, device="cuda")
+    b[1:-1, 1:-1] = torch.randn((n, n), generator=gen,
+                                device="cuda") * float((n + 1) ** 2)
+    return packed2d.pack(u).to(BF), packed2d.pack(b).to(BF)
+
+
+def sweep_call(u, b, sigma, out_dtype, goff=0, roff=0) -> Replay:
+    """One bfloat16 RB-GS sweep through the wrapper, replayable."""
+    n = N3
+    run = (lambda: stencil3d.rbgs_sweep(u, b, n, 1.0 / (n + 1), sigma=sigma,
+                                        goff=goff, roff=roff,
+                                        out_dtype=out_dtype))
+    scalar = stencil3d._launch_geometry("rbgs", tuple(u.shape), u.dtype,
+                                        False)
+    return Replay(run, (u, b), scalar)
+
+
+def residual_call(u, b, n, sigma) -> Replay:
+    return Replay(lambda: packed2d.residual(u, b, n, 1.0 / (n + 1),
+                                            sigma=sigma), (u, b))
+
+
+def check_bits(libs: dict) -> tuple:
+    """(comparisons, failures): every bfloat16 case in each library
+    against this one."""
+    u, b = cube(20)
+    calls = []
+    for sigma in (0.0, SIGMA):
+        for out in (None, F32):
+            calls.append((f"rbgs n={N3} sigma={sigma} out={out}",
+                          lambda s=sigma, o=out: sweep_call(u, b, s, o)))
+    for goff, roff, p, r in STACKS:
+        su, sb = (g[goff:goff + p].contiguous() for g in (u, b))
+        for out in (None, F32):
+            calls.append((f"rbgs stack goff={goff} roff={roff} out={out}",
+                          lambda su=su, sb=sb, o=out, g=goff, r_=roff:
+                          sweep_call(su, sb, SIGMA, o, g, r_)))
+    for n in RESIDUAL_NS:
+        pu, pb = packed(n, n)
+        for sigma in (0.0, SIGMA):
+            calls.append((f"residual n={n} sigma={sigma}",
+                          lambda pu=pu, pb=pb, n=n, s=sigma:
+                          residual_call(pu, pb, n, s)))
+    checks, fails = 0, []
+    for what, make in calls:
+        call = make()
+        ref = call.replay(libs["this"])
+        for label, lib in libs.items():
+            if label == "this":
+                continue
+            checks += 1
+            got = call.with_args(lib, pairs_in(lib)).replay(lib)
+            if not all(torch.equal(bits(x), bits(y))
+                       for x, y in zip(ref, got)):
+                fails.append(f"bits {what}: {label} differs from this")
+        del call
+    torch.cuda.synchronize()
+    return checks, fails
+
+
+def timed(libs: dict, first: str) -> dict:
+    """The bfloat16 modes in turns in every library beside their float32
+    twins; the main path's float32 kernels in this and the first OTHER's."""
+    u, b = cube(21)
+    fu, fb = u.float(), b.float()
+    pu, pb = packed(N2, 22)
+    fpu, fpb = pu.float(), pb.float()
+    h3, h2 = 1.0 / (N3 + 1), 1.0 / (N2 + 1)
+    modes = {
+        "stencil3d_rbgs_bf16": (sweep_call(u, b, 0.0, None),
+                                lambda: stencil3d.rbgs_sweep(fu, fb, N3, h3),
+                                (fu, fb)),
+        "stencil3d_rbgs_bf16_f32": (sweep_call(u, b, 0.0, F32),
+                                    lambda: stencil3d.rbgs_sweep(fu, fb, N3,
+                                                                 h3),
+                                    (fu, fb)),
+        "packed2d_residual_bf16": (residual_call(pu, pb, N2, 0.0),
+                                   lambda: packed2d.residual(fpu, fpb, N2,
+                                                             h2),
+                                   (fpu, fpb)),
+    }
+    times = {}
+    for name, (call, twin, tin) in modes.items():
+        fns = {label: call.with_args(lib, pairs_in(lib)).fn(lib)
+               for label, lib in libs.items()}
+        fns["f32 twin"] = Call(twin, tin).fn(libs["this"])
+        row = in_turns(fns)
+        row["bound_ms"] = call.nbytes / PEAK_BYTES_PER_S * 1e3
+        times[name] = row
+        log(f"time {name}: {fmt(row)}; bound {row['bound_ms']:.4f}")
+    main = {
+        "stencil3d_rbgs_f32": Call(lambda: stencil3d.rbgs_sweep(
+            fu, fb, N3, h3), (fu, fb)),
+        "stencil3d_residual_f32": Call(lambda: stencil3d.residual(
+            fu, fb, N3, h3), (fu, fb)),
+        "packed2d_residual_f32": Call(lambda: packed2d.residual(
+            fpu, fpb, N2, h2), (fpu, fpb)),
+    }
+    for name, call in main.items():
+        row = in_turns({label: call.fn(libs[label])
+                        for label in ("this", first)})
+        times[name] = row
+        log(f"time {name}: {fmt(row)}")
+    return times
+
+
+def fmt(row: dict) -> str:
+    return ", ".join(f"{k} " + "/".join(f"{c:.4f}c {d:.4f}d" for c, d in v)
+                     for k, v in row.items() if k != "bound_ms")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("others", nargs="+", type=Path)
+    ap.add_argument("--json", type=Path)
+    opt = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    log(smi)
+    report = {"card": smi, "fails": []}
+    root = Path(__file__).resolve().parents[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        labels = [p.name for p in opt.others]
+        started = {label: start_build(r, Path(tmp) / label, False, SOURCES)
+                   for label, r in [("this", root)]
+                   + list(zip(labels, opt.others))}
+        libs, texts = {}, {}
+        for label, procs in started.items():
+            libs[label], texts[label] = finish_build(procs,
+                                                     Path(tmp) / label)
+            libs[label]._pairs = "rbgs_pairs_kernel" in texts[label]
+        log(f"built this tree and {', '.join(labels)} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # The port's wrappers launch into this tree's library.
+        _build.load_library = lambda: libs["this"]
+        for lib in libs.values():
+            lib.mg_error_string.argtypes = [ctypes.c_int]
+            lib.mg_error_string.restype = ctypes.c_char_p
+
+        fails, bf16_lines = compare_ptxas(
+            texts["this"], {k: v for k, v in texts.items() if k != "this"},
+            labels[0])
+        report["fails"] += fails
+        report["ptxas_bf16"] = dict(sorted(bf16_lines.items()))
+        for k, v in sorted(bf16_lines.items()):
+            log(f"ptxas bf16 {k[:90]}: {v}")
+
+        checks, fails = check_bits(libs)
+        report["fails"] += fails
+        log(f"bits: {checks} comparisons, {len(fails)} differ")
+
+        report["times"] = timed(libs, labels[0])
+    for f in report["fails"]:
+        log(f"FAIL {f}")
+    line = json.dumps(report)
+    if opt.json:
+        opt.json.parent.mkdir(parents=True, exist_ok=True)
+        opt.json.write_text(line)
+    print(line)
+    return 1 if report["fails"] else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

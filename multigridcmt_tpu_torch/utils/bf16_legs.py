@@ -125,13 +125,16 @@ def ptxas_props(text: str) -> dict:
     return props
 
 
-def start_build(root: Path, out: Path, full: bool) -> list:
+def start_build(root: Path, out: Path, full: bool,
+                sources: tuple | None = None) -> list:
     """Start an nvcc for each of root's BF16_SOURCES (and, with ``full``,
-    FULL_SOURCES)."""
+    FULL_SOURCES), or for each of ``sources``."""
     csrc = root / "multigridcmt_tpu_torch" / "kernels" / "csrc"
     out.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in BF16_SOURCES + (FULL_SOURCES if full else ()):
+    if sources is None:
+        sources = BF16_SOURCES + (FULL_SOURCES if full else ())
+    for name in sources:
         obj = out / (Path(name).stem + ".o")
         cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                "-c", "-o", str(obj), str(csrc / name)]

@@ -540,3 +540,302 @@ def test_rbgs_signature_takes_no_scratch_grid():
     for t in ("f32", "f64"):
         args = _build.SIGNATURES[f"mg_stencil3d_rbgs_{t}"]
         assert args == _build.SIGNATURES[f"mg_stencil3d_residual_{t}"]
+
+
+# ----------------------------------------------------------------------------
+# The bfloat16 sweep's paired march (rbgs_pairs_kernel): words of two points
+# ----------------------------------------------------------------------------
+
+_NAN_WORD = np.uint32(0x7FC07FC0)     # two bfloat16 NaN: a dead ring slot
+
+
+def _bits(a):
+    """float32 values -> their bfloat16 bits (to nearest even), uint32."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(
+        np.uint16).astype(np.uint32)
+
+
+def _low(w):
+    """A word's low bfloat16, widened (common.cuh's low_f)."""
+    return (w.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def _high(w):
+    return (w.astype(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+class _WordRing(_Ring):
+    """A ring of words whose slots start dead (NaN words)."""
+
+    def __init__(self, z0, rows):
+        super().__init__(z0)
+        self.data = [np.full((rows, LANES), _NAN_WORD) for _ in range(SLOTS)]
+
+
+def _pair_geometry(shape, chunk_of=None, chunk=None):
+    """march_geometry's paired ints for a (p, r, c) stack."""
+    if chunk_of is not None:
+        chunk_of("rbgs", shape, torch.bfloat16, chunk)
+    return stencil3d.march_geometry("rbgs", *shape, torch.bfloat16,
+                                    paired=True)
+
+
+def _emulate_pairs(geom, u16, b16, n, h, sigma, goff, roff, f32_out):
+    """rbgs_pairs_kernel on the (p, r, c) stacks u16, b16 of bfloat16 bits:
+    every load an aligned 32-bit word of the flat array (asserted even and
+    in it), the rings of words, the shuffles' edge lanes reading NaN, the
+    arithmetic in float32 in the kernel's order; returns (out as float32,
+    writes a point). Constants as _emulate_rbgs takes them."""
+    p, r, c = u16.shape
+    strips, bands, chunks, width, chunk = geom
+    R, H, owned = stencil3d.MARCH_PAIR_ROWS, 2, stencil3d.MARCH_PAIR_WORDS
+    NU, NR = R + 2 * H, R + 2
+    assert width == 2 * owned and chunk % 2 == 0
+    flat = {"u": u16.reshape(-1), "b": b16.reshape(-1)}
+    total = p * r * c
+    h2 = np.float32(h * h)
+    inv_den = np.float32(1.0 / (6.0 - sigma * h * h))
+    out = np.full(total, np.nan, dtype=np.float32)
+    writes = np.zeros(total, dtype=int)
+    wlast = (c - 1) // 2
+    lane = np.arange(LANES)
+    nan = np.float32(np.nan)
+
+    def left(v):          # __shfl_up_sync: lane 0 reads NaN
+        o = np.roll(v, 1, axis=-1)
+        o[..., 0] = nan
+        return o
+
+    def right(v):         # __shfl_down_sync: lane 31 reads NaN
+        o = np.roll(v, -1, axis=-1)
+        o[..., -1] = nan
+        return o
+
+    for unit in range(strips * bands * chunks):
+        sx, sy, sz = (unit % strips, unit // strips % bands,
+                      unit // (strips * bands))
+        w = sx * owned - 1 + lane
+        y0, z0 = sy * R, sz * chunk
+        z1 = min(z0 + chunk, p)
+        first, last = w == 0, w == wlast
+        col = (w >= 0) & (w <= wlast)
+        j = np.arange(NU)
+        y = y0 - H + j
+        rows = col[None, :] & ((y >= 0) & (y < r))[:, None]
+        tail = last[None, :] & (y == r - 1)[:, None]
+        yok = ((y >= 1) & (y <= r - 2) & (y + roff >= 1)
+               & (y + roff <= n))[:, None]
+        lo_in = [(2 * w - sh >= 1) & (2 * w - sh <= n) for sh in (0, 1)]
+        hi_in = [(2 * w + 1 - sh >= 1) & (2 * w + 1 - sh <= n)
+                 for sh in (0, 1)]
+        shj = lambda sp: (sp + j) % 2          # noqa: E731  s of row j
+        red_upd = [yok & np.where(shj(sp)[:, None] == 0, lo_in[0], lo_in[1])
+                   for sp in (0, 1)]
+        black_upd = [yok & np.where(shj(sp)[:, None] == 0, hi_in[0],
+                                    hi_in[1]) for sp in (0, 1)]
+        mine = (((lane >= 1) & (lane <= LANES - 2) & col)[None, :]
+                & ((j >= H) & (j < H + R) & (y < r))[:, None])
+        bmask = rows & (lane >= 1)[None, :]
+
+        def valid(q):
+            return 1 <= q <= p - 2 and 1 <= q + goff <= n
+
+        def load(name, q, qend, j0, count, mask):
+            v = np.zeros((count, LANES), dtype=np.uint32)
+            if not 0 <= q < min(qend, p):
+                return v
+            if q == p - 1:
+                mask = mask & ~tail
+            sp = (q - z0) % 2                     # the slot's parity
+            a = flat[name]
+            for i in range(count):
+                sh = (sp + j0 + i) % 2
+                sel = mask[j0 + i]
+                e = (q * r + y0 - H + j0 + i) * c + 2 * w[sel] - sh
+                assert np.all(e % 2 == 0) and np.all(e >= 0) \
+                    and np.all(e + 1 < total), (q, j0 + i, e)
+                v[i, sel] = a[e] | (a[e + 1] << np.uint32(16))
+            return v
+
+        U, B, Rr = _WordRing(z0, NU), _WordRing(z0, NR), _WordRing(z0, NR)
+
+        def load_u(q):
+            U.put(q, load("u", q, z1 + 2, 0, NU, rows))
+
+        def load_b(q):
+            B.put(q, load("b", q, z1 + 1, 1, NR, bmask))
+
+        def red(q):
+            sp = (q - z0) % 2
+            lo, mid, hi = U.get(q - 1), U.get(q), U.get(q + 1)
+            cur = mid[1:-1]
+            rgt = _high(cur)
+            vert = ((_high(lo[1:-1]) + _high(hi[1:-1])) + _high(mid[:-2])) \
+                + _high(mid[2:])
+            s_row = ((sp + np.arange(NR) + 1) % 2)[:, None]
+            total_ = np.where(s_row == 0, (vert + left(rgt)) + rgt,
+                              left(vert + rgt) + rgt)
+            gs = (h2 * _low(B.get(q)) + total_) * inv_den
+            upd = red_upd[sp][1:-1] if valid(q) else np.zeros_like(cur, bool)
+            Rr.put(q, np.where(upd, (cur & np.uint32(0xFFFF0000)) | _bits(gs),
+                               cur))
+
+        def black(q):
+            sp = (q - z0) % 2
+            lo, mid, hi = Rr.get(q - 1), Rr.get(q), Rr.get(q + 1)
+            cur = mid[1:-1]
+            lft = _low(cur)
+            rgt = right(lft)
+            vert = ((_low(lo[1:-1]) + _low(hi[1:-1])) + _low(mid[:-2])) \
+                + _low(mid[2:])
+            s_row = ((sp + np.arange(R)) % 2)[:, None]
+            total_ = (np.where(s_row == 0, right(vert), vert) + lft) + rgt
+            gs = (h2 * _high(B.get(q)[1:-1]) + total_) * inv_den
+            upd = black_upd[sp][H:H + R] if valid(q) else False
+            vhi = np.where(upd, gs, _high(cur))
+            vlo = lft
+            if not valid(q):
+                vhi, vlo = np.zeros_like(vhi), np.zeros_like(vlo)
+            if not f32_out:                       # pack_bf16: one rounding
+                vhi, vlo = _high(_bits(vhi) << 16), _low(_bits(vlo))
+            for i in range(R):
+                own = mine[H + i]
+                if not own.any():
+                    continue
+                sh = (sp + i) % 2
+                e = (q * r + y0 + i) * c + 2 * w[own] - sh
+                assert np.all(e % 2 == 0)
+                lo_only = (sh == 0) & last[own]
+                hi_only = (sh == 1) & first[own]
+                for off, vals, keep in ((0, vlo[i, own], ~hi_only),
+                                        (1, vhi[i, own], ~lo_only)):
+                    out[e[keep] + off] = vals[keep]
+                    writes[e[keep] + off] += 1
+
+        for q in (z0 - 2, z0 - 1, z0, z0 + 1):
+            load_u(q)
+        load_b(z0 - 1)
+        load_b(z0)
+        red(z0 - 1)
+        load_u(z0 + 2)
+        load_b(z0 + 1)
+        red(z0)
+        for _, z in _steps(z0, z1):
+            load_u(z + 3)
+            load_b(z + 2)
+            red(z + 1)
+            black(z)
+    return out.reshape(p, r, c), writes.reshape(p, r, c)
+
+
+def _bf16_stack(n, goff, roff, p, r, seed, ghosts=True):
+    """A bfloat16 stack (as float32 values, and as bits) of a random grid;
+    with ``ghosts`` its ghost points are random too (the sweep keeps u
+    there)."""
+    u, b = _stack(n, goff, roff, p, r, seed)
+    if ghosts:
+        rng = np.random.default_rng(seed + 1)
+        u = np.where(u == 0.0, rng.standard_normal(u.shape), u)
+    u, b = _bf16(u), _bf16(b)
+    return u, b, _bits(u).astype(np.uint16), _bits(b).astype(np.uint16)
+
+
+def _pair_case(n, goff, roff, p, r, chunk, sigma, f32_out, chunk_of,
+               seed=3):
+    u, b, u16, b16 = _bf16_stack(n, goff, roff, p, r, seed)
+    ut, bt = (torch.from_numpy(a).to(torch.bfloat16) for a in (u, b))
+    assert stencil3d.rbgs_pairs(ut, bt, torch.empty_like(
+        ut, dtype=torch.float32 if f32_out else torch.bfloat16), goff, roff)
+    geom = _pair_geometry((p, r, n + 2), chunk_of, chunk)
+    h = 1.0 / (n + 1)
+    got, writes = _emulate_pairs(geom, u16, b16, n, h, sigma, goff, roff,
+                                 f32_out)
+    assert (writes == 1).all()
+    # Bit for bit the scalar march's schedule on the same values ...
+    g = chunk_of("rbgs", (p, r, n + 2), torch.bfloat16, chunk)
+    scalar, _ = _emulate_rbgs(g, u, b, n, h, sigma, goff, roff,
+                              red_store=_bf16,
+                              out_store=_keep if f32_out else _bf16)
+    np.testing.assert_array_equal(got, scalar)
+    # ... and the plain version by the bfloat16 rule.
+    want = stencil3d.rbgs_sweep_plain(
+        ut, bt, n, h, sigma=sigma, goff=goff, roff=roff,
+        out_dtype=torch.float32 if f32_out else None)
+    assert _bf16_rule_share(got, want.double().numpy()) <= 1e-3
+
+
+@pytest.mark.parametrize("f32_out", [False, True])
+@pytest.mark.parametrize("sigma", [0.0, SIGMA])
+def test_paired_march_matches_scalar_and_plain(sigma, f32_out, chunk_of):
+    """The paired march on a whole 65^3 grid (p odd: the last row of the
+    last plane ends on a straddling word), two strips of 30 owned words
+    (the second 3), chunks of 8 planes (the last one plane): every point
+    written once, bit for bit the scalar march's float32 order on the
+    same bfloat16 values, and the plain version by the bfloat16 rule."""
+    _pair_case(63, 0, 0, 65, 65, 8, sigma, f32_out, chunk_of)
+
+
+@pytest.mark.parametrize("n,goff,roff,p,r,chunk", [
+    (63, 5, -1, 21, 33, 6), (31, 1, 1, 9, 35, 4), (63, -1, 3, 12, 17, 128)])
+def test_paired_march_on_offset_stacks(n, goff, roff, p, r, chunk,
+                                       chunk_of):
+    """Stacks whose offsets sum to an even number pair too: planes and
+    rows past the grid, a chunk of one step, p even and odd."""
+    _pair_case(n, goff, roff, p, r, chunk, SIGMA, False, chunk_of)
+
+
+def test_odd_offset_stack_takes_the_scalar_march(chunk_of):
+    """A stack with goff + roff odd (chip_smoke's MIXED3D_STACK kind), or r
+    or c even, does not pair: rbgs_pairs says so (the launcher's rule),
+    and the scalar march, which the launcher runs there, holds against
+    the plain version by the bfloat16 rule."""
+    n, goff, roff, p, r = 31, 3, 0, 12, 17
+    u, b, _, _ = _bf16_stack(n, goff, roff, p, r, seed=8)
+    ut, bt = (torch.from_numpy(a).to(torch.bfloat16) for a in (u, b))
+    assert not stencil3d.rbgs_pairs(ut, bt, torch.empty_like(ut), goff, roff)
+    even = torch.zeros((5, 6, 33), dtype=torch.bfloat16)
+    assert not stencil3d.rbgs_pairs(even, even, even)
+    even = torch.zeros((5, 7, 34), dtype=torch.bfloat16)
+    assert not stencil3d.rbgs_pairs(even, even, even)
+    whole = torch.zeros((5, 7, 33), dtype=torch.bfloat16)
+    assert stencil3d.rbgs_pairs(whole, whole, whole)
+    shifted = torch.zeros(5 * 7 * 33 + 1, dtype=torch.bfloat16)[1:]
+    assert not stencil3d.rbgs_pairs(whole, whole, shifted.view(5, 7, 33))
+    g = chunk_of("rbgs", (p, r, n + 2), torch.bfloat16, 4)
+    h = 1.0 / (n + 1)
+    got, writes = _emulate_rbgs(g, u, b, n, h, SIGMA, goff, roff,
+                                red_store=_bf16, out_store=_bf16)
+    assert (writes == 1).all()
+    want = stencil3d.rbgs_sweep_plain(ut, bt, n, h, sigma=SIGMA, goff=goff,
+                                      roff=roff)
+    assert _bf16_rule_share(got, want.double().numpy()) <= 1e-3
+
+
+@pytest.mark.parametrize("shape", _GEOMETRY_SHAPES + [(3, 3, 5), (4, 9, 7)])
+def test_paired_geometry_owns_each_word_once(shape):
+    """The paired geometry: every word index of a row ((c + 1) // 2 of
+    them) in one strip's owned words, every row in one band, every plane
+    in one chunk, each non-empty (the kernel's pair_geom_fits); chunks
+    even, at most MARCH_CHUNK's rounded up."""
+    p, r, c = shape
+    strips, bands, chunks, width, chunk = _pair_geometry(shape)
+    owned, rows = stencil3d.MARCH_PAIR_WORDS, stencil3d.MARCH_PAIR_ROWS
+    words = (c + 1) // 2
+    assert width == 2 * owned and chunk % 2 == 0 and chunk >= 2
+    for count, size, part in ((strips, words, owned), (bands, r, rows),
+                              (chunks, p, chunk)):
+        assert count * part >= size and (count - 1) * part < size
+    assert chunk <= stencil3d.MARCH_CHUNK["rbgs"] + 1
+
+
+def test_pair_constants_match_the_kernel_source():
+    """MARCH_PAIR_ROWS and MARCH_PAIR_WORDS are csrc/stencil3d.cuh's
+    kRbgsRowsPairs and kLanes - 2; the bands start on even rows."""
+    src = (_build.CSRC / "stencil3d.cuh").read_text()
+    const = {name: int(v) for name, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kRbgsRowsPairs"] == stencil3d.MARCH_PAIR_ROWS
+    assert stencil3d.MARCH_PAIR_ROWS % 2 == 0
+    assert const["kLanes"] - 2 == stencil3d.MARCH_PAIR_WORDS
+    assert "const int owned = kLanes - 2;" in src
