@@ -86,6 +86,17 @@ Phases:
          S2mixed, exact launches; a float64 k=10 mixed sharded PCG
          within the same gate and rtol 1e-7, atol 1e-8 of the full-dtype
          one;
+       * the sharded eigensolvers, float64 on a mesh of 1
+         (ShardedSolver.eigensolve): S1eigen (S1's 4095^2, the fine level
+         packed) by inverse iteration, RQI and LOBPCG at k=1, lambda_1
+         within 1e-8 of 2 eigenvalue_1d(1, 4095, h) and within 1e-10 of the
+         single-device float64 run at 4095^2, and LOBPCG k=3 against the
+         exact lambda(1,1), lambda(1,2), lambda(2,1); S2eigen (S2's 2047^2
+         block tile, unpacked) by inverse iteration; S1mixed-eigen, II and
+         LOBPCG with precond_dtype=torch.bfloat16, lambda_1 within 1e-8 of
+         S1eigen's; eigenvectors finite with zero ghosts; exact launches as
+         a multiple of the whole-leg cycles each run made (counted around
+         sharded._leg_cycle_ext) and of its outer steps;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -189,8 +200,12 @@ Phases:
      S1's fine tile beside their float32 twins and their bounds at bfloat16
      bytes, and on each sharded mixed path a preconditioning cycle's busy
      and idle share and a PCG solve's wall, with a bfloat16 and a float32
-     fine level (right after the sharded cycles' times). Every kernel row
-     also gets the profiler's device time a call (device_ms).
+     fine level (right after the sharded cycles' times); S1eigen's II
+     and LOBPCG walls beside the single-device float64 eigensolve at
+     4095^2, each with the device busy time and idle share of an II outer
+     step or a LOBPCG solve. Every kernel row also gets the profiler's
+     device time a call (device_ms), and the sharded eigensolver runs'
+     launches (sharded_eigen_launches) where it has some.
 
 The main paths' kernels: at k=12 the 4095 level is color-packed
 (kernels.PACK_MIN_N) and runs the packed2d down and up legs and the fused
@@ -250,7 +265,14 @@ inner cycle at 511^2 runs the fused2d legs at 511 and 255 (shifted while
 RQI's shift is on) and its check the stencil2d residual; LOBPCG's
 preconditioner is one V-cycle a block vector; Rayleigh quotients apply A
 by the plain stencil. The sharded FMG walk's cycles run the unpacked
-local2d legs (as v_cycle_fn), its polishing cycles the packed route.
+local2d legs (as v_cycle_fn), its polishing cycles the packed route. A
+sharded II or RQI inner cycle at S1 runs the plocal2d legs on the packed
+4095 tile and the local2d legs at 2047..255, and its check the plocal2d
+residual (the local2d one on S2's unpacked tile); LOBPCG's preconditioning
+cycle runs the unpacked local2d legs at 4095..255; every row of A the
+sharded eigensolvers apply (Rayleigh quotients, Ritz steps) is one local2d
+residual on the owned tile. With a bfloat16 preconditioner the fine
+level's legs are the bfloat16 down leg and the float32-storing up leg.
 
 Phase 1 also reports ptxas's registers and spills of the row-streaming
 legs and sweeps, the local2d sweeps (UTile) among them, the stencil3d
@@ -572,6 +594,25 @@ EIGEN_METHODS = ("ii", "rqi", "lobpcg")
 # lambda(2,1).
 EIGEN_BLOCK = 3
 HALO = 8                    # local2d.HALO_ROWS
+# The sharded eigensolvers (ShardedSolver.eigensolve: config 4's eigensolve
+# on config 5's sharded solver, a world of 1, float64): label -> (the
+# SHARDED_PATHS path, bfloat16 preconditioner or not, runs as (method,
+# block)). S1eigen: the 4095 level packed (the II/RQI inner cycles on the
+# plocal2d legs, the plocal2d residual as their check), its lambda_1 within
+# EIGEN_RTOL of the exact value and EIGEN_ROUTE_RTOL of the single-device
+# float64 run of the same method at 4095^2 (paths_mixed's full runs; RQI
+# against II's), LOBPCG's block of EIGEN_BLOCK against the exact spectrum;
+# S2eigen: the 2047^2 block tile unpacked (the local2d residual as the
+# check); S1mixed-eigen: a bfloat16 preconditioner (II's inner refinement,
+# LOBPCG's preconditioner), lambda_1 within MIXED_EIGEN_RTOL of S1eigen's.
+SHARDED_EIGEN = {
+    "S1eigen": ("S1", None, (("ii", 1), ("rqi", 1), ("lobpcg", 1),
+                             ("lobpcg", EIGEN_BLOCK))),
+    "S2eigen": ("S2", None, (("ii", 1),)),
+    "S1mixed-eigen": ("S1", torch.bfloat16, (("ii", 1), ("lobpcg", 1))),
+}
+SHARDED_EIGEN_RUNS = tuple(f"{label}_{m}{k}" for label, (_, _, ms)
+                           in SHARDED_EIGEN.items() for m, k in ms)
 # Chained cycles a timing of v_cycles_fn runs (its time over this count).
 CHAIN_CYCLES = 20
 # The packed2d, fused2d and plocal2d legs are timed as single calls and as
@@ -2218,7 +2259,8 @@ MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
              "eigen511_ii", "eigen511_rqi", "eigen511_lobpcg", "S1fmg",
              "mixed2d", "mixedB", "mixedA", "mixed_lobpcg", "mixed_ii",
              "mixed3d", "mixed3d_lobpcg", "mixed3d_ii", "S1mixed",
-             "S1unpacked-mixed", "S2mixed", "sharded_mixed_f64")
+             "S1unpacked-mixed", "S2mixed", "sharded_mixed_f64",
+             *SHARDED_EIGEN_RUNS)
 # Direct calls of a kernel that no main path launches.
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d",
                "packed2d_up_bf16": "up_bf16_direct",
@@ -3449,6 +3491,7 @@ def paths_mixed(runs: dict) -> None:
             out[pd] = (lam, res.iters, cyc.count, counts, wall)
             del prob, solver, res
         (lf, sf, *_), (lm, sm, c, counts, _) = out[None], out[torch.bfloat16]
+        runs.setdefault("eigen4095_lambda", {})[method] = lf
         rel = abs(lm - lf) / lf
         log(f"mixed eigen {method}: lambda_1 bfloat16-preconditioned vs "
             f"full rel {rel:.2e}; steps {sm} against {sf}")
@@ -3678,6 +3721,143 @@ def paths_sharded_fmg(runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+class count_leg_cycles:                                     # noqa: N801
+    """Counts the whole-leg cycles started at the finest level while
+    active: calls of ``sharded._leg_cycle_ext`` at level 0 (its recursion
+    passes level + 1), the II/RQI inner cycles and LOBPCG's preconditioning
+    cycles alike."""
+
+    def __enter__(self):
+        from multigridcmt_tpu_torch.parallel import sharded
+
+        self.count = 0
+        self._orig = orig = sharded._leg_cycle_ext
+
+        def counting(*args, **kwargs):
+            self.count += (args[5] if len(args) > 5 else kwargs["level"]) == 0
+            return orig(*args, **kwargs)
+
+        sharded._leg_cycle_ext = counting
+        return self
+
+    def __exit__(self, *exc):
+        from multigridcmt_tpu_torch.parallel import sharded
+
+        sharded._leg_cycle_ext = self._orig
+        return False
+
+
+def paths_sharded_eigen(runs: dict) -> None:
+    """ShardedSolver.eigensolve at SHARDED_EIGEN's paths on a mesh of 1,
+    float64: each run converged, its eigenvalues against the exact ones (and
+    S1eigen's against the single-device run's, the mixed runs' against
+    S1eigen's), eigenvectors finite with zero ghosts, and exact launches as
+    a multiple of the whole-leg cycles it ran (counted around
+    sharded._leg_cycle_ext) and of its outer steps."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.ops import laplacian
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    lam_full = {}
+    for label, (path, pd, methods) in SHARDED_EIGEN.items():
+        k, shape, cfg_kw = SHARDED_PATHS[path]
+        prob = mt.poisson2d(k=k, dtype=torch.float64, use_kernels=True,
+                            device="cuda", precond_dtype=pd, **cfg_kw)
+        solver = sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+        legs, owned = sharded_levels(prob, solver)
+        packs = sharded._pack_level_ok(prob.config, solver.decomp, 0)
+        mixed = sharded.mixed_leg_dtype(prob.config, solver.decomp)
+        require((legs, owned, packs, mixed) == ((5, 0, True, pd) if path
+                                                 == "S1" else (4, 0, False,
+                                                               None)),
+                f"{label}: {legs} leg and {owned} owned kernel levels, "
+                f"packed {packs}, mixed {mixed}")
+        n = 2 ** k - 1
+        h = 1.0 / (n + 1)
+        spectrum = sorted(laplacian.eigenvalue_2d(a, b, n, h)
+                          for a, b in ((1, 1), (1, 2), (2, 1)))
+        for method, block in methods:
+            run = f"{label}_{method}{block}"
+            torch.cuda.reset_peak_memory_stats()
+            with count_leg_cycles() as cyc:
+                res, counts, wall = counted(
+                    lambda: solver.eigensolve(k=block, method=method))
+            peak = torch.cuda.max_memory_allocated()
+            vals = res.eigenvalues.tolist()
+            rel = max(abs(v - w) / w for v, w in zip(vals, spectrum))
+            vecs = res.eigenvectors
+            ghosts = vecs.clone()
+            ghosts[:, 1:-1, 1:-1] = 0
+            c, it = cyc.count, res.iters
+            log(f"{run}: sharded eigensolve {method} k={block} float64 "
+                f"{n}^2 mesh {shape} precond_dtype={pd}: {it} outer steps, "
+                f"{c} cycles, converged {res.converged}, eigenvalues "
+                f"{[f'{v:.12f}' for v in vals]}, rel error vs exact "
+                f"{rel:.2e}, final residual "
+                f"{res.res_history[it].item():.3e}, wall {wall:.3f} s, peak "
+                f"memory {peak / 2**20:.1f} MiB")
+            require(res.converged and rel < EIGEN_RTOL,
+                    f"{run}: converged {res.converged}, rel error {rel:.3e}")
+            require(tuple(vecs.shape) == (block,) + tuple(prob.b.shape)
+                    and bool(vecs.isfinite().all()) and not ghosts.any(),
+                    f"{run}: bad eigenvectors")
+            if label == "S1eigen" and block == 1:
+                single = runs["eigen4095_lambda"][
+                    "lobpcg" if method == "lobpcg" else "ii"]
+                route = abs(vals[0] - single) / single
+                log(f"  against the single-device float64 run at {n}^2: "
+                    f"rel {route:.2e}")
+                require(route <= EIGEN_ROUTE_RTOL, f"{run}: {route:.3e} "
+                        f"from the single-device run > {EIGEN_ROUTE_RTOL}")
+                lam_full[method] = vals[0]
+            if pd is not None:
+                full = lam_full[method]
+                drift = abs(vals[0] - full) / full
+                log(f"  against S1eigen's float64-preconditioned run: rel "
+                    f"{drift:.2e}")
+                require(drift <= MIXED_EIGEN_RTOL, f"{run}: lambda_1 "
+                        f"{drift:.3e} from the full run's > "
+                        f"{MIXED_EIGEN_RTOL}")
+            # Launches. A row of A (Rayleigh quotients, Ritz, LOBPCG's
+            # rq_res and rr) is one local2d residual on the owned tile: II
+            # and RQI apply k rows before the first step and 2k a step,
+            # LOBPCG 2k a step (rq_res twice) plus 2k rows at iteration 0's
+            # Rayleigh-Ritz and 3k at each later one. A cycle runs one down
+            # and one up leg a leg level; II/RQI's carry the fine tile
+            # (packed on S1: the plocal2d legs and the plocal2d residual as
+            # the check; unpacked on S2: local2d and the local2d residual),
+            # LOBPCG's preconditioner is one unpacked cycle a row a step.
+            # With a bfloat16 preconditioner the fine level's legs are the
+            # bfloat16 down leg and the float32-storing up leg.
+            top_down, top_up = (("down_bf16", "up_bf16_f32") if pd
+                                else ("down", "up"))
+            fine = "plocal2d" if packs and method != "lobpcg" else "local2d"
+            if method == "lobpcg":
+                require(c == block * it,
+                        f"{run}: {c} cycles, not {block} x {it}")
+                want = {"local2d_residual": block * (5 * it - 1)}
+            elif packs:
+                want = {"plocal2d_residual": c,
+                        "local2d_residual": block * (2 * it + 1)}
+            else:
+                want = {"local2d_residual": c + block * (2 * it + 1)}
+            want[f"{fine}_{top_down}"] = c
+            want[f"{fine}_{top_up}"] = c
+            # The leg levels below the fine one (2047...255 on S1, 1023...255
+            # on S2), float32 legs under a bfloat16 fine level.
+            for leg in ("down", "up"):
+                want[f"local2d_{leg}"] = (want.get(f"local2d_{leg}", 0)
+                                          + (legs - 1) * c)
+            require_counts(run, counts, **want)
+            runs[run] = counts
+            runs[f"{run}_stats"] = dict(outer_steps=it, cycles=c, wall_s=wall,
+                                        peak_bytes=peak, eigenvalues=vals)
+            del res, vecs, ghosts
+            torch.cuda.empty_cache()
+        del prob, solver
+        torch.cuda.empty_cache()
+
+
 def phase_main_path():
     """The slice's paths through the public entry points. Returns, per
     run, its launch counts, and the peak device memory of the solves."""
@@ -3699,6 +3879,9 @@ def phase_main_path():
     start = time.perf_counter()
     paths_mixed(runs)
     log(f"mixed-precision paths: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    paths_sharded_eigen(runs)
+    log(f"sharded eigensolver paths: {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
     paths_mixed3d(runs)
     log(f"3D mixed-precision paths: {time.perf_counter() - start:.1f} s")
@@ -4991,6 +5174,53 @@ def timed_fmg_eigen(times: dict) -> None:
     times["fmg_eigen"] = out
 
 
+def timed_sharded_eigen(times: dict) -> None:
+    """S1eigen's walls beside the single-device float64 eigensolve at
+    4095^2 (the same method; CUDA events after a warm-up run, the median of
+    3 runs), and apart from those windows each one's device busy time and
+    idle share by the profiler: an II outer step cut to 10
+    inner cycles (max_iters=1, inner_cycles=10: a whole step's 30 cycles
+    hold ~37000 kernels, which the profiler takes minutes to read) and a
+    whole LOBPCG solve, each beside its own events time."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    k, shape, cfg_kw = SHARDED_PATHS["S1"]
+    prob = mt.poisson2d(k=k, dtype=torch.float64, use_kernels=True,
+                        device="cuda", **cfg_kw)
+    solvers = {"sharded": sharded.ShardedSolver(prob.config,
+                                                sharded_mesh(shape)),
+               "single": mt.MultigridSolver(prob)}
+    out = {}
+    for method in ("ii", "lobpcg"):
+        for route, solver in solvers.items():
+            def run(**kw):
+                return solver.eigensolve(k=1, method=method, **kw)
+
+            key = f"{route} {method}"
+            torch.cuda.reset_peak_memory_stats()
+            steps = run().iters                    # the warm-up run
+            wall = cuda_time_ms(run, reps=3, warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+            part = run if method == "lobpcg" else (
+                lambda: run(max_iters=1, inner_cycles=10))
+            part_ms = cuda_time_ms(part, reps=3, warmup=1)
+            busy, ops, _ = device_busy(part, 1)
+            out[key] = dict(ms=wall, outer_steps=steps, peak_bytes=peak,
+                            part="solve" if method == "lobpcg"
+                            else "one outer step of 10 inner cycles",
+                            part_ms=part_ms,
+                            device_ms=busy, device_ops=ops,
+                            idle_share=1 - busy / part_ms)
+            log(f"time S1eigen {key} float64 {2 ** k - 1}^2: "
+                + json.dumps(out[key]))
+    del prob, solvers
+    torch.cuda.empty_cache()
+    times["sharded_eigen"] = out
+
+
 def phase_times():
     """Times on the card, float32, RB-GS, nu = 2, sigma = 0: the cycles,
     one PCG iteration, each kernel against its plain version at its
@@ -5018,6 +5248,9 @@ def phase_times():
     start = time.perf_counter()
     timed_fmg_eigen(times)
     log(f"FMG and eigensolver times: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    timed_sharded_eigen(times)
+    log(f"sharded eigensolver times: {time.perf_counter() - start:.1f} s")
     return times
 
 
@@ -5075,6 +5308,10 @@ def kernel_rows(names, runs, errs, times):
                 row[key] = t[key]
         if name in DIRECT_RUNS:
             row["direct_launches"] = runs[DIRECT_RUNS[name]][name]
+        eigen = {r: runs[r][name] for r in SHARDED_EIGEN_RUNS
+                 if runs[r][name]}
+        if eigen:
+            row["sharded_eigen_launches"] = eigen
         for variant, (*_, parts) in VARIANTS.items():
             if name in parts:     # the same run's launches by the variant
                 row["pairs_launches"] = (
@@ -5148,8 +5385,11 @@ def main() -> int:
         log(f"mixed3d_{method}: "
             + json.dumps(runs[f"mixed3d_{method}_stats"]))
     for key in ("spmv_figure", "spmv_figure3d", "bell_figure",
-                "bell_carrier", "residual_restrict_levels", "fmg_eigen"):
+                "bell_carrier", "residual_restrict_levels", "fmg_eigen",
+                "sharded_eigen"):
         log(f"{key}: " + json.dumps(times[key]))
+    for run in SHARDED_EIGEN_RUNS:
+        log(f"{run}: " + json.dumps(runs[f"{run}_stats"]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernel_rows(KERNELS, runs, errs, times)}))

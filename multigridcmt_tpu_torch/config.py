@@ -49,8 +49,10 @@ class SolverConfig:
         cast where the fine level runs the whole-leg kernels (2D rows and
         blocks, ``use_kernels``, tiles at least ``HALO_ROWS`` deep), the
         fine tiles then stored in bfloat16 and the top level's up leg
-        storing float32; its solve by cycles, FMG and ``v_cycle_fn``
-        ignore it, and its eigensolvers and 3D solves still raise.
+        storing float32; its eigensolvers cast there too (II/RQI's inner
+        solves as iterative refinement, LOBPCG's preconditioner at its
+        boundary); its solve by cycles, FMG and ``v_cycle_fn`` ignore it,
+        and its 3D solves still raise.
       fmg_prolong: the FMG solution walk's prolongation, "linear" or
         "cubic" (``ops.transfer.fmg_prolong``). The sharded FMG walks
         linearly only, and ``ShardedSolver`` refuses "cubic".

@@ -49,16 +49,24 @@ Routes, by level (read when called: ``kernels.KERNEL_MIN_N``,
     solved there by the plain single-device cycle.
 Full multigrid (``cycle="fmg"``, ``_sharded_fmg``) walks linearly only, as
 JAX's does; the port refuses ``fmg_prolong="cubic"`` rather than ignore it.
+The eigensolvers (``ShardedSolver.eigensolve``: inverse iteration, RQI,
+LOBPCG) run ``solvers.eigen``'s outer loops over sharded primitives, as
+JAX's do: Rayleigh quotients and Gram matrices summed over the mesh by
+``all_reduce``, A applied as -residual(u, 0) on owned tiles, the II/RQI
+inner solves on carried extended tiles (colour-packed where the fine level
+packs) with the residual kernel summed over owned points as their check,
+LOBPCG's preconditioner one owned-tile cycle from zero.
 Mixed precision (``config.precond_dtype``, ``mixed_leg_dtype``): sharded
-MG-PCG casts its preconditioning cycle where the fine level runs the
-whole-leg kernels, as JAX's does: the fine level's tiles are stored in
-bfloat16 (the legs' bfloat16 modes, halo slabs exchanged in bfloat16), its
-down leg emits the coarse levels in float32, its up leg stores the cycle's
-output in float32 (``out_dtype``), and CG's recurrence, dots, apply and
-residual stay in ``config.dtype``. Everywhere else, and in the solve by
+MG-PCG, the II/RQI inner solves (as iterative refinement) and LOBPCG's
+preconditioner cast their cycles where the fine level runs the whole-leg
+kernels, as JAX's do: the fine level's tiles are stored in bfloat16 (the
+legs' bfloat16 modes, halo slabs exchanged in bfloat16), its down leg emits
+the coarse levels in float32, its up leg stores the cycle's output in
+float32 (``out_dtype``), and the outer recurrences, dots, applies and
+residuals stay in ``config.dtype``. Everywhere else, and in the solve by
 cycles, FMG, ``v_cycle_fn`` and ``v_cycles_fn``, precond_dtype is ignored,
-as in JAX. The eigensolvers and 3D slabs and pencils are not ported: they
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+as in JAX. 3D slabs and pencils are not ported: they raise
+``NotImplementedError`` naming their ROADMAP.md item.
 JAX's ``*_pallas`` helpers are ``*_kernel`` here, and its ``_ext_aligned``
 is ``_ext_tile``: the port keeps every tile at its logical extent, with no
 alignment padding.
@@ -79,11 +87,8 @@ from ..grids import (Hierarchy, build_hierarchy, check_device, interior,
 from ..ops import laplacian, smoothers, transfer
 from ..solvers import cycles, krylov
 
-_ITEM = "(ROADMAP.md, queue 1: sharded {})"
-EIGEN_TODO = ("the sharded eigensolvers are not ported yet "
-              + _ITEM.format("eigensolvers"))
 SLAB_TODO = ("sharded 3D solves (slabs and pencils) are not ported yet "
-             + _ITEM.format("3D slabs and pencils"))
+             "(ROADMAP.md, queue 1: sharded 3D slabs and pencils)")
 
 
 # ---------------------------------------------------------------------------
@@ -466,7 +471,7 @@ def s_prolong(e, nc, decomp: Decomp):
 
 
 def _psum(s: torch.Tensor, decomp: Decomp) -> torch.Tensor:
-    """Sum of a fresh 0-d tensor over every rank, in place."""
+    """Sum of a fresh tensor over every rank, in place."""
     dist.all_reduce(s, group=decomp.mesh.group)
     return s
 
@@ -474,6 +479,13 @@ def _psum(s: torch.Tensor, decomp: Decomp) -> torch.Tensor:
 def _psum_sq(x, decomp: Decomp) -> torch.Tensor:
     """Sum of squares over every rank's tile (a 0-d tensor)."""
     return _psum(torch.sum(x * x), decomp)
+
+
+def _rows(v: torch.Tensor) -> torch.Tensor:
+    """A block of owned tiles (k, *tile) as (k, tile size) rows; the zero
+    ghosts a tile holds (the far ghost, the unsharded padding) add
+    nothing to a dot."""
+    return v.reshape(v.shape[0], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -599,12 +611,14 @@ class _Carried:
     def refresh(self, e):
         return _refresh_ext(e, self.decomp, self.hh, self.ms)
 
-    def residual(self, xe, be, n, h):
-        """b - A x on a refreshed carried tile (its layout's kernel)."""
+    def residual(self, xe, be, n, h, sigma=0.0):
+        """b - (A - sigma I) x on a refreshed carried tile (its layout's
+        kernel)."""
         from ..kernels import local2d, plocal2d
 
         legs = plocal2d if self.packed else local2d
-        return legs.residual(xe, be, n, h, self.row_off, self.col_off)
+        return legs.residual(xe, be, n, h, self.row_off, self.col_off,
+                             sigma=sigma)
 
     def residual_norm_sq(self, xe, be, n, h, red_only=False):
         """||b - A x||^2 over this rank's owned points of a refreshed
@@ -898,24 +912,28 @@ def mixed_leg_dtype(cfg: SolverConfig, decomp: Decomp):
 
 def _sharded_v_cycle_leg(hier: Hierarchy, cfg: SolverConfig,
                          decomp: Decomp, x, b, level: int, gamma: int,
-                         sigma):
+                         sigma, out_dtype=None):
     """Owned tiles in and out of the extended whole-leg cycle (an entry for
-    one cycle; the solve loop carries extended tiles across cycles)."""
+    one cycle; the solve loop carries extended tiles across cycles).
+    ``out_dtype``: the dtype the level's up leg stores (``_leg_cycle_ext``),
+    float32 at the top of a mixed cycle."""
     from ..kernels import local2d
 
     hh = local2d.HALO_ROWS
     _, _, owned = _local_offsets(x, decomp, hh)
     out = _leg_cycle_ext(hier, cfg, decomp, _ext_tile(x, decomp, hh),
                          _ext_tile(b, decomp, hh), level, gamma, sigma,
-                         fresh=True)
+                         fresh=True, out_dtype=out_dtype)
     return out[owned].contiguous()
 
 
 def _sharded_v_cycle(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
-                     x, b, level: int, gamma: int = 1, sigma=0.0):
+                     x, b, level: int, gamma: int = 1, sigma=0.0,
+                     out_dtype=None):
     """Recursive cycle; tiles are owned tiles while the level is sharded
     and full grids on every rank below the agglomeration cutoff. ``sigma``
-    shifts the operator to A - sigma I."""
+    shifts the operator to A - sigma I; ``out_dtype`` reaches a whole-leg
+    level's up leg (``_sharded_v_cycle_leg``)."""
     from ..kernels.local2d import HALO_ROWS
 
     spec = hier.levels[level]
@@ -930,7 +948,7 @@ def _sharded_v_cycle(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
                               sigma=sigma, gamma=gamma)
     if _leg_level_ok(cfg, decomp, level):
         return _sharded_v_cycle_leg(hier, cfg, decomp, x, b, level, gamma,
-                                    sigma)
+                                    sigma, out_dtype=out_dtype)
     # Smooth and residual share one exchange on the kernel tier while the
     # residual's ghost reads stay exact (2 nu1 < HALO_ROWS for RB-GS,
     # nu1 < HALO_ROWS for Jacobi).
@@ -1236,8 +1254,261 @@ class ShardedSolver:
         return cycles.SolveResult(x=unshard(x, self.decomp), iters=iters,
                                   res_history=hist, converged=conv)
 
-    def eigensolve(self, *args, **kwargs):
-        raise NotImplementedError(EIGEN_TODO)
+    # -- eigensolvers --------------------------------------------------
+
+    def _apply_rows(self, v):
+        """A applied to each row of a block of owned tiles, as -residual(u,
+        0): the local2d residual kernel on a kernel-sized tile, the plain
+        halo-exchanging stencil otherwise."""
+        n, h = self.hierarchy.fine.n, self.hierarchy.fine.h
+        zeros = torch.zeros_like(v[0])
+        return torch.stack([
+            -s_residual(u, zeros, n, h, self.decomp,
+                        use_kernels=self.config.use_kernels) for u in v])
+
+    def _start_tiles(self, k: int, v0):
+        """The start block as (k, *owned tile): the nested-iteration guess
+        (``eigen.coarse_init``), broadcast from the mesh's first rank so that
+        every rank starts from the same vectors (``eigh``'s signs are the
+        LAPACK build's), or the caller's (k, *padded) block with its ghosts
+        zeroed, which every rank passes alike, as it does b."""
+        from ..solvers import eigen
+
+        v = eigen._start_block(self.hierarchy, k, self.config.dtype, v0)
+        if v0 is None and len(self.mesh.ranks) > 1:
+            dist.broadcast(v, src=self.mesh.ranks[0], group=self.mesh.group)
+        return torch.stack([shard_rhs(u, self.mesh, self.decomp) for u in v])
+
+    def _eigen_result(self, v, lam, iters, hist, res, tol):
+        """The result on every rank: the full padded eigenvectors, gathered
+        one vector at a time."""
+        from ..solvers import eigen
+
+        vecs = torch.stack([unshard(u, self.decomp) for u in v])
+        return eigen.EigenResult(eigenvalues=lam, eigenvectors=vecs,
+                                 iters=iters, res_history=hist,
+                                 converged=res < tol)
+
+    def eigensolve(self, k: int = 1, method: str = "ii", tol: float = 1e-8,
+                   max_iters: int = 100, inner_cycles: int = 30,
+                   inner_tol: Optional[float] = None, v0=None):
+        """The k smallest eigenpairs on the mesh (JAX's
+        ``ShardedSolver.eigensolve``): block inverse iteration
+        (``method="ii"``), RQI (``"rqi"``) or MG-preconditioned LOBPCG
+        (``"lobpcg"``, ``_eigensolve_lobpcg``), by ``solvers.eigen``'s
+        outer loops with every inner product summed over the mesh. Every
+        rank gets the full padded eigenvectors (k, *padded). ``v0``: a
+        (k, *padded) start block (every rank passes the same), else the
+        nested-iteration guess.
+
+        II/RQI: each outer step solves (A - sigma_i I) w_i = v_i row by row
+        to relative residual ``inner_tol`` (default 200 eps of the dtype),
+        at most ``inner_cycles`` cycles (always gamma 1, as JAX's), with
+        one host sync a cycle, then takes a generalised Rayleigh-Ritz step
+        (rows normalised, Gram matrices summed over the mesh, Cholesky,
+        ``eigh``). On the whole-leg route the inner solve carries extended
+        tiles (colour-packed where the fine level packs): the right-hand
+        side is entered once, each cycle is ``_leg_cycle_ext`` from a
+        refreshed iterate, and the check is the residual kernel summed over
+        owned points. With ``mixed_leg_dtype`` the inner solve is iterative
+        refinement: the refreshed full-dtype defect is cast down, a cycle
+        from zero (float32 top-level store) gives the correction, and the
+        residual kernel gives the next defect in ``config.dtype``.
+        Elsewhere the inner cycles are ``_sharded_v_cycle`` on owned tiles
+        and the check ``s_residual``. RQI's shifts are Python floats (an off
+        shift is 0.0, the unshifted route; JAX's traced zero takes the
+        shifted one: the two agree to rounding)."""
+        from ..kernels import _wrap
+        from ..solvers import eigen
+
+        if method == "lobpcg":
+            return self._eigensolve_lobpcg(k=k, tol=tol, max_iters=max_iters,
+                                           v0=v0)
+        if method not in ("ii", "rqi"):
+            raise ValueError(f"unknown eigensolver method {method!r}")
+        cfg, hier, decomp = self.config, self.hierarchy, self.decomp
+        n, h = hier.fine.n, hier.fine.h
+        dtype = cfg.dtype
+        if inner_tol is None:
+            inner_tol = 200.0 * torch.finfo(dtype).eps
+        leg0 = _leg_level_ok(cfg, decomp, 0)
+        pd = mixed_leg_dtype(cfg, decomp)
+
+        def rayleigh(v):
+            fv, fav = _rows(v), _rows(self._apply_rows(v))
+            num, den = _psum(torch.stack([torch.sum(fv * fav, dim=1),
+                                          torch.sum(fv * fv, dim=1)]), decomp)
+            lam = num / den
+            rr = fav - lam[:, None] * fv
+            res = (torch.sqrt(_psum(torch.sum(rr * rr, dim=1), decomp))
+                   / torch.abs(lam))
+            return lam, torch.max(res)
+
+        def one(rhs, sg: float):
+            rn = torch.sqrt(_psum_sq(rhs, decomp))
+            rn = torch.where(rn == 0, torch.ones_like(rn), rn)
+            i, rel = 0, 1.0
+            if not leg0:
+                w = torch.zeros_like(rhs)
+                while rel >= inner_tol and i < inner_cycles:
+                    w = _sharded_v_cycle(hier, cfg, decomp, w, rhs, 0,
+                                         sigma=sg)
+                    r = s_residual(w, rhs, n, h, decomp, sg,
+                                   use_kernels=cfg.use_kernels)
+                    rel = (torch.sqrt(_psum_sq(r, decomp)) / rn).item()
+                    i += 1
+                return w
+            tiles = _Carried(cfg, decomp, rhs)
+            be = tiles.enter(rhs)
+            we, re = torch.zeros_like(be), be
+            while rel >= inner_tol and i < inner_cycles:
+                if pd is None:
+                    we = _leg_cycle_ext(hier, cfg, decomp, we, be, 0, 1, sg,
+                                        fresh=True)
+                else:
+                    # be's ghosts are exact; a residual's are refreshed.
+                    rp = (re if i == 0 else tiles.refresh(re)).to(pd)
+                    dw = _leg_cycle_ext(
+                        hier, cfg, decomp, torch.zeros_like(rp), rp, 0, 1,
+                        sg, fresh=True, out_dtype=_wrap.compute_dtype(pd))
+                    we = we + dw.to(dtype)
+                we = tiles.refresh(we)
+                re = tiles.residual(we, be, n, h, sigma=sg)
+                ro = re[tiles.owned_carried]
+                rel = (torch.sqrt(_psum(torch.sum(ro * ro), decomp))
+                       / rn).item()                # host sync, once a cycle
+                i += 1
+            return tiles.leave(we)
+
+        def inner_solve(v, sigma):
+            return torch.stack([one(rhs, sg) for rhs, sg in zip(v, sigma)])
+
+        def ritz(w):
+            """Generalised Rayleigh-Ritz, H s = theta G s, on the rows
+            normalised first (RQI's inner solves return rows of very
+            different sizes, which would wreck G's Cholesky)."""
+            kk = w.shape[0]
+            nrm0 = torch.sqrt(_psum(torch.sum(_rows(w) ** 2, dim=1), decomp))
+            w = w / torch.where(nrm0 == 0, torch.ones_like(nrm0),
+                                nrm0).view((kk,) + (1,) * (w.ndim - 1))
+            f, aw = _rows(w), _rows(self._apply_rows(w))
+            g, hm = _psum(torch.stack([f @ f.T, f @ aw.T]), decomp)
+            hm = 0.5 * (hm + hm.T)
+            li = torch.linalg.solve_triangular(
+                torch.linalg.cholesky(g),
+                torch.eye(kk, dtype=dtype, device=g.device), upper=False)
+            ht = li @ hm @ li.T
+            lam, s = torch.linalg.eigh(0.5 * (ht + ht.T))
+            f2 = (li.T @ s).T @ f                  # rows: the Ritz vectors
+            nrm = torch.sqrt(_psum(torch.sum(f2 * f2, dim=1), decomp))
+            return (f2 / nrm[:, None]).reshape(w.shape), lam
+
+        v, lam, iters, hist, res = eigen.ii_loop(
+            self._start_tiles(k, v0), rayleigh=rayleigh,
+            inner_solve=inner_solve, ritz=ritz, method=method, tol=tol,
+            max_iters=max_iters, rqi_backoff=eigen.RQI_BACKOFF)
+        return self._eigen_result(v, lam, iters, hist, res, tol)
+
+    def _eigensolve_lobpcg(self, k: int, tol: float, max_iters: int,
+                           precond_cycles: int = 1, v0=None):
+        """Sharded MG-preconditioned LOBPCG (JAX's ``_eigensolve_lobpcg``):
+        ``eigen.lobpcg_loop`` on blocks of owned tiles, every Gram matrix
+        summed over the mesh and the small (3k)^2 problem solved on every
+        rank alike. The preconditioner is ``precond_cycles`` owned-tile
+        cycles from zero a row (``_sharded_v_cycle``: unpacked at any
+        PACK_MIN_N, as JAX's per-application entry); with
+        ``mixed_leg_dtype`` they run in that dtype, cast at the
+        preconditioner's boundary, the top level storing float32. A dead
+        search direction becomes JAX's sharded fallback, a function of the
+        global coordinates masked to the interior, the same on every
+        rank."""
+        from ..kernels import _wrap
+        from ..solvers import eigen
+
+        cfg, hier, decomp = self.config, self.hierarchy, self.decomp
+        n = hier.fine.n
+        dtype = cfg.dtype
+        eps = torch.finfo(dtype).eps
+        pd = mixed_leg_dtype(cfg, decomp)
+
+        def lead(t, like):
+            """t (rows,) shaped to broadcast over a block ``like``."""
+            return t.view((like.shape[0],) + (1,) * (like.ndim - 1))
+
+        def gram(f, g):
+            return _psum(_rows(f) @ _rows(g).T, decomp)
+
+        def rownorms(v):
+            return torch.sqrt(_psum(torch.sum(_rows(v) ** 2, dim=1), decomp))
+
+        def rq_res(v):
+            """Rayleigh quotients and residual rows of an orthonormal
+            block."""
+            av = self._apply_rows(v)
+            lam = _psum(torch.sum(_rows(v) * _rows(av), dim=1), decomp)
+            r = av - lead(lam, v) * v
+            return lam, r, torch.max(rownorms(r) / torch.abs(lam))
+
+        # A mixed dtype implies the whole-leg route at level 0, so
+        # _sharded_v_cycle runs _sharded_v_cycle_leg, its up leg storing
+        # float32; the iterate is cast back to pd between cycles.
+        odt = None if pd is None else _wrap.compute_dtype(pd)
+
+        def tcycle(r):
+            out = []
+            for rhs in r:
+                src = rhs if pd is None else rhs.to(pd)
+                w = torch.zeros_like(src)
+                for _ in range(precond_cycles):
+                    w = _sharded_v_cycle(hier, cfg, decomp, w.to(src.dtype),
+                                         src, 0, out_dtype=odt)
+                out.append(w.to(dtype))
+            return torch.stack(out)
+
+        def combine(c, s):
+            """The rows of c^T s as tiles: (m, j)^T x (m, *tile)."""
+            return (c.T @ _rows(s)).reshape((c.shape[1],) + s.shape[1:])
+
+        def project_out(f, basis):
+            for _ in range(2):
+                f = f - combine(gram(f, basis).T, basis)
+            return f
+
+        def safe_rownorm(v, salt: float):
+            nrm = rownorms(v)
+            shape, dev = v.shape[1:], v.device
+            rows = lead(torch.arange(v.shape[0], dtype=dtype, device=dev), v)
+            fb = (torch.sin((salt + 1.0) * (rows + 1.0) + 0.7391
+                            * _coord_sum(shape, decomp, dev).to(dtype))
+                  * _interior_mask(n, shape, decomp, dev).to(dtype))
+            fb = fb / lead(rownorms(fb), v)
+            good, nrm = lead(nrm > eps * eps, v), lead(nrm, v)
+            return torch.where(
+                good, v / torch.where(good, nrm, torch.ones_like(nrm)), fb)
+
+        def jittered_li(g):
+            """L^-1 of the Cholesky factor of g + 100 eps tr(g) I."""
+            eye = torch.eye(g.shape[0], dtype=dtype, device=g.device)
+            ell = torch.linalg.cholesky(g + (100.0 * eps * torch.trace(g))
+                                        * eye)
+            return torch.linalg.solve_triangular(ell, eye, upper=False)
+
+        def rr(s, nkeep):
+            fs = _rows(s)
+            g, hm = _psum(torch.stack(
+                [fs @ fs.T, fs @ _rows(self._apply_rows(s)).T]), decomp)
+            li = jittered_li(g)
+            ht = li @ (0.5 * (hm + hm.T)) @ li.T
+            theta, y = torch.linalg.eigh(0.5 * (ht + ht.T))
+            return li.T @ y[:, :nkeep], theta[:nkeep]
+
+        v = self._start_tiles(k, v0)
+        x = combine(jittered_li(gram(v, v)).T, v)   # orthonormal over the mesh
+        x, lam, iters, hist, res = eigen.lobpcg_loop(
+            x, k=k, rq_res=rq_res, tcycle=tcycle, project_out=project_out,
+            safe_rownorm=safe_rownorm, rr=rr, combine=combine, tol=tol,
+            max_iters=max_iters)
+        return self._eigen_result(x, lam, iters, hist, res, tol)
 
     def v_cycle_fn(self):
         """One sharded cycle from the finest level, owned tiles in and out,

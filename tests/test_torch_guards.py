@@ -793,8 +793,12 @@ def test_unported_sharded_routes_raise(call, item, world_of_one,
     by cycles reads no precond_dtype (as in JAX) and equals the full-dtype
     solve; MG-PCG casts its cycle to bfloat16 on the packed route and
     reaches the full-dtype answer (its parity with JAX is in
-    test_torch_mixed_sharded_solve.py). The eigensolvers still raise with a
-    precond_dtype as without."""
+    test_torch_mixed_sharded_solve.py). So are the sharded eigensolvers,
+    with a precond_dtype as without: inverse iteration on the packed route
+    takes the single-device eigensolve's outer steps to its eigenvalue
+    (rtol 1e-10, the eigenvector up to sign), and with a bfloat16
+    preconditioner (inner refinement) reaches it within 1e-8 (their parity
+    with JAX is in test_torch_sharded_eigen.py)."""
     from multigridcmt_tpu_torch.parallel import sharded
 
     monkeypatch.setattr(kernels, "KERNEL_MIN_N", 30)
@@ -825,14 +829,30 @@ def test_unported_sharded_routes_raise(call, item, world_of_one,
             np.testing.assert_allclose(got.x.numpy(), want.x.numpy(),
                                        rtol=1e-7, atol=1e-8)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP") as info:
-        if call == "eigensolve":
-            _sharded_solver(k=6).eigensolve(k=1)
-        elif call == "eigensolve_precond_dtype":
-            _sharded_solver(k=6, precond_dtype=torch.bfloat16).eigensolve(
-                k=1)
+    if call in ("eigensolve", "eigensolve_precond_dtype"):
+        pd = torch.bfloat16 if call == "eigensolve_precond_dtype" else None
+        s = _sharded_solver(k=6, precond_dtype=pd)
+        assert sharded._pack_level_ok(s.config, s.decomp, 0)
+        assert sharded.mixed_leg_dtype(s.config, s.decomp) == pd
+        got = s.eigensolve(k=1)
+        want = mt.MultigridSolver(mt.poisson2d(
+            k=6, dtype=torch.float64, smoother="rbgs", use_kernels=True,
+            device="cpu")).eigensolve(k=1)
+        assert got.converged and want.converged
+        lam, ref = got.eigenvalues[0].item(), want.eigenvalues[0].item()
+        if pd is None:
+            assert got.iters == want.iters
+            assert abs(lam - ref) <= 1e-10 * ref
+            g, w = got.eigenvectors[0], want.eigenvectors[0]
+            sign = torch.sign(torch.sum(g * w)).item()
+            np.testing.assert_allclose(sign * g.numpy(), w.numpy(), rtol=0,
+                                       atol=1e-8)
         else:
-            _sharded_solver(k=5, ndim=3)
+            assert got.iters <= want.iters + 3
+            assert abs(lam - ref) <= 1e-8 * ref
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP") as info:
+        _sharded_solver(k=5, ndim=3)
     assert item in str(info.value)
 
 
