@@ -97,6 +97,17 @@ Phases:
          S1eigen's; eigenvectors finite with zero ghosts; exact launches as
          a multiple of the whole-leg cycles each run made (counted around
          sharded._leg_cycle_ext) and of its outer steps;
+       * sharded 3D, float32 V(2,2) at 511^3 on a mesh of 1
+         (ShardedSolver with ndim=3; every kernel level on the extended
+         stack): a slab (row) and a pencil ((1, 1) block) RB-GS solve by
+         cycles and by PCG, in the single-device solve's iterations (by
+         cycles with histories within 1e-2 plus its floor); a Jacobi slab solve; slab
+         and pencil PCG with precond_dtype=torch.bfloat16, RB-GS and
+         Jacobi, against the float32 PCG of the same mesh, the slab ones
+         again on the plain stencil3d versions in as many iterations;
+         float64 at 127^3 against the plain sharded route; inverse
+         iteration at 255^3 float64 on a slab mesh; exact stencil3d
+         launches derived from the route;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -143,8 +154,9 @@ Phases:
      largest value, at most BF16_SHARE of the points differing; the
      stencil3d kernels' bfloat16 modes (the residual, storing float32; the
      Jacobi and RB-GS sweeps at 1 and 2 sweeps, storing bfloat16 or, by
-     out_dtype, float32) at 511^3, both sigmas, and on a slab-and-pencil
-     stack of it, by the same rule; the local2d and plocal2d legs'
+     out_dtype, float32) at 511^3, both sigmas, on a slab-and-pencil
+     stack of it and on the sharded 3D paths' fine slab and pencil
+     stacks, by the same rule; the local2d and plocal2d legs'
      bfloat16 modes (the down leg, the up leg storing bfloat16 or float32)
      on bfloat16 forms of S1's fine tile, S2's block tile and the two offset
      tiles, unpacked and packed, at RB-GS nu = 2, Jacobi nu = 3 and RB-GS
@@ -219,9 +231,9 @@ transfer2d residual-restrict and prolong-add. The sweeps are the legs'
 row stream without its coarse operand, on the packed and the unpacked
 frame. At k=9 in 3D the levels
 511, 255 and 127 (n >= kernels.KERNEL3_MIN_N) run the stencil3d RB-GS
-sweep and residual kernels. Off these paths: the stencil3d Jacobi sweep (a
-3D Jacobi cycle takes the plain route, as in the JAX package; driven by
-direct calls). The sparse path calls its two kernels (kernels.spmv,
+sweep and residual kernels; a single-device 3D Jacobi cycle takes the
+plain route, as in the JAX package, and the stencil3d Jacobi sweep runs on
+the sharded 3D paths' stacks. The sparse path calls its two kernels (kernels.spmv,
 kernels.bell) directly, through ops/sparse.py's matrices.
 
 The sharded paths (a mesh of 1): at S1 the 4095 level runs the plocal2d
@@ -336,6 +348,14 @@ FUSED_LEG_SHAPES = [(torch.float32, 2999), (torch.float32, 31),
                     (torch.float32, 15), (torch.float32, 7),
                     (torch.float64, 31), (torch.float64, 15),
                     (torch.float64, 7)]
+# The sharded 3D paths' fine stacks at 511^3 on the world of 1, as (goff,
+# roff, p, r) with whether a bfloat16 RB-GS sweep on them takes the paired
+# march (stencil3d.rbgs_pairs: r odd, goff + roff even): the RB-GS V(2,2)
+# slab (hz = 5: goff = 1 - hz, 512 + 2 hz planes) and pencil (rows too,
+# passing both ends of the grid; 522 rows: the scalar march), the Jacobi
+# V(2,2) slab and pencil (hz = 3).
+SHARDED3D_STACKS = [((-4, 0, 522, 513), True), ((-4, -4, 522, 522), False),
+                    ((-2, 0, 518, 513), True), ((-2, -2, 518, 518), False)]
 STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 255),
                     (torch.float32, 127), (torch.float64, 127)]
 # The stencil3d z-march's edge cases, as plane stacks (goff, roff, p, r) of
@@ -346,11 +366,13 @@ STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 255),
 # chunk of one plane); whole grids whose c = n + 2 is one past a strip
 # multiple (57 = 2 * 28 + 1, the sweep's strips; 61 = 2 * 30 + 1, the
 # residual's); r = 17, one past a band multiple (8 rows in float32, 4 or 8
-# in float64).
+# in float64); and the sharded 3D paths' fine stacks on the world of 1
+# (SHARDED3D_STACKS).
 STENCIL3D_STACKS = {
     (torch.float32, 127): [(40, 0, 3, 129)],
     (torch.float32, 511): [(10, 0, 64, 513), (200, -1, 63, 513),
-                           (440, 3, 65, 513)],
+                           (440, 3, 65, 513),
+                           *(s for s, _ in SHARDED3D_STACKS)],
     (torch.float32, 55): [(0, 0, 57, 57), (20, 10, 20, 17)],
     (torch.float32, 59): [(0, 0, 61, 61)],
     (torch.float64, 55): [(20, 10, 20, 17)],
@@ -523,9 +545,10 @@ MIXED_ROUTES = {"mixed2d": dict(smoother="rbgs"),
                 "mixedB": dict(smoother="rbgs", nu1=4, nu2=4),
                 "mixedA": dict(smoother="chebyshev")}
 MIXED_EIGEN = ("lobpcg", "ii")
-# 3D mixed precision: the stencil3d kernels' bfloat16 modes at 511^3 and on
+# 3D mixed precision: the stencil3d kernels' bfloat16 modes at 511^3, on
 # one slab-and-pencil stack of it (goff, roff, p, r: global planes
-# 200..262, rows -1..511, the sweep's three chunks of 21), each bfloat16
+# 200..262, rows -1..511, the sweep's three chunks of 21; the scalar
+# march) and on the sharded paths' stacks (SHARDED3D_STACKS), each bfloat16
 # output by the bfloat16 rule above; the sweeps' float32 outputs
 # (out_dtype: red points rounded to bfloat16, black ones float32) by the
 # same per-point bound, a point counting as differing where it parts by
@@ -535,6 +558,7 @@ MIXED_EIGEN = ("lobpcg", "ii")
 # at (method, k): lambda_1 within MIXED_EIGEN_RTOL of the full run's and of
 # the exact discrete value, in at most MIXED3D_EXTRA_STEPS outer steps more.
 MIXED3D_STACK = (200, -1, 63, 513)
+MIXED3D_STACKS = [(MIXED3D_STACK, False), *SHARDED3D_STACKS]
 # Sharded mixed precision (the local2d and plocal2d legs' bfloat16 modes):
 # phase 2 holds them on bfloat16 forms of the tiles of compare_local2d and
 # compare_plocal2d (S1's fine tile unpacked and packed, S2's block tile
@@ -613,6 +637,44 @@ SHARDED_EIGEN = {
 }
 SHARDED_EIGEN_RUNS = tuple(f"{label}_{m}{k}" for label, (_, _, ms)
                            in SHARDED_EIGEN.items() for m, k in ms)
+# Sharded 3D (slabs and pencils; ShardedSolver with ndim=3) at the 3D
+# headline's width, 511^3 (k = MAIN_K3), float32 V(2,2), on the world of 1:
+# label -> (mesh shape, smoother, bfloat16 preconditioner). A slab mesh is
+# a row mesh, a pencil mesh a (1, 1) block mesh; every level 511...127 runs
+# the extended-stack level (_slab3d_level: the stencil3d kernels on
+# (512 + 2 hz, 513, 513) and (522, 522, 513)-sized stacks at 511). The
+# RB-GS paths by cycles and by PCG ("...pcg" runs) take the single-device
+# solve's iterations, max error under MAXERR[3]; Jacobi by cycles (the
+# single device runs a 3D Jacobi cycle plain: iterations not compared);
+# the mixed paths are PCG with precond_dtype=torch.bfloat16 against the
+# float32 PCG of the same mesh and smoother (MIXED_ITER_FACTOR's gate,
+# MAXERR[3]). Launches exact, derived from the route.
+SHARDED3D_PATHS = {
+    "slab511": ((1,), "rbgs", None),
+    "pencil511": ((1, 1), "rbgs", None),
+    "slab511-jacobi": ((1,), "jacobi", None),
+    "slab511-mixed": ((1,), "rbgs", torch.bfloat16),
+    "slab511-mixed-jacobi": ((1,), "jacobi", torch.bfloat16),
+    "pencil511-mixed": ((1, 1), "rbgs", torch.bfloat16),
+    "pencil511-mixed-jacobi": ((1, 1), "jacobi", torch.bfloat16),
+}
+# Float64: at k = SHARDED3D_F64_K (the 127 level on the stencil3d kernels)
+# the slab and pencil solves' histories, kernel route against the plain
+# sharded route, within F64_TOL plus F64_FLOOR[3]; inverse iteration (k=1)
+# at 255^3 (k = SHARDED3D_EIGEN_K) on a slab mesh, lambda_1 within
+# EIGEN_RTOL of the exact discrete value ("slab-eigen").
+SHARDED3D_F64_K = 7
+SHARDED3D_EIGEN_K = 8
+# The float32 solves by cycles against the single device
+# (against_single3d): every common history entry within SHARDED3D_HIST_RTOL
+# of the single device's plus its last entry (the float32 floor).
+SHARDED3D_HIST_RTOL = 1e-2
+# The mixed paths also run with the stencil3d wrappers swapped for their
+# plain versions (plain_stencil3d), in as many iterations.
+SHARDED3D_PLAIN_RUNS = ("slab511-mixed", "slab511-mixed-jacobi")
+SHARDED3D_RUNS = ("slab511", "slab511pcg", "pencil511", "pencil511pcg",
+                  "slab511-jacobi", "slab511-mixed", "slab511-mixed-jacobi",
+                  "pencil511-mixed", "pencil511-mixed-jacobi", "slab-eigen")
 # Chained cycles a timing of v_cycles_fn runs (its time over this count).
 CHAIN_CYCLES = 20
 # The packed2d, fused2d and plocal2d legs are timed as single calls and as
@@ -1292,7 +1354,7 @@ def compare_mixed_sharded(main_err: dict) -> None:
 
 def compare_mixed3d(main_err: dict) -> None:
     """The stencil3d kernels' bfloat16 modes against their plain versions at
-    511^3 (both sigmas) and on MIXED3D_STACK (sigma = SIGMA): the residual
+    511^3 (both sigmas) and on MIXED3D_STACKS (sigma = SIGMA): the residual
     (float32 out), Jacobi and RB-GS at 1 and 2 sweeps, each storing
     bfloat16 and, by out_dtype, float32 on its last sweep. A 2-sweep call's
     output is held against one plain sweep of the kernel's own first sweep
@@ -1308,8 +1370,6 @@ def compare_mixed3d(main_err: dict) -> None:
     u, b = cube_inputs(n, f32, seed=3 * n + 17)
     su, sb = u.to(torch.bfloat16), b.to(torch.bfloat16)
     del u, b
-    goff, roff, p, r = MIXED3D_STACK
-    stack = [cut_stack(g, n, goff, roff, p, r) for g in (su, sb)]
     # (wrapper, arguments, main_err key: at sigma = 0 on the whole grid;
     # the cycle's RB-GS call takes nu = 2 sweeps, the others one launch)
     modes = [("residual", {}, "stencil3d_residual_bf16")]
@@ -1322,22 +1382,26 @@ def compare_mixed3d(main_err: dict) -> None:
                 main = nu == (2 if key == "stencil3d_rbgs_bf16" else 1)
                 modes.append((mode, dict(kw, sweeps=nu, out_dtype=out),
                               key if main else None))
-    for where, (uu, bb), off in (
-            (f"n={n}", (su, sb), {}),
-            (f"n={n} stack p={p} r={r} goff={goff} roff={roff}", stack,
-             dict(goff=goff, roff=roff))):
-        whole = not off
+    for stack, pairs in ((None, True), *MIXED3D_STACKS):
+        whole = stack is None
+        if whole:
+            where, (uu, bb), off = f"n={n}", (su, sb), {}
+        else:
+            goff, roff, p, r = stack
+            where = f"n={n} stack p={p} r={r} goff={goff} roff={roff}"
+            uu, bb = (cut_stack(g, n, goff, roff, p, r) for g in (su, sb))
+            off = dict(goff=goff, roff=roff)
         for sigma in ((0.0, SIGMA) if whole else (SIGMA,)):
             for mode, kw, key in modes:
                 label = f"bf16 stencil3d {mode} {where} sigma={sigma} {kw}"
                 fn = getattr(stencil3d, mode)
                 before = stencil3d.rbgs_bf16_pairs_launches
                 got = fn(uu, bb, n, h, sigma=sigma, **off, **kw)
-                # The whole grid takes the paired march, the stack (goff +
-                # roff odd) the scalar one.
+                # The whole grid takes the paired march, each stack the
+                # one MIXED3D_STACKS names.
                 paired = stencil3d.rbgs_bf16_pairs_launches - before
                 require(paired == (kw["sweeps"] if mode == "rbgs_sweep"
-                                   and whole else 0),
+                                   and pairs else 0),
                         f"{label}: {paired} paired launches")
                 start, pkw = uu, kw
                 if kw.get("sweeps", 1) == 2:
@@ -1356,7 +1420,8 @@ def compare_mixed3d(main_err: dict) -> None:
                                      ghosts=whole)
                 if whole and sigma == 0.0 and key is not None:
                     main_err[key] = err
-    del su, sb, stack
+        del uu, bb
+    del su, sb
     torch.cuda.empty_cache()
 
 
@@ -2102,12 +2167,13 @@ KERNELS = {
     "packed2d_rbgs": ("packed2d", "rbgs_launches",
                       "multigridcmt_tpu_torch/kernels/csrc/packed2d_sweep.cu",
                       "multigridcmt_tpu/kernels/packed2d.py:305", "rbgs44"),
-    # Off the solve paths (a 3D Jacobi cycle takes the plain route, as in
-    # JAX): no main path launches it, so its row reports the launches
-    # summed over the main paths (0) and, apart, those of the direct calls.
+    # A single-device 3D Jacobi cycle takes the plain route (as in JAX);
+    # the sharded one runs the kernel on its slab stacks (slab511-jacobi).
+    # The row also reports the direct calls' launches apart.
     "stencil3d_jacobi": ("stencil3d", "jacobi_launches",
                          "multigridcmt_tpu_torch/kernels/csrc/stencil3d.cu",
-                         "multigridcmt_tpu/kernels/stencil3d.py:485", None),
+                         "multigridcmt_tpu/kernels/stencil3d.py:485",
+                         "slab511-jacobi"),
     "spmv_dia": ("spmv", "launches",
                  "multigridcmt_tpu_torch/kernels/csrc/spmv.cu",
                  "multigridcmt_tpu/kernels/spmv.py:254", "spmv2d"),
@@ -2177,9 +2243,11 @@ KERNELS = {
     # The bfloat16 modes of the stencil3d kernels (3D mixed precision): the
     # residual (float32 out) and the RB-GS sweep storing bfloat16 run on
     # the mixed 3D cycle's fine level; the sweep storing float32 (the TPU
-    # kernel's out_dtype, which the cycle does not take: its correction add
-    # promotes) and both Jacobi modes (a 3D Jacobi cycle runs plain) on no
-    # path: direct calls only.
+    # kernel's out_dtype) on the sharded mixed cycle's top level, whose up
+    # smoothing stores its last sweep in float32 (slab511-mixed; the
+    # single-device cycle promotes at its correction add instead), and both
+    # Jacobi modes on the sharded mixed Jacobi cycle's (a single-device 3D
+    # Jacobi cycle runs plain). Their rows also report direct calls.
     "stencil3d_residual_bf16": ("stencil3d", "residual_bf16_launches",
                                 "multigridcmt_tpu_torch/kernels/csrc/"
                                 "stencil3d_bf16.cu",
@@ -2194,17 +2262,17 @@ KERNELS = {
                                 "multigridcmt_tpu_torch/kernels/csrc/"
                                 "stencil3d_bf16.cu",
                                 "multigridcmt_tpu/kernels/stencil3d.py:510",
-                                None),
+                                "slab511-mixed"),
     "stencil3d_jacobi_bf16": ("stencil3d", "jacobi_bf16_launches",
                               "multigridcmt_tpu_torch/kernels/csrc/"
                               "stencil3d_bf16.cu",
                               "multigridcmt_tpu/kernels/stencil3d.py:485",
-                              None),
+                              "slab511-mixed-jacobi"),
     "stencil3d_jacobi_bf16_f32": ("stencil3d", "jacobi_bf16_f32_launches",
                                   "multigridcmt_tpu_torch/kernels/csrc/"
                                   "stencil3d_bf16.cu",
                                   "multigridcmt_tpu/kernels/stencil3d.py:485",
-                                  None),
+                                  "slab511-mixed-jacobi"),
     # The bfloat16 modes of the shard tile legs (sharded mixed precision):
     # the down leg and the up leg storing float32 run on a sharded mixed
     # cycle's fine level (S1mixed packed, S1unpacked-mixed unpacked); the up
@@ -2260,8 +2328,9 @@ MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
              "mixed2d", "mixedB", "mixedA", "mixed_lobpcg", "mixed_ii",
              "mixed3d", "mixed3d_lobpcg", "mixed3d_ii", "S1mixed",
              "S1unpacked-mixed", "S2mixed", "sharded_mixed_f64",
-             *SHARDED_EIGEN_RUNS)
-# Direct calls of a kernel that no main path launches.
+             *SHARDED_EIGEN_RUNS, *SHARDED3D_RUNS)
+# Direct calls of kernels that no single-device path launches (the
+# sharded 3D paths launch them since).
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d",
                "packed2d_up_bf16": "up_bf16_direct",
                "stencil3d_rbgs_bf16_f32": "mixed3d_direct",
@@ -3721,30 +3790,298 @@ def paths_sharded_fmg(runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
-class count_leg_cycles:                                     # noqa: N801
-    """Counts the whole-leg cycles started at the finest level while
-    active: calls of ``sharded._leg_cycle_ext`` at level 0 (its recursion
-    passes level + 1), the II/RQI inner cycles and LOBPCG's preconditioning
-    cycles alike."""
+def sharded3d_levels(prob, solver) -> tuple:
+    """(extended-stack levels, stagewise slab levels) of a sharded 3D
+    problem on the stencil3d kernels, from the solver's own routing
+    predicates."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    cfg, dec = prob.config, solver.decomp
+    stack = stage = 0
+    for lv, spec in enumerate(prob.hierarchy.levels):
+        if not sharded._is_sharded(cfg, dec, lv):
+            continue
+        rows = sharded._level_rows(cfg.k, lv)
+        tile = torch.empty((rows // dec.axes[0][2],
+                            rows // dec.axes[1][2] if len(dec.axes) == 2
+                            else spec.n + 2, spec.n + 2), device="meta")
+        if (sharded._slab3d_ok(tile, spec.n, cfg.smoother, dec,
+                               sharded._slab3d_hz_level(cfg))
+                or sharded._pencil3d_ok(tile, spec.n, cfg, dec)):
+            stack += 1
+        elif sharded._slab3d_ok(tile, spec.n, cfg.smoother, dec, 1):
+            stage += 1
+    return stack, stage
+
+
+def stack_pairs(solver, n: int) -> bool:
+    """Whether the bfloat16 RB-GS sweeps on the fine stack of a mesh of 1
+    take the paired march (stencil3d.rbgs_pairs: rows odd, goff + roff
+    even): the slab stack's 513 rows pair, the pencil's 522 do not."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    hz = sharded._slab3d_hz_level(solver.config)
+    rows = n + 2 if len(solver.decomp.axes) == 1 else n + 1 + 2 * hz
+    offs = (1 - hz) + (1 - hz if len(solver.decomp.axes) == 2 else 0)
+    return rows % 2 == 1 and offs % 2 == 0
+
+
+class count_level0_calls:                                   # noqa: N801
+    """Counts the cycles started at the finest level while active: calls
+    of the function ``name`` of ``sharded`` at level 0 (its recursion
+    passes level + 1). ``_sharded_v_cycle`` counts the owned-tile and
+    extended-stack cycles, ``_leg_cycle_ext`` the whole-leg ones (the
+    II/RQI inner cycles and LOBPCG's preconditioning cycles alike)."""
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
         from multigridcmt_tpu_torch.parallel import sharded
 
         self.count = 0
-        self._orig = orig = sharded._leg_cycle_ext
+        self._orig = orig = getattr(sharded, self.name)
 
         def counting(*args, **kwargs):
             self.count += (args[5] if len(args) > 5 else kwargs["level"]) == 0
             return orig(*args, **kwargs)
 
-        sharded._leg_cycle_ext = counting
+        setattr(sharded, self.name, counting)
         return self
 
     def __exit__(self, *exc):
         from multigridcmt_tpu_torch.parallel import sharded
 
-        sharded._leg_cycle_ext = self._orig
+        setattr(sharded, self.name, self._orig)
         return False
+
+
+class plain_stencil3d:                                      # noqa: N801
+    """While active, the stencil3d wrappers are their plain versions (no
+    launch, no count)."""
+
+    NAMES = ("residual", "jacobi_sweep", "rbgs_sweep")
+
+    def __enter__(self):
+        from multigridcmt_tpu_torch.kernels import stencil3d
+
+        self._orig = {m: getattr(stencil3d, m) for m in self.NAMES}
+        for m in self.NAMES:
+            setattr(stencil3d, m, getattr(stencil3d, m + "_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        from multigridcmt_tpu_torch.kernels import stencil3d
+
+        for m, fn in self._orig.items():
+            setattr(stencil3d, m, fn)
+        return False
+
+
+def against_single3d(label: str, res, ref, method: str) -> None:
+    """A float32 sharded 3D solve against the single-device one: the same
+    iterations, and the same convergence. PCG converges (a relative
+    residual of 1e-9 at 511^3); its recurrence carries each apply's
+    rounding (~eps 6/h^2 |p| / |A p|, some 1e-3 of it at 511^3), so a
+    route that applies A in another order (the pencil's owned-tile
+    residual) parts from the single device's history by several percent
+    in its tail: only logged. By cycles float32 stalls at its floor (the
+    check's own rounding, ~3e-3 at 511^3) and the stall guard ends the
+    solve: every common history entry within SHARDED3D_HIST_RTOL of the
+    single device's plus its last entry."""
+    hs, hr = res.res_history, ref.res_history
+    last = hr[ref.iters].item()
+    common = range(min(res.iters, ref.iters) + 1)
+    over = max(abs(hs[j].item() - hr[j].item())
+               - SHARDED3D_HIST_RTOL * hr[j].item() - last for j in common)
+    rel = max(abs(hs[j].item() - hr[j].item()) / hr[j].item()
+              for j in common)
+    log(f"  single device: {ref.iters} iterations, converged "
+        f"{ref.converged}, last {last:.3e}; history rel diff at most "
+        f"{rel:.3e}, past rtol {SHARDED3D_HIST_RTOL} plus the last entry "
+        f"by at most {over:.3e}, over {len(common)} entries")
+    require(res.iters == ref.iters and res.converged == ref.converged
+            and (method == "pcg" or over <= 0.0), f"{label}: {res.iters} "
+            f"iterations (converged {res.converged}), the single device's "
+            f"{ref.iters} ({ref.converged}); history over by {over:.3e}")
+
+
+def paths_sharded3d(runs: dict) -> None:
+    """Sharded 3D through ShardedSolver (ndim=3) on the world of 1 at
+    SHARDED3D_PATHS: slab and pencil RB-GS solves by cycles and by PCG
+    beside the single-device solve, the Jacobi slab solve, the mixed PCG
+    runs beside the float32 PCG of the same mesh (SHARDED3D_PLAIN_RUNS
+    again on the plain stencil3d versions), each with exact stencil3d
+    launches; float64 kernel-against-plain histories at k =
+    SHARDED3D_F64_K; inverse iteration at 255^3 float64 (slab-eigen)."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.ops import laplacian
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    def build(shape, smoother, dtype=torch.float32, k=MAIN_K3, **kw):
+        prob = mt.poisson3d(k=k, dtype=dtype, smoother=smoother,
+                            use_kernels=True, device="cuda", **kw)
+        return prob, sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+
+    def describe(label, prob, solver, method):
+        cfg = prob.config
+        return (f"{label}: sharded {method} 3D k={cfg.k} float32 "
+                f"{cfg.smoother} V({cfg.nu1},{cfg.nu2}) mesh "
+                f"{solver.mesh.shape}")
+
+    def want(method, slab, i, tier, kind="rbgs", pd=None, pairs=False):
+        """Launches of a solve: per cycle nu1 + nu2 = 4 sweep launches and
+        one residual a kernel level (the fine level in bfloat16 under a
+        mixed preconditioner: 3 bfloat16 sweeps, the last up sweep storing
+        float32, the bfloat16 residual); the slab check residual (1
+        plane) before the first cycle and after each, or PCG's first
+        residual and one apply an iteration; none on a pencil mesh."""
+        c = i if method == "mg" else i + 1
+        checks = (i + 1) if slab else 0
+        out = {f"stencil3d_{kind}": 4 * tier * c,
+               "stencil3d_residual": tier * c + checks}
+        if pd is not None:
+            out = {f"stencil3d_{kind}": 4 * (tier - 1) * c,
+                   "stencil3d_residual": (tier - 1) * c + checks,
+                   f"stencil3d_{kind}_bf16": 3 * c,
+                   f"stencil3d_{kind}_bf16_f32": c,
+                   "stencil3d_residual_bf16": c}
+            if pairs:
+                out["stencil3d_rbgs_bf16_pairs"] = 4 * c
+        return out
+
+    full = {}
+    for label, (shape, smoother, pd) in SHARDED3D_PATHS.items():
+        slab = len(shape) == 1
+        prob, solver = build(shape, smoother, precond_dtype=pd)
+        tier, stage = sharded3d_levels(prob, solver)
+        mixed = sharded.mixed_slab_dtype(prob.config, solver.decomp)
+        require((tier, stage, mixed) == (tier3(prob), 0, pd),
+                f"{label}: {tier} stack and {stage} stagewise levels, mixed "
+                f"{mixed}; not {tier3(prob)}, 0, {pd}")
+        single = mt.MultigridSolver(prob)
+        if pd is None:
+            methods = ("mg", "pcg") if smoother == "rbgs" else ("mg",)
+        else:
+            methods = ("pcg",)
+        for method in methods:
+            run = label + ("pcg" if method == "pcg" and pd is None else "")
+            if run == "slab511":
+                torch.cuda.reset_peak_memory_stats()
+            res, counts, wall = counted(
+                lambda: solver.solve(prob.b, method=method))
+            peak = None
+            if run == "slab511":
+                peak = runs["peak_slab511"] = torch.cuda.max_memory_allocated()
+            check_solve(describe(run, prob, solver, method), prob, single,
+                        res, wall, 3, peak)
+            i = res.iters
+            if pd is None and smoother == "rbgs":
+                against_single3d(run, res, single.solve(method=method),
+                                 method)
+            if pd is None:
+                if method == "pcg":
+                    full[(shape, smoother)] = res
+            else:
+                ref = full.get((shape, smoother))
+                if ref is None:
+                    _, ref_solver = build(shape, smoother)
+                    ref = full[(shape, smoother)] = ref_solver.solve(
+                        prob.b, method="pcg")
+                    del ref_solver
+                bound = math.ceil(MIXED_ITER_FACTOR * ref.iters) + 1
+                log(f"  float32 sharded pcg: {ref.iters} iterations, "
+                    f"converged {ref.converged}; bound {bound}")
+                require(ref.converged and res.converged and i <= bound,
+                        f"{run}: {i} iterations (converged {res.converged}) "
+                        f"against float32's {ref.iters}: bound {bound}")
+            if run in SHARDED3D_PLAIN_RUNS:
+                # The same solve on the plain stencil3d versions: the
+                # kernels' roundings do not set the iteration count.
+                with plain_stencil3d():
+                    pres, pcounts, pwall = counted(
+                        lambda: solver.solve(prob.b, method=method))
+                hist = res.res_history[: i + 1]
+                diff = ((hist - pres.res_history[: i + 1]).abs()
+                        / hist).max().item() if pres.iters == i else None
+                log(f"  plain stencil3d: {pres.iters} iterations, converged "
+                    f"{pres.converged}, history rel diff {diff}, wall "
+                    f"{pwall:.3f} s")
+                require(pres.converged and pres.iters == i
+                        and not any(pcounts.values()),
+                        f"{run} on plain stencil3d: {pres.iters} iterations "
+                        f"against the kernels' {i}, launches "
+                        f"{ {k: v for k, v in pcounts.items() if v} }")
+                del pres
+            require_counts(run, counts, **want(
+                method, slab, i, tier, smoother, pd,
+                pd is not None and smoother == "rbgs"
+                and stack_pairs(solver, prob.config.n)))
+            runs[run] = counts
+            runs[f"{run}_stats"] = dict(iters=i, wall_s=wall)
+            del res
+        del prob, solver, single
+        torch.cuda.empty_cache()
+    del full
+
+    # float64 at k = SHARDED3D_F64_K: kernel route against the plain
+    # sharded route (use_kernels=False), slab and pencil.
+    for shape in ((1,), (1, 1)):
+        out = {}
+        for use_kernels in (True, False):
+            prob = mt.poisson3d(k=SHARDED3D_F64_K, dtype=torch.float64,
+                                smoother="rbgs", use_kernels=use_kernels,
+                                tol=F64_TOL, device="cuda")
+            solver = sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+            res, counts, _ = counted(lambda: solver.solve(prob.b))
+            out[use_kernels] = (res, counts, sharded3d_levels(prob, solver))
+        (rk, ck, (tier, _)), (rp, _, _) = out[True], out[False]
+        hk, hp = (r.res_history[: r.iters + 1] for r in (rk, rp))
+        label = (f"sharded 3D float64 k={SHARDED3D_F64_K} mesh {shape}, "
+                 "kernel against plain")
+        same = rk.iters == rp.iters
+        over = (((hk - hp).abs() - F64_TOL * hp).max().item() if same
+                else float("inf"))
+        log(f"{label}: iters {rk.iters}/{rp.iters}, converged "
+            f"{rk.converged}/{rp.converged}, past rtol {F64_TOL} by at most "
+            f"{over:.2e} (floor {F64_FLOOR[3]})")
+        require(rk.converged and rp.converged and same
+                and over <= F64_FLOOR[3], f"{label}: {rk.iters}/{rp.iters}, "
+                f"over {over}")
+        require_counts(label, ck, **want("mg", len(shape) == 1, rk.iters,
+                                         tier))
+        del prob, solver, out, rk, rp
+    torch.cuda.empty_cache()
+
+    # Inverse iteration at 255^3 float64 on a slab mesh: II's inner cycles
+    # (counted around sharded._sharded_v_cycle) each launch the sweeps and
+    # residual on both kernel levels and the slab check residual; the
+    # Rayleigh quotients and Ritz steps apply A as the slab residual, one
+    # before the first step and two a step.
+    prob, solver = build((1,), "rbgs", torch.float64, SHARDED3D_EIGEN_K)
+    tier, _ = sharded3d_levels(prob, solver)
+    n = prob.config.n
+    exact = 3 * laplacian.eigenvalue_1d(1, n, 1.0 / (n + 1))
+    torch.cuda.reset_peak_memory_stats()
+    with count_level0_calls("_sharded_v_cycle") as cyc:
+        res, counts, wall = counted(lambda: solver.eigensolve(k=1))
+    peak = torch.cuda.max_memory_allocated()
+    lam, it, c = res.eigenvalues[0].item(), res.iters, cyc.count
+    rel = abs(lam - exact) / exact
+    log(f"slab-eigen: sharded eigensolve ii k=1 float64 {n}^3 mesh (1,): "
+        f"{it} outer steps, {c} cycles, converged {res.converged}, lambda_1 "
+        f"{lam:.12f} (exact rel {rel:.2e}), wall {wall:.3f} s, peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    require(res.converged and rel <= EIGEN_RTOL
+            and bool(res.eigenvectors.isfinite().all()),
+            f"slab-eigen: converged {res.converged}, rel error {rel:.3e}")
+    require_counts("slab-eigen", counts, stencil3d_rbgs=4 * tier * c,
+                   stencil3d_residual=tier * c + c + 2 * it + 1)
+    runs["slab-eigen"] = counts
+    runs["slab-eigen_stats"] = dict(outer_steps=it, cycles=c, wall_s=wall,
+                                    peak_bytes=peak, lambda1=lam)
+    del prob, solver, res
+    torch.cuda.empty_cache()
 
 
 def paths_sharded_eigen(runs: dict) -> None:
@@ -3752,7 +4089,7 @@ def paths_sharded_eigen(runs: dict) -> None:
     float64: each run converged, its eigenvalues against the exact ones (and
     S1eigen's against the single-device run's, the mixed runs' against
     S1eigen's), eigenvectors finite with zero ghosts, and exact launches as
-    a multiple of the whole-leg cycles it ran (counted around
+    a multiple of the whole-leg cycles it ran (count_level0_calls around
     sharded._leg_cycle_ext) and of its outer steps."""
     import multigridcmt_tpu_torch as mt
     from multigridcmt_tpu_torch.ops import laplacian
@@ -3779,7 +4116,7 @@ def paths_sharded_eigen(runs: dict) -> None:
         for method, block in methods:
             run = f"{label}_{method}{block}"
             torch.cuda.reset_peak_memory_stats()
-            with count_leg_cycles() as cyc:
+            with count_level0_calls("_leg_cycle_ext") as cyc:
                 res, counts, wall = counted(
                     lambda: solver.eigensolve(k=block, method=method))
             peak = torch.cuda.max_memory_allocated()
@@ -3885,6 +4222,9 @@ def phase_main_path():
     start = time.perf_counter()
     paths_mixed3d(runs)
     log(f"3D mixed-precision paths: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    paths_sharded3d(runs)
+    log(f"sharded 3D paths: {time.perf_counter() - start:.1f} s")
     return runs
 
 
@@ -5174,6 +5514,46 @@ def timed_fmg_eigen(times: dict) -> None:
     times["fmg_eigen"] = out
 
 
+def timed_sharded3d(times: dict) -> None:
+    """One V(2,2) RB-GS cycle at 511^3 float32 on a slab mesh and on a
+    pencil mesh of 1 (``v_cycle_fn``: owned tiles in and out, the
+    extended stacks built a level visit) beside the single-device cycle, in
+    turns (single, slab, pencil, single): its time by CUDA
+    events, the profiler's device busy time, ops and idle share a cycle,
+    and of the busy time the stencil3d kernels' and the cat and copy
+    kernels' (the stacks' extension and owned slices, and the plain
+    transfers' copies on either route)."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.breakdown import (SHARDED3D_KERNELS,
+                                                        device_busy)
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    prob = mt.poisson3d(k=MAIN_K3, dtype=torch.float32, smoother="rbgs",
+                        use_kernels=True, device="cuda")
+    single = mt.MultigridSolver(prob)
+    x = torch.zeros_like(prob.b)
+    fns = {"single": lambda: single.v_cycle(x, prob.b)}
+    keep = []
+    for label, shape in (("slab", (1,)), ("pencil", (1, 1))):
+        solver = sharded.ShardedSolver(prob.config, sharded_mesh(shape))
+        bt = sharded.shard_rhs(prob.b, solver.mesh, solver.decomp)
+        xt = torch.zeros_like(bt)
+        keep.append((solver, bt, xt))
+        fns[label] = functools.partial(solver.v_cycle_fn(), xt, bt)
+    row = {}
+    for label in ("single", "slab", "pencil", "single"):
+        ms = cuda_time_ms(fns[label], reps=10)
+        busy, ops, by = device_busy(fns[label], 3, SHARDED3D_KERNELS)
+        t = {"cycle_ms": ms, "busy_ms": busy, "ops": ops,
+             "idle": 1.0 - busy / ms, **by}
+        log(f"cycle 3D k={MAIN_K3} {label}: " + json.dumps(t))
+        row.setdefault(label, []).append(t)
+    times["sharded3d_cycles"] = row
+    del prob, single, x, fns, keep
+    torch.cuda.empty_cache()
+
+
 def timed_sharded_eigen(times: dict) -> None:
     """S1eigen's walls beside the single-device float64 eigensolve at
     4095^2 (the same method; CUDA events after a warm-up run, the median of
@@ -5237,6 +5617,11 @@ def phase_times():
     log(f"mixed-precision times: {time.perf_counter() - start:.1f} s")
     timed_composed(times)
     timed_3d(times)
+    # Early in the phase: device_busy reads low when run last (PERF.md,
+    # P16-2); this cycle's kernel counts read short there too.
+    start = time.perf_counter()
+    timed_sharded3d(times)
+    log(f"sharded 3D times: {time.perf_counter() - start:.1f} s")
     timed_sparse(times)
     timed_sharded(times)
     start = time.perf_counter()
@@ -5312,6 +5697,9 @@ def kernel_rows(names, runs, errs, times):
                  if runs[r][name]}
         if eigen:
             row["sharded_eigen_launches"] = eigen
+        slabs = {r: runs[r][name] for r in SHARDED3D_RUNS if runs[r][name]}
+        if slabs:
+            row["sharded3d_launches"] = slabs
         for variant, (*_, parts) in VARIANTS.items():
             if name in parts:     # the same run's launches by the variant
                 row["pairs_launches"] = (
@@ -5390,6 +5778,11 @@ def main() -> int:
         log(f"{key}: " + json.dumps(times[key]))
     for run in SHARDED_EIGEN_RUNS:
         log(f"{run}: " + json.dumps(runs[f"{run}_stats"]))
+    log(f"slab511 solve peak device memory: {runs['peak_slab511']} bytes "
+        f"(single-device 511^3 solve {runs['peak3d']} bytes)")
+    for run in SHARDED3D_RUNS:
+        log(f"{run}: " + json.dumps(runs[f"{run}_stats"]))
+    log("sharded3d_cycles: " + json.dumps(times["sharded3d_cycles"]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernel_rows(KERNELS, runs, errs, times)}))

@@ -142,3 +142,19 @@ def tile_from_jax(x_sharded, decomp: Decomp, coords, device=None):
         m = full.shape[a] // nd
         full = np.take(full, np.arange(c * m, (c + 1) * m), axis=a)
     return _tensor(full, device)
+
+
+def slab_stack_from_jax(s, planes: int, rows: int, n: int, device=None):
+    """The port's plane stack (planes, rows, n + 2) of a slab or pencil
+    level (``parallel.sharded._slab3d_level``: m0 + 2 hz planes; n + 2 rows
+    on a slab mesh, m1 + 2 hz on a pencil one) for a JAX extended stack,
+    which embeds it in its TPU layout (planes to a multiple of 4, rows to
+    one of 8, columns to one of 128) with the same entries first. On
+    ``device`` (None: the card)."""
+    device = check_device(device)
+    a = np.asarray(s)
+    if a.ndim != 3 or a.shape[0] < planes or a.shape[1] < rows \
+            or a.shape[2] < n + 2:
+        raise ValueError(f"a JAX plane stack of at least ({planes}, {rows}, "
+                         f"{n + 2}) expected, got shape {a.shape}")
+    return _tensor(a[:planes, :rows, :n + 2], device)

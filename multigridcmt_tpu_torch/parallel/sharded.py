@@ -1,9 +1,9 @@
-"""Distributed 2D multigrid over ``torch.distributed``: row and block
-decompositions, halo exchange, the ``local2d`` shard kernels and coarse-level
-agglomeration.
+"""Distributed multigrid over ``torch.distributed``: row and block
+decompositions in 2D, slab and pencil ones in 3D, halo exchange, the
+``local2d`` and ``stencil3d`` shard kernels and coarse-level agglomeration.
 
-PyTorch port of the 2D V/W-cycle solve of
-``multigridcmt_tpu.parallel.sharded``, with the same partitioning and the
+PyTorch port of ``multigridcmt_tpu.parallel.sharded``, with the same
+partitioning and the
 same arithmetic. Each rank is one process holding one tile; where JAX runs
 one SPMD program under ``shard_map``, each rank here runs the same host code
 on its own tile, and its coordinates on the mesh are plain ints.
@@ -14,9 +14,9 @@ the D ranks of the axis, rank d owning m = 2^k / D entries, global d*m + 1 ..
 (d+1)*m; the far ghost is a dead entry of the last rank that the masks keep
 zero, and the near ghost is never stored: a rank with no neighbour on a side
 receives zeros, the Dirichlet ghosts. Coarsening halves m per level. A 1D
-mesh shards axis 0 (rows), a 2D mesh axes 0 and 1 (blocks). Tiles hold the
-owned entries along sharded axes and the full padded extent along the
-others.
+mesh shards axis 0 (rows in 2D, planes in 3D: slabs), a 2D mesh axes 0 and
+1 (blocks; pencils). Tiles hold the owned entries along sharded axes and the
+full padded extent along the others.
 
 The exchange: JAX's ``ppermute`` with ``_perm_down``/``_perm_up`` is
 ``_swap`` here, one ``dist.batch_isend_irecv`` with the neighbours along one
@@ -28,7 +28,7 @@ then computes, with the same fix-up arithmetic, so the results agree to the
 ulp.
 
 Routes, by level (read when called: ``kernels.KERNEL_MIN_N``,
-``kernels.PACK_MIN_N``):
+``kernels.PACK_MIN_N``, ``kernels.KERNEL3_MIN_N``):
   * whole-leg levels (``_leg_level_ok``: RB-GS or Jacobi within the legs'
     sweep caps, n >= KERNEL_MIN_N, tiles at least HALO_ROWS deep): the cycle
     runs on extended tiles, one ``local2d.down_leg`` and one ``up_leg`` a
@@ -42,9 +42,25 @@ Routes, by level (read when called: ``kernels.KERNEL_MIN_N``,
     the down leg emits the coarse right-hand side unpacked, so every
     coarser level is unchanged. ``v_cycle_fn`` (one cycle, owned tiles in
     and out) stays unpacked, as JAX's per-application entry does;
+  * 3D extended-stack levels (``_slab3d_level``: RB-GS or Jacobi, n >=
+    KERNEL3_MIN_N, tiles holding hz = ``_slab3d_hz_level`` ghost planes, and
+    on a pencil mesh hz ghost rows): x and b are extended once a visit into
+    plane stacks, the ``stencil3d`` sweeps and residual run on them at the
+    stack's global (plane, row) offsets, the owned residual is restricted
+    plainly, and the correction is added in place before a ghost refresh
+    and the up smoothing;
   * other sharded levels: the owned-tile route, ``s_smooth``/``s_residual``
-    (the ``local2d`` sweeps and residual on kernel-sized tiles, the plain
-    halo-exchanging stencils below) and the plain ``s_restrict``/``s_prolong``;
+    (the ``local2d`` sweeps and residual on kernel-sized 2D tiles, the
+    ``stencil3d`` ones on slab stacks of the stage's own halo, the plain
+    halo-exchanging stencils below and on pencil meshes) and the plain
+    ``s_restrict``/``s_prolong``. The stagewise slab stacks serve a kernel
+    level whose slabs are too shallow for the extended-stack level
+    (``_s_smooth_slab3d``, ``_s_smooth_residual_slab3d``): with the shipped
+    KERNEL3_MIN_N and V(2,2) RB-GS that is 4 planes a rank at n >= 127,
+    so 32 slab ranks or more, and no mesh of one or four cards takes it;
+    the tests reach it by lowering KERNEL3_MIN_N. The 1-plane slab
+    residual (``_s_residual_slab3d``) is the slab solve's check and PCG's
+    and the eigensolvers' apply on every slab mesh;
   * levels too small to shard (``_is_sharded``): gathered onto every rank and
     solved there by the plain single-device cycle.
 Full multigrid (``cycle="fmg"``, ``_sharded_fmg``) walks linearly only, as
@@ -63,10 +79,12 @@ kernels, as JAX's do: the fine level's tiles are stored in bfloat16 (the
 legs' bfloat16 modes, halo slabs exchanged in bfloat16), its down leg emits
 the coarse levels in float32, its up leg stores the cycle's output in
 float32 (``out_dtype``), and the outer recurrences, dots, applies and
-residuals stay in ``config.dtype``. Everywhere else, and in the solve by
-cycles, FMG, ``v_cycle_fn`` and ``v_cycles_fn``, precond_dtype is ignored,
-as in JAX. 3D slabs and pencils are not ported: they raise
-``NotImplementedError`` naming their ROADMAP.md item.
+residuals stay in ``config.dtype``. In 3D sharded MG-PCG casts where
+JAX's ``mixed_slab_dtype`` does: the fine stack in bfloat16 (the stencil3d
+kernels' bfloat16 modes), its residual and the levels below in float32,
+its up smoothing's last sweep stored in float32. Everywhere else, and in
+the solve by cycles, FMG, the eigensolvers in 3D, ``v_cycle_fn`` and
+``v_cycles_fn``, precond_dtype is ignored, as in JAX.
 JAX's ``*_pallas`` helpers are ``*_kernel`` here, and its ``_ext_aligned``
 is ``_ext_tile``: the port keeps every tile at its logical extent, with no
 alignment padding.
@@ -86,9 +104,6 @@ from ..grids import (Hierarchy, build_hierarchy, check_device, interior,
                      pad_interior)
 from ..ops import laplacian, smoothers, transfer
 from ..solvers import cycles, krylov
-
-SLAB_TODO = ("sharded 3D solves (slabs and pencils) are not ported yet "
-             "(ROADMAP.md, queue 1: sharded 3D slabs and pencils)")
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +387,8 @@ def s_residual(u, b, n, h, decomp: Decomp, sigma=0.0,
     axis)."""
     if use_kernels and _local_kernel_ok(u, n, "rbgs", decomp):
         return _s_residual_kernel(u, b, n, h, decomp, sigma)
+    if use_kernels and _slab3d_ok(u, n, "rbgs", decomp, 1):
+        return _s_residual_slab3d(u, b, n, h, decomp, sigma)
     nbr = _neighbor_sum_dd(u, decomp)
     ctr = _slice_unsharded(u, decomp)
     inv_h2 = 1.0 / (h * h)
@@ -414,6 +431,10 @@ def s_smooth(u, b, n, h, *, kind, omega, sweeps, decomp: Decomp, sigma=0.0,
                                       use_kernels=use_kernels))
     if use_kernels and _local_kernel_ok(u, n, kind, decomp):
         return _s_smooth_kernel(u, b, n, h, kind=kind, omega=omega,
+                                sweeps=sweeps, decomp=decomp, sigma=sigma)
+    if use_kernels and _slab3d_ok(u, n, kind, decomp,
+                                  _slab3d_hz(kind, sweeps)):
+        return _s_smooth_slab3d(u, b, n, h, kind=kind, omega=omega,
                                 sweeps=sweeps, decomp=decomp, sigma=sigma)
     for _ in range(sweeps):
         if kind == "jacobi":
@@ -511,11 +532,13 @@ def _local_kernel_ok(u, n, kind, decomp: Decomp) -> bool:
 def _ext_tile(u, decomp: Decomp, hh: int):
     """Extend an owned tile by hh ghost entries on every sharded axis, rows
     first, then columns: the column slabs then carry the row ghosts, so the
-    corner ghosts arrive without diagonal exchanges."""
+    corner ghosts arrive without diagonal exchanges. Each axis is one cat
+    along it (a cat of moved views would copy the tile twice more)."""
     for a, ma, _ in decomp.axes:
-        v = u.movedim(a, 0)
-        near, far = _swap(v[-hh:], v[:hh], decomp.mesh, ma)
-        u = torch.cat([near, v, far], dim=0).movedim(0, a)
+        m = u.shape[a]
+        near, far = _swap(u.narrow(a, max(m - hh, 0), min(hh, m)),
+                          u.narrow(a, 0, min(hh, m)), decomp.mesh, ma)
+        u = torch.cat([near, u, far], dim=a)
     return u.contiguous()
 
 
@@ -529,12 +552,18 @@ def _refresh_ext(ue, decomp: Decomp, hh: int, ms):
     same way: row slabs move on the plane axis + 1, column slabs are hh/2
     lanes of both planes (hh unpacked columns; a column neighbour's tile is
     mcol columns on, mcol even, so its packing phase is the same)."""
-    packed = ue.ndim == 3
-    for (a, ma, _), m in zip(decomp.axes, ms):
-        if packed:
-            axis, hloc, mloc = (1, hh, m) if a == 0 else (2, hh // 2, m // 2)
-        else:
-            axis, hloc, mloc = a, hh, m
+    if ue.ndim == 3:
+        spans = [(1, hh, m) if a == 0 else (2, hh // 2, m // 2)
+                 for (a, _, _), m in zip(decomp.axes, ms)]
+    else:
+        spans = [(a, hh, m) for (a, _, _), m in zip(decomp.axes, ms)]
+    return _refresh_spans(ue, decomp, spans)
+
+
+def _refresh_spans(ue, decomp: Decomp, spans):
+    """Exchange ghost slabs in place along each sharded axis in turn;
+    ``spans``: per mesh axis (array axis, ghost depth, owned extent)."""
+    for (_, ma, _), (axis, hloc, mloc) in zip(decomp.axes, spans):
         v = ue.movedim(axis, 0)
         near, far = _swap(v[mloc:hloc + mloc], v[hloc:2 * hloc], decomp.mesh,
                           ma)
@@ -739,6 +768,153 @@ def _s_smooth_residual_kernel(u, b, n, h, *, kind, omega, sweeps,
 
 
 # ---------------------------------------------------------------------------
+# The stencil3d kernel tier on slab and pencil stacks
+# ---------------------------------------------------------------------------
+#
+# A 3D tile extended by hz ghost planes (and, on a pencil mesh, hz ghost
+# rows) is a plane stack of the stencil3d kernels: (m0 + 2 hz, n + 2, n + 2)
+# on a slab mesh, (m0 + 2 hz, m1 + 2 hz, n + 2) on a pencil mesh, whose plane
+# 0 is global plane goff = d0 m0 + 1 - hz and row 0 global row roff = d1 m1
+# + 1 - hz (0 on slabs). The kernels leave the stack's edge planes and rows
+# alone (zero the planes), so each chained sweep makes 2 ghost planes and
+# rows a side stale (RB-GS: red reads +-1 around black's +-1), 1 for
+# Jacobi; hz covers that, and the owned points come out as the global
+# sweep's. JAX pads its stacks to its TPU layout (planes to 4, rows to 8,
+# columns to 128); the port's kernels take the stack as it is.
+
+def _slab3d_hz(kind: str, sweeps: int) -> int:
+    """Ghost planes a side that ``sweeps`` chained sweeps make stale."""
+    return 2 * sweeps if kind == "rbgs" else sweeps
+
+
+def _slab3d_hz_level(cfg: SolverConfig) -> int:
+    """Ghost planes (and pencil rows) of one extended-stack level visit:
+    the down smoothing's staleness and one more plane for the residual,
+    or the up smoothing's."""
+    if cfg.smoother == "rbgs":
+        return max(2 * cfg.nu1 + 1, 2 * cfg.nu2)
+    return max(cfg.nu1 + 1, cfg.nu2)
+
+
+def _slab3d_ok(u, n: int, kind: str, decomp: Decomp, hz: int) -> bool:
+    """The stencil3d kernels serve this owned tile on a slab mesh with an
+    hz-plane halo: 3D, planes sharded alone, RB-GS or Jacobi, n >=
+    kernels.KERNEL3_MIN_N (read when called), the tile at least max(hz, 3)
+    planes deep. JAX's gate also asks its TPU kernel's VMEM budget, which
+    picks an implementation, not the arithmetic; the port has none."""
+    from .. import kernels
+
+    return (decomp.ndim == 3 and len(decomp.axes) == 1
+            and decomp.axes[0][0] == 0 and kind in ("rbgs", "jacobi")
+            and n >= kernels.KERNEL3_MIN_N and u.shape[0] >= max(hz, 3))
+
+
+def _pencil3d_ok(u, n: int, cfg: SolverConfig, decomp: Decomp) -> bool:
+    """The extended-stack level serves this owned tile on a pencil mesh:
+    planes and rows sharded, RB-GS or Jacobi, n >= KERNEL3_MIN_N, the tile
+    at least max(hz, 3) planes and hz rows deep (hz = _slab3d_hz_level)."""
+    from .. import kernels
+
+    if not (decomp.ndim == 3 and len(decomp.axes) == 2
+            and decomp.axes[0][0] == 0 and decomp.axes[1][0] == 1
+            and cfg.smoother in ("rbgs", "jacobi")
+            and n >= kernels.KERNEL3_MIN_N):
+        return False
+    hz = _slab3d_hz_level(cfg)
+    return u.shape[0] >= max(hz, 3) and u.shape[1] >= hz
+
+
+def _stack_sweeps(kind, xe, be, n, h, omega, sigma, sweeps, goff, roff,
+                  out_dtype=None):
+    """``sweeps`` stencil3d sweeps of ``kind`` on a plane stack."""
+    from ..kernels import stencil3d
+
+    if kind == "rbgs":
+        return stencil3d.rbgs_sweep(xe, be, n, h, sigma=sigma, sweeps=sweeps,
+                                    goff=goff, roff=roff, out_dtype=out_dtype)
+    return stencil3d.jacobi_sweep(xe, be, n, h, omega, sigma=sigma,
+                                  sweeps=sweeps, goff=goff, roff=roff,
+                                  out_dtype=out_dtype)
+
+
+def _s_smooth_slab3d(u, b, n, h, *, kind, omega, sweeps, decomp: Decomp,
+                     sigma=0.0):
+    """Slab smoothing by the stencil3d sweeps: one exchange of hz =
+    _slab3d_hz(kind, sweeps) ghost planes, all sweeps on the stack, the
+    owned planes back. (With no sweeps, u as it is: JAX's hz = 0 stack
+    would take whole neighbour tiles.)"""
+    if sweeps == 0:
+        return u
+    hz = _slab3d_hz(kind, sweeps)
+    goff, _, owned = _local_offsets(u, decomp, hz)
+    out = _stack_sweeps(kind, _ext_tile(u, decomp, hz),
+                        _ext_tile(b, decomp, hz), n, h, omega, sigma, sweeps,
+                        goff, 0)
+    return out[owned].contiguous()
+
+
+def _s_residual_slab3d(u, b, n, h, decomp: Decomp, sigma=0.0):
+    """The slab residual by the stencil3d kernel on a 1-plane halo."""
+    from ..kernels import stencil3d
+
+    goff, _, owned = _local_offsets(u, decomp, 1)
+    out = stencil3d.residual(_ext_tile(u, decomp, 1), _ext_tile(b, decomp, 1),
+                             n, h, sigma=sigma, goff=goff)
+    return out[owned].contiguous()
+
+
+def _s_smooth_residual_slab3d(u, b, n, h, *, kind, omega, sweeps,
+                              decomp: Decomp, sigma=0.0):
+    """Down-leg pair (smooth^sweeps, residual) on one slab stack: one ghost
+    plane past the smoothing's staleness, so the residual on the smoothed
+    stack reads exact ghosts. Returns (u_smoothed, r), owned tiles."""
+    from ..kernels import stencil3d
+
+    hz = _slab3d_hz(kind, sweeps) + 1
+    goff, _, owned = _local_offsets(u, decomp, hz)
+    be = _ext_tile(b, decomp, hz)
+    us = _stack_sweeps(kind, _ext_tile(u, decomp, hz), be, n, h, omega,
+                       sigma, sweeps, goff, 0)
+    r = stencil3d.residual(us, be, n, h, sigma=sigma, goff=goff)
+    return us[owned].contiguous(), r[owned].contiguous()
+
+
+def _slab3d_level(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp, x, b,
+                  level: int, gamma: int, sigma, cfg_repl, out_dtype=None):
+    """One cycle level on a slab or pencil mesh with the extended stacks
+    of x and b built once a visit: the down smoothing, the residual on the
+    same stack, the plain restriction of its owned points, the coarse
+    correction added in place (in the stack's dtype), a ghost refresh
+    (planes, then rows: the row slabs carry the refreshed plane ghosts,
+    the corners), the up smoothing (its last sweep stored in
+    ``out_dtype``). Owned tiles in and out; the owned points equal the
+    stagewise route's. A bfloat16 stack (the top of a mixed cycle) runs
+    the kernels' bfloat16 modes; its residual is float32, so the levels
+    below run in float32."""
+    from ..kernels import stencil3d
+
+    spec = hier.levels[level]
+    n, h = spec.n, spec.h
+    omega = cfg.effective_omega()
+    hz = _slab3d_hz_level(cfg)
+    goff, roff, owned = _local_offsets(x, decomp, hz)
+    spans = [(a, hz, x.shape[a]) for a, _, _ in decomp.axes]
+    xe, be = _ext_tile(x, decomp, hz), _ext_tile(b, decomp, hz)
+    xe = _stack_sweeps(cfg.smoother, xe, be, n, h, omega, sigma, cfg.nu1,
+                       goff, roff)
+    r = stencil3d.residual(xe, be, n, h, sigma=sigma, goff=goff, roff=roff)
+    rc = s_restrict(r[owned].contiguous(), n, decomp)
+    del r
+    corr = _coarse_correction(hier, cfg, decomp, rc, level, gamma, sigma,
+                              cfg_repl)
+    xe[owned] += corr.to(xe.dtype)
+    _refresh_spans(xe, decomp, spans)
+    xe = _stack_sweeps(cfg.smoother, xe, be, n, h, omega, sigma, cfg.nu2,
+                       goff, roff, out_dtype)
+    return xe[owned].contiguous()
+
+
+# ---------------------------------------------------------------------------
 # The sharded cycle: sharded fine levels, agglomerated coarse levels
 # ---------------------------------------------------------------------------
 
@@ -910,6 +1086,48 @@ def mixed_leg_dtype(cfg: SolverConfig, decomp: Decomp):
     return pd
 
 
+def mixed_slab_dtype(cfg: SolverConfig, decomp: Decomp):
+    """The 3D twin of ``mixed_leg_dtype``: the dtype sharded MG-PCG casts
+    its preconditioning cycle to on a slab or pencil mesh, or None. It is
+    ``precond_dtype`` where JAX's ``mixed_slab_dtype`` casts: RB-GS or
+    Jacobi with kernels on, the fine level on the stencil3d tier (n >=
+    KERNEL3_MIN_N), sharded, its tiles holding the level's ghost budget,
+    and JAX's TPU plane ring within its VMEM budget for the stack's plane
+    (``krylov._jax_fits_vmem``: n + 2 rows on slabs, m1 + 2 hz on pencils).
+    That budget says nothing about the H100; it is kept only so that the
+    port casts exactly where JAX casts. A dtype the kernels do not store
+    raises, as ``mixed_leg_dtype`` does."""
+    from .. import kernels
+
+    pd = cfg.precond_dtype if cfg.precond_dtype is not None else cfg.dtype
+    if pd == cfg.dtype:
+        return None
+    if (cfg.ndim != 3 or not cfg.use_kernels
+            or cfg.smoother not in ("rbgs", "jacobi")
+            or len(decomp.axes) not in (1, 2)
+            or any(decomp.axes[i][0] != i for i in range(len(decomp.axes)))):
+        return None
+    n = cfg.n
+    hz = _slab3d_hz_level(cfg)
+    m0 = 2 ** cfg.k // decomp.axes[0][2]
+    if (n < kernels.KERNEL3_MIN_N or m0 < max(hz, 3)
+            or not _is_sharded(cfg, decomp, 0)):
+        return None
+    rows = n + 2
+    if len(decomp.axes) == 2:
+        m1 = 2 ** cfg.k // decomp.axes[1][2]
+        if m1 < hz:
+            return None
+        rows = m1 + 2 * hz
+    if not krylov._jax_fits_vmem(rows, n + 2, pd):
+        return None
+    if pd not in krylov._CYCLE_DTYPES:
+        raise NotImplementedError(
+            f"sharded MG-PCG with precond_dtype={pd}: the kernels store "
+            "bfloat16, float32 or float64 only")
+    return pd
+
+
 def _sharded_v_cycle_leg(hier: Hierarchy, cfg: SolverConfig,
                          decomp: Decomp, x, b, level: int, gamma: int,
                          sigma, out_dtype=None):
@@ -933,7 +1151,8 @@ def _sharded_v_cycle(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
     """Recursive cycle; tiles are owned tiles while the level is sharded
     and full grids on every rank below the agglomeration cutoff. ``sigma``
     shifts the operator to A - sigma I; ``out_dtype`` reaches a whole-leg
-    level's up leg (``_sharded_v_cycle_leg``)."""
+    level's up leg (``_sharded_v_cycle_leg``) or an extended-stack level's
+    up smoothing (``_slab3d_level``)."""
     from ..kernels.local2d import HALO_ROWS
 
     spec = hier.levels[level]
@@ -949,14 +1168,27 @@ def _sharded_v_cycle(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
     if _leg_level_ok(cfg, decomp, level):
         return _sharded_v_cycle_leg(hier, cfg, decomp, x, b, level, gamma,
                                     sigma, out_dtype=out_dtype)
+    # A slab or pencil level whose tiles hold the level's ghost budget:
+    # the extended stacks built once a visit.
+    kind = cfg.smoother
+    if cfg.use_kernels and (
+            _slab3d_ok(x, n, kind, decomp, _slab3d_hz_level(cfg))
+            or _pencil3d_ok(x, n, cfg, decomp)):
+        return _slab3d_level(hier, cfg, decomp, x, b, level, gamma, sigma,
+                             cfg_repl, out_dtype=out_dtype)
     # Smooth and residual share one exchange on the kernel tier while the
     # residual's ghost reads stay exact (2 nu1 < HALO_ROWS for RB-GS,
-    # nu1 < HALO_ROWS for Jacobi).
-    stale = 2 * cfg.nu1 if cfg.smoother == "rbgs" else cfg.nu1
-    if (cfg.use_kernels and _local_kernel_ok(x, n, cfg.smoother, decomp)
+    # nu1 < HALO_ROWS for Jacobi; on slabs one plane past the smoothing's).
+    stale = 2 * cfg.nu1 if kind == "rbgs" else cfg.nu1
+    if (cfg.use_kernels and _local_kernel_ok(x, n, kind, decomp)
             and stale < HALO_ROWS):
         x, r = _s_smooth_residual_kernel(
-            x, b, n, h, kind=cfg.smoother, omega=omega, sweeps=cfg.nu1,
+            x, b, n, h, kind=kind, omega=omega, sweeps=cfg.nu1,
+            decomp=decomp, sigma=sigma)
+    elif cfg.use_kernels and _slab3d_ok(x, n, kind, decomp,
+                                        _slab3d_hz(kind, cfg.nu1) + 1):
+        x, r = _s_smooth_residual_slab3d(
+            x, b, n, h, kind=kind, omega=omega, sweeps=cfg.nu1,
             decomp=decomp, sigma=sigma)
     else:
         x = s_smooth(x, b, n, h, kind=cfg.smoother, omega=omega,
@@ -1054,9 +1286,10 @@ def unshard(x_tiles, decomp: Decomp):
 class ShardedSolver:
     """Distributed V/W-cycle solver: domain-decomposed cycles to tolerance.
 
-    The decomposition follows the mesh: a 1D mesh shards axis 0 (rows), a
-    2D mesh axes 0 and 1 (blocks). Every rank of the mesh constructs the
-    solver and calls ``solve`` with the same full right-hand side.
+    The decomposition follows the mesh: a 1D mesh shards axis 0 (rows, or
+    slabs in 3D), a 2D mesh axes 0 and 1 (blocks, or pencils). Every rank
+    of the mesh constructs the solver and calls ``solve`` with the same
+    full right-hand side.
 
     >>> mesh = make_mesh()              # rows, after init_process_group
     >>> s = ShardedSolver(SolverConfig(ndim=2, k=11, smoother="rbgs",
@@ -1066,8 +1299,6 @@ class ShardedSolver:
 
     def __init__(self, config: SolverConfig, mesh: Mesh,
                  hierarchy: Optional[Hierarchy] = None):
-        if config.ndim == 3:
-            raise NotImplementedError(SLAB_TODO)
         if config.cycle == "fmg" and config.fmg_prolong != "linear":
             # JAX's distributed walk prolongs linearly whatever the config
             # says (ROADMAP.md queue 3, F4); the port does not run another
@@ -1155,11 +1386,11 @@ class ShardedSolver:
         operand's ghost slabs first, and dots sum the owned points only.
         The apply is ``plocal2d.apply_op`` on a packed tile, -residual(p,
         0) on an unpacked one (the local2d kernel, or ``s_residual`` on
-        owned tiles). Mixed precision (``mixed_leg_dtype``): the refreshed
-        residual is cast to the preconditioner's dtype, the cycle stores
-        its top level in float32 (JAX's ``out_dtype``, the repair of the
-        final bfloat16 store's noise) and z is cast back; nothing else
-        changes dtype."""
+        owned tiles). Mixed precision (``mixed_leg_dtype`` in 2D,
+        ``mixed_slab_dtype`` in 3D): the (refreshed) residual is cast to
+        the preconditioner's dtype, the cycle stores its top level in
+        float32 (JAX's ``out_dtype``, the repair of the final bfloat16
+        store's noise) and z is cast back; nothing else changes dtype."""
         from ..kernels import _wrap
         from ..solvers.krylov import cg_loop
 
@@ -1213,9 +1444,14 @@ class ShardedSolver:
             return -s_residual(p, torch.zeros_like(p), n, h, decomp,
                                use_kernels=cfg.use_kernels)
 
+        pd3 = mixed_slab_dtype(cfg, decomp)
+
         def precond(r):
-            return _sharded_v_cycle(hier, cfg, decomp, torch.zeros_like(r), r,
-                                    0, gamma)
+            rp = r if pd3 is None else r.to(pd3)
+            z = _sharded_v_cycle(
+                hier, cfg, decomp, torch.zeros_like(rp), rp, 0, gamma,
+                out_dtype=None if pd3 is None else _wrap.compute_dtype(pd3))
+            return z.to(r.dtype)
 
         def residual(xx, bb):
             return s_residual(xx, bb, n, h, decomp,

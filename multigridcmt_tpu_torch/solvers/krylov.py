@@ -45,10 +45,16 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b)
 
 
-def _jax_casts_3d(n: int, dtype: torch.dtype) -> bool:
-    r = -(-(n + 2) // 8) * 8
-    c = -(-(n + 2) // 128) * 128
+def _jax_fits_vmem(rows: int, cols: int, dtype: torch.dtype) -> bool:
+    """JAX's fits_vmem for a plane of rows x cols points in its TPU
+    layout (rows to a multiple of 8, columns to one of 128)."""
+    r = -(-rows // 8) * 8
+    c = -(-cols // 128) * 128
     return 17 * r * c * dtype.itemsize <= _JAX_PLANE_BUDGET_BYTES
+
+
+def _jax_casts_3d(n: int, dtype: torch.dtype) -> bool:
+    return _jax_fits_vmem(n + 2, n + 2, dtype)
 
 
 def mixed_cycle_dtype(config: SolverConfig, route: str = "MG-PCG"):

@@ -5,6 +5,7 @@
     python -m multigridcmt_tpu_torch.utils.breakdown --nu1 4 --nu2 4
     python -m multigridcmt_tpu_torch.utils.breakdown --ndim 3 [--k 9]
     python -m multigridcmt_tpu_torch.utils.breakdown --mesh rows|block
+    python -m multigridcmt_tpu_torch.utils.breakdown --ndim 3 --mesh rows|block
     python -m multigridcmt_tpu_torch.utils.breakdown --sweeps
     python -m multigridcmt_tpu_torch.utils.breakdown --transfers
     python -m multigridcmt_tpu_torch.utils.breakdown --sparse
@@ -52,6 +53,15 @@ local2d (unpacked) at nu = 0, 1, 2 and the cap, beside the packed2d legs
 on the whole grid; at the next level the local2d legs beside the fused2d
 legs on the whole grid.
 
+With ``--ndim 3 --mesh rows`` (a slab mesh of 1) or ``--mesh block`` (a
+pencil mesh of 1), the sharded 3D cycle at 511^3 (the default k = 9):
+``v_cycle_fn`` and ``v_cycles_fn`` over 20 cycles, then the single-device
+kernel cycle, each with the same figures a cycle plus the device time of
+the stencil3d kernels and of the cat and copy kernels (on the sharded
+route the extended stacks' builds and owned slices, on both the plain
+transfers' copies), and each solve's cycles, wall time and peak device
+memory.
+
 With ``--no-levels``, the routes alone (no per-level times). With
 ``--transfers``, only transfer2d.residual_restrict at the composed cycles'
 levels 2047...255, beside the zero-sweep fused2d down leg (the same
@@ -83,6 +93,7 @@ Informative only: nothing is checked. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import re
 import subprocess
 import time
@@ -128,6 +139,14 @@ ROUTE_KERNELS = {
     # transfer2d.residual_restrict: the row stream's residual_restrict_kernel
     # (its shared-memory rr_kernel before it).
     "residual_restrict": re.compile(r"(?<!\w)(rr|residual_restrict)_kernel<"),
+}
+# The sharded 3D cycle's kernels by name: the stencil3d z-march (the
+# RB-GS sweep's rbgs_kernel and rbgs_pairs_kernel, the residual's and
+# Jacobi's pass_kernel), and the copies (torch.cat's CatArrayBatchedCopy,
+# the strided copies of .contiguous() and of slab writes).
+SHARDED3D_KERNELS = {
+    "stencil3d kernels": re.compile(r"(?<!\w)(rbgs|rbgs_pairs|pass)_kernel<"),
+    "cat and copy kernels": re.compile(r"CatArrayBatchedCopy|copy_kernel"),
 }
 # Cycles of the chain a timing of v_cycles_fn runs.
 CHAIN = 20
@@ -235,10 +254,10 @@ def route(label: str, k: int, ndim: int, use_kernels: bool, reps: int,
     torch.cuda.empty_cache()
 
 
-def sharded_routes(k: int, reps: int, mesh_kind: str,
-                   schedule: dict) -> None:
-    """The sharded cycle on a mesh of 1, as shipped and with KERNEL_MIN_N
-    = 7, then the single-device kernel route."""
+@contextlib.contextmanager
+def world_of_one(mesh_kind: str):
+    """A torch.distributed world of 1 over NCCL (a file rendezvous, no
+    network) and its row mesh or (1, 1) block mesh; destroyed on exit."""
     import os
     import tempfile
 
@@ -246,15 +265,27 @@ def sharded_routes(k: int, reps: int, mesh_kind: str,
 
     from multigridcmt_tpu_torch.parallel import sharded
 
-    shipped = kernels.KERNEL_MIN_N
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.set_device(0)
         dist.init_process_group(
             "nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
             world_size=1, rank=0)
         try:
-            mesh = (sharded.make_mesh() if mesh_kind == "rows"
-                    else sharded.make_block_mesh((1, 1)))
+            yield (sharded.make_mesh() if mesh_kind == "rows"
+                   else sharded.make_block_mesh((1, 1)))
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_routes(k: int, reps: int, mesh_kind: str,
+                   schedule: dict) -> None:
+    """The sharded cycle on a mesh of 1, as shipped and with KERNEL_MIN_N
+    = 7, then the single-device kernel route."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    shipped = kernels.KERNEL_MIN_N
+    with world_of_one(mesh_kind) as mesh:
+        try:
             for label, kmin in ((f"sharded {mesh_kind}", shipped),
                                 (f"sharded {mesh_kind}, KERNEL_MIN_N=7", 7)):
                 kernels.KERNEL_MIN_N = kmin
@@ -275,14 +306,59 @@ def sharded_routes(k: int, reps: int, mesh_kind: str,
                 torch.cuda.empty_cache()
         finally:
             kernels.KERNEL_MIN_N = shipped
-            dist.destroy_process_group()
     route("single device, kernel", k, 2, True, reps, schedule)
     if mesh_kind == "rows":
         tile_legs(k, schedule)
 
 
-def sharded_cycle(label: str, fn, cycles: int, reps: int) -> None:
-    """One line for a sharded cycle: fn runs ``cycles`` cycles."""
+def sharded3d_routes(k: int, reps: int, mesh_kind: str,
+                     schedule: dict) -> None:
+    """The sharded 3D cycle on a slab (rows) or pencil (block) mesh of 1,
+    one cycle and the chain, then the single-device kernel cycle; each
+    route's solve."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    prob = mt.poisson3d(k=k, dtype=torch.float32, use_kernels=True,
+                        device="cuda", **schedule)
+    with world_of_one(mesh_kind) as mesh:
+        solver = sharded.ShardedSolver(prob.config, mesh)
+        cycle = solver.v_cycle_fn()
+        b = sharded.shard_rhs(prob.b, mesh, solver.decomp)
+        x = torch.zeros_like(b)
+        chain = solver.v_cycles_fn()
+        label = "sharded 3D " + ("slab" if mesh_kind == "rows" else "pencil")
+        for what, fn, cycles in (
+                ("v_cycle_fn", lambda: cycle(x, b), 1),
+                (f"v_cycles_fn, {CHAIN} chained",
+                 lambda: chain(x, b, CHAIN), CHAIN)):
+            sharded_cycle(f"{label}, {what}", fn, cycles, reps,
+                          SHARDED3D_KERNELS)
+        solve_line(label, lambda: solver.solve(prob.b))
+        del solver, b, x, chain
+    single = mt.MultigridSolver(prob)
+    x0 = torch.zeros_like(prob.b)
+    sharded_cycle("single device, kernel", lambda: single.v_cycle(x0, prob.b),
+                  1, reps, SHARDED3D_KERNELS)
+    solve_line("single device, kernel", single.solve)
+
+
+def solve_line(label: str, solve) -> None:
+    """One line for a solve: cycles, wall time, peak device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = solve()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    print(f"{label}: solve {res.iters} cycles {wall:.1f} ms, final "
+          f"{res.res_history[res.iters].item():.4e}, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+
+
+def sharded_cycle(label: str, fn, cycles: int, reps: int,
+                  groups: dict = SHARDED_KERNELS) -> None:
+    """One line for a sharded cycle: fn runs ``cycles`` cycles; the
+    device time of the kernels ``groups`` names."""
     ms = cuda_time_ms(fn, reps=max(1, 20 // cycles)) / cycles
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -291,7 +367,7 @@ def sharded_cycle(label: str, fn, cycles: int, reps: int) -> None:
     torch.cuda.synchronize()
     host_ms = ((time.perf_counter() - t0) * 1e3
                / (max(1, 20 // cycles) * cycles))
-    busy, ops, by = device_busy(fn, max(1, reps // cycles), SHARDED_KERNELS)
+    busy, ops, by = device_busy(fn, max(1, reps // cycles), groups)
     busy, ops = busy / cycles, ops / cycles
     kern = ", ".join(f"{name} {t / cycles:.4f}" for name, t in by.items())
     print(f"{label}: cycle {ms:.4f} ms (events), {host_ms:.4f} ms (host "
@@ -611,7 +687,8 @@ def main() -> None:
     ap.add_argument("--nu1", type=int, default=2)
     ap.add_argument("--nu2", type=int, default=2)
     ap.add_argument("--mesh", choices=("rows", "block"), default=None,
-                    help="break down the sharded 2D cycle on a mesh of 1")
+                    help="break down the sharded cycle on a mesh of 1 (in "
+                    "3D: slabs or pencils)")
     ap.add_argument("--sweeps", action="store_true",
                     help="time the fused sweeps of the composed cycles only")
     ap.add_argument("--transfers", action="store_true",
@@ -645,7 +722,8 @@ def main() -> None:
                 fn()
         return
     if args.mesh is not None:
-        sharded_routes(k, args.reps, args.mesh, schedule)
+        (sharded_routes if args.ndim == 2 else sharded3d_routes)(
+            k, args.reps, args.mesh, schedule)
         return
     routes(k, args.reps, args.ndim, schedule)
     if args.no_levels:

@@ -538,29 +538,58 @@ def test_unported_solver_methods_raise(call, monkeypatch):
 
 @pytest.mark.parametrize("item", ["sharded 3D slabs and pencils",
                                   "sharded mixed precision", "utils"])
-def test_remaining_items_raise_naming_them(item, monkeypatch):
+def test_remaining_items_raise_naming_them(item, monkeypatch, request):
     """The parts still to port raise NotImplementedError naming their
-    ROADMAP.md item, and run nothing else. Sharded mixed precision is
-    ported in 2D since; in 3D a precond_dtype changes nothing: the solver
-    still raises naming the slabs' item."""
+    ROADMAP.md item, and run nothing else. Sharded 3D slabs and pencils are
+    ported since: on a world of 1, a slab mesh and a pencil mesh each run
+    the extended-stack level (the stencil3d kernels' plain versions here)
+    and converge in the single-device solve's cycles to its answer. So is
+    sharded mixed precision in 3D: MG-PCG with a bfloat16 preconditioner
+    casts where mixed_slab_dtype says and reaches the full-dtype answer
+    (their parity with JAX is in test_torch_sharded3d.py and
+    test_torch_sharded3d_mixed.py)."""
     from multigridcmt_tpu_torch.parallel import sharded
     from multigridcmt_tpu_torch.utils import profiling
 
-    monkeypatch.setattr(kernels, "PACK_MIN_N", 7)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as info:
-        if item == "utils":
-            profiling.trace("cycle")
-        else:
-            # Raised before the mesh is read.
-            pd = torch.bfloat16 if item == "sharded mixed precision" else None
-            sharded.ShardedSolver(SolverConfig(ndim=3, k=5, precond_dtype=pd),
-                                  mesh=None)
-    want = ("sharded 3D slabs and pencils" if item == "sharded mixed precision"
-            else item)
-    assert want in str(info.value)
     if item == "utils":
+        with pytest.raises(NotImplementedError, match="ROADMAP") as info:
+            profiling.trace("cycle")
+        assert item in str(info.value)
         with pytest.raises(NotImplementedError, match="queue 1: utils"):
             profiling.Timer()
+        return
+    request.getfixturevalue("world_of_one")
+    request.getfixturevalue("one_thread")
+    monkeypatch.setattr(kernels, "KERNEL3_MIN_N", 30)
+    kw = dict(k=5, dtype=torch.float64, smoother="rbgs", use_kernels=True,
+              agglom_rows=4, tol=1e-9)
+    b = mt.poisson3d(device="cpu", **kw).b
+    meshes = (sharded.make_mesh(device="cpu"),
+              sharded.make_block_mesh((1, 1), device="cpu"))
+    for mesh in meshes:
+        if item == "sharded mixed precision":
+            mixed = sharded.ShardedSolver(
+                SolverConfig(ndim=3, precond_dtype=torch.bfloat16, **kw),
+                mesh)
+            assert sharded.mixed_slab_dtype(mixed.config, mixed.decomp) == \
+                torch.bfloat16
+            got = mixed.solve(b, method="pcg")
+            want = sharded.ShardedSolver(SolverConfig(ndim=3, **kw),
+                                         mesh).solve(b, method="pcg")
+            assert got.converged and want.converged
+            assert got.x.dtype == torch.float64
+            np.testing.assert_allclose(got.x.numpy(), want.x.numpy(),
+                                       rtol=1e-7, atol=1e-8)
+            continue
+        s = sharded.ShardedSolver(SolverConfig(ndim=3, **kw), mesh)
+        x = torch.zeros((32, 33 if len(mesh.shape) == 1 else 32, 33))
+        assert sharded._slab3d_ok(x, 31, "rbgs", s.decomp, 5) or \
+            sharded._pencil3d_ok(x, 31, s.config, s.decomp)
+        got = s.solve(b)
+        want = mt.MultigridSolver(mt.poisson3d(device="cpu", **kw)).solve()
+        assert got.converged and got.iters == want.iters
+        np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=0,
+                                   atol=1e-10)
 
 
 # ---------------------------------------------------------------------------
@@ -755,6 +784,18 @@ def _l2():
 
 
 @pytest.fixture
+def one_thread():
+    """torch on one thread for the test: the 3D solves' small grids run
+    ~30x slower split over the cores' threads here."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+@pytest.fixture
 def world_of_one(tmp_path):
     """A gloo process group of this process alone, destroyed after the
     test."""
@@ -785,7 +826,7 @@ def _sharded_solver(**kw):
     ("eigensolve_precond_dtype", "sharded eigensolvers"),
 ])
 def test_unported_sharded_routes_raise(call, item, world_of_one,
-                                       monkeypatch):
+                                       monkeypatch, request):
     """Each names its ROADMAP.md item; none reroutes. The sharded FMG is
     ported since: it runs (on the packed route here) and converges, in the
     single-device FMG solve's count (its parity with JAX is in
@@ -851,9 +892,19 @@ def test_unported_sharded_routes_raise(call, item, world_of_one,
             assert got.iters <= want.iters + 3
             assert abs(lam - ref) <= 1e-8 * ref
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP") as info:
-        _sharded_solver(k=5, ndim=3)
-    assert item in str(info.value)
+    # Sharded 3D (ndim3) is ported since: a slab solve on the world of 1
+    # runs the stencil3d tier (KERNEL3_MIN_N lowered) and takes the
+    # single-device solve's cycles to its answer.
+    request.getfixturevalue("one_thread")
+    monkeypatch.setattr(kernels, "KERNEL3_MIN_N", 30)
+    b3 = mt.poisson3d(k=5, dtype=torch.float64, device="cpu").b
+    got = _sharded_solver(k=5, ndim=3, tol=1e-9).solve(b3)
+    want = mt.MultigridSolver(mt.poisson3d(
+        k=5, dtype=torch.float64, smoother="rbgs", use_kernels=True,
+        agglom_rows=4, tol=1e-9, device="cpu")).solve()
+    assert got.converged and got.iters == want.iters
+    np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=0,
+                               atol=1e-10)
 
 
 @pytest.mark.parametrize("call", [
@@ -1058,8 +1109,10 @@ def test_chip_smoke_lists_the_tile_bf16_modes(module, lines, run):
 def test_chip_smoke_lists_the_stencil3d_bf16_modes():
     """The stencil3d kernels' bfloat16 modes, all built from
     csrc/stencil3d_bf16.cu: the residual and the bfloat16-storing RB-GS
-    sweep on the mixed3d path, the float32-storing sweep and both Jacobi
-    modes (which no solver runs) by direct calls."""
+    sweep on the mixed3d path, the float32-storing sweep on the sharded
+    mixed slab path (its top level's last up sweep) and both Jacobi modes
+    on the sharded mixed Jacobi slab path (the single-device 3D Jacobi
+    cycle runs plain)."""
     rows = {name: row for name, row in _chip_smoke_rows("stencil3d").items()
             if "bf16" in name}
     src = "multigridcmt_tpu_torch/kernels/csrc/stencil3d_bf16.cu"
@@ -1070,10 +1123,10 @@ def test_chip_smoke_lists_the_stencil3d_bf16_modes():
         "stencil3d_rbgs_bf16": ("rbgs_bf16_launches", src, tpu + "510",
                                 "mixed3d"),
         "stencil3d_rbgs_bf16_f32": ("rbgs_bf16_f32_launches", src,
-                                    tpu + "510", None),
+                                    tpu + "510", "slab511-mixed"),
         "stencil3d_jacobi_bf16": ("jacobi_bf16_launches", src, tpu + "485",
-                                  None),
+                                  "slab511-mixed-jacobi"),
         "stencil3d_jacobi_bf16_f32": ("jacobi_bf16_f32_launches", src,
-                                      tpu + "485", None)}
+                                      tpu + "485", "slab511-mixed-jacobi")}
     for row in rows.values():
         assert hasattr(stencil3d, row[1]) and (ROOT / row[2]).is_file()

@@ -18,6 +18,7 @@ and the packed solve's history against the port's single-device packed
 solve; JAX's packed history is compared only at m = 64.
 """
 import os
+import pickle
 import tempfile
 import time
 
@@ -182,10 +183,13 @@ def _refresh_check(mesh, grid):
     return packed, plocal2d.pack_ext(flat, cpar), flat, ue
 
 
-def _run_world(rank, world, init_file, shape, cases, inputs, out_dir,
+def _run_world(rank, world, init_file, shape, cases, out_dir,
                run_case=None):
     """One rank: solve every case on the mesh (``run_case(mesh, kw, b)``,
-    default ``_run_case``) and save what it saw."""
+    default ``_run_case``) on the inputs spawn_world saved in ``out_dir``,
+    and save what it saw."""
+    with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     # Small tiles: one thread a rank, so that the ranks and the JAX
     # references do not contend for the cores.
@@ -283,9 +287,14 @@ def spawn_world(shape, cases, inputs, references, run_case=None):
     assert convert.mesh_shape_from_jax(_jax_mesh(shape)) == shape
     nprocs = int(np.prod(shape))
     with tempfile.TemporaryDirectory() as tmp:
+        # Through a file, not the spawn arguments: a process's arguments
+        # larger than a pipe's buffer make each start wait for the one
+        # before it to import its modules.
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump(inputs, f)
         ctx = mp.start_processes(
             _run_world, args=(nprocs, os.path.join(tmp, "rdv"), shape, cases,
-                              inputs, tmp, run_case),
+                              tmp, run_case),
             nprocs=nprocs, join=False, start_method="spawn")
         refs = references()
         deadline = time.monotonic() + WORLD_TIMEOUT_S
