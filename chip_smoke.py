@@ -108,6 +108,31 @@ Phases:
          float64 at 127^3 against the plain sharded route; inverse
          iteration at 255^3 float64 on a slab mesh; exact stencil3d
          launches derived from the route;
+       * the utils on the main path (4095^2 float32 RB-GS V(2,2)): a solve
+         bracketed by utils.profiling.Timer and its fence; the same solve
+         under utils.profiling.trace, whose CUDA kernel events (the packed2d
+         and fused2d legs and the packed norm, by name) equal the launch
+         counters and whose mg_level_* ranges cover every level;
+         utils.metrics.MetricsLogger's records of it (iters + 1 iteration
+         records whose residuals are the history, one solve_done); a
+         solve stopped after 3 cycles, saved by utils.checkpoint, loaded
+         and resumed, bit for bit the iterate of as many uninterrupted
+         cycles, in the cold solve's cycles (or, where the stall guard
+         stops the cold solve, up to 2 more: the resume restarts the
+         guard's count, as JAX's does); utils.debug.checked and debug_mode
+         around the solve, bit for bit, and debug_mode naming the packed
+         down leg as the first operation that produced a NaN planted in b;
+         utils.comm_audit around S1's solve on the world of 1 (no message
+         sent; ppermute, psum and all_gather counts as derived);
+       * the example CLIs (multigridcmt_tpu_torch/examples) through their
+         main(argv) at the BASELINE configs' widths: poisson1d_vcycle,
+         poisson2d_rbgs --kernels (mg and pcg), fmg_accuracy --kernels
+         (linear and cubic), eigensolve (ii and lobpcg), poisson3d at 511^3
+         with the stencil3d kernels and with its defaults,
+         distributed_vcycle --kernels at 4095^2 and with --eigen 1 at 511^2
+         float64, each printing its line, with exact launches, and the
+         iterations and values of phase 3's runs of the same problems
+         (fmg1023, eigen511 at the example's tolerance, solve3d, S1);
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -675,6 +700,36 @@ SHARDED3D_PLAIN_RUNS = ("slab511-mixed", "slab511-mixed-jacobi")
 SHARDED3D_RUNS = ("slab511", "slab511pcg", "pencil511", "pencil511pcg",
                   "slab511-jacobi", "slab511-mixed", "slab511-mixed-jacobi",
                   "pencil511-mixed", "pencil511-mixed-jacobi", "slab-eigen")
+# The example CLIs (multigridcmt_tpu_torch/examples) at the BASELINE
+# configs' widths, each through main(argv) in-process: label -> (module,
+# argv). Phase 3's runs of the same problems are their yardsticks:
+# fmg1023 (ex_fmg: its 1023^2 error), eigen511 (ex_eigen_*: the plain
+# route, the iterations its history takes to the example's tolerance,
+# lambda_1), solve3d (ex_poisson3d), S1 (ex_distributed) and eigen511's
+# kernel II (ex_distributed_eigen, the sharded II on a mesh of 1).
+EXAMPLES = {
+    "ex_poisson1d": ("poisson1d_vcycle", []),
+    "ex_poisson2d": ("poisson2d_rbgs", ["--kernels"]),
+    "ex_poisson2d_pcg": ("poisson2d_rbgs", ["--kernels", "--method", "pcg"]),
+    "ex_fmg": ("fmg_accuracy", ["--kernels"]),
+    "ex_fmg_cubic": ("fmg_accuracy", ["--kernels", "--cubic"]),
+    "ex_eigen_ii": ("eigensolve", []),
+    "ex_eigen_lobpcg": ("eigensolve", ["--method", "lobpcg"]),
+    "ex_poisson3d": ("poisson3d", ["--k", str(MAIN_K3), "--smoother", "rbgs",
+                                   "--kernels", "--f32"]),
+    "ex_poisson3d_default": ("poisson3d", []),
+    "ex_distributed": ("distributed_vcycle", ["--kernels"]),
+    "ex_distributed_eigen": ("distributed_vcycle",
+                             ["--kernels", "--k", str(EIGEN_K), "--f64",
+                              "--eigen", "1"]),
+}
+# A float32 value an example prints against its phase-3 yardstick (the
+# same computation on the same card): within this relative difference.
+EXAMPLE_RTOL = 1e-6
+# The utils on the main path: the checkpoint's partial solve stops after
+# this many cycles.
+CHECKPOINT_ITERS = 3
+
 # Chained cycles a timing of v_cycles_fn runs (its time over this count).
 CHAIN_CYCLES = 20
 # The packed2d, fused2d and plocal2d legs are timed as single calls and as
@@ -2722,6 +2777,8 @@ def paths_3d(runs: dict) -> None:
                    stencil3d_rbgs=tier * sweeps * i,
                    stencil3d_residual=tier * i + (i + 1))
     runs["solve3d"] = counts
+    runs["solve3d_result"] = (res.iters, mt.convergence_factor(res),
+                              solver.discrete_l2_error(res.x).item())
 
     res, counts, wall = counted(lambda: solver.solve(method="pcg"))
     check_solve(f"pcg 3D k={MAIN_K3} float32 rbgs", prob, solver, res, wall,
@@ -2973,6 +3030,8 @@ def paths_sharded(runs: dict) -> None:
                    plocal2d_resnorm=i + 1, local2d_down=(legs - 1) * i,
                    local2d_up=(legs - 1) * i)
     runs["S1"] = counts
+    runs["S1_result"] = (res.iters, mt.convergence_factor(res),
+                         (res.x - prob.u_exact).abs().max().item())
     # Beside it, the single-device solve on the same packed route.
     ref, _, ref_wall = counted(single.solve)
     check_solve(f"S1's single-device twin: k={prob.config.k} float32, "
@@ -3335,6 +3394,8 @@ def paths_fmg(runs: dict) -> None:
                         and walk == "linear":
                     runs["fmg1023"] = counts
                     runs["peak_fmg1023"] = peak
+                runs.setdefault("fmg1023_err", {})[
+                    (walk, dtype, use_kernels)] = err
                 out[(dtype, use_kernels)] = (x, err)
                 del prob, solver
         fmg_gates(walk, out, 1.0 / 2 ** FMG_K)
@@ -3463,6 +3524,9 @@ def paths_eigen(runs: dict) -> None:
             runs[f"eigen511_{method}"] = counts
             runs[f"peak_eigen511_{method}"] = peak
         lam[(method, k, use_kernels)] = vals
+        if k == 1:
+            runs[f"eigen511_{method}_{route}_run"] = (
+                res.res_history[: res.iters + 1].tolist(), vals[0])
         del prob, solver, res
     for method in EIGEN_METHODS:
         lk, lp = lam[(method, 1, True)][0], lam[(method, 1, False)][0]
@@ -4195,11 +4259,468 @@ def paths_sharded_eigen(runs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def trace_events(logdir: str) -> tuple:
+    """(bytes, events) of the one Chrome trace ``profiling.trace`` wrote
+    into ``logdir``."""
+    (path,) = Path(logdir).glob("*.pt.trace.json")
+    return path.stat().st_size, json.loads(path.read_text())["traceEvents"]
+
+
+# The trace's kernel events counted against the launch counters: the
+# packed2d and fused2d legs by name (utils/breakdown.py's patterns) and
+# the packed norm's first pass (one a launch; its second pass sums the
+# partials).
+TRACE_GROUPS = {"packed2d legs": ("packed2d_down", "packed2d_up"),
+                "fused2d legs": ("fused2d_down", "fused2d_up"),
+                "packed2d norm": ("packed2d_resnorm",)}
+
+
+def leg_levels(cfg, decomp) -> int:
+    """Whole-leg levels from the finest down."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    lv = 0
+    while sharded._leg_level_ok(cfg, decomp, lv):
+        lv += 1
+    return lv
+
+
+def owned_levels(cfg, decomp) -> int:
+    """Sharded levels below the whole-leg ones (the owned-tile route)."""
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    lv = leg_levels(cfg, decomp)
+    owned = 0
+    while sharded._is_sharded(cfg, decomp, lv + owned):
+        owned += 1
+    return owned
+
+
+def paths_utils(runs: dict) -> None:
+    """The utils on the main path (4095^2 float32 RB-GS V(2,2), kernels on):
+    a solve bracketed by Timer and its fence (the yardstick), the same
+    solve traced (its CUDA kernel events by name against the launch
+    counters, an mg_level_* range for every level) with its MetricsLogger
+    records, a checkpoint stopped at CHECKPOINT_ITERS cycles, saved, loaded
+    and resumed (bit for bit the uninterrupted iterate, the cycles adding
+    up), checked() and debug_mode() around the solve (bit for bit, and
+    their cost), debug_mode() naming the kernel that first produced a NaN
+    planted in b, and comm_audit around S1's solve on the world of 1."""
+    import io
+
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.solvers import cycles
+    from multigridcmt_tpu_torch.utils import checkpoint, debug, metrics
+    from multigridcmt_tpu_torch.utils.breakdown import ROUTE_KERNELS
+    from multigridcmt_tpu_torch.utils.comm_audit import comm_audit
+    from multigridcmt_tpu_torch.utils.profiling import Timer, trace
+
+    def build(**kw):
+        return mt.poisson2d(k=MAIN_K, dtype=torch.float32, smoother="rbgs",
+                            use_kernels=True, device="cuda", **kw)
+
+    prob = build()
+    solver = mt.MultigridSolver(prob)
+    fused = fused_levels(prob)
+    stats = {}
+    with Timer() as timer:
+        cold = solver.solve()
+        total = Timer.fence(cold.x)
+    i = cold.iters
+    stats["timer_s"] = timer.elapsed
+    log(f"utils Timer: solve k={MAIN_K} float32 rbgs {timer.elapsed:.3f} s "
+        f"to the fence (sum of x {total:.6e}), {i} cycles")
+    require(timer.elapsed > 0 and total == cold.x.sum().item(),
+            f"Timer: elapsed {timer.elapsed}, fence {total}")
+    want = dict(packed2d_down=i, packed2d_up=i, packed2d_resnorm=i + 1,
+                fused2d_down=fused * i, fused2d_up=fused * i)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def traced():
+            with trace(tmp):
+                return solver.solve()
+
+        res, counts, wall = counted(traced)
+        require_counts("utils_trace", counts, **want)
+        size, events = trace_events(tmp)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    patterns = dict(ROUTE_KERNELS, **{
+        "packed2d norm": re.compile(r"(?<!\w)presnorm_partial<")})
+    seen = {g: sum(1 for name in kernels if patterns[g].search(name))
+            for g in TRACE_GROUPS}
+    names = {e.get("name") for e in events}
+    levels = [f"mg_level_{lv}" for lv in range(prob.hierarchy.num_levels)]
+    stats.update(trace_bytes=size, trace_kernel_events=len(kernels),
+                 trace_events=len(events), trace_wall_s=wall, **{
+                     f"trace_{g.replace(' ', '_')}": c
+                     for g, c in seen.items()})
+    log(f"utils trace: {size} bytes, {len(events)} events, {len(kernels)} "
+        f"kernel events; by name {seen}; wall {wall:.3f} s (untraced "
+        f"{timer.elapsed:.3f} s); levels {[lv in names for lv in levels]}")
+    for g, parts in TRACE_GROUPS.items():
+        require(seen[g] == sum(counts[p] for p in parts),
+                f"trace: {seen[g]} {g} kernel events, the counters say "
+                f"{sum(counts[p] for p in parts)}")
+    require(all(lv in names for lv in levels),
+            f"trace: missing level ranges {set(levels) - names}")
+    require(res.iters == i and torch.equal(res.x, cold.x),
+            "the traced solve differs from the untraced one")
+
+    buf = io.StringIO()
+    metrics.MetricsLogger(buf).log_solve_result(res, prob.config)
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()]
+    its = [r for r in recs if r["event"] == "iteration"]
+    done = [r for r in recs if r["event"] == "solve_done"]
+    hist = res.res_history[: i + 1].tolist()
+    log(f"utils MetricsLogger: {len(its)} iteration records, "
+        f"{len(done)} solve_done: {done}")
+    require(len(its) == i + 1 and len(done) == 1 and len(recs) == i + 2
+            and [r["residual"] for r in its] == hist
+            and done[0]["iters"] == i
+            and done[0]["final_residual"] == hist[-1],
+            f"MetricsLogger records {recs} against the history {hist}")
+
+    part = mt.MultigridSolver(build(max_iters=CHECKPOINT_ITERS)).solve()
+    require(part.iters == CHECKPOINT_ITERS and not part.converged,
+            f"checkpoint: the partial solve ran {part.iters} cycles")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "snapshot.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_state(path, part.x, part.res_history, part.iters)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = checkpoint.load_state(path)
+        t_load = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        resumed, counts, wall = counted(
+            lambda: checkpoint.resume_solve(solver, path))
+    stats.update(checkpoint_bytes=nbytes, save_s=t_save, load_s=t_load,
+                 resume_wall_s=wall)
+    r = resumed.iters
+    # The uninterrupted iterate of as many cycles, from zero.
+    x = torch.zeros_like(prob.b)
+    for _ in range(CHECKPOINT_ITERS + r):
+        x = solver.v_cycle(x, prob.b)
+    extra = CHECKPOINT_ITERS + r - i
+    stats.update(resumed_cycles=r, cold_cycles=i)
+    log(f"utils checkpoint at {CHECKPOINT_ITERS} cycles: {nbytes} bytes, "
+        f"save {t_save:.3f} s, load {t_load:.3f} s, resumed {r} cycles "
+        f"(cold {i}, converged {cold.converged}) in {wall:.3f} s; resumed "
+        f"against {CHECKPOINT_ITERS + r} uninterrupted cycles: equal "
+        f"{torch.equal(resumed.x, x)}; against the cold solve: max abs "
+        f"{(resumed.x - cold.x).abs().max().item():.3e}")
+    require(state["kind"] == "solve" and state["iters"] == CHECKPOINT_ITERS
+            and torch.equal(state["x"], part.x.cpu()),
+            "checkpoint: the snapshot read back differs")
+    require(torch.equal(resumed.x, x), f"checkpoint: the resumed iterate "
+            f"differs from {CHECKPOINT_ITERS + r} uninterrupted cycles'")
+    # A solve the tolerance stops resumes to the cold solve's cycles and
+    # iterate. One the stall guard stops (float32 at its floor) restarts
+    # the guard's count at the resume, as JAX's resume does: up to
+    # STALL_PATIENCE - 1 cycles more.
+    require(extra == 0 or (not cold.converged
+                           and 0 < extra < cycles.STALL_PATIENCE),
+            f"checkpoint: {CHECKPOINT_ITERS} + {r} cycles against the cold "
+            f"solve's {i} (converged {cold.converged})")
+    require(extra != 0 or torch.equal(resumed.x, cold.x),
+            "checkpoint: the resumed iterate differs from the cold solve's")
+    require_counts("utils_resume", counts, packed2d_down=r, packed2d_up=r,
+                   packed2d_resnorm=r + 1, fused2d_down=fused * r,
+                   fused2d_up=fused * r)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xc = debug.checked(lambda: solver.solve().x)()
+    stats["checked_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with debug.debug_mode():
+        xd = solver.solve().x
+    torch.cuda.synchronize()
+    stats["debug_mode_s"] = time.perf_counter() - t0
+    log(f"utils checked(solve) {stats['checked_s']:.3f} s, debug_mode "
+        f"solve {stats['debug_mode_s']:.3f} s, untraced solve "
+        f"{timer.elapsed:.3f} s")
+    require(torch.equal(xc, cold.x) and torch.equal(xd, cold.x),
+            "checked() or debug_mode() changed the iterate")
+
+    b = prob.b.clone()
+    nan_at = (prob.config.n // 2, prob.config.n // 4)
+    b[nan_at] = math.nan
+    be = cycles.get_backend(prob.config).encode(b)
+    raised = None
+    try:
+        with debug.debug_mode():
+            mt.v_cycle(prob.hierarchy, torch.zeros_like(be), be,
+                       prob.config)
+    except debug.NumericError as exc:
+        raised = str(exc)
+    log(f"utils debug_mode with a NaN planted in b at {nan_at}: {raised}")
+    require(raised is not None and "kernel mg_packed2d_down_f32" in raised,
+            f"debug_mode did not name the packed down leg: {raised}")
+    del prob, solver, cold, res, part, resumed, x, xc, xd, b, be
+    torch.cuda.empty_cache()
+
+    # comm_audit around S1's solve on the world of 1 (JAX's units: a slab
+    # offered is a ppermute, with or without a neighbour there).
+    k, shape, cfg_kw = SHARDED_PATHS["S1"]
+    s1 = mt.poisson2d(k=k, dtype=torch.float32, use_kernels=True,
+                      device="cuda", **cfg_kw)
+    solver = sharded.ShardedSolver(s1.config, sharded_mesh(shape))
+    legs, _ = sharded_levels(s1, solver)
+    owned = owned_levels(s1.config, solver.decomp)
+    with comm_audit() as audit:
+        res, counts, wall = counted(lambda: solver.solve(s1.b))
+    rep = audit.report()
+    i = res.iters
+    nu = s1.config.nu1
+    # The entry extends b and x (2 pairs); a cycle: the leg levels' 3L - 2
+    # pairs, one more into the owned-tile levels (_ext_coarse_tile), their
+    # S(8 nu + 3) + (S - 1) slabs, and the carried tile's refresh (1 pair).
+    cycle = (2 * (3 * legs - 2 + (1 if owned else 0) + 1)
+             + owned * (8 * nu + 3) + max(owned - 1, 0))
+    want_audit = {"ppermute": 4 + cycle * i, "psum": i + 2,
+                  "all_gather": i + 1}
+    log(f"utils comm_audit S1 ({legs} leg levels, {owned} owned-tile "
+        f"levels, {i} cycles): {rep}; derived counts {want_audit}")
+    require(rep["sent"] == {"messages": 0, "bytes": 0},
+            f"comm_audit: a mesh of 1 sent {rep['sent']}")
+    require(rep["counts"] == want_audit,
+            f"comm_audit counts {rep['counts']}, derived {want_audit}")
+    stats["comm_audit"] = rep
+    runs["utils_stats"] = stats
+    del s1, solver, res
+    torch.cuda.empty_cache()
+
+
+def same_printed(label: str, printed: str, value: float, fmt: str) -> None:
+    """``printed`` (a number printed as ``fmt``) within one unit of its
+    last digit of ``value`` printed the same way."""
+    got, ref = float(printed), float(format(value, fmt))
+    digits = int(fmt.split(".")[1][0])
+    exp = (math.floor(math.log10(abs(ref))) if "e" in fmt and ref else 0)
+    unit = 10.0 ** (exp - digits)
+    require(abs(got - ref) <= unit * (1 + 1e-9),
+            f"{label}: printed {printed}, the yardstick {value} gives "
+            f"{format(value, fmt)}")
+
+
+def first_below(hist, tol: float, least: int = 0) -> int:
+    """The outer step at which a run whose residual history is ``hist``
+    stops at ``tol`` (its first residual under tol, at least ``least``)."""
+    for step, res in enumerate(hist):
+        if res < tol and step >= least:
+            return step
+    raise SmokeFailure(f"the history {hist} never falls under {tol}")
+
+
+def run_example(label: str):
+    """(what main returned, launches, wall, stdout) of one example run
+    in-process through its main(argv)."""
+    import contextlib
+    import io
+
+    module, argv = EXAMPLES[label]
+    main = importlib.import_module(
+        f"multigridcmt_tpu_torch.examples.{module}").main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, counts, wall = counted(lambda: main(list(argv)))
+    text = buf.getvalue()
+    log(f"{label}: python -m multigridcmt_tpu_torch.examples.{module} "
+        f"{' '.join(argv)}  ({wall:.3f} s)")
+    for line in text.splitlines():
+        log(f"  | {line}")
+    return out, counts, wall, text
+
+
+def grab(label: str, pattern: str, text: str):
+    found = re.search(pattern, text, flags=re.M)
+    require(found is not None, f"{label}: no line {pattern!r} in {text!r}")
+    return found
+
+
+def paths_examples(runs: dict) -> None:
+    """The six example CLIs at the BASELINE configs' widths (EXAMPLES):
+    each prints its line, launches exactly what its route derives, and
+    where phase 3 ran the same problem through the API takes its
+    iterations and prints its values."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch import kernels
+    from multigridcmt_tpu_torch.config import SolverConfig
+    from multigridcmt_tpu_torch.ops import laplacian
+    from multigridcmt_tpu_torch.parallel import sharded
+
+    def fused(k, levels=None):
+        cfg = SolverConfig(ndim=2, k=k, min_coarse=(
+            3 if levels is None else 2 ** (k - levels + 1) - 1))
+        return [kernels.KERNEL_MIN_N <= n < kernels.PACK_MIN_N
+                for n in cfg.level_sizes()[:-1]]
+
+    stats = {}
+    launches = {}
+
+    def record(label, counts, wall, **want):
+        require_counts(label, counts, **want)
+        launches[label] = {k: v for k, v in counts.items() if v}
+        stats[label] = {"wall_s": wall}
+
+    res, counts, wall, text = run_example("ex_poisson1d")
+    grab("ex_poisson1d", rf"^n=1023  iters={res.iters}  converged=True  "
+         r"rho=\S+$", text)
+    require(res.converged, "ex_poisson1d did not converge")
+    record("ex_poisson1d", counts, wall)
+    stats["ex_poisson1d"]["iters"] = res.iters
+
+    for label, method in (("ex_poisson2d", "mg"), ("ex_poisson2d_pcg",
+                                                   "pcg")):
+        res, counts, wall, text = run_example(label)
+        f = sum(fused(8, 5))
+        require(f == 1, f"{label}: {f} fused2d levels, not 1 (255)")
+        grab(label, rf"^n=255\^2  levels=5  iters={res.iters}  rho=\S+$",
+             text)
+        i = res.iters
+        if method == "mg":
+            record(label, counts, wall, fused2d_down=i, fused2d_up=i,
+                   stencil2d_residual=i + 1)
+        else:
+            record(label, counts, wall, fused2d_down=i + 1,
+                   fused2d_up=i + 1, stencil2d_residual=i + 1)
+        stats[label]["iters"] = i
+
+    for label, walk in (("ex_fmg", "linear"), ("ex_fmg_cubic", "cubic")):
+        (ns, errs), counts, wall, text = run_example(label)
+        require(ns == [2 ** k - 1 for k in FMG_RATIO_K],
+                f"{label}: grids {ns}")
+        for n, err in zip(ns, errs):
+            grab(label, rf"^n=\s*{n}  discrete-L2 error={err:.3e}", text)
+        # The example's default is float32, whose error sits at float32's
+        # rounding floor at these sizes (the ratios near 1; phase 3 holds
+        # the float64 ratios): the 1023^2 error is held to fmg1023's.
+        yard = runs["fmg1023_err"][(walk, torch.float32, True)]
+        ratios = [a / b for a, b in zip(errs, errs[1:])]
+        log(f"  {label}: 1023^2 error {errs[-1]:.6e}, fmg1023's "
+            f"{yard:.6e}; ratios {[f'{r:.4f}' for r in ratios]}")
+        require(abs(errs[-1] - yard) <= EXAMPLE_RTOL * yard,
+                f"{label}: 1023^2 error {errs[-1]} against fmg1023's {yard}")
+        walks = sum(sum(f[lv:]) for f in (fused(k) for k in FMG_RATIO_K)
+                    for lv in range(len(f)))
+        record(label, counts, wall, fused2d_down=walks, fused2d_up=walks)
+        stats[label]["errors"] = errs
+
+    n = 2 ** EIGEN_K - 1
+    exact = 2 * laplacian.eigenvalue_1d(1, n, 1.0 / (n + 1))
+    for label, method in (("ex_eigen_ii", "ii"), ("ex_eigen_lobpcg",
+                                                  "lobpcg")):
+        res, counts, wall, text = run_example(label)
+        hist, lam3 = runs[f"eigen511_{method}_plain_run"]
+        want = first_below(hist, 1e-7, 1 if method == "lobpcg" else 0)
+        lam = res.eigenvalues[0].item()
+        grab(label, rf"^n={n}\^2  iters={res.iters}  converged=True$", text)
+        grab(label, rf"^  lambda_1 = {lam:.8f}$", text)
+        log(f"  {label}: {res.iters} outer steps (eigen511 {method} plain "
+            f"reaches 1e-7 at {want}), lambda_1 {lam:.12f}, eigen511's "
+            f"{lam3:.12f}, exact {exact:.12f}")
+        require(res.converged and res.iters == want,
+                f"{label}: {res.iters} outer steps, eigen511's history "
+                f"reaches the tolerance at {want}")
+        require(abs(lam - lam3) <= EIGEN_RTOL * lam3
+                and abs(lam - exact) <= EIGEN_RTOL * exact,
+                f"{label}: lambda_1 {lam} against {lam3} (exact {exact})")
+        record(label, counts, wall)
+        stats[label].update(iters=res.iters, lambda_1=lam)
+
+    res, counts, wall, text = run_example("ex_poisson3d")
+    it3, rho3, err3 = runs["solve3d_result"]
+    i = res.iters
+    rho = mt.convergence_factor(res)
+    line = grab("ex_poisson3d", r"^  discrete-L2 error vs analytic: (\S+)",
+                text)
+    grab("ex_poisson3d", rf"^  iters={i}  converged={res.converged}  "
+         rf"rho={rho:.4f}$", text)
+    log(f"  ex_poisson3d: {i} cycles (solve3d {it3}), rho {rho:.6f} "
+        f"({rho3:.6f}), l2 error {line[1]} ({err3:.6e})")
+    require(i == it3 and abs(rho - rho3) <= EXAMPLE_RTOL * rho3,
+            f"ex_poisson3d: {i} cycles, rho {rho} against solve3d's {it3}, "
+            f"{rho3}")
+    same_printed("ex_poisson3d", line[1], err3, ".3e")
+    record("ex_poisson3d", counts, wall, stencil3d_rbgs=3 * 4 * i,
+           stencil3d_residual=3 * i + i + 1)
+    stats["ex_poisson3d"]["iters"] = i
+
+    res, counts, wall, text = run_example("ex_poisson3d_default")
+    grab("ex_poisson3d_default", rf"^  iters={res.iters}  converged=True  ",
+         text)
+    require(res.converged, "ex_poisson3d_default did not converge")
+    record("ex_poisson3d_default", counts, wall)
+    stats["ex_poisson3d_default"]["iters"] = res.iters
+
+    res, counts, wall, text = run_example("ex_distributed")
+    it1, rho1, err1 = runs["S1_result"]
+    i = res.iters
+    rho = mt.convergence_factor(res)
+    line = grab("ex_distributed", rf"^n={2 ** MAIN_K - 1}\^2 on 1 devices "
+                rf"\(mesh \(1,\)\): iters={i}  converged={res.converged}  "
+                rf"rho={rho:.4f}$", text)
+    err = grab("ex_distributed", r"^max error vs analytic solution: (\S+)$",
+               text)[1]
+    log(f"  ex_distributed: {i} cycles (S1 {it1}), rho {rho:.6f} "
+        f"({rho1:.6f}), max error {err} ({err1:.6e})")
+    require(i == it1 and abs(rho - rho1) <= EXAMPLE_RTOL * rho1,
+            f"ex_distributed: {i} cycles, rho {rho} against S1's {it1}, "
+            f"{rho1}")
+    same_printed("ex_distributed", err, err1, ".3e")
+    dec = sharded.decomp_from_mesh(sharded_mesh((1,)), 2)
+    legs1 = leg_levels(SolverConfig(ndim=2, k=MAIN_K, smoother="rbgs",
+                                    use_kernels=True), dec)
+    record("ex_distributed", counts, wall, plocal2d_down=i, plocal2d_up=i,
+           plocal2d_resnorm=i + 1, local2d_down=(legs1 - 1) * i,
+           local2d_up=(legs1 - 1) * i)
+    stats["ex_distributed"]["iters"] = i
+
+    label = "ex_distributed_eigen"
+    with count_level0_calls("_leg_cycle_ext") as cyc:
+        res, counts, wall, text = run_example(label)
+    c, it = cyc.count, res.iters
+    legs = leg_levels(SolverConfig(ndim=2, k=EIGEN_K, smoother="rbgs",
+                                   use_kernels=True, agglom_rows=64), dec)
+    hist, lam3 = runs["eigen511_ii_kernel_run"]
+    want = first_below(hist, 1e-6)
+    lam = res.eigenvalues[0].item()
+    grab(label, rf"^n={n}\^2 on 1 devices \(mesh \(1,\)\): iters={it} "
+         r"converged=True$", text)
+    grab(label, r"^eigenvalues: \[\S+\]", text)
+    log(f"  {label}: {it} outer steps, {c} cycles on {legs} leg levels "
+        f"(eigen511 ii kernel reaches 1e-6 at {want}), lambda_1 "
+        f"{lam:.12f} (eigen511's {lam3:.12f}, exact {exact:.12f})")
+    require(legs == 2, f"{label}: {legs} leg levels, not 2 (511, 255)")
+    require(res.converged and it == want,
+            f"{label}: {it} outer steps, eigen511's history reaches the "
+            f"tolerance at {want}")
+    require(abs(lam - lam3) <= EIGEN_RTOL * lam3
+            and abs(lam - exact) <= EIGEN_RTOL * exact,
+            f"{label}: lambda_1 {lam} against {lam3} (exact {exact})")
+    # The sharded II on an unpacked fine tile (S2eigen's derivation): a
+    # cycle runs the local2d legs on each leg level and the local2d
+    # residual as its check; A's rows are the local2d residual, 1 before
+    # the first step and 2 a step.
+    record(label, counts, wall, local2d_down=legs * c, local2d_up=legs * c,
+           local2d_residual=c + 2 * it + 1)
+    stats[label].update(iters=it, cycles=c, lambda_1=lam)
+    log("example launches: " + json.dumps(launches))
+    runs["examples_stats"] = stats
+    torch.cuda.empty_cache()
+
+
 def phase_main_path():
     """The slice's paths through the public entry points. Returns, per
     run, its launch counts, and the peak device memory of the solves."""
     runs = {}
     paths_2d(runs)
+    start = time.perf_counter()
+    paths_utils(runs)
+    log(f"utils on the main path: {time.perf_counter() - start:.1f} s")
     paths_composed(runs)
     paths_3d(runs)
     paths_sparse(runs)
@@ -4225,6 +4746,9 @@ def phase_main_path():
     start = time.perf_counter()
     paths_sharded3d(runs)
     log(f"sharded 3D paths: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    paths_examples(runs)
+    log(f"example CLIs: {time.perf_counter() - start:.1f} s")
     return runs
 
 
@@ -5783,6 +6307,8 @@ def main() -> int:
     for run in SHARDED3D_RUNS:
         log(f"{run}: " + json.dumps(runs[f"{run}_stats"]))
     log("sharded3d_cycles: " + json.dumps(times["sharded3d_cycles"]))
+    log("utils_stats: " + json.dumps(runs["utils_stats"]))
+    log("examples_stats: " + json.dumps(runs["examples_stats"]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernel_rows(KERNELS, runs, errs, times)}))

@@ -100,13 +100,24 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain route for device {t.device}")
 
 
-def launch_on(t: torch.Tensor, kernel: str, *args, out_dtype=None) -> None:
+# Set by ``utils.debug`` (``debug_mode``, ``checked``) to a callable that
+# takes an entry point's name and the tensors its launch wrote; None
+# outside them, where a launch only tests this.
+NAN_HOOK = None
+
+
+def launch_on(t: torch.Tensor, kernel: str, *args, out_dtype=None,
+              writes=()) -> None:
     """Call the C entry point ``mg_<kernel>_<f32|f64|bf16>`` for ``t``'s
     dtype (``_<f32>`` appended where ``out_dtype`` differs from it), on
-    ``t``'s device and its current stream (passed last)."""
+    ``t``'s device and its current stream (passed last). ``writes``: the
+    tensors the kernel writes, which ``NAN_HOOK`` is shown after the
+    launch when it is set."""
     name = f"mg_{kernel}_{_SUFFIX[t.dtype]}"
     if out_dtype is not None and out_dtype != t.dtype:
         name += f"_{_SUFFIX[out_dtype]}"
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(name, *args, stream)
+    if NAN_HOOK is not None:
+        NAN_HOOK(name, writes)

@@ -221,7 +221,8 @@ def spmm(a: BELL, xt: torch.Tensor) -> torch.Tensor:
     m = xt.shape[0]
     yt = torch.empty((m, a.nbr * BM), dtype=xt.dtype, device=xt.device)
     launch_on(xt, "bell_spmm", a.data.data_ptr(), a.cols.data_ptr(),
-              xt.data_ptr(), yt.data_ptr(), a.nbr, a.kmax, m, xt.shape[1])
+              xt.data_ptr(), yt.data_ptr(), a.nbr, a.kmax, m, xt.shape[1],
+              writes=(yt,))
     launches += 1
     return yt
 

@@ -124,7 +124,8 @@ def smooth_residual_restrict(u: torch.Tensor, b: torch.Tensor, n: int,
     launch_on(u, "fused2d_down", u.data_ptr(), b.data_ptr(),
               u_out.data_ptr(), rc.data_ptr(), n, float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps,
-              _launch_geometry("down", n, kind, sweeps, u))
+              _launch_geometry("down", n, kind, sweeps, u),
+              writes=(u_out, rc))
     down_launches += 1
     return u_out, rc
 
@@ -160,6 +161,6 @@ def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
     launch_on(x, "fused2d_up", x.data_ptr(), e.data_ptr(), b.data_ptr(),
               out.data_ptr(), n, float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps,
-              _launch_geometry("up", n, kind, sweeps, x))
+              _launch_geometry("up", n, kind, sweeps, x), writes=(out,))
     up_launches += 1
     return out

@@ -372,7 +372,7 @@ def _sweep(kind: str, u, b, n, h, omega, row_off, col_off, sigma, sweeps):
               u.shape[0], u.shape[1], n, int(row_off), int(col_off),
               float(h), float(sigma), _build.KIND_CODES[kind], float(omega),
               sweeps, _launch_geometry("sweep", u, n, row_off, col_off, kind,
-                                       sweeps))
+                                       sweeps), writes=(out,))
     return out
 
 
@@ -429,7 +429,8 @@ def residual(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
     out = torch.empty_like(u_ext)
     launch_on(u_ext, "local2d_residual", u_ext.data_ptr(), b_ext.data_ptr(),
               out.data_ptr(), u_ext.shape[0], u_ext.shape[1], n,
-              int(row_off), int(col_off), float(h), float(sigma))
+              int(row_off), int(col_off), float(h), float(sigma),
+              writes=(out,))
     residual_launches += 1
     return out
 
@@ -470,7 +471,7 @@ def down_leg(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
               cols[0], cols[1], float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps,
               _launch_geometry("down", u_ext, n, row_off, col_off, kind,
-                               sweeps))
+                               sweeps), writes=(u_out, rc))
     if u_ext.dtype == torch.bfloat16:
         down_bf16_launches += 1
     else:
@@ -511,7 +512,8 @@ def up_leg(x_ext: torch.Tensor, e_ext: torch.Tensor, b_ext: torch.Tensor,
               int(col_off), coarse_offset(row_off), ccol, float(h),
               float(sigma), _build.KIND_CODES[kind], float(omega), sweeps,
               _launch_geometry("up", x_ext, n, row_off, col_off, kind,
-                               sweeps), out_dtype=out_dtype)
+                               sweeps), out_dtype=out_dtype,
+              writes=(out,))
     if x_ext.dtype != torch.bfloat16:
         up_launches += 1
     elif out_dtype == torch.bfloat16:

@@ -362,7 +362,8 @@ def smooth_residual_restrict(s: torch.Tensor, bs: torch.Tensor, n: int,
               u_out.data_ptr(), rc.data_ptr(), n, float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps,
               int(packed_coarse),
-              _launch_geometry("down", n, kind, sweeps, s.device.index or 0))
+              _launch_geometry("down", n, kind, sweeps, s.device.index or 0),
+              writes=(u_out, rc))
     if s.dtype == torch.bfloat16:
         down_bf16_launches += 1
     else:
@@ -416,7 +417,7 @@ def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
               out.data_ptr(), n, float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps, int(packed_e),
               _launch_geometry("up", n, kind, sweeps, x.device.index or 0),
-              out_dtype=out_dtype)
+              out_dtype=out_dtype, writes=(out,))
     if x.dtype != torch.bfloat16:
         up_launches += 1
     elif out_dtype == torch.bfloat16:
@@ -453,7 +454,7 @@ def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
     out = torch.empty((), dtype=s.dtype, device=s.device)
     launch_on(s, "packed2d_resnorm", s.data_ptr(), bs.data_ptr(),
               partial.data_ptr(), out.data_ptr(), n, float(h), float(sigma),
-              int(red_only), RESNORM_BLOCKS)
+              int(red_only), RESNORM_BLOCKS, writes=(out,))
     resnorm_launches += 1
     return out
 
@@ -494,7 +495,7 @@ def residual(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
         return residual_plain(s, bs, n, h, sigma=sigma)
     out = torch.empty_like(s)
     launch_on(s, "packed2d_residual", s.data_ptr(), bs.data_ptr(),
-              out.data_ptr(), n, float(h), float(sigma))
+              out.data_ptr(), n, float(h), float(sigma), writes=(out,))
     if s.dtype == torch.bfloat16:
         residual_bf16_launches += 1
         residual_bf16_pairs_launches += residual_pairs(s, bs, out)
@@ -531,7 +532,7 @@ def rbgs_sweep(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
     launch_on(s, "packed2d_rbgs", s.data_ptr(), bs.data_ptr(),
               out.data_ptr(), n, float(h), float(sigma), sweeps,
               _launch_geometry("sweep", n, "rbgs", sweeps,
-                               s.device.index or 0))
+                               s.device.index or 0), writes=(out,))
     if s.dtype == torch.bfloat16:
         rbgs_bf16_launches += 1
     else:

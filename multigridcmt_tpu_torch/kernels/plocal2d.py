@@ -255,7 +255,7 @@ def _residual(s, b, c, n, h, row_off, col_off, sigma):
     launch_on(s, "plocal2d_residual", s.data_ptr(),
               (s if b is None else b).data_ptr(), out.data_ptr(), s.shape[1],
               c, n, int(row_off), int(col_off), float(h), float(sigma),
-              int(b is not None))
+              int(b is not None), writes=(out,))
     return out
 
 
@@ -321,7 +321,8 @@ def down_leg(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, m: int,
               float(omega), sweeps,
               packed2d._launch_geometry(
                   "down", n, kind, sweeps, s.device.index or 0,
-                  **_frame(s.shape[1], c, int(row_off), int(col_off))))
+                  **_frame(s.shape[1], c, int(row_off), int(col_off))),
+              writes=(u_out, rc))
     if s.dtype == torch.bfloat16:
         down_bf16_launches += 1
     else:
@@ -364,7 +365,7 @@ def up_leg(x: torch.Tensor, e_ext: torch.Tensor, bs: torch.Tensor, n: int,
               packed2d._launch_geometry(
                   "up", n, kind, sweeps, x.device.index or 0,
                   **_frame(x.shape[1], c, int(row_off), int(col_off))),
-              out_dtype=out_dtype)
+              out_dtype=out_dtype, writes=(out,))
     if x.dtype != torch.bfloat16:
         up_launches += 1
     elif out_dtype == torch.bfloat16:
@@ -401,6 +402,7 @@ def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
     launch_on(s, "plocal2d_resnorm", s.data_ptr(), bs.data_ptr(),
               partial.data_ptr(), out.data_ptr(), s.shape[1], c, n,
               int(row_off), int(col_off), hh, hh + m, cols[0], cols[1],
-              float(h), float(sigma), int(red_only), RESNORM_BLOCKS)
+              float(h), float(sigma), int(red_only), RESNORM_BLOCKS,
+              writes=(out,))
     resnorm_launches += 1
     return out

@@ -149,7 +149,7 @@ def spmv_packed(a: PackedDIA, x_packed: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x_packed)
     launch_on(x_packed, "spmv_dia", a.diags.data_ptr(), x_packed.data_ptr(),
               a.offset_tensor.data_ptr(), y.data_ptr(), len(a.offsets),
-              r * LANES, a.halo * LANES)
+              r * LANES, a.halo * LANES, writes=(y,))
     launches += 1
     return y
 

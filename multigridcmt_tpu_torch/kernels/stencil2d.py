@@ -59,7 +59,7 @@ def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
         return residual_plain(u, b, n, h, sigma=sigma)
     r = torch.empty_like(u)
     launch_on(u, "stencil2d_residual", u.data_ptr(), b.data_ptr(),
-              r.data_ptr(), n, float(h), float(sigma))
+              r.data_ptr(), n, float(h), float(sigma), writes=(r,))
     launches += 1
     return r
 
@@ -82,7 +82,8 @@ def _sweep(kind: str, u, b, n, h, omega, sigma, sweeps) -> torch.Tensor:
     launch_on(u, "stencil2d_sweep", u.data_ptr(), b.data_ptr(),
               out.data_ptr(), n, float(h), float(sigma),
               _build.KIND_CODES[kind], float(omega), sweeps,
-              fused2d._launch_geometry("sweep", n, kind, sweeps, u))
+              fused2d._launch_geometry("sweep", n, kind, sweeps, u),
+              writes=(out,))
     if kind == "rbgs":
         rbgs_launches += 1
     else:

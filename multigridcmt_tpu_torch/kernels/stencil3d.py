@@ -315,7 +315,8 @@ def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float, sigma=0.0,
     out = torch.empty_like(u, dtype=compute_dtype(u.dtype))
     launch_on(u, "stencil3d_residual", u.data_ptr(), b.data_ptr(),
               out.data_ptr(), *u.shape, n, float(h), float(sigma), int(goff),
-              int(roff), _launch_geometry("pass", tuple(u.shape), u.dtype))
+              int(roff), _launch_geometry("pass", tuple(u.shape), u.dtype),
+              writes=(out,))
     if u.dtype == torch.bfloat16:
         residual_bf16_launches += 1
     else:
@@ -344,7 +345,7 @@ def _sweeps(kind: str, kernel: str, u, b, n, args, sweeps: int, odt,
         geom = _launch_geometry("rbgs" if kind == "rbgs" else "pass",
                                 tuple(u.shape), u.dtype, paired)
         launch_on(u, kernel, u.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  *u.shape, n, *args, geom, out_dtype=o)
+                  *u.shape, n, *args, geom, out_dtype=o, writes=(out,))
         _count_sweep(kind, u, o)
         rbgs_bf16_pairs_launches += paired
         u = out

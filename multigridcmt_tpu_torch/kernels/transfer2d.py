@@ -64,7 +64,8 @@ def residual_restrict(u: torch.Tensor, b: torch.Tensor, n: int,
     rc = torch.empty((nc + 2, nc + 2), dtype=u.dtype, device=u.device)
     launch_on(u, "transfer2d_residual_restrict", u.data_ptr(), b.data_ptr(),
               rc.data_ptr(), n, float(h),
-              fused2d._launch_geometry("down", n, "rbgs", 0, u))
+              fused2d._launch_geometry("down", n, "rbgs", 0, u),
+              writes=(rc,))
     residual_restrict_launches += 1
     return rc
 
@@ -86,6 +87,6 @@ def prolong_add(x: torch.Tensor, e: torch.Tensor, n: int,
         return prolong_add_plain(x, e, n, nc)
     out = torch.empty_like(x)
     launch_on(x, "transfer2d_prolong_add", x.data_ptr(), e.data_ptr(),
-              out.data_ptr(), n)
+              out.data_ptr(), n, writes=(out,))
     prolong_add_launches += 1
     return out

@@ -1,29 +1,79 @@
-"""Profiling hooks (port of ``level_scope`` from
-``multigridcmt_tpu.utils.profiling``) and CUDA-event timers.
+"""Tracing and timing hooks (port of ``multigridcmt_tpu.utils.profiling``)
+and CUDA-event timers.
 
-Each multigrid level runs inside a named ``torch.profiler`` range, so a
-``torch.profiler.profile`` trace shows one row per level. The JAX module's
-``trace`` and ``Timer`` are not ported yet: they raise, naming their
-ROADMAP.md item.
+``trace`` writes a Chrome/Perfetto trace of a block from
+``torch.profiler``; each multigrid level runs inside a named range
+(``level_scope``), so the trace shows one row per level. ``Timer`` is a
+wall-clock timer with an explicit device fence. ``cuda_time_ms`` and
+``chained_ms`` time a call by CUDA events.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import socket
 import statistics
+import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 
-UTILS_TODO = ("profiling.{name} is not ported to PyTorch yet (ROADMAP.md, "
-              "queue 1: utils)")
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Capture a trace around a block: the CPU ops, and the card's kernels
+    when a card is present, written on exit (also when the block raises)
+    as ``<logdir>/<host>_<pid>.<ns>.pt.trace.json``, a Chrome/Perfetto
+    trace that TensorBoard's PyTorch profiler plugin also reads. Yields
+    the ``torch.profiler.profile`` (its ``key_averages()``, its events).
 
-
-def trace(*args, **kwargs):
-    raise NotImplementedError(UTILS_TODO.format(name="trace"))
+    >>> with trace("/tmp/mg-trace"):
+    ...     solver.solve()
+    """
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield prof
+            if cuda:
+                torch.cuda.synchronize()
+    finally:
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"{socket.gethostname()}_{os.getpid()}."
+            f"{time.time_ns()}.pt.trace.json"))
 
 
 class Timer:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(UTILS_TODO.format(name="Timer"))
+    """Wall-clock timer with an explicit device fence: CUDA calls return
+    before the card finishes, so time work that ends in ``fence``.
+
+    >>> with Timer() as t:
+    ...     Timer.fence(solver.solve().x)
+    >>> t.elapsed
+    """
+
+    def __init__(self):
+        self.t0 = None
+        self.elapsed = None
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.t0
+        return False
+
+    @staticmethod
+    def fence(x: torch.Tensor) -> float:
+        """Wait for ``x``'s device to finish its work and return
+        ``float(x.sum())`` (a scalar fetched from ``x`` itself)."""
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        return float(x.sum())
 
 
 class count_cycles:                                         # noqa: N801

@@ -1,6 +1,7 @@
-"""Boundaries of the PyTorch port: it imports no JAX, its entry points run
-on the card unless asked for the CPU and raise with no card, the kernel
-build names nvcc when it is missing, the kernel wrappers reject what their
+"""Boundaries of the PyTorch port: it imports no JAX, Orbax or JAX package,
+its entry points run on the card unless asked for the CPU and raise with
+no card, the kernel build names nvcc when it is missing, the kernel
+wrappers reject what their
 kernels do not take, unported routes raise NotImplementedError instead of
 running something else, and the routes ported since (the Chebyshev
 smoother, schedules beyond the fused legs' caps, the unfused ops of a
@@ -37,7 +38,7 @@ def _imported_modules(path: Path):
 
 def _is_jax_side(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "multigridcmt_tpu")
+    return top in ("jax", "jaxlib", "orbax", "multigridcmt_tpu")
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
@@ -539,24 +540,35 @@ def test_unported_solver_methods_raise(call, monkeypatch):
 @pytest.mark.parametrize("item", ["sharded 3D slabs and pencils",
                                   "sharded mixed precision", "utils"])
 def test_remaining_items_raise_naming_them(item, monkeypatch, request):
-    """The parts still to port raise NotImplementedError naming their
-    ROADMAP.md item, and run nothing else. Sharded 3D slabs and pencils are
-    ported since: on a world of 1, a slab mesh and a pencil mesh each run
-    the extended-stack level (the stencil3d kernels' plain versions here)
-    and converge in the single-device solve's cycles to its answer. So is
-    sharded mixed precision in 3D: MG-PCG with a bfloat16 preconditioner
-    casts where mixed_slab_dtype says and reaches the full-dtype answer
-    (their parity with JAX is in test_torch_sharded3d.py and
-    test_torch_sharded3d_mixed.py)."""
+    """Each item that once raised NotImplementedError naming its ROADMAP.md
+    item is ported now, and runs. Sharded 3D slabs and pencils: on a world
+    of 1, a slab mesh and a pencil mesh each run the extended-stack level
+    (the stencil3d kernels' plain versions here) and converge in the
+    single-device solve's cycles to its answer. Sharded mixed precision in
+    3D: MG-PCG with a bfloat16 preconditioner casts where mixed_slab_dtype
+    says and reaches the full-dtype answer (their parity with JAX is in
+    test_torch_sharded3d.py and test_torch_sharded3d_mixed.py). The utils:
+    profiling.trace writes a trace of a k=3 solve with a range for each
+    level, and Timer brackets it with its fence (the rest of the utils are
+    held against JAX in test_torch_utils.py)."""
     from multigridcmt_tpu_torch.parallel import sharded
     from multigridcmt_tpu_torch.utils import profiling
 
     if item == "utils":
-        with pytest.raises(NotImplementedError, match="ROADMAP") as info:
-            profiling.trace("cycle")
-        assert item in str(info.value)
-        with pytest.raises(NotImplementedError, match="queue 1: utils"):
-            profiling.Timer()
+        import json
+
+        tmp = request.getfixturevalue("tmp_path")
+        prob = mt.poisson2d(k=3, dtype=torch.float64, device="cpu")
+        with profiling.trace(str(tmp)), profiling.Timer() as timer:
+            res = mt.MultigridSolver(prob).solve()
+            total = profiling.Timer.fence(res.x)
+        assert res.converged and total == res.x.sum().item()
+        assert timer.elapsed > 0
+        (path,) = tmp.glob("*.pt.trace.json")
+        names = {e.get("name") for e in json.loads(path.read_text())[
+            "traceEvents"]}
+        assert {f"mg_level_{i}" for i in range(
+            prob.hierarchy.num_levels)} <= names
         return
     request.getfixturevalue("world_of_one")
     request.getfixturevalue("one_thread")
@@ -598,10 +610,16 @@ def test_remaining_items_raise_naming_them(item, monkeypatch, request):
 
 def test_import_guard_covers_parallel():
     """test_port_imports_no_jax walks the whole package, parallel/ and the
-    local2d wrappers included."""
+    local2d wrappers included, and the utils and the example CLIs."""
     covered = set(PORT.rglob("*.py"))
     for rel in ("parallel/__init__.py", "parallel/sharded.py",
-                "kernels/local2d.py", "kernels/plocal2d.py"):
+                "kernels/local2d.py", "kernels/plocal2d.py",
+                "utils/checkpoint.py", "utils/comm_audit.py",
+                "utils/debug.py", "utils/metrics.py", "utils/plots.py",
+                "examples/__init__.py", "examples/distributed_vcycle.py",
+                "examples/eigensolve.py", "examples/fmg_accuracy.py",
+                "examples/poisson1d_vcycle.py", "examples/poisson2d_rbgs.py",
+                "examples/poisson3d.py"):
         assert PORT / rel in covered
 
 
