@@ -233,7 +233,10 @@ Phases:
      and a PCG solve's wall, with a bfloat16 and a float32 cycle; the
      stencil3d bfloat16 modes at 511^3 so, beside their float32 twins and
      their bounds at bfloat16 bytes, and the mixed3d cycle's busy and idle
-     and its PCG's wall; the local2d and plocal2d legs' bfloat16 modes at
+     and its PCG's wall; one preconditioning cycle of the sharded mixed
+     Jacobi paths at 511^3 (slab and pencil, bfloat16 beside float32: busy,
+     idle, the stencil3d Jacobi kernels' share); the local2d and plocal2d
+     legs' bfloat16 modes at
      S1's fine tile beside their float32 twins and their bounds at bfloat16
      bytes, and on each sharded mixed path a preconditioning cycle's busy
      and idle share and a PCG solve's wall, with a bfloat16 and a float32
@@ -378,7 +381,9 @@ FUSED_LEG_SHAPES = [(torch.float32, 2999), (torch.float32, 31),
 # march (stencil3d.rbgs_pairs: r odd, goff + roff even): the RB-GS V(2,2)
 # slab (hz = 5: goff = 1 - hz, 512 + 2 hz planes) and pencil (rows too,
 # passing both ends of the grid; 522 rows: the scalar march), the Jacobi
-# V(2,2) slab and pencil (hz = 3).
+# V(2,2) slab and pencil (hz = 3). A bfloat16 Jacobi sweep storing
+# bfloat16 takes its paired march on all four (stencil3d.jacobi_pairs: c
+# odd, whatever r and the offsets).
 SHARDED3D_STACKS = [((-4, 0, 522, 513), True), ((-4, -4, 522, 522), False),
                     ((-2, 0, 518, 513), True), ((-2, -2, 518, 518), False)]
 STENCIL3D_SHAPES = [(torch.float32, 511), (torch.float32, 255),
@@ -863,9 +868,11 @@ OTHER_KERNEL = re.compile(r"(bell_spmm_kernel|residual_restrict_kernel)I([fd])"
 # A stencil3d z-march kernel's mangled name: kernel, compute type, band
 # rows, mode (the pass: 0 residual, 1 Jacobi), and the bfloat16 storage (an
 # f after it: a float32 output).
-# The paired march (rbgs_pairs_kernel<O>: I13__nv_bfloat16 or If) and the
-# paired packed residual.
+# The paired marches (rbgs_pairs_kernel<O>: I13__nv_bfloat16 or If;
+# jacobi_pairs_kernel<ROdd>: ILb1E or ILb0E) and the paired packed
+# residual.
 PAIR_KERNEL = re.compile(r"rbgs_pairs_kernelI(?:13__nv_bfloat16|f)|"
+                         r"jacobi_pairs_kernelILb[01]E|"
                          r"presidual_pairs_kernel")
 STENCIL3D_KERNEL = re.compile(r"(rbgs|pass)_kernelI([fd])Li(\d+)E"
                               r"(?:Li([01])E)?(13__nv_bfloat16(f)?)?")
@@ -947,8 +954,9 @@ def ptxas_report(log_path) -> dict:
             + (f" spill {spill}B" if spill else ""))
     pairs = {PAIR_KERNEL.search(k).group(0): prop for k, prop in props.items()
              if PAIR_KERNEL.search(k) and "regs" in prop}
-    require(len(pairs) == 3, f"ptxas report has {sorted(pairs)}, not the "
-            "paired march's two kernels and the paired residual")
+    require(len(pairs) == 5, f"ptxas report has {sorted(pairs)}, not the "
+            "paired RB-GS march's two kernels, the paired Jacobi march's "
+            "two and the paired residual")
     for key, prop in sorted(pairs.items()):
         log(f"ptxas {key}: {prop['regs']}r"
             + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
@@ -1450,14 +1458,23 @@ def compare_mixed3d(main_err: dict) -> None:
             for mode, kw, key in modes:
                 label = f"bf16 stencil3d {mode} {where} sigma={sigma} {kw}"
                 fn = getattr(stencil3d, mode)
-                before = stencil3d.rbgs_bf16_pairs_launches
+                before = (stencil3d.rbgs_bf16_pairs_launches,
+                          stencil3d.jacobi_bf16_pairs_launches)
                 got = fn(uu, bb, n, h, sigma=sigma, **off, **kw)
-                # The whole grid takes the paired march, each stack the
-                # one MIXED3D_STACKS names.
-                paired = stencil3d.rbgs_bf16_pairs_launches - before
-                require(paired == (kw["sweeps"] if mode == "rbgs_sweep"
-                                   and pairs else 0),
-                        f"{label}: {paired} paired launches")
+                # The RB-GS sweeps take the paired march on the whole grid
+                # and on the stacks MIXED3D_STACKS names; the Jacobi
+                # sweeps storing bfloat16 on every grid and stack (c odd).
+                paired = (stencil3d.rbgs_bf16_pairs_launches - before[0],
+                          stencil3d.jacobi_bf16_pairs_launches - before[1])
+                nu = kw.get("sweeps", 1)
+                stored = nu - (kw.get("out_dtype") is not None)
+                want_paired = ((nu if pairs else 0, 0)
+                               if mode == "rbgs_sweep" else
+                               (0, stored) if mode == "jacobi_sweep"
+                               else (0, 0))
+                require(paired == want_paired,
+                        f"{label}: (RB-GS, Jacobi) paired launches "
+                        f"{paired}, not {want_paired}")
                 start, pkw = uu, kw
                 if kw.get("sweeps", 1) == 2:
                     start = fn(uu, bb, n, h, sigma=sigma, **off,
@@ -1476,7 +1493,28 @@ def compare_mixed3d(main_err: dict) -> None:
                 if whole and sigma == 0.0 and key is not None:
                     main_err[key] = err
         del uu, bb
-    del su, sb
+    # The scalar march, which the Jacobi sweep storing bfloat16 launches
+    # where an array is off a 4-byte word (jacobi_pairs): u and b one
+    # element off one. It gives the paired march's bits.
+    ou, ob = (torch.empty(g.numel() + 1, dtype=g.dtype,
+                          device=g.device)[1:].view(g.shape).copy_(g)
+              for g in (su, sb))
+    for sigma in (0.0, SIGMA):
+        label = f"bf16 stencil3d jacobi_sweep n={n} sigma={sigma} off a word"
+        before = (stencil3d.jacobi_bf16_launches,
+                  stencil3d.jacobi_bf16_pairs_launches)
+        got = stencil3d.jacobi_sweep(ou, ob, n, h, omega3(), sigma=sigma)
+        runs = (stencil3d.jacobi_bf16_launches - before[0],
+                stencil3d.jacobi_bf16_pairs_launches - before[1])
+        require(runs == (1, 0), f"{label}: (launches, paired) {runs}, not "
+                "(1, 0)")
+        want = stencil3d.jacobi_sweep_plain(ou, ob, n, h, omega3(),
+                                            sigma=sigma)
+        check_bf16(label, got, want, f32_out=False, ghosts=True)
+        paired = stencil3d.jacobi_sweep(su, sb, n, h, omega3(), sigma=sigma)
+        require(torch.equal(got.view(torch.int16), paired.view(torch.int16)),
+                f"{label}: the scalar march's bits are not the paired one's")
+    del ou, ob, su, sb
     torch.cuda.empty_cache()
 
 
@@ -2364,13 +2402,17 @@ KERNELS = {
 }
 # A kernel's launches by one variant -> (counter module, counter, the
 # KERNELS entries whose launches they are part of): the bfloat16 RB-GS
-# sweep's paired march (both outputs) and the packed residual's paired
-# kernel, which their launchers take where the layout pairs (every whole
-# grid of the mixed paths) and the scalar kernels elsewhere.
+# sweep's paired march (both outputs), the bfloat16-storing Jacobi sweep's
+# paired march and the packed residual's paired kernel, which their
+# launchers take where the layout pairs (every whole grid of the mixed
+# paths; for Jacobi every stack too) and the scalar kernels elsewhere.
 VARIANTS = {
     "stencil3d_rbgs_bf16_pairs": ("stencil3d", "rbgs_bf16_pairs_launches",
                                   ("stencil3d_rbgs_bf16",
                                    "stencil3d_rbgs_bf16_f32")),
+    "stencil3d_jacobi_bf16_pairs": ("stencil3d",
+                                    "jacobi_bf16_pairs_launches",
+                                    ("stencil3d_jacobi_bf16",)),
     "packed2d_residual_bf16_pairs": ("packed2d",
                                      "residual_bf16_pairs_launches",
                                      ("packed2d_residual_bf16",)),
@@ -3775,7 +3817,8 @@ def paths_mixed3d(runs: dict) -> None:
     _, counts, _ = counted(direct)
     require_counts("stencil3d bf16 direct", counts,
                    stencil3d_rbgs_bf16_f32=1, stencil3d_rbgs_bf16_pairs=1,
-                   stencil3d_jacobi_bf16=1, stencil3d_jacobi_bf16_f32=1)
+                   stencil3d_jacobi_bf16=1, stencil3d_jacobi_bf16_pairs=1,
+                   stencil3d_jacobi_bf16_f32=1)
     runs["mixed3d_direct"] = counts
     del su, sb
     torch.cuda.empty_cache()
@@ -3999,7 +4042,10 @@ def paths_sharded3d(runs: dict) -> None:
         mixed preconditioner: 3 bfloat16 sweeps, the last up sweep storing
         float32, the bfloat16 residual); the slab check residual (1
         plane) before the first cycle and after each, or PCG's first
-        residual and one apply an iteration; none on a pencil mesh."""
+        residual and one apply an iteration; none on a pencil mesh. Of
+        the bfloat16 RB-GS sweeps all 4 are paired where ``pairs`` holds;
+        the 3 bfloat16-storing Jacobi sweeps are paired on every stack
+        (jacobi_pairs: c odd)."""
         c = i if method == "mg" else i + 1
         checks = (i + 1) if slab else 0
         out = {f"stencil3d_{kind}": 4 * tier * c,
@@ -4012,6 +4058,8 @@ def paths_sharded3d(runs: dict) -> None:
                    "stencil3d_residual_bf16": c}
             if pairs:
                 out["stencil3d_rbgs_bf16_pairs"] = 4 * c
+            if kind == "jacobi":
+                out["stencil3d_jacobi_bf16_pairs"] = 3 * c
         return out
 
     full = {}
@@ -6046,7 +6094,12 @@ def timed_sharded3d(times: dict) -> None:
     events, the profiler's device busy time, ops and idle share a cycle,
     and of the busy time the stencil3d kernels' and the cat and copy
     kernels' (the stacks' extension and owned slices, and the plain
-    transfers' copies on either route)."""
+    transfers' copies on either route). Then one preconditioning cycle of
+    the mixed Jacobi paths (slab511-mixed-jacobi, pencil511-mixed-jacobi:
+    the cycle their PCG runs on the defect cast to bfloat16, its top level
+    storing float32) beside the float32 cycle on the float32 defect, in
+    turns: the same readings and the stencil3d Jacobi kernels' share of the
+    busy time (timed_mixed_jacobi3d)."""
     import multigridcmt_tpu_torch as mt
     from multigridcmt_tpu_torch.parallel import sharded
     from multigridcmt_tpu_torch.utils.breakdown import (SHARDED3D_KERNELS,
@@ -6075,6 +6128,67 @@ def timed_sharded3d(times: dict) -> None:
         row.setdefault(label, []).append(t)
     times["sharded3d_cycles"] = row
     del prob, single, x, fns, keep
+    torch.cuda.empty_cache()
+    timed_mixed_jacobi3d(times)
+
+
+# The stencil3d Jacobi kernels by the profiler's name: the paired march and
+# the scalar pass_kernel in its Jacobi mode (MODE 1), any storage.
+STENCIL3D_JACOBI = re.compile(r"(?<!\w)(jacobi_pairs_kernel<|"
+                              r"pass_kernel<(float|double), \d+, 1,)")
+
+
+def timed_mixed_jacobi3d(times: dict) -> None:
+    """One preconditioning cycle at 511^3 of slab511-mixed-jacobi and
+    pencil511-mixed-jacobi (ShardedSolver's PCG preconditioner: a sharded
+    cycle from zero on the defect in bfloat16, out_dtype float32) beside
+    the float32 cycle on the same defect in float32, in turns (float32,
+    bfloat16, bfloat16, float32 a mesh): time by CUDA events, device busy,
+    ops, idle share, and the stencil3d kernels', the stencil3d Jacobi
+    kernels' and the cat and copy kernels' device time a cycle."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.kernels import _wrap
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.breakdown import (SHARDED3D_KERNELS,
+                                                        device_busy)
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    bf16 = torch.bfloat16
+    groups = {**SHARDED3D_KERNELS,
+              "stencil3d Jacobi kernels": STENCIL3D_JACOBI}
+    prob = mt.poisson3d(k=MAIN_K3, dtype=torch.float32, smoother="jacobi",
+                        use_kernels=True, device="cuda", precond_dtype=bf16)
+    cfg = prob.config
+    out = {}
+    for label, shape in (("slab", (1,)), ("pencil", (1, 1))):
+        solver = sharded.ShardedSolver(cfg, sharded_mesh(shape))
+        pd = sharded.mixed_slab_dtype(cfg, solver.decomp)
+        require(pd == bf16, f"mixed Jacobi {label}: the cast is {pd}")
+        bt = sharded.shard_rhs(prob.b, solver.mesh, solver.decomp)
+
+        def cycle(rp, solver=solver):
+            odt = _wrap.compute_dtype(rp.dtype) if rp.dtype == bf16 else None
+            return sharded._sharded_v_cycle(
+                solver.hierarchy, cfg, solver.decomp, torch.zeros_like(rp),
+                rp, 0, 1, out_dtype=odt)
+
+        fns = {dt: functools.partial(cycle, bt.to(dt))
+               for dt in (torch.float32, bf16)}
+        row = {}
+        for dt in (torch.float32, bf16, bf16, torch.float32):
+            ms = cuda_time_ms(fns[dt], reps=10)
+            busy, ops, by = device_busy(fns[dt], 3, groups)
+            t = {"cycle_ms": ms, "busy_ms": busy, "ops": ops,
+                 "idle": 1.0 - busy / ms, **by,
+                 "jacobi_share": by["stencil3d Jacobi kernels"] / busy}
+            key = str(dt).split(".")[-1]
+            log(f"mixed Jacobi cycle 3D k={MAIN_K3} {label} {key}: "
+                + json.dumps(t))
+            row.setdefault(key, []).append(t)
+        out[label] = row
+        del solver, bt, fns
+    times["mixed_jacobi3d_cycles"] = out
+    del prob
     torch.cuda.empty_cache()
 
 
@@ -6307,6 +6421,8 @@ def main() -> int:
     for run in SHARDED3D_RUNS:
         log(f"{run}: " + json.dumps(runs[f"{run}_stats"]))
     log("sharded3d_cycles: " + json.dumps(times["sharded3d_cycles"]))
+    log("mixed_jacobi3d_cycles: "
+        + json.dumps(times["mixed_jacobi3d_cycles"]))
     log("utils_stats: " + json.dumps(runs["utils_stats"]))
     log("examples_stats: " + json.dumps(runs["examples_stats"]))
     log(f"chip_smoke wall time: {time.perf_counter() - t0:.1f} s")

@@ -4,9 +4,12 @@
 // storage). They replace the three modes of the one TPU kernel in
 // multigridcmt_tpu/kernels/stencil3d.py (its pallas_call):
 //   residual     -> pass_kernel, kResidual
-//   jacobi_sweep -> pass_kernel, kJacobi (a launch a sweep)
+//   jacobi_sweep -> pass_kernel, kJacobi (a launch a sweep); storing
+//                   bfloat16 from bfloat16, jacobi_pairs_kernel where the
+//                   layout pairs (below)
 //   rbgs_sweep   -> rbgs_kernel (a launch a sweep, one pass, like the TPU
-//                   kernel's two-colour pipeline)
+//                   kernel's two-colour pipeline); with bfloat16 storage,
+//                   rbgs_pairs_kernel where the layout pairs (below)
 //
 // Grids are stacks of p planes of r x c points, row-major, c = n+2: the
 // logical padded (n+2)^3 grid of a level, or a slab or pencil stack whose
@@ -51,7 +54,10 @@
 // its bound); on words (rbgs_pairs_kernel, below: 2 points a lane, 4-row
 // bands, 128 registers, 16 warps an SM) it runs 0.41 ms storing bfloat16
 // and 0.47 storing float32, 59% and 68% of their bounds, on an H100 at
-// 700 W (PERF.md).
+// 700 W (PERF.md). Likewise the bfloat16 Jacobi sweep: 0.52 ms on the
+// scalar march (47%), 0.34 ms on words (jacobi_pairs_kernel, 4-row bands,
+// 92-94 registers: 72%); 8-row bands held 144-148 registers, 12 warps an
+// SM, and ran 0.40 ms.
 //
 // The design, a z-march by warps. A unit of work is one warp: a strip of
 // 32 columns (one a lane) by a band of rows (kRbgsRows*, kPassRows*),
@@ -64,8 +70,8 @@
 // a plane are issued a step before it is used, so each warp keeps a
 // plane's rows of u and b in flight while it computes; a whole-warp load
 // reads 32 neighbouring columns (the rows are not 16-byte aligned, c being
-// odd, so each lane loads one scalar; the bfloat16 sweep's paired march
-// below pairs them into 4-byte words where the layout allows). The
+// odd, so each lane loads one scalar; the bfloat16 sweeps' paired marches
+// below pair them into 4-byte words where the layout allows). The
 // halo (H columns each side, H rows above and below, the planes just past a
 // chunk) is read again by the neighbouring unit, mostly from L2, since
 // neighbouring units run at the same time.
@@ -303,40 +309,42 @@ struct RbgsMarch {
       }
     }
   }
-
-  // The step of plane z = z0 + 4m + K: load u(z + 3) and b(z + 2) for the
-  // next step, red-update plane z + 1, black-update plane z.
-  template <int K>
-  __device__ __forceinline__ void step(int z) {
-    load_u<(K + 3) & 3>(z + 3);
-    load_b<(K + 2) & 3>(z + 2);
-    red<(K + 1) & 3, K, (K + 1) & 3, (K + 2) & 3>(z + 1);
-    black<(K + 3) & 3, K, (K + 1) & 3>(z);
-  }
-
-  __device__ __forceinline__ void run() {
-    const int z0 = t.z0;
-    load_u<2>(z0 - 2);
-    load_u<3>(z0 - 1);
-    load_u<0>(z0);
-    load_u<1>(z0 + 1);
-    load_b<3>(z0 - 1);
-    load_b<0>(z0);
-    red<3, 2, 3, 0>(z0 - 1);
-    load_u<2>(z0 + 2);   // u(z0 - 2)'s slot, free from here on
-    load_b<1>(z0 + 1);
-    red<0, 3, 0, 1>(z0);
-    for (int z = z0; z < t.z1; z += kSlots) {
-      step<0>(z);
-      if (z + 1 == t.z1) break;
-      step<1>(z + 1);
-      if (z + 2 == t.z1) break;
-      step<2>(z + 2);
-      if (z + 3 == t.z1) break;
-      step<3>(z + 3);
-    }
-  }
 };
+
+// The RB-GS sweep's schedule (RbgsMarch's and PairMarch's). The step of
+// plane z = z0 + 4m + K: load u(z + 3) and b(z + 2) for the next step,
+// red-update plane z + 1, black-update plane z.
+template <int K, typename March>
+__device__ __forceinline__ void rbgs_step(March& m, int z) {
+  m.template load_u<(K + 3) & 3>(z + 3);
+  m.template load_b<(K + 2) & 3>(z + 2);
+  m.template red<(K + 1) & 3, K, (K + 1) & 3, (K + 2) & 3>(z + 1);
+  m.template black<(K + 3) & 3, K, (K + 1) & 3>(z);
+}
+
+template <typename March>
+__device__ __forceinline__ void rbgs_run(March& m) {
+  const int z0 = m.t.z0;
+  m.template load_u<2>(z0 - 2);
+  m.template load_u<3>(z0 - 1);
+  m.template load_u<0>(z0);
+  m.template load_u<1>(z0 + 1);
+  m.template load_b<3>(z0 - 1);
+  m.template load_b<0>(z0);
+  m.template red<3, 2, 3, 0>(z0 - 1);
+  m.template load_u<2>(z0 + 2);   // u(z0 - 2)'s slot, free from here on
+  m.template load_b<1>(z0 + 1);
+  m.template red<0, 3, 0, 1>(z0);
+  for (int z = z0; z < m.t.z1; z += kSlots) {
+    rbgs_step<0>(m, z);
+    if (z + 1 == m.t.z1) break;
+    rbgs_step<1>(m, z + 1);
+    if (z + 2 == m.t.z1) break;
+    rbgs_step<2>(m, z + 2);
+    if (z + 3 == m.t.z1) break;
+    rbgs_step<3>(m, z + 3);
+  }
+}
 
 template <typename T, int R, typename S, typename O>
 __global__ void __launch_bounds__(kWarps * kLanes)
@@ -344,16 +352,16 @@ rbgs_kernel(const S* __restrict__ u, const S* __restrict__ b,
             O* __restrict__ out, Stack s, Geom g, mg::Coef<T> cf) {
   RbgsMarch<T, R, S, O> m(u, b, out, s, g, cf);
   if (!m.t.ok) return;   // a whole warp: no lane of it shuffles
-  m.run();
+  rbgs_run(m);
 }
 
 // ---------------------------------------------------------------------------
 // The RB-GS sweep with u and b stored in bfloat16, on words of two points
 // (rbgs_pairs_kernel; stencil3d_bf16.cu's entry points launch it where the
-// layout pairs, rbgs_pairs, and rbgs_kernel elsewhere). It keeps the
-// scalar march's schedule (the same steps, slots and planes) and its
-// arithmetic point for point, but a lane holds an aligned 32-bit word of
-// each row: two points, the low one red. With r and c odd an element's
+// layout pairs, rbgs_pairs, and rbgs_kernel elsewhere). It runs the
+// scalar march's schedule (rbgs_run: the same steps, slots and planes) and
+// keeps its arithmetic point for point, but a lane holds an aligned 32-bit
+// word of each row: two points, the low one red. With r and c odd an element's
 // index has the parity of z + y + x, so with goff + roff even every
 // word-aligned pair starts on a red point: in a row whose first index is
 // even (s = 0) word w holds columns 2w and 2w + 1, in one whose first index
@@ -379,21 +387,28 @@ rbgs_kernel(const S* __restrict__ u, const S* __restrict__ b,
 //
 // A strip is kLanes words, kLanes - 2 of them owned (lanes 1 .. 30: 60
 // columns); lane 0's word and lane 31's are the halo, H = 2 columns each
-// side. Bands of kRbgsRowsPairs rows and chunks of an even number of
-// planes, with y0 even, give every region row and plane its s at compile
-// time (the slot of a plane fixes its parity).
+// side. Bands of kPairRows rows and chunks of an even number of planes,
+// with y0 even, give every region row and plane its s at compile time (the
+// slot of a plane fixes its parity).
 // ---------------------------------------------------------------------------
 
-constexpr int kRbgsRowsPairs = 4;  // rows of a band: the paired sweep (even)
+constexpr int kPairRows = 4;  // rows of a band: the paired marches (even)
 
-// The paired march's unit. Lane l of strip sx holds word w = sx * (kLanes -
-// 2) - 1 + l of every row: columns 2w - s and 2w + 1 - s. Region row j of
-// a lane is stack row y0 - 2 + j; with y0 and z0 even a row of a plane
-// with (q - z0) & 1 = sp has s = (sp + j) & 1.
-template <int R>
+// The paired march's unit, with H rows of halo above and below R core
+// rows (H = 2 the RB-GS sweep's, H = 1 the Jacobi sweep's). Lane l of strip
+// sx holds word w = sx * (kLanes - 2) - 1 + l of every row: columns 2w - s
+// and 2w + 1 - s. Region row j of a lane is stack row y0 - H + j; with y0
+// and z0 even a row of a plane with (q - z0) & 1 = sp has s = row_s(sp, j):
+// (sp + H + j) & 1 where r is odd, (H + j) & 1 where r is even (c odd: a
+// row's first element has the parity of q r + y).
+template <int R, int H_ = 2, bool ROdd = true>
 struct PairUnit {
   static_assert(R % 2 == 0, "the paired march's bands start on even rows");
-  static constexpr int H = 2;
+  static constexpr int H = H_;
+
+  static __host__ __device__ constexpr int row_s(int sp, int j) {
+    return ((ROdd ? sp : 0) + H + j) & 1;
+  }
 
   int w;                 // this lane's word of a row
   int y0;                // the first core row
@@ -401,9 +416,10 @@ struct PairUnit {
   unsigned rows;         // bit j: region row j in the stack, w in its row
   unsigned tail;         // bit j: region row j is the stack's last row and
                          // w its last word (past the array's end there)
-  unsigned red_upd[2];   // bit j, plane parity sp: the low (red) point of
-                         // region row j is updated in a valid plane
-  unsigned black_upd[2]; // ... the high (black) point
+  unsigned lo_upd[2];    // bit j, plane parity sp: the low point of region
+                         // row j is updated in a valid plane (the red one
+                         // in the RB-GS sweep)
+  unsigned hi_upd[2];    // ... the high (black) point
   unsigned mine;         // bit j: this lane stores region row j
   bool first, last;      // w is its row's first word, its last
   bool ok;               // the warp has a unit
@@ -431,7 +447,7 @@ struct PairUnit {
       hi_in[sh] = 2 * w + 1 - sh >= 1 && 2 * w + 1 - sh <= s.n;
     }
     rows = tail = mine = 0u;
-    red_upd[0] = red_upd[1] = black_upd[0] = black_upd[1] = 0u;
+    lo_upd[0] = lo_upd[1] = hi_upd[0] = hi_upd[1] = 0u;
 #pragma unroll
     for (int j = 0; j < R + 2 * H; ++j) {
       const int y = y0 - H + j;
@@ -441,8 +457,8 @@ struct PairUnit {
       if (y >= 1 && y <= s.r - 2 && gy >= 1 && gy <= s.n) {
 #pragma unroll
         for (int sp = 0; sp < 2; ++sp) {
-          if (lo_in[(sp + j) & 1]) red_upd[sp] |= 1u << j;
-          if (hi_in[(sp + j) & 1]) black_upd[sp] |= 1u << j;
+          if (lo_in[row_s(sp, j)]) lo_upd[sp] |= 1u << j;
+          if (hi_in[row_s(sp, j)]) hi_upd[sp] |= 1u << j;
         }
       }
       if (lane >= 1 && lane <= kLanes - 2 && col && j >= H && j < H + R &&
@@ -458,20 +474,20 @@ struct PairUnit {
 // planes outside [0, qend); in the stack's last plane its last row's last
 // word, which may end past the array, is 0 (no point reads it: that plane
 // is never updated). SP is the plane's parity.
-template <int SP, int R, int N>
+template <int SP, typename Unit, int N>
 __device__ __forceinline__ void load_words(unsigned (&v)[N],
                                            const __nv_bfloat16* __restrict__ a,
-                                           const Stack& s,
-                                           const PairUnit<R>& t, int q,
-                                           int qend, int j0, unsigned mask) {
+                                           const Stack& s, const Unit& t,
+                                           int q, int qend, int j0,
+                                           unsigned mask) {
   const bool zin = q >= 0 && q < min(qend, s.p);
   if (q == s.p - 1) mask &= ~t.tail;
   const long long base =
-      (static_cast<long long>(q) * s.r + (t.y0 - PairUnit<R>::H + j0)) * s.c +
+      (static_cast<long long>(q) * s.r + (t.y0 - Unit::H + j0)) * s.c +
       2 * t.w;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const int sh = (SP + j0 + i) & 1;
+    const int sh = Unit::row_s(SP, j0 + i);
     v[i] = (zin && ((mask >> (j0 + i)) & 1u))
                ? __ldg(reinterpret_cast<const unsigned*>(
                      a + (base + static_cast<long long>(i) * s.c - sh)))
@@ -544,7 +560,7 @@ struct PairMarch {
   // u's black value.
   template <int D, int L, int M, int U>
   __device__ __forceinline__ void red(int q) {
-    const unsigned upd = plane_valid(q, s) ? t.red_upd[D & 1] : 0u;
+    const unsigned upd = plane_valid(q, s) ? t.lo_upd[D & 1] : 0u;
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const unsigned cur = uu[M][i + 1];
@@ -570,7 +586,7 @@ struct PairMarch {
   template <int L, int M, int U>
   __device__ __forceinline__ void black(int q) {
     const bool valid = plane_valid(q, s);
-    const unsigned upd = valid ? t.black_upd[M & 1] : 0u;
+    const unsigned upd = valid ? t.hi_upd[M & 1] : 0u;
     const long long base =
         (static_cast<long long>(q) * s.r + t.y0) * s.c + 2 * t.w;
 #pragma unroll
@@ -596,38 +612,6 @@ struct PairMarch {
       }
     }
   }
-
-  // The step of plane z = z0 + 4m + K, as RbgsMarch's.
-  template <int K>
-  __device__ __forceinline__ void step(int z) {
-    load_u<(K + 3) & 3>(z + 3);
-    load_b<(K + 2) & 3>(z + 2);
-    red<(K + 1) & 3, K, (K + 1) & 3, (K + 2) & 3>(z + 1);
-    black<(K + 3) & 3, K, (K + 1) & 3>(z);
-  }
-
-  __device__ __forceinline__ void run() {
-    const int z0 = t.z0;
-    load_u<2>(z0 - 2);
-    load_u<3>(z0 - 1);
-    load_u<0>(z0);
-    load_u<1>(z0 + 1);
-    load_b<3>(z0 - 1);
-    load_b<0>(z0);
-    red<3, 2, 3, 0>(z0 - 1);
-    load_u<2>(z0 + 2);
-    load_b<1>(z0 + 1);
-    red<0, 3, 0, 1>(z0);
-    for (int z = z0; z < t.z1; z += kSlots) {
-      step<0>(z);
-      if (z + 1 == t.z1) break;
-      step<1>(z + 1);
-      if (z + 2 == t.z1) break;
-      step<2>(z + 2);
-      if (z + 3 == t.z1) break;
-      step<3>(z + 3);
-    }
-  }
 };
 
 template <typename O>
@@ -635,9 +619,9 @@ __global__ void __launch_bounds__(kWarps * kLanes)
 rbgs_pairs_kernel(const __nv_bfloat16* __restrict__ u,
                   const __nv_bfloat16* __restrict__ b, O* __restrict__ out,
                   Stack s, Geom g, mg::Coef<float> cf) {
-  PairMarch<kRbgsRowsPairs, O> m(u, b, out, s, g, cf);
+  PairMarch<kPairRows, O> m(u, b, out, s, g, cf);
   if (!m.t.ok) return;   // a whole warp: no lane of it shuffles
-  m.run();
+  rbgs_run(m);
 }
 
 // ---------------------------------------------------------------------------
@@ -704,33 +688,35 @@ struct PassMarch {
       }
     }
   }
-
-  // The step of plane z = z0 + 4m + K: load u(z + 2) and b(z + 1) for the
-  // next step, then plane z.
-  template <int K>
-  __device__ __forceinline__ void step(int z) {
-    load_u<(K + 2) & 3>(z + 2);
-    load_b<(K + 1) & 3>(z + 1);
-    apply<(K + 3) & 3, K, (K + 1) & 3>(z);
-  }
-
-  __device__ __forceinline__ void run() {
-    const int z0 = t.z0;
-    load_u<3>(z0 - 1);
-    load_u<0>(z0);
-    load_u<1>(z0 + 1);
-    load_b<0>(z0);
-    for (int z = z0; z < t.z1; z += kSlots) {
-      step<0>(z);
-      if (z + 1 == t.z1) break;
-      step<1>(z + 1);
-      if (z + 2 == t.z1) break;
-      step<2>(z + 2);
-      if (z + 3 == t.z1) break;
-      step<3>(z + 3);
-    }
-  }
 };
+
+// The pass's schedule (PassMarch's and JacobiPairMarch's). The step of
+// plane z = z0 + 4m + K: load u(z + 2) and b(z + 1) for the next step,
+// then plane z.
+template <int K, typename March>
+__device__ __forceinline__ void pass_step(March& m, int z) {
+  m.template load_u<(K + 2) & 3>(z + 2);
+  m.template load_b<(K + 1) & 3>(z + 1);
+  m.template apply<(K + 3) & 3, K, (K + 1) & 3>(z);
+}
+
+template <typename March>
+__device__ __forceinline__ void pass_run(March& m) {
+  const int z0 = m.t.z0;
+  m.template load_u<3>(z0 - 1);
+  m.template load_u<0>(z0);
+  m.template load_u<1>(z0 + 1);
+  m.template load_b<0>(z0);
+  for (int z = z0; z < m.t.z1; z += kSlots) {
+    pass_step<0>(m, z);
+    if (z + 1 == m.t.z1) break;
+    pass_step<1>(m, z + 1);
+    if (z + 2 == m.t.z1) break;
+    pass_step<2>(m, z + 2);
+    if (z + 3 == m.t.z1) break;
+    pass_step<3>(m, z + 3);
+  }
+}
 
 template <typename T, int R, int MODE, typename S, typename O>
 __global__ void __launch_bounds__(kWarps * kLanes)
@@ -738,7 +724,151 @@ pass_kernel(const S* __restrict__ u, const S* __restrict__ b,
             O* __restrict__ out, Stack s, Geom g, mg::Coef<T> cf) {
   PassMarch<T, R, MODE, S, O> m(u, b, out, s, g, cf);
   if (!m.t.ok) return;
-  m.run();
+  pass_run(m);
+}
+
+// ---------------------------------------------------------------------------
+// The Jacobi sweep with u, b and out stored in bfloat16, on words of two
+// points (jacobi_pairs_kernel; stencil3d_bf16.cu's mg_stencil3d_jacobi_bf16
+// launches it where the layout pairs, jacobi_pairs, and pass_kernel
+// elsewhere). It runs PassMarch's schedule (pass_run: the same steps,
+// slots and planes) and keeps its arithmetic point for point, on
+// PairUnit's words (H = 1): a lane holds an aligned 32-bit word of each
+// row, both points updated.
+// Jacobi has no colour, so any offsets pair: only c odd is needed, which
+// makes a row's first element have the parity s of q r + y. With r odd
+// (whole grids, slab stacks) s flips with the row and the plane; with r even
+// (pencil stacks) only with the row. The march is instantiated for both
+// (ROdd), so that a slot and a region row fix s at compile time.
+//
+// The neighbours of the word's points, low x = 2w - s and high x + 1: x - 1
+// of the low point is word w - 1's high half, x + 1 of the high point word
+// w + 1's low half, the others in the word. A neighbouring row or plane
+// with the same s holds the point in the same half of word w; one with the
+// other s in the other half: the low point's is word w's high half where
+// s = 0 and word w - 1's where s = 1, the high point's word w + 1's low
+// half where s = 0 and its own where s = 1. With r odd all four vertical
+// neighbours have the other s; with r even the planes' have the same. The
+// sums keep PassMarch's order, ((((z-1 + z+1) + y-1) + y+1) + x-1) + x+1:
+// where a sum needs another lane's values in its middle, that lane forms
+// the partial sum (taking this lane's leading terms by a shuffle) and
+// shuffles it back. A word takes 2 (r odd, s = 1) to 4 (r even, s = 0)
+// shuffles against the scalar march's 4 for its two points. Each output
+// word is rounded once (pack_bf16); a row's end word straddling two rows
+// stores its own row's half (store_pair).
+// ---------------------------------------------------------------------------
+
+template <int R, bool ROdd>
+struct JacobiPairMarch {
+  using Unit = PairUnit<R, 1, ROdd>;
+  static constexpr int H = 1;
+  static constexpr int NU = R + 2 * H;
+
+  const __nv_bfloat16* __restrict__ u;
+  const __nv_bfloat16* __restrict__ b;
+  __nv_bfloat16* __restrict__ out;
+  Stack s;
+  mg::Coef<float> cf;
+  Unit t;
+  unsigned uu[kSlots][NU];
+  unsigned bb[kSlots][R];
+
+  __device__ JacobiPairMarch(const __nv_bfloat16* u_,
+                             const __nv_bfloat16* b_, __nv_bfloat16* out_,
+                             const Stack& s_, const Geom& g,
+                             const mg::Coef<float>& cf_)
+      : u(u_), b(b_), out(out_), s(s_), cf(cf_), t(s_, g) {}
+
+  // Slot Z holds planes of parity Z & 1.
+  template <int Z>
+  __device__ __forceinline__ void load_u(int q) {
+    load_words<Z & 1>(uu[Z], u, s, t, q, t.z1 + 1, 0, t.rows);
+  }
+
+  template <int Z>
+  __device__ __forceinline__ void load_b(int q) {
+    load_words<Z & 1>(bb[Z], b, s, t, q, t.z1, H, t.mine);
+  }
+
+  // A point's Jacobi value from its neighbour sum, as PassMarch's.
+  __device__ __forceinline__ float point(float cur, float sum, float bv,
+                                         bool upd) const {
+    float v = cur;
+    if (upd) {
+      const float res = bv - (6.0f * cur - sum) * cf.inv_h2 + cf.sig * cur;
+      v = cur + cf.jscale * res;
+    }
+    return v;
+  }
+
+  // Plane q from u's slots L, M, U (planes q - 1, q, q + 1) and b's M.
+  template <int L, int M, int U>
+  __device__ __forceinline__ void apply(int q) {
+    const bool valid = plane_valid(q, s);
+    const unsigned lo_upd = valid ? t.lo_upd[M & 1] : 0u;
+    const unsigned hi_upd = valid ? t.hi_upd[M & 1] : 0u;
+    const long long base =
+        (static_cast<long long>(q) * s.r + t.y0) * s.c + 2 * t.w;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int k = i + H;   // u's row of core row i
+      const int sh = Unit::row_s(M & 1, k);
+      const unsigned cur = uu[M][k];
+      const unsigned zm = uu[L][k], zp = uu[U][k];
+      const unsigned ym = uu[M][k - 1], yp = uu[M][k + 1];
+      const float clo = mg::low_f(cur), chi = mg::high_f(cur);
+      float slo, shi;   // the low and high points' neighbour sums
+      if constexpr (ROdd) {
+        // Every vertical neighbour in the other half: the low point's in
+        // word w (s = 0) or w - 1 (s = 1), the high point's in w + 1 or w.
+        const float vhi = ((mg::high_f(zm) + mg::high_f(zp)) +
+                           mg::high_f(ym)) + mg::high_f(yp);
+        const float vlo = ((mg::low_f(zm) + mg::low_f(zp)) +
+                           mg::low_f(ym)) + mg::low_f(yp);
+        if (sh == 0) {
+          slo = (vhi + left_of(chi)) + chi;
+          shi = (right_of(vlo) + clo) + right_of(clo);
+        } else {
+          slo = left_of(vhi + chi) + chi;
+          shi = (vlo + clo) + right_of(clo);
+        }
+      } else {
+        // The planes' neighbours in the same half of word w, the rows'
+        // in the other half.
+        if (sh == 0) {
+          slo = ((((mg::low_f(zm) + mg::low_f(zp)) + mg::high_f(ym)) +
+                  mg::high_f(yp)) + left_of(chi)) + chi;
+          shi = (right_of((left_of(mg::high_f(zm) + mg::high_f(zp)) +
+                           mg::low_f(ym)) + mg::low_f(yp)) + clo) +
+                right_of(clo);
+        } else {
+          slo = left_of(((right_of(mg::low_f(zm) + mg::low_f(zp)) +
+                          mg::high_f(ym)) + mg::high_f(yp)) + chi) + chi;
+          shi = ((((mg::high_f(zm) + mg::high_f(zp)) + mg::low_f(ym)) +
+                  mg::low_f(yp)) + clo) + right_of(clo);
+        }
+      }
+      const unsigned bw = bb[M][i];
+      float lo = point(clo, slo, mg::low_f(bw), (lo_upd >> k) & 1u);
+      float hi = point(chi, shi, mg::high_f(bw), (hi_upd >> k) & 1u);
+      if (!valid) lo = hi = 0.0f;
+      if ((t.mine >> k) & 1u) {
+        store_pair(out, base + static_cast<long long>(i) * s.c - sh, lo, hi,
+                   sh == 0 && t.last, sh == 1 && t.first);
+      }
+    }
+  }
+};
+
+template <bool ROdd>
+__global__ void __launch_bounds__(kWarps * kLanes)
+jacobi_pairs_kernel(const __nv_bfloat16* __restrict__ u,
+                    const __nv_bfloat16* __restrict__ b,
+                    __nv_bfloat16* __restrict__ out, Stack s, Geom g,
+                    mg::Coef<float> cf) {
+  JacobiPairMarch<kPairRows, ROdd> m(u, b, out, s, g, cf);
+  if (!m.t.ok) return;   // a whole warp: no lane of it shuffles
+  pass_run(m);
 }
 
 // The geometry must be the one march_geometry computes for these rows and
@@ -781,16 +911,6 @@ int residual(const void* u, const void* b, void* out, int p, int r, int c,
                 mg::Coef<T>::make(h, sigma, 1.0, 6), stream);
 }
 
-template <typename T, typename S = T, typename O = T>
-int jacobi(const void* u, const void* b, void* out, int p, int r, int c,
-           int n, double h, double sigma, double omega, int goff, int roff,
-           const int* geom, void* stream) {
-  constexpr int R = Rows<T>::pass;
-  return launch<S, O>(pass_kernel<T, R, kJacobi, S, O>, u, b, out,
-                Stack{p, r, c, n, goff, roff}, geom, R, 1,
-                mg::Coef<T>::make(h, sigma, omega, 6), stream);
-}
-
 // Whether a bfloat16 sweep on stack s pairs its points into words (the
 // paired march's layout rule): r and c odd and goff + roff even (every
 // word-aligned pair starts on a red point), u and b on a word and out on a
@@ -805,9 +925,20 @@ bool rbgs_pairs(const void* u, const void* b, const void* out,
          reinterpret_cast<uintptr_t>(out) % (2 * sizeof(O)) == 0;
 }
 
-// The paired march's geometry must be march_geometry's for it: strips of
+// Whether a bfloat16 Jacobi sweep storing bfloat16 pairs its points into
+// words (the paired Jacobi march's layout rule): c odd and u, b and out each
+// on a word. No offset or parity of r matters: Jacobi has no colour.
+// kernels/stencil3d.py decides by the same rule.
+bool jacobi_pairs(const void* u, const void* b, const void* out,
+                  const Stack& s) {
+  return (s.c & 1) && reinterpret_cast<uintptr_t>(u) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 4 == 0;
+}
+
+// A paired march's geometry must be march_geometry's for it: strips of
 // kLanes - 2 owned words (width: their 2 (kLanes - 2) columns), bands of
-// kRbgsRowsPairs rows, chunks of an even number of planes; each owned once.
+// kPairRows rows, chunks of an even number of planes; each owned once.
 bool pair_geom_fits(const Stack& s, const Geom& g) {
   const long long words = (s.c + 1) / 2;
   const int owned = kLanes - 2;
@@ -815,17 +946,18 @@ bool pair_geom_fits(const Stack& s, const Geom& g) {
          g.width == 2 * owned && g.chunk >= 2 && g.chunk % 2 == 0 &&
          static_cast<long long>(g.strips) * owned >= words &&
          static_cast<long long>(g.strips - 1) * owned < words &&
-         static_cast<long long>(g.bands) * kRbgsRowsPairs >= s.r &&
-         static_cast<long long>(g.bands - 1) * kRbgsRowsPairs < s.r &&
+         static_cast<long long>(g.bands) * kPairRows >= s.r &&
+         static_cast<long long>(g.bands - 1) * kPairRows < s.r &&
          static_cast<long long>(g.chunks) * g.chunk >= s.p &&
          static_cast<long long>(g.chunks - 1) * g.chunk < s.p;
 }
 
-// The paired march on stack s (bfloat16 u and b, output O); the geometry
+// A paired march on stack s (bfloat16 u and b, output O); the geometry
 // must be its own, or the launch returns cudaErrorInvalidValue.
-template <typename O>
-int launch_pairs(const void* u, const void* b, void* out, const Stack& s,
-                 const int* geom, double h, double sigma, void* stream) {
+template <typename O, typename Kernel>
+int launch_pairs(Kernel kernel, const void* u, const void* b, void* out,
+                 const Stack& s, const int* geom, const mg::Coef<float>& cf,
+                 void* stream) {
   const Geom g{geom[0], geom[1], geom[2], geom[3], geom[4]};
   if (!pair_geom_fits(s, g)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -833,12 +965,31 @@ int launch_pairs(const void* u, const void* b, void* out, const Stack& s,
   const long long units =
       static_cast<long long>(g.strips) * g.bands * g.chunks;
   const unsigned blocks = static_cast<unsigned>((units + kWarps - 1) / kWarps);
-  rbgs_pairs_kernel<O><<<blocks, kWarps * kLanes, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kWarps * kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(u),
-      static_cast<const __nv_bfloat16*>(b), static_cast<O*>(out), s, g,
-      mg::Coef<float>::make(h, sigma, 1.0, 6));
+      static_cast<const __nv_bfloat16*>(b), static_cast<O*>(out), s, g, cf);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A Jacobi sweep; with bfloat16 storage and output the paired march where
+// the layout pairs (jacobi_pairs), the scalar one elsewhere.
+template <typename T, typename S = T, typename O = T>
+int jacobi(const void* u, const void* b, void* out, int p, int r, int c,
+           int n, double h, double sigma, double omega, int goff, int roff,
+           const int* geom, void* stream) {
+  constexpr int R = Rows<T>::pass;
+  const Stack s{p, r, c, n, goff, roff};
+  const auto cf = mg::Coef<T>::make(h, sigma, omega, 6);
+  if constexpr (mg::kBf16<S> && mg::kBf16<O>) {
+    if (jacobi_pairs(u, b, out, s)) {
+      return (r & 1) ? launch_pairs<O>(jacobi_pairs_kernel<true>, u, b, out,
+                                       s, geom, cf, stream)
+                     : launch_pairs<O>(jacobi_pairs_kernel<false>, u, b, out,
+                                       s, geom, cf, stream);
+    }
+  }
+  return launch<S, O>(pass_kernel<T, R, kJacobi, S, O>, u, b, out, s, geom,
+                      R, 1, cf, stream);
 }
 
 // An RB-GS sweep; with bfloat16 storage the paired march where the layout
@@ -851,7 +1002,8 @@ int rbgs(const void* u, const void* b, void* out, int p, int r, int c, int n,
   if constexpr (mg::kBf16<S>) {
     const Stack s{p, r, c, n, goff, roff};
     if (rbgs_pairs<O>(u, b, out, s)) {
-      return launch_pairs<O>(u, b, out, s, geom, h, sigma, stream);
+      return launch_pairs<O>(rbgs_pairs_kernel<O>, u, b, out, s, geom,
+                             mg::Coef<float>::make(h, sigma, 1.0, 6), stream);
     }
   }
   return launch<S, O>(rbgs_kernel<T, R, S, O>, u, b, out,

@@ -8,7 +8,10 @@
 //   residual     -> mg_stencil3d_residual_bf16 (:474; r stored in float32,
 //                   as the TPU kernel's, :362-366)
 //   jacobi_sweep -> mg_stencil3d_jacobi_bf16, _bf16_f32 (:485; the output
-//                   in bfloat16, or in float32: out_dtype)
+//                   in bfloat16, or in float32: out_dtype; the bfloat16
+//                   output launches the paired march, jacobi_pairs_kernel,
+//                   where the layout pairs, and pass_kernel elsewhere; the
+//                   float32 output always pass_kernel)
 //   rbgs_sweep   -> mg_stencil3d_rbgs_bf16, _bf16_f32 (:510; the red values
 //                   rounded to bfloat16 before the black stage reads them;
 //                   rbgs launches the paired march, rbgs_pairs_kernel,

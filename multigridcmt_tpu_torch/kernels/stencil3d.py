@@ -50,7 +50,11 @@ dtype. The plain versions follow the same rule. The bfloat16 RB-GS sweep
 runs on words of two points where the layout pairs them (``rbgs_pairs``:
 every whole grid; ``rbgs_bf16_pairs_launches`` counts it), a lane of the
 march holding an aligned 32-bit word of each row, and on the scalar march
-elsewhere (a stack with goff + roff odd); both give the same bits.
+elsewhere (a stack with goff + roff odd); both give the same bits. So does
+the bfloat16 Jacobi sweep storing bfloat16 (``jacobi_pairs``: c odd, which
+is every grid and stack of the port, whatever its offsets and rows;
+``jacobi_bf16_pairs_launches`` counts it); the Jacobi sweep storing
+float32 and the residual stay on the scalar march.
 
 Each wrapper has its plain PyTorch version beside it, in the TPU kernel's
 arithmetic order. Device rule (``_wrap``): a CPU tensor takes the plain
@@ -79,8 +83,10 @@ jacobi_bf16_f32_launches = 0
 rbgs_bf16_launches = 0
 rbgs_bf16_f32_launches = 0
 # Of the bfloat16 RB-GS launches (both outputs), those of the paired march
-# (rbgs_pairs).
+# (rbgs_pairs); of the bfloat16 Jacobi launches storing bfloat16, those of
+# the paired Jacobi march (jacobi_pairs).
 rbgs_bf16_pairs_launches = 0
+jacobi_bf16_pairs_launches = 0
 
 # The z-march (csrc/stencil3d.cuh). A unit is one warp of MARCH_LANES lanes,
 # MARCH_WARPS to a block; each lane keeps rings of MARCH_SLOTS planes of its
@@ -105,11 +111,12 @@ MARCH_ROWS = {("rbgs", torch.float32): 8, ("rbgs", torch.float64): 4,
               ("rbgs", torch.bfloat16): 8, ("pass", torch.bfloat16): 8}
 MARCH_CHUNK = {"rbgs": 128, "pass": 8}
 MARCH_MIN_UNITS = 2048
-# The bfloat16 sweep's paired march (rbgs_pairs_kernel): a lane holds an
-# aligned word of two points of each row, a strip MARCH_LANES words of which
-# MARCH_PAIR_WORDS are owned (kLanes - 2: a word of halo each side), a band
-# MARCH_PAIR_ROWS rows (kRbgsRowsPairs, even); chunks of an even number of
-# planes, so that a plane's slot fixes its parity.
+# The bfloat16 sweeps' paired marches (rbgs_pairs_kernel,
+# jacobi_pairs_kernel): a lane holds an aligned word of two points of each
+# row, a strip MARCH_LANES words of which MARCH_PAIR_WORDS are owned (kLanes
+# - 2: a word of halo each side), a band MARCH_PAIR_ROWS rows (kPairRows,
+# even); chunks of an even number of planes, so that a plane's slot fixes
+# its parity.
 MARCH_PAIR_WORDS = MARCH_LANES - 2
 MARCH_PAIR_ROWS = 4
 
@@ -128,17 +135,18 @@ def march_geometry(kernel: str, p: int, r: int, c: int, dtype,
     two-point one; 1 for the pass). Unit index sx + strips * (sy + bands *
     sz) is warp w of block bx, bx * MARCH_WARPS + w.
 
-    ``paired`` (the bfloat16 RB-GS sweep where ``rbgs_pairs`` holds): the
-    paired march's geometry. Strip sx owns the words [sx *
-    MARCH_PAIR_WORDS, (sx + 1) * MARCH_PAIR_WORDS) of every row (width is
-    their 2 MARCH_PAIR_WORDS columns; a row has (c + 1) // 2 words, its
-    first or last one straddling into the next row), bands are
-    MARCH_PAIR_ROWS rows and chunks an even number of planes.
+    ``paired`` (a bfloat16 sweep where ``rbgs_pairs`` or ``jacobi_pairs``
+    holds; "pass" is then the Jacobi sweep's): the paired march's
+    geometry. Strip sx owns the words [sx * MARCH_PAIR_WORDS, (sx + 1) *
+    MARCH_PAIR_WORDS) of every row (width is their 2 MARCH_PAIR_WORDS
+    columns; a row has (c + 1) // 2 words, its first or last one
+    straddling into the next row), bands are MARCH_PAIR_ROWS rows and
+    chunks an even number of planes.
     """
     if kernel not in ("rbgs", "pass"):
         raise ValueError(f"kernel {kernel!r}: rbgs or pass")
-    if paired and (kernel, dtype) != ("rbgs", torch.bfloat16):
-        raise ValueError("the paired march is the bfloat16 RB-GS sweep's")
+    if paired and dtype != torch.bfloat16:
+        raise ValueError("the paired marches are the bfloat16 sweeps'")
     if paired:
         rows, width = MARCH_PAIR_ROWS, 2 * MARCH_PAIR_WORDS
         strips = -(-((c + 1) // 2) // MARCH_PAIR_WORDS)
@@ -178,6 +186,19 @@ def rbgs_pairs(u: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
             and (goff + roff) % 2 == 0 and u.data_ptr() % 4 == 0
             and b.data_ptr() % 4 == 0
             and out.data_ptr() % (2 * out.element_size()) == 0)
+
+
+def jacobi_pairs(u: torch.Tensor, b: torch.Tensor,
+                 out: torch.Tensor) -> bool:
+    """Whether a bfloat16 Jacobi sweep of u (b, into out) takes the paired
+    march: the layout rule of csrc/stencil3d.cuh's jacobi_pairs, which the
+    launcher applies to the same pointers. u, b and out bfloat16, c odd
+    (a row's first element then has the parity of q r + y, whatever r and
+    the offsets), and each array on a 4-byte word. Elsewhere (an odd
+    pointer; the sweep storing float32) the scalar march runs."""
+    return (u.dtype == b.dtype == out.dtype == torch.bfloat16
+            and u.shape[2] % 2 == 1 and u.data_ptr() % 4 == 0
+            and b.data_ptr() % 4 == 0 and out.data_ptr() % 4 == 0)
 
 
 def _check(u: torch.Tensor, b: torch.Tensor, n: int, what: str,
@@ -324,11 +345,14 @@ def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float, sigma=0.0,
     return out
 
 
-def _count_sweep(kind: str, u: torch.Tensor, odt) -> None:
-    """One launch of the ``kind`` sweep on u, stored in odt."""
+def _count_sweep(kind: str, u: torch.Tensor, odt, paired: bool) -> None:
+    """One launch of the ``kind`` sweep on u, stored in odt, on the paired
+    march or not."""
     name = kind + ("" if u.dtype != torch.bfloat16 else
                    "_bf16" if odt == torch.bfloat16 else "_bf16_f32")
     globals()[name + "_launches"] += 1
+    if paired:
+        globals()[kind + "_bf16_pairs_launches"] += 1
 
 
 def _sweeps(kind: str, kernel: str, u, b, n, args, sweeps: int, odt,
@@ -336,18 +360,17 @@ def _sweeps(kind: str, kernel: str, u, b, n, args, sweeps: int, odt,
     """``sweeps`` launches of ``kernel`` (one a sweep), the last one storing
     odt; args are the entry point's scalars after n, before the geometry;
     offs the stack's (goff, roff), which pick a bfloat16 RB-GS sweep's
-    march (rbgs_pairs)."""
-    global rbgs_bf16_pairs_launches
+    march (rbgs_pairs); a bfloat16 Jacobi sweep's is jacobi_pairs'."""
     for i in range(sweeps):
         o = odt if i == sweeps - 1 else u.dtype
         out = torch.empty_like(u, dtype=o)
-        paired = kind == "rbgs" and rbgs_pairs(u, b, out, *offs)
+        paired = (rbgs_pairs(u, b, out, *offs) if kind == "rbgs"
+                  else jacobi_pairs(u, b, out))
         geom = _launch_geometry("rbgs" if kind == "rbgs" else "pass",
                                 tuple(u.shape), u.dtype, paired)
         launch_on(u, kernel, u.data_ptr(), b.data_ptr(), out.data_ptr(),
                   *u.shape, n, *args, geom, out_dtype=o, writes=(out,))
-        _count_sweep(kind, u, o)
-        rbgs_bf16_pairs_launches += paired
+        _count_sweep(kind, u, o, paired)
         u = out
     return u.to(odt)
 

@@ -1,13 +1,13 @@
-"""Hold the paired bfloat16 kernels (the 3D RB-GS sweep's paired march and
-the packed residual's word kernel) against other trees' builds, bit for
-bit, and time them in turns, on one CUDA card.
+"""Hold the paired bfloat16 kernels (the 3D RB-GS and Jacobi sweeps' paired
+marches and the packed residual's word kernel) against other trees'
+builds, bit for bit, and time them in turns, on one CUDA card.
 
     python -m multigridcmt_tpu_torch.utils.bf16_kernels OTHER [OTHER ...] \\
         [--json PATH]
 
 Each OTHER is the root of another checkout of the repository (the parent
 commit unpacked with ``git archive`` into the git-ignored
-``.chip_scratch/``, or a variant of this tree). SOURCES (the stencil3d and
+``.chip_scratch/``). SOURCES (the stencil3d and
 packed2d sources and plocal2d.cu, which hold every kernel of
 csrc/stencil3d.cuh and csrc/packed_tile.cuh) of this tree and of each OTHER
 are compiled, each by its own nvcc with the library's flags and ``-Xptxas
@@ -21,21 +21,40 @@ launch into this tree's. Then:
 2. Bits: the bfloat16 RB-GS sweep storing bfloat16 and float32 (sigma 0
    and 11.5) at 511^3 (the paired march here) and on two 511^3 plane
    stacks, one with goff + roff even (paired) and one odd (the scalar
-   march), and the bfloat16 packed residual (sigma 0 and 11.5) at 4095^2
-   and 511^2, on the same inputs in each library, bit for bit. A call is
-   replayed through ctypes with the arguments this tree's wrapper passed
-   (captured once); an OTHER that predates the paired march takes the
-   scalar march's geometry (march_geometry unpaired), which is what its
-   own wrapper passes.
+   march); the bfloat16 Jacobi sweep storing bfloat16 (sigma 0 and 11.5)
+   at 511^3 and on the mixed Jacobi paths' slab and pencil stacks
+   (JACOBI_STACKS; the paired Jacobi march here, on r odd and r even), and
+   storing float32 at 511^3 (the scalar march everywhere); the stencil3d
+   bfloat16 residual at 511^3; the bfloat16 packed residual (sigma 0 and
+   11.5) at 4095^2 and 511^2; on the same inputs in each library, bit for
+   bit. A call is replayed through ctypes with the arguments this tree's
+   wrapper passed (captured once); an OTHER that predates a paired march
+   takes the scalar march's geometry (march_geometry unpaired), which is
+   what its own wrapper passes.
 3. Times, at sigma 0: each bfloat16 mode in each library and its float32
    twin (the same entry point's float32 form in this library, on the
    widened inputs), in turns (the libraries in order, then in reverse):
    chained (LEG_CHAIN calls between one pair of CUDA events, median of 5)
    and the profiler's device time a call; beside the bound (its inputs
-   read once and outputs written once at 3.35 TB/s). The float32 sweep and
-   residual of stencil3d at 511^3 and the float32 packed residual at
-   4095^2 (the main path's) are timed from this library and the first
-   OTHER's the same way.
+   read once and outputs written once at 3.35 TB/s). The bfloat16 Jacobi
+   sweep also on the two JACOBI_STACKS. The float32 sweep and residual of
+   stencil3d at 511^3 and the float32 packed residual at 4095^2 (the main
+   path's) are timed from this library and the first OTHER's the same
+   way.
+4. Cycles: the mixed Jacobi paths' preconditioning cycle at 511^3
+   (slab511-mixed-jacobi and pencil511-mixed-jacobi on a mesh of 1: a
+   sharded cycle from zero on the defect in bfloat16, storing float32 at
+   the end, as ShardedSolver's PCG runs it) through the port's wrappers
+   on each library's kernels (an OTHER without the paired Jacobi march
+   runs the scalar one, as its own wrapper does), in turns beside the
+   float32 cycle on the same defect: chained (CYCLE_CHAIN cycles between
+   one pair of CUDA events, median of 5), the profiler's device busy time
+   a cycle, its device ops and the stencil3d Jacobi kernels' time.
+5. The profiler after a trace: the paired Jacobi sweep's device time a
+   call read again after one ``utils.profiling.trace`` window (CPU and
+   CUDA activity, exported), beside its reading before and its chained
+   time; chip_smoke.py's phase 3 takes such a trace before phase 4 reads
+   its kernels' device times.
 
 Prints the card's name and power limit, a line for each finding and one
 JSON object last; exits 1 if a bit differs or a float32/float64 kernel's
@@ -61,11 +80,13 @@ from multigridcmt_tpu_torch.utils.bf16_legs import (LEG_CHAIN,
                                                     bits, finish_build,
                                                     in_turns, log,
                                                     start_build)
+from multigridcmt_tpu_torch.utils.breakdown import device_busy
+from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
 SOURCES = ("stencil3d.cu", "stencil3d_bf16.cu", "packed2d.cu",
            "packed2d_bf16.cu", "plocal2d.cu", "stencil2d.cu")
-KERNEL = re.compile(r"(rbgs_pairs_kernel|rbgs_kernel|pass_kernel|"
-                    r"presidual_pairs_kernel|presidual_kernel|"
+KERNEL = re.compile(r"(rbgs_pairs_kernel|rbgs_kernel|jacobi_pairs_kernel|"
+                    r"pass_kernel|presidual_pairs_kernel|presidual_kernel|"
                     r"presnorm_partial|sum_partials)\w*")
 BF, F32 = torch.bfloat16, torch.float32
 N3, N2 = 511, 4095
@@ -73,8 +94,18 @@ SIGMA = 11.5
 # Plane stacks of the 511^3 grid (goff, roff, p, r): goff + roff even (the
 # paired march) and odd (chip_smoke.py's MIXED3D_STACK: the scalar one).
 STACKS = ((200, 0, 63, 513), (200, -1, 63, 513))
+# The mixed Jacobi paths' fine stacks at 511^3 on a mesh of 1 (goff, roff,
+# p, r; chip_smoke.py's SHARDED3D_STACKS): the slab (r odd) and the pencil
+# (r even), both paired for Jacobi.
+JACOBI_STACKS = ((-2, 0, 518, 513), (-2, -2, 518, 518))
+OMEGA = 6.0 / 7.0
 # The residual's grids: the mixed path's and k = 9.
 RESIDUAL_NS = (N2, 511)
+# Cycles a chained reading of the mixed Jacobi cycle takes.
+CYCLE_CHAIN = 5
+# The stencil3d Jacobi kernels (the paired march, pass_kernel's kJacobi).
+JACOBI_KERNELS = re.compile(r"(?<!\w)(jacobi_pairs_kernel<|"
+                            r"pass_kernel<(float|double), \d+, 1,)")
 
 
 def ptxas_lines(text: str) -> dict:
@@ -123,28 +154,35 @@ def compare_ptxas(mine: str, others: dict, first: str) -> tuple:
 
 
 class Replay(Call):
-    """A captured launch whose geometry argument, for a library without
-    the paired march, is the scalar march's."""
+    """A captured launch whose geometry argument is recomputed for each
+    library: ``geom_for(lib)``, or None for the captured one."""
 
-    def __init__(self, run, inputs, scalar_geom=None):
+    def __init__(self, run, inputs, geom_for=None):
         super().__init__(run, inputs)
-        self.scalar = None
-        if scalar_geom is not None:
-            self.scalar = [scalar_geom if isinstance(a, ctypes.Array)
-                           else a for a in self.args]
+        self.geom_for = geom_for
 
-    def with_args(self, lib, paired: bool):
-        if self.scalar is None or paired:
+    def with_args(self, lib):
+        geom = None if self.geom_for is None else self.geom_for(lib)
+        if geom is None:
             return self
         other = object.__new__(Replay)
-        other.__dict__.update(self.__dict__, args=self.scalar)
+        other.__dict__.update(self.__dict__, args=[
+            geom if isinstance(a, ctypes.Array) else a for a in self.args])
         return other
 
 
-def pairs_in(lib) -> bool:
-    """Whether lib's bfloat16 sweep has the paired march (its stencil3d
-    sources define rbgs_pairs_kernel)."""
-    return bool(getattr(lib, "_pairs", False))
+def march_flavour(lib, text: str) -> None:
+    """Mark lib with the paired marches its ptxas output names: ``_pairs``
+    (the RB-GS sweep's, rbgs_pairs_kernel) and ``_jacobi_pairs`` (the
+    Jacobi sweep's, jacobi_pairs_kernel)."""
+    lib._pairs = "rbgs_pairs_kernel" in text
+    lib._jacobi_pairs = "jacobi_pairs_kernel" in text
+
+
+def geometry(kernel: str, shape: tuple, paired: bool):
+    """march_geometry's bfloat16 ints as the kernel's array."""
+    return (ctypes.c_int * 5)(*stencil3d.march_geometry(kernel, *shape, BF,
+                                                        paired=paired))
 
 
 def cube(seed: int):
@@ -157,6 +195,16 @@ def cube(seed: int):
     b[1:-1, 1:-1, 1:-1] = torch.randn((N3,) * 3, generator=gen,
                                       device="cuda") * float((N3 + 1) ** 2)
     return u.to(BF), b.to(BF)
+
+
+def cut(g, goff: int, roff: int, p: int, r: int):
+    """Planes goff .. goff + p - 1 and rows roff .. roff + r - 1 of the
+    grid g, zero where they leave it."""
+    s = torch.zeros((p, r, g.shape[2]), dtype=g.dtype, device=g.device)
+    z, y = max(0, -goff), max(0, roff)
+    planes = g[max(goff, 0):goff + p, y:roff + r]
+    s[z:z + planes.shape[0], y - roff:y - roff + planes.shape[1]] = planes
+    return s
 
 
 def packed(n: int, seed: int):
@@ -175,9 +223,26 @@ def sweep_call(u, b, sigma, out_dtype, goff=0, roff=0) -> Replay:
     run = (lambda: stencil3d.rbgs_sweep(u, b, n, 1.0 / (n + 1), sigma=sigma,
                                         goff=goff, roff=roff,
                                         out_dtype=out_dtype))
-    scalar = stencil3d._launch_geometry("rbgs", tuple(u.shape), u.dtype,
-                                        False)
-    return Replay(run, (u, b), scalar)
+    scalar = geometry("rbgs", tuple(u.shape), False)
+    return Replay(run, (u, b), lambda lib: None if lib._pairs else scalar)
+
+
+def jacobi_call(u, b, sigma, out_dtype, goff=0, roff=0) -> Replay:
+    """One bfloat16 Jacobi sweep through the wrapper, replayable; storing
+    bfloat16 it runs the paired march here (jacobi_pairs holds on every
+    stack of these)."""
+    n = N3
+    run = (lambda: stencil3d.jacobi_sweep(u, b, n, 1.0 / (n + 1), OMEGA,
+                                          sigma=sigma, goff=goff, roff=roff,
+                                          out_dtype=out_dtype))
+    scalar = geometry("pass", tuple(u.shape), False)
+    return Replay(run, (u, b), lambda lib: None if (
+        out_dtype is not None or lib._jacobi_pairs) else scalar)
+
+
+def stencil3d_residual_call(u, b, sigma) -> Replay:
+    return Replay(lambda: stencil3d.residual(u, b, N3, 1.0 / (N3 + 1),
+                                             sigma=sigma), (u, b))
 
 
 def residual_call(u, b, n, sigma) -> Replay:
@@ -200,6 +265,21 @@ def check_bits(libs: dict) -> tuple:
             calls.append((f"rbgs stack goff={goff} roff={roff} out={out}",
                           lambda su=su, sb=sb, o=out, g=goff, r_=roff:
                           sweep_call(su, sb, SIGMA, o, g, r_)))
+    jstacks = [(stack, *(cut(g, *stack) for g in (u, b)))
+               for stack in JACOBI_STACKS]
+    for sigma in (0.0, SIGMA):
+        calls.append((f"jacobi n={N3} sigma={sigma}",
+                      lambda s=sigma: jacobi_call(u, b, s, None)))
+        for (goff, roff, p, r), su, sb in jstacks:
+            calls.append((f"jacobi stack goff={goff} roff={roff} p={p} "
+                          f"r={r} sigma={sigma}",
+                          lambda su=su, sb=sb, s=sigma, g=goff, r_=roff:
+                          jacobi_call(su, sb, s, None, g, r_)))
+        # Left on the scalar march: unchanged bits.
+        calls.append((f"jacobi n={N3} sigma={sigma} out=float32",
+                      lambda s=sigma: jacobi_call(u, b, s, F32)))
+        calls.append((f"stencil3d residual n={N3} sigma={sigma}",
+                      lambda s=sigma: stencil3d_residual_call(u, b, s)))
     for n in RESIDUAL_NS:
         pu, pb = packed(n, n)
         for sigma in (0.0, SIGMA):
@@ -214,7 +294,7 @@ def check_bits(libs: dict) -> tuple:
             if label == "this":
                 continue
             checks += 1
-            got = call.with_args(lib, pairs_in(lib)).replay(lib)
+            got = call.with_args(lib).replay(lib)
             if not all(torch.equal(bits(x), bits(y))
                        for x, y in zip(ref, got)):
                 fails.append(f"bits {what}: {label} differs from this")
@@ -228,6 +308,11 @@ def timed(libs: dict, first: str) -> dict:
     twins; the main path's float32 kernels in this and the first OTHER's."""
     u, b = cube(21)
     fu, fb = u.float(), b.float()
+    jacobi = {"": (u, b, fu, fb, {})}
+    for (goff, roff, p, r), where in zip(JACOBI_STACKS, ("slab", "pencil")):
+        su, sb = (cut(g, goff, roff, p, r) for g in (u, b))
+        jacobi[" " + where] = (su, sb, su.float(), sb.float(),
+                               dict(goff=goff, roff=roff))
     pu, pb = packed(N2, 22)
     fpu, fpb = pu.float(), pb.float()
     h3, h2 = 1.0 / (N3 + 1), 1.0 / (N2 + 1)
@@ -244,9 +329,14 @@ def timed(libs: dict, first: str) -> dict:
                                                              h2),
                                    (fpu, fpb)),
     }
+    for where, (ju, jb, jfu, jfb, off) in jacobi.items():
+        modes["stencil3d_jacobi_bf16" + where] = (
+            jacobi_call(ju, jb, 0.0, None, **off),
+            lambda jfu=jfu, jfb=jfb, off=off: stencil3d.jacobi_sweep(
+                jfu, jfb, N3, h3, OMEGA, **off), (jfu, jfb))
     times = {}
     for name, (call, twin, tin) in modes.items():
-        fns = {label: call.with_args(lib, pairs_in(lib)).fn(lib)
+        fns = {label: call.with_args(lib).fn(lib)
                for label, lib in libs.items()}
         fns["f32 twin"] = Call(twin, tin).fn(libs["this"])
         row = in_turns(fns)
@@ -269,6 +359,82 @@ def timed(libs: dict, first: str) -> dict:
     return times
 
 
+def on_library(lib, fn):
+    """fn, its launches going to lib; the scalar Jacobi march where lib has
+    no paired one (its own wrapper's choice)."""
+    def run():
+        saved = _build.load_library, stencil3d.jacobi_pairs
+        _build.load_library = lambda: lib
+        if not lib._jacobi_pairs:
+            stencil3d.jacobi_pairs = lambda *_: False
+        try:
+            return fn()
+        finally:
+            _build.load_library, stencil3d.jacobi_pairs = saved
+    return run
+
+
+def cycles(libs: dict) -> dict:
+    """The mixed Jacobi paths' preconditioning cycle at 511^3 on each
+    library in turns, beside the float32 cycle (step 4)."""
+    import multigridcmt_tpu_torch as mt
+    from multigridcmt_tpu_torch.parallel import sharded
+    from multigridcmt_tpu_torch.utils.breakdown import world_of_one
+
+    prob = mt.poisson3d(k=9, dtype=F32, smoother="jacobi", use_kernels=True,
+                        device="cuda", precond_dtype=BF)
+    cfg = prob.config
+    groups = {"jacobi_ms": JACOBI_KERNELS}
+    out = {}
+    for label, kind in (("slab", "rows"), ("pencil", "block")):
+        with world_of_one(kind) as mesh:
+            solver = sharded.ShardedSolver(cfg, mesh)
+            pd = sharded.mixed_slab_dtype(cfg, solver.decomp)
+            if pd != BF:
+                raise RuntimeError(f"mixed Jacobi {label}: the cast is {pd}")
+            bt = sharded.shard_rhs(prob.b, solver.mesh, solver.decomp)
+
+            def cycle(rp, odt):
+                return sharded._sharded_v_cycle(
+                    solver.hierarchy, cfg, solver.decomp,
+                    torch.zeros_like(rp), rp, 0, 1, out_dtype=odt)
+
+            fns = {f"bfloat16 {lib_label}": on_library(
+                lib, lambda rp=bt.to(BF): cycle(rp, F32))
+                for lib_label, lib in libs.items()}
+            fns["float32 this"] = on_library(
+                libs["this"], lambda rp=bt.to(F32): cycle(rp, None))
+            row = {}
+            order = list(fns)
+            for key in order + order[::-1]:
+                busy, ops, by = device_busy(fns[key], 3, groups)
+                row.setdefault(key, []).append({
+                    "chained_ms": chained_ms(fns[key], CYCLE_CHAIN),
+                    "busy_ms": busy, "ops": ops, **by})
+            out[label] = row
+            log(f"cycle {label}: " + json.dumps(row))
+            del solver, bt, fns
+    return out
+
+
+def trace_effect(libs: dict) -> dict:
+    """The paired Jacobi sweep's device time a call before and after one
+    profiling.trace window, beside its chained time (step 5)."""
+    from multigridcmt_tpu_torch.utils.profiling import trace
+
+    u, b = cube(23)
+    fn = jacobi_call(u, b, 0.0, None).fn(libs["this"])
+    out = {"chained_ms": chained_ms(fn, LEG_CHAIN),
+           "before_ms": device_busy(fn, LEG_CHAIN)[0]}
+    with tempfile.TemporaryDirectory() as tmp, trace(tmp):
+        for _ in range(LEG_CHAIN):
+            fn()
+    out["after_ms"] = device_busy(fn, LEG_CHAIN)[0]
+    out["chained_after_ms"] = chained_ms(fn, LEG_CHAIN)
+    log("profiler after a trace: " + json.dumps(out))
+    return out
+
+
 def fmt(row: dict) -> str:
     return ", ".join(f"{k} " + "/".join(f"{c:.4f}c {d:.4f}d" for c, d in v)
                      for k, v in row.items() if k != "bound_ms")
@@ -288,14 +454,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         labels = [p.name for p in opt.others]
+        roots = dict([("this", root), *zip(labels, opt.others)])
         started = {label: start_build(r, Path(tmp) / label, False, SOURCES)
-                   for label, r in [("this", root)]
-                   + list(zip(labels, opt.others))}
+                   for label, r in roots.items()}
         libs, texts = {}, {}
         for label, procs in started.items():
             libs[label], texts[label] = finish_build(procs,
                                                      Path(tmp) / label)
-            libs[label]._pairs = "rbgs_pairs_kernel" in texts[label]
+            march_flavour(libs[label], texts[label])
         log(f"built this tree and {', '.join(labels)} in "
             f"{time.perf_counter() - t0:.1f} s")
         # The port's wrappers launch into this tree's library.
@@ -317,6 +483,8 @@ def main() -> int:
         log(f"bits: {checks} comparisons, {len(fails)} differ")
 
         report["times"] = timed(libs, labels[0])
+        report["cycles"] = cycles(libs)
+        report["trace_effect"] = trace_effect(libs)
     for f in report["fails"]:
         log(f"FAIL {f}")
     line = json.dumps(report)

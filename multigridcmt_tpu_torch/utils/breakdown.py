@@ -145,7 +145,8 @@ ROUTE_KERNELS = {
 # Jacobi's pass_kernel), and the copies (torch.cat's CatArrayBatchedCopy,
 # the strided copies of .contiguous() and of slab writes).
 SHARDED3D_KERNELS = {
-    "stencil3d kernels": re.compile(r"(?<!\w)(rbgs|rbgs_pairs|pass)_kernel<"),
+    "stencil3d kernels": re.compile(
+        r"(?<!\w)(rbgs|rbgs_pairs|jacobi_pairs|pass)_kernel<"),
     "cat and copy kernels": re.compile(r"CatArrayBatchedCopy|copy_kernel"),
 }
 # Cycles of the chain a timing of v_cycles_fn runs.

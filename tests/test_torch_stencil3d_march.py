@@ -31,6 +31,7 @@ SIGMA = 11.5
 OMEGA = 6.0 / 7.0
 LANES = stencil3d.MARCH_LANES
 SLOTS = stencil3d.MARCH_SLOTS
+F32 = torch.float32
 
 
 class _Geom:
@@ -398,20 +399,22 @@ def _bf16(a):
         torch.bfloat16).float().numpy()
 
 
-def _emulate_bf16(mode, g, u, b, n, h, sweeps, out, round_red=True):
+def _emulate_bf16(mode, g, u, b, n, h, sweeps, out, round_red=True,
+                  sigma=SIGMA, goff=0, roff=0):
     """The bfloat16 storage mode of ``mode``: u and b bfloat16 values in
     float32, the arithmetic in float32, every sweep's output rounded to
     bfloat16 but the last one's with out=float32 (the residual's always
-    float32); with ``round_red`` the red ring rounded to bfloat16."""
+    float32); with ``round_red`` the red ring rounded to bfloat16. The
+    pass modes run one sweep."""
     if mode != "rbgs":
         store = _bf16 if mode == "jacobi" and out is None else _keep
-        got, writes = _emulate_pass(g, mode, u, b, n, h, SIGMA, 0, 0,
+        got, writes = _emulate_pass(g, mode, u, b, n, h, sigma, goff, roff,
                                     omega=OMEGA, out_store=store)
         assert (writes == 1).all()
         return got
     for i in range(sweeps):
         store = _keep if (out is not None and i == sweeps - 1) else _bf16
-        u, writes = _emulate_rbgs(g, u, b, n, h, SIGMA, 0, 0,
+        u, writes = _emulate_rbgs(g, u, b, n, h, sigma, goff, roff,
                                   red_store=_bf16 if round_red else _keep,
                                   out_store=store)
         assert (writes == 1).all()
@@ -573,12 +576,13 @@ class _WordRing(_Ring):
         self.data = [np.full((rows, LANES), _NAN_WORD) for _ in range(SLOTS)]
 
 
-def _pair_geometry(shape, chunk_of=None, chunk=None):
-    """march_geometry's paired ints for a (p, r, c) stack."""
+def _pair_geometry(shape, chunk_of=None, chunk=None, mode="rbgs"):
+    """march_geometry's paired ints for a (p, r, c) stack, of the RB-GS
+    sweep or (mode "jacobi") the Jacobi one."""
     if chunk_of is not None:
-        chunk_of("rbgs", shape, torch.bfloat16, chunk)
-    return stencil3d.march_geometry("rbgs", *shape, torch.bfloat16,
-                                    paired=True)
+        chunk_of(mode, shape, torch.bfloat16, chunk)
+    return stencil3d.march_geometry("rbgs" if mode == "rbgs" else "pass",
+                                    *shape, torch.bfloat16, paired=True)
 
 
 def _emulate_pairs(geom, u16, b16, n, h, sigma, goff, roff, f32_out):
@@ -729,14 +733,19 @@ def _emulate_pairs(geom, u16, b16, n, h, sigma, goff, roff, f32_out):
     return out.reshape(p, r, c), writes.reshape(p, r, c)
 
 
-def _bf16_stack(n, goff, roff, p, r, seed, ghosts=True):
+def _bf16_stack(n, goff, roff, p, r, seed, ghosts=True, spread=0):
     """A bfloat16 stack (as float32 values, and as bits) of a random grid;
     with ``ghosts`` its ghost points are random too (the sweep keeps u
-    there)."""
+    there); with ``spread`` each u scaled by 2^k, k uniform in [-spread,
+    spread] (a sum of a few bfloat16 values of like size is exact in
+    float32, whatever its order: spread values make the order show)."""
     u, b = _stack(n, goff, roff, p, r, seed)
     if ghosts:
         rng = np.random.default_rng(seed + 1)
         u = np.where(u == 0.0, rng.standard_normal(u.shape), u)
+    if spread:
+        rng = np.random.default_rng(seed + 2)
+        u = u * np.exp2(rng.integers(-spread, spread + 1, u.shape))
     u, b = _bf16(u), _bf16(b)
     return u, b, _bits(u).astype(np.uint16), _bits(b).astype(np.uint16)
 
@@ -831,11 +840,289 @@ def test_paired_geometry_owns_each_word_once(shape):
 
 def test_pair_constants_match_the_kernel_source():
     """MARCH_PAIR_ROWS and MARCH_PAIR_WORDS are csrc/stencil3d.cuh's
-    kRbgsRowsPairs and kLanes - 2; the bands start on even rows."""
+    kPairRows (both paired marches' bands) and kLanes - 2; the bands start
+    on even rows."""
     src = (_build.CSRC / "stencil3d.cuh").read_text()
     const = {name: int(v) for name, v in
              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert const["kRbgsRowsPairs"] == stencil3d.MARCH_PAIR_ROWS
+    assert const["kPairRows"] == stencil3d.MARCH_PAIR_ROWS
     assert stencil3d.MARCH_PAIR_ROWS % 2 == 0
     assert const["kLanes"] - 2 == stencil3d.MARCH_PAIR_WORDS
     assert "const int owned = kLanes - 2;" in src
+
+
+# ----------------------------------------------------------------------------
+# The bfloat16 Jacobi sweep's paired march (jacobi_pairs_kernel)
+# ----------------------------------------------------------------------------
+
+def _emulate_jacobi_pairs(geom, u16, b16, n, h, sigma, goff, roff):
+    """jacobi_pairs_kernel on the (p, r, c) stacks u16, b16 of bfloat16
+    bits, as _emulate_pairs emulates rbgs_pairs_kernel: every load an
+    aligned 32-bit word of the flat array (asserted even and in it), the
+    rings of words with dead slots NaN, the shuffles' edge lanes reading
+    NaN, a row's s from its plane's slot and its region row (PairUnit's
+    row_s: the plane's parity counts only where r is odd), the partial sums
+    formed on the other lane and shuffled, each output word rounded once;
+    the arithmetic in float32 with _emulate_pass's constants. Returns (out
+    as float32, writes a point, the outputs before their rounding)."""
+    p, r, c = u16.shape
+    strips, bands, chunks, width, chunk = geom
+    R, H = stencil3d.MARCH_PAIR_ROWS, 1
+    owned = stencil3d.MARCH_PAIR_WORDS
+    NU = R + 2 * H
+    assert width == 2 * owned and chunk % 2 == 0
+    flat = {"u": u16.reshape(-1), "b": b16.reshape(-1)}
+    total = p * r * c
+    inv_h2 = 1.0 / (h * h)
+    jscale = OMEGA / (6.0 * inv_h2 - sigma)
+    out = np.full(total, np.nan, dtype=np.float32)
+    unrounded = out.copy()
+    writes = np.zeros(total, dtype=int)
+    wlast = (c - 1) // 2
+    lane = np.arange(LANES)
+    r_odd = r % 2 == 1
+
+    def row_s(sp, j):
+        return ((sp if r_odd else 0) + H + j) % 2
+
+    def point(cur, total_, bv, upd):
+        res = bv - (6.0 * cur - total_) * inv_h2 + sigma * cur
+        return np.where(upd, cur + jscale * res, cur)
+
+    for unit in range(strips * bands * chunks):
+        sx, sy, sz = (unit % strips, unit // strips % bands,
+                      unit // (strips * bands))
+        w = sx * owned - 1 + lane
+        y0, z0 = sy * R, sz * chunk
+        z1 = min(z0 + chunk, p)
+        first, last = w == 0, w == wlast
+        col = (w >= 0) & (w <= wlast)
+        j = np.arange(NU)
+        y = y0 - H + j
+        rows = col[None, :] & ((y >= 0) & (y < r))[:, None]
+        tail = last[None, :] & (y == r - 1)[:, None]
+        yok = ((y >= 1) & (y <= r - 2) & (y + roff >= 1)
+               & (y + roff <= n))[:, None]
+        lo_in = [(2 * w - sh >= 1) & (2 * w - sh <= n) for sh in (0, 1)]
+        hi_in = [(2 * w + 1 - sh >= 1) & (2 * w + 1 - sh <= n)
+                 for sh in (0, 1)]
+        lo_upd = [yok & np.where(row_s(sp, j)[:, None] == 0, lo_in[0],
+                                 lo_in[1]) for sp in (0, 1)]
+        hi_upd = [yok & np.where(row_s(sp, j)[:, None] == 0, hi_in[0],
+                                 hi_in[1]) for sp in (0, 1)]
+        mine = (((lane >= 1) & (lane <= LANES - 2) & col)[None, :]
+                & ((j >= H) & (j < H + R) & (y < r))[:, None])
+
+        def load(name, q, qend, j0, count, mask):
+            v = np.zeros((count, LANES), dtype=np.uint32)
+            if not 0 <= q < min(qend, p):
+                return v
+            if q == p - 1:
+                mask = mask & ~tail
+            sp = (q - z0) % 2                     # the slot's parity
+            a = flat[name]
+            for i in range(count):
+                sh = row_s(sp, j0 + i)
+                sel = mask[j0 + i]
+                e = (q * r + y0 - H + j0 + i) * c + 2 * w[sel] - sh
+                assert np.all(e % 2 == 0) and np.all(e >= 0) \
+                    and np.all(e + 1 < total), (q, j0 + i, e)
+                v[i, sel] = a[e] | (a[e + 1] << np.uint32(16))
+            return v
+
+        U, B = _WordRing(z0, NU), _WordRing(z0, R)
+
+        def load_u(q):
+            U.put(q, load("u", q, z1 + 1, 0, NU, rows))
+
+        def load_b(q):
+            B.put(q, load("b", q, z1, H, R, mine))
+
+        def apply(q):
+            sp = (q - z0) % 2
+            below, mid, above = U.get(q - 1), U.get(q), U.get(q + 1)
+            cur, zm, zp = mid[1:-1], below[1:-1], above[1:-1]
+            ym, yp = mid[:-2], mid[2:]
+            clo, chi = _low(cur), _high(cur)
+            s0 = (row_s(sp, np.arange(R) + H) == 0)[:, None]
+            if r_odd:
+                vhi = ((_high(zm) + _high(zp)) + _high(ym)) + _high(yp)
+                vlo = ((_low(zm) + _low(zp)) + _low(ym)) + _low(yp)
+                slo = np.where(s0, (vhi + _left(chi)) + chi,
+                               _left(vhi + chi) + chi)
+                shi = np.where(s0, (_right(vlo) + clo) + _right(clo),
+                               (vlo + clo) + _right(clo))
+            else:
+                zlo, zhi = _low(zm) + _low(zp), _high(zm) + _high(zp)
+                slo = np.where(
+                    s0, (((zlo + _high(ym)) + _high(yp)) + _left(chi)) + chi,
+                    _left(((_right(zlo) + _high(ym)) + _high(yp)) + chi)
+                    + chi)
+                shi = np.where(
+                    s0, (_right((_left(zhi) + _low(ym)) + _low(yp)) + clo)
+                    + _right(clo),
+                    (((zhi + _low(ym)) + _low(yp)) + clo) + _right(clo))
+            bw = B.get(q)
+            if 1 <= q <= p - 2 and 1 <= q + goff <= n:
+                vlo = point(clo, slo, _low(bw), lo_upd[sp][1:-1])
+                vhi = point(chi, shi, _high(bw), hi_upd[sp][1:-1])
+            else:
+                vlo, vhi = np.zeros_like(clo), np.zeros_like(chi)
+            wide = {0: vlo, 1: vhi}
+            vhi, vlo = _high(_bits(vhi) << 16), _low(_bits(vlo))
+            for i in range(R):
+                own = mine[H + i]
+                if not own.any():
+                    continue
+                sh = row_s(sp, H + i)
+                e = (q * r + y0 + i) * c + 2 * w[own] - sh
+                assert np.all(e % 2 == 0)
+                lo_only = (sh == 0) & last[own]
+                hi_only = (sh == 1) & first[own]
+                for off, vals, keep in ((0, vlo[i, own], ~hi_only),
+                                        (1, vhi[i, own], ~lo_only)):
+                    out[e[keep] + off] = vals[keep]
+                    unrounded[e[keep] + off] = wide[off][i, own][keep]
+                    writes[e[keep] + off] += 1
+
+        for q in (z0 - 1, z0, z0 + 1):
+            load_u(q)
+        load_b(z0)
+        for _, z in _steps(z0, z1):
+            load_u(z + 2)
+            load_b(z + 1)
+            apply(z)
+    return (out.reshape(p, r, c), writes.reshape(p, r, c),
+            unrounded.reshape(p, r, c))
+
+
+def _jacobi_pair_case(n, goff, roff, p, r, chunk, sigma, sweeps, chunk_of,
+                      seed=4):
+    """``sweeps`` chained paired Jacobi sweeps on a random bfloat16 stack
+    (u spread over 25 binades, so that a sum in another order would part):
+    each every point written once and bit for bit the scalar march's
+    bfloat16 emulation on the same values, before the output's rounding
+    (the float32-storing mode's emulation: the rounding to bfloat16 hides
+    most float32 differences) and after it; the last against the plain
+    version of one sweep from its own input by the bfloat16 rule."""
+    u, b, u16, b16 = _bf16_stack(n, goff, roff, p, r, seed, spread=12)
+    bt = torch.from_numpy(b).to(torch.bfloat16)
+    shape = (p, r, n + 2)
+    h = 1.0 / (n + 1)
+    geom = _pair_geometry(shape, chunk_of, chunk, mode="jacobi")
+    g = chunk_of("jacobi", shape, torch.bfloat16, chunk)
+    for _ in range(sweeps):
+        start = torch.from_numpy(u).to(torch.bfloat16)
+        assert stencil3d.jacobi_pairs(start, bt, torch.empty_like(start))
+        got, writes, wide = _emulate_jacobi_pairs(geom, u16, b16, n, h,
+                                                  sigma, goff, roff)
+        assert (writes == 1).all()
+        scalar = _emulate_bf16("jacobi", g, u, b, n, h, 1, F32,
+                               sigma=sigma, goff=goff, roff=roff)
+        np.testing.assert_array_equal(wide, scalar)
+        np.testing.assert_array_equal(got, _bf16(scalar))
+        u, u16 = got, _bits(got).astype(np.uint16)
+    want = stencil3d.jacobi_sweep_plain(start, bt, n, h, OMEGA, sigma=sigma,
+                                        goff=goff, roff=roff)
+    assert want.dtype == torch.bfloat16
+    assert _bf16_rule_share(got, want.double().numpy()) <= 1e-3
+
+
+# (n, goff, roff, p, r, chunk, sigma, sweeps): a whole 65^3 grid (r odd,
+# chunks of 8 with a last one of 1 plane, the last row of the last plane
+# ending on a straddling word); a pencil-shaped stack (r even, planes and
+# rows past both ends of the grid: hz = 2 at n = 31); goff + roff odd,
+# which pairs for Jacobi but not for RB-GS, with r = 17 one past a band; c
+# = 61 = 2 * 30 + 1 (a second strip of one word) with r = 17 and chunks 6,
+# 6, 6, 2; two chained sweeps on a 33^3 grid.
+_JACOBI_PAIR_CASES = [(63, 0, 0, 65, 65, 8, SIGMA, 1),
+                      (31, -2, -2, 38, 38, 6, SIGMA, 1),
+                      (31, 3, 0, 12, 17, 4, 0.0, 1),
+                      (59, 20, 10, 20, 17, 6, 0.0, 1),
+                      (31, 0, 0, 33, 33, 8, 0.0, 2)]
+
+
+@pytest.mark.parametrize("n,goff,roff,p,r,chunk,sigma,sweeps",
+                         _JACOBI_PAIR_CASES)
+def test_paired_jacobi_matches_scalar_and_plain(n, goff, roff, p, r, chunk,
+                                                sigma, sweeps, chunk_of):
+    _jacobi_pair_case(n, goff, roff, p, r, chunk, sigma, sweeps, chunk_of)
+
+
+def test_jacobi_pairs_rule_and_the_scalar_march(chunk_of):
+    """jacobi_pairs (the launcher's rule): bfloat16 u, b and out, c odd and
+    each array on a 4-byte word, whatever r and the offsets; an odd
+    pointer, c even or a float32 output do not pair, and the scalar march,
+    which the launcher runs there, holds against the plain version by the
+    bfloat16 rule."""
+    bf = torch.bfloat16
+    whole = torch.zeros((5, 7, 33), dtype=bf)
+    assert stencil3d.jacobi_pairs(whole, whole, whole)
+    even_r = torch.zeros((5, 6, 33), dtype=bf)
+    assert stencil3d.jacobi_pairs(even_r, even_r, even_r)
+    even_c = torch.zeros((5, 7, 34), dtype=bf)
+    assert not stencil3d.jacobi_pairs(even_c, even_c, even_c)
+    assert not stencil3d.jacobi_pairs(whole, whole,
+                                      torch.empty_like(whole, dtype=F32))
+    shifted = torch.zeros(5 * 7 * 33 + 1, dtype=bf)[1:].view(5, 7, 33)
+    for args in ((shifted, whole, whole), (whole, shifted, whole),
+                 (whole, whole, shifted)):
+        assert not stencil3d.jacobi_pairs(*args)
+    n, goff, roff, p, r = 31, 3, 0, 12, 17
+    u, b, _, _ = _bf16_stack(n, goff, roff, p, r, seed=9)
+    g = chunk_of("jacobi", (p, r, n + 2), bf, 4)
+    h = 1.0 / (n + 1)
+    got = _emulate_bf16("jacobi", g, u, b, n, h, 1, None, goff=goff,
+                        roff=roff)
+    want = stencil3d.jacobi_sweep_plain(
+        *(torch.from_numpy(a).to(bf) for a in (u, b)), n, h, OMEGA,
+        sigma=SIGMA, goff=goff, roff=roff)
+    assert _bf16_rule_share(got, want.double().numpy()) <= 1e-3
+
+
+@pytest.mark.parametrize("shape", _GEOMETRY_SHAPES + [(3, 3, 5), (4, 9, 7),
+                                                      (518, 518, 513)])
+def test_paired_jacobi_geometry_owns_each_word_once(shape):
+    """The paired Jacobi geometry: every word index of a row in one
+    strip's owned words, every row in one band of MARCH_PAIR_ROWS,
+    every plane in one chunk, each non-empty (the kernel's pair_geom_fits
+    with kPairRows); chunks even, at most MARCH_CHUNK's rounded up."""
+    p, r, c = shape
+    strips, bands, chunks, width, chunk = _pair_geometry(shape, mode="jacobi")
+    owned, rows = stencil3d.MARCH_PAIR_WORDS, stencil3d.MARCH_PAIR_ROWS
+    words = (c + 1) // 2
+    assert width == 2 * owned and chunk % 2 == 0 and chunk >= 2
+    for count, size, part in ((strips, words, owned), (bands, r, rows),
+                              (chunks, p, chunk)):
+        assert count * part >= size and (count - 1) * part < size
+    assert chunk <= stencil3d.MARCH_CHUNK["pass"] + 1
+    with pytest.raises(ValueError):
+        stencil3d.march_geometry("pass", *shape, F32, paired=True)
+
+
+def test_jacobi_sweep_launches_the_paired_march(monkeypatch):
+    """On a CUDA tensor (the device rule faked, the launches recorded) a
+    bfloat16 Jacobi call takes the paired geometry and counts
+    jacobi_bf16_pairs_launches on every sweep that stores bfloat16, the
+    scalar geometry on the last one with out_dtype=float32; the RB-GS
+    sweeps' pair count stays."""
+    calls = []
+    monkeypatch.setattr(stencil3d, "on_cuda", lambda t: True)
+    monkeypatch.setattr(stencil3d, "launch_on", lambda t, kernel, *args,
+                        out_dtype=None, writes=(): calls.append(
+                            (kernel, tuple(args[-1]), out_dtype)))
+    for name in ("jacobi_bf16_launches", "jacobi_bf16_f32_launches",
+                 "jacobi_bf16_pairs_launches", "rbgs_bf16_pairs_launches"):
+        monkeypatch.setattr(stencil3d, name, 0)
+    n, shape = 31, (38, 38, 33)                 # r even: the pencil's kind
+    u = torch.zeros(shape, dtype=torch.bfloat16)
+    stencil3d.jacobi_sweep(u, u, n, 1.0 / 32, OMEGA, sweeps=3, goff=-2,
+                           roff=-2, out_dtype=F32)
+    bf = torch.bfloat16
+    paired = stencil3d.march_geometry("pass", *shape, bf, paired=True)
+    scalar = stencil3d.march_geometry("pass", *shape, bf)
+    assert calls == [("stencil3d_jacobi", paired, bf)] * 2 + [
+        ("stencil3d_jacobi", scalar, F32)]
+    assert (stencil3d.jacobi_bf16_launches, stencil3d.jacobi_bf16_f32_launches,
+            stencil3d.jacobi_bf16_pairs_launches,
+            stencil3d.rbgs_bf16_pairs_launches) == (2, 1, 2, 0)
