@@ -186,7 +186,13 @@ Phases:
      on bfloat16 forms of S1's fine tile, S2's block tile and the two offset
      tiles, unpacked and packed, at RB-GS nu = 2, Jacobi nu = 3 and RB-GS
      nu = 1 with sigma, by the same rule (the coarse right-hand side against
-     the plain restriction of the kernel's own stored u');
+     the plain restriction of the kernel's own stored u'); the last
+     bfloat16 modes of the _cdt kernels (compare_cdt_bf16): the plocal2d
+     residual, apply and norm on bfloat16 forms of S1's packed tile and the
+     two offset tiles, both sigmas, the whole grid's norm at 4095^2 (red
+     only and both planes), the BELL SpMM on the bench matrix, its carrier,
+     4 x 3 blocks with padding blocks and NaN and Inf in Xt, by the same
+     rule (a norm, float32, to TOL[float32] of its value);
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -243,7 +249,11 @@ Phases:
      fine level (right after the sharded cycles' times); S1eigen's II
      and LOBPCG walls beside the single-device float64 eigensolve at
      4095^2, each with the device busy time and idle share of an II outer
-     step or a LOBPCG solve. Every kernel row also gets the profiler's
+     step or a LOBPCG solve; the _cdt family's last bfloat16 modes beside
+     their float32 twins and their bounds at bfloat16 bytes (the BELL
+     mode's operations at the bfloat16 tensor-core rate), the BELL mode
+     beside a bfloat16 BSR torch.sparse.mm where PyTorch runs it. Every
+     kernel row also gets the profiler's
      device time a call (device_ms), and the sharded eigensolver runs'
      launches (sharded_eigen_launches) where it has some.
 
@@ -295,7 +305,10 @@ correction and float32 x' (plocal2d at S1mixed, local2d at
 S1unpacked-mixed and S2mixed), the float32 local2d legs on the levels
 below; CG's residual and apply stay float32 (the plocal2d residual and
 apply, or the local2d residual). The tile legs storing bfloat16 run on no
-path: direct calls.
+path: direct calls. Nor do the bfloat16 modes of the plocal2d residual,
+apply and norm, the whole grid's norm and the BELL SpMM (JAX's _cdt rule:
+float32 arithmetic, each output rounded once, the norms float32 sums):
+phase 3's cdt_bf16_direct calls each once.
 
 FMG and the eigensolvers add no kernel. An FMG walk's V-cycle started at a
 level runs the legs of the kernel levels at and below it; b's restriction
@@ -318,7 +331,10 @@ Phase 1 also reports ptxas's registers and spills of the row-streaming
 legs and sweeps, the local2d sweeps (UTile) among them, the stencil3d
 z-march kernels in every storage mode, the BELL SpMM kernels and the
 residual-restriction stream (from the build's nvcc.log), and fails if
-either of the last two spills.
+either of the last two spills; and the residual norm's first pass
+(presnorm_partial) in every storage mode, failing if a float32 or float64
+BELL SpMM or norm kernel's line differs from the parent tree's
+(PARENT_PTXAS): their storage type must leave those kernels as they were.
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -504,6 +520,13 @@ ORACLE_TOL = 1e-7
 # The BELL product in float32 against SciPy's float64 one: sums of 2304
 # products of N(0,1) values, ~1e-6 of the largest output; 1e-5.
 BELL_SCIPY_TOL = 1e-5
+# One H100 SXM's dense bfloat16 tensor-core rate at its full 700 W (NVIDIA's
+# data sheet): the BELL SpMM's bfloat16 mode takes its operations' bound at
+# it (the kernel itself runs FFMA: a tensor-core redesign is ROADMAP.md's).
+PEAK_BF16_FLOPS = 989e12
+# The BELL SpMM's bfloat16 mode on 4 x 3 blocks of 128^2 with kmax this
+# far above the densest block row (padding blocks in every block row).
+BELL_BF16_PAD = 2
 
 
 # The sharded paths: (k, mesh, config overrides) of S1-S4; S4 is Jacobi
@@ -859,10 +882,30 @@ LEG_KERNEL = re.compile(r"(down|up|sweep)_kernelI([fd])Li(\d)ELi(\d+)E"
 BF16_LEG_ROWS = 2 + 8 + 1 + 2 * (2 + 4)
 
 
-# The BELL SpMM kernel (type, m-tile) and the residual-restriction stream
-# (type), whose ptxas report must show no spill.
+# The BELL SpMM kernel (accumulator type, storage type, m-tile) and the
+# residual-restriction stream (type), whose ptxas report must show no
+# spill.
 OTHER_KERNEL = re.compile(r"(bell_spmm_kernel|residual_restrict_kernel)I([fd])"
-                          r"(?:Li(\d+)E)?")
+                          r"(13__nv_bfloat16|[fd](?=Li))?(?:Li(\d+)E)?")
+# The residual norm's first pass (compute type, update rule: Interior on a
+# whole grid, InteriorBox on a tile, storage type).
+PRESNORM_KERNEL = re.compile(r"presnorm_partialI([fd])NS_\d+([A-Za-z]+?)E"
+                             r"(13__nv_bfloat16|[fd])?E")
+# The float32 and float64 ptxas lines, (registers, spill bytes), of the
+# kernels that took a storage type for their bfloat16 modes, as the parent
+# tree (commit a2fa1c6) builds them on the card's nvcc: these must not
+# move. Keys: (kernel, type, m-tile or update rule).
+PARENT_PTXAS = {
+    ("bell_spmm_kernel", "f32", 8): (94, 0),
+    ("bell_spmm_kernel", "f32", 32): (128, 0),
+    ("bell_spmm_kernel", "f32", 128): (208, 0),
+    ("bell_spmm_kernel", "f64", 8): (133, 0),
+    ("bell_spmm_kernel", "f64", 32): (162, 0),
+    ("presnorm_partial", "f32", "Interior"): (26, 0),
+    ("presnorm_partial", "f32", "InteriorBox"): (26, 0),
+    ("presnorm_partial", "f64", "Interior"): (27, 0),
+    ("presnorm_partial", "f64", "InteriorBox"): (27, 0),
+}
 
 
 # A stencil3d z-march kernel's mangled name: kernel, compute type, band
@@ -970,15 +1013,28 @@ def ptxas_report(log_path) -> dict:
     require(bf16_rows == BF16_LEG_ROWS,
             f"ptxas report has {bf16_rows} bfloat16 leg and sweep rows, not "
             f"{BF16_LEG_ROWS}")
-    others = {}
+    others, lines = {}, {}
     for mangled, prop in props.items():
         m = OTHER_KERNEL.search(mangled)
         if m and "regs" in prop:
-            name, ty, tile = m.groups()
-            others.setdefault((name, "f32" if ty == "f" else "f64"), []).append(
+            name, ty, storage, tile = m.groups()
+            kind = ("bf16" if storage == "13__nv_bfloat16"
+                    else "f32" if ty == "f" else "f64")
+            others.setdefault((name, kind), []).append(
                 (int(tile or 0), prop["regs"], prop.get("spill", 0)))
-    require({name for name, _ in others} == {"bell_spmm_kernel",
-                                             "residual_restrict_kernel"},
+            lines[(name, kind, int(tile or 0))] = (prop["regs"],
+                                                   prop.get("spill", 0))
+        m = PRESNORM_KERNEL.search(mangled)
+        if m and "regs" in prop:
+            ty, upd, storage = m.groups()
+            kind = ("bf16" if storage == "13__nv_bfloat16"
+                    else "f32" if ty == "f" else "f64")
+            lines[("presnorm_partial", kind, upd)] = (prop["regs"],
+                                                      prop.get("spill", 0))
+    require(set(others) == {(k, t) for k in ("bell_spmm_kernel",
+                                             "residual_restrict_kernel")
+                            for t in ("f32", "f64")}
+            | {("bell_spmm_kernel", "bf16")},
             f"ptxas report lacks the BELL or residual-restriction kernels: "
             f"{sorted(others)}")
     for key in sorted(others):
@@ -988,6 +1044,23 @@ def ptxas_report(log_path) -> dict:
         log(f"ptxas {' '.join(key)}: {cells}")
         require(all(sp == 0 for *_, sp in others[key]),
                 f"ptxas: {' '.join(key)} spills ({cells})")
+    norms = sorted(k for k in lines if k[0] == "presnorm_partial")
+    require(norms == [("presnorm_partial", t, u) for t in ("bf16", "f32",
+                                                           "f64")
+                      for u in ("Interior", "InteriorBox")],
+            f"ptxas report lacks presnorm_partial kernels: {norms}")
+    for key in norms:
+        regs, spill = lines[key]
+        log(f"ptxas {' '.join(key)}: {regs}r"
+            + (f" spill {spill}B" if spill else ""))
+    # The float32 and float64 kernels that took a storage type compile as
+    # the parent's did.
+    moved = {key: (lines.get(key), want) for key, want in PARENT_PTXAS.items()
+             if lines.get(key) != want}
+    log(f"ptxas against the parent's lines: {len(PARENT_PTXAS) - len(moved)}"
+        f" of {len(PARENT_PTXAS)} equal")
+    require(not moved, f"ptxas lines moved from the parent's (now, then): "
+            f"{moved}")
     return march
 
 
@@ -1415,6 +1488,131 @@ def compare_mixed_sharded(main_err: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def check_norm_f32(label: str, got, want):
+    """A bfloat16 mode's norm: a 0-d float32 tensor, within TOL[float32]
+    of its plain version's value (check_pair's 0-d rule)."""
+    require(got.dtype == want.dtype == torch.float32 and got.shape == (),
+            f"{label}: {got.dtype} {tuple(got.shape)}, not a float32 scalar")
+    return check_pair(label, got, want, TOL[torch.float32])
+
+
+def bell_bf16_bench():
+    """The bench's BELL matrix and Xt (``bell_bench``) rounded to
+    bfloat16."""
+    _, ab, xt = bell_bench()
+    return (dataclasses.replace(ab, data=ab.data.to(torch.bfloat16)),
+            xt.to(torch.bfloat16))
+
+
+def compare_cdt_bf16(main_err: dict) -> None:
+    """The last bfloat16 modes of the _cdt family (no path runs them)
+    against their plain versions by check_bf16's rule, a norm (a float32
+    scalar) to TOL[float32] of its value: the plocal2d residual, apply and
+    norm (red only and both planes) on the bfloat16 form of S1's packed
+    fine tile (2 x 4112 x 2049) and of LOCAL2D_TILES' packed tiles (an
+    8-way row rank, a 2x2 block rank with col_off odd), sigma 0 and SIGMA;
+    the whole grid's norm at 4095^2, red only and both planes, both sigmas;
+    the BELL SpMM on the bench matrix in bfloat16 (m = 128, twice: the
+    second call bit for bit the first), its 8-row carrier (bell.spmv), 4 x 3
+    blocks of 128^2 with kmax BELL_BF16_PAD above the densest block row (m
+    = 16), and NaN and Inf in Xt's first block column (m = 128 and 8). The
+    main-path errors: S1's tile at sigma 0 (the norm's larger of its two
+    modes), the whole grid red only at sigma 0, the bench at m = 128."""
+    from multigridcmt_tpu_torch.kernels import bell, packed2d, plocal2d
+
+    bf, f32 = torch.bfloat16, torch.float32
+    for n, dr, r, dc, c in ((2 ** MAIN_K - 1, 1, 0, 0, 0), *LOCAL2D_TILES):
+        ue, be, _, t = local2d_tile(n, f32, n + r + c + 71, (dr, dc), (r, c))
+        cols, cpar = ue.shape[1], 1 if t["mcol"] else 0
+        su, sb = (plocal2d.pack_ext(g, cpar).to(bf) for g in (ue, be))
+        del ue, be
+        h, m, mcol = 1.0 / (n + 1), t["m"], t["mcol"]
+        offs = (t["row_off"], t["col_off"])
+        label = (f"bf16 plocal2d n={n} tile {tuple(su.shape)} offsets "
+                 f"{offs}")
+
+        def tile(x):
+            return unpacked_tile(x, cols, cpar)
+
+        for sigma in (0.0, SIGMA):
+            what = f"{label} sigma={sigma}"
+            errs = {
+                "plocal2d_residual_bf16": check_bf16(
+                    f"{what} residual",
+                    tile(plocal2d.residual(su, sb, n, h, *offs,
+                                           sigma=sigma)),
+                    tile(plocal2d.residual_plain(su, sb, n, h, *offs,
+                                                 sigma=sigma)),
+                    ghosts=False),
+                "plocal2d_apply_bf16": check_bf16(
+                    f"{what} apply",
+                    tile(plocal2d.apply_op(su, n, h, *offs, sigma=sigma)),
+                    tile(plocal2d.apply_op_plain(su, n, h, *offs,
+                                                 sigma=sigma)),
+                    ghosts=False),
+                "plocal2d_resnorm_bf16": max((check_norm_f32(
+                    f"{what} norm red_only={ro}",
+                    plocal2d.residual_norm_sq(su, sb, n, h, m, *offs,
+                                              mcol=mcol, red_only=ro,
+                                              sigma=sigma),
+                    plocal2d.residual_norm_sq_plain(su, sb, n, h, m, *offs,
+                                                    mcol=mcol, red_only=ro,
+                                                    sigma=sigma))
+                    for ro in (False, True)), key=lambda v: v[1])}
+            if (n, dr, dc) == (2 ** MAIN_K - 1, 1, 0) and sigma == 0.0:
+                main_err.update(errs)
+        del su, sb
+        torch.cuda.empty_cache()
+
+    n = 2 ** MAIN_K - 1
+    h = 1.0 / (n + 1)
+    su, sb, _, _ = bf16_inputs(n, seed=n + 77)
+    for sigma in (0.0, SIGMA):
+        for ro in (True, False):
+            err = check_norm_f32(
+                f"bf16 packed2d norm n={n} red_only={ro} sigma={sigma}",
+                packed2d.residual_norm_sq(su, sb, n, h, red_only=ro,
+                                          sigma=sigma),
+                packed2d.residual_norm_sq_plain(su, sb, n, h, red_only=ro,
+                                                sigma=sigma))
+            if ro and sigma == 0.0:
+                main_err["packed2d_resnorm_bf16"] = err
+    del su, sb
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # as compare_sparse
+    ab, xt = bell_bf16_bench()
+    want = bell.spmm_plain(ab, xt)
+    got = bell.spmm(ab, xt)
+    main_err["bell_spmm_bf16"] = check_bf16(
+        f"bf16 bell_spmm bench kmax={ab.kmax} m={BELL_M}", got, want,
+        ghosts=False)
+    require(torch.equal(bell.spmm(ab, xt), got),
+            "bf16 bell_spmm: a second call differs from the first")
+    check_bf16("bf16 bell spmv carrier bench", bell.spmv(ab, xt[0]),
+               want[0, :ab.shape[0]], ghosts=False)
+    xn = xt.clone()
+    xn[0, 5] = float("nan")
+    xn[BELL_M - 1, 100] = float("inf")
+    xn[3, 127] = -float("inf")
+    for m in (BELL_M, 8):
+        xm = xn[:m].contiguous()
+        check_nonfinite(f"bf16 bell_spmm bench m={m}, NaN and Inf in block "
+                        "column 0", bell.spmm(ab, xm).float(),
+                        bell.spmm_plain(ab, xm).float(),
+                        2.0 ** -7 + BF16_SCALE_TOL)
+    del ab, xt, want, got, xn, xm
+    a_sp, rng = blocks_4x3(29)
+    need = bell.bell_from_scipy(a_sp, device="cpu").kmax
+    ab = bell.bell_from_scipy(a_sp, dtype=bf, kmax=need + BELL_BF16_PAD,
+                              device="cuda")
+    xt = torch.from_numpy(rng.standard_normal((16, 3 * 128))).to(
+        device="cuda", dtype=bf)
+    check_bf16(f"bf16 bell_spmm 4x3 blocks kmax={ab.kmax} (densest "
+               f"{need}) m=16", bell.spmm(ab, xt), bell.spmm_plain(ab, xt),
+               ghosts=False)
+
+
 def compare_mixed3d(main_err: dict) -> None:
     """The stencil3d kernels' bfloat16 modes against their plain versions at
     511^3 (both sigmas) and on MIXED3D_STACKS (sigma = SIGMA): the residual
@@ -1767,9 +1965,6 @@ def compare_sparse(main_err: dict) -> None:
     shape (float32, m = 128), on 4 x 3 blocks in float64 (m = 16), and its
     8-row SpMV carrier. Main-path rows: the DIA SpMV at 4095^2, the BELL
     SpMM at the bench shape."""
-    import numpy as np
-    import scipy.sparse as sp
-
     from multigridcmt_tpu_torch.kernels import bell, spmv
 
     for dtype, n, ndim in ((torch.float32, 2 ** MAIN_K - 1, 2),
@@ -1836,17 +2031,26 @@ def compare_sparse(main_err: dict) -> None:
                             bell.spmm(a_, xm), bell.spmm_plain(a_, xm),
                             TOL[x_.dtype])
     del ab64, xt64, want, xn, xm
-    rng = np.random.default_rng(17)
+    a_sp, rng = blocks_4x3(17)
+    ab64 = bell.bell_from_scipy(a_sp, dtype=torch.float64, device="cuda")
+    xt64 = torch.from_numpy(rng.standard_normal((16, 3 * 128))).cuda()
+    check_pair("bell_spmm float64 4x3 blocks m=16", bell.spmm(ab64, xt64),
+               bell.spmm_plain(ab64, xt64), TOL[torch.float64], ghosts=False)
+
+
+def blocks_4x3(seed: int):
+    """(a 4 x 3-block SciPy matrix of N(0,1) blocks of 128^2 at density
+    0.6, block (0, 0) always populated; the generator, to draw Xt from)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
     dense = np.zeros((4 * 128, 3 * 128))
     for i, j in zip(*np.nonzero(rng.random((4, 3)) < 0.6)):
         dense[i * 128:(i + 1) * 128, j * 128:(j + 1) * 128] = \
             rng.standard_normal((128, 128))
     dense[:128, :128] = rng.standard_normal((128, 128))
-    ab64 = bell.bell_from_scipy(sp.csr_matrix(dense), dtype=torch.float64,
-                                device="cuda")
-    xt64 = torch.from_numpy(rng.standard_normal((16, 3 * 128))).cuda()
-    check_pair("bell_spmm float64 4x3 blocks m=16", bell.spmm(ab64, xt64),
-               bell.spmm_plain(ab64, xt64), TOL[torch.float64], ghosts=False)
+    return sp.csr_matrix(dense), rng
 
 
 def check_nonfinite(label: str, got, want, tol: float) -> None:
@@ -2201,6 +2405,7 @@ def phase_compare():
     compare_mixed(main_err)
     compare_mixed3d(main_err)
     compare_mixed_sharded(main_err)
+    compare_cdt_bf16(main_err)
     return main_err
 
 
@@ -2399,6 +2604,32 @@ KERNELS = {
                          "multigridcmt_tpu_torch/kernels/csrc/"
                          "plocal2d_legs_bf16.cu",
                          "multigridcmt_tpu/kernels/plocal2d.py:708", None),
+    # The last bfloat16 modes of the JAX package's _cdt kernels (float32
+    # arithmetic, each output rounded once, the norms float32 sums): the
+    # packed tile's residual, apply and norm, the whole grid's norm and the
+    # BELL SpMM. No path of either package runs them: direct calls only.
+    "plocal2d_residual_bf16": ("plocal2d", "residual_bf16_launches",
+                               "multigridcmt_tpu_torch/kernels/csrc/"
+                               "plocal2d_bf16.cu",
+                               "multigridcmt_tpu/kernels/plocal2d.py:262",
+                               None),
+    "plocal2d_apply_bf16": ("plocal2d", "apply_bf16_launches",
+                            "multigridcmt_tpu_torch/kernels/csrc/"
+                            "plocal2d_bf16.cu",
+                            "multigridcmt_tpu/kernels/plocal2d.py:982", None),
+    "plocal2d_resnorm_bf16": ("plocal2d", "resnorm_bf16_launches",
+                              "multigridcmt_tpu_torch/kernels/csrc/"
+                              "plocal2d_bf16.cu",
+                              "multigridcmt_tpu/kernels/plocal2d.py:855",
+                              None),
+    "packed2d_resnorm_bf16": ("packed2d", "resnorm_bf16_launches",
+                              "multigridcmt_tpu_torch/kernels/csrc/"
+                              "packed2d_bf16.cu",
+                              "multigridcmt_tpu/kernels/packed2d.py:553",
+                              None),
+    "bell_spmm_bf16": ("bell", "bf16_launches",
+                       "multigridcmt_tpu_torch/kernels/csrc/bell.cu",
+                       "multigridcmt_tpu/kernels/bell.py:180", None),
 }
 # A kernel's launches by one variant -> (counter module, counter, the
 # KERNELS entries whose launches they are part of): the bfloat16 RB-GS
@@ -2434,7 +2665,12 @@ DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d",
                "stencil3d_jacobi_bf16": "mixed3d_direct",
                "stencil3d_jacobi_bf16_f32": "mixed3d_direct",
                "local2d_up_bf16": "sharded_up_bf16_direct",
-               "plocal2d_up_bf16": "sharded_up_bf16_direct"}
+               "plocal2d_up_bf16": "sharded_up_bf16_direct",
+               "plocal2d_residual_bf16": "cdt_bf16_direct",
+               "plocal2d_apply_bf16": "cdt_bf16_direct",
+               "plocal2d_resnorm_bf16": "cdt_bf16_direct",
+               "packed2d_resnorm_bf16": "cdt_bf16_direct",
+               "bell_spmm_bf16": "cdt_bf16_direct"}
 
 
 def kernel_module(mod: str):
@@ -3695,6 +3931,44 @@ def paths_mixed(runs: dict) -> None:
     del su, sb, e
 
 
+def paths_cdt_bf16(runs: dict) -> None:
+    """Direct calls (cdt_bf16_direct) of the _cdt family's bfloat16 modes
+    that no path of either package runs: the plocal2d residual, apply and
+    red-only norm on the bfloat16 form of S1's packed fine tile, the whole
+    4095^2 grid's red-only norm and the BELL SpMM on the bench matrix, each
+    launched exactly once; outputs finite, in bfloat16, the norms float32
+    scalars."""
+    from multigridcmt_tpu_torch.kernels import bell, packed2d, plocal2d
+
+    bf, f32 = torch.bfloat16, torch.float32
+    n = 2 ** MAIN_K - 1
+    h = 1.0 / (n + 1)
+    ue, be, _, t = local2d_tile(n, f32, seed=67)
+    su, sb = (plocal2d.pack_ext(g, 0).to(bf) for g in (ue, be))
+    del ue, be
+    gu, gb, _, _ = bf16_inputs(n, seed=68)
+    ab, xt = bell_bf16_bench()
+    offs = (t["row_off"], t["col_off"])
+    out, counts, _ = counted(lambda: (
+        plocal2d.residual(su, sb, n, h, *offs),
+        plocal2d.apply_op(su, n, h, *offs),
+        plocal2d.residual_norm_sq(su, sb, n, h, t["m"], *offs,
+                                  red_only=True),
+        packed2d.residual_norm_sq(gu, gb, n, h, red_only=True),
+        bell.spmm(ab, xt)))
+    dtypes = [o.dtype for o in out]
+    require(dtypes == [bf, bf, f32, f32, bf]
+            and all(bool(o.isfinite().all()) for o in out)
+            and out[2].shape == out[3].shape == (),
+            f"cdt bf16 direct: outputs {dtypes} or not finite")
+    require_counts("cdt bf16 direct", counts, plocal2d_residual_bf16=1,
+                   plocal2d_apply_bf16=1, plocal2d_resnorm_bf16=1,
+                   packed2d_resnorm_bf16=1, bell_spmm_bf16=1)
+    runs["cdt_bf16_direct"] = counts
+    del su, sb, gu, gb, ab, xt, out
+    torch.cuda.empty_cache()
+
+
 def paths_mixed3d(runs: dict) -> None:
     """3D mixed precision: MG-PCG at 511^3 float32 with
     precond_dtype=torch.bfloat16 (mixed3d) beside the float32 PCG, with
@@ -4784,6 +5058,7 @@ def phase_main_path():
     log(f"FMG and eigensolver paths: {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
     paths_mixed(runs)
+    paths_cdt_bf16(runs)
     log(f"mixed-precision paths: {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
     paths_sharded_eigen(runs)
@@ -4914,6 +5189,8 @@ def flops_per_point(name: str, sweeps: int = 2) -> int:
             "plocal2d_down_bf16": 6 * sweeps + 12,
             "plocal2d_up_bf16": 6 * sweeps + 3,
             "plocal2d_up_bf16_f32": 6 * sweeps + 3,
+            "plocal2d_residual_bf16": 8, "plocal2d_apply_bf16": 7,
+            "plocal2d_resnorm_bf16": 5, "packed2d_resnorm_bf16": 5,
             }[name]
 
 
@@ -5916,6 +6193,141 @@ def timed_mixed(times: dict) -> None:
     times["mixed_cycles"] = out
 
 
+def timed_cdt_bf16(times: dict) -> None:
+    """The _cdt family's last bfloat16 modes at their float32 twins' shapes
+    (sigma 0): the plocal2d residual, apply and red-only norm at S1's packed
+    fine tile, the whole grid's red-only norm at 4095^2, the BELL SpMM on
+    the bench matrix (m = 128), each against its plain version in turns
+    (single calls), as LEG_CHAIN chained calls and by the profiler's device
+    time a call, beside its float32 twin on the widened values (chained
+    and device); the BELL mode beside torch.sparse.mm on the same matrix
+    as a (128, 128)-block bfloat16 BSR with int32 indices, where PyTorch
+    runs it (else its error is logged and library_ms is null, the reason in
+    library_note); the 8-row carrier (bell.spmv) by device time beside its
+    float32 twin (cdt_bf16_carrier). Bounds at bfloat16 bytes; the BELL
+    mode's operations at PEAK_BF16_FLOPS."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from multigridcmt_tpu_torch.kernels import bell, packed2d, plocal2d
+    from multigridcmt_tpu_torch.utils.breakdown import device_busy
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    n = 2 ** MAIN_K - 1
+    h = 1.0 / (n + 1)
+    ue, be, _, t = local2d_tile(n, f32, seed=23)
+    m, offs = t["m"], (t["row_off"], t["col_off"])
+    su, sb = (plocal2d.pack_ext(g, 0).to(bf) for g in (ue, be))
+    del ue, be
+    fu, fb = su.float(), sb.float()
+    gu, gb, _, _ = bf16_inputs(n, seed=7)
+    gfu, gfb = gu.float(), gb.float()
+    a_sp, ab32, xt32 = bell_bench()
+    ab, xt = bell_bf16_bench()
+    yt = bell.spmm(ab, xt)
+    blocks = int(a_sp.tobsr(blocksize=(128, 128)).indices.shape[0])
+    blk = ab.data.shape[-1]
+    # name -> (kernel, plain, float32 twin, bytes read once and written
+    # once, operations, their peak)
+    cases = {
+        "plocal2d_residual_bf16": (
+            lambda: plocal2d.residual(su, sb, n, h, *offs),
+            lambda: plocal2d.residual_plain(su, sb, n, h, *offs),
+            lambda: plocal2d.residual(fu, fb, n, h, *offs),
+            nbytes(su, sb, su), 8 * n * n, PEAK_F32_FLOPS),
+        "plocal2d_apply_bf16": (
+            lambda: plocal2d.apply_op(su, n, h, *offs),
+            lambda: plocal2d.apply_op_plain(su, n, h, *offs),
+            lambda: plocal2d.apply_op(fu, n, h, *offs),
+            nbytes(su, su), 7 * n * n, PEAK_F32_FLOPS),
+        "plocal2d_resnorm_bf16": (
+            lambda: plocal2d.residual_norm_sq(su, sb, n, h, m, *offs,
+                                              red_only=True),
+            lambda: plocal2d.residual_norm_sq_plain(su, sb, n, h, m, *offs,
+                                                    red_only=True),
+            lambda: plocal2d.residual_norm_sq(fu, fb, n, h, m, *offs,
+                                              red_only=True),
+            nbytes(su, sb[0]), 5 * n * n, PEAK_F32_FLOPS),
+        "packed2d_resnorm_bf16": (
+            lambda: packed2d.residual_norm_sq(gu, gb, n, h, red_only=True),
+            lambda: packed2d.residual_norm_sq_plain(gu, gb, n, h,
+                                                    red_only=True),
+            lambda: packed2d.residual_norm_sq(gfu, gfb, n, h, red_only=True),
+            nbytes(gu, gb[0]), 5 * n * n, PEAK_F32_FLOPS),
+        # The populated blocks and their column indices, Xt and Yt, as the
+        # float32 row counts them.
+        "bell_spmm_bf16": (
+            lambda: bell.spmm(ab, xt), lambda: bell.spmm_plain(ab, xt),
+            lambda: bell.spmm(ab32, xt32),
+            blocks * (blk * blk * ab.data.element_size()
+                      + ab.cols.element_size()) + nbytes(xt, yt),
+            2 * blocks * blk * blk * BELL_M, PEAK_BF16_FLOPS),
+    }
+    for name, (kernel, plain, twin, nb, flops, peak) in cases.items():
+        pair = time_pair(f"{name} n={n}", kernel, plain)
+        row = {"ms": chained_ms(kernel, LEG_CHAIN), "single_ms": pair["ms"],
+               "plain_ms": pair["plain_ms"], "device_ms": pair["device_ms"],
+               "f32_chained_ms": chained_ms(twin, LEG_CHAIN),
+               "f32_device_ms": device_busy(twin, LEG_CHAIN)[0],
+               "bytes": nb, "flops": flops, "peak_flops": peak}
+        row["chained_ms"] = row["ms"]
+        if peak != PEAK_F32_FLOPS:
+            row["peak"] = "bfloat16 tensor cores, 989 TFLOP/s dense"
+        bound = max(nb / PEAK_BYTES_PER_S, flops / peak) * 1e3
+        log(f"bf16 {name}: chained x{LEG_CHAIN} {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} ms; float32 twin chained "
+            f"{row['f32_chained_ms']:.4f} ms, device "
+            f"{row['f32_device_ms']:.4f} ms; bound {bound:.4f} ms "
+            f"({100 * bound / row['device_ms']:.1f}% of the device time)")
+        times[name] = row
+
+    # The library's call of the same function: a bfloat16 BSR of int32
+    # indices (the float32 row's yardstick) times X.
+    row = times["bell_spmm_bf16"]
+    row["library_ms"] = None
+    try:
+        bsr_h = a_sp.tobsr(blocksize=(128, 128))
+        bsr = torch.sparse_bsr_tensor(
+            torch.from_numpy(bsr_h.indptr.astype(np.int32)).cuda(),
+            torch.from_numpy(bsr_h.indices.astype(np.int32)).cuda(),
+            torch.from_numpy(bsr_h.data).cuda().to(bf), size=a_sp.shape)
+        x_cols = xt.T.contiguous()
+        lib_out = torch.sparse.mm(bsr, x_cols).T
+        lib_rel = rel_err(lib_out.float(), yt[:, :a_sp.shape[0]].float())[1]
+        row["library_ms"] = cuda_time_ms(lambda: torch.sparse.mm(bsr,
+                                                                 x_cols))
+        log(f"  bf16 BSR torch.sparse.mm (128, 128) int32: "
+            f"{row['library_ms']:.4f} ms (rel diff {lib_rel:.1e})")
+        del bsr, x_cols, lib_out
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        row["library_note"] = (f"torch.sparse.mm on a bfloat16 BSR raised "
+                               f"{type(exc).__name__}: {exc}"[:300])
+        log(f"  {row['library_note']}")
+
+    # The m = 8 carrier by device time: its bound is the bytes of every
+    # stored block, the carrier and the result.
+    x, x32 = xt[0], xt32[0]
+    carrier = time_pair(f"bf16 bell spmv carrier m=8 kmax={ab.kmax}",
+                        lambda: bell.spmv(ab, x), lambda: bell.spmm_plain(
+                            ab, F.pad(x[None], (0, 0, 0, 7))))
+    carrier["f32_device_ms"] = device_busy(lambda: bell.spmv(ab32, x32),
+                                           LEG_CHAIN)[0]
+    moved8 = nbytes(ab.data, ab.cols) + 8 * nbytes(x) + 8 * nbytes(yt[0])
+    carrier["bound_ms"] = max(moved8 / PEAK_BYTES_PER_S,
+                              2 * blocks * blk * blk * 8
+                              / PEAK_BF16_FLOPS) * 1e3
+    carrier["bound_share"] = carrier["bound_ms"] / carrier["device_ms"]
+    times["cdt_bf16_carrier"] = carrier
+    log(f"bf16 BELL carrier m=8: device {carrier['device_ms']:.4f} ms, float32 "
+        f"twin {carrier['f32_device_ms']:.4f} ms, bound "
+        f"{carrier['bound_ms']:.4f} ms ({100 * carrier['bound_share']:.1f}% "
+        "of it)")
+    del su, sb, fu, fb, gu, gb, gfu, gfb, ab, xt, yt, cases
+    torch.cuda.empty_cache()
+
+
 def timed_mixed3d(times: dict) -> None:
     """The stencil3d kernels' bfloat16 modes at 511^3, sigma = 0, one
     launch a call, each against its plain version in turns (single calls),
@@ -6251,6 +6663,7 @@ def phase_times():
     timed_2d(times)
     start = time.perf_counter()
     timed_mixed(times)
+    timed_cdt_bf16(times)
     timed_mixed3d(times)
     log(f"mixed-precision times: {time.perf_counter() - start:.1f} s")
     timed_composed(times)
@@ -6314,7 +6727,7 @@ def kernel_rows(names, runs, errs, times):
         *_, src, rep, run = KERNELS[name]
         t = times[TIME_KEY.get(name, name)]
         by_bytes = t["bytes"] / PEAK_BYTES_PER_S * 1e3
-        by_ops = t["flops"] / PEAK_F32_FLOPS * 1e3
+        by_ops = t["flops"] / t.get("peak_flops", PEAK_F32_FLOPS) * 1e3
         launches = (runs[run][name] if run is not None
                     else sum(runs[r][name] for r in MAIN_RUNS))
         row = {
@@ -6326,7 +6739,8 @@ def kernel_rows(names, runs, errs, times):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": t.get("library_ms"), "run": run}
         for key in ("single_ms", "chained_ms", "device_ms", "f32_chained_ms",
-                    "f32_device_ms", "f32_other_device_ms"):
+                    "f32_device_ms", "f32_other_device_ms", "peak",
+                    "library_note"):
             if key in t:
                 row[key] = t[key]
         if name in DIRECT_RUNS:
@@ -6397,6 +6811,7 @@ def main() -> int:
     log("local2d_sweeps: " + json.dumps(times["local2d_sweeps"]))
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
     log("mixed_cycles: " + json.dumps(times["mixed_cycles"]))
+    log("cdt_bf16_carrier: " + json.dumps(times["cdt_bf16_carrier"]))
     for method in MIXED_EIGEN:
         log(f"mixed_{method} walls (float64, full and bfloat16-"
             f"preconditioned, s): {runs['mixed_' + method + '_walls']}")

@@ -40,7 +40,15 @@ def config_from_jax(cfg) -> SolverConfig:
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    """A JAX (or NumPy) array as a tensor on ``device``. NumPy's bfloat16
+    (``ml_dtypes``) has no torch counterpart in ``from_numpy``: it is
+    widened to float32 and rounded back, both exact, so the same bits
+    arrive."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
 
 
 def hierarchy_from_jax(hier, device=None) -> Hierarchy:

@@ -131,6 +131,13 @@ for _name in ("local2d_down", "local2d_up", "plocal2d_down", "plocal2d_up"):
     SIGNATURES[f"mg_{_name}_bf16"] = SIGNATURES[f"mg_{_name}_f32"]
 for _name in ("local2d_up", "plocal2d_up"):
     SIGNATURES[f"mg_{_name}_bf16_f32"] = SIGNATURES[f"mg_{_name}_f32"]
+# The bfloat16 storage modes of the whole grid's and the packed tile's
+# residual norm (out float32), the packed tile's residual and apply
+# (csrc/packed2d_bf16.cu, plocal2d_bf16.cu) and the BELL SpMM (csrc/bell.cu,
+# a float32 accumulator): the float32 entry points' arguments.
+for _name in ("packed2d_resnorm", "plocal2d_residual", "plocal2d_resnorm",
+              "bell_spmm"):
+    SIGNATURES[f"mg_{_name}_bf16"] = SIGNATURES[f"mg_{_name}_f32"]
 # The stencil3d kernels' bfloat16 storage modes (the fine level of a mixed
 # 3D cycle, csrc/stencil3d_bf16.cu): the float32 entry points' arguments.
 # The residual stores r in float32; the sweeps' _bf16_f32 entry points store

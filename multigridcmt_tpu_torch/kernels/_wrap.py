@@ -4,15 +4,19 @@ Device rule: a CPU tensor takes the wrapper's plain PyTorch version; a
 CUDA tensor launches the kernel or raises; any other device raises.
 
 Storage rule (the JAX package's ``_cdt``, ``packed2d.py:74-90``): a kernel
-computes in float32 or float64. The fine level of a mixed cycle may also
-be stored in bfloat16, on the packed 2D tier (``packed2d``), on the 3D
-kernel tier (``stencil3d``) and on a sharded 2D solve's shard tiles (the
-``local2d`` and ``plocal2d`` legs): each load widens to float32, each store
-rounds to bfloat16 once, any coarse operand is float32, and an output may
-be stored in float32 (``out_dtype``: the up legs, the 3D sweeps; the 3D
-residual always is, ``check_out_dtype``). Every other kernel's bfloat16
-mode raises, naming its ROADMAP.md item: no path of either package stores
-bfloat16 there.
+computes in float32 or float64. A kernel whose TPU original follows
+``_cdt`` also takes bfloat16 storage: the packed 2D tier (``packed2d``:
+the legs, the sweep, the residual and the norm), the 3D kernel tier
+(``stencil3d``), the shard tiles' legs (``local2d``, ``plocal2d``), the
+packed tile's residual, apply and norm (``plocal2d``) and the BELL SpMM
+(``bell``). Each load widens to float32, each output point rounds to
+bfloat16 once, any coarse operand is float32, a norm is a float32 sum,
+and an output may be stored in float32 (``out_dtype``: the up legs, the
+3D sweeps; the 3D residual always is, ``check_out_dtype``). The kernels
+whose TPU original computes in bfloat16 itself (every operation rounded,
+sigma bfloat16: local2d's sweeps and residual and the DIA SpMV, through
+``check_storage``; stencil2d, fused2d and transfer2d, through
+``check_grid``'s TypeError) raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 COMPUTE = (torch.float32, torch.float64)
 STORAGE = COMPUTE + (torch.bfloat16,)
 
-# The bfloat16 modes no mixed path of either package runs: each raises,
-# naming their ROADMAP.md item.
+# The bfloat16 modes that compute in bfloat16 itself in the JAX package
+# (and that no mixed path of either package runs): each raises, naming
+# their ROADMAP.md item.
 MIXED_OFF_PATH = "queue 2, part B: bfloat16 storage off the mixed paths"
 MIXED_TODO = ("{what}: bfloat16 storage is not ported to CUDA: no mixed "
               "path stores bfloat16 there (ROADMAP.md, " + MIXED_OFF_PATH
@@ -44,7 +49,8 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def check_storage(what: str, t: torch.Tensor) -> None:
     """Raise NotImplementedError (``MIXED_TODO``) for a bfloat16 ``t`` given
-    to a kernel whose bfloat16 mode no mixed path runs."""
+    to a kernel whose bfloat16 mode is not ported (computes in bfloat16
+    in the JAX package; no mixed path runs it)."""
     if t.dtype == torch.bfloat16:
         raise NotImplementedError(MIXED_TODO.format(what=what))
 

@@ -15,14 +15,16 @@ Format, as in the JAX package: every block row stores exactly ``kmax``
 multivectors: ``Xt`` is (m, n_cols), one vector a row, m a multiple of 8;
 ``spmv`` carries a single vector as row 0 of an 8-row ``Xt``.
 
-The product accumulates in the storage dtype, float32 or float64 (JAX's
-``_cdt``), in full precision: the JAX kernel asks for
-``Precision.HIGHEST``, so neither the kernel nor the plain version uses
-TF32. ``data`` and ``Xt`` must have one dtype and one device; bfloat16
-storage raises (no mixed path of the port reaches it).
+The product accumulates in the compute dtype (JAX's ``_cdt``): float32
+for float32 and bfloat16 storage, float64 for float64, in full precision:
+the JAX kernel asks for ``Precision.HIGHEST``, so neither the kernel nor
+the plain version uses TF32. ``data`` and ``Xt`` must have one dtype and
+one device. With bfloat16 storage every value is widened to float32 where
+it is used and Yt is rounded to bfloat16 once, at the end (no path of
+either package runs it: direct calls).
 
 ``spmm_plain`` is the plain PyTorch version (a gather of X's blocks and
-an ``einsum`` a k step). Device rule (``_wrap``): a CPU tensor takes the
+an ``einsum`` a k step, in the compute dtype). Device rule (``_wrap``): a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -35,28 +37,29 @@ import torch
 import torch.nn.functional as F
 
 from ..grids import check_device
-from ._wrap import check_storage, check_tensor, \
-    launch_on, on_cuda
+from ._wrap import check_tensor, compute_dtype, launch_on, on_cuda
 
 BM = 128
 BN = 128
 
 # Launches of the CUDA kernel in this process (plain-version calls do not
-# count).
+# count); the bfloat16 mode's apart.
 launches = 0
+bf16_launches = 0
 
 # csrc/bell.cu's launch constants (the CPU tests hold them against the
 # source): threads a CTA; bytes of block columns a staged slice; slices in
 # the cp.async ring; the largest cluster a block row's walk of slices
 # splits over and the CTAs an SM the split aims at; the m-tiles by dtype
 # (the least one that holds m, else the largest); a thread's block rows
-# (WIDE at float32's largest m-tile) and vectors.
+# (WIDE at a float32 accumulator's largest m-tile) and vectors.
 THREADS = 256
 SLICE_BYTES = 128
 STAGES = 3
 MAX_CLUSTER = 8
 CTAS_PER_SM = 4
-M_TILES = {torch.float32: (8, 32, 128), torch.float64: (8, 32)}
+M_TILES = {torch.float32: (8, 32, 128), torch.float64: (8, 32),
+           torch.bfloat16: (8, 32, 128)}
 TILE_ROWS, TILE_ROWS_WIDE = 4, 8
 TILE_VECTORS = 8
 
@@ -86,14 +89,14 @@ def launch_geometry(nbr: int, kmax: int, m: int, dtype, *,
     tiles = M_TILES[dtype]
     m_tile = next((t for t in tiles if m <= t), tiles[-1])
     m_tiles = -(-m // m_tile)
-    slice_cols = SLICE_BYTES // (4 if dtype == torch.float32 else 8)
+    slice_cols = SLICE_BYTES // dtype.itemsize
     slices = kmax * BN // slice_cols
     cluster = 1
     while (cluster < MAX_CLUSTER and 2 * cluster <= slices
            and nbr * m_tiles * cluster < CTAS_PER_SM * sm_count):
         cluster *= 2
-    rows = (TILE_ROWS_WIDE if dtype == torch.float32 and m_tile == tiles[-1]
-            else TILE_ROWS)
+    rows = (TILE_ROWS_WIDE if compute_dtype(dtype) == torch.float32
+            and m_tile == tiles[-1] else TILE_ROWS)
     return SpmmGeometry(
         m_tile=m_tile, m_tiles=m_tiles, cluster=cluster,
         slice_cols=slice_cols, rows=rows, vectors=TILE_VECTORS,
@@ -177,16 +180,14 @@ def _nbc(a: BELL) -> int:
 
 def _prepare(a: BELL, xt: torch.Tensor) -> torch.Tensor:
     """Check the operands; return Xt zero-padded to nbc * 128 columns."""
-    check_storage("bell.spmm", a.data)
-    check_storage("bell.spmm", xt)
     if xt.ndim != 2 or xt.shape[0] % 8 != 0:
         raise ValueError(f"bell.spmm: Xt of shape {tuple(xt.shape)}; "
                          "expected (m, n_cols) with m a multiple of 8")
     width = _nbc(a) * BN
     if xt.shape[1] < width:
         xt = F.pad(xt, (0, width - xt.shape[1]))
-    check_tensor("Xt", xt, tuple(xt.shape), xt)
-    check_tensor("data", a.data, (a.nbr, a.kmax, BM, BN), xt)
+    check_tensor("Xt", xt, tuple(xt.shape), xt, storage=True)
+    check_tensor("data", a.data, (a.nbr, a.kmax, BM, BN), xt, storage=True)
     if a.cols.dtype != torch.int32 or a.cols.device != xt.device \
             or tuple(a.cols.shape) != (a.nbr, a.kmax) \
             or not a.cols.is_contiguous():
@@ -201,20 +202,25 @@ def spmm_plain(a: BELL, xt: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``spmm``: gather X's blocks, then add
     Yt[:, i, r] += sum over c of Xb[:, i, k, c] * data[i, k, r, c] one k
     at a time, as the TPU kernel's k steps do (so zero padding blocks add
-    exact zeros)."""
+    exact zeros), in the compute dtype (bfloat16 values widened to float32,
+    Yt rounded to bfloat16 once, at the end)."""
     m = xt.shape[0]
+    cdt = compute_dtype(xt.dtype)
     xb = xt[:, :_nbc(a) * BN].reshape(m, _nbc(a), BN)[:, a.cols.long()]
-    yt = torch.zeros((m, a.nbr, BM), dtype=xt.dtype, device=xt.device)
+    xb = xb.to(cdt)
+    yt = torch.zeros((m, a.nbr, BM), dtype=cdt, device=xt.device)
     for k in range(a.kmax):
-        yt += torch.einsum("mic,irc->mir", xb[:, :, k], a.data[:, k])
-    return yt.reshape(m, a.nbr * BM)
+        yt += torch.einsum("mic,irc->mir", xb[:, :, k], a.data[:, k].to(cdt))
+    return yt.reshape(m, a.nbr * BM).to(xt.dtype)
 
 
 def spmm(a: BELL, xt: torch.Tensor) -> torch.Tensor:
     """Yt (m, nbr*128) = (A @ X)^T for the transposed multivector Xt
     (m, >= n_cols), m a multiple of 8. Xt's columns past a.shape[1] must be
-    zero (or meet zero blocks); Yt's columns past a.shape[0] are zero."""
-    global launches
+    zero (or meet zero blocks); Yt's columns past a.shape[0] are zero.
+    Yt is stored in Xt's dtype (bfloat16: accumulated in float32, rounded
+    once)."""
+    global launches, bf16_launches
     xt = _prepare(a, xt)
     if not on_cuda(xt):
         return spmm_plain(a, xt)
@@ -223,7 +229,10 @@ def spmm(a: BELL, xt: torch.Tensor) -> torch.Tensor:
     launch_on(xt, "bell_spmm", a.data.data_ptr(), a.cols.data_ptr(),
               xt.data_ptr(), yt.data_ptr(), a.nbr, a.kmax, m, xt.shape[1],
               writes=(yt,))
-    launches += 1
+    if xt.dtype == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return yt
 
 

@@ -1,16 +1,22 @@
 // Block-sparse (blocked-ELL) matrix product with a transposed multivector.
 //
 // Replaces the TPU kernel multigridcmt_tpu/kernels/bell.py (spmm, its
-// pallas_call): spmm -> mg_bell_spmm.
+// pallas_call): spmm -> mg_bell_spmm (float32, float64 and, with bfloat16
+// storage, bfloat16).
 //
 // Operands (kernels/bell.py): data (nbr, kmax, 128, 128) with
 // data[i][k][r][c] = A[128 i + r, 128 cols[i][k] + c]; cols (nbr, kmax)
 // int32, in any order; Xt (m, ldx) row-major, one vector a row; Yt (m,
-// nbr*128). It computes
+// nbr*128); data, Xt and Yt stored in S. It computes
 //   Yt[j][128 i + r] = sum_k sum_c Xt[j][128 cols[i][k] + c] * data[i][k][r][c]
-// accumulating in T: float32 for float32 storage, float64 for float64
-// (JAX's _cdt). The TPU kernel asks for Precision.HIGHEST, so this is plain
-// FFMA (DFMA) arithmetic, never TF32 tensor-core products.
+// accumulating in T: float32 for float32 and bfloat16 storage, float64 for
+// float64 (JAX's _cdt, bell.py:54-59). The TPU kernel asks for
+// Precision.HIGHEST, so this is plain FFMA (DFMA) arithmetic, never TF32
+// tensor-core products. With S bfloat16 each staged value is widened to
+// float32 where it is used (a product of two bfloat16 is exact in float32
+// barring under- or overflow, so each FFMA rounds once, as the TPU
+// kernel's float32 accumulation of exact products), and each Yt value is
+// rounded to bfloat16 once, at its store (bell.py:195).
 //
 // What bounds it on the card: arithmetic. At the SpMV bench's shape (64 x
 // 64 blocks, density 0.15, seed 1: kmax 18, 1152 stored blocks of which
@@ -18,30 +24,34 @@
 // GFLOP: 0.0425 ms at the 67 TFLOP/s of float32 outside the tensor cores,
 // against 75.5 MB of stored blocks (0.0225 ms at 3.35 TB/s), which a kernel
 // must read to know a block is zero. At m = 8 (the SpMV carrier) those
-// bytes bound it.
+// bytes bound it. In bfloat16 the same FFMAs run on half the bytes; its
+// bound is the bytes, or the operations at the tensor cores' bfloat16
+// rate, which this kernel does not use (ROADMAP.md).
 //
 // The design. A CTA of 256 threads owns one block row i and a tile of MT
-// vectors (the m-tile, chosen from m: 8, 32, or 128 in float32 and 32 in
-// float64), and a share of the block row's work: the block row's stored
-// blocks, each walked in slices of 128 bytes of block columns (KC = 32 in
-// float32, 16 in float64), form one walk of kmax * 128 / KC slices, which
-// the CL CTAs of a thread-block cluster split, rank q taking slices q, q +
-// CL, ... (CL a power of two up to kMaxCluster, grown while the launch has
-// fewer than kCtasPerSm CTAs an SM). Striding slices rather than blocks
-// gives the ranks of a block row equal shares of its populated blocks
-// (which bell_from_scipy stores first), so no rank idles at the cluster's
-// barrier while another finishes a block. A slice, the A block's 128 x KC
-// columns and the X tile's MT x KC, is copied to shared memory by
-// cp.async, 16 bytes a copy, rows as in device memory at a pitch of 9
-// 16-byte chunks (the reads of 8 consecutive rows' chunks fall in 8 bank
-// groups), into a ring of kStages slices, so the loads of the next slices
-// overlap the FMAs of this one. Each thread accumulates a TR x 8 register
-// tile (TR = 8 block rows in float32 at MT = 128, else 4), rows rg + RG p
-// and vectors jg + JG t, 16 bytes of columns a step: its 8 vectors' chunks
-// held, then each row's chunk, 4 (float32) FMAs a row and vector; at TR = 8
-// that is 16 16-byte shared loads for 256 FFMAs. Where RG x JG groups do
-// not fill the CTA (small m-tiles), CS groups split each slice's columns
-// and are summed in order at the end.
+// vectors (the m-tile, chosen from m: 8, 32, or 128 in float32 and bfloat16
+// and 32 in float64), and a share of the block row's work: the block row's
+// stored blocks, each walked in slices of 128 bytes of block columns (KC =
+// 32 in float32, 16 in float64, 64 in bfloat16), form one walk of kmax * 128
+// / KC slices, which the CL CTAs of a thread-block cluster split, rank q
+// taking slices q, q + CL, ... (CL a power of two up to kMaxCluster, grown
+// while the launch has fewer than kCtasPerSm CTAs an SM). Striding slices
+// rather than blocks gives the ranks of a block row equal shares of its
+// populated blocks (which bell_from_scipy stores first), so no rank idles at
+// the cluster's barrier while another finishes a block. A slice, the A
+// block's 128 x KC columns and the X tile's MT x KC, is copied to shared
+// memory by cp.async, 16 bytes a copy, rows as in device memory at a pitch
+// of 9 16-byte chunks (the reads of 8 consecutive rows' chunks fall in 8
+// bank groups), into a ring of kStages slices, so the loads of the next
+// slices overlap the FMAs of this one. Each thread accumulates a TR x 8
+// register tile in T (TR = 8 block rows with a float accumulator at MT =
+// 128, else 4), rows rg + RG p and vectors jg + JG t, 16 bytes of columns a
+// step: its 8 vectors' chunks held, then each row's chunk, 4 (float32) or 8
+// (bfloat16) FMAs a row and vector; at TR = 8 that is 16 16-byte shared
+// loads for 256 FFMAs in float32, 512 in bfloat16. The staged slices are S,
+// the partial tiles below T: shared memory is sized for each in its own
+// type. Where RG x JG groups do not fill the CTA (small m-tiles), CS groups
+// split each slice's columns and are summed in order at the end.
 //
 // Zero padding blocks (bell_from_scipy pads a block row to kmax with zero
 // blocks at block column 0) cost no FMAs: after a slice lands, each thread
@@ -65,6 +75,8 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -78,7 +90,7 @@ constexpr int kMaxCluster = 8;     // CTAs a block row's walk splits over
 constexpr int kCtasPerSm = 4;      // the cluster split aims at this many
 constexpr int kMTileSmall = 8;     // m-tiles: m <= 8 ...
 constexpr int kMTileMid = 32;      // ... m <= 32 (float64: every m > 8) ...
-constexpr int kMTileF32 = 128;     // ... float32, m > 32
+constexpr int kMTileF32 = 128;     // ... a float accumulator, m > 32
 constexpr int kTileRowsWide = 8;   // a thread's block rows at that m-tile
 constexpr int kTileRows = 4;       // ... and at the others
 constexpr int kTileVectors = 8;    // a thread's vectors
@@ -93,20 +105,30 @@ template <>
 struct Vec16<double> {
   using type = double2;
 };
+template <>
+struct Vec16<__nv_bfloat16> {
+  using type = uint4;
+};
 
+// Element e of a 16-byte vector, in the accumulator's type (a bfloat16
+// widened to float).
 __device__ __forceinline__ float part(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 __device__ __forceinline__ double part(const double2& v, int e) {
   return e == 0 ? v.x : v.y;
 }
+__device__ __forceinline__ float part(const uint4& v, int e) {
+  const unsigned w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+  return e & 1 ? mg::high_f(w) : mg::low_f(w);
+}
 
-// The geometry of an (element type, m-tile) instance.
-template <typename T, int MT>
+// The geometry of an (accumulator type, storage type, m-tile) instance.
+template <typename T, typename S, int MT>
 struct Geo {
-  static constexpr int B = static_cast<int>(sizeof(T));
-  static constexpr bool WIDE = B == 4 && MT == kMTileF32;
-  static constexpr int CTAS_PER_SM = WIDE || B == 8 ? 1 : 2;
+  static constexpr int B = static_cast<int>(sizeof(S));  // bytes a value
+  static constexpr bool WIDE = sizeof(T) == 4 && MT == kMTileF32;
+  static constexpr int CTAS_PER_SM = WIDE || sizeof(T) == 8 ? 1 : 2;
   static constexpr int V = 16 / B;              // elements of 16 bytes
   static constexpr int KC = kSliceBytes / B;    // block columns a slice
   static constexpr int CPR = KC / V;            // 16-byte chunks a row
@@ -118,13 +140,15 @@ struct Geo {
   static constexpr int JG = MT / TJ;            // ... along j
   static constexpr int CS = kThreads / (RG * JG);  // ... along c
   static constexpr int CC = KC / CS;            // a group's columns a slice
-  static constexpr int STAGE = (BM + MT) * PITCH;  // elements a slice
+  static constexpr int STAGE = (BM + MT) * PITCH;  // S elements a slice
   static constexpr int AC = BM * CPR / kThreads;  // A chunks a thread
   static constexpr int XC = MT * CPR;           // X chunks of the CTA
   static constexpr int PP = BM + 1;             // partial tile pitch
-  static constexpr int PART = CS * MT * PP;     // elements of the partials
+  static constexpr int PART = CS * MT * PP;     // T elements of the partials
+  static constexpr int RING_BYTES = kStages * STAGE * B;
+  static constexpr int PART_BYTES = PART * static_cast<int>(sizeof(T));
   static constexpr int SMEM =
-      (kStages * STAGE > PART ? kStages * STAGE : PART) * B;
+      RING_BYTES > PART_BYTES ? RING_BYTES : PART_BYTES;
   static_assert(RG * JG * CS == kThreads, "thread groups fill the CTA");
   static_assert(CC % V == 0, "a group's columns are whole chunks");
   static_assert(BM * CPR % kThreads == 0, "A copies spread evenly");
@@ -151,18 +175,19 @@ __device__ __forceinline__ void wait_copies() {
 }
 
 // Two CTAs an SM (128 registers) where the tile fits them with no spill;
-// float32's 8 x 8 tile at MT = 128 and float64's take one (208 and ~160
-// registers): at two, ptxas spilled them.
-template <typename T, int MT>
-__global__ void __launch_bounds__(kThreads, Geo<T, MT>::CTAS_PER_SM)
-bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
-                 const T* __restrict__ xt, T* __restrict__ yt, int kmax,
+// a float accumulator's 8 x 8 tile at MT = 128 (208 registers in float32,
+// 182 in bfloat16) and float64's (~160) take one: at two, ptxas spilled
+// float32's and float64's.
+template <typename T, typename S, int MT>
+__global__ void __launch_bounds__(kThreads, Geo<T, S, MT>::CTAS_PER_SM)
+bell_spmm_kernel(const S* __restrict__ data, const int* __restrict__ cols,
+                 const S* __restrict__ xt, S* __restrict__ yt, int kmax,
                  int m, int mtiles, long long ldx, long long ldy) {
-  using G = Geo<T, MT>;
-  using Vec = typename Vec16<T>::type;
+  using G = Geo<T, S, MT>;
+  using Vec = typename Vec16<S>::type;
   constexpr int NT = kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  S* smem = reinterpret_cast<S*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int cl = static_cast<int>(cluster.num_blocks());
   const int q = static_cast<int>(cluster.block_rank());
@@ -177,14 +202,14 @@ bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
   // This CTA's slices: g = q, q + cl, ... of block row i's kmax * SLICES.
   const int total = kmax * G::SLICES;
   const int ns = total > q ? (total - q + cl - 1) / cl : 0;
-  const T* arow = data + i * kmax * (BM * BN);
+  const S* arow = data + i * kmax * (BM * BN);
   const int* crow = cols + i * kmax;
   // Chunk e of a slice is row e / CPR, chunk e % CPR: this thread's first
   // (e = tid) and, since NT is a multiple of CPR, its u-th lies NT / CPR
   // rows further. Its first X row and whether each X chunk is live.
   const int row0 = tid / G::CPR;
   const int ch0 = (tid % G::CPR) * G::V;
-  const T* xfirst = xt + static_cast<long long>(j0 + row0) * ldx + ch0;
+  const S* xfirst = xt + static_cast<long long>(j0 + row0) * ldx + ch0;
   constexpr int XU = (G::XC + NT - 1) / NT;
   constexpr int DROW = NT / G::CPR;
   const long long xstep = DROW * ldx;
@@ -197,11 +222,11 @@ bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
     const int g = q + cl * s;
     const int k = g / G::SLICES;
     const int c0 = (g % G::SLICES) * G::KC;
-    T* as = smem + (s % kStages) * G::STAGE + row0 * G::PITCH + ch0;
-    T* xs = as + BM * G::PITCH;
-    const T* a = arow + static_cast<long long>(k) * (BM * BN) + c0 +
+    S* as = smem + (s % kStages) * G::STAGE + row0 * G::PITCH + ch0;
+    S* xs = as + BM * G::PITCH;
+    const S* a = arow + static_cast<long long>(k) * (BM * BN) + c0 +
                  row0 * BN + ch0;
-    const T* x = xfirst + static_cast<long long>(crow[k]) * BN + c0;
+    const S* x = xfirst + static_cast<long long>(crow[k]) * BN + c0;
 #pragma unroll
     for (int u = 0; u < G::AC; ++u) {
       copy16(as + u * DROW * G::PITCH, a + u * DROW * BN, true);
@@ -220,8 +245,8 @@ bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
   // value or a non-finite X value (its own copies are complete and
   // visible to it after wait_copies).
   auto counts = [&](int s) {
-    const T* as = smem + (s % kStages) * G::STAGE + row0 * G::PITCH + ch0;
-    const T* xs = as + BM * G::PITCH;
+    const S* as = smem + (s % kStages) * G::STAGE + row0 * G::PITCH + ch0;
+    const S* xs = as + BM * G::PITCH;
     bool any = false;
 #pragma unroll
     for (int u = 0; u < G::AC; ++u) {
@@ -251,8 +276,8 @@ bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
   // p and vectors jg + JG t over its group's columns, 16 bytes of columns
   // a step: the X vectors' chunks held, then each row's chunk in turn.
   auto multiply = [&](int buf) {
-    const T* as = smem + buf * G::STAGE + rg * G::PITCH + cgr * G::CC;
-    const T* xs = smem + buf * G::STAGE + BM * G::PITCH + jg * G::PITCH +
+    const S* as = smem + buf * G::STAGE + rg * G::PITCH + cgr * G::CC;
+    const S* xs = smem + buf * G::STAGE + BM * G::PITCH + jg * G::PITCH +
                   cgr * G::CC;
 #pragma unroll
     for (int ch = 0; ch < G::CC; ch += G::V) {
@@ -296,7 +321,7 @@ bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
   // The partial tiles, partial[cgr][j][r], in this CTA's shared memory;
   // the column groups summed in order into group 0's; then rank q sums
   // its share of the output over the cluster's ranks in rank order.
-  T* partial = smem;
+  T* partial = reinterpret_cast<T*>(smem_raw);
 #pragma unroll
   for (int t = 0; t < G::TJ; ++t)
 #pragma unroll
@@ -331,7 +356,7 @@ bell_spmm_kernel(const T* __restrict__ data, const int* __restrict__ cols,
     for (int src = 1; src < kMaxCluster; ++src) {
       if (src < cl) sum += v[src];
     }
-    yt[(j0 + j) * ldy + i * BM + r] = sum;
+    yt[(j0 + j) * ldy + i * BM + r] = mg::narrow<S>(sum);
   }
   // No CTA leaves while another reads its shared memory.
   cluster.sync();
@@ -348,12 +373,12 @@ int cluster_size(long long tiles, long long slices, int sms) {
   return cl;
 }
 
-template <typename T, int MT>
-int launch_tile(const T* data, const int* cols, const T* xt, T* yt,
+template <typename T, typename S, int MT>
+int launch_tile(const S* data, const int* cols, const S* xt, S* yt,
                 long long nbr, long long kmax, long long m, long long ldx,
                 cudaStream_t stream) {
-  using G = Geo<T, MT>;
-  auto kernel = bell_spmm_kernel<T, MT>;
+  using G = Geo<T, S, MT>;
+  auto kernel = bell_spmm_kernel<T, S, MT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   int dev = 0, sms = 0;
@@ -383,9 +408,10 @@ int launch_tile(const T* data, const int* cols, const T* xt, T* yt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The m-tile from m; Yt must start on 16 bytes (its rows are whole
-// 16-byte vectors), data and Xt on an element.
-template <typename T>
+// The m-tile from m (and the accumulator T); Yt must start on 16 bytes
+// (its rows are whole 16-byte vectors), data and Xt on an element. Stored
+// in S, accumulated in T.
+template <typename T, typename S = T>
 int launch(const void* data, const void* cols, const void* xt, void* yt,
            long long nbr, long long kmax, long long m, long long ldx,
            void* stream) {
@@ -393,20 +419,20 @@ int launch(const void* data, const void* cols, const void* xt, void* yt,
       m < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const T* d = static_cast<const T*>(data);
+  const S* d = static_cast<const S*>(data);
   const int* c = static_cast<const int*>(cols);
-  const T* x = static_cast<const T*>(xt);
-  T* y = static_cast<T*>(yt);
+  const S* x = static_cast<const S*>(xt);
+  S* y = static_cast<S*>(yt);
   const auto s = static_cast<cudaStream_t>(stream);
   if (m <= kMTileSmall) {
-    return launch_tile<T, kMTileSmall>(d, c, x, y, nbr, kmax, m, ldx, s);
+    return launch_tile<T, S, kMTileSmall>(d, c, x, y, nbr, kmax, m, ldx, s);
   }
   if constexpr (sizeof(T) == 4) {
     if (m > kMTileMid) {
-      return launch_tile<T, kMTileF32>(d, c, x, y, nbr, kmax, m, ldx, s);
+      return launch_tile<T, S, kMTileF32>(d, c, x, y, nbr, kmax, m, ldx, s);
     }
   }
-  return launch_tile<T, kMTileMid>(d, c, x, y, nbr, kmax, m, ldx, s);
+  return launch_tile<T, S, kMTileMid>(d, c, x, y, nbr, kmax, m, ldx, s);
 }
 
 }  // namespace
@@ -425,6 +451,14 @@ int mg_bell_spmm_f64(const void* data, const void* cols, const void* xt,
                      void* yt, long long nbr, long long kmax, long long m,
                      long long ldx, void* stream) {
   return launch<double>(data, cols, xt, yt, nbr, kmax, m, ldx, stream);
+}
+
+// data, xt and yt bfloat16, a float32 accumulator.
+int mg_bell_spmm_bf16(const void* data, const void* cols, const void* xt,
+                      void* yt, long long nbr, long long kmax, long long m,
+                      long long ldx, void* stream) {
+  return launch<float, __nv_bfloat16>(data, cols, xt, yt, nbr, kmax, m, ldx,
+                                      stream);
 }
 
 }  // extern "C"

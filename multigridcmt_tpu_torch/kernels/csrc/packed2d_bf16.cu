@@ -11,6 +11,9 @@
 //                                                   where the layout pairs,
 //                                                   mg::presidual_kernel
 //                                                   elsewhere; :440)
+//   residual_norm_sq         -> packed2d_resnorm_bf16
+//                                                   (mg::presnorm_partial,
+//                                                   mg::sum_partials; :553)
 //
 // u, b and u' are bfloat16; the smoothing and the residual run in float
 // registers, and each point is rounded once, on its store, to nearest
@@ -31,7 +34,9 @@
 // thread a lane with six 2-byte loads and a 64-bit division a point, ran
 // 0.081 ms (35% of its bound); on words of two lanes (packed_tile.cuh,
 // the planes' rows i side by side in the grid) it runs 0.049 ms, 61%,
-// against float32's 0.099 (PERF.md).
+// against float32's 0.099 (PERF.md). The norm widens u and b at each
+// load and returns a float32 sum, as the TPU kernel's (packed2d.py:534):
+// 4 bytes a point read (3 red only), half float32's.
 #include "packed2d_legs.cuh"
 
 extern "C" {
@@ -50,6 +55,16 @@ int mg_packed2d_residual_bf16(const void* u, const void* b, void* r, int n,
   return mg::launch_presidual<float, mg::Interior, __nv_bfloat16>(
       u, b, r, mg::PRect{n + 2, n + 2, 0, 0}, mg::Interior{n}, h, sigma, true,
       stream);
+}
+
+// The whole grid's residual norm (red only or both planes), u and b
+// bfloat16, out[0] float32.
+int mg_packed2d_resnorm_bf16(const void* u, const void* b, void* partial,
+                             void* out, int n, double h, double sigma,
+                             int red_only, int blocks, void* stream) {
+  return mg::launch_presnorm<float, mg::Interior, __nv_bfloat16>(
+      u, b, partial, out, mg::PRect{n + 2, n + 2, 0, 0}, mg::Interior{n}, 1,
+      n + 1, 0, n + 2, h, sigma, red_only, blocks, stream);
 }
 
 }  // extern "C"

@@ -22,8 +22,9 @@
 // (i, l+1) if p = 1. Sums run in the TPU module's order, ((up + down) + same
 // lane) + side lane.
 //
-// Storage and compute: a kernel computes in T; the whole packed grid's
-// arrays may be stored in a narrower S (common.cuh's storage rule).
+// Storage and compute: a kernel computes in T; its arrays, a whole packed
+// grid's or a tile's, may be stored in a narrower S (common.cuh's storage
+// rule).
 #pragma once
 
 #include <cstdint>
@@ -54,12 +55,13 @@ __device__ __forceinline__ T nsum(const S* o, I k, I pitch, int p) {
          widen<T>(o[p ? k + 1 : k - 1]);
 }
 
-// b - (A - sigma I) u at lane index k of plane uc (other plane uo).
-template <typename T, typename I>
-__device__ __forceinline__ T presidual(const T* uc, const T* uo, T bval,
+// b - (A - sigma I) u at lane index k of plane uc (other plane uo), both
+// stored in S, computed in T.
+template <typename T, typename S, typename I>
+__device__ __forceinline__ T presidual(const S* uc, const S* uo, T bval,
                                        I k, I pitch, int p,
                                        const Coef<T>& cf) {
-  const T v = uc[k];
+  const T v = widen<T>(uc[k]);
   return bval - (T(4) * v - nsum<T>(uo, k, pitch, p)) * cf.inv_h2 +
          cf.sig * v;
 }
@@ -215,12 +217,12 @@ presidual_pairs_kernel(const S* __restrict__ u, const S* __restrict__ b,
 // Residual norm, first pass: each block sums r^2 over a grid-stride share
 // of the points of rows [qlo, qhi) and array columns [slo, shi) where `upd`
 // holds, in the first `planes` planes (1: red only), into
-// partial[blockIdx.x], in float64; each point is visited once. r is
-// computed in T, as the plain versions compute it; no residual array is
-// written.
-template <typename T, typename Upd>
+// partial[blockIdx.x], in float64; each point is visited once. u and b are
+// stored in S, each load widened to T, and r is computed in T, as the
+// plain versions compute it; no residual array is written.
+template <typename T, typename Upd, typename S = T>
 __global__ void __launch_bounds__(kLaneThreads)
-presnorm_partial(const T* __restrict__ u, const T* __restrict__ b,
+presnorm_partial(const S* __restrict__ u, const S* __restrict__ b,
                  double* __restrict__ partial, PRect a, Upd upd, int qlo,
                  int qhi, int slo, int shi, Coef<T> cf, int planes) {
   const int cp = a.lanes();
@@ -239,9 +241,9 @@ presnorm_partial(const T* __restrict__ u, const T* __restrict__ b,
     const int lx = 2 * l + p;
     if (lx < slo || lx >= shi || !upd(gy, a.gox + lx)) continue;
     const size_t k = static_cast<size_t>(i) * cp + l;
-    const T res = presidual(u + c * plane, u + (1 - c) * plane,
-                            b[c * plane + k], k, static_cast<size_t>(cp), p,
-                            cf);
+    const T res = presidual<T>(u + c * plane, u + (1 - c) * plane,
+                               widen<T>(b[c * plane + k]), k,
+                               static_cast<size_t>(cp), p, cf);
     acc += static_cast<double>(res) * static_cast<double>(res);
   }
   const double total = block_sum<kLaneThreads>(acc);
@@ -302,15 +304,16 @@ int launch_presidual(const void* u, const void* b, void* out, const PRect& a,
 
 // Both passes of the residual norm over rows [qlo, qhi) and columns
 // [slo, shi) of the array a (`blocks` partials in `partial`), the sum into
-// out[0]; returns the first launch error.
-template <typename T, typename Upd>
+// out[0] in T (float32 for bfloat16 storage S, as the TPU kernel's); returns
+// the first launch error.
+template <typename T, typename Upd, typename S = T>
 int launch_presnorm(const void* u, const void* b, void* partial, void* out,
                     const PRect& a, const Upd& upd, int qlo, int qhi,
                     int slo, int shi, double h, double sigma, int red_only,
                     int blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  presnorm_partial<T, Upd><<<blocks, kLaneThreads, 0, s>>>(
-      static_cast<const T*>(u), static_cast<const T*>(b),
+  presnorm_partial<T, Upd, S><<<blocks, kLaneThreads, 0, s>>>(
+      static_cast<const S*>(u), static_cast<const S*>(b),
       static_cast<double*>(partial), a, upd, qlo, qhi, slo, shi,
       Coef<T>::make(h, sigma, 1.0), red_only ? 1 : 2);
   const int err = static_cast<int>(cudaGetLastError());

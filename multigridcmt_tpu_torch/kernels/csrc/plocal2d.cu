@@ -11,6 +11,9 @@
 //   up_leg              -> plocal2d_up       (up_kernel on a Tile frame)
 //   residual_norm_sq    -> plocal2d_resnorm  (mg::presnorm_partial,
 //                          mg::sum_partials)
+// (the residual's, the apply's and the norm's bfloat16 modes in
+// plocal2d_bf16.cu, the legs' in plocal2d_legs_bf16.cu and
+// plocal2d_up_bf16_f32.cu)
 //
 // A tile is local2d.cu's extended tile (an R x C rectangle of the global
 // padded grid at global (row_off, col_off), kernels/local2d.py) stored

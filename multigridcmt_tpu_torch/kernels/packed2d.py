@@ -34,17 +34,18 @@ Each wrapper has its plain PyTorch version beside it: unpack, the ``ops/``
 composition, pack. Device rule (``_wrap``): a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 
-Mixed precision (the TPU module's ``_cdt`` rule): the legs, the sweeps and
-the residual also take bfloat16 grids, the fine level of a mixed cycle
-(``csrc/packed2d_bf16.cu``, ``packed2d_sweep_bf16.cu``,
+Mixed precision (the TPU module's ``_cdt`` rule): the legs, the sweeps,
+the residual and the norm also take bfloat16 grids, the fine level of a
+mixed cycle (``csrc/packed2d_bf16.cu``, ``packed2d_sweep_bf16.cu``,
 ``packed2d_up_bf16.cu``, ``packed2d_up_bf16_f32.cu``). Every load widens to
 float32, the sweeps and the residual run in float32 and each point is
 rounded to bfloat16 once, on its store; the down leg's residual is that of
 u' as stored, and its coarse right-hand side is float32, as is the up leg's
 coarse correction. The up leg may store x' in float32 (``out_dtype``): the
 top level of a mixed cycle does (``solvers/cycles.py``), where the TPU
-module stores it in bfloat16. The plain versions follow the same rule.
-The fused residual norm takes no bfloat16 grid (no mixed path reaches it).
+module stores it in bfloat16. The fused residual norm returns a float32
+sum; no mixed path of either package reaches it (direct calls). The plain
+versions follow the same rule.
 """
 from __future__ import annotations
 
@@ -56,8 +57,8 @@ import torch
 
 from ..ops import laplacian, smoothers, transfer
 from . import _build
-from ._wrap import check_grid, check_out_dtype, \
-    check_storage, check_tensor, compute_dtype, launch_on, on_cuda
+from ._wrap import check_grid, check_out_dtype, check_tensor, \
+    compute_dtype, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count); the bfloat16 modes apart: the up leg's with a bfloat16 x' and with
@@ -72,6 +73,7 @@ up_bf16_launches = 0
 up_bf16_f32_launches = 0
 residual_bf16_launches = 0
 rbgs_bf16_launches = 0
+resnorm_bf16_launches = 0
 # Of residual_bf16_launches, those of the paired kernel (residual_pairs).
 residual_bf16_pairs_launches = 0
 
@@ -429,8 +431,11 @@ def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
 
 def residual_norm_sq_plain(s, bs, n, h, *, red_only=False, sigma=0.0):
     """Plain PyTorch version: the sum of squares of the unpacked residual
-    (its red points only with ``red_only``)."""
-    r = laplacian.residual(unpack(s), unpack(bs), h, sigma=sigma)
+    (its red points only with ``red_only``), in the compute dtype (from
+    widened grids, summed in float32, for bfloat16 ones)."""
+    cdt = compute_dtype(s.dtype)
+    r = laplacian.residual(unpack(s).to(cdt), unpack(bs).to(cdt), h,
+                           sigma=sigma)
     if red_only:
         r = _zero_black(r)
     return torch.sum(r * r)
@@ -439,23 +444,26 @@ def residual_norm_sq_plain(s, bs, n, h, *, red_only=False, sigma=0.0):
 def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float, *,
                      red_only: bool = False, sigma=0.0) -> torch.Tensor:
     """||b - (A - sigma I) u||^2 on packed grids, without writing the
-    residual; a 0-d tensor of the grids' dtype. ``red_only`` sums the red
+    residual; a 0-d tensor of the compute dtype (the grids' own, float32
+    for bfloat16 grids, as the TPU kernel's). ``red_only`` sums the red
     points only, which is exact when u has just finished an RB-GS sweep."""
-    global resnorm_launches
-    check_storage("packed2d.residual_norm_sq", s)
+    global resnorm_launches, resnorm_bf16_launches
     _check_fine(n)
-    check_tensor("u", s, packed_shape(n), s)
-    check_tensor("b", bs, packed_shape(n), s)
+    check_tensor("u", s, packed_shape(n), s, storage=True)
+    check_tensor("b", bs, packed_shape(n), s, storage=True)
     if not on_cuda(s):
         return residual_norm_sq_plain(s, bs, n, h, red_only=red_only,
                                       sigma=sigma)
     partial = torch.empty(RESNORM_BLOCKS, dtype=torch.float64,
                           device=s.device)
-    out = torch.empty((), dtype=s.dtype, device=s.device)
+    out = torch.empty((), dtype=compute_dtype(s.dtype), device=s.device)
     launch_on(s, "packed2d_resnorm", s.data_ptr(), bs.data_ptr(),
               partial.data_ptr(), out.data_ptr(), n, float(h), float(sigma),
               int(red_only), RESNORM_BLOCKS, writes=(out,))
-    resnorm_launches += 1
+    if s.dtype == torch.bfloat16:
+        resnorm_bf16_launches += 1
+    else:
+        resnorm_launches += 1
     return out
 
 

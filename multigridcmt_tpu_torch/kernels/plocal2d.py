@@ -49,23 +49,26 @@ of a sharded mixed cycle (``csrc/plocal2d_legs_bf16.cu``,
 registers, u' and x' rounded to bfloat16 once on their store (x' in float32
 with ``out_dtype``), the down leg's residual that of u' as stored, the
 coarse right-hand side and correction in float32. The residual, the apply
-and the norm take no bfloat16 tile: the sharded MG-PCG applies A and takes
-its residual at full precision, as JAX's does.
+and the norm take bfloat16 tiles by the same rule
+(``csrc/plocal2d_bf16.cu``): r and (A - sigma I) u rounded once, the norm
+a float32 sum. No path of either package runs those three in bfloat16
+(the sharded MG-PCG applies A and takes its residual at full precision):
+direct calls.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build, local2d, packed2d
-from ._wrap import check_out_dtype, check_storage, \
-    check_tensor, compute_dtype, launch_on, on_cuda
+from ._wrap import check_out_dtype, check_tensor, compute_dtype, \
+    launch_on, on_cuda
 from .local2d import HALO_ROWS, max_down_sweeps, max_up_sweeps
 from .packed2d import RESNORM_BLOCKS
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count): the residual kernel with the b stream (residual) and without it
-# (apply_op), each leg and the norm; the legs' bfloat16 modes apart, as
-# local2d counts them.
+# (apply_op), each leg and the norm; the bfloat16 modes apart, as local2d
+# counts them.
 residual_launches = 0
 apply_launches = 0
 down_launches = 0
@@ -74,6 +77,9 @@ resnorm_launches = 0
 down_bf16_launches = 0
 up_bf16_launches = 0
 up_bf16_f32_launches = 0
+residual_bf16_launches = 0
+apply_bf16_launches = 0
+resnorm_bf16_launches = 0
 
 
 def _layout(cpar: int):
@@ -125,14 +131,21 @@ def _red(r, n, row_off, col_off):
 
 
 def residual_plain(s, bs, n, h, row_off, col_off=0, sigma=0.0):
-    """Plain PyTorch version of ``residual``."""
+    """Plain PyTorch version of ``residual``: in the compute dtype (from
+    widened tiles for bfloat16 ones, rounded once to bfloat16 at the end,
+    the TPU kernel's rule; ``local2d.residual_plain`` on bfloat16 tiles
+    would round every operation)."""
+    cdt = compute_dtype(s.dtype)
     u, b = _unpacked(n, col_off, s, bs)
-    return pack_ext(local2d.residual_plain(u, b, n, h, row_off, col_off,
-                                           sigma=sigma), col_off % 2)
+    r = local2d.residual_plain(u.to(cdt), b.to(cdt), n, h, row_off, col_off,
+                               sigma=sigma)
+    return pack_ext(r, col_off % 2).to(s.dtype)
 
 
 def apply_op_plain(s, n, h, row_off, col_off=0, sigma=0.0):
-    """Plain PyTorch version of ``apply_op``: -residual(u, 0)."""
+    """Plain PyTorch version of ``apply_op``: -residual(u, 0) (rounding
+    to nearest even is odd-symmetric, so a bfloat16 apply rounds as the
+    kernel's (A - sigma I) u)."""
     return -residual_plain(s, torch.zeros_like(s), n, h, row_off, col_off,
                            sigma=sigma)
 
@@ -180,9 +193,12 @@ def residual_norm_sq_plain(s, bs, n, h, m, row_off, col_off=0, *, mcol=0,
                            red_only=False, sigma=0.0):
     """Plain PyTorch version of ``residual_norm_sq``: the sum of squares of
     the unpacked residual over the owned points (red ones with
-    ``red_only``)."""
+    ``red_only``), in the compute dtype (from widened tiles, summed in
+    float32, for bfloat16 ones)."""
+    cdt = compute_dtype(s.dtype)
     u, b = _unpacked(n, col_off, s, bs)
-    r = local2d.residual_plain(u, b, n, h, row_off, col_off, sigma=sigma)
+    r = local2d.residual_plain(u.to(cdt), b.to(cdt), n, h, row_off, col_off,
+                               sigma=sigma)
     if red_only:
         r = _red(r, n, row_off, col_off)
     hh = HALO_ROWS
@@ -214,13 +230,11 @@ def leg_geometry(leg: str, rows: int, cols: int, n: int, row_off: int,
                                  **_frame(rows, cols, row_off, col_off))
 
 
-def _check_packed(what: str, s: torch.Tensor, b, n: int, col_off: int,
-                  storage: bool = False) -> int:
+def _check_packed(what: str, s: torch.Tensor, b, n: int,
+                  col_off: int) -> int:
     """Raise unless s (and b, if given) is a packed tile whose unpacked
-    width fits ``col_off``'s decomposition, float32 or float64 (or with
-    ``storage``, the legs, bfloat16 too); returns that width."""
-    if not storage:
-        check_storage(what, s)
+    width fits ``col_off``'s decomposition, float32, float64 or bfloat16;
+    returns that width."""
     if s.ndim != 3 or s.shape[0] != 2 or s.shape[1] < 3 or s.shape[2] < 2:
         raise ValueError(f"{what}: expected a packed (2, R, lanes) tile, "
                          f"got shape {tuple(s.shape)}")
@@ -231,16 +245,16 @@ def _check_packed(what: str, s: torch.Tensor, b, n: int, col_off: int,
         raise ValueError(f"{what}: a row tile (col_off 0) of n={n} has "
                          f"{(c + 1) // 2} lanes, got {s.shape[2]} lanes and "
                          f"col_off {col_off}")
-    check_tensor("u", s, s.shape, s, storage=storage)
+    check_tensor("u", s, s.shape, s, storage=True)
     if b is not None:
-        check_tensor("b", b, s.shape, s, storage=storage)
+        check_tensor("b", b, s.shape, s, storage=True)
     return c
 
 
 def _check_leg(what, s, b, n, m, mcol, col_off):
     """The coarse tile's shape of a leg on packed tile s (float32, float64
     or bfloat16)."""
-    c = _check_packed(what, s, b, n, col_off, storage=True)
+    c = _check_packed(what, s, b, n, col_off)
     if (mcol == 0) != (col_off % 2 == 0):
         raise ValueError(f"{what}: mcol={mcol} and col_off={col_off} are "
                          "not one decomposition (rows: 0 and 0; blocks: "
@@ -262,26 +276,34 @@ def _residual(s, b, c, n, h, row_off, col_off, sigma):
 def residual(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
              row_off: int, col_off: int = 0, sigma=0.0) -> torch.Tensor:
     """r = b - (A - sigma I) u on a packed extended tile; zero off the
-    global interior, on the tile's ring and in pad lanes."""
-    global residual_launches
+    global interior, on the tile's ring and in pad lanes. bfloat16 tiles:
+    computed in float32, r stored in bfloat16, as the TPU kernel's."""
+    global residual_launches, residual_bf16_launches
     c = _check_packed("plocal2d.residual", s, bs, n, col_off)
     if not on_cuda(s):
         return residual_plain(s, bs, n, h, row_off, col_off, sigma=sigma)
     out = _residual(s, bs, c, n, h, row_off, col_off, sigma)
-    residual_launches += 1
+    if s.dtype == torch.bfloat16:
+        residual_bf16_launches += 1
+    else:
+        residual_launches += 1
     return out
 
 
 def apply_op(s: torch.Tensor, n: int, h: float, row_off: int,
              col_off: int = 0, sigma=0.0) -> torch.Tensor:
     """(A - sigma I) u on a packed extended tile, -residual(u, 0) without
-    reading a b; ghosts need to be exact to depth 1."""
-    global apply_launches
+    reading a b; ghosts need to be exact to depth 1. bfloat16 tiles as
+    ``residual``."""
+    global apply_launches, apply_bf16_launches
     c = _check_packed("plocal2d.apply_op", s, None, n, col_off)
     if not on_cuda(s):
         return apply_op_plain(s, n, h, row_off, col_off, sigma=sigma)
     out = _residual(s, None, c, n, h, row_off, col_off, sigma)
-    apply_launches += 1
+    if s.dtype == torch.bfloat16:
+        apply_bf16_launches += 1
+    else:
+        apply_launches += 1
     return out
 
 
@@ -381,10 +403,11 @@ def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
                      sigma=0.0) -> torch.Tensor:
     """||b - (A - sigma I) u||^2 over the owned points of a packed extended
     tile (each once), without writing the residual; a 0-d tensor of the
-    tile's dtype (the sum over the mesh is the caller's). Requires ghosts
+    compute dtype (the tile's own, float32 for bfloat16 tiles, as the TPU
+    kernel's; the sum over the mesh is the caller's). Requires ghosts
     exact to depth 1. ``red_only`` sums the red points only, which is exact
     when u has just finished an RB-GS sweep."""
-    global resnorm_launches
+    global resnorm_launches, resnorm_bf16_launches
     c = _check_packed("plocal2d.residual_norm_sq", s, bs, n, col_off)
     if not (0 < m <= s.shape[1] - 2 * HALO_ROWS
             and 0 <= mcol <= c - 2 * HALO_ROWS):
@@ -398,11 +421,14 @@ def residual_norm_sq(s: torch.Tensor, bs: torch.Tensor, n: int, h: float,
     cols = (hh, hh + mcol) if mcol else (0, c)
     partial = torch.empty(RESNORM_BLOCKS, dtype=torch.float64,
                           device=s.device)
-    out = torch.empty((), dtype=s.dtype, device=s.device)
+    out = torch.empty((), dtype=compute_dtype(s.dtype), device=s.device)
     launch_on(s, "plocal2d_resnorm", s.data_ptr(), bs.data_ptr(),
               partial.data_ptr(), out.data_ptr(), s.shape[1], c, n,
               int(row_off), int(col_off), hh, hh + m, cols[0], cols[1],
               float(h), float(sigma), int(red_only), RESNORM_BLOCKS,
               writes=(out,))
-    resnorm_launches += 1
+    if s.dtype == torch.bfloat16:
+        resnorm_bf16_launches += 1
+    else:
+        resnorm_launches += 1
     return out

@@ -1,23 +1,27 @@
 """Hold the paired bfloat16 kernels (the 3D RB-GS and Jacobi sweeps' paired
-marches and the packed residual's word kernel) against other trees'
-builds, bit for bit, and time them in turns, on one CUDA card.
+marches and the packed residual's word kernel), and the float32 and
+float64 kernels that took a storage type for a bfloat16 mode (the BELL
+SpMM and the residual norms), against other trees' builds, bit for bit,
+and time them in turns, on one CUDA card.
 
     python -m multigridcmt_tpu_torch.utils.bf16_kernels OTHER [OTHER ...] \\
         [--json PATH]
 
 Each OTHER is the root of another checkout of the repository (the parent
 commit unpacked with ``git archive`` into the git-ignored
-``.chip_scratch/``). SOURCES (the stencil3d and
-packed2d sources and plocal2d.cu, which hold every kernel of
-csrc/stencil3d.cuh and csrc/packed_tile.cuh) of this tree and of each OTHER
+``.chip_scratch/``). SOURCES (the stencil3d and packed2d sources,
+plocal2d.cu and plocal2d_bf16.cu, which hold every kernel of
+csrc/stencil3d.cuh and csrc/packed_tile.cuh, and bell.cu) that a tree has
 are compiled, each by its own nvcc with the library's flags and ``-Xptxas
 -v``, all at once, and linked into a library a tree; the port's wrappers
 launch into this tree's. Then:
 
 1. ptxas: the registers and spill bytes of every float32 and float64
-   kernel of stencil3d.cuh and packed_tile.cuh (by mangled name from the
-   kernel's own name on) of this build against the first OTHER's; the
-   bfloat16 kernels' lines of every library side by side.
+   kernel of stencil3d.cuh, packed_tile.cuh and bell.cu (by mangled name
+   from the kernel's own name on; presnorm_partial and bell_spmm_kernel,
+   whose float names gained the storage type, by kernel, type and update
+   rule or m-tile) of this build against the first OTHER's; the bfloat16
+   kernels' lines of every library side by side.
 2. Bits: the bfloat16 RB-GS sweep storing bfloat16 and float32 (sigma 0
    and 11.5) at 511^3 (the paired march here) and on two 511^3 plane
    stacks, one with goff + roff even (paired) and one odd (the scalar
@@ -26,8 +30,13 @@ launch into this tree's. Then:
    (JACOBI_STACKS; the paired Jacobi march here, on r odd and r even), and
    storing float32 at 511^3 (the scalar march everywhere); the stencil3d
    bfloat16 residual at 511^3; the bfloat16 packed residual (sigma 0 and
-   11.5) at 4095^2 and 511^2; on the same inputs in each library, bit for
-   bit. A call is replayed through ctypes with the arguments this tree's
+   11.5) at 4095^2 and 511^2; the float32 and float64 residual norms
+   (the whole grid's at 4095^2 and 255^2, the packed tile's on S1's fine
+   tile, an 8-way row rank and a 2x2 block rank (float64: ranks of
+   255^2), red only and both planes, sigma 0 and 11.5) and BELL SpMMs (the
+   bench matrix at m = 128 and 8, with NaN and Inf in Xt's first block
+   column, and 4 x 3 blocks in float64 at m = 16); on the same inputs in
+   each library, bit for bit. A call is replayed through ctypes with the arguments this tree's
    wrapper passed (captured once); an OTHER that predates a paired march
    takes the scalar march's geometry (march_geometry unpaired), which is
    what its own wrapper passes.
@@ -38,9 +47,10 @@ launch into this tree's. Then:
    and the profiler's device time a call; beside the bound (its inputs
    read once and outputs written once at 3.35 TB/s). The bfloat16 Jacobi
    sweep also on the two JACOBI_STACKS. The float32 sweep and residual of
-   stencil3d at 511^3 and the float32 packed residual at 4095^2 (the main
-   path's) are timed from this library and the first OTHER's the same
-   way.
+   stencil3d at 511^3, the float32 packed residual and red-only norm at
+   4095^2 (the main path's), the plocal2d red-only norm at S1's tile and
+   the float32 BELL SpMM at the bench shape are timed from this library
+   and the first OTHER's the same way.
 4. Cycles: the mixed Jacobi paths' preconditioning cycle at 511^3
    (slab511-mixed-jacobi and pencil511-mixed-jacobi on a mesh of 1: a
    sharded cycle from zero on the defect in bfloat16, storing float32 at
@@ -74,7 +84,8 @@ from pathlib import Path
 
 import torch
 
-from multigridcmt_tpu_torch.kernels import _build, packed2d, stencil3d
+from multigridcmt_tpu_torch.kernels import (_build, bell, local2d, packed2d,
+                                            plocal2d, stencil3d)
 from multigridcmt_tpu_torch.utils.bf16_legs import (LEG_CHAIN,
                                                     PEAK_BYTES_PER_S, Call,
                                                     bits, finish_build,
@@ -84,10 +95,15 @@ from multigridcmt_tpu_torch.utils.breakdown import device_busy
 from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
 SOURCES = ("stencil3d.cu", "stencil3d_bf16.cu", "packed2d.cu",
-           "packed2d_bf16.cu", "plocal2d.cu", "stencil2d.cu")
+           "packed2d_bf16.cu", "plocal2d.cu", "plocal2d_bf16.cu",
+           "stencil2d.cu", "bell.cu")
 KERNEL = re.compile(r"(rbgs_pairs_kernel|rbgs_kernel|jacobi_pairs_kernel|"
                     r"pass_kernel|presidual_pairs_kernel|presidual_kernel|"
-                    r"presnorm_partial|sum_partials)\w*")
+                    r"presnorm_partial|sum_partials|bell_spmm_kernel)\w*")
+# The kernels whose float32/float64 names gained a storage type S = T: a
+# name's (kernel, type, update rule or m-tile).
+RENAMED = re.compile(r"(presnorm_partial)I([fd])NS_\d+([A-Za-z]+?)E[fd]?E|"
+                     r"(bell_spmm_kernel)I([fd])[fd]?Li(\d+)E")
 BF, F32 = torch.bfloat16, torch.float32
 N3, N2 = 511, 4095
 SIGMA = 11.5
@@ -110,8 +126,10 @@ JACOBI_KERNELS = re.compile(r"(?<!\w)(jacobi_pairs_kernel<|"
 
 def ptxas_lines(text: str) -> dict:
     """{mangled name from the kernel's own name on: sorted [(registers,
-    spill bytes)], one a translation unit} of the stencil3d.cuh and
-    packed_tile.cuh kernels in ptxas's -v output."""
+    spill bytes)], each line once (a kernel compiled in several
+    translation units, as sum_partials, has one line each)} of the
+    stencil3d.cuh, packed_tile.cuh and bell.cu kernels in ptxas's -v
+    output."""
     props, name, spill = {}, None, 0
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -127,7 +145,21 @@ def ptxas_lines(text: str) -> dict:
         if m and name:
             props.setdefault(name, []).append((int(m.group(1)), spill))
             name = None
-    return {k: sorted(v) for k, v in props.items()}
+    return {k: sorted(set(v)) for k, v in props.items()}
+
+
+def tree_sources(root: Path) -> tuple:
+    """The SOURCES that the tree at ``root`` has (an older tree lacks the
+    newer bfloat16 files)."""
+    csrc = root / "multigridcmt_tpu_torch" / "kernels" / "csrc"
+    return tuple(name for name in SOURCES if (csrc / name).is_file())
+
+
+def ptxas_key(name: str):
+    """A kernel's name for comparing builds: RENAMED's (kernel, type, rule
+    or m-tile), else the name itself."""
+    m = RENAMED.match(name)
+    return tuple(g for g in m.groups() if g) if m else name
 
 
 def compare_ptxas(mine: str, others: dict, first: str) -> tuple:
@@ -135,15 +167,20 @@ def compare_ptxas(mine: str, others: dict, first: str) -> tuple:
     kernels against ``first``'s."""
     fails, lines = [], {}
     own = ptxas_lines(mine)
+    own_keys = {ptxas_key(k): v for k, v in own.items()}
     for label, text in others.items():
         theirs = ptxas_lines(text)
         full = ([k for k in theirs if "__nv_bfloat16" not in k]
                 if label == first else [])
-        differ = [k for k in full if own.get(k) != theirs[k]]
+        differ = [k for k in full if own_keys.get(ptxas_key(k)) != theirs[k]]
+        for k in full:
+            if isinstance(ptxas_key(k), tuple):
+                log(f"ptxas {' '.join(map(str, ptxas_key(k)))}: {label} "
+                    f"{theirs[k]}, this {own_keys.get(ptxas_key(k))}")
         log(f"ptxas {label}: {len(full)} float32/float64 kernels, "
             f"{len(full) - len(differ)} equal, {len(differ)} differ")
-        fails += [f"ptxas {label} {k}: {theirs[k]} against {own.get(k)}"
-                  for k in differ]
+        fails += [f"ptxas {label} {k}: {theirs[k]} against "
+                  f"{own_keys.get(ptxas_key(k))}" for k in differ]
         for k, v in theirs.items():
             if "__nv_bfloat16" in k:
                 lines.setdefault(k, {})[label] = v
@@ -207,14 +244,19 @@ def cut(g, goff: int, roff: int, p: int, r: int):
     return s
 
 
-def packed(n: int, seed: int):
+def packed(n: int, seed: int, dtype=None):
+    """Packed u, b (b of 1/h^2 size) in bfloat16, or in ``dtype`` with the
+    grid's h^2 b as well."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    u = torch.zeros((n + 2, n + 2), device="cuda")
+    u = torch.zeros((n + 2, n + 2), device="cuda", dtype=dtype or F32)
     b = torch.zeros_like(u)
-    u[1:-1, 1:-1] = torch.randn((n, n), generator=gen, device="cuda")
-    b[1:-1, 1:-1] = torch.randn((n, n), generator=gen,
-                                device="cuda") * float((n + 1) ** 2)
-    return packed2d.pack(u).to(BF), packed2d.pack(b).to(BF)
+    u[1:-1, 1:-1] = torch.randn((n, n), generator=gen, device="cuda",
+                                dtype=u.dtype)
+    b[1:-1, 1:-1] = torch.randn((n, n), generator=gen, device="cuda",
+                                dtype=u.dtype) * float((n + 1) ** 2)
+    if dtype is None:
+        return packed2d.pack(u).to(BF), packed2d.pack(b).to(BF)
+    return packed2d.pack(u), packed2d.pack(b)
 
 
 def sweep_call(u, b, sigma, out_dtype, goff=0, roff=0) -> Replay:
@@ -250,9 +292,135 @@ def residual_call(u, b, n, sigma) -> Replay:
                                             sigma=sigma), (u, b))
 
 
+def kept_call(run, inputs) -> Replay:
+    """``Replay(run, inputs)`` that keeps alive the scratch its wrapper
+    allocates with torch.empty (the norms' partial sums), which every
+    replay's arguments point to."""
+    kept, real = [], torch.empty
+
+    def keeping(*args, **kw):
+        t = real(*args, **kw)
+        kept.append(t)
+        return t
+
+    torch.empty = keeping
+    try:
+        call = Replay(run, inputs)
+    finally:
+        torch.empty = real
+    call.keep = (call.keep, kept)
+    return call
+
+
+def bench_bell(dtype):
+    """The SpMV bench's blocked-ELL matrix (64 x 64 blocks of 128^2 N(0,1)
+    values at density 0.15 plus the block diagonal, seed 1, as
+    chip_smoke.py's bell_bench_host) and its Xt (128, 8192), on the card."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(1)
+    mask = rng.random((64, 64)) < 0.15
+    mask[np.arange(64), np.arange(64)] = True
+    blocks = {(i, j): rng.standard_normal((128, 128)).astype(np.float32)
+              for i, j in zip(*np.nonzero(mask))}
+    a_sp = sp.bmat([[sp.csr_matrix(blocks[(i, j)]) if (i, j) in blocks
+                     else None for j in range(64)] for i in range(64)],
+                   format="csr")
+    xt = rng.standard_normal((128, 64 * 128)).astype(np.float32)
+    return (bell.bell_from_scipy(a_sp, dtype=dtype, device="cuda"),
+            torch.from_numpy(xt).to(device="cuda", dtype=dtype))
+
+
+def tile(n: int, dtype, ranks, rank, seed: int):
+    """One rank's packed extended tiles of u and b (b of 1/h^2 size) in a
+    row split (``ranks[1] == 0``) or block split of the padded n^2 grid,
+    and (m, mcol, row_off, col_off)."""
+    hh = local2d.HALO_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = [torch.zeros((n + 2, n + 2), dtype=dtype, device="cuda")
+         for _ in range(2)]
+    for k, x in enumerate(g):
+        x[1:-1, 1:-1] = torch.randn((n, n), generator=gen, device="cuda",
+                                    dtype=dtype) * float((n + 1) ** (2 * k))
+    m = (n + 1) // ranks[0]
+    mcol = (n + 1) // ranks[1] if ranks[1] else 0
+    row_off = rank[0] * m + 1 - hh
+    col_off = rank[1] * mcol + 1 - hh if ranks[1] else 0
+    rows, cols = m + 2 * hh, (mcol + 2 * hh if mcol else n + 2)
+    out = []
+    for x in g:
+        t = torch.zeros((rows, cols), dtype=dtype, device="cuda")
+        r0, c0 = max(row_off, 0), max(col_off, 0)
+        r1, c1 = min(row_off + rows, n + 2), min(col_off + cols, n + 2)
+        t[r0 - row_off:r1 - row_off, c0 - col_off:c1 - col_off] = \
+            x[r0:r1, c0:c1]
+        out.append(plocal2d.pack_ext(t, 1 if mcol else 0))
+    return out, (m, mcol, row_off, col_off)
+
+
+def float_calls() -> list:
+    """(label, make) of the float32 and float64 norm and BELL cases held
+    bit for bit (step 2)."""
+    calls = []
+    for dtype, n in ((F32, N2), (torch.float64, 255)):
+        u, b = packed(n, 30 + n, dtype)
+        for ro in (True, False):
+            for sigma in (0.0, SIGMA):
+                calls.append((
+                    f"packed2d norm {dtype} n={n} red_only={ro} "
+                    f"sigma={sigma}",
+                    lambda u=u, b=b, n=n, ro=ro, s=sigma: kept_call(
+                        lambda: packed2d.residual_norm_sq(
+                            u, b, n, 1.0 / (n + 1), red_only=ro, sigma=s),
+                        (u, b))))
+    for dtype, n, ranks, rank in ((F32, N2, (1, 0), (0, 0)),
+                                  (F32, N2, (8, 0), (3, 0)),
+                                  (F32, 2047, (2, 2), (1, 1)),
+                                  (torch.float64, 255, (2, 0), (1, 0)),
+                                  (torch.float64, 255, (2, 2), (1, 1))):
+        (u, b), (m, mcol, ro_, co) = tile(n, dtype, ranks, rank, n + 40)
+        for ro in (True, False):
+            for sigma in (0.0, SIGMA):
+                calls.append((
+                    f"plocal2d norm {dtype} n={n} rank {rank} of {ranks} "
+                    f"red_only={ro} sigma={sigma}",
+                    lambda u=u, b=b, n=n, m=m, mcol=mcol, ro_=ro_, co=co,
+                    ro=ro, s=sigma: kept_call(
+                        lambda: plocal2d.residual_norm_sq(
+                            u, b, n, 1.0 / (n + 1), m, ro_, co, mcol=mcol,
+                            red_only=ro, sigma=s), (u, b))))
+    for dtype in (F32, torch.float64):
+        a, xt = bench_bell(dtype)
+        xn = xt.clone()
+        xn[0, 5] = float("nan")
+        xn[127, 100] = float("inf")
+        xn[3, 127] = -float("inf")
+        for m in (128, 8):
+            for x, what in ((xt, ""), (xn, " NaN and Inf")):
+                xm = x[:m].contiguous()
+                calls.append((f"bell {dtype} bench m={m}{what}",
+                              lambda a=a, xm=xm: kept_call(
+                                  lambda: bell.spmm(a, xm), (xm,))))
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(17)
+    dense = np.zeros((4 * 128, 3 * 128))
+    for i, j in zip(*np.nonzero(rng.random((4, 3)) < 0.6)):
+        dense[i * 128:(i + 1) * 128, j * 128:(j + 1) * 128] = \
+            rng.standard_normal((128, 128))
+    a = bell.bell_from_scipy(sp.csr_matrix(dense), dtype=torch.float64,
+                             kmax=3, device="cuda")
+    xt = torch.from_numpy(rng.standard_normal((16, 3 * 128))).cuda()
+    calls.append(("bell float64 4x3 blocks m=16",
+                  lambda: kept_call(lambda: bell.spmm(a, xt), (xt,))))
+    return calls
+
+
 def check_bits(libs: dict) -> tuple:
-    """(comparisons, failures): every bfloat16 case in each library
-    against this one."""
+    """(comparisons, failures): every bfloat16 case, and every float32 and
+    float64 case of float_calls, in each library against this one."""
     u, b = cube(20)
     calls = []
     for sigma in (0.0, SIGMA):
@@ -286,6 +454,7 @@ def check_bits(libs: dict) -> tuple:
             calls.append((f"residual n={n} sigma={sigma}",
                           lambda pu=pu, pb=pb, n=n, s=sigma:
                           residual_call(pu, pb, n, s)))
+    calls += float_calls()
     checks, fails = 0, []
     for what, make in calls:
         call = make()
@@ -315,6 +484,8 @@ def timed(libs: dict, first: str) -> dict:
                                dict(goff=goff, roff=roff))
     pu, pb = packed(N2, 22)
     fpu, fpb = pu.float(), pb.float()
+    (tu, tb), (tm, _, t_off, _) = tile(N2, F32, (1, 0), (0, 0), 24)
+    ab, xt = bench_bell(F32)
     h3, h2 = 1.0 / (N3 + 1), 1.0 / (N2 + 1)
     modes = {
         "stencil3d_rbgs_bf16": (sweep_call(u, b, 0.0, None),
@@ -350,6 +521,11 @@ def timed(libs: dict, first: str) -> dict:
             fu, fb, N3, h3), (fu, fb)),
         "packed2d_residual_f32": Call(lambda: packed2d.residual(
             fpu, fpb, N2, h2), (fpu, fpb)),
+        "packed2d_resnorm_f32": kept_call(lambda: packed2d.residual_norm_sq(
+            fpu, fpb, N2, h2, red_only=True), (fpu, fpb)),
+        "plocal2d_resnorm_f32": kept_call(lambda: plocal2d.residual_norm_sq(
+            tu, tb, N2, h2, tm, t_off, red_only=True), (tu, tb)),
+        "bell_spmm_f32": kept_call(lambda: bell.spmm(ab, xt), (xt,)),
     }
     for name, call in main.items():
         row = in_turns({label: call.fn(libs[label])
@@ -455,7 +631,8 @@ def main() -> int:
         t0 = time.perf_counter()
         labels = [p.name for p in opt.others]
         roots = dict([("this", root), *zip(labels, opt.others)])
-        started = {label: start_build(r, Path(tmp) / label, False, SOURCES)
+        started = {label: start_build(r, Path(tmp) / label, False,
+                                      tree_sources(r))
                    for label, r in roots.items()}
         libs, texts = {}, {}
         for label, procs in started.items():

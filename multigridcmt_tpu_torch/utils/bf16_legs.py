@@ -217,7 +217,8 @@ class Call:
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 def inputs():

@@ -19,6 +19,15 @@ version has them. Cases: padding blocks, an unsorted ``cols``, a real
 block at block column 0, NaN and Inf in Xt's first block column, m = 8 and
 m = 128 (and the mid and partial m-tiles). The launch constants are read
 from the kernel source.
+
+bfloat16 storage (JAX's _cdt rule: a float32 accumulator, Yt rounded
+once) takes slices of 64 block columns, 8 values a 16-byte chunk: the
+schedule runs in float32 on the widened values (a product of two bfloat16
+is exact there), the result is rounded to bfloat16 once and held against
+``bell.spmm_plain`` by tests/test_torch_mixed.py's bfloat16 rule (within
+one bfloat16 ulp plus BF16_SCALE_TOL of the largest value, at most
+BF16_SHARE of the values differing), NaN and Inf where the plain version
+has them.
 """
 import re
 
@@ -32,17 +41,25 @@ from multigridcmt_tpu.kernels import bell as jbell
 from multigridcmt_tpu_torch.kernels import _build, bell
 
 
+BF16_SCALE_TOL = 1e-5
+BF16_SHARE = 1e-3
+
+
 def _emulate_spmm(a: bell.BELL, xt: torch.Tensor, g: bell.SpmmGeometry):
     """csrc/bell.cu's kernel on geometry g, cluster by cluster; returns
-    (Yt, slices multiplied, slices skipped)."""
-    data, cols, x = a.data.numpy(), a.cols.numpy(), xt.numpy()
+    (Yt, slices multiplied, slices skipped). Sums in float64, or for
+    bfloat16 storage in float32 on the widened values (Yt unrounded)."""
+    acc_t = np.float32 if xt.dtype == torch.bfloat16 else np.float64
+    data, cols = a.data.to(torch.float64).numpy().astype(acc_t), \
+        a.cols.numpy()
+    x = xt.to(torch.float64).numpy().astype(acc_t)
     nbr, kmax = cols.shape
     m = x.shape[0]
     mt_, cl, kc, cs = g.m_tile, g.cluster, g.slice_cols, g.col_groups
     cc = kc // cs
     slices = bell.BN // kc
     assert (bell.BM // g.rows) * (mt_ // g.vectors) * cs == bell.THREADS
-    yt = np.full((m, nbr * bell.BM), np.nan)
+    yt = np.full((m, nbr * bell.BM), np.nan, acc_t)
     writes = np.zeros(yt.shape, dtype=int)
     walked = np.zeros((g.m_tiles, nbr, kmax, slices), dtype=int)
     done = skipped = 0
@@ -50,12 +67,12 @@ def _emulate_spmm(a: bell.BELL, xt: torch.Tensor, g: bell.SpmmGeometry):
         for mt in range(g.m_tiles):
             j0 = mt * mt_
             # The X tile as staged: rows past m zero-filled.
-            xs = np.zeros((mt_, x.shape[1]))
+            xs = np.zeros((mt_, x.shape[1]), acc_t)
             live = min(mt_, m - j0)
             xs[:live] = x[j0:j0 + live]
             partials = []
             for q in range(cl):
-                acc = np.zeros((cs, mt_, bell.BM))
+                acc = np.zeros((cs, mt_, bell.BM), acc_t)
                 # Rank q's slices: q, q + cl, ... of the block row's walk.
                 for s_ in range(q, kmax * slices, cl):
                     k, c0 = divmod(s_, slices)
@@ -181,6 +198,51 @@ def test_schedule_matches_plain(nbr, nbc, dens, pad, m, nonfinite, rev,
         assert np.isnan(got[0, i * 128:(i + 1) * 128]).all()
 
 
+def _bf16_same(got, want):
+    """got (the emulation rounded to bfloat16) against want (the plain
+    version's bfloat16 Yt): NaN and +-Inf where want has them; the finite
+    values by the module's bfloat16 rule."""
+    g, w = got.double().numpy(), want.double().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_array_equal(np.isposinf(g), np.isposinf(w))
+    np.testing.assert_array_equal(np.isneginf(g), np.isneginf(w))
+    fin = np.isfinite(w)
+    g, w = g[fin], w[fin]
+    diff = np.abs(g - w)
+    _, ex = np.frexp(w)
+    ulp = np.where(w != 0, np.ldexp(1.0, ex - 8), 0.0)
+    assert np.all(diff <= ulp + BF16_SCALE_TOL * np.abs(w).max())
+    assert np.mean(diff > 0) <= BF16_SHARE
+
+
+@pytest.mark.parametrize("nbr,nbc,dens,pad,m,nonfinite,rev,col0", [
+    CASES[0], CASES[3], CASES[5], CASES[6], CASES[7]])
+def test_schedule_matches_plain_bf16(nbr, nbc, dens, pad, m, nonfinite, rev,
+                                     col0):
+    """bfloat16 storage: slices of 64 block columns (8 values a 16-byte
+    chunk), the same cluster split and column groups, each slice walked
+    once, padding slices skipped where Xt is finite; held against
+    spmm_plain by the bfloat16 rule."""
+    a_sp = _block_random(nbr, nbc, dens, 7 * nbr + nbc + m, col0)
+    tight = bell.bell_from_scipy(a_sp, device="cpu")
+    a = bell.bell_from_scipy(a_sp, dtype=torch.bfloat16,
+                             kmax=tight.kmax + pad, device="cpu")
+    if rev:
+        a = _reversed(a)
+    xt = _xt(m, nbc * 128, m + nbr, nonfinite).to(torch.bfloat16)
+    g = bell.launch_geometry(a.nbr, a.kmax, m, torch.bfloat16)
+    assert (g.slice_cols, bell.SLICE_BYTES // g.slice_cols) == (64, 2)
+    got, done, skipped = _emulate_spmm(a, xt, g)
+    assert got.dtype == np.float32
+    _bf16_same(torch.from_numpy(got).to(torch.bfloat16),
+               bell.spmm_plain(a, xt))
+    stored = a.nbr * a.kmax * g.m_tiles * (bell.BN // g.slice_cols)
+    assert done + skipped == stored
+    padding = (a.data.reshape(a.nbr, a.kmax, -1) == 0).all(-1)
+    if padding.any() and not nonfinite:
+        assert skipped >= int(padding.sum()) * (bell.BN // g.slice_cols)
+
+
 @pytest.mark.parametrize("m,nonfinite", [(8, False), (16, True),
                                          (128, True)])
 def test_schedule_matches_jax(m, nonfinite):
@@ -201,12 +263,15 @@ def test_schedule_matches_jax(m, nonfinite):
     _same(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
 def test_m_tile_choice(dtype):
     """The m-tile is the least of the dtype's tiles that holds m, else the
     largest, several of it: the SpMV carrier (m = 8) computes an 8-row
-    tile, not a 32-row one. The thread groups fill the CTA."""
-    wide = 128 if dtype == torch.float32 else 32
+    tile, not a 32-row one. The thread groups fill the CTA. bfloat16 takes
+    float32's m-tiles and register tiles (its accumulator is float32) on
+    slices of 64 block columns."""
+    wide = 32 if dtype == torch.float64 else 128
     for m, tile in ((8, 8), (16, 32), (32, 32), (40, wide), (64, wide),
                     (128, wide), (136, wide), (512, wide)):
         g = bell.launch_geometry(64, 18, m, dtype)
@@ -214,10 +279,15 @@ def test_m_tile_choice(dtype):
         assert (bell.BM // g.rows) * (tile // g.vectors) * g.col_groups \
             == bell.THREADS
         # A column group takes whole 16-byte chunks of a slice.
-        per = 4 if dtype == torch.float32 else 2
+        per = {torch.float32: 4, torch.float64: 2, torch.bfloat16: 8}[dtype]
         assert g.slice_cols % (g.col_groups * per) == 0
+        assert g.slice_cols * (16 // per) == bell.SLICE_BYTES
     g = bell.launch_geometry(64, 18, 128, torch.float32)
     assert (g.rows, g.vectors, g.col_groups, g.slice_cols) == (8, 8, 1, 32)
+    g = bell.launch_geometry(64, 18, 128, torch.bfloat16)
+    assert (g.rows, g.vectors, g.col_groups, g.slice_cols) == (8, 8, 1, 64)
+    g = bell.launch_geometry(64, 18, 8, torch.bfloat16)
+    assert (g.rows, g.col_groups, g.slice_cols) == (4, 8, 64)
 
 
 def test_slice_striding_balances_a_block_row():
@@ -277,10 +347,20 @@ def test_launch_constants_match_the_kernel_source():
             const["kMTileF32"]) == bell.M_TILES[torch.float32]
     assert (const["kMTileSmall"],
             const["kMTileMid"]) == bell.M_TILES[torch.float64]
+    assert (const["kMTileSmall"], const["kMTileMid"],
+            const["kMTileF32"]) == bell.M_TILES[torch.bfloat16]
+    # The geometry takes its chunk and slice from the stored value's size
+    # (a bfloat16 chunk of 16 bytes is 8 values), the register tile and
+    # the partial tiles' bytes from the accumulator's.
+    assert "static constexpr int B = static_cast<int>(sizeof(S));" in src
+    assert "static constexpr int V = 16 / B;" in src
+    assert "static constexpr int KC = kSliceBytes / B;" in src
+    assert "PART * static_cast<int>(sizeof(T))" in src
+    assert "launch<float, __nv_bfloat16>" in src
     assert const["kTileRows"] == bell.TILE_ROWS
     assert const["kTileRowsWide"] == bell.TILE_ROWS_WIDE
     assert const["kTileVectors"] == bell.TILE_VECTORS
-    for t in ("f32", "f64"):
+    for t in ("f32", "f64", "bf16"):
         m = re.search(rf"\bint mg_bell_spmm_{t}\(([^)]*)\)\s*\{{", src)
         assert len(m.group(1).split(",")) == len(
             _build.SIGNATURES[f"mg_bell_spmm_{t}"])

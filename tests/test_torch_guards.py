@@ -151,6 +151,15 @@ def test_build_keys_output_by_source_hash():
                    "stencil3d_rbgs", "spmv_dia", "bell_spmm"):
         for t in ("f32", "f64"):
             assert f"mg_{kernel}_{t}" in _build.SIGNATURES
+    # ... and each bfloat16 storage mode, with its float32 twin's
+    # arguments.
+    for kernel in ("packed2d_down", "packed2d_up", "packed2d_residual",
+                   "packed2d_rbgs", "packed2d_resnorm", "stencil3d_residual",
+                   "stencil3d_jacobi", "stencil3d_rbgs", "local2d_down",
+                   "local2d_up", "plocal2d_down", "plocal2d_up",
+                   "plocal2d_residual", "plocal2d_resnorm", "bell_spmm"):
+        assert (_build.SIGNATURES[f"mg_{kernel}_bf16"]
+                == _build.SIGNATURES[f"mg_{kernel}_f32"])
 
 
 def _grid(n, dtype=torch.float64):
@@ -256,7 +265,7 @@ def _bell(dtype=torch.float64):
      ValueError),
     # The packed legs' mixed modes: a float32 coarse correction (not
     # bfloat16), x' in x's dtype or float32; the fused residual norm's
-    # bfloat16 mode is not ported (no mixed path reaches it).
+    # bfloat16 mode takes bfloat16 u and b, not a float32 partner.
     (lambda: packed2d.prolong_add_smooth(
         _packed(7, torch.bfloat16), _grid(3, torch.bfloat16),
         _packed(7, torch.bfloat16), 7, 3, 0.125, kind="rbgs", omega=1.0,
@@ -269,8 +278,8 @@ def _bell(dtype=torch.float64):
         _packed(7, torch.bfloat16), _packed(7, torch.float32), 7, 0.125,
         kind="rbgs", omega=1.0, sweeps=1), ValueError),
     (lambda: packed2d.residual_norm_sq(_packed(7, torch.bfloat16),
-                                       _packed(7, torch.bfloat16), 7, 0.125),
-     NotImplementedError),
+                                       _packed(7, torch.float32), 7, 0.125),
+     ValueError),
     (lambda: transfer2d.residual_restrict(_grid(7), _grid(7, torch.float32),
                                           7, 0.125), ValueError),
     (lambda: transfer2d.prolong_add(_grid(7), _grid(4), 7, 3), ValueError),
@@ -285,8 +294,8 @@ def _bell(dtype=torch.float64):
     (lambda: spmv.spmv_packed(spmv.PackedDIA(_pdia().diags[:2], (-1, 0, 1),
                                              100), _px()), ValueError),
     (lambda: bell.spmm(_bell(torch.bfloat16),
-                       torch.zeros((8, 256), dtype=torch.bfloat16)),
-     NotImplementedError),
+                       torch.zeros((8, 256), dtype=torch.float32)),
+     ValueError),
     (lambda: bell.spmm(_bell(), torch.zeros((8, 256), dtype=torch.float32)),
      ValueError),
     (lambda: bell.spmm(_bell(), torch.zeros((12, 256),
@@ -323,7 +332,8 @@ def test_kernel_wrappers_reject_bad_inputs(bad, err):
             stencil3d.rbgs_launches, spmv.launches, bell.launches,
             packed2d.down_bf16_launches, packed2d.up_bf16_launches,
             packed2d.up_bf16_f32_launches, packed2d.residual_bf16_launches,
-            packed2d.rbgs_bf16_launches) == (0,) * 22
+            packed2d.rbgs_bf16_launches, packed2d.resnorm_bf16_launches,
+            bell.bf16_launches) == (0,) * 24
 
 
 def _solve(**kw):
@@ -703,16 +713,18 @@ def _plocal2d_launches():
 
     return (plocal2d.residual_launches, plocal2d.apply_launches,
             plocal2d.down_launches, plocal2d.up_launches,
-            plocal2d.resnorm_launches)
+            plocal2d.resnorm_launches, plocal2d.residual_bf16_launches,
+            plocal2d.apply_bf16_launches, plocal2d.resnorm_bf16_launches,
+            plocal2d.down_bf16_launches, plocal2d.up_bf16_launches,
+            plocal2d.up_bf16_f32_launches)
 
 
 @pytest.mark.parametrize("device", ["cpu", "fake-cuda", "bf16"])
 def test_plocal2d_wrappers_follow_the_device_rule(device):
     """A CPU tensor takes the plain version (no launch counted); a CUDA
     tensor takes the kernel route, which raises with no card and never runs
-    the plain version; bfloat16 storage is the legs' mixed mode (a float32
-    coarse correction; their plain versions on a CPU tensor) and raises the
-    mixed-precision error elsewhere."""
+    the plain version; bfloat16 storage takes the plain versions on a CPU
+    tensor too (the legs with a float32 coarse correction)."""
     import warnings
 
     if device == "cpu":
@@ -729,14 +741,10 @@ def test_plocal2d_wrappers_follow_the_device_rule(device):
         u, b, _ = _packed_tiles("cpu", torch.bfloat16)
         e = _packed_tiles("cpu", torch.float32)[2]
         for name, (call, plain) in _plocal2d_calls(u, b, e).items():
-            if name in ("down_leg", "up_leg"):
-                got, want = call(), plain()
-                for g, w in zip(*((got, want) if isinstance(got, tuple)
-                                  else ((got,), (want,)))):
-                    assert torch.equal(g, w), name
-                continue
-            with pytest.raises(NotImplementedError, match="mixed paths"):
-                call()
+            got, want = call(), plain()
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                assert torch.equal(g, w), name
     else:
         from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -748,7 +756,7 @@ def test_plocal2d_wrappers_follow_the_device_rule(device):
             for call, _ in _plocal2d_calls(*tiles).values():
                 with pytest.raises(RuntimeError):
                     call()
-    assert _plocal2d_launches() == (0,) * 5
+    assert _plocal2d_launches() == (0,) * 11
 
 
 def _tile(rows=32, cols=32, dtype=torch.float64):
@@ -926,35 +934,60 @@ def test_unported_sharded_routes_raise(call, item, world_of_one,
 
 
 @pytest.mark.parametrize("call", [
-    "local2d.residual", "local2d.rbgs_sweep", "local2d.jacobi_sweep",
-    "plocal2d.residual", "plocal2d.apply_op", "plocal2d.residual_norm_sq"])
+    "local2d.residual", "local2d.rbgs_sweep", "local2d.jacobi_sweep"])
 def test_off_path_bf16_wrappers_raise(call):
-    """The shard tile kernels whose bfloat16 mode no path of either
-    package runs (the sweeps and residual beside the legs, the packed
-    apply and norm: sharded MG-PCG applies A and takes residuals at full
-    precision, as JAX's) raise naming that ROADMAP.md item, and launch
-    nothing."""
-    from multigridcmt_tpu_torch.kernels import local2d, plocal2d
+    """The shard tile kernels whose bfloat16 mode computes in bfloat16
+    itself in the JAX package (the unpacked tile's sweeps and residual)
+    raise naming that ROADMAP.md item, and launch nothing."""
+    from multigridcmt_tpu_torch.kernels import local2d
 
-    bf = torch.bfloat16
-    t, s = _tile(dtype=bf), _packed_tiles("cpu", bf)[0]
+    t = _tile(dtype=torch.bfloat16)
     h = 1 / 64
     calls = {
         "local2d.residual": lambda: local2d.residual(t, t, 63, h, -7),
         "local2d.rbgs_sweep": lambda: local2d.rbgs_sweep(t, t, 63, h, -7),
         "local2d.jacobi_sweep": lambda: local2d.jacobi_sweep(t, t, 63, h,
                                                              0.8, -7),
-        "plocal2d.residual": lambda: plocal2d.residual(s, s, 63, h, -7),
-        "plocal2d.apply_op": lambda: plocal2d.apply_op(s, 63, h, -7),
-        "plocal2d.residual_norm_sq": lambda: plocal2d.residual_norm_sq(
-            s, s, 63, h, 16, -7),
     }
     with pytest.raises(NotImplementedError,
                        match="bfloat16 storage off the mixed paths"):
         calls[call]()
     assert (local2d.rbgs_launches, local2d.jacobi_launches,
             local2d.residual_launches) == (0,) * 3
-    assert _plocal2d_launches() == (0,) * 5
+    assert _plocal2d_launches() == (0,) * 11
+
+
+@pytest.mark.parametrize("call", [
+    "plocal2d.residual", "plocal2d.apply_op", "plocal2d.residual_norm_sq"])
+def test_cdt_bf16_tile_wrappers_run_plain(call):
+    """The packed tile's residual, apply and norm take bfloat16 tiles (the
+    JAX kernels' _cdt rule): on a CPU tensor each equals its plain version
+    (a bfloat16 tile for the residual and apply, a float32 scalar for the
+    norm) and launches nothing."""
+    from multigridcmt_tpu_torch.kernels import plocal2d
+
+    gen = torch.Generator().manual_seed(2)
+    s, b = (torch.randn((2, 32, 33), generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    s[..., -1] = b[..., -1] = 0.0      # a row tile's pad lanes
+    h = 1 / 64
+    calls = {
+        "plocal2d.residual": (
+            lambda: plocal2d.residual(s, b, 63, h, -7, sigma=2.0),
+            lambda: plocal2d.residual_plain(s, b, 63, h, -7, sigma=2.0)),
+        "plocal2d.apply_op": (
+            lambda: plocal2d.apply_op(s, 63, h, -7, sigma=2.0),
+            lambda: plocal2d.apply_op_plain(s, 63, h, -7, sigma=2.0)),
+        "plocal2d.residual_norm_sq": (
+            lambda: plocal2d.residual_norm_sq(s, b, 63, h, 16, -7),
+            lambda: plocal2d.residual_norm_sq_plain(s, b, 63, h, 16, -7)),
+    }
+    run, plain = calls[call]
+    got, want = run(), plain()
+    assert got.dtype == (torch.float32 if call.endswith("norm_sq")
+                         else torch.bfloat16)
+    assert torch.equal(got, want)
+    assert _plocal2d_launches() == (0,) * 11
 
 
 @pytest.mark.parametrize("method,pack_min_n", [
@@ -1026,7 +1059,7 @@ def _chip_smoke_rows(module: str) -> dict:
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert len(smoke.KERNELS) == 43
+    assert len(smoke.KERNELS) == 48
     return {name: row for name, row in smoke.KERNELS.items()
             if row[0] == module}
 
@@ -1073,7 +1106,7 @@ def test_chip_smoke_lists_the_plocal2d_kernels():
 def test_chip_smoke_lists_the_packed2d_bf16_modes():
     """The packed2d kernels' bfloat16 modes, each built from a file of its
     own and on the mixed path that launches it on the card (the up leg's
-    bfloat16 store, which no solver runs, by direct calls)."""
+    bfloat16 store and the norm, which no solver runs, by direct calls)."""
     rows = {name: row for name, row in _chip_smoke_rows("packed2d").items()
             if "bf16" in name}
     src = "multigridcmt_tpu_torch/kernels/csrc/"
@@ -1091,7 +1124,10 @@ def test_chip_smoke_lists_the_packed2d_bf16_modes():
                                "mixedB"),
         "packed2d_residual_bf16": ("residual_bf16_launches",
                                    src + "packed2d_bf16.cu", tpu + "440",
-                                   "mixedA")}
+                                   "mixedA"),
+        "packed2d_resnorm_bf16": ("resnorm_bf16_launches",
+                                  src + "packed2d_bf16.cu", tpu + "553",
+                                  None)}
     for name, row in rows.items():
         assert hasattr(packed2d, row[1])
         assert (ROOT / row[2]).is_file()
@@ -1106,9 +1142,10 @@ def test_chip_smoke_lists_the_tile_bf16_modes(module, lines, run):
     float32 from csrc/<module>_up_bf16_f32.cu; the down leg and the
     float32-storing up leg on the sharded mixed path that runs them on the
     card, the bfloat16-storing up leg (which no solver runs) by direct
-    calls."""
+    calls. (plocal2d's residual, apply and norm in bfloat16: the next
+    test.)"""
     rows = {name: row for name, row in _chip_smoke_rows(module).items()
-            if "bf16" in name}
+            if "bf16" in name and ("_down" in name or "_up" in name)}
     src = f"multigridcmt_tpu_torch/kernels/csrc/{module}_"
     tpu = f"multigridcmt_tpu/kernels/{module}.py:"
     down, up = lines
@@ -1122,6 +1159,44 @@ def test_chip_smoke_lists_the_tile_bf16_modes(module, lines, run):
     mod = importlib.import_module(f"multigridcmt_tpu_torch.kernels.{module}")
     for row in rows.values():
         assert hasattr(mod, row[1]) and (ROOT / row[2]).is_file()
+
+
+def test_chip_smoke_lists_the_cdt_bf16_modes():
+    """The bfloat16 modes that no path of either package runs, ported by
+    the _cdt rule: the packed tile's residual, apply and norm (from
+    csrc/plocal2d_bf16.cu), the whole grid's norm (csrc/packed2d_bf16.cu)
+    and the BELL SpMM (csrc/bell.cu), each with its TPU function, counted
+    apart from its float twin and launched once by its direct run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = "multigridcmt_tpu_torch/kernels/csrc/"
+    tpu = "multigridcmt_tpu/kernels/"
+    want = {
+        "plocal2d_residual_bf16": ("plocal2d", "residual_bf16_launches",
+                                   src + "plocal2d_bf16.cu",
+                                   tpu + "plocal2d.py:262", None),
+        "plocal2d_apply_bf16": ("plocal2d", "apply_bf16_launches",
+                                src + "plocal2d_bf16.cu",
+                                tpu + "plocal2d.py:982", None),
+        "plocal2d_resnorm_bf16": ("plocal2d", "resnorm_bf16_launches",
+                                  src + "plocal2d_bf16.cu",
+                                  tpu + "plocal2d.py:855", None),
+        "packed2d_resnorm_bf16": ("packed2d", "resnorm_bf16_launches",
+                                  src + "packed2d_bf16.cu",
+                                  tpu + "packed2d.py:553", None),
+        "bell_spmm_bf16": ("bell", "bf16_launches", src + "bell.cu",
+                           tpu + "bell.py:180", None)}
+    assert {name: smoke.KERNELS[name] for name in want} == want
+    assert {smoke.DIRECT_RUNS[name] for name in want} == {"cdt_bf16_direct"}
+    for mod, counter, source, *_ in want.values():
+        module = importlib.import_module(
+            f"multigridcmt_tpu_torch.kernels.{mod}")
+        assert getattr(module, counter) == 0
+        assert (ROOT / source).is_file()
 
 
 def test_chip_smoke_lists_the_stencil3d_bf16_modes():

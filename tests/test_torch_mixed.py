@@ -229,7 +229,8 @@ def test_bf16_residual_matches_pallas(n, sigma):
 def test_storage_rule_refuses_other_operands():
     """The coarse operand of a bfloat16 level is float32; x' is stored in
     x's dtype or, for bfloat16 x, float32; bfloat16 and float32 fine grids
-    do not mix; the fused residual norm takes no bfloat16 grid."""
+    do not mix; the fused residual norm takes bfloat16 grids and returns
+    its plain version's float32 sum."""
     n, nc, h = 15, 7, 1.0 / 16
     su, sb, _ = _inputs(n, 7)
     e32 = torch.zeros((nc + 2, nc + 2))
@@ -247,10 +248,10 @@ def test_storage_rule_refuses_other_operands():
     assert packed2d.prolong_add_smooth(
         x32, e32, sb.float(), n, nc, h, out_dtype=torch.float32,
         **kw).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="bfloat16 storage off "
-                       "the mixed paths"):
-        packed2d.residual_norm_sq(su, sb, n, h)
-    assert _launches() == (0,) * 9
+    norm = packed2d.residual_norm_sq(su, sb, n, h)
+    assert norm.dtype == torch.float32
+    assert torch.equal(norm, packed2d.residual_norm_sq_plain(su, sb, n, h))
+    assert _launches() == (0,) * 9 and packed2d.resnorm_bf16_launches == 0
 
 
 # (ndim, k, smoother, use_kernels, precond_dtype, PACK_MIN_N) over JAX's
@@ -471,7 +472,9 @@ def test_bf16_entry_points_match_their_signatures():
                                        "launch_sweep"),
              "mg_packed2d_up_bf16": ("packed2d_up_bf16.cu", "launch_up"),
              "mg_packed2d_up_bf16_f32": ("packed2d_up_bf16_f32.cu",
-                                         "launch_up")}
+                                         "launch_up"),
+             "mg_packed2d_resnorm_bf16": ("packed2d_bf16.cu",
+                                          "launch_presnorm")}
     assert {k for k in _build.SIGNATURES
             if "bf16" in k and "packed2d" in k} == set(files)
     for name, (fname, launcher) in files.items():

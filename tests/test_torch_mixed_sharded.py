@@ -335,8 +335,22 @@ def test_tile_bf16_entry_points_match_their_signatures():
                                       frame)
         files[f"mg_{mod}_up_bf16_f32"] = (f"{mod}_up_bf16_f32.cu",
                                           "launch_up", frame)
+    # The packed tile's residual (and apply) and norm in bfloat16 have a
+    # file of their own too, on the tile's update rule.
+    others = {"mg_plocal2d_residual_bf16": "launch_presidual",
+              "mg_plocal2d_resnorm_bf16": "launch_presnorm"}
     assert {k for k in _build.SIGNATURES
-            if "bf16" in k and "local2d" in k} == set(files)
+            if "bf16" in k and "local2d" in k} == set(files) | set(others)
+    for name, launcher in others.items():
+        where = [f for f, text in src.items()
+                 if re.search(rf"\b{name}\(", text)]
+        assert where == ["plocal2d_bf16.cu"]
+        m = re.search(rf"\bint {name}\(([^)]*)\)\s*\{{(.*?)\n\}}",
+                      src["plocal2d_bf16.cu"], re.S)
+        assert len(m.group(1).split(",")) == len(_build.SIGNATURES[name])
+        targs = [a.strip() for a in re.search(rf"\b{launcher}<([^>]*)>",
+                                              m.group(2)).group(1).split(",")]
+        assert targs == ["float", "mg::InteriorBox", "__nv_bfloat16"]
     for name, (fname, launcher, frame) in files.items():
         where = [f for f, text in src.items()
                  if re.search(rf"\b{name}\(", text)]
