@@ -103,7 +103,9 @@ Phases:
          cycles and by PCG, in the single-device solve's iterations (by
          cycles with histories within 1e-2 plus its floor); a Jacobi slab solve; slab
          and pencil PCG with precond_dtype=torch.bfloat16, RB-GS and
-         Jacobi, against the float32 PCG of the same mesh, the slab ones
+         Jacobi, in the float32 PCG's iterations on the same mesh (the
+         fine stack promoted to float32 at the correction add: JAX's
+         bfloat16 add, ROADMAP.md F7, is not copied), the slab ones
          again on the plain stencil3d versions in as many iterations;
          float64 at 127^3 against the plain sharded route; inverse
          iteration at 255^3 float64 on a slab mesh; exact stencil3d
@@ -192,7 +194,14 @@ Phases:
      two offset tiles, both sigmas, the whole grid's norm at 4095^2 (red
      only and both planes), the BELL SpMM on the bench matrix, its carrier,
      4 x 3 blocks with padding blocks and NaN and Inf in Xt, by the same
-     rule (a norm, float32, to TOL[float32] of its value);
+     rule (a norm, float32, to TOL[float32] of its value); the native
+     bfloat16 modes (compare_native_bf16: the stencil2d residual and RB-GS
+     at 2047^2, nu = 1 and 4, its Jacobi at 1023^2, nu = 8, the local2d
+     residual, RB-GS nu = 4 and Jacobi nu = 8 on S1's fine tile and S2's
+     block tile, the DIA SpMV at 4095^2 with random values on its 5
+     diagonals, sigma 0 and SIGMA; the stencil2d modes at 1023^2 and the
+     SpMV also with NaN and +-Inf in their inputs) bit for bit against
+     their plain versions, NaN where the plain version has NaN;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -252,7 +261,11 @@ Phases:
      step or a LOBPCG solve; the _cdt family's last bfloat16 modes beside
      their float32 twins and their bounds at bfloat16 bytes (the BELL
      mode's operations at the bfloat16 tensor-core rate), the BELL mode
-     beside a bfloat16 BSR torch.sparse.mm where PyTorch runs it. Every
+     beside a bfloat16 BSR torch.sparse.mm where PyTorch runs it; the
+     native bfloat16 modes at phase 2's main shapes against their plain
+     versions (single, chained and by device time) beside their bounds at
+     bfloat16 bytes, the SpMV beside a bfloat16 CSR torch.mv where
+     PyTorch runs it. Every
      kernel row also gets the profiler's
      device time a call (device_ms), and the sharded eigensolver runs'
      launches (sharded_eigen_launches) where it has some.
@@ -298,7 +311,12 @@ RB-GS sweeps and the bfloat16 residual (storing float32); the correction
 add x + P e promotes 511 to float32 and the post-smoothing runs the
 float32 sweeps; 255 and 127 run the float32 kernels, as in a float32
 cycle. The sweeps storing float32 (out_dtype) and the bfloat16 Jacobi
-modes run on no path: direct calls. Each bfloat16 preconditioning cycle
+modes run on no single-device path: direct calls. A sharded mixed 3D
+cycle (slab511-mixed, pencil511-mixed and their Jacobi twins) runs on its
+fine stack the nu1 = 2 bfloat16 sweeps (RB-GS, or Jacobi storing
+bfloat16) and the bfloat16 residual, then promotes the stack at the
+correction add and runs the float32 sweeps: the sweeps storing float32
+run on no path. Each bfloat16 preconditioning cycle
 of a sharded mixed PCG runs, on the fine level's carried tile, the
 bfloat16 down leg and the up leg with bfloat16 x and b, a float32
 correction and float32 x' (plocal2d at S1mixed, local2d at
@@ -308,7 +326,10 @@ apply, or the local2d residual). The tile legs storing bfloat16 run on no
 path: direct calls. Nor do the bfloat16 modes of the plocal2d residual,
 apply and norm, the whole grid's norm and the BELL SpMM (JAX's _cdt rule:
 float32 arithmetic, each output rounded once, the norms float32 sums):
-phase 3's cdt_bf16_direct calls each once.
+phase 3's cdt_bf16_direct calls each once. Nor do the native bfloat16
+modes (the TPU kernels computing in bfloat16 itself, every operation
+rounded: the stencil2d and local2d residuals and sweeps, the DIA SpMV):
+phase 3's native_bf16_direct calls each once.
 
 FMG and the eigensolvers add no kernel. An FMG walk's V-cycle started at a
 level runs the legs of the kernel levels at and below it; b's restriction
@@ -329,9 +350,10 @@ level's legs are the bfloat16 down leg and the float32-storing up leg.
 
 Phase 1 also reports ptxas's registers and spills of the row-streaming
 legs and sweeps, the local2d sweeps (UTile) among them, the stencil3d
-z-march kernels in every storage mode, the BELL SpMM kernels and the
-residual-restriction stream (from the build's nvcc.log), and fails if
-either of the last two spills; and the residual norm's first pass
+z-march kernels in every storage mode, the BELL SpMM kernels, the
+residual-restriction stream, the native bfloat16 kernels and the DIA SpMV
+in each type (from the build's nvcc.log), and fails if one of the last
+four spills; and the residual norm's first pass
 (presnorm_partial) in every storage mode, failing if a float32 or float64
 BELL SpMM or norm kernel's line differs from the parent tree's
 (PARENT_PTXAS): their storage type must leave those kernels as they were.
@@ -527,6 +549,24 @@ PEAK_BF16_FLOPS = 989e12
 # The BELL SpMM's bfloat16 mode on 4 x 3 blocks of 128^2 with kmax this
 # far above the densest block row (padding blocks in every block row).
 BELL_BF16_PAD = 2
+# The native bfloat16 modes (the TPU kernels computing in bfloat16 itself:
+# every operation rounded, sigma and the constants too; no path of either
+# package runs them), held bit for bit against their plain versions at
+# full width: stencil2d's residual and RB-GS (nu = 1 and 4) at 2047^2 and
+# its Jacobi (nu = 8) at 1023^2 (the levels where paths B and C launch the
+# float32 sweeps), the local2d modes (RB-GS nu = 4, Jacobi nu = 8) on S1's
+# fine tile and S2's block tile (col_off odd), the DIA SpMV at 4095^2 (5
+# diagonals, random values), sigma 0 and SIGMA; stencil2d's modes and the
+# SpMV also on inputs seeded with NaN and +-Inf (NATIVE_NONFINITE_N).
+NATIVE_STENCIL_N = {"residual": 2047, "rbgs": 2047, "jacobi": 1023}
+NATIVE_SWEEPS = {"rbgs": (1, 4), "jacobi": (8,)}
+NATIVE_OMEGA = 0.8
+NATIVE_TILES = {"S1": (2 ** MAIN_K - 1, (1, 0)), "S2": (2047, (1, 1))}
+NATIVE_NONFINITE_N = 1023
+# Operations a point (a sweep) of each native mode: the residual's 9
+# (4u, four differences, the scaling, b - au, sigma u, the sum), the GS
+# update's 6, the Jacobi step's 11; the SpMV's 2 a diagonal.
+NATIVE_OPS = {"residual": 9, "rbgs": 6, "jacobi": 11}
 
 
 # The sharded paths: (k, mesh, config overrides) of S1-S4; S4 is Jacobi
@@ -908,6 +948,12 @@ PARENT_PTXAS = {
 }
 
 
+# The native bfloat16 kernels (csrc/native_bf16.cu) and the DIA SpMV in
+# each type (f, d, 13__nv_bfloat16), whose ptxas report must show no spill.
+NATIVE_KERNEL = re.compile(r"native_(?:residual|rbgs|jacobi)_kernel|"
+                           r"spmv_dia_kernelI(?:13__nv_bfloat16|[fd])E")
+
+
 # A stencil3d z-march kernel's mangled name: kernel, compute type, band
 # rows, mode (the pass: 0 residual, 1 Jacobi), and the bfloat16 storage (an
 # f after it: a float32 output).
@@ -1053,6 +1099,15 @@ def ptxas_report(log_path) -> dict:
         regs, spill = lines[key]
         log(f"ptxas {' '.join(key)}: {regs}r"
             + (f" spill {spill}B" if spill else ""))
+    native = {NATIVE_KERNEL.search(k).group(0): prop
+              for k, prop in props.items()
+              if NATIVE_KERNEL.search(k) and "regs" in prop}
+    require(len(native) == 6, f"ptxas report has {sorted(native)}, not the "
+            "three native bfloat16 kernels and the SpMV in three types")
+    for key, prop in sorted(native.items()):
+        log(f"ptxas {key}: {prop['regs']}r"
+            + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
+        require(not prop.get("spill"), f"ptxas: {key} spills")
     # The float32 and float64 kernels that took a storage type compile as
     # the parent's did.
     moved = {key: (lines.get(key), want) for key, want in PARENT_PTXAS.items()
@@ -1611,6 +1666,168 @@ def compare_cdt_bf16(main_err: dict) -> None:
     check_bf16(f"bf16 bell_spmm 4x3 blocks kmax={ab.kmax} (densest "
                f"{need}) m=16", bell.spmm(ab, xt), bell.spmm_plain(ab, xt),
                ghosts=False)
+
+
+def check_native_bits(label: str, got, want):
+    """A native bfloat16 kernel output equal to its plain version's bit
+    for bit, NaN exactly where the plain version has NaN (a NaN's payload
+    aside). Returns (max abs error, relative error, tol) as check_pair: 0
+    where equal, tol 0."""
+    torch.cuda.synchronize()
+    require(got.dtype == want.dtype == torch.bfloat16
+            and got.shape == want.shape,
+            f"{label}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
+            f"{tuple(want.shape)}")
+    nan = want.isnan()
+    differ = int(((got.view(torch.int16) != want.view(torch.int16))
+                  & ~nan).sum())
+    same_nan = torch.equal(got.isnan(), nan)
+    fin = want.isfinite() & got.isfinite()
+    err, rel = rel_err(got[fin].double(), want[fin].double())
+    log(f"  {label}: {differ} of {want.numel()} differ, NaN where plain's: "
+        f"{same_nan} ({int((~want.isfinite()).sum())} non-finite)")
+    require(differ == 0 and same_nan, f"{label}: {differ} points differ "
+            f"from the plain version, NaN where plain's: {same_nan}")
+    return err, rel, 0.0
+
+
+def native_grids(n: int, seed: int, nonfinite: bool = False):
+    """leg_inputs' u and b (b of 1/h^2 size) in bfloat16; with
+    ``nonfinite`` u holds a NaN and a +Inf and b a -Inf in the interior."""
+    u, b, _ = leg_inputs(n, torch.float32, seed)
+    u, b = u.to(torch.bfloat16), b.to(torch.bfloat16)
+    if nonfinite:
+        u[n // 3, n // 2] = float("nan")
+        u[2 * n // 3, 7] = float("inf")
+        b[n // 2, n - 3] = -float("inf")
+    return u, b
+
+
+def native_tile(label: str, seed: int):
+    """The bfloat16 form of sharded path ``label``'s fine tile
+    (NATIVE_TILES: S1's row tile, S2's block tile) and its geometry."""
+    n, ranks = NATIVE_TILES[label]
+    ue, be, _, t = local2d_tile(n, torch.float32, seed, ranks)
+    return ue.to(torch.bfloat16), be.to(torch.bfloat16), t
+
+
+def native_dia(seed: int, nonfinite: bool = False):
+    """The 4095^2 Poisson operator's DIA pattern with N(0,1) bfloat16
+    values where it has entries, its packed form, and a packed N(0,1)
+    bfloat16 x (with ``nonfinite``, a NaN and a +-Inf in it)."""
+    from multigridcmt_tpu_torch.kernels import spmv
+
+    a, _ = dia_on_card(2 ** MAIN_K - 1, 2, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vals = torch.randn(a.diags.shape, generator=gen, device="cuda")
+    a = dataclasses.replace(a, diags=torch.where(
+        a.diags != 0, vals, torch.zeros_like(vals)).to(torch.bfloat16))
+    pk = spmv.pack_dia(a)
+    x = vector_on_card(a.shape[0], torch.float32, seed + 1)
+    if nonfinite:
+        size = x.shape[0]
+        x[size // 5], x[size // 2], x[3 * size // 4] = (
+            float("nan"), float("inf"), -float("inf"))
+    return a, pk, spmv.pack_x(x.to(torch.bfloat16), pk.halo)
+
+
+def native_stencil_calls(mode: str, u, b, n: int, sigma: float,
+                         sweeps: int = 0):
+    """(kernel, plain) of stencil2d's native ``mode`` on (n+2)^2 grids."""
+    from multigridcmt_tpu_torch.kernels import native_bf16, stencil2d
+
+    h = 1.0 / (n + 1)
+    c = native_bf16.constants(h, sigma, NATIVE_OMEGA)
+    if mode == "residual":
+        return (lambda: stencil2d.residual(u, b, n, h, sigma=sigma),
+                lambda: native_bf16.residual_plain(u, b, n, c))
+    if mode == "rbgs":
+        return (lambda: stencil2d.rbgs_sweep(u, b, n, h, sigma=sigma,
+                                             sweeps=sweeps),
+                lambda: native_bf16.sweep_plain("rbgs", u, b, n, c, sweeps))
+    return (lambda: stencil2d.jacobi_sweep(u, b, n, h, NATIVE_OMEGA,
+                                           sigma=sigma, sweeps=sweeps),
+            lambda: native_bf16.sweep_plain("jacobi", u, b, n, c, sweeps))
+
+
+def native_local_calls(mode: str, ue, be, t: dict, sigma: float,
+                       sweeps: int = 0):
+    """(kernel, plain) of local2d's native ``mode`` on an extended tile."""
+    from multigridcmt_tpu_torch.kernels import local2d, native_bf16
+
+    n = t["n"]
+    h = 1.0 / (n + 1)
+    offs = (t["row_off"], t["col_off"])
+    c = native_bf16.constants(h, sigma, NATIVE_OMEGA)
+    if mode == "residual":
+        return (lambda: local2d.residual(ue, be, n, h, *offs, sigma=sigma),
+                lambda: native_bf16.residual_plain(ue, be, n, c, *offs))
+    if mode == "rbgs":
+        return (lambda: local2d.rbgs_sweep(ue, be, n, h, *offs, sigma=sigma,
+                                           sweeps=sweeps),
+                lambda: native_bf16.sweep_plain("rbgs", ue, be, n, c, sweeps,
+                                                *offs))
+    return (lambda: local2d.jacobi_sweep(ue, be, n, h, NATIVE_OMEGA, *offs,
+                                         sigma=sigma, sweeps=sweeps),
+            lambda: native_bf16.sweep_plain("jacobi", ue, be, n, c, sweeps,
+                                            *offs))
+
+
+def compare_native_bf16(main_err: dict) -> None:
+    """The native bfloat16 modes against their plain versions on the card,
+    bit for bit (check_native_bits), at NATIVE_STENCIL_N, NATIVE_TILES and
+    the 4095^2 SpMV, both sigmas, every sweep count of NATIVE_SWEEPS; the
+    stencil2d modes at NATIVE_NONFINITE_N and the SpMV on inputs holding
+    NaN and +-Inf. The main-path errors: sigma 0, RB-GS nu = 4, Jacobi nu =
+    8, the local2d modes on S1's tile."""
+    from multigridcmt_tpu_torch.kernels import spmv
+
+    for mode, n in NATIVE_STENCIL_N.items():
+        u, b = native_grids(n, n + 301)
+        for sigma in (0.0, SIGMA):
+            for nu in NATIVE_SWEEPS.get(mode, (0,)):
+                kernel, plain = native_stencil_calls(mode, u, b, n, sigma,
+                                                     nu)
+                err = check_native_bits(
+                    f"native stencil2d {mode} n={n} nu={nu} sigma={sigma}",
+                    kernel(), plain())
+                if sigma == 0.0 and nu == max(NATIVE_SWEEPS.get(mode, (0,))):
+                    main_err[f"stencil2d_{mode}_bf16"] = err
+        del u, b
+    n = NATIVE_NONFINITE_N
+    u, b = native_grids(n, n + 302, nonfinite=True)
+    for mode in NATIVE_STENCIL_N:
+        kernel, plain = native_stencil_calls(
+            mode, u, b, n, SIGMA, max(NATIVE_SWEEPS.get(mode, (0,))))
+        check_native_bits(f"native stencil2d {mode} n={n} with NaN and Inf",
+                          kernel(), plain())
+    del u, b
+    for label in NATIVE_TILES:
+        ue, be, t = native_tile(label, 303)
+        for mode in NATIVE_STENCIL_N:
+            for sigma in (0.0, SIGMA):
+                nu = max(NATIVE_SWEEPS.get(mode, (0,)))
+                kernel, plain = native_local_calls(mode, ue, be, t, sigma,
+                                                   nu)
+                err = check_native_bits(
+                    f"native local2d {mode} {label} tile "
+                    f"{tuple(ue.shape)} offsets ({t['row_off']}, "
+                    f"{t['col_off']}) nu={nu} sigma={sigma}",
+                    kernel(), plain())
+                if label == "S1" and sigma == 0.0:
+                    main_err[f"local2d_{mode}_bf16"] = err
+        del ue, be
+        torch.cuda.empty_cache()
+    for nonfinite in (False, True):
+        _, pk, xp = native_dia(304, nonfinite)
+        err = check_native_bits(
+            f"native spmv_dia n={2 ** MAIN_K - 1} ndiag="
+            f"{len(pk.offsets)}" + (" with NaN and Inf" if nonfinite else ""),
+            spmv.spmv_packed(pk, xp), spmv.spmv_packed_plain(pk, xp))
+        if not nonfinite:
+            main_err["spmv_dia_bf16"] = err
+        del pk, xp
+    torch.cuda.empty_cache()
 
 
 def compare_mixed3d(main_err: dict) -> None:
@@ -2406,6 +2623,7 @@ def phase_compare():
     compare_mixed3d(main_err)
     compare_mixed_sharded(main_err)
     compare_cdt_bf16(main_err)
+    compare_native_bf16(main_err)
     return main_err
 
 
@@ -2540,12 +2758,12 @@ KERNELS = {
                          "multigridcmt_tpu/kernels/packed2d.py:1067", None),
     # The bfloat16 modes of the stencil3d kernels (3D mixed precision): the
     # residual (float32 out) and the RB-GS sweep storing bfloat16 run on
-    # the mixed 3D cycle's fine level; the sweep storing float32 (the TPU
-    # kernel's out_dtype) on the sharded mixed cycle's top level, whose up
-    # smoothing stores its last sweep in float32 (slab511-mixed; the
-    # single-device cycle promotes at its correction add instead), and both
-    # Jacobi modes on the sharded mixed Jacobi cycle's (a single-device 3D
-    # Jacobi cycle runs plain). Their rows also report direct calls.
+    # the mixed 3D cycle's fine level, the Jacobi sweep storing bfloat16 on
+    # the sharded mixed Jacobi cycle's (a single-device 3D Jacobi cycle
+    # runs plain); the sweeps storing float32 (the TPU kernels'
+    # out_dtype) on no path: every mixed 3D cycle promotes its fine level
+    # at the correction add and runs the float32 sweeps after it. Their
+    # rows also report direct calls.
     "stencil3d_residual_bf16": ("stencil3d", "residual_bf16_launches",
                                 "multigridcmt_tpu_torch/kernels/csrc/"
                                 "stencil3d_bf16.cu",
@@ -2560,7 +2778,7 @@ KERNELS = {
                                 "multigridcmt_tpu_torch/kernels/csrc/"
                                 "stencil3d_bf16.cu",
                                 "multigridcmt_tpu/kernels/stencil3d.py:510",
-                                "slab511-mixed"),
+                                None),
     "stencil3d_jacobi_bf16": ("stencil3d", "jacobi_bf16_launches",
                               "multigridcmt_tpu_torch/kernels/csrc/"
                               "stencil3d_bf16.cu",
@@ -2570,7 +2788,7 @@ KERNELS = {
                                   "multigridcmt_tpu_torch/kernels/csrc/"
                                   "stencil3d_bf16.cu",
                                   "multigridcmt_tpu/kernels/stencil3d.py:485",
-                                  "slab511-mixed-jacobi"),
+                                  None),
     # The bfloat16 modes of the shard tile legs (sharded mixed precision):
     # the down leg and the up leg storing float32 run on a sharded mixed
     # cycle's fine level (S1mixed packed, S1unpacked-mixed unpacked); the up
@@ -2630,6 +2848,40 @@ KERNELS = {
     "bell_spmm_bf16": ("bell", "bf16_launches",
                        "multigridcmt_tpu_torch/kernels/csrc/bell.cu",
                        "multigridcmt_tpu/kernels/bell.py:180", None),
+    # The native bfloat16 modes (the TPU kernels computing in bfloat16
+    # itself: every operation rounded). No path of either package runs
+    # them: direct calls only.
+    "stencil2d_residual_bf16": ("stencil2d", "residual_bf16_launches",
+                                "multigridcmt_tpu_torch/kernels/csrc/"
+                                "native_bf16.cu",
+                                "multigridcmt_tpu/kernels/stencil2d.py:304",
+                                None),
+    "stencil2d_rbgs_bf16": ("stencil2d", "rbgs_bf16_launches",
+                            "multigridcmt_tpu_torch/kernels/csrc/"
+                            "native_bf16.cu",
+                            "multigridcmt_tpu/kernels/stencil2d.py:284",
+                            None),
+    "stencil2d_jacobi_bf16": ("stencil2d", "jacobi_bf16_launches",
+                              "multigridcmt_tpu_torch/kernels/csrc/"
+                              "native_bf16.cu",
+                              "multigridcmt_tpu/kernels/stencil2d.py:295",
+                              None),
+    "local2d_residual_bf16": ("local2d", "residual_bf16_launches",
+                              "multigridcmt_tpu_torch/kernels/csrc/"
+                              "native_bf16.cu",
+                              "multigridcmt_tpu/kernels/local2d.py:289",
+                              None),
+    "local2d_rbgs_bf16": ("local2d", "rbgs_bf16_launches",
+                          "multigridcmt_tpu_torch/kernels/csrc/"
+                          "native_bf16.cu",
+                          "multigridcmt_tpu/kernels/local2d.py:263", None),
+    "local2d_jacobi_bf16": ("local2d", "jacobi_bf16_launches",
+                            "multigridcmt_tpu_torch/kernels/csrc/"
+                            "native_bf16.cu",
+                            "multigridcmt_tpu/kernels/local2d.py:278", None),
+    "spmv_dia_bf16": ("spmv", "bf16_launches",
+                      "multigridcmt_tpu_torch/kernels/csrc/spmv.cu",
+                      "multigridcmt_tpu/kernels/spmv.py:254", None),
 }
 # A kernel's launches by one variant -> (counter module, counter, the
 # KERNELS entries whose launches they are part of): the bfloat16 RB-GS
@@ -2670,7 +2922,12 @@ DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d",
                "plocal2d_apply_bf16": "cdt_bf16_direct",
                "plocal2d_resnorm_bf16": "cdt_bf16_direct",
                "packed2d_resnorm_bf16": "cdt_bf16_direct",
-               "bell_spmm_bf16": "cdt_bf16_direct"}
+               "bell_spmm_bf16": "cdt_bf16_direct",
+               **{name: "native_bf16_direct" for name in (
+                   "stencil2d_residual_bf16", "stencil2d_rbgs_bf16",
+                   "stencil2d_jacobi_bf16", "local2d_residual_bf16",
+                   "local2d_rbgs_bf16", "local2d_jacobi_bf16",
+                   "spmv_dia_bf16")}}
 
 
 def kernel_module(mod: str):
@@ -3969,6 +4226,38 @@ def paths_cdt_bf16(runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def paths_native_bf16(runs: dict) -> None:
+    """Direct calls (native_bf16_direct) of the native bfloat16 modes, which
+    no path of either package runs: each launched exactly once at its
+    NATIVE_STENCIL_N or on S1's tile (RB-GS nu = 4, Jacobi nu = 8) or at
+    the 4095^2 SpMV, sigma 0; outputs bfloat16 of the input's shape,
+    finite."""
+    from multigridcmt_tpu_torch.kernels import spmv
+
+    calls = {}
+    for mode, n in NATIVE_STENCIL_N.items():
+        u, b = native_grids(n, n + 311)
+        calls[f"stencil2d_{mode}_bf16"] = (native_stencil_calls(
+            mode, u, b, n, 0.0, max(NATIVE_SWEEPS.get(mode, (0,))))[0], u)
+    ue, be, t = native_tile("S1", 312)
+    for mode in NATIVE_STENCIL_N:
+        calls[f"local2d_{mode}_bf16"] = (native_local_calls(
+            mode, ue, be, t, 0.0, max(NATIVE_SWEEPS.get(mode, (0,))))[0], ue)
+    _, pk, xp = native_dia(313)
+    calls["spmv_dia_bf16"] = (lambda: spmv.spmv_packed(pk, xp), xp)
+    out, counts, _ = counted(lambda: {k: fn() for k, (fn, _) in
+                                      calls.items()})
+    for k, (_, like) in calls.items():
+        require(out[k].dtype == torch.bfloat16 and out[k].shape == like.shape
+                and bool(out[k].isfinite().all()),
+                f"native bf16 direct {k}: {out[k].dtype} "
+                f"{tuple(out[k].shape)} or not finite")
+    require_counts("native bf16 direct", counts, **{k: 1 for k in calls})
+    runs["native_bf16_direct"] = counts
+    del calls, out, ue, be, pk, xp
+    torch.cuda.empty_cache()
+
+
 def paths_mixed3d(runs: dict) -> None:
     """3D mixed precision: MG-PCG at 511^3 float32 with
     precond_dtype=torch.bfloat16 (mixed3d) beside the float32 PCG, with
@@ -4312,28 +4601,25 @@ def paths_sharded3d(runs: dict) -> None:
 
     def want(method, slab, i, tier, kind="rbgs", pd=None, pairs=False):
         """Launches of a solve: per cycle nu1 + nu2 = 4 sweep launches and
-        one residual a kernel level (the fine level in bfloat16 under a
-        mixed preconditioner: 3 bfloat16 sweeps, the last up sweep storing
-        float32, the bfloat16 residual); the slab check residual (1
-        plane) before the first cycle and after each, or PCG's first
-        residual and one apply an iteration; none on a pencil mesh. Of
-        the bfloat16 RB-GS sweeps all 4 are paired where ``pairs`` holds;
-        the 3 bfloat16-storing Jacobi sweeps are paired on every stack
-        (jacobi_pairs: c odd)."""
+        one residual a kernel level (the fine level under a mixed
+        preconditioner: its nu1 = 2 down sweeps and its residual in
+        bfloat16, then the correction add promotes the stack and its nu2
+        = 2 up sweeps run in float32); the slab check residual (1 plane)
+        before the first cycle and after each, or PCG's first residual
+        and one apply an iteration; none on a pencil mesh. The 2 bfloat16
+        RB-GS sweeps are paired where ``pairs`` holds, the 2 bfloat16
+        Jacobi sweeps on every stack (jacobi_pairs: c odd)."""
         c = i if method == "mg" else i + 1
         checks = (i + 1) if slab else 0
         out = {f"stencil3d_{kind}": 4 * tier * c,
                "stencil3d_residual": tier * c + checks}
         if pd is not None:
-            out = {f"stencil3d_{kind}": 4 * (tier - 1) * c,
+            out = {f"stencil3d_{kind}": (4 * (tier - 1) + 2) * c,
                    "stencil3d_residual": (tier - 1) * c + checks,
-                   f"stencil3d_{kind}_bf16": 3 * c,
-                   f"stencil3d_{kind}_bf16_f32": c,
+                   f"stencil3d_{kind}_bf16": 2 * c,
                    "stencil3d_residual_bf16": c}
-            if pairs:
-                out["stencil3d_rbgs_bf16_pairs"] = 4 * c
-            if kind == "jacobi":
-                out["stencil3d_jacobi_bf16_pairs"] = 3 * c
+            if pairs or kind == "jacobi":
+                out[f"stencil3d_{kind}_bf16_pairs"] = 2 * c
         return out
 
     full = {}
@@ -4375,12 +4661,13 @@ def paths_sharded3d(runs: dict) -> None:
                     ref = full[(shape, smoother)] = ref_solver.solve(
                         prob.b, method="pcg")
                     del ref_solver
-                bound = math.ceil(MIXED_ITER_FACTOR * ref.iters) + 1
+                # The correction add promotes the stack (F7 not copied):
+                # the mixed run takes the float32 run's iterations.
                 log(f"  float32 sharded pcg: {ref.iters} iterations, "
-                    f"converged {ref.converged}; bound {bound}")
-                require(ref.converged and res.converged and i <= bound,
+                    f"converged {ref.converged}")
+                require(ref.converged and res.converged and i == ref.iters,
                         f"{run}: {i} iterations (converged {res.converged}) "
-                        f"against float32's {ref.iters}: bound {bound}")
+                        f"against float32's {ref.iters}")
             if run in SHARDED3D_PLAIN_RUNS:
                 # The same solve on the plain stencil3d versions: the
                 # kernels' roundings do not set the iteration count.
@@ -5059,6 +5346,7 @@ def phase_main_path():
     start = time.perf_counter()
     paths_mixed(runs)
     paths_cdt_bf16(runs)
+    paths_native_bf16(runs)
     log(f"mixed-precision paths: {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
     paths_sharded_eigen(runs)
@@ -6328,6 +6616,73 @@ def timed_cdt_bf16(times: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def timed_native_bf16(times: dict) -> None:
+    """The native bfloat16 modes at sigma 0: stencil2d's at
+    NATIVE_STENCIL_N (RB-GS nu = 4, Jacobi nu = 8), local2d's on S1's fine
+    tile, the SpMV at 4095^2; each against its plain version in turns
+    (single calls), as LEG_CHAIN chained calls and by the profiler's device
+    time a call. Bounds: the inputs read once and the output written once
+    in bfloat16, or the operations (NATIVE_OPS) at the float32 rate. The
+    SpMV beside torch.mv on its matrix as a bfloat16 CSR (cuSPARSE), where
+    PyTorch runs it (else library_ms is null, the reason in
+    library_note)."""
+    from multigridcmt_tpu_torch.kernels import spmv
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
+
+    cases = {}
+    for mode, n in NATIVE_STENCIL_N.items():
+        u, b = native_grids(n, n + 321)
+        nu = max(NATIVE_SWEEPS.get(mode, (1,)))
+        kernel, plain = native_stencil_calls(mode, u, b, n, 0.0, nu)
+        cases[f"stencil2d_{mode}_bf16"] = (kernel, plain, nbytes(u, b, u),
+                                           NATIVE_OPS[mode] * nu * n * n)
+    ue, be, t = native_tile("S1", 322)
+    n = t["n"]
+    for mode in NATIVE_STENCIL_N:
+        nu = max(NATIVE_SWEEPS.get(mode, (1,)))
+        kernel, plain = native_local_calls(mode, ue, be, t, 0.0, nu)
+        cases[f"local2d_{mode}_bf16"] = (kernel, plain, nbytes(ue, be, ue),
+                                         NATIVE_OPS[mode] * nu * n * n)
+    a, pk, xp = native_dia(323)
+    cases["spmv_dia_bf16"] = (
+        lambda: spmv.spmv_packed(pk, xp),
+        lambda: spmv.spmv_packed_plain(pk, xp),
+        nbytes(pk.diags, pk.offset_tensor, xp, xp),
+        2 * len(pk.offsets) * pk.n)
+    for name, (kernel, plain, nb, flops) in cases.items():
+        pair = time_pair(f"{name} native", kernel, plain)
+        row = {"ms": chained_ms(kernel, LEG_CHAIN), "single_ms": pair["ms"],
+               "plain_ms": pair["plain_ms"], "device_ms": pair["device_ms"],
+               "bytes": nb, "flops": flops, "library_ms": None}
+        row["chained_ms"] = row["ms"]
+        bound = max(nb / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
+        log(f"native {name}: chained x{LEG_CHAIN} {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; "
+            f"bound {bound:.4f} ms ({100 * bound / row['device_ms']:.1f}% "
+            "of the device time)")
+        times[name] = row
+    # The library's call of the same product: torch.mv on the matrix as a
+    # bfloat16 CSR of int32 indices.
+    row = times["spmv_dia_bf16"]
+    try:
+        x = spmv.unpack_y(xp, pk.n, pk.halo)
+        csr = dia_to_torch_csr(a)
+        lib_out = torch.mv(csr, x)
+        want = spmv.unpack_y(spmv.spmv_packed(pk, xp), pk.n, pk.halo)
+        lib_rel = rel_err(lib_out.float(), want.float())[1]
+        row["library_ms"] = cuda_time_ms(lambda: torch.mv(csr, x))
+        log(f"  bf16 CSR torch.mv: {row['library_ms']:.4f} ms (rel diff "
+            f"{lib_rel:.1e})")
+        del csr, lib_out
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        row["library_note"] = (f"torch.mv on a bfloat16 CSR raised "
+                               f"{type(exc).__name__}: {exc}"[:300])
+        log(f"  {row['library_note']}")
+    del cases, ue, be, a, pk, xp
+    torch.cuda.empty_cache()
+
+
 def timed_mixed3d(times: dict) -> None:
     """The stencil3d kernels' bfloat16 modes at 511^3, sigma = 0, one
     launch a call, each against its plain version in turns (single calls),
@@ -6553,13 +6908,13 @@ STENCIL3D_JACOBI = re.compile(r"(?<!\w)(jacobi_pairs_kernel<|"
 def timed_mixed_jacobi3d(times: dict) -> None:
     """One preconditioning cycle at 511^3 of slab511-mixed-jacobi and
     pencil511-mixed-jacobi (ShardedSolver's PCG preconditioner: a sharded
-    cycle from zero on the defect in bfloat16, out_dtype float32) beside
+    cycle from zero on the defect in bfloat16, promoted to float32 at the
+    fine level's correction add) beside
     the float32 cycle on the same defect in float32, in turns (float32,
     bfloat16, bfloat16, float32 a mesh): time by CUDA events, device busy,
     ops, idle share, and the stencil3d kernels', the stencil3d Jacobi
     kernels' and the cat and copy kernels' device time a cycle."""
     import multigridcmt_tpu_torch as mt
-    from multigridcmt_tpu_torch.kernels import _wrap
     from multigridcmt_tpu_torch.parallel import sharded
     from multigridcmt_tpu_torch.utils.breakdown import (SHARDED3D_KERNELS,
                                                         device_busy)
@@ -6579,10 +6934,9 @@ def timed_mixed_jacobi3d(times: dict) -> None:
         bt = sharded.shard_rhs(prob.b, solver.mesh, solver.decomp)
 
         def cycle(rp, solver=solver):
-            odt = _wrap.compute_dtype(rp.dtype) if rp.dtype == bf16 else None
             return sharded._sharded_v_cycle(
                 solver.hierarchy, cfg, solver.decomp, torch.zeros_like(rp),
-                rp, 0, 1, out_dtype=odt)
+                rp, 0, 1)
 
         fns = {dt: functools.partial(cycle, bt.to(dt))
                for dt in (torch.float32, bf16)}
@@ -6664,6 +7018,7 @@ def phase_times():
     start = time.perf_counter()
     timed_mixed(times)
     timed_cdt_bf16(times)
+    timed_native_bf16(times)
     timed_mixed3d(times)
     log(f"mixed-precision times: {time.perf_counter() - start:.1f} s")
     timed_composed(times)

@@ -146,6 +146,16 @@ for _name in ("stencil3d_residual", "stencil3d_jacobi", "stencil3d_rbgs"):
     SIGNATURES[f"mg_{_name}_bf16"] = SIGNATURES[f"mg_{_name}_f32"]
 for _name in ("stencil3d_jacobi", "stencil3d_rbgs"):
     SIGNATURES[f"mg_{_name}_bf16_f32"] = SIGNATURES[f"mg_{_name}_f32"]
+# The native bfloat16 modes (every operation rounded to bfloat16, the
+# constants rounded on the host; csrc/native_bf16.cu and spmv.cu): u, b, r,
+# R, C, n, row_off, col_off, inv_h2, sigma, stream; u, b, out, tmp, R, C,
+# n, row_off, col_off, h2, inv_h2, sigma, inv_den, coef, kind, sweeps,
+# stream; the DIA SpMV with the float32 entry point's arguments.
+SIGNATURES["mg_native2d_residual_bf16"] = [_P, _P, _P] + [_I] * 5 + [
+    _D, _D, _P]
+SIGNATURES["mg_native2d_sweep_bf16"] = [_P] * 4 + [_I] * 5 + [_D] * 5 + [
+    _I, _I, _P]
+SIGNATURES["mg_spmv_dia_bf16"] = SIGNATURES["mg_spmv_dia_f32"]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

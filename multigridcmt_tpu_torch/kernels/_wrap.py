@@ -3,20 +3,23 @@
 Device rule: a CPU tensor takes the wrapper's plain PyTorch version; a
 CUDA tensor launches the kernel or raises; any other device raises.
 
-Storage rule (the JAX package's ``_cdt``, ``packed2d.py:74-90``): a kernel
-computes in float32 or float64. A kernel whose TPU original follows
-``_cdt`` also takes bfloat16 storage: the packed 2D tier (``packed2d``:
-the legs, the sweep, the residual and the norm), the 3D kernel tier
-(``stencil3d``), the shard tiles' legs (``local2d``, ``plocal2d``), the
-packed tile's residual, apply and norm (``plocal2d``) and the BELL SpMM
-(``bell``). Each load widens to float32, each output point rounds to
-bfloat16 once, any coarse operand is float32, a norm is a float32 sum,
-and an output may be stored in float32 (``out_dtype``: the up legs, the
-3D sweeps; the 3D residual always is, ``check_out_dtype``). The kernels
-whose TPU original computes in bfloat16 itself (every operation rounded,
-sigma bfloat16: local2d's sweeps and residual and the DIA SpMV, through
-``check_storage``; stencil2d, fused2d and transfer2d, through
-``check_grid``'s TypeError) raise, naming their ROADMAP.md item.
+Storage rule. A kernel computes in float32 or float64. A kernel whose TPU
+original follows ``_cdt`` (the JAX package's ``packed2d.py:74-90``) also
+takes bfloat16 storage: the packed 2D tier (``packed2d``: the legs, the
+sweep, the residual and the norm), the 3D kernel tier (``stencil3d``),
+the shard tiles' legs (``local2d``, ``plocal2d``), the packed tile's
+residual, apply and norm (``plocal2d``) and the BELL SpMM (``bell``). Each
+load widens to float32, each output point rounds to bfloat16 once, any
+coarse operand is float32, a norm is a float32 sum, and an output may be
+stored in float32 (``out_dtype``: the up legs, the 3D sweeps; the 3D
+residual always is, ``check_out_dtype``). A kernel whose TPU original
+computes in bfloat16 itself (every operation rounded, sigma and the
+constants bfloat16) has a native bfloat16 mode that does the same: the
+residuals and sweeps of ``stencil2d`` and ``local2d`` (``native_bf16``)
+and the DIA SpMV (``spmv``); ``check_grid``'s ``storage`` lets stencil2d's
+bfloat16 grids through. The rest of that family, the fused legs
+(``fused2d``) and the transfers (``transfer2d``), raise TypeError through
+``check_storage``, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -32,10 +35,12 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 COMPUTE = (torch.float32, torch.float64)
 STORAGE = COMPUTE + (torch.bfloat16,)
 
-# The bfloat16 modes that compute in bfloat16 itself in the JAX package
-# (and that no mixed path of either package runs): each raises, naming
-# their ROADMAP.md item.
-MIXED_OFF_PATH = "queue 2, part B: bfloat16 storage off the mixed paths"
+# The bfloat16 modes not ported (those of the fused legs and the
+# transfers, which compute in bfloat16 itself in the JAX package; a
+# bfloat16 solve on the stencil3d kernels): each raises, naming their
+# ROADMAP.md item.
+MIXED_OFF_PATH = ("queue 2, part B2: bfloat16 storage in the fused legs and "
+                  "the transfers")
 MIXED_TODO = ("{what}: bfloat16 storage is not ported to CUDA: no mixed "
               "path stores bfloat16 there (ROADMAP.md, " + MIXED_OFF_PATH
               + ")")
@@ -48,11 +53,11 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def check_storage(what: str, t: torch.Tensor) -> None:
-    """Raise NotImplementedError (``MIXED_TODO``) for a bfloat16 ``t`` given
-    to a kernel whose bfloat16 mode is not ported (computes in bfloat16
-    in the JAX package; no mixed path runs it)."""
+    """Raise TypeError (``MIXED_TODO``) for a bfloat16 ``t`` given to a
+    kernel whose bfloat16 mode is not ported (computes in bfloat16 in the
+    JAX package; no mixed path runs it)."""
     if t.dtype == torch.bfloat16:
-        raise NotImplementedError(MIXED_TODO.format(what=what))
+        raise TypeError(MIXED_TODO.format(what=what))
 
 
 def check_out_dtype(what: str, t: torch.Tensor, out_dtype) -> torch.dtype:
@@ -73,7 +78,7 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple,
                  ref: torch.Tensor, dtype=None,
                  storage: bool = False) -> None:
     """Raise unless ``t`` is a contiguous float32 or float64 tensor (or,
-    with ``storage``, bfloat16: a mixed fine level) of ``shape``, on ``ref``'s
+    with ``storage``, bfloat16) of ``shape``, on ``ref``'s
     device and of ``ref``'s dtype (or of ``dtype``)."""
     want = ref.dtype if dtype is None else dtype
     if t.dtype not in (STORAGE if storage else COMPUTE):
@@ -91,9 +96,9 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple,
 
 
 def check_grid(name: str, t: torch.Tensor, n: int, ref: torch.Tensor,
-               dtype=None) -> None:
+               dtype=None, storage: bool = False) -> None:
     """``check_tensor`` for an (n+2, n+2) padded grid."""
-    check_tensor(name, t, (n + 2, n + 2), ref, dtype)
+    check_tensor(name, t, (n + 2, n + 2), ref, dtype, storage)
 
 
 def on_cuda(t: torch.Tensor) -> bool:

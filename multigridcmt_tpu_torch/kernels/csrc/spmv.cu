@@ -1,7 +1,9 @@
 // Banded (DIA) sparse matrix-vector product on the packed layout.
 //
 // Replaces the TPU kernel multigridcmt_tpu/kernels/spmv.py (spmv_packed,
-// its pallas_call): spmv_packed -> mg_spmv_dia.
+// its pallas_call): spmv_packed -> mg_spmv_dia, in float32 and float64 and
+// in the TPU kernel's native bfloat16 mode (mg_spmv_dia_bf16: every product
+// and sum rounded to bfloat16; the float32 and float64 code is unchanged).
 //
 // Layout (kernels/spmv.py): x and y are (H + R + H) x 128 row-major, the
 // logical element i at flat position H*128 + i, the H-row skirts zero; the
@@ -28,7 +30,10 @@
 // cache: every thread of a warp reads the same one. Indices are 64-bit.
 // The TPU kernel's DMA tiles, lane rotates and skirt windows are layout
 // devices of VMEM and the TPU's lanes, and are not carried over.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,13 +48,31 @@ spmv_dia_kernel(const T* __restrict__ d, const T* __restrict__ x,
                       threadIdx.x;
   if (t >= len + 2 * skirt) return;
   const long long i = t - skirt;
-  T acc = T(0);
-  if (i >= 0 && i < len) {
-    for (int k = 0; k < ndiag; ++k) {
-      acc += d[k * len + i] * x[t + __ldg(offsets + k)];
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // The native bfloat16 mode: each product and each sum rounded to
+    // bfloat16 (nearest even) at once, in offsets order from +0, as the
+    // TPU kernel computes in bfloat16 itself. One float32 operation with
+    // an explicit rounding mode (no FMA) rounded to bfloat16 is the
+    // correctly rounded bfloat16 result (24 >= 2 * 8 + 2).
+    float acc = 0.0f;
+    if (i >= 0 && i < len) {
+      for (int k = 0; k < ndiag; ++k) {
+        const float p = __bfloat162float(__float2bfloat16_rn(__fmul_rn(
+            __bfloat162float(d[k * len + i]),
+            __bfloat162float(x[t + __ldg(offsets + k)]))));
+        acc = __bfloat162float(__float2bfloat16_rn(__fadd_rn(acc, p)));
+      }
     }
+    y[t] = __float2bfloat16_rn(acc);
+  } else {
+    T acc = T(0);
+    if (i >= 0 && i < len) {
+      for (int k = 0; k < ndiag; ++k) {
+        acc += d[k * len + i] * x[t + __ldg(offsets + k)];
+      }
+    }
+    y[t] = acc;
   }
-  y[t] = acc;
 }
 
 template <typename T>
@@ -81,6 +104,12 @@ int mg_spmv_dia_f64(const void* d, const void* x, const void* offsets,
                     void* y, int ndiag, long long len, long long skirt,
                     void* stream) {
   return launch<double>(d, x, offsets, y, ndiag, len, skirt, stream);
+}
+
+int mg_spmv_dia_bf16(const void* d, const void* x, const void* offsets,
+                     void* y, int ndiag, long long len, long long skirt,
+                     void* stream) {
+  return launch<__nv_bfloat16>(d, x, offsets, y, ndiag, len, skirt, stream);
 }
 
 }  // extern "C"

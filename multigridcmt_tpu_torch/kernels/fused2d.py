@@ -15,7 +15,9 @@ down leg's residual is taken at every interior point, as in JAX.
 
 Each wrapper has its plain PyTorch version beside it: the composition of
 the ``ops/`` functions. Device rule: a CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises.
+a CUDA tensor launches the kernel or raises. bfloat16 grids raise
+TypeError (``_wrap.check_storage``): the TPU legs' own bfloat16 mode is
+ROADMAP.md's queue 2, part B2.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 
 from ..ops import laplacian, smoothers, transfer
 from . import _build, packed2d
-from ._wrap import check_grid, launch_on, on_cuda
+from ._wrap import check_grid, check_storage, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count).
@@ -112,6 +114,7 @@ def smooth_residual_restrict(u: torch.Tensor, b: torch.Tensor, n: int,
     _check_schedule(kind, sweeps, max_down_sweeps(kind))
     if n < 3 or n % 2 == 0:
         raise ValueError(f"fine n={n} must be odd and >= 3 (n = 2*nc + 1)")
+    check_storage("fused2d.smooth_residual_restrict", u)
     check_grid("u", u, n, u)
     check_grid("b", b, n, u)
     if not on_cuda(u):
@@ -149,6 +152,7 @@ def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
     _check_schedule(kind, sweeps, max_up_sweeps(kind))
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")
+    check_storage("fused2d.prolong_add_smooth", x)
     check_grid("x", x, n, x)
     check_grid("e", e, nc, x)
     check_grid("b", b, n, x)

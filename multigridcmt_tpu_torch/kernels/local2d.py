@@ -54,17 +54,23 @@ store; the down leg's residual is that of u' as stored and its coarse
 right-hand side is float32, as is the up leg's coarse correction. The up
 leg stores x' in bfloat16 or, with ``out_dtype=torch.float32`` (the top
 level of a mixed cycle, ``parallel/sharded.py``), in float32. The plain
-versions follow the same rule. The sweeps and the residual take no
-bfloat16 tile: no path of either package stores one there.
+versions follow the same rule.
+
+Native bfloat16 (the TPU sweeps' and residual's own mode on bfloat16
+tiles: every operation rounded to bfloat16, sigma and the constants too):
+``rbgs_sweep``, ``jacobi_sweep`` and ``residual`` take bfloat16 tiles and
+run ``native_bf16``'s plain versions or its kernel
+(``csrc/native_bf16.cu``), counted apart. No path of either package runs
+them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from . import _build, packed2d
-from ._wrap import check_out_dtype, check_storage, \
-    check_tensor, compute_dtype, launch_on, on_cuda
+from . import _build, native_bf16, packed2d
+from ._wrap import check_out_dtype, check_tensor, compute_dtype, \
+    launch_on, on_cuda
 
 # Ghost rows exchanged per side of a tile, as in the JAX module: 4 fused
 # RB-GS sweeps or 8 Jacobi sweeps, or one whole leg.
@@ -91,6 +97,11 @@ up_launches = 0
 down_bf16_launches = 0
 up_bf16_launches = 0
 up_bf16_f32_launches = 0
+# The native bfloat16 modes of the sweeps and the residual (one a call,
+# whatever its launches).
+rbgs_bf16_launches = 0
+jacobi_bf16_launches = 0
+residual_bf16_launches = 0
 
 
 def max_fused_sweeps(kind: str) -> int:
@@ -329,17 +340,14 @@ def _launch_geometry(leg: str, t: torch.Tensor, n: int, row_off: int,
         **_frame(*t.shape, int(row_off), int(col_off)))
 
 
-def _check_tile(what: str, u: torch.Tensor, b: torch.Tensor,
-                storage: bool = False) -> None:
-    """Raise unless u and b are 2D tiles of one shape and dtype: float32
-    or float64, or with ``storage`` (the legs) bfloat16 too."""
-    if not storage:
-        check_storage(what, u)
+def _check_tile(what: str, u: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise unless u and b are 2D tiles of one shape and dtype: float32,
+    float64 or bfloat16."""
     if u.ndim != 2 or min(u.shape) < 3:
         raise ValueError(f"{what}: expected a 2D tile of at least 3 x 3, "
                          f"got shape {tuple(u.shape)}")
-    check_tensor("u", u, u.shape, u, storage=storage)
-    check_tensor("b", b, u.shape, u, storage=storage)
+    check_tensor("u", u, u.shape, u, storage=True)
+    check_tensor("b", b, u.shape, u, storage=True)
 
 
 def _check_kind(kind: str, sweeps: int, cap: int) -> None:
@@ -382,12 +390,17 @@ def rbgs_sweep(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
     """``sweeps`` (1 to 4) fused RB-GS sweeps on an extended tile; n is the
     global interior size, (row_off, col_off) the global index of the
     tile's (0, 0)."""
-    global rbgs_launches
+    global rbgs_launches, rbgs_bf16_launches
     if sweeps < 1:
         raise ValueError(f"{sweeps} rbgs sweeps: one launch takes 1 to "
                          f"{max_fused_sweeps('rbgs')}")
     _check_kind("rbgs", sweeps, max_fused_sweeps("rbgs"))
     _check_tile("local2d.rbgs_sweep", u_ext, b_ext)
+    if u_ext.dtype == torch.bfloat16:
+        out, launched = native_bf16.sweep("rbgs", u_ext, b_ext, n, h, 1.0,
+                                          sweeps, row_off, col_off, sigma)
+        rbgs_bf16_launches += launched
+        return out
     if not on_cuda(u_ext):
         return rbgs_sweep_plain(u_ext, b_ext, n, h, row_off, col_off,
                                 sigma=sigma, sweeps=sweeps)
@@ -402,12 +415,18 @@ def jacobi_sweep(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
                  sweeps: int = 1) -> torch.Tensor:
     """``sweeps`` (1 to 8) fused weighted-Jacobi sweeps on an extended
     tile."""
-    global jacobi_launches
+    global jacobi_launches, jacobi_bf16_launches
     if sweeps < 1:
         raise ValueError(f"{sweeps} jacobi sweeps: one launch takes 1 to "
                          f"{max_fused_sweeps('jacobi')}")
     _check_kind("jacobi", sweeps, max_fused_sweeps("jacobi"))
     _check_tile("local2d.jacobi_sweep", u_ext, b_ext)
+    if u_ext.dtype == torch.bfloat16:
+        out, launched = native_bf16.sweep("jacobi", u_ext, b_ext, n, h,
+                                          omega, sweeps, row_off, col_off,
+                                          sigma)
+        jacobi_bf16_launches += launched
+        return out
     if not on_cuda(u_ext):
         return jacobi_sweep_plain(u_ext, b_ext, n, h, omega, row_off,
                                   col_off, sigma=sigma, sweeps=sweeps)
@@ -421,8 +440,13 @@ def residual(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
              row_off: int, col_off: int = 0, sigma=0.0) -> torch.Tensor:
     """r = b - (A - sigma I) u on an extended tile; zero off the global
     interior and on the tile's ring."""
-    global residual_launches
+    global residual_launches, residual_bf16_launches
     _check_tile("local2d.residual", u_ext, b_ext)
+    if u_ext.dtype == torch.bfloat16:
+        out, launched = native_bf16.residual(u_ext, b_ext, n, h, row_off,
+                                             col_off, sigma)
+        residual_bf16_launches += launched
+        return out
     if not on_cuda(u_ext):
         return residual_plain(u_ext, b_ext, n, h, row_off, col_off,
                               sigma=sigma)
@@ -451,7 +475,7 @@ def down_leg(u_ext: torch.Tensor, b_ext: torch.Tensor, n: int, h: float,
     """
     global down_launches, down_bf16_launches
     _check_kind(kind, sweeps, max_down_sweeps(kind))
-    _check_tile("local2d.down_leg", u_ext, b_ext, storage=True)
+    _check_tile("local2d.down_leg", u_ext, b_ext)
     cshape = _check_leg(n, m, mcol, u_ext.shape)
     if not on_cuda(u_ext):
         return down_leg_plain(u_ext, b_ext, n, h, m, row_off, col_off,
@@ -494,7 +518,7 @@ def up_leg(x_ext: torch.Tensor, e_ext: torch.Tensor, b_ext: torch.Tensor,
     """
     global up_launches, up_bf16_launches, up_bf16_f32_launches
     _check_kind(kind, sweeps, max_up_sweeps(kind))
-    _check_tile("local2d.up_leg", x_ext, b_ext, storage=True)
+    _check_tile("local2d.up_leg", x_ext, b_ext)
     out_dtype = check_out_dtype("local2d.up_leg", x_ext, out_dtype)
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")

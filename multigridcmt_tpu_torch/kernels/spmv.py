@@ -19,11 +19,16 @@ feeds the next apply directly.
 Every diagonal entry past N is zero (``pack_dia`` pads with zeros), so
 rows i >= N of the result come out 0, and the skirt reads of edge rows are
 multiplied by the zeros the assembly put there: the kernel has no masks,
-as the TPU kernel has none. bfloat16 storage raises (no mixed path of the
-port reaches it).
+as the TPU kernel has none.
+
+bfloat16 (the TPU kernel's own mode, which no path of either package runs):
+the product and the sum of each step round to bfloat16, y = 0, then y = y +
+d_k x_k in ``offsets`` order, each operation rounded (``mg_spmv_dia_bf16``;
+launches counted apart, ``bf16_launches``).
 
 ``spmv_packed_plain`` is the plain PyTorch version: the same sum, in
-``offsets`` order. Device rule (``_wrap``): a CPU tensor takes the plain
+``offsets`` order, each product and sum a PyTorch op in the storage dtype
+(in bfloat16 each rounds, as the TPU kernel's). Device rule (``_wrap``): a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -35,14 +40,14 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.sparse import DIA
-from ._wrap import check_storage, check_tensor, \
-    launch_on, on_cuda
+from ._wrap import check_tensor, launch_on, on_cuda
 
 LANES = 128
 
 # Launches of the CUDA kernel in this process (plain-version calls do not
-# count).
+# count); the bfloat16 mode's apart.
 launches = 0
+bf16_launches = 0
 
 
 def rows_for(n_elems: int) -> int:
@@ -110,8 +115,6 @@ def unpack_y(y_packed: torch.Tensor, n: int, halo: int) -> torch.Tensor:
 
 
 def _check(a: PackedDIA, x_packed: torch.Tensor) -> None:
-    check_storage("spmv.spmv_packed", a.diags)
-    check_storage("spmv.spmv_packed", x_packed)
     if a.diags.ndim != 3 or a.diags.shape[0] != len(a.offsets) \
             or a.diags.shape[2] != LANES:
         raise ValueError(f"spmv: diags of shape {tuple(a.diags.shape)} for "
@@ -121,8 +124,10 @@ def _check(a: PackedDIA, x_packed: torch.Tensor) -> None:
     if r != rows_for(a.n):
         raise ValueError(f"spmv: {r} packed rows for n={a.n}, expected "
                          f"{rows_for(a.n)}")
-    check_tensor("diags", a.diags, tuple(a.diags.shape), x_packed)
-    check_tensor("x_packed", x_packed, (r + 2 * a.halo, LANES), x_packed)
+    check_tensor("diags", a.diags, tuple(a.diags.shape), x_packed,
+                 storage=True)
+    check_tensor("x_packed", x_packed, (r + 2 * a.halo, LANES), x_packed,
+                 storage=True)
 
 
 def spmv_packed_plain(a: PackedDIA, x_packed: torch.Tensor) -> torch.Tensor:
@@ -141,7 +146,7 @@ def spmv_packed_plain(a: PackedDIA, x_packed: torch.Tensor) -> torch.Tensor:
 
 def spmv_packed(a: PackedDIA, x_packed: torch.Tensor) -> torch.Tensor:
     """y = A @ x entirely in the packed layout; y feeds the next call."""
-    global launches
+    global launches, bf16_launches
     _check(a, x_packed)
     if not on_cuda(x_packed):
         return spmv_packed_plain(a, x_packed)
@@ -150,7 +155,10 @@ def spmv_packed(a: PackedDIA, x_packed: torch.Tensor) -> torch.Tensor:
     launch_on(x_packed, "spmv_dia", a.diags.data_ptr(), x_packed.data_ptr(),
               a.offset_tensor.data_ptr(), y.data_ptr(), len(a.offsets),
               r * LANES, a.halo * LANES, writes=(y,))
-    launches += 1
+    if x_packed.dtype == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return y
 
 

@@ -18,6 +18,12 @@ on what bounds them):
     kernel-tier level with them where a leg has more sweeps than a fused
     leg takes, in chunks of that many.
 
+Native bfloat16 (the TPU kernels' own mode on bfloat16 grids: every
+operation rounded to bfloat16, sigma and the constants too): the three
+take bfloat16 u and b and run ``native_bf16``'s plain versions or its
+kernel (``csrc/native_bf16.cu``), counted apart. No path of either package
+runs them.
+
 Device rule (``_wrap``): a CPU tensor takes the plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
 """
@@ -26,15 +32,19 @@ from __future__ import annotations
 import torch
 
 from ..ops import laplacian, smoothers
-from . import _build, fused2d
+from . import _build, fused2d, native_bf16
 from ._wrap import check_grid, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count): the residual, and the sweep kernel in each mode (one a launch,
-# whatever its sweep count).
+# whatever its sweep count); the native bfloat16 modes apart (one a call,
+# whatever its launches).
 launches = 0
 rbgs_launches = 0
 jacobi_launches = 0
+residual_bf16_launches = 0
+rbgs_bf16_launches = 0
+jacobi_bf16_launches = 0
 
 
 def max_fused_sweeps(kind: str) -> int:
@@ -51,10 +61,14 @@ def residual_plain(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
 def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
              sigma=0.0) -> torch.Tensor:
     """r = b - (A - sigma I) u on (n+2, n+2) padded grids; ghosts of r are
-    zero."""
-    global launches
-    check_grid("u", u, n, u)
-    check_grid("b", b, n, u)
+    zero. bfloat16 grids: the native mode."""
+    global launches, residual_bf16_launches
+    check_grid("u", u, n, u, storage=True)
+    check_grid("b", b, n, u, storage=True)
+    if u.dtype == torch.bfloat16:
+        r, launched = native_bf16.residual(u, b, n, h, sigma=sigma)
+        residual_bf16_launches += launched
+        return r
     if not on_cuda(u):
         return residual_plain(u, b, n, h, sigma=sigma)
     r = torch.empty_like(u)
@@ -65,13 +79,22 @@ def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
 
 
 def _sweep(kind: str, u, b, n, h, omega, sigma, sweeps) -> torch.Tensor:
-    global rbgs_launches, jacobi_launches
+    global rbgs_launches, jacobi_launches, rbgs_bf16_launches, \
+        jacobi_bf16_launches
     cap = max_fused_sweeps(kind)
     if not 1 <= sweeps <= cap:
         raise ValueError(f"{sweeps} {kind} sweeps: one launch takes 1 to "
                          f"{cap}")
-    check_grid("u", u, n, u)
-    check_grid("b", b, n, u)
+    check_grid("u", u, n, u, storage=True)
+    check_grid("b", b, n, u, storage=True)
+    if u.dtype == torch.bfloat16:
+        out, launched = native_bf16.sweep(kind, u, b, n, h, omega, sweeps,
+                                          sigma=sigma)
+        if kind == "rbgs":
+            rbgs_bf16_launches += launched
+        else:
+            jacobi_bf16_launches += launched
+        return out
     if not on_cuda(u):
         if kind == "rbgs":
             return rbgs_sweep_plain(u, b, n, h, sigma=sigma, sweeps=sweeps)

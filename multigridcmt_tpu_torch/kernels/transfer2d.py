@@ -16,7 +16,9 @@ the cycle calls it only at sigma = 0.
 
 Each wrapper has its plain PyTorch version beside it: the composition of
 the ``ops/`` functions. Device rule (``_wrap``): a CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.
+plain version; a CUDA tensor launches the kernel or raises. bfloat16 grids
+raise TypeError (``_wrap.check_storage``): the TPU kernels' own bfloat16
+mode is ROADMAP.md's queue 2, part B2.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from ..ops import laplacian, transfer
 from . import fused2d
-from ._wrap import check_grid, launch_on, on_cuda
+from ._wrap import check_grid, check_storage, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count).
@@ -56,6 +58,7 @@ def residual_restrict(u: torch.Tensor, b: torch.Tensor, n: int,
     global residual_restrict_launches
     nc = (n - 1) // 2
     _check_pair(n, nc)
+    check_storage("transfer2d.residual_restrict", u)
     check_grid("u", u, n, u)
     check_grid("b", b, n, u)
     if not on_cuda(u):
@@ -81,6 +84,7 @@ def prolong_add(x: torch.Tensor, e: torch.Tensor, n: int,
     in one pass; the ghosts of the result are x's."""
     global prolong_add_launches
     _check_pair(n, nc)
+    check_storage("transfer2d.prolong_add", x)
     check_grid("x", x, n, x)
     check_grid("e", e, nc, x)
     if not on_cuda(x):

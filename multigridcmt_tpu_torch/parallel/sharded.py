@@ -82,7 +82,9 @@ float32 (``out_dtype``), and the outer recurrences, dots, applies and
 residuals stay in ``config.dtype``. In 3D sharded MG-PCG casts where
 JAX's ``mixed_slab_dtype`` does: the fine stack in bfloat16 (the stencil3d
 kernels' bfloat16 modes), its residual and the levels below in float32,
-its up smoothing's last sweep stored in float32. Everywhere else, and in
+the stack widened to float32 at the correction add, so that the up
+smoothing runs the float32 kernels (where JAX adds the correction in
+bfloat16: ROADMAP.md queue 3, F7, not copied). Everywhere else, and in
 the solve by cycles, FMG, the eigensolvers in 3D, ``v_cycle_fn`` and
 ``v_cycles_fn``, precond_dtype is ignored, as in JAX.
 JAX's ``*_pallas`` helpers are ``*_kernel`` here, and its ``_ext_aligned``
@@ -824,17 +826,15 @@ def _pencil3d_ok(u, n: int, cfg: SolverConfig, decomp: Decomp) -> bool:
     return u.shape[0] >= max(hz, 3) and u.shape[1] >= hz
 
 
-def _stack_sweeps(kind, xe, be, n, h, omega, sigma, sweeps, goff, roff,
-                  out_dtype=None):
+def _stack_sweeps(kind, xe, be, n, h, omega, sigma, sweeps, goff, roff):
     """``sweeps`` stencil3d sweeps of ``kind`` on a plane stack."""
     from ..kernels import stencil3d
 
     if kind == "rbgs":
         return stencil3d.rbgs_sweep(xe, be, n, h, sigma=sigma, sweeps=sweeps,
-                                    goff=goff, roff=roff, out_dtype=out_dtype)
+                                    goff=goff, roff=roff)
     return stencil3d.jacobi_sweep(xe, be, n, h, omega, sigma=sigma,
-                                  sweeps=sweeps, goff=goff, roff=roff,
-                                  out_dtype=out_dtype)
+                                  sweeps=sweeps, goff=goff, roff=roff)
 
 
 def _s_smooth_slab3d(u, b, n, h, *, kind, omega, sweeps, decomp: Decomp,
@@ -880,17 +880,21 @@ def _s_smooth_residual_slab3d(u, b, n, h, *, kind, omega, sweeps,
 
 
 def _slab3d_level(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp, x, b,
-                  level: int, gamma: int, sigma, cfg_repl, out_dtype=None):
+                  level: int, gamma: int, sigma, cfg_repl):
     """One cycle level on a slab or pencil mesh with the extended stacks
     of x and b built once a visit: the down smoothing, the residual on the
     same stack, the plain restriction of its owned points, the coarse
-    correction added in place (in the stack's dtype), a ghost refresh
-    (planes, then rows: the row slabs carry the refreshed plane ghosts,
-    the corners), the up smoothing (its last sweep stored in
-    ``out_dtype``). Owned tiles in and out; the owned points equal the
+    correction added in place, a ghost refresh (planes, then rows: the row
+    slabs carry the refreshed plane ghosts, the corners), the up
+    smoothing. Owned tiles in and out; the owned points equal the
     stagewise route's. A bfloat16 stack (the top of a mixed cycle) runs
-    the kernels' bfloat16 modes; its residual is float32, so the levels
-    below run in float32."""
+    the kernels' bfloat16 modes down to its residual, which is float32, so
+    the levels below run in float32; the correction add promotes x and b
+    to float32, as the single-device ``x + P e`` does, and the up smoothing
+    runs the float32 kernels. (JAX's level adds the correction in
+    bfloat16 and stores only the last up sweep in float32: the mixed
+    PCG's first step then makes the residual grow, ROADMAP.md queue 3,
+    F7, which the port does not copy.)"""
     from ..kernels import stencil3d
 
     spec = hier.levels[level]
@@ -907,10 +911,12 @@ def _slab3d_level(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp, x, b,
     del r
     corr = _coarse_correction(hier, cfg, decomp, rc, level, gamma, sigma,
                               cfg_repl)
-    xe[owned] += corr.to(xe.dtype)
+    if xe.dtype != corr.dtype:
+        xe, be = xe.to(corr.dtype), be.to(corr.dtype)
+    xe[owned] += corr
     _refresh_spans(xe, decomp, spans)
     xe = _stack_sweeps(cfg.smoother, xe, be, n, h, omega, sigma, cfg.nu2,
-                       goff, roff, out_dtype)
+                       goff, roff)
     return xe[owned].contiguous()
 
 
@@ -1151,8 +1157,9 @@ def _sharded_v_cycle(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
     """Recursive cycle; tiles are owned tiles while the level is sharded
     and full grids on every rank below the agglomeration cutoff. ``sigma``
     shifts the operator to A - sigma I; ``out_dtype`` reaches a whole-leg
-    level's up leg (``_sharded_v_cycle_leg``) or an extended-stack level's
-    up smoothing (``_slab3d_level``)."""
+    level's up leg (``_sharded_v_cycle_leg``); an extended-stack level
+    (``_slab3d_level``) promotes a bfloat16 stack at its correction add
+    by itself."""
     from ..kernels.local2d import HALO_ROWS
 
     spec = hier.levels[level]
@@ -1175,7 +1182,7 @@ def _sharded_v_cycle(hier: Hierarchy, cfg: SolverConfig, decomp: Decomp,
             _slab3d_ok(x, n, kind, decomp, _slab3d_hz_level(cfg))
             or _pencil3d_ok(x, n, cfg, decomp)):
         return _slab3d_level(hier, cfg, decomp, x, b, level, gamma, sigma,
-                             cfg_repl, out_dtype=out_dtype)
+                             cfg_repl)
     # Smooth and residual share one exchange on the kernel tier while the
     # residual's ghost reads stay exact (2 nu1 < HALO_ROWS for RB-GS,
     # nu1 < HALO_ROWS for Jacobi; on slabs one plane past the smoothing's).
@@ -1389,8 +1396,9 @@ class ShardedSolver:
         owned tiles). Mixed precision (``mixed_leg_dtype`` in 2D,
         ``mixed_slab_dtype`` in 3D): the (refreshed) residual is cast to
         the preconditioner's dtype, the cycle stores its top level in
-        float32 (JAX's ``out_dtype``, the repair of the final bfloat16
-        store's noise) and z is cast back; nothing else changes dtype."""
+        float32 (in 2D JAX's ``out_dtype``, the repair of the final
+        bfloat16 store's noise; in 3D the correction add promotes) and z is
+        cast back; nothing else changes dtype."""
         from ..kernels import _wrap
         from ..solvers.krylov import cg_loop
 
@@ -1448,9 +1456,8 @@ class ShardedSolver:
 
         def precond(r):
             rp = r if pd3 is None else r.to(pd3)
-            z = _sharded_v_cycle(
-                hier, cfg, decomp, torch.zeros_like(rp), rp, 0, gamma,
-                out_dtype=None if pd3 is None else _wrap.compute_dtype(pd3))
+            z = _sharded_v_cycle(hier, cfg, decomp, torch.zeros_like(rp), rp,
+                                 0, gamma)
             return z.to(r.dtype)
 
         def residual(xx, bb):

@@ -1,8 +1,10 @@
 """Hold the paired bfloat16 kernels (the 3D RB-GS and Jacobi sweeps' paired
-marches and the packed residual's word kernel), and the float32 and
-float64 kernels that took a storage type for a bfloat16 mode (the BELL
-SpMM and the residual norms), against other trees' builds, bit for bit,
-and time them in turns, on one CUDA card.
+marches and the packed residual's word kernel), the float32 and float64
+kernels that took a storage type for a bfloat16 mode (the BELL SpMM and
+the residual norms) and those of the files that hold or sit beside a
+native bfloat16 mode (the stencil2d and local2d residuals and sweeps, the
+DIA SpMV) against other trees' builds, bit for bit, and time them in
+turns, on one CUDA card.
 
     python -m multigridcmt_tpu_torch.utils.bf16_kernels OTHER [OTHER ...] \\
         [--json PATH]
@@ -11,14 +13,17 @@ Each OTHER is the root of another checkout of the repository (the parent
 commit unpacked with ``git archive`` into the git-ignored
 ``.chip_scratch/``). SOURCES (the stencil3d and packed2d sources,
 plocal2d.cu and plocal2d_bf16.cu, which hold every kernel of
-csrc/stencil3d.cuh and csrc/packed_tile.cuh, and bell.cu) that a tree has
-are compiled, each by its own nvcc with the library's flags and ``-Xptxas
+csrc/stencil3d.cuh and csrc/packed_tile.cuh, bell.cu, the stencil2d and
+local2d residual and sweep sources, spmv.cu and native_bf16.cu) that a
+tree has are compiled, each by its own nvcc with the library's flags and ``-Xptxas
 -v``, all at once, and linked into a library a tree; the port's wrappers
 launch into this tree's. Then:
 
 1. ptxas: the registers and spill bytes of every float32 and float64
-   kernel of stencil3d.cuh, packed_tile.cuh and bell.cu (by mangled name
-   from the kernel's own name on; presnorm_partial and bell_spmm_kernel,
+   kernel of stencil3d.cuh, packed_tile.cuh, bell.cu, stencil2d.cu,
+   local2d.cu, spmv.cu and the stencil2d and local2d sweeps
+   (packed2d_legs.cuh's sweep_kernel on the Unpacked and UTile frames; by
+   mangled name from the kernel's own name on; presnorm_partial and bell_spmm_kernel,
    whose float names gained the storage type, by kernel, type and update
    rule or m-tile) of this build against the first OTHER's; the bfloat16
    kernels' lines of every library side by side.
@@ -35,8 +40,12 @@ launch into this tree's. Then:
    tile, an 8-way row rank and a 2x2 block rank (float64: ranks of
    255^2), red only and both planes, sigma 0 and 11.5) and BELL SpMMs (the
    bench matrix at m = 128 and 8, with NaN and Inf in Xt's first block
-   column, and 4 x 3 blocks in float64 at m = 16); on the same inputs in
-   each library, bit for bit. A call is replayed through ctypes with the arguments this tree's
+   column, and 4 x 3 blocks in float64 at m = 16); the float32 and float64
+   stencil2d residual and sweeps (RB-GS nu = 1 and 4, Jacobi nu = 8; float32
+   at 2047^2 and 1023^2, float64 at 255^2), local2d residual and sweeps on
+   S1's fine tile, a 2x2 block rank of 2047^2 and (float64) a row rank of
+   255^2, and the DIA SpMV (4095^2 float32, 255^3 float64), sigma 0 and
+   11.5; on the same inputs in each library, bit for bit. A call is replayed through ctypes with the arguments this tree's
    wrapper passed (captured once); an OTHER that predates a paired march
    takes the scalar march's geometry (march_geometry unpaired), which is
    what its own wrapper passes.
@@ -96,10 +105,16 @@ from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
 SOURCES = ("stencil3d.cu", "stencil3d_bf16.cu", "packed2d.cu",
            "packed2d_bf16.cu", "plocal2d.cu", "plocal2d_bf16.cu",
-           "stencil2d.cu", "bell.cu")
-KERNEL = re.compile(r"(rbgs_pairs_kernel|rbgs_kernel|jacobi_pairs_kernel|"
-                    r"pass_kernel|presidual_pairs_kernel|presidual_kernel|"
-                    r"presnorm_partial|sum_partials|bell_spmm_kernel)\w*")
+           "stencil2d.cu", "bell.cu", "stencil2d_sweep.cu",
+           "stencil2d_sweep_f64.cu", "local2d.cu", "local2d_sweep.cu",
+           "local2d_sweep_f64.cu", "spmv.cu", "native_bf16.cu")
+KERNEL = re.compile(r"(native_residual_kernel|native_rbgs_kernel|"
+                    r"native_jacobi_kernel|rbgs_pairs_kernel|rbgs_kernel|"
+                    r"jacobi_pairs_kernel|pass_kernel|"
+                    r"presidual_pairs_kernel|presidual_kernel|"
+                    r"presnorm_partial|sum_partials|bell_spmm_kernel|"
+                    r"local_residual_kernel|residual_kernel|sweep_kernel|"
+                    r"spmv_dia_kernel)\w*")
 # The kernels whose float32/float64 names gained a storage type S = T: a
 # name's (kernel, type, update rule or m-tile).
 RENAMED = re.compile(r"(presnorm_partial)I([fd])NS_\d+([A-Za-z]+?)E[fd]?E|"
@@ -117,6 +132,8 @@ JACOBI_STACKS = ((-2, 0, 518, 513), (-2, -2, 518, 518))
 OMEGA = 6.0 / 7.0
 # The residual's grids: the mixed path's and k = 9.
 RESIDUAL_NS = (N2, 511)
+# The 2D Jacobi sweeps' omega (config 5's S4, a 2D Jacobi cycle's 4/5).
+OMEGA2 = 0.8
 # Cycles a chained reading of the mixed Jacobi cycle takes.
 CYCLE_CHAIN = 5
 # The stencil3d Jacobi kernels (the paired march, pass_kernel's kJacobi).
@@ -332,10 +349,10 @@ def bench_bell(dtype):
             torch.from_numpy(xt).to(device="cuda", dtype=dtype))
 
 
-def tile(n: int, dtype, ranks, rank, seed: int):
-    """One rank's packed extended tiles of u and b (b of 1/h^2 size) in a
-    row split (``ranks[1] == 0``) or block split of the padded n^2 grid,
-    and (m, mcol, row_off, col_off)."""
+def ext_tiles(n: int, dtype, ranks, rank, seed: int):
+    """One rank's extended tiles of u and b (b of 1/h^2 size) in a row
+    split (``ranks[1] == 0``) or block split of the padded n^2 grid, and
+    (m, mcol, row_off, col_off)."""
     hh = local2d.HALO_ROWS
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g = [torch.zeros((n + 2, n + 2), dtype=dtype, device="cuda")
@@ -355,8 +372,27 @@ def tile(n: int, dtype, ranks, rank, seed: int):
         r1, c1 = min(row_off + rows, n + 2), min(col_off + cols, n + 2)
         t[r0 - row_off:r1 - row_off, c0 - col_off:c1 - col_off] = \
             x[r0:r1, c0:c1]
-        out.append(plocal2d.pack_ext(t, 1 if mcol else 0))
+        out.append(t)
     return out, (m, mcol, row_off, col_off)
+
+
+def tile(n: int, dtype, ranks, rank, seed: int):
+    """``ext_tiles``' tiles packed (plocal2d.pack_ext), and (m, mcol,
+    row_off, col_off)."""
+    out, geom = ext_tiles(n, dtype, ranks, rank, seed)
+    return [plocal2d.pack_ext(t, 1 if geom[1] else 0) for t in out], geom
+
+
+def grid(n: int, dtype, seed: int):
+    """u, b (b of 1/h^2 size) on the padded n^2 grid in ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.zeros((n + 2, n + 2), device="cuda", dtype=dtype)
+    b = torch.zeros_like(u)
+    u[1:-1, 1:-1] = torch.randn((n, n), generator=gen, device="cuda",
+                                dtype=dtype)
+    b[1:-1, 1:-1] = torch.randn((n, n), generator=gen, device="cuda",
+                                dtype=dtype) * float((n + 1) ** 2)
+    return u, b
 
 
 def float_calls() -> list:
@@ -418,6 +454,68 @@ def float_calls() -> list:
     return calls
 
 
+def stencil_calls() -> list:
+    """(label, make) of the float32 and float64 stencil2d and local2d
+    residuals and sweeps and DIA SpMVs held bit for bit (step 2)."""
+    from multigridcmt_tpu_torch.kernels import spmv, stencil2d
+    from multigridcmt_tpu_torch.ops import sparse
+
+    calls = []
+    for dtype, n, modes in ((F32, 2047, (("residual", 0), ("rbgs", 1),
+                                         ("rbgs", 4))),
+                            (F32, 1023, (("jacobi", 8),)),
+                            (torch.float64, 255, (("residual", 0),
+                                                  ("rbgs", 4),
+                                                  ("jacobi", 8)))):
+        u, b = grid(n, dtype, 40 + n)
+        h = 1.0 / (n + 1)
+        for mode, nu in modes:
+            for sigma in (0.0, SIGMA):
+                if mode == "residual":
+                    run = (lambda u=u, b=b, n=n, h=h, s=sigma:
+                           stencil2d.residual(u, b, n, h, sigma=s))
+                elif mode == "rbgs":
+                    run = (lambda u=u, b=b, n=n, h=h, s=sigma, nu=nu:
+                           stencil2d.rbgs_sweep(u, b, n, h, sigma=s,
+                                                sweeps=nu))
+                else:
+                    run = (lambda u=u, b=b, n=n, h=h, s=sigma, nu=nu:
+                           stencil2d.jacobi_sweep(u, b, n, h, OMEGA2,
+                                                  sigma=s, sweeps=nu))
+                calls.append((f"stencil2d {mode} {dtype} n={n} nu={nu} "
+                              f"sigma={sigma}",
+                              lambda run=run, u=u, b=b: Replay(run, (u, b))))
+    for dtype, n, ranks, rank in ((F32, N2, (1, 0), (0, 0)),
+                                  (F32, 2047, (2, 2), (1, 1)),
+                                  (torch.float64, 255, (2, 0), (1, 0))):
+        (u, b), (_, _, ro, co) = ext_tiles(n, dtype, ranks, rank, n + 50)
+        h = 1.0 / (n + 1)
+        for sigma in (0.0, SIGMA):
+            for label, run in (
+                    ("residual", lambda u=u, b=b, n=n, h=h, ro=ro, co=co,
+                     s=sigma: local2d.residual(u, b, n, h, ro, co,
+                                               sigma=s)),
+                    ("rbgs nu=4", lambda u=u, b=b, n=n, h=h, ro=ro, co=co,
+                     s=sigma: local2d.rbgs_sweep(u, b, n, h, ro, co,
+                                                 sigma=s, sweeps=4)),
+                    ("jacobi nu=8", lambda u=u, b=b, n=n, h=h, ro=ro, co=co,
+                     s=sigma: local2d.jacobi_sweep(u, b, n, h, OMEGA2, ro,
+                                                   co, sigma=s, sweeps=8))):
+                calls.append((f"local2d {label} {dtype} n={n} rank {rank} "
+                              f"of {ranks} sigma={sigma}",
+                              lambda run=run, u=u, b=b: Replay(run, (u, b))))
+    for dtype, n, ndim in ((F32, N2, 2), (torch.float64, 255, 3)):
+        pk = spmv.pack_dia(sparse.laplacian_dia(n, ndim, 1.0 / (n + 1),
+                                                dtype, device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(n + ndim)
+        x = spmv.pack_x(torch.randn(pk.n, generator=gen, device="cuda",
+                                    dtype=dtype), pk.halo)
+        calls.append((f"spmv {dtype} {ndim}D n={n}",
+                      lambda pk=pk, x=x: Replay(
+                          lambda: spmv.spmv_packed(pk, x), (pk.diags, x))))
+    return calls
+
+
 def check_bits(libs: dict) -> tuple:
     """(comparisons, failures): every bfloat16 case, and every float32 and
     float64 case of float_calls, in each library against this one."""
@@ -454,7 +552,7 @@ def check_bits(libs: dict) -> tuple:
             calls.append((f"residual n={n} sigma={sigma}",
                           lambda pu=pu, pb=pb, n=n, s=sigma:
                           residual_call(pu, pb, n, s)))
-    calls += float_calls()
+    calls += float_calls() + stencil_calls()
     checks, fails = 0, []
     for what, make in calls:
         call = make()

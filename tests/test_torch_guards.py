@@ -160,6 +160,13 @@ def test_build_keys_output_by_source_hash():
                    "plocal2d_residual", "plocal2d_resnorm", "bell_spmm"):
         assert (_build.SIGNATURES[f"mg_{kernel}_bf16"]
                 == _build.SIGNATURES[f"mg_{kernel}_f32"])
+    # ... and the native bfloat16 modes (the 2D stencils' own entry points;
+    # the SpMV with its float32 twin's arguments).
+    assert "native_bf16.cu" in names
+    assert {"mg_native2d_residual_bf16",
+            "mg_native2d_sweep_bf16"} <= set(_build.SIGNATURES)
+    assert (_build.SIGNATURES["mg_spmv_dia_bf16"]
+            == _build.SIGNATURES["mg_spmv_dia_f32"])
 
 
 def _grid(n, dtype=torch.float64):
@@ -283,8 +290,9 @@ def _bell(dtype=torch.float64):
     (lambda: transfer2d.residual_restrict(_grid(7), _grid(7, torch.float32),
                                           7, 0.125), ValueError),
     (lambda: transfer2d.prolong_add(_grid(7), _grid(4), 7, 3), ValueError),
+    # bfloat16 is the SpMV's native mode, with x of the same dtype.
     (lambda: spmv.spmv_packed(_pdia(torch.bfloat16),
-                              _px(torch.bfloat16)), NotImplementedError),
+                              _px(torch.float32)), ValueError),
     (lambda: spmv.spmv_packed(_pdia(), _px(torch.float32)), ValueError),
     (lambda: spmv.spmv_packed(_pdia(), _px()[:-8]), ValueError),
     (lambda: spmv.spmv_packed(_pdia(), torch.zeros(_px().shape,
@@ -770,9 +778,10 @@ def _tile(rows=32, cols=32, dtype=torch.float64):
                                 sweeps=0), ValueError),
     (lambda: _l2().residual(_tile(), _tile(dtype=torch.float32), 63,
                             1 / 64, -7), ValueError),
+    # bfloat16 is the residual's native mode, with b of the same dtype.
     (lambda: _l2().residual(_tile(dtype=torch.bfloat16),
-                            _tile(dtype=torch.bfloat16), 63, 1 / 64, -7),
-     NotImplementedError),
+                            _tile(dtype=torch.float32), 63, 1 / 64, -7),
+     ValueError),
     (lambda: _l2().down_leg(_tile(), _tile(), 63, 1 / 64, 16, -7, kind="rbgs",
                             omega=1.0, sweeps=4), ValueError),
     (lambda: _l2().down_leg(_tile(), _tile(), 63, 1 / 64, 16, -7,
@@ -933,28 +942,93 @@ def test_unported_sharded_routes_raise(call, item, world_of_one,
                                atol=1e-10)
 
 
-@pytest.mark.parametrize("call", [
-    "local2d.residual", "local2d.rbgs_sweep", "local2d.jacobi_sweep"])
-def test_off_path_bf16_wrappers_raise(call):
-    """The shard tile kernels whose bfloat16 mode computes in bfloat16
-    itself in the JAX package (the unpacked tile's sweeps and residual)
-    raise naming that ROADMAP.md item, and launch nothing."""
-    from multigridcmt_tpu_torch.kernels import local2d
+# The bfloat16 modes left to port (ROADMAP.md queue 2, part B2): the
+# fused legs and the transfers.
+OFF_PATH_CALLS = {
+    "fused2d.smooth_residual_restrict": lambda g: fused2d.
+    smooth_residual_restrict(g(7), g(7), 7, 0.125, kind="rbgs", omega=1.0,
+                             sweeps=1),
+    "fused2d.prolong_add_smooth": lambda g: fused2d.prolong_add_smooth(
+        g(7), _grid(3, torch.float32), g(7), 7, 3, 0.125, kind="rbgs",
+        omega=1.0, sweeps=1),
+    "transfer2d.residual_restrict": lambda g: transfer2d.residual_restrict(
+        g(7), g(7), 7, 0.125),
+    "transfer2d.prolong_add": lambda g: transfer2d.prolong_add(
+        g(7), _grid(3, torch.float32), 7, 3),
+}
 
-    t = _tile(dtype=torch.bfloat16)
-    h = 1 / 64
+
+@pytest.mark.parametrize("call", list(OFF_PATH_CALLS))
+def test_off_path_bf16_wrappers_raise(call):
+    """The kernels whose bfloat16 mode computes in bfloat16 itself in the
+    JAX package and is not ported yet (the fused legs and the transfers)
+    raise TypeError naming that ROADMAP.md item, and launch nothing."""
+    with pytest.raises(TypeError, match="queue 2, part B2"):
+        OFF_PATH_CALLS[call](lambda n: _grid(n, torch.bfloat16))
+    assert (fused2d.down_launches, fused2d.up_launches,
+            transfer2d.residual_restrict_launches,
+            transfer2d.prolong_add_launches) == (0,) * 4
+
+
+def _native_inputs(shape, seed):
+    """bfloat16 u and b of ``shape``, N(0, 1) and N(0, 64^2)."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=gen).to(torch.bfloat16),
+            (torch.randn(shape, generator=gen) * 4096.0).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("call", [
+    "local2d.residual", "local2d.rbgs_sweep", "local2d.jacobi_sweep",
+    "stencil2d.residual", "stencil2d.rbgs_sweep", "stencil2d.jacobi_sweep",
+    "spmv.spmv_packed"])
+def test_native_bf16_wrappers_run(call):
+    """The native bfloat16 modes run on a CPU tensor: each wrapper equals
+    its plain version bit for bit (sigma 1.3, which bfloat16 does not hold)
+    and launches nothing."""
+    from multigridcmt_tpu_torch.kernels import local2d, native_bf16
+
+    h, sigma, omega = 1 / 64, 1.3, 0.8
+    u, b = _native_inputs((32, 40), 7)
+    g, gb = _native_inputs((65, 65), 8)
+    c = native_bf16.constants(h, sigma, omega)
+    pk = spmv.PackedDIA(_pdia().diags.to(torch.bfloat16), (-1, 0, 1), 100)
+    x = _native_inputs((24, 128), 9)[0]
+    x[:8], x[-8:] = 0, 0
     calls = {
-        "local2d.residual": lambda: local2d.residual(t, t, 63, h, -7),
-        "local2d.rbgs_sweep": lambda: local2d.rbgs_sweep(t, t, 63, h, -7),
-        "local2d.jacobi_sweep": lambda: local2d.jacobi_sweep(t, t, 63, h,
-                                                             0.8, -7),
+        "local2d.residual": (
+            lambda: local2d.residual(u, b, 63, h, -7, 9, sigma=sigma),
+            lambda: native_bf16.residual_plain(u, b, 63, c, -7, 9)),
+        "local2d.rbgs_sweep": (
+            lambda: local2d.rbgs_sweep(u, b, 63, h, -7, 9, sigma=sigma,
+                                       sweeps=3),
+            lambda: native_bf16.sweep_plain("rbgs", u, b, 63, c, 3, -7, 9)),
+        "local2d.jacobi_sweep": (
+            lambda: local2d.jacobi_sweep(u, b, 63, h, omega, -7, 9,
+                                         sigma=sigma, sweeps=5),
+            lambda: native_bf16.sweep_plain("jacobi", u, b, 63, c, 5, -7,
+                                            9)),
+        "stencil2d.residual": (
+            lambda: stencil2d.residual(g, gb, 63, h, sigma=sigma),
+            lambda: native_bf16.residual_plain(g, gb, 63, c)),
+        "stencil2d.rbgs_sweep": (
+            lambda: stencil2d.rbgs_sweep(g, gb, 63, h, sigma=sigma,
+                                         sweeps=2),
+            lambda: native_bf16.sweep_plain("rbgs", g, gb, 63, c, 2)),
+        "stencil2d.jacobi_sweep": (
+            lambda: stencil2d.jacobi_sweep(g, gb, 63, h, omega, sigma=sigma,
+                                           sweeps=8),
+            lambda: native_bf16.sweep_plain("jacobi", g, gb, 63, c, 8)),
+        "spmv.spmv_packed": (lambda: spmv.spmv_packed(pk, x),
+                             lambda: spmv.spmv_packed_plain(pk, x)),
     }
-    with pytest.raises(NotImplementedError,
-                       match="bfloat16 storage off the mixed paths"):
-        calls[call]()
-    assert (local2d.rbgs_launches, local2d.jacobi_launches,
-            local2d.residual_launches) == (0,) * 3
-    assert _plocal2d_launches() == (0,) * 11
+    run, plain = calls[call]
+    got, want = run(), plain()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert (local2d.residual_bf16_launches, local2d.rbgs_bf16_launches,
+            local2d.jacobi_bf16_launches, stencil2d.residual_bf16_launches,
+            stencil2d.rbgs_bf16_launches, stencil2d.jacobi_bf16_launches,
+            spmv.bf16_launches) == (0,) * 7
 
 
 @pytest.mark.parametrize("call", [
@@ -1059,7 +1133,7 @@ def _chip_smoke_rows(module: str) -> dict:
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert len(smoke.KERNELS) == 48
+    assert len(smoke.KERNELS) == 55
     return {name: row for name, row in smoke.KERNELS.items()
             if row[0] == module}
 
@@ -1199,13 +1273,46 @@ def test_chip_smoke_lists_the_cdt_bf16_modes():
         assert (ROOT / source).is_file()
 
 
+def test_chip_smoke_lists_the_native_bf16_modes():
+    """The native bfloat16 modes, which no path of either package runs:
+    the stencil2d and local2d residuals and sweeps (from
+    csrc/native_bf16.cu) and the DIA SpMV (csrc/spmv.cu), each with its TPU
+    function, counted apart from its float twin and launched once by its
+    direct run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = "multigridcmt_tpu_torch/kernels/csrc/"
+    tpu = "multigridcmt_tpu/kernels/"
+    want = {
+        f"{mod}_{mode}_bf16": (mod, f"{mode}_bf16_launches",
+                               src + "native_bf16.cu", f"{tpu}{mod}.py:{line}",
+                               None)
+        for mod, lines in (("stencil2d", (304, 284, 295)),
+                           ("local2d", (289, 263, 278)))
+        for mode, line in zip(("residual", "rbgs", "jacobi"), lines)}
+    want["spmv_dia_bf16"] = ("spmv", "bf16_launches", src + "spmv.cu",
+                             tpu + "spmv.py:254", None)
+    assert {name: smoke.KERNELS[name] for name in want} == want
+    assert {smoke.DIRECT_RUNS[name] for name in want} == {
+        "native_bf16_direct"}
+    for mod, counter, source, *_ in want.values():
+        module = importlib.import_module(
+            f"multigridcmt_tpu_torch.kernels.{mod}")
+        assert getattr(module, counter) == 0
+        assert (ROOT / source).is_file()
+
+
 def test_chip_smoke_lists_the_stencil3d_bf16_modes():
     """The stencil3d kernels' bfloat16 modes, all built from
     csrc/stencil3d_bf16.cu: the residual and the bfloat16-storing RB-GS
-    sweep on the mixed3d path, the float32-storing sweep on the sharded
-    mixed slab path (its top level's last up sweep) and both Jacobi modes
-    on the sharded mixed Jacobi slab path (the single-device 3D Jacobi
-    cycle runs plain)."""
+    sweep on the mixed3d path, the bfloat16-storing Jacobi sweep on the
+    sharded mixed Jacobi slab path (the single-device 3D Jacobi cycle runs
+    plain), the float32-storing sweeps by direct calls (every mixed 3D
+    cycle promotes its fine level at the correction add)."""
     rows = {name: row for name, row in _chip_smoke_rows("stencil3d").items()
             if "bf16" in name}
     src = "multigridcmt_tpu_torch/kernels/csrc/stencil3d_bf16.cu"
@@ -1216,10 +1323,10 @@ def test_chip_smoke_lists_the_stencil3d_bf16_modes():
         "stencil3d_rbgs_bf16": ("rbgs_bf16_launches", src, tpu + "510",
                                 "mixed3d"),
         "stencil3d_rbgs_bf16_f32": ("rbgs_bf16_f32_launches", src,
-                                    tpu + "510", "slab511-mixed"),
+                                    tpu + "510", None),
         "stencil3d_jacobi_bf16": ("jacobi_bf16_launches", src, tpu + "485",
                                   "slab511-mixed-jacobi"),
         "stencil3d_jacobi_bf16_f32": ("jacobi_bf16_f32_launches", src,
-                                      tpu + "485", "slab511-mixed-jacobi")}
+                                      tpu + "485", None)}
     for row in rows.values():
         assert hasattr(stencil3d, row[1]) and (ROOT / row[2]).is_file()

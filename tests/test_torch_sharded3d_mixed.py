@@ -11,12 +11,20 @@ port only) with KERNEL3_MIN_N lowered to 10, at k = 5, float64, tol 1e-10:
 JAX's test_sharded_pcg_bf16_3d_slab. The mixed run converges, in at most
 ceil(1.2 x) + 1 the full-precision run's iterations, to within rtol 1e-7,
 atol 1e-8 of its answer (JAX's criterion), and a spy on the stencil3d
-wrappers shows the route: the fine stack's sweeps and residual in
-bfloat16, the up smoothing's last sweep stored in float32, the coarser
-kernel levels in float32 (the bfloat16 residual's output), CG's own
-residuals and applies in float64. Mixed runs are held against converged
-full-precision answers, not JAX's mixed histories: their rounding parts
-(ROADMAP.md queue 3, F5).
+wrappers shows the route: the fine stack's down sweeps and residual in
+bfloat16, the correction add promoting the stack to float32 and the up
+sweeps in float32, the coarser kernel levels in float32 (the bfloat16
+residual's output), CG's own residuals and applies in float64. Mixed runs
+are held against converged full-precision answers, not JAX's mixed
+histories: their rounding parts (ROADMAP.md queue 3, F5), and JAX's level
+adds its correction in bfloat16, which the port does not copy (F7).
+
+F7's pin: on a world of 1 at k = 5, float64, tol 1e-8, the mixed PCG takes
+the full-precision run's iterations (RB-GS 5, Jacobi 7) and its first
+step (the relative residual after one iteration) lies within 10% of the
+full run's, as the single device's mixed history does; adding the
+correction in bfloat16 had made that step 0.238 (RB-GS) and 0.210
+(Jacobi) against 0.116 and 0.135.
 """
 import math
 
@@ -32,6 +40,11 @@ from test_torch_sharded import spawn_world
 KERNEL3_MIN_N = 10
 BASE = dict(dtype=torch.float64, tol=1e-10, max_iters=60, agglom_rows=4,
             use_kernels=True)
+# F7's pin: the full-precision run's iterations at k = 5, tol 1e-8, and
+# how far the mixed run's first step may part from the full run's.
+PIN_TOL = 1e-8
+PIN_ITERS = {"rbgs": 5, "jacobi": 7}
+PIN_STEP_RTOL = 0.1
 WORLDS = {"slab4": (4,), "pencil2x2": (2, 2)}
 SMOOTHERS = ("rbgs", "jacobi")
 CASES = [(w, s) for w in WORLDS for s in SMOOTHERS]
@@ -180,10 +193,11 @@ def test_mixed_pcg_3d_converges(world, smoother, world_results):
     assert mixed["x"].dtype == torch.float64
     np.testing.assert_allclose(mixed["x"].numpy(), full["x"].numpy(),
                                rtol=1e-7, atol=1e-8)
-    # The route: the fine stack (m0 + 2 hz planes) in bfloat16, its up
-    # smoothing's last sweep stored in float32; the other kernel levels in
-    # float32; CG's residual and applies at the fine level in float64 (the
-    # slab residual kernel; plain on a pencil mesh).
+    # The route: the fine stack (m0 + 2 hz planes) in bfloat16 down to its
+    # residual, its up smoothing in float32 (the correction add promotes
+    # the stack); the other kernel levels in float32; CG's residual and
+    # applies at the fine level in float64 (the slab residual kernel; plain
+    # on a pencil mesh).
     k, n = 5, 31
     hz = 5 if smoother == "rbgs" else 3
     sweep = smoother + "_sweep"
@@ -198,13 +212,56 @@ def test_mixed_pcg_3d_converges(world, smoother, world_results):
         bf, f32, f64 = "torch.bfloat16", "torch.float32", "torch.float64"
         assert sorted(on_fine) == sorted(
             [(sweep, fine, bf, bf, "None")] * cycles
-            + [(sweep, fine, bf, bf, f32)] * cycles
+            + [(sweep, fine, f32, f32, "None")] * cycles
             + [("residual", fine, bf, bf, "None")] * cycles)
+        assert all(c[4] == "None" for c in calls)
         rest = [c for c in calls if c[1] != fine]
-        assert rest and all(c[4] == "None" for c in rest)
+        assert rest
         assert {c[2] for c in rest} == ({f32, f64} if len(shape) == 1
                                         else {f32})
         if len(shape) == 1:
             check = [c for c in rest if c[2] == f64]
             assert check == [("residual", (m0 + 2, n + 2, n + 2), f64, f64,
                               "None")] * (1 + mixed["iters"])
+
+
+def _run_pin(mesh, smoother, b):
+    """F7's pin on a world of 1: the mixed and the full-precision PCG's
+    iterations and residual histories."""
+    saved = kernels.KERNEL3_MIN_N
+    out = {}
+    try:
+        kernels.KERNEL3_MIN_N = KERNEL3_MIN_N
+        for pd in (torch.bfloat16, None):
+            cfg = SolverConfig(ndim=3, k=5, smoother=smoother,
+                               precond_dtype=pd, **{**BASE, "tol": PIN_TOL})
+            res = sharded.ShardedSolver(cfg, mesh).solve(b, method="pcg")
+            out["mixed" if pd is not None else "full"] = {
+                "iters": res.iters, "converged": res.converged,
+                "hist": res.res_history[: res.iters + 1].clone()}
+    finally:
+        kernels.KERNEL3_MIN_N = saved
+    return out
+
+
+@pytest.fixture(scope="module")
+def pin_results():
+    import multigridcmt_tpu_torch as mt
+
+    b = mt.poisson3d(k=5, dtype=torch.float64, device="cpu").b.numpy()
+    (rank,), _ = spawn_world((1,), {s: s for s in SMOOTHERS},
+                             {s: b for s in SMOOTHERS}, dict,
+                             run_case=_run_pin)
+    return rank
+
+
+@pytest.mark.parametrize("smoother", SMOOTHERS)
+def test_mixed_pcg_3d_first_step_follows_full(smoother, pin_results):
+    """F7: the mixed PCG on a world of 1 takes the full run's iterations,
+    its first step within PIN_STEP_RTOL of the full run's."""
+    mixed, full = pin_results[smoother]["mixed"], pin_results[smoother]["full"]
+    assert mixed["converged"] and full["converged"]
+    assert mixed["iters"] == full["iters"] == PIN_ITERS[smoother]
+    step = mixed["hist"][1] / mixed["hist"][0]
+    want = full["hist"][1] / full["hist"][0]
+    assert abs(step - want) <= PIN_STEP_RTOL * want, (step, want)
