@@ -135,6 +135,14 @@ Phases:
          float64, each printing its line, with exact launches, and the
          iterations and values of phase 3's runs of the same problems
          (fmg1023, eigen511 at the example's tolerance, solve3d, S1);
+       * the bfloat16 solves (config.dtype bfloat16, kernels on) at
+         2047^2 (k=11, the widest whose levels all stay bfloat16): V(2,2)
+         Jacobi and RB-GS on the native fused2d legs and RB-GS V(4,5) on
+         the native sweeps and transfer2d kernels, with exact launches,
+         each beside the same solve on the CPU (the plain versions): the
+         same iterations, x bit for bit, the histories equal (one bfloat16
+         ulp allowed where a replay shows only the norm's float32 sum
+         parting); each diverges, as JAX's solve does;
        * the sparse path: the Poisson operator assembled as DIA at 4095^2
          and 255^3, packed, and applied 20 times in a chain by the DIA
          SpMV kernel (exactly 20 launches) against 20 plain applies; the
@@ -201,7 +209,12 @@ Phases:
      block tile, the DIA SpMV at 4095^2 with random values on its 5
      diagonals, sigma 0 and SIGMA; the stencil2d modes at 1023^2 and the
      SpMV also with NaN and +-Inf in their inputs) bit for bit against
-     their plain versions, NaN where the plain version has NaN;
+     their plain versions, NaN where the plain version has NaN; the last
+     native modes (compare_native_legs: the fused2d down and up legs at
+     every sweep count to their caps, RB-GS and Jacobi, and the transfer2d
+     residual restriction and prolongation-add, at 2047^2, 1023^2 and
+     255^2, sigma 0 and SIGMA, and at 1023^2 with NaN and +-Inf in every
+     input) by the same rule;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -265,7 +278,8 @@ Phases:
      native bfloat16 modes at phase 2's main shapes against their plain
      versions (single, chained and by device time) beside their bounds at
      bfloat16 bytes, the SpMV beside a bfloat16 CSR torch.mv where
-     PyTorch runs it. Every
+     PyTorch runs it, and the last native modes at 2047^2 so (the legs
+     at RB-GS nu = 2). Every
      kernel row also gets the profiler's
      device time a call (device_ms), and the sharded eigensolver runs'
      launches (sharded_eigen_launches) where it has some.
@@ -326,10 +340,15 @@ apply, or the local2d residual). The tile legs storing bfloat16 run on no
 path: direct calls. Nor do the bfloat16 modes of the plocal2d residual,
 apply and norm, the whole grid's norm and the BELL SpMM (JAX's _cdt rule:
 float32 arithmetic, each output rounded once, the norms float32 sums):
-phase 3's cdt_bf16_direct calls each once. Nor do the native bfloat16
-modes (the TPU kernels computing in bfloat16 itself, every operation
-rounded: the stencil2d and local2d residuals and sweeps, the DIA SpMV):
-phase 3's native_bf16_direct calls each once.
+phase 3's cdt_bf16_direct calls each once. The native bfloat16 modes
+(the TPU kernels computing in bfloat16 itself, every operation rounded)
+run on the bfloat16 solves: at 2047...255 the fused2d legs (V(2,2)) or
+the stencil2d RB-GS sweeps and the transfer2d kernels (V(4,5)), and the
+stencil2d residual as the check; each fused leg runs the stencil2d sweep
+of its smoother (Jacobi or RB-GS) before the restriction or after the
+prolongation-add; levels below 255 run the plain counterparts of JAX's
+aligned-layout stencils. The local2d modes and the DIA SpMV run on no
+path, and phase 3's native_bf16_direct calls each of B1's modes once.
 
 FMG and the eigensolvers add no kernel. An FMG walk's V-cycle started at a
 level runs the legs of the kernel levels at and below it; b's restriction
@@ -351,9 +370,10 @@ level's legs are the bfloat16 down leg and the float32-storing up leg.
 Phase 1 also reports ptxas's registers and spills of the row-streaming
 legs and sweeps, the local2d sweeps (UTile) among them, the stencil3d
 z-march kernels in every storage mode, the BELL SpMM kernels, the
-residual-restriction stream, the native bfloat16 kernels and the DIA SpMV
-in each type (from the build's nvcc.log), and fails if one of the last
-four spills; and the residual norm's first pass
+residual-restriction stream, the native bfloat16 kernels (the
+restriction and the prolongation-add in both of their forms among them)
+and the DIA SpMV in each type (from the build's nvcc.log), and fails if
+one of the last four spills; and the residual norm's first pass
 (presnorm_partial) in every storage mode, failing if a float32 or float64
 BELL SpMM or norm kernel's line differs from the parent tree's
 (PARENT_PTXAS): their storage type must leave those kernels as they were.
@@ -549,9 +569,9 @@ PEAK_BF16_FLOPS = 989e12
 # The BELL SpMM's bfloat16 mode on 4 x 3 blocks of 128^2 with kmax this
 # far above the densest block row (padding blocks in every block row).
 BELL_BF16_PAD = 2
-# The native bfloat16 modes (the TPU kernels computing in bfloat16 itself:
-# every operation rounded, sigma and the constants too; no path of either
-# package runs them), held bit for bit against their plain versions at
+# The native bfloat16 modes of slice B1 (the TPU kernels computing in
+# bfloat16 itself: every operation rounded, sigma and the constants too),
+# held bit for bit against their plain versions at
 # full width: stencil2d's residual and RB-GS (nu = 1 and 4) at 2047^2 and
 # its Jacobi (nu = 8) at 1023^2 (the levels where paths B and C launch the
 # float32 sweeps), the local2d modes (RB-GS nu = 4, Jacobi nu = 8) on S1's
@@ -567,6 +587,36 @@ NATIVE_NONFINITE_N = 1023
 # (4u, four differences, the scaling, b - au, sigma u, the sum), the GS
 # update's 6, the Jacobi step's 11; the SpMV's 2 a diagonal.
 NATIVE_OPS = {"residual": 9, "rbgs": 6, "jacobi": 11}
+# The native fused2d legs and transfer2d kernels (slice B2) run on the
+# bfloat16 solves (BF16_SOLVES). Phase 2 holds them bit for bit against
+# their plain versions at the k=11 solve's levels 2047^2, 1023^2 and
+# 255^2, sigma 0 and SIGMA, RB-GS and Jacobi (NATIVE_OMEGA) at every sweep
+# count from 0 to each leg's cap, and all four at NATIVE_NONFINITE_N on
+# inputs seeded with NaN and +-Inf.
+NATIVE_LEG_N = (2047, 1023, 255)
+NATIVE_LEGS = ("fused2d_down_bf16", "fused2d_up_bf16",
+               "transfer2d_residual_restrict_bf16",
+               "transfer2d_prolong_add_bf16")
+# Operations of the B2 modes for their bounds, counted as the function
+# needs them (each fine residual once): the residual at every fine point
+# (7: four differences, the scaling, b - au; 9 with sig u), the row
+# weighting at the coarse rows (5 a point, n^2 / 2 points) and the column
+# weighting at the coarse points (5, n^2 / 4); the interpolation's
+# averages (3 a point: half the points a pass) and the add (1 a point).
+NATIVE_RR_OPS = (7 + 5 / 2 + 5 / 4, 9 + 5 / 2 + 5 / 4)
+NATIVE_PA_OPS = 3 * (1 / 4 + 1 / 2) + 1
+# The bfloat16 solves (config.dtype bfloat16, kernels on) at k=11, the
+# widest whose legs all stay bfloat16 (at k=12 the packed 4095 level's
+# _cdt down leg emits the coarse levels in float32): V(2,2) Jacobi (the
+# default smoother) and V(2,2) RB-GS on the fused legs at 2047...255, and
+# RB-GS V(4,5), whose legs both pass the fused caps (RB-GS: 3 down, 4 up),
+# composed from the native sweeps (4 + 1 at nu2 = 5), the residual
+# restriction and the prolongation-add. Each diverges, as JAX's solve of
+# the same problem does (bfloat16 cannot hold the residual at this h).
+BF16_SOLVE_K = 11
+BF16_SOLVES = {"bf16_jacobi22": dict(smoother="jacobi"),
+               "bf16_rbgs22": dict(smoother="rbgs"),
+               "bf16_rbgs45": dict(smoother="rbgs", nu1=4, nu2=5)}
 
 
 # The sharded paths: (k, mesh, config overrides) of S1-S4; S4 is Jacobi
@@ -951,6 +1001,7 @@ PARENT_PTXAS = {
 # The native bfloat16 kernels (csrc/native_bf16.cu) and the DIA SpMV in
 # each type (f, d, 13__nv_bfloat16), whose ptxas report must show no spill.
 NATIVE_KERNEL = re.compile(r"native_(?:residual|rbgs|jacobi)_kernel|"
+                           r"native_(?:restrict|prolong)_kernelILb[01]E|"
                            r"spmv_dia_kernelI(?:13__nv_bfloat16|[fd])E")
 
 
@@ -1102,8 +1153,8 @@ def ptxas_report(log_path) -> dict:
     native = {NATIVE_KERNEL.search(k).group(0): prop
               for k, prop in props.items()
               if NATIVE_KERNEL.search(k) and "regs" in prop}
-    require(len(native) == 6, f"ptxas report has {sorted(native)}, not the "
-            "three native bfloat16 kernels and the SpMV in three types")
+    require(len(native) == 10, f"ptxas report has {sorted(native)}, not "
+            "the seven native bfloat16 kernels and the SpMV in three types")
     for key, prop in sorted(native.items()):
         log(f"ptxas {key}: {prop['regs']}r"
             + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
@@ -1827,6 +1878,107 @@ def compare_native_bf16(main_err: dict) -> None:
         if not nonfinite:
             main_err["spmv_dia_bf16"] = err
         del pk, xp
+    torch.cuda.empty_cache()
+
+
+def native_leg_calls(name: str, u, b, x, e, n: int, sigma: float,
+                     kind: str = "rbgs", sweeps: int = 0):
+    """(kernel, plain) of a B2 native mode (NATIVE_LEGS) on (n+2)^2 grids
+    and the coarse e."""
+    from multigridcmt_tpu_torch.kernels import fused2d, native_bf16, \
+        transfer2d
+
+    h, nc = 1.0 / (n + 1), (n - 1) // 2
+    omega = NATIVE_OMEGA if kind == "jacobi" else 1.0
+    c = native_bf16.constants(h, sigma, omega)
+    if name == "fused2d_down_bf16":
+        return (lambda: fused2d.smooth_residual_restrict(
+                    u, b, n, h, kind=kind, omega=omega, sweeps=sweeps,
+                    sigma=sigma),
+                lambda: native_bf16.down_leg_plain(u, b, n, c, kind, sweeps))
+    if name == "fused2d_up_bf16":
+        return (lambda: fused2d.prolong_add_smooth(
+                    x, e, b, n, nc, h, kind=kind, omega=omega, sweeps=sweeps,
+                    sigma=sigma),
+                lambda: native_bf16.up_leg_plain(x, e, b, n, nc, c, kind,
+                                                 sweeps))
+    if name == "transfer2d_residual_restrict_bf16":
+        c0 = native_bf16.constants(h)
+        return (lambda: transfer2d.residual_restrict(u, b, n, h),
+                lambda: native_bf16.residual_restrict_plain(u, b, n, c0,
+                                                            False))
+    return (lambda: transfer2d.prolong_add(x, e, n, nc),
+            lambda: native_bf16.prolong_add_plain(x, e, n, nc, False))
+
+
+def native_leg_inputs(n: int, seed: int, nonfinite: bool = False):
+    """u, b, x on the (n+2)^2 grid and e on the coarse grid, bfloat16
+    (native_grids); with ``nonfinite`` each holds NaN and +-Inf."""
+    u, b = native_grids(n, seed, nonfinite)
+    x, _ = native_grids(n, seed + 1, nonfinite)
+    nc = (n - 1) // 2
+    e, _ = native_grids(nc, seed + 2, nonfinite)
+    return u, b, x, e
+
+
+def native_leg_cases(name: str):
+    """(kind, sweeps) of every schedule of a B2 mode: each leg's sweeps
+    from 0 to its cap, RB-GS and Jacobi (0 sweeps once); one for the
+    transfers."""
+    from multigridcmt_tpu_torch.kernels import fused2d
+
+    cap = {"fused2d_down_bf16": fused2d.max_down_sweeps,
+           "fused2d_up_bf16": fused2d.max_up_sweeps}.get(name)
+    if cap is None:
+        return [("rbgs", 0)]
+    return [("rbgs", 0)] + [(kind, nu) for kind in ("rbgs", "jacobi")
+                            for nu in range(1, cap(kind) + 1)]
+
+
+def check_native_outputs(label: str, got, want):
+    """check_native_bits on each output of a mode (a down leg has two);
+    returns the first's."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return [check_native_bits(f"{label} out{i}", g, w)
+            for i, (g, w) in enumerate(zip(got, want))][0]
+
+
+def compare_native_legs(main_err: dict) -> None:
+    """The native fused2d legs and transfer2d kernels (slice B2) against
+    their plain versions on the card, bit for bit (check_native_bits), at
+    NATIVE_LEG_N, sigma 0 and SIGMA, every schedule of native_leg_cases;
+    at NATIVE_NONFINITE_N on inputs with NaN and +-Inf (each leg at its cap
+    in both smoothers). The main-path errors: 2047^2, sigma 0, RB-GS nu =
+    2 for the legs."""
+    for n in NATIVE_LEG_N:
+        u, b, x, e = native_leg_inputs(n, n + 331)
+        for name in NATIVE_LEGS:
+            for sigma in (0.0, SIGMA):
+                if name.startswith("transfer2d") and sigma:
+                    continue
+                for kind, nu in native_leg_cases(name):
+                    kernel, plain = native_leg_calls(name, u, b, x, e, n,
+                                                     sigma, kind, nu)
+                    err = check_native_outputs(
+                        f"native {name} n={n} {kind} nu={nu} sigma={sigma}",
+                        kernel(), plain())
+                    if n == NATIVE_LEG_N[0] and sigma == 0.0 and (
+                            name.startswith("transfer2d")
+                            or (kind, nu) == ("rbgs", 2)):
+                        main_err[name] = err
+        del u, b, x, e
+    n = NATIVE_NONFINITE_N
+    u, b, x, e = native_leg_inputs(n, n + 332, nonfinite=True)
+    for name in NATIVE_LEGS:
+        cases = native_leg_cases(name)
+        for kind in sorted({k for k, _ in cases}):
+            nu = max(v for k, v in cases if k == kind)
+            kernel, plain = native_leg_calls(name, u, b, x, e, n, SIGMA,
+                                             kind, nu)
+            check_native_outputs(f"native {name} n={n} {kind} nu={nu} "
+                                 "with NaN and Inf", kernel(), plain())
+    del u, b, x, e
     torch.cuda.empty_cache()
 
 
@@ -2624,6 +2776,7 @@ def phase_compare():
     compare_mixed_sharded(main_err)
     compare_cdt_bf16(main_err)
     compare_native_bf16(main_err)
+    compare_native_legs(main_err)
     return main_err
 
 
@@ -2849,8 +3002,10 @@ KERNELS = {
                        "multigridcmt_tpu_torch/kernels/csrc/bell.cu",
                        "multigridcmt_tpu/kernels/bell.py:180", None),
     # The native bfloat16 modes (the TPU kernels computing in bfloat16
-    # itself: every operation rounded). No path of either package runs
-    # them: direct calls only.
+    # itself: every operation rounded) of slice B1: direct calls; the
+    # bfloat16 solves (BF16_SOLVES) also run the stencil2d residual and
+    # sweeps (both kinds inside the fused2d legs, RB-GS on the composed
+    # route).
     "stencil2d_residual_bf16": ("stencil2d", "residual_bf16_launches",
                                 "multigridcmt_tpu_torch/kernels/csrc/"
                                 "native_bf16.cu",
@@ -2882,6 +3037,23 @@ KERNELS = {
     "spmv_dia_bf16": ("spmv", "bf16_launches",
                       "multigridcmt_tpu_torch/kernels/csrc/spmv.cu",
                       "multigridcmt_tpu/kernels/spmv.py:254", None),
+    # The last native modes (slice B2), on the bfloat16 solves' path
+    # (BF16_SOLVES: launches summed over MAIN_RUNS).
+    "fused2d_down_bf16": ("fused2d", "down_bf16_launches",
+                          "multigridcmt_tpu_torch/kernels/csrc/"
+                          "native_bf16.cu",
+                          "multigridcmt_tpu/kernels/fused2d.py:289", None),
+    "fused2d_up_bf16": ("fused2d", "up_bf16_launches",
+                        "multigridcmt_tpu_torch/kernels/csrc/native_bf16.cu",
+                        "multigridcmt_tpu/kernels/fused2d.py:479", None),
+    "transfer2d_residual_restrict_bf16": (
+        "transfer2d", "residual_restrict_bf16_launches",
+        "multigridcmt_tpu_torch/kernels/csrc/native_bf16.cu",
+        "multigridcmt_tpu/kernels/transfer2d.py:371", None),
+    "transfer2d_prolong_add_bf16": (
+        "transfer2d", "prolong_add_bf16_launches",
+        "multigridcmt_tpu_torch/kernels/csrc/native_bf16.cu",
+        "multigridcmt_tpu/kernels/transfer2d.py:204", None),
 }
 # A kernel's launches by one variant -> (counter module, counter, the
 # KERNELS entries whose launches they are part of): the bfloat16 RB-GS
@@ -2908,7 +3080,7 @@ MAIN_RUNS = ("solve2d", "pcg2d", "chebyshev2d", "rbgs44", "jacobi88",
              "mixed2d", "mixedB", "mixedA", "mixed_lobpcg", "mixed_ii",
              "mixed3d", "mixed3d_lobpcg", "mixed3d_ii", "S1mixed",
              "S1unpacked-mixed", "S2mixed", "sharded_mixed_f64",
-             *SHARDED_EIGEN_RUNS, *SHARDED3D_RUNS)
+             *SHARDED_EIGEN_RUNS, *SHARDED3D_RUNS, *BF16_SOLVES)
 # Direct calls of kernels that no single-device path launches (the
 # sharded 3D paths launch them since).
 DIRECT_RUNS = {"stencil3d_jacobi": "jacobi3d",
@@ -4227,8 +4399,8 @@ def paths_cdt_bf16(runs: dict) -> None:
 
 
 def paths_native_bf16(runs: dict) -> None:
-    """Direct calls (native_bf16_direct) of the native bfloat16 modes, which
-    no path of either package runs: each launched exactly once at its
+    """Direct calls (native_bf16_direct) of slice B1's native bfloat16
+    modes (of which the bfloat16 solves run two): each launched once at its
     NATIVE_STENCIL_N or on S1's tile (RB-GS nu = 4, Jacobi nu = 8) or at
     the 4095^2 SpMV, sigma 0; outputs bfloat16 of the input's shape,
     finite."""
@@ -4256,6 +4428,115 @@ def paths_native_bf16(runs: dict) -> None:
     runs["native_bf16_direct"] = counts
     del calls, out, ue, be, pk, xp
     torch.cuda.empty_cache()
+
+
+def bf16_solve_counts(label: str, prob, iters: int) -> dict:
+    """The native launches of BF16_SOLVES[label] with ``iters`` cycles:
+    the convergence check (the stencil2d residual, once before the first
+    cycle and once after each); at each fused level (2047...255) a cycle's
+    down and up leg, each with one native sweep call (counted on the
+    stencil2d sweep of the smoother's kind), or on V(4,5) one RB-GS sweep
+    launch at nu1 = 4, two at nu2 = 5 (4 + 1: a launch takes 4) and a
+    residual restriction and a prolongation-add."""
+    from multigridcmt_tpu_torch.kernels import fused2d, stencil2d
+
+    cfg = prob.config
+    kind = cfg.smoother
+    per = fused_levels(prob) * iters
+    want = {"stencil2d_residual_bf16": iters + 1}
+    if (cfg.nu1 <= fused2d.max_down_sweeps(kind)
+            and cfg.nu2 <= fused2d.max_up_sweeps(kind)):
+        want.update({"fused2d_down_bf16": per, "fused2d_up_bf16": per,
+                     f"stencil2d_{kind}_bf16":
+                         per * (bool(cfg.nu1) + bool(cfg.nu2))})
+        return want
+    cap = stencil2d.max_fused_sweeps(kind)
+    want.update({f"stencil2d_{kind}_bf16":
+                     per * (-(-cfg.nu1 // cap) + -(-cfg.nu2 // cap)),
+                 "transfer2d_residual_restrict_bf16": per,
+                 "transfer2d_prolong_add_bf16": per})
+    return want
+
+
+def paths_bf16_solves(runs: dict) -> None:
+    """The bfloat16 solves (BF16_SOLVES) through MultigridSolver.solve at
+    k = BF16_SOLVE_K on the card, with exact native launches
+    (bf16_solve_counts), and the same solves on the CPU, where every
+    wrapper runs its plain version: the same iterations and x bit for bit;
+    the histories equal, or one bfloat16 ulp apart at an entry only where
+    the two devices' iterates and residuals there are equal bit for bit
+    (the norm's float32 sum parts; a replay of the cycles finds which).
+    Both devices take the CPU's b (the card's sin may differ)."""
+    import multigridcmt_tpu_torch as mt
+
+    bf = torch.bfloat16
+    for label, kw in BF16_SOLVES.items():
+        cpu = mt.poisson2d(k=BF16_SOLVE_K, dtype=bf, use_kernels=True,
+                           device="cpu", **kw)
+        card = mt.poisson2d(k=BF16_SOLVE_K, dtype=bf, use_kernels=True,
+                            device="cuda", **kw)
+        b = cpu.b.to("cuda")
+        same_b = torch.equal(card.b.view(torch.int16), b.view(torch.int16))
+        res, counts, wall = counted(
+            lambda: mt.MultigridSolver(card).solve(b=b))
+        start = time.perf_counter()
+        ref = mt.MultigridSolver(cpu).solve()
+        cpu_wall = time.perf_counter() - start
+        hist = res.res_history[: res.iters + 1].cpu()
+        want = ref.res_history[: ref.iters + 1]
+        log(f"{label}: iters {res.iters} (CPU {ref.iters}), history "
+            f"{hist.float().tolist()} (CPU {want.float().tolist()}), wall "
+            f"{wall:.3f} s (CPU {cpu_wall:.3f} s); the card's own b equals "
+            f"the CPU's: {same_b}")
+        require(res.iters == ref.iters and res.x.dtype == bf,
+                f"{label}: {res.iters} iterations against the CPU's "
+                f"{ref.iters}, or x {res.x.dtype}")
+        require(torch.equal(res.x.cpu().view(torch.int16),
+                            ref.x.view(torch.int16)),
+                f"{label}: x differs from the CPU's on "
+                f"{int((res.x.cpu().view(torch.int16) != ref.x.view(torch.int16)).sum())} points")
+        ulps = (hist.view(torch.int16).int()
+                - want.view(torch.int16).int()).abs()
+        apart = ulps.nonzero().flatten().tolist()
+        if apart:
+            require(int(ulps.max()) <= 1, f"{label}: history entries "
+                    f"{apart} differ by {ulps.tolist()} bfloat16 ulp")
+            bf16_replay(label, card, cpu, b, apart)
+        require_counts(label, counts,
+                       **bf16_solve_counts(label, card, res.iters))
+        runs[label] = counts
+        del cpu, card, b, res, ref
+    torch.cuda.empty_cache()
+
+
+def bf16_replay(label: str, card, cpu, b, apart) -> None:
+    """Replay the cycles of a bfloat16 solve on both devices: at each
+    history entry in ``apart`` the iterates and the fine residuals must be
+    equal bit for bit (so only the norm's float32 sum parts there)."""
+    from multigridcmt_tpu_torch.solvers import cycles
+
+    out = {}
+    for dev, prob, rhs in (("card", card, b), ("cpu", cpu, cpu.b)):
+        cfg, hier = prob.config, prob.hierarchy
+        bk = cycles.get_backend(cfg)
+        x = torch.zeros_like(rhs)
+        seen = []
+        log(f"  {label} ||b|| on the {dev}: {float(cycles._norm(rhs))}")
+        for i in range(max(apart) + 1):
+            if i:
+                x = cycles.cycle(hier, x, rhs, cfg)
+            r = bk.residual(x, rhs, cfg.n, hier.fine.h)
+            seen.append((x.cpu(), r.cpu(), cycles._norm(r).cpu()))
+        out[dev] = seen
+    for i in apart:
+        (xc, rc, nc), (xp, rp, np_) = out["card"][i], out["cpu"][i]
+        same = (torch.equal(xc.view(torch.int16), xp.view(torch.int16))
+                and torch.equal(rc.view(torch.int16), rp.view(torch.int16)))
+        log(f"  {label} history entry {i}: iterates and residuals equal "
+            f"{same}; residual norms {float(nc)} (card) against "
+            f"{float(np_)} (CPU)")
+        require(same, f"{label}: history entry {i} parts with the iterate "
+                "or the residual, not only the norm's sum")
 
 
 def paths_mixed3d(runs: dict) -> None:
@@ -5348,6 +5629,9 @@ def phase_main_path():
     paths_cdt_bf16(runs)
     paths_native_bf16(runs)
     log(f"mixed-precision paths: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    paths_bf16_solves(runs)
+    log(f"bfloat16 solves: {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
     paths_sharded_eigen(runs)
     log(f"sharded eigensolver paths: {time.perf_counter() - start:.1f} s")
@@ -6683,6 +6967,54 @@ def timed_native_bf16(times: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def timed_native_legs(times: dict) -> None:
+    """The B2 native modes at 2047^2, sigma 0 (the legs RB-GS nu = 2, as
+    the bf16_rbgs22 path runs them; the transfers as bf16_rbgs45 does),
+    each against its plain version in turns (single calls), as LEG_CHAIN
+    chained calls and by the profiler's device time a call. Bounds: the
+    inputs read once and the outputs written once in bfloat16, or the
+    operations (NATIVE_OPS a sweep, NATIVE_RR_OPS, NATIVE_PA_OPS a fine
+    point) at the float32 rate. No single PyTorch call computes these
+    functions with every operation rounded to bfloat16: library_ms null."""
+    from multigridcmt_tpu_torch.utils.profiling import chained_ms
+
+    n = NATIVE_LEG_N[0]
+    u, b, x, e = native_leg_inputs(n, n + 341)
+    rc = torch.empty(((n - 1) // 2 + 2,) * 2, dtype=torch.bfloat16,
+                     device="cuda")
+    nu = 2
+    rr, rr_shift = (k * n * n for k in NATIVE_RR_OPS)
+    cases = {
+        "fused2d_down_bf16": (nbytes(u, b, u, rc),
+                              NATIVE_OPS["rbgs"] * nu * n * n + rr_shift,
+                              "rbgs", nu),
+        "fused2d_up_bf16": (nbytes(x, e, b, x),
+                            NATIVE_PA_OPS * n * n
+                            + NATIVE_OPS["rbgs"] * nu * n * n, "rbgs", nu),
+        "transfer2d_residual_restrict_bf16": (nbytes(u, b, rc), rr, "rbgs",
+                                              0),
+        "transfer2d_prolong_add_bf16": (nbytes(x, e, x),
+                                        NATIVE_PA_OPS * n * n, "rbgs", 0)}
+    for name, (nb, flops, kind, sweeps) in cases.items():
+        kernel, plain = native_leg_calls(name, u, b, x, e, n, 0.0, kind,
+                                         sweeps)
+        pair = time_pair(f"{name} native", kernel, plain)
+        row = {"ms": chained_ms(kernel, LEG_CHAIN), "single_ms": pair["ms"],
+               "plain_ms": pair["plain_ms"], "device_ms": pair["device_ms"],
+               "bytes": nb, "flops": flops, "library_ms": None,
+               "library_note": "no PyTorch call computes it with every "
+                               "operation rounded to bfloat16"}
+        row["chained_ms"] = row["ms"]
+        bound = max(nb / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
+        log(f"native {name} n={n} nu={sweeps}: chained x{LEG_CHAIN} "
+            f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms; bound {bound:.4f} ms "
+            f"({100 * bound / row['device_ms']:.1f}% of the device time)")
+        times[name] = row
+    del u, b, x, e, rc
+    torch.cuda.empty_cache()
+
+
 def timed_mixed3d(times: dict) -> None:
     """The stencil3d kernels' bfloat16 modes at 511^3, sigma = 0, one
     launch a call, each against its plain version in turns (single calls),
@@ -7019,6 +7351,7 @@ def phase_times():
     timed_mixed(times)
     timed_cdt_bf16(times)
     timed_native_bf16(times)
+    timed_native_legs(times)
     timed_mixed3d(times)
     log(f"mixed-precision times: {time.perf_counter() - start:.1f} s")
     timed_composed(times)

@@ -16,7 +16,7 @@ import torch
 from .config import SolverConfig
 from .grids import (Hierarchy, build_hierarchy, check_device,
                     grid_coords, interior, pad_interior)
-from .ops import sparse
+from .ops import bf16, sparse
 from .solvers import cycles, eigen, krylov
 
 
@@ -31,11 +31,13 @@ class Problem:
 
 
 def _default_f(ndim: int):
-    """RHS whose exact solution is u = prod sin(pi x_i)."""
+    """RHS whose exact solution is u = prod sin(pi x_i). On bfloat16
+    coordinates pi and ndim pi^2 are rounded to bfloat16 before use, as
+    JAX's weak typing rounds them; float32 and float64 compute as before."""
     def f(*coords):
-        out = ndim * math.pi ** 2
+        out = bf16.weak(ndim * math.pi ** 2, coords[0])
         for c in coords:
-            out = out * torch.sin(math.pi * c)
+            out = out * torch.sin(bf16.weak(math.pi, c) * c)
         return out
     return f
 
@@ -43,7 +45,7 @@ def _default_f(ndim: int):
 def _default_u(*coords):
     out = 1.0
     for c in coords:
-        out = out * torch.sin(math.pi * c)
+        out = out * torch.sin(bf16.weak(math.pi, c) * c)
     return out
 
 

@@ -103,9 +103,15 @@ def interior(u: torch.Tensor) -> torch.Tensor:
 
 def grid_coords(n: int, ndim: int, dtype, device=None):
     """Interior coordinates on ``device`` (None: the card); 1D -> (x,),
-    2D/3D -> 'ij' meshgrid tuple."""
-    x = torch.arange(1, n + 1, dtype=dtype,
-                     device=check_device(device)) / (n + 1)
+    2D/3D -> 'ij' meshgrid tuple.
+
+    The offsets 0 .. n-1 in the dtype, then 1 added in it, as
+    ``jnp.arange(1, n + 1, dtype)`` computes them: in bfloat16 each offset
+    and each sum rounds (past 256 that is not each integer rounded: the
+    258th point is 256, not 258); in float32 and float64 every integer
+    here is exact."""
+    device = check_device(device)
+    x = (torch.arange(n, dtype=dtype, device=device) + 1) / (n + 1)
     if ndim == 1:
         return (x,)
     return tuple(torch.meshgrid(*([x] * ndim), indexing="ij"))

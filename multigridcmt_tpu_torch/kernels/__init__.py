@@ -17,7 +17,10 @@ Per level:
     kernels run the sweeps and the residual, and the cycle composes the legs
     from them and the plain transfers (the fused-leg hooks decline, as in
     JAX);
-  * smaller levels, and every 1D level: the plain ``ops/`` stencils.
+  * smaller levels, and every 1D level: the plain ``ops/`` stencils; a
+    smaller bfloat16 2D level runs the counterparts of JAX's aligned-
+    layout stencils (``ops/bf16.py``), whose order of operations sets
+    bfloat16 results (float32 and float64 levels keep the plain ops).
 The sparse path's kernels (``spmv``: the banded DIA SpMV; ``bell``: the
 blocked-ELL SpMM) are called directly, not through the backend.
 
@@ -40,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import laplacian, smoothers, transfer
+from ..ops import bf16, laplacian, smoothers, transfer
 from ..solvers.cycles import Backend
 from . import fused2d, packed2d, stencil2d, stencil3d, transfer2d
 
@@ -126,6 +129,9 @@ def _smooth(u, b, n, h, *, kind, omega, sweeps, sigma=0.0):
             u, b, sweeps, laplacian.diag_value(2, h, sigma),
             lambda uu, bb: _residual(uu, bb, n, h, sigma=sigma))
     if not _kernel_level(u, n):
+        if u.dtype == torch.bfloat16:
+            return bf16.smooth(u, b, n, h, kind=kind, omega=omega,
+                               sweeps=sweeps, sigma=sigma)
         return smoothers.smooth(u, b, h, kind=kind, omega=omega,
                                 sweeps=sweeps, sigma=sigma)
     if kind not in ("jacobi", "rbgs"):
@@ -149,6 +155,8 @@ def _residual(u, b, n, h, sigma=0.0):
         return stencil3d.residual(u, b, n, h, sigma=sigma)
     if _kernel_level(u, n):
         return stencil2d.residual(u, b, n, h, sigma=sigma)
+    if u.ndim == 2 and u.dtype == torch.bfloat16:
+        return bf16.residual(u, b, n, h, sigma=sigma)
     return laplacian.residual(u, b, h, sigma=sigma)
 
 
@@ -196,7 +204,7 @@ def _residual_restrict(u, b, n, h):
         return transfer.restrict(stencil3d.residual(u, b, n, h))
     if _kernel_level(u, n):
         return transfer2d.residual_restrict(u, b, n, h)
-    return transfer.restrict(laplacian.residual(u, b, h))
+    return transfer.restrict(_residual(u, b, n, h))
 
 
 def _prolong_add(x, e, n, nc, out_dtype=None):

@@ -156,6 +156,12 @@ SIGNATURES["mg_native2d_residual_bf16"] = [_P, _P, _P] + [_I] * 5 + [
 SIGNATURES["mg_native2d_sweep_bf16"] = [_P] * 4 + [_I] * 5 + [_D] * 5 + [
     _I, _I, _P]
 SIGNATURES["mg_spmv_dia_bf16"] = SIGNATURES["mg_spmv_dia_f32"]
+# The native residual restriction and prolongation-add (csrc/native_bf16.cu):
+# u, b, rc, n, inv_h2, sigma, shift, stream; x, e, out, n, rows_first,
+# stream.
+SIGNATURES["mg_native2d_residual_restrict_bf16"] = [_P, _P, _P, _I, _D, _D,
+                                                    _I, _P]
+SIGNATURES["mg_native2d_prolong_add_bf16"] = [_P, _P, _P, _I, _I, _P]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

@@ -15,11 +15,10 @@ stored in float32 (``out_dtype``: the up legs, the 3D sweeps; the 3D
 residual always is, ``check_out_dtype``). A kernel whose TPU original
 computes in bfloat16 itself (every operation rounded, sigma and the
 constants bfloat16) has a native bfloat16 mode that does the same: the
-residuals and sweeps of ``stencil2d`` and ``local2d`` (``native_bf16``)
-and the DIA SpMV (``spmv``); ``check_grid``'s ``storage`` lets stencil2d's
-bfloat16 grids through. The rest of that family, the fused legs
-(``fused2d``) and the transfers (``transfer2d``), raise TypeError through
-``check_storage``, naming their ROADMAP.md item.
+residuals and sweeps of ``stencil2d`` and ``local2d``, the legs of
+``fused2d`` and the transfers of ``transfer2d`` (``native_bf16``) and the
+DIA SpMV (``spmv``); ``check_grid``'s ``storage`` lets their bfloat16
+grids through.
 """
 from __future__ import annotations
 
@@ -35,29 +34,12 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 COMPUTE = (torch.float32, torch.float64)
 STORAGE = COMPUTE + (torch.bfloat16,)
 
-# The bfloat16 modes not ported (those of the fused legs and the
-# transfers, which compute in bfloat16 itself in the JAX package; a
-# bfloat16 solve on the stencil3d kernels): each raises, naming their
-# ROADMAP.md item.
-MIXED_OFF_PATH = ("queue 2, part B2: bfloat16 storage in the fused legs and "
-                  "the transfers")
-MIXED_TODO = ("{what}: bfloat16 storage is not ported to CUDA: no mixed "
-              "path stores bfloat16 there (ROADMAP.md, " + MIXED_OFF_PATH
-              + ")")
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     """The dtype a kernel computes in for storage ``dtype``: float32 for
     bfloat16, else the dtype itself."""
     return torch.float32 if dtype == torch.bfloat16 else dtype
-
-
-def check_storage(what: str, t: torch.Tensor) -> None:
-    """Raise TypeError (``MIXED_TODO``) for a bfloat16 ``t`` given to a
-    kernel whose bfloat16 mode is not ported (computes in bfloat16 in the
-    JAX package; no mixed path runs it)."""
-    if t.dtype == torch.bfloat16:
-        raise TypeError(MIXED_TODO.format(what=what))
 
 
 def check_out_dtype(what: str, t: torch.Tensor, out_dtype) -> torch.dtype:

@@ -15,22 +15,31 @@ down leg's residual is taken at every interior point, as in JAX.
 
 Each wrapper has its plain PyTorch version beside it: the composition of
 the ``ops/`` functions. Device rule: a CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises. bfloat16 grids raise
-TypeError (``_wrap.check_storage``): the TPU legs' own bfloat16 mode is
-ROADMAP.md's queue 2, part B2.
+a CUDA tensor launches the kernel or raises.
+
+Native bfloat16 (the TPU legs' own mode on bfloat16 grids, a bfloat16
+solve's kernel-tier levels: every operation rounded to bfloat16, sigma and
+the constants too): ``native_bf16.down_leg`` and ``up_leg``, a short chain
+of ``csrc/native_bf16.cu``'s launches (the native sweeps, then the
+residual restriction with sig u; the prolongation-add by rows first, then
+the sweeps), each leg counted once apart and its sweeps on ``stencil2d``'s
+native sweep counters.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import laplacian, smoothers, transfer
-from . import _build, packed2d
-from ._wrap import check_grid, check_storage, launch_on, on_cuda
+from . import _build, native_bf16, packed2d, stencil2d
+from ._wrap import check_grid, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
-# count).
+# count); the native bfloat16 legs apart (one a leg for the restriction or
+# the prolongation-add; their sweeps count on stencil2d's counters).
 down_launches = 0
 up_launches = 0
+down_bf16_launches = 0
+up_bf16_launches = 0
 
 # The least segment of the row stream on this frame (packed2d.LEG_MIN_SEG
 # on the packed ones). The launch aims at packed2d.LEG_WARPS_PER_SM warps
@@ -110,13 +119,18 @@ def smooth_residual_restrict(u: torch.Tensor, b: torch.Tensor, n: int,
     u, b: (n+2, n+2) padded grids; returns u' (n+2, n+2) and the coarse
     right-hand side ((n-1)/2 + 2)^2. Requires sweeps <= max_down_sweeps.
     """
-    global down_launches
+    global down_launches, down_bf16_launches
     _check_schedule(kind, sweeps, max_down_sweeps(kind))
     if n < 3 or n % 2 == 0:
         raise ValueError(f"fine n={n} must be odd and >= 3 (n = 2*nc + 1)")
-    check_storage("fused2d.smooth_residual_restrict", u)
-    check_grid("u", u, n, u)
-    check_grid("b", b, n, u)
+    check_grid("u", u, n, u, storage=True)
+    check_grid("b", b, n, u, storage=True)
+    if u.dtype == torch.bfloat16:
+        us, rc, launched, swept = native_bf16.down_leg(
+            u, b, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma)
+        down_bf16_launches += launched
+        stencil2d.count_native_sweep(kind, swept)
+        return us, rc
     if not on_cuda(u):
         return smooth_residual_restrict_plain(
             u, b, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma)
@@ -148,14 +162,20 @@ def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
     x, b: (n+2, n+2); e: (nc+2, nc+2) with n = 2*nc + 1. Requires
     sweeps <= max_up_sweeps.
     """
-    global up_launches
+    global up_launches, up_bf16_launches
     _check_schedule(kind, sweeps, max_up_sweeps(kind))
     if n != 2 * nc + 1:
         raise ValueError(f"fine n={n} is not 2*nc+1 for nc={nc}")
-    check_storage("fused2d.prolong_add_smooth", x)
-    check_grid("x", x, n, x)
-    check_grid("e", e, nc, x)
-    check_grid("b", b, n, x)
+    check_grid("x", x, n, x, storage=True)
+    check_grid("e", e, nc, x, storage=True)
+    check_grid("b", b, n, x, storage=True)
+    if x.dtype == torch.bfloat16:
+        out, launched, swept = native_bf16.up_leg(
+            x, e, b, n, nc, h, kind=kind, omega=omega, sweeps=sweeps,
+            sigma=sigma)
+        up_bf16_launches += launched
+        stencil2d.count_native_sweep(kind, swept)
+        return out
     if not on_cuda(x):
         return prolong_add_smooth_plain(x, e, b, n, nc, h, kind=kind,
                                         omega=omega, sweeps=sweeps,

@@ -1,7 +1,9 @@
-"""The native bfloat16 modes of the 2D stencil kernels: the residual and the
-RB-GS and Jacobi sweeps of ``stencil2d`` (whole grids) and ``local2d``
-(a shard's extended tile) on bfloat16 grids, computed in bfloat16 itself,
-as the JAX package computes them.
+"""The native bfloat16 modes of the 2D stencil kernels, the fused legs and
+the transfers: the residual and the RB-GS and Jacobi sweeps of
+``stencil2d`` (whole grids) and ``local2d`` (a shard's extended tile), the
+legs of ``fused2d`` and the residual restriction and prolongation-add of
+``transfer2d``, on bfloat16 grids, computed in bfloat16 itself, as the JAX
+package computes them.
 
 Replace the bfloat16 modes of the TPU kernels
 ``multigridcmt_tpu/kernels/stencil2d.py`` (``residual`` :304,
@@ -23,7 +25,23 @@ computed in double) is rounded to bfloat16 where it meets one; every + - x
   RB-GS      inv_den = 1 / (4 - sig h2), once; red, then black points take
              ((((h2 b + up) + down) + left) + right) * inv_den;
   Jacobi     coef = omega / (4/h^2 - sig), once; every point takes
-             u + coef * r(u), r as above.
+             u + coef * r(u), r as above;
+  restrict   (``transfer2d.py:218-350``, ``fused2d.py:110-286``) r as
+             above, without sig u in transfer2d's (``transfer2d.py:265``),
+             with it in the fused down leg's; rows first, then columns,
+             t = (0.25 r[i-1] + 0.5 r[i]) + 0.25 r[i+1] (the 0/1 selection
+             dots that follow are exact); the coarse ring 0;
+  prolong    (``transfer2d.py:56-200``, ``fused2d.py:313-476``) fine 2I
+             takes coarse I, an odd point 0.5 a + 0.5 b rounded once (the
+             interpolation dots' two terms); transfer2d interpolates
+             columns first, then rows, the fused up leg rows first, then
+             columns; then x + P e on the interior, x elsewhere.
+The fused legs chain these: the down leg's sweeps, then the restriction
+with sig u (``down_leg``); the up leg's prolongation-add (rows first), then
+its sweeps (``up_leg``). The JAX kernels hold on finite inputs; a NaN or
+Inf inside their selection dots spreads over a row or block (0 * Inf),
+which these modes do not copy: their plain versions define the port's
+semantics there.
 ``constants`` computes h2, inv_h2, sig, inv_den and coef on the host in
 that order; the kernel and the plain versions use the same values. A
 Python scalar is rounded through float32, as JAX's conversion of a weakly
@@ -45,6 +63,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.bf16 import scalar
 from . import _build
 from ._wrap import launch_on, on_cuda
 
@@ -61,32 +80,28 @@ class Constants(NamedTuple):
     coef: float      # omega / (4/h^2 - sig)
 
 
-def _scalar(x: float) -> torch.Tensor:
-    """A Python float as a 0-d bfloat16 tensor, rounded through float32."""
-    return torch.tensor(float(x), dtype=torch.float32).to(BF)
-
-
 @functools.lru_cache(maxsize=None)
 def constants(h: float, sigma: float = 0.0, omega: float = 1.0) -> Constants:
     """The level's scalars in JAX's order, each operation rounded to
     bfloat16 (the Python products h*h, 1/(h*h) and 4/(h*h) in double);
     cached, as a level's scalars repeat from call to call."""
-    h2, inv_h2, sig = _scalar(h * h), _scalar(1.0 / (h * h)), _scalar(sigma)
-    inv_den = _scalar(1.0) / (_scalar(4.0) - sig * h2)
-    coef = _scalar(omega) / (_scalar(4.0 * (1.0 / (h * h))) - sig)
+    h2, inv_h2, sig = (scalar(v) for v in (h * h, 1.0 / (h * h), sigma))
+    inv_den = scalar(1.0) / (scalar(4.0) - sig * h2)
+    coef = scalar(omega) / (scalar(4.0 * (1.0 / (h * h))) - sig)
     return Constants(*(float(v) for v in (h2, inv_h2, sig, inv_den, coef)))
 
 
-def _residual_vals(u, b, c: dict) -> torch.Tensor:
-    """JAX's ``_residual_vals`` off the ring, each op in bfloat16."""
+def _residual_vals(u, b, c: dict, shift: bool = True) -> torch.Tensor:
+    """JAX's ``_residual_vals`` off the ring, each op in bfloat16; without
+    ``shift`` (transfer2d's residual) b - au."""
     ctr = u[1:-1, 1:-1]
     t = c["four"] * ctr
     t = t - u[:-2, 1:-1]
     t = t - u[2:, 1:-1]
     t = t - u[1:-1, :-2]
     t = t - u[1:-1, 2:]
-    au = t * c["inv_h2"]
-    return F.pad((b[1:-1, 1:-1] - au) + c["sig"] * ctr, (1, 1, 1, 1))
+    r = b[1:-1, 1:-1] - t * c["inv_h2"]
+    return F.pad(r + c["sig"] * ctr if shift else r, (1, 1, 1, 1))
 
 
 def _gs_vals(u, b, c: dict) -> torch.Tensor:
@@ -102,7 +117,8 @@ def _gs_vals(u, b, c: dict) -> torch.Tensor:
 def _tensors(c: Constants, device) -> dict:
     out = {k: torch.tensor(v, dtype=BF, device=device)
            for k, v in c._asdict().items()}
-    out["four"] = torch.tensor(4.0, dtype=BF, device=device)
+    for k, v in (("four", 4.0), ("quarter", 0.25), ("half", 0.5)):
+        out[k] = torch.tensor(v, dtype=BF, device=device)
     return out
 
 
@@ -167,3 +183,115 @@ def sweep(kind: str, u, b, n: int, h: float, omega: float, sweeps: int,
               int(row_off), int(col_off), *c, _build.KIND_CODES[kind],
               sweeps, writes=(out,))
     return out, True
+
+
+def _full_weight(r, axis: int, c: dict) -> torch.Tensor:
+    """(0.25 r[2I-1] + 0.5 r[2I]) + 0.25 r[2I+1] along ``axis`` at the
+    coarse points I = 1 .. nc, each op in bfloat16."""
+    m = r.shape[axis] - 2
+    lo, mid, hi = (r.narrow(axis, s, m - 1)[
+        (slice(None),) * axis + (slice(None, None, 2),)] for s in (1, 2, 3))
+    return (c["quarter"] * lo + c["half"] * mid) + c["quarter"] * hi
+
+
+def residual_restrict_plain(u, b, n: int, c: Constants,
+                            shift: bool) -> torch.Tensor:
+    """Plain PyTorch version of the native residual restriction: the
+    residual (``_residual_vals``, ``shift`` as there) at the interior
+    points, full weighting over rows, then over columns; the coarse ring
+    0."""
+    ct = _tensors(c, u.device)
+    r = _residual_vals(u, b, ct, shift)
+    return F.pad(_full_weight(_full_weight(r, 0, ct), 1, ct), (1, 1, 1, 1))
+
+
+def _interpolate(e, axis: int) -> torch.Tensor:
+    """Linear interpolation along ``axis``, nc + 2 -> 2 nc + 3 points: the
+    even points copy e, an odd one is 0.5 a + 0.5 b in float32 rounded to
+    bfloat16 once (as JAX's interpolation products sum)."""
+    m = e.shape[axis] - 1
+    odd = (e.narrow(axis, 0, m).float() * 0.5
+           + e.narrow(axis, 1, m).float() * 0.5).to(BF)
+    shape = list(e.shape)
+    shape[axis] = 2 * m + 1
+    out = torch.empty(shape, dtype=BF, device=e.device)
+    at = (slice(None),) * axis
+    out[at + (slice(0, None, 2),)] = e
+    out[at + (slice(1, None, 2),)] = odd
+    return out
+
+
+def prolong_add_plain(x, e, n: int, nc: int,
+                      rows_first: bool) -> torch.Tensor:
+    """Plain PyTorch version of the native prolongation-add: P e, rows then
+    columns (``rows_first``, fused2d's up leg) or columns then rows
+    (transfer2d.prolong_add), then x + P e on the interior, x elsewhere."""
+    axes = (0, 1) if rows_first else (1, 0)
+    pe = _interpolate(_interpolate(e, axes[0]), axes[1])
+    out = x.clone()
+    out[1:-1, 1:-1] = x[1:-1, 1:-1] + pe[1:-1, 1:-1]
+    return out
+
+
+def residual_restrict(u, b, n: int, h: float, sigma=None) -> tuple:
+    """The native residual restriction of bfloat16 u and b (checked by the
+    caller) into the ((n-1)/2 + 2)^2 coarse grid: sigma None (transfer2d)
+    leaves the shift out; a sigma (fused2d's down leg) adds sig u, even at
+    0. Returns (rc, launched)."""
+    c = constants(float(h), 0.0 if sigma is None else float(sigma))
+    nc = (n - 1) // 2
+    if not on_cuda(u):
+        return residual_restrict_plain(u, b, n, c, sigma is not None), False
+    rc = torch.empty((nc + 2, nc + 2), dtype=BF, device=u.device)
+    launch_on(u, "native2d_residual_restrict", u.data_ptr(), b.data_ptr(),
+              rc.data_ptr(), n, c.inv_h2, c.sig, int(sigma is not None),
+              writes=(rc,))
+    return rc, True
+
+
+def prolong_add(x, e, n: int, nc: int, rows_first: bool) -> tuple:
+    """x + P e of bfloat16 x and e (checked by the caller) in the given
+    interpolation order; returns (out, launched)."""
+    if not on_cuda(x):
+        return prolong_add_plain(x, e, n, nc, rows_first), False
+    out = torch.empty_like(x)
+    launch_on(x, "native2d_prolong_add", x.data_ptr(), e.data_ptr(),
+              out.data_ptr(), n, int(rows_first), writes=(out,))
+    return out, True
+
+
+def down_leg_plain(u, b, n: int, c: Constants, kind: str, sweeps: int):
+    """Plain PyTorch version of the native down leg: (u', rc)."""
+    u = sweep_plain(kind, u, b, n, c, sweeps)
+    return u, residual_restrict_plain(u, b, n, c, True)
+
+
+def down_leg(u, b, n: int, h: float, *, kind: str, omega: float,
+             sweeps: int, sigma=0.0) -> tuple:
+    """fused2d's down leg on bfloat16 grids: ``sweeps`` native sweeps, then
+    the residual (with sig u) restricted. Returns (u', rc, launched,
+    swept): whether the restriction and the sweeps launched."""
+    swept = False
+    if sweeps:
+        u, swept = sweep(kind, u, b, n, h, omega, sweeps, sigma=sigma)
+    rc, launched = residual_restrict(u, b, n, h, sigma=sigma)
+    return u, rc, launched, swept
+
+
+def up_leg_plain(x, e, b, n: int, nc: int, c: Constants, kind: str,
+                 sweeps: int) -> torch.Tensor:
+    """Plain PyTorch version of the native up leg."""
+    return sweep_plain(kind, prolong_add_plain(x, e, n, nc, True), b, n, c,
+                       sweeps)
+
+
+def up_leg(x, e, b, n: int, nc: int, h: float, *, kind: str, omega: float,
+           sweeps: int, sigma=0.0) -> tuple:
+    """fused2d's up leg on bfloat16 grids: x + P e (rows first), then
+    ``sweeps`` native sweeps. Returns (x', launched, swept): whether the
+    prolongation-add and the sweeps launched."""
+    x, launched = prolong_add(x, e, n, nc, rows_first=True)
+    swept = False
+    if sweeps:
+        x, swept = sweep(kind, x, b, n, h, omega, sweeps, sigma=sigma)
+    return x, launched, swept

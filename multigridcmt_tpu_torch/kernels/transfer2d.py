@@ -16,22 +16,28 @@ the cycle calls it only at sigma = 0.
 
 Each wrapper has its plain PyTorch version beside it: the composition of
 the ``ops/`` functions. Device rule (``_wrap``): a CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises. bfloat16 grids
-raise TypeError (``_wrap.check_storage``): the TPU kernels' own bfloat16
-mode is ROADMAP.md's queue 2, part B2.
+plain version; a CUDA tensor launches the kernel or raises.
+
+Native bfloat16 (the TPU kernels' own mode on bfloat16 grids, a bfloat16
+solve's composed legs: every operation rounded to bfloat16):
+``native_bf16.residual_restrict`` (no shift term) and ``prolong_add``
+(P e by columns first, then rows, as the TPU kernel interpolates), one
+launch of ``csrc/native_bf16.cu`` each, counted apart.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import laplacian, transfer
-from . import fused2d
-from ._wrap import check_grid, check_storage, launch_on, on_cuda
+from . import fused2d, native_bf16
+from ._wrap import check_grid, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
-# count).
+# count); the native bfloat16 modes apart.
 residual_restrict_launches = 0
 prolong_add_launches = 0
+residual_restrict_bf16_launches = 0
+prolong_add_bf16_launches = 0
 
 
 def _check_pair(n: int, nc: int) -> None:
@@ -55,12 +61,15 @@ def residual_restrict(u: torch.Tensor, b: torch.Tensor, n: int,
                       h: float) -> torch.Tensor:
     """R (b - A u): fine (n+2, n+2) grids -> the ((n-1)/2 + 2)^2 coarse
     grid, ghosts zero, in one pass that never writes the fine residual."""
-    global residual_restrict_launches
+    global residual_restrict_launches, residual_restrict_bf16_launches
     nc = (n - 1) // 2
     _check_pair(n, nc)
-    check_storage("transfer2d.residual_restrict", u)
-    check_grid("u", u, n, u)
-    check_grid("b", b, n, u)
+    check_grid("u", u, n, u, storage=True)
+    check_grid("b", b, n, u, storage=True)
+    if u.dtype == torch.bfloat16:
+        rc, launched = native_bf16.residual_restrict(u, b, n, h)
+        residual_restrict_bf16_launches += launched
+        return rc
     if not on_cuda(u):
         return residual_restrict_plain(u, b, n, h)
     u, b = fused2d._on_pair(u), fused2d._on_pair(b)
@@ -82,11 +91,15 @@ def prolong_add(x: torch.Tensor, e: torch.Tensor, n: int,
                 nc: int) -> torch.Tensor:
     """x + P e: coarse e (nc+2, nc+2) into fine x (n+2, n+2), n = 2*nc + 1,
     in one pass; the ghosts of the result are x's."""
-    global prolong_add_launches
+    global prolong_add_launches, prolong_add_bf16_launches
     _check_pair(n, nc)
-    check_storage("transfer2d.prolong_add", x)
-    check_grid("x", x, n, x)
-    check_grid("e", e, nc, x)
+    check_grid("x", x, n, x, storage=True)
+    check_grid("e", e, nc, x, storage=True)
+    if x.dtype == torch.bfloat16:
+        out, launched = native_bf16.prolong_add(x, e, n, nc,
+                                                rows_first=False)
+        prolong_add_bf16_launches += launched
+        return out
     if not on_cuda(x):
         return prolong_add_plain(x, e, n, nc)
     out = torch.empty_like(x)

@@ -6,20 +6,28 @@ everywhere and selects one colour by a mask. Red means (i+j) even on
 padded indices (1D: i even; 3D: i+j+k even). The Chebyshev smoother
 (``chebyshev_generic``) needs only residual applies and elementwise
 updates, so every backend runs it from its own residual.
+
+On a bfloat16 grid the Python scalars (omega, the diagonal, the Chebyshev
+coefficients) are rounded to bfloat16 before use, as JAX's weak typing
+rounds them (``bf16.weak``); float32 and float64 grids compute as before.
 """
 from __future__ import annotations
 
 import torch
 
-from . import laplacian
+from . import bf16, laplacian
 
 
 def jacobi(u: torch.Tensor, b: torch.Tensor, h: float, omega: float,
            sigma=0.0) -> torch.Tensor:
-    """One weighted-Jacobi sweep on a padded grid: x + omega*D^-1*(b - Ax)."""
+    """One weighted-Jacobi sweep on a padded grid: x + omega*D^-1*(b - Ax).
+
+    bfloat16: omega and d each rounded to bfloat16, then divided there (the
+    JAX function's ``asarray(omega) / asarray(d)``); float32 and float64
+    divide the Python floats."""
     d = laplacian.diag_value(u.ndim, h, sigma)
     r = laplacian.residual(u, b, h, sigma)
-    return u + (omega / d) * r
+    return u + (bf16.weak(omega, u) / bf16.weak(d, u)) * r
 
 
 def _color_mask(shape, parity: int, row_offset: int = 0,
@@ -104,13 +112,15 @@ def chebyshev_generic(u, b, degree: int, diag, residual_fn,
     sigma1 = theta / delta
     inv_diag = 1.0 / diag
     rho = 1.0 / sigma1
+    w = lambda x: bf16.weak(x, u)                             # noqa: E731
     r = residual_fn(u, b)
-    d = (inv_diag / theta) * r
+    d = w(inv_diag / theta) * r
     u = u + d
     for _ in range(degree - 1):
         rho_new = 1.0 / (2.0 * sigma1 - rho)
         r = residual_fn(u, b)
-        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (inv_diag * r)
+        d = (w(rho_new * rho) * d
+             + w(2.0 * rho_new / delta) * (w(inv_diag) * r))
         u = u + d
         rho = rho_new
     return u

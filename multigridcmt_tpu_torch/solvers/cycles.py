@@ -15,7 +15,7 @@ import torch
 
 from ..config import SolverConfig
 from ..grids import Hierarchy, interior, pad_interior
-from ..ops import laplacian, smoothers, transfer
+from ..ops import bf16, laplacian, smoothers, transfer
 from ..utils import profiling
 
 
@@ -88,14 +88,20 @@ def get_backend(config: SolverConfig) -> Backend:
             # a TPU measurement; whether the H100 wants the Jacobi kernel
             # here is open (PERF.md).
             return PLAIN_BACKEND
-        from ..kernels import KERNEL3_MIN_N, KERNEL_BACKEND, _wrap
+        from ..kernels import KERNEL3_MIN_N, KERNEL_BACKEND
 
         if (config.ndim == 3 and config.dtype == torch.bfloat16
                 and config.n >= KERNEL3_MIN_N):
             # The stencil3d kernels store bfloat16 as a mixed cycle's fine
-            # level (precond_dtype); a solve in bfloat16 is another path.
-            raise NotImplementedError(_wrap.MIXED_TODO.format(
-                what="stencil3d: a bfloat16 solve"))
+            # level (precond_dtype); they emit the coarse levels and the
+            # correction in float32, so a bfloat16 solve's cycle would
+            # return float32. JAX's solve rejects that (its while_loop
+            # keeps x's dtype), so there is no reference for this route.
+            raise NotImplementedError(
+                "stencil3d: a bfloat16 solve on the 3D kernel tier has no "
+                "reference: the cycle returns float32 and the JAX "
+                "package's solve rejects that dtype (use precond_dtype "
+                "for a bfloat16 preconditioner)")
         return KERNEL_BACKEND
     return PLAIN_BACKEND
 
@@ -233,10 +239,20 @@ DIVERGE_FACTOR = 10.0
 DIVERGE_PATIENCE = 2
 
 
-def step_guards(new_rel: float, rel: float, stall: int, div: int):
-    """Updated (stall, diverge) counters after one outer iteration."""
-    stall = stall + 1 if new_rel >= 0.9 * rel else 0
-    div = div + 1 if new_rel > DIVERGE_FACTOR * rel else 0
+def _in(dtype, x: float) -> float:
+    """x rounded to bfloat16 for a bfloat16 history (JAX forms the guards'
+    products and meets the tolerance in the history's dtype), else x."""
+    return float(bf16.scalar(x)) if dtype == torch.bfloat16 else x
+
+
+def step_guards(new_rel: float, rel: float, stall: int, div: int,
+                dtype=None):
+    """Updated (stall, diverge) counters after one outer iteration. With a
+    bfloat16 ``dtype`` (the history's), 0.9 rel and 10 rel are formed in
+    bfloat16 as JAX forms them: 0.9 rounded to bfloat16, then the product
+    rounded."""
+    stall = stall + 1 if new_rel >= _in(dtype, _in(dtype, 0.9) * rel) else 0
+    div = div + 1 if new_rel > _in(dtype, DIVERGE_FACTOR * rel) else 0
     return stall, div
 
 
@@ -256,6 +272,16 @@ def eigen_guard(new_res: float, res: float, div: int) -> int:
     """Cumulative count of eigen-residual growths by more than
     DIVERGE_FACTOR."""
     return div + (1 if new_res > DIVERGE_FACTOR * res else 0)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """||v||_2. bfloat16: JAX's ``sqrt(sum(v * v))`` as the JAX package
+    computes it on the CPU: each square rounded to bfloat16, the sum in
+    float32 rounded once, the root in bfloat16; other dtypes
+    ``vector_norm``."""
+    if v.dtype == torch.bfloat16:
+        return torch.sqrt((v * v).float().sum().to(v.dtype))
+    return torch.linalg.vector_norm(v)
 
 
 def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
@@ -279,7 +305,7 @@ def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
     else:
         x = (torch.zeros_like(b) if x0 is None
              else bk.encode(pad_interior(interior(x0))))
-    b_norm = torch.linalg.vector_norm(b)
+    b_norm = _norm(b)
     b_norm = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
 
     def rel_res(x, red_only=False):
@@ -287,7 +313,7 @@ def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
             v = bk.residual_norm2(x, b, n, h, red_only=red_only)
             if v is not None:
                 return torch.sqrt(v) / b_norm
-        return torch.linalg.vector_norm(bk.residual(x, b, n, h)) / b_norm
+        return _norm(bk.residual(x, b, n, h)) / b_norm
 
     # After a cycle x ends with the finest level's post-smoothing: for
     # RB-GS its closing black half-sweep zeroes the black residual, so a
@@ -296,13 +322,15 @@ def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
 
     hist = [rel_res(x)]
     rel = hist[0].item()                      # host sync
+    dtype = hist[0].dtype
+    tol = _in(dtype, config.tol)
     stall = div = 0
-    while rel >= config.tol and len(hist) <= config.max_iters \
+    while rel >= tol and len(hist) <= config.max_iters \
             and guards_ok(stall, div):
         x = cycle(hier, x, b, config)
         hist.append(rel_res(x, red_only=post_red))
         new_rel = hist[-1].item()             # host sync, once per cycle
-        stall, div = step_guards(new_rel, rel, stall, div)
+        stall, div = step_guards(new_rel, rel, stall, div, dtype)
         rel = new_rel
     iters = len(hist) - 1
     # Entries past `iters` repeat the final residual (the JAX history has
@@ -310,7 +338,7 @@ def solve(hier: Hierarchy, b: torch.Tensor, config: SolverConfig,
     hist += [hist[-1]] * (config.max_iters - iters)
     return SolveResult(x=bk.decode(x), iters=iters,
                        res_history=torch.stack(hist),
-                       converged=rel < config.tol)
+                       converged=rel < tol)
 
 
 def convergence_factor(result: SolveResult) -> float:

@@ -354,9 +354,9 @@ def _solve(**kw):
     (dict(k=4, ndim=2, smoother="chebyshev"), None),
     (dict(k=4, ndim=2, cycle="fmg"), None),
     # The 3D kernels store bfloat16 as a mixed cycle's fine level; a solve
-    # in bfloat16 on them is not ported.
+    # in bfloat16 on them returns float32, which JAX's solve rejects.
     (dict(k=7, ndim=3, smoother="rbgs", use_kernels=True,
-          dtype=torch.bfloat16), "stencil3d"),
+          dtype=torch.bfloat16), "stencil3d: .* JAX package's solve rejects"),
 ], ids=["kw0-Chebyshev", "kw1-fmg", "kw2-stencil3d"])
 def test_unported_routes_raise(kw, match):
     if match is None:
@@ -942,34 +942,6 @@ def test_unported_sharded_routes_raise(call, item, world_of_one,
                                atol=1e-10)
 
 
-# The bfloat16 modes left to port (ROADMAP.md queue 2, part B2): the
-# fused legs and the transfers.
-OFF_PATH_CALLS = {
-    "fused2d.smooth_residual_restrict": lambda g: fused2d.
-    smooth_residual_restrict(g(7), g(7), 7, 0.125, kind="rbgs", omega=1.0,
-                             sweeps=1),
-    "fused2d.prolong_add_smooth": lambda g: fused2d.prolong_add_smooth(
-        g(7), _grid(3, torch.float32), g(7), 7, 3, 0.125, kind="rbgs",
-        omega=1.0, sweeps=1),
-    "transfer2d.residual_restrict": lambda g: transfer2d.residual_restrict(
-        g(7), g(7), 7, 0.125),
-    "transfer2d.prolong_add": lambda g: transfer2d.prolong_add(
-        g(7), _grid(3, torch.float32), 7, 3),
-}
-
-
-@pytest.mark.parametrize("call", list(OFF_PATH_CALLS))
-def test_off_path_bf16_wrappers_raise(call):
-    """The kernels whose bfloat16 mode computes in bfloat16 itself in the
-    JAX package and is not ported yet (the fused legs and the transfers)
-    raise TypeError naming that ROADMAP.md item, and launch nothing."""
-    with pytest.raises(TypeError, match="queue 2, part B2"):
-        OFF_PATH_CALLS[call](lambda n: _grid(n, torch.bfloat16))
-    assert (fused2d.down_launches, fused2d.up_launches,
-            transfer2d.residual_restrict_launches,
-            transfer2d.prolong_add_launches) == (0,) * 4
-
-
 def _native_inputs(shape, seed):
     """bfloat16 u and b of ``shape``, N(0, 1) and N(0, 64^2)."""
     gen = torch.Generator().manual_seed(seed)
@@ -980,7 +952,9 @@ def _native_inputs(shape, seed):
 @pytest.mark.parametrize("call", [
     "local2d.residual", "local2d.rbgs_sweep", "local2d.jacobi_sweep",
     "stencil2d.residual", "stencil2d.rbgs_sweep", "stencil2d.jacobi_sweep",
-    "spmv.spmv_packed"])
+    "spmv.spmv_packed", "fused2d.smooth_residual_restrict",
+    "fused2d.prolong_add_smooth", "transfer2d.residual_restrict",
+    "transfer2d.prolong_add"])
 def test_native_bf16_wrappers_run(call):
     """The native bfloat16 modes run on a CPU tensor: each wrapper equals
     its plain version bit for bit (sigma 1.3, which bfloat16 does not hold)
@@ -990,7 +964,9 @@ def test_native_bf16_wrappers_run(call):
     h, sigma, omega = 1 / 64, 1.3, 0.8
     u, b = _native_inputs((32, 40), 7)
     g, gb = _native_inputs((65, 65), 8)
+    e = _native_inputs((33, 33), 10)[0]
     c = native_bf16.constants(h, sigma, omega)
+    c0 = native_bf16.constants(h)
     pk = spmv.PackedDIA(_pdia().diags.to(torch.bfloat16), (-1, 0, 1), 100)
     x = _native_inputs((24, 128), 9)[0]
     x[:8], x[-8:] = 0, 0
@@ -1020,15 +996,38 @@ def test_native_bf16_wrappers_run(call):
             lambda: native_bf16.sweep_plain("jacobi", g, gb, 63, c, 8)),
         "spmv.spmv_packed": (lambda: spmv.spmv_packed(pk, x),
                              lambda: spmv.spmv_packed_plain(pk, x)),
+        "fused2d.smooth_residual_restrict": (
+            lambda: fused2d.smooth_residual_restrict(
+                g, gb, 63, h, kind="jacobi", omega=omega, sweeps=5,
+                sigma=sigma),
+            lambda: native_bf16.down_leg_plain(g, gb, 63, c, "jacobi", 5)),
+        "fused2d.prolong_add_smooth": (
+            lambda: fused2d.prolong_add_smooth(
+                g, e, gb, 63, 31, h, kind="rbgs", omega=1.0, sweeps=3,
+                sigma=sigma),
+            lambda: native_bf16.up_leg_plain(g, e, gb, 63, 31, c, "rbgs",
+                                             3)),
+        "transfer2d.residual_restrict": (
+            lambda: transfer2d.residual_restrict(g, gb, 63, h),
+            lambda: native_bf16.residual_restrict_plain(g, gb, 63, c0,
+                                                        False)),
+        "transfer2d.prolong_add": (
+            lambda: transfer2d.prolong_add(g, e, 63, 31),
+            lambda: native_bf16.prolong_add_plain(g, e, 63, 31, False)),
     }
     run, plain = calls[call]
     got, want = run(), plain()
-    assert got.dtype == want.dtype == torch.bfloat16
-    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    for got, want in zip(*(t if isinstance(t, tuple) else (t,)
+                           for t in (got, want))):
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     assert (local2d.residual_bf16_launches, local2d.rbgs_bf16_launches,
             local2d.jacobi_bf16_launches, stencil2d.residual_bf16_launches,
             stencil2d.rbgs_bf16_launches, stencil2d.jacobi_bf16_launches,
-            spmv.bf16_launches) == (0,) * 7
+            spmv.bf16_launches, fused2d.down_bf16_launches,
+            fused2d.up_bf16_launches,
+            transfer2d.residual_restrict_bf16_launches,
+            transfer2d.prolong_add_bf16_launches) == (0,) * 11
 
 
 @pytest.mark.parametrize("call", [
@@ -1133,7 +1132,7 @@ def _chip_smoke_rows(module: str) -> dict:
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert len(smoke.KERNELS) == 55
+    assert len(smoke.KERNELS) == 59
     return {name: row for name, row in smoke.KERNELS.items()
             if row[0] == module}
 
@@ -1304,6 +1303,39 @@ def test_chip_smoke_lists_the_native_bf16_modes():
             f"multigridcmt_tpu_torch.kernels.{mod}")
         assert getattr(module, counter) == 0
         assert (ROOT / source).is_file()
+
+
+def test_chip_smoke_lists_the_native_b2_modes():
+    """The last native bfloat16 modes (the fused2d legs and the transfer2d
+    kernels, all from csrc/native_bf16.cu), each with its TPU function and
+    a counter of its own, run on the bfloat16 solves of phase 3, which are
+    main-path runs (their launches summed over MAIN_RUNS)."""
+    src = "multigridcmt_tpu_torch/kernels/csrc/native_bf16.cu"
+    tpu = "multigridcmt_tpu/kernels/"
+    want = {
+        "fused2d_down_bf16": ("fused2d", "down_bf16_launches", src,
+                              tpu + "fused2d.py:289", None),
+        "fused2d_up_bf16": ("fused2d", "up_bf16_launches", src,
+                            tpu + "fused2d.py:479", None),
+        "transfer2d_residual_restrict_bf16": (
+            "transfer2d", "residual_restrict_bf16_launches", src,
+            tpu + "transfer2d.py:371", None),
+        "transfer2d_prolong_add_bf16": (
+            "transfer2d", "prolong_add_bf16_launches", src,
+            tpu + "transfer2d.py:204", None)}
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert {name: smoke.KERNELS[name] for name in want} == want
+    assert not set(want) & set(smoke.DIRECT_RUNS)
+    assert set(smoke.BF16_SOLVES) <= set(smoke.MAIN_RUNS)
+    for mod, counter, *_ in want.values():
+        module = importlib.import_module(
+            f"multigridcmt_tpu_torch.kernels.{mod}")
+        assert getattr(module, counter) == 0
 
 
 def test_chip_smoke_lists_the_stencil3d_bf16_modes():
