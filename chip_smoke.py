@@ -210,11 +210,11 @@ Phases:
      diagonals, sigma 0 and SIGMA; the stencil2d modes at 1023^2 and the
      SpMV also with NaN and +-Inf in their inputs) bit for bit against
      their plain versions, NaN where the plain version has NaN; the last
-     native modes (compare_native_legs: the fused2d down and up legs at
-     every sweep count to their caps, RB-GS and Jacobi, and the transfer2d
-     residual restriction and prolongation-add, at 2047^2, 1023^2 and
-     255^2, sigma 0 and SIGMA, and at 1023^2 with NaN and +-Inf in every
-     input) by the same rule;
+     native modes (compare_native_legs: the fused2d down and up legs on
+     the row stream at every sweep count from 0 to their caps, RB-GS and
+     Jacobi, and the transfer2d residual restriction and prolongation-add,
+     at 2047^2, 1023^2, 511^2 and 255^2, sigma 0 and SIGMA, and at 1023^2
+     with NaN and +-Inf in every input) by the same rule;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -279,7 +279,7 @@ Phases:
      versions (single, chained and by device time) beside their bounds at
      bfloat16 bytes, the SpMV beside a bfloat16 CSR torch.mv where
      PyTorch runs it, and the last native modes at 2047^2 so (the legs
-     at RB-GS nu = 2). Every
+     at RB-GS nu = 2, also at 1023^2, 511^2 and 255^2). Every
      kernel row also gets the profiler's
      device time a call (device_ms), and the sharded eigensolver runs'
      launches (sharded_eigen_launches) where it has some.
@@ -344,10 +344,10 @@ phase 3's cdt_bf16_direct calls each once. The native bfloat16 modes
 (the TPU kernels computing in bfloat16 itself, every operation rounded)
 run on the bfloat16 solves: at 2047...255 the fused2d legs (V(2,2)) or
 the stencil2d RB-GS sweeps and the transfer2d kernels (V(4,5)), and the
-stencil2d residual as the check; each fused leg runs the stencil2d sweep
-of its smoother (Jacobi or RB-GS) before the restriction or after the
-prolongation-add; levels below 255 run the plain counterparts of JAX's
-aligned-layout stencils. The local2d modes and the DIA SpMV run on no
+stencil2d residual as the check; each fused leg is one launch of the row
+stream with the native arithmetic (no native sweep is launched from a
+leg); levels below 255 run the plain counterparts of JAX's aligned-layout
+stencils. The local2d modes and the DIA SpMV run on no
 path, and phase 3's native_bf16_direct calls each of B1's modes once.
 
 FMG and the eigensolvers add no kernel. An FMG walk's V-cycle started at a
@@ -370,10 +370,9 @@ level's legs are the bfloat16 down leg and the float32-storing up leg.
 Phase 1 also reports ptxas's registers and spills of the row-streaming
 legs and sweeps, the local2d sweeps (UTile) among them, the stencil3d
 z-march kernels in every storage mode, the BELL SpMM kernels, the
-residual-restriction stream, the native bfloat16 kernels (the
-restriction and the prolongation-add in both of their forms among them)
-and the DIA SpMV in each type (from the build's nvcc.log), and fails if
-one of the last four spills; and the residual norm's first pass
+residual-restriction stream, the native bfloat16 kernels and the DIA
+SpMV in each type, and the native fused2d legs a line a leg and kind
+(from the build's nvcc.log), and fails if one of the last five spills; and the residual norm's first pass
 (presnorm_partial) in every storage mode, failing if a float32 or float64
 BELL SpMM or norm kernel's line differs from the parent tree's
 (PARENT_PTXAS): their storage type must leave those kernels as they were.
@@ -587,13 +586,15 @@ NATIVE_NONFINITE_N = 1023
 # (4u, four differences, the scaling, b - au, sigma u, the sum), the GS
 # update's 6, the Jacobi step's 11; the SpMV's 2 a diagonal.
 NATIVE_OPS = {"residual": 9, "rbgs": 6, "jacobi": 11}
-# The native fused2d legs and transfer2d kernels (slice B2) run on the
-# bfloat16 solves (BF16_SOLVES). Phase 2 holds them bit for bit against
-# their plain versions at the k=11 solve's levels 2047^2, 1023^2 and
-# 255^2, sigma 0 and SIGMA, RB-GS and Jacobi (NATIVE_OMEGA) at every sweep
-# count from 0 to each leg's cap, and all four at NATIVE_NONFINITE_N on
-# inputs seeded with NaN and +-Inf.
-NATIVE_LEG_N = (2047, 1023, 255)
+# The native fused2d legs (the row stream, csrc/fused2d_native_bf16.cu and
+# fused2d_up_native_bf16.cu) and transfer2d kernels (csrc/native_bf16.cu)
+# run on the bfloat16 solves (BF16_SOLVES). Phase 2 holds them bit for bit
+# against their plain versions at each fused level of the k=11 solve,
+# 2047^2, 1023^2, 511^2 and 255^2, sigma 0 and SIGMA, RB-GS and Jacobi
+# (NATIVE_OMEGA) at every sweep count from 0 to each leg's cap, and all
+# four at NATIVE_NONFINITE_N on inputs seeded with NaN and +-Inf; phase 4
+# times the legs at each level.
+NATIVE_LEG_N = (2047, 1023, 511, 255)
 NATIVE_LEGS = ("fused2d_down_bf16", "fused2d_up_bf16",
                "transfer2d_residual_restrict_bf16",
                "transfer2d_prolong_add_bf16")
@@ -1000,9 +1001,15 @@ PARENT_PTXAS = {
 
 # The native bfloat16 kernels (csrc/native_bf16.cu) and the DIA SpMV in
 # each type (f, d, 13__nv_bfloat16), whose ptxas report must show no spill.
-NATIVE_KERNEL = re.compile(r"native_(?:residual|rbgs|jacobi)_kernel|"
-                           r"native_(?:restrict|prolong)_kernelILb[01]E|"
+NATIVE_KERNEL = re.compile(r"native_(?:residual|rbgs|jacobi|restrict|"
+                           r"prolong)_kernel|"
                            r"spmv_dia_kernelI(?:13__nv_bfloat16|[fd])E")
+# The native fused2d legs on the row stream (leg, kind: 0 Jacobi, 1 RB-GS,
+# stages), a kernel for each stage count: the down leg's RB-GS 0, 2, 4, 6
+# and Jacobi 0 to 6, the up leg's RB-GS 0 to 8 by 2 and Jacobi 0 to 8;
+# none may spill.
+NATIVE_LEG_KERNEL = re.compile(r"native_(down|up)_kernelILi([01])ELi(\d+)E")
+NATIVE_LEG_KERNELS = 4 + 7 + 5 + 9
 
 
 # A stencil3d z-march kernel's mangled name: kernel, compute type, band
@@ -1153,12 +1160,29 @@ def ptxas_report(log_path) -> dict:
     native = {NATIVE_KERNEL.search(k).group(0): prop
               for k, prop in props.items()
               if NATIVE_KERNEL.search(k) and "regs" in prop}
-    require(len(native) == 10, f"ptxas report has {sorted(native)}, not "
-            "the seven native bfloat16 kernels and the SpMV in three types")
+    require(len(native) == 8, f"ptxas report has {sorted(native)}, not "
+            "the five native bfloat16 kernels and the SpMV in three types")
     for key, prop in sorted(native.items()):
         log(f"ptxas {key}: {prop['regs']}r"
             + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
         require(not prop.get("spill"), f"ptxas: {key} spills")
+    streams = {}
+    for mangled, prop in props.items():
+        m = NATIVE_LEG_KERNEL.search(mangled)
+        if m and "regs" in prop:
+            leg, kind, stages = m.groups()
+            streams.setdefault((leg, "rbgs" if kind == "1" else "jacobi"),
+                               []).append((int(stages), prop["regs"],
+                                           prop.get("spill", 0)))
+    require(sum(map(len, streams.values())) == NATIVE_LEG_KERNELS,
+            f"ptxas report has {streams}, not the {NATIVE_LEG_KERNELS} "
+            "native leg kernels")
+    for key, cells in sorted(streams.items()):
+        line = ", ".join(f"K={k} {r}r" + (f" spill {sp}B" if sp else "")
+                         for k, r, sp in sorted(cells))
+        log(f"ptxas native {' '.join(key)} leg: {line}")
+        require(all(sp == 0 for *_, sp in cells),
+                f"ptxas: native {' '.join(key)} leg spills ({line})")
     # The float32 and float64 kernels that took a storage type compile as
     # the parent's did.
     moved = {key: (lines.get(key), want) for key, want in PARENT_PTXAS.items()
@@ -1923,16 +1947,16 @@ def native_leg_inputs(n: int, seed: int, nonfinite: bool = False):
 
 def native_leg_cases(name: str):
     """(kind, sweeps) of every schedule of a B2 mode: each leg's sweeps
-    from 0 to its cap, RB-GS and Jacobi (0 sweeps once); one for the
-    transfers."""
+    from 0 to its cap, RB-GS and Jacobi (each its own kernel at 0 sweeps
+    too); one for the transfers."""
     from multigridcmt_tpu_torch.kernels import fused2d
 
     cap = {"fused2d_down_bf16": fused2d.max_down_sweeps,
            "fused2d_up_bf16": fused2d.max_up_sweeps}.get(name)
     if cap is None:
         return [("rbgs", 0)]
-    return [("rbgs", 0)] + [(kind, nu) for kind in ("rbgs", "jacobi")
-                            for nu in range(1, cap(kind) + 1)]
+    return [(kind, nu) for kind in ("rbgs", "jacobi")
+            for nu in range(cap(kind) + 1)]
 
 
 def check_native_outputs(label: str, got, want):
@@ -3041,10 +3065,11 @@ KERNELS = {
     # (BF16_SOLVES: launches summed over MAIN_RUNS).
     "fused2d_down_bf16": ("fused2d", "down_bf16_launches",
                           "multigridcmt_tpu_torch/kernels/csrc/"
-                          "native_bf16.cu",
+                          "fused2d_native_bf16.cu",
                           "multigridcmt_tpu/kernels/fused2d.py:289", None),
     "fused2d_up_bf16": ("fused2d", "up_bf16_launches",
-                        "multigridcmt_tpu_torch/kernels/csrc/native_bf16.cu",
+                        "multigridcmt_tpu_torch/kernels/csrc/"
+                        "fused2d_up_native_bf16.cu",
                         "multigridcmt_tpu/kernels/fused2d.py:479", None),
     "transfer2d_residual_restrict_bf16": (
         "transfer2d", "residual_restrict_bf16_launches",
@@ -4434,10 +4459,10 @@ def bf16_solve_counts(label: str, prob, iters: int) -> dict:
     """The native launches of BF16_SOLVES[label] with ``iters`` cycles:
     the convergence check (the stencil2d residual, once before the first
     cycle and once after each); at each fused level (2047...255) a cycle's
-    down and up leg, each with one native sweep call (counted on the
-    stencil2d sweep of the smoother's kind), or on V(4,5) one RB-GS sweep
-    launch at nu1 = 4, two at nu2 = 5 (4 + 1: a launch takes 4) and a
-    residual restriction and a prolongation-add."""
+    down and up leg, one launch of the row stream each (no native sweep
+    launched from a leg), or on V(4,5) one RB-GS sweep launch at nu1 = 4,
+    two at nu2 = 5 (4 + 1: a launch takes 4) and a residual restriction and
+    a prolongation-add."""
     from multigridcmt_tpu_torch.kernels import fused2d, stencil2d
 
     cfg = prob.config
@@ -4446,9 +4471,7 @@ def bf16_solve_counts(label: str, prob, iters: int) -> dict:
     want = {"stencil2d_residual_bf16": iters + 1}
     if (cfg.nu1 <= fused2d.max_down_sweeps(kind)
             and cfg.nu2 <= fused2d.max_up_sweeps(kind)):
-        want.update({"fused2d_down_bf16": per, "fused2d_up_bf16": per,
-                     f"stencil2d_{kind}_bf16":
-                         per * (bool(cfg.nu1) + bool(cfg.nu2))})
+        want.update({"fused2d_down_bf16": per, "fused2d_up_bf16": per})
         return want
     cap = stencil2d.max_fused_sweeps(kind)
     want.update({f"stencil2d_{kind}_bf16":
@@ -6968,50 +6991,66 @@ def timed_native_bf16(times: dict) -> None:
 
 
 def timed_native_legs(times: dict) -> None:
-    """The B2 native modes at 2047^2, sigma 0 (the legs RB-GS nu = 2, as
-    the bf16_rbgs22 path runs them; the transfers as bf16_rbgs45 does),
-    each against its plain version in turns (single calls), as LEG_CHAIN
-    chained calls and by the profiler's device time a call. Bounds: the
-    inputs read once and the outputs written once in bfloat16, or the
-    operations (NATIVE_OPS a sweep, NATIVE_RR_OPS, NATIVE_PA_OPS a fine
-    point) at the float32 rate. No single PyTorch call computes these
-    functions with every operation rounded to bfloat16: library_ms null."""
+    """The B2 native modes at sigma 0 (the legs RB-GS nu = 2, as the
+    bf16_rbgs22 path runs them; the transfers as bf16_rbgs45 does), each
+    against its plain version in turns (single calls), as LEG_CHAIN chained
+    calls and by the profiler's device time a call: the rows at 2047^2, the
+    legs also at the other fused levels of the k=11 solve
+    (times["native_leg_levels"]). Bounds: the inputs read once and the
+    outputs written once in bfloat16, or the operations (NATIVE_OPS a
+    sweep, NATIVE_RR_OPS, NATIVE_PA_OPS a fine point) at the float32 rate.
+    No single PyTorch call computes these functions with every operation
+    rounded to bfloat16: library_ms null."""
     from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
-    n = NATIVE_LEG_N[0]
-    u, b, x, e = native_leg_inputs(n, n + 341)
-    rc = torch.empty(((n - 1) // 2 + 2,) * 2, dtype=torch.bfloat16,
-                     device="cuda")
     nu = 2
-    rr, rr_shift = (k * n * n for k in NATIVE_RR_OPS)
-    cases = {
-        "fused2d_down_bf16": (nbytes(u, b, u, rc),
-                              NATIVE_OPS["rbgs"] * nu * n * n + rr_shift,
-                              "rbgs", nu),
-        "fused2d_up_bf16": (nbytes(x, e, b, x),
-                            NATIVE_PA_OPS * n * n
-                            + NATIVE_OPS["rbgs"] * nu * n * n, "rbgs", nu),
-        "transfer2d_residual_restrict_bf16": (nbytes(u, b, rc), rr, "rbgs",
-                                              0),
-        "transfer2d_prolong_add_bf16": (nbytes(x, e, x),
-                                        NATIVE_PA_OPS * n * n, "rbgs", 0)}
-    for name, (nb, flops, kind, sweeps) in cases.items():
-        kernel, plain = native_leg_calls(name, u, b, x, e, n, 0.0, kind,
-                                         sweeps)
-        pair = time_pair(f"{name} native", kernel, plain)
-        row = {"ms": chained_ms(kernel, LEG_CHAIN), "single_ms": pair["ms"],
-               "plain_ms": pair["plain_ms"], "device_ms": pair["device_ms"],
-               "bytes": nb, "flops": flops, "library_ms": None,
-               "library_note": "no PyTorch call computes it with every "
-                               "operation rounded to bfloat16"}
-        row["chained_ms"] = row["ms"]
-        bound = max(nb / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
-        log(f"native {name} n={n} nu={sweeps}: chained x{LEG_CHAIN} "
-            f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms; bound {bound:.4f} ms "
-            f"({100 * bound / row['device_ms']:.1f}% of the device time)")
-        times[name] = row
-    del u, b, x, e, rc
+    levels = {}
+    for n in NATIVE_LEG_N:
+        u, b, x, e = native_leg_inputs(n, n + 341)
+        rc = torch.empty(((n - 1) // 2 + 2,) * 2, dtype=torch.bfloat16,
+                         device="cuda")
+        rr, rr_shift = (k * n * n for k in NATIVE_RR_OPS)
+        cases = {
+            "fused2d_down_bf16": (nbytes(u, b, u, rc),
+                                  NATIVE_OPS["rbgs"] * nu * n * n
+                                  + rr_shift, "rbgs", nu),
+            "fused2d_up_bf16": (nbytes(x, e, b, x),
+                                NATIVE_PA_OPS * n * n
+                                + NATIVE_OPS["rbgs"] * nu * n * n, "rbgs",
+                                nu)}
+        if n == NATIVE_LEG_N[0]:
+            cases.update({
+                "transfer2d_residual_restrict_bf16": (nbytes(u, b, rc), rr,
+                                                      "rbgs", 0),
+                "transfer2d_prolong_add_bf16": (nbytes(x, e, x),
+                                                NATIVE_PA_OPS * n * n,
+                                                "rbgs", 0)})
+        for name, (nb, flops, kind, sweeps) in cases.items():
+            kernel, plain = native_leg_calls(name, u, b, x, e, n, 0.0, kind,
+                                             sweeps)
+            pair = time_pair(f"{name} native n={n}", kernel, plain)
+            row = {"ms": chained_ms(kernel, LEG_CHAIN),
+                   "single_ms": pair["ms"], "plain_ms": pair["plain_ms"],
+                   "device_ms": pair["device_ms"], "bytes": nb,
+                   "flops": flops, "library_ms": None,
+                   "library_note": "no PyTorch call computes it with every "
+                                   "operation rounded to bfloat16"}
+            row["chained_ms"] = row["ms"]
+            bound = max(nb / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
+            log(f"native {name} n={n} nu={sweeps}: chained x{LEG_CHAIN} "
+                f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms; bound {bound:.4f} ms "
+                f"({100 * bound / row['device_ms']:.1f}% of the device "
+                "time)")
+            if n == NATIVE_LEG_N[0]:
+                times[name] = row
+            if name.startswith("fused2d"):
+                levels[f"{name}@{n}"] = {
+                    "single_ms": row["single_ms"],
+                    "chained_ms": row["chained_ms"],
+                    "device_ms": row["device_ms"], "bound_ms": bound}
+        del u, b, x, e, rc
+    times["native_leg_levels"] = levels
     torch.cuda.empty_cache()
 
 
@@ -7500,6 +7539,7 @@ def main() -> int:
     log("stencil3d_levels: " + json.dumps(times["stencil3d_levels"]))
     log("mixed_cycles: " + json.dumps(times["mixed_cycles"]))
     log("cdt_bf16_carrier: " + json.dumps(times["cdt_bf16_carrier"]))
+    log("native_leg_levels: " + json.dumps(times["native_leg_levels"]))
     for method in MIXED_EIGEN:
         log(f"mixed_{method} walls (float64, full and bfloat16-"
             f"preconditioned, s): {runs['mixed_' + method + '_walls']}")

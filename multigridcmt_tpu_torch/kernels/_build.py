@@ -156,12 +156,19 @@ SIGNATURES["mg_native2d_residual_bf16"] = [_P, _P, _P] + [_I] * 5 + [
 SIGNATURES["mg_native2d_sweep_bf16"] = [_P] * 4 + [_I] * 5 + [_D] * 5 + [
     _I, _I, _P]
 SIGNATURES["mg_spmv_dia_bf16"] = SIGNATURES["mg_spmv_dia_f32"]
-# The native residual restriction and prolongation-add (csrc/native_bf16.cu):
-# u, b, rc, n, inv_h2, sigma, shift, stream; x, e, out, n, rows_first,
-# stream.
-SIGNATURES["mg_native2d_residual_restrict_bf16"] = [_P, _P, _P, _I, _D, _D,
-                                                    _I, _P]
-SIGNATURES["mg_native2d_prolong_add_bf16"] = [_P, _P, _P, _I, _I, _P]
+# The native residual restriction and prolongation-add of transfer2d
+# (csrc/native_bf16.cu): u, b, rc, n, inv_h2, stream; x, e, out, n, stream.
+SIGNATURES["mg_native2d_residual_restrict_bf16"] = [_P, _P, _P, _I, _D, _P]
+SIGNATURES["mg_native2d_prolong_add_bf16"] = [_P, _P, _P, _I, _P]
+# The native fused2d legs (the row stream, csrc/fused2d_native_bf16.cu and
+# fused2d_up_native_bf16.cu): u, b, u_out, rc, n, h2, inv_h2, sigma,
+# inv_den, coef (native_bf16.constants), kind, sweeps, geometry
+# (fused2d.leg_geometry), stream; x, e, b, out and the rest as the down
+# leg's.
+SIGNATURES["mg_fused2d_down_native_bf16"] = [_P] * 4 + [_I] + [_D] * 5 + [
+    _I, _I, _IP, _P]
+SIGNATURES["mg_fused2d_up_native_bf16"] = SIGNATURES[
+    "mg_fused2d_down_native_bf16"]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

@@ -1,8 +1,9 @@
-// The native bfloat16 modes of the 2D stencil kernels, the fused legs and
-// the transfers: the residual and the RB-GS and Jacobi sweeps, the residual
-// restriction and the prolongation-add on bfloat16 grids, every operation
-// rounded to bfloat16 as the JAX package computes them
-// (kernels/native_bf16.py states the rule and the order).
+// The native bfloat16 modes of the 2D stencil kernels and the transfers:
+// the residual and the RB-GS and Jacobi sweeps, the residual restriction
+// and the prolongation-add on bfloat16 grids, every operation rounded to
+// bfloat16 as the JAX package computes them (kernels/native_bf16.py states
+// the rule and the order). The fused2d legs' native mode is the row stream
+// (fused2d_native_bf16.cu).
 //
 // Replaces the bfloat16 modes of the TPU kernels
 //   multigridcmt_tpu/kernels/stencil2d.py: residual (:304), rbgs_sweep
@@ -14,16 +15,13 @@
 // tile at global (0, 0). And
 //   multigridcmt_tpu/kernels/transfer2d.py: residual_restrict (:371),
 //     prolong_add (:204)
-//   multigridcmt_tpu/kernels/fused2d.py: smooth_residual_restrict (:289),
-//     prolong_add_smooth (:479)
-// -> native2d_residual_restrict (native_restrict_kernel<Shift>: transfer2d's
-// without the sigma u term, fused2d's down leg with it, after the leg's
-// sweeps) and native2d_prolong_add (native_prolong_kernel<RowsFirst>:
-// transfer2d interpolates columns first, fused2d's up leg rows first, before
-// its sweeps). The TPU kernels' selection and interpolation matrices only
-// pick points or average two (an odd point is 0.5 a + 0.5 b, rounded once);
-// full weighting is elementwise, (0.25 r[i-1] + 0.5 r[i]) + 0.25 r[i+1] with
-// each + rounded, over rows, then over columns.
+// -> native2d_residual_restrict (native_restrict_kernel: the residual
+// without the sigma u term, as transfer2d's) and native2d_prolong_add
+// (native_prolong_kernel: transfer2d interpolates columns first, then
+// rows). The TPU kernels' selection and interpolation matrices only pick
+// points or average two (an odd point is 0.5 a + 0.5 b, rounded once); full
+// weighting is elementwise, (0.25 r[i-1] + 0.5 r[i]) + 0.25 r[i+1] with each
+// + rounded, over rows, then over columns.
 //
 // Arithmetic: each + - x of the source is one float32 operation with its
 // rounding mode explicit (__fadd_rn, __fsub_rn, __fmul_rn: nvcc contracts
@@ -42,17 +40,14 @@
 // Jacobi sweeps once a sweep (u, then u' and a scratch grid in turns, so
 // that the last sweep writes u'). What bounds it on the card: device
 // memory, each launch reading the grid and b and writing its points: 2
-// nu (RB-GS) or nu (Jacobi) passes where the row-streaming float32 sweeps
-// (packed2d_legs.cuh) make one. Those streams widen each row into float32
-// and sum in their own order; a bfloat16 rounding after every operation,
-// a multiply by inv_den and the host's constants would enter every frame's
-// shared arithmetic. The restriction runs a thread a coarse point (nine
-// fine residuals, each reading five u points, from the cache), the
-// prolongation-add a thread a fine point; a fused2d leg is a chain of
-// these launches (kernels/native_bf16.py's down_leg and up_leg), one pass
-// over the grid a sweep or half-sweep and one for the transfer. A bfloat16
-// solve (config.dtype bfloat16, kernels on) runs them on its levels from
-// 255 to 2047; no mixed-precision path does.
+// nu (RB-GS) or nu (Jacobi) passes where the row-streaming sweeps
+// (packed2d_legs.cuh) make one; their native arithmetic (Nb) runs the
+// fused2d legs, and is the next redesign of these sweeps. The restriction
+// runs a thread a coarse point (nine fine residuals, each reading five u
+// points, from the cache), the prolongation-add a thread a fine point. A
+// bfloat16 solve (config.dtype bfloat16, kernels on) runs them on its
+// levels from 255 to 2047 where a leg does not fuse; no mixed-precision
+// path does.
 #include "common.cuh"
 
 namespace {
@@ -166,11 +161,11 @@ __device__ __forceinline__ float weigh(float a, float m, float z) {
   return add(add(mul(0.25f, a), mul(0.5f, m)), mul(0.25f, z));
 }
 
-// R r of the fine residual into the (nc+2)^2 coarse grid, a thread a coarse
-// point: the residual at the 3 x 3 fine points around 2I, 2J (all interior
-// for 1 <= I, J <= nc), full weighting over rows at each of the three
-// columns, then over columns; the coarse ring 0.
-template <bool Shift>
+// R r of the fine residual (b - au, no sigma u term) into the (nc+2)^2
+// coarse grid, a thread a coarse point: the residual at the 3 x 3 fine
+// points around 2I, 2J (all interior for 1 <= I, J <= nc), full weighting
+// over rows at each of the three columns, then over columns; the coarse
+// ring 0.
 __global__ void __launch_bounds__(BX * BY)
 native_restrict_kernel(const bf16* __restrict__ u,
                        const bf16* __restrict__ b, bf16* __restrict__ rc,
@@ -187,7 +182,7 @@ native_restrict_kernel(const bf16* __restrict__ u,
       float r[3];
       for (int di = -1; di <= 1; ++di) {
         const size_t q = k + static_cast<long long>(di) * C + dj;
-        r[di + 1] = residual_at<Shift>(u + q, ld(b + q), C, c);
+        r[di + 1] = residual_at<false>(u + q, ld(b + q), C, c);
       }
       t[dj + 1] = weigh(r[0], r[1], r[2]);
     }
@@ -202,32 +197,20 @@ __device__ __forceinline__ float average(float a, float b) {
 }
 
 // (P e) at fine (i, j) of the coarse e (pitch Cc): fine 2I takes coarse I,
-// an odd fine point the average of its two neighbours; RowsFirst
-// interpolates over rows at the (one or two) coarse columns, then over
-// columns; else columns first.
-template <bool RowsFirst>
+// an odd fine point the average of its two neighbours; columns first (over
+// columns at the one or two coarse rows), then rows, as transfer2d.
 __device__ __forceinline__ float interpolate(const bf16* e, int Cc, int i,
                                              int j) {
   auto at = [&](int I, int J) {
     return ld(e + static_cast<size_t>(I) * Cc + J);
   };
-  if constexpr (RowsFirst) {
-    auto row = [&](int J) {
-      return (i & 1) ? average(at(i / 2, J), at(i / 2 + 1, J))
-                     : at(i / 2, J);
-    };
-    return (j & 1) ? average(row(j / 2), row(j / 2 + 1)) : row(j / 2);
-  } else {
-    auto col = [&](int I) {
-      return (j & 1) ? average(at(I, j / 2), at(I, j / 2 + 1))
-                     : at(I, j / 2);
-    };
-    return (i & 1) ? average(col(i / 2), col(i / 2 + 1)) : col(i / 2);
-  }
+  auto col = [&](int I) {
+    return (j & 1) ? average(at(I, j / 2), at(I, j / 2 + 1)) : at(I, j / 2);
+  };
+  return (i & 1) ? average(col(i / 2), col(i / 2 + 1)) : col(i / 2);
 }
 
 // out = x + P e on the fine interior, x elsewhere; a thread a fine point.
-template <bool RowsFirst>
 __global__ void __launch_bounds__(BX * BY)
 native_prolong_kernel(const bf16* __restrict__ x,
                       const bf16* __restrict__ e, bf16* __restrict__ out,
@@ -239,7 +222,7 @@ native_prolong_kernel(const bf16* __restrict__ x,
   const size_t k = static_cast<size_t>(i) * C + j;
   if (i >= 1 && i <= n && j >= 1 && j <= n) {
     out[k] = __float2bfloat16_rn(
-        add(ld(x + k), interpolate<RowsFirst>(e, Cc, i, j)));
+        add(ld(x + k), interpolate(e, Cc, i, j)));
   } else {
     out[k] = x[k];
   }
@@ -305,45 +288,30 @@ int mg_native2d_sweep_bf16(const void* u, const void* b, void* out,
   return 0;
 }
 
-// u, b: (n+2)^2 fine grids; rc: the ((n-1)/2 + 2)^2 coarse grid; inv_h2,
-// sig: bfloat16 values; shift: add sig u (fused2d's down leg) or not
-// (transfer2d).
+// u, b: (n+2)^2 fine grids; rc: the ((n-1)/2 + 2)^2 coarse grid; inv_h2:
+// a bfloat16 value.
 int mg_native2d_residual_restrict_bf16(const void* u, const void* b,
                                        void* rc, int n, double inv_h2,
-                                       double sig, int shift, void* stream) {
+                                       void* stream) {
   const int Cc = (n - 1) / 2 + 2;
-  const Consts c{0.0f, static_cast<float>(inv_h2), static_cast<float>(sig),
-                 0.0f, 0.0f};
+  const Consts c{0.0f, static_cast<float>(inv_h2), 0.0f, 0.0f, 0.0f};
   const dim3 grid((Cc + BX - 1) / BX, (Cc + BY - 1) / BY);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bf16* uu = static_cast<const bf16*>(u);
-  const bf16* bb = static_cast<const bf16*>(b);
-  bf16* out = static_cast<bf16*>(rc);
-  if (shift) {
-    native_restrict_kernel<true><<<grid, dim3(BX, BY), 0, s>>>(uu, bb, out,
-                                                              n, c);
-  } else {
-    native_restrict_kernel<false><<<grid, dim3(BX, BY), 0, s>>>(uu, bb, out,
-                                                               n, c);
-  }
+  native_restrict_kernel<<<grid, dim3(BX, BY), 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(u), static_cast<const bf16*>(b),
+      static_cast<bf16*>(rc), n, c);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: (n+2)^2 fine grids; e: the ((n-1)/2 + 2)^2 coarse grid;
-// rows_first: fused2d's up leg's order, else transfer2d's.
+// x, out: (n+2)^2 fine grids; e: the ((n-1)/2 + 2)^2 coarse grid.
 int mg_native2d_prolong_add_bf16(const void* x, const void* e, void* out,
-                                 int n, int rows_first, void* stream) {
+                                 int n, void* stream) {
   const int C = n + 2;
   const dim3 grid((C + BX - 1) / BX, (C + BY - 1) / BY);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bf16* xx = static_cast<const bf16*>(x);
-  const bf16* ee = static_cast<const bf16*>(e);
-  bf16* o = static_cast<bf16*>(out);
-  if (rows_first) {
-    native_prolong_kernel<true><<<grid, dim3(BX, BY), 0, s>>>(xx, ee, o, n);
-  } else {
-    native_prolong_kernel<false><<<grid, dim3(BX, BY), 0, s>>>(xx, ee, o, n);
-  }
+  native_prolong_kernel<<<grid, dim3(BX, BY), 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(e),
+      static_cast<bf16*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 

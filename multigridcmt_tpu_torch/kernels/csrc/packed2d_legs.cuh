@@ -170,6 +170,75 @@ __device__ __forceinline__ T side_of(T v, int p) {
            : __shfl_up_sync(0xffffffffu, v, 1);
 }
 
+// ---------------------------------------------------------------------------
+// The native bfloat16 arithmetic (T = Nb: the fused2d legs' native mode,
+// fused2d_native_bf16.cu and fused2d_up_native_bf16.cu, on the unpacked
+// frame with bfloat16 storage): the TPU kernels' own bfloat16 mode, every
+// operation rounded to bfloat16 (kernels/native_bf16.py states the rule
+// and JAX's order). An Nb is a bfloat16 value held in a float; each + - x
+// is one float32 operation with its rounding explicit (__fadd_rn,
+// __fsub_rn, __fmul_rn: never contracted into an FMA), rounded to bfloat16
+// at once. Since 24 >= 2 * 8 + 2 the float32 result rounded to bfloat16 is
+// the correctly rounded bfloat16 result, so the stream's bits equal those
+// of the plain version's bfloat16 PyTorch ops, and gs_value, residual_of
+// and jacobi_step keep their plain-order expressions on this type. The
+// constants (h^2, 1/h^2, sigma, 1/(4 - sigma h^2), omega/(4/h^2 - sigma))
+// come from the host, already rounded in JAX's order (native_coef), not
+// from mg::Coef::make. The transfers take JAX's order (weigh, average).
+// ---------------------------------------------------------------------------
+struct Nb {
+  float f;
+  Nb() = default;
+  __host__ __device__ explicit constexpr Nb(float v) : f(v) {}
+};
+
+template <typename T>
+constexpr bool kNative = std::is_same<T, Nb>::value;
+
+// v rounded to bfloat16, held in a float: one cvt of v and 0 into a word of
+// two bfloat16, v's in the high half (to nearest even, NaN stays NaN).
+__device__ __forceinline__ Nb nb_round(float v) {
+  unsigned w;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(w) : "f"(v), "f"(0.0f));
+  return Nb(__uint_as_float(w));
+}
+__device__ __forceinline__ Nb operator+(Nb a, Nb b) {
+  return nb_round(__fadd_rn(a.f, b.f));
+}
+__device__ __forceinline__ Nb operator-(Nb a, Nb b) {
+  return nb_round(__fsub_rn(a.f, b.f));
+}
+__device__ __forceinline__ Nb operator*(Nb a, Nb b) {
+  return nb_round(__fmul_rn(a.f, b.f));
+}
+
+__device__ __forceinline__ Nb side_of(Nb v, int p) {
+  return Nb(side_of(v.f, p));
+}
+
+// Full weighting of three points, (0.25 a + 0.5 m) + 0.25 z, each
+// operation rounded (native_bf16.py's _full_weight).
+__device__ __forceinline__ Nb weigh(Nb a, Nb m, Nb z) {
+  return (Nb(0.25f) * a + Nb(0.5f) * m) + Nb(0.25f) * z;
+}
+
+// The interpolation's average of two bfloat16 values, 0.5 a + 0.5 b in
+// float32 (both products exact), rounded once (native_bf16.py's
+// _interpolate): rounding a + b first could overflow where this does not.
+__device__ __forceinline__ Nb average(float a, float b) {
+  return nb_round(__fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, b)));
+}
+
+// The level's scalars as the host rounded them.
+inline mg::Coef<Nb> native_coef(double h2, double inv_h2, double sig,
+                                double inv_den, double coef) {
+  return mg::Coef<Nb>{Nb(static_cast<float>(h2)),
+                      Nb(static_cast<float>(inv_h2)),
+                      Nb(static_cast<float>(sig)),
+                      Nb(static_cast<float>(inv_den)),
+                      Nb(static_cast<float>(coef))};
+}
+
 // The per-warp position of a leg's unit and its fixed tests.
 template <class Fr>
 struct Unit {
@@ -291,6 +360,7 @@ __device__ __forceinline__ float mul_rn(float a, float b) {
 __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
 }
+__device__ __forceinline__ Nb mul_rn(Nb a, Nb b) { return a * b; }
 
 template <class Fr, typename T>
 __device__ __forceinline__ T jacobi_step(T x, T r, const mg::Coef<T>& cf) {
@@ -587,18 +657,41 @@ __device__ __forceinline__ void load_raw(const __nv_bfloat16* __restrict__ g,
   }
 }
 
-// Row r (parity par) widened into both colours a0, a1.
-template <class Fr>
-__device__ __forceinline__ void widen_raw(const Raw& r, float& a0, float& a1,
+// Unpacked (the native mode): phases as on UTile, the pair on the even
+// rows, where a lane whose two points lie in the row loads them as one
+// aligned word (the launcher takes arrays that start on a 4-byte pair).
+template <bool EDGE>
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* __restrict__ g,
+                                         Raw& r, int i, int par,
+                                         const Unit<Unpacked>& w,
+                                         const Unpacked& f) {
+  if (EDGE && i >= w.ye) return;
+  const long long at = static_cast<long long>(i) * (f.n + 2) + 2 * w.gl;
+  if ((par & 1) == 0 && w.ok[1]) {
+    r.w0 = ldg_pair_bits(g + at);
+    r.w1 = 0u;
+  } else {
+    r.w0 = w.ok[0] ? ldg_bits(g + at) : 0u;
+    r.w1 = w.ok[1] ? ldg_bits(g + at + 1) : 0u;
+  }
+}
+
+// Row r (parity par) widened into both colours a0, a1 (W: float, or Nb on
+// the native frame).
+template <class Fr, typename W>
+__device__ __forceinline__ void widen_raw(const Raw& r, W& a0, W& a1,
                                           int par) {
-  if constexpr (kIsUTile<Fr>) {
-    // Phase 1 is the pair's high half or w1's low one: the other is 0.
+  if constexpr (kIsUTile<Fr> || kIsUnpacked<Fr>) {
+    // On the paired parity (UTile's odd rows, Unpacked's even ones) phase
+    // 1 is the pair's high half or w1's low one: the other is 0.
+    constexpr int pq = kIsUTile<Fr> ? 1 : 0;
     const float ph0 = low_f(r.w0);
     const float ph1 =
-        (par & 1) ? __uint_as_float((r.w0 & 0xffff0000u) | (r.w1 << 16))
-                  : low_f(r.w1);
-    a0 = (par & 1) ? ph1 : ph0;
-    a1 = (par & 1) ? ph0 : ph1;
+        (par & 1) == pq
+            ? __uint_as_float((r.w0 & 0xffff0000u) | (r.w1 << 16))
+            : low_f(r.w1);
+    a0 = W((par & 1) ? ph1 : ph0);
+    a1 = W((par & 1) ? ph0 : ph1);
   } else {
     a0 = low_f(r.w0);
     a1 = low_f(r.w1);
@@ -630,13 +723,13 @@ __device__ __forceinline__ void prime_raw(const __nv_bfloat16* __restrict__ u,
 // (no step reads it), so no window slot carries an old row through a
 // chunk, which would keep every slot of U and B live there (with the test
 // the RB-GS legs took 140-160 registers, 12 warps an SM; PERF.md).
-template <int v, bool EDGE, class Fr>
+template <int v, bool EDGE, class Fr, typename W>
 __device__ __forceinline__ void feed_raw(const __nv_bfloat16* __restrict__ u,
                                          const __nv_bfloat16* __restrict__ b,
                                          Raw (&ru)[kAhead], Raw (&rb)[kAhead],
-                                         float (&U)[2][kWin],
-                                         float (&B)[2][kWin], int t,
-                                         const Unit<Fr>& w, const Fr& f) {
+                                         W (&U)[2][kWin], W (&B)[2][kWin],
+                                         int t, const Unit<Fr>& w,
+                                         const Fr& f) {
   static_assert(kWin % kAhead == 0 && (kAhead & (kAhead - 1)) == 0,
                 "the rings' slots follow the window's");
   constexpr int q = v & (kAhead - 1);
@@ -749,6 +842,23 @@ __device__ __forceinline__ void store_row(T* __restrict__ g, T a0, T a1,
   }
 }
 
+// The native mode's store on Unpacked: the same addresses and owners, each
+// value already a bfloat16 one (the conversions round nothing); an even
+// row's pair as one word.
+__device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ g,
+                                          Nb a0, Nb a1, int i, int par,
+                                          const Unit<Unpacked>& w,
+                                          const Unpacked& f) {
+  const long long at = static_cast<long long>(i) * (f.n + 2) + 2 * w.gl;
+  const int p0 = par & 1;
+  if (p0 == 0 && w.st[1]) {
+    *reinterpret_cast<unsigned*>(g + at) = pack_bf16(a0.f, a1.f);
+  } else {
+    if (w.st[p0]) g[at + p0] = __float2bfloat16_rn(a0.f);
+    if (w.st[1 - p0]) g[at + 1 - p0] = __float2bfloat16_rn(a1.f);
+  }
+}
+
 template <typename T, typename S>
 __device__ __forceinline__ void store_row(S* __restrict__ g, T a0, T a1,
                                           int i, int par,
@@ -785,6 +895,20 @@ __device__ __forceinline__ void put_coarse(T* __restrict__ rc, int I, T fw,
     } else {
       rc[static_cast<size_t>(I) * cp + Jc] = val;
     }
+  }
+}
+
+// The native mode's coarse point: the logical bfloat16 (nc+2)^2 grid.
+__device__ __forceinline__ void put_coarse(__nv_bfloat16* __restrict__ rc,
+                                           int I, Nb fw,
+                                           const Unit<Unpacked>& w,
+                                           const Unpacked& f, int) {
+  const int nc = (f.n - 1) / 2;
+  const int Jc = w.gl;
+  if (w.core) {
+    const bool in = I >= 1 && I <= nc && Jc >= 1 && Jc <= nc;
+    rc[static_cast<size_t>(I) * frame_lanes(f) + Jc] =
+        __float2bfloat16_rn(in ? fw.f : 0.0f);
   }
 }
 
@@ -872,12 +996,16 @@ __device__ __forceinline__ void chunk(bool steady, F&& f) {
 // is rounded once, in the step it leaves the last stage (row t - K), into
 // a ring Q of rounded rows that the residuals of rows i - 1 .. i + 1 and
 // the store read; the window keeps it unrounded: the last stage of the next
-// step still reads it.
-template <typename T, int KIND, int K, bool STORE, class Fr, typename S = T>
+// step still reads it. The native mode (T Nb, S and the coarse type C
+// bfloat16) needs no ring: every value in flight is a bfloat16 one, so the
+// residual reads the window and the store rounds nothing; its restriction
+// weighs in JAX's order (weigh).
+template <typename T, int KIND, int K, bool STORE, class Fr, typename S = T,
+          typename C = T>
 __device__ __forceinline__ void down_stream(const S* __restrict__ u,
                                             const S* __restrict__ b,
                                             S* __restrict__ u_out,
-                                            T* __restrict__ rc, const Fr& f,
+                                            C* __restrict__ rc, const Fr& f,
                                             const mg::Coef<T>& cf,
                                             int packed_coarse,
                                             const LegGeom& g) {
@@ -936,7 +1064,7 @@ __device__ __forceinline__ void down_stream(const S* __restrict__ u,
       constexpr int sm = (s - 1) & (kWin - 1);
       constexpr int sp = (s + 1) & (kWin - 1);
       const bool live = !EDGE || (i >= w.lo && i <= w.hi);
-      if constexpr (mg::kBf16<S>) {
+      if constexpr (mg::kBf16<S> && !kNative<T>) {
         // Row t - K leaves the last stage: rounded once, phase 0 low.
         constexpr int sq = (v - K) & (kWin - 1);
         constexpr int c0 = (v - K) & 1;   // the colour at phase 0
@@ -998,11 +1126,18 @@ __device__ __forceinline__ void down_stream(const S* __restrict__ u,
         constexpr int r2 = (sj + 1) & (kWin - 1);
         constexpr int c0 = (v - OUT) & 1;      // phase 0 in rows j +- 1
         constexpr int c1 = 1 - c0;             // phase 0 in row j
-        const T t1 = T(0.25) * (R[c0][r0] + T(2) * R[c1][sj] + R[c0][r2]);
-        const T t2 = T(0.25) * (R[c1][r0] + T(2) * R[c0][sj] + R[c1][r2]);
-        const T t0v = __shfl_up_sync(0xffffffffu, t2, 1);
-        put_coarse(rc, j >> 1, T(0.25) * (t0v + T(2) * t1 + t2), w, f,
-                   packed_coarse);
+        if constexpr (kNative<T>) {
+          const T t1 = weigh(R[c0][r0], R[c1][sj], R[c0][r2]);
+          const T t2 = weigh(R[c1][r0], R[c0][sj], R[c1][r2]);
+          put_coarse(rc, j >> 1, weigh(side_of(t2, 0), t1, t2), w, f,
+                     packed_coarse);
+        } else {
+          const T t1 = T(0.25) * (R[c0][r0] + T(2) * R[c1][sj] + R[c0][r2]);
+          const T t2 = T(0.25) * (R[c1][r0] + T(2) * R[c0][sj] + R[c1][r2]);
+          const T t0v = __shfl_up_sync(0xffffffffu, t2, 1);
+          put_coarse(rc, j >> 1, T(0.25) * (t0v + T(2) * t1 + t2), w, f,
+                     packed_coarse);
+        }
       }
     });
   }
@@ -1053,6 +1188,22 @@ __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
   return f.ca.holds(I, J) ? __ldg(e + f.ca.at(I, J)) : T(0);
 }
 
+// The up leg's coarse window entry at (I, J): coarse_at's value; on the
+// native frame (a logical bfloat16 e) its bits zero-extended, widened where
+// the prolongation reads them (a widening at the load would wait for it
+// there, as the rings' note says).
+template <typename T, bool PACKED_E, class Fr, typename C>
+__device__ __forceinline__ auto coarse_word(const C* __restrict__ e, int I,
+                                            int J, const Fr& f) {
+  if constexpr (kNative<T>) {
+    const int Pc = frame_lanes(f);
+    const bool ok = I >= 0 && I < Pc && J >= 0 && J < Pc;
+    return ok ? ldg_bits(e + static_cast<size_t>(I) * Pc + J) : 0u;
+  } else {
+    return coarse_at<T, PACKED_E>(e, I, J, f);
+  }
+}
+
 // Up leg, x' = smooth^K(x + P e), and the sweep stream, x' = smooth^K(x)
 // (PROLONG false: no coarse operand; its window, loads and add are
 // compiled out, the rest is shared as it is). e logical or packed (a
@@ -1064,11 +1215,12 @@ __device__ __forceinline__ T coarse_at(const T* __restrict__ e, int I, int J,
 // on row t - K. x and b are stored in S, the coarse e in T, x' in O
 // (bfloat16 storage on the whole packed grid and a shard's tile: S
 // bfloat16, T float, O bfloat16 or, at the top level of a mixed cycle,
-// float; else all T).
+// float; else all T). The native mode (T Nb; S, O and e's type C bfloat16)
+// interpolates in JAX's order (average) and rounds x + P e.
 template <typename T, int KIND, int K, bool PACKED_E, bool PROLONG, class Fr,
-          typename S = T, typename O = S>
+          typename S = T, typename O = S, typename C = T>
 __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
-                                          const T* __restrict__ e,
+                                          const C* __restrict__ e,
                                           const S* __restrict__ b,
                                           O* __restrict__ out, const Fr& f,
                                           const mg::Coef<T>& cf,
@@ -1080,7 +1232,10 @@ __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
   const Unit<Fr> w(g, unit, f);
   const int t_end = w.y1 - 1 + OUT;
 
-  T U[2][kWin], B[2][kWin], E0[kCoarseWin], E1[kCoarseWin];
+  // The coarse window (native: e's bits, as coarse_word gives them).
+  using CW = std::conditional_t<kNative<T>, unsigned, T>;
+  T U[2][kWin], B[2][kWin];
+  CW E0[kCoarseWin], E1[kCoarseWin];
   T J[K > 0 ? K : 1][2][kWin];
   [[maybe_unused]] Raw ru[kAhead], rb[kAhead];   // bfloat16: rows in flight
   // Rows ys .. ys + kAhead - 1 and the coarse rows they need.
@@ -1096,8 +1251,8 @@ __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
   if constexpr (PROLONG) {
 #pragma unroll
     for (int m = 0; m <= kAhead / 2; ++m) {
-      E0[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.J, f);
-      E1[m] = coarse_at<T, PACKED_E>(e, (w.ys >> 1) + m, w.J + 1, f);
+      E0[m] = coarse_word<T, PACKED_E>(e, (w.ys >> 1) + m, w.J, f);
+      E1[m] = coarse_word<T, PACKED_E>(e, (w.ys >> 1) + m, w.J + 1, f);
     }
   }
   T(&F)[2][kWin] = (KIND == mg::kJacobi && K > 0) ? J[K > 0 ? K - 1 : 0] : U;
@@ -1127,8 +1282,8 @@ __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
         constexpr int m = ((v + kAhead + 1) >> 1) & (kCoarseWin - 1);
         if (!EDGE || t + kAhead < w.ye) {
           const int I = (t + kAhead + 1) >> 1;
-          E0[m] = coarse_at<T, PACKED_E>(e, I, w.J, f);
-          E1[m] = coarse_at<T, PACKED_E>(e, I, w.J + 1, f);
+          E0[m] = coarse_word<T, PACKED_E>(e, I, w.J, f);
+          E1[m] = coarse_word<T, PACKED_E>(e, I, w.J + 1, f);
         }
       }
 
@@ -1143,15 +1298,28 @@ __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
             const int p = (c + v) & 1;
             const int gx = 2 * w.J + p;
             T a, d;
-            if constexpr ((v & 1) == 1) {
-              a = T(0.5) * (E0[m0] + E0[m1]);
-              d = T(0.5) * (E1[m0] + E1[m1]);
+            if constexpr (kNative<T>) {
+              // Rows first, then columns, each average rounded once.
+              if constexpr ((v & 1) == 1) {
+                a = average(low_f(E0[m0]), low_f(E0[m1]));
+                d = average(low_f(E1[m0]), low_f(E1[m1]));
+              } else {
+                a = T(low_f(E0[m0]));
+                d = T(low_f(E1[m0]));
+              }
+              const T pe = p ? average(a.f, d.f) : a;
+              if (gx >= 1 && gx <= n) U[c][s] = U[c][s] + pe;
             } else {
-              a = E0[m0];
-              d = E1[m0];
+              if constexpr ((v & 1) == 1) {
+                a = T(0.5) * (E0[m0] + E0[m1]);
+                d = T(0.5) * (E1[m0] + E1[m1]);
+              } else {
+                a = E0[m0];
+                d = E1[m0];
+              }
+              const T pe = p ? T(0.5) * (a + d) : a;
+              if (gx >= 1 && gx <= n) U[c][s] = U[c][s] + pe;
             }
-            const T pe = p ? T(0.5) * (a + d) : a;
-            if (gx >= 1 && gx <= n) U[c][s] = U[c][s] + pe;
           }
         }
       }
@@ -1183,8 +1351,8 @@ template <typename T, int KIND, int K, class Fr, typename S = T>
 __global__ void __launch_bounds__(kLegWarps * kWarp)
 sweep_kernel(const S* __restrict__ u, const S* __restrict__ b,
              S* __restrict__ out, Fr f, mg::Coef<T> cf, LegGeom g) {
-  up_stream<T, KIND, K, false, false, Fr, S, S>(u, nullptr, b, out, f, cf,
-                                                g);
+  up_stream<T, KIND, K, false, false, Fr, S, S, T>(u, nullptr, b, out, f,
+                                                   cf, g);
 }
 
 // The most stages a leg takes, each count its own kernel: a whole grid's
@@ -1413,6 +1581,85 @@ int launch_sweep(const void* u, const void* b, void* out, const Fr& f,
     }
   }
   return launch_sweep_k<T, S, mg::kRbgs, MAXK>(K, ut, bt, ot, f, cf, g, s);
+}
+
+// ---------------------------------------------------------------------------
+// The native bfloat16 legs on the unpacked frame (fused2d_native_bf16.cu,
+// fused2d_up_native_bf16.cu): the down and up streams with T = Nb and
+// every array bfloat16 (u, b, u', the coarse rc and e), kernels of their
+// own names, so that a profiler tells them from the float legs.
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+template <int KIND, int K>
+__global__ void __launch_bounds__(kLegWarps * kWarp)
+native_down_kernel(const bf16* __restrict__ u, const bf16* __restrict__ b,
+                   bf16* __restrict__ u_out, bf16* __restrict__ rc,
+                   Unpacked f, mg::Coef<Nb> cf, LegGeom g) {
+  down_stream<Nb, KIND, K, true, Unpacked, bf16, bf16>(u, b, u_out, rc, f,
+                                                       cf, 0, g);
+}
+
+template <int KIND, int K>
+__global__ void __launch_bounds__(kLegWarps * kWarp)
+native_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
+                 const bf16* __restrict__ b, bf16* __restrict__ out,
+                 Unpacked f, mg::Coef<Nb> cf, LegGeom g) {
+  up_stream<Nb, KIND, K, false, true, Unpacked, bf16, bf16, bf16>(
+      x, e, b, out, f, cf, g);
+}
+
+// The kernel of `stages` stages (K counts as launch_down_k's and
+// launch_up_k's), up to MAXK.
+template <bool DOWN, int KIND, int MAXK, int K = 0>
+int launch_native_k(int stages, const bf16* u, const bf16* e, const bf16* b,
+                    bf16* out, bf16* rc, const Unpacked& f,
+                    const mg::Coef<Nb>& cf, const LegGeom& g,
+                    cudaStream_t stream) {
+  if constexpr (K > MAXK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (stages != K) {
+      return launch_native_k<DOWN, KIND, MAXK,
+                             K + (KIND == mg::kRbgs ? 2 : 1)>(
+          stages, u, e, b, out, rc, f, cf, g, stream);
+    }
+    if constexpr (DOWN) {
+      native_down_kernel<KIND, K><<<leg_blocks(g), kLegWarps * kWarp, 0,
+                                    stream>>>(u, b, out, rc, f, cf, g);
+    } else {
+      native_up_kernel<KIND, K><<<leg_blocks(g), kLegWarps * kWarp, 0,
+                                  stream>>>(u, e, b, out, f, cf, g);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// The native down leg (DOWN: u, b -> u' = out and rc; e unused) or up leg
+// (x = u, e, b -> x' = out; rc unused) on the unpacked (n+2)^2 grid, with
+// the host's constants cf; u, b and out must start on a pair of bfloat16
+// (4 bytes), as the even rows' paired accesses need.
+template <bool DOWN>
+int launch_native(const void* u, const void* e, const void* b, void* out,
+                  void* rc, const Unpacked& f, const mg::Coef<Nb>& cf,
+                  int kind, int sweeps, const int* geom, void* stream) {
+  constexpr int MAXK = DOWN ? kMaxDownStages : kMaxUpStages;
+  LegGeom g;
+  if (!leg_geom(geom, f, &g) || !on_pairs<bf16>(u, b, out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int K = leg_stages(kind, sweeps);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bf16* ut = static_cast<const bf16*>(u);
+  const bf16* et = static_cast<const bf16*>(e);
+  const bf16* bt = static_cast<const bf16*>(b);
+  bf16* ot = static_cast<bf16*>(out);
+  bf16* rt = static_cast<bf16*>(rc);
+  return kind == mg::kRbgs
+             ? launch_native_k<DOWN, mg::kRbgs, MAXK>(K, ut, et, bt, ot, rt,
+                                                      f, cf, g, s)
+             : launch_native_k<DOWN, mg::kJacobi, MAXK>(K, ut, et, bt, ot,
+                                                        rt, f, cf, g, s);
 }
 
 // The owned box [qlo, qhi) x [slo, shi) (coarse tile indices) of the

@@ -19,23 +19,21 @@ a CUDA tensor launches the kernel or raises.
 
 Native bfloat16 (the TPU legs' own mode on bfloat16 grids, a bfloat16
 solve's kernel-tier levels: every operation rounded to bfloat16, sigma and
-the constants too): ``native_bf16.down_leg`` and ``up_leg``, a short chain
-of ``csrc/native_bf16.cu``'s launches (the native sweeps, then the
-residual restriction with sig u; the prolongation-add by rows first, then
-the sweeps), each leg counted once apart and its sweeps on ``stencil2d``'s
-native sweep counters.
+the constants too): ``native_bf16.down_leg`` and ``up_leg``, one launch of
+the same row stream with the native arithmetic
+(``csrc/fused2d_native_bf16.cu``, ``fused2d_up_native_bf16.cu``) on this
+module's geometry, counted apart.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import laplacian, smoothers, transfer
-from . import _build, native_bf16, packed2d, stencil2d
+from . import _build, native_bf16, packed2d
 from ._wrap import check_grid, launch_on, on_cuda
 
 # Launches of each CUDA kernel in this process (plain-version calls do not
-# count); the native bfloat16 legs apart (one a leg for the restriction or
-# the prolongation-add; their sweeps count on stencil2d's counters).
+# count); the native bfloat16 legs apart.
 down_launches = 0
 up_launches = 0
 down_bf16_launches = 0
@@ -126,10 +124,9 @@ def smooth_residual_restrict(u: torch.Tensor, b: torch.Tensor, n: int,
     check_grid("u", u, n, u, storage=True)
     check_grid("b", b, n, u, storage=True)
     if u.dtype == torch.bfloat16:
-        us, rc, launched, swept = native_bf16.down_leg(
+        us, rc, launched = native_bf16.down_leg(
             u, b, n, h, kind=kind, omega=omega, sweeps=sweeps, sigma=sigma)
         down_bf16_launches += launched
-        stencil2d.count_native_sweep(kind, swept)
         return us, rc
     if not on_cuda(u):
         return smooth_residual_restrict_plain(
@@ -170,11 +167,10 @@ def prolong_add_smooth(x: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
     check_grid("e", e, nc, x, storage=True)
     check_grid("b", b, n, x, storage=True)
     if x.dtype == torch.bfloat16:
-        out, launched, swept = native_bf16.up_leg(
+        out, launched = native_bf16.up_leg(
             x, e, b, n, nc, h, kind=kind, omega=omega, sweeps=sweeps,
             sigma=sigma)
         up_bf16_launches += launched
-        stencil2d.count_native_sweep(kind, swept)
         return out
     if not on_cuda(x):
         return prolong_add_smooth_plain(x, e, b, n, nc, h, kind=kind,

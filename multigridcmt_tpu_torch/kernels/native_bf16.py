@@ -7,13 +7,19 @@ package computes them.
 
 Replace the bfloat16 modes of the TPU kernels
 ``multigridcmt_tpu/kernels/stencil2d.py`` (``residual`` :304,
-``rbgs_sweep`` :284, ``jacobi_sweep`` :295) and
+``rbgs_sweep`` :284, ``jacobi_sweep`` :295),
 ``multigridcmt_tpu/kernels/local2d.py`` (``rbgs_sweep`` :263,
-``jacobi_sweep`` :278, ``residual`` :289) with ``csrc/native_bf16.cu``
-(see the note there on its design and what bounds it). The stencil2d and
-local2d wrappers call ``residual`` and ``sweep`` below for a bfloat16 grid;
-a whole (n+2)^2 grid is the tile at global (0, 0), whose ring is the
-grid's ghosts.
+``jacobi_sweep`` :278, ``residual`` :289) and
+``multigridcmt_tpu/kernels/transfer2d.py`` (``prolong_add`` :204,
+``residual_restrict`` :371) with ``csrc/native_bf16.cu``, and those of
+``multigridcmt_tpu/kernels/fused2d.py`` (``smooth_residual_restrict``
+:289, ``prolong_add_smooth`` :479) with the row stream's native mode
+(``csrc/fused2d_native_bf16.cu``, ``fused2d_up_native_bf16.cu``); the
+notes there say how each is built and what bounds it. The stencil2d and
+local2d wrappers call ``residual`` and ``sweep`` below for a bfloat16
+grid, transfer2d's ``residual_restrict`` and ``prolong_add``, fused2d's
+``down_leg`` and ``up_leg``; a whole (n+2)^2 grid is the tile at global
+(0, 0), whose ring is the grid's ghosts.
 
 The rule (JAX's weak typing, ``stencil2d.py:81-90``, ``:214-254``): sigma
 arrives as a bfloat16 array; a Python float (h^2, 1/h^2, 4, omega, 4/h^2
@@ -36,12 +42,12 @@ computed in double) is rounded to bfloat16 where it meets one; every + - x
              interpolation dots' two terms); transfer2d interpolates
              columns first, then rows, the fused up leg rows first, then
              columns; then x + P e on the interior, x elsewhere.
-The fused legs chain these: the down leg's sweeps, then the restriction
+The fused legs compose these: the down leg's sweeps, then the restriction
 with sig u (``down_leg``); the up leg's prolongation-add (rows first), then
-its sweeps (``up_leg``). The JAX kernels hold on finite inputs; a NaN or
-Inf inside their selection dots spreads over a row or block (0 * Inf),
-which these modes do not copy: their plain versions define the port's
-semantics there.
+its sweeps (``up_leg``); on the card each is one launch of the row stream.
+The JAX kernels hold on finite inputs; a NaN or Inf inside their selection
+dots spreads over a row or block (0 * Inf), which these modes do not copy:
+their plain versions define the port's semantics there.
 ``constants`` computes h2, inv_h2, sig, inv_den and coef on the host in
 that order; the kernel and the plain versions use the same values. A
 Python scalar is rounded through float32, as JAX's conversion of a weakly
@@ -233,30 +239,28 @@ def prolong_add_plain(x, e, n: int, nc: int,
     return out
 
 
-def residual_restrict(u, b, n: int, h: float, sigma=None) -> tuple:
-    """The native residual restriction of bfloat16 u and b (checked by the
-    caller) into the ((n-1)/2 + 2)^2 coarse grid: sigma None (transfer2d)
-    leaves the shift out; a sigma (fused2d's down leg) adds sig u, even at
-    0. Returns (rc, launched)."""
-    c = constants(float(h), 0.0 if sigma is None else float(sigma))
+def residual_restrict(u, b, n: int, h: float) -> tuple:
+    """transfer2d's native residual restriction (no sig u term) of
+    bfloat16 u and b (checked by the caller) into the ((n-1)/2 + 2)^2
+    coarse grid; returns (rc, launched)."""
+    c = constants(float(h))
     nc = (n - 1) // 2
     if not on_cuda(u):
-        return residual_restrict_plain(u, b, n, c, sigma is not None), False
+        return residual_restrict_plain(u, b, n, c, False), False
     rc = torch.empty((nc + 2, nc + 2), dtype=BF, device=u.device)
     launch_on(u, "native2d_residual_restrict", u.data_ptr(), b.data_ptr(),
-              rc.data_ptr(), n, c.inv_h2, c.sig, int(sigma is not None),
-              writes=(rc,))
+              rc.data_ptr(), n, c.inv_h2, writes=(rc,))
     return rc, True
 
 
-def prolong_add(x, e, n: int, nc: int, rows_first: bool) -> tuple:
-    """x + P e of bfloat16 x and e (checked by the caller) in the given
-    interpolation order; returns (out, launched)."""
+def prolong_add(x, e, n: int, nc: int) -> tuple:
+    """transfer2d's native x + P e (columns first) of bfloat16 x and e
+    (checked by the caller); returns (out, launched)."""
     if not on_cuda(x):
-        return prolong_add_plain(x, e, n, nc, rows_first), False
+        return prolong_add_plain(x, e, n, nc, False), False
     out = torch.empty_like(x)
     launch_on(x, "native2d_prolong_add", x.data_ptr(), e.data_ptr(),
-              out.data_ptr(), n, int(rows_first), writes=(out,))
+              out.data_ptr(), n, writes=(out,))
     return out, True
 
 
@@ -268,14 +272,25 @@ def down_leg_plain(u, b, n: int, c: Constants, kind: str, sweeps: int):
 
 def down_leg(u, b, n: int, h: float, *, kind: str, omega: float,
              sweeps: int, sigma=0.0) -> tuple:
-    """fused2d's down leg on bfloat16 grids: ``sweeps`` native sweeps, then
-    the residual (with sig u) restricted. Returns (u', rc, launched,
-    swept): whether the restriction and the sweeps launched."""
-    swept = False
-    if sweeps:
-        u, swept = sweep(kind, u, b, n, h, omega, sweeps, sigma=sigma)
-    rc, launched = residual_restrict(u, b, n, h, sigma=sigma)
-    return u, rc, launched, swept
+    """fused2d's down leg on bfloat16 grids (checked by the caller):
+    ``sweeps`` native sweeps, then the residual (with sig u) restricted, on
+    the card in one launch of the row stream. Returns (u', rc,
+    launched)."""
+    from . import fused2d
+
+    c = constants(float(h), float(sigma), float(omega))
+    if not on_cuda(u):
+        return (*down_leg_plain(u, b, n, c, kind, sweeps), False)
+    nc = (n - 1) // 2
+    u, b = fused2d._on_pair(u), fused2d._on_pair(b)
+    u_out = torch.empty_like(u)
+    rc = torch.empty((nc + 2, nc + 2), dtype=BF, device=u.device)
+    launch_on(u, "fused2d_down_native", u.data_ptr(), b.data_ptr(),
+              u_out.data_ptr(), rc.data_ptr(), n, *c,
+              _build.KIND_CODES[kind], sweeps,
+              fused2d._launch_geometry("down", n, kind, sweeps, u),
+              writes=(u_out, rc))
+    return u_out, rc, True
 
 
 def up_leg_plain(x, e, b, n: int, nc: int, c: Constants, kind: str,
@@ -287,11 +302,18 @@ def up_leg_plain(x, e, b, n: int, nc: int, c: Constants, kind: str,
 
 def up_leg(x, e, b, n: int, nc: int, h: float, *, kind: str, omega: float,
            sweeps: int, sigma=0.0) -> tuple:
-    """fused2d's up leg on bfloat16 grids: x + P e (rows first), then
-    ``sweeps`` native sweeps. Returns (x', launched, swept): whether the
-    prolongation-add and the sweeps launched."""
-    x, launched = prolong_add(x, e, n, nc, rows_first=True)
-    swept = False
-    if sweeps:
-        x, swept = sweep(kind, x, b, n, h, omega, sweeps, sigma=sigma)
-    return x, launched, swept
+    """fused2d's up leg on bfloat16 grids (checked by the caller): x + P e
+    (rows first), then ``sweeps`` native sweeps, on the card in one launch
+    of the row stream. Returns (x', launched)."""
+    from . import fused2d
+
+    c = constants(float(h), float(sigma), float(omega))
+    if not on_cuda(x):
+        return up_leg_plain(x, e, b, n, nc, c, kind, sweeps), False
+    x, b = fused2d._on_pair(x), fused2d._on_pair(b)
+    out = torch.empty_like(x)
+    launch_on(x, "fused2d_up_native", x.data_ptr(), e.data_ptr(),
+              b.data_ptr(), out.data_ptr(), n, *c, _build.KIND_CODES[kind],
+              sweeps, fused2d._launch_geometry("up", n, kind, sweeps, x),
+              writes=(out,))
+    return out, True

@@ -39,23 +39,13 @@ from ._wrap import check_grid, launch_on, on_cuda
 # Launches of each CUDA kernel in this process (plain-version calls do not
 # count): the residual, and the sweep kernel in each mode (one a launch,
 # whatever its sweep count); the native bfloat16 modes apart (one a call,
-# whatever its launches; fused2d's native legs count their sweeps here).
+# whatever its launches).
 launches = 0
 rbgs_launches = 0
 jacobi_launches = 0
 residual_bf16_launches = 0
 rbgs_bf16_launches = 0
 jacobi_bf16_launches = 0
-
-
-def count_native_sweep(kind: str, launched: bool) -> None:
-    """Count a native bfloat16 sweep call that launched its kernel (this
-    module's, or one inside fused2d's native legs)."""
-    global rbgs_bf16_launches, jacobi_bf16_launches
-    if kind == "rbgs":
-        rbgs_bf16_launches += launched
-    else:
-        jacobi_bf16_launches += launched
 
 
 def max_fused_sweeps(kind: str) -> int:
@@ -91,6 +81,7 @@ def residual(u: torch.Tensor, b: torch.Tensor, n: int, h: float,
 
 def _sweep(kind: str, u, b, n, h, omega, sigma, sweeps) -> torch.Tensor:
     global rbgs_launches, jacobi_launches
+    global rbgs_bf16_launches, jacobi_bf16_launches
     cap = max_fused_sweeps(kind)
     if not 1 <= sweeps <= cap:
         raise ValueError(f"{sweeps} {kind} sweeps: one launch takes 1 to "
@@ -100,7 +91,10 @@ def _sweep(kind: str, u, b, n, h, omega, sigma, sweeps) -> torch.Tensor:
     if u.dtype == torch.bfloat16:
         out, launched = native_bf16.sweep(kind, u, b, n, h, omega, sweeps,
                                           sigma=sigma)
-        count_native_sweep(kind, launched)
+        if kind == "rbgs":
+            rbgs_bf16_launches += launched
+        else:
+            jacobi_bf16_launches += launched
         return out
     if not on_cuda(u):
         if kind == "rbgs":

@@ -96,8 +96,7 @@ def prolong_add(x: torch.Tensor, e: torch.Tensor, n: int,
     check_grid("x", x, n, x, storage=True)
     check_grid("e", e, nc, x, storage=True)
     if x.dtype == torch.bfloat16:
-        out, launched = native_bf16.prolong_add(x, e, n, nc,
-                                                rows_first=False)
+        out, launched = native_bf16.prolong_add(x, e, n, nc)
         prolong_add_bf16_launches += launched
         return out
     if not on_cuda(x):

@@ -3,30 +3,27 @@ marches and the packed residual's word kernel), the float32 and float64
 kernels that took a storage type for a bfloat16 mode (the BELL SpMM and
 the residual norms) and those of the files that hold or sit beside a
 native bfloat16 mode (the stencil2d and local2d residuals and sweeps, the
-DIA SpMV) against other trees' builds, bit for bit, and time them in
-turns, on one CUDA card.
+DIA SpMV, every row-streaming leg of packed2d_legs.cuh) against other
+trees' builds, bit for bit, and time them in turns, on one CUDA card; and
+the native bfloat16 fused2d legs (the row stream) against the first
+other tree's chain of native launches.
 
     python -m multigridcmt_tpu_torch.utils.bf16_kernels OTHER [OTHER ...] \\
         [--json PATH]
 
 Each OTHER is the root of another checkout of the repository (the parent
 commit unpacked with ``git archive`` into the git-ignored
-``.chip_scratch/``). SOURCES (the stencil3d and packed2d sources,
-plocal2d.cu and plocal2d_bf16.cu, which hold every kernel of
-csrc/stencil3d.cuh and csrc/packed_tile.cuh, bell.cu, the stencil2d and
-local2d residual and sweep sources, spmv.cu and native_bf16.cu) that a
-tree has are compiled, each by its own nvcc with the library's flags and ``-Xptxas
--v``, all at once, and linked into a library a tree; the port's wrappers
-launch into this tree's. Then:
+``.chip_scratch/``). Every csrc/*.cu that a tree has is compiled, each by
+its own nvcc with the library's flags and ``-Xptxas -v``, all at once, and
+linked into a library a tree; the port's wrappers launch into this
+tree's. Then:
 
 1. ptxas: the registers and spill bytes of every float32 and float64
-   kernel of stencil3d.cuh, packed_tile.cuh, bell.cu, stencil2d.cu,
-   local2d.cu, spmv.cu and the stencil2d and local2d sweeps
-   (packed2d_legs.cuh's sweep_kernel on the Unpacked and UTile frames; by
-   mangled name from the kernel's own name on; presnorm_partial and bell_spmm_kernel,
-   whose float names gained the storage type, by kernel, type and update
-   rule or m-tile) of this build against the first OTHER's; the bfloat16
-   kernels' lines of every library side by side.
+   kernel (by mangled name from the kernel's own name on; presnorm_partial
+   and bell_spmm_kernel, whose float names gained the storage type, by
+   kernel, type and update rule or m-tile) of this build against the first
+   OTHER's; the bfloat16 kernels' lines of every library side by side (the
+   native legs' registers and spills among them).
 2. Bits: the bfloat16 RB-GS sweep storing bfloat16 and float32 (sigma 0
    and 11.5) at 511^3 (the paired march here) and on two 511^3 plane
    stacks, one with goff + roff even (paired) and one odd (the scalar
@@ -48,7 +45,12 @@ launch into this tree's. Then:
    11.5; on the same inputs in each library, bit for bit. A call is replayed through ctypes with the arguments this tree's
    wrapper passed (captured once); an OTHER that predates a paired march
    takes the scalar march's geometry (march_geometry unpaired), which is
-   what its own wrapper passes.
+   what its own wrapper passes. Then (leg_calls) the float row-streaming
+   legs: fused2d's down and up legs (float32 at 2047^2, RB-GS nu = 2 at
+   sigma 0, Jacobi nu = 3 at 11.5; float64 at 255^2), the float32
+   residual restriction at 2047^2 and the packed legs at 4095^2; and
+   utils/bf16_legs.py's bfloat16 storage modes of the packed, local2d and
+   plocal2d legs and the packed sweep (its CASES).
 3. Times, at sigma 0: each bfloat16 mode in each library and its float32
    twin (the same entry point's float32 form in this library, on the
    widened inputs), in turns (the libraries in order, then in reverse):
@@ -74,6 +76,16 @@ launch into this tree's. Then:
    CUDA activity, exported), beside its reading before and its chained
    time; chip_smoke.py's phase 3 takes such a trace before phase 4 reads
    its kernels' device times.
+6. The native bfloat16 fused2d legs at 2047^2, 1023^2, 511^2 and 255^2
+   (RB-GS nu = 2, sigma 0; for the bits also Jacobi nu = 2 and RB-GS
+   nu = 0 at sigma 11.5): this tree's row stream (one launch a leg, through the wrapper)
+   and, where the first OTHER has it, that tree's chain of native_bf16.cu
+   launches as its wrapper made them (the sweeps, a launch a colour a
+   sweep, then the restriction with sig u; the prolongation-add by rows
+   first, then the sweeps), called through ctypes with its own argument
+   types: bit for bit against each other, then in turns: single (one call
+   alone), chained and the profiler's device time a call, beside the bound
+   (the inputs read once and the outputs written once in bfloat16).
 
 Prints the card's name and power limit, a line for each finding and one
 JSON object last; exits 1 if a bit differs or a float32/float64 kernel's
@@ -95,6 +107,7 @@ import torch
 
 from multigridcmt_tpu_torch.kernels import (_build, bell, local2d, packed2d,
                                             plocal2d, stencil3d)
+from multigridcmt_tpu_torch.utils import bf16_legs
 from multigridcmt_tpu_torch.utils.bf16_legs import (LEG_CHAIN,
                                                     PEAK_BYTES_PER_S, Call,
                                                     bits, finish_build,
@@ -103,18 +116,16 @@ from multigridcmt_tpu_torch.utils.bf16_legs import (LEG_CHAIN,
 from multigridcmt_tpu_torch.utils.breakdown import device_busy
 from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
-SOURCES = ("stencil3d.cu", "stencil3d_bf16.cu", "packed2d.cu",
-           "packed2d_bf16.cu", "plocal2d.cu", "plocal2d_bf16.cu",
-           "stencil2d.cu", "bell.cu", "stencil2d_sweep.cu",
-           "stencil2d_sweep_f64.cu", "local2d.cu", "local2d_sweep.cu",
-           "local2d_sweep_f64.cu", "spmv.cu", "native_bf16.cu")
 KERNEL = re.compile(r"(native_residual_kernel|native_rbgs_kernel|"
-                    r"native_jacobi_kernel|rbgs_pairs_kernel|rbgs_kernel|"
+                    r"native_jacobi_kernel|native_restrict_kernel|"
+                    r"native_prolong_kernel|native_down_kernel|"
+                    r"native_up_kernel|rbgs_pairs_kernel|rbgs_kernel|"
                     r"jacobi_pairs_kernel|pass_kernel|"
                     r"presidual_pairs_kernel|presidual_kernel|"
                     r"presnorm_partial|sum_partials|bell_spmm_kernel|"
-                    r"local_residual_kernel|residual_kernel|sweep_kernel|"
-                    r"spmv_dia_kernel)\w*")
+                    r"local_residual_kernel|residual_restrict_kernel|"
+                    r"residual_kernel|sweep_kernel|spmv_dia_kernel|"
+                    r"prolong_add_kernel|down_kernel|up_kernel)\w*")
 # The kernels whose float32/float64 names gained a storage type S = T: a
 # name's (kernel, type, update rule or m-tile).
 RENAMED = re.compile(r"(presnorm_partial)I([fd])NS_\d+([A-Za-z]+?)E[fd]?E|"
@@ -145,8 +156,7 @@ def ptxas_lines(text: str) -> dict:
     """{mangled name from the kernel's own name on: sorted [(registers,
     spill bytes)], each line once (a kernel compiled in several
     translation units, as sum_partials, has one line each)} of the
-    stencil3d.cuh, packed_tile.cuh and bell.cu kernels in ptxas's -v
-    output."""
+    kernels KERNEL names in ptxas's -v output."""
     props, name, spill = {}, None, 0
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -166,10 +176,9 @@ def ptxas_lines(text: str) -> dict:
 
 
 def tree_sources(root: Path) -> tuple:
-    """The SOURCES that the tree at ``root`` has (an older tree lacks the
-    newer bfloat16 files)."""
+    """Every kernel source of the tree at ``root``."""
     csrc = root / "multigridcmt_tpu_torch" / "kernels" / "csrc"
-    return tuple(name for name in SOURCES if (csrc / name).is_file())
+    return tuple(sorted(p.name for p in csrc.glob("*.cu")))
 
 
 def ptxas_key(name: str):
@@ -516,9 +525,54 @@ def stencil_calls() -> list:
     return calls
 
 
+def leg_calls() -> list:
+    """(label, make) of the float32 and float64 row-streaming legs held bit
+    for bit (step 2): fused2d's legs, the residual restriction, the packed
+    legs."""
+    from multigridcmt_tpu_torch.kernels import fused2d, transfer2d
+
+    calls = []
+    for dtype, n in ((F32, 2047), (torch.float64, 255)):
+        u, b = grid(n, dtype, 60 + n)
+        e = grid((n - 1) // 2, dtype, 61 + n)[0]
+        h, nc = 1.0 / (n + 1), (n - 1) // 2
+        for kind, nu, sigma in (("rbgs", 2, 0.0), ("jacobi", 3, SIGMA)):
+            kw = dict(kind=kind, omega=1.0 if kind == "rbgs" else OMEGA2,
+                      sweeps=nu, sigma=sigma)
+            calls.append((
+                f"fused2d down {dtype} n={n} {kind} nu={nu} sigma={sigma}",
+                lambda u=u, b=b, n=n, h=h, kw=kw: Replay(
+                    lambda: fused2d.smooth_residual_restrict(u, b, n, h,
+                                                             **kw),
+                    (u, b))))
+            calls.append((
+                f"fused2d up {dtype} n={n} {kind} nu={nu} sigma={sigma}",
+                lambda u=u, b=b, e=e, n=n, nc=nc, h=h, kw=kw: Replay(
+                    lambda: fused2d.prolong_add_smooth(u, e, b, n, nc, h,
+                                                       **kw), (u, e, b))))
+        calls.append((f"transfer2d residual_restrict {dtype} n={n}",
+                       lambda u=u, b=b, n=n, h=h: Replay(
+                           lambda: transfer2d.residual_restrict(u, b, n, h),
+                           (u, b))))
+    pu, pb = packed(N2, 62, F32)
+    e = grid((N2 - 1) // 2, F32, 63)[0]
+    h = 1.0 / (N2 + 1)
+    calls.append(("packed2d down float32 n=4095 rbgs nu=2",
+                  lambda: Replay(lambda: packed2d.smooth_residual_restrict(
+                      pu, pb, N2, h, kind="rbgs", omega=1.0, sweeps=2),
+                      (pu, pb))))
+    calls.append(("packed2d up float32 n=4095 rbgs nu=2",
+                  lambda: Replay(lambda: packed2d.prolong_add_smooth(
+                      pu, e, pb, N2, (N2 - 1) // 2, h, kind="rbgs",
+                      omega=1.0, sweeps=2), (pu, e, pb))))
+    return calls
+
+
 def check_bits(libs: dict) -> tuple:
-    """(comparisons, failures): every bfloat16 case, and every float32 and
-    float64 case of float_calls, in each library against this one."""
+    """(comparisons, failures): every bfloat16 case, every float32 and
+    float64 case of float_calls, stencil_calls and leg_calls, and
+    bf16_legs' bfloat16 storage modes of the row-streaming legs, in each
+    library against this one."""
     u, b = cube(20)
     calls = []
     for sigma in (0.0, SIGMA):
@@ -552,7 +606,7 @@ def check_bits(libs: dict) -> tuple:
             calls.append((f"residual n={n} sigma={sigma}",
                           lambda pu=pu, pb=pb, n=n, s=sigma:
                           residual_call(pu, pb, n, s)))
-    calls += float_calls() + stencil_calls()
+    calls += float_calls() + stencil_calls() + leg_calls()
     checks, fails = 0, []
     for what, make in calls:
         call = make()
@@ -567,7 +621,10 @@ def check_bits(libs: dict) -> tuple:
                 fails.append(f"bits {what}: {label} differs from this")
         del call
     torch.cuda.synchronize()
-    return checks, fails
+    whole, utile, ptile = bf16_legs.inputs()
+    legs_checks, legs_fails = bf16_legs.check_bits(
+        libs, {"packed2d": whole, "local2d": utile, "plocal2d": ptile})
+    return checks + legs_checks, fails + legs_fails
 
 
 def timed(libs: dict, first: str) -> dict:
@@ -709,9 +766,123 @@ def trace_effect(libs: dict) -> dict:
     return out
 
 
+# The native legs' levels (the k=11 bfloat16 solve's fused levels) and
+# the parent chain's C argument types (csrc/native_bf16.cu before the row
+# stream: the restriction took sigma and a shift flag, the prolongation-add
+# an order flag).
+NATIVE_NS = (2047, 1023, 511, 255)
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+CHAIN_TYPES = {"mg_native2d_residual_restrict_bf16": [_P, _P, _P, _I, _D, _D,
+                                                      _I, _P],
+               "mg_native2d_prolong_add_bf16": [_P, _P, _P, _I, _I, _P]}
+
+
+def chain_leg(lib, leg, x, e, b, n, c, kind, sweeps):
+    """(fn, outputs) of the native leg as the parent's wrapper launched it
+    in ``lib`` (its own chain of native_bf16.cu entry points): the down
+    leg's sweeps into u' (u itself at 0 sweeps), then the restriction with
+    sig u; the up leg's prolongation-add by rows first, then its sweeps."""
+    from multigridcmt_tpu_torch.kernels import _build as build
+
+    fns = {}
+    for name in ("mg_native2d_sweep_bf16", *CHAIN_TYPES):
+        f = getattr(lib, name)
+        f.argtypes = CHAIN_TYPES.get(name, build.SIGNATURES[name])
+        f.restype = ctypes.c_int
+        fns[name] = f
+    stream = torch.cuda.current_stream().cuda_stream
+    out, tmp, mid = (torch.empty_like(x) for _ in range(3))
+    nc = (n - 1) // 2
+    rc = torch.empty((nc + 2, nc + 2), dtype=BF, device=x.device)
+    code = build.KIND_CODES[kind]
+
+    def sweep(src):
+        return fns["mg_native2d_sweep_bf16"](
+            src.data_ptr(), b.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+            n + 2, n + 2, n, 0, 0, *c, code, sweeps, stream)
+
+    if leg == "down":
+        def run():
+            status = sweep(x) if sweeps else 0
+            return status or fns["mg_native2d_residual_restrict_bf16"](
+                (out if sweeps else x).data_ptr(), b.data_ptr(),
+                rc.data_ptr(), n, c.inv_h2, c.sig, 1, stream)
+        return run, ((out if sweeps else x), rc)
+
+    def run():
+        status = fns["mg_native2d_prolong_add_bf16"](
+            x.data_ptr(), e.data_ptr(), mid.data_ptr(), n, 1, stream)
+        return status or (sweep(mid) if sweeps else 0)
+    return run, ((out if sweeps else mid),)
+
+
+def native_grids(n: int, seed: int):
+    """bfloat16 u (or x), b (of 1/h^2 size) and the coarse e."""
+    u, b = grid(n, F32, seed)
+    e = grid((n - 1) // 2, F32, seed + 1)[0]
+    return u.to(BF), b.to(BF), e.to(BF)
+
+
+def native_legs(libs: dict, first: str) -> tuple:
+    """(times, comparisons, failures) of step 6."""
+    from multigridcmt_tpu_torch.kernels import fused2d, native_bf16
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    other = libs[first]
+    has_chain = hasattr(other, "mg_native2d_residual_restrict_bf16") and \
+        not hasattr(other, "mg_fused2d_down_native_bf16")
+    times, checks, fails = {}, 0, []
+    for n in NATIVE_NS:
+        u, b, e = native_grids(n, 70 + n)
+        h, nc = 1.0 / (n + 1), (n - 1) // 2
+        for leg in ("down", "up"):
+            for kind, nu, sigma in (("rbgs", 2, 0.0), ("jacobi", 2, SIGMA),
+                                    ("rbgs", 0, SIGMA)):
+                omega = 1.0 if kind == "rbgs" else OMEGA2
+                kw = dict(kind=kind, omega=omega, sweeps=nu, sigma=sigma)
+                if leg == "down":
+                    call = Replay(lambda: fused2d.smooth_residual_restrict(
+                        u, b, n, h, **kw), (u, b))
+                else:
+                    call = Replay(lambda: fused2d.prolong_add_smooth(
+                        u, e, b, n, nc, h, **kw), (u, e, b))
+                mine = call.replay(libs["this"])
+                label = f"native {leg} n={n} {kind} nu={nu} sigma={sigma}"
+                if has_chain:
+                    c = native_bf16.constants(h, sigma, omega)
+                    run, outs = chain_leg(other, leg, u, e, b, n, c, kind,
+                                          nu)
+                    if run():
+                        raise RuntimeError(f"{label}: the chain failed")
+                    checks += 1
+                    if not all(torch.equal(bits(x), bits(y))
+                               for x, y in zip(mine, outs)):
+                        fails.append(f"bits {label}: the stream differs "
+                                     f"from {first}'s chain")
+                if (kind, nu, sigma) != ("rbgs", 2, 0.0):
+                    continue
+                fns = {"stream": call.fn(libs["this"])}
+                if has_chain:
+                    fns[f"{first} chain"] = run
+                row = in_turns(fns)
+                for key, fn in list(fns.items()) + list(fns.items())[::-1]:
+                    row.setdefault(f"{key} single", []).append(
+                        cuda_time_ms(fn))
+                row["bound_ms"] = call.nbytes / PEAK_BYTES_PER_S * 1e3
+                times[f"{leg}@{n}"] = row
+                log(f"time native {leg} n={n}: {fmt(row)}; single "
+                    + ", ".join(f"{k} {v}" for k, v in row.items()
+                                if k.endswith("single"))
+                    + f"; bound {row['bound_ms']:.4f}")
+        del u, b, e
+    torch.cuda.synchronize()
+    return times, checks, fails
+
+
 def fmt(row: dict) -> str:
     return ", ".join(f"{k} " + "/".join(f"{c:.4f}c {d:.4f}d" for c, d in v)
-                     for k, v in row.items() if k != "bound_ms")
+                     for k, v in row.items()
+                     if k != "bound_ms" and not k.endswith("single"))
 
 
 def main() -> int:
@@ -729,11 +900,11 @@ def main() -> int:
         t0 = time.perf_counter()
         labels = [p.name for p in opt.others]
         roots = dict([("this", root), *zip(labels, opt.others)])
-        started = {label: start_build(r, Path(tmp) / label, False,
-                                      tree_sources(r))
-                   for label, r in roots.items()}
         libs, texts = {}, {}
-        for label, procs in started.items():
+        # A tree at a time: every source of two trees at once would start
+        # some ninety nvcc processes.
+        for label, r in roots.items():
+            procs = start_build(r, Path(tmp) / label, False, tree_sources(r))
             libs[label], texts[label] = finish_build(procs,
                                                      Path(tmp) / label)
             march_flavour(libs[label], texts[label])
@@ -757,6 +928,10 @@ def main() -> int:
         report["fails"] += fails
         log(f"bits: {checks} comparisons, {len(fails)} differ")
 
+        report["native_legs"], checks, fails = native_legs(libs, labels[0])
+        report["fails"] += fails
+        log(f"native legs: {checks} comparisons with {labels[0]}'s chain, "
+            f"{len(fails)} differ")
         report["times"] = timed(libs, labels[0])
         report["cycles"] = cycles(libs)
         report["trace_effect"] = trace_effect(libs)

@@ -11,6 +11,8 @@
     python -m multigridcmt_tpu_torch.utils.breakdown --sparse
     python -m multigridcmt_tpu_torch.utils.breakdown --fmg [--k 10]
     python -m multigridcmt_tpu_torch.utils.breakdown --eigen ii|lobpcg [--k 9]
+    python -m multigridcmt_tpu_torch.utils.breakdown --dtype bfloat16 \
+        [--smoother jacobi] [--k 11]
 
 For each route of the float32 V(nu1,nu2) cycle (default RB-GS V(2,2)) at
 2^k - 1 (k=12: 4095^2; in 3D, k=9: 511^3), prints the cycle time (CUDA
@@ -88,6 +90,15 @@ Rayleigh steps; a LOBPCG step one preconditioning V-cycle and the
 Rayleigh-Ritz step on [X, W, P]), the same figures a step, and the whole
 eigensolve's outer steps, cycles and wall time.
 
+With ``--dtype bfloat16``, the bfloat16 solve's cycle instead (config
+dtype bfloat16, kernels on; the default k = 11, the widest whose levels
+all stay bfloat16): the kernel route's figures as above, the device time
+of the native legs (the row stream's native_down_kernel and
+native_up_kernel) and of the native bfloat16 kernels (native_bf16.cu's:
+the sweeps, the residual, the transfers, and the chain that ran the legs
+before the row stream), and the native launches a cycle by the port's
+counters; no per-level times.
+
 Informative only: nothing is checked. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -139,7 +150,22 @@ ROUTE_KERNELS = {
     # transfer2d.residual_restrict: the row stream's residual_restrict_kernel
     # (its shared-memory rr_kernel before it).
     "residual_restrict": re.compile(r"(?<!\w)(rr|residual_restrict)_kernel<"),
+    # The bfloat16 solve's native legs on the row stream, and
+    # native_bf16.cu's one-thread-a-point kernels (with the chain of them
+    # that ran the legs before).
+    "native legs": re.compile(r"(?<!\w)native_(down|up)_kernel<"),
+    "native kernels": re.compile(
+        r"(?<!\w)native_(residual|rbgs|jacobi|restrict|prolong)_kernel"),
 }
+# The native bfloat16 launch counters a bfloat16 cycle reads (module,
+# counter).
+NATIVE_COUNTERS = (("fused2d", "down_bf16_launches"),
+                   ("fused2d", "up_bf16_launches"),
+                   ("stencil2d", "residual_bf16_launches"),
+                   ("stencil2d", "rbgs_bf16_launches"),
+                   ("stencil2d", "jacobi_bf16_launches"),
+                   ("transfer2d", "residual_restrict_bf16_launches"),
+                   ("transfer2d", "prolong_add_bf16_launches"))
 # The sharded 3D cycle's kernels by name: the stencil3d z-march (the
 # RB-GS sweep's rbgs_kernel and rbgs_pairs_kernel, the residual's and
 # Jacobi's pass_kernel), and the copies (torch.cat's CatArrayBatchedCopy,
@@ -196,12 +222,15 @@ def grids(n: int, seed: int, ndim: int = 2):
     return u, b * float((n + 1) ** 2), e
 
 
-def routes(k: int, reps: int, ndim: int, schedule: dict) -> None:
+def routes(k: int, reps: int, ndim: int, schedule: dict,
+           dtype=torch.float32) -> None:
     n = 2 ** k - 1
     # (KERNEL_MIN_N, PACK_MIN_N, KERNEL3_MIN_N)
     shipped = (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N,
                kernels.KERNEL3_MIN_N)
-    if ndim == 2:
+    if dtype == torch.bfloat16:
+        table = (("kernel, bfloat16", True) + shipped,)
+    elif ndim == 2:
         table = (("kernel", True) + shipped,
                  ("kernel, finest level unpacked", True, shipped[0], n + 1,
                   shipped[2]),
@@ -215,19 +244,39 @@ def routes(k: int, reps: int, ndim: int, schedule: dict) -> None:
         for label, use_kernels, *thresholds in table:
             (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N,
              kernels.KERNEL3_MIN_N) = thresholds
-            route(label, k, ndim, use_kernels, reps, schedule)
+            route(label, k, ndim, use_kernels, reps, schedule, dtype)
     finally:
         (kernels.KERNEL_MIN_N, kernels.PACK_MIN_N,
          kernels.KERNEL3_MIN_N) = shipped
 
 
+def native_launches(fn) -> dict:
+    """The native bfloat16 launches of one call of fn, by the counters of
+    NATIVE_COUNTERS (those a tree lacks read 0)."""
+    import importlib
+
+    mods = {m: importlib.import_module(f"multigridcmt_tpu_torch.kernels.{m}")
+            for m, _ in NATIVE_COUNTERS}
+    for m, name in NATIVE_COUNTERS:
+        if hasattr(mods[m], name):
+            setattr(mods[m], name, 0)
+    fn()
+    torch.cuda.synchronize()
+    return {f"{m}.{name}": getattr(mods[m], name, 0)
+            for m, name in NATIVE_COUNTERS if getattr(mods[m], name, 0)}
+
+
 def route(label: str, k: int, ndim: int, use_kernels: bool, reps: int,
-          schedule: dict) -> None:
+          schedule: dict, dtype=torch.float32) -> None:
     """Time one route's cycle and solve under the thresholds set now."""
-    prob = mt.poisson(k=k, ndim=ndim, dtype=torch.float32,
+    prob = mt.poisson(k=k, ndim=ndim, dtype=dtype,
                       use_kernels=use_kernels, device="cuda", **schedule)
     solver = mt.MultigridSolver(prob)
     x0 = torch.zeros_like(prob.b)
+    if dtype == torch.bfloat16:
+        print(f"{label}: native launches a cycle "
+              f"{native_launches(lambda: solver.v_cycle(x0, prob.b))}",
+              flush=True)
     ms = cuda_time_ms(lambda: solver.v_cycle(x0, prob.b))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -702,9 +751,15 @@ def main() -> None:
                     help="one FMG pass and FMG solve (default k=10) only")
     ap.add_argument("--eigen", choices=("ii", "rqi", "lobpcg"), default=None,
                     help="one eigensolve outer step (default k=9) only")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="bfloat16: the bfloat16 solve's cycle (default "
+                    "k=11), the kernel route only")
     args = ap.parse_args()
+    bf16 = args.dtype == "bfloat16"
     k = args.k if args.k is not None else (
-        10 if args.fmg else 9 if args.eigen else {2: 12, 3: 9}[args.ndim])
+        10 if args.fmg else 9 if args.eigen else 11 if bf16
+        else {2: 12, 3: 9}[args.ndim])
     schedule = dict(smoother=args.smoother, nu1=args.nu1, nu2=args.nu2)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
@@ -725,6 +780,9 @@ def main() -> None:
     if args.mesh is not None:
         (sharded_routes if args.ndim == 2 else sharded3d_routes)(
             k, args.reps, args.mesh, schedule)
+        return
+    if bf16:
+        routes(k, args.reps, 2, schedule, torch.bfloat16)
         return
     routes(k, args.reps, args.ndim, schedule)
     if args.no_levels:

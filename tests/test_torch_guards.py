@@ -165,6 +165,9 @@ def test_build_keys_output_by_source_hash():
     assert "native_bf16.cu" in names
     assert {"mg_native2d_residual_bf16",
             "mg_native2d_sweep_bf16"} <= set(_build.SIGNATURES)
+    assert {"fused2d_native_bf16.cu", "fused2d_up_native_bf16.cu"} <= names
+    assert {"mg_fused2d_down_native_bf16",
+            "mg_fused2d_up_native_bf16"} <= set(_build.SIGNATURES)
     assert (_build.SIGNATURES["mg_spmv_dia_bf16"]
             == _build.SIGNATURES["mg_spmv_dia_f32"])
 
@@ -1306,16 +1309,20 @@ def test_chip_smoke_lists_the_native_bf16_modes():
 
 
 def test_chip_smoke_lists_the_native_b2_modes():
-    """The last native bfloat16 modes (the fused2d legs and the transfer2d
-    kernels, all from csrc/native_bf16.cu), each with its TPU function and
-    a counter of its own, run on the bfloat16 solves of phase 3, which are
-    main-path runs (their launches summed over MAIN_RUNS)."""
-    src = "multigridcmt_tpu_torch/kernels/csrc/native_bf16.cu"
+    """The last native bfloat16 modes (the fused2d legs, from the row
+    stream's native sources, and the transfer2d kernels, from
+    csrc/native_bf16.cu), each with its TPU function and a counter of its
+    own, run on the bfloat16 solves of phase 3, which are main-path runs
+    (their launches summed over MAIN_RUNS)."""
+    csrc = "multigridcmt_tpu_torch/kernels/csrc/"
+    src = csrc + "native_bf16.cu"
     tpu = "multigridcmt_tpu/kernels/"
     want = {
-        "fused2d_down_bf16": ("fused2d", "down_bf16_launches", src,
+        "fused2d_down_bf16": ("fused2d", "down_bf16_launches",
+                              csrc + "fused2d_native_bf16.cu",
                               tpu + "fused2d.py:289", None),
-        "fused2d_up_bf16": ("fused2d", "up_bf16_launches", src,
+        "fused2d_up_bf16": ("fused2d", "up_bf16_launches",
+                            csrc + "fused2d_up_native_bf16.cu",
                             tpu + "fused2d.py:479", None),
         "transfer2d_residual_restrict_bf16": (
             "transfer2d", "residual_restrict_bf16_launches", src,
@@ -1332,10 +1339,11 @@ def test_chip_smoke_lists_the_native_b2_modes():
     assert {name: smoke.KERNELS[name] for name in want} == want
     assert not set(want) & set(smoke.DIRECT_RUNS)
     assert set(smoke.BF16_SOLVES) <= set(smoke.MAIN_RUNS)
-    for mod, counter, *_ in want.values():
+    for mod, counter, source, *_ in want.values():
         module = importlib.import_module(
             f"multigridcmt_tpu_torch.kernels.{mod}")
         assert getattr(module, counter) == 0
+        assert (ROOT / source).is_file()
 
 
 def test_chip_smoke_lists_the_stencil3d_bf16_modes():

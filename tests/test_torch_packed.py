@@ -12,6 +12,7 @@ same formulas in other orders). n=255 spans several Pallas row tiles.
 import dataclasses
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -22,8 +23,8 @@ from multigridcmt_tpu import kernels as jkernels
 from multigridcmt_tpu.grids import from_aligned, to_aligned
 from multigridcmt_tpu.kernels import packed2d as jpacked2d
 from multigridcmt_tpu_torch import convert, kernels
-from multigridcmt_tpu_torch.kernels import fused2d, local2d, packed2d, \
-    stencil2d
+from multigridcmt_tpu_torch.kernels import fused2d, local2d, native_bf16, \
+    packed2d, stencil2d
 
 OMEGA = {"rbgs": 1.0, "jacobi": 0.8}
 SIGMA = 11.5
@@ -286,6 +287,10 @@ def test_v_cycle_on_packed_level_matches_plain_route(monkeypatch):
 # ring of LEG_AHEAD slots and widened into the window only in the step that
 # first reads them, the down leg's u' rounded once a row into a ring that
 # its residual and store read; a ring slot past its row's life holds NaN.
+# The native bfloat16 mode (``native``, the fused2d legs' on the unpacked
+# frame) runs the bfloat16 rings with every operation rounded to bfloat16
+# (_nat), the host's constants (native_bf16.constants) and JAX's order in
+# the transfers.
 # ---------------------------------------------------------------------------
 
 def _coefs(h, sigma, omega):
@@ -328,6 +333,26 @@ def _bf16_rule(got, want):
     ulp = np.where(want != 0, np.ldexp(1.0, ex - 8), 0.0)
     assert np.all(diff <= ulp + 1e-5 * np.abs(want).max())
     assert np.mean(diff > 0) <= 1e-3
+
+
+def _nat(a):
+    """float32 a rounded to bfloat16 (to nearest even), held in float32:
+    the native mode's rounding after each float32 operation."""
+    return np.asarray(a, dtype=np.float32).astype(ml_dtypes.bfloat16).astype(
+        np.float32)
+
+
+def _weigh(a, m, z):
+    """(0.25 a + 0.5 m) + 0.25 z, each operation rounded (the native
+    restriction's weighting)."""
+    q, hf = np.float32(0.25), np.float32(0.5)
+    return _nat(_nat(_nat(q * a) + _nat(hf * m)) + _nat(q * z))
+
+
+def _average(a, b):
+    """0.5 a + 0.5 b in float32, rounded once (the native interpolation)."""
+    hf = np.float32(0.5)
+    return _nat(np.float32(hf * a) + np.float32(hf * b))
 
 
 def _f32_close(got, want):
@@ -447,7 +472,7 @@ class LegFrame:
 
 def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                  packed_coarse=False, frame=None, fine=True, bf16=False,
-                 f32_out=False):
+                 f32_out=False, native=False):
     """csrc/packed2d_legs.cuh's down_kernel, up_kernel (with e) or
     sweep_kernel (the up leg's stream without e), as g.leg says, on
     geometry g and frame (the whole packed grid when None), unit by unit;
@@ -462,14 +487,28 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
     ``bf16``: the bfloat16 storage mode (s and bs bfloat16 values in
     float32 arrays, e float32), in float32 with the kernels' rings (the
     section's note); u' and x' come back rounded to bfloat16, or x' in
-    float32 with ``f32_out`` (the up leg's float32 store)."""
+    float32 with ``f32_out`` (the up leg's float32 store).
+
+    ``native``: the native bfloat16 mode on the unpacked (n+2)^2 grid (s,
+    bs and e bfloat16 values in float32 arrays), the bfloat16 rings with
+    every operation rounded (_nat), native_bf16.constants' scalars and
+    JAX's transfer order; its down leg's residual and store read the window
+    (asserted to hold bfloat16 values: no ring of rounded rows), and every
+    paired access is asserted to start on a 4-byte pair of bfloat16."""
     f = frame or LegFrame.whole(g.n)
     n, K, TW, hp = g.n, g.stages, packed2d.LEG_LANES, g.halo_lanes
     cpa = s.shape[1] if f.unpacked else s.shape[2]
-    dt = np.float32 if bf16 else np.float64
-    if bf16:
+    rings = bf16 or native              # bfloat16 storage: the raw rings
+    dt = np.float32 if rings else np.float64
+    if rings:
         assert s.dtype == bs.dtype == np.float32
         assert np.array_equal(_bf16(s), s) and np.array_equal(_bf16(bs), bs)
+    if native:
+        assert f.unpacked and f.ca is None and not bf16
+        assert e is None or np.array_equal(_bf16(e), e)
+        h2, inv_h2, sig, inv_den, jscale = (
+            np.float32(v) for v in native_bf16.constants(h, sigma, omega))
+    elif bf16:
         h2, inv_h2, sig, inv_den, jscale = _coefs32(h, sigma, omega)
     else:
         h2, inv_h2, sig, inv_den, jscale = _coefs(h, sigma, omega)
@@ -547,6 +586,10 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 both = lanes & ok[0] & ok[1]
                 if f.paired(i & 1) and both.any():
                     assert ((addr[both[lanes]] - p) % 2 == 0).all()
+                    if native:
+                        # The pair's first bfloat16 (2 bytes an element)
+                        # on a 4-byte word of an array that starts on one.
+                        assert ((addr[both[lanes]] - p) * 2 % 4 == 0).all()
 
             def arow(a, i):
                 """Both planes of global row i at the frame's lanes: plane
@@ -590,21 +633,23 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
 
                 if not f.unpacked:
                     return np.stack([f32(w0 << 16), f32(w1 << 16)])
+                # The paired parity (a tile's odd rows, the whole grid's
+                # even ones): phase 1 in the pair's high half or in w1.
+                pq = 0 if f.ca is None else 1
                 ph0 = f32(w0 << 16)
-                if i & 1:
-                    return np.stack([f32((w0 & 0xFFFF0000) | (w1 << 16)),
-                                     ph0])
-                return np.stack([ph0, f32(w1 << 16)])
+                ph1 = (f32((w0 & 0xFFFF0000) | (w1 << 16)) if (i & 1) == pq
+                       else f32(w1 << 16))
+                return np.stack([ph1, ph0] if i & 1 else [ph0, ph1])
 
             def load(i):
                 if i >= ye:
-                    if kind == "jacobi" and not bf16:
+                    if kind == "jacobi" and not rings:
                         # The kernel's Jacobi stream writes 0 (load_next),
                         # a row no step may read.
                         ur.put(i, np.full((2, TW), np.nan))
                         br.put(i, np.full((2, TW), np.nan))
                     return
-                if bf16:
+                if rings:
                     # Into the raw ring, whose slot's last row was widened.
                     for ring, a in zip(raw, (s, bs)):
                         k = i & (A - 1)
@@ -644,6 +689,11 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 sums it (gs_value)."""
                 up, dn, left, right = nbrs(win, i, c, p)
                 bv = br.row(i)[c]
+                if native:
+                    t = _nat(h2 * bv)
+                    for nb in (up, dn, left, right):
+                        t = _nat(t + nb)
+                    return _nat(t * inv_den)
                 if f.unpacked:
                     return ((((h2 * bv + up) + dn) + left) + right) * inv_den
                 side = right if p else left
@@ -655,6 +705,11 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 (residual_of)."""
                 up, dn, left, right = nbrs(win, i, c, p)
                 v, bv = win.row(i)[c], br.row(i)[c]
+                if native:
+                    t = _nat(np.float32(4) * v)
+                    for nb in (up, dn, left, right):
+                        t = _nat(t - nb)
+                    return _nat(_nat(bv - _nat(t * inv_h2)) + _nat(sig * v))
                 if f.unpacked:
                     a = (((4.0 * v - up) - dn) - left) - right
                 else:
@@ -672,13 +727,24 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 hi_ = cs.row(I + 1)[0] if t & 1 else lo_
                 for c in (0, 1):
                     gx = 2 * Jl + ((c + t) & 1)
+                    v = ur.row(t)[c]
+                    if native:
+                        # Rows first, then columns; x + P e rounded.
+                        if t & 1:
+                            a = _average(lo_[:-1], hi_[:-1])
+                            d = _average(lo_[1:], hi_[1:])
+                        else:
+                            a, d = lo_[:-1], lo_[1:]
+                        pe = np.where(gx & 1, _average(a, d), a)
+                        ur.row(t)[c] = np.where((gx >= 1) & (gx <= n),
+                                                _nat(v + pe), v)
+                        continue
                     if t & 1:
                         a = 0.5 * (lo_[:-1] + hi_[:-1])
                         d = 0.5 * (lo_[1:] + hi_[1:])
                     else:
                         a, d = lo_[:-1], lo_[1:]
                     pe = np.where(gx & 1, 0.5 * (a + d), a)
-                    v = ur.row(t)[c]
                     ur.row(t)[c] = np.where((gx >= 1) & (gx <= n), v + pe, v)
                 prolonged.add(t)
 
@@ -708,7 +774,10 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 for c in (0, 1):
                     p = (c + i) & 1
                     v = src.row(i)[c]
-                    if live(i):
+                    if live(i) and native:
+                        v = np.where(upd[p], _nat(v + _nat(
+                            jscale * resid(src, i, c, p))), v)
+                    elif live(i):
                         v = np.where(upd[p], v + jscale * resid(src, i, c, p),
                                      v)
                     rows[c] = v
@@ -728,10 +797,17 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
 
             def residual_store(t):
                 i = t - g.out_lag
-                # The down leg's residual and store read u' as stored.
+                # The down leg's residual and store read u' as stored (the
+                # native mode: the window, whose values are bfloat16 ones).
                 src = qr if bf16 and down else fr
                 if not ys <= i < ye:
                     return
+                if native:
+                    for r in ((i - 1, i, i + 1) if down else (i,)):
+                        if ys <= r < ye:
+                            w_ = fr.row(r)
+                            assert np.array_equal(_nat(w_), w_,
+                                                  equal_nan=True)
                 if down:
                     res = np.zeros((2, TW), dtype=dt)
                     if live(i):
@@ -770,22 +846,32 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                 if j & 1 or not y0 <= j < y1:
                     return
                 I = j >> 1
-                for xx in x[core]:
+                # Every core lane's weighting at once: rows first at its
+                # columns 2J - 1 (lane x - 1's phase 1), 2J and 2J + 1,
+                # then over the three columns.
+                lanes = x[core]
+                fw = np.zeros(lanes.size)
+                keep = f.keep or (-1, n, -1, n)
+                need = [keep[0] <= I <= keep[1] and keep[2] <= Jl[xx]
+                        <= keep[3] and 1 <= Jl[xx] <= nc for xx in lanes]
+                if 1 <= I <= nc and any(need):
+                    tq = []
+                    for q in range(3):
+                        lane = lanes - 1 if q == 0 else lanes
+                        ph = 0 if q == 1 else 1
+                        r0, r1, r2 = (rr.row(jj)[(ph + jj) & 1][lane]
+                                      for jj in (j - 1, j, j + 1))
+                        tq.append(_weigh(r0, r1, r2) if native
+                                  else 0.25 * (r0 + 2.0 * r1 + r2))
+                    fw = (_weigh(*tq) if native
+                          else 0.25 * (tq[0] + 2.0 * tq[1] + tq[2]))
+                for xx, fv in zip(lanes, fw):
                     J = Jl[xx]
                     if f.keep is not None:
                         ylo, yhi, xlo, xhi = f.keep
                         if not (ylo <= I <= yhi and xlo <= J <= xhi):
                             continue
-                    val = 0.0
-                    if 1 <= I <= nc and 1 <= J <= nc:
-                        tq = []
-                        for q in range(3):
-                            lane = xx - 1 if q == 0 else xx
-                            ph = 0 if q == 1 else 1
-                            r0, r1, r2 = (rr.row(jj)[(ph + jj) & 1][lane]
-                                          for jj in (j - 1, j, j + 1))
-                            tq.append(0.25 * (r0 + 2.0 * r1 + r2))
-                        val = 0.25 * (tq[0] + 2.0 * tq[1] + tq[2])
+                    val = fv if 1 <= I <= nc and 1 <= J <= nc else 0.0
                     if f.ca is not None:
                         I_, J_ = I - f.ca[2], J - f.ca[3]
                         rc[I_, J_] = val
@@ -832,7 +918,7 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     elif up:
                         assert 1 <= t <= n
                     n_steady[0] += 1
-                if bf16:
+                if rings:
                     widen(t)
                 load(t + A)
                 for win in (ur, br, *js):
