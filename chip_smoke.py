@@ -203,8 +203,9 @@ Phases:
      only and both planes), the BELL SpMM on the bench matrix, its carrier,
      4 x 3 blocks with padding blocks and NaN and Inf in Xt, by the same
      rule (a norm, float32, to TOL[float32] of its value); the native
-     bfloat16 modes (compare_native_bf16: the stencil2d residual and RB-GS
-     at 2047^2, nu = 1 and 4, its Jacobi at 1023^2, nu = 8, the local2d
+     bfloat16 modes (compare_native_bf16: the stencil2d residual at
+     2047^2, its RB-GS at 2047^2, 1023^2, 511^2 and 255^2, nu = 1 to 4,
+     its Jacobi at 1023^2, nu = 8, the local2d
      residual, RB-GS nu = 4 and Jacobi nu = 8 on S1's fine tile and S2's
      block tile, the DIA SpMV at 4095^2 with random values on its 5
      diagonals, sigma 0 and SIGMA; the stencil2d modes at 1023^2 and the
@@ -214,7 +215,9 @@ Phases:
      the row stream at every sweep count from 0 to their caps, RB-GS and
      Jacobi, and the transfer2d residual restriction and prolongation-add,
      at 2047^2, 1023^2, 511^2 and 255^2, sigma 0 and SIGMA, and at 1023^2
-     with NaN and +-Inf in every input) by the same rule;
+     with NaN and +-Inf in every input; the restriction also at 2047^2 on
+     a residual of -0 where u > 0, whose bits the sigma u term it lacks
+     would change) by the same rule;
   4. times (CUDA events, warm-up, median of 20): one V(2,2) RB-GS cycle at
      4095^2 and at 511^3 float32 and one Chebyshev V(2,2) and RB-GS V(4,4)
      cycle at 4095^2 on the kernel and the plain path, one PCG iteration
@@ -279,7 +282,9 @@ Phases:
      versions (single, chained and by device time) beside their bounds at
      bfloat16 bytes, the SpMV beside a bfloat16 CSR torch.mv where
      PyTorch runs it, and the last native modes at 2047^2 so (the legs
-     at RB-GS nu = 2, also at 1023^2, 511^2 and 255^2). Every
+     at RB-GS nu = 2 and the transfers also at 1023^2, 511^2 and 255^2,
+     beside the whole grid's native RB-GS sweep stream at nu = 4 and 1
+     at each of the four). Every
      kernel row also gets the profiler's
      device time a call (device_ms), and the sharded eigensolver runs'
      launches (sharded_eigen_launches) where it has some.
@@ -371,11 +376,14 @@ Phase 1 also reports ptxas's registers and spills of the row-streaming
 legs and sweeps, the local2d sweeps (UTile) among them, the stencil3d
 z-march kernels in every storage mode, the BELL SpMM kernels, the
 residual-restriction stream, the native bfloat16 kernels and the DIA
-SpMV in each type, and the native fused2d legs a line a leg and kind
-(from the build's nvcc.log), and fails if one of the last five spills; and the residual norm's first pass
-(presnorm_partial) in every storage mode, failing if a float32 or float64
-BELL SpMM or norm kernel's line differs from the parent tree's
-(PARENT_PTXAS): their storage type must leave those kernels as they were.
+SpMV in each type, the native fused2d legs a line a leg and kind, and the
+native sweep and residual-restriction streams (from the build's
+nvcc.log), and fails if one of the last six spills; and the residual
+norm's first pass (presnorm_partial) in every storage mode, failing if a
+float32 or float64 BELL SpMM, norm or residual-restriction kernel's line
+differs from the parent tree's (PARENT_PTXAS): their storage type, or the
+native restriction's choice of no sigma u term, must leave those kernels
+as they were.
 
 Run from the root of the repository:  python3 chip_smoke.py
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -570,15 +578,22 @@ PEAK_BF16_FLOPS = 989e12
 BELL_BF16_PAD = 2
 # The native bfloat16 modes of slice B1 (the TPU kernels computing in
 # bfloat16 itself: every operation rounded, sigma and the constants too),
-# held bit for bit against their plain versions at
-# full width: stencil2d's residual and RB-GS (nu = 1 and 4) at 2047^2 and
-# its Jacobi (nu = 8) at 1023^2 (the levels where paths B and C launch the
-# float32 sweeps), the local2d modes (RB-GS nu = 4, Jacobi nu = 8) on S1's
-# fine tile and S2's block tile (col_off odd), the DIA SpMV at 4095^2 (5
+# held bit for bit against their plain versions at full width:
+# stencil2d's residual at 2047^2, its RB-GS (nu = 1 to 4) at NATIVE_RBGS_N
+# and its Jacobi (nu = 8) at 1023^2 (the levels where paths B and C launch
+# the float32 sweeps), the local2d modes (RB-GS nu = 4, Jacobi nu = 8) on
+# S1's fine tile and S2's block tile (col_off odd), the DIA SpMV at 4095^2 (5
 # diagonals, random values), sigma 0 and SIGMA; stencil2d's modes and the
 # SpMV also on inputs seeded with NaN and +-Inf (NATIVE_NONFINITE_N).
 NATIVE_STENCIL_N = {"residual": 2047, "rbgs": 2047, "jacobi": 1023}
-NATIVE_SWEEPS = {"rbgs": (1, 4), "jacobi": (8,)}
+NATIVE_SWEEPS = {"rbgs": (1, 2, 3, 4), "jacobi": (8,)}
+# The whole grid's RB-GS sweeps (the row stream with the native arithmetic,
+# csrc/stencil2d_sweep_native_bf16.cu) are held at every level of the k=11
+# bfloat16 solve, each nu of NATIVE_SWEEPS, both sigmas.
+NATIVE_RBGS_N = (2047, 1023, 511, 255)
+# The sweep counts phase 4 times it at, at each level (bf16_rbgs45's: 4, and
+# 4 + 1 at nu2 = 5).
+NATIVE_RBGS_TIMED = (4, 1)
 NATIVE_OMEGA = 0.8
 NATIVE_TILES = {"S1": (2 ** MAIN_K - 1, (1, 0)), "S2": (2047, (1, 1))}
 NATIVE_NONFINITE_N = 1023
@@ -996,14 +1011,27 @@ PARENT_PTXAS = {
     ("presnorm_partial", "f32", "InteriorBox"): (26, 0),
     ("presnorm_partial", "f64", "Interior"): (27, 0),
     ("presnorm_partial", "f64", "InteriorBox"): (27, 0),
+    # The float residual-restriction stream, whose down stream took the
+    # native restriction's compile-time choice of no sigma u term: as the
+    # tree before it (commit 1bacba3) built it on the card.
+    ("residual_restrict_kernel", "f32", 0): (114, 0),
+    ("residual_restrict_kernel", "f64", 0): (183, 0),
 }
 
 
-# The native bfloat16 kernels (csrc/native_bf16.cu) and the DIA SpMV in
-# each type (f, d, 13__nv_bfloat16), whose ptxas report must show no spill.
-NATIVE_KERNEL = re.compile(r"native_(?:residual|rbgs|jacobi|restrict|"
+# The native bfloat16 kernels (csrc/native_bf16.cu: the residual, the RB-GS
+# and Jacobi sweeps and the prolongation-add) and the DIA SpMV in each type
+# (f, d, 13__nv_bfloat16), whose ptxas report must show no spill.
+NATIVE_KERNEL = re.compile(r"native_(?:residual|rbgs|jacobi|"
                            r"prolong)_kernel|"
                            r"spmv_dia_kernelI(?:13__nv_bfloat16|[fd])E")
+NATIVE_KERNELS = 4 + 3
+# The native row streams of a whole grid's RB-GS sweeps (RB-GS, K = 2, 4,
+# 6, 8 half-sweeps; csrc/stencil2d_sweep_native_bf16.cu) and of the
+# residual restriction (csrc/transfer2d_native_bf16.cu); none may spill.
+NATIVE_STREAM_KERNEL = re.compile(r"native_sweep_kernelILi(\d+)E|"
+                                  r"native_residual_restrict_kernel")
+NATIVE_STREAM_KERNELS = 4 + 1
 # The native fused2d legs on the row stream (leg, kind: 0 Jacobi, 1 RB-GS,
 # stages), a kernel for each stage count: the down leg's RB-GS 0, 2, 4, 6
 # and Jacobi 0 to 6, the up leg's RB-GS 0 to 8 by 2 and Jacobi 0 to 8;
@@ -1160,12 +1188,27 @@ def ptxas_report(log_path) -> dict:
     native = {NATIVE_KERNEL.search(k).group(0): prop
               for k, prop in props.items()
               if NATIVE_KERNEL.search(k) and "regs" in prop}
-    require(len(native) == 8, f"ptxas report has {sorted(native)}, not "
-            "the five native bfloat16 kernels and the SpMV in three types")
+    require(len(native) == NATIVE_KERNELS, f"ptxas report has "
+            f"{sorted(native)}, not the four native bfloat16 kernels and "
+            "the SpMV in three types")
     for key, prop in sorted(native.items()):
         log(f"ptxas {key}: {prop['regs']}r"
             + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
         require(not prop.get("spill"), f"ptxas: {key} spills")
+    native = {}
+    for mangled, prop in props.items():
+        m = NATIVE_STREAM_KERNEL.search(mangled)
+        if m and "regs" in prop:
+            key = (f"native sweep rbgs K={m.group(1)}" if m.group(1)
+                   else "native residual restriction")
+            native[key] = prop
+    require(len(native) == NATIVE_STREAM_KERNELS, f"ptxas report has "
+            f"{sorted(native)}, not the {NATIVE_STREAM_KERNELS} native "
+            "sweep and restriction streams")
+    for key, prop in sorted(native.items()):
+        log(f"ptxas {key} stream: {prop['regs']}r"
+            + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
+        require(not prop.get("spill"), f"ptxas: {key} stream spills")
     streams = {}
     for mangled, prop in props.items():
         m = NATIVE_LEG_KERNEL.search(mangled)
@@ -1850,32 +1893,39 @@ def native_local_calls(mode: str, ue, be, t: dict, sigma: float,
 
 def compare_native_bf16(main_err: dict) -> None:
     """The native bfloat16 modes against their plain versions on the card,
-    bit for bit (check_native_bits), at NATIVE_STENCIL_N, NATIVE_TILES and
-    the 4095^2 SpMV, both sigmas, every sweep count of NATIVE_SWEEPS; the
-    stencil2d modes at NATIVE_NONFINITE_N and the SpMV on inputs holding
-    NaN and +-Inf. The main-path errors: sigma 0, RB-GS nu = 4, Jacobi nu =
-    8, the local2d modes on S1's tile."""
+    bit for bit (check_native_bits), at NATIVE_STENCIL_N (RB-GS at every
+    level of NATIVE_RBGS_N), NATIVE_TILES and the 4095^2 SpMV, both sigmas,
+    every sweep count of NATIVE_SWEEPS; the stencil2d modes at
+    NATIVE_NONFINITE_N (RB-GS at every count and both sigmas) and the SpMV
+    on inputs holding NaN and +-Inf. The main-path errors: sigma 0, RB-GS
+    nu = 4, Jacobi nu = 8, the local2d modes on S1's tile."""
     from multigridcmt_tpu_torch.kernels import spmv
 
-    for mode, n in NATIVE_STENCIL_N.items():
-        u, b = native_grids(n, n + 301)
-        for sigma in (0.0, SIGMA):
-            for nu in NATIVE_SWEEPS.get(mode, (0,)):
-                kernel, plain = native_stencil_calls(mode, u, b, n, sigma,
-                                                     nu)
-                err = check_native_bits(
-                    f"native stencil2d {mode} n={n} nu={nu} sigma={sigma}",
-                    kernel(), plain())
-                if sigma == 0.0 and nu == max(NATIVE_SWEEPS.get(mode, (0,))):
-                    main_err[f"stencil2d_{mode}_bf16"] = err
-        del u, b
+    for mode, n0 in NATIVE_STENCIL_N.items():
+        for n in NATIVE_RBGS_N if mode == "rbgs" else (n0,):
+            u, b = native_grids(n, n + 301)
+            for sigma in (0.0, SIGMA):
+                for nu in NATIVE_SWEEPS.get(mode, (0,)):
+                    kernel, plain = native_stencil_calls(mode, u, b, n,
+                                                         sigma, nu)
+                    err = check_native_bits(
+                        f"native stencil2d {mode} n={n} nu={nu} "
+                        f"sigma={sigma}", kernel(), plain())
+                    if n == n0 and sigma == 0.0 and nu == max(
+                            NATIVE_SWEEPS.get(mode, (0,))):
+                        main_err[f"stencil2d_{mode}_bf16"] = err
+            del u, b
     n = NATIVE_NONFINITE_N
     u, b = native_grids(n, n + 302, nonfinite=True)
     for mode in NATIVE_STENCIL_N:
-        kernel, plain = native_stencil_calls(
-            mode, u, b, n, SIGMA, max(NATIVE_SWEEPS.get(mode, (0,))))
-        check_native_bits(f"native stencil2d {mode} n={n} with NaN and Inf",
-                          kernel(), plain())
+        for sigma in (0.0, SIGMA) if mode == "rbgs" else (SIGMA,):
+            for nu in (NATIVE_SWEEPS[mode] if mode == "rbgs"
+                       else (max(NATIVE_SWEEPS.get(mode, (0,))),)):
+                kernel, plain = native_stencil_calls(mode, u, b, n, sigma,
+                                                     nu)
+                check_native_bits(f"native stencil2d {mode} n={n} nu={nu} "
+                                  f"sigma={sigma} with NaN and Inf",
+                                  kernel(), plain())
     del u, b
     for label in NATIVE_TILES:
         ue, be, t = native_tile(label, 303)
@@ -2003,7 +2053,36 @@ def compare_native_legs(main_err: dict) -> None:
             check_native_outputs(f"native {name} n={n} {kind} nu={nu} "
                                  "with NaN and Inf", kernel(), plain())
     del u, b, x, e
+    signed_zero_restriction()
     torch.cuda.empty_cache()
+
+
+def signed_zero_restriction() -> None:
+    """The native residual restriction's dropped sigma u term, in bits: at
+    NATIVE_LEG_N[0] with u = 1 and b = -0 on a block (au = +0 there, so the
+    residual is -0 at points where u > 0) the kernel equals the plain
+    version without the term, -0 on the block's coarse points, where the
+    plain version with the term (-0 + 0 u = +0) has +0."""
+    from multigridcmt_tpu_torch.kernels import native_bf16, transfer2d
+
+    n = NATIVE_LEG_N[0]
+    h = 1.0 / (n + 1)
+    u, b = native_grids(n, n + 333)
+    u[8:n - 7, 8:n - 7] = 1.0
+    b[9:n - 8, 9:n - 8] = -0.0
+    c = native_bf16.constants(h)
+    got = transfer2d.residual_restrict(u, b, n, h)
+    want = native_bf16.residual_restrict_plain(u, b, n, c, False)
+    check_native_bits(f"native transfer2d_residual_restrict_bf16 n={n} "
+                      "with a residual of -0 where u > 0", got, want)
+    neg = (want == 0) & want.signbit()
+    shifted = native_bf16.residual_restrict_plain(u, b, n, c, True)
+    log(f"  {int(neg.sum())} coarse points -0 without sigma u, of them "
+        f"{int(shifted[neg].signbit().sum())} -0 with it")
+    require(int(neg.sum()) > 0 and not bool(shifted[neg].signbit().any()),
+            "the signed-zero case does not tell the residual without sigma "
+            "u from the one with it")
+    del u, b, got, want, shifted
 
 
 def compare_mixed3d(main_err: dict) -> None:
@@ -3028,8 +3107,8 @@ KERNELS = {
     # The native bfloat16 modes (the TPU kernels computing in bfloat16
     # itself: every operation rounded) of slice B1: direct calls; the
     # bfloat16 solves (BF16_SOLVES) also run the stencil2d residual and
-    # sweeps (both kinds inside the fused2d legs, RB-GS on the composed
-    # route).
+    # RB-GS sweeps (on the composed route; a whole grid's RB-GS sweeps are
+    # the row stream, the rest native_bf16.cu's kernels).
     "stencil2d_residual_bf16": ("stencil2d", "residual_bf16_launches",
                                 "multigridcmt_tpu_torch/kernels/csrc/"
                                 "native_bf16.cu",
@@ -3037,7 +3116,7 @@ KERNELS = {
                                 None),
     "stencil2d_rbgs_bf16": ("stencil2d", "rbgs_bf16_launches",
                             "multigridcmt_tpu_torch/kernels/csrc/"
-                            "native_bf16.cu",
+                            "stencil2d_sweep_native_bf16.cu",
                             "multigridcmt_tpu/kernels/stencil2d.py:284",
                             None),
     "stencil2d_jacobi_bf16": ("stencil2d", "jacobi_bf16_launches",
@@ -3073,7 +3152,7 @@ KERNELS = {
                         "multigridcmt_tpu/kernels/fused2d.py:479", None),
     "transfer2d_residual_restrict_bf16": (
         "transfer2d", "residual_restrict_bf16_launches",
-        "multigridcmt_tpu_torch/kernels/csrc/native_bf16.cu",
+        "multigridcmt_tpu_torch/kernels/csrc/transfer2d_native_bf16.cu",
         "multigridcmt_tpu/kernels/transfer2d.py:371", None),
     "transfer2d_prolong_add_bf16": (
         "transfer2d", "prolong_add_bf16_launches",
@@ -3153,6 +3232,23 @@ def counted(fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return out, read_counts(), wall
+
+
+def entry_counts(fn):
+    """(fn(), {C entry point: calls} of the kernel launches fn makes)."""
+    from multigridcmt_tpu_torch.kernels import _build
+
+    tally, orig = {}, _build.launch
+
+    def launch(name, *args):
+        tally[name] = tally.get(name, 0) + 1
+        orig(name, *args)
+
+    _build.launch = launch
+    try:
+        return fn(), tally
+    finally:
+        _build.launch = orig
 
 
 def require_counts(label: str, got: dict, **want) -> None:
@@ -4461,8 +4557,9 @@ def bf16_solve_counts(label: str, prob, iters: int) -> dict:
     cycle and once after each); at each fused level (2047...255) a cycle's
     down and up leg, one launch of the row stream each (no native sweep
     launched from a leg), or on V(4,5) one RB-GS sweep launch at nu1 = 4,
-    two at nu2 = 5 (4 + 1: a launch takes 4) and a residual restriction and
-    a prolongation-add."""
+    two at nu2 = 5 (4 + 1: a launch takes 4), each one launch of the sweep
+    stream, and a residual restriction (one launch of its stream) and a
+    prolongation-add."""
     from multigridcmt_tpu_torch.kernels import fused2d, stencil2d
 
     cfg = prob.config
@@ -4500,8 +4597,8 @@ def paths_bf16_solves(runs: dict) -> None:
                             device="cuda", **kw)
         b = cpu.b.to("cuda")
         same_b = torch.equal(card.b.view(torch.int16), b.view(torch.int16))
-        res, counts, wall = counted(
-            lambda: mt.MultigridSolver(card).solve(b=b))
+        (res, counts, wall), entries = entry_counts(lambda: counted(
+            lambda: mt.MultigridSolver(card).solve(b=b)))
         start = time.perf_counter()
         ref = mt.MultigridSolver(cpu).solve()
         cpu_wall = time.perf_counter() - start
@@ -4527,6 +4624,17 @@ def paths_bf16_solves(runs: dict) -> None:
             bf16_replay(label, card, cpu, b, apart)
         require_counts(label, counts,
                        **bf16_solve_counts(label, card, res.iters))
+        # The RB-GS sweeps and the residual restriction run the row streams'
+        # entry points, one launch a call, and native_bf16.cu's sweeps (a
+        # launch a colour a sweep) never.
+        streams = {"mg_stencil2d_sweep_native_bf16":
+                       counts["stencil2d_rbgs_bf16"],
+                   "mg_native2d_residual_restrict_bf16":
+                       counts["transfer2d_residual_restrict_bf16"],
+                   "mg_native2d_sweep_bf16": 0}
+        log(f"  entry points {label}: {entries}")
+        require({k: entries.get(k, 0) for k in streams} == streams,
+                f"{label}: entry points {entries}, expected {streams}")
         runs[label] = counts
         del cpu, card, b, res, ref
     torch.cuda.empty_cache()
@@ -5670,13 +5778,19 @@ def phase_main_path():
     return runs
 
 
+# Readings of a kernel's device time time_pair takes before it falls back
+# to the chained events' time.
+DEVICE_READS = 3
+
+
 def time_pair(name: str, kernel, plain, device: bool = True) -> dict:
     """Plain, kernel, kernel, plain: compare within one window (single
     calls, the wrapper's host work inside); with ``device``, also the
     kernels' device time a call of ``kernel`` from the profiler
     (device_ms)."""
     from multigridcmt_tpu_torch.utils.breakdown import device_busy
-    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
 
     p1 = cuda_time_ms(plain)
     k1 = cuda_time_ms(kernel)
@@ -5685,7 +5799,18 @@ def time_pair(name: str, kernel, plain, device: bool = True) -> dict:
     out = {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
     dev = ""
     if device:
-        out["device_ms"] = device_busy(kernel, LEG_CHAIN)[0]
+        # The profiler now and then records no kernel in most of a reading's
+        # windows (PERF.md §7), which reads 0: read again, and after
+        # DEVICE_READS such readings take the chained events' time a call.
+        for _ in range(DEVICE_READS):
+            out["device_ms"] = device_busy(kernel, LEG_CHAIN)[0]
+            if out["device_ms"] > 0:
+                break
+        else:
+            out["device_ms"] = chained_ms(kernel, LEG_CHAIN)
+            out["device_note"] = ("the profiler recorded no kernel in "
+                                  f"{DEVICE_READS} readings: chained events")
+            log(f"  {name}: {out['device_note']}")
         dev = f", device {out['device_ms']:.4f} ms"
     log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
         f"ms{dev}")
@@ -6961,7 +7086,8 @@ def timed_native_bf16(times: dict) -> None:
         pair = time_pair(f"{name} native", kernel, plain)
         row = {"ms": chained_ms(kernel, LEG_CHAIN), "single_ms": pair["ms"],
                "plain_ms": pair["plain_ms"], "device_ms": pair["device_ms"],
-               "bytes": nb, "flops": flops, "library_ms": None}
+               "bytes": nb, "flops": flops, "library_ms": None,
+               **{k: pair[k] for k in ("device_note",) if k in pair}}
         row["chained_ms"] = row["ms"]
         bound = max(nb / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
         log(f"native {name}: chained x{LEG_CHAIN} {row['ms']:.4f} ms, device "
@@ -6994,11 +7120,13 @@ def timed_native_legs(times: dict) -> None:
     """The B2 native modes at sigma 0 (the legs RB-GS nu = 2, as the
     bf16_rbgs22 path runs them; the transfers as bf16_rbgs45 does), each
     against its plain version in turns (single calls), as LEG_CHAIN chained
-    calls and by the profiler's device time a call: the rows at 2047^2, the
-    legs also at the other fused levels of the k=11 solve
-    (times["native_leg_levels"]). Bounds: the inputs read once and the
-    outputs written once in bfloat16, or the operations (NATIVE_OPS a
-    sweep, NATIVE_RR_OPS, NATIVE_PA_OPS a fine point) at the float32 rate.
+    calls and by the profiler's device time a call: the rows at 2047^2, and
+    at every fused level of the k=11 solve (times["native_leg_levels"]) the
+    legs, the transfers and the whole grid's native RB-GS sweep stream at
+    NATIVE_RBGS_TIMED (the nu of bf16_rbgs45's launches). Bounds: the
+    inputs read once and the outputs written once in bfloat16, or the
+    operations (NATIVE_OPS a sweep, NATIVE_RR_OPS, NATIVE_PA_OPS a fine
+    point) at the float32 rate.
     No single PyTorch call computes these functions with every operation
     rounded to bfloat16: library_ms null."""
     from multigridcmt_tpu_torch.utils.profiling import chained_ms
@@ -7018,23 +7146,31 @@ def timed_native_legs(times: dict) -> None:
                                 NATIVE_PA_OPS * n * n
                                 + NATIVE_OPS["rbgs"] * nu * n * n, "rbgs",
                                 nu)}
-        if n == NATIVE_LEG_N[0]:
-            cases.update({
-                "transfer2d_residual_restrict_bf16": (nbytes(u, b, rc), rr,
-                                                      "rbgs", 0),
-                "transfer2d_prolong_add_bf16": (nbytes(x, e, x),
-                                                NATIVE_PA_OPS * n * n,
-                                                "rbgs", 0)})
+        cases.update({
+            "transfer2d_residual_restrict_bf16": (nbytes(u, b, rc), rr,
+                                                  "rbgs", 0),
+            "transfer2d_prolong_add_bf16": (nbytes(x, e, x),
+                                            NATIVE_PA_OPS * n * n, "rbgs",
+                                            0)})
+        for sweeps in NATIVE_RBGS_TIMED:
+            cases[f"stencil2d_rbgs_bf16 nu={sweeps}"] = (
+                nbytes(u, b, u), NATIVE_OPS["rbgs"] * sweeps * n * n, "rbgs",
+                sweeps)
         for name, (nb, flops, kind, sweeps) in cases.items():
-            kernel, plain = native_leg_calls(name, u, b, x, e, n, 0.0, kind,
-                                             sweeps)
+            if name.startswith("stencil2d"):
+                kernel, plain = native_stencil_calls("rbgs", u, b, n, 0.0,
+                                                     sweeps)
+            else:
+                kernel, plain = native_leg_calls(name, u, b, x, e, n, 0.0,
+                                                 kind, sweeps)
             pair = time_pair(f"{name} native n={n}", kernel, plain)
             row = {"ms": chained_ms(kernel, LEG_CHAIN),
                    "single_ms": pair["ms"], "plain_ms": pair["plain_ms"],
                    "device_ms": pair["device_ms"], "bytes": nb,
                    "flops": flops, "library_ms": None,
                    "library_note": "no PyTorch call computes it with every "
-                                   "operation rounded to bfloat16"}
+                                   "operation rounded to bfloat16",
+                   **{k: pair[k] for k in ("device_note",) if k in pair}}
             row["chained_ms"] = row["ms"]
             bound = max(nb / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
             log(f"native {name} n={n} nu={sweeps}: chained x{LEG_CHAIN} "
@@ -7042,13 +7178,14 @@ def timed_native_legs(times: dict) -> None:
                 f"plain {row['plain_ms']:.4f} ms; bound {bound:.4f} ms "
                 f"({100 * bound / row['device_ms']:.1f}% of the device "
                 "time)")
-            if n == NATIVE_LEG_N[0]:
+            if n == NATIVE_LEG_N[0] and not name.startswith("stencil2d"):
                 times[name] = row
-            if name.startswith("fused2d"):
-                levels[f"{name}@{n}"] = {
-                    "single_ms": row["single_ms"],
-                    "chained_ms": row["chained_ms"],
-                    "device_ms": row["device_ms"], "bound_ms": bound}
+            levels[f"{name}@{n}"] = {
+                "single_ms": row["single_ms"],
+                "chained_ms": row["chained_ms"],
+                "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": bound,
+                **{k: row[k] for k in ("device_note",) if k in row}}
         del u, b, x, e, rc
     times["native_leg_levels"] = levels
     torch.cuda.empty_cache()

@@ -1,27 +1,24 @@
-// The native bfloat16 modes of the 2D stencil kernels and the transfers:
-// the residual and the RB-GS and Jacobi sweeps, the residual restriction
-// and the prolongation-add on bfloat16 grids, every operation rounded to
+// The native bfloat16 modes of the 2D stencil kernels and the
+// prolongation-add: the residual, the RB-GS sweeps of a shard's tile, the
+// Jacobi sweeps and x + P e on bfloat16 grids, every operation rounded to
 // bfloat16 as the JAX package computes them (kernels/native_bf16.py states
-// the rule and the order). The fused2d legs' native mode is the row stream
-// (fused2d_native_bf16.cu).
+// the rule and the order). The row stream runs the other native modes: the
+// fused2d legs (fused2d_native_bf16.cu), a whole grid's RB-GS sweeps
+// (stencil2d_sweep_native_bf16.cu) and the residual restriction
+// (transfer2d_native_bf16.cu).
 //
 // Replaces the bfloat16 modes of the TPU kernels
-//   multigridcmt_tpu/kernels/stencil2d.py: residual (:304), rbgs_sweep
-//     (:284), jacobi_sweep (:295)
+//   multigridcmt_tpu/kernels/stencil2d.py: residual (:304), jacobi_sweep
+//     (:295)
 //   multigridcmt_tpu/kernels/local2d.py: rbgs_sweep (:263), jacobi_sweep
 //     (:278), residual (:289)
 // -> native2d_residual (native_residual_kernel) and native2d_sweep
 // (native_rbgs_kernel, native_jacobi_kernel). A whole (n+2)^2 grid is the
-// tile at global (0, 0). And
-//   multigridcmt_tpu/kernels/transfer2d.py: residual_restrict (:371),
-//     prolong_add (:204)
-// -> native2d_residual_restrict (native_restrict_kernel: the residual
-// without the sigma u term, as transfer2d's) and native2d_prolong_add
-// (native_prolong_kernel: transfer2d interpolates columns first, then
-// rows). The TPU kernels' selection and interpolation matrices only pick
-// points or average two (an odd point is 0.5 a + 0.5 b, rounded once); full
-// weighting is elementwise, (0.25 r[i-1] + 0.5 r[i]) + 0.25 r[i+1] with each
-// + rounded, over rows, then over columns.
+// tile at global (0, 0) (its RB-GS sweeps run the stream). And
+//   multigridcmt_tpu/kernels/transfer2d.py: prolong_add (:204)
+// -> native2d_prolong_add (native_prolong_kernel: transfer2d interpolates
+// columns first, then rows). The TPU kernel's interpolation matrices only
+// pick points or average two (an odd point is 0.5 a + 0.5 b, rounded once).
 //
 // Arithmetic: each + - x of the source is one float32 operation with its
 // rounding mode explicit (__fadd_rn, __fsub_rn, __fmul_rn: nvcc contracts
@@ -41,13 +38,12 @@
 // that the last sweep writes u'). What bounds it on the card: device
 // memory, each launch reading the grid and b and writing its points: 2
 // nu (RB-GS) or nu (Jacobi) passes where the row-streaming sweeps
-// (packed2d_legs.cuh) make one; their native arithmetic (Nb) runs the
-// fused2d legs, and is the next redesign of these sweeps. The restriction
-// runs a thread a coarse point (nine fine residuals, each reading five u
-// points, from the cache), the prolongation-add a thread a fine point. A
-// bfloat16 solve (config.dtype bfloat16, kernels on) runs them on its
-// levels from 255 to 2047 where a leg does not fuse; no mixed-precision
-// path does.
+// (packed2d_legs.cuh) make one. Of what is left here a bfloat16 solve
+// (config.dtype bfloat16, kernels on) runs the residual (its convergence
+// check) and the prolongation-add (a thread a fine point, on its composed
+// RB-GS legs, whose sweeps and restriction run the stream); the Jacobi
+// sweeps and a tile's sweeps run on no path (direct calls) and are the next
+// to move onto the stream, the prolongation-add after them.
 #include "common.cuh"
 
 namespace {
@@ -79,9 +75,7 @@ __device__ __forceinline__ float ld(const bf16* p) {
 }
 
 // ((b - au) + sig u) with au = ((((4 u - up) - down) - left) - right) *
-// inv_h2, at the point whose centre is p (row pitch C); without Shift
-// (transfer2d's residual restriction) b - au.
-template <bool Shift = true>
+// inv_h2, at the point whose centre is p (row pitch C).
 __device__ __forceinline__ float residual_at(const bf16* p, float bv, int C,
                                              const Consts& c) {
   const float v = ld(p);
@@ -90,8 +84,7 @@ __device__ __forceinline__ float residual_at(const bf16* p, float bv, int C,
   t = sub(t, ld(p + C));
   t = sub(t, ld(p - 1));
   t = sub(t, ld(p + 1));
-  const float r = sub(bv, mul(t, c.inv_h2));
-  return Shift ? add(r, mul(c.sig, v)) : r;
+  return add(sub(bv, mul(t, c.inv_h2)), mul(c.sig, v));
 }
 
 // ((((h2 b + up) + down) + left) + right) * inv_den.
@@ -154,41 +147,6 @@ native_jacobi_kernel(const bf16* __restrict__ src,
   } else {
     dst[k] = src[k];
   }
-}
-
-// (0.25 a + 0.5 m) + 0.25 z, each operation rounded.
-__device__ __forceinline__ float weigh(float a, float m, float z) {
-  return add(add(mul(0.25f, a), mul(0.5f, m)), mul(0.25f, z));
-}
-
-// R r of the fine residual (b - au, no sigma u term) into the (nc+2)^2
-// coarse grid, a thread a coarse point: the residual at the 3 x 3 fine
-// points around 2I, 2J (all interior for 1 <= I, J <= nc), full weighting
-// over rows at each of the three columns, then over columns; the coarse
-// ring 0.
-__global__ void __launch_bounds__(BX * BY)
-native_restrict_kernel(const bf16* __restrict__ u,
-                       const bf16* __restrict__ b, bf16* __restrict__ rc,
-                       int n, Consts c) {
-  const int nc = (n - 1) / 2, Cc = nc + 2, C = n + 2;
-  const int J = blockIdx.x * BX + threadIdx.x;
-  const int I = blockIdx.y * BY + threadIdx.y;
-  if (I >= Cc || J >= Cc) return;
-  float v = 0.0f;
-  if (I >= 1 && I <= nc && J >= 1 && J <= nc) {
-    const size_t k = static_cast<size_t>(2 * I) * C + 2 * J;
-    float t[3];
-    for (int dj = -1; dj <= 1; ++dj) {
-      float r[3];
-      for (int di = -1; di <= 1; ++di) {
-        const size_t q = k + static_cast<long long>(di) * C + dj;
-        r[di + 1] = residual_at<false>(u + q, ld(b + q), C, c);
-      }
-      t[dj + 1] = weigh(r[0], r[1], r[2]);
-    }
-    v = weigh(t[0], t[1], t[2]);
-  }
-  rc[static_cast<size_t>(I) * Cc + J] = __float2bfloat16_rn(v);
 }
 
 // 0.5 a + 0.5 b in float32 (both products exact), rounded to bfloat16 once.
@@ -286,21 +244,6 @@ int mg_native2d_sweep_bf16(const void* u, const void* b, void* out,
     if (err) return err;
   }
   return 0;
-}
-
-// u, b: (n+2)^2 fine grids; rc: the ((n-1)/2 + 2)^2 coarse grid; inv_h2:
-// a bfloat16 value.
-int mg_native2d_residual_restrict_bf16(const void* u, const void* b,
-                                       void* rc, int n, double inv_h2,
-                                       void* stream) {
-  const int Cc = (n - 1) / 2 + 2;
-  const Consts c{0.0f, static_cast<float>(inv_h2), 0.0f, 0.0f, 0.0f};
-  const dim3 grid((Cc + BX - 1) / BX, (Cc + BY - 1) / BY);
-  native_restrict_kernel<<<grid, dim3(BX, BY), 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(u), static_cast<const bf16*>(b),
-      static_cast<bf16*>(rc), n, c);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // x, out: (n+2)^2 fine grids; e: the ((n-1)/2 + 2)^2 coarse grid.

@@ -18,12 +18,15 @@
 // grid's legs and sweeps with bfloat16 storage (a storage type S beside
 // the compute type T), local2d_legs_bf16.cu, local2d_up_bf16_f32.cu,
 // plocal2d_legs_bf16.cu and plocal2d_up_bf16_f32.cu the tile legs so (S =
-// T everywhere else). packed2d.cu's note says what they replace and how
-// they work; plocal2d.cu's what the tile frame adds, fused2d.cu's what the
-// unpacked one does, local2d_legs.cu's how the unpacked tile joins the
-// two, packed2d_sweep.cu's what the sweeps do, packed2d_bf16.cu's what
-// bfloat16 storage changes, local2d_legs_bf16.cu's what it changes on a
-// tile.
+// T everywhere else); fused2d_native_bf16.cu and fused2d_up_native_bf16.cu
+// the native bfloat16 legs (T = Nb, below), stencil2d_sweep_native_bf16.cu
+// the native RB-GS sweeps and transfer2d_native_bf16.cu the native
+// residual restriction on the unpacked grid. packed2d.cu's note says what
+// they replace and how they work; plocal2d.cu's what the tile frame adds,
+// fused2d.cu's what the unpacked one does, local2d_legs.cu's how the
+// unpacked tile joins the two, packed2d_sweep.cu's what the sweeps do,
+// packed2d_bf16.cu's what bfloat16 storage changes, local2d_legs_bf16.cu's
+// what it changes on a tile.
 #pragma once
 
 #include <cstdint>
@@ -172,19 +175,20 @@ __device__ __forceinline__ T side_of(T v, int p) {
 
 // ---------------------------------------------------------------------------
 // The native bfloat16 arithmetic (T = Nb: the fused2d legs' native mode,
-// fused2d_native_bf16.cu and fused2d_up_native_bf16.cu, on the unpacked
-// frame with bfloat16 storage): the TPU kernels' own bfloat16 mode, every
-// operation rounded to bfloat16 (kernels/native_bf16.py states the rule
-// and JAX's order). An Nb is a bfloat16 value held in a float; each + - x
-// is one float32 operation with its rounding explicit (__fadd_rn,
-// __fsub_rn, __fmul_rn: never contracted into an FMA), rounded to bfloat16
-// at once. Since 24 >= 2 * 8 + 2 the float32 result rounded to bfloat16 is
-// the correctly rounded bfloat16 result, so the stream's bits equal those
-// of the plain version's bfloat16 PyTorch ops, and gs_value, residual_of
-// and jacobi_step keep their plain-order expressions on this type. The
-// constants (h^2, 1/h^2, sigma, 1/(4 - sigma h^2), omega/(4/h^2 - sigma))
-// come from the host, already rounded in JAX's order (native_coef), not
-// from mg::Coef::make. The transfers take JAX's order (weigh, average).
+// fused2d_native_bf16.cu and fused2d_up_native_bf16.cu, the sweeps' and the
+// residual restriction's, stencil2d_sweep_native_bf16.cu and
+// transfer2d_native_bf16.cu, on the unpacked frame with bfloat16 storage): the
+// TPU kernels' own bfloat16 mode, every operation rounded to bfloat16
+// (kernels/native_bf16.py states the rule and JAX's order). An Nb is a bfloat16
+// value held in a float; each + - x is one float32 operation with its rounding
+// explicit (__fadd_rn, __fsub_rn, __fmul_rn: never contracted into an FMA),
+// rounded to bfloat16 at once. Since 24 >= 2 * 8 + 2 the float32 result rounded
+// to bfloat16 is the correctly rounded bfloat16 result, so the stream's bits
+// equal those of the plain version's bfloat16 PyTorch ops, and gs_value,
+// residual_of and jacobi_step keep their plain-order expressions on this type.
+// The constants (h^2, 1/h^2, sigma, 1/(4 - sigma h^2), omega/(4/h^2 - sigma))
+// come from the host, already rounded in JAX's order (native_coef), not from
+// mg::Coef::make. The transfers take JAX's order (weigh, average).
 // ---------------------------------------------------------------------------
 struct Nb {
   float f;
@@ -334,15 +338,24 @@ __device__ __forceinline__ T gs_value(T bv, T up, T dn, T mid, T side, int p,
   }
 }
 
-template <class Fr, typename T>
+// Without SHIFT (the native residual restriction, native_bf16.py's
+// shift=False: transfer2d's residual has no sigma u term) the unpacked
+// frame's residual ends at b - au. At sigma = 0 the term is not a no-op
+// in bfloat16 bits: -0 + 0 u is +0 where u > 0, and 0 u is NaN where u is
+// +-Inf.
+template <class Fr, typename T, bool SHIFT = true>
 __device__ __forceinline__ T residual_of(T bv, T x, T up, T dn, T mid,
                                          T side, int p,
                                          const mg::Coef<T>& cf) {
   if constexpr (kPlainOrder<Fr>) {
     const T left = p ? mid : side;
     const T right = p ? side : mid;
-    return bv - ((((T(4) * x - up) - dn) - left) - right) * cf.inv_h2 +
-           cf.sig * x;
+    if constexpr (SHIFT) {
+      return bv - ((((T(4) * x - up) - dn) - left) - right) * cf.inv_h2 +
+             cf.sig * x;
+    } else {
+      return bv - ((((T(4) * x - up) - dn) - left) - right) * cf.inv_h2;
+    }
   } else {
     return bv - (T(4) * x - (((up + dn) + mid) + side)) * cf.inv_h2 +
            cf.sig * x;
@@ -999,9 +1012,10 @@ __device__ __forceinline__ void chunk(bool steady, F&& f) {
 // step still reads it. The native mode (T Nb, S and the coarse type C
 // bfloat16) needs no ring: every value in flight is a bfloat16 one, so the
 // residual reads the window and the store rounds nothing; its restriction
-// weighs in JAX's order (weigh).
+// weighs in JAX's order (weigh). SHIFT false drops the residual's sigma u
+// term (residual_of; the native residual restriction).
 template <typename T, int KIND, int K, bool STORE, class Fr, typename S = T,
-          typename C = T>
+          typename C = T, bool SHIFT = true>
 __device__ __forceinline__ void down_stream(const S* __restrict__ u,
                                             const S* __restrict__ b,
                                             S* __restrict__ u_out,
@@ -1080,7 +1094,7 @@ __device__ __forceinline__ void down_stream(const S* __restrict__ u,
           const T x = stored_colour<v - OUT>(Q, c);
           const T mid = stored_colour<v - OUT>(Q, o);
           const T side = side_of(mid, p);
-          const T r = residual_of<Fr>(
+          const T r = residual_of<Fr, T, SHIFT>(
               B[c][s], x, stored_colour<v - OUT - 1>(Q, o),
               stored_colour<v - OUT + 1>(Q, o), mid, side, p, cf);
           R[c][s] = live && w.upd[p] ? r : T(0);
@@ -1103,8 +1117,8 @@ __device__ __forceinline__ void down_stream(const S* __restrict__ u,
           const T x = F[c][s];
           const T mid = F[o][s];
           const T side = side_of(mid, p);
-          const T r = residual_of<Fr>(B[c][s], x, F[o][sm], F[o][sp], mid,
-                                      side, p, cf);
+          const T r = residual_of<Fr, T, SHIFT>(B[c][s], x, F[o][sm],
+                                                F[o][sp], mid, side, p, cf);
           R[c][s] = live && w.upd[p] ? r : T(0);
         }
         if constexpr (STORE) {

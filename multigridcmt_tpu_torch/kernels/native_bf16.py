@@ -14,8 +14,11 @@ Replace the bfloat16 modes of the TPU kernels
 ``residual_restrict`` :371) with ``csrc/native_bf16.cu``, and those of
 ``multigridcmt_tpu/kernels/fused2d.py`` (``smooth_residual_restrict``
 :289, ``prolong_add_smooth`` :479) with the row stream's native mode
-(``csrc/fused2d_native_bf16.cu``, ``fused2d_up_native_bf16.cu``); the
-notes there say how each is built and what bounds it. The stencil2d and
+(``csrc/fused2d_native_bf16.cu``, ``fused2d_up_native_bf16.cu``); a whole
+grid's RB-GS sweeps and the residual restriction run the row stream too
+(``csrc/stencil2d_sweep_native_bf16.cu``,
+``csrc/transfer2d_native_bf16.cu``); the notes there say how each is built
+and what bounds it. The stencil2d and
 local2d wrappers call ``residual`` and ``sweep`` below for a bfloat16
 grid, transfer2d's ``residual_restrict`` and ``prolong_add``, fused2d's
 ``down_leg`` and ``up_leg``; a whole (n+2)^2 grid is the tile at global
@@ -44,7 +47,8 @@ computed in double) is rounded to bfloat16 where it meets one; every + - x
              columns; then x + P e on the interior, x elsewhere.
 The fused legs compose these: the down leg's sweeps, then the restriction
 with sig u (``down_leg``); the up leg's prolongation-add (rows first), then
-its sweeps (``up_leg``); on the card each is one launch of the row stream.
+its sweeps (``up_leg``); on the card each is one launch of the row stream,
+and so are a whole grid's RB-GS sweeps and transfer2d's restriction.
 The JAX kernels hold on finite inputs; a NaN or Inf inside their selection
 dots spreads over a row or block (0 * Inf), which these modes do not copy:
 their plain versions define the port's semantics there.
@@ -174,13 +178,18 @@ def sweep(kind: str, u, b, n: int, h: float, omega: float, sweeps: int,
           row_off: int = 0, col_off: int = 0, sigma=0.0) -> tuple:
     """``sweeps`` native RB-GS or Jacobi sweeps of bfloat16 u and b
     (checked by the caller) on the tile at global (row_off, col_off);
-    returns (u', launched). The kernel runs one launch a colour a sweep
-    (RB-GS, the first one reading u, the rest in place on u') or one a sweep
-    (Jacobi, alternating u' and a scratch grid so that the last lands in
-    u')."""
+    returns (u', launched). RB-GS on a whole (n+2)^2 grid is one launch of
+    the row stream (``csrc/stencil2d_sweep_native_bf16.cu``, on
+    ``fused2d``'s sweep geometry); elsewhere ``csrc/native_bf16.cu`` runs
+    one launch a colour a sweep (RB-GS, the first one reading u, the rest in
+    place on u') or one a sweep (Jacobi, alternating u' and a scratch grid
+    so that the last lands in u')."""
     c = constants(float(h), float(sigma), float(omega))
     if not on_cuda(u):
         return sweep_plain(kind, u, b, n, c, sweeps, row_off, col_off), False
+    if kind == "rbgs" and (row_off, col_off) == (0, 0) and tuple(
+            u.shape) == (n + 2, n + 2):
+        return _sweep_stream(u, b, n, c, sweeps), True
     out = torch.empty_like(u)
     tmp = (torch.empty_like(u) if kind == "jacobi" and sweeps > 1
            else out)
@@ -189,6 +198,20 @@ def sweep(kind: str, u, b, n: int, h: float, omega: float, sweeps: int,
               int(row_off), int(col_off), *c, _build.KIND_CODES[kind],
               sweeps, writes=(out,))
     return out, True
+
+
+def _sweep_stream(u, b, n: int, c: Constants, sweeps: int) -> torch.Tensor:
+    """The native RB-GS sweeps of a whole grid on the card: one launch of
+    the row stream."""
+    from . import fused2d
+
+    u, b = fused2d._on_pair(u), fused2d._on_pair(b)
+    out = torch.empty_like(u)
+    launch_on(u, "stencil2d_sweep_native", u.data_ptr(), b.data_ptr(),
+              out.data_ptr(), n, *c, sweeps,
+              fused2d._launch_geometry("sweep", n, "rbgs", sweeps, u),
+              writes=(out,))
+    return out
 
 
 def _full_weight(r, axis: int, c: dict) -> torch.Tensor:
@@ -242,14 +265,21 @@ def prolong_add_plain(x, e, n: int, nc: int,
 def residual_restrict(u, b, n: int, h: float) -> tuple:
     """transfer2d's native residual restriction (no sig u term) of
     bfloat16 u and b (checked by the caller) into the ((n-1)/2 + 2)^2
-    coarse grid; returns (rc, launched)."""
+    coarse grid, on the card in one launch of the row stream
+    (``csrc/transfer2d_native_bf16.cu``, on the zero-sweep fused2d down
+    leg's geometry); returns (rc, launched)."""
+    from . import fused2d
+
     c = constants(float(h))
     nc = (n - 1) // 2
     if not on_cuda(u):
         return residual_restrict_plain(u, b, n, c, False), False
+    u, b = fused2d._on_pair(u), fused2d._on_pair(b)
     rc = torch.empty((nc + 2, nc + 2), dtype=BF, device=u.device)
     launch_on(u, "native2d_residual_restrict", u.data_ptr(), b.data_ptr(),
-              rc.data_ptr(), n, c.inv_h2, writes=(rc,))
+              rc.data_ptr(), n, c.inv_h2,
+              fused2d._launch_geometry("down", n, "rbgs", 0, u),
+              writes=(rc,))
     return rc, True
 
 

@@ -20,9 +20,10 @@ plain version; a CUDA tensor launches the kernel or raises.
 
 Native bfloat16 (the TPU kernels' own mode on bfloat16 grids, a bfloat16
 solve's composed legs: every operation rounded to bfloat16):
-``native_bf16.residual_restrict`` (no shift term) and ``prolong_add``
-(P e by columns first, then rows, as the TPU kernel interpolates), one
-launch of ``csrc/native_bf16.cu`` each, counted apart.
+``native_bf16.residual_restrict`` (no shift term; one launch of the row
+stream above with the native arithmetic, ``csrc/transfer2d_native_bf16.cu``)
+and ``prolong_add`` (P e by columns first, then rows, as the TPU kernel
+interpolates; one launch of ``csrc/native_bf16.cu``), counted apart.
 """
 from __future__ import annotations
 

@@ -5,11 +5,12 @@ the residual norms) and those of the files that hold or sit beside a
 native bfloat16 mode (the stencil2d and local2d residuals and sweeps, the
 DIA SpMV, every row-streaming leg of packed2d_legs.cuh) against other
 trees' builds, bit for bit, and time them in turns, on one CUDA card; and
-the native bfloat16 fused2d legs (the row stream) against the first
-other tree's chain of native launches.
+the native bfloat16 fused2d legs, whole-grid RB-GS sweeps and residual
+restriction (the row stream) against the first other tree's native
+launches.
 
     python -m multigridcmt_tpu_torch.utils.bf16_kernels OTHER [OTHER ...] \\
-        [--json PATH]
+        [--json PATH] [--steps 2,3,4,5,6,7]
 
 Each OTHER is the root of another checkout of the repository (the parent
 commit unpacked with ``git archive`` into the git-ignored
@@ -86,6 +87,17 @@ tree's. Then:
    types: bit for bit against each other, then in turns: single (one call
    alone), chained and the profiler's device time a call, beside the bound
    (the inputs read once and the outputs written once in bfloat16).
+7. The native bfloat16 RB-GS sweeps of a whole grid and the native
+   residual restriction at the same levels: this tree's row streams (one
+   launch each, through the wrappers) and, where the first OTHER launches
+   them from native_bf16.cu (native_rbgs_kernel, a launch a colour a
+   sweep; native_restrict_kernel, a thread a coarse point), that tree's
+   launches through ctypes with its own argument types: bit for bit at nu
+   = 1 .. 4, sigma 0 and 11.5, then in turns at sigma 0 (nu = 4 and 1)
+   as step 6 times the legs.
+
+``--steps`` picks the steps after step 1 (the ptxas comparison, which
+always runs); the default runs them all.
 
 Prints the card's name and power limit, a line for each finding and one
 JSON object last; exits 1 if a bit differs or a float32/float64 kernel's
@@ -116,7 +128,8 @@ from multigridcmt_tpu_torch.utils.bf16_legs import (LEG_CHAIN,
 from multigridcmt_tpu_torch.utils.breakdown import device_busy
 from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
-KERNEL = re.compile(r"(native_residual_kernel|native_rbgs_kernel|"
+KERNEL = re.compile(r"(native_residual_restrict_kernel|native_sweep_kernel|"
+                    r"native_residual_kernel|native_rbgs_kernel|"
                     r"native_jacobi_kernel|native_restrict_kernel|"
                     r"native_prolong_kernel|native_down_kernel|"
                     r"native_up_kernel|rbgs_pairs_kernel|rbgs_kernel|"
@@ -885,11 +898,106 @@ def fmt(row: dict) -> str:
                      if k != "bound_ms" and not k.endswith("single"))
 
 
+# Step 7: the C argument types of the first OTHER's native RB-GS sweeps and
+# residual restriction when it launches them from csrc/native_bf16.cu (the
+# tree before the row stream took them): u, b, out, tmp, R, C, n, row_off,
+# col_off, the five constants, kind, sweeps, stream; u, b, rc, n, inv_h2,
+# stream.
+OLD_SWEEP_TYPES = [_P] * 4 + [_I] * 5 + [_D] * 5 + [_I, _I, _P]
+OLD_RESTRICT_TYPES = [_P, _P, _P, _I, _D, _P]
+# The native sweeps' counts held bit for bit, and those timed.
+NATIVE_SWEEP_NUS = (1, 2, 3, 4)
+NATIVE_SWEEP_TIMED = (4, 1)
+
+
+def old_native(lib, what, u, b, n, c, sweeps=0):
+    """(fn, output) of the native RB-GS sweeps (``what`` "sweep") or the
+    residual restriction ("restrict") as the tree before the row stream
+    launched them in ``lib``: native_bf16.cu's launch a colour a sweep, in
+    place on out after the first, and its thread a coarse point."""
+    stream = torch.cuda.current_stream().cuda_stream
+    if what == "sweep":
+        f = lib.mg_native2d_sweep_bf16
+        f.argtypes, f.restype = OLD_SWEEP_TYPES, ctypes.c_int
+        out = torch.empty_like(u)
+        return (lambda: f(u.data_ptr(), b.data_ptr(), out.data_ptr(),
+                          out.data_ptr(), n + 2, n + 2, n, 0, 0, *c,
+                          _build.KIND_CODES["rbgs"], sweeps, stream)), out
+    f = lib.mg_native2d_residual_restrict_bf16
+    f.argtypes, f.restype = OLD_RESTRICT_TYPES, ctypes.c_int
+    nc = (n - 1) // 2
+    rc = torch.empty((nc + 2, nc + 2), dtype=BF, device=u.device)
+    return (lambda: f(u.data_ptr(), b.data_ptr(), rc.data_ptr(), n,
+                      c.inv_h2, stream)), rc
+
+
+def native_streams(libs: dict, first: str) -> tuple:
+    """(times, comparisons, failures) of step 7: this tree's native RB-GS
+    sweep stream and residual-restriction stream (through the wrappers)
+    against the first OTHER's launches of native_bf16.cu, where it still
+    has them, at NATIVE_NS: bit for bit at every nu of NATIVE_SWEEP_NUS and
+    sigma 0 and 11.5 (the restriction has no sigma), then in turns at sigma
+    0 (the sweeps at NATIVE_SWEEP_TIMED): single, chained and device time,
+    beside the bound (inputs read once, outputs written once)."""
+    from multigridcmt_tpu_torch.kernels import (native_bf16, stencil2d,
+                                               transfer2d)
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    other = libs[first]
+    has_old = not hasattr(other, "mg_stencil2d_sweep_native_bf16")
+    times, checks, fails = {}, 0, []
+    for n in NATIVE_NS:
+        u, b, _ = native_grids(n, 90 + n)
+        h = 1.0 / (n + 1)
+        cases = [("sweep", nu, sigma) for nu in NATIVE_SWEEP_NUS
+                 for sigma in (0.0, SIGMA)] + [("restrict", 0, 0.0)]
+        for what, nu, sigma in cases:
+            c = native_bf16.constants(h, sigma)
+            if what == "sweep":
+                call = Replay(lambda: stencil2d.rbgs_sweep(
+                    u, b, n, h, sigma=sigma, sweeps=nu), (u, b))
+            else:
+                call = Replay(lambda: transfer2d.residual_restrict(
+                    u, b, n, h), (u, b))
+            mine, = call.replay(libs["this"])
+            label = f"native {what} n={n} nu={nu} sigma={sigma}"
+            if has_old:
+                run, out = old_native(other, what, u, b, n, c, nu)
+                if run():
+                    raise RuntimeError(f"{label}: {first}'s launch failed")
+                checks += 1
+                if not torch.equal(bits(mine), bits(out)):
+                    fails.append(f"bits {label}: the stream differs from "
+                                 f"{first}'s native_bf16.cu launches")
+            if sigma or (what == "sweep" and nu not in NATIVE_SWEEP_TIMED):
+                continue
+            fns = {"stream": call.fn(libs["this"])}
+            if has_old:
+                fns[f"{first} native_bf16.cu"] = run
+            row = in_turns(fns)
+            for key, fn in list(fns.items()) + list(fns.items())[::-1]:
+                row.setdefault(f"{key} single", []).append(cuda_time_ms(fn))
+            row["bound_ms"] = call.nbytes / PEAK_BYTES_PER_S * 1e3
+            key = f"{what}@{n}" + (f" nu={nu}" if what == "sweep" else "")
+            times[key] = row
+            log(f"time native {key}: {fmt(row)}; single "
+                + ", ".join(f"{k} {v}" for k, v in row.items()
+                            if k.endswith("single"))
+                + f"; bound {row['bound_ms']:.4f}")
+        del u, b
+    torch.cuda.synchronize()
+    return times, checks, fails
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("others", nargs="+", type=Path)
     ap.add_argument("--json", type=Path)
+    ap.add_argument("--steps", default="2,3,4,5,6,7",
+                    help="the steps after the ptxas comparison to run, "
+                         "comma-separated (default all)")
     opt = ap.parse_args()
+    steps = {int(v) for v in opt.steps.split(",") if v}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -924,17 +1032,29 @@ def main() -> int:
         for k, v in sorted(bf16_lines.items()):
             log(f"ptxas bf16 {k[:90]}: {v}")
 
-        checks, fails = check_bits(libs)
-        report["fails"] += fails
-        log(f"bits: {checks} comparisons, {len(fails)} differ")
-
-        report["native_legs"], checks, fails = native_legs(libs, labels[0])
-        report["fails"] += fails
-        log(f"native legs: {checks} comparisons with {labels[0]}'s chain, "
-            f"{len(fails)} differ")
-        report["times"] = timed(libs, labels[0])
-        report["cycles"] = cycles(libs)
-        report["trace_effect"] = trace_effect(libs)
+        if 2 in steps:
+            checks, fails = check_bits(libs)
+            report["fails"] += fails
+            log(f"bits: {checks} comparisons, {len(fails)} differ")
+        if 6 in steps:
+            report["native_legs"], checks, fails = native_legs(libs,
+                                                               labels[0])
+            report["fails"] += fails
+            log(f"native legs: {checks} comparisons with {labels[0]}'s "
+                f"chain, {len(fails)} differ")
+        if 7 in steps:
+            report["native_streams"], checks, fails = native_streams(
+                libs, labels[0])
+            report["fails"] += fails
+            log(f"native sweeps and restriction: {checks} comparisons with "
+                f"{labels[0]}'s native_bf16.cu launches, {len(fails)} "
+                "differ")
+        if 3 in steps:
+            report["times"] = timed(libs, labels[0])
+        if 4 in steps:
+            report["cycles"] = cycles(libs)
+        if 5 in steps:
+            report["trace_effect"] = trace_effect(libs)
     for f in report["fails"]:
         log(f"FAIL {f}")
     line = json.dumps(report)

@@ -168,6 +168,10 @@ def test_build_keys_output_by_source_hash():
     assert {"fused2d_native_bf16.cu", "fused2d_up_native_bf16.cu"} <= names
     assert {"mg_fused2d_down_native_bf16",
             "mg_fused2d_up_native_bf16"} <= set(_build.SIGNATURES)
+    assert {"stencil2d_sweep_native_bf16.cu",
+            "transfer2d_native_bf16.cu"} <= names
+    assert {"mg_stencil2d_sweep_native_bf16",
+            "mg_native2d_residual_restrict_bf16"} <= set(_build.SIGNATURES)
     assert (_build.SIGNATURES["mg_spmv_dia_bf16"]
             == _build.SIGNATURES["mg_spmv_dia_f32"])
 
@@ -1276,11 +1280,11 @@ def test_chip_smoke_lists_the_cdt_bf16_modes():
 
 
 def test_chip_smoke_lists_the_native_bf16_modes():
-    """The native bfloat16 modes, which no path of either package runs:
-    the stencil2d and local2d residuals and sweeps (from
-    csrc/native_bf16.cu) and the DIA SpMV (csrc/spmv.cu), each with its TPU
-    function, counted apart from its float twin and launched once by its
-    direct run."""
+    """The native bfloat16 modes of slice B1, each launched once by its
+    direct run: the stencil2d and local2d residuals and sweeps (from
+    csrc/native_bf16.cu; a whole grid's RB-GS sweeps from the row stream's
+    csrc/stencil2d_sweep_native_bf16.cu) and the DIA SpMV (csrc/spmv.cu),
+    each with its TPU function, counted apart from its float twin."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -1296,6 +1300,9 @@ def test_chip_smoke_lists_the_native_bf16_modes():
         for mod, lines in (("stencil2d", (304, 284, 295)),
                            ("local2d", (289, 263, 278)))
         for mode, line in zip(("residual", "rbgs", "jacobi"), lines)}
+    want["stencil2d_rbgs_bf16"] = ("stencil2d", "rbgs_bf16_launches",
+                                   src + "stencil2d_sweep_native_bf16.cu",
+                                   tpu + "stencil2d.py:284", None)
     want["spmv_dia_bf16"] = ("spmv", "bf16_launches", src + "spmv.cu",
                              tpu + "spmv.py:254", None)
     assert {name: smoke.KERNELS[name] for name in want} == want
@@ -1309,11 +1316,11 @@ def test_chip_smoke_lists_the_native_bf16_modes():
 
 
 def test_chip_smoke_lists_the_native_b2_modes():
-    """The last native bfloat16 modes (the fused2d legs, from the row
-    stream's native sources, and the transfer2d kernels, from
-    csrc/native_bf16.cu), each with its TPU function and a counter of its
-    own, run on the bfloat16 solves of phase 3, which are main-path runs
-    (their launches summed over MAIN_RUNS)."""
+    """The last native bfloat16 modes (the fused2d legs and the transfer2d
+    residual restriction, from the row stream's native sources, and the
+    prolongation-add, from csrc/native_bf16.cu), each with its TPU function
+    and a counter of its own, run on the bfloat16 solves of phase 3, which
+    are main-path runs (their launches summed over MAIN_RUNS)."""
     csrc = "multigridcmt_tpu_torch/kernels/csrc/"
     src = csrc + "native_bf16.cu"
     tpu = "multigridcmt_tpu/kernels/"
@@ -1325,8 +1332,9 @@ def test_chip_smoke_lists_the_native_b2_modes():
                             csrc + "fused2d_up_native_bf16.cu",
                             tpu + "fused2d.py:479", None),
         "transfer2d_residual_restrict_bf16": (
-            "transfer2d", "residual_restrict_bf16_launches", src,
-            tpu + "transfer2d.py:371", None),
+            "transfer2d", "residual_restrict_bf16_launches",
+            csrc + "transfer2d_native_bf16.cu", tpu + "transfer2d.py:371",
+            None),
         "transfer2d_prolong_add_bf16": (
             "transfer2d", "prolong_add_bf16_launches", src,
             tpu + "transfer2d.py:204", None)}

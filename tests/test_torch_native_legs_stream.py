@@ -175,10 +175,13 @@ def test_native_legs_launch_the_stream(leg, monkeypatch):
 def test_breakdown_groups_take_the_native_legs_and_the_chain():
     """utils/breakdown.py's kernel groups, on kernel names as the profiler
     gives them: "native legs" takes the row stream's native_down_kernel
-    and native_up_kernel and no float leg group does; "native kernels"
-    takes native_bf16.cu's kernels, the chain that ran the legs before the
-    row stream among them (so that the parent tree, timed in turns with
-    this tool, reads the same groups)."""
+    and native_up_kernel and no float leg group does; "native sweeps" the
+    stream's native_sweep_kernel and native_bf16.cu's native_rbgs_kernel,
+    "native restriction" the stream's native_residual_restrict_kernel and
+    native_bf16.cu's native_restrict_kernel (so that a parent tree, timed
+    in turns with this tool, reads the same groups), and "native kernels"
+    native_bf16.cu's other kernels, the chain that ran the legs before the
+    row stream among them."""
     from multigridcmt_tpu_torch.utils.breakdown import (ROUTE_KERNELS,
                                                        SHARDED_KERNELS)
 
@@ -195,9 +198,21 @@ def test_breakdown_groups_take_the_native_legs_and_the_chain():
                     f"{bf} const*, {bf} const*, {bf}*, {bf}*, {ns}Unpacked, "
                     f"mg::Coef<{ns}Nb>, {ns}LegGeom)")
             assert groups(name) == {"native legs"}
-    for name in ("native_rbgs_kernel", "native_jacobi_kernel",
-                 "native_residual_kernel", "native_restrict_kernel<true>",
-                 "native_prolong_kernel<true>", "native_restrict_kernel",
-                 "native_prolong_kernel"):
+    for stages in (2, 8):
+        name = (f"void {ns}native_sweep_kernel<{stages}>({bf} const*, "
+                f"{bf} const*, {bf}*, {ns}Unpacked, mg::Coef<{ns}Nb>, "
+                f"{ns}LegGeom)")
+        assert groups(name) == {"native sweeps"}
+    assert groups(f"{ns}native_residual_restrict_kernel({bf} const*, "
+                  f"{bf} const*, {bf}*, {ns}Unpacked, mg::Coef<{ns}Nb>, "
+                  f"{ns}LegGeom)") == {"native restriction"}
+    for name, group in (("native_rbgs_kernel", "native sweeps"),
+                        ("native_jacobi_kernel", "native kernels"),
+                        ("native_residual_kernel", "native kernels"),
+                        ("native_restrict_kernel<true>",
+                         "native restriction"),
+                        ("native_prolong_kernel<true>", "native kernels"),
+                        ("native_restrict_kernel", "native restriction"),
+                        ("native_prolong_kernel", "native kernels")):
         assert groups(f"void {ns}{name}({bf} const*, {bf} const*, {bf}*, "
-                      "int)") == {"native kernels"}
+                      "int)") == {group}

@@ -472,7 +472,7 @@ class LegFrame:
 
 def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                  packed_coarse=False, frame=None, fine=True, bf16=False,
-                 f32_out=False, native=False):
+                 f32_out=False, native=False, shift=True):
     """csrc/packed2d_legs.cuh's down_kernel, up_kernel (with e) or
     sweep_kernel (the up leg's stream without e), as g.leg says, on
     geometry g and frame (the whole packed grid when None), unit by unit;
@@ -494,7 +494,9 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
     every operation rounded (_nat), native_bf16.constants' scalars and
     JAX's transfer order; its down leg's residual and store read the window
     (asserted to hold bfloat16 values: no ring of rounded rows), and every
-    paired access is asserted to start on a 4-byte pair of bfloat16."""
+    paired access is asserted to start on a 4-byte pair of bfloat16. With
+    ``shift`` False its residual has no sigma u term (the native residual
+    restriction's: the down leg with ``fine`` False)."""
     f = frame or LegFrame.whole(g.n)
     n, K, TW, hp = g.n, g.stages, packed2d.LEG_LANES, g.halo_lanes
     cpa = s.shape[1] if f.unpacked else s.shape[2]
@@ -502,7 +504,9 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
     dt = np.float32 if rings else np.float64
     if rings:
         assert s.dtype == bs.dtype == np.float32
-        assert np.array_equal(_bf16(s), s) and np.array_equal(_bf16(bs), bs)
+        assert np.array_equal(_bf16(s), s, equal_nan=True)
+        assert np.array_equal(_bf16(bs), bs, equal_nan=True)
+    assert shift or (native and not fine)
     if native:
         assert f.unpacked and f.ca is None and not bf16
         assert e is None or np.array_equal(_bf16(e), e)
@@ -709,7 +713,8 @@ def _emulate_leg(g, kind, sweeps, s, bs, h, sigma, omega, *, e=None,
                     t = _nat(np.float32(4) * v)
                     for nb in (up, dn, left, right):
                         t = _nat(t - nb)
-                    return _nat(_nat(bv - _nat(t * inv_h2)) + _nat(sig * v))
+                    r = _nat(bv - _nat(t * inv_h2))
+                    return _nat(r + _nat(sig * v)) if shift else r
                 if f.unpacked:
                     a = (((4.0 * v - up) - dn) - left) - right
                 else:
