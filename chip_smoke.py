@@ -579,21 +579,25 @@ BELL_BF16_PAD = 2
 # The native bfloat16 modes of slice B1 (the TPU kernels computing in
 # bfloat16 itself: every operation rounded, sigma and the constants too),
 # held bit for bit against their plain versions at full width:
-# stencil2d's residual at 2047^2, its RB-GS (nu = 1 to 4) at NATIVE_RBGS_N
-# and its Jacobi (nu = 8) at 1023^2 (the levels where paths B and C launch
-# the float32 sweeps), the local2d modes (RB-GS nu = 4, Jacobi nu = 8) on
-# S1's fine tile and S2's block tile (col_off odd), the DIA SpMV at 4095^2 (5
-# diagonals, random values), sigma 0 and SIGMA; stencil2d's modes and the
-# SpMV also on inputs seeded with NaN and +-Inf (NATIVE_NONFINITE_N).
-NATIVE_STENCIL_N = {"residual": 2047, "rbgs": 2047, "jacobi": 1023}
-NATIVE_SWEEPS = {"rbgs": (1, 2, 3, 4), "jacobi": (8,)}
-# The whole grid's RB-GS sweeps (the row stream with the native arithmetic,
-# csrc/stencil2d_sweep_native_bf16.cu) are held at every level of the k=11
+# stencil2d's residual at 2047^2, its RB-GS (nu = 1 to 4) and Jacobi (nu =
+# 1 to 8) at NATIVE_SWEEP_N, the local2d modes (RB-GS nu = 4, Jacobi nu =
+# 8) on S1's fine tile and S2's block tile (col_off odd), the DIA SpMV at
+# 4095^2 (5 diagonals, random values), sigma 0 and SIGMA; stencil2d's modes
+# and the SpMV also on inputs seeded with NaN and +-Inf
+# (NATIVE_NONFINITE_N). The main-path rows: 2047^2, the fine level of the
+# bfloat16 solves.
+NATIVE_STENCIL_N = {"residual": 2047, "rbgs": 2047, "jacobi": 2047}
+NATIVE_SWEEPS = {"rbgs": (1, 2, 3, 4), "jacobi": tuple(range(1, 9))}
+# The whole grid's RB-GS and Jacobi sweeps (the row stream with the native
+# arithmetic, csrc/stencil2d_sweep_native_bf16.cu and
+# stencil2d_jacobi_native_bf16.cu) are held at every level of the k=11
 # bfloat16 solve, each nu of NATIVE_SWEEPS, both sigmas.
-NATIVE_RBGS_N = (2047, 1023, 511, 255)
-# The sweep counts phase 4 times it at, at each level (bf16_rbgs45's: 4, and
-# 4 + 1 at nu2 = 5).
+NATIVE_SWEEP_N = (2047, 1023, 511, 255)
+# The sweep counts phase 4 times them at, at each level: RB-GS as
+# bf16_rbgs45 launches it (4, and 4 + 1 at nu2 = 5), Jacobi as
+# bf16_jacobi88's down leg (8).
 NATIVE_RBGS_TIMED = (4, 1)
+NATIVE_JACOBI_TIMED = (8,)
 NATIVE_OMEGA = 0.8
 NATIVE_TILES = {"S1": (2 ** MAIN_K - 1, (1, 0)), "S2": (2047, (1, 1))}
 NATIVE_NONFINITE_N = 1023
@@ -602,8 +606,10 @@ NATIVE_NONFINITE_N = 1023
 # update's 6, the Jacobi step's 11; the SpMV's 2 a diagonal.
 NATIVE_OPS = {"residual": 9, "rbgs": 6, "jacobi": 11}
 # The native fused2d legs (the row stream, csrc/fused2d_native_bf16.cu and
-# fused2d_up_native_bf16.cu) and transfer2d kernels (csrc/native_bf16.cu)
-# run on the bfloat16 solves (BF16_SOLVES). Phase 2 holds them bit for bit
+# fused2d_up_native_bf16.cu) and transfer2d kernels (the row stream's
+# csrc/transfer2d_native_bf16.cu, the block kernel
+# csrc/transfer2d_prolong_native_bf16.cu) run on the bfloat16 solves
+# (BF16_SOLVES). Phase 2 holds them bit for bit
 # against their plain versions at each fused level of the k=11 solve,
 # 2047^2, 1023^2, 511^2 and 255^2, sigma 0 and SIGMA, RB-GS and Jacobi
 # (NATIVE_OMEGA) at every sweep count from 0 to each leg's cap, and all
@@ -624,15 +630,19 @@ NATIVE_PA_OPS = 3 * (1 / 4 + 1 / 2) + 1
 # The bfloat16 solves (config.dtype bfloat16, kernels on) at k=11, the
 # widest whose legs all stay bfloat16 (at k=12 the packed 4095 level's
 # _cdt down leg emits the coarse levels in float32): V(2,2) Jacobi (the
-# default smoother) and V(2,2) RB-GS on the fused legs at 2047...255, and
+# default smoother) and V(2,2) RB-GS on the fused legs at 2047...255;
 # RB-GS V(4,5), whose legs both pass the fused caps (RB-GS: 3 down, 4 up),
 # composed from the native sweeps (4 + 1 at nu2 = 5), the residual
-# restriction and the prolongation-add. Each diverges, as JAX's solve of
-# the same problem does (bfloat16 cannot hold the residual at this h).
+# restriction and the prolongation-add; and Jacobi V(8,8) (path C's
+# schedule), whose down leg passes the fused cap (Jacobi: 6 down, 8 up):
+# the native Jacobi sweeps (nu = 8, one launch) and the residual
+# restriction, then the fused up leg. Each diverges, as JAX's solve of the
+# same problem does (bfloat16 cannot hold the residual at this h).
 BF16_SOLVE_K = 11
 BF16_SOLVES = {"bf16_jacobi22": dict(smoother="jacobi"),
                "bf16_rbgs22": dict(smoother="rbgs"),
-               "bf16_rbgs45": dict(smoother="rbgs", nu1=4, nu2=5)}
+               "bf16_rbgs45": dict(smoother="rbgs", nu1=4, nu2=5),
+               "bf16_jacobi88": dict(smoother="jacobi", nu1=8, nu2=8)}
 
 
 # The sharded paths: (k, mesh, config overrides) of S1-S4; S4 is Jacobi
@@ -1019,19 +1029,21 @@ PARENT_PTXAS = {
 }
 
 
-# The native bfloat16 kernels (csrc/native_bf16.cu: the residual, the RB-GS
-# and Jacobi sweeps and the prolongation-add) and the DIA SpMV in each type
-# (f, d, 13__nv_bfloat16), whose ptxas report must show no spill.
-NATIVE_KERNEL = re.compile(r"native_(?:residual|rbgs|jacobi|"
-                           r"prolong)_kernel|"
+# The native bfloat16 kernels of csrc/native_bf16.cu (the residual and a
+# tile's RB-GS and Jacobi sweeps) and the DIA SpMV in each type (f, d,
+# 13__nv_bfloat16), whose ptxas report must show no spill.
+NATIVE_KERNEL = re.compile(r"native_(?:residual|rbgs|jacobi)_kernel|"
                            r"spmv_dia_kernelI(?:13__nv_bfloat16|[fd])E")
-NATIVE_KERNELS = 4 + 3
-# The native row streams of a whole grid's RB-GS sweeps (RB-GS, K = 2, 4,
-# 6, 8 half-sweeps; csrc/stencil2d_sweep_native_bf16.cu) and of the
-# residual restriction (csrc/transfer2d_native_bf16.cu); none may spill.
-NATIVE_STREAM_KERNEL = re.compile(r"native_sweep_kernelILi(\d+)E|"
-                                  r"native_residual_restrict_kernel")
-NATIVE_STREAM_KERNELS = 4 + 1
+NATIVE_KERNELS = 3 + 3
+# The native row streams of a whole grid's RB-GS sweeps (K = 2, 4, 6, 8
+# half-sweeps; csrc/stencil2d_sweep_native_bf16.cu) and Jacobi sweeps (K =
+# 1 .. 8; csrc/stencil2d_jacobi_native_bf16.cu), of the residual
+# restriction (csrc/transfer2d_native_bf16.cu), and the prolongation-add's
+# block kernel (csrc/transfer2d_prolong_native_bf16.cu); none may spill.
+NATIVE_STREAM_KERNEL = re.compile(r"native_(jacobi_)?sweep_kernelILi(\d+)E|"
+                                  r"native_residual_restrict_kernel|"
+                                  r"native_prolong_add_kernel")
+NATIVE_STREAM_KERNELS = 4 + 8 + 1 + 1
 # The native fused2d legs on the row stream (leg, kind: 0 Jacobi, 1 RB-GS,
 # stages), a kernel for each stage count: the down leg's RB-GS 0, 2, 4, 6
 # and Jacobi 0 to 6, the up leg's RB-GS 0 to 8 by 2 and Jacobi 0 to 8;
@@ -1189,8 +1201,8 @@ def ptxas_report(log_path) -> dict:
               for k, prop in props.items()
               if NATIVE_KERNEL.search(k) and "regs" in prop}
     require(len(native) == NATIVE_KERNELS, f"ptxas report has "
-            f"{sorted(native)}, not the four native bfloat16 kernels and "
-            "the SpMV in three types")
+            f"{sorted(native)}, not native_bf16.cu's three kernels and the "
+            "SpMV in three types")
     for key, prop in sorted(native.items()):
         log(f"ptxas {key}: {prop['regs']}r"
             + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
@@ -1199,16 +1211,19 @@ def ptxas_report(log_path) -> dict:
     for mangled, prop in props.items():
         m = NATIVE_STREAM_KERNEL.search(mangled)
         if m and "regs" in prop:
-            key = (f"native sweep rbgs K={m.group(1)}" if m.group(1)
+            jacobi, stages = m.groups()
+            key = (f"native sweep {'jacobi' if jacobi else 'rbgs'} "
+                   f"K={stages}" if stages
+                   else "native prolongation-add" if "prolong" in m.group(0)
                    else "native residual restriction")
             native[key] = prop
     require(len(native) == NATIVE_STREAM_KERNELS, f"ptxas report has "
             f"{sorted(native)}, not the {NATIVE_STREAM_KERNELS} native "
-            "sweep and restriction streams")
+            "sweep and restriction streams and prolongation-add kernels")
     for key, prop in sorted(native.items()):
-        log(f"ptxas {key} stream: {prop['regs']}r"
+        log(f"ptxas {key}: {prop['regs']}r"
             + (f" spill {prop['spill']}B" if prop.get("spill") else ""))
-        require(not prop.get("spill"), f"ptxas: {key} stream spills")
+        require(not prop.get("spill"), f"ptxas: {key} spills")
     streams = {}
     for mangled, prop in props.items():
         m = NATIVE_LEG_KERNEL.search(mangled)
@@ -1893,16 +1908,17 @@ def native_local_calls(mode: str, ue, be, t: dict, sigma: float,
 
 def compare_native_bf16(main_err: dict) -> None:
     """The native bfloat16 modes against their plain versions on the card,
-    bit for bit (check_native_bits), at NATIVE_STENCIL_N (RB-GS at every
-    level of NATIVE_RBGS_N), NATIVE_TILES and the 4095^2 SpMV, both sigmas,
-    every sweep count of NATIVE_SWEEPS; the stencil2d modes at
-    NATIVE_NONFINITE_N (RB-GS at every count and both sigmas) and the SpMV
-    on inputs holding NaN and +-Inf. The main-path errors: sigma 0, RB-GS
-    nu = 4, Jacobi nu = 8, the local2d modes on S1's tile."""
+    bit for bit (check_native_bits), at NATIVE_STENCIL_N (the sweeps at
+    every level of NATIVE_SWEEP_N), NATIVE_TILES and the 4095^2 SpMV, both
+    sigmas, every sweep count of NATIVE_SWEEPS; the stencil2d modes at
+    NATIVE_NONFINITE_N (the sweeps at every count and both sigmas) and the
+    SpMV on inputs holding NaN and +-Inf. The main-path errors: 2047^2,
+    sigma 0, RB-GS nu = 4, Jacobi nu = 8, the local2d modes on S1's
+    tile."""
     from multigridcmt_tpu_torch.kernels import spmv
 
     for mode, n0 in NATIVE_STENCIL_N.items():
-        for n in NATIVE_RBGS_N if mode == "rbgs" else (n0,):
+        for n in NATIVE_SWEEP_N if mode in NATIVE_SWEEPS else (n0,):
             u, b = native_grids(n, n + 301)
             for sigma in (0.0, SIGMA):
                 for nu in NATIVE_SWEEPS.get(mode, (0,)):
@@ -1918,9 +1934,8 @@ def compare_native_bf16(main_err: dict) -> None:
     n = NATIVE_NONFINITE_N
     u, b = native_grids(n, n + 302, nonfinite=True)
     for mode in NATIVE_STENCIL_N:
-        for sigma in (0.0, SIGMA) if mode == "rbgs" else (SIGMA,):
-            for nu in (NATIVE_SWEEPS[mode] if mode == "rbgs"
-                       else (max(NATIVE_SWEEPS.get(mode, (0,))),)):
+        for sigma in (0.0, SIGMA) if mode in NATIVE_SWEEPS else (SIGMA,):
+            for nu in NATIVE_SWEEPS.get(mode, (0,)):
                 kernel, plain = native_stencil_calls(mode, u, b, n, sigma,
                                                      nu)
                 check_native_bits(f"native stencil2d {mode} n={n} nu={nu} "
@@ -3107,8 +3122,8 @@ KERNELS = {
     # The native bfloat16 modes (the TPU kernels computing in bfloat16
     # itself: every operation rounded) of slice B1: direct calls; the
     # bfloat16 solves (BF16_SOLVES) also run the stencil2d residual and
-    # RB-GS sweeps (on the composed route; a whole grid's RB-GS sweeps are
-    # the row stream, the rest native_bf16.cu's kernels).
+    # RB-GS and Jacobi sweeps (on the composed route; a whole grid's sweeps
+    # are the row stream, the rest native_bf16.cu's kernels).
     "stencil2d_residual_bf16": ("stencil2d", "residual_bf16_launches",
                                 "multigridcmt_tpu_torch/kernels/csrc/"
                                 "native_bf16.cu",
@@ -3121,7 +3136,7 @@ KERNELS = {
                             None),
     "stencil2d_jacobi_bf16": ("stencil2d", "jacobi_bf16_launches",
                               "multigridcmt_tpu_torch/kernels/csrc/"
-                              "native_bf16.cu",
+                              "stencil2d_jacobi_native_bf16.cu",
                               "multigridcmt_tpu/kernels/stencil2d.py:295",
                               None),
     "local2d_residual_bf16": ("local2d", "residual_bf16_launches",
@@ -3156,7 +3171,8 @@ KERNELS = {
         "multigridcmt_tpu/kernels/transfer2d.py:371", None),
     "transfer2d_prolong_add_bf16": (
         "transfer2d", "prolong_add_bf16_launches",
-        "multigridcmt_tpu_torch/kernels/csrc/native_bf16.cu",
+        "multigridcmt_tpu_torch/kernels/csrc/"
+        "transfer2d_prolong_native_bf16.cu",
         "multigridcmt_tpu/kernels/transfer2d.py:204", None),
 }
 # A kernel's launches by one variant -> (counter module, counter, the
@@ -4555,26 +4571,35 @@ def bf16_solve_counts(label: str, prob, iters: int) -> dict:
     """The native launches of BF16_SOLVES[label] with ``iters`` cycles:
     the convergence check (the stencil2d residual, once before the first
     cycle and once after each); at each fused level (2047...255) a cycle's
-    down and up leg, one launch of the row stream each (no native sweep
-    launched from a leg), or on V(4,5) one RB-GS sweep launch at nu1 = 4,
-    two at nu2 = 5 (4 + 1: a launch takes 4), each one launch of the sweep
-    stream, and a residual restriction (one launch of its stream) and a
-    prolongation-add."""
+    legs, each counted by its own cap as kernels/__init__.py routes it: a
+    leg that fuses is one launch of the row stream (no native sweep
+    launched from it); a down leg that does not is its sweeps (one launch
+    of the sweep stream a chunk of stencil2d.max_fused_sweeps: RB-GS 4,
+    Jacobi 8) and a residual restriction (one launch of its stream), an up
+    leg that does not a prolongation-add (one launch of the block kernel)
+    and its sweeps. So V(4,5) RB-GS: 1 + 2 sweep launches, a restriction
+    and a prolongation-add; Jacobi V(8,8): 1 sweep launch (the down leg's),
+    a restriction and a fused up leg."""
     from multigridcmt_tpu_torch.kernels import fused2d, stencil2d
 
     cfg = prob.config
     kind = cfg.smoother
     per = fused_levels(prob) * iters
-    want = {"stencil2d_residual_bf16": iters + 1}
-    if (cfg.nu1 <= fused2d.max_down_sweeps(kind)
-            and cfg.nu2 <= fused2d.max_up_sweeps(kind)):
-        want.update({"fused2d_down_bf16": per, "fused2d_up_bf16": per})
-        return want
     cap = stencil2d.max_fused_sweeps(kind)
-    want.update({f"stencil2d_{kind}_bf16":
-                     per * (-(-cfg.nu1 // cap) + -(-cfg.nu2 // cap)),
-                 "transfer2d_residual_restrict_bf16": per,
-                 "transfer2d_prolong_add_bf16": per})
+    want = {"stencil2d_residual_bf16": iters + 1}
+    sweeps = 0
+    if cfg.nu1 <= fused2d.max_down_sweeps(kind):
+        want["fused2d_down_bf16"] = per
+    else:
+        sweeps += -(-cfg.nu1 // cap)
+        want["transfer2d_residual_restrict_bf16"] = per
+    if cfg.nu2 <= fused2d.max_up_sweeps(kind):
+        want["fused2d_up_bf16"] = per
+    else:
+        sweeps += -(-cfg.nu2 // cap)
+        want["transfer2d_prolong_add_bf16"] = per
+    if sweeps:
+        want[f"stencil2d_{kind}_bf16"] = per * sweeps
     return want
 
 
@@ -4624,13 +4649,18 @@ def paths_bf16_solves(runs: dict) -> None:
             bf16_replay(label, card, cpu, b, apart)
         require_counts(label, counts,
                        **bf16_solve_counts(label, card, res.iters))
-        # The RB-GS sweeps and the residual restriction run the row streams'
-        # entry points, one launch a call, and native_bf16.cu's sweeps (a
-        # launch a colour a sweep) never.
+        # The RB-GS and Jacobi sweeps and the residual restriction run the
+        # row streams' entry points, the prolongation-add the block kernel's,
+        # one launch a call, and native_bf16.cu's sweeps (a launch a colour
+        # or a sweep) never.
         streams = {"mg_stencil2d_sweep_native_bf16":
                        counts["stencil2d_rbgs_bf16"],
+                   "mg_stencil2d_jacobi_native_bf16":
+                       counts["stencil2d_jacobi_bf16"],
                    "mg_native2d_residual_restrict_bf16":
                        counts["transfer2d_residual_restrict_bf16"],
+                   "mg_transfer2d_prolong_add_native_bf16":
+                       counts["transfer2d_prolong_add_bf16"],
                    "mg_native2d_sweep_bf16": 0}
         log(f"  entry points {label}: {entries}")
         require({k: entries.get(k, 0) for k in streams} == streams,
@@ -7122,14 +7152,20 @@ def timed_native_legs(times: dict) -> None:
     against its plain version in turns (single calls), as LEG_CHAIN chained
     calls and by the profiler's device time a call: the rows at 2047^2, and
     at every fused level of the k=11 solve (times["native_leg_levels"]) the
-    legs, the transfers and the whole grid's native RB-GS sweep stream at
-    NATIVE_RBGS_TIMED (the nu of bf16_rbgs45's launches). Bounds: the
-    inputs read once and the outputs written once in bfloat16, or the
-    operations (NATIVE_OPS a sweep, NATIVE_RR_OPS, NATIVE_PA_OPS a fine
-    point) at the float32 rate.
+    legs, the transfers and the whole grid's native sweep streams, RB-GS at
+    NATIVE_RBGS_TIMED (the nu of bf16_rbgs45's launches) and Jacobi at
+    NATIVE_JACOBI_TIMED (bf16_jacobi88's). Bounds: the inputs read once and
+    the outputs written once in bfloat16, or the operations (NATIVE_OPS a
+    sweep, NATIVE_RR_OPS, NATIVE_PA_OPS a fine point) at the float32 rate.
     No single PyTorch call computes these functions with every operation
-    rounded to bfloat16: library_ms null."""
-    from multigridcmt_tpu_torch.utils.profiling import chained_ms
+    rounded to bfloat16: library_ms null, but for the prolongation-add's
+    yardstick, x + F.interpolate(e, bilinear, aligned corners) in bfloat16
+    (the float32 row's call pair, which rounds elsewhere: its relative
+    difference from the kernel logged, not gated)."""
+    import torch.nn.functional as F
+
+    from multigridcmt_tpu_torch.utils.profiling import (chained_ms,
+                                                       cuda_time_ms)
 
     nu = 2
     levels = {}
@@ -7152,13 +7188,15 @@ def timed_native_legs(times: dict) -> None:
             "transfer2d_prolong_add_bf16": (nbytes(x, e, x),
                                             NATIVE_PA_OPS * n * n, "rbgs",
                                             0)})
-        for sweeps in NATIVE_RBGS_TIMED:
-            cases[f"stencil2d_rbgs_bf16 nu={sweeps}"] = (
-                nbytes(u, b, u), NATIVE_OPS["rbgs"] * sweeps * n * n, "rbgs",
-                sweeps)
+        for kind, timed in (("rbgs", NATIVE_RBGS_TIMED),
+                            ("jacobi", NATIVE_JACOBI_TIMED)):
+            for sweeps in timed:
+                cases[f"stencil2d_{kind}_bf16 nu={sweeps}"] = (
+                    nbytes(u, b, u), NATIVE_OPS[kind] * sweeps * n * n,
+                    kind, sweeps)
         for name, (nb, flops, kind, sweeps) in cases.items():
             if name.startswith("stencil2d"):
-                kernel, plain = native_stencil_calls("rbgs", u, b, n, 0.0,
+                kernel, plain = native_stencil_calls(kind, u, b, n, 0.0,
                                                      sweeps)
             else:
                 kernel, plain = native_leg_calls(name, u, b, x, e, n, 0.0,
@@ -7172,6 +7210,20 @@ def timed_native_legs(times: dict) -> None:
                                    "operation rounded to bfloat16",
                    **{k: pair[k] for k in ("device_note",) if k in pair}}
             row["chained_ms"] = row["ms"]
+            if name == "transfer2d_prolong_add_bf16":
+                def lib():
+                    return x + F.interpolate(
+                        e[None, None], size=(n + 2, n + 2), mode="bilinear",
+                        align_corners=True)[0, 0]
+
+                row["library_ms"] = cuda_time_ms(lib)
+                lib_rel = rel_err(lib().float(), kernel().float())[1]
+                row["library_note"] = (
+                    "x + F.interpolate(e, bilinear, align_corners) in "
+                    "bfloat16: a yardstick, not bit-equal (relative "
+                    f"difference from the kernel {lib_rel:.1e})")
+                log(f"  {name} n={n} library {row['library_ms']:.4f} ms; "
+                    f"{row['library_note']}")
             bound = max(nb / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
             log(f"native {name} n={n} nu={sweeps}: chained x{LEG_CHAIN} "
                 f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, "
@@ -7185,7 +7237,9 @@ def timed_native_legs(times: dict) -> None:
                 "chained_ms": row["chained_ms"],
                 "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": bound,
-                **{k: row[k] for k in ("device_note",) if k in row}}
+                **{k: row[k] for k in ("device_note",) if k in row},
+                **({"library_ms": row["library_ms"]}
+                   if row["library_ms"] is not None else {})}
         del u, b, x, e, rc
     times["native_leg_levels"] = levels
     torch.cuda.empty_cache()

@@ -159,10 +159,11 @@ SIGNATURES["mg_spmv_dia_bf16"] = SIGNATURES["mg_spmv_dia_f32"]
 # The native residual restriction of transfer2d (the row stream,
 # csrc/transfer2d_native_bf16.cu): u, b, rc, n, inv_h2, geometry (the
 # zero-sweep fused2d.leg_geometry("down", ...)), stream; its
-# prolongation-add (csrc/native_bf16.cu): x, e, out, n, stream.
+# prolongation-add (csrc/transfer2d_prolong_native_bf16.cu): x, e, out, n,
+# stream.
 SIGNATURES["mg_native2d_residual_restrict_bf16"] = [_P, _P, _P, _I, _D, _IP,
                                                     _P]
-SIGNATURES["mg_native2d_prolong_add_bf16"] = [_P, _P, _P, _I, _P]
+SIGNATURES["mg_transfer2d_prolong_add_native_bf16"] = [_P, _P, _P, _I, _P]
 # The native fused2d legs (the row stream, csrc/fused2d_native_bf16.cu and
 # fused2d_up_native_bf16.cu): u, b, u_out, rc, n, h2, inv_h2, sigma,
 # inv_den, coef (native_bf16.constants), kind, sweeps, geometry
@@ -172,12 +173,14 @@ SIGNATURES["mg_fused2d_down_native_bf16"] = [_P] * 4 + [_I] + [_D] * 5 + [
     _I, _I, _IP, _P]
 SIGNATURES["mg_fused2d_up_native_bf16"] = SIGNATURES[
     "mg_fused2d_down_native_bf16"]
-# The native RB-GS sweeps of a whole grid (the row stream,
-# csrc/stencil2d_sweep_native_bf16.cu): u, b, out, n, h2, inv_h2, sigma,
-# inv_den, coef, sweeps, geometry (fused2d.leg_geometry("sweep", ...)),
-# stream.
+# The native RB-GS and Jacobi sweeps of a whole grid (the row stream,
+# csrc/stencil2d_sweep_native_bf16.cu and stencil2d_jacobi_native_bf16.cu):
+# u, b, out, n, h2, inv_h2, sigma, inv_den, coef, sweeps, geometry
+# (fused2d.leg_geometry("sweep", ...)), stream.
 SIGNATURES["mg_stencil2d_sweep_native_bf16"] = [_P] * 3 + [_I] + [_D] * 5 + [
     _I, _IP, _P]
+SIGNATURES["mg_stencil2d_jacobi_native_bf16"] = SIGNATURES[
+    "mg_stencil2d_sweep_native_bf16"]
 
 # Kind codes shared with csrc/common.cuh.
 KIND_CODES = {"jacobi": 0, "rbgs": 1}

@@ -1,24 +1,20 @@
-// The native bfloat16 modes of the 2D stencil kernels and the
-// prolongation-add: the residual, the RB-GS sweeps of a shard's tile, the
-// Jacobi sweeps and x + P e on bfloat16 grids, every operation rounded to
-// bfloat16 as the JAX package computes them (kernels/native_bf16.py states
-// the rule and the order). The row stream runs the other native modes: the
-// fused2d legs (fused2d_native_bf16.cu), a whole grid's RB-GS sweeps
-// (stencil2d_sweep_native_bf16.cu) and the residual restriction
-// (transfer2d_native_bf16.cu).
+// The native bfloat16 modes of the 2D stencil kernels that still take a
+// thread a point: the residual and the RB-GS and Jacobi sweeps of a shard's
+// tile on bfloat16 grids, every operation rounded to bfloat16 as the JAX
+// package computes them (kernels/native_bf16.py states the rule and the
+// order). The row stream runs the other native modes: the fused2d legs
+// (fused2d_native_bf16.cu), a whole grid's RB-GS and Jacobi sweeps
+// (stencil2d_sweep_native_bf16.cu, stencil2d_jacobi_native_bf16.cu) and the
+// residual restriction (transfer2d_native_bf16.cu); the prolongation-add
+// has a block kernel of its own (transfer2d_prolong_native_bf16.cu).
 //
 // Replaces the bfloat16 modes of the TPU kernels
-//   multigridcmt_tpu/kernels/stencil2d.py: residual (:304), jacobi_sweep
-//     (:295)
+//   multigridcmt_tpu/kernels/stencil2d.py: residual (:304)
 //   multigridcmt_tpu/kernels/local2d.py: rbgs_sweep (:263), jacobi_sweep
 //     (:278), residual (:289)
 // -> native2d_residual (native_residual_kernel) and native2d_sweep
 // (native_rbgs_kernel, native_jacobi_kernel). A whole (n+2)^2 grid is the
-// tile at global (0, 0) (its RB-GS sweeps run the stream). And
-//   multigridcmt_tpu/kernels/transfer2d.py: prolong_add (:204)
-// -> native2d_prolong_add (native_prolong_kernel: transfer2d interpolates
-// columns first, then rows). The TPU kernel's interpolation matrices only
-// pick points or average two (an odd point is 0.5 a + 0.5 b, rounded once).
+// tile at global (0, 0) (its sweeps run the stream).
 //
 // Arithmetic: each + - x of the source is one float32 operation with its
 // rounding mode explicit (__fadd_rn, __fsub_rn, __fmul_rn: nvcc contracts
@@ -40,10 +36,8 @@
 // nu (RB-GS) or nu (Jacobi) passes where the row-streaming sweeps
 // (packed2d_legs.cuh) make one. Of what is left here a bfloat16 solve
 // (config.dtype bfloat16, kernels on) runs the residual (its convergence
-// check) and the prolongation-add (a thread a fine point, on its composed
-// RB-GS legs, whose sweeps and restriction run the stream); the Jacobi
-// sweeps and a tile's sweeps run on no path (direct calls) and are the next
-// to move onto the stream, the prolongation-add after them.
+// check); a tile's sweeps run on no path (direct calls) and are the next
+// to move onto the stream (UTile with Nb), the residual after them.
 #include "common.cuh"
 
 namespace {
@@ -149,43 +143,6 @@ native_jacobi_kernel(const bf16* __restrict__ src,
   }
 }
 
-// 0.5 a + 0.5 b in float32 (both products exact), rounded to bfloat16 once.
-__device__ __forceinline__ float average(float a, float b) {
-  return rnd(__fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, b)));
-}
-
-// (P e) at fine (i, j) of the coarse e (pitch Cc): fine 2I takes coarse I,
-// an odd fine point the average of its two neighbours; columns first (over
-// columns at the one or two coarse rows), then rows, as transfer2d.
-__device__ __forceinline__ float interpolate(const bf16* e, int Cc, int i,
-                                             int j) {
-  auto at = [&](int I, int J) {
-    return ld(e + static_cast<size_t>(I) * Cc + J);
-  };
-  auto col = [&](int I) {
-    return (j & 1) ? average(at(I, j / 2), at(I, j / 2 + 1)) : at(I, j / 2);
-  };
-  return (i & 1) ? average(col(i / 2), col(i / 2 + 1)) : col(i / 2);
-}
-
-// out = x + P e on the fine interior, x elsewhere; a thread a fine point.
-__global__ void __launch_bounds__(BX * BY)
-native_prolong_kernel(const bf16* __restrict__ x,
-                      const bf16* __restrict__ e, bf16* __restrict__ out,
-                      int n) {
-  const int C = n + 2, Cc = (n - 1) / 2 + 2;
-  const int j = blockIdx.x * BX + threadIdx.x;
-  const int i = blockIdx.y * BY + threadIdx.y;
-  if (i >= C || j >= C) return;
-  const size_t k = static_cast<size_t>(i) * C + j;
-  if (i >= 1 && i <= n && j >= 1 && j <= n) {
-    out[k] = __float2bfloat16_rn(
-        add(ld(x + k), interpolate(e, Cc, i, j)));
-  } else {
-    out[k] = x[k];
-  }
-}
-
 dim3 grid_of(const mg::Rect& a) {
   return dim3((a.C + BX - 1) / BX, (a.R + BY - 1) / BY);
 }
@@ -244,18 +201,6 @@ int mg_native2d_sweep_bf16(const void* u, const void* b, void* out,
     if (err) return err;
   }
   return 0;
-}
-
-// x, out: (n+2)^2 fine grids; e: the ((n-1)/2 + 2)^2 coarse grid.
-int mg_native2d_prolong_add_bf16(const void* x, const void* e, void* out,
-                                 int n, void* stream) {
-  const int C = n + 2;
-  const dim3 grid((C + BX - 1) / BX, (C + BY - 1) / BY);
-  native_prolong_kernel<<<grid, dim3(BX, BY), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(e),
-      static_cast<bf16*>(out), n);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

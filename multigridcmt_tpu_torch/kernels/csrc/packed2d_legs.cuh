@@ -20,8 +20,9 @@
 // plocal2d_legs_bf16.cu and plocal2d_up_bf16_f32.cu the tile legs so (S =
 // T everywhere else); fused2d_native_bf16.cu and fused2d_up_native_bf16.cu
 // the native bfloat16 legs (T = Nb, below), stencil2d_sweep_native_bf16.cu
-// the native RB-GS sweeps and transfer2d_native_bf16.cu the native
-// residual restriction on the unpacked grid. packed2d.cu's note says what
+// and stencil2d_jacobi_native_bf16.cu the native RB-GS and Jacobi sweeps
+// and transfer2d_native_bf16.cu the native residual restriction on the
+// unpacked grid. packed2d.cu's note says what
 // they replace and how they work; plocal2d.cu's what the tile frame adds,
 // fused2d.cu's what the unpacked one does, local2d_legs.cu's how the
 // unpacked tile joins the two, packed2d_sweep.cu's what the sweeps do,
@@ -176,8 +177,9 @@ __device__ __forceinline__ T side_of(T v, int p) {
 // ---------------------------------------------------------------------------
 // The native bfloat16 arithmetic (T = Nb: the fused2d legs' native mode,
 // fused2d_native_bf16.cu and fused2d_up_native_bf16.cu, the sweeps' and the
-// residual restriction's, stencil2d_sweep_native_bf16.cu and
-// transfer2d_native_bf16.cu, on the unpacked frame with bfloat16 storage): the
+// residual restriction's, stencil2d_sweep_native_bf16.cu,
+// stencil2d_jacobi_native_bf16.cu and transfer2d_native_bf16.cu, on the
+// unpacked frame with bfloat16 storage): the
 // TPU kernels' own bfloat16 mode, every operation rounded to bfloat16
 // (kernels/native_bf16.py states the rule and JAX's order). An Nb is a bfloat16
 // value held in a float; each + - x is one float32 operation with its rounding
@@ -241,6 +243,37 @@ inline mg::Coef<Nb> native_coef(double h2, double inv_h2, double sig,
                       Nb(static_cast<float>(sig)),
                       Nb(static_cast<float>(inv_den)),
                       Nb(static_cast<float>(coef))};
+}
+
+// Two Nb values in one word of two bfloat16, lo in the low half (their
+// floats' high halves: one byte permute), and back.
+__device__ __forceinline__ unsigned nb_pair(Nb lo, Nb hi) {
+  return __byte_perm(__float_as_uint(lo.f), __float_as_uint(hi.f), 0x7632);
+}
+__device__ __forceinline__ Nb nb_low(unsigned w) { return Nb(mg::low_f(w)); }
+__device__ __forceinline__ Nb nb_high(unsigned w) { return Nb(mg::high_f(w)); }
+
+// + - x of two pairs of bfloat16 in one sm_90 bfloat16x2 instruction, each
+// half the exact result rounded once to bfloat16, to nearest even: the
+// bits of the Nb operation on each half (Nb's float32 step before its
+// rounding changes nothing, 24 >= 2 * 8 + 2), without the conversion that
+// Nb's rounding issues (a cvt, on a pipe of an eighth of the float32
+// adds' rate on an H100, which bounded the native Jacobi stream; PERF.md).
+// Explicit .rn: no contraction into an FMA.
+__device__ __forceinline__ unsigned bf2_add(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned bf2_sub(unsigned a, unsigned b) {
+  unsigned d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned bf2_mul(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 // The per-warp position of a leg's unit and its fixed tests.
@@ -384,6 +417,44 @@ __device__ __forceinline__ T jacobi_step(T x, T r, const mg::Coef<T>& cf) {
   }
 }
 
+// One native Jacobi stage on row slot s, both points of a lane at once:
+// colour c at phase p_c = (c + p0) & 1 (p0: colour 0's, a constant once
+// the stages are unrolled), its residual and step (residual_of,
+// jacobi_step on Nb: u + coef r, r = (b - au) + sig u, au = ((((4 u - up)
+// - down) - left) - right) * inv_h2) computed on the word of the two
+// colours' values, each operation one bfloat16x2 instruction. The window
+// keeps Nb values: the operands are paired (a byte permute each), the
+// result split.
+__device__ __forceinline__ void jacobi_pair(const Nb (&src)[2][kWin],
+                                            const Nb (&B)[2][kWin],
+                                            Nb (&out)[2][kWin], int p0, int s,
+                                            int sm, int sp, bool live,
+                                            const Unit<Unpacked>& w,
+                                            const mg::Coef<Nb>& cf) {
+  const int p1 = 1 - p0;
+  // Colour c's neighbours in its row are the other colour's points: mid
+  // (the lane's own) and side (the shuffled one).
+  const Nb side0 = side_of(src[1][s], p0);
+  const Nb side1 = side_of(src[0][s], p1);
+  const unsigned x = nb_pair(src[0][s], src[1][s]);
+  const unsigned left = nb_pair(p0 ? src[1][s] : side0,
+                                p1 ? src[0][s] : side1);
+  const unsigned right = nb_pair(p0 ? side0 : src[1][s],
+                                 p1 ? side1 : src[0][s]);
+  const unsigned four = nb_pair(Nb(4.0f), Nb(4.0f));
+  unsigned t = bf2_mul(four, x);
+  t = bf2_sub(t, nb_pair(src[1][sm], src[0][sm]));
+  t = bf2_sub(t, nb_pair(src[1][sp], src[0][sp]));
+  t = bf2_sub(t, left);
+  t = bf2_sub(t, right);
+  t = bf2_mul(t, nb_pair(cf.inv_h2, cf.inv_h2));
+  unsigned r = bf2_sub(nb_pair(B[0][s], B[1][s]), t);
+  r = bf2_add(r, bf2_mul(nb_pair(cf.sig, cf.sig), x));
+  const unsigned y = bf2_add(x, bf2_mul(nb_pair(cf.jscale, cf.jscale), r));
+  out[0][s] = live && w.upd[p0] ? nb_low(y) : src[0][s];
+  out[1][s] = live && w.upd[p1] ? nb_high(y) : src[1][s];
+}
+
 // The smoothing stages of one step. In step t (row t loaded, v = t - ys
 // mod kWin, so that every window slot below is a compile-time constant and
 // the rows' parities are v's: ys is even) stage k works on row t - 1 - k,
@@ -399,8 +470,11 @@ __device__ __forceinline__ T jacobi_step(T x, T r, const mg::Coef<T>& cf) {
 // stage or store of the unit reads), so that a stage's window holds only
 // the 3 rows the next stage reads: skipping the write would keep the slot's
 // row of kWin steps before live, all kWin rows of every stage (at K = 8
-// in float32 that took 255 registers and spilled; PERF.md).
-template <typename T, int KIND, int K, int v, bool EDGE, class Fr>
+// in float32 that took 255 registers and spilled; PERF.md). PAIRED (the
+// native Jacobi sweep stream, T = Nb) runs a Jacobi stage's two points as
+// pairs of bfloat16 (jacobi_pair): the same operations, order and bits.
+template <typename T, int KIND, int K, int v, bool EDGE, class Fr,
+          bool PAIRED = false>
 __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
                                             const T (&B)[2][kWin],
                                             T (&J)[K > 0 ? K : 1][2][kWin],
@@ -422,6 +496,9 @@ __device__ __forceinline__ void smooth_step(T (&U)[2][kWin],
       const T side = side_of(mid, p);
       const T nv = gs_value<Fr>(B[c][s], U[o][sm], U[o][sp], mid, side, p, cf);
       if (w.upd[p]) U[c][s] = nv;
+    } else if constexpr (PAIRED) {
+      T(&src)[2][kWin] = k == 0 ? U : J[k > 0 ? k - 1 : 0];
+      jacobi_pair(src, B, J[k], (v - 1 - k) & 1, s, sm, sp, live, w, cf);
     } else {
       T(&src)[2][kWin] = k == 0 ? U : J[k > 0 ? k - 1 : 0];
 #pragma unroll
@@ -1232,7 +1309,7 @@ __device__ __forceinline__ auto coarse_word(const C* __restrict__ e, int I,
 // float; else all T). The native mode (T Nb; S, O and e's type C bfloat16)
 // interpolates in JAX's order (average) and rounds x + P e.
 template <typename T, int KIND, int K, bool PACKED_E, bool PROLONG, class Fr,
-          typename S = T, typename O = S, typename C = T>
+          typename S = T, typename O = S, typename C = T, bool PAIRED = false>
 __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
                                           const C* __restrict__ e,
                                           const S* __restrict__ b,
@@ -1338,7 +1415,7 @@ __device__ __forceinline__ void up_stream(const S* __restrict__ xin,
         }
       }
 
-      smooth_step<T, KIND, K, v, EDGE>(U, B, J, t, w, cf);
+      smooth_step<T, KIND, K, v, EDGE, Fr, PAIRED>(U, B, J, t, w, cf);
 
       const int i = t - OUT;
       constexpr int so = (v - OUT) & (kWin - 1);

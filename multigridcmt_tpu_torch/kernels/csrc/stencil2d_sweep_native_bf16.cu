@@ -12,8 +12,9 @@
 // on a whole (n+2)^2 grid (kernels/native_bf16.py states the rule and
 // JAX's order): red, then black points take ((((h2 b + up) + down) + left)
 // + right) * inv_den, each operation rounded; the ghosts keep u's values.
-// The Jacobi kind and a shard's tile at an offset (local2d) keep
-// native_bf16.cu's launches.
+// The Jacobi kind runs the same stream from its own file
+// (stencil2d_jacobi_native_bf16.cu); a shard's tile at an offset (local2d)
+// keeps native_bf16.cu's launches.
 //
 // What bounds it on the card: device-memory traffic (u and b read once, u'
 // written once: 6 bytes a point, 0.0075 ms at 2047^2 on an H100), or the

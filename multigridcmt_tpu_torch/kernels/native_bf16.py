@@ -11,14 +11,17 @@ Replace the bfloat16 modes of the TPU kernels
 ``multigridcmt_tpu/kernels/local2d.py`` (``rbgs_sweep`` :263,
 ``jacobi_sweep`` :278, ``residual`` :289) and
 ``multigridcmt_tpu/kernels/transfer2d.py`` (``prolong_add`` :204,
-``residual_restrict`` :371) with ``csrc/native_bf16.cu``, and those of
+``residual_restrict`` :371): the residual and a shard's tile's sweeps
+with ``csrc/native_bf16.cu`` (a thread a point), the prolongation-add
+with ``csrc/transfer2d_prolong_native_bf16.cu`` (a thread a word of
+two fine rows); those of
 ``multigridcmt_tpu/kernels/fused2d.py`` (``smooth_residual_restrict``
 :289, ``prolong_add_smooth`` :479) with the row stream's native mode
 (``csrc/fused2d_native_bf16.cu``, ``fused2d_up_native_bf16.cu``); a whole
-grid's RB-GS sweeps and the residual restriction run the row stream too
-(``csrc/stencil2d_sweep_native_bf16.cu``,
-``csrc/transfer2d_native_bf16.cu``); the notes there say how each is built
-and what bounds it. The stencil2d and
+grid's RB-GS and Jacobi sweeps and the residual restriction run the row
+stream too (``csrc/stencil2d_sweep_native_bf16.cu``,
+``stencil2d_jacobi_native_bf16.cu``, ``transfer2d_native_bf16.cu``); the
+notes there say how each is built and what bounds it. The stencil2d and
 local2d wrappers call ``residual`` and ``sweep`` below for a bfloat16
 grid, transfer2d's ``residual_restrict`` and ``prolong_add``, fused2d's
 ``down_leg`` and ``up_leg``; a whole (n+2)^2 grid is the tile at global
@@ -48,7 +51,7 @@ computed in double) is rounded to bfloat16 where it meets one; every + - x
 The fused legs compose these: the down leg's sweeps, then the restriction
 with sig u (``down_leg``); the up leg's prolongation-add (rows first), then
 its sweeps (``up_leg``); on the card each is one launch of the row stream,
-and so are a whole grid's RB-GS sweeps and transfer2d's restriction.
+and so are a whole grid's sweeps and transfer2d's restriction.
 The JAX kernels hold on finite inputs; a NaN or Inf inside their selection
 dots spreads over a row or block (0 * Inf), which these modes do not copy:
 their plain versions define the port's semantics there.
@@ -178,18 +181,18 @@ def sweep(kind: str, u, b, n: int, h: float, omega: float, sweeps: int,
           row_off: int = 0, col_off: int = 0, sigma=0.0) -> tuple:
     """``sweeps`` native RB-GS or Jacobi sweeps of bfloat16 u and b
     (checked by the caller) on the tile at global (row_off, col_off);
-    returns (u', launched). RB-GS on a whole (n+2)^2 grid is one launch of
-    the row stream (``csrc/stencil2d_sweep_native_bf16.cu``, on
-    ``fused2d``'s sweep geometry); elsewhere ``csrc/native_bf16.cu`` runs
+    returns (u', launched). On a whole (n+2)^2 grid either kind is one
+    launch of the row stream (``csrc/stencil2d_sweep_native_bf16.cu``,
+    ``csrc/stencil2d_jacobi_native_bf16.cu``, on ``fused2d``'s sweep
+    geometry); on a shard's tile at an offset ``csrc/native_bf16.cu`` runs
     one launch a colour a sweep (RB-GS, the first one reading u, the rest in
     place on u') or one a sweep (Jacobi, alternating u' and a scratch grid
     so that the last lands in u')."""
     c = constants(float(h), float(sigma), float(omega))
     if not on_cuda(u):
         return sweep_plain(kind, u, b, n, c, sweeps, row_off, col_off), False
-    if kind == "rbgs" and (row_off, col_off) == (0, 0) and tuple(
-            u.shape) == (n + 2, n + 2):
-        return _sweep_stream(u, b, n, c, sweeps), True
+    if (row_off, col_off) == (0, 0) and tuple(u.shape) == (n + 2, n + 2):
+        return _sweep_stream(kind, u, b, n, c, sweeps), True
     out = torch.empty_like(u)
     tmp = (torch.empty_like(u) if kind == "jacobi" and sweeps > 1
            else out)
@@ -200,16 +203,22 @@ def sweep(kind: str, u, b, n: int, h: float, omega: float, sweeps: int,
     return out, True
 
 
-def _sweep_stream(u, b, n: int, c: Constants, sweeps: int) -> torch.Tensor:
-    """The native RB-GS sweeps of a whole grid on the card: one launch of
-    the row stream."""
+# The row stream's entry point of each kind on a whole grid.
+_SWEEP_STREAMS = {"rbgs": "stencil2d_sweep_native",
+                  "jacobi": "stencil2d_jacobi_native"}
+
+
+def _sweep_stream(kind: str, u, b, n: int, c: Constants,
+                  sweeps: int) -> torch.Tensor:
+    """The native sweeps of a whole grid on the card: one launch of the row
+    stream, no scratch grid."""
     from . import fused2d
 
     u, b = fused2d._on_pair(u), fused2d._on_pair(b)
     out = torch.empty_like(u)
-    launch_on(u, "stencil2d_sweep_native", u.data_ptr(), b.data_ptr(),
+    launch_on(u, _SWEEP_STREAMS[kind], u.data_ptr(), b.data_ptr(),
               out.data_ptr(), n, *c, sweeps,
-              fused2d._launch_geometry("sweep", n, "rbgs", sweeps, u),
+              fused2d._launch_geometry("sweep", n, kind, sweeps, u),
               writes=(out,))
     return out
 
@@ -285,12 +294,18 @@ def residual_restrict(u, b, n: int, h: float) -> tuple:
 
 def prolong_add(x, e, n: int, nc: int) -> tuple:
     """transfer2d's native x + P e (columns first) of bfloat16 x and e
-    (checked by the caller); returns (out, launched)."""
+    (checked by the caller), on the card in one launch of
+    ``csrc/transfer2d_prolong_native_bf16.cu`` (a thread a word of two
+    fine rows, on arrays that start on a 4-byte word); returns (out,
+    launched)."""
+    from . import fused2d
+
     if not on_cuda(x):
         return prolong_add_plain(x, e, n, nc, False), False
+    x, e = fused2d._on_pair(x), fused2d._on_pair(e)
     out = torch.empty_like(x)
-    launch_on(x, "native2d_prolong_add", x.data_ptr(), e.data_ptr(),
-              out.data_ptr(), n, writes=(out,))
+    launch_on(x, "transfer2d_prolong_add_native", x.data_ptr(),
+              e.data_ptr(), out.data_ptr(), n, writes=(out,))
     return out, True
 
 

@@ -21,12 +21,14 @@ on what bounds them):
 Native bfloat16 (the TPU kernels' own mode on bfloat16 grids: every
 operation rounded to bfloat16, sigma and the constants too): the three
 take bfloat16 u and b and run ``native_bf16``'s plain versions or its
-kernels, counted apart: the RB-GS sweeps one launch of the row stream with
-the native arithmetic (``csrc/stencil2d_sweep_native_bf16.cu``, on the
-float sweeps' geometry), the residual and the Jacobi sweeps
-``csrc/native_bf16.cu``. A bfloat16 solve runs the residual and the RB-GS
-sweeps on its kernel-tier levels (the convergence check, the sweeps of a
-leg that does not fuse).
+kernels, counted apart: the RB-GS and the Jacobi sweeps one launch of the
+row stream with the native arithmetic
+(``csrc/stencil2d_sweep_native_bf16.cu``,
+``csrc/stencil2d_jacobi_native_bf16.cu``, on the float sweeps' geometry),
+the residual ``csrc/native_bf16.cu``. A bfloat16 solve runs the residual
+and the sweeps on its kernel-tier levels (the convergence check, the
+sweeps of a leg that does not fuse: RB-GS V(4,5)'s both legs, Jacobi
+V(8,8)'s down leg).
 
 Device rule (``_wrap``): a CPU tensor takes the plain PyTorch version; a
 CUDA tensor launches the kernel or raises.

@@ -23,7 +23,8 @@ solve's composed legs: every operation rounded to bfloat16):
 ``native_bf16.residual_restrict`` (no shift term; one launch of the row
 stream above with the native arithmetic, ``csrc/transfer2d_native_bf16.cu``)
 and ``prolong_add`` (P e by columns first, then rows, as the TPU kernel
-interpolates; one launch of ``csrc/native_bf16.cu``), counted apart.
+interpolates; one launch of ``csrc/transfer2d_prolong_native_bf16.cu``, a
+thread a word of two fine rows), counted apart.
 """
 from __future__ import annotations
 

@@ -5,12 +5,12 @@ the residual norms) and those of the files that hold or sit beside a
 native bfloat16 mode (the stencil2d and local2d residuals and sweeps, the
 DIA SpMV, every row-streaming leg of packed2d_legs.cuh) against other
 trees' builds, bit for bit, and time them in turns, on one CUDA card; and
-the native bfloat16 fused2d legs, whole-grid RB-GS sweeps and residual
-restriction (the row stream) against the first other tree's native
-launches.
+the native bfloat16 fused2d legs, whole-grid RB-GS and Jacobi sweeps and
+residual restriction (the row stream) and prolongation-add (a block
+kernel) against the first other tree's native launches.
 
     python -m multigridcmt_tpu_torch.utils.bf16_kernels OTHER [OTHER ...] \\
-        [--json PATH] [--steps 2,3,4,5,6,7]
+        [--json PATH] [--steps 2,3,4,5,6,7,8]
 
 Each OTHER is the root of another checkout of the repository (the parent
 commit unpacked with ``git archive`` into the git-ignored
@@ -95,6 +95,17 @@ tree's. Then:
    launches through ctypes with its own argument types: bit for bit at nu
    = 1 .. 4, sigma 0 and 11.5, then in turns at sigma 0 (nu = 4 and 1)
    as step 6 times the legs.
+8. The native bfloat16 Jacobi sweeps of a whole grid and the native
+   prolongation-add at the same levels: this tree's Jacobi sweep stream
+   and block kernel (one launch each, through the wrappers) and, where
+   the first OTHER launches them from native_bf16.cu
+   (native_jacobi_kernel, a launch a sweep; native_prolong_kernel, a
+   thread a fine point), that tree's launches through ctypes with its own
+   argument types: bit for bit at nu = 1 .. 8, sigma 0 and 11.5, then in
+   turns at sigma 0 (nu = 8 and 1; the prolongation-add beside its
+   yardstick, x + F.interpolate(e, bilinear, aligned corners) in
+   bfloat16, whose relative difference is logged) as step 6 times the
+   legs.
 
 ``--steps`` picks the steps after step 1 (the ptxas comparison, which
 always runs); the default runs them all.
@@ -129,6 +140,7 @@ from multigridcmt_tpu_torch.utils.breakdown import device_busy
 from multigridcmt_tpu_torch.utils.profiling import chained_ms
 
 KERNEL = re.compile(r"(native_residual_restrict_kernel|native_sweep_kernel|"
+                    r"native_jacobi_sweep_kernel|native_prolong_add_kernel|"
                     r"native_residual_kernel|native_rbgs_kernel|"
                     r"native_jacobi_kernel|native_restrict_kernel|"
                     r"native_prolong_kernel|native_down_kernel|"
@@ -989,11 +1001,119 @@ def native_streams(libs: dict, first: str) -> tuple:
     return times, checks, fails
 
 
+# Step 8: the C argument types of the first OTHER's native prolongation-add
+# when it launches it from csrc/native_bf16.cu (a thread a fine point): x,
+# e, out, n, stream; its Jacobi sweeps of a whole grid take OLD_SWEEP_TYPES
+# (a launch a sweep through a scratch grid).
+OLD_PROLONG_TYPES = [_P, _P, _P, _I, _P]
+# The native Jacobi sweeps' counts held bit for bit, and those timed
+# (bf16_jacobi88's down leg: 8).
+NATIVE_JACOBI_NUS = tuple(range(1, 9))
+NATIVE_JACOBI_TIMED = (8, 1)
+
+
+def old_jacobi_prolong(lib, what, u, b, e, n, c, sweeps=0):
+    """(fn, output) of the native Jacobi sweeps of a whole grid (``what``
+    "jacobi") or the prolongation-add ("prolong", x = u) as the tree before
+    this one's kernels launched them in ``lib``: native_bf16.cu's launch a
+    sweep (u' and a scratch grid in turns) and its thread a fine point."""
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(u)
+    if what == "jacobi":
+        f = lib.mg_native2d_sweep_bf16
+        f.argtypes, f.restype = OLD_SWEEP_TYPES, ctypes.c_int
+        tmp = torch.empty_like(u)
+        return (lambda: f(u.data_ptr(), b.data_ptr(), out.data_ptr(),
+                          tmp.data_ptr(), n + 2, n + 2, n, 0, 0, *c,
+                          _build.KIND_CODES["jacobi"], sweeps, stream)), out
+    f = lib.mg_native2d_prolong_add_bf16
+    f.argtypes, f.restype = OLD_PROLONG_TYPES, ctypes.c_int
+    return (lambda: f(u.data_ptr(), e.data_ptr(), out.data_ptr(), n,
+                      stream)), out
+
+
+def native_jacobi_prolong(libs: dict, first: str) -> tuple:
+    """(times, comparisons, failures) of step 8: this tree's native Jacobi
+    sweep stream and prolongation-add block kernel (through the wrappers)
+    against the first OTHER's launches of native_bf16.cu, where it still
+    has them, at NATIVE_NS: bit for bit (the Jacobi sweeps at every nu of
+    NATIVE_JACOBI_NUS, sigma 0 and 11.5; the prolongation-add once), then
+    in turns at sigma 0 (the sweeps at NATIVE_JACOBI_TIMED; the
+    prolongation-add, and its yardstick
+    x + F.interpolate(e, bilinear, aligned corners) in bfloat16, not
+    bit-equal: its relative difference logged): single, chained and device
+    time, beside the bound (inputs read once, outputs written once)."""
+    import torch.nn.functional as F
+
+    from multigridcmt_tpu_torch.kernels import (native_bf16, stencil2d,
+                                               transfer2d)
+    from multigridcmt_tpu_torch.utils.profiling import cuda_time_ms
+
+    other = libs[first]
+    has_old = hasattr(other, "mg_native2d_prolong_add_bf16")
+    times, checks, fails = {}, 0, []
+    for n in NATIVE_NS:
+        u, b, e = native_grids(n, 110 + n)
+        h, nc = 1.0 / (n + 1), (n - 1) // 2
+        cases = [("jacobi", nu, sigma) for nu in NATIVE_JACOBI_NUS
+                 for sigma in (0.0, SIGMA)] + [("prolong", 0, 0.0)]
+        for what, nu, sigma in cases:
+            c = native_bf16.constants(h, sigma, OMEGA2)
+            if what == "jacobi":
+                call = Replay(lambda: stencil2d.jacobi_sweep(
+                    u, b, n, h, OMEGA2, sigma=sigma, sweeps=nu), (u, b))
+            else:
+                call = Replay(lambda: transfer2d.prolong_add(u, e, n, nc),
+                              (u, e))
+            mine, = call.replay(libs["this"])
+            label = f"native {what} n={n} nu={nu} sigma={sigma}"
+            fns = {"this": call.fn(libs["this"])}
+            if has_old:
+                run, out = old_jacobi_prolong(other, what, u, b, e, n, c, nu)
+                if run():
+                    raise RuntimeError(f"{label}: {first}'s launch failed")
+                checks += 1
+                if not torch.equal(bits(mine), bits(out)):
+                    fails.append(f"bits {label}: this tree's kernel differs "
+                                 f"from {first}'s native_bf16.cu launches")
+                fns[f"{first} native_bf16.cu"] = run
+            if sigma or (what == "jacobi" and nu not in NATIVE_JACOBI_TIMED):
+                continue
+            if what == "prolong":
+                def lib():
+                    return u + F.interpolate(
+                        e[None, None], size=(n + 2, n + 2), mode="bilinear",
+                        align_corners=True)[0, 0]
+
+                got = lib()
+                fin = mine.isfinite() & got.isfinite()
+                rel = float((got.float() - mine.float())[fin].abs().max()
+                            / mine.float()[fin].abs().max())
+                fns["F.interpolate"] = lib
+            row = in_turns(fns)
+            for key, fn in list(fns.items()) + list(fns.items())[::-1]:
+                row.setdefault(f"{key} single", []).append(cuda_time_ms(fn))
+            row["bound_ms"] = call.nbytes / PEAK_BYTES_PER_S * 1e3
+            key = f"{what}@{n}" + (f" nu={nu}" if what == "jacobi" else "")
+            log(f"time native {key}: {fmt(row)}; single "
+                + ", ".join(f"{k} {v}" for k, v in row.items()
+                            if k.endswith("single"))
+                + f"; bound {row['bound_ms']:.4f}"
+                + (f"; F.interpolate relative difference {rel:.1e}"
+                   if what == "prolong" else ""))
+            if what == "prolong":
+                row["library_rel_diff"] = rel
+            times[key] = row
+        del u, b, e
+    torch.cuda.synchronize()
+    return times, checks, fails
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("others", nargs="+", type=Path)
     ap.add_argument("--json", type=Path)
-    ap.add_argument("--steps", default="2,3,4,5,6,7",
+    ap.add_argument("--steps", default="2,3,4,5,6,7,8",
                     help="the steps after the ptxas comparison to run, "
                          "comma-separated (default all)")
     opt = ap.parse_args()
@@ -1049,6 +1169,13 @@ def main() -> int:
             log(f"native sweeps and restriction: {checks} comparisons with "
                 f"{labels[0]}'s native_bf16.cu launches, {len(fails)} "
                 "differ")
+        if 8 in steps:
+            report["native_jacobi_prolong"], checks, fails = \
+                native_jacobi_prolong(libs, labels[0])
+            report["fails"] += fails
+            log(f"native Jacobi sweeps and prolongation-add: {checks} "
+                f"comparisons (with {labels[0]}'s native_bf16.cu "
+                f"launches), {len(fails)} differ")
         if 3 in steps:
             report["times"] = timed(libs, labels[0])
         if 4 in steps:

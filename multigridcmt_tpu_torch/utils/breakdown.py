@@ -94,12 +94,14 @@ With ``--dtype bfloat16``, the bfloat16 solve's cycle instead (config
 dtype bfloat16, kernels on; the default k = 11, the widest whose levels
 all stay bfloat16): the kernel route's figures as above, the device time
 of the native legs (the row stream's native_down_kernel and
-native_up_kernel), of the native RB-GS sweeps (native_sweep_kernel; a
-parent tree's native_rbgs_kernel), of the native residual restriction
-(native_residual_restrict_kernel; a parent's native_restrict_kernel) and
-of the other native bfloat16 kernels (native_bf16.cu's residual, Jacobi
-sweeps and prolongation-add), and the native launches a cycle by the
-port's counters; no per-level times.
+native_up_kernel), of the native RB-GS and Jacobi sweeps
+(native_sweep_kernel, native_jacobi_sweep_kernel; a parent tree's
+native_rbgs_kernel, native_jacobi_kernel), of the native residual
+restriction (native_residual_restrict_kernel; a parent's
+native_restrict_kernel), of the native prolongation-add
+(native_prolong_add_kernel; a parent's native_prolong_kernel) and of the
+native residual (native_bf16.cu's native_residual_kernel), and the native
+launches a cycle by the port's counters; no per-level times.
 
 Informative only: nothing is checked. Needs a CUDA device.
 """
@@ -153,18 +155,22 @@ ROUTE_KERNELS = {
     # (its shared-memory rr_kernel before it).
     "residual_restrict": re.compile(r"(?<!\w)(rr|residual_restrict)_kernel<"),
     # The bfloat16 solve's native legs on the row stream; its native RB-GS
-    # sweeps (the row stream's native_sweep_kernel, native_bf16.cu's
-    # native_rbgs_kernel before it) and residual restriction (the row
+    # and Jacobi sweeps (the row stream's native_sweep_kernel and
+    # native_jacobi_sweep_kernel, native_bf16.cu's native_rbgs_kernel and
+    # native_jacobi_kernel before them), residual restriction (the row
     # stream's native_residual_restrict_kernel, native_restrict_kernel
+    # before it) and prolongation-add (the block kernel
+    # native_prolong_add_kernel, native_bf16.cu's native_prolong_kernel
     # before it), so that the parent tree, timed in turns with this tool,
-    # reads the same groups; native_bf16.cu's other one-thread-a-point
-    # kernels.
+    # reads the same groups; native_bf16.cu's residual.
     "native legs": re.compile(r"(?<!\w)native_(down|up)_kernel<"),
-    "native sweeps": re.compile(r"(?<!\w)native_(sweep|rbgs)_kernel"),
+    "native sweeps": re.compile(
+        r"(?<!\w)native_(sweep|rbgs|jacobi_sweep|jacobi)_kernel"),
     "native restriction": re.compile(
         r"(?<!\w)native_(residual_restrict|restrict)_kernel"),
-    "native kernels": re.compile(
-        r"(?<!\w)native_(residual|jacobi|prolong)_kernel"),
+    "native prolongation": re.compile(
+        r"(?<!\w)native_prolong(_add)?_kernel"),
+    "native kernels": re.compile(r"(?<!\w)native_residual_kernel"),
 }
 # The native bfloat16 launch counters a bfloat16 cycle reads (module,
 # counter).

@@ -169,9 +169,13 @@ def test_build_keys_output_by_source_hash():
     assert {"mg_fused2d_down_native_bf16",
             "mg_fused2d_up_native_bf16"} <= set(_build.SIGNATURES)
     assert {"stencil2d_sweep_native_bf16.cu",
-            "transfer2d_native_bf16.cu"} <= names
+            "stencil2d_jacobi_native_bf16.cu", "transfer2d_native_bf16.cu",
+            "transfer2d_prolong_native_bf16.cu"} <= names
     assert {"mg_stencil2d_sweep_native_bf16",
-            "mg_native2d_residual_restrict_bf16"} <= set(_build.SIGNATURES)
+            "mg_stencil2d_jacobi_native_bf16",
+            "mg_native2d_residual_restrict_bf16",
+            "mg_transfer2d_prolong_add_native_bf16"} <= set(
+        _build.SIGNATURES)
     assert (_build.SIGNATURES["mg_spmv_dia_bf16"]
             == _build.SIGNATURES["mg_spmv_dia_f32"])
 
@@ -1282,9 +1286,10 @@ def test_chip_smoke_lists_the_cdt_bf16_modes():
 def test_chip_smoke_lists_the_native_bf16_modes():
     """The native bfloat16 modes of slice B1, each launched once by its
     direct run: the stencil2d and local2d residuals and sweeps (from
-    csrc/native_bf16.cu; a whole grid's RB-GS sweeps from the row stream's
-    csrc/stencil2d_sweep_native_bf16.cu) and the DIA SpMV (csrc/spmv.cu),
-    each with its TPU function, counted apart from its float twin."""
+    csrc/native_bf16.cu; a whole grid's RB-GS and Jacobi sweeps from the row
+    stream's csrc/stencil2d_sweep_native_bf16.cu and
+    stencil2d_jacobi_native_bf16.cu) and the DIA SpMV (csrc/spmv.cu), each
+    with its TPU function, counted apart from its float twin."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -1303,6 +1308,9 @@ def test_chip_smoke_lists_the_native_bf16_modes():
     want["stencil2d_rbgs_bf16"] = ("stencil2d", "rbgs_bf16_launches",
                                    src + "stencil2d_sweep_native_bf16.cu",
                                    tpu + "stencil2d.py:284", None)
+    want["stencil2d_jacobi_bf16"] = ("stencil2d", "jacobi_bf16_launches",
+                                     src + "stencil2d_jacobi_native_bf16.cu",
+                                     tpu + "stencil2d.py:295", None)
     want["spmv_dia_bf16"] = ("spmv", "bf16_launches", src + "spmv.cu",
                              tpu + "spmv.py:254", None)
     assert {name: smoke.KERNELS[name] for name in want} == want
@@ -1318,11 +1326,11 @@ def test_chip_smoke_lists_the_native_bf16_modes():
 def test_chip_smoke_lists_the_native_b2_modes():
     """The last native bfloat16 modes (the fused2d legs and the transfer2d
     residual restriction, from the row stream's native sources, and the
-    prolongation-add, from csrc/native_bf16.cu), each with its TPU function
-    and a counter of its own, run on the bfloat16 solves of phase 3, which
-    are main-path runs (their launches summed over MAIN_RUNS)."""
+    prolongation-add, from its block kernel's
+    csrc/transfer2d_prolong_native_bf16.cu), each with its TPU function and
+    a counter of its own, run on the bfloat16 solves of phase 3, which are
+    main-path runs (their launches summed over MAIN_RUNS)."""
     csrc = "multigridcmt_tpu_torch/kernels/csrc/"
-    src = csrc + "native_bf16.cu"
     tpu = "multigridcmt_tpu/kernels/"
     want = {
         "fused2d_down_bf16": ("fused2d", "down_bf16_launches",
@@ -1336,7 +1344,8 @@ def test_chip_smoke_lists_the_native_b2_modes():
             csrc + "transfer2d_native_bf16.cu", tpu + "transfer2d.py:371",
             None),
         "transfer2d_prolong_add_bf16": (
-            "transfer2d", "prolong_add_bf16_launches", src,
+            "transfer2d", "prolong_add_bf16_launches",
+            csrc + "transfer2d_prolong_native_bf16.cu",
             tpu + "transfer2d.py:204", None)}
     import importlib.util
 

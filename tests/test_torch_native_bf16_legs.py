@@ -289,20 +289,29 @@ def test_norm_matches_jax():
     assert parted > 0
 
 
-@pytest.mark.parametrize("smoother,iters,hist", [
-    ("jacobi", 3, [1.0, 27.5, 36.75, 44.25]),
-    ("rbgs", 6, [1.0, 32.5, 52.75, 38.5, 34.5, 55.0, 132.0])])
-def test_bf16_solve_matches_jax(smoother, iters, hist):
+@pytest.mark.parametrize("smoother,schedule,iters,hist", [
+    pytest.param("jacobi", {}, 3, [1.0, 27.5, 36.75, 44.25],
+                 id="jacobi-3-hist0"),
+    pytest.param("rbgs", {}, 6, [1.0, 32.5, 52.75, 38.5, 34.5, 55.0, 132.0],
+                 id="rbgs-6-hist1"),
+    pytest.param("jacobi", {"nu1": 8, "nu2": 8}, 18,
+                 [1.0, 28.125, 51.75, 36.5, 33.25, 42.5, 37.0, 48.25, 32.5,
+                  48.5, 22.75, 46.75, 17.375, 29.0, 47.5, 20.0, 28.5, 27.75,
+                  30.625], id="jacobi-V(8,8)-18")])
+def test_bf16_solve_matches_jax(smoother, schedule, iters, hist):
     """poisson(ndim=2, k=8, bfloat16) on the kernel route (the fused legs
     at 255, the aligned-layout stencils below) equals JAX's use_pallas
-    solve bit for bit: iterations, history and x. Both diverge (the
+    solve bit for bit: iterations, history and x. Jacobi V(8,8) composes
+    its down leg at 255 in both packages (8 sweeps pass the fused down
+    leg's cap of 6: the whole grid's native Jacobi sweeps, then the
+    residual restriction) and fuses its up leg. Each diverges (the
     bfloat16 residual cannot fall at this h), JAX's result as much as the
-    port's."""
+    port's; the iterations and histories are JAX's run's."""
     jp = mj.poisson2d(k=8, dtype=jnp.bfloat16, smoother=smoother,
-                      use_pallas=True)
+                      use_pallas=True, **schedule)
     jr = mj.MultigridSolver(jp).solve()
     p = mt.poisson2d(k=8, dtype=torch.bfloat16, smoother=smoother,
-                     use_kernels=True, device="cpu")
+                     use_kernels=True, device="cpu", **schedule)
     before = _counts()
     r = mt.MultigridSolver(p).solve()
     assert _counts() == before

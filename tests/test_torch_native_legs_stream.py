@@ -176,12 +176,14 @@ def test_breakdown_groups_take_the_native_legs_and_the_chain():
     """utils/breakdown.py's kernel groups, on kernel names as the profiler
     gives them: "native legs" takes the row stream's native_down_kernel
     and native_up_kernel and no float leg group does; "native sweeps" the
-    stream's native_sweep_kernel and native_bf16.cu's native_rbgs_kernel,
-    "native restriction" the stream's native_residual_restrict_kernel and
-    native_bf16.cu's native_restrict_kernel (so that a parent tree, timed
-    in turns with this tool, reads the same groups), and "native kernels"
-    native_bf16.cu's other kernels, the chain that ran the legs before the
-    row stream among them."""
+    stream's native_sweep_kernel (RB-GS) and native_jacobi_sweep_kernel and
+    native_bf16.cu's native_rbgs_kernel and native_jacobi_kernel, "native
+    restriction" the stream's native_residual_restrict_kernel and
+    native_bf16.cu's native_restrict_kernel, "native prolongation" the block
+    kernel native_prolong_add_kernel and native_bf16.cu's
+    native_prolong_kernel (so that a parent tree, timed in turns with this
+    tool, reads the same groups), and "native kernels" native_bf16.cu's
+    residual."""
     from multigridcmt_tpu_torch.utils.breakdown import (ROUTE_KERNELS,
                                                        SHARDED_KERNELS)
 
@@ -198,21 +200,29 @@ def test_breakdown_groups_take_the_native_legs_and_the_chain():
                     f"{bf} const*, {bf} const*, {bf}*, {bf}*, {ns}Unpacked, "
                     f"mg::Coef<{ns}Nb>, {ns}LegGeom)")
             assert groups(name) == {"native legs"}
-    for stages in (2, 8):
-        name = (f"void {ns}native_sweep_kernel<{stages}>({bf} const*, "
+    for kernel, stages in (("native_sweep_kernel", 2),
+                           ("native_sweep_kernel", 8),
+                           ("native_jacobi_sweep_kernel", 1),
+                           ("native_jacobi_sweep_kernel", 8)):
+        name = (f"void {ns}{kernel}<{stages}>({bf} const*, "
                 f"{bf} const*, {bf}*, {ns}Unpacked, mg::Coef<{ns}Nb>, "
                 f"{ns}LegGeom)")
         assert groups(name) == {"native sweeps"}
     assert groups(f"{ns}native_residual_restrict_kernel({bf} const*, "
                   f"{bf} const*, {bf}*, {ns}Unpacked, mg::Coef<{ns}Nb>, "
                   f"{ns}LegGeom)") == {"native restriction"}
+    for cols in (1, 2):
+        assert groups(f"void {ns}native_prolong_add_kernel<{cols}>({bf} "
+                      f"const*, {bf} const*, {bf}*, int, int)") == {
+            "native prolongation"}
     for name, group in (("native_rbgs_kernel", "native sweeps"),
-                        ("native_jacobi_kernel", "native kernels"),
+                        ("native_jacobi_kernel", "native sweeps"),
                         ("native_residual_kernel", "native kernels"),
                         ("native_restrict_kernel<true>",
                          "native restriction"),
-                        ("native_prolong_kernel<true>", "native kernels"),
+                        ("native_prolong_kernel<true>",
+                         "native prolongation"),
                         ("native_restrict_kernel", "native restriction"),
-                        ("native_prolong_kernel", "native kernels")):
+                        ("native_prolong_kernel", "native prolongation")):
         assert groups(f"void {ns}{name}({bf} const*, {bf} const*, {bf}*, "
                       "int)") == {group}

@@ -39,6 +39,10 @@ SIGMAS = (0.0, 11.5)
 # segments of 64 rows (several strips and segments, steady chunks).
 SIZES = {7: None, 31: 10, 255: 64}
 NUS = (1, 2, 3, 4)
+# The Jacobi stream: every nu up to the sweep stream's cap at 7 and 31, the
+# cap alone at 255; omega as the bfloat16 solves' Jacobi levels take it.
+JACOBI_NUS = tuple(range(1, stencil2d.max_fused_sweeps("jacobi") + 1))
+OMEGA = {"rbgs": 1.0, "jacobi": 0.8}
 
 
 def _padded(rng, n, scale=1.0):
@@ -53,12 +57,12 @@ def _inputs(n, seed):
     return _padded(rng, n), _padded(rng, n, float((n + 1) ** 2))
 
 
-def _geometry(leg, n, sweeps):
+def _geometry(leg, n, sweeps, kind="rbgs"):
     seg = SIZES[n]
     with pytest.MonkeyPatch.context() as mp:
         if seg is not None:
             mp.setattr(fused2d, "MIN_SEG", seg)
-        g = fused2d.leg_geometry(leg, n, "rbgs", sweeps)
+        g = fused2d.leg_geometry(leg, n, kind, sweeps)
     assert seg is None or g.seg == seg
     return g
 
@@ -74,16 +78,17 @@ def _same_bits(got: np.ndarray, want: torch.Tensor) -> None:
     assert np.array_equal(g.view(np.uint32)[~nan], w.view(np.uint32)[~nan])
 
 
-def _sweep(u, b, n, sigma, nu):
-    """(emulated stream, plain version) of nu native RB-GS sweeps."""
+def _sweep(u, b, n, sigma, nu, kind="rbgs"):
+    """(emulated stream, plain version) of nu native sweeps of ``kind``."""
     h = 1.0 / (n + 1)
-    g = _geometry("sweep", n, nu)
+    omega = OMEGA[kind]
+    g = _geometry("sweep", n, nu, kind)
     with np.errstate(invalid="ignore", over="ignore"):
-        got = _emulate_leg(g, "rbgs", nu, u, b, h, sigma, 1.0,
+        got = _emulate_leg(g, kind, nu, u, b, h, sigma, omega,
                            frame=LegFrame.whole(n, unpacked=True),
                            native=True)
-    c = native_bf16.constants(h, sigma)
-    want = native_bf16.sweep_plain("rbgs", torch.from_numpy(u).bfloat16(),
+    c = native_bf16.constants(h, sigma, omega)
+    want = native_bf16.sweep_plain(kind, torch.from_numpy(u).bfloat16(),
                                    torch.from_numpy(b).bfloat16(), n, c, nu)
     return got, want
 
@@ -108,6 +113,17 @@ def _restrict(u, b, n):
 def test_native_sweep_stream_equals_plain(n, nu, sigma):
     u, b = _inputs(n, 9000 + 10 * n + nu)
     _same_bits(*_sweep(u, b, n, sigma, nu))
+
+
+@pytest.mark.parametrize("n,nu,sigma", [
+    (n, nu, sigma) for n in (7, 31) for nu in JACOBI_NUS for sigma in SIGMAS]
+    + [(255, JACOBI_NUS[-1], sigma) for sigma in SIGMAS])
+def test_native_jacobi_stream_equals_plain(n, nu, sigma):
+    """The Jacobi kind of the sweep stream (T = Nb, K = nu stages, each
+    reading the last one's window) equals nu plain native Jacobi sweeps, bit
+    for bit."""
+    u, b = _inputs(n, 9200 + 10 * n + nu)
+    _same_bits(*_sweep(u, b, n, sigma, nu, "jacobi"))
 
 
 @pytest.mark.parametrize("n", list(SIZES))
@@ -168,15 +184,26 @@ def test_native_restrict_stream_drops_the_shift(case):
         assert native_bf16._residual_vals(tu, tb, ct, True)[i, j].isnan()
 
 
+def _nonfinite_sweep(kind, sigma, nu):
+    n = 31
+    u, b = _nonfinite_inputs(n)
+    got, want = _sweep(u, b, n, sigma, nu, kind)
+    assert np.isnan(got).any()
+    _same_bits(got, want)
+
+
 @pytest.mark.parametrize("sigma", SIGMAS)
 def test_native_sweep_stream_nonfinite(sigma):
     """NaN and +-Inf in u spread through the stencil as in the plain
     version: NaN exactly where it has NaN, every other bit equal."""
-    n, nu = 31, 4
-    u, b = _nonfinite_inputs(n)
-    got, want = _sweep(u, b, n, sigma, nu)
-    assert np.isnan(got).any()
-    _same_bits(got, want)
+    _nonfinite_sweep("rbgs", sigma, 4)
+
+
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_native_jacobi_stream_nonfinite(sigma):
+    """The Jacobi kind at its cap on the same inputs: NaN exactly where the
+    plain version has NaN, every other bit equal."""
+    _nonfinite_sweep("jacobi", sigma, JACOBI_NUS[-1])
 
 
 def test_native_stream_cases_exercise_the_stream():
@@ -212,6 +239,7 @@ def _fake_card(monkeypatch):
     for mod, name in ((stencil2d, "rbgs_bf16_launches"),
                       (stencil2d, "jacobi_bf16_launches"),
                       (local2d, "rbgs_bf16_launches"),
+                      (local2d, "jacobi_bf16_launches"),
                       (transfer2d, "residual_restrict_bf16_launches")):
         monkeypatch.setattr(mod, name, 0)
     return calls
@@ -261,15 +289,37 @@ def test_native_residual_restrict_launches_the_stream(monkeypatch):
 
 
 def test_native_jacobi_and_tiles_keep_their_kernels(monkeypatch):
-    """The Jacobi sweeps of a whole grid and the RB-GS sweeps of a shard's
-    tile at an offset still launch native2d_sweep (csrc/native_bf16.cu)."""
+    """The Jacobi sweeps of a whole grid (stencil2d's, and local2d's handed
+    a whole grid at (0, 0)) are one launch each of the Jacobi stream's entry
+    point with the host's constants and fused2d's Jacobi sweep geometry, on
+    arrays that start on a 4-byte pair, and allocate no scratch grid; the
+    RB-GS and Jacobi sweeps of a shard's tile at an offset still launch
+    native2d_sweep (csrc/native_bf16.cu)."""
     calls = _fake_card(monkeypatch)
-    n, h = 31, 1.0 / 32
-    u = torch.zeros((n + 2, n + 2), dtype=torch.bfloat16)
-    stencil2d.jacobi_sweep(u, u.clone(), n, h, 0.8, sweeps=2)
+    allocs = []
+    empty_like = torch.empty_like
+    monkeypatch.setattr(native_bf16.torch, "empty_like",
+                        lambda t: allocs.append(t.shape) or empty_like(t))
+    n, h, sigma = 31, 1.0 / 32, 11.5
+    u = _off_pair(n)
+    stencil2d.jacobi_sweep(u, u.clone(), n, h, 0.8, sigma=sigma, sweeps=8)
+    local2d.jacobi_sweep(u.clone(), u.clone(), n, h, 0.8, 0, 0, sweeps=3)
+    assert allocs == [(n + 2, n + 2)] * 2          # u' alone, no scratch
     ue = torch.zeros((24, n + 2), dtype=torch.bfloat16)
     local2d.rbgs_sweep(ue, ue.clone(), n, h, -7, 0, sweeps=3)
-    assert [k for k, *_ in calls] == ["native2d_sweep"] * 2
-    assert calls[1][1][4:9] == (24, n + 2, n, -7, 0)
-    assert (stencil2d.jacobi_bf16_launches, local2d.rbgs_bf16_launches,
-            stencil2d.rbgs_bf16_launches) == (1, 1, 0)
+    local2d.jacobi_sweep(ue, ue.clone(), n, h, 0.8, -7, 0, sweeps=3)
+    assert [k for k, *_ in calls] == ["stencil2d_jacobi_native"] * 2 + [
+        "native2d_sweep"] * 2
+    (_, args, writes) = calls[0]
+    assert all(p % 4 == 0 for p in args[:3]) and u.data_ptr() not in args
+    assert args[3:] == (n, *native_bf16.constants(h, sigma, 0.8), 8,
+                        fused2d.leg_geometry("sweep", n, "jacobi", 8).ints())
+    assert [w.dtype for w in writes] == [torch.bfloat16]
+    assert calls[1][1][3:] == (n, *native_bf16.constants(h, 0.0, 0.8), 3,
+                               fused2d.leg_geometry("sweep", n, "jacobi",
+                                                    3).ints())
+    assert calls[2][1][4:9] == (24, n + 2, n, -7, 0)
+    assert calls[3][1][4:9] == (24, n + 2, n, -7, 0)
+    assert (stencil2d.jacobi_bf16_launches, local2d.jacobi_bf16_launches,
+            local2d.rbgs_bf16_launches, stencil2d.rbgs_bf16_launches) == (
+        1, 2, 1, 0)
